@@ -1,0 +1,61 @@
+"""Carry per-run state between the JAX package and this port.
+
+The system has no trained weights; what crosses over is per-run state:
+the fixed-design sufficient statistics and the posterior. Inputs are
+anything numpy can read (JAX arrays included, through np.asarray, so
+this module never imports jax); outputs are the port's tensors, and
+to_numpy goes back the other way.
+"""
+
+import numpy as np
+import torch
+
+from .inference.vb import PosteriorState, VBResult
+from .noise.white import WhiteNoiseState
+
+
+def _tensor(x, device, dtype):
+    # np.array copies: arrays exported by JAX are read-only
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+
+def design_stats_from_numpy(m0, rtqr, dtqr, device="cpu", dtype=None):
+    """The port's statistics (m0 [P,V], rtqr [1,V], dtqr [P,V]) from the
+    JAX package's single-group DesignStats fields (rtqr [1,V] or [V],
+    dtqr [1,P,V] or [P,V]) or its statistics kernel's outputs."""
+    m0 = np.asarray(m0)
+    p, nv = m0.shape
+    rtqr = np.asarray(rtqr).reshape(1, nv)
+    dtqr = np.asarray(dtqr).reshape(p, nv)
+    return tuple(_tensor(x, device, dtype) for x in (m0, rtqr, dtqr))
+
+
+def posterior_from_numpy(state, device="cpu", dtype=None):
+    """The port's posterior from the JAX package's.
+
+    state: a JAX PosteriorState (SoA planes: means [P,V], prec/cov
+    [P,P,V], prior_means/prior_prec [P,V] or [P,1], noise with .b/.c
+    [Q,V]) -> the port's PosteriorState of tensors; or a JAX VBResult
+    (voxel-major numpy arrays) -> the port's VBResult."""
+    if hasattr(state, "noise_means"):
+        return VBResult(**{f: (None if getattr(state, f, None) is None
+                               else np.asarray(getattr(state, f)))
+                           for f in VBResult._fields})
+
+    def t(x):
+        return _tensor(x, device, dtype)
+
+    noise = WhiteNoiseState(t(state.noise.b), t(state.noise.c))
+    return PosteriorState(t(state.means), t(state.prec), t(state.cov),
+                          t(state.prior_means), t(state.prior_prec), noise)
+
+
+def to_numpy(obj):
+    """Tensors -> numpy arrays, through tuples and NamedTuples
+    (PosteriorState, WhiteNoiseState, VBResult, statistics tuples)."""
+    if torch.is_tensor(obj):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, tuple):
+        vals = [to_numpy(x) for x in obj]
+        return type(obj)(*vals) if hasattr(obj, "_fields") else tuple(vals)
+    return obj

@@ -1,0 +1,2 @@
+from .base import NoiseModel, register_noise, get_noise_class, known_noise_models  # noqa: F401
+from . import white  # noqa: F401,E402

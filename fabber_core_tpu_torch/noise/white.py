@@ -1,0 +1,186 @@
+"""White-noise model, single-noise-group part, in SoA layout.
+
+Port of the part of fabber_core_tpu/noise/white.py that the spectral
+route needs: the noise pattern and masked-timepoint setup, the
+hardcoded initial distributions (noisemodel_white.cc:127-164), MVN
+(de)serialization, and make_design_stats — the sufficient statistics
+of the fixed-design route, kept as a plain function: it is the float64
+parity reference for the statistics kernel (ops/fused_spectral.py).
+
+Array shapes: data [T,V], design [T,P], noise state b/c [Q,V].
+"""
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core.dists import gamma_mean, gamma_var, gamma_from_mean_var
+from ..exceptions import FabberError, InvalidOptionValue
+from ..ops import smallmat as sm
+from ..options import OptionSpec, OPT_STR, OPT_FLOAT
+from .base import NoiseModel, register_noise
+
+
+class WhiteNoiseState(NamedTuple):
+    b: torch.Tensor  # [Q, V]
+    c: torch.Tensor  # [Q, V]
+
+
+class DesignStats(NamedTuple):
+    """Sufficient statistics for fixed-design VB, taken about a
+    per-voxel ordinary-least-squares reference point m0 so that k'Qk
+    assembles from residual-scale terms."""
+    m0: torch.Tensor    # [P,V]   OLS reference point
+    rtqr: torch.Tensor  # [Q,V]   r0' Q_i r0,  r0 = y - D m0
+    dtqr: torch.Tensor  # [Q,P,V] D' Q_i r0
+    dtqd: torch.Tensor  # [Q,P,P] D' Q_i D
+
+
+def parse_noise_pattern(pattern, nt):
+    """Expand a pattern string to a group index per timepoint.
+
+    Characters 1-9 then A-Z/a-z index phi groups from 1
+    (noisemodel_white.cc:166-201). Returns int array [nt] of 0-based
+    group ids and the number of groups.
+    """
+    if len(pattern) == 0:
+        raise InvalidOptionValue("noise-pattern", pattern, "Empty pattern")
+    if len(pattern) > nt:
+        raise InvalidOptionValue("noise-pattern", pattern,
+                                 "Pattern length exceeds data length")
+    ids = []
+    for ch in pattern:
+        if "1" <= ch <= "9":
+            n = ord(ch) - ord("0")
+        elif "A" <= ch <= "Z":
+            n = ord(ch) - ord("A") + 10
+        elif "a" <= ch <= "z":
+            n = ord(ch) - ord("a") + 10
+        else:
+            raise InvalidOptionValue("noise-pattern", ch, "Invalid character")
+        ids.append(n - 1)
+    nq = max(ids) + 1
+    full = [ids[i % len(ids)] for i in range(nt)]
+    return np.array(full, dtype=np.int32), nq
+
+
+@register_noise
+class WhiteNoiseModel(NoiseModel):
+    name = "white"
+    supports_fixed_design = True
+
+    def __init__(self, options, nt, masked_tpoints=()):
+        super().__init__(options, nt, masked_tpoints)
+        pattern = options.get_string("noise-pattern", "1")
+        group_ids, self.nphis = parse_noise_pattern(pattern, nt)
+
+        # Indicator masks Q_i [Q, T]; masked timepoints belong to no group
+        unmasked = np.ones(nt, dtype=bool)
+        for t in self.masked_tpoints:  # 1-indexed
+            unmasked[t - 1] = False
+        self.qmasks = np.zeros((self.nphis, nt))
+        for t in range(nt):
+            if unmasked[t]:
+                self.qmasks[group_ids[t], t] = 1.0
+        self.ntimes_per_group = self.qmasks.sum(axis=1)  # Qi.Trace()
+
+        self.locked_noise_stdev = options.get_float("locked-noise-stdev", -1.0)
+        self.phiprior = options.get_float("prior-noise-stddev", -1.0)
+        if self.phiprior < 0 and self.phiprior != -1:
+            raise InvalidOptionValue("prior-noise-stddev", self.phiprior, "Must be > 0")
+
+    @classmethod
+    def get_options(cls):
+        return [
+            OptionSpec("noise-pattern", OPT_STR,
+                       "Repeating pattern of noise variances for each point "
+                       "(e.g. 12 gives odd/even different variances)", default="1"),
+            OptionSpec("locked-noise-stdev", OPT_FLOAT,
+                       "Fix noise std dev to this value", default="-1"),
+            OptionSpec("prior-noise-stddev", OPT_FLOAT,
+                       "Prior noise std dev", default="-1"),
+        ]
+
+    @property
+    def num_params(self):
+        return self.nphis
+
+    # -- state ------------------------------------------------------------
+    def initial_state(self, nvoxels, dtype, device="cpu"):
+        """Hardcoded initial dists (noisemodel_white.cc:127-164). The
+        prior is voxel-uniform: a [Q,1] plane that broadcasts."""
+        if self.phiprior == -1:
+            prior_b, prior_c = 1e6, 1e-6
+            # tiny initial noise precision helps (reference's observation)
+            post_b, post_c = 1e-8, 50.0
+        else:
+            prior_c = post_c = 0.5
+            prior_b = post_b = 1.0 / (self.phiprior ** 2 * prior_c)
+
+        def full(shape, val):
+            return torch.full(shape, val, dtype=dtype, device=device)
+
+        prior = WhiteNoiseState(full((self.nphis, 1), prior_b),
+                                full((self.nphis, 1), prior_c))
+        shape = (self.nphis, nvoxels)
+        return prior, WhiteNoiseState(full(shape, post_b), full(shape, post_c))
+
+    def state_to_mvn(self, state):
+        """-> (means [V,Q], cov [V,Q,Q]) numpy, for serialization."""
+        b = np.asarray(state.b.cpu() if torch.is_tensor(state.b) else state.b)
+        c = np.asarray(state.c.cpu() if torch.is_tensor(state.c) else state.c)
+        means = gamma_mean(b, c).T
+        var = gamma_var(b, c).T
+        v, q = means.shape
+        cov = np.zeros((v, q, q), means.dtype)
+        cov[:, np.arange(q), np.arange(q)] = var
+        return means, cov
+
+    def state_from_mvn(self, means, cov):
+        cov = np.asarray(cov)
+        offdiag = cov - np.einsum("vij,ij->vij", cov,
+                                  np.eye(cov.shape[-1]))
+        if cov.shape[-1] > 1 and np.any(offdiag != 0.0):
+            raise FabberError("Phis should have zero covariance!")
+        var = np.diagonal(cov, axis1=-2, axis2=-1)
+        b, c = gamma_from_mean_var(np.asarray(means).T, var.T)
+        return WhiteNoiseState(torch.as_tensor(b), torch.as_tensor(c))
+
+    # -- sufficient-statistics route (fixed design) -------------------------
+    def make_design_stats(self, design, data):
+        """One-time reductions for the fixed-design route.
+
+        design [T,P], data [T,V] tensors -> DesignStats, computed in
+        the promoted dtype of data and float32 (float64 data stays
+        float64: the parity reference for the statistics kernel).
+        """
+        dtype = torch.promote_types(data.dtype, torch.float32)
+        dev = data.device
+        data = data.to(dtype)
+        design = design.to(device=dev)
+        q = torch.as_tensor(self.qmasks, dtype=dtype, device=dev)  # [Q,T]
+        dtqd = torch.einsum("it,tp,tq->ipq", q.to(design.dtype), design,
+                            design)
+
+        # OLS reference point over unmasked timepoints; lanes where the
+        # normal matrix fails to factor fall back to m0 = 0 (raw
+        # expansion — still correct, just less cancellation headroom)
+        w = torch.sum(q, dim=0)  # [T] 0/1
+        dty = (design * w[:, None].to(design.dtype)).T @ data  # [P,V]
+        chol, ok = sm.cholesky_jittered(torch.sum(dtqd, dim=0)[:, :, None])
+        m0 = sm.solve_chol_vec(chol, dty)
+        keep = ok & torch.all(torch.isfinite(m0), dim=0)
+        m0 = torch.where(keep, m0, torch.zeros_like(m0))
+
+        r0 = data - design @ m0  # [T,V]
+        ones_mask = [bool(np.all(self.qmasks[i] == 1.0))
+                     for i in range(self.nphis)]
+        rtqr = torch.stack([
+            torch.sum(r0 * r0 if ones_mask[i]
+                      else q[i][:, None] * r0 * r0, dim=0)
+            for i in range(self.nphis)])
+        dtqr = torch.stack([
+            design.T @ (r0 if ones_mask[i] else q[i][:, None] * r0)
+            for i in range(self.nphis)])
+        return DesignStats(m0=m0, rtqr=rtqr, dtqr=dtqr, dtqd=dtqd)

@@ -1,0 +1,294 @@
+"""Whole-program spectral route: the statistics kernel and the
+eigenbasis core kernel, each with its plain-torch version.
+
+Port of the split form of fabber_core_tpu/ops/fused_spectral.py. Two
+hand-written CUDA kernels for Hopper (csrc/spectral_stats.cu,
+csrc/spectral_core.cu) carry the route:
+
+  spectral_stats  reads the [T,V] data once per pass and writes the
+                  single-group sufficient statistics m0 [P,V],
+                  rtqr [1,V], dtqr [P,V] (replaces
+                  make_spectral_stats_kernel);
+  spectral_core   rotates them into the whitened design eigenbasis,
+                  runs the n_iters-1 scalar-rational noise updates and
+                  rebuilds means [P,V], prec/cov [P,P,V] and the noise
+                  b, c, the per-voxel free energy F and tr [1,V]
+                  (replaces make_spectral_core_kernel, maxits mode).
+
+Each wrapper takes its plain version only for tensors on the CPU; for a
+CUDA tensor it launches the kernel or raises. Each keeps an integer
+``launches`` count of kernel launches (never of plain calls).
+
+Constant layout (host-built in float64, cast once):
+  pack_mxu_consts     [2P+1, T] device rows: raw design D (P rows),
+                      mask-weighted design DW = D*q (P rows), q (1 row)
+  pack_solve_consts   [P*P] host vector, A = D'QD (f64 -> f32: the
+                      in-kernel Cholesky sees the rounding the stats
+                      see, fused_spectral.py:39-41 of the JAX package)
+  pack_spectral_consts [4P^2+2P+6] host vector: A, E'W, E'W^-1, WE,
+                      lam, pp, then 1/b0, c_post, b_init, c_init,
+                      f_const, lb_coeff (same order as the JAX block)
+The TPU forms' ROWS-replicated [K*8,1] columns, the K=8 MXU operand
+padding and the 128-padded time axis existed only for Mosaic and are
+gone. The host vectors ride into the kernels as by-value parameters
+(constant memory), so they stay on the CPU.
+"""
+
+import numpy as np
+import torch
+
+from . import smallmat as sm
+from .spectral import spectral_basis
+
+# largest parameter count the kernels are instantiated for
+# (template<int P>, P = 1..8); the engine's route gate enforces it
+MAX_P = 8
+
+
+def _design_q(design, qmask, nt):
+    d = np.asarray(design, np.float64)[:nt]
+    q = np.asarray(qmask, np.float64).reshape(-1)[:nt]
+    return d, q
+
+
+def pack_mxu_consts(design, qmask, nt, dtype, device="cpu"):
+    """[2P+1, T] per-timepoint rows for the stats kernel: D' (P rows),
+    (D*q)' (P rows), q (1 row)."""
+    d, q = _design_q(design, qmask, nt)
+    rows = np.concatenate([d.T, (d * q[:, None]).T, q[None, :]])
+    return torch.as_tensor(np.ascontiguousarray(rows), dtype=dtype,
+                           device=device)
+
+
+def pack_solve_consts(design, qmask, nt, dtype):
+    """[P*P] host vector A = D'QD for the in-kernel m0 solve."""
+    d, q = _design_q(design, qmask, nt)
+    a = (d * q[:, None]).T @ d
+    return torch.as_tensor(a.reshape(-1), dtype=dtype)
+
+
+def pack_spectral_consts(design, qmask, nt, pp, inv_b0, c_post,
+                         init_b, init_c, dtype, elbo_extra=(0.0, 0.0)):
+    """[4P^2+2P+6] host vector of the core kernel's scalar constants:
+    A (P*P), etw / etwi / ew (P*P each), lam (P), pp (P), then inv_b0,
+    c_post, b_init, c_init, then the eigenbasis-ELBO constant pair
+    (f_const, lb_coeff) for the in-kernel F output."""
+    d, q = _design_q(design, qmask, nt)
+    a, lam, ew, winv = spectral_basis(d, q, pp)
+    e = ew / winv[:, None]
+    etw = ew.T                       # applies E' W
+    etwi = (e / winv[:, None]).T     # applies E' W^-1
+    flat = np.concatenate([
+        a.reshape(-1), etw.reshape(-1), etwi.reshape(-1), ew.reshape(-1),
+        lam, np.asarray(pp, np.float64).reshape(-1),
+        [float(inv_b0), float(c_post), float(init_b), float(init_c)],
+        list(elbo_extra)])
+    return torch.as_tensor(flat, dtype=dtype)
+
+
+def _nparams_from_solve(aconsts):
+    p = int(round(aconsts.numel() ** 0.5))
+    if p * p != aconsts.numel():
+        raise ValueError(f"aconsts has {aconsts.numel()} entries, not P*P")
+    return p
+
+
+def _nparams_from_core(consts):
+    n = consts.numel()
+    for p in range(1, 64):
+        if 4 * p * p + 2 * p + 6 == n:
+            return p
+    raise ValueError(f"consts has {n} entries, not 4P^2+2P+6")
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: dtype-generic, any P, any device. The CPU path of the
+# wrappers and the reference each kernel is held against on the card.
+# ---------------------------------------------------------------------------
+
+def spectral_stats_plain(data, tconsts, aconsts):
+    """Plain torch: data [T,V], tconsts [2P+1,T], aconsts [P*P] ->
+    (m0 [P,V], rtqr [1,V], dtqr [P,V]) in data's dtype."""
+    p = _nparams_from_solve(aconsts)
+    dt, dev = data.dtype, data.device
+    tc = tconsts.to(device=dev, dtype=dt)
+    dcol, dw, q = tc[:p], tc[p:2 * p], tc[2 * p:]
+    dty = dw @ data                                          # [P,V]
+    a = aconsts.to(device=dev, dtype=dt).reshape(p, p, 1)
+    m0 = sm.solve_chol_vec(sm.cholesky_planes(a), dty)
+    ok = torch.all(torch.isfinite(m0), dim=0)
+    m0 = torch.where(ok, m0, torch.zeros_like(m0))
+    r0 = data - dcol.T @ m0                                  # [T,V]
+    rtqr = q @ (r0 * r0)                                     # [1,V]
+    dtqr = dw @ r0
+    return m0, rtqr, dtqr
+
+
+def spectral_core_plain(m0, rtqr, dtqr, pm, consts, n_iters):
+    """Plain torch, same algebra and operation order as the kernel:
+    m0/dtqr/pm [P,V], rtqr [1,V], consts [4P^2+2P+6] ->
+    (means [P,V], prec [P,P,V], cov [P,P,V], b, c, f, tr [1,V])."""
+    p = _nparams_from_core(consts)
+    k = consts.to(m0.dtype).tolist()      # values rounded to the dtype
+
+    def A(i, j):
+        return k[i * p + j]
+
+    def ETW(i, a):
+        return k[p * p + i * p + a]
+
+    def ETWI(i, a):
+        return k[2 * p * p + i * p + a]
+
+    def EW(a, i):
+        return k[3 * p * p + a * p + i]
+
+    lam = k[4 * p * p:4 * p * p + p]
+    pp = k[4 * p * p + p:4 * p * p + 2 * p]
+    inv_b0, c_post, b_init, c_init, f_const, lb_coeff = k[4 * p * p + 2 * p:]
+
+    m0 = list(m0)
+    dtqr = list(dtqr)
+    pm = list(pm)
+    rtqr = rtqr[0]
+    dtqy = [dtqr[a] + sum(A(a, j) * m0[j] for j in range(p))
+            for a in range(p)]
+    ut = [sum(ETW(i, a) * dtqy[a] for a in range(p)) for i in range(p)]
+    u0t = [sum(ETW(i, a) * dtqr[a] for a in range(p)) for i in range(p)]
+    vt = [sum(ETW(i, a) * (pp[a] * pm[a]) for a in range(p))
+          for i in range(p)]
+    m0t = [sum(ETWI(i, a) * m0[a] for a in range(p)) for i in range(p)]
+
+    def quadratics(s):
+        cross = quad = tr = 0.0
+        mt, rden = [], []
+        for i in range(p):
+            rd = 1.0 / (s * lam[i] + 1.0)
+            mt_i = (s * ut[i] + vt[i]) * rd
+            d_ = mt_i - m0t[i]
+            cross = cross + d_ * u0t[i]
+            quad = quad + lam[i] * d_ * d_
+            tr = tr + lam[i] * rd
+            mt.append(mt_i)
+            rden.append(rd)
+        return mt, cross, quad, tr, rden
+
+    s = torch.full_like(rtqr, b_init) * c_init     # s0, rounded as b*c
+    for _ in range(n_iters - 1):
+        _, cross, quad, tr, _ = quadratics(s)
+        kqk = torch.clamp(rtqr - 2.0 * cross + quad, min=0.0)
+        s = 1.0 / ((kqk + tr) * 0.5 + inv_b0) * c_post
+
+    # reconstruction from the phi that generated the last posterior
+    mt, cross, quad, tr, rden = quadratics(s)
+    kqk = torch.clamp(rtqr - 2.0 * cross + quad, min=0.0)
+    b = 1.0 / ((kqk + tr) * 0.5 + inv_b0)
+    means = torch.stack([sum(EW(a, i) * mt[i] for i in range(p))
+                         for a in range(p)])
+    cov = torch.stack([torch.stack([
+        sum(EW(i, kk) * EW(j, kk) * rden[kk] for kk in range(p))
+        for j in range(p)]) for i in range(p)])
+    prec = torch.stack([torch.stack([
+        s * A(i, j) + (pp[i] if i == j else 0.0)
+        for j in range(p)]) for i in range(p)])
+    logden = rdensum = mv2 = 0.0
+    for i in range(p):
+        logden = logden + torch.log(s * lam[i] + 1.0)
+        rdensum = rdensum + rden[i]
+        mv2 = mv2 + (mt[i] - vt[i]) ** 2
+    f = (f_const - 0.5 * logden + lb_coeff * torch.log(b)
+         - b * c_post * (inv_b0 + 0.5 * kqk)
+         - 0.5 * tr - 0.5 * mv2 - 0.5 * rdensum)
+    c = torch.full_like(b, c_post)
+    return (means, prec, cov, b[None], c[None], f[None], tr[None])
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(t, name, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_host(t, name, n):
+    if t.device.type != "cpu":
+        raise ValueError(f"{name} must be a host tensor: it is passed to "
+                         "the kernel by value")
+    if t.dtype != torch.float32 or t.numel() != n or not t.is_contiguous():
+        raise ValueError(f"{name} must be {n} contiguous float32 values")
+
+
+def _cuda_device(t):
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {t.device}")
+    return t.device
+
+
+def spectral_stats(data, tconsts, aconsts):
+    """One-read single-group statistics: data [T,V], tconsts [2P+1,T]
+    (pack_mxu_consts), aconsts [P*P] host (pack_solve_consts) ->
+    (m0 [P,V], rtqr [1,V], dtqr [P,V])."""
+    if data.device.type == "cpu":
+        return spectral_stats_plain(data, tconsts, aconsts)
+    dev = _cuda_device(data)
+    p = _nparams_from_solve(aconsts)
+    if not 1 <= p <= MAX_P:
+        raise ValueError(f"P={p} outside the kernel's 1..{MAX_P}")
+    nt, nv = data.shape
+    _check(data, "data", (nt, nv), dev)
+    _check(tconsts, "tconsts", (2 * p + 1, nt), dev)
+    _check_host(aconsts, "aconsts", p * p)
+    m0 = torch.empty((p, nv), dtype=torch.float32, device=dev)
+    rtqr = torch.empty((1, nv), dtype=torch.float32, device=dev)
+    dtqr = torch.empty((p, nv), dtype=torch.float32, device=dev)
+    if nv:
+        from . import _cuda
+        _cuda.launch_stats(p, data, tconsts, aconsts, m0, rtqr, dtqr)
+        spectral_stats.launches += 1
+    return m0, rtqr, dtqr
+
+
+spectral_stats.launches = 0
+
+
+def spectral_core(m0, rtqr, dtqr, pm, consts, n_iters):
+    """Eigenbasis fixed point + posterior reconstruction (maxits):
+    m0/dtqr/pm [P,V], rtqr [1,V], consts [4P^2+2P+6] host
+    (pack_spectral_consts) -> (means [P,V], prec [P,P,V], cov [P,P,V],
+    b [1,V], c [1,V], F [1,V], tr [1,V])."""
+    if n_iters < 1:
+        raise ValueError("n_iters must be >= 1")
+    if m0.device.type == "cpu":
+        return spectral_core_plain(m0, rtqr, dtqr, pm, consts, n_iters)
+    dev = _cuda_device(m0)
+    p = _nparams_from_core(consts)
+    if not 1 <= p <= MAX_P:
+        raise ValueError(f"P={p} outside the kernel's 1..{MAX_P}")
+    nv = m0.shape[-1]
+    for t, name, shape in ((m0, "m0", (p, nv)), (rtqr, "rtqr", (1, nv)),
+                           (dtqr, "dtqr", (p, nv)), (pm, "pm", (p, nv))):
+        _check(t, name, shape, dev)
+    _check_host(consts, "consts", 4 * p * p + 2 * p + 6)
+
+    def out(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    outs = (out(p, nv), out(p, p, nv), out(p, p, nv),
+            out(1, nv), out(1, nv), out(1, nv), out(1, nv))
+    if nv:
+        from . import _cuda
+        _cuda.launch_core(p, n_iters, m0, rtqr, dtqr, pm, consts, outs)
+        spectral_core.launches += 1
+    return outs
+
+
+spectral_core.launches = 0

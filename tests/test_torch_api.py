@@ -1,0 +1,147 @@
+"""The port's API, runner and CLI against the JAX package's, on the CPU:
+run_with_data returns the same output keys with matching values, and
+the CLI writes the same file set as the JAX CLI. Value tolerances are
+those of tests/test_spectral.py scaled to each output (the JAX package
+runs its XLA route here; the port its spectral route's plain torch)."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from fabber_core_tpu import cli as jcli
+from fabber_core_tpu.api import FabberTpu as JFabber
+from fabber_core_tpu.io import nifti as jnifti
+from fabber_core_tpu_torch import cli as tcli
+from fabber_core_tpu_torch.api import FabberTpu
+from fabber_core_tpu_torch.io import mvn, nifti
+
+torch.set_num_threads(1)
+
+OPTS = {"model": "poly", "degree": "2", "noise": "white", "method": "vb",
+        "max-iterations": "10", "dtype": "single", "save-mean": True,
+        "save-std": True, "save-var": True, "save-zstat": True,
+        "save-noise-mean": True, "save-noise-std": True,
+        "save-free-energy": True, "save-mvn": True,
+        "save-model-fit": True, "save-residuals": True}
+
+
+def phantom(shape=(6, 5, 4), nt=30, seed=0):
+    rng = np.random.default_rng(seed)
+    nv = int(np.prod(shape))
+    t = np.arange(1, nt + 1)
+    data = (rng.uniform(-1, 1, (nv, 1)) + rng.uniform(-.05, .05, (nv, 1)) * t
+            + 0.1 * rng.standard_normal((nv, nt)))
+    return data.reshape(shape + (nt,), order="F").astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def runs():
+    vol = phantom()
+    mask = np.ones(vol.shape[:3], np.float32)
+    mask[0, 0, 0] = 0
+    jr = JFabber().run_with_data(OPTS, {"data": vol}, mask=mask)
+    tr = FabberTpu(device="cpu").run_with_data(OPTS, {"data": vol},
+                                               mask=mask)
+    return jr.data, tr.data, mask > 0
+
+
+def test_run_with_data_keys_match_jax(runs):
+    jd, td, _ = runs
+    assert sorted(td) == sorted(jd)
+    for key in jd:
+        assert td[key].shape == jd[key].shape, key
+        assert td[key].dtype == np.float32
+
+
+def test_run_with_data_values_match_jax(runs):
+    jd, td, m = runs
+    for i in range(3):
+        sd = jd[f"std_c{i}"][m]
+        assert np.max(np.abs(td[f"mean_c{i}"][m] - jd[f"mean_c{i}"][m])
+                      / sd) < 5e-3
+        np.testing.assert_allclose(td[f"std_c{i}"], jd[f"std_c{i}"],
+                                   rtol=1e-3)
+        np.testing.assert_allclose(td[f"var_c{i}"], jd[f"var_c{i}"],
+                                   rtol=2e-3)
+        np.testing.assert_allclose(td[f"zstat_c{i}"][m],
+                                   jd[f"zstat_c{i}"][m], atol=5e-3,
+                                   rtol=5e-3)
+    for key in ("noise_means", "noise_stdevs"):
+        np.testing.assert_allclose(td[key], jd[key], rtol=1e-3)
+    np.testing.assert_allclose(td["freeEnergy"], jd["freeEnergy"],
+                               rtol=1e-3, atol=5e-3)
+    scale = np.abs(jd["modelfit"]).max()
+    for key in ("modelfit", "residuals"):
+        np.testing.assert_allclose(td[key], jd[key], atol=1e-4 * scale)
+    # the unmasked voxel is zero-filled in every output
+    for key in td:
+        assert not td[key][~m].any(), key
+
+
+def test_final_mvn_matches_jax(runs):
+    jd, td, m = runs
+    jm, jc = mvn.unpack(jd["finalMVN"][m].T)
+    tm, tc = mvn.unpack(td["finalMVN"][m].T)
+    sd = np.sqrt(np.diagonal(jc, axis1=1, axis2=2))
+    assert np.max(np.abs(tm - jm) / sd) < 5e-3
+    np.testing.assert_allclose(tc, jc, rtol=2e-3, atol=1e-7)
+
+
+def test_api_introspection():
+    fab = FabberTpu(device="cpu")
+    assert "poly" in fab.get_models()
+    assert fab.get_methods() == ["vb"]
+    assert fab.get_model_params({"model": "poly", "degree": "2"}) == \
+        ["c0", "c1", "c2"]
+    opts, _ = fab.get_options(method="vb")
+    assert "max-iterations" in {o["name"] for o in opts}
+    out = fab.model_evaluate({"model": "poly", "degree": "2"},
+                             {"c0": 1.0, "c1": 2.0, "c2": 0.5}, 4)
+    np.testing.assert_allclose(out, JFabber().model_evaluate(
+        {"model": "poly", "degree": "2"},
+        {"c0": 1.0, "c1": 2.0, "c2": 0.5}, 4))
+
+
+@pytest.mark.parametrize("method", ["nlls", "spatialvb"])
+def test_unported_methods_raise(method):
+    with pytest.raises(NotImplementedError, match=method):
+        FabberTpu(device="cpu").run_with_data(
+            {**OPTS, "method": method}, {"data": phantom((2, 2, 1))})
+
+
+def test_api_cuda_without_card_raises(monkeypatch):
+    from fabber_core_tpu_torch import FabberError
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(FabberError, match="cuda"):
+        FabberTpu().run_with_data(OPTS, {"data": phantom((2, 2, 1))})
+
+
+def test_cli_writes_same_files_as_jax(tmp_path):
+    vol = phantom((4, 4, 2), nt=15, seed=3)
+    data_f = str(tmp_path / "data.nii.gz")
+    nifti.save(nifti.NiftiImage(vol), data_f)
+    common = ["--model=poly", "--degree=2", "--method=vb", "--noise=white",
+              "--dtype=single", f"--data={data_f}"]
+    jout, tout = str(tmp_path / "jax"), str(tmp_path / "port")
+    assert jcli.execute(common + [f"--output={jout}"]) == 0
+    assert tcli.execute(common + [f"--output={tout}", "--device=cpu"]) == 0
+    assert sorted(os.listdir(tout)) == sorted(os.listdir(jout))
+    jmean = jnifti.load(os.path.join(jout, "mean_c0.nii.gz")).data
+    tmean = nifti.load(os.path.join(tout, "mean_c0.nii.gz")).data
+    jstd = jnifti.load(os.path.join(jout, "std_c0.nii.gz")).data
+    assert tmean.shape == jmean.shape
+    assert np.max(np.abs(tmean - jmean) / jstd) < 5e-3
+    with open(os.path.join(tout, "paramnames.txt")) as f:
+        assert f.read().split() == ["c0", "c1", "c2"]
+
+
+def test_cli_fast_paths(capsys):
+    assert tcli.execute(["--listmodels"]) == 0
+    assert capsys.readouterr().out.split() == ["poly"]
+    assert tcli.execute(["--listparams", "--model=poly", "--degree=1"]) == 0
+    assert capsys.readouterr().out.split() == ["c0", "c1"]
+    assert tcli.execute(["--help"]) == 0
+    assert "--device" in capsys.readouterr().out
+    assert tcli.execute(["bad"]) == 1

@@ -1,0 +1,238 @@
+"""The port's VB engine (CPU: the kernels' plain versions) against the
+JAX engine on the same data, on the JAX package's whole-program
+spectral route (interpreted Pallas, split form) and its XLA
+sufficient-statistics route, at float32, poly degree 2. Tolerances are
+those of tests/test_spectral.py (the spectral routes against XLA):
+means within 5e-3 posterior sd, cov rtol 2e-3, noise rtol 1e-3, F rtol
+1e-3 / atol 5e-3, iterations and bad voxels equal. Also: every route
+gate the port does not serve yet raises NotImplementedError.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fabber_core_tpu.inference.vb import VBInference as JVB
+from fabber_core_tpu.models import get_model_class as jmodel
+from fabber_core_tpu.options import RunOptions as JOptions
+from fabber_core_tpu_torch.convert import posterior_from_numpy, to_numpy
+from fabber_core_tpu_torch.exceptions import InvalidOptionValue
+from fabber_core_tpu_torch.inference.vb import (ROUTES, LIVE_ROUTE,
+                                                VBInference, VBResult)
+from fabber_core_tpu_torch.models import get_model_class
+from fabber_core_tpu_torch.options import RunOptions
+
+torch.set_num_threads(1)
+
+BASE = {"model": "poly", "degree": "2", "noise": "white",
+        "max-iterations": "10", "dtype": "single",
+        "print-free-energy": True}
+
+
+def make_data(nv, nt=30, seed=0):
+    rng = np.random.default_rng(seed)
+    t = np.arange(1, nt + 1)
+    c0 = rng.uniform(-1, 1, (nv, 1))
+    c1 = rng.uniform(-0.05, 0.05, (nv, 1))
+    return (c0 + c1 * t[None, :]
+            + 0.1 * rng.standard_normal((nv, nt))).astype(np.float32)
+
+
+def run_jax(data, mode, extra=None, getter=None):
+    opts = JOptions({**BASE, "engine-kernel": mode, **(extra or {})})
+    nv = data.shape[0]
+    coords = np.stack([np.arange(nv), np.zeros(nv), np.zeros(nv)], 1)
+    eng = JVB(jmodel("poly")(opts), opts, data, coords,
+              voxel_data_getter=getter)
+    if mode == "spectral-whole":
+        assert eng.use_spectral_whole and eng.sw_interpret
+    return eng.run()
+
+
+def run_port(data, extra=None, getter=None):
+    opts = RunOptions({**BASE, **(extra or {})})
+    eng = VBInference(get_model_class("poly")(opts), opts, data,
+                      voxel_data_getter=getter, device="cpu")
+    assert eng.route == LIVE_ROUTE
+    return eng.run()
+
+
+def assert_match(rx, rp):
+    sd = np.sqrt(np.diagonal(rx.cov, axis1=1, axis2=2))
+    assert np.max(np.abs(rx.means - rp.means) / sd) < 5e-3
+    np.testing.assert_allclose(rp.cov, rx.cov, rtol=2e-3, atol=1e-7)
+    np.testing.assert_allclose(rp.noise_means, rx.noise_means, rtol=1e-3)
+    np.testing.assert_allclose(rp.noise_cov, rx.noise_cov, rtol=2e-3)
+    np.testing.assert_allclose(rp.free_energy, rx.free_energy, rtol=1e-3,
+                               atol=5e-3)
+    np.testing.assert_array_equal(rp.iterations, rx.iterations)
+    np.testing.assert_array_equal(rp.bad_voxels, rx.bad_voxels)
+
+
+@pytest.mark.parametrize("mode", ["spectral-whole", "xla"])
+@pytest.mark.parametrize("nv", [256, 100])
+def test_engine_matches_jax(nv, mode):
+    data = make_data(nv)
+    assert_match(run_jax(data, mode), run_port(data))
+
+
+@pytest.mark.parametrize("mode", ["spectral-whole", "xla"])
+def test_engine_image_prior_matches_jax(mode):
+    """Voxelwise prior means (image prior on c0) reach the core."""
+    nv = 128
+    img = np.linspace(-0.5, 0.5, nv).astype(np.float32)
+    extra = {"PSP_byname1": "c0", "PSP_byname1_type": "I",
+             "PSP_byname1_image": "prior_img", "PSP_byname1_prec": "10"}
+    data = make_data(nv, seed=4)
+    assert_match(run_jax(data, mode, extra, lambda key: img),
+                 run_port(data, extra, lambda key: img))
+
+
+@pytest.mark.parametrize("mode", ["spectral-whole", "xla"])
+def test_engine_masked_timepoints_match_jax(mode):
+    extra = {"mt1": "3", "mt2": "17"}
+    data = make_data(128, seed=5)
+    assert_match(run_jax(data, mode, extra), run_port(data, extra))
+
+
+@pytest.mark.parametrize("extra", [
+    {"max-iterations": "1"}, {"prior-noise-stddev": "0.2"}, {"degree": "0"},
+    {"noise-initial-prior": "NOISE_MTX"},
+], ids=["one-iter", "phiprior", "p1", "noise-prior-file"])
+def test_engine_cases_match_jax_xla(extra, tmp_path):
+    if "noise-initial-prior" in extra:
+        # one MVN for every voxel's noise prior (inference_vb.cc:132-142)
+        from fabber_core_tpu_torch.io import mvn
+        path = str(tmp_path / "noise_prior.mtx")
+        mvn.save_matrix([2.0], [[0.5]], path)
+        extra = {"noise-initial-prior": path}
+    data = make_data(64, seed=6)
+    opts = JOptions({**BASE, "engine-kernel": "xla", **extra})
+    rx = JVB(jmodel("poly")(opts), opts, data, np.zeros((64, 3))).run()
+    assert_match(rx, run_port(data, extra))
+
+
+GATES = [
+    ({"dtype": "double"}, "xla"),
+    ({"dtype": "bf16"}, "spectral"),
+    ({"noise-pattern": "12"}, "pallas-whole"),
+    ({"locked-noise-stdev": "0.1"}, "pallas-whole"),
+    ({"engine-kernel": "xla"}, "xla"),
+    ({"engine-kernel": "pallas"}, "pallas"),
+    ({"engine-kernel": "pallas-loop"}, "pallas-loop"),
+    ({"engine-kernel": "pallas-whole"}, "pallas-whole"),
+    ({"engine-kernel": "spectral"}, "spectral"),
+    ({"spectral-impl": "fused"}, "spectral-fused"),
+    ({"spectral-impl": "xstats"}, "spectral-xstats"),
+    ({"param-spatial-priors": "A"}, "xla"),
+    ({"param-spatial-priors": "M"}, "xla"),
+    ({"continue-from-mvn": "x.nii.gz"}, "xla"),
+    ({"save-free-energy-history": True}, "xla"),
+    ({"noise-initial-posterior": "n.mtx"}, "xla"),
+    ({"locked-linear-from-mvn": "m.nii.gz"}, "xla"),
+    ({"fixed-design-route": "direct"}, "xla-direct"),
+    ({"linearization": "fd"}, "xla-generic"),
+    ({"PSP_byname1": "c0", "PSP_byname1_transform": "L"}, "xla-generic"),
+    ({"mcsteps": "1"}, "motion-correction"),
+    ({"spatial-prior-output-correction": True}, "noprior-output"),
+    ({"degree": "8"}, "spectral"),
+]
+
+
+@pytest.mark.parametrize("extra,route", GATES,
+                         ids=[r + ":" + ",".join(e) for e, r in GATES])
+def test_unported_route_raises(extra, route):
+    data = make_data(16)
+    with pytest.raises(NotImplementedError, match=f"'{route}'"):
+        run_port(data, extra)
+    assert ROUTES[route][1] is not None
+
+
+@pytest.mark.parametrize("conv", ["pointzeroone", "freduce", "trialmode",
+                                  "lm"])
+def test_unported_detectors_raise(conv):
+    with pytest.raises(NotImplementedError, match="item 11"):
+        run_port(make_data(16), {"convergence": conv})
+
+
+@pytest.mark.parametrize("extra,err", [
+    ({"noise": "ar"}, NotImplementedError),
+    ({"engine-kernel": "bogus"}, InvalidOptionValue),
+    ({"dtype": "half"}, InvalidOptionValue),
+    ({"convergence": "bogus"}, InvalidOptionValue),
+])
+def test_other_refusals(extra, err):
+    with pytest.raises(err):
+        run_port(make_data(16), extra)
+
+
+def test_unported_models_raise():
+    with pytest.raises(NotImplementedError, match="linear"):
+        get_model_class("linear")
+
+
+def test_programmatic_continuation_raises():
+    opts = RunOptions(BASE)
+    eng = VBInference(get_model_class("poly")(opts), opts, make_data(8),
+                      device="cpu")
+    with pytest.raises(NotImplementedError):
+        eng.run(continue_means=np.zeros((8, 3)))
+
+
+def test_data_plane_and_route_description():
+    """A [T,V] plane passed as data_plane is used as is."""
+    data = make_data(50)
+    opts = RunOptions(BASE)
+    eng = VBInference(get_model_class("poly")(opts), opts, None,
+                      data_plane=torch.from_numpy(data.T.copy()),
+                      device="cpu")
+    assert "spectral" in eng.route_description()
+    r = eng.run()
+    r2 = run_port(data)
+    np.testing.assert_array_equal(r.means, r2.means)
+    with pytest.raises(ValueError):
+        VBInference(get_model_class("poly")(opts), opts, None,
+                    data_plane=torch.zeros(5), device="cpu")
+
+
+def test_initial_state_matches_jax():
+    """Default-init posterior, noise and detector state."""
+    data = make_data(32)
+    jopts = JOptions({**BASE})
+    jeng = JVB(jmodel("poly")(jopts), jopts, data, np.zeros((32, 3)))
+    js = jeng.initial_state()
+    opts = RunOptions(BASE)
+    eng = VBInference(get_model_class("poly")(opts), opts, data, device="cpu")
+    s = eng.initial_state()
+    port = to_numpy(s.post)
+    carried = to_numpy(posterior_from_numpy(js.post))
+    for name in ("means", "prec", "cov", "prior_means", "prior_prec"):
+        np.testing.assert_array_equal(getattr(port, name),
+                                      getattr(carried, name))
+    np.testing.assert_array_equal(port.noise.b, carried.noise.b)
+    np.testing.assert_array_equal(port.noise.c, carried.noise.c)
+    np.testing.assert_array_equal(s.conv.its.numpy(), np.asarray(js.conv.its))
+    np.testing.assert_array_equal(s.conv.prev_f.numpy(),
+                                  np.asarray(js.conv.prev_f))
+
+
+def test_convert_carries_a_jax_result():
+    data = make_data(40)
+    rx = run_jax(data, "xla")
+    r = posterior_from_numpy(rx)
+    assert isinstance(r, VBResult)
+    np.testing.assert_array_equal(r.means, rx.means)
+    assert r.fhistory is None
+
+
+def test_bad_voxels_degrade_to_identity():
+    """A voxel with non-finite data fails numerically and is degraded
+    to zero mean / identity covariance (inference_vb.cc:556-570)."""
+    data = make_data(20)
+    data[3, :] = np.nan
+    r = run_port(data)
+    assert r.bad_voxels.tolist() == [i == 3 for i in range(20)]
+    np.testing.assert_array_equal(r.means[3], 0.0)
+    np.testing.assert_array_equal(r.cov[3], np.eye(3))
+    np.testing.assert_array_equal(r.noise_means[3], 0.0)
+    assert np.isfinite(r.means).all()

@@ -1,0 +1,262 @@
+"""The port's statistics and core kernels' plain versions against the
+JAX package's Pallas kernels (run in interpret mode, as the JAX tests
+run them on the CPU) and against the JAX float64 references, plus the
+wrappers' CPU behaviour. Inputs come from numpy (default_rng) and go
+to both packages.
+
+Float32 bounds (errors over the max |JAX value| of each quantity; the
+two sides sum in different orders):
+  stats  m0 1e-3 (an OLS reference point through the cond~2e8 poly
+         Gram: any finite value is correct, it only has to be the one
+         the other statistics were taken about), rtqr 1e-4,
+         D'Qy = dtqr + A m0 1e-5 (the well-conditioned combination the
+         core consumes; dtqr alone is rounding residue);
+  core   every output 1e-4.
+Float64 bound: 1e-9 (same algebra, same inputs).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fabber_core_tpu.noise.white import WhiteNoiseModel as JWhite
+from fabber_core_tpu.ops import fused_spectral as jfs
+from fabber_core_tpu.ops import spectral as jspec
+from fabber_core_tpu.options import RunOptions as JOptions
+from fabber_core_tpu_torch import FabberError, resolve_device
+from fabber_core_tpu_torch.convert import design_stats_from_numpy, to_numpy
+from fabber_core_tpu_torch.noise.white import WhiteNoiseModel as TWhite
+from fabber_core_tpu_torch.ops import fused_spectral as tfs
+from fabber_core_tpu_torch.options import RunOptions as TOptions
+
+torch.set_num_threads(1)
+
+
+def design(p, nt):
+    t = np.arange(1, nt + 1, dtype=np.float64)
+    if p == 3:
+        return t[:, None] ** np.arange(3)[None, :]
+    u = t / nt
+    return np.stack([np.ones(nt), u, np.sin(6 * np.pi * u),
+                     np.cos(10 * np.pi * u)], axis=1)
+
+
+def make_case(p, nt, nv, masked, seed=0):
+    rng = np.random.default_rng(seed + 100 * p + nt + nv)
+    d = design(p, nt)
+    scale = np.array([20.0, 0.3, 0.003, 1.0])[:p] if p == 3 \
+        else np.array([10.0, 4.0, 2.0, 2.0])
+    truth = rng.uniform(-1, 1, (p, nv)) * scale[:, None]
+    data = (d @ truth + rng.standard_normal((nt, nv))).astype(np.float32)
+    q = np.ones(nt)
+    if masked:
+        q[[2, nt // 2]] = 0.0
+    return d, q, data
+
+
+def rel(got, ref):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return np.abs(got - ref).max() / np.abs(ref).max()
+
+
+def jax_stats(p, nt, nv, d, q, data):
+    call = jfs.make_spectral_stats_kernel(p, nt, nv, jnp.float32, block=128,
+                                          interpret=True)
+    dw8, dcol, q8, _ = jfs.pack_mxu_consts(d, q, nt, jnp.float32)
+    ac = jfs.pack_solve_consts(d, q, nt, jnp.float32)
+    return [np.asarray(x) for x in call(jnp.asarray(data), dw8, dcol, q8, ac)]
+
+
+def port_consts(d, q, nt, dtype):
+    return (tfs.pack_mxu_consts(d, q, nt, dtype),
+            tfs.pack_solve_consts(d, q, nt, dtype))
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("nv", [256, 200])
+@pytest.mark.parametrize("nt", [30, 106])
+@pytest.mark.parametrize("p", [3, 4])
+def test_stats_plain_matches_pallas_kernel(p, nt, nv, masked):
+    d, q, data = make_case(p, nt, nv, masked)
+    jm0, jrtqr, jdtqr = jax_stats(p, nt, nv, d, q, data)
+    tc, ac = port_consts(d, q, nt, torch.float32)
+    m0, rtqr, dtqr = to_numpy(tfs.spectral_stats_plain(
+        torch.from_numpy(data), tc, ac))
+    a = ac.double().reshape(p, p).numpy()
+    assert rel(m0, jm0) <= 1e-3
+    assert rel(rtqr, jrtqr) <= 1e-4
+    assert rel(dtqr + a @ m0, jdtqr + a @ jm0) <= 1e-5
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("p", [3, 4])
+def test_stats_plain_f64_matches_design_stats(p, masked):
+    """At float64 the plain statistics equal the JAX engine's
+    make_design_stats (noise/white.py:278) to 1e-9, and so does the
+    port's own make_design_stats."""
+    nt, nv = 106, 64
+    d, q, data = make_case(p, nt, nv, masked)
+    data = data.astype(np.float64)
+    mt = {f"mt{i + 1}": str(t + 1) for i, t in enumerate(np.flatnonzero(q == 0))}
+    jnoise = JWhite(JOptions(mt), nt, [int(v) for v in mt.values()])
+    js = jnoise.make_design_stats(jnp.asarray(d), jnp.asarray(data))
+    tnoise = TWhite(TOptions(mt), nt, [int(v) for v in mt.values()])
+    ts = tnoise.make_design_stats(torch.from_numpy(d), torch.from_numpy(data))
+    tc, ac = port_consts(d, q, nt, torch.float64)
+    m0, rtqr, dtqr = to_numpy(tfs.spectral_stats_plain(
+        torch.from_numpy(data), tc, ac))
+    jm0, jrtqr, jdtqr = (np.asarray(js.m0), np.asarray(js.rtqr),
+                         np.asarray(js.dtqr)[0])
+    a = d.T @ (q[:, None] * d)
+    scale = np.abs(a @ jm0).max()
+    for got in ((m0, rtqr, dtqr), (ts.m0.numpy(), ts.rtqr.numpy(),
+                                   ts.dtqr.numpy()[0])):
+        assert rel(got[0], jm0) <= 1e-9
+        assert rel(got[1], jrtqr) <= 1e-9
+        assert np.abs(got[2] - jdtqr).max() <= 1e-9 * scale
+    jdtqd = np.asarray(js.dtqd)
+    np.testing.assert_allclose(ts.dtqd.numpy(), jdtqd, rtol=1e-12,
+                               atol=1e-12 * np.abs(jdtqd).max())
+
+
+def core_inputs(p, nv, seed=3):
+    """Statistics from the JAX stats kernel, carried over by convert.py,
+    plus voxelwise prior means and the route's scalar constants."""
+    nt = 106
+    d, q, data = make_case(p, nt, nv, masked=False, seed=seed)
+    stats = jax_stats(p, nt, nv, d, q, data)
+    pm = np.random.default_rng(seed).uniform(-1, 1, (p, nv)).astype(np.float32)
+    pp = np.full(p, 1e-12 if p == 3 else 0.5)
+    c_post = (nt - 1) * 0.5 + 1e-6
+    args = (d, q, nt, pp, 1e-6, c_post, 1e-8, 50.0)
+    extra = (jspec.eigen_elbo_const(q, c_post, 1e-6, 1e6, p), c_post + 0.5)
+    return stats, pm, args, extra
+
+
+@pytest.mark.parametrize("n_iters", [1, 3, 10])
+@pytest.mark.parametrize("p", [3, 4])
+def test_core_plain_matches_pallas_kernel(p, n_iters):
+    nv = 200
+    stats, pm, args, extra = core_inputs(p, nv)
+    jcore = jfs.make_spectral_core_kernel(p, n_iters, nv, jnp.float32,
+                                          block=128, interpret=True)
+    jsc = jfs.pack_spectral_consts(*args, jnp.float32, extra)
+    jout = jcore(*(jnp.asarray(x) for x in stats), jnp.asarray(pm), jsc)
+    tsc = tfs.pack_spectral_consts(*args, torch.float32, extra)
+    tstats = design_stats_from_numpy(*stats)
+    tout = tfs.spectral_core_plain(*tstats, torch.from_numpy(pm), tsc,
+                                   n_iters)
+    names = ["means", "prec", "cov", "b", "c", "F", "tr"]
+    for name, j, t in zip(names, jout, tout):
+        assert t.shape == np.shape(j), name
+        assert rel(t.numpy(), j) <= 1e-4, name
+
+
+@pytest.mark.parametrize("n_iters", [1, 3, 10])
+@pytest.mark.parametrize("p", [3, 4])
+def test_core_plain_f64_matches_spectral_loop(p, n_iters):
+    """At float64 the plain core equals the JAX XLA eigenbasis loop
+    (ops/spectral.py make_spectral_loop) to 1e-9."""
+    nv = 96
+    stats, pm, args, extra = core_inputs(p, nv, seed=5)
+    d, q, nt, pp, inv_b0, c_post, b_init, c_init = args
+    stats64 = [s.astype(np.float64) for s in stats]
+    pm64 = pm.astype(np.float64)
+    jout = jspec.make_spectral_loop(d, q, pp, n_iters, b_init, c_init,
+                                    inv_b0, c_post, jnp.float64)(
+        *(jnp.asarray(x) for x in stats64), jnp.asarray(pm64))
+    tsc = tfs.pack_spectral_consts(*args, torch.float64, extra)
+    tout = tfs.spectral_core_plain(*(torch.from_numpy(x) for x in stats64),
+                                   torch.from_numpy(pm64), tsc, n_iters)
+    for j, t in zip(jout, tout[:5]):      # means, prec, cov, b, c
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-9,
+                                   atol=1e-9 * np.abs(np.asarray(j)).max())
+
+
+def test_pack_consts_match_jax_layout():
+    """The port's constant vectors are the JAX blocks without the
+    ROWS (8x) replication and the MXU padding."""
+    p, nt = 3, 30
+    d, q, _ = make_case(p, nt, 8, masked=True)
+    args = (d, q, nt, np.full(p, 1e-12), 1e-6, 14.5, 1e-8, 50.0)
+    jsc = np.asarray(jfs.pack_spectral_consts(*args, jnp.float64, (1.0, 2.0)))
+    tsc = tfs.pack_spectral_consts(*args, torch.float64, (1.0, 2.0))
+    np.testing.assert_array_equal(tsc.numpy(), jsc[::8, 0])
+    jac = np.asarray(jfs.pack_solve_consts(d, q, nt, jnp.float64))
+    np.testing.assert_array_equal(
+        tfs.pack_solve_consts(d, q, nt, torch.float64).numpy(), jac[::8, 0])
+    dw8, dcol, q8, _ = (np.asarray(x) if not isinstance(x, int) else x
+                        for x in jfs.pack_mxu_consts(d, q, nt, jnp.float64))
+    tc = tfs.pack_mxu_consts(d, q, nt, torch.float64).numpy()
+    np.testing.assert_array_equal(tc[:p], dcol[:nt, :p].T)
+    np.testing.assert_array_equal(tc[p:2 * p], dw8[:p, :nt])
+    np.testing.assert_array_equal(tc[2 * p], q8[0, :nt])
+
+
+def test_wrappers_on_cpu_run_the_plain_versions():
+    p, nt, nv = 3, 30, 64
+    d, q, data = make_case(p, nt, nv, masked=False)
+    tc, ac = port_consts(d, q, nt, torch.float32)
+    x = torch.from_numpy(data)
+    tfs.spectral_stats.launches = 0
+    tfs.spectral_core.launches = 0
+    stats = tfs.spectral_stats(x, tc, ac)
+    for a, b in zip(stats, tfs.spectral_stats_plain(x, tc, ac)):
+        assert torch.equal(a, b)
+    sc = tfs.pack_spectral_consts(d, q, nt, np.full(p, 1e-12), 1e-6, 14.5,
+                                  1e-8, 50.0, torch.float32)
+    pm = torch.zeros((p, nv))
+    for a, b in zip(tfs.spectral_core(*stats, pm, sc, 4),
+                    tfs.spectral_core_plain(*stats, pm, sc, 4)):
+        assert torch.equal(a, b)
+    assert tfs.spectral_stats.launches == 0
+    assert tfs.spectral_core.launches == 0
+
+
+def test_wrappers_raise_off_cpu_without_kernel():
+    """A tensor that is neither on the CPU nor on a CUDA card has no
+    kernel: the wrappers raise instead of falling back."""
+    p, nt, nv = 3, 30, 16
+    d, q, _ = make_case(p, nt, nv, masked=False)
+    tc, ac = port_consts(d, q, nt, torch.float32)
+    data = torch.empty((nt, nv), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tfs.spectral_stats(data, tc, ac)
+    sc = tfs.pack_spectral_consts(d, q, nt, np.full(p, 1e-12), 1e-6, 14.5,
+                                  1e-8, 50.0, torch.float32)
+    m = torch.empty((p, nv), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tfs.spectral_core(m, m[:1], m, m, sc, 3)
+    with pytest.raises(ValueError, match="n_iters"):
+        tfs.spectral_core(m, m[:1], m, m, sc, 0)
+
+
+def test_kernel_argument_checks():
+    """What the CUDA wrappers check before a launch (device, float32,
+    shape, contiguity, host constants), exercised on CPU tensors."""
+    dev = torch.device("cpu")
+    good = torch.zeros((3, 8))
+    tfs._check(good, "x", (3, 8), dev)
+    with pytest.raises(TypeError):
+        tfs._check(good.double(), "x", (3, 8), dev)
+    with pytest.raises(ValueError, match="shape"):
+        tfs._check(good, "x", (3, 9), dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfs._check(torch.zeros((8, 3)).t(), "x", (3, 8), dev)
+    with pytest.raises(ValueError, match="is on"):
+        tfs._check(torch.empty((3, 8), device="meta"), "x", (3, 8), dev)
+    tfs._check_host(torch.zeros(9), "a", 9)
+    with pytest.raises(ValueError, match="host"):
+        tfs._check_host(torch.zeros(9, device="meta"), "a", 9)
+    with pytest.raises(ValueError):
+        tfs._check_host(torch.zeros(8), "a", 9)
+
+
+def test_cuda_device_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(FabberError, match="cuda"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(FabberError):
+        resolve_device("meta")

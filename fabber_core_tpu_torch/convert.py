@@ -1,7 +1,8 @@
 """Carry per-run state between the JAX package and this port.
 
 The system has no trained weights; what crosses over is per-run state:
-the fixed-design sufficient statistics and the posterior. Inputs are
+the fixed-design sufficient statistics, the posterior, the noise state
+and the whole-loop kernel's constant vector. Inputs are
 anything numpy can read (JAX arrays included, through np.asarray, so
 this module never imports jax); outputs are the port's tensors, and
 to_numpy goes back the other way.
@@ -30,6 +31,19 @@ def design_stats_from_numpy(m0, rtqr, dtqr, device="cpu", dtype=None):
     return tuple(_tensor(x, device, dtype) for x in (m0, rtqr, dtqr))
 
 
+def noise_state_from_numpy(state, device="cpu", dtype=None):
+    """The port's WhiteNoiseState from the JAX package's (.b, .c
+    [Q,V] or [Q,1])."""
+    return WhiteNoiseState(_tensor(state.b, device, dtype),
+                           _tensor(state.c, device, dtype))
+
+
+def nl_consts_from_numpy(consts):
+    """The port's [4Q] float64 host vector (ops/fused_loop_nl.py
+    pack_nl_consts) from the JAX kernel's [4Q,1] constant column."""
+    return torch.as_tensor(np.asarray(consts, np.float64).reshape(-1))
+
+
 def posterior_from_numpy(state, device="cpu", dtype=None):
     """The port's posterior from the JAX package's.
 
@@ -45,7 +59,7 @@ def posterior_from_numpy(state, device="cpu", dtype=None):
     def t(x):
         return _tensor(x, device, dtype)
 
-    noise = WhiteNoiseState(t(state.noise.b), t(state.noise.c))
+    noise = noise_state_from_numpy(state.noise, device, dtype)
     return PosteriorState(t(state.means), t(state.prec), t(state.cov),
                           t(state.prior_means), t(state.prior_prec), noise)
 

@@ -5,14 +5,17 @@ fwdmodel.cc:210-313). A model is a plain function
 ``evaluate(params [P] tensor, ctx) -> signal [T]``; a model that is
 linear in its parameters also exposes its constant [T,P] design
 (``fixed_design``), which is what the port's spectral route runs on.
-The JAX package's jaxpr probe for the whole-loop kernel tier
-(derive_time_local_eval) belongs to the nonlinear slice and is not
-here.
+A time-local model adds ``time_signal``/``time_signal_jac`` and, when
+the CUDA kernels carry a functor for it, ``kernel_model``. The JAX
+package's jaxpr probe for the whole-loop kernel's generic mode
+(derive_time_local_eval) is not ported: evaluate-only models run on
+the generic-Jacobian route.
 """
 
 import importlib
 import importlib.util
 from dataclasses import dataclass, field, replace
+from typing import NamedTuple
 
 from ..core import transforms
 from ..exceptions import InvalidOptionValue
@@ -54,6 +57,18 @@ class ParamSpec:
     options: dict = field(default_factory=dict)
     desc: str = ""
     units: str = ""
+
+
+KERNEL_POLY = 0   # c0 + c1 (t+1) + ... (PolyModel in csrc/vb_device.cuh)
+KERNEL_EXP = 1    # sum_i a_i exp(-r_i t dt) (ExpSum in csrc/vb_device.cuh)
+
+
+class KernelModel(NamedTuple):
+    """A model functor of the CUDA kernels: its kind (KERNEL_POLY or
+    KERNEL_EXP), its parameter count and its sample spacing dt."""
+    kind: int
+    nparams: int
+    dt: float = 0.0
 
 
 @dataclass
@@ -106,15 +121,19 @@ class Model:
         in its parameters with a voxel-independent Jacobian, else None."""
         return None
 
+    def kernel_model(self):
+        """The KernelModel the CUDA kernels evaluate this model's
+        time_signal_jac with, or None (the model then runs on the
+        generic-Jacobian route)."""
+        return None
+
 
 # -- registry -------------------------------------------------------------
 
 _MODELS = {}
 
 # model families of the JAX package the port does not have yet
-_UNPORTED_MODELS = {"linear": "ROADMAP Queue 1 item 4",
-                    "exp": "ROADMAP Queue 1 item 13",
-                    "biexp": "ROADMAP Queue 1 item 13"}
+_UNPORTED_MODELS = {"linear": "ROADMAP Queue 1 item 4"}
 
 
 def register_model(cls):

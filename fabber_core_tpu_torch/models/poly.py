@@ -9,7 +9,8 @@ import numpy as np
 import torch
 
 from ..options import OptionSpec, OPT_INT
-from .base import DistParams, Model, ParamSpec, register_model
+from .base import (DistParams, KernelModel, Model, ParamSpec,
+                   register_model, KERNEL_POLY)
 
 
 @register_model
@@ -46,3 +47,24 @@ class PolynomialModel(Model):
     def fixed_design(self, nt):
         t = np.arange(1, nt + 1, dtype=np.float64)
         return t[:, None] ** np.arange(self.degree + 1, dtype=np.float64)[None, :]
+
+    def time_signal(self, params, t):
+        """Time-local form: params a list of model-space [1,V] planes,
+        t the 0-based sample index [T,1]."""
+        return self.time_signal_jac(params, t)[0]
+
+    def time_signal_jac(self, params, t):
+        """Analytic Jacobian: ds/dc_k = (t+1)^k, the powers shared
+        with the signal."""
+        tv = t + 1.0  # reference samples run 1..T
+        sig = params[0] * torch.ones_like(tv)
+        jac = [torch.ones_like(tv) * torch.ones_like(params[0])]
+        power = tv
+        for i in range(1, self.degree + 1):
+            sig = sig + params[i] * power
+            jac.append(power * torch.ones_like(params[i]))
+            power = power * tv
+        return sig, jac
+
+    def kernel_model(self):
+        return KernelModel(KERNEL_POLY, self.degree + 1)

@@ -58,3 +58,20 @@ class NoiseModel:
 
     def state_from_mvn(self, means, cov):
         raise NotImplementedError
+
+    # -- VB updates on per-voxel Jacobian planes (generic route) ---------
+    def update_theta(self, noise_post, means, prior_means, prior_prec,
+                     centre, offset, jac, data):
+        """Eq 19/20 (UpdateTheta): -> (means [P,V], prec [P,P,V],
+        cov [P,P,V], ok [V])."""
+        raise NotImplementedError
+
+    def update_noise(self, noise_post, noise_prior, means, cov,
+                     centre, offset, jac, data):
+        """Eq 21/22 (UpdateNoise): -> the new noise state."""
+        raise NotImplementedError
+
+    def free_energy(self, noise_post, noise_prior, means, prec, cov,
+                    prior_means, prior_prec, centre, offset, jac, data):
+        """The ELBO (CalcFreeEnergy): -> F [V]."""
+        raise NotImplementedError

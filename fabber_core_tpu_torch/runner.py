@@ -95,7 +95,7 @@ def run(options, store, log=None, progress_cb=None, device="cuda"):
         progress_cb(0, nvoxels)
 
     engine = VBInference(model, options, data, voxel_data_getter=store.get,
-                         device=device)
+                         device=device, coords=store.geom.coords)
     engine.progress_cb = progress_cb
     log.log(f"Vb::Engine route: {engine.route_description()}")
     result = engine.run()

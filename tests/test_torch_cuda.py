@@ -121,3 +121,243 @@ def test_engine_on_card_matches_cpu(cuda):
                                atol=5e-3)
     np.testing.assert_array_equal(g.iterations, c.iterations)
     assert not g.bad_voxels.any()
+
+
+# -- the nonlinear kernels (fused_nl_loop.cu, fused_vb_iter.cu) -------------
+
+# The polynomials above degree 0 run on short series: their uncentred designs
+# (1, t, t^2, t^3 over t = 1..T) grow ill-conditioned with T, and in
+# float32 summation order alone then moves the solve.
+NL_SHORT = {"poly1-S": 12, "poly2-A": 8, "poly3-F": 8}
+NL_MODELS = {
+    # name: (model options, true model-space parameters)
+    "exp": ({"model": "exp"}, [1.5, 2.0]),
+    "biexp": ({"model": "biexp"}, [1.5, 0.5, 1.5, 5.0]),
+    "poly0-L": ({"model": "poly", "degree": "0", "PSP_byname1": "c0",
+                 "PSP_byname1_transform": "L"}, [2.0]),
+    "poly1-S": ({"model": "poly", "degree": "1", "PSP_byname1": "c0",
+                 "PSP_byname1_transform": "S"}, [2.0, 0.05]),
+    "poly2-A": ({"model": "poly", "degree": "2", "PSP_byname2": "c1",
+                 "PSP_byname2_transform": "A"}, [2.0, 0.05, 0.001]),
+    "poly3-F": ({"model": "poly", "degree": "3", "PSP_byname1": "c0",
+                 "PSP_byname1_transform": "F"}, [0.4, 0.05, 0.001, 1e-5]),
+}
+# every instance of csrc/vb_device.cuh FABBER_NL_INSTANCES: the exp
+# family at Q = 1..4, poly at Q = 1, 2
+NL_CASES = [(name, nq) for name in NL_MODELS
+            for nq in ((1, 2, 3, 4) if "exp" in name else (1, 2))]
+NL_IDS = [f"{name}-Q{nq}" for name, nq in NL_CASES]
+
+
+def nl_inputs(name, nq, nv, device, nt=None, seed=0):
+    """Kernel inputs from one numpy seed: data = model(truth) + N(0,
+    0.02^2), the centre at the latent truth plus N(0, 0.05^2), weak
+    priors (pm 0, pp 1e-5), nq groups alternating in time, sample T/3
+    masked."""
+    from fabber_core_tpu_torch.models import (get_model_class,
+                                              resolve_parameters)
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    from fabber_core_tpu_torch.options import RunOptions
+    extra, truth = NL_MODELS[name]
+    nt = nt or NL_SHORT.get(name, 40)
+    opts = RunOptions({"dt": "0.1", "noise": "white", **extra})
+    model = get_model_class(extra["model"])(opts)
+    params = resolve_parameters(model, opts)
+    rng = np.random.default_rng(seed)
+    p = len(truth)
+    mt = np.asarray(truth)[:, None] * rng.uniform(0.8, 1.2, (p, nv))
+    t = fv.time_index(nt, torch.float64, "cpu")
+    sig = model.time_signal([torch.as_tensor(mt[i:i + 1]) for i in range(p)],
+                            t).expand(nt, nv).numpy()
+    lat = np.stack([np.asarray(pr.transform.to_latent(torch.as_tensor(
+        mt[i]))) for i, pr in enumerate(params)])
+    q = np.zeros((nq, nt))
+    q[np.arange(nt) % nq, np.arange(nt)] = 1.0
+    q[:, nt // 3] = 0.0
+
+    def dev(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32,
+                               device=device)
+
+    return dict(
+        model=model, tr=[pr.transform for pr in params], q=q, nq=nq, p=p,
+        data=dev(sig + 0.02 * rng.standard_normal((nt, nv))),
+        centre=dev(lat + 0.05 * rng.standard_normal((p, nv))),
+        pm=dev(np.zeros((p, nv))), pp=dev(np.full((p, nv), 1e-5)),
+        phi=dev(np.full((nq, nv), 2500.0)))
+
+
+def sd_err(got, ref, cov):
+    p = cov.shape[0]
+    sd = torch.sqrt(torch.stack([cov[i, i] for i in range(p)])).double()
+    return float(((got.double() - ref.double()).abs() / sd).max())
+
+
+def to_f64(args):
+    return tuple(a.double() if torch.is_tensor(a) else a
+                 for a in args)
+
+
+def assert_near_f64(k, r32, r64):
+    """The kernel (float32) against the plain version at float64 on the
+    same inputs: each output no further from float64 than twice the
+    plain version's own float32 result is, and within 1e-3 in any case
+    (means in posterior sd, the others relative to their max).
+
+    Why float64 and not the plain float32 result: both float32
+    implementations carry a shared error from evaluating the model on
+    float32 inputs, which the cubic's uncentred design amplifies (one
+    iteration of poly3-F on the H100: 6.0e-2 sd from float64 for the
+    plain version, 5.8e-2 for the kernel, 5.2e-2 between the two).
+    Over every case here the kernel's distance from float64 measured
+    at most 0.72 of this bound on the H100."""
+    e_means = sd_err(k[0], r64[0], r64[2])
+    assert e_means <= max(1e-3, 2 * sd_err(r32[0], r64[0], r64[2])), e_means
+    for i in range(1, 7):
+        assert k[i].shape == r64[i].shape
+        e = rel(k[i], r64[i])
+        assert e <= max(1e-3, 2 * rel(r32[i], r64[i])), (i, e)
+
+
+@pytest.mark.parametrize("nv", [1000, 1024])
+@pytest.mark.parametrize("name,nq", NL_CASES, ids=NL_IDS)
+def test_nl_loop_kernel_matches_plain(cuda, name, nq, nv):
+    """Every instance of fused_nl_loop.cu, 10 iterations with F, held
+    to the plain version at float64 (assert_near_f64)."""
+    from fabber_core_tpu_torch.ops import fused_loop_nl as nl
+    c = nl_inputs(name, nq, nv, cuda)
+    consts = nl.pack_nl_consts(np.full(nq, 1e6), np.full(nq, 1e-6),
+                               c["q"].sum(axis=1), 1e-8, 50.0, nq)
+    args = (c["centre"], c["pm"], c["pp"], c["data"], c["q"], consts, 10,
+            True)
+    before = nl.fused_nl_loop.launches
+    k = nl.fused_nl_loop(c["model"], c["tr"], *args)
+    assert nl.fused_nl_loop.launches == before + 1
+    tsj = c["model"].time_signal_jac
+    assert_near_f64(k, nl.fused_nl_loop_plain(tsj, c["tr"], *args),
+                    nl.fused_nl_loop_plain(tsj, c["tr"], *to_f64(args)))
+
+
+@pytest.mark.parametrize("name,nq", NL_CASES, ids=NL_IDS)
+def test_fused_iteration_kernel_matches_plain(cuda, name, nq):
+    """Every instance of fused_vb_iter.cu, one iteration with F, ragged
+    voxel count, held to the plain version at float64
+    (assert_near_f64)."""
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    c = nl_inputs(name, nq, 3001, cuda, seed=1)
+    args = (c["centre"], c["pm"], c["pp"], c["phi"], c["data"], c["q"], True)
+    before = fv.fused_iteration.launches
+    k = fv.fused_iteration(c["model"], c["tr"], *args)
+    assert fv.fused_iteration.launches == before + 1
+    tsj = c["model"].time_signal_jac
+    assert_near_f64(k, fv.fused_iteration_plain(tsj, c["tr"], *args),
+                    fv.fused_iteration_plain(tsj, c["tr"], *to_f64(args)))
+
+
+def test_nl_instances_are_the_listed_ones(cuda):
+    """The route gate's instance query answers from the one list,
+    csrc/vb_device.cuh FABBER_NL_INSTANCES."""
+    from fabber_core_tpu_torch.models.base import (KERNEL_EXP, KERNEL_POLY,
+                                                   KernelModel)
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    for p in (2, 4):
+        for nq in (1, 2, 3, 4):
+            assert fv.kernel_instantiated(KernelModel(KERNEL_EXP, p), nq)
+        assert not fv.kernel_instantiated(KernelModel(KERNEL_EXP, p), 5)
+    assert not fv.kernel_instantiated(KernelModel(KERNEL_EXP, 6), 1)
+    for p in (1, 2, 3, 4):
+        for nq in (1, 2):
+            assert fv.kernel_instantiated(KernelModel(KERNEL_POLY, p), nq)
+        assert not fv.kernel_instantiated(KernelModel(KERNEL_POLY, p), 3)
+    assert not fv.kernel_instantiated(KernelModel(KERNEL_POLY, 5), 1)
+
+
+def test_engine_on_card_refuses_runs_without_an_instance(cuda):
+    """A cuda run the kernels have no instance for raises at
+    construction: it never runs plain torch on the card."""
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.options import RunOptions
+    data = np.ones((64, 30), np.float32)
+    for model, extra in (("exp", {"noise-pattern": "12345"}),
+                         ("exp", {"num-exps": "3"}),
+                         ("poly", {"degree": "4", "PSP_byname1": "c0",
+                                   "PSP_byname1_transform": "L"})):
+        opts = RunOptions({"model": model, "dt": "0.1", "noise": "white",
+                           "dtype": "single", **extra})
+        with pytest.raises(NotImplementedError, match="FABBER_NL_INSTANCES"):
+            VBInference(get_model_class(model)(opts), opts, data,
+                        device=cuda)
+
+
+def test_nl_kernels_without_f_write_zeros(cuda):
+    from fabber_core_tpu_torch.ops import fused_loop_nl as nl
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    c = nl_inputs("biexp", 1, 500, cuda)
+    consts = nl.pack_nl_consts([1e6], [1e-6], c["q"].sum(axis=1), 1e-8,
+                               50.0, 1)
+    k = nl.fused_nl_loop(c["model"], c["tr"], c["centre"], c["pm"], c["pp"],
+                         c["data"], c["q"], consts, 3, False)
+    assert not k[5].any() and not k[6].any()
+    k = fv.fused_iteration(c["model"], c["tr"], c["centre"], c["pm"],
+                           c["pp"], c["phi"], c["data"], c["q"], False)
+    assert not k[5].any() and not k[6].any()
+
+
+def test_nl_wrappers_refuse_what_no_kernel_takes(cuda):
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    c = nl_inputs("exp", 1, 64, cuda)
+    q5 = np.ones((5, 40)) / 5
+    with pytest.raises(ValueError, match="instantiation"):
+        fv.fused_iteration(c["model"], c["tr"], c["centre"], c["pm"],
+                           c["pp"], torch.ones((5, 64), device=cuda),
+                           c["data"], q5, True)
+    with pytest.raises(TypeError):
+        fv.fused_iteration(c["model"], c["tr"], c["centre"].double(),
+                           c["pm"], c["pp"], c["phi"], c["data"], c["q"],
+                           True)
+    with pytest.raises(ValueError, match="is on"):
+        fv.fused_iteration(c["model"], c["tr"], c["centre"], c["pm"].cpu(),
+                           c["pp"], c["phi"], c["data"], c["q"], True)
+
+
+@pytest.mark.parametrize("extra,route", [
+    ({}, "pallas-loop-nl"), ({"engine-kernel": "pallas"}, "pallas"),
+    ({"noise-pattern": "12"}, "pallas-loop-nl")],
+    ids=["pallas-loop-nl", "pallas", "pattern-12"])
+def test_exp_engine_on_card_matches_cpu(cuda, extra, route):
+    """The exp engine on the card (the kernels) against the CPU engine
+    (their plain versions): tests/test_fused_loop_nl.py's tolerances."""
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.ops import fused_loop_nl as nl
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    from fabber_core_tpu_torch.options import RunOptions
+
+    rng = np.random.default_rng(0)
+    nv, nt = 3000, 24
+    t = np.arange(nt) * 0.05
+    data = (rng.uniform(0.5, 2.0, (nv, 1)) * np.exp(-t)[None]
+            + rng.normal(0, 0.05, (nv, nt))).astype(np.float32)
+    res = {}
+    for dev in (cuda, "cpu"):
+        opts = RunOptions({"model": "exp", "dt": "0.05", "noise": "white",
+                           "dtype": "single", "save-free-energy": True,
+                           **extra})
+        eng = VBInference(get_model_class("exp")(opts), opts, data,
+                          device=dev)
+        assert eng.route == route
+        n0 = nl.fused_nl_loop.launches + fv.fused_iteration.launches
+        res[str(dev)] = eng.run()
+        n1 = nl.fused_nl_loop.launches + fv.fused_iteration.launches
+        assert (n1 - n0) == (0 if dev == "cpu" else
+                             (1 if route == "pallas-loop-nl" else 10))
+    g, c = res[str(cuda)], res["cpu"]
+    sd = np.sqrt(np.diagonal(c.cov, axis1=1, axis2=2))
+    assert np.max(np.abs(g.means - c.means) / sd) < 5e-3
+    np.testing.assert_allclose(g.means, c.means, rtol=3e-4, atol=1e-5)
+    np.testing.assert_allclose(g.noise_means, c.noise_means, rtol=2e-3)
+    np.testing.assert_allclose(g.free_energy, c.free_energy, rtol=1e-4,
+                               atol=2e-3)
+    np.testing.assert_array_equal(g.iterations, c.iterations)
+    np.testing.assert_array_equal(g.bad_voxels, c.bad_voxels)

@@ -7,17 +7,22 @@ Run from the repository root, with no arguments:
 
 It builds the four CUDA kernels from fabber_core_tpu_torch/csrc/ (one
 nvcc per source, all started together, into build/kernels/) and holds
-each kernel against its plain-torch version on the card. It drives the
-port's two main paths end to end through the public API on a
-128x128x64 volume: poly degree 2 (T=106) on the fixed-design spectral
-route, and biexp (T=100, bench.py's biexp data) on the whole-loop
-nonlinear route; checks that each path went through its kernels and
-that the results are right; runs the per-iteration nonlinear route;
-then times the kernels, their plain versions, a device-to-device copy
-and the whole engine run, poly at 16,777,216 voxels and biexp at
-4,000,000. Every phase passes or the script exits non-zero without
-printing the result line. The last line of standard output is the JSON
-result object; the line before it lists the kernels.
+each kernel, in each of its modes, against its plain-torch version on
+the card. It drives the port's main paths end to end through the
+public API on a 128x128x64 volume: poly degree 2 (T=106) on the
+fixed-design spectral route, and biexp (T=100, bench.py's biexp data)
+on the whole-loop nonlinear route, each under maxits and under
+--convergence=trialmode (the kernels' in-kernel detector modes);
+checks that each path went through its kernels and that the results
+are right; runs the per-iteration nonlinear route, under maxits and
+under lm (its LM branch); then times the kernels, their plain versions,
+a device-to-device copy and the whole engine run, poly at 16,777,216
+voxels and biexp at 4,000,000. Every phase passes or the script exits
+non-zero without printing the result line. The last line of standard
+output is the JSON result object; the line before it lists the
+kernels, each with its bound (the least time the card could take:
+bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the
+published H100 SXM peaks).
 
 Without a CUDA device (or outside the repository) it exits non-zero.
 """
@@ -38,6 +43,13 @@ BI_NT, BI_DT, BI_SD = 100, 0.02, 0.05   # bench.py biexp: T, dt, noise sd
 # too (0.817-0.854 over four H100 runs of phase 3b's shapes; a kernel
 # fault sends most voxels off)
 BIEXP_STABLE_AGREE = 0.75
+# published H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s
+# and float32 operations/s outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+# lanes of phase 5c's float64 reference: each lane's loop is its own, so
+# a slice gives the same lanes at half the float32 run's bytes
+F64_LANES = 1_048_576
 
 
 def log(msg):
@@ -639,21 +651,22 @@ def check_per_iteration_route(device, nv=65_536):
     return ok, res["pallas"][1]
 
 
-def best_ms(fn, reps=3):
-    """Best of `reps` CUDA-event timings of fn(), after one warm-up."""
+def best_ms(fn, reps=3, keep=False):
+    """Best of `reps` CUDA-event timings of fn(), after one warm-up;
+    with keep, (best, the last timed call's result)."""
     import torch
     fn()
     torch.cuda.synchronize()
-    best = float("inf")
+    best, res = float("inf"), None
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        res = fn()
         b.record()
         b.synchronize()
         best = min(best, a.elapsed_time(b))
-    return best
+    return (best, res) if keep else best
 
 
 def time_headline(device, card, nv=16_777_216):
@@ -766,6 +779,584 @@ def time_biexp(device, card, nv=4_000_000):
     return fig
 
 
+# ---------------------------------------------------------------------------
+# Detector modes (phases 3c, 4f, 4g, 4h, 5c)
+# ---------------------------------------------------------------------------
+
+def make_detector(kind, extra=None):
+    from fabber_core_tpu_torch.inference.convergence import \
+        get_detector_class
+    from fabber_core_tpu_torch.options import RunOptions
+    return get_detector_class(kind)(RunOptions(
+        {"max-iterations": str(ITERS), **(extra or {})}))
+
+
+class TripCounter:
+    """A detector that counts, over the calls of its test, the lanes
+    still running before each test: in a plain loop that is the number
+    of lane iterations this run's data needs (the operation count of a
+    kernel whose lanes leave their loops when done)."""
+
+    def __init__(self, det):
+        self.det = det
+        self.trips = 0
+
+    def __getattr__(self, name):
+        return getattr(self.det, name)
+
+    def test(self, state, f):
+        self.trips += int((~state.done).sum())
+        return self.det.test(state, f)
+
+
+def trip_counter(det):
+    """A TripCounter that the plain versions take for det (they read
+    the detector's kind from its class)."""
+    cls = type("Counted" + type(det).__name__, (TripCounter,),
+               {"name": type(det).name})
+    return cls(det)
+
+
+def near_f64(name, k, r32, r64, dk, d32, d64):
+    """A detector mode against its plain version at float64, lane by
+    lane on the decisions dk/d32/d64 [2,V] (iteration count, revert):
+    the share of lanes whose decisions differ from float64 at most twice
+    the plain float32 version's own share + 1e-3; on the lanes where
+    both agree with float64, the means within max(1e-3, 2x the plain
+    float32 distance) posterior sd of float64 and every other output
+    within max(1e-3, 2x the plain float32 distance) of its max.
+    Returns (ok, max abs error on those lanes, worst error over bound)."""
+    import torch
+    miss_k = (dk != d64).any(dim=0)
+    miss_32 = (d32 != d64).any(dim=0)
+    share_k = float(miss_k.double().mean())
+    share_32 = float(miss_32.double().mean())
+    bound_share = 2 * share_32 + 1e-3
+    ok = share_k <= bound_share
+    keep = ~(miss_k | miss_32)
+    p = r64[0].shape[0]
+    sd = torch.sqrt(torch.stack([r64[2][i, i] for i in range(p)])).double()
+    sd = sd[:, keep]
+
+    def sd_err(a):
+        return float(((a[0][:, keep].double() - r64[0][:, keep].double())
+                      .abs() / sd).max())
+
+    def rel_err(a, i):
+        ref = r64[i][..., keep].double()
+        return float((a[i][..., keep].double() - ref).abs().max()
+                     / ref.abs().max().clamp_min(1e-30))
+
+    bound = max(1e-3, 2 * sd_err(r32))
+    ratio = sd_err(k) / bound
+    abs_err = float((k[0][:, keep].double() - r64[0][:, keep].double())
+                    .abs().max())
+    for i in range(1, len(k)):
+        b_i = max(1e-3, 2 * rel_err(r32, i))
+        ratio = max(ratio, rel_err(k, i) / b_i)
+        abs_err = max(abs_err, float((k[i][..., keep].double()
+                                      - r64[i][..., keep].double())
+                                     .abs().max()))
+    ok = ok and ratio <= 1.0
+    log(f"  {name:<34} decisions off float64 in {share_k:.6f} of lanes "
+        f"(plain float32 {share_32:.6f}; bound {bound_share:.6f}); "
+        f"matching lanes: max abs err {abs_err:.4g}, worst err/bound "
+        f"{ratio:.3g} {'ok' if ok else 'FAIL'}")
+    return ok, abs_err, ratio
+
+
+def lane_decisions(name, k, r32, r64, sl):
+    """A detector mode at a full horizon, where float32 decisions are
+    chaotic (biexp: Queue 3 item 7 of ROADMAP.md), held by its lanes'
+    decisions: the iteration count and whether the means are finite.
+    The kernel k and the plain version at float32 r32 cover every lane,
+    the plain version at float64 r64 the lanes sl. Passes when the
+    kernel's share of lanes in sl whose decisions differ from float64 is
+    at most twice the plain float32 version's own + 1e-3, and its share
+    of non-finite lanes over every lane lies within [0.8, 1.25] times the
+    plain float32 version's, +-1e-3 (float32 lm diverges on ~4.5% of
+    bench.py's biexp lanes, float64 on ~0.7%: a kernel fault that
+    diverges where the plain version does not moves that share)."""
+    import torch
+
+    def nonfinite(o):
+        return ~torch.isfinite(o[0]).all(dim=0)
+
+    def dec(o, lanes):
+        return torch.stack([o[6][0][lanes].double(),
+                            nonfinite(o)[lanes].double()])
+
+    d64 = dec(r64, slice(None))
+    share_k = float((dec(k, sl) != d64).any(dim=0).double().mean())
+    share_32 = float((dec(r32, sl) != d64).any(dim=0).double().mean())
+    nf_k, nf_32 = nonfinite(k), nonfinite(r32)
+    frac_k, frac_32 = float(nf_k.double().mean()), float(nf_32.double().mean())
+    frac_64 = float(nonfinite(r64).double().mean())
+    both = int((nf_k & nf_32).sum())
+    ok = (share_k <= 2 * share_32 + 1e-3
+          and 0.8 * frac_32 - 1e-3 <= frac_k <= 1.25 * frac_32 + 1e-3)
+    log(f"  {name:<34} decisions off float64 (first {d64.shape[1]} lanes) "
+        f"in {share_k:.6f} of lanes (plain float32 {share_32:.6f}; bound "
+        f"{2 * share_32 + 1e-3:.6f}); non-finite means in {frac_k:.6f} of "
+        f"lanes (plain float32 {frac_32:.6f}, bound x[0.8, 1.25] +-1e-3; "
+        f"float64 {frac_64:.6f}), {both} lanes non-finite in both "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def check_detector_kernels(device, nvs=(1_048_576, 1_000_003),
+                           seed=SEED + 8):
+    """Phase 3c: the three detector modes against their plain versions
+    on the card, held by near_f64:
+      spectral_core (2d) at the main path's poly shapes under
+        pointzeroone, freduce and trialmode (max-iterations 10,
+        max-trials 10, loop bound max_iterations + 2), on the statistics
+        kernel's output;
+      fused_nl_loop (6d) on bench.py's biexp data with the engine's own
+        start, priors and ELBO constants: exp under all four detectors
+        at max-iterations 10, biexp under all four at a short horizon
+        (max-iterations 3, max-trials 2; float32 biexp is chaotic
+        further out);
+      fused_vb_iter (7l) one launch from the latent truth + N(0, 0.05^2)
+        with alpha 0 in a quarter of the voxels and 1e-6..1e2 elsewhere
+        (no decisions: every lane held)."""
+    import torch
+    from fabber_core_tpu_torch.ops import fused_loop_nl as fl
+    from fabber_core_tpu_torch.ops import fused_spectral as fs
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    from fabber_core_tpu_torch.ops import smallmat as sm
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    worst = {k: [0.0, 0.0] for k in ("spectral_core:detector",
+                                     "fused_nl_loop:detector",
+                                     "fused_vb_iter:lm")}
+    ok_all = True
+
+    def note(kname, res):
+        nonlocal ok_all
+        ok, abs_err, ratio = res
+        ok_all &= ok
+        worst[kname][0] = max(worst[kname][0], abs_err)
+        worst[kname][1] = max(worst[kname][1], ratio)
+
+    # 2d
+    p, design = 3, poly_design(3)
+    q = np.ones(NT)
+    c_post = (NT - 1) * 0.5 + 1e-6
+    from fabber_core_tpu_torch.ops.spectral import eigen_elbo_const
+    tc = fs.pack_mxu_consts(design, q, NT, torch.float32, device)
+    ac = fs.pack_solve_consts(design, q, NT, torch.float32)
+    sc = fs.pack_spectral_consts(
+        design, q, NT, np.full(p, 1e-12), 1e-6, c_post, 1e-8, 50.0,
+        torch.float32, (eigen_elbo_const(q, c_post, 1e-6, 1e6, p),
+                        c_post + 0.5))
+    for nv in nvs:
+        data, _ = gen_plane(design, nv, gen, [100.0, 0.5, 0.005], 1.0,
+                            device)
+        stats = fs.spectral_stats(data, tc, ac)
+        del data
+        pm = torch.zeros((p, nv), device=device)
+        stats64 = tuple(x.double() for x in stats)
+        for kind in fs.DETECTOR_KINDS:
+            det = make_detector(kind)
+            cap = int(det.max_iterations) + 2
+            k = fs.spectral_core(*stats, pm, sc, cap, det)
+            r32 = fs.spectral_core_plain(*stats, pm, sc, cap, det)
+            r64 = fs.spectral_core_plain(*stats64, pm.double(), sc.double(),
+                                         cap, det)
+            torch.cuda.synchronize()
+
+            def dec(o):
+                return torch.stack([o[6][0].double(),
+                                    (o[3][0] < 0).double()])
+
+            def tidy(o):
+                return (o[0], o[1], o[2], o[3].abs()) + tuple(o[4:])
+
+            note("spectral_core:detector", near_f64(
+                f"spectral_core {kind} P={p} V={nv}", tidy(k), tidy(r32),
+                tidy(r64), dec(k), dec(r32), dec(r64)))
+            del k, r32, r64
+        del stats, stats64, pm
+        torch.cuda.empty_cache()
+
+    # 6d
+    nv = nvs[-1]
+    for model, extra in (("exp", {}), ("biexp", {"max-iterations": "3",
+                                                 "max-trials": "2"})):
+        data, clean, truth = biexp_plane(nv, gen, device, model)
+        for kind in fl.DETECTOR_KINDS:
+            eng = nl_engine(model, "1", data, device,
+                            {"convergence": kind, **extra})
+            tr = eng._transforms()
+            s0 = eng.initial_state()
+            args = eng.nl_loop_args(s0)
+            det = eng._nl_fdet_consts()
+            pd0 = sm.diag_of(s0.post.cov).contiguous()
+            n_it = int(eng.detector.max_iterations)
+            kw = dict(detector=det, post_var0=pd0)
+            k = fl.fused_nl_loop(eng.model, tr, *args, n_it, True, **kw)
+            ts = eng.model.time_signal_jac
+            r32 = fl.fused_nl_loop_plain(ts, tr, *args, n_it, True, **kw)
+            args64 = tuple(a.double() if torch.is_tensor(a) else a
+                           for a in args)
+            r64 = fl.fused_nl_loop_plain(ts, tr, *args64, n_it, True,
+                                         detector=det,
+                                         post_var0=pd0.double())
+            torch.cuda.synchronize()
+
+            def dec(o):
+                rev = o[5][1] if kind == "freduce" else 0 * o[6][0]
+                return torch.stack([o[6][0].double(), rev.double()])
+
+            note("fused_nl_loop:detector", near_f64(
+                f"fused_nl_loop {model} {kind} V={nv}", k, r32, r64,
+                dec(k), dec(r32), dec(r64)))
+            del k, r32, r64, args, args64, eng, s0, pd0
+            torch.cuda.empty_cache()
+
+        # 7l
+        eng = nl_engine(model, "1", data, device, {"convergence": "lm"})
+        tr = eng._transforms()
+        args = eng.nl_loop_args(eng.initial_state())
+        lat = torch.log(truth) + 0.05 * torch.randn(
+            truth.shape, generator=gen, device=device)
+        phi = torch.full((1, nv), 1.0 / BI_SD ** 2, device=device)
+        alpha = 10.0 ** (torch.rand(nv, generator=gen, device=device) * 8
+                         - 6)
+        alpha[::4] = 0.0
+        it_args = (lat, args[1], args[2], phi, args[3], args[4], True)
+        k = fv.fused_iteration(eng.model, tr, *it_args, alpha)
+        ts = eng.model.time_signal_jac
+        r32 = fv.fused_iteration_plain(ts, tr, *it_args, alpha)
+        r64 = fv.fused_iteration_plain(ts, tr, *(
+            a.double() if torch.is_tensor(a) else a for a in it_args),
+            alpha.double())
+        torch.cuda.synchronize()
+        same = torch.zeros((2, nv), dtype=torch.float64, device=device)
+        note("fused_vb_iter:lm", near_f64(
+            f"fused_vb_iter lm {model} V={nv}", k, r32, r64, same, same,
+            same))
+        del k, r32, r64, data, clean, truth, lat, phi, alpha, eng, args
+        torch.cuda.empty_cache()
+    return ok_all, worst
+
+
+def capture_results():
+    """Wrap VBInference.run so that a run through the API leaves its
+    VBResult here (the API returns volumes, not iteration counts)."""
+    from fabber_core_tpu_torch.inference import vb as vbmod
+    captured = []
+    orig = vbmod.VBInference.run
+
+    def run(self, *a, **kw):
+        res = orig(self, *a, **kw)
+        captured.append((self, res))
+        return res
+    vbmod.VBInference.run = run
+    return captured, lambda: setattr(vbmod.VBInference, "run", orig)
+
+
+def its_histogram(its):
+    counts = np.bincount(np.asarray(its, np.int64))
+    return {int(i): int(c) for i, c in enumerate(counts) if c}
+
+
+def run_biexp_trialmode_path(device, shape=(128, 128, 64)):
+    """Phase 4f: biexp through run_with_data under
+    --convergence=trialmode (max-iterations 10, max-trials 10): kernel
+    6 launched once, in detector mode, and kernel 7 not at all; the
+    bounds of phase 4c on the outputs, fit quality and noise; no lane
+    reports more iterations than the detector's bound
+    (max_iterations)."""
+    from fabber_core_tpu_torch.api import FabberTpu
+    from fabber_core_tpu_torch.ops import fused_loop_nl as fl
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+
+    vol, clean = make_biexp_volume(shape)
+    opts = {**BIEXP_OPTIONS, "convergence": "trialmode"}
+    fl.fused_nl_loop.launches = fl.fused_nl_loop.det_launches = 0
+    fv.fused_iteration.launches = 0
+    captured, restore = capture_results()
+    t0 = time.perf_counter()
+    try:
+        run = FabberTpu(device=device).run_with_data(opts, {"data": vol})
+    finally:
+        restore()
+    secs = time.perf_counter() - t0
+    launches = {"fused_nl_loop:detector": fl.fused_nl_loop.det_launches}
+    eng, res = captured[-1]
+    hist = its_histogram(res.iterations)
+    log(f" run_with_data: {secs:.3f} s; fused_nl_loop launches "
+        f"{fl.fused_nl_loop.launches} (detector mode "
+        f"{fl.fused_nl_loop.det_launches}), fused_vb_iter "
+        f"{fv.fused_iteration.launches}; route: "
+        f"{eng.route_description()}")
+    log(f" iterations histogram {hist} (bound {eng.detector.max_iterations})")
+    ok = (fl.fused_nl_loop.det_launches == 1
+          and fl.fused_nl_loop.launches == 1
+          and fv.fused_iteration.launches == 0
+          and int(res.iterations.max()) <= eng.detector.max_iterations
+          and int(res.iterations.min()) >= 1)
+    nv = int(np.prod(shape))
+    over = ~(np.isfinite(res.means).all(axis=1))
+    names = ["amp1", "r1", "amp2", "r2"]
+    mover = np.zeros(shape, bool)
+    for n in names:
+        mover |= ~np.isfinite(run.data[f"mean_{n}"])
+        mover |= ~np.isfinite(run.data[f"std_{n}"])
+    n_over = int(mover.sum())
+    fit = run.data["modelfit"].reshape(-1, BI_NT, order="F")
+    within = float((np.abs(fit - clean).max(axis=1) <= 3 * BI_SD).mean())
+    noise_sd = float(np.median(1 / np.sqrt(run.data["noise_means"])))
+    log(f" fit within 3 noise sd of the noiseless signal: {within:.5f} of "
+        f"voxels (bound >= 0.70); median noise sd {noise_sd:.5f} (truth "
+        f"0.05, bound 5%); model-space overflow {n_over} voxels (bound "
+        f"<= {nv // 100}); non-finite latent means {int(over.sum())}")
+    ok &= (within >= 0.70 and abs(noise_sd / BI_SD - 1) <= 0.05
+           and n_over <= nv // 100)
+    return ok, launches, secs, hist
+
+
+def run_poly_trialmode_path(device, shape=(128, 128, 64)):
+    """Phase 4g: poly degree 2 (T=106) through run_with_data under
+    --convergence=trialmode: the statistics kernel and the core
+    kernel's detector mode each launched once; c0 within 3 posterior sd
+    of truth in >= 99% of voxels and the median noise sd within 5% of
+    1, as phase 4."""
+    from fabber_core_tpu_torch.api import FabberTpu
+    from fabber_core_tpu_torch.ops import fused_spectral as fs
+
+    vol, c0 = make_volume(shape)
+    fs.spectral_stats.launches = 0
+    fs.spectral_core.launches = fs.spectral_core.det_launches = 0
+    captured, restore = capture_results()
+    t0 = time.perf_counter()
+    try:
+        run = FabberTpu(device=device).run_with_data(
+            {**MAIN_OPTIONS, "convergence": "trialmode"}, {"data": vol})
+    finally:
+        restore()
+    secs = time.perf_counter() - t0
+    eng, res = captured[-1]
+    launches = {"spectral_stats": fs.spectral_stats.launches,
+                "spectral_core:detector": fs.spectral_core.det_launches}
+    log(f" run_with_data: {secs:.3f} s; launches {launches}; route: "
+        f"{eng.route_description()}")
+    log(f" iterations histogram {its_histogram(res.iterations)}")
+    within = np.abs(run.data["mean_c0"] - c0) <= 3 * run.data["std_c0"]
+    frac = float(within.mean())
+    noise_sd = float(np.median(1 / np.sqrt(run.data["noise_means"])))
+    log(f" c0 within 3 posterior sd of truth: {frac:.5f} of voxels "
+        f"(bound >= 0.99); median noise sd {noise_sd:.4f} (truth 1)")
+    ok = (launches["spectral_stats"] == 1
+          and launches["spectral_core:detector"] == 1
+          and fs.spectral_core.launches == 1
+          and all(np.isfinite(a).all() for a in run.data.values())
+          and frac >= 0.99 and abs(noise_sd - 1.0) < 0.05)
+    return ok, launches, secs
+
+
+def check_per_iteration_lm(device, nv=65_536):
+    """Phase 4h: the per-iteration route under lm (engine-kernel=pallas,
+    biexp, 65,536 voxels): kernel 7 launched with its LM branch once
+    per iteration of the engine's while loop, and the result against
+    the whole-loop route under lm on the same data, held as phase 4e."""
+    import torch
+    from fabber_core_tpu_torch.ops import fused_loop_nl as fl
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 9)
+    data, clean, _ = biexp_plane(nv, gen, device)
+    res = {}
+    for mode in ("pallas", "auto"):
+        eng = nl_engine("biexp", "1", data, device,
+                        {"engine-kernel": mode, "convergence": "lm"})
+        fl.fused_nl_loop.launches = fl.fused_nl_loop.det_launches = 0
+        fv.fused_iteration.launches = fv.fused_iteration.lm_launches = 0
+        r = eng.run()
+        res[mode] = (eng.route, fv.fused_iteration.lm_launches,
+                     fv.fused_iteration.launches,
+                     fl.fused_nl_loop.det_launches,
+                     torch.as_tensor(r.means.T.copy(), device=device),
+                     r.iterations, eng.max_iter_cap)
+    good = {m: fit_quality(eng.model, eng._transforms(), res[m][4],
+                           clean)[0] for m in res}
+    agree = canonical_close(res["pallas"][4], res["auto"][4])
+    n_lm = res["pallas"][1]
+    ok = (res["pallas"][0] == "pallas" and n_lm == res["pallas"][2]
+          and 1 <= n_lm <= res["pallas"][6] and res["auto"][3] == 1
+          and res["auto"][0] == "pallas-loop-nl"
+          and abs(good["pallas"] - good["auto"]) <= 0.03 and agree >= 0.5)
+    log(f" per-iteration route under lm: {n_lm} fused_vb_iter launches, "
+        f"all with the LM branch (one per iteration of the engine's while "
+        f"loop, cap {res['pallas'][6]}); iterations "
+        f"{its_histogram(res['pallas'][5])}; fit within 3 sd "
+        f"{good['pallas']:.5f} vs whole-loop {good['auto']:.5f} (bound "
+        f"|diff| <= 0.03); sorted parameters agree in {agree:.5f} (bound "
+        f">= 0.5) {'ok' if ok else 'FAIL'}")
+    return ok, n_lm
+
+
+def bound(nbytes, nops):
+    """(bound_ms, bound_by): the larger of bytes over the card's memory
+    rate and float32 operations over its float32 rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nl_pass_ops(p, nq, nexp, kind):
+    """float32 operations per voxel and sample of one pass of the
+    nonlinear kernels (expf counted as one): 'A' the iteration pass
+    (model, J'QJ, J'Qr, r'Qr), 'B' the per-iteration kernel's k pass,
+    'F' the free-energy pass."""
+    nt = p * (p + 1) // 2
+    model = 6 * nexp + p
+    if kind == "A":
+        return model + 1 + nq * (1 + p + 2 * nt + 2 * p + 2)
+    if kind == "B":
+        return model + 1 + 2 * p + 1 + 2 * nq
+    return model + 1 + 1 + nq * (2 + p + 2 * nt)
+
+
+def time_detectors(device, card, fig, fig_nl, nv_poly=16_777_216,
+                   nv_bi=4_000_000):
+    """Phase 5c: the detector modes at the headline sizes (CUDA events,
+    best of 3 after a warm-up; the plain versions best of 1 after a
+    warm-up): spectral_core under trialmode at 16,777,216 poly voxels
+    beside its maxits time (phase 5); fused_nl_loop under trialmode
+    and lm at 4,000,000 biexp voxels beside its maxits time (phase 5b),
+    its lanes held to the plain version by lane_decisions; one
+    fused_vb_iter launch with the LM branch; VBInference.run() of biexp
+    under trialmode. The iteration histograms are the kernels' own (the
+    last timed launch), the plain version's beside them; the pass counts
+    behind the bounds are the plain version's. Returns (ok, figures)."""
+    import torch
+    from fabber_core_tpu_torch.ops import fused_loop_nl as fl
+    from fabber_core_tpu_torch.ops import fused_spectral as fs
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    from fabber_core_tpu_torch.ops import smallmat as sm
+    from fabber_core_tpu_torch.ops.spectral import eigen_elbo_const
+
+    out, ok = {}, True
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 2)
+    p, design = 3, poly_design(3)
+    q = np.ones(NT)
+    c_post = (NT - 1) * 0.5 + 1e-6
+    plane, _ = gen_plane(design, nv_poly, gen, [100.0, 0.5, 0.005], 1.0,
+                         device)
+    tc = fs.pack_mxu_consts(design, q, NT, torch.float32, device)
+    ac = fs.pack_solve_consts(design, q, NT, torch.float32)
+    sc = fs.pack_spectral_consts(
+        design, q, NT, np.full(p, 1e-12), 1e-6, c_post, 1e-8, 50.0,
+        torch.float32, (eigen_elbo_const(q, c_post, 1e-6, 1e6, p),
+                        c_post + 0.5))
+    stats = fs.spectral_stats(plane, tc, ac)
+    del plane
+    pm = torch.zeros((p, nv_poly), dtype=torch.float32, device=device)
+    det = make_detector("trialmode")
+    cap = int(det.max_iterations) + 2
+    out["core_det_ms"], k = best_ms(
+        lambda: fs.spectral_core(*stats, pm, sc, cap, det), keep=True)
+    out["core_det_its"] = its_histogram(k[6][0].cpu().numpy())
+    del k
+    counter = trip_counter(det)
+    r = fs.spectral_core_plain(*stats, pm, sc, cap, counter)
+    out["core_det_plain_ms"] = best_ms(
+        lambda: fs.spectral_core_plain(*stats, pm, sc, cap, det), reps=1)
+    core_bytes = 4 * ((3 * p + 1) + (2 * p * p + p + 4)) * nv_poly
+    core_ops = (10 * p * p + 12 * p + 2 * p * p + 3 * p ** 3 + 40) * nv_poly \
+        + (12 * p + 30) * counter.trips
+    out["core_det_bound"] = bound(core_bytes, core_ops)
+    out["core_maxits_bound"] = bound(
+        core_bytes, (10 * p * p + 12 * p + 2 * p * p + 3 * p ** 3 + 40
+                     + (ITERS - 1) * (9 * p + 5)) * nv_poly)
+    out["stats_bound"] = bound(4 * NT * nv_poly
+                               + 4 * (2 * p + 1) * nv_poly,
+                               (6 * p + 2) * NT * nv_poly)
+    del stats, pm, r
+    torch.cuda.empty_cache()
+
+    gen.manual_seed(SEED + 7)
+    plane, _, truth = biexp_plane(nv_bi, gen, device)
+    nl_bytes = 4 * BI_NT * nv_bi + 4 * (3 * 4 + 4 + 2 * 16 + 4) * nv_bi
+    a_ops = nl_pass_ops(4, 1, 2, "A") * BI_NT
+    f_ops = nl_pass_ops(4, 1, 2, "F") * BI_NT
+    out["nl_maxits_bound"] = bound(nl_bytes,
+                                   (ITERS * a_ops + f_ops + 200 * ITERS)
+                                   * nv_bi)
+    for kind in ("trialmode", "lm"):
+        eng = nl_engine("biexp", "1", plane, device, {"convergence": kind})
+        tr = eng._transforms()
+        s0 = eng.initial_state()
+        args = eng.nl_loop_args(s0)
+        det = eng._nl_fdet_consts()
+        n_it = int(eng.detector.max_iterations)
+        out[f"nl_{kind}_ms"], k = best_ms(lambda: fl.fused_nl_loop(
+            eng.model, tr, *args, n_it, True, detector=det), keep=True)
+        out[f"nl_{kind}_its"] = its_histogram(k[6][0].cpu().numpy())
+        ts = eng.model.time_signal_jac
+        counter = trip_counter(eng.detector)
+        cdet = {**det, "det": counter}
+        r = fl.fused_nl_loop_plain(ts, tr, *args, n_it, True, detector=cdet)
+        out[f"nl_{kind}_plain_its"] = its_histogram(r[6][0].cpu().numpy())
+        out[f"nl_{kind}_plain_ms"] = best_ms(
+            lambda: fl.fused_nl_loop_plain(ts, tr, *args, n_it, True,
+                                           detector=det), reps=1)
+        # the plain version at float64 on a slice of the lanes (each
+        # lane's loop is its own, so a slice gives the same lanes)
+        sl = slice(0, F64_LANES)
+        r64 = fl.fused_nl_loop_plain(
+            ts, tr, *(a[..., sl].double() for a in args[:4]), *args[4:],
+            n_it, True, detector=det)
+        ok &= lane_decisions(f"fused_nl_loop biexp {kind} V={nv_bi}", k, r,
+                             r64, sl)
+        # model passes of the plain version: pass 0 of every lane plus
+        # one per test of a lane still running (the last of which is the
+        # F pass's)
+        passes = nv_bi + counter.trips
+        out[f"nl_{kind}_plain_passes_per_voxel"] = passes / nv_bi
+        out[f"nl_{kind}_bound"] = bound(nl_bytes, passes * (a_ops + 300))
+        del k, r, r64, args, s0
+        torch.cuda.empty_cache()
+    # one LM launch of the per-iteration kernel
+    args = eng.nl_loop_args(eng.initial_state())
+    phi = torch.full((1, nv_bi), 1.0 / BI_SD ** 2, device=device)
+    lat = torch.log(truth).contiguous()
+    alpha = torch.full((nv_bi,), 1e-3, device=device)
+    it_args = (lat, args[1], args[2], phi, args[3], args[4], True)
+    out["vb_iter_lm_ms"] = best_ms(lambda: fv.fused_iteration(
+        eng.model, tr, *it_args, alpha))
+    out["vb_iter_lm_plain_ms"] = best_ms(lambda: fv.fused_iteration_plain(
+        eng.model.time_signal_jac, tr, *it_args, alpha), reps=1)
+    vb_ops = (nl_pass_ops(4, 1, 2, "A") + nl_pass_ops(4, 1, 2, "B")
+              + nl_pass_ops(4, 1, 2, "F")) * BI_NT + 400
+    vb_bytes = 4 * BI_NT * nv_bi + 4 * (3 * 4 + 1 + 4 + 2 * 16 + 4) * nv_bi
+    out["vb_iter_bound"] = bound(vb_bytes, vb_ops * nv_bi)
+    out["vb_iter_lm_bound"] = bound(vb_bytes + 4 * nv_bi,
+                                    (vb_ops + 100) * nv_bi)
+    del phi, lat, alpha, it_args, args
+    torch.cuda.empty_cache()
+    # the whole engine run under trialmode
+    eng = nl_engine("biexp", "1", plane, device, {"convergence": "trialmode"})
+    eng.run()                                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.run()
+    out["run_trialmode_s"] = time.perf_counter() - t0
+    out["run_trialmode_voxels_per_s"] = nv_bi / out["run_trialmode_s"]
+    out["run_trialmode_its"] = its_histogram(res.iterations)
+    for k, v in out.items():
+        log(f" {k} = {v!r}  [{card}]")
+    log(f" beside: spectral_core maxits {fig['core_ms']!r} ms, "
+        f"fused_nl_loop maxits {fig_nl['nl_loop_ms']!r} ms, fused_vb_iter "
+        f"{fig_nl['vb_iter_ms']!r} ms (phases 5, 5b)")
+    return ok, out
+
+
 def main():
     try:
         import torch
@@ -808,6 +1399,9 @@ def main():
     log("phase 3b: nonlinear kernels against their plain versions")
     ok3b, worst_nl = check_nl_kernels(device)
     worst.update(worst_nl)
+    log("phase 3c: the detector modes against their plain versions")
+    ok3c, worst_det = check_detector_kernels(device)
+    worst.update(worst_det)
 
     # phase 4: the main paths through the API; each path's launch
     # counters are zeroed just before it and read just after it
@@ -822,49 +1416,68 @@ def main():
     log("phase 4e: the per-iteration route (engine-kernel=pallas)")
     ok4e, iter_launches = check_per_iteration_route(device)
     launches["fused_vb_iter"] = iter_launches
+    log("phase 4f: run_with_data, 128x128x64 x 100, biexp, trialmode")
+    ok4f, det_launches, _, _ = run_biexp_trialmode_path(device)
+    launches.update(det_launches)
+    log("phase 4g: run_with_data, 128x128x64 x 106, poly, trialmode")
+    ok4g, det_launches, _ = run_poly_trialmode_path(device)
+    launches["spectral_core:detector"] = \
+        det_launches["spectral_core:detector"]
+    ok4g &= det_launches["spectral_stats"] == 1
+    log("phase 4h: the per-iteration route under lm")
+    ok4h, lm_launches = check_per_iteration_lm(device)
+    launches["fused_vb_iter:lm"] = lm_launches
 
     # phase 5: timing at the headline sizes
     log("phase 5: timing at 16,777,216 voxels")
     fig = time_headline(device, card)
     log("phase 5b: biexp timing at 4,000,000 voxels")
     fig_nl = time_biexp(device, card)
+    log("phase 5c: the detector modes at the headline sizes")
+    ok5c, fig_det = time_detectors(device, card, fig, fig_nl)
 
-    phases = {"kernels": ok3, "nl_kernels": ok3b, "main_path": ok4,
-              "engine_vs_f64": ok4b, "biexp_path": ok4c,
-              "exp_engine_vs_f64": ok4d, "per_iteration_route": ok4e}
+    phases = {"kernels": ok3, "nl_kernels": ok3b, "detector_kernels": ok3c,
+              "main_path": ok4, "engine_vs_f64": ok4b, "biexp_path": ok4c,
+              "exp_engine_vs_f64": ok4d, "per_iteration_route": ok4e,
+              "biexp_trialmode_path": ok4f, "poly_trialmode_path": ok4g,
+              "per_iteration_lm": ok4h, "detector_lanes_at_4M": ok5c}
     if not all(phases.values()):
         log(f"FAILED phases: {[k for k, v in phases.items() if not v]}")
         return 1
     src = "fabber_core_tpu_torch/csrc/"
+
+    def entry(name, source, replaces, ms, plain_ms, bnd):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": worst[name][0],
+                "err_over_bound": worst[name][1], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": None}
+
+    core_at = "fabber_core_tpu/ops/fused_spectral.py:760"
+    nl_at = "fabber_core_tpu/ops/fused_loop_nl.py:162"
+    it_at = "fabber_core_tpu/ops/fused_vb.py:184"
     kernels = [
-        {"name": "spectral_stats", "route": "cuda",
-         "source": src + "spectral_stats.cu",
-         "replaces": "fabber_core_tpu/ops/fused_spectral.py:632",
-         "launches": launches["spectral_stats"],
-         "max_abs_err": worst["spectral_stats"][0],
-         "err_over_bound": worst["spectral_stats"][1],
-         "ms": fig["stats_ms"], "plain_ms": fig["stats_plain_ms"]},
-        {"name": "spectral_core", "route": "cuda",
-         "source": src + "spectral_core.cu",
-         "replaces": "fabber_core_tpu/ops/fused_spectral.py:760",
-         "launches": launches["spectral_core"],
-         "max_abs_err": worst["spectral_core"][0],
-         "err_over_bound": worst["spectral_core"][1],
-         "ms": fig["core_ms"], "plain_ms": fig["core_plain_ms"]},
-        {"name": "fused_nl_loop", "route": "cuda",
-         "source": src + "fused_nl_loop.cu",
-         "replaces": "fabber_core_tpu/ops/fused_loop_nl.py:162",
-         "launches": launches["fused_nl_loop"],
-         "max_abs_err": worst["fused_nl_loop"][0],
-         "err_over_bound": worst["fused_nl_loop"][1],
-         "ms": fig_nl["nl_loop_ms"], "plain_ms": fig_nl["nl_loop_plain_ms"]},
-        {"name": "fused_vb_iter", "route": "cuda",
-         "source": src + "fused_vb_iter.cu",
-         "replaces": "fabber_core_tpu/ops/fused_vb.py:184",
-         "launches": launches["fused_vb_iter"],
-         "max_abs_err": worst["fused_vb_iter"][0],
-         "err_over_bound": worst["fused_vb_iter"][1],
-         "ms": fig_nl["vb_iter_ms"], "plain_ms": fig_nl["vb_iter_plain_ms"]},
+        entry("spectral_stats", "spectral_stats.cu",
+              "fabber_core_tpu/ops/fused_spectral.py:632", fig["stats_ms"],
+              fig["stats_plain_ms"], fig_det["stats_bound"]),
+        entry("spectral_core", "spectral_core.cu", core_at, fig["core_ms"],
+              fig["core_plain_ms"], fig_det["core_maxits_bound"]),
+        entry("spectral_core:detector", "spectral_core.cu", core_at,
+              fig_det["core_det_ms"], fig_det["core_det_plain_ms"],
+              fig_det["core_det_bound"]),
+        entry("fused_nl_loop", "fused_nl_loop.cu", nl_at,
+              fig_nl["nl_loop_ms"], fig_nl["nl_loop_plain_ms"],
+              fig_det["nl_maxits_bound"]),
+        entry("fused_nl_loop:detector", "fused_nl_loop.cu", nl_at,
+              fig_det["nl_trialmode_ms"], fig_det["nl_trialmode_plain_ms"],
+              fig_det["nl_trialmode_bound"]),
+        entry("fused_vb_iter", "fused_vb_iter.cu", it_at,
+              fig_nl["vb_iter_ms"], fig_nl["vb_iter_plain_ms"],
+              fig_det["vb_iter_bound"]),
+        entry("fused_vb_iter:lm", "fused_vb_iter.cu", it_at,
+              fig_det["vb_iter_lm_ms"], fig_det["vb_iter_lm_plain_ms"],
+              fig_det["vb_iter_lm_bound"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
 """Carry per-run state between the JAX package and this port.
 
 The system has no trained weights; what crosses over is per-run state:
-the fixed-design sufficient statistics, the posterior, the noise state
-and the whole-loop kernel's constant vector. Inputs are
+the fixed-design sufficient statistics, the posterior (and the best
+state the detectors keep, a posterior too), the noise state, the
+convergence detectors' lane state and the whole-loop kernel's constant
+vector. Inputs are
 anything numpy can read (JAX arrays included, through np.asarray, so
 this module never imports jax); outputs are the port's tensors, and
 to_numpy goes back the other way.
@@ -11,6 +13,7 @@ to_numpy goes back the other way.
 import numpy as np
 import torch
 
+from .inference.convergence import ConvState
 from .inference.vb import PosteriorState, VBResult
 from .noise.white import WhiteNoiseState
 
@@ -36,6 +39,14 @@ def noise_state_from_numpy(state, device="cpu", dtype=None):
     [Q,V] or [Q,1])."""
     return WhiteNoiseState(_tensor(state.b, device, dtype),
                            _tensor(state.c, device, dtype))
+
+
+def conv_state_from_numpy(state, device="cpu"):
+    """The port's ConvState from the JAX package's (its [V] lanes: int32
+    counts, bool flags, prev_f and alpha in their float dtype)."""
+    return ConvState(*(torch.as_tensor(np.array(getattr(state, f)),
+                                       device=device)
+                       for f in ConvState._fields))
 
 
 def nl_consts_from_numpy(consts):

@@ -1,9 +1,11 @@
-// fused_nl_loop: the whole maxits VB loop of a time-local nonlinear model
-// with white noise, for Hopper (sm_90a).
+// fused_nl_loop: the whole VB loop of a time-local nonlinear model with
+// white noise, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel fabber_core_tpu/ops/fused_loop_nl.py
-// make_fused_nl_loop (its pallas_call at line 890) in time_signal mode
-// with no in-kernel detector (maxits). Plain version:
+// make_fused_nl_loop (its pallas_call at line 890) in time_signal mode,
+// in three modes (template MODE): maxits (0), the in-kernel pointzeroone
+// and freduce detectors (1), and the in-kernel trialmode and lm
+// detectors with their best-state copies (2). Plain version:
 // fabber_core_tpu_torch/ops/fused_loop_nl.py fused_nl_loop_plain.
 //
 // One thread per voxel; the posterior, the noise and every per-iteration
@@ -20,23 +22,51 @@
 // The posterior carry starts at zero and the noise at (b_init, c_init),
 // as the TPU kernel's.
 //
+// Detector modes (fused_loop_nl.py:56-84, 281-292): pass k's model
+// evaluation at its centre (iteration k-1's means) yields exactly
+// iteration k-1's k'Q_qk and J'Q_qJ, so iteration k-1's F is assembled
+// from the current pass's quadratics, the carried posterior and host
+// constants (the Gamma-function terms at the fixed c_post: lb_coeff,
+// f_const), and its test (detectors.cuh) runs before iteration k's
+// update, with no extra model pass. A lane whose test says done keeps
+// its state and its thread leaves the loop; a lane still running after
+// n_iters passes takes its last test on the F pass at the final means.
+// freduce also captures the ELBO of the initial posterior on pass 0
+// (f_const_init: the Gamma terms at c_init; pd0 = its variances) as the
+// F a reverted lane reports, and flags the lane; the engine restores the
+// initial planes. trialmode and lm keep a best state (means, b, c, prec,
+// cov, F), save the carry into it where the test sets save, and after
+// the loop apply the engine's finalize (best-save, then the revert
+// selection). The best state is written through to the lane's own
+// output columns at each save (the columns a reverted lane keeps; F
+// stays in a register) rather than copied into 26 more registers at
+// biexp Q=1, which measured slower on the H100 (PERF.md). lm takes the
+// damped step centre + (Lambda + alpha diag Lambda)^-1 (sum_q phi_q
+// J'Q_q r + pp (pm - centre)) where alpha > 0 (fused_loop_nl.py:562-591).
+// Outputs
+// in detector modes: fkqk[0] = F, ftr[0] = the lane's iteration count;
+// freduce adds fkqk[1] = the revert flag, ftr[1] = 0.
+//
 // Dropped TPU machinery: the [TB,B] partial-sum planes (the time sums
 // are two-level in registers instead: kTB = 8 samples into block sums,
 // blocks into the totals, which keeps the accuracy the partial planes
 // gave), the edge-padded time axis (the [T,Q] group weights carry
 // masked samples as 0; the last block runs short), the 1024-voxel
-// padding (a bounds check masks the ragged last block) and the [4Q,1]
-// constant column (the constants ride by value).
+// padding (a bounds check masks the ragged last block), the [4Q,1]
+// constant column (the constants ride by value) and the tile-wide
+// early-exit reduction (each thread leaves its own loop).
 //
-// What bounds it on this card: the data column is read n_iters + 1
-// times (once per iteration, once for F), 4*T bytes per voxel each
-// time, coalesced across the warp (voxels on the last axis). At
-// 4,000,000 voxels the 1.6 GB plane is far above the 50 MB L2, so each
-// pass goes to HBM. Per sample and iteration the arithmetic is one
-// model evaluation (NEXP expf for exp-sum models) plus
-// Q*(P(P+1)/2 + P + 1) multiply-adds. The data tile is not staged in
-// shared memory yet (a later change could read it once).
+// What bounds it on this card: the data column is read once per
+// iteration and once for F, 4*T bytes per voxel each time, coalesced
+// across the warp (voxels on the last axis). At 4,000,000 voxels the
+// 1.6 GB plane is far above the 50 MB L2, so each pass goes to HBM. Per
+// sample and iteration the arithmetic is one model evaluation (NEXP expf
+// for exp-sum models) plus Q*(P(P+1)/2 + P + 1) multiply-adds. The data
+// tile is not staged in shared memory yet (a later change could read it
+// once). In the detector modes a warp runs until its slowest lane is
+// done.
 
+#include "detectors.cuh"
 #include "vb_device.cuh"
 
 namespace {
@@ -45,11 +75,72 @@ using namespace fabber;
 
 constexpr int kThreads = 128;
 
-template <class M, int Q>
+// Everything a detector-mode launch adds: the detector's options and the
+// host float64 ELBO constants of VBInference._nl_fdet_consts, rounded to
+// float32.
+struct NLDetConsts {
+  DetParams d;
+  float lb_coeff[kMaxQ];   // n_q/2 + c0_q, the coefficient of log b_q
+  float f_const;           // voxel-invariant ELBO terms at c_post
+  float f_const_init;      // the same at c_init (freduce's initial F)
+};
+
+// free_energy_from_parts with the noise shape fixed (the Gamma-function
+// terms live in base and lb_coeff), operation order of the TPU kernel's
+// assemble_f.
+template <int P, int Q>
+__device__ __forceinline__ float assemble_f(
+    const VBParams& k, const NLDetConsts& dc, float base, const float* cen,
+    const float* b, const float* c, const float* covdiag, float logdet,
+    const float* kqk, const float* trace, const float* pm, const float* pp) {
+  float v = base - 0.5f * logdet;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const float phi = b[q] * c[q];
+    v = v + dc.lb_coeff[q] * logf(b[q]) - phi * k.inv_b0[q] -
+        0.5f * phi * kqk[q] - 0.5f * trace[q];
+  }
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const float dm = cen[i] - pm[i];
+    v = v - 0.5f * (dm * dm + covdiag[i]) * pp[i];
+  }
+  return v;
+}
+
+template <int P>
+__device__ __forceinline__ void packed_diag(const float* packed, float* d) {
+#pragma unroll
+  for (int i = 0; i < P; ++i) d[i] = packed[tri(i, i)];
+}
+
+// the lane's posterior into its output columns
+template <int P, int Q>
+__device__ __forceinline__ void store_state(
+    const float* means, const float* prec, const float* cov, const float* b,
+    const float* c, float* __restrict__ means_out,
+    float* __restrict__ prec_out, float* __restrict__ cov_out,
+    float* __restrict__ b_out, float* __restrict__ c_out, long long V,
+    long long v) {
+#pragma unroll
+  for (int i = 0; i < P; ++i) means_out[(size_t)i * V + v] = means[i];
+  store_full<P>(prec, prec_out, V, v);
+  store_full<P>(cov, cov_out, V, v);
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    b_out[(size_t)q * V + v] = b[q];
+    c_out[(size_t)q * V + v] = c[q];
+  }
+}
+
+// MODE 0: maxits; 1: pointzeroone / freduce; 2: trialmode / lm
+template <class M, int Q, int MODE>
 __global__ void __launch_bounds__(kThreads)
-fused_nl_loop_kernel(const VBParams k, const float* __restrict__ centre0,
+fused_nl_loop_kernel(const VBParams k, const NLDetConsts dc,
+                     const float* __restrict__ centre0,
                      const float* __restrict__ pm_in,
                      const float* __restrict__ pp_in,
+                     const float* __restrict__ pd0_in,
                      const float* __restrict__ data,
                      const float* __restrict__ qw,
                      float* __restrict__ means_out,
@@ -58,6 +149,7 @@ fused_nl_loop_kernel(const VBParams k, const float* __restrict__ centre0,
                      float* __restrict__ c_out, float* __restrict__ fkqk_out,
                      float* __restrict__ ftr_out) {
   constexpr int P = M::P, NT = P * (P + 1) / 2;
+  constexpr bool kDet = MODE != 0, kBest = MODE == 2;
   const long long V = k.V;
   const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= V) return;
@@ -80,6 +172,20 @@ fused_nl_loop_kernel(const VBParams k, const float* __restrict__ centre0,
   for (int i = 0; i < NT; ++i) prec[i] = cov[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < P; ++i) means[i] = centre[i];
+
+  // detector lanes (dead code in MODE 0)
+  DetState cv = fabber::det_init(dc.d);
+  const bool freduce = MODE == 1 && dc.d.kind == fabber::kFreduce;
+  const bool with_lm = kBest && dc.d.kind == fabber::kLM;
+  // b_f: the F of the best state (MODE 2; the state itself lives in
+  // the output columns)
+  float logdet = 0.f, f_st = 0.f, rev_f = 0.f, part3 = 0.f, b_f = 0.f;
+  if constexpr (kDet) {
+    // voxel-varying but iteration-invariant ELBO piece
+    part3 = dc.f_const;
+#pragma unroll
+    for (int i = 0; i < P; ++i) part3 = part3 + 0.5f * logf(pp[i]);
+  }
 
   for (int it = 0; it < k.n_iters; ++it) {
     float phi[Q];
@@ -119,9 +225,82 @@ fused_nl_loop_kernel(const VBParams k, const float* __restrict__ centre0,
       add_sums<P, Q>(jtj, jtr, rqr, bjtj, bjtr, brqr);
     }
 
+    if constexpr (kDet) {
+      // ---- the deferred test of iteration it-1: this pass evaluated
+      // the model at its means, so rqr is its k'Q_qk and jtj its J'Q_qJ
+      float trace[Q], cdiag[P];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) trace[q] = trace_packed<P>(cov, jtj[q]);
+      packed_diag<P>(cov, cdiag);
+      const float f_here = assemble_f<P, Q>(k, dc, part3, centre, b, c,
+                                            cdiag, logdet, rqr, trace, pm,
+                                            pp);
+      if (freduce && it == 0) {
+        // pass 0 evaluates at the initial means: the initial-state ELBO
+        // (diagonal initial covariance pd0, noise shape c_init) is the
+        // F a reverted lane reports
+        float pd0[P], tr0[Q];
+        float ld0 = 0.f, base = dc.f_const_init;
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+          pd0[i] = pd0_in[(size_t)i * V + v];
+          ld0 = ld0 - logf(pd0[i]);
+          base = base + 0.5f * logf(pp[i]);
+        }
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          float s = 0.f;
+#pragma unroll
+          for (int i = 0; i < P; ++i) s = s + pd0[i] * jtj[q][tri(i, i)];
+          tr0[q] = s;
+        }
+        rev_f = assemble_f<P, Q>(k, dc, base, centre, b, c, pd0, ld0, rqr,
+                                 tr0, pm, pp);
+      }
+      if (it >= 1) {
+        const bool reduced = f_here - cv.prev_f < 0.f;
+        fabber::det_test(dc.d, cv, f_here);
+        f_st = (freduce && reduced) ? rev_f : f_here;
+        if constexpr (kBest) {
+          if (cv.save) {
+            // the top-of-iteration save of the engine: the carry is
+            // iteration it-1's state
+            store_state<P, Q>(centre, prec, cov, b, c, means_out, prec_out,
+                              cov_out, b_out, c_out, V, v);
+            b_f = f_here;
+          }
+        }
+        if (cv.done) break;   // a frozen lane keeps iteration it-1's state
+      }
+    }
+
     // ---- solve (Eq 19/20) ----------------------------------------------
+    float ch[NT];
     posterior_solve<P, Q, true>(jtj, jtr, phi, centre, pm, pp, prec, cov,
-                                means);
+                                means, ch);
+    if constexpr (kBest) {
+      if (with_lm && cv.alpha > 0.f) {
+        // LM-damped step: (Lambda + alpha diag Lambda) x = sum_q phi_q
+        // J'Q_q r + pp (pm - centre), means = centre + x; prec and cov
+        // stay undamped
+        float damped[NT], dch[NT], delta[P];
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+#pragma unroll
+          for (int j = 0; j <= i; ++j)
+            damped[tri(i, j)] =
+                prec[tri(i, j)] + (i == j ? cv.alpha * prec[tri(i, i)] : 0.f);
+          float s = pp[i] * (pm[i] - centre[i]);
+#pragma unroll
+          for (int q = 0; q < Q; ++q) s = s + phi[q] * jtr[q][i];
+          delta[i] = s;
+        }
+        cholesky_jittered<P>(damped, dch);
+        chol_solve<P>(dch, delta);
+#pragma unroll
+        for (int i = 0; i < P; ++i) means[i] = centre[i] + delta[i];
+      }
+    }
 
     // ---- k'Q_qk by exact expansion, then the phi update (Eq 21/22) ------
     float d[P];
@@ -150,40 +329,90 @@ fused_nl_loop_kernel(const VBParams k, const float* __restrict__ centre0,
     }
 #pragma unroll
     for (int i = 0; i < P; ++i) centre[i] = means[i];
+    if constexpr (kDet) {
+      float ld = 0.f;
+#pragma unroll
+      for (int i = 0; i < P; ++i) ld = ld + 2.f * logf(ch[tri(i, i)]);
+      logdet = ld;
+    }
   }
 
+  if constexpr (!kDet) {
 #pragma unroll
-  for (int i = 0; i < P; ++i) means_out[(size_t)i * V + v] = means[i];
-  store_full<P>(prec, prec_out, V, v);
-  store_full<P>(cov, cov_out, V, v);
-  float fkqk[Q], ftr[Q];
-  if (k.need_f) {
-    f_pass<M, Q>(k.tcode, k.dt, means, cov, data, qw, k.nt, V, v, fkqk,
-                 ftr);
+    for (int i = 0; i < P; ++i) means_out[(size_t)i * V + v] = means[i];
+    store_full<P>(prec, prec_out, V, v);
+    store_full<P>(cov, cov_out, V, v);
+    float fkqk[Q], ftr[Q];
+    if (k.need_f) {
+      f_pass<M, Q>(k.tcode, k.dt, means, cov, data, qw, k.nt, V, v, fkqk,
+                   ftr);
+    } else {
+#pragma unroll
+      for (int q = 0; q < Q; ++q) fkqk[q] = ftr[q] = 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      b_out[(size_t)q * V + v] = b[q];
+      c_out[(size_t)q * V + v] = c[q];
+      fkqk_out[(size_t)q * V + v] = fkqk[q];
+      ftr_out[(size_t)q * V + v] = ftr[q];
+    }
   } else {
-#pragma unroll
-    for (int q = 0; q < Q; ++q) fkqk[q] = ftr[q] = 0.f;
-  }
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    b_out[(size_t)q * V + v] = b[q];
-    c_out[(size_t)q * V + v] = c[q];
-    fkqk_out[(size_t)q * V + v] = fkqk[q];
-    ftr_out[(size_t)q * V + v] = ftr[q];
+    if (!cv.done) {
+      // the last iteration's test, on the F pass at the final means
+      float kqk2[Q], trace2[Q], cdiag[P];
+      f_pass<M, Q>(k.tcode, k.dt, centre, cov, data, qw, k.nt, V, v, kqk2,
+                   trace2);
+      packed_diag<P>(cov, cdiag);
+      const float f_last = assemble_f<P, Q>(k, dc, part3, centre, b, c,
+                                            cdiag, logdet, kqk2, trace2, pm,
+                                            pp);
+      const bool reduced = f_last - cv.prev_f < 0.f;
+      fabber::det_test(dc.d, cv, f_last);
+      f_st = (freduce && reduced) ? rev_f : f_last;
+    }
+    // the engine's finalize: best <- final where save, then the output
+    // <- best where revert (its F is the one captured at the save); a
+    // lane's first save precedes any revert (the first test always
+    // continues), so the best copy is always written before it is read
+    const bool keep_best = kBest && cv.revert && !cv.save;
+    // a lane keeping its best state has it in its output columns already
+    if (keep_best)
+      f_st = b_f;
+    else
+      store_state<P, Q>(centre, prec, cov, b, c, means_out, prec_out,
+                        cov_out, b_out, c_out, V, v);
+    fkqk_out[v] = f_st;
+    ftr_out[v] = (float)cv.its;
+    if (freduce) {
+      fkqk_out[(size_t)V + v] = cv.revert ? 1.f : 0.f;
+      ftr_out[(size_t)V + v] = 0.f;
+    }
   }
 }
 
 // ---- launch and C entry point -------------------------------------------
 
-template <class M, int Q>
-int launch(const VBParams& k, const float* centre0, const float* pm,
-           const float* pp, const float* data, const float* qw,
-           float* const* outs, cudaStream_t stream) {
+template <class M, int Q, int MODE>
+int launch_mode(const VBParams& k, const NLDetConsts& dc,
+                const float* const* ins, float* const* outs,
+                cudaStream_t stream) {
   const unsigned grid = (unsigned)((k.V + kThreads - 1) / kThreads);
-  fused_nl_loop_kernel<M, Q><<<grid, kThreads, 0, stream>>>(
-      k, centre0, pm, pp, data, qw, outs[0], outs[1], outs[2], outs[3],
-      outs[4], outs[5], outs[6]);
+  fused_nl_loop_kernel<M, Q, MODE><<<grid, kThreads, 0, stream>>>(
+      k, dc, ins[0], ins[1], ins[2], ins[3], ins[4], ins[5], outs[0],
+      outs[1], outs[2], outs[3], outs[4], outs[5], outs[6]);
   return (int)cudaGetLastError();
+}
+
+template <class M, int Q>
+int launch(const VBParams& k, const NLDetConsts& dc, const float* const* ins,
+           float* const* outs, cudaStream_t stream) {
+  switch (dc.d.kind) {
+    case fabber::kMaxits: return launch_mode<M, Q, 0>(k, dc, ins, outs, stream);
+    case fabber::kPointZeroOne:
+    case fabber::kFreduce: return launch_mode<M, Q, 1>(k, dc, ins, outs, stream);
+    default: return launch_mode<M, Q, 2>(k, dc, ins, outs, stream);
+  }
 }
 
 }  // namespace
@@ -200,17 +429,27 @@ extern "C" int fabber_nl_has_instance(int kind, int p, int q) {
 // (kind, p, q): one of FABBER_NL_INSTANCES (vb_device.cuh).
 // tcodes_host [p], consts_host [4q] (1/b0, c_post, b_init, c_init per
 // group) are host arrays copied into the by-value parameter block.
-// centre0, pm, pp [p,V]; data [nt,V]; qw [nt,q] (device). Outputs
-// (device, preallocated): means [p,V], prec [p,p,V], cov [p,p,V],
-// b, c, fkqk, ftr [q,V].
+// det_kind: 0 maxits, 1..4 pointzeroone, freduce, trialmode, lm
+// (detectors.cuh), with the detector's tolerance, max_its, max_trials,
+// initial save flag and det_consts_host [q+2] (lb_coeff per group,
+// f_const, f_const_init; unread under maxits). centre0, pm, pp [p,V];
+// pd0 [p,V] the initial posterior variances (read under freduce only,
+// may be null otherwise); data [nt,V]; qw [nt,q] (device). Outputs
+// (device, preallocated): means [p,V], prec [p,p,V], cov [p,p,V], b, c
+// [q,V]; fkqk, ftr [q,V] under maxits (the F quadratics, zero without
+// need_f), else [1,V] (F, iteration count) or [2,V] under freduce (and
+// the revert flag, zeros).
 extern "C" int fabber_fused_nl_loop(
     int kind, int p, int q, const int* tcodes_host, float dt, int n_iters,
-    int need_f, float locked_sd, const float* consts_host,
-    const float* centre0, const float* pm, const float* pp, const float* data,
-    const float* qw, int nt, long long V, float* means, float* prec,
-    float* cov, float* b, float* c, float* fkqk, float* ftr, void* stream) {
+    int need_f, float locked_sd, const float* consts_host, int det_kind,
+    float det_tol, int det_max_its, int det_max_trials, int det_init_save,
+    const float* det_consts_host, const float* centre0, const float* pm,
+    const float* pp, const float* pd0, const float* data, const float* qw,
+    int nt, long long V, float* means, float* prec, float* cov, float* b,
+    float* c, float* fkqk, float* ftr, void* stream) {
   if (p < 1 || p > kMaxP || q < 1 || q > kMaxQ || n_iters < 1 || nt < 1 ||
-      V < 1)
+      V < 1 || det_kind < fabber::kMaxits || det_kind > fabber::kLM ||
+      (det_kind == fabber::kFreduce && pd0 == nullptr))
     return (int)cudaErrorInvalidValue;
   VBParams k = {};
   for (int i = 0; i < p; ++i) k.tcode[i] = tcodes_host[i];
@@ -226,11 +465,19 @@ extern "C" int fabber_fused_nl_loop(
   }
   k.nt = nt;
   k.V = V;
+  NLDetConsts dc = {};
+  dc.d = {det_kind, det_tol, det_max_its, det_max_trials, det_init_save};
+  if (det_kind != fabber::kMaxits) {
+    for (int i = 0; i < q; ++i) dc.lb_coeff[i] = det_consts_host[i];
+    dc.f_const = det_consts_host[q];
+    dc.f_const_init = det_consts_host[q + 1];
+  }
+  const float* const ins[6] = {centre0, pm, pp, pd0, data, qw};
   float* const outs[7] = {means, prec, cov, b, c, fkqk, ftr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FABBER_LAUNCH(KIND, NP, MODEL, NQ) \
   if (kind == KIND && p == NP && q == NQ)  \
-    return launch<MODEL, NQ>(k, centre0, pm, pp, data, qw, outs, s);
+    return launch<MODEL, NQ>(k, dc, ins, outs, s);
   FABBER_NL_INSTANCES(FABBER_LAUNCH)
 #undef FABBER_LAUNCH
   return (int)cudaErrorInvalidValue;

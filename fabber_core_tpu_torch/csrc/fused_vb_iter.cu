@@ -2,18 +2,22 @@
 // model, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel fabber_core_tpu/ops/fused_vb.py
-// make_fused_iteration (its pallas_call at line 481) without its LM
-// branch. Plain version: fabber_core_tpu_torch/ops/fused_vb.py
-// fused_iteration_plain. The engine's per-iteration route launches it
-// once per iteration (save-free-energy-history, programmatic
-// continuation, engine-kernel=pallas).
+// make_fused_iteration (its pallas_call at line 481), with its LM branch
+// (with_lm, fused_vb.py:362-391) as the template flag LM. Plain version:
+// fabber_core_tpu_torch/ops/fused_vb.py fused_iteration_plain. The
+// engine's per-iteration route launches it once per iteration
+// (save-free-energy-history, programmatic continuation,
+// engine-kernel=pallas); under the lm detector with the lane's damping
+// alpha.
 //
 // One thread per voxel, state in registers:
 //   pass A  model + latent-space Jacobian at the centre; per noise group
 //           q, J'Q_qJ (packed lower triangle) and J'Q_q r;
 //   solve   prec = sum_q phi_q J'Q_qJ + diag(pp), unrolled Cholesky
 //           without the jitter retry (as the TPU kernel), covariance,
-//           means;
+//           means; with LM, where alpha > 0, means = centre + x with
+//           (Lambda + alpha diag Lambda) x = sum_q phi_q J'Q_q r +
+//           pp (pm - centre) (plain Cholesky; prec and cov undamped);
 //   pass B  k = r + J (centre - means), per group k'Q_qk, and
 //           tr(Sigma J'Q_qJ) for the phi update (assembled in torch);
 //   pass C  (need_f) k'Q_qk and tr(Sigma J'Q_qJ) at the new means.
@@ -35,7 +39,7 @@ using namespace fabber;
 
 constexpr int kThreads = 128;
 
-template <class M, int Q>
+template <class M, int Q, bool LM>
 __global__ void __launch_bounds__(kThreads)
 fused_vb_iter_kernel(const VBParams k, const float* __restrict__ centre_in,
                      const float* __restrict__ pm_in,
@@ -43,6 +47,7 @@ fused_vb_iter_kernel(const VBParams k, const float* __restrict__ centre_in,
                      const float* __restrict__ phi_in,
                      const float* __restrict__ data,
                      const float* __restrict__ qw,
+                     const float* __restrict__ alpha_in,
                      float* __restrict__ means_out,
                      float* __restrict__ prec_out,
                      float* __restrict__ cov_out,
@@ -96,9 +101,30 @@ fused_vb_iter_kernel(const VBParams k, const float* __restrict__ centre_in,
   }
 
   // ---- solve (Eq 19/20) --------------------------------------------------
-  float prec[NT], cov[NT], means[P];
+  float prec[NT], cov[NT], means[P], ch[NT];
   posterior_solve<P, Q, false>(jtj, jtr, phi, centre, pm, pp, prec, cov,
-                               means);
+                               means, ch);
+  if constexpr (LM) {
+    const float alpha = alpha_in[v];
+    if (alpha > 0.f) {
+      float damped[NT], dch[NT], x[P];
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        float s = 0.f;
+#pragma unroll
+        for (int q = 0; q < Q; ++q) s = s + phi[q] * jtr[q][i];
+        x[i] = s + pp[i] * (pm[i] - centre[i]);
+#pragma unroll
+        for (int j = 0; j <= i; ++j)
+          damped[tri(i, j)] =
+              prec[tri(i, j)] + (i == j ? alpha * prec[tri(i, i)] : 0.f);
+      }
+      cholesky<P>(damped, 0.f, dch);
+      chol_solve<P>(dch, x);
+#pragma unroll
+      for (int i = 0; i < P; ++i) means[i] = centre[i] + x[i];
+    }
+  }
 
   // ---- pass B: k = r + J (centre - means) at the centre -----------------
   float d[P];
@@ -155,9 +181,15 @@ template <class M, int Q>
 int launch(const VBParams& k, const float* const* ins, float* const* outs,
            cudaStream_t stream) {
   const unsigned grid = (unsigned)((k.V + kThreads - 1) / kThreads);
-  fused_vb_iter_kernel<M, Q><<<grid, kThreads, 0, stream>>>(
-      k, ins[0], ins[1], ins[2], ins[3], ins[4], ins[5], outs[0], outs[1],
-      outs[2], outs[3], outs[4], outs[5], outs[6]);
+  if (ins[6] == nullptr) {
+    fused_vb_iter_kernel<M, Q, false><<<grid, kThreads, 0, stream>>>(
+        k, ins[0], ins[1], ins[2], ins[3], ins[4], ins[5], ins[6], outs[0],
+        outs[1], outs[2], outs[3], outs[4], outs[5], outs[6]);
+  } else {
+    fused_vb_iter_kernel<M, Q, true><<<grid, kThreads, 0, stream>>>(
+        k, ins[0], ins[1], ins[2], ins[3], ins[4], ins[5], ins[6], outs[0],
+        outs[1], outs[2], outs[3], outs[4], outs[5], outs[6]);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -165,13 +197,15 @@ int launch(const VBParams& k, const float* const* ins, float* const* outs,
 
 // (kind, p, q): one of FABBER_NL_INSTANCES (vb_device.cuh).
 // tcodes_host [p] (host). centre, pm, pp [p,V]; phi [q,V]; data [nt,V];
-// qw [nt,q] (device). Outputs (device, preallocated): means [p,V],
+// qw [nt,q]; alpha [V], the lm detector's damping, or null for the
+// plain iteration (device). Outputs (device, preallocated): means [p,V],
 // prec [p,p,V], cov [p,p,V], nkqk, ntr, fkqk, ftr [q,V] (the last two
 // zero when need_f is 0).
 extern "C" int fabber_fused_vb_iter(
     int kind, int p, int q, const int* tcodes_host, float dt, int need_f,
     const float* centre, const float* pm, const float* pp, const float* phi,
-    const float* data, const float* qw, int nt, long long V, float* means,
+    const float* data, const float* qw, const float* alpha, int nt,
+    long long V, float* means,
     float* prec, float* cov, float* nkqk, float* ntr, float* fkqk,
     float* ftr, void* stream) {
   if (p < 1 || p > kMaxP || q < 1 || q > kMaxQ || nt < 1 || V < 1)
@@ -182,7 +216,7 @@ extern "C" int fabber_fused_vb_iter(
   k.need_f = need_f;
   k.nt = nt;
   k.V = V;
-  const float* const ins[6] = {centre, pm, pp, phi, data, qw};
+  const float* const ins[7] = {centre, pm, pp, phi, data, qw, alpha};
   float* const outs[7] = {means, prec, cov, nkqk, ntr, fkqk, ftr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FABBER_LAUNCH(KIND, NP, MODEL, NQ) \

@@ -217,14 +217,35 @@ __device__ __forceinline__ void inverse_from_chol(const float* ch,
   }
 }
 
+// Solve L L' x = b in place (b -> x) for the packed lower factor L:
+// forward, then back substitution.
+template <int P>
+__device__ __forceinline__ void chol_solve(const float* ch, float* b) {
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    float s = b[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) s = s - ch[tri(i, k)] * b[k];
+    b[i] = s / ch[tri(i, i)];
+  }
+#pragma unroll
+  for (int i = P - 1; i >= 0; --i) {
+    float s = b[i];
+#pragma unroll
+    for (int k = i + 1; k < P; ++k) s = s - ch[tri(k, i)] * b[k];
+    b[i] = s / ch[tri(i, i)];
+  }
+}
+
 // Eq 19/20 from the per-group quadratics (packed jtj[Q][tri], jtr[Q][P]):
 // prec = sum_q phi_q J'Q_qJ + diag(pp); cov; means = cov rhs with
-// rhs = sum_q phi_q (J'Q_q r + J'Q_qJ centre) + pp pm.
+// rhs = sum_q phi_q (J'Q_q r + J'Q_qJ centre) + pp pm. ch receives the
+// packed Cholesky factor of prec.
 template <int P, int Q, bool JITTER>
 __device__ __forceinline__ void posterior_solve(
     const float (&jtj)[Q][P * (P + 1) / 2], const float (&jtr)[Q][P],
     const float* phi, const float* centre, const float* pm, const float* pp,
-    float* prec, float* cov, float* means) {
+    float* prec, float* cov, float* means, float* ch) {
 #pragma unroll
   for (int i = 0; i < P; ++i) {
 #pragma unroll
@@ -236,7 +257,6 @@ __device__ __forceinline__ void posterior_solve(
       prec[tri(i, j)] = v;
     }
   }
-  float ch[P * (P + 1) / 2];
   if (JITTER) {
     cholesky_jittered<P>(prec, ch);
   } else {

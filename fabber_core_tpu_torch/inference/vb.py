@@ -10,10 +10,12 @@ interacting use_* flags (vb.py:340-660). Four are live:
   spectral-whole  fixed-design models (poly): the whole-program
                   spectral route (vb.py:1611-1866, split form), one
                   statistics kernel and one eigenbasis core kernel
-                  (ops/fused_spectral.py);
+                  (ops/fused_spectral.py), maxits or an in-kernel
+                  pointzeroone / freduce / trialmode detector;
   pallas-loop-nl  time-local nonlinear models (exp/biexp, poly with a
-                  non-identity transform), maxits: the whole-loop
-                  kernel (ops/fused_loop_nl.py; vb.py:593-660, 1132-1262);
+                  non-identity transform): the whole-loop kernel
+                  (ops/fused_loop_nl.py; vb.py:593-660, 1132-1326),
+                  maxits or any of the four F-based detectors in-kernel;
   pallas          the same models, one fused-iteration kernel launch
                   per iteration (ops/fused_vb.py; vb.py:340-366,
                   891-951): save-free-energy-history, programmatic
@@ -22,6 +24,11 @@ interacting use_* flags (vb.py:340-660). Four are live:
                   (vb.py:954-1047 with stats=None), where the JAX
                   package uses XLA: float64, linearization=fd, models
                   without a time_signal. No kernel, by design.
+
+The per-iteration routes run the engine's own loop: a static trip
+count under maxits, else a while loop over the lanes' detector state
+with the best-state save/revert protocol (vb.py:954-1047, 2028-2048,
+2603-2627).
 
 _select_route applies the JAX gates in the JAX engine's order, the
 same way on "cpu" and "cuda"; a run those gates send to an unported
@@ -32,6 +39,7 @@ raises at construction. Choosing a route is a decision made before any
 launch, never a fallback after a failure.
 """
 
+import math
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -41,7 +49,7 @@ from .. import resolve_device
 from ..exceptions import InvalidOptionValue
 from ..models.base import resolve_parameters, PRIOR_IMAGE
 from ..noise import get_noise_class
-from ..noise.white import WhiteNoiseState
+from ..noise.white import DesignStats, WhiteNoiseState
 from ..ops import smallmat as sm
 from ..ops.fused_loop_nl import fused_nl_loop, pack_nl_consts
 from ..ops.fused_spectral import (MAX_P, pack_mxu_consts, pack_solve_consts,
@@ -62,7 +70,7 @@ ROUTES = {
         "whole-program spectral route (CUDA statistics kernel + "
         "eigenbasis core kernel)", None),
     "pallas-loop-nl": (
-        "whole-loop nonlinear kernel (time_signal mode, maxits)", None),
+        "whole-loop nonlinear kernel (time_signal mode)", None),
     "pallas": ("per-iteration fused kernel (time_signal mode)", None),
     "xla-generic": ("generic-Jacobian route (plain torch; the JAX "
                     "package leaves it to XLA, so it has no kernel)", None),
@@ -121,6 +129,7 @@ class VBLoopState(NamedTuple):
     fprior: Any      # [V] the prior's free-energy term
     conv: Any        # ConvState
     fhist: Any = None  # [iters, V] F history (save-free-energy-history)
+    best: Any = None   # PosteriorState, the detector's saved best state
 
 
 def _lane_where(mask, new, old):
@@ -250,6 +259,10 @@ class VBInference:
 
         conv_name = options.get_string("convergence", "maxits")
         self.detector = get_detector_class(conv_name)(options)
+        self.is_lm = conv_name == "lm"
+        # iteration cap of the while loop (each detector terminates well
+        # below it; a safety net, vb.py:662-664)
+        self.max_iter_cap = int(self.detector.max_iterations) + 2
 
         self.need_f = (self.detector.uses_f
                        or options.get_bool("print-free-energy")
@@ -327,6 +340,7 @@ class VBInference:
         # loop_gates_common (vb.py:410-420)
         if (self.dtype != torch.float32
                 or o.get_string("continue-from-mvn", "") != ""
+                or self.is_lm
                 or self.save_fhist
                 or self.prior_setup.has_ard
                 or self.prior_setup.spatial_params
@@ -364,8 +378,8 @@ class VBInference:
             return "continue-from-mvn"
         if not self._ts_eligible:
             return "xla-generic"
+        # every detector runs in the kernel (vb.py:621-640)
         nl_ok = (mode in ("auto", "pallas-loop")
-                 and type(self.detector).name == "maxits"
                  and int(self.detector.max_iterations) >= 1
                  and not self.save_fhist
                  and o.get_string("noise-initial-posterior",
@@ -400,6 +414,10 @@ class VBInference:
     def route_description(self):
         """Human-readable name of the selected update route (logged by
         the runner)."""
+        det = type(self.detector).name
+        if det != "maxits" and self.route in ("spectral-whole",
+                                              "pallas-loop-nl"):
+            return f"{ROUTES[self.route][0]}, in-kernel {det} detector"
         return ROUTES[self.route][0]
 
     def evaluate_model(self, means_planes):
@@ -495,9 +513,8 @@ class VBInference:
         prior_prec = torch.ones((p, v), dtype=self.dtype, device=self.device)
         post = PosteriorState(means, prec, cov, prior_means, prior_prec,
                               noise_post)
-        fhist = torch.zeros((int(self.detector.max_iterations), v),
-                            dtype=self.dtype, device=self.device) \
-            if self.save_fhist else None
+        fhist = torch.zeros((self.max_iter_cap, v), dtype=self.dtype,
+                            device=self.device) if self.save_fhist else None
         return VBLoopState(
             it=0, post=post, centre=means,
             f=torch.full((v,), 1234.5678, dtype=self.dtype,
@@ -505,7 +522,9 @@ class VBInference:
             fprior=torch.zeros(v, dtype=self.dtype, device=self.device),
             conv=self.detector.init_state(v, self.dtype,
                                           device=self.device),
-            fhist=fhist)
+            fhist=fhist,
+            # detectors without a save/revert protocol keep no best copy
+            best=post if self.detector.tracks_best else None)
 
     # -- the spectral-whole route -----------------------------------------
     def spectral_consts(self, dtype=None, device=None):
@@ -536,8 +555,14 @@ class VBInference:
 
     def _run_spectral_whole(self, s):
         """Statistics kernel + eigenbasis core kernel (vb.py:1611-1866,
-        split form, maxits): one [T,V] read, one posterior write."""
-        n_iters = int(self.detector.max_iterations)
+        split form): one [T,V] read, one posterior write. Under an
+        F-based detector the core kernel runs the lanes' state machines
+        to the while loop's cap; lanes whose selected state is the
+        engine-initial posterior come back tagged (b < 0) and are
+        restored from s, prior planes included (vb.py:1810-1826)."""
+        fdet = type(self.detector).name != "maxits"
+        n_iters = self.max_iter_cap if fdet \
+            else int(self.detector.max_iterations)
         p, nv = self.nparams, self.nvoxels
         tconsts, aconsts, sconsts = self.spectral_consts()
         m0, rtqr, dtqr = spectral_stats(self.data.to(self.dtype), tconsts,
@@ -546,19 +571,54 @@ class VBInference:
         # model-default case on the device (vb.py:1802-1806)
         prior_means = self.prior_setup.base_means.expand(p, nv).contiguous()
         prior_prec = self.prior_setup.base_precs.expand(p, nv)
-        means, prec, cov, nb, nc, fk, _tr = spectral_core(
-            m0, rtqr, dtqr, prior_means, sconsts, n_iters)
+        means, prec, cov, nb, nc, fk, tr = spectral_core(
+            m0, rtqr, dtqr, prior_means, sconsts, n_iters,
+            self.detector if fdet else None)
+        if fdet:
+            sel_init = nb[0] < 0
+            nb = torch.abs(nb)
+            means, prec, cov, nb, nc, prior_means, prior_prec = (
+                _lane_where(sel_init, old, new) for old, new in (
+                    (s.post.means, means), (s.post.prec, prec),
+                    (s.post.cov, cov), (s.post.noise.b, nb),
+                    (s.post.noise.c, nc), (s.post.prior_means, prior_means),
+                    (s.post.prior_prec, prior_prec)))
 
+        noise_post = WhiteNoiseState(nb, nc)
         post = PosteriorState(means, prec, cov, prior_means, prior_prec,
-                              WhiteNoiseState(nb, nc))
+                              noise_post)
         # fprior is zero for the priors this route admits: the kernel's
-        # eigenbasis ELBO is the free energy
+        # eigenbasis ELBO (at the selected state) is the free energy
         f = fk[0] if self.need_f else s.f
+        if fdet:
+            if type(self.detector).name == "freduce" and self.need_f:
+                # lanes reverted to the engine-initial posterior are off
+                # the eigenbasis manifold: F for every lane from the
+                # statistics, as the JAX route does (vb.py:1835-1847)
+                f = self.noise.free_energy_stats(
+                    noise_post, self.noise_prior, means, prec, cov,
+                    prior_means, prior_prec,
+                    self._design_stats(m0, rtqr, dtqr))
+            conv = s.conv._replace(
+                its=tr[0].to(torch.int32), prev_f=fk[0],
+                done=torch.ones(nv, dtype=torch.bool, device=self.device))
+            return s._replace(it=n_iters, post=post, centre=means, f=f,
+                              conv=conv)
         conv = s.conv._replace(
             its=torch.full((nv,), n_iters, dtype=torch.int32,
                            device=self.device),
             done=torch.ones(nv, dtype=torch.bool, device=self.device))
         return s._replace(it=n_iters, post=post, f=f, conv=conv)
+
+    def _design_stats(self, m0, rtqr, dtqr):
+        """The statistics kernel's single-group outputs as DesignStats
+        (D'QD from the host design)."""
+        d = np.asarray(self.design, np.float64)
+        qm = np.asarray(self.noise.qmasks, np.float64)
+        dtqd = np.einsum("it,tp,tq->ipq", qm, d, d)
+        return DesignStats(m0=m0, rtqr=rtqr, dtqr=dtqr[None],
+                           dtqd=torch.as_tensor(dtqd, dtype=self.dtype,
+                                                device=self.device))
 
     # -- the nonlinear routes -------------------------------------------
     def _transforms(self):
@@ -586,19 +646,43 @@ class VBInference:
                 self._kernel_data(), self.noise.qmasks, consts)
 
     def _run_nl_loop(self, s):
-        """Whole-loop nonlinear kernel (vb.py:1197-1262, maxits): the
-        whole fixed point in one launch, F assembled in torch from the
-        kernel's quadratics at the final means."""
+        """Whole-loop nonlinear kernel (vb.py:1197-1262): the whole fixed
+        point in one launch. maxits: F assembled in torch from the
+        kernel's quadratics at the final means; an F-based detector: the
+        kernel's per-lane F and iteration counts, and under freduce the
+        engine's initial posterior restored where the kernel reverted."""
         n_iters = int(self.detector.max_iterations)
         nv = self.nvoxels
         args = self.nl_loop_args(s)
         prior_means, prior_prec = args[1], args[2]
+        kind = type(self.detector).name
+        det = None if kind == "maxits" else self._nl_fdet_consts()
+        pd0 = sm.diag_of(s.post.cov).contiguous() if kind == "freduce" \
+            else None
         means, prec, cov, nb, nc, fkqk, ftr = fused_nl_loop(
             self.model, self._transforms(), *args, n_iters, self.need_f,
-            self.noise.locked_noise_stdev)
+            self.noise.locked_noise_stdev, detector=det, post_var0=pd0)
+        if kind == "freduce":
+            rev = fkqk[1] > 0.5
+            means, prec, cov, nb, nc = (
+                _lane_where(rev, old, new) for old, new in (
+                    (s.post.means, means), (s.post.prec, prec),
+                    (s.post.cov, cov), (s.post.noise.b, nb),
+                    (s.post.noise.c, nc)))
         noise_post = WhiteNoiseState(nb, nc)
         post = PosteriorState(means, prec, cov, prior_means, prior_prec,
                               noise_post)
+        if det is not None:
+            # the kernel's per-lane F and iteration counts (fprior is
+            # zero for the priors this route admits)
+            f = fkqk[0]
+            conv = s.conv._replace(
+                its=ftr[0].to(torch.int32), prev_f=f,
+                done=torch.ones(nv, dtype=torch.bool, device=self.device))
+            if kind == "freduce":
+                conv = conv._replace(revert=rev)
+            return s._replace(it=n_iters, post=post, centre=means, f=f,
+                              conv=conv)
         if self.need_f:
             # fprior is zero for the (non-ARD, non-spatial) priors this
             # route admits
@@ -614,15 +698,51 @@ class VBInference:
         return s._replace(it=n_iters, post=post, centre=means, f=f,
                           conv=conv)
 
+    def _nl_fdet_consts(self):
+        """The whole-loop kernel's detector constants (vb.py:1264-1326):
+        the detector, and the voxel-invariant pieces of the white ELBO
+        with the noise shape fixed at c_post (constant from the first
+        update on; free_energy_from_parts, noisemodel_white.cc:
+        365-454), host float64. With c = (n-1)/2 + c0 the digamma
+        coefficient collapses to 1/2 per group and log(b)'s to
+        n/2 + c0. f_const_init is the same block at the initial shape
+        c_init (freduce's reverted-lane F)."""
+        self._ensure_noise_prior()
+        nq = self.noise.nphis
+        b0 = self.noise_prior.b.double().cpu().numpy().reshape(nq)
+        c0 = self.noise_prior.c.double().cpu().numpy().reshape(nq)
+        _, post1 = self.noise.initial_state(1, self.dtype)
+        c_init = float(post1.c[0, 0])
+        shared = 0.5 * self.nparams \
+            - 0.5 * self.noise.n_unmasked * math.log(2 * math.pi)
+
+        def c_terms(qi, c):
+            n_q = float(self.noise.ntimes_per_group[qi])
+            return (math.lgamma(c) + c
+                    + (n_q * 0.5 + c0[qi] - c) * _digamma(c)
+                    - math.lgamma(c0[qi]) - c0[qi] * math.log(b0[qi]))
+
+        lb_coeff, f_const, f_const_init = [], shared, shared
+        for qi in range(nq):
+            n_q = float(self.noise.ntimes_per_group[qi])
+            c_post = (n_q - 1.0) * 0.5 + c0[qi]
+            lb_coeff.append(n_q * 0.5 + c0[qi])
+            f_const += c_terms(qi, c_post)
+            f_const_init += c_terms(qi, c_init)
+        return {"det": self.detector, "lb_coeff": lb_coeff,
+                "f_const": f_const, "f_const_init": f_const_init}
+
     def _fused_update(self, s, prior_means, prior_prec):
         """One theta + noise update through the fused-iteration kernel
-        (vb.py:891-951): (means, prec, cov, noise_post, F quadratics)."""
+        (vb.py:891-951): (means, prec, cov, noise_post, F quadratics);
+        under lm with the lanes' damping (the kernel's LM branch)."""
         post = s.post
         phi = (post.noise.b * post.noise.c).contiguous()   # [Q,V]
         means, prec, cov, nkqk, ntr, fkqk, ftr = fused_iteration(
             self.model, self._transforms(), s.centre.contiguous(),
             prior_means.contiguous(), prior_prec.contiguous(), phi,
-            self._kernel_data(), self.noise.qmasks, self.need_f)
+            self._kernel_data(), self.noise.qmasks, self.need_f,
+            s.conv.alpha.contiguous() if self.is_lm else None)
         noise_post = self.noise._noise_from_quadratics(
             list(nkqk), list(ntr), self.noise_prior)
         return means, prec, cov, noise_post, (fkqk, ftr)
@@ -635,6 +755,10 @@ class VBInference:
         data = self.data.to(self.dtype)
         if route == "xla-generic":
             offset_c, jac_c = self.linearizer(s.centre, data, self.coords)
+        # 1. save the current state as best-so-far where the detector
+        #    flagged it (top of the reference do-loop, inference_vb.cc:451)
+        best = _lane_where(s.conv.save, post, s.best) \
+            if self.detector.tracks_best else None
         prior_means, prior_prec, f_contribs = self.prior_setup.apply(
             post.prior_means, post.prior_prec, post.means,
             sm.diag_of(post.cov), s.it)
@@ -648,7 +772,8 @@ class VBInference:
         else:
             means, prec, cov, _ok = self.noise.update_theta(
                 post.noise, post.means, prior_means, prior_prec,
-                s.centre, offset_c, jac_c, data)
+                s.centre, offset_c, jac_c, data,
+                s.conv.alpha if self.is_lm else None)
             noise_post = self.noise.update_noise(
                 post.noise, self.noise_prior, means, cov,
                 s.centre, offset_c, jac_c, data)
@@ -672,7 +797,7 @@ class VBInference:
             f = s.f
         conv = self.detector.test(s.conv, f)
         new = VBLoopState(it=s.it + 1, post=new_post, centre=centre, f=f,
-                          fprior=fprior, conv=conv)
+                          fprior=fprior, conv=conv, best=best)
 
         # lanes already done before this iteration keep their state
         merged = _lane_where(~s.conv.done, new, s._replace(fhist=None))
@@ -684,13 +809,37 @@ class VBInference:
         return merged._replace(it=new.it, fhist=fhist)
 
     def _run_iterations(self, s, route):
-        """The per-iteration driver: maxits, a static trip count
-        (vb.py:2028-2048); maxits keeps no best state, so the finalize
-        step (vb.py:2603-2627) is the identity."""
+        """The per-iteration loop (vb.py:2028-2048): maxits runs a
+        static trip count; the F-based detectors a while loop that runs
+        while some lane is not done, up to max_iter_cap iterations. Then
+        the finalize step."""
         self._ensure_noise_prior()
-        for _ in range(int(self.detector.max_iterations)):
-            s = self._iteration(s, route)
-        return s._replace(centre=s.post.means)
+        if type(self.detector).name == "maxits":
+            for _ in range(int(self.detector.max_iterations)):
+                s = self._iteration(s, route)
+        else:
+            while s.it < self.max_iter_cap and not bool(s.conv.done.all()):
+                s = self._iteration(s, route)
+        return self._finalize(s)
+
+    def _finalize(self, s):
+        """Post-loop save/revert (vb.py:2603-2627, inference_vb.cc:
+        505-525): lanes flagged revert take the best state, and their F
+        is recomputed there."""
+        if not self.detector.tracks_best:
+            return s._replace(centre=s.post.means)
+        best = _lane_where(s.conv.save, s.post, s.best)
+        post = _lane_where(s.conv.revert, best, s.post)
+        f = s.f
+        if self.need_f:
+            data = self.data.to(self.dtype)
+            offset, jac = self.linearizer(post.means, data, self.coords)
+            f_rev = self.noise.free_energy(
+                post.noise, self.noise_prior, post.means, post.prec,
+                post.cov, post.prior_means, post.prior_prec, post.means,
+                offset, jac, data) + s.fprior
+            f = torch.where(s.conv.revert, f_rev, s.f)
+        return s._replace(post=post, centre=post.means, f=f)
 
     def continuation_route(self):
         """The route a programmatic initial posterior runs on: the
@@ -766,6 +915,20 @@ class VBInference:
 
 def _no_voxel_data(key):
     raise KeyError(key)
+
+
+def _digamma(x):
+    """Digamma by recurrence and the asymptotic (Bernoulli) series,
+    float64-exact far beyond the kernel's float32 assembly (the JAX
+    engine's _nl_fdet_consts helper)."""
+    r = 0.0
+    while x < 6.0:
+        r -= 1.0 / x
+        x += 1.0
+    inv2 = 1.0 / (x * x)
+    return (r + math.log(x) - 0.5 / x
+            - inv2 * (1 / 12 - inv2 * (1 / 120 - inv2
+                                       * (1 / 252 - inv2 / 240))))
 
 
 def _raise_unported(route):

@@ -25,10 +25,14 @@ from ..exceptions import FabberError
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("spectral_stats.cu", "spectral_core.cu", "fused_nl_loop.cu",
            "fused_vb_iter.cu")
-HEADERS = ("vb_device.cuh",)
+HEADERS = ("vb_device.cuh", "detectors.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# csrc/detectors.cuh DetectorKind
+DETECTOR_CODES = {"maxits": 0, "pointzeroone": 1, "freduce": 2,
+                  "trialmode": 3, "lm": 4}
 
 _lib = None
 build_log = ""   # nvcc's output (incl. -Xptxas -v) of this process's build
@@ -103,15 +107,17 @@ def load():
             i32, vp, vp, vp, i32, i64, vp, vp, vp, vp]
         lib.fabber_spectral_stats.restype = i32
         lib.fabber_spectral_core.argtypes = [
-            i32, i32, vp, vp, vp, vp, vp, i64] + [vp] * 7 + [vp]
+            i32, i32, vp, vp, vp, vp, vp, i32, f32, i32, i32, i32,
+            i64] + [vp] * 7 + [vp]
         lib.fabber_spectral_core.restype = i32
         lib.fabber_fused_nl_loop.argtypes = [
             i32, i32, i32, vp, f32, i32, i32, f32, vp,
-            vp, vp, vp, vp, vp, i32, i64] + [vp] * 7 + [vp]
+            i32, f32, i32, i32, i32, vp,
+            vp, vp, vp, vp, vp, vp, i32, i64] + [vp] * 7 + [vp]
         lib.fabber_fused_nl_loop.restype = i32
         lib.fabber_fused_vb_iter.argtypes = [
             i32, i32, i32, vp, f32, i32,
-            vp, vp, vp, vp, vp, vp, i32, i64] + [vp] * 7 + [vp]
+            vp, vp, vp, vp, vp, vp, vp, i32, i64] + [vp] * 7 + [vp]
         lib.fabber_fused_vb_iter.restype = i32
         lib.fabber_nl_has_instance.argtypes = [i32, i32, i32]
         lib.fabber_nl_has_instance.restype = i32
@@ -145,13 +151,26 @@ def launch_stats(p, data, tconsts, aconsts, m0, rtqr, dtqr):
     _raise_on(err, "spectral_stats")
 
 
-def launch_core(p, n_iters, m0, rtqr, dtqr, pm, consts, outs):
+def detector_args(detector):
+    """(kind, tol, max_its, max_trials, init_save) of a convergence
+    detector object for a launch; None is maxits."""
+    if detector is None:
+        return 0, 0.0, 0, 0, 0
+    name = type(detector).name
+    tol = getattr(detector, "min_fchange",
+                  getattr(detector, "max_fchange", 0.0))
+    init_save = bool(detector.init_state(1, torch.float32).save[0])
+    return (DETECTOR_CODES[name], float(tol), int(detector.max_its),
+            int(getattr(detector, "max_trials", 0)), int(init_save))
+
+
+def launch_core(p, n_iters, m0, rtqr, dtqr, pm, consts, detector, outs):
     lib = load()
     nv = m0.shape[-1]
     with torch.cuda.device(m0.device):
         err = lib.fabber_spectral_core(
             p, n_iters, m0.data_ptr(), rtqr.data_ptr(), dtqr.data_ptr(),
-            pm.data_ptr(), consts.data_ptr(), nv,
+            pm.data_ptr(), consts.data_ptr(), *detector_args(detector), nv,
             *(o.data_ptr() for o in outs), _stream(m0.device))
     _raise_on(err, "spectral_core")
 
@@ -161,28 +180,38 @@ def _int_array(values):
 
 
 def launch_nl_loop(km, nq, tcodes, n_iters, need_f, locked_sd, consts,
-                   centre0, pm, pp, data, qw, outs):
-    """consts: [4Q] float32 host tensor (pack_nl_consts)."""
+                   detector, det_consts, centre0, pm, pp, pd0, data, qw,
+                   outs):
+    """consts: [4Q] float32 host tensor (pack_nl_consts); detector: a
+    convergence detector object or None (maxits); det_consts: [Q+2]
+    float32 host tensor (lb_coeff, f_const, f_const_init) or None; pd0:
+    the initial posterior variances [P,V] (freduce) or None."""
     lib = load()
     nt, nv = data.shape
     consts = consts.contiguous()
+    dc = 0 if det_consts is None else det_consts.contiguous().data_ptr()
     with torch.cuda.device(data.device):
         err = lib.fabber_fused_nl_loop(
             km.kind, km.nparams, nq, _int_array(tcodes), km.dt, n_iters,
-            int(need_f), locked_sd, consts.data_ptr(), centre0.data_ptr(),
-            pm.data_ptr(), pp.data_ptr(), data.data_ptr(), qw.data_ptr(),
-            nt, nv, *(o.data_ptr() for o in outs), _stream(data.device))
+            int(need_f), locked_sd, consts.data_ptr(),
+            *detector_args(detector), dc, centre0.data_ptr(),
+            pm.data_ptr(), pp.data_ptr(),
+            0 if pd0 is None else pd0.data_ptr(), data.data_ptr(),
+            qw.data_ptr(), nt, nv, *(o.data_ptr() for o in outs),
+            _stream(data.device))
     _raise_on(err, "fused_nl_loop")
 
 
 def launch_vb_iter(km, nq, tcodes, need_f, centre, pm, pp, phi, data, qw,
-                   outs):
+                   alpha, outs):
+    """alpha: the lm detector's [V] damping (the LM branch) or None."""
     lib = load()
     nt, nv = data.shape
     with torch.cuda.device(data.device):
         err = lib.fabber_fused_vb_iter(
             km.kind, km.nparams, nq, _int_array(tcodes), km.dt, int(need_f),
             centre.data_ptr(), pm.data_ptr(), pp.data_ptr(), phi.data_ptr(),
-            data.data_ptr(), qw.data_ptr(), nt, nv,
+            data.data_ptr(), qw.data_ptr(),
+            0 if alpha is None else alpha.data_ptr(), nt, nv,
             *(o.data_ptr() for o in outs), _stream(data.device))
     _raise_on(err, "fused_vb_iter")

@@ -13,11 +13,19 @@ csrc/spectral_core.cu) carry the route:
                   runs the n_iters-1 scalar-rational noise updates and
                   rebuilds means [P,V], prec/cov [P,P,V] and the noise
                   b, c, the per-voxel free energy F and tr [1,V]
-                  (replaces make_spectral_core_kernel, maxits mode).
+                  (replaces make_spectral_core_kernel, maxits mode); in
+                  detector mode (pointzeroone / freduce / trialmode) it
+                  runs each lane's state machine inside the loop with
+                  the engine's save/revert on the generating phi, and
+                  writes the lane's iteration count in place of tr and
+                  a minus sign on b where the selected state is the
+                  engine-initial posterior.
 
 Each wrapper takes its plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises. Each keeps an integer
-``launches`` count of kernel launches (never of plain calls).
+``launches`` count of kernel launches (never of plain calls);
+spectral_core also counts its detector-mode launches in
+``det_launches``.
 
 Constant layout (host-built in float64, cast once):
   pack_mxu_consts     [2P+1, T] device rows: raw design D (P rows),
@@ -124,10 +132,17 @@ def spectral_stats_plain(data, tconsts, aconsts):
     return m0, rtqr, dtqr
 
 
-def spectral_core_plain(m0, rtqr, dtqr, pm, consts, n_iters):
+def spectral_core_plain(m0, rtqr, dtqr, pm, consts, n_iters, detector=None):
     """Plain torch, same algebra and operation order as the kernel:
     m0/dtqr/pm [P,V], rtqr [1,V], consts [4P^2+2P+6] ->
-    (means [P,V], prec [P,P,V], cov [P,P,V], b, c, f, tr [1,V])."""
+    (means [P,V], prec [P,P,V], cov [P,P,V], b, c, f, tr [1,V]).
+
+    detector: a pointzeroone / freduce / trialmode detector object
+    (inference/convergence.py) for the detector mode of
+    _spectral_core (fused_spectral.py:238-315 of the JAX package):
+    n_iters is then the loop bound (the engine's max_iterations + 2),
+    the last output is the lane's iteration count and b carries a minus
+    sign where the selected state is the engine-initial posterior."""
     p = _nparams_from_core(consts)
     k = consts.to(m0.dtype).tolist()      # values rounded to the dtype
 
@@ -173,16 +188,35 @@ def spectral_core_plain(m0, rtqr, dtqr, pm, consts, n_iters):
             rden.append(rd)
         return mt, cross, quad, tr, rden
 
-    s = torch.full_like(rtqr, b_init) * c_init     # s0, rounded as b*c
-    for _ in range(n_iters - 1):
-        _, cross, quad, tr, _ = quadratics(s)
+    def elbo(s):
+        """F at the posterior generated by s and its noise b."""
+        mt, cross, quad, tr, rden = quadratics(s)
         kqk = torch.clamp(rtqr - 2.0 * cross + quad, min=0.0)
-        s = 1.0 / ((kqk + tr) * 0.5 + inv_b0) * c_post
+        b = 1.0 / ((kqk + tr) * 0.5 + inv_b0)
+        logden = rdensum = mv2 = 0.0
+        for i in range(p):
+            logden = logden + torch.log(s * lam[i] + 1.0)
+            rdensum = rdensum + rden[i]
+            mv2 = mv2 + (mt[i] - vt[i]) ** 2
+        f = (f_const - 0.5 * logden + lb_coeff * torch.log(b)
+             - b * c_post * (inv_b0 + 0.5 * kqk)
+             - 0.5 * tr - 0.5 * mv2 - 0.5 * rdensum)
+        return f, b, tr
 
-    # reconstruction from the phi that generated the last posterior
+    s = torch.full_like(rtqr, b_init) * c_init     # s0, rounded as b*c
+    if detector is None:
+        for _ in range(n_iters - 1):
+            _, cross, quad, tr, _ = quadratics(s)
+            kqk = torch.clamp(rtqr - 2.0 * cross + quad, min=0.0)
+            s = 1.0 / ((kqk + tr) * 0.5 + inv_b0) * c_post
+    else:
+        s, sel_init, its = _detector_loop(detector, n_iters, s, elbo,
+                                          c_post)
+
+    # reconstruction from the phi that generated the last (selected)
+    # posterior
     mt, cross, quad, tr, rden = quadratics(s)
-    kqk = torch.clamp(rtqr - 2.0 * cross + quad, min=0.0)
-    b = 1.0 / ((kqk + tr) * 0.5 + inv_b0)
+    f, b, tr = elbo(s)
     means = torch.stack([sum(EW(a, i) * mt[i] for i in range(p))
                          for a in range(p)])
     cov = torch.stack([torch.stack([
@@ -191,16 +225,45 @@ def spectral_core_plain(m0, rtqr, dtqr, pm, consts, n_iters):
     prec = torch.stack([torch.stack([
         s * A(i, j) + (pp[i] if i == j else 0.0)
         for j in range(p)]) for i in range(p)])
-    logden = rdensum = mv2 = 0.0
-    for i in range(p):
-        logden = logden + torch.log(s * lam[i] + 1.0)
-        rdensum = rdensum + rden[i]
-        mv2 = mv2 + (mt[i] - vt[i]) ** 2
-    f = (f_const - 0.5 * logden + lb_coeff * torch.log(b)
-         - b * c_post * (inv_b0 + 0.5 * kqk)
-         - 0.5 * tr - 0.5 * mv2 - 0.5 * rdensum)
     c = torch.full_like(b, c_post)
+    if detector is not None:
+        b = torch.where(sel_init, -b, b)
+        tr = its.to(b.dtype)
     return (means, prec, cov, b[None], c[None], f[None], tr[None])
+
+
+def _detector_loop(detector, n_iters, s0, elbo, c_post):
+    """The detector mode's loop on the scalar pair (current phi,
+    generating phi) with the engine's best-save, freeze and finalize:
+    -> (selected phi, selected-state-is-initial flag, iteration count)."""
+    nv = s0.shape[0]
+    conv = detector.init_state(nv, s0.dtype, device=s0.device)
+    cur_s, gen_s, best_s = s0, s0, s0
+    is_init = torch.ones(nv, dtype=torch.bool, device=s0.device)
+    best_init = is_init
+    it = 0
+    while it < n_iters and not bool(conv.done.all()):
+        # 1. best-save where flagged
+        best_s = torch.where(conv.save, gen_s, best_s)
+        best_init = torch.where(conv.save, is_init, best_init)
+        # 2-4. the update generated by cur_s, its noise, its F, the test
+        g = cur_s
+        f, b_new, _ = elbo(g)
+        new = detector.test(conv, f)
+        # 5. lanes done before this iteration keep their state
+        act = ~conv.done
+        conv = type(conv)(*(torch.where(act, n, o)
+                            for n, o in zip(new, conv)))
+        cur_s = torch.where(act, b_new * c_post, cur_s)
+        gen_s = torch.where(act, g, gen_s)
+        is_init = is_init & ~act
+        it += 1
+    # the engine's finalize: best-save, then revert
+    best_s = torch.where(conv.save, gen_s, best_s)
+    best_init = torch.where(conv.save, is_init, best_init)
+    s = torch.where(conv.revert, best_s, gen_s)
+    sel_init = torch.where(conv.revert, best_init, is_init)
+    return s, sel_init, conv.its
 
 
 # ---------------------------------------------------------------------------
@@ -260,15 +323,22 @@ def spectral_stats(data, tconsts, aconsts):
 spectral_stats.launches = 0
 
 
-def spectral_core(m0, rtqr, dtqr, pm, consts, n_iters):
-    """Eigenbasis fixed point + posterior reconstruction (maxits):
-    m0/dtqr/pm [P,V], rtqr [1,V], consts [4P^2+2P+6] host
-    (pack_spectral_consts) -> (means [P,V], prec [P,P,V], cov [P,P,V],
-    b [1,V], c [1,V], F [1,V], tr [1,V])."""
+DETECTOR_KINDS = ("pointzeroone", "freduce", "trialmode")
+
+
+def spectral_core(m0, rtqr, dtqr, pm, consts, n_iters, detector=None):
+    """Eigenbasis fixed point + posterior reconstruction: m0/dtqr/pm
+    [P,V], rtqr [1,V], consts [4P^2+2P+6] host (pack_spectral_consts)
+    -> (means [P,V], prec [P,P,V], cov [P,P,V], b [1,V], c [1,V],
+    F [1,V], tr [1,V]); with a detector (one of DETECTOR_KINDS) the
+    detector mode of spectral_core_plain."""
     if n_iters < 1:
         raise ValueError("n_iters must be >= 1")
+    if detector is not None and type(detector).name not in DETECTOR_KINDS:
+        raise ValueError(f"no detector mode for '{type(detector).name}'")
     if m0.device.type == "cpu":
-        return spectral_core_plain(m0, rtqr, dtqr, pm, consts, n_iters)
+        return spectral_core_plain(m0, rtqr, dtqr, pm, consts, n_iters,
+                                   detector)
     dev = _cuda_device(m0)
     p = _nparams_from_core(consts)
     if not 1 <= p <= MAX_P:
@@ -286,9 +356,13 @@ def spectral_core(m0, rtqr, dtqr, pm, consts, n_iters):
             out(1, nv), out(1, nv), out(1, nv), out(1, nv))
     if nv:
         from . import _cuda
-        _cuda.launch_core(p, n_iters, m0, rtqr, dtqr, pm, consts, outs)
+        _cuda.launch_core(p, n_iters, m0, rtqr, dtqr, pm, consts, detector,
+                          outs)
         spectral_core.launches += 1
+        if detector is not None:
+            spectral_core.det_launches += 1
     return outs
 
 
 spectral_core.launches = 0
+spectral_core.det_launches = 0

@@ -11,13 +11,18 @@ time t depends only on its parameters and t (exp/biexp, poly):
           J'Q_iJ and J'Q_i r;
   solve   prec = sum_i phi_i J'Q_iJ + diag(prior_prec), unrolled
           Cholesky (no jitter, as the TPU kernel), covariance, means;
+          with lm_alpha (the lm detector's damping, the TPU kernel's
+          with_lm branch), where alpha > 0 the means take the damped
+          step centre + (Lambda + alpha diag Lambda)^-1 (sum_i phi_i
+          J'Q_i r + pp (pm - centre));
   pass B  k = r + J (centre - means), per group k'Q_ik, and
           tr(Sigma J'Q_iJ) for the phi update (assembled outside);
   pass C  (need_f) the same quadratics at the new means, for F.
 
 The wrapper takes the plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises. ``fused_iteration.
-launches`` counts kernel launches (never plain calls).
+launches`` counts kernel launches (never plain calls), ``lm_launches``
+those with the LM branch.
 
 block_eval is make_block_eval's counterpart: the model's analytic
 time_signal_jac in model space times the per-parameter chain factor
@@ -182,10 +187,11 @@ def f_quadratics(time_signal_jac, transforms, means, data, q, cov):
 
 
 def fused_iteration_plain(time_signal_jac, transforms, centre, prior_means,
-                          prior_prec, phi, data, qmasks, need_f):
-    """Plain torch, one VB iteration (make_fused_iteration's run
-    without LM): centre/prior_means/prior_prec [P,V], phi [Q,V],
-    data [T,V], qmasks [Q,T] -> (means [P,V], prec [P,P,V],
+                          prior_prec, phi, data, qmasks, need_f,
+                          lm_alpha=None):
+    """Plain torch, one VB iteration (make_fused_iteration's run):
+    centre/prior_means/prior_prec [P,V], phi [Q,V], data [T,V],
+    qmasks [Q,T], lm_alpha [V] or None -> (means [P,V], prec [P,P,V],
     cov [P,P,V], noise_kqk, noise_tr, f_kqk, f_tr [Q,V]); the last two
     are zeros when need_f is False. k is formed explicitly, as the
     TPU kernel does from its staged J and r."""
@@ -198,6 +204,18 @@ def fused_iteration_plain(time_signal_jac, transforms, centre, prior_means,
     jtj, jtr = group_quadratics(jac, q, r)
     means, prec, cov, _ = posterior_solve(jtj, jtr, phi, centre,
                                           prior_means, prior_prec, False)
+    if lm_alpha is not None:
+        # LM-damped update (noisemodel_white.cc:330-354)
+        delta = []
+        for a in range(centre.shape[0]):
+            v = 0.0
+            for qi in range(len(jtj)):
+                v = v + phi[qi] * jtr[qi][a]
+            delta.append(v + prior_prec[a] * (prior_means[a] - centre[a]))
+        dchol = sm.cholesky_planes(sm.add_diag(
+            prec, lm_alpha[None] * sm.diag_of(prec)))
+        x = sm.solve_chol_vec(dchol, torch.stack(delta))
+        means = torch.where((lm_alpha > 0.0)[None], centre + x, means)
     d = centre - means
     k = r
     for i in range(centre.shape[0]):
@@ -255,15 +273,16 @@ def group_weights(qmasks, device):
 
 
 def fused_iteration(model, transforms, centre, prior_means, prior_prec,
-                    phi, data, qmasks, need_f):
+                    phi, data, qmasks, need_f, lm_alpha=None):
     """One fused VB iteration (see fused_iteration_plain for the
     shapes). model: the forward model (signal_jac_fn(model) on the
     CPU, kernel_model() for the CUDA functor); transforms: per-parameter
-    Transform objects."""
+    Transform objects; lm_alpha: the lm detector's [V] damping (the
+    LM branch) or None."""
     if centre.device.type == "cpu":
         return fused_iteration_plain(signal_jac_fn(model), transforms,
                                      centre, prior_means, prior_prec, phi,
-                                     data, qmasks, need_f)
+                                     data, qmasks, need_f, lm_alpha)
     dev = centre.device
     p, nv = centre.shape
     nq = len(qmasks)
@@ -274,6 +293,8 @@ def fused_iteration(model, transforms, centre, prior_means, prior_prec,
                            (prior_prec, "prior_prec", (p, nv)),
                            (phi, "phi", (nq, nv)), (data, "data", (nt, nv))):
         check_plane(t, name, shape, dev)
+    if lm_alpha is not None:
+        check_plane(lm_alpha, "lm_alpha", (nv,), dev)
     qw = group_weights(qmasks, dev)
 
     def out(*shape):
@@ -284,9 +305,13 @@ def fused_iteration(model, transforms, centre, prior_means, prior_prec,
     if nv:
         from . import _cuda
         _cuda.launch_vb_iter(km, nq, tcodes, bool(need_f), centre,
-                             prior_means, prior_prec, phi, data, qw, outs)
+                             prior_means, prior_prec, phi, data, qw,
+                             lm_alpha, outs)
         fused_iteration.launches += 1
+        if lm_alpha is not None:
+            fused_iteration.lm_launches += 1
     return outs
 
 
 fused_iteration.launches = 0
+fused_iteration.lm_launches = 0

@@ -194,3 +194,47 @@ def test_run_with_data_biexp_fit_and_residuals_match_jax():
                                    atol=1e-6)
     err = np.abs(td["modelfit"] - jd["modelfit"]).max(axis=-1)
     assert np.mean(err < 1e-3) >= 0.7
+
+
+@pytest.mark.parametrize("conv", ["trialmode", "freduce"])
+def test_cli_detector_run_matches_jax(tmp_path, conv):
+    """--convergence and its options reach the engine through the CLI:
+    poly under an F-based detector (the spectral-whole route, the core
+    kernel's detector mode) against the JAX CLI (its XLA stats route on
+    the CPU)."""
+    vol = phantom((4, 4, 2), nt=15, seed=4)
+    data_f = str(tmp_path / "data.nii.gz")
+    nifti.save(nifti.NiftiImage(vol), data_f)
+    common = ["--model=poly", "--degree=2", "--method=vb", "--noise=white",
+              "--dtype=single", f"--data={data_f}", f"--convergence={conv}",
+              "--max-trials=3", "--min-fchange=0.1"]
+    jout, tout = str(tmp_path / "jax"), str(tmp_path / "port")
+    assert jcli.execute(common + [f"--output={jout}"]) == 0
+    assert tcli.execute(common + [f"--output={tout}", "--device=cpu"]) == 0
+    assert sorted(os.listdir(tout)) == sorted(os.listdir(jout))
+    jmean = jnifti.load(os.path.join(jout, "mean_c0.nii.gz")).data
+    tmean = nifti.load(os.path.join(tout, "mean_c0.nii.gz")).data
+    jstd = jnifti.load(os.path.join(jout, "std_c0.nii.gz")).data
+    assert np.max(np.abs(tmean - jmean) / jstd) < 5e-3
+
+
+def test_run_with_data_biexp_trialmode_matches_jax():
+    """biexp under trialmode through run_with_data: the whole-loop
+    route's detector mode (plain torch) against the JAX package's
+    whole-loop kernel (interpreted), at a short horizon (biexp's float32
+    fixed point is chaotic further out), held as the maxits biexp run
+    above: 70% of voxels' fits within 1e-3."""
+    vol = biexp_phantom(seed=2)
+    opts = {"model": "biexp", "dt": "0.05", "noise": "white",
+            "method": "vb", "dtype": "single", "convergence": "trialmode",
+            "engine-kernel": "pallas-loop", "max-iterations": "3",
+            "max-trials": "2", "save-mean": True,
+            "save-noise-mean": True, "save-model-fit": True,
+            "allow-bad-voxels": True}
+    jd = JFabber().run_with_data(opts, {"data": vol}).data
+    td = FabberTpu(device="cpu").run_with_data(opts, {"data": vol}).data
+    assert sorted(td) == sorted(jd)
+    err = np.abs(td["modelfit"] - jd["modelfit"]).max(axis=-1)
+    assert np.mean(err < 1e-3) >= 0.7
+    np.testing.assert_allclose(np.median(td["noise_means"]),
+                               np.median(jd["noise_means"]), rtol=2e-2)

@@ -361,3 +361,161 @@ def test_exp_engine_on_card_matches_cpu(cuda, extra, route):
                                atol=2e-3)
     np.testing.assert_array_equal(g.iterations, c.iterations)
     np.testing.assert_array_equal(g.bad_voxels, c.bad_voxels)
+
+
+# -- the detector modes (spectral_core.cu 2d, fused_nl_loop.cu 6d,
+#    fused_vb_iter.cu 7l) ---------------------------------------------------
+#
+# A detector's decisions are discontinuous (|dF| < 0.01 on an F of a few
+# hundred flips on the last float32 bits), so the kernel is held to the
+# plain version at float64 lane by lane on its decisions: the share of
+# lanes whose (iteration count, revert) differs from float64 may be at
+# most twice the plain float32 version's own share, plus 1e-3. On the
+# lanes whose decisions match float64 the outputs are held as
+# assert_near_f64 holds them.
+
+def decisions(its, rev):
+    return torch.stack([its.double(), rev.double()])
+
+
+def assert_detector_near_f64(k, r32, r64, dk, d32, d64):
+    """k/r32/r64: the outputs of the kernel, the plain version at
+    float32 and at float64; dk/d32/d64: their decisions [2,V]."""
+    miss_k = (dk != d64).any(dim=0)
+    miss_32 = (d32 != d64).any(dim=0)
+    share_k = float(miss_k.double().mean())
+    share_32 = float(miss_32.double().mean())
+    assert share_k <= 2 * share_32 + 1e-3, (share_k, share_32)
+    keep = ~(miss_k | miss_32)
+    sub = [tuple(x[..., keep] for x in o) for o in (k, r32, r64)]
+    assert_near_f64(*sub)
+
+
+def poly_stats(nv, device, seed=0, p=3, nt=30):
+    """The spectral kernels' inputs for a poly-like fixed design: the
+    plain statistics of noisy data, and the core's constants."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    d = design(p, nt)
+    q = np.ones(nt)
+    truth = torch.rand((p, nv), generator=gen, device=device) * 4 - 2
+    data = torch.as_tensor(d, dtype=torch.float32, device=device) @ truth
+    data += 0.3 * torch.randn((nt, nv), generator=gen, device=device)
+    tc = fs.pack_mxu_consts(d, q, nt, torch.float32, device)
+    ac = fs.pack_solve_consts(d, q, nt, torch.float32)
+    c_post = (nt - 1) * 0.5 + 1e-6
+    from fabber_core_tpu_torch.ops.spectral import eigen_elbo_const
+    sc = fs.pack_spectral_consts(
+        d, q, nt, np.full(p, 1e-6), 1e-6, c_post, 1e-8, 50.0,
+        torch.float32, (eigen_elbo_const(q, c_post, 1e-6, 1e6, p),
+                        c_post + 0.5))
+    stats = fs.spectral_stats_plain(data, tc, ac)
+    pm = torch.zeros((p, nv), device=device)
+    return stats, pm, sc
+
+
+def detector(kind, extra=None):
+    from fabber_core_tpu_torch.inference.convergence import (
+        get_detector_class)
+    from fabber_core_tpu_torch.options import RunOptions
+    return get_detector_class(kind)(RunOptions(
+        {"max-iterations": "10", **(extra or {})}))
+
+
+@pytest.mark.parametrize("nv", [70_001, 65_536])
+@pytest.mark.parametrize("kind", ["pointzeroone", "freduce", "trialmode"])
+def test_spectral_core_detector_matches_plain(cuda, kind, nv):
+    """2d: the core kernel's detector mode against its plain version at
+    float64 (assert_detector_near_f64), at the engine's loop bound."""
+    stats, pm, sc = poly_stats(nv, cuda)
+    det = detector(kind, {"max-trials": "3"})
+    cap = int(det.max_iterations) + 2
+    before = fs.spectral_core.det_launches
+    k = fs.spectral_core(*stats, pm, sc, cap, det)
+    assert fs.spectral_core.det_launches == before + 1
+    r32 = fs.spectral_core_plain(*stats, pm, sc, cap, det)
+    r64 = fs.spectral_core_plain(*to_f64(stats), pm.double(), sc.double(),
+                                 cap, det)
+
+    def dec(o):
+        return decisions(o[6][0], o[3][0] < 0)
+
+    def tidy(o):
+        return (o[0], o[1], o[2], o[3].abs(), o[4], o[5], o[6])
+
+    assert_detector_near_f64(tidy(k), tidy(r32), tidy(r64), dec(k),
+                             dec(r32), dec(r64))
+
+
+def nl_detector(kind, nq, nt, model):
+    """The whole-loop kernel's detector dict, from an engine on the CPU
+    (its host ELBO constants)."""
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.options import RunOptions
+    opts = RunOptions({"model": model, "dt": "0.1", "noise": "white",
+                       "dtype": "single", "convergence": kind,
+                       "max-iterations": "6", "max-trials": "3",
+                       "noise-pattern": "1234"[:nq]})
+    from fabber_core_tpu_torch.models import get_model_class
+    eng = VBInference(get_model_class(model)(opts), opts,
+                      np.ones((4, nt), np.float32), device="cpu")
+    return eng._nl_fdet_consts()
+
+
+@pytest.mark.parametrize("kind", ["pointzeroone", "freduce", "trialmode",
+                                  "lm"])
+@pytest.mark.parametrize("name,nq,iters", [
+    ("exp", 1, 6), ("exp", 2, 6), ("biexp", 1, 3), ("biexp", 4, 3)],
+    ids=["exp-Q1", "exp-Q2", "biexp-Q1", "biexp-Q4"])
+def test_nl_loop_detector_kernel_matches_plain(cuda, name, nq, iters,
+                                               kind):
+    """6d: the whole-loop kernel's detector modes against the plain
+    version at float64 (assert_detector_near_f64); biexp at a short
+    horizon (its float32 fixed point is chaotic further out)."""
+    from fabber_core_tpu_torch.ops import fused_loop_nl as nl
+    c = nl_inputs(name, nq, 3001, cuda, seed=2)
+    nt = c["data"].shape[0]
+    det = nl_detector(kind, nq, nt, name)
+    consts = nl.pack_nl_consts(np.full(nq, 1e6), np.full(nq, 1e-6),
+                               c["q"].sum(axis=1), 1e-8, 50.0, nq)
+    pd0 = torch.full_like(c["centre"], 0.5)
+    args = (c["centre"], c["pm"], c["pp"], c["data"], c["q"], consts,
+            iters, True)
+    before = nl.fused_nl_loop.det_launches
+    k = nl.fused_nl_loop(c["model"], c["tr"], *args, detector=det,
+                         post_var0=pd0)
+    assert nl.fused_nl_loop.det_launches == before + 1
+    tsj = c["model"].time_signal_jac
+    r32 = nl.fused_nl_loop_plain(tsj, c["tr"], *args, detector=det,
+                                 post_var0=pd0)
+    r64 = nl.fused_nl_loop_plain(tsj, c["tr"], *to_f64(args), detector=det,
+                                 post_var0=pd0.double())
+
+    def dec(o):
+        rev = o[5][1] if kind == "freduce" else torch.zeros_like(o[6][0])
+        return decisions(o[6][0], rev)
+
+    assert_detector_near_f64(k, r32, r64, dec(k), dec(r32), dec(r64))
+
+
+@pytest.mark.parametrize("name,nq", NL_CASES, ids=NL_IDS)
+def test_fused_iteration_lm_kernel_matches_plain(cuda, name, nq):
+    """7l: every instance of fused_vb_iter.cu with its LM branch, alpha
+    0 (the plain step) in a quarter of the voxels and 1e-6..1e2
+    elsewhere, held to the plain version at float64
+    (assert_near_f64)."""
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    c = nl_inputs(name, nq, 3001, cuda, seed=3)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    alpha = 10.0 ** (torch.rand(3001, generator=gen, device=cuda) * 8 - 6)
+    alpha[::4] = 0.0
+    args = (c["centre"], c["pm"], c["pp"], c["phi"], c["data"], c["q"], True)
+    before = fv.fused_iteration.lm_launches
+    k = fv.fused_iteration(c["model"], c["tr"], *args, alpha)
+    assert fv.fused_iteration.lm_launches == before + 1
+    tsj = c["model"].time_signal_jac
+    assert_near_f64(
+        k, fv.fused_iteration_plain(tsj, c["tr"], *args, alpha),
+        fv.fused_iteration_plain(tsj, c["tr"], *to_f64(args),
+                                 alpha.double()))

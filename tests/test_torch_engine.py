@@ -7,8 +7,11 @@ means within 5e-3 posterior sd, cov rtol 2e-3, noise rtol 1e-3, F rtol
 1e-3 / atol 5e-3, iterations and bad voxels equal. The options that
 move poly off the fixed-design route (engine-kernel=pallas,
 linearization=fd, a non-identity transform) run the nonlinear routes
-and are held to the same tolerances. Also: every route gate the port
-does not serve yet raises NotImplementedError.
+and are held to the same tolerances; so are the F-based detectors
+(pointzeroone, freduce, trialmode) on the spectral-whole route, whose
+core kernel runs them in-kernel. Also: every route gate the port does
+not serve yet raises NotImplementedError, lm on a fixed-design model
+among them (the JAX engine's stats route).
 """
 
 import numpy as np
@@ -166,7 +169,6 @@ def test_former_gate_runs_and_matches_jax(extra, route, jmode):
 
 
 NONLINEAR_GATES = [
-    ("biexp", {"convergence": "pointzeroone"}, "item 11"),
     ("biexp", {"param-spatial-priors": "A"}, "'ard-priors'"),
     ("biexp", {"param-spatial-priors": "M"}, "'spatial-priors'"),
     ("biexp", {"continue-from-mvn": "x.nii.gz"}, "'continue-from-mvn'"),
@@ -194,11 +196,55 @@ def test_unported_route_raises(extra, route):
     assert ROUTES[route][1] is not None
 
 
-@pytest.mark.parametrize("conv", ["pointzeroone", "freduce", "trialmode",
-                                  "lm"])
-def test_unported_detectors_raise(conv):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run_port(make_data(16), {"convergence": conv})
+def make_det_data(nv, nt=30, seed=0):
+    """make_data with a noise sd log-uniform over 1e-3..3 per voxel, so
+    the lanes' free energies settle at different iterations."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(1, nt + 1)
+    c0 = rng.uniform(-1, 1, (nv, 1))
+    c1 = rng.uniform(-0.05, 0.05, (nv, 1))
+    sd = 10.0 ** rng.uniform(-3, 0.5, (nv, 1))
+    return (c0 + c1 * t[None, :]
+            + sd * rng.standard_normal((nv, nt))).astype(np.float32)
+
+
+DETECTOR_RUNS = [
+    ("pointzeroone", {"min-fchange": "1"}), ("freduce", {}),
+    ("trialmode", {}), ("trialmode", {"max-trials": "2",
+                                      "max-iterations": "4"})]
+
+
+@pytest.mark.parametrize("mode", ["spectral-whole", "xla"])
+@pytest.mark.parametrize("conv,extra", DETECTOR_RUNS,
+                         ids=[c + "".join(f"-{k}={v}" for k, v in e.items())
+                              for c, e in DETECTOR_RUNS])
+def test_detector_runs_match_jax(conv, extra, mode):
+    """An F-based detector on the spectral-whole route (the core
+    kernel's detector mode; the plain version here) against the JAX
+    engine's spectral-whole route (interpreted) and its XLA stats route:
+    the module docstring's tolerances, iteration counts equal."""
+    extra = {"convergence": conv, **extra}
+    data = make_det_data(200, seed=8)
+    rp = run_port(data, extra)
+    assert_match(run_jax(data, mode, extra), rp)
+    if "max-iterations" not in extra:
+        assert len(np.unique(rp.iterations)) > 1   # lanes stop apart
+
+
+def test_lm_on_fixed_design_raises_naming_the_stats_route():
+    """lm fails the JAX engine's shared fast-route gate (vb.py:413,
+    `not self.is_lm`): the JAX engine runs poly under lm on its XLA stats
+    route, which is not ported, so the port raises naming it instead of
+    reaching the spectral core kernel."""
+    extra = {"convergence": "lm"}
+    opts = JOptions({**BASE, "engine-kernel": "spectral-whole", **extra})
+    jeng = JVB(jmodel("poly")(opts), opts, make_data(16),
+               np.zeros((16, 3)))
+    assert not jeng.use_spectral_whole
+    assert jeng.route_description() == \
+        "fixed-design sufficient-statistics route (XLA)"
+    with pytest.raises(NotImplementedError, match="'xla'"):
+        run_port(make_data(16), extra)
 
 
 @pytest.mark.parametrize("extra,err", [

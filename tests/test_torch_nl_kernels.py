@@ -242,3 +242,112 @@ def test_kernel_instances_and_wrapper_refusals():
                          False)
     with pytest.raises(ValueError, match="no kernel"):
         fv.kernel_args(c["pm_"], c["tr"], 1, torch.device("meta"))
+
+
+# -- detector modes (the whole-loop kernel's in-kernel detectors, the
+#    fused iteration's LM branch) ------------------------------------------
+
+def det_dicts(kind, n_iters, nq, extra=None):
+    """The port's and the JAX package's whole-loop detector arguments for
+    the same options and host ELBO constants (VBInference._nl_fdet_consts
+    layout: the white ELBO at T=40, one masked sample)."""
+    from fabber_core_tpu.inference.convergence import \
+        get_detector_class as jget
+    from fabber_core_tpu_torch.inference.convergence import \
+        get_detector_class as tget
+    o = {"max-iterations": str(n_iters), "max-trials": "3", **(extra or {})}
+    td, jd = tget(kind)(RunOptions(dict(o))), jget(kind)(JOptions(dict(o)))
+    n_q = (NT - 1) / nq
+    consts = {"lb_coeff": [n_q * 0.5 + 1e-6] * nq,
+              "f_const": -1.5 * NT, "f_const_init": -2.5 * NT}
+    jdet = {"tol": float(getattr(jd, "min_fchange",
+                                 getattr(jd, "max_fchange", 0.01))),
+            "max_its": int(jd.max_iterations), "kind": kind,
+            "det_obj": jd, "init_save": bool(np.asarray(
+                jd.init_state(1, jnp.float32).save)[0]), **consts}
+    return {"det": td, **consts}, jdet, int(td.max_iterations)
+
+
+NL_DET_KINDS = ["pointzeroone", "freduce", "trialmode", "lm"]
+
+
+@pytest.mark.parametrize("kind", NL_DET_KINDS)
+@pytest.mark.parametrize("name,pattern", [("exp", "1"), ("exp", "12")],
+                         ids=["exp", "exp-12"])
+def test_nl_loop_detector_plain_matches_jax_kernel(name, pattern, kind):
+    """The detector modes of the whole loop at float32 against the TPU
+    kernel interpreted: per-lane iteration counts (and freduce's revert
+    flags) equal; posterior, noise and per-lane F at the tolerances of
+    the module docstring."""
+    c = make_case(name, pattern, seed=4)
+    p, nq, q = c["p"], c["nq"], c["q"]
+    padv, jdata, vp = _pad(c)
+    det, jdet, n_iters = det_dicts(kind, 8, nq)
+    ntg = q.sum(axis=1)
+    pd0 = np.random.default_rng(5).uniform(0.5, 2.0, (p, NV)).astype(
+        np.float32)
+    jconsts = jnl.pack_nl_consts(np.full(nq, 1e6), np.full(nq, 1e-6), ntg,
+                                 1e-8, 50.0, jnp.float32, nq)
+    run = jnl.make_fused_nl_loop(
+        c["jm"].time_signal, c["jtr"], p, NT, n_iters, vp, jnp.float32,
+        True, q, block=BLOCK, interpret=True,
+        time_signal_jac=c["jm"].time_signal_jac, detector=jdet)
+    ref = run(padv(c["centre"]), padv(c["pm"]), padv(c["pp"]), jdata,
+              jconsts, post_var0=padv(pd0))
+    consts = nl.pack_nl_consts(np.full(nq, 1e6), np.full(nq, 1e-6), ntg,
+                               1e-8, 50.0, nq)
+    got = nl.fused_nl_loop(
+        c["pm_"], c["tr"], torch.from_numpy(c["centre"]),
+        torch.from_numpy(c["pm"]), torch.from_numpy(c["pp"]),
+        torch.from_numpy(c["data"]), q, consts, n_iters, True,
+        detector=det, post_var0=torch.from_numpy(pd0))
+    assert nl.fused_nl_loop.det_launches == 0
+    its, jits = got[6][0].numpy(), np.asarray(ref[6])[0, :NV]
+    np.testing.assert_array_equal(its, jits)
+    if kind == "freduce":
+        np.testing.assert_array_equal(got[5][1].numpy(),
+                                      np.asarray(ref[5])[1, :NV])
+    assert_posterior(got, ref, posterior_sd(ref[2]))
+    for k in (3, 4):   # b, c
+        np.testing.assert_allclose(got[k].numpy(),
+                                   np.asarray(ref[k])[:, :NV], rtol=2e-3)
+    np.testing.assert_allclose(got[5][0].numpy(),
+                               np.asarray(ref[5])[0, :NV], rtol=1e-4,
+                               atol=2e-3)
+
+
+@pytest.mark.parametrize("name,pattern", [
+    ("exp", "1"), ("exp", "12"), ("biexp", "1"), ("poly-log", "1")],
+    ids=["exp", "exp-12", "biexp", "poly-log"])
+def test_fused_iteration_lm_plain_matches_jax_kernel(name, pattern):
+    """The fused iteration's LM branch (with_lm) at float32 against the
+    TPU kernel interpreted: alpha 0 (the plain step) in a quarter of the
+    voxels, 1e-6..1e2 elsewhere; the tolerances of the module
+    docstring."""
+    c = make_case(name, pattern, seed=6)
+    p, nq, q = c["p"], c["nq"], c["q"]
+    padv, jdata, vp = _pad(c)
+    rng = np.random.default_rng(7)
+    phi = rng.uniform(1000.0, 3000.0, (nq, NV)).astype(np.float32)
+    alpha = (10.0 ** rng.uniform(-6, 2, NV)).astype(np.float32)
+    alpha[::4] = 0.0
+    run = jfv.make_fused_iteration(
+        c["jm"].time_signal, c["jtr"], p, NT, vp, jnp.float32, True, q,
+        block=BLOCK, with_lm=True, interpret=True,
+        time_signal_jac=c["jm"].time_signal_jac)
+    ref = run(padv(c["centre"]), padv(c["pm"]), padv(c["pp"]), padv(phi),
+              jdata, jnp.pad(jnp.asarray(alpha), (0, vp - NV)))
+    got = fv.fused_iteration(
+        c["pm_"], c["tr"], torch.from_numpy(c["centre"]),
+        torch.from_numpy(c["pm"]), torch.from_numpy(c["pp"]),
+        torch.from_numpy(phi), torch.from_numpy(c["data"]), q, True,
+        torch.from_numpy(alpha))
+    assert fv.fused_iteration.lm_launches == 0
+    assert_posterior(got, ref, posterior_sd(ref[2]))
+    for k in (3, 4):
+        np.testing.assert_allclose(got[k].numpy(),
+                                   np.asarray(ref[k])[:, :NV], rtol=2e-3)
+    for k in (5, 6):
+        np.testing.assert_allclose(got[k].numpy(),
+                                   np.asarray(ref[k])[:, :NV], rtol=1e-4,
+                                   atol=2e-3)

@@ -174,6 +174,89 @@ def test_core_plain_f64_matches_spectral_loop(p, n_iters):
                                    atol=1e-9 * np.abs(np.asarray(j)).max())
 
 
+DET_CASES = [("pointzeroone", {}), ("freduce", {}),
+             ("trialmode", {"max-trials": "3"})]
+
+
+def det_pair(name, extra):
+    """The port's and the JAX package's detector for the same options,
+    and the engine's loop bound (max_iterations + 2)."""
+    from fabber_core_tpu.inference.convergence import \
+        get_detector_class as jget
+    from fabber_core_tpu_torch.inference.convergence import \
+        get_detector_class as tget
+    opts = {"max-iterations": "10", **extra}
+    td = tget(name)(TOptions(dict(opts)))
+    jd = jget(name)(JOptions(dict(opts)))
+    return td, jd, int(td.max_iterations) + 2
+
+
+@pytest.mark.parametrize("p", [3, 4])
+@pytest.mark.parametrize("name,extra", DET_CASES,
+                         ids=[c[0] for c in DET_CASES])
+def test_core_plain_detector_matches_pallas_kernel(name, extra, p):
+    """The detector mode (2d) at float32 against the TPU kernel run
+    interpreted: per-lane iteration counts and engine-initial tags
+    equal, every output within 1e-4 of its max."""
+    nv = 200
+    stats, pm, args, extra_c = core_inputs(p, nv, seed=7)
+    td, jd, cap = det_pair(name, extra)
+    conv1 = jd.init_state(1, jnp.float32)
+    jcore = jfs.make_spectral_core_kernel(
+        p, cap, nv, jnp.float32, block=128, interpret=True, detector=jd,
+        det_consts={"sentinel": float(np.asarray(conv1.prev_f)[0]),
+                    "init_save": bool(np.asarray(conv1.save)[0])})
+    jsc = jfs.pack_spectral_consts(*args, jnp.float32, extra_c)
+    jout = [np.asarray(x) for x in jcore(
+        *(jnp.asarray(x) for x in stats), jnp.asarray(pm), jsc)]
+    tsc = tfs.pack_spectral_consts(*args, torch.float32, extra_c)
+    tout = [t.numpy() for t in tfs.spectral_core_plain(
+        *design_stats_from_numpy(*stats), torch.from_numpy(pm), tsc, cap,
+        td)]
+    np.testing.assert_array_equal(tout[6], jout[6])          # its
+    np.testing.assert_array_equal(tout[3] < 0, jout[3] < 0)  # initial tag
+    names = ["means", "prec", "cov", "b", "c", "F", "its"]
+    for name_, j, t in zip(names, jout, tout):
+        assert t.shape == j.shape, name_
+        assert rel(t, j) <= 1e-4, name_
+
+
+@pytest.mark.parametrize("name,extra", DET_CASES,
+                         ids=[c[0] for c in DET_CASES])
+def test_core_plain_detector_f64_matches_spectral_detector_loop(name,
+                                                                extra):
+    """At float64 the detector mode equals the JAX XLA eigenbasis loop
+    under the same detector (ops/spectral.py
+    make_spectral_detector_loop): iteration counts and initial-state
+    flags equal, the selected posterior to 1e-9."""
+    p, nv = 3, 96
+    stats, pm, args, extra_c = core_inputs(p, nv, seed=9)
+    d, q, nt, pp, inv_b0, c_post, b_init, c_init = args
+    stats64 = [s.astype(np.float64) for s in stats]
+    pm64 = pm.astype(np.float64)
+    td, jd, cap = det_pair(name, extra)
+    loop = jspec.make_spectral_detector_loop(
+        d, q, pp, jd, cap, b_init, c_init, inv_b0=inv_b0, c_post=c_post,
+        b0=1.0 / inv_b0, c0=1e-6, dtype=jnp.float64)
+    jmeans, jprec, jcov, jb, jsel, jconv = loop(
+        *(jnp.asarray(x) for x in stats64), jnp.asarray(pm64),
+        jd.init_state(nv, jnp.float64))
+    tsc = tfs.pack_spectral_consts(*args, torch.float64, extra_c)
+    tout = tfs.spectral_core_plain(*(torch.from_numpy(x) for x in stats64),
+                                   torch.from_numpy(pm64), tsc, cap, td)
+    np.testing.assert_array_equal(tout[6][0].numpy().astype(np.int32),
+                                  np.asarray(jconv.its))
+    sel = np.asarray(jsel)
+    np.testing.assert_array_equal(tout[3][0].numpy() < 0, sel)
+    keep = ~sel          # initial-state lanes are the engine's to fill
+    tout = list(tout[:3]) + [tout[3].abs()]      # b without its tag
+    for j, t in zip((jmeans, jprec, jcov, jb), tout):
+        j = np.asarray(j)[..., keep]
+        t = t.numpy()[..., keep]
+        np.testing.assert_allclose(t, j, rtol=1e-9,
+                                   atol=1e-9 * np.abs(j).max())
+
+
 def test_pack_consts_match_jax_layout():
     """The port's constant vectors are the JAX blocks without the
     ROWS (8x) replication and the MXU padding."""

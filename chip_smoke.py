@@ -5,18 +5,22 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels from fabber_core_tpu_torch/csrc/ (one
-nvcc per source, all started together, into build/kernels/) and holds
-each kernel, in each of its modes, against its plain-torch version on
-the card. It drives the port's main paths end to end through the
-public API on a 128x128x64 volume: poly degree 2 (T=106) on the
-fixed-design spectral route, and biexp (T=100, bench.py's biexp data)
-on the whole-loop nonlinear route, each under maxits and under
---convergence=trialmode (the kernels' in-kernel detector modes);
-checks that each path went through its kernels and that the results
-are right; runs the per-iteration nonlinear route, under maxits and
-under lm (its LM branch); then times the kernels, their plain versions,
-a device-to-device copy and the whole engine run, poly at 16,777,216
+It builds the CUDA kernels from fabber_core_tpu_torch/csrc/ (one nvcc
+per source, all started together, into build/kernels/) and holds each
+kernel, in each of its modes, against its plain-torch version on the
+card. It drives the port's main paths end to end through the public
+API on a 128x128x64 volume: poly degree 2 (T=106) on the fixed-design
+spectral route, and biexp (T=100, bench.py's biexp data) on the
+whole-loop nonlinear route, each under maxits and under
+--convergence=trialmode (the kernels' in-kernel detector modes); poly
+with --noise-pattern=12 (the whole-program kernel), under lm, with
+engine-kernel=pallas-loop (the stats-input kernel), each held to the
+float64 'xla' route on the card; the linear model (128x128x32) with
+--spectral-impl=fused (the one-kernel spectral form). It checks that
+each path went through its kernels and that the results are right;
+runs the per-iteration nonlinear route, under maxits and under lm (its
+LM branch); then times the kernels, their plain versions, a
+device-to-device copy and the whole engine run, poly at 16,777,216
 voxels and biexp at 4,000,000. Every phase passes or the script exits
 non-zero without printing the result line. The last line of standard
 output is the JSON result object; the line before it lists the
@@ -817,51 +821,100 @@ def trip_counter(det):
     return cls(det)
 
 
-def near_f64(name, k, r32, r64, dk, d32, d64):
-    """A detector mode against its plain version at float64, lane by
-    lane on the decisions dk/d32/d64 [2,V] (iteration count, revert):
-    the share of lanes whose decisions differ from float64 at most twice
-    the plain float32 version's own share + 1e-3; on the lanes where
-    both agree with float64, the means within max(1e-3, 2x the plain
-    float32 distance) posterior sd of float64 and every other output
-    within max(1e-3, 2x the plain float32 distance) of its max.
-    Returns (ok, max abs error on those lanes, worst error over bound)."""
+def lane_rel(got, ref):
+    """Per lane, the error of one output in the lane's own scale (the
+    largest over its elements): a [P,P,V] matrix (prec, cov) element by
+    element over sqrt(|ref_ii ref_jj|); a row over |ref|, or over
+    max(|ref|, 1) where the row changes sign across lanes (F, in nats:
+    at 0 it has no scale of its own). Returns [V] float64."""
     import torch
-    miss_k = (dk != d64).any(dim=0)
-    miss_32 = (d32 != d64).any(dim=0)
-    share_k = float(miss_k.double().mean())
-    share_32 = float(miss_32.double().mean())
-    bound_share = 2 * share_32 + 1e-3
-    ok = share_k <= bound_share
-    keep = ~(miss_k | miss_32)
+    got, ref = got.double(), ref.double()
+    err = (got - ref).abs()
+    if ref.dim() == 3 and ref.shape[0] == ref.shape[1]:
+        dg = torch.stack([ref[i, i] for i in range(ref.shape[0])]).abs()
+        scale = torch.sqrt(dg[:, None] * dg[None, :])
+    else:
+        mixed = ((ref > 0).any(dim=-1, keepdim=True)
+                 & (ref < 0).any(dim=-1, keepdim=True))
+        scale = torch.where(mixed, ref.abs().clamp_min(1.0), ref.abs())
+    err = err / scale.clamp_min(1e-30)
+    return err.reshape(-1, err.shape[-1]).amax(dim=0)
+
+
+def lane_errors(a, r64):
+    """Per output, the [V] errors of the outputs a against the plain
+    version at float64: the means over float64's posterior sd, the
+    others in each lane's own scale (lane_rel)."""
+    import torch
     p = r64[0].shape[0]
     sd = torch.sqrt(torch.stack([r64[2][i, i] for i in range(p)])).double()
-    sd = sd[:, keep]
+    means = ((a[0].double() - r64[0].double()).abs() / sd).amax(dim=0)
+    return [means] + [lane_rel(a[i], r64[i]) for i in range(1, len(a))]
 
-    def sd_err(a):
-        return float(((a[0][:, keep].double() - r64[0][:, keep].double())
-                      .abs() / sd).max())
 
-    def rel_err(a, i):
+def near_f64(name, k, r32, r64, dk=None, d32=None, d64=None, tol=1e-2):
+    """A kernel against its plain version at float64. With decisions
+    dk/d32/d64 [2,V] (iteration count, revert; a detector mode), the
+    share of lanes whose decisions differ from float64 at most twice the
+    plain float32 version's own share + 1e-3. On the lanes where both
+    agree with float64: the means within max(1e-3, 2x the plain float32
+    distance) posterior sd of float64, every other output within
+    max(1e-3, 2x the plain float32 distance) of its max; and in each
+    lane's own scale (lane_errors: noise sd and precisions span six
+    decades over the lanes of phase 3d, so a scale shared by the lanes
+    would hide a wrong low-noise lane) —
+      without decisions: each output's worst lane within max(1e-3, 2x
+      the plain float32 version's worst);
+      with decisions: a lane is off where an output lies beyond tol of
+      float64 (an lm step taken or refused, or a revert that is no
+      output, moves a lane's state without a decision to show it): the
+      kernel's share of lanes off at most twice the plain float32
+      version's own + 1e-3.
+    Returns (ok, max abs error on the lanes whose decisions agree, worst
+    ratio to its bound)."""
+    import torch
+    if dk is None:
+        keep = torch.ones(r64[0].shape[-1], dtype=torch.bool,
+                          device=r64[0].device)
+        ratios = []
+    else:
+        miss_k = (dk != d64).any(dim=0)
+        miss_32 = (d32 != d64).any(dim=0)
+        keep = ~(miss_k | miss_32)
+        ratios = [float(miss_k.double().mean())
+                  / (2 * float(miss_32.double().mean()) + 1e-3)]
+    e_k = [e[keep] for e in lane_errors(k, r64)]
+    e_32 = [e[keep] for e in lane_errors(r32, r64)]
+
+    def rel_max(a, i):
         ref = r64[i][..., keep].double()
         return float((a[i][..., keep].double() - ref).abs().max()
                      / ref.abs().max().clamp_min(1e-30))
 
-    bound = max(1e-3, 2 * sd_err(r32))
-    ratio = sd_err(k) / bound
-    abs_err = float((k[0][:, keep].double() - r64[0][:, keep].double())
-                    .abs().max())
+    ratios.append(float(e_k[0].max()) / max(1e-3, 2 * float(e_32[0].max())))
     for i in range(1, len(k)):
-        b_i = max(1e-3, 2 * rel_err(r32, i))
-        ratio = max(ratio, rel_err(k, i) / b_i)
-        abs_err = max(abs_err, float((k[i][..., keep].double()
-                                      - r64[i][..., keep].double())
-                                     .abs().max()))
-    ok = ok and ratio <= 1.0
-    log(f"  {name:<34} decisions off float64 in {share_k:.6f} of lanes "
-        f"(plain float32 {share_32:.6f}; bound {bound_share:.6f}); "
-        f"matching lanes: max abs err {abs_err:.4g}, worst err/bound "
-        f"{ratio:.3g} {'ok' if ok else 'FAIL'}")
+        ratios.append(rel_max(k, i) / max(1e-3, 2 * rel_max(r32, i)))
+    if dk is None:
+        ratios += [float(a.max()) / max(1e-3, 2 * float(b.max()))
+                   for a, b in zip(e_k, e_32)]
+        lanes = ""
+    else:
+        def share_off(e):
+            return float((~(torch.stack(e).amax(dim=0) <= tol)).double()
+                         .mean())
+        off_k, off_32 = share_off(e_k), share_off(e_32)
+        ratios.append(off_k / (2 * off_32 + 1e-3))
+        lanes = (f"; decisions off float64 (kernel or plain) in "
+                 f"{1 - float(keep.double().mean()):.6f} of lanes; beyond "
+                 f"{tol:g} in the lane's scale in {off_k:.6f} of the rest "
+                 f"(plain float32 {off_32:.6f})")
+    ok = all(r <= 1.0 for r in ratios)          # False where NaN
+    ratio = max(r if r == r else float("inf") for r in ratios)
+    abs_err = max(float((a[..., keep].double() - r[..., keep].double())
+                        .abs().max()) for a, r in zip(k, r64)) \
+        if bool(keep.any()) else 0.0
+    log(f"  {name:<34} worst err/bound {ratio:.3g}{lanes}; max abs err "
+        f"{abs_err:.4g} {'ok' if ok else 'FAIL'}")
     return ok, abs_err, ratio
 
 
@@ -1034,10 +1087,8 @@ def check_detector_kernels(device, nvs=(1_048_576, 1_000_003),
             a.double() if torch.is_tensor(a) else a for a in it_args),
             alpha.double())
         torch.cuda.synchronize()
-        same = torch.zeros((2, nv), dtype=torch.float64, device=device)
         note("fused_vb_iter:lm", near_f64(
-            f"fused_vb_iter lm {model} V={nv}", k, r32, r64, same, same,
-            same))
+            f"fused_vb_iter lm {model} V={nv}", k, r32, r64))
         del k, r32, r64, data, clean, truth, lat, phi, alpha, eng, args
         torch.cuda.empty_cache()
     return ok_all, worst
@@ -1357,6 +1408,536 @@ def time_detectors(device, card, fig, fig_nl, nv_poly=16_777_216,
     return ok, out
 
 
+# ---------------------------------------------------------------------------
+# The fixed-design statistics routes (phases 3d, 4i-4l, 5d)
+# ---------------------------------------------------------------------------
+
+def group_masks(nq, masked=False, nt=NT):
+    """[Q,T] indicators of the noise pattern '12..Q' (timepoint t in
+    group t mod Q); masked drops samples 6 and 61 from every group."""
+    q = np.zeros((nq, nt))
+    q[np.arange(nt) % nq, np.arange(nt)] = 1.0
+    if masked:
+        q[:, [5, 60]] = 0.0
+    return q
+
+
+def pattern_plane(design, nq, nv, gen, device,
+                  scale=(1.0, 0.05, 5e-4, 1.0)):
+    """[T,V] float32 plane D @ truth + noise whose sd varies per voxel
+    (log-uniform over 1e-2..3, so detector lanes stop apart) and grows
+    with the group (x1, x2, x3 for the groups of the pattern 123)."""
+    import torch
+    nt, p = design.shape
+    d = torch.as_tensor(design, dtype=torch.float32, device=device)
+    truth = (torch.rand((p, nv), generator=gen, device=device) * 2 - 1) \
+        * torch.as_tensor(scale[:p], dtype=torch.float32,
+                          device=device)[:, None]
+    sd = 10.0 ** (torch.rand(nv, generator=gen, device=device) * 2.5 - 2)
+    gfac = torch.as_tensor(1.0 + np.arange(nt) % nq, dtype=torch.float32,
+                           device=device)
+    plane = torch.randn((nt, nv), generator=gen, device=device)
+    plane.mul_(gfac[:, None]).mul_(sd[None])
+    plane.addmm_(d, truth)
+    return plane
+
+
+def whole_inputs(design, q, plane, device):
+    """Kernel 4's inputs for the poly priors (mean 0, precision 1e-12):
+    (data, tconsts, consts, prior_means, prior_prec)."""
+    import torch
+    from fabber_core_tpu_torch.ops import fused_whole as fw
+    p, nv = design.shape[1], plane.shape[1]
+    nq = q.shape[0]
+    tc = fw.pack_whole_time_consts(design, q, NT, torch.float32, device)
+    consts = fw.pack_whole_consts(design, q, NT, np.full(nq, 1e6),
+                                  np.full(nq, 1e-6), q.sum(axis=1), 1e-8,
+                                  50.0)
+    pm = torch.zeros((p, nv), dtype=torch.float32, device=device)
+    pp = torch.full((p, nv), 1e-12, dtype=torch.float32, device=device)
+    return plane, tc, consts, pm, pp
+
+
+def whole_detector(kind, p, nq, masked=False):
+    """Kernel 4's detector dict (the host ELBO constants of an engine on
+    the CPU with the same groups, max-iterations 10) and the engine's
+    loop cap."""
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.options import RunOptions
+    extra = {"mt1": "6", "mt2": "61"} if masked else {}
+    opts = RunOptions({"model": "poly", "degree": str(p - 1),
+                       "noise": "white", "dtype": "single",
+                       "convergence": kind, "max-iterations": str(ITERS),
+                       "noise-pattern": "123"[:nq], **extra})
+    eng = VBInference(get_model_class("poly")(opts), opts,
+                      np.ones((4, NT), np.float32), device="cpu")
+    return eng._nl_fdet_consts(), eng.max_iter_cap
+
+
+def to64(args):
+    return tuple(a.double() if hasattr(a, "double") else a for a in args)
+
+
+def check_fixed_design_kernels(device, nvs=(1_048_576, 1_000_003),
+                               seed=SEED + 10):
+    """Phase 3d: the fixed-design kernels against their plain versions
+    at the main path's poly shapes (P=3, T=106), each held by near_f64
+    (the plain version at float64 beside the plain float32 one):
+      fused_whole (4) in maxits at Q = 1, 2, 3 (Q=3 with two masked
+        timepoints) and with a locked noise sd (Q=2, masked);
+      fused_whole's detector modes pointzeroone, trialmode and lm (4d,
+        4l) at Q = 1, 2, at the engine's loop cap, by decision share;
+      fused_vb_loop (5) at Q = 1, 2 from the plain statistics;
+      spectral_fused (3) in maxits and trialmode, against the split
+        pair (kernels 1 + 2) bit for bit and against its plain version.
+    Voxel noise sd varies over 1e-2..3 (detector lanes stop apart); the
+    truth is c0 ~ U(-1, 1), c1 ~ U(-0.05, 0.05), c2 ~ U(-5e-4, 5e-4)."""
+    import torch
+    from fabber_core_tpu_torch.ops import fused_loop as fl
+    from fabber_core_tpu_torch.ops import fused_spectral as fs
+    from fabber_core_tpu_torch.ops import fused_whole as fw
+    from fabber_core_tpu_torch.ops.spectral import eigen_elbo_const
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    worst = {k: [0.0, 0.0] for k in ("spectral_fused", "fused_whole",
+                                     "fused_whole:detector",
+                                     "fused_whole:lm", "fused_vb_loop")}
+    ok_all = True
+
+    def note(kname, res):
+        nonlocal ok_all
+        ok, abs_err, ratio = res
+        ok_all &= ok
+        worst[kname][0] = max(worst[kname][0], abs_err)
+        worst[kname][1] = max(worst[kname][1], ratio)
+
+    p, design = 3, poly_design(3)
+    for nv in nvs:
+        for nq, masked, locked in ((1, False, -1.0), (2, False, -1.0),
+                                   (3, True, -1.0), (2, True, 0.2)):
+            q = group_masks(nq, masked)
+            plane = pattern_plane(design, nq, nv, gen, device)
+            args = whole_inputs(design, q, plane, device)
+            k = fw.fused_whole(*args, ITERS, locked)
+            r32 = fw.fused_whole_plain(*args, ITERS, locked)
+            r64 = fw.fused_whole_plain(*to64(args), ITERS, locked)
+            torch.cuda.synchronize()
+            tag = f"Q={nq}{' masked' if masked else ''}" \
+                f"{' locked' if locked > 0 else ''} V={nv}"
+            note("fused_whole", near_f64(f"fused_whole {tag}", k, r32, r64))
+            del k, r32, r64
+            if nq <= 2 and locked < 0:
+                stats = tuple(x.contiguous() for x in fw.whole_stats_plain(
+                    plane, args[1], args[2], p, nq))
+                rest = (args[2], args[3], args[4], ITERS)
+                k = fl.fused_vb_loop(*stats, *rest)
+                r32 = fl.fused_vb_loop_plain(*stats, *rest)
+                r64 = fl.fused_vb_loop_plain(*to64(stats), args[2],
+                                             args[3].double(),
+                                             args[4].double(), ITERS)
+                torch.cuda.synchronize()
+                note("fused_vb_loop", near_f64(f"fused_vb_loop {tag}", k,
+                                               r32, r64))
+                del k, r32, r64, stats
+            if nq <= 2 and not masked:
+                for kind in ("pointzeroone", "trialmode", "lm"):
+                    det, cap = whole_detector(kind, p, nq)
+                    k = fw.fused_whole(*args, cap, -1.0, det)
+                    r32 = fw.fused_whole_plain(*args, cap, -1.0, det)
+                    r64 = fw.fused_whole_plain(*to64(args), cap, -1.0, det)
+                    torch.cuda.synchronize()
+
+                    def dec(o):
+                        return torch.stack([o[6][0].double(),
+                                            0 * o[6][0].double()])
+
+                    kname = "fused_whole:lm" if kind == "lm" \
+                        else "fused_whole:detector"
+                    note(kname, near_f64(f"fused_whole {kind} {tag}", k, r32,
+                                         r64, dec(k), dec(r32), dec(r64)))
+                    del k, r32, r64
+            del plane, args
+            torch.cuda.empty_cache()
+
+        q1 = np.ones(NT)
+        c_post = (NT - 1) * 0.5 + 1e-6
+        tc = fs.pack_mxu_consts(design, q1, NT, torch.float32, device)
+        ac = fs.pack_solve_consts(design, q1, NT, torch.float32)
+        sc = fs.pack_spectral_consts(
+            design, q1, NT, np.full(p, 1e-12), 1e-6, c_post, 1e-8, 50.0,
+            torch.float32, (eigen_elbo_const(q1, c_post, 1e-6, 1e6, p),
+                            c_post + 0.5))
+        data, _ = gen_plane(design, nv, gen, [100.0, 0.5, 0.005], 1.0,
+                            device)
+        pm = torch.zeros((p, nv), dtype=torch.float32, device=device)
+        for kind in (None, "trialmode"):
+            det = None if kind is None else make_detector(kind)
+            n_it = ITERS if det is None else int(det.max_iterations) + 2
+            k = fs.spectral_fused(data, tc, ac, pm, sc, n_it, det)
+            split = fs.spectral_core(*fs.spectral_stats(data, tc, ac), pm,
+                                     sc, n_it, det)
+            same = all(torch.equal(a, b) for a, b in zip(k, split))
+            del split
+            r32 = fs.spectral_fused_plain(data, tc, ac, pm, sc, n_it, det)
+            r64 = fs.spectral_fused_plain(data.double(), tc, ac, pm.double(),
+                                          sc, n_it, det)
+            torch.cuda.synchronize()
+
+            def dec(o):
+                return None if det is None else torch.stack(
+                    [o[6][0].double(), (o[3][0] < 0).double()])
+
+            def tidy(o):
+                return (o[0], o[1], o[2], o[3].abs()) + tuple(o[4:])
+
+            log(f"  spectral_fused {kind or 'maxits'} V={nv}: the split "
+                f"pair's outputs bit for bit: {same}")
+            ok_all &= same
+            note("spectral_fused", near_f64(
+                f"spectral_fused {kind or 'maxits'} V={nv}", tidy(k),
+                tidy(r32), tidy(r64), dec(k), dec(r32), dec(r64)))
+            del k, r32, r64
+        del data, pm
+        torch.cuda.empty_cache()
+    return ok_all, worst
+
+
+PATTERN_OPTIONS = {**MAIN_OPTIONS, "noise-pattern": "12"}
+
+
+def make_pattern_volume(shape, seed=SEED + 11):
+    """Phases 4i, 4j, 4l input: poly degree 2 with c0 ~ U(0.5, 1.5),
+    c1 ~ U(-0.05, 0.05), c2 ~ U(-5e-4, 5e-4) and white noise of sd 0.1
+    and 0.2 on alternate timepoints, from numpy. (At c0 ~ 100 with noise
+    sd 0.1 the float32 routes sit up to 3.6e-2 posterior sd from float64
+    on the CPU alike: the uncentred Gram of ROADMAP Queue 3 item 5.)"""
+    rng = np.random.default_rng(seed)
+    nv = int(np.prod(shape))
+    truth = np.stack([rng.uniform(0.5, 1.5, nv), rng.uniform(-0.05, 0.05, nv),
+                      rng.uniform(-5e-4, 5e-4, nv)]).astype(np.float32)
+    sd = np.where(np.arange(NT) % 2 == 0, 0.1, 0.2).astype(np.float32)
+    data = (poly_design(3).astype(np.float32) @ truth).T
+    data += sd[None, :] * rng.standard_normal((nv, NT), dtype=np.float32)
+    return data.reshape(shape + (NT,), order="F")
+
+
+def launch_counts():
+    from fabber_core_tpu_torch.ops import fused_loop as fl
+    from fabber_core_tpu_torch.ops import fused_loop_nl as fnl
+    from fabber_core_tpu_torch.ops import fused_spectral as fs
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    from fabber_core_tpu_torch.ops import fused_whole as fw
+    return {"spectral_stats": fs.spectral_stats.launches,
+            "spectral_core": fs.spectral_core.launches,
+            "spectral_fused": fs.spectral_fused.launches,
+            "fused_whole": fw.fused_whole.launches,
+            "fused_whole:detector": fw.fused_whole.det_launches,
+            "fused_whole:lm": fw.fused_whole.lm_launches,
+            "fused_vb_loop": fl.fused_vb_loop.launches,
+            "fused_nl_loop": fnl.fused_nl_loop.launches,
+            "fused_vb_iter": fv.fused_iteration.launches}
+
+
+def reset_launches():
+    from fabber_core_tpu_torch.ops import fused_loop as fl
+    from fabber_core_tpu_torch.ops import fused_loop_nl as fnl
+    from fabber_core_tpu_torch.ops import fused_spectral as fs
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    from fabber_core_tpu_torch.ops import fused_whole as fw
+    for fn in (fs.spectral_stats, fs.spectral_core, fs.spectral_fused,
+               fw.fused_whole, fl.fused_vb_loop, fnl.fused_nl_loop,
+               fv.fused_iteration):
+        fn.launches = 0
+    fs.spectral_core.det_launches = fs.spectral_fused.det_launches = 0
+    fw.fused_whole.det_launches = fw.fused_whole.lm_launches = 0
+
+
+def api_run(device, options, vol):
+    """run_with_data with its launch counters zeroed just before and
+    read just after: (run, VBResult, engine, launches, seconds)."""
+    from fabber_core_tpu_torch.api import FabberTpu
+    captured, restore = capture_results()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        run = FabberTpu(device=device).run_with_data(options, {"data": vol})
+    finally:
+        restore()
+    secs = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    eng, res = captured[-1]
+    log(f" {eng.route_description()}: {secs:.3f} s; launches {launches}")
+    return run, res, eng, launches, secs
+
+
+def voxel_errors(res, ref):
+    """Per voxel, against the reference run ref: the largest |means -
+    ref means| over ref's posterior sd, the largest |std / ref std - 1|
+    over the parameters and the largest |noise / ref noise - 1| over
+    the groups' noise precision means. Returns the three [V] arrays."""
+    sd = np.sqrt(np.diagonal(ref.cov, axis1=1, axis2=2))
+    sd_res = np.sqrt(np.diagonal(res.cov, axis1=1, axis2=2))
+    return (np.max(np.abs(res.means - ref.means) / sd, axis=1),
+            np.max(np.abs(sd_res / sd - 1), axis=1),
+            np.max(np.abs(res.noise_means / ref.noise_means - 1), axis=1))
+
+
+def against_f64(name, res, ref, bound=1e-2):
+    """Phases 4i and 4l: every voxel's means within bound posterior sd
+    of the float64 run, its std and noise within bound relative."""
+    e_m, e_s, e_n = voxel_errors(res, ref)
+    good = (max(e_m.max(), e_s.max(), e_n.max()) <= bound
+            and not res.bad_voxels.any())
+    log(f" {name} against float64, in every voxel: means within "
+        f"{e_m.max():.4g} posterior sd (p99.9 {np.quantile(e_m, 0.999):.3g}"
+        f"), std within {e_s.max():.3g} and noise within {e_n.max():.3g} "
+        f"relative (bound {bound:g} each) {'ok' if good else 'FAIL'}")
+    return good
+
+
+def detector_against_f64(name, res, ref, bound=1e-2):
+    """Phase 4j: a detector's decisions are discontinuous and the
+    revert flag is no output, so the share of voxels whose iteration
+    count differs from the float64 run's, or whose means, std, noise
+    (voxel_errors) or F lie beyond bound of it, is at most 1e-3."""
+    e_m, e_s, e_n = voxel_errors(res, ref)
+    other = res.iterations != ref.iterations
+    off = (other | (e_m > bound) | (e_s > bound) | (e_n > bound)
+           | (np.abs(res.free_energy - ref.free_energy) > bound))
+    good = float(off.mean()) <= 1e-3 and not res.bad_voxels.any()
+    log(f" {name} float32 against float64: {int(off.sum())} voxels off "
+        f"({off.mean():.3g}; bound 1e-3), of them {int(other.sum())} with "
+        f"another iteration count; iterations {its_histogram(res.iterations)}"
+        f" (float64 {its_histogram(ref.iterations)}) "
+        f"{'ok' if good else 'FAIL'}")
+    return good
+
+
+def run_pattern_paths(device, shape=(128, 128, 64)):
+    """Phases 4i, 4j, 4l on one 128x128x64 x 106 volume with the noise
+    pattern 12 (make_pattern_volume), each through run_with_data:
+      4i  float32 (auto: the whole-program kernel): fused_whole launched
+          once and no spectral kernel; in every voxel the posterior
+          means within 1e-2 posterior sd of the float64 run (the 'xla'
+          route, plain torch on the card, no kernel launched), the std
+          and both groups' noise within 1e-2 relative; both groups'
+          median noise sd within 5% of the truth (0.1, 0.2);
+      4j  --convergence=trialmode (kernel 4's detector mode, launched
+          once) and --convergence=lm (its lm mode, launched once), each
+          at float32 and at float64 ('xla', no kernel), held by
+          detector_against_f64;
+      4l  --engine-kernel=pallas-loop (kernel 5, launched once, from
+          make_design_stats in plain torch): against the float64 run as
+          4i.
+    Returns (ok, launches per kernel)."""
+    vol = make_pattern_volume(shape)
+    nv = int(np.prod(shape))
+    log(f" volume {shape + (NT,)}: {vol.nbytes / 1e6:.0f} MB float32, "
+        "noise sd 0.1 / 0.2 on alternate timepoints")
+    ok, launches = True, {}
+    log("phase 4i: run_with_data, noise-pattern=12")
+    run, res, eng, n32, _ = api_run(device, PATTERN_OPTIONS, vol)
+    launches["fused_whole"] = n32.get("fused_whole", 0)
+    ok &= (eng.route == "pallas-whole" and n32 == {"fused_whole": 1})
+    _, r64, eng64, n64, _ = api_run(device, {**PATTERN_OPTIONS,
+                                             "dtype": "double"}, vol)
+    ok &= eng64.route == "xla" and not n64
+    nsd = np.median(1 / np.sqrt(run.data["noise_means"].reshape(nv, -1)),
+                    axis=0)
+    good = (abs(nsd[0] / 0.1 - 1) <= 0.05 and abs(nsd[1] / 0.2 - 1) <= 0.05
+            and all(np.isfinite(a).all() for a in run.data.values()))
+    log(f" median noise sd {nsd[0]:.5f} / {nsd[1]:.5f} (truth 0.1 / 0.2, "
+        f"bound 5%) {'ok' if good else 'FAIL'}")
+    ok &= good and against_f64("float32", res, r64)
+
+    log("phase 4j: the same volume under trialmode and lm, at float32 and "
+        "float64")
+    for kind in ("trialmode", "lm"):
+        opts = {**PATTERN_OPTIONS, "convergence": kind}
+        _, rd, engd, nd, _ = api_run(device, opts, vol)
+        want = {"fused_whole": 1, "fused_whole:detector": 1}
+        if kind == "lm":
+            want["fused_whole:lm"] = 1
+            launches["fused_whole:lm"] = nd.get("fused_whole:lm", 0)
+        else:
+            launches["fused_whole:detector"] = nd.get(
+                "fused_whole:detector", 0)
+        ok &= engd.route == "pallas-whole" and nd == want
+        _, rd64, engd64, nd64, _ = api_run(device, {**opts, "dtype": "double"},
+                                           vol)
+        ok &= engd64.route == "xla" and not nd64
+        ok &= detector_against_f64(kind, rd, rd64)
+
+    log("phase 4l: the same volume, engine-kernel=pallas-loop")
+    _, rp, engp, npl, _ = api_run(device, {**PATTERN_OPTIONS,
+                                           "engine-kernel": "pallas-loop"},
+                                  vol)
+    launches["fused_vb_loop"] = npl.get("fused_vb_loop", 0)
+    ok &= engp.route == "pallas-loop" and npl == {"fused_vb_loop": 1}
+    ok &= against_f64("kernel 5", rp, r64)
+    return ok, launches
+
+
+def run_linear_path(device, shape=(128, 128, 32)):
+    """Phase 4k: the linear model (P=4 synthetic_design, T=106, written
+    by this script to a VEST file under build/) through run_with_data
+    with --spectral-impl=fused: spectral_fused launched once and no
+    other kernel; each parameter within 3 posterior sd of the truth in
+    >= 99% of voxels; median noise sd within 5% of 1."""
+    from pathlib import Path
+    from fabber_core_tpu_torch.io import matfile
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    design = synthetic_design()
+    path = str(out / "linear_design.mat")
+    matfile.write_vest(design, path)
+    rng = np.random.default_rng(SEED + 12)
+    nv = int(np.prod(shape))
+    truth = rng.uniform(-1, 1, (4, nv)) * np.array([[10.0], [5.0], [2.0],
+                                                     [2.0]])
+    data = (design.astype(np.float32) @ truth.astype(np.float32)).T
+    data += rng.standard_normal((nv, NT), dtype=np.float32)
+    vol = data.reshape(shape + (NT,), order="F")
+    opts = {**MAIN_OPTIONS, "model": "linear", "basis": path,
+            "spectral-impl": "fused"}
+    opts.pop("degree")
+    run, res, eng, n, _ = api_run(device, opts, vol)
+    ok = eng.route == "spectral-fused" and n == {"spectral_fused": 1}
+    fracs = []
+    for i in range(4):
+        m = run.data[f"mean_Parameter_{i + 1}"].reshape(-1, order="F")
+        s = run.data[f"std_Parameter_{i + 1}"].reshape(-1, order="F")
+        fracs.append(float((np.abs(m - truth[i]) <= 3 * s).mean()))
+    nsd = float(np.median(1 / np.sqrt(run.data["noise_means"])))
+    good = min(fracs) >= 0.99 and abs(nsd - 1) <= 0.05
+    log(f" linear P=4: parameters within 3 posterior sd of truth in "
+        f"{[round(f, 5) for f in fracs]} of voxels (bound >= 0.99); median "
+        f"noise sd {nsd:.4f} (truth 1, bound 5%) {'ok' if good else 'FAIL'}")
+    return ok and good, {"spectral_fused": n.get("spectral_fused", 0)}
+
+
+def whole_ops(p, nq, iters, det=False):
+    """float32 operations per voxel of kernel 4 (iters=None: kernel 5's
+    fixed point alone), counted from its arithmetic: the two statistics
+    passes, the m0 solve, and per iteration the precision, Cholesky,
+    inverse, means, noise quadratics (and, in a detector mode, F)."""
+    ntri = p * (p + 1) // 2
+    stats = NT * (2 * p + (nq - 1) * p + 2 * p + 3 * nq + 2 * nq * p) \
+        + p ** 3 + 2 * p * p
+    step = (2 * nq * ntri + p + p ** 3 + 2 * p ** 3 + 2 * nq * p + 2 * p * p
+            + nq * (2 * p + 4 * p * p + 8))
+    if det:
+        step += 4 * p + 6 * nq + 20
+    return stats + 2 * nq * p * p + step * iters
+
+
+def time_fixed_design(device, card, fig, nv=16_777_216):
+    """Phase 5d at 16,777,216 voxels, T=106, P=3, on a plane made on the
+    card: kernel 4 in maxits at Q=1 and Q=2, under trialmode at Q=2 and
+    lm at Q=1; kernel 5 at Q=2 with make_design_stats's time beside it;
+    kernel 3 beside the split pair (phase 5); VBInference.run() of poly
+    with noise-pattern 12. CUDA events, best of 3 after a warm-up; the
+    plain versions best of 1 after a warm-up. Detector bounds count the
+    loop trips the plain version needed on this data."""
+    import torch
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.ops import fused_loop as fl
+    from fabber_core_tpu_torch.ops import fused_spectral as fs
+    from fabber_core_tpu_torch.ops import fused_whole as fw
+    from fabber_core_tpu_torch.options import RunOptions
+
+    out = {}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 13)
+    p, design = 3, poly_design(3)
+    plane = pattern_plane(design, 2, nv, gen, device)
+    out_bytes = {nq: 4 * (p + 2 * p * p + 4 * nq) * nv for nq in (1, 2)}
+    in_bytes = 4 * NT * nv + 4 * 2 * p * nv
+    for nq in (1, 2):
+        args = whole_inputs(design, group_masks(nq), plane, device)
+        out[f"whole_q{nq}_ms"] = best_ms(lambda: fw.fused_whole(*args, ITERS))
+        out[f"whole_q{nq}_plain_ms"] = best_ms(
+            lambda: fw.fused_whole_plain(*args, ITERS), reps=1)
+        out[f"whole_q{nq}_bound"] = bound(
+            in_bytes + out_bytes[nq], whole_ops(p, nq, ITERS) * nv)
+    for kind, nq in (("trialmode", 2), ("lm", 1)):
+        args = whole_inputs(design, group_masks(nq), plane, device)
+        det, cap = whole_detector(kind, p, nq)
+        out[f"whole_{kind}_ms"], k = best_ms(
+            lambda: fw.fused_whole(*args, cap, -1.0, det), keep=True)
+        out[f"whole_{kind}_its"] = its_histogram(k[6][0].cpu().numpy())
+        del k
+        counter = trip_counter(det["det"])
+        fw.fused_whole_plain(*args, cap, -1.0, {**det, "det": counter})
+        out[f"whole_{kind}_plain_ms"] = best_ms(
+            lambda: fw.fused_whole_plain(*args, cap, -1.0, det), reps=1)
+        out[f"whole_{kind}_bound"] = bound(
+            in_bytes + 4 * (p + 2 * p * p + 2 * nq + 2) * nv,
+            whole_ops(p, nq, 0) * nv
+            + (whole_ops(p, nq, 1, det=True) - whole_ops(p, nq, 0))
+            * counter.trips)
+        torch.cuda.empty_cache()
+    # kernel 5 at Q=2, from make_design_stats
+    opts = RunOptions({**{k: v for k, v in PATTERN_OPTIONS.items()
+                          if not k.startswith("save")},
+                       "engine-kernel": "pallas-loop"})
+    eng = VBInference(get_model_class("poly")(opts), opts, None,
+                      data_plane=plane, device=device)
+    dt = eng._design_tensor()
+    out["design_stats_ms"] = best_ms(
+        lambda: eng.noise.make_design_stats(dt, plane), reps=1)
+    largs, _ = eng.loop_kernel_args()
+    out["loop_q2_ms"] = best_ms(lambda: fl.fused_vb_loop(*largs, ITERS))
+    out["loop_q2_plain_ms"] = best_ms(
+        lambda: fl.fused_vb_loop_plain(*largs, ITERS), reps=1)
+    out["loop_q2_bound"] = bound(
+        4 * (p + 2 + 2 * p + 2 * p) * nv + 4 * (p + 2 * p * p + 4) * nv,
+        (whole_ops(p, 2, ITERS) - whole_ops(p, 2, 0)
+         + 2 * 2 * p * p) * nv)
+    del largs, eng
+    torch.cuda.empty_cache()
+    # kernel 3 beside the split pair
+    q1 = np.ones(NT)
+    tc = fs.pack_mxu_consts(design, q1, NT, torch.float32, device)
+    ac = fs.pack_solve_consts(design, q1, NT, torch.float32)
+    sc = fs.pack_spectral_consts(design, q1, NT, np.full(p, 1e-12), 1e-6,
+                                 (NT - 1) * 0.5 + 1e-6, 1e-8, 50.0,
+                                 torch.float32, (-100.0, 53.5))
+    pm = torch.zeros((p, nv), dtype=torch.float32, device=device)
+    out["fused_ms"] = best_ms(
+        lambda: fs.spectral_fused(plane, tc, ac, pm, sc, ITERS))
+    out["fused_plain_ms"] = best_ms(
+        lambda: fs.spectral_fused_plain(plane, tc, ac, pm, sc, ITERS),
+        reps=1)
+    out["fused_bound"] = bound(
+        4 * NT * nv + 4 * p * nv + 4 * (2 * p * p + p + 4) * nv,
+        ((6 * p + 2) * NT + 10 * p * p + 12 * p + 2 * p * p + 3 * p ** 3
+         + 40 + (ITERS - 1) * (9 * p + 5)) * nv)
+    del pm
+    torch.cuda.empty_cache()
+    # the whole engine run with the noise pattern 12
+    opts = RunOptions({k: v for k, v in PATTERN_OPTIONS.items()
+                       if not k.startswith("save")})
+    eng = VBInference(get_model_class("poly")(opts), opts, None,
+                      data_plane=plane, device=device)
+    eng.run()                                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.run()
+    out["run_pattern_s"] = time.perf_counter() - t0
+    out["run_pattern_voxels_per_s"] = nv / out["run_pattern_s"]
+    if res.bad_voxels.any() or eng.route != "pallas-whole":
+        raise RuntimeError("pattern run: bad voxels or another route")
+    for k, v in out.items():
+        log(f" {k} = {v!r}  [V={nv} T={NT} P={p}; {card}]")
+    log(f" beside: the split pair spectral_stats + spectral_core "
+        f"{fig['stats_ms']!r} + {fig['core_ms']!r} ms (phase 5)")
+    return out
+
+
 def main():
     try:
         import torch
@@ -1402,6 +1983,9 @@ def main():
     log("phase 3c: the detector modes against their plain versions")
     ok3c, worst_det = check_detector_kernels(device)
     worst.update(worst_det)
+    log("phase 3d: the fixed-design kernels against their plain versions")
+    ok3d, worst_fd = check_fixed_design_kernels(device)
+    worst.update(worst_fd)
 
     # phase 4: the main paths through the API; each path's launch
     # counters are zeroed just before it and read just after it
@@ -1427,6 +2011,12 @@ def main():
     log("phase 4h: the per-iteration route under lm")
     ok4h, lm_launches = check_per_iteration_lm(device)
     launches["fused_vb_iter:lm"] = lm_launches
+    ok4i, fd_launches = run_pattern_paths(device)
+    launches.update(fd_launches)
+    log("phase 4k: run_with_data, 128x128x32 x 106, linear, "
+        "spectral-impl=fused")
+    ok4k, lin_launches = run_linear_path(device)
+    launches.update(lin_launches)
 
     # phase 5: timing at the headline sizes
     log("phase 5: timing at 16,777,216 voxels")
@@ -1435,12 +2025,16 @@ def main():
     fig_nl = time_biexp(device, card)
     log("phase 5c: the detector modes at the headline sizes")
     ok5c, fig_det = time_detectors(device, card, fig, fig_nl)
+    log("phase 5d: the fixed-design kernels at 16,777,216 voxels")
+    fig_fd = time_fixed_design(device, card, fig)
 
     phases = {"kernels": ok3, "nl_kernels": ok3b, "detector_kernels": ok3c,
               "main_path": ok4, "engine_vs_f64": ok4b, "biexp_path": ok4c,
               "exp_engine_vs_f64": ok4d, "per_iteration_route": ok4e,
               "biexp_trialmode_path": ok4f, "poly_trialmode_path": ok4g,
-              "per_iteration_lm": ok4h, "detector_lanes_at_4M": ok5c}
+              "per_iteration_lm": ok4h, "detector_lanes_at_4M": ok5c,
+              "fixed_design_kernels": ok3d, "pattern_paths": ok4i,
+              "linear_path": ok4k}
     if not all(phases.values()):
         log(f"FAILED phases: {[k for k, v in phases.items() if not v]}")
         return 1
@@ -1455,6 +2049,7 @@ def main():
                 "bound_by": bnd[1], "library_ms": None}
 
     core_at = "fabber_core_tpu/ops/fused_spectral.py:760"
+    whole_at = "fabber_core_tpu/ops/fused_whole.py:298"
     nl_at = "fabber_core_tpu/ops/fused_loop_nl.py:162"
     it_at = "fabber_core_tpu/ops/fused_vb.py:184"
     kernels = [
@@ -1478,6 +2073,22 @@ def main():
         entry("fused_vb_iter:lm", "fused_vb_iter.cu", it_at,
               fig_det["vb_iter_lm_ms"], fig_det["vb_iter_lm_plain_ms"],
               fig_det["vb_iter_lm_bound"]),
+        entry("spectral_fused", "spectral_fused.cu",
+              "fabber_core_tpu/ops/fused_spectral.py:376", fig_fd["fused_ms"],
+              fig_fd["fused_plain_ms"], fig_fd["fused_bound"]),
+        entry("fused_whole", "fused_whole.cu", whole_at,
+              fig_fd["whole_q2_ms"], fig_fd["whole_q2_plain_ms"],
+              fig_fd["whole_q2_bound"]),
+        entry("fused_whole:detector", "fused_whole.cu", whole_at,
+              fig_fd["whole_trialmode_ms"],
+              fig_fd["whole_trialmode_plain_ms"],
+              fig_fd["whole_trialmode_bound"]),
+        entry("fused_whole:lm", "fused_whole.cu", whole_at,
+              fig_fd["whole_lm_ms"], fig_fd["whole_lm_plain_ms"],
+              fig_fd["whole_lm_bound"]),
+        entry("fused_vb_loop", "fused_whole.cu",
+              "fabber_core_tpu/ops/fused_loop.py:200", fig_fd["loop_q2_ms"],
+              fig_fd["loop_q2_plain_ms"], fig_fd["loop_q2_bound"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

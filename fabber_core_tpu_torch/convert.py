@@ -15,7 +15,7 @@ import torch
 
 from .inference.convergence import ConvState
 from .inference.vb import PosteriorState, VBResult
-from .noise.white import WhiteNoiseState
+from .noise.white import DesignStats, WhiteNoiseState
 
 
 def _tensor(x, device, dtype):
@@ -23,15 +23,18 @@ def _tensor(x, device, dtype):
     return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
 
-def design_stats_from_numpy(m0, rtqr, dtqr, device="cpu", dtype=None):
-    """The port's statistics (m0 [P,V], rtqr [1,V], dtqr [P,V]) from the
-    JAX package's single-group DesignStats fields (rtqr [1,V] or [V],
-    dtqr [1,P,V] or [P,V]) or its statistics kernel's outputs."""
-    m0 = np.asarray(m0)
+def design_stats_from_numpy(stats, device="cpu", dtype=None):
+    """The port's DesignStats from the JAX package's (any number of
+    noise groups: m0 [P,V], rtqr [Q,V], dtqr [Q,P,V], dtqd [Q,P,P]), or
+    the single-group statistics kernels' outputs (m0 [P,V], rtqr [1,V],
+    dtqr [P,V]) -> that tuple of tensors."""
+    if hasattr(stats, "dtqd"):
+        return DesignStats(*(_tensor(getattr(stats, f), device, dtype)
+                             for f in DesignStats._fields))
+    m0, rtqr, dtqr = (np.asarray(x) for x in stats)
     p, nv = m0.shape
-    rtqr = np.asarray(rtqr).reshape(1, nv)
-    dtqr = np.asarray(dtqr).reshape(p, nv)
-    return tuple(_tensor(x, device, dtype) for x in (m0, rtqr, dtqr))
+    return tuple(_tensor(x, device, dtype)
+                 for x in (m0, rtqr.reshape(1, nv), dtqr.reshape(p, nv)))
 
 
 def noise_state_from_numpy(state, device="cpu", dtype=None):

@@ -1,0 +1,561 @@
+// fused_whole: the whole fixed point of fixed-design white-noise VB with
+// any number of noise groups, for Hopper (sm_90a), as one per-voxel
+// kernel in two forms:
+//
+//   kernel 4 (STATS_IN = false) replaces fabber_core_tpu/ops/
+//     fused_whole.py make_fused_whole_loop (its pallas_call at line 707):
+//     the statistics are accumulated from the voxel's data column, then
+//     the fixed point runs; template MODE 0 is maxits, 1 the in-kernel
+//     pointzeroone detector, 2 trialmode and lm (with best-state copies
+//     and lm's damped update). Plain version: fabber_core_tpu_torch/ops/
+//     fused_whole.py fused_whole_plain.
+//   kernel 5 (STATS_IN = true, MODE 0) replaces fabber_core_tpu/ops/
+//     fused_loop.py make_fused_vb_loop (its pallas_call at line 330,
+//     algebra make_plane_algebra at line 137): the statistics m0, rtqr,
+//     dtqr are read, made beforehand by noise/white.py
+//     make_design_stats. Plain version: ops/fused_loop.py
+//     fused_vb_loop_plain.
+//
+// One thread per voxel; every statistic and the whole posterior live in
+// registers. Kernel 4's statistics, per voxel (fused_whole.py:382-436):
+//   pass 1  dty_a = sum_t (sum_q DW_q[a,t]) y[t]  (each sample lies in
+//           one group or none, so the weight sum is exact)
+//   solve   m0 by the jitter-retry Cholesky of the f32 A = sum_q
+//           D'Q_qD (vb_device.cuh): the same f32 arithmetic that made
+//           dty, or r0 is not f32-orthogonal to the design (a host-f64
+//           inverse moved poly's posterior by 2%); non-finite -> 0
+//   pass 2  about r0 = y - D m0: rtqr_q = sum_t q_q r0^2,
+//           dtqr_{q,a} = sum_t DW_q[a,t] r0
+// The (P + QP + Q) x T rows (D, DW_q = D*q_q, q_q) are staged in shared
+// memory once per block. Then, with D'Q_qy = dtqr_q + D'Q_qD m0, each
+// iteration (fused_loop.py:257-305, fused_whole.py:449-553):
+//   theta   prec = sum_q phi_q D'Q_qD + diag(pp), jitter-retry Cholesky,
+//           cov, means = cov (sum_q phi_q D'Q_qy + pp pm); lm where
+//           alpha > 0: means = centre + (prec + alpha diag prec)^-1
+//           (sum_q phi_q (D'Q_qr0 - D'Q_qD (centre - m0)) + pp (pm -
+//           centre)), prec and cov undamped
+//   noise   k'Q_qk = rtqr_q - 2 d'D'Q_qr0 + d'D'Q_qDd (d = means - m0),
+//           clamped at 0; tr_q = tr(Sigma D'Q_qD); b = 1/((k'Qk + tr)/2
+//           + 1/b0), c = c_post; a locked sd gives b = 1/(c sd^2)
+// starting from zero means and the noise at (b_init, c_init). Maxits
+// writes the last iteration's (k'Q_qk, tr_q) beside the posterior; the
+// engine assembles F from them. The detector modes compute F in-kernel
+// at each new state (fused_whole.py:531-547; the Gamma-function terms at
+// the fixed c_post in host constants, VBInference._nl_fdet_consts) and
+// follow the engine's order (fused_whole.py:576-578): best-save where the
+// last test set save, the update with the pre-test alpha, F, the test
+// (detectors.cuh); a lane whose test says done leaves its loop. After
+// the loop the engine's finalize (best <- final where save, final <-
+// best where revert). Those modes write F and the lane's iteration
+// count in place of the quadratics.
+//
+// Dropped TPU machinery: the ROWS=8 voxel fold and its sublane-
+// replicated constant columns (constants ride by value), the 128-padded
+// time axis (the rows carry exactly T samples), the VMEM block picker
+// (the engine's gate checks the rows fit a block's shared memory), the
+// float32 0/1-mask detector transcription, the concrete-layout anchors
+// and the tile-wide early exit (each thread leaves its own loop).
+//
+// What bounds it on this card: kernel 4 reads the [T,V] data, 4*T bytes
+// per voxel, and writes (2P^2 + P + 4Q)*4 bytes; it re-reads the column
+// in pass 2 (from L2 where still resident), as spectral_stats.cu does.
+// Per iteration the arithmetic is a P x P Cholesky, inverse and a few
+// Q*P^2 products, ~200-400 operations at P=3, so with the maxits 10
+// iterations it stays below the bytes bound; a detector mode's warp runs
+// to its slowest lane. Kernel 5 reads (P + Q + QP + 2P)*4 bytes of
+// statistics and priors and writes the posterior.
+
+#include "detectors.cuh"
+#include "vb_device.cuh"
+
+// Every (P, Q) fused_whole.cu is compiled for, as X(P, Q); each gives
+// kernel 4 in MODEs 0-2 and kernel 5. This list is the one source of the
+// C entry points' dispatch and of fabber_whole_has_instance, which the
+// engine's route gate asks.
+#define FABBER_WHOLE_INSTANCES(X)                                   \
+  X(1, 1) X(1, 2) X(1, 3) X(2, 1) X(2, 2) X(2, 3) X(3, 1) X(3, 2)   \
+  X(3, 3) X(4, 1) X(4, 2) X(4, 3)
+
+namespace {
+
+using namespace fabber;
+
+constexpr int kThreads = 128;
+constexpr int kWMaxP = 4;   // largest P of FABBER_WHOLE_INSTANCES
+constexpr int kWMaxQ = 3;   // largest Q of FABBER_WHOLE_INSTANCES
+
+// Everything a launch passes by value: D'Q_qD ([Q][P][P] row-major at the
+// launch's P), the per-group noise constants, the loop controls and, in
+// the detector modes, the detector and the ELBO constants.
+struct WholeConsts {
+  float dtqd[kWMaxQ * kWMaxP * kWMaxP];
+  float inv_b0[kWMaxQ];     // 1 / b0 of the noise prior
+  float c_post[kWMaxQ];     // (n_q - 1)/2 + c0
+  float b_init[kWMaxQ];
+  float c_init[kWMaxQ];
+  float locked_sd;          // > 0: noise sd locked to this value
+  int n_iters;
+  int nt;
+  long long V;
+  DetParams d;
+  float lb_coeff[kWMaxQ];   // n_q/2 + c0_q, the coefficient of log b_q
+  float f_const;            // voxel-invariant ELBO terms at c_post
+};
+
+#define DTQD(q, i, j) k.dtqd[((q) * P + (i)) * P + (j)]
+
+// Kernel 4's statistics of one voxel from its data column col (stride
+// V) and the staged rows.
+template <int P, int Q>
+__device__ __forceinline__ void whole_stats(const WholeConsts& k,
+                                            const float* rows,
+                                            const float* __restrict__ col,
+                                            float* m0, float* rtqr,
+                                            float (&dtqr)[Q][P]) {
+  const int T = k.nt;
+  const long long V = k.V;
+  const float* dcol = rows;                  // [P][T]
+  const float* dwq = rows + P * T;           // [Q][P][T]
+  const float* qrow = rows + (P + Q * P) * T;  // [Q][T]
+
+  float dty[P];
+#pragma unroll
+  for (int a = 0; a < P; ++a) dty[a] = 0.f;
+#pragma unroll 2
+  for (int t = 0; t < T; ++t) {
+    const float y = __ldg(col + (size_t)t * V);
+#pragma unroll
+    for (int a = 0; a < P; ++a) {
+      float w = dwq[a * T + t];
+#pragma unroll
+      for (int q = 1; q < Q; ++q) w = w + dwq[(q * P + a) * T + t];
+      dty[a] = fmaf(w, y, dty[a]);
+    }
+  }
+
+  constexpr int NT = P * (P + 1) / 2;
+  float amat[NT], ch[NT];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) s = s + DTQD(q, i, j);
+      amat[tri(i, j)] = s;
+    }
+  }
+  cholesky_jittered<P>(amat, ch);
+#pragma unroll
+  for (int a = 0; a < P; ++a) m0[a] = dty[a];
+  chol_solve<P>(ch, m0);
+  bool ok = true;
+#pragma unroll
+  for (int a = 0; a < P; ++a) ok = ok && isfinite(m0[a]);
+#pragma unroll
+  for (int a = 0; a < P; ++a) m0[a] = ok ? m0[a] : 0.f;
+
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    rtqr[q] = 0.f;
+#pragma unroll
+    for (int a = 0; a < P; ++a) dtqr[q][a] = 0.f;
+  }
+#pragma unroll 2
+  for (int t = 0; t < T; ++t) {
+    float r = __ldg(col + (size_t)t * V);
+#pragma unroll
+    for (int a = 0; a < P; ++a) r = r - dcol[a * T + t] * m0[a];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      rtqr[q] = fmaf(qrow[q * T + t] * r, r, rtqr[q]);
+#pragma unroll
+      for (int a = 0; a < P; ++a)
+        dtqr[q][a] = fmaf(dwq[(q * P + a) * T + t], r, dtqr[q][a]);
+    }
+  }
+}
+
+// The lane's state: posterior (packed prec/cov), noise, and (detector
+// modes) the lane's F.
+template <int P, int Q>
+struct WholeState {
+  float means[P];
+  float prec[P * (P + 1) / 2];
+  float cov[P * (P + 1) / 2];
+  float b[Q], c[Q];
+  float f;
+};
+
+// One fixed-point step from s (its noise, and its means as the lm
+// centre) into n; kqk/trq receive the new state's per-group quadratics
+// and logdet log det prec (for F).
+template <int P, int Q>
+__device__ __forceinline__ void whole_step(
+    const WholeConsts& k, const float* m0, const float* rtqr,
+    const float (&dtqr)[Q][P], const float (&dtqy)[Q][P], const float* pm,
+    const float* pp, const WholeState<P, Q>& s, float alpha,
+    WholeState<P, Q>& n, float* kqk, float* trq, float& logdet) {
+  constexpr int NT = P * (P + 1) / 2;
+  float phi[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) phi[q] = s.b[q] * s.c[q];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      float v = 0.f;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) v = v + phi[q] * DTQD(q, i, j);
+      if (i == j) v = v + pp[i];
+      n.prec[tri(i, j)] = v;
+    }
+  }
+  float ch[NT];
+  cholesky_jittered<P>(n.prec, ch);
+  inverse_from_chol<P>(ch, n.cov);
+  float rhs[P];
+#pragma unroll
+  for (int a = 0; a < P; ++a) {
+    float v = 0.f;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) v = v + phi[q] * dtqy[q][a];
+    rhs[a] = v + pp[a] * pm[a];
+  }
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    float m = 0.f;
+#pragma unroll
+    for (int j = 0; j < P; ++j) m = m + n.cov[tri(i, j)] * rhs[j];
+    n.means[i] = m;
+  }
+  if (alpha > 0.f) {
+    // LM-damped step about the previous means (white.py
+    // update_theta_stats); prec and cov stay undamped
+    float dc[P], delta[P], damped[NT], dch[NT];
+#pragma unroll
+    for (int a = 0; a < P; ++a) dc[a] = s.means[a] - m0[a];
+#pragma unroll
+    for (int a = 0; a < P; ++a) {
+      float v = 0.f;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        float g = dtqr[q][a];
+#pragma unroll
+        for (int j = 0; j < P; ++j) g = g - DTQD(q, a, j) * dc[j];
+        v = v + phi[q] * g;
+      }
+      delta[a] = v + pp[a] * pm[a] - pp[a] * s.means[a];
+    }
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+#pragma unroll
+      for (int j = 0; j <= i; ++j)
+        damped[tri(i, j)] = n.prec[tri(i, j)] +
+                            (i == j ? alpha * n.prec[tri(i, i)] : 0.f);
+    }
+    cholesky_jittered<P>(damped, dch);
+    chol_solve<P>(dch, delta);
+#pragma unroll
+    for (int a = 0; a < P; ++a) n.means[a] = s.means[a] + delta[a];
+  }
+
+  float d[P];
+#pragma unroll
+  for (int a = 0; a < P; ++a) d[a] = n.means[a] - m0[a];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    float cross = 0.f, quad = 0.f, tr = 0.f;
+#pragma unroll
+    for (int a = 0; a < P; ++a) cross = cross + d[a] * dtqr[q][a];
+#pragma unroll
+    for (int a = 0; a < P; ++a) {
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const float daj = DTQD(q, a, j);
+        quad = quad + daj * d[a] * d[j];
+        tr = tr + daj * n.cov[tri(a, j)];
+      }
+    }
+    const float kq = fmaxf(rtqr[q] - 2.f * cross + quad, 0.f);
+    float bq = 1.f / ((kq + tr) * 0.5f + k.inv_b0[q]);
+    const float cq = k.c_post[q];
+    if (k.locked_sd > 0.f) bq = 1.f / cq / (k.locked_sd * k.locked_sd);
+    n.b[q] = bq;
+    n.c[q] = cq;
+    kqk[q] = kq;
+    trq[q] = tr;
+  }
+  float ld = 0.f;
+#pragma unroll
+  for (int i = 0; i < P; ++i) ld = ld + 2.f * logf(ch[tri(i, i)]);
+  logdet = ld;
+}
+
+// MODE 0: maxits; 1: pointzeroone; 2: trialmode / lm. STATS_IN: kernel 5
+// (statistics read) else kernel 4 (statistics from the data).
+template <int P, int Q, int MODE, bool STATS_IN>
+__global__ void __launch_bounds__(kThreads)
+fused_whole_kernel(const WholeConsts k, const float* __restrict__ data,
+                   const float* __restrict__ tconsts,
+                   const float* __restrict__ m0_in,
+                   const float* __restrict__ rtqr_in,
+                   const float* __restrict__ dtqr_in,
+                   const float* __restrict__ pm_in,
+                   const float* __restrict__ pp_in,
+                   float* __restrict__ means_out,
+                   float* __restrict__ prec_out,
+                   float* __restrict__ cov_out, float* __restrict__ b_out,
+                   float* __restrict__ c_out, float* __restrict__ fkqk_out,
+                   float* __restrict__ ftr_out) {
+  constexpr int NT = P * (P + 1) / 2;
+  extern __shared__ float rows[];   // kernel 4: (P + QP + Q) x T
+  const long long V = k.V;
+  if constexpr (!STATS_IN) {
+    const int nrows = (P + Q * P + Q) * k.nt;
+    for (int i = threadIdx.x; i < nrows; i += blockDim.x) rows[i] = tconsts[i];
+    __syncthreads();
+  }
+  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= V) return;
+
+  float m0[P], rtqr[Q], dtqr[Q][P];
+  if constexpr (STATS_IN) {
+#pragma unroll
+    for (int a = 0; a < P; ++a) m0[a] = m0_in[(size_t)a * V + v];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      rtqr[q] = rtqr_in[(size_t)q * V + v];
+#pragma unroll
+      for (int a = 0; a < P; ++a)
+        dtqr[q][a] = dtqr_in[(size_t)(q * P + a) * V + v];
+    }
+  } else {
+    whole_stats<P, Q>(k, rows, data + v, m0, rtqr, dtqr);
+  }
+  float pm[P], pp[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    pm[i] = pm_in[(size_t)i * V + v];
+    pp[i] = pp_in[(size_t)i * V + v];
+  }
+  // D'Q_qy = D'Q_qr0 + (D'Q_qD) m0, iteration-invariant
+  float dtqy[Q][P];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+#pragma unroll
+    for (int a = 0; a < P; ++a) {
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < P; ++j) s = s + DTQD(q, a, j) * m0[j];
+      dtqy[q][a] = dtqr[q][a] + s;
+    }
+  }
+
+  WholeState<P, Q> st;
+#pragma unroll
+  for (int i = 0; i < P; ++i) st.means[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NT; ++i) st.prec[i] = st.cov[i] = 0.f;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    st.b[q] = k.b_init[q];
+    st.c[q] = k.c_init[q];
+  }
+  st.f = 1234.5678f;
+  float kqk[Q], trq[Q], logdet;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) kqk[q] = trq[q] = 0.f;
+
+  DetState cv = det_init(k.d);
+  if constexpr (MODE == 0) {
+    for (int it = 0; it < k.n_iters; ++it)
+      whole_step<P, Q>(k, m0, rtqr, dtqr, dtqy, pm, pp, st, 0.f, st, kqk,
+                       trq, logdet);
+  } else {
+    // voxel-varying but iteration-invariant ELBO piece
+    float part3 = k.f_const;
+#pragma unroll
+    for (int i = 0; i < P; ++i) part3 = part3 + 0.5f * logf(pp[i]);
+    // the saved best state (MODE 2): the initial state, F 0
+    WholeState<P, Q> best = st;
+    best.f = 0.f;
+    for (int it = 0; it < k.n_iters && !cv.done; ++it) {
+      if (MODE == 2 && cv.save) best = st;
+      WholeState<P, Q> nx;
+      whole_step<P, Q>(k, m0, rtqr, dtqr, dtqy, pm, pp, st,
+                       MODE == 2 ? cv.alpha : 0.f, nx, kqk, trq, logdet);
+      // F at the new state (free_energy_from_parts, noise shape c_post)
+      float f = part3 - 0.5f * logdet;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const float phi = nx.b[q] * nx.c[q];
+        f = f + k.lb_coeff[q] * logf(nx.b[q]) - phi * k.inv_b0[q] -
+            0.5f * phi * kqk[q] - 0.5f * trq[q];
+      }
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        const float dm = nx.means[i] - pm[i];
+        f = f - 0.5f * (dm * dm + nx.cov[tri(i, i)]) * pp[i];
+      }
+      nx.f = f;
+      det_test(k.d, cv, f);
+      st = nx;
+    }
+    if constexpr (MODE == 2) {
+      // the engine's finalize: best <- final where save, then final <-
+      // best where revert
+      if (cv.revert && !cv.save) st = best;
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < P; ++i) means_out[(size_t)i * V + v] = st.means[i];
+  store_full<P>(st.prec, prec_out, V, v);
+  store_full<P>(st.cov, cov_out, V, v);
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    b_out[(size_t)q * V + v] = st.b[q];
+    c_out[(size_t)q * V + v] = st.c[q];
+  }
+  if constexpr (!STATS_IN) {
+    if constexpr (MODE == 0) {
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        fkqk_out[(size_t)q * V + v] = kqk[q];
+        ftr_out[(size_t)q * V + v] = trq[q];
+      }
+    } else {
+      fkqk_out[v] = st.f;
+      ftr_out[v] = (float)cv.its;
+    }
+  }
+}
+
+#undef DTQD
+
+// ---- launch and C entry points ------------------------------------------
+
+template <int P, int Q, int MODE, bool STATS_IN>
+int launch_mode(const WholeConsts& k, const float* const* ins,
+                float* const* outs, cudaStream_t stream) {
+  const size_t smem =
+      STATS_IN ? 0 : (size_t)(P + Q * P + Q) * k.nt * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_whole_kernel<P, Q, MODE, STATS_IN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const unsigned grid = (unsigned)((k.V + kThreads - 1) / kThreads);
+  fused_whole_kernel<P, Q, MODE, STATS_IN><<<grid, kThreads, smem, stream>>>(
+      k, ins[0], ins[1], ins[2], ins[3], ins[4], ins[5], ins[6], outs[0],
+      outs[1], outs[2], outs[3], outs[4], outs[5], outs[6]);
+  return (int)cudaGetLastError();
+}
+
+template <int P, int Q>
+int launch_whole(const WholeConsts& k, const float* const* ins,
+                 float* const* outs, cudaStream_t stream) {
+  switch (k.d.kind) {
+    case kMaxits: return launch_mode<P, Q, 0, false>(k, ins, outs, stream);
+    case kPointZeroOne:
+      return launch_mode<P, Q, 1, false>(k, ins, outs, stream);
+    default: return launch_mode<P, Q, 2, false>(k, ins, outs, stream);
+  }
+}
+
+// the scalar constants of a launch: consts_host [Q*P*P + 4Q] (D'Q_qD,
+// then 1/b0, c_post, b_init, c_init per group)
+WholeConsts make_consts(int p, int q, int n_iters, float locked_sd,
+                        const float* consts_host, int nt, long long V) {
+  WholeConsts k = {};
+  const int n = q * p * p;
+  for (int i = 0; i < n; ++i) k.dtqd[i] = consts_host[i];
+  for (int i = 0; i < q; ++i) {
+    k.inv_b0[i] = consts_host[n + i];
+    k.c_post[i] = consts_host[n + q + i];
+    k.b_init[i] = consts_host[n + 2 * q + i];
+    k.c_init[i] = consts_host[n + 3 * q + i];
+  }
+  k.locked_sd = locked_sd;
+  k.n_iters = n_iters;
+  k.nt = nt;
+  k.V = V;
+  k.d = {kMaxits, 0.f, 0, 0, 0};
+  return k;
+}
+
+}  // namespace
+
+// 1 when fused_whole.cu is compiled for (p, q), else 0.
+extern "C" int fabber_whole_has_instance(int p, int q) {
+#define FABBER_HAS(NP, NQ) \
+  if (p == NP && q == NQ) return 1;
+  FABBER_WHOLE_INSTANCES(FABBER_HAS)
+#undef FABBER_HAS
+  return 0;
+}
+
+// Kernel 4. (p, q): one of FABBER_WHOLE_INSTANCES. consts_host [q*p*p +
+// 4q] (host, by value; see make_consts). det_kind: 0 maxits, 1
+// pointzeroone, 3 trialmode, 4 lm (detectors.cuh; freduce is not served),
+// with the detector's tolerance, max_its, max_trials, initial save flag
+// and det_consts_host [q+1] (lb_coeff per group, f_const; unread under
+// maxits). data [nt,V], tconsts [(p + q*p + q), nt] (D rows, D*q_g rows
+// per group, q_g rows), pm, pp [p,V] (device). Outputs (device,
+// preallocated): means [p,V], prec, cov [p,p,V], b, c [q,V]; fkqk, ftr
+// [q,V] (maxits: the last iteration's k'Q_gk and tr(Sigma D'Q_gD)) or
+// [1,V] (detector modes: F and the iteration count).
+extern "C" int fabber_fused_whole(
+    int p, int q, int n_iters, float locked_sd, const float* consts_host,
+    int det_kind, float det_tol, int det_max_its, int det_max_trials,
+    int det_init_save, const float* det_consts_host, const float* data,
+    const float* tconsts, int nt, const float* pm, const float* pp,
+    long long V, float* means, float* prec, float* cov, float* b, float* c,
+    float* fkqk, float* ftr, void* stream) {
+  if (p < 1 || p > kWMaxP || q < 1 || q > kWMaxQ || n_iters < 1 || nt < 1 ||
+      V < 1 || det_kind < kMaxits || det_kind > kLM || det_kind == kFreduce)
+    return (int)cudaErrorInvalidValue;
+  WholeConsts k = make_consts(p, q, n_iters, locked_sd, consts_host, nt, V);
+  k.d = {det_kind, det_tol, det_max_its, det_max_trials, det_init_save};
+  if (det_kind != kMaxits) {
+    for (int i = 0; i < q; ++i) k.lb_coeff[i] = det_consts_host[i];
+    k.f_const = det_consts_host[q];
+  }
+  const float* const ins[7] = {data, tconsts, nullptr, nullptr, nullptr, pm,
+                               pp};
+  float* const outs[7] = {means, prec, cov, b, c, fkqk, ftr};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FABBER_LAUNCH(NP, NQ) \
+  if (p == NP && q == NQ) return launch_whole<NP, NQ>(k, ins, outs, s);
+  FABBER_WHOLE_INSTANCES(FABBER_LAUNCH)
+#undef FABBER_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// Kernel 5. (p, q): one of FABBER_WHOLE_INSTANCES; consts_host as
+// fabber_fused_whole's. m0 [p,V], rtqr [q,V], dtqr [q,p,V], pm, pp [p,V]
+// (device). Outputs (device, preallocated): means [p,V], prec, cov
+// [p,p,V], b, c [q,V].
+extern "C" int fabber_fused_vb_loop(int p, int q, int n_iters,
+                                    float locked_sd, const float* consts_host,
+                                    const float* m0, const float* rtqr,
+                                    const float* dtqr, const float* pm,
+                                    const float* pp, long long V,
+                                    float* means, float* prec, float* cov,
+                                    float* b, float* c, void* stream) {
+  if (p < 1 || p > kWMaxP || q < 1 || q > kWMaxQ || n_iters < 1 || V < 1)
+    return (int)cudaErrorInvalidValue;
+  const WholeConsts k =
+      make_consts(p, q, n_iters, locked_sd, consts_host, 1, V);
+  const float* const ins[7] = {nullptr, nullptr, m0, rtqr, dtqr, pm, pp};
+  float* const outs[7] = {means, prec, cov, b, c, nullptr, nullptr};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FABBER_LAUNCH(NP, NQ) \
+  if (p == NP && q == NQ)     \
+    return launch_mode<NP, NQ, 0, true>(k, ins, outs, s);
+  FABBER_WHOLE_INSTANCES(FABBER_LAUNCH)
+#undef FABBER_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}

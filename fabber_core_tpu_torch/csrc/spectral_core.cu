@@ -47,23 +47,21 @@
 // until its slowest lane is done (under trialmode at its defaults ~17
 // trips for a lane that reverts), which took the kernel from 0.94 to
 // 2.49 ms at 16,777,216 voxels, P=3, on an H100. There is no
-// block-level state, so no barrier.
+// block-level state, so no barrier. The per-voxel body is
+// csrc/spectral_device.cuh core_voxel, which kernel 3 (spectral_fused.cu)
+// runs too.
 
 #include <cuda_runtime.h>
 
-#include "detectors.cuh"
+#include "spectral_device.cuh"
 
 namespace {
 
-constexpr int kMaxP = 8;
+using fabber_spectral::CoreConsts;
+using fabber_spectral::kMaxP;
 constexpr int kThreads = 256;
 
-struct CoreConsts {
-  float v[4 * kMaxP * kMaxP + 2 * kMaxP + 6];
-};
-
 using fabber::DetParams;
-using fabber::DetState;
 
 template <int P, bool DET>
 __global__ void __launch_bounds__(kThreads)
@@ -78,21 +76,6 @@ spectral_core_kernel(const float* __restrict__ m0_in,
                      float* __restrict__ f_out, float* __restrict__ tr_out) {
   const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= V) return;
-  // constant-block offsets; every index below is a compile-time
-  // constant after unrolling, so each read is a direct constant-bank
-  // operand (no pointer into the parameter space, no local copy)
-  constexpr int oA = 0, oETW = P * P, oETWI = 2 * P * P, oEW = 3 * P * P,
-                oLAM = 4 * P * P, oPP = oLAM + P, oS = oPP + P;
-#define A(i, j) k.v[oA + (i) * P + (j)]
-#define ETW(i, a) k.v[oETW + (i) * P + (a)]
-#define ETWI(i, a) k.v[oETWI + (i) * P + (a)]
-#define EW(a, i) k.v[oEW + (a) * P + (i)]
-#define LAM(i) k.v[oLAM + (i)]
-#define PP(i) k.v[oPP + (i)]
-  const float inv_b0 = k.v[oS], c_post = k.v[oS + 1], b_init = k.v[oS + 2],
-              c_init = k.v[oS + 3], f_const = k.v[oS + 4],
-              lb_coeff = k.v[oS + 5];
-
   float m0[P], dtqr[P], pm[P];
 #pragma unroll
   for (int a = 0; a < P; ++a) {
@@ -101,153 +84,9 @@ spectral_core_kernel(const float* __restrict__ m0_in,
     pm[a] = pm_in[(size_t)a * V + v];
   }
   const float rtqr = rtqr_in[v];
-
-  // ---- rotation into the whitened eigenbasis -------------------------
-  float dtqy[P];
-#pragma unroll
-  for (int a = 0; a < P; ++a) {
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < P; ++j) s += A(a, j) * m0[j];
-    dtqy[a] = dtqr[a] + s;
-  }
-  float ut[P], u0t[P], vt[P], m0t[P];
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    float su = 0.f, s0 = 0.f, sv = 0.f, sm = 0.f;
-#pragma unroll
-    for (int a = 0; a < P; ++a) {
-      su += ETW(i, a) * dtqy[a];
-      s0 += ETW(i, a) * dtqr[a];
-      sv += ETW(i, a) * (PP(a) * pm[a]);
-      sm += ETWI(i, a) * m0[a];
-    }
-    ut[i] = su;
-    u0t[i] = s0;
-    vt[i] = sv;
-    m0t[i] = sm;
-  }
-
-  float s = b_init * c_init;
-  bool sel_init = false;
-  int its = n_iters;
-  if constexpr (!DET) {
-    // ---- scalar fixed point: n_iters-1 noise updates -----------------
-    for (int it = 0; it < n_iters - 1; ++it) {
-      float cross = 0.f, quad = 0.f, tr = 0.f;
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-        const float rd = 1.f / (s * LAM(i) + 1.f);
-        const float d = (s * ut[i] + vt[i]) * rd - m0t[i];
-        cross += d * u0t[i];
-        quad += LAM(i) * d * d;
-        tr += LAM(i) * rd;
-      }
-      const float kqk = fmaxf(rtqr - 2.f * cross + quad, 0.f);
-      s = 1.f / ((kqk + tr) * 0.5f + inv_b0) * c_post;
-    }
-  } else {
-    // ---- detector mode: the lane's state machine in the loop ---------
-    // cur: the phi of the next update; gen: the phi that generated the
-    // current posterior; best: the saved generating phi; the *_init
-    // flags mark the engine-initial posterior
-    float cur_s = s, gen_s = s, best_s = s;
-    bool is_init = true, best_init = true;
-    DetState cv = fabber::det_init(det);
-    for (int it = 0; it < n_iters && !cv.done; ++it) {
-      if (cv.save) {
-        best_s = gen_s;
-        best_init = is_init;
-      }
-      const float g = cur_s;
-      float cross = 0.f, quad = 0.f, tr = 0.f, logden = 0.f, rdensum = 0.f,
-            mv2 = 0.f;
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-        const float den = g * LAM(i) + 1.f;
-        const float rd = 1.f / den;
-        const float mt = (g * ut[i] + vt[i]) * rd;
-        const float d = mt - m0t[i];
-        cross += d * u0t[i];
-        quad += LAM(i) * d * d;
-        tr += LAM(i) * rd;
-        logden += logf(den);
-        rdensum += rd;
-        mv2 += (mt - vt[i]) * (mt - vt[i]);
-      }
-      const float kqk = fmaxf(rtqr - 2.f * cross + quad, 0.f);
-      const float b_new = 1.f / ((kqk + tr) * 0.5f + inv_b0);
-      const float f = f_const - 0.5f * logden + lb_coeff * logf(b_new) -
-                      b_new * c_post * (inv_b0 + 0.5f * kqk) - 0.5f * tr -
-                      0.5f * mv2 - 0.5f * rdensum;
-      fabber::det_test(det, cv, f);
-      cur_s = b_new * c_post;
-      gen_s = g;
-      is_init = false;
-    }
-    // the engine's finalize: best-save, then revert
-    if (cv.save) {
-      best_s = gen_s;
-      best_init = is_init;
-    }
-    s = cv.revert ? best_s : gen_s;
-    sel_init = cv.revert ? best_init : is_init;
-    its = cv.its;
-  }
-
-  // ---- reconstruction from the phi that generated the posterior ------
-  float mt[P], rden[P];
-  float cross = 0.f, quad = 0.f, tr = 0.f, logden = 0.f, rdensum = 0.f,
-        mv2 = 0.f;
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    const float den = s * LAM(i) + 1.f;
-    rden[i] = 1.f / den;
-    mt[i] = (s * ut[i] + vt[i]) * rden[i];
-    const float d = mt[i] - m0t[i];
-    cross += d * u0t[i];
-    quad += LAM(i) * d * d;
-    tr += LAM(i) * rden[i];
-    logden += logf(den);
-    rdensum += rden[i];
-    mv2 += (mt[i] - vt[i]) * (mt[i] - vt[i]);
-  }
-  const float kqk = fmaxf(rtqr - 2.f * cross + quad, 0.f);
-  const float b = 1.f / ((kqk + tr) * 0.5f + inv_b0);
-
-#pragma unroll
-  for (int a = 0; a < P; ++a) {
-    float m = 0.f;
-#pragma unroll
-    for (int i = 0; i < P; ++i) m += EW(a, i) * mt[i];
-    means_out[(size_t)a * V + v] = m;
-  }
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      float c = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < P; ++kk)
-        c += EW(i, kk) * EW(j, kk) * rden[kk];
-      const size_t o = (size_t)(i * P + j) * V + v;
-      cov_out[o] = c;
-      prec_out[o] = s * A(i, j) + (i == j ? PP(i) : 0.f);
-    }
-  }
-  const float f = f_const - 0.5f * logden + lb_coeff * logf(b) -
-                  b * c_post * (inv_b0 + 0.5f * kqk) - 0.5f * tr -
-                  0.5f * mv2 - 0.5f * rdensum;
-  b_out[v] = sel_init ? -b : b;
-  c_out[v] = c_post;
-  f_out[v] = f;
-  tr_out[v] = DET ? (float)its : tr;
-#undef A
-#undef ETW
-#undef ETWI
-#undef EW
-#undef LAM
-#undef PP
+  fabber_spectral::core_voxel<P, DET>(m0, rtqr, dtqr, pm, k, det, n_iters, V,
+                                      v, means_out, prec_out, cov_out, b_out,
+                                      c_out, f_out, tr_out);
 }
 
 template <int P>

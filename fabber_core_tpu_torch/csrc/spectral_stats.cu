@@ -22,18 +22,19 @@
 // time axis and its K=8 MXU products existed for the MXU and are gone.
 // This first version re-reads the column in pass 2 (from L2 where it is
 // still resident, else from HBM), so it moves up to 2x the floor;
-// staging the [T, block] tile in shared memory is the next step.
+// staging the [T, block] tile in shared memory is the next step. The
+// per-voxel body is csrc/spectral_device.cuh stats_voxel, which kernel 3
+// (spectral_fused.cu) runs too.
 
 #include <cuda_runtime.h>
 
+#include "spectral_device.cuh"
+
 namespace {
 
-constexpr int kMaxP = 8;
+using fabber_spectral::kMaxP;
+using fabber_spectral::SolveConsts;
 constexpr int kThreads = 256;
-
-struct SolveConsts {
-  float a[kMaxP * kMaxP];  // A = D'QD, row-major P x P (first P*P used)
-};
 
 template <int P>
 __global__ void __launch_bounds__(kThreads)
@@ -49,77 +50,8 @@ spectral_stats_kernel(const float* __restrict__ data,
 
   const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= V) return;
-  const float* dcol = rows;
-  const float* dw = rows + P * T;
-  const float* q = rows + 2 * P * T;
-  const float* col = data + v;
-
-  // ---- pass 1: dty = (DW)' y ----------------------------------------
-  float dty[P];
-#pragma unroll
-  for (int a = 0; a < P; ++a) dty[a] = 0.f;
-#pragma unroll 4
-  for (int t = 0; t < T; ++t) {
-    const float y = __ldg(col + (size_t)t * V);
-#pragma unroll
-    for (int a = 0; a < P; ++a) dty[a] = fmaf(dw[a * T + t], y, dty[a]);
-  }
-
-  // ---- m0 by f32 Cholesky of the constant A --------------------------
-  float l[P][P];
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    float s = ac.a[i * P + i];
-#pragma unroll
-    for (int k = 0; k < i; ++k) s -= l[i][k] * l[i][k];
-    l[i][i] = sqrtf(s);
-    const float inv_d = 1.f / l[i][i];
-#pragma unroll
-    for (int j = i + 1; j < P; ++j) {
-      float s2 = ac.a[j * P + i];
-#pragma unroll
-      for (int k = 0; k < i; ++k) s2 -= l[j][k] * l[i][k];
-      l[j][i] = s2 * inv_d;
-    }
-  }
-  float fwd[P], m0[P];
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    float s = dty[i];
-#pragma unroll
-    for (int k = 0; k < i; ++k) s -= l[i][k] * fwd[k];
-    fwd[i] = s / l[i][i];
-  }
-#pragma unroll
-  for (int i = P - 1; i >= 0; --i) {
-    float s = fwd[i];
-#pragma unroll
-    for (int k = i + 1; k < P; ++k) s -= l[k][i] * m0[k];
-    m0[i] = s / l[i][i];
-  }
-  bool ok = true;
-#pragma unroll
-  for (int a = 0; a < P; ++a) ok = ok && isfinite(m0[a]);
-#pragma unroll
-  for (int a = 0; a < P; ++a) m0[a] = ok ? m0[a] : 0.f;
-
-  // ---- pass 2: rtqr and dtqr about r0 = y - D m0 ---------------------
-  float rtqr = 0.f;
-  float dtqr[P];
-#pragma unroll
-  for (int a = 0; a < P; ++a) dtqr[a] = 0.f;
-#pragma unroll 4
-  for (int t = 0; t < T; ++t) {
-    const float y = __ldg(col + (size_t)t * V);
-    float fit = 0.f;
-#pragma unroll
-    for (int a = 0; a < P; ++a) fit = fmaf(dcol[a * T + t], m0[a], fit);
-    const float r = y - fit;
-    rtqr = fmaf(q[t] * r, r, rtqr);
-#pragma unroll
-    for (int a = 0; a < P; ++a) dtqr[a] = fmaf(dw[a * T + t], r, dtqr[a]);
-  }
-
+  float m0[P], rtqr, dtqr[P];
+  fabber_spectral::stats_voxel<P>(rows, T, data + v, V, ac, m0, rtqr, dtqr);
 #pragma unroll
   for (int a = 0; a < P; ++a) {
     m0_out[(size_t)a * V + v] = m0[a];

@@ -5,13 +5,33 @@ routes run: every voxel is a lane of [..., V] planes (posterior means
 [P,V], precision/covariance [P,P,V], noise [Q,V]).
 
 Routes are one named table (ROUTES) instead of the JAX engine's dozen
-interacting use_* flags (vb.py:340-660). Four are live:
+interacting use_* flags (vb.py:340-660). The live ones:
 
-  spectral-whole  fixed-design models (poly): the whole-program
-                  spectral route (vb.py:1611-1866, split form), one
-                  statistics kernel and one eigenbasis core kernel
-                  (ops/fused_spectral.py), maxits or an in-kernel
+  spectral-whole  fixed-design models, one noise group: the
+                  whole-program spectral route (vb.py:1611-1866, split
+                  form), one statistics kernel and one eigenbasis core
+                  kernel (ops/fused_spectral.py), maxits or an in-kernel
                   pointzeroone / freduce / trialmode detector;
+  spectral-fused  the same route in one kernel (spectral-impl=fused);
+  spectral-xstats the same route with the statistics in plain torch
+                  (make_design_stats) and the core kernel
+                  (spectral-impl=xstats);
+  pallas-whole    fixed-design models with several noise groups, a
+                  locked noise sd or lm: the whole-program kernel
+                  (ops/fused_whole.py; vb.py:1496-1609), the statistics
+                  and the fixed point in one launch, maxits or an
+                  in-kernel pointzeroone / trialmode / lm detector;
+  pallas-loop     the fixed point from statistics made in plain torch
+                  (ops/fused_loop.py; vb.py:1050-1130), maxits:
+                  engine-kernel=pallas-loop, and dtype=bf16 with several
+                  noise groups;
+  xla             the sufficient-statistics route (vb.py:954-1047 and
+                  2028-2048 with stats): make_design_stats once, then
+                  the engine's loop on [P,V] planes in plain torch, where
+                  the JAX package uses XLA (no Pallas kernel, by design):
+                  float64 (the CLI's default), save-free-energy-history,
+                  engine-kernel=xla, programmatic continuation, and
+                  whatever the fixed-design kernels' gates refuse;
   pallas-loop-nl  time-local nonlinear models (exp/biexp, poly with a
                   non-identity transform): the whole-loop kernel
                   (ops/fused_loop_nl.py; vb.py:593-660, 1132-1326),
@@ -30,13 +50,14 @@ count under maxits, else a while loop over the lanes' detector state
 with the best-state save/revert protocol (vb.py:954-1047, 2028-2048,
 2603-2627).
 
-_select_route applies the JAX gates in the JAX engine's order, the
-same way on "cpu" and "cuda"; a run those gates send to an unported
-route raises NotImplementedError naming it. On "cuda" a kernel route
-also needs the kernels compiled for the model's functor at its
-(P, Q) (csrc/vb_device.cuh FABBER_NL_INSTANCES); a run outside them
-raises at construction. Choosing a route is a decision made before any
-launch, never a fallback after a failure.
+_select_route applies the JAX gates in the JAX engine's order (its
+`auto` as on the TPU), the same way on "cpu" and "cuda"; a run those
+gates send to an unported route raises NotImplementedError naming it.
+On "cuda" a kernel route also needs its kernels compiled for the run's
+shape (csrc/vb_device.cuh FABBER_NL_INSTANCES for the model functors,
+csrc/fused_whole.cu FABBER_WHOLE_INSTANCES for (P, Q)); a run outside
+them raises at construction. Choosing a route is a decision made before
+any launch, never a fallback after a failure.
 """
 
 import math
@@ -51,10 +72,15 @@ from ..models.base import resolve_parameters, PRIOR_IMAGE
 from ..noise import get_noise_class
 from ..noise.white import DesignStats, WhiteNoiseState
 from ..ops import smallmat as sm
+from ..ops.fused_loop import (fused_vb_loop, pack_loop_consts,
+                              whole_instantiated)
 from ..ops.fused_loop_nl import fused_nl_loop, pack_nl_consts
 from ..ops.fused_spectral import (MAX_P, pack_mxu_consts, pack_solve_consts,
                                   pack_spectral_consts, spectral_core,
-                                  spectral_stats)
+                                  spectral_fused, spectral_stats)
+from ..ops.fused_whole import (DETECTOR_KINDS as WHOLE_DETECTORS,
+                               SMEM_BYTES, fused_whole, pack_whole_consts,
+                               pack_whole_time_consts, smem_bytes)
 from ..ops.fused_vb import fused_iteration, kernel_instantiated
 from ..ops.spectral import eigen_elbo_const
 from ..options import OptionSpec, OPT_STR, OPT_INT, OPT_BOOL, OPT_MVN
@@ -69,32 +95,33 @@ ROUTES = {
     "spectral-whole": (
         "whole-program spectral route (CUDA statistics kernel + "
         "eigenbasis core kernel)", None),
+    "spectral-fused": ("whole-program spectral route in one kernel "
+                       "(spectral-impl=fused)", None),
+    "spectral-xstats": ("whole-program spectral route (plain-torch "
+                        "statistics + eigenbasis core kernel, "
+                        "spectral-impl=xstats)", None),
+    "pallas-whole": ("whole-program fixed-design kernel (in-kernel "
+                     "sufficient statistics + fixed point)", None),
+    "pallas-loop": ("whole-loop fixed-design kernel (plain-torch "
+                    "statistics input)", None),
+    "xla": ("fixed-design sufficient-statistics route (plain torch; the "
+            "JAX package leaves it to XLA, so it has no kernel)", None),
     "pallas-loop-nl": (
         "whole-loop nonlinear kernel (time_signal mode)", None),
     "pallas": ("per-iteration fused kernel (time_signal mode)", None),
     "xla-generic": ("generic-Jacobian route (plain torch; the JAX "
                     "package leaves it to XLA, so it has no kernel)", None),
-    "xla": ("fixed-design sufficient-statistics route (XLA)",
-            "ROADMAP Queue 1 item 8"),
     "xla-direct": ("fixed-design direct route (XLA)",
                    "ROADMAP Queue 1 item 8"),
-    "spectral": ("spectral eigenbasis fixed point (pure XLA)",
-                 "ROADMAP Queue 1 item 8"),
-    "spectral-xstats": ("XLA statistics + spectral core kernel "
-                        "(spectral-impl=xstats)", "ROADMAP Queue 1 item 8"),
-    "spectral-fused": ("one-kernel spectral form (spectral-impl=fused)",
-                       "ROADMAP Queue 2 item 3"),
-    "pallas-whole": ("whole-program fixed-design kernel (multi-group / "
-                     "locked noise)", "ROADMAP Queue 2 item 4"),
-    "pallas-loop": ("whole-loop fixed-design kernel (statistics input)",
-                    "ROADMAP Queue 2 item 5"),
+    "spectral": ("spectral eigenbasis fixed point (pure XLA; bf16 storage "
+                 "with one noise group)", "ROADMAP Queue 1 item 8"),
     "pallas-loop-ar": ("whole-loop AR(1) kernel", "ROADMAP Queue 2 item 9"),
     "motion-correction": ("VB with interleaved motion correction "
                           "(mcsteps > 0)", "ROADMAP Queue 1 item 17"),
     "noprior-output": ("likelihood-only posterior output "
                        "(spatial-prior-output-correction)",
                        "ROADMAP Queue 1 item 17"),
-    # features a nonlinear run needs beyond its route
+    # features a run needs beyond its route
     "ard-priors": ("ARD priors (an iteration-dependent prior sweep)",
                    "ROADMAP Queue 1 item 17"),
     "spatial-priors": ("spatial priors (spatial VB)",
@@ -110,6 +137,16 @@ ENGINE_KERNELS = ("auto", "pallas", "pallas-loop", "pallas-whole",
                   "spectral", "spectral-whole", "xla")
 # the routes whose CUDA kernels evaluate the model through a functor
 FUNCTOR_ROUTES = ("pallas-loop-nl", "pallas")
+# the fixed-design routes whose kernels take (P, Q) instances
+WHOLE_ROUTES = ("pallas-whole", "pallas-loop")
+# the fixed-design kernel routes (a programmatic initial posterior
+# takes "xla" instead: the kernels start from the model default)
+DESIGN_KERNEL_ROUTES = ("spectral-whole", "spectral-fused",
+                        "spectral-xstats") + WHOLE_ROUTES
+# the detectors the spectral kernels run in-kernel (vb.py:568-570)
+SPECTRAL_DETECTORS = ("pointzeroone", "freduce", "trialmode")
+SPECTRAL_IMPLS = {"split": "spectral-whole", "fused": "spectral-fused",
+                  "xstats": "spectral-xstats"}
 
 
 class PosteriorState(NamedTuple):
@@ -200,15 +237,20 @@ class VBInference:
             OptionSpec("engine-kernel", OPT_STR,
                        "Iteration backend, as the JAX package names it: "
                        "auto, pallas (per-iteration time-signal kernel), "
-                       "pallas-loop (whole-loop kernel), spectral-whole, "
-                       "xla (generic-Jacobian route for nonlinear "
-                       "models); routes not ported yet raise",
+                       "pallas-loop (whole-loop kernel: nonlinear models, "
+                       "or fixed-design from statistics), pallas-whole "
+                       "(whole-program fixed-design kernel), "
+                       "spectral-whole, xla (plain-torch statistics route "
+                       "or generic-Jacobian route); spectral (pure-XLA "
+                       "spectral route) is not ported yet and raises",
                        default="auto"),
             OptionSpec("fixed-design-route", OPT_STR,
                        "Fixed-design update arithmetic: stats", default="stats"),
             OptionSpec("spectral-impl", OPT_STR,
-                       "Whole-program spectral kernel form: split",
-                       default="split"),
+                       "Whole-program spectral kernel form: split "
+                       "(statistics kernel + core kernel), fused (one "
+                       "kernel) or xstats (plain-torch statistics + core "
+                       "kernel)", default="split"),
         ]
 
     def __init__(self, model, options, data, voxel_data_getter=None,
@@ -327,55 +369,87 @@ class VBInference:
         return self._nonlinear_route(mode)
 
     def _design_route(self, mode):
-        """Fixed-design models: the spectral-whole gates (vb.py:408-420,
-        465-467, 568-581)."""
+        """Fixed-design models: the stats route's gates (vb.py:372-591)
+        and the dispatch precedence spectral-whole > whole-program >
+        spectral > stats-input loop > the stats loop (vb.py:2012-2048).
+        The JAX engine's VMEM pickers become the kernels' shared-memory
+        gate: the per-timepoint rows of a block fit 227 KB."""
         o = self.options
-        if mode not in ("auto", "spectral-whole"):
-            # engine-kernel=pallas kept the design only because the
-            # time-signal gate failed: the JAX engine then runs the
-            # stats route
-            return "xla" if mode == "pallas" else mode
         if o.get_string("fixed-design-route", "stats") != "stats":
             return "xla-direct"
+        feature = self._unported_feature()
+        if feature is not None:
+            return feature
+        det = type(self.detector).name
+        p, nq, nt = self.nparams, self.noise.nphis, self.nt
+        f32 = self.dtype == torch.float32
+        f32_store = self.store_dtype == torch.float32
+        default_post = o.get_string("noise-initial-posterior",
+                                    "modeldefault") == "modeldefault"
         # loop_gates_common (vb.py:410-420)
-        if (self.dtype != torch.float32
-                or o.get_string("continue-from-mvn", "") != ""
-                or self.is_lm
-                or self.save_fhist
-                or self.prior_setup.has_ard
-                or self.prior_setup.spatial_params
-                or self.locked_linear
-                or o.get_string("noise-initial-posterior",
-                                "modeldefault") != "modeldefault"):
-            return "xla"
+        common = f32 and not self.is_lm and not self.save_fhist \
+            and default_post
         # spectral_ok (vb.py:465-467): one phi group, unlocked stdev
-        if self.noise.nphis != 1 or self.noise.locked_noise_stdev > 0:
-            return "pallas-whole"
-        # f32 storage (vb.py:574) and the kernels' size gate (the JAX
-        # VMEM gate, vb.py:577-581): P <= 8 template instantiations, the
-        # (2P+1) x T constant rows in one block's shared memory
-        if (self.store_dtype != torch.float32 or self.nparams > MAX_P
-                or (2 * self.nparams + 1) * self.nt * 4 > 232448):
+        spectral_ok = nq == 1 and self.noise.locked_noise_stdev <= 0
+        # sw_core (vb.py:571-581): f32 storage, P <= 8 template
+        # instances, the (2P+1) x T rows in one block's shared memory
+        sw_core = (common and spectral_ok and f32_store
+                   and det in ("maxits",) + SPECTRAL_DETECTORS
+                   and p <= MAX_P and (2 * p + 1) * nt * 4 <= SMEM_BYTES)
+        # whole_core (vb.py:494-514): admits lm; the (P+QP+Q) x T rows
+        whole_core = (f32 and f32_store and not self.save_fhist
+                      and default_post
+                      and det in ("maxits",) + WHOLE_DETECTORS
+                      and smem_bytes(p, nq, nt) <= SMEM_BYTES)
+        # spectral_covers (vb.py:522-525): where the spectral routes
+        # apply, auto prefers them to the whole-program kernel
+        spectral_covers = spectral_ok and common \
+            and det in ("maxits",) + SPECTRAL_DETECTORS
+        loop_eligible = common and det == "maxits" \
+            and mode in ("auto", "pallas-loop", "spectral")
+        spectral_fdet = common and spectral_ok \
+            and det in SPECTRAL_DETECTORS and mode in ("auto", "spectral")
+        if mode == "spectral-whole":
+            return self._spectral_impl() if sw_core else "xla"
+        if mode == "pallas-whole":
+            return "pallas-whole" if whole_core else "xla"
+        if mode == "auto":
+            if sw_core:
+                return self._spectral_impl()
+            if whole_core and not spectral_covers:
+                return "pallas-whole"
+        if spectral_fdet or (loop_eligible and spectral_ok
+                             and mode != "pallas-loop"):
             return "spectral"
-        impl = o.get_string("spectral-impl", "split")
-        if impl != "split":
-            return {"xstats": "spectral-xstats",
-                    "fused": "spectral-fused"}.get(impl, "spectral-fused")
-        return "spectral-whole"
+        if loop_eligible and mode != "spectral":
+            return "pallas-loop"
+        return "xla"
 
-    def _nonlinear_route(self, mode):
-        """Models without a fixed design: the whole-loop gate
-        (vb.py:593-660), then the per-iteration kernel's (vb.py:355-363),
-        then the generic-Jacobian route."""
-        o = self.options
+    def _spectral_impl(self):
+        impl = self.options.get_string("spectral-impl", "split")
+        return SPECTRAL_IMPLS.get(impl, "spectral-fused")
+
+    def _unported_feature(self):
+        """The route of a feature the run needs and the port lacks (the
+        JAX engine runs it on its XLA loop), or None."""
         if self.locked_linear:
             return "locked-linear"
         if self.prior_setup.spatial_params:
             return "spatial-priors"
         if self.prior_setup.has_ard:
             return "ard-priors"
-        if o.get_string("continue-from-mvn", "") != "":
+        if self.options.get_string("continue-from-mvn", "") != "":
             return "continue-from-mvn"
+        return None
+
+    def _nonlinear_route(self, mode):
+        """Models without a fixed design: the whole-loop gate
+        (vb.py:593-660), then the per-iteration kernel's (vb.py:355-363),
+        then the generic-Jacobian route."""
+        o = self.options
+        feature = self._unported_feature()
+        if feature is not None:
+            return feature
         if not self._ts_eligible:
             return "xla-generic"
         # every detector runs in the kernel (vb.py:621-640)
@@ -389,15 +463,27 @@ class VBInference:
         return "pallas" if mode in ("auto", "pallas") else "xla-generic"
 
     def _require_kernel_instance(self):
-        """On "cuda" the kernel routes evaluate the model through a
-        hand-written functor (model.kernel_model()) compiled for given
-        (P, Q): a run without one raises here, before anything
-        launches. On "cpu" the routes run their plain versions, which
-        take any time_signal model."""
-        if self.device.type != "cuda" or self.route not in FUNCTOR_ROUTES:
+        """On "cuda" the kernel routes need their kernels compiled for
+        the run: the nonlinear kernels a hand-written model functor
+        (model.kernel_model()) at its (P, Q), the fixed-design kernels
+        4 and 5 the run's (P, Q). A run without one raises here, before
+        anything launches. On "cpu" the routes run their plain
+        versions, which take any shape."""
+        if self.device.type != "cuda":
+            return
+        nq = self.noise.nphis
+        if self.route in WHOLE_ROUTES:
+            if whole_instantiated(self.nparams, nq):
+                return
+            raise NotImplementedError(
+                f"P={self.nparams}, Q={nq} is not among the fixed-design "
+                "kernels' instances (csrc/fused_whole.cu "
+                f"FABBER_WHOLE_INSTANCES), so the '{self.route}' route "
+                f"({ROUTES[self.route][0]}) cannot run it on the card; "
+                "device='cpu' runs the route's plain version")
+        if self.route not in FUNCTOR_ROUTES:
             return
         km = self.model.kernel_model()
-        nq = self.noise.nphis
         if kernel_instantiated(km, nq):
             return
         what = ("has no CUDA model functor (kernel_model)" if km is None
@@ -415,8 +501,9 @@ class VBInference:
         """Human-readable name of the selected update route (logged by
         the runner)."""
         det = type(self.detector).name
-        if det != "maxits" and self.route in ("spectral-whole",
-                                              "pallas-loop-nl"):
+        if det != "maxits" and self.route in (
+                "spectral-whole", "spectral-fused", "spectral-xstats",
+                "pallas-whole", "pallas-loop-nl"):
             return f"{ROUTES[self.route][0]}, in-kernel {det} detector"
         return ROUTES[self.route][0]
 
@@ -533,10 +620,7 @@ class VBInference:
         (default the engine's). Host float64 from the design, the mask,
         the dtype-rounded prior precisions and the noise priors."""
         dtype = dtype or self.dtype
-        self._ensure_noise_prior()
-        _, post1 = self.noise.initial_state(1, self.dtype)
-        init_b = float(post1.b[0, 0])
-        init_c = float(post1.c[0, 0])
+        init_b, init_c = self._noise_init()
         b0 = float(self.noise_prior.b.reshape(-1)[0])
         c0 = float(self.noise_prior.c.reshape(-1)[0])
         c_post = (float(self.noise.ntimes_per_group[0]) - 1.0) * 0.5 + c0
@@ -554,26 +638,40 @@ class VBInference:
         return tconsts, aconsts, sconsts
 
     def _run_spectral_whole(self, s):
-        """Statistics kernel + eigenbasis core kernel (vb.py:1611-1866,
-        split form): one [T,V] read, one posterior write. Under an
-        F-based detector the core kernel runs the lanes' state machines
-        to the while loop's cap; lanes whose selected state is the
-        engine-initial posterior come back tagged (b < 0) and are
-        restored from s, prior planes included (vb.py:1810-1826)."""
+        """The whole-program spectral route (vb.py:1611-1866) in the
+        form of self.route: split (statistics kernel + eigenbasis core
+        kernel), fused (both in one kernel) or xstats (make_design_stats
+        in plain torch + the core kernel; the JAX route's window scan is
+        a TPU workaround, not ported). Under an F-based detector the
+        core runs the lanes' state machines to the while loop's cap;
+        lanes whose selected state is the engine-initial posterior come
+        back tagged (b < 0) and are restored from s, prior planes
+        included (vb.py:1810-1826)."""
         fdet = type(self.detector).name != "maxits"
         n_iters = self.max_iter_cap if fdet \
             else int(self.detector.max_iterations)
-        p, nv = self.nparams, self.nvoxels
+        nv = self.nvoxels
         tconsts, aconsts, sconsts = self.spectral_consts()
-        m0, rtqr, dtqr = spectral_stats(self.data.to(self.dtype), tconsts,
-                                        aconsts)
-        # the core kernel takes [P,V] prior means: broadcast the [P,1]
+        data = self._kernel_data()
+        # the core takes [P,V] prior means: broadcast the [P,1]
         # model-default case on the device (vb.py:1802-1806)
-        prior_means = self.prior_setup.base_means.expand(p, nv).contiguous()
-        prior_prec = self.prior_setup.base_precs.expand(p, nv)
-        means, prec, cov, nb, nc, fk, tr = spectral_core(
-            m0, rtqr, dtqr, prior_means, sconsts, n_iters,
-            self.detector if fdet else None)
+        prior_means, prior_prec = self._prior_planes(prec_plane=False)
+        det = self.detector if fdet else None
+        stats = None
+        if self.route == "spectral-fused":
+            means, prec, cov, nb, nc, fk, tr = spectral_fused(
+                data, tconsts, aconsts, prior_means, sconsts, n_iters, det)
+        else:
+            if self.route == "spectral-whole":
+                m0, rtqr, dtqr = spectral_stats(data, tconsts, aconsts)
+            else:
+                stats = self.noise.make_design_stats(self._design_tensor(),
+                                                     data)
+                m0, rtqr, dtqr = (stats.m0.contiguous(),
+                                  stats.rtqr.contiguous(),
+                                  stats.dtqr[0].contiguous())
+            means, prec, cov, nb, nc, fk, tr = spectral_core(
+                m0, rtqr, dtqr, prior_means, sconsts, n_iters, det)
         if fdet:
             sel_init = nb[0] < 0
             nb = torch.abs(nb)
@@ -595,10 +693,14 @@ class VBInference:
                 # lanes reverted to the engine-initial posterior are off
                 # the eigenbasis manifold: F for every lane from the
                 # statistics, as the JAX route does (vb.py:1835-1847)
+                if self.route == "spectral-whole":
+                    stats = self._design_stats(m0, rtqr, dtqr)
+                elif stats is None:
+                    stats = self.noise.make_design_stats(
+                        self._design_tensor(), data)
                 f = self.noise.free_energy_stats(
                     noise_post, self.noise_prior, means, prec, cov,
-                    prior_means, prior_prec,
-                    self._design_stats(m0, rtqr, dtqr))
+                    prior_means, prior_prec, stats)
             conv = s.conv._replace(
                 its=tr[0].to(torch.int32), prev_f=fk[0],
                 done=torch.ones(nv, dtype=torch.bool, device=self.device))
@@ -620,6 +722,111 @@ class VBInference:
                            dtqd=torch.as_tensor(dtqd, dtype=self.dtype,
                                                 device=self.device))
 
+    def _design_tensor(self):
+        """The [T,P] design on the device in the compute dtype."""
+        return torch.as_tensor(self.design, dtype=self.dtype,
+                               device=self.device)
+
+    def _noise_init(self):
+        """(b, c) of the model-default initial noise posterior."""
+        self._ensure_noise_prior()
+        _, post1 = self.noise.initial_state(1, self.dtype)
+        return float(post1.b[0, 0]), float(post1.c[0, 0])
+
+    def _prior_planes(self, prec_plane=True):
+        """The voxel-invariant prior means as a [P,V] plane, and the
+        precisions as one too or (prec_plane=False: the spectral routes,
+        whose kernels never read them) as a [P,V] broadcast view."""
+        p, nv = self.nparams, self.nvoxels
+        prec = self.prior_setup.base_precs.expand(p, nv)
+        return (self.prior_setup.base_means.expand(p, nv).contiguous(),
+                prec.contiguous() if prec_plane else prec)
+
+    # -- the fixed-design kernel routes -----------------------------------
+    def whole_args(self):
+        """Kernel 4's inputs: (data [T,V], tconsts, consts, prior_means,
+        prior_prec)."""
+        init_b, init_c = self._noise_init()
+        tconsts = pack_whole_time_consts(self.design, self.noise.qmasks,
+                                         self.nt, self.dtype, self.device)
+        consts = pack_whole_consts(
+            self.design, self.noise.qmasks, self.nt,
+            self.noise_prior.b.cpu(), self.noise_prior.c.cpu(),
+            self.noise.ntimes_per_group, init_b, init_c)
+        return (self._kernel_data(), tconsts, consts) + self._prior_planes()
+
+    def _run_whole(self, s):
+        """The whole-program kernel (vb.py:1569-1607): statistics and
+        the fixed point in one launch. maxits: F assembled from the
+        kernel's last-iteration quadratics; a detector (pointzeroone,
+        trialmode, lm): the kernel's per-lane F and iteration counts at
+        the while loop's cap."""
+        fdet = type(self.detector).name != "maxits"
+        n_iters = self.max_iter_cap if fdet \
+            else int(self.detector.max_iterations)
+        nv = self.nvoxels
+        args = self.whole_args()
+        prior_means, prior_prec = args[3], args[4]
+        means, prec, cov, nb, nc, fkqk, ftr = fused_whole(
+            *args, n_iters, self.noise.locked_noise_stdev,
+            self._nl_fdet_consts() if fdet else None)
+        noise_post = WhiteNoiseState(nb, nc)
+        post = PosteriorState(means, prec, cov, prior_means, prior_prec,
+                              noise_post)
+        done = torch.ones(nv, dtype=torch.bool, device=self.device)
+        if fdet:
+            f = fkqk[0]
+            conv = s.conv._replace(its=ftr[0].to(torch.int32), prev_f=f,
+                                   done=done)
+        else:
+            # fprior is zero for the (non-ARD, non-spatial) priors this
+            # route admits
+            f = self.noise.free_energy_from_parts(
+                noise_post, self.noise_prior, means, prec, cov, prior_means,
+                prior_prec, list(fkqk), list(ftr)) if self.need_f else s.f
+            conv = s.conv._replace(
+                its=torch.full((nv,), n_iters, dtype=torch.int32,
+                               device=self.device), done=done)
+        return s._replace(it=n_iters, post=post, centre=means, f=f,
+                          conv=conv)
+
+    def loop_kernel_args(self):
+        """Kernel 5's inputs from make_design_stats (plain torch, as the
+        JAX package leaves it to XLA): (m0, rtqr, dtqr, consts,
+        prior_means, prior_prec), and the DesignStats."""
+        init_b, init_c = self._noise_init()
+        stats = self.noise.make_design_stats(self._design_tensor(),
+                                             self.data)
+        consts = pack_loop_consts(
+            stats.dtqd, self.noise_prior.b.cpu(), self.noise_prior.c.cpu(),
+            self.noise.ntimes_per_group, init_b, init_c)
+        planes = tuple(x.to(self.dtype).contiguous()
+                       for x in (stats.m0, stats.rtqr, stats.dtqr))
+        return planes + (consts,) + self._prior_planes(), stats
+
+    def _run_loop_kernel(self, s):
+        """The stats-input whole-loop kernel (vb.py:1096-1128): the
+        statistics in plain torch, then the maxits fixed point in one
+        launch; F from the statistics."""
+        n_iters = int(self.detector.max_iterations)
+        nv = self.nvoxels
+        args, stats = self.loop_kernel_args()
+        prior_means, prior_prec = args[4], args[5]
+        means, prec, cov, nb, nc = fused_vb_loop(
+            *args, n_iters, self.noise.locked_noise_stdev)
+        noise_post = WhiteNoiseState(nb, nc)
+        post = PosteriorState(means, prec, cov, prior_means, prior_prec,
+                              noise_post)
+        f = self.noise.free_energy_stats(
+            noise_post, self.noise_prior, means, prec, cov, prior_means,
+            prior_prec, stats) if self.need_f else s.f
+        conv = s.conv._replace(
+            its=torch.full((nv,), n_iters, dtype=torch.int32,
+                           device=self.device),
+            done=torch.ones(nv, dtype=torch.bool, device=self.device))
+        return s._replace(it=n_iters, post=post, centre=means, f=f,
+                          conv=conv)
+
     # -- the nonlinear routes -------------------------------------------
     def _transforms(self):
         return [pm.transform for pm in self.params]
@@ -631,18 +838,13 @@ class VBInference:
     def nl_loop_args(self, s):
         """The whole-loop kernel's inputs for the loop state s:
         (centre0, prior_means, prior_prec, data, qmasks, consts)."""
-        p, nq, nv = self.nparams, self.noise.nphis, self.nvoxels
-        self._ensure_noise_prior()
-        _, post1 = self.noise.initial_state(1, self.dtype)
+        init_b, init_c = self._noise_init()
         consts = pack_nl_consts(
             self.noise_prior.b.cpu(), self.noise_prior.c.cpu(),
-            self.noise.ntimes_per_group, float(post1.b[0, 0]),
-            float(post1.c[0, 0]), nq)
-        prior_means = self.prior_setup.base_means.expand(p, nv).contiguous()
-        prior_prec = self.prior_setup.base_precs.expand(p, nv).contiguous()
+            self.noise.ntimes_per_group, init_b, init_c, self.noise.nphis)
         # initial linearization centre: the (model-initialized)
         # posterior means of initial_state
-        return (s.post.means.contiguous(), prior_means, prior_prec,
+        return (s.post.means.contiguous(), *self._prior_planes(),
                 self._kernel_data(), self.noise.qmasks, consts)
 
     def _run_nl_loop(self, s):
@@ -747,10 +949,11 @@ class VBInference:
             list(nkqk), list(ntr), self.noise_prior)
         return means, prec, cov, noise_post, (fkqk, ftr)
 
-    def _iteration(self, s, route):
+    def _iteration(self, s, route, stats=None):
         """One VB iteration (vb.py:954-1047) on the per-iteration routes:
-        'pallas' (the fused kernel) or 'xla-generic' (linearize, then
-        the noise model's generic updates)."""
+        'pallas' (the fused kernel), 'xla' (the noise model's updates
+        from the sufficient statistics `stats`) or 'xla-generic'
+        (linearize, then the noise model's generic updates)."""
         post = s.post
         data = self.data.to(self.dtype)
         if route == "xla-generic":
@@ -769,6 +972,12 @@ class VBInference:
         if route == "pallas":
             means, prec, cov, noise_post, fparts = self._fused_update(
                 s, prior_means, prior_prec)
+        elif route == "xla":
+            means, prec, cov, _ok = self.noise.update_theta_stats(
+                post.noise, prior_means, prior_prec, stats,
+                s.conv.alpha if self.is_lm else None, s.centre)
+            noise_post = self.noise.update_noise_stats(
+                post.noise, self.noise_prior, means, cov, stats)
         else:
             means, prec, cov, _ok = self.noise.update_theta(
                 post.noise, post.means, prior_means, prior_prec,
@@ -786,6 +995,11 @@ class VBInference:
             f = self.noise.free_energy_from_parts(
                 noise_post, self.noise_prior, means, prec, cov,
                 prior_means, prior_prec, list(fparts[0]), list(fparts[1]))
+            f = f + fprior
+        elif self.need_f and route == "xla":
+            f = self.noise.free_energy_stats(
+                noise_post, self.noise_prior, means, prec, cov,
+                prior_means, prior_prec, stats)
             f = f + fprior
         elif self.need_f:
             offset, jac = self.linearizer(centre, data, self.coords)
@@ -809,29 +1023,39 @@ class VBInference:
         return merged._replace(it=new.it, fhist=fhist)
 
     def _run_iterations(self, s, route):
-        """The per-iteration loop (vb.py:2028-2048): maxits runs a
-        static trip count; the F-based detectors a while loop that runs
-        while some lane is not done, up to max_iter_cap iterations. Then
-        the finalize step."""
+        """The per-iteration loop (vb.py:2028-2048): on 'xla' the
+        sufficient statistics first, once; maxits runs a static trip
+        count; the F-based detectors (lm among them) a while loop that
+        runs while some lane is not done, up to max_iter_cap iterations.
+        Then the finalize step."""
         self._ensure_noise_prior()
+        stats = self.noise.make_design_stats(self._design_tensor(),
+                                             self.data) \
+            if route == "xla" else None
         if type(self.detector).name == "maxits":
             for _ in range(int(self.detector.max_iterations)):
-                s = self._iteration(s, route)
+                s = self._iteration(s, route, stats)
         else:
             while s.it < self.max_iter_cap and not bool(s.conv.done.all()):
-                s = self._iteration(s, route)
-        return self._finalize(s)
+                s = self._iteration(s, route, stats)
+        return self._finalize(s, stats)
 
-    def _finalize(self, s):
+    def _finalize(self, s, stats=None):
         """Post-loop save/revert (vb.py:2603-2627, inference_vb.cc:
         505-525): lanes flagged revert take the best state, and their F
-        is recomputed there."""
+        is recomputed there (from the statistics on the 'xla' route)."""
         if not self.detector.tracks_best:
             return s._replace(centre=s.post.means)
         best = _lane_where(s.conv.save, s.post, s.best)
         post = _lane_where(s.conv.revert, best, s.post)
         f = s.f
-        if self.need_f:
+        if self.need_f and stats is not None:
+            f_rev = self.noise.free_energy_stats(
+                post.noise, self.noise_prior, post.means, post.prec,
+                post.cov, post.prior_means, post.prior_prec,
+                stats) + s.fprior
+            f = torch.where(s.conv.revert, f_rev, s.f)
+        elif self.need_f:
             data = self.data.to(self.dtype)
             offset, jac = self.linearizer(post.means, data, self.coords)
             f_rev = self.noise.free_energy(
@@ -843,8 +1067,11 @@ class VBInference:
 
     def continuation_route(self):
         """The route a programmatic initial posterior runs on: the
-        whole-loop kernel always starts from the model default, so it
-        steps aside to the per-iteration routes (vb.py:2516-2539)."""
+        whole-loop and whole-program kernels always start from the model
+        default, so they step aside to the per-iteration routes
+        (vb.py:2516-2539): the fixed-design kernel routes to 'xla'."""
+        if self.route in DESIGN_KERNEL_ROUTES:
+            return "xla"
         if self.route != "pallas-loop-nl":
             return self.route
         mode = self.options.get_string("engine-kernel", "auto")
@@ -858,14 +1085,13 @@ class VBInference:
         route = self.route
         if continue_means is not None or continue_noise is not None:
             route = self.continuation_route()
-            if route == "spectral-whole":
-                raise NotImplementedError(
-                    "a programmatic initial posterior of a fixed-design "
-                    "model takes the JAX package's 'xla' route "
-                    f"({ROUTES['xla'][1]}), not ported yet")
         s = self.initial_state(continue_means, continue_cov, continue_noise)
-        if route == "spectral-whole":
+        if route in ("spectral-whole", "spectral-fused", "spectral-xstats"):
             final = self._run_spectral_whole(s)
+        elif route == "pallas-whole":
+            final = self._run_whole(s)
+        elif route == "pallas-loop":
+            final = self._run_loop_kernel(s)
         elif route == "pallas-loop-nl":
             final = self._run_nl_loop(s)
         else:

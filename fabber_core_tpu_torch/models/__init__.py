@@ -5,4 +5,4 @@ from .base import (  # noqa: F401
 )
 
 # Built-in model families register themselves on import
-from . import poly, exp  # noqa: F401,E402
+from . import poly, exp, linear  # noqa: F401,E402

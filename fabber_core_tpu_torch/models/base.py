@@ -132,9 +132,6 @@ class Model:
 
 _MODELS = {}
 
-# model families of the JAX package the port does not have yet
-_UNPORTED_MODELS = {"linear": "ROADMAP Queue 1 item 4"}
-
 
 def register_model(cls):
     """Class decorator: register a model family by its ``name``."""
@@ -148,10 +145,6 @@ def get_model_class(name):
     try:
         return _MODELS[name]
     except KeyError:
-        if name in _UNPORTED_MODELS:
-            raise NotImplementedError(
-                f"model '{name}' is not ported to fabber_core_tpu_torch yet "
-                f"({_UNPORTED_MODELS[name]})")
         raise InvalidOptionValue("model", name, "Unrecognized forward model")
 
 

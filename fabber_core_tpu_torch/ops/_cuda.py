@@ -1,8 +1,8 @@
 """Build and bind the port's CUDA kernels (csrc/*.cu).
 
 The sources are compiled at first use with nvcc, one process per
-source, all started together (10.9 s on an H100 host, against 29.3 s
-for one nvcc over all four sources), and linked into one plain-C shared
+source, all started together (10.9 s on an H100 host for the first
+four sources, against 29.3 s for one nvcc over them), and linked into one plain-C shared
 library under <repo>/build/kernels/, named by a hash of the sources,
 the shared header and the flags (so an edited source rebuilds and a
 fresh checkout builds from nothing). The library is loaded with ctypes.
@@ -23,9 +23,9 @@ import torch
 from ..exceptions import FabberError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("spectral_stats.cu", "spectral_core.cu", "fused_nl_loop.cu",
-           "fused_vb_iter.cu")
-HEADERS = ("vb_device.cuh", "detectors.cuh")
+SOURCES = ("spectral_stats.cu", "spectral_core.cu", "spectral_fused.cu",
+           "fused_nl_loop.cu", "fused_vb_iter.cu", "fused_whole.cu")
+HEADERS = ("vb_device.cuh", "detectors.cuh", "spectral_device.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -121,6 +121,20 @@ def load():
         lib.fabber_fused_vb_iter.restype = i32
         lib.fabber_nl_has_instance.argtypes = [i32, i32, i32]
         lib.fabber_nl_has_instance.restype = i32
+        lib.fabber_spectral_fused.argtypes = [
+            i32, i32, vp, vp, vp, i32, vp, vp, i32, f32, i32, i32, i32,
+            i64] + [vp] * 7 + [vp]
+        lib.fabber_spectral_fused.restype = i32
+        lib.fabber_fused_whole.argtypes = [
+            i32, i32, i32, f32, vp, i32, f32, i32, i32, i32, vp, vp, vp,
+            i32, vp, vp, i64] + [vp] * 7 + [vp]
+        lib.fabber_fused_whole.restype = i32
+        lib.fabber_fused_vb_loop.argtypes = [
+            i32, i32, i32, f32, vp, vp, vp, vp, vp, vp, i64] + [vp] * 5 \
+            + [vp]
+        lib.fabber_fused_vb_loop.restype = i32
+        lib.fabber_whole_has_instance.argtypes = [i32, i32]
+        lib.fabber_whole_has_instance.restype = i32
         _lib = lib
     return _lib
 
@@ -129,6 +143,12 @@ def has_nl_instance(kind, p, q):
     """True when the nonlinear kernels are compiled for this model
     functor kind, P and Q (csrc/vb_device.cuh FABBER_NL_INSTANCES)."""
     return bool(load().fabber_nl_has_instance(kind, p, q))
+
+
+def has_whole_instance(p, q):
+    """True when the fixed-design kernels (kernels 4 and 5) are compiled
+    for P and Q (csrc/fused_whole.cu FABBER_WHOLE_INSTANCES)."""
+    return bool(load().fabber_whole_has_instance(p, q))
 
 
 def _raise_on(err, name):
@@ -173,6 +193,48 @@ def launch_core(p, n_iters, m0, rtqr, dtqr, pm, consts, detector, outs):
             pm.data_ptr(), consts.data_ptr(), *detector_args(detector), nv,
             *(o.data_ptr() for o in outs), _stream(m0.device))
     _raise_on(err, "spectral_core")
+
+
+def launch_spectral_fused(p, n_iters, data, tconsts, aconsts, pm, consts,
+                          detector, outs):
+    lib = load()
+    nt, nv = data.shape
+    with torch.cuda.device(data.device):
+        err = lib.fabber_spectral_fused(
+            p, n_iters, data.data_ptr(), tconsts.data_ptr(),
+            aconsts.data_ptr(), nt, pm.data_ptr(), consts.data_ptr(),
+            *detector_args(detector), nv, *(o.data_ptr() for o in outs),
+            _stream(data.device))
+    _raise_on(err, "spectral_fused")
+
+
+def launch_whole(p, nq, n_iters, locked_sd, consts, detector, det_consts,
+                 data, tconsts, pm, pp, outs):
+    """consts: [Q*P*P + 4Q] float32 host tensor; detector: a convergence
+    detector object or None (maxits); det_consts: [Q+1] float32 host
+    tensor (lb_coeff, f_const) or None."""
+    lib = load()
+    nt, nv = data.shape
+    dc = 0 if det_consts is None else det_consts.data_ptr()
+    with torch.cuda.device(data.device):
+        err = lib.fabber_fused_whole(
+            p, nq, n_iters, locked_sd, consts.data_ptr(),
+            *detector_args(detector), dc, data.data_ptr(),
+            tconsts.data_ptr(), nt, pm.data_ptr(), pp.data_ptr(), nv,
+            *(o.data_ptr() for o in outs), _stream(data.device))
+    _raise_on(err, "fused_whole")
+
+
+def launch_vb_loop(p, nq, n_iters, locked_sd, consts, m0, rtqr, dtqr, pm,
+                   pp, outs):
+    lib = load()
+    nv = m0.shape[-1]
+    with torch.cuda.device(m0.device):
+        err = lib.fabber_fused_vb_loop(
+            p, nq, n_iters, locked_sd, consts.data_ptr(), m0.data_ptr(),
+            rtqr.data_ptr(), dtqr.data_ptr(), pm.data_ptr(), pp.data_ptr(),
+            nv, *(o.data_ptr() for o in outs), _stream(m0.device))
+    _raise_on(err, "fused_vb_loop")
 
 
 def _int_array(values):

@@ -1,9 +1,11 @@
-"""Whole-program spectral route: the statistics kernel and the
-eigenbasis core kernel, each with its plain-torch version.
+"""Whole-program spectral route: the statistics kernel, the
+eigenbasis core kernel and the one-kernel form, each with its
+plain-torch version.
 
-Port of the split form of fabber_core_tpu/ops/fused_spectral.py. Two
-hand-written CUDA kernels for Hopper (csrc/spectral_stats.cu,
-csrc/spectral_core.cu) carry the route:
+Port of fabber_core_tpu/ops/fused_spectral.py, split and fused forms.
+Three hand-written CUDA kernels for Hopper (csrc/spectral_stats.cu,
+csrc/spectral_core.cu, csrc/spectral_fused.cu; their per-voxel bodies
+are csrc/spectral_device.cuh) carry the route:
 
   spectral_stats  reads the [T,V] data once per pass and writes the
                   single-group sufficient statistics m0 [P,V],
@@ -19,13 +21,18 @@ csrc/spectral_core.cu) carry the route:
                   the engine's save/revert on the generating phi, and
                   writes the lane's iteration count in place of tr and
                   a minus sign on b where the selected state is the
-                  engine-initial posterior.
+                  engine-initial posterior;
+  spectral_fused  both in one thread (replaces make_fused_spectral_loop,
+                  spectral-impl=fused): the statistics stay in
+                  registers, the outputs are spectral_core's, in both
+                  modes; its plain version is the plain statistics
+                  followed by the plain core.
 
 Each wrapper takes its plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises. Each keeps an integer
 ``launches`` count of kernel launches (never of plain calls);
-spectral_core also counts its detector-mode launches in
-``det_launches``.
+spectral_core and spectral_fused also count their detector-mode
+launches in ``det_launches``.
 
 Constant layout (host-built in float64, cast once):
   pack_mxu_consts     [2P+1, T] device rows: raw design D (P rows),
@@ -366,3 +373,54 @@ def spectral_core(m0, rtqr, dtqr, pm, consts, n_iters, detector=None):
 
 spectral_core.launches = 0
 spectral_core.det_launches = 0
+
+
+def spectral_fused_plain(data, tconsts, aconsts, pm, consts, n_iters,
+                         detector=None):
+    """Plain torch: spectral_stats_plain, then spectral_core_plain."""
+    m0, rtqr, dtqr = spectral_stats_plain(data, tconsts, aconsts)
+    return spectral_core_plain(m0, rtqr, dtqr, pm, consts, n_iters,
+                               detector)
+
+
+def spectral_fused(data, tconsts, aconsts, pm, consts, n_iters,
+                   detector=None):
+    """The one-kernel spectral form: data [T,V], tconsts [2P+1,T]
+    (pack_mxu_consts), aconsts [P*P] host (pack_solve_consts), pm [P,V],
+    consts [4P^2+2P+6] host (pack_spectral_consts) -> spectral_core's
+    outputs, in maxits or (with a detector) its detector mode."""
+    if n_iters < 1:
+        raise ValueError("n_iters must be >= 1")
+    if detector is not None and type(detector).name not in DETECTOR_KINDS:
+        raise ValueError(f"no detector mode for '{type(detector).name}'")
+    if data.device.type == "cpu":
+        return spectral_fused_plain(data, tconsts, aconsts, pm, consts,
+                                    n_iters, detector)
+    dev = _cuda_device(data)
+    p = _nparams_from_core(consts)
+    if not 1 <= p <= MAX_P:
+        raise ValueError(f"P={p} outside the kernel's 1..{MAX_P}")
+    nt, nv = data.shape
+    _check(data, "data", (nt, nv), dev)
+    _check(tconsts, "tconsts", (2 * p + 1, nt), dev)
+    _check(pm, "pm", (p, nv), dev)
+    _check_host(aconsts, "aconsts", p * p)
+    _check_host(consts, "consts", 4 * p * p + 2 * p + 6)
+
+    def out(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    outs = (out(p, nv), out(p, p, nv), out(p, p, nv),
+            out(1, nv), out(1, nv), out(1, nv), out(1, nv))
+    if nv:
+        from . import _cuda
+        _cuda.launch_spectral_fused(p, n_iters, data, tconsts, aconsts, pm,
+                                    consts, detector, outs)
+        spectral_fused.launches += 1
+        if detector is not None:
+            spectral_fused.det_launches += 1
+    return outs
+
+
+spectral_fused.launches = 0
+spectral_fused.det_launches = 0

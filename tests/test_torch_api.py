@@ -139,7 +139,8 @@ def test_cli_writes_same_files_as_jax(tmp_path):
 
 def test_cli_fast_paths(capsys):
     assert tcli.execute(["--listmodels"]) == 0
-    assert capsys.readouterr().out.split() == ["biexp", "exp", "poly"]
+    assert capsys.readouterr().out.split() == ["biexp", "exp", "linear",
+                                               "poly"]
     assert tcli.execute(["--listparams", "--model=poly", "--degree=1"]) == 0
     assert capsys.readouterr().out.split() == ["c0", "c1"]
     assert tcli.execute(["--help"]) == 0
@@ -238,3 +239,40 @@ def test_run_with_data_biexp_trialmode_matches_jax():
     assert np.mean(err < 1e-3) >= 0.7
     np.testing.assert_allclose(np.median(td["noise_means"]),
                                np.median(jd["noise_means"]), rtol=2e-2)
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--noise-pattern=12"], ["--model=linear", "--basis=BASIS"]],
+    ids=["poly", "poly-pattern", "linear"])
+def test_cli_default_dtype_matches_jax(tmp_path, extra):
+    """The CLI at its default dtype (double: the statistics route in
+    plain torch) writes the JAX CLI's file set and values, to 1e-9
+    posterior sd."""
+    vol = phantom((4, 4, 2), nt=15, seed=4)
+    data_f = str(tmp_path / "data.nii.gz")
+    nifti.save(nifti.NiftiImage(vol), data_f)
+    if "--basis=BASIS" in extra:
+        from fabber_core_tpu_torch.io import matfile
+        basis = str(tmp_path / "basis.mat")
+        t = np.arange(15) / 15
+        matfile.write_vest(np.stack([np.ones(15), t, np.cos(np.pi * t)],
+                                    axis=1), basis)
+        extra = ["--model=linear", f"--basis={basis}"]
+        names = ["Parameter_1", "Parameter_2", "Parameter_3"]
+    else:
+        extra = ["--model=poly", "--degree=2"] + extra
+        names = ["c0", "c1", "c2"]
+    common = extra + ["--method=vb", "--noise=white", f"--data={data_f}",
+                      "--save-noise-mean"]
+    jout, tout = str(tmp_path / "jax"), str(tmp_path / "port")
+    assert jcli.execute(common + [f"--output={jout}"]) == 0
+    assert tcli.execute(common + [f"--output={tout}", "--device=cpu"]) == 0
+    assert sorted(os.listdir(tout)) == sorted(os.listdir(jout))
+    for name in names:
+        jmean = jnifti.load(os.path.join(jout, f"mean_{name}.nii.gz")).data
+        tmean = nifti.load(os.path.join(tout, f"mean_{name}.nii.gz")).data
+        jstd = jnifti.load(os.path.join(jout, f"std_{name}.nii.gz")).data
+        assert np.max(np.abs(tmean - jmean) / jstd) < 1e-9
+    jn = jnifti.load(os.path.join(jout, "noise_means.nii.gz")).data
+    tn = nifti.load(os.path.join(tout, "noise_means.nii.gz")).data
+    np.testing.assert_allclose(tn, jn, rtol=1e-9)

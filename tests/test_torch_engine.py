@@ -10,8 +10,10 @@ linearization=fd, a non-identity transform) run the nonlinear routes
 and are held to the same tolerances; so are the F-based detectors
 (pointzeroone, freduce, trialmode) on the spectral-whole route, whose
 core kernel runs them in-kernel. Also: every route gate the port does
-not serve yet raises NotImplementedError, lm on a fixed-design model
-among them (the JAX engine's stats route).
+not serve yet raises NotImplementedError naming its route. The
+fixed-design statistics routes (xla, pallas-whole, pallas-loop,
+spectral-fused, spectral-xstats), lm on a fixed-design model and the
+linear model are held to the JAX engine in test_torch_stats_engine.py.
 """
 
 import numpy as np
@@ -118,22 +120,12 @@ def test_engine_cases_match_jax_xla(extra, tmp_path):
 
 
 GATES = [
-    ({"dtype": "double"}, "xla"),
     ({"dtype": "bf16"}, "spectral"),
-    ({"noise-pattern": "12"}, "pallas-whole"),
-    ({"locked-noise-stdev": "0.1"}, "pallas-whole"),
-    ({"engine-kernel": "xla"}, "xla"),
-    ({"engine-kernel": "pallas-loop"}, "pallas-loop"),
-    ({"engine-kernel": "pallas-whole"}, "pallas-whole"),
     ({"engine-kernel": "spectral"}, "spectral"),
-    ({"spectral-impl": "fused"}, "spectral-fused"),
-    ({"spectral-impl": "xstats"}, "spectral-xstats"),
-    ({"param-spatial-priors": "A"}, "xla"),
-    ({"param-spatial-priors": "M"}, "xla"),
-    ({"continue-from-mvn": "x.nii.gz"}, "xla"),
-    ({"save-free-energy-history": True}, "xla"),
-    ({"noise-initial-posterior": "n.mtx"}, "xla"),
-    ({"locked-linear-from-mvn": "m.nii.gz"}, "xla"),
+    ({"param-spatial-priors": "A"}, "ard-priors"),
+    ({"param-spatial-priors": "M"}, "spatial-priors"),
+    ({"continue-from-mvn": "x.nii.gz"}, "continue-from-mvn"),
+    ({"locked-linear-from-mvn": "m.nii.gz"}, "locked-linear"),
     ({"fixed-design-route": "direct"}, "xla-direct"),
     ({"mcsteps": "1"}, "motion-correction"),
     ({"spatial-prior-output-correction": True}, "noprior-output"),
@@ -173,7 +165,6 @@ NONLINEAR_GATES = [
     ("biexp", {"param-spatial-priors": "M"}, "'spatial-priors'"),
     ("biexp", {"continue-from-mvn": "x.nii.gz"}, "'continue-from-mvn'"),
     ("biexp", {"locked-linear-from-mvn": "m.nii.gz"}, "'locked-linear'"),
-    ("poly", {"engine-kernel": "pallas-loop"}, "'pallas-loop'"),
 ]
 
 
@@ -231,22 +222,6 @@ def test_detector_runs_match_jax(conv, extra, mode):
         assert len(np.unique(rp.iterations)) > 1   # lanes stop apart
 
 
-def test_lm_on_fixed_design_raises_naming_the_stats_route():
-    """lm fails the JAX engine's shared fast-route gate (vb.py:413,
-    `not self.is_lm`): the JAX engine runs poly under lm on its XLA stats
-    route, which is not ported, so the port raises naming it instead of
-    reaching the spectral core kernel."""
-    extra = {"convergence": "lm"}
-    opts = JOptions({**BASE, "engine-kernel": "spectral-whole", **extra})
-    jeng = JVB(jmodel("poly")(opts), opts, make_data(16),
-               np.zeros((16, 3)))
-    assert not jeng.use_spectral_whole
-    assert jeng.route_description() == \
-        "fixed-design sufficient-statistics route (XLA)"
-    with pytest.raises(NotImplementedError, match="'xla'"):
-        run_port(make_data(16), extra)
-
-
 @pytest.mark.parametrize("extra,err", [
     ({"noise": "ar"}, NotImplementedError),
     ({"engine-kernel": "bogus"}, InvalidOptionValue),
@@ -256,21 +231,6 @@ def test_lm_on_fixed_design_raises_naming_the_stats_route():
 def test_other_refusals(extra, err):
     with pytest.raises(err):
         run_port(make_data(16), extra)
-
-
-def test_unported_models_raise():
-    with pytest.raises(NotImplementedError, match="linear"):
-        get_model_class("linear")
-
-
-def test_programmatic_continuation_raises():
-    """On the fixed-design route a programmatic initial posterior needs
-    the JAX package's stats route, which is not ported."""
-    opts = RunOptions(BASE)
-    eng = VBInference(get_model_class("poly")(opts), opts, make_data(8),
-                      device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.run(continue_means=np.zeros((8, 3)))
 
 
 def test_data_plane_and_route_description():

@@ -144,7 +144,7 @@ def test_core_plain_matches_pallas_kernel(p, n_iters):
     jsc = jfs.pack_spectral_consts(*args, jnp.float32, extra)
     jout = jcore(*(jnp.asarray(x) for x in stats), jnp.asarray(pm), jsc)
     tsc = tfs.pack_spectral_consts(*args, torch.float32, extra)
-    tstats = design_stats_from_numpy(*stats)
+    tstats = design_stats_from_numpy(stats)
     tout = tfs.spectral_core_plain(*tstats, torch.from_numpy(pm), tsc,
                                    n_iters)
     names = ["means", "prec", "cov", "b", "c", "F", "tr"]
@@ -211,7 +211,7 @@ def test_core_plain_detector_matches_pallas_kernel(name, extra, p):
         *(jnp.asarray(x) for x in stats), jnp.asarray(pm), jsc)]
     tsc = tfs.pack_spectral_consts(*args, torch.float32, extra_c)
     tout = [t.numpy() for t in tfs.spectral_core_plain(
-        *design_stats_from_numpy(*stats), torch.from_numpy(pm), tsc, cap,
+        *design_stats_from_numpy(stats), torch.from_numpy(pm), tsc, cap,
         td)]
     np.testing.assert_array_equal(tout[6], jout[6])          # its
     np.testing.assert_array_equal(tout[3] < 0, jout[3] < 0)  # initial tag

@@ -19,9 +19,13 @@ float64 'xla' route on the card; the linear model (128x128x32) with
 --spectral-impl=fused (the one-kernel spectral form). It checks that
 each path went through its kernels and that the results are right;
 runs the per-iteration nonlinear route, under maxits and under lm (its
-LM branch); then times the kernels, their plain versions, a
+LM branch); drives method=nlls (the NLLS kernel with its two-phase
+straggler compaction, Levenberg and --lm, on the biexp volume; the
+fixed-design route on linear) and the NLLS->VB workflow (nlls with
+save-mvn, then VB continued from its finalMVN through the per-iteration
+kernel); then times the kernels, their plain versions, a
 device-to-device copy and the whole engine run, poly at 16,777,216
-voxels and biexp at 4,000,000. Every phase passes or the script exits
+voxels and biexp at 4,000,000 (VB and NLLS). Every phase passes or the script exits
 non-zero without printing the result line. The last line of standard
 output is the JSON result object; the line before it lists the
 kernels, each with its bound (the least time the card could take:
@@ -1094,19 +1098,21 @@ def check_detector_kernels(device, nvs=(1_048_576, 1_000_003),
     return ok_all, worst
 
 
-def capture_results():
-    """Wrap VBInference.run so that a run through the API leaves its
-    VBResult here (the API returns volumes, not iteration counts)."""
-    from fabber_core_tpu_torch.inference import vb as vbmod
+def capture_results(cls=None):
+    """Wrap cls.run (default VBInference.run) so that a run through the
+    API leaves its engine and VBResult here (the API returns volumes,
+    not iteration counts)."""
+    if cls is None:
+        from fabber_core_tpu_torch.inference.vb import VBInference as cls
     captured = []
-    orig = vbmod.VBInference.run
+    orig = cls.run
 
     def run(self, *a, **kw):
         res = orig(self, *a, **kw)
         captured.append((self, res))
         return res
-    vbmod.VBInference.run = run
-    return captured, lambda: setattr(vbmod.VBInference, "run", orig)
+    cls.run = run
+    return captured, lambda: setattr(cls, "run", orig)
 
 
 def its_histogram(its):
@@ -1626,10 +1632,14 @@ def make_pattern_volume(shape, seed=SEED + 11):
 def launch_counts():
     from fabber_core_tpu_torch.ops import fused_loop as fl
     from fabber_core_tpu_torch.ops import fused_loop_nl as fnl
+    from fabber_core_tpu_torch.ops import fused_nlls as fn
     from fabber_core_tpu_torch.ops import fused_spectral as fs
     from fabber_core_tpu_torch.ops import fused_vb as fv
     from fabber_core_tpu_torch.ops import fused_whole as fw
-    return {"spectral_stats": fs.spectral_stats.launches,
+    return {"fused_nlls": fn.fused_nlls_loop.launches,
+            "fused_nlls:resume": fn.fused_nlls_loop.resume_launches,
+            "fused_nlls:marquardt": fn.fused_nlls_loop.marquardt_launches,
+            "spectral_stats": fs.spectral_stats.launches,
             "spectral_core": fs.spectral_core.launches,
             "spectral_fused": fs.spectral_fused.launches,
             "fused_whole": fw.fused_whole.launches,
@@ -1643,15 +1653,20 @@ def launch_counts():
 def reset_launches():
     from fabber_core_tpu_torch.ops import fused_loop as fl
     from fabber_core_tpu_torch.ops import fused_loop_nl as fnl
+    from fabber_core_tpu_torch.ops import fused_nlls as fn
     from fabber_core_tpu_torch.ops import fused_spectral as fs
     from fabber_core_tpu_torch.ops import fused_vb as fv
     from fabber_core_tpu_torch.ops import fused_whole as fw
-    for fn in (fs.spectral_stats, fs.spectral_core, fs.spectral_fused,
-               fw.fused_whole, fl.fused_vb_loop, fnl.fused_nl_loop,
-               fv.fused_iteration):
-        fn.launches = 0
+    for f in (fs.spectral_stats, fs.spectral_core, fs.spectral_fused,
+              fw.fused_whole, fl.fused_vb_loop, fnl.fused_nl_loop,
+              fv.fused_iteration, fn.fused_nlls_loop):
+        f.launches = 0
     fs.spectral_core.det_launches = fs.spectral_fused.det_launches = 0
     fw.fused_whole.det_launches = fw.fused_whole.lm_launches = 0
+    fnl.fused_nl_loop.det_launches = 0
+    fv.fused_iteration.lm_launches = 0
+    fn.fused_nlls_loop.resume_launches = 0
+    fn.fused_nlls_loop.marquardt_launches = 0
 
 
 def api_run(device, options, vol):
@@ -1938,6 +1953,531 @@ def time_fixed_design(device, card, fig, nv=16_777_216):
     return out
 
 
+# ---------------------------------------------------------------------------
+# method=nlls (phases 3e, 4m, 4n, 4o, 5e)
+# ---------------------------------------------------------------------------
+
+NLLS_MAX_ITS = 100          # nlls-max-iterations' default
+NLLS_PHASE1 = 32            # nlls-phase1-iterations' default
+POLY_LOG = {"model": "poly", "degree": "2", "PSP_byname1": "c0",
+            "PSP_byname1_transform": "L"}
+
+
+def nlls_engine(plane, device, extra=None, model="biexp"):
+    from fabber_core_tpu_torch.inference.nlls import NLLSInference
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.options import RunOptions
+    opts = RunOptions({"model": model, "dt": str(BI_DT), "method": "nlls",
+                       "dtype": "single", **(extra or {})})
+    return NLLSInference(get_model_class(opts.get_string("model"))(opts),
+                         opts, None, data_plane=plane, device=device)
+
+
+def nlls_fit(eng, params):
+    """The model [T,V] float64 at latent params [P,V]."""
+    import torch
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    t = fv.time_index(eng.nt, torch.float64, params.device)
+    tr = [pm.transform for pm in eng.params]
+    return fv.block_eval(eng.model.time_signal_jac, tr, params.double(),
+                         t)[0]
+
+
+def nlls_off(eng, o, r64, f64):
+    """([V], [V]) bool: lanes of the NLLS outputs o off the float64 run
+    r64 (fit f64) by their fit (beyond 1e-3 of f64's largest sample) or
+    cost (beyond 1e-3 relative), and by fit, cost or iteration count;
+    a non-finite value counts as off."""
+    fit_off = (nlls_fit(eng, o[0]) - f64).abs().amax(dim=0) \
+        > 1e-3 * f64.abs().max()
+    cost_off = (o[1].double() - r64[1]).abs() > 1e-3 * r64[1].abs()
+    fit_cost = ~(~fit_off & ~cost_off)
+    return fit_cost, fit_cost | (o[2].double() != r64[2])
+
+
+def bits_equal(a, b):
+    import torch
+    return all(torch.equal(x.contiguous().view(torch.int32),
+                           y.contiguous().view(torch.int32))
+               for x, y in zip(a, b))
+
+
+NLLS_POST_TOL = 1e-3        # posterior off float64, in the lane's scale
+
+
+def nlls_post_off(o, r64, keep):
+    """[K] bool over the lanes keep: where prec or cov of the NLLS
+    outputs o lies beyond NLLS_POST_TOL of the float64 run r64 in the
+    lane's own scale (lane_rel: each element over sqrt(|ref_ii ref_jj|),
+    so cov in units of the float64 sds, prec relative to its diagonal);
+    a non-finite value counts as off."""
+    import torch
+    err = torch.maximum(lane_rel(o[3], r64[3]), lane_rel(o[4], r64[4]))
+    return ~(err[keep] <= NLLS_POST_TOL)
+
+
+def check_nlls_case(name, eng, p0, worst, two_phase=True):
+    """One kernel 8 check (phase 3e): the fresh launch against the plain
+    version at float32 and float64 by three shares, each at most 2x the
+    plain float32 version's + 1e-3: lanes off float64 in fit or cost,
+    in fit, cost or its (nlls_off), and, on the lanes where the kernel
+    and plain float32 agree with float64 in fit and cost, in the
+    posterior (nlls_post_off); no lane past the budget; with two_phase,
+    the engine's compaction (NLLSInference._solve_kernel: phase 1 +
+    resume) bit-identical to the fresh launch. max_abs_err: fit, prec
+    and cov on the agreeing lanes whose posterior is finite in both the
+    kernel's and the float64 run (a non-finite one counts in the
+    posterior share). Returns ok."""
+    import torch
+    from fabber_core_tpu_torch.ops import fused_nlls as fn
+    tr = [pm.transform for pm in eng.params]
+    tsj = eng.model.time_signal_jac
+    args = (eng.tmask_host, eng.max_its, eng.marquardt)
+    k = fn.fused_nlls_loop(eng.model, tr, p0, eng.data, *args)
+    r32 = fn.fused_nlls_loop_plain(tsj, tr, p0, eng.data, *args)
+    r64 = fn.fused_nlls_loop_plain(tsj, tr, p0.double(), eng.data.double(),
+                                   *args)
+    torch.cuda.synchronize()
+    f64 = nlls_fit(eng, r64[0])
+    ratios, lines = [], []
+    off_k, off_32 = nlls_off(eng, k, r64, f64), nlls_off(eng, r32, r64, f64)
+    keep = ~(off_k[0] | off_32[0])
+    for what, a, b in (("fit/cost", off_k[0], off_32[0]),
+                       ("fit/cost/its", off_k[1], off_32[1]),
+                       ("posterior", nlls_post_off(k, r64, keep),
+                        nlls_post_off(r32, r64, keep))):
+        share_k = float(a.double().mean()) if a.numel() else 0.0
+        share_32 = float(b.double().mean()) if b.numel() else 0.0
+        ratios.append(share_k / (2 * share_32 + 1e-3))
+        lines.append(f"{what} off float64 {share_k:.6f} (plain float32 "
+                     f"{share_32:.6f})")
+    nv = k[1].shape[0]
+    seen = keep & torch.stack([torch.isfinite(o[i]).reshape(-1, nv).all(dim=0)
+                               for o in (k, r64) for i in (3, 4)]).all(dim=0)
+    errs = {"fit": nlls_fit(eng, k[0]) - f64, "prec": k[3].double() - r64[3],
+            "cov": k[4].double() - r64[4]}
+    errs = {w: float(e[..., seen].abs().max()) if bool(seen.any()) else 0.0
+            for w, e in errs.items()}
+    abs_err = max(errs.values())
+    its_max = float(k[2].max())
+    ok = all(r <= 1.0 for r in ratios) and its_max <= eng.max_its
+    bits = ""
+    if two_phase:
+        s, prec, cov = eng._solve_kernel(p0)
+        same = (bits_equal((s.params, s.cost, prec, cov),
+                           (k[0], k[1], k[3], k[4]))
+                and torch.equal(s.its, k[2].to(torch.int32)))
+        ok &= same
+        bits = f"; two-phase {'bit-identical' if same else 'DIFFERS'}"
+    ratio = max(r if r == r else float("inf") for r in ratios)
+    log(f"  {name:<30} {'; '.join(lines)}; worst ratio {ratio:.3g}; max its "
+        f"{its_max:g}{bits}; max abs err on agreeing finite lanes "
+        f"{', '.join(f'{w} {e:.3g}' for w, e in errs.items())} "
+        f"{'ok' if ok else 'FAIL'}")
+    kname = "fused_nlls:marquardt" if eng.marquardt else "fused_nlls"
+    for key in (kname,) + (("fused_nlls:resume",) if two_phase else ()):
+        worst[key][0] = max(worst[key][0], abs_err)
+        worst[key][1] = max(worst[key][1], ratio)
+    return ok
+
+
+def check_nlls_kernels(device, nvs=(1_048_576, 1_000_003), nv_small=65_536,
+                       seed=SEED + 13):
+    """Phase 3e: kernel 8 (csrc/fused_nlls.cu) against its plain version
+    on bench.py's biexp data (T=100, dt=0.02) at a power-of-two and a
+    ragged voxel count, from the engine's own start (the model's
+    data-driven initial means), budget 100 steps: fresh Levenberg and
+    fresh Marquardt (check_nlls_case: the shares of lanes off float64 in
+    fit, cost, its and posterior, the budget) and the engine's phase 1
+    (32) + resume against the fresh launch, bit for bit; then exp (P=2)
+    and poly P=3 with a log-transformed c0 at
+    65,536 voxels (poly from the latent truth + N(0, 0.2^2))."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    worst = {k: [0.0, 0.0] for k in ("fused_nlls", "fused_nlls:resume",
+                                     "fused_nlls:marquardt")}
+    ok = True
+    for nv in nvs:
+        data, _, _ = biexp_plane(nv, gen, device)
+        for lm in (False, True):
+            eng = nlls_engine(data, device, {"lm": True} if lm else None)
+            ok &= check_nlls_case(f"biexp {'LM' if lm else 'L'} V={nv}", eng,
+                                  eng.initial_means(), worst)
+            del eng
+            torch.cuda.empty_cache()
+        del data
+    nv = nv_small
+    data, _, _ = biexp_plane(nv, gen, device, "exp")
+    for lm in (False, True):
+        eng = nlls_engine(data, device, {"lm": True} if lm else None, "exp")
+        ok &= check_nlls_case(f"exp {'LM' if lm else 'L'} V={nv}", eng,
+                              eng.initial_means(), worst, two_phase=False)
+    t = torch.arange(1, BI_NT + 1, dtype=torch.float32, device=device)[:, None]
+    c = [torch.rand((1, nv), generator=gen, device=device) + 1.0,
+         (torch.rand((1, nv), generator=gen, device=device) - 0.5) * 0.02,
+         (torch.rand((1, nv), generator=gen, device=device) - 0.5) * 2e-4]
+    plane = c[0] + c[1] * t + c[2] * t * t
+    plane += BI_SD * torch.randn(plane.shape, generator=gen, device=device)
+    lat = torch.cat([torch.log(c[0]), c[1], c[2]])
+    p0 = lat + 0.2 * torch.randn(lat.shape, generator=gen, device=device) \
+        * torch.tensor([[1.0], [0.01], [1e-4]], device=device)
+    for lm in (False, True):
+        eng = nlls_engine(plane, device, {**POLY_LOG, **(
+            {"lm": True} if lm else {})}, "poly")
+        ok &= check_nlls_case(f"poly-log P=3 {'LM' if lm else 'L'} V={nv}",
+                              eng, p0.contiguous(), worst, two_phase=False)
+    return ok, worst
+
+
+NLLS_OPTIONS = {"model": "biexp", "dt": str(BI_DT), "method": "nlls",
+                "dtype": "single", "save-mean": True, "save-std": True,
+                "save-model-fit": True, "save-residuals": True,
+                "allow-bad-voxels": True}
+
+
+def run_nlls_path(device, shape=(128, 128, 64)):
+    """Phase 4m: method=nlls through run_with_data on phase 4c's biexp
+    volume, under Levenberg and under --lm, at the default phase-1 cap
+    (32) and budget (100): kernel 8 launched twice per run (phase 1 and
+    the resume; under --lm both with Marquardt damping); every output of
+    the volume's shape, finite outside the bad voxels; the fit within 3
+    noise sd of the noiseless signal in >= 70% of voxels; residuals =
+    data - fit; the bad-voxel share no more than the plain version's on
+    the same inputs (run single-phase on the card: its outcome is the
+    compaction's, lane for lane) + 1e-3; no lane past the budget; as
+    phase 4c, at most 1% of voxels whose means or sds overflow float32
+    in model space.
+    Returns (ok, launches)."""
+    import torch
+    from fabber_core_tpu_torch.api import FabberTpu
+    from fabber_core_tpu_torch.inference.nlls import NLLSInference
+    from fabber_core_tpu_torch.ops import fused_nlls as fn
+
+    vol, clean = make_biexp_volume(shape)
+    nv = int(np.prod(shape))
+    ok, launches = True, {}
+    for lm in (False, True):
+        opts = {**NLLS_OPTIONS, **({"lm": True} if lm else {})}
+        captured, restore = capture_results(NLLSInference)
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            run = FabberTpu(device=device).run_with_data(opts, {"data": vol})
+        finally:
+            restore()
+        secs = time.perf_counter() - t0
+        n = {k: v for k, v in launch_counts().items() if v}
+        eng, res = captured[-1]
+        want = {"fused_nlls": 2, "fused_nlls:resume": 1}
+        if lm:
+            want["fused_nlls:marquardt"] = 2
+            launches["fused_nlls:marquardt"] = n.get("fused_nlls:marquardt",
+                                                     0)
+        else:
+            launches.update({k: n.get(k, 0) for k in want})
+        good = n == want and eng.route == "nlls-kernel"
+        fit = run.data["modelfit"].reshape(-1, BI_NT, order="F")
+        resid = float(np.nanmax(np.abs(run.data["residuals"]
+                                       - (vol - run.data["modelfit"]))))
+        within = float((np.abs(fit - clean).max(axis=1) <= 3 * BI_SD).mean())
+        bad = float(res.bad_voxels.mean())
+        # as phase 4c: a voxel whose latent means or variances leave
+        # float32's range in model space has an infinite mean_* or std_*
+        # output (the API's float32 cast); every other voxel outside the
+        # bad ones is finite in every output
+        over = np.zeros(nv, bool)
+        for key in run.data:
+            if key.startswith(("mean_", "std_")):
+                over |= ~np.isfinite(run.data[key].reshape(-1, order="F"))
+        rest = ~(res.bad_voxels | over)
+        fin = all(np.isfinite(a.reshape(nv, -1, order="F")[rest]).all()
+                  for a in run.data.values())
+        shapes = all(a.shape == (shape + (BI_NT,) if k in (
+            "modelfit", "residuals") else shape) for k, a in run.data.items())
+        # the plain version, single-phase, on the engine's inputs
+        tr = [pm.transform for pm in eng.params]
+        r = fn.fused_nlls_loop_plain(eng.model.time_signal_jac, tr,
+                                     eng.initial_means(), eng.data,
+                                     eng.tmask_host, eng.max_its, lm)
+        plain_bad = float((~(torch.isfinite(r[0]).all(dim=0)
+                             & torch.isfinite(r[4]).reshape(-1, nv).all(
+                                 dim=0))).double().mean())
+        del r
+        torch.cuda.empty_cache()
+        good &= (within >= 0.70 and resid <= 1e-5 and fin and shapes
+                 and int(over.sum()) <= nv // 100
+                 and bad <= plain_bad + 1e-3
+                 and int(res.iterations.max()) <= NLLS_MAX_ITS)
+        log(f" {'--lm' if lm else 'Levenberg'}: {eng.route_description()}: "
+            f"{secs:.3f} s; launches {n} (want {want}); fit within 3 noise "
+            f"sd {within:.5f} (bound >= 0.70); bad voxels {bad:.6f} (plain "
+            f"{plain_bad:.6f}, bound +1e-3); model-space overflow "
+            f"{int(over.sum())} voxels (bound <= {nv // 100}), non-finite "
+            f"outputs elsewhere {'none' if fin else 'SOME'}; residual - "
+            f"(data - fit) max "
+            f"{resid:.3g}; iterations {its_histogram(res.iterations)} "
+            f"{'ok' if good else 'FAIL'}")
+        ok &= good
+    return ok, launches
+
+
+def flow_volume(shape, seed=SEED + 14):
+    """tests/test_flows.py's phantom: a1 ~ U(0.8, 1.2), biexp a1 e^-t +
+    0.5 a1 e^-5t, T=100, dt=0.02, noise sd 0.05; float32 from numpy."""
+    rng = np.random.default_rng(seed)
+    nv = int(np.prod(shape))
+    t = np.arange(BI_NT) * BI_DT
+    a1 = rng.uniform(0.8, 1.2, nv)
+    data = (a1[:, None] * np.exp(-t)[None] + 0.5 * a1[:, None]
+            * np.exp(-5.0 * t)[None] + rng.normal(0, BI_SD, (nv, BI_NT)))
+    return (data.reshape(shape + (BI_NT,), order="F").astype(np.float32),
+            a1.reshape(shape, order="F"))
+
+
+def run_nlls_vb_flow(device, shape=(32, 32, 16)):
+    """Phase 4n: tests/test_flows.py's NLLS->VB workflow at
+    dtype=single: method=nlls with save-mvn (kernel 8), then VB
+    --convergence=trialmode (max-iterations 30) from its finalMVN with
+    continue-from-mvn and continue-from-params (the VB route the JAX
+    gates give a continued run: 'pallas', kernel 7 once per iteration;
+    kernel 6 not at all). Bounds, that test's: the VB total amplitude
+    amp1 + amp2 within 0.25 of 1.5 a1 in every voxel and within 0.08 on
+    average; NLLS's within 0.2 on average. Returns (ok, launches)."""
+    from pathlib import Path
+    from fabber_core_tpu_torch.api import FabberTpu
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    vol, a1 = flow_volume(shape)
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    pfile = out / "nlls_params.txt"
+    pfile.write_text("amp1\nr1\namp2\nr2\n")
+    base = {"model": "biexp", "dt": str(BI_DT), "noise": "white",
+            "dtype": "single"}
+    fab = FabberTpu(device=device)
+    reset_launches()
+    nlls = fab.run_with_data({**base, "method": "nlls", "vb-init": True,
+                              "save-mvn": True, "save-mean": True},
+                             {"data": vol})
+    n_nlls = {k: v for k, v in launch_counts().items() if v}
+    captured, restore = capture_results(VBInference)
+    reset_launches()
+    try:
+        vb = fab.run_with_data({
+            **base, "method": "vb", "convergence": "trialmode",
+            "max-iterations": "30", "save-mean": True,
+            "continue-from-params": str(pfile)},
+            {"data": vol, "continue-from-mvn": nlls.data["finalMVN"]})
+    finally:
+        restore()
+    n_vb = {k: v for k, v in launch_counts().items() if v}
+    eng, res = captured[-1]
+    total = vb.data["mean_amp1"] + vb.data["mean_amp2"]
+    err = np.abs(total - 1.5 * a1)
+    err_nlls = np.abs(nlls.data["mean_amp1"] + nlls.data["mean_amp2"]
+                      - 1.5 * a1)
+    ok = (n_nlls.get("fused_nlls", 0) == 2 and eng.route == "pallas"
+          and set(n_vb) == {"fused_vb_iter"}
+          and 1 <= n_vb["fused_vb_iter"] <= eng.max_iter_cap
+          and float(err.max()) <= 0.25 and float(err.mean()) < 0.08
+          and float(err_nlls.mean()) < 0.2)
+    log(f" NLLS launches {n_nlls}; VB route {eng.route} "
+        f"({eng.route_description()}), launches {n_vb}, iterations "
+        f"{its_histogram(res.iterations)}; VB total amplitude off 1.5 a1 "
+        f"max {float(err.max()):.5f} (bound 0.25) mean "
+        f"{float(err.mean()):.5f} (bound 0.08); NLLS mean "
+        f"{float(err_nlls.mean()):.5f} (bound 0.2) {'ok' if ok else 'FAIL'}")
+    return ok, n_vb.get("fused_vb_iter", 0)
+
+
+def run_nlls_linear_path(device, shape=(128, 128, 32)):
+    """Phase 4o: method=nlls on the linear model (P=4, phase 4k's
+    synthetic design as a VEST file, T=106, unit noise) through
+    run_with_data: the nlls-stats route (plain torch, no kernel
+    launched); each parameter within 3 posterior sd of the truth in
+    >= 99% of voxels."""
+    from pathlib import Path
+    from fabber_core_tpu_torch.io import matfile
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    design = synthetic_design()
+    path = str(out / "linear_design.mat")
+    matfile.write_vest(design, path)
+    rng = np.random.default_rng(SEED + 15)
+    nv = int(np.prod(shape))
+    truth = rng.uniform(-1, 1, (4, nv)) * np.array([[10.0], [5.0], [2.0],
+                                                     [2.0]])
+    data = (design.astype(np.float32) @ truth.astype(np.float32)).T
+    data += rng.standard_normal((nv, NT), dtype=np.float32)
+    vol = data.reshape(shape + (NT,), order="F")
+    from fabber_core_tpu_torch.api import FabberTpu
+    from fabber_core_tpu_torch.inference.nlls import NLLSInference
+    captured, restore = capture_results(NLLSInference)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        run = FabberTpu(device=device).run_with_data(
+            {"model": "linear", "basis": path, "method": "nlls",
+             "dtype": "single", "save-mean": True, "save-std": True},
+            {"data": vol})
+    finally:
+        restore()
+    secs = time.perf_counter() - t0
+    n = {k: v for k, v in launch_counts().items() if v}
+    eng, res = captured[-1]
+    fracs = []
+    for i in range(4):
+        m = run.data[f"mean_Parameter_{i + 1}"].reshape(-1, order="F")
+        s = run.data[f"std_Parameter_{i + 1}"].reshape(-1, order="F")
+        fracs.append(float((np.abs(m - truth[i]) <= 3 * s).mean()))
+    ok = (eng.route == "nlls-stats" and not n and min(fracs) >= 0.99
+          and not res.bad_voxels.any())
+    log(f" {eng.route_description()}: {secs:.3f} s; launches {n}; "
+        f"iterations {its_histogram(res.iterations)}; parameters within 3 "
+        f"posterior sd of truth in {[round(f, 5) for f in fracs]} of voxels "
+        f"(bound >= 0.99) {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def nlls_ops(p, nexp, nlog, nt, marquardt):
+    """float32 operations per voxel of the pieces of csrc/fused_nlls.cu
+    for an exp-sum model (nexp terms, nlog log-transformed parameters),
+    counted from its source and vb_device.cuh's (expf, sqrtf, a division
+    and a compare each one; the rare jitter refactorization left out):
+      'pass'  nlls_pass with the Jacobian over nt samples: model_rows (2
+              expf per log parameter), per sample ExpSum::eval (5 nexp),
+              the chain (p), d and r (2), w jac_i (p), J'J (2 per packed
+              element), J'r (2p) and r'r (2), and per kTB = 8 block the
+              block sums into the totals;
+      'cost'  the same pass without the Jacobian (4 nexp + 4 per sample);
+      'step'  solve_step (the damped diagonal, the Cholesky with its
+              finite test, chol_solve, the trial) and the accept tests
+              (16);
+      'post'  mse, prec = J'J / mse with the floor, the Cholesky and
+              inverse_from_chol."""
+    ntri = p * (p + 1) // 2
+    blocks = -(-nt // 8)
+    rows = 2 * nlog
+    jac_pass = rows + nt * (5 * nexp + p + 4 + 3 * p + 2 * ntri) \
+        + blocks * (ntri + p + 1)
+    cost_pass = rows + nt * (4 * nexp + 4) + blocks
+    chol = sum(3 + 2 * i + (p - 1 - i) * (2 * i + 1) for i in range(p)) + p
+    solve = (2 if marquardt else 1) * p + chol + 2 * p * p + p
+    inverse = p + sum(2 * (i - j) + 1 for i in range(p) for j in range(i)) \
+        + sum((i + 1) * 2 * (p - i) for i in range(p))
+    return {"pass": jac_pass, "cost": cost_pass, "step": solve + 16,
+            "post": 1 + ntri + p + chol + inverse}
+
+
+def once_ms(fn):
+    """One CUDA-event timing of fn() (the plain versions: seconds per
+    call, no compile step to warm)."""
+    import torch
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    res = fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b), res
+
+
+def time_nlls(device, card, nv=4_000_000):
+    """Phase 5e at bench.py's biexp size (4,000,000 voxels, T=100, P=4),
+    data made on the card, from the engine's start: kernel 8 fresh
+    (single-phase) and the engine's two-phase pair (phase 1, sort,
+    gathers, resume, inverse permutation), Levenberg and Marquardt, and
+    the resume launch alone on the compacted inputs (CUDA events, best
+    of 3 after a warm-up); the plain version of each once; the kernel's
+    and the plain version's its histograms; NLLSInference.run() on the
+    host clock with its stages (initial means, solve, _to_result).
+    Bounds: bytes = each input read once and each output written once;
+    operations = nlls_ops' counts times the steps the plain version
+    needed (its its): fresh, a pass per voxel to start, a pass and a
+    step per lane step, the posterior per voxel; the resume launch, per
+    lane step past phase 1 a pass, a cost pass and a step, then a pass
+    and the posterior per voxel."""
+    import torch
+    from fabber_core_tpu_torch.ops import fused_nlls as fn
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 16)
+    plane, _, _ = biexp_plane(nv, gen, device)
+    out = {}
+    p, t = 4, BI_NT
+    io_bytes = 4 * (p + t) * nv + 4 * (p + 2 + 2 * p * p) * nv
+    resume_bytes = io_bytes + 4 * 4 * nv
+    for lm in (False, True):
+        tag = "lm" if lm else "l"
+        ops = nlls_ops(p, 2, p, t, lm)
+        eng = nlls_engine(plane, device, {"lm": True} if lm else None)
+        tr = [pm.transform for pm in eng.params]
+        tsj = eng.model.time_signal_jac
+        p0 = eng.initial_means()
+        args = (eng.tmask_host, eng.max_its, lm)
+        out[f"fresh_{tag}_ms"], k = best_ms(lambda: fn.fused_nlls_loop(
+            eng.model, tr, p0, plane, *args), keep=True)
+        out[f"fresh_{tag}_its"] = its_histogram(k[2].cpu().numpy())
+        out[f"pair_{tag}_ms"] = best_ms(lambda: eng._solve_kernel(p0))
+        resume_in, _ = eng._phase1(p0)
+        out[f"resume_{tag}_ms"] = best_ms(lambda: fn.fused_nlls_loop(
+            eng.model, tr, resume_in[0], resume_in[1], eng.tmask_host,
+            eng.max_its - NLLS_PHASE1, lm, state=resume_in[2]))
+        out[f"resume_{tag}_lanes_unfinished"] = int(
+            (resume_in[2][2] < 0.5).sum())
+        del k
+        torch.cuda.empty_cache()
+        out[f"fresh_{tag}_plain_ms"], r = once_ms(
+            lambda: fn.fused_nlls_loop_plain(tsj, tr, p0, plane, *args))
+        its = r[2].double()
+        out[f"fresh_{tag}_plain_its"] = its_histogram(its.cpu().numpy())
+        trips = float(its.sum())
+        out[f"fresh_{tag}_plain_passes_per_voxel"] = (nv + trips) / nv
+        out[f"fresh_{tag}_bound"] = bound(
+            io_bytes, (nv + trips) * ops["pass"] + trips * ops["step"]
+            + nv * ops["post"])
+        late = float((its - NLLS_PHASE1).clamp_min(0).sum())
+        out[f"resume_{tag}_bound"] = bound(
+            resume_bytes, late * (ops["pass"] + ops["cost"] + ops["step"])
+            + nv * (ops["pass"] + ops["post"]))
+        del r
+        torch.cuda.empty_cache()
+        if not lm:
+            out["resume_l_plain_ms"], _ = once_ms(
+                lambda: fn.fused_nlls_loop_plain(
+                    tsj, tr, resume_in[0], resume_in[1], eng.tmask_host,
+                    eng.max_its - NLLS_PHASE1, lm, state=resume_in[2]))
+            torch.cuda.empty_cache()
+            eng.run()                                   # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run()
+            out["run_s"] = time.perf_counter() - t0
+            out["run_voxels_per_s"] = nv / out["run_s"]
+            stages = {}
+            t0 = time.perf_counter()
+            p0 = eng.initial_means()
+            torch.cuda.synchronize()
+            stages["initial_means_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            s, _prec, cov = eng.solve(p0)
+            torch.cuda.synchronize()
+            stages["solve_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            eng._to_result(s, cov)
+            stages["to_result_ms"] = (time.perf_counter() - t0) * 1e3
+            out["run_stages"] = stages
+            del s, _prec, cov
+        del eng, resume_in, p0
+        torch.cuda.empty_cache()
+    dst = torch.empty_like(plane)
+    out["copy_ms"] = best_ms(lambda: dst.copy_(plane))
+    for key, v in out.items():
+        log(f" {key} = {v!r}  [V={nv} T={BI_NT} P=4; {card}]")
+    return out
+
+
 def main():
     try:
         import torch
@@ -1986,6 +2526,9 @@ def main():
     log("phase 3d: the fixed-design kernels against their plain versions")
     ok3d, worst_fd = check_fixed_design_kernels(device)
     worst.update(worst_fd)
+    log("phase 3e: the NLLS kernel against its plain version")
+    ok3e, worst_nlls = check_nlls_kernels(device)
+    worst.update(worst_nlls)
 
     # phase 4: the main paths through the API; each path's launch
     # counters are zeroed just before it and read just after it
@@ -2017,6 +2560,13 @@ def main():
         "spectral-impl=fused")
     ok4k, lin_launches = run_linear_path(device)
     launches.update(lin_launches)
+    log("phase 4m: run_with_data, method=nlls, 128x128x64 x 100, biexp")
+    ok4m, nlls_launches = run_nlls_path(device)
+    launches.update(nlls_launches)
+    log("phase 4n: the NLLS->VB workflow, 32x32x16 x 100, biexp")
+    ok4n, _ = run_nlls_vb_flow(device)
+    log("phase 4o: run_with_data, method=nlls, 128x128x32 x 106, linear")
+    ok4o = run_nlls_linear_path(device)
 
     # phase 5: timing at the headline sizes
     log("phase 5: timing at 16,777,216 voxels")
@@ -2027,6 +2577,8 @@ def main():
     ok5c, fig_det = time_detectors(device, card, fig, fig_nl)
     log("phase 5d: the fixed-design kernels at 16,777,216 voxels")
     fig_fd = time_fixed_design(device, card, fig)
+    log("phase 5e: the NLLS kernel at 4,000,000 biexp voxels")
+    fig_nlls = time_nlls(device, card)
 
     phases = {"kernels": ok3, "nl_kernels": ok3b, "detector_kernels": ok3c,
               "main_path": ok4, "engine_vs_f64": ok4b, "biexp_path": ok4c,
@@ -2034,7 +2586,8 @@ def main():
               "biexp_trialmode_path": ok4f, "poly_trialmode_path": ok4g,
               "per_iteration_lm": ok4h, "detector_lanes_at_4M": ok5c,
               "fixed_design_kernels": ok3d, "pattern_paths": ok4i,
-              "linear_path": ok4k}
+              "linear_path": ok4k, "nlls_kernels": ok3e, "nlls_path": ok4m,
+              "nlls_vb_flow": ok4n, "nlls_linear_path": ok4o}
     if not all(phases.values()):
         log(f"FAILED phases: {[k for k, v in phases.items() if not v]}")
         return 1
@@ -2052,6 +2605,7 @@ def main():
     whole_at = "fabber_core_tpu/ops/fused_whole.py:298"
     nl_at = "fabber_core_tpu/ops/fused_loop_nl.py:162"
     it_at = "fabber_core_tpu/ops/fused_vb.py:184"
+    nlls_at = "fabber_core_tpu/ops/fused_nlls.py:72"
     kernels = [
         entry("spectral_stats", "spectral_stats.cu",
               "fabber_core_tpu/ops/fused_spectral.py:632", fig["stats_ms"],
@@ -2089,6 +2643,14 @@ def main():
         entry("fused_vb_loop", "fused_whole.cu",
               "fabber_core_tpu/ops/fused_loop.py:200", fig_fd["loop_q2_ms"],
               fig_fd["loop_q2_plain_ms"], fig_fd["loop_q2_bound"]),
+        entry("fused_nlls", "fused_nlls.cu", nlls_at, fig_nlls["fresh_l_ms"],
+              fig_nlls["fresh_l_plain_ms"], fig_nlls["fresh_l_bound"]),
+        entry("fused_nlls:resume", "fused_nlls.cu", nlls_at,
+              fig_nlls["resume_l_ms"], fig_nlls["resume_l_plain_ms"],
+              fig_nlls["resume_l_bound"]),
+        entry("fused_nlls:marquardt", "fused_nlls.cu", nlls_at,
+              fig_nlls["fresh_lm_ms"], fig_nlls["fresh_lm_plain_ms"],
+              fig_nlls["fresh_lm_bound"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

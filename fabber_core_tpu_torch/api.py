@@ -15,6 +15,7 @@ from . import runner
 from .core.volume import VolumeGeometry, VoxelDataStore
 from .easylog import EasyLog
 from .exceptions import FabberError
+from .inference.nlls import NLLSInference
 from .inference.vb import VBInference
 from .models import get_model_class, known_models, resolve_parameters
 from .models.base import EvalContext
@@ -47,18 +48,21 @@ class FabberTpu:
         return known_models()
 
     def get_methods(self):
-        return ["vb"]
+        return ["vb", "nlls"]
 
     def get_options(self, method=None, model=None):
         """Returns (list of option dicts, description string)."""
         if model:
             cls = get_model_class(model)
             specs, desc = cls.get_options(), cls.describe()
-        elif method:
-            if method != "vb":
-                raise FabberError(f"Unknown method: {method}")
+        elif method == "vb":
             specs, desc = VBInference.get_options(), \
                 "Variational Bayes inference technique"
+        elif method == "nlls":
+            specs, desc = NLLSInference.get_options(), \
+                "Non-linear least squares inference technique"
+        elif method:
+            raise FabberError(f"Unknown method: {method}")
         else:
             specs, desc = GLOBAL_OPTIONS, "Fabber run options"
         opts = [{

@@ -1,5 +1,5 @@
 """Command-line interface — the `fabber` executable equivalent, for
-method=vb.
+method=vb and method=nlls.
 
 Port of fabber_core_tpu/cli.py (fabber_core.cc:88-323): option parsing
 with --key=value / -f optfile, the help/list/evaluate fast paths, NIFTI

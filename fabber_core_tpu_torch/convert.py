@@ -3,8 +3,8 @@
 The system has no trained weights; what crosses over is per-run state:
 the fixed-design sufficient statistics, the posterior (and the best
 state the detectors keep, a posterior too), the noise state, the
-convergence detectors' lane state and the whole-loop kernel's constant
-vector. Inputs are
+convergence detectors' lane state, the whole-loop kernel's constant
+vector, and NLLS's optimizer state and fixed-design statistics. Inputs are
 anything numpy can read (JAX arrays included, through np.asarray, so
 this module never imports jax); outputs are the port's tensors, and
 to_numpy goes back the other way.
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .inference.convergence import ConvState
+from .inference.nlls import NLLSState, NLLSStats
 from .inference.vb import PosteriorState, VBResult
 from .noise.white import DesignStats, WhiteNoiseState
 
@@ -58,6 +59,24 @@ def nl_consts_from_numpy(consts):
     return torch.as_tensor(np.asarray(consts, np.float64).reshape(-1))
 
 
+def nlls_state_from_numpy(state, device="cpu", dtype=None):
+    """The port's NLLSState from the JAX package's (params [P,V], cost,
+    lam [V] in dtype, done [V] bool, its [V] int32; its scalar `it` is
+    the loop's counter, which the port keeps outside the state)."""
+    def t(name, dt):
+        return torch.as_tensor(np.array(getattr(state, name)), dtype=dt,
+                               device=device)
+    return NLLSState(t("params", dtype), t("cost", dtype), t("lam", dtype),
+                     t("done", torch.bool), t("its", torch.int32))
+
+
+def nlls_stats_from_numpy(stats, device="cpu", dtype=None):
+    """The port's NLLSStats from the JAX package's (m0 [P,V], rtr [V],
+    dtr [P,V], dtd [P,P])."""
+    return NLLSStats(*(_tensor(getattr(stats, f), device, dtype)
+                       for f in NLLSStats._fields))
+
+
 def posterior_from_numpy(state, device="cpu", dtype=None):
     """The port's posterior from the JAX package's.
 
@@ -80,7 +99,8 @@ def posterior_from_numpy(state, device="cpu", dtype=None):
 
 def to_numpy(obj):
     """Tensors -> numpy arrays, through tuples and NamedTuples
-    (PosteriorState, WhiteNoiseState, VBResult, statistics tuples)."""
+    (PosteriorState, WhiteNoiseState, VBResult, NLLSState, statistics
+    tuples)."""
     if torch.is_tensor(obj):
         return obj.detach().cpu().numpy()
     if isinstance(obj, tuple):

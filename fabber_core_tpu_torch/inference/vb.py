@@ -30,16 +30,17 @@ interacting use_* flags (vb.py:340-660). The live ones:
                   the engine's loop on [P,V] planes in plain torch, where
                   the JAX package uses XLA (no Pallas kernel, by design):
                   float64 (the CLI's default), save-free-energy-history,
-                  engine-kernel=xla, programmatic continuation, and
-                  whatever the fixed-design kernels' gates refuse;
+                  engine-kernel=xla, continuation (continue-from-mvn or
+                  programmatic), and whatever the fixed-design kernels'
+                  gates refuse;
   pallas-loop-nl  time-local nonlinear models (exp/biexp, poly with a
                   non-identity transform): the whole-loop kernel
                   (ops/fused_loop_nl.py; vb.py:593-660, 1132-1326),
                   maxits or any of the four F-based detectors in-kernel;
   pallas          the same models, one fused-iteration kernel launch
                   per iteration (ops/fused_vb.py; vb.py:340-366,
-                  891-951): save-free-energy-history, programmatic
-                  continuation, engine-kernel=pallas;
+                  891-951): save-free-energy-history, continuation
+                  (continue-from-mvn or programmatic), engine-kernel=pallas;
   xla-generic     the generic-Jacobian loop in plain torch
                   (vb.py:954-1047 with stats=None), where the JAX
                   package uses XLA: float64, linearization=fd, models
@@ -126,8 +127,6 @@ ROUTES = {
                    "ROADMAP Queue 1 item 17"),
     "spatial-priors": ("spatial priors (spatial VB)",
                        "ROADMAP Queue 1 item 16"),
-    "continue-from-mvn": ("initial posterior from an MVN file",
-                          "ROADMAP Queue 1 item 17"),
     "locked-linear": ("fixed linearization centres "
                       "(locked-linear-from-mvn)", "ROADMAP Queue 1 item 17"),
 }
@@ -254,7 +253,8 @@ class VBInference:
         ]
 
     def __init__(self, model, options, data, voxel_data_getter=None,
-                 data_plane=None, device="cuda", coords=None):
+                 data_plane=None, device="cuda", coords=None,
+                 continued=False):
         """data [V,T] (voxel-major, as at the API boundary; uploaded,
         then transposed to [T,V] on the device).
 
@@ -264,6 +264,10 @@ class VBInference:
         "cuda" without a card raises.
         coords: [V,3] voxel grid coordinates for the model evaluation
         context (the JAX engine's positional coords); zeros if None.
+        continued: the run starts from a previous posterior (the
+        runner's loaded MVN; the continue-from-mvn option says so too),
+        which the JAX gates keep off the whole-loop and whole-program
+        kernels: run() then takes the continuation.
         """
         self.model = model
         self.options = options
@@ -321,6 +325,8 @@ class VBInference:
                                      mode=lin_mode)
         self.locked_linear = options.get_string("locked-linear-from-mvn",
                                                 "") != ""
+        self.continued = continued or options.get_string(
+            "continue-from-mvn", "") != ""
 
         # constant design [T,P] (float64 host) for models linear in
         # their untransformed parameters
@@ -388,7 +394,7 @@ class VBInference:
                                     "modeldefault") == "modeldefault"
         # loop_gates_common (vb.py:410-420)
         common = f32 and not self.is_lm and not self.save_fhist \
-            and default_post
+            and default_post and not self.continued
         # spectral_ok (vb.py:465-467): one phi group, unlocked stdev
         spectral_ok = nq == 1 and self.noise.locked_noise_stdev <= 0
         # sw_core (vb.py:571-581): f32 storage, P <= 8 template
@@ -398,7 +404,7 @@ class VBInference:
                    and p <= MAX_P and (2 * p + 1) * nt * 4 <= SMEM_BYTES)
         # whole_core (vb.py:494-514): admits lm; the (P+QP+Q) x T rows
         whole_core = (f32 and f32_store and not self.save_fhist
-                      and default_post
+                      and default_post and not self.continued
                       and det in ("maxits",) + WHOLE_DETECTORS
                       and smem_bytes(p, nq, nt) <= SMEM_BYTES)
         # spectral_covers (vb.py:522-525): where the spectral routes
@@ -438,8 +444,6 @@ class VBInference:
             return "spatial-priors"
         if self.prior_setup.has_ard:
             return "ard-priors"
-        if self.options.get_string("continue-from-mvn", "") != "":
-            return "continue-from-mvn"
         return None
 
     def _nonlinear_route(self, mode):
@@ -455,7 +459,7 @@ class VBInference:
         # every detector runs in the kernel (vb.py:621-640)
         nl_ok = (mode in ("auto", "pallas-loop")
                  and int(self.detector.max_iterations) >= 1
-                 and not self.save_fhist
+                 and not self.save_fhist and not self.continued
                  and o.get_string("noise-initial-posterior",
                                   "modeldefault") == "modeldefault")
         if nl_ok:

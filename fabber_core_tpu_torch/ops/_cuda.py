@@ -24,11 +24,16 @@ from ..exceptions import FabberError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("spectral_stats.cu", "spectral_core.cu", "spectral_fused.cu",
-           "fused_nl_loop.cu", "fused_vb_iter.cu", "fused_whole.cu")
+           "fused_nl_loop.cu", "fused_vb_iter.cu", "fused_whole.cu",
+           "fused_nlls.cu")
 HEADERS = ("vb_device.cuh", "detectors.cuh", "spectral_device.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# flags of one source on top of NVCC_FLAGS: the NLLS kernel contracts no
+# multiply-add, so its fresh and two-phase modes compute the same bits
+# (csrc/fused_nlls.cu)
+SOURCE_FLAGS = {"fused_nlls.cu": ["-fmad=false"]}
 
 # csrc/detectors.cuh DetectorKind
 DETECTOR_CODES = {"maxits": 0, "pointzeroone": 1, "freduce": 2,
@@ -50,6 +55,7 @@ def _nvcc():
 
 def library_path():
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -68,8 +74,8 @@ def build():
     objs, procs = [], []
     for name in SOURCES:
         obj = BUILD_DIR / f"{out.stem}.{Path(name).stem}.{os.getpid()}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
-               str(CSRC / name)]
+        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, []), "-I",
+               str(CSRC), "-c", "-o", str(obj), str(CSRC / name)]
         objs.append(obj)
         procs.append((name, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
@@ -135,6 +141,12 @@ def load():
         lib.fabber_fused_vb_loop.restype = i32
         lib.fabber_whole_has_instance.argtypes = [i32, i32]
         lib.fabber_whole_has_instance.restype = i32
+        lib.fabber_fused_nlls.argtypes = [
+            i32, i32, vp, f32, vp, i32, i32, i32, f32, vp, vp, vp, vp, i32,
+            i64] + [vp] * 6 + [vp]
+        lib.fabber_fused_nlls.restype = i32
+        lib.fabber_nlls_has_instance.argtypes = [i32, i32]
+        lib.fabber_nlls_has_instance.restype = i32
         _lib = lib
     return _lib
 
@@ -149,6 +161,12 @@ def has_whole_instance(p, q):
     """True when the fixed-design kernels (kernels 4 and 5) are compiled
     for P and Q (csrc/fused_whole.cu FABBER_WHOLE_INSTANCES)."""
     return bool(load().fabber_whole_has_instance(p, q))
+
+
+def has_nlls_instance(kind, p):
+    """True when the NLLS kernel is compiled for this model functor kind
+    and P (every (kind, P) of csrc/vb_device.cuh FABBER_NL_INSTANCES)."""
+    return bool(load().fabber_nlls_has_instance(kind, p))
 
 
 def _raise_on(err, name):
@@ -277,3 +295,27 @@ def launch_vb_iter(km, nq, tcodes, need_f, centre, pm, pp, phi, data, qw,
             0 if alpha is None else alpha.data_ptr(), nt, nv,
             *(o.data_ptr() for o in outs), _stream(data.device))
     _raise_on(err, "fused_vb_iter")
+
+
+def _float_array(values):
+    return (ctypes.c_float * len(values))(*values)
+
+
+def launch_nlls(km, tcodes, consts, mode, marquardt, max_its, dof, params0,
+                data, w, state, outs):
+    """consts: the 7 optimizer constants (ops/fused_nlls.py); mode: 0
+    fresh, 1 phase 1, 2 resume; w: the [T] 0/1 weights on the device;
+    state: [4,V] or None; outs: (params, cost, its, prec, cov, state_out)
+    with None for what the mode does not write."""
+    lib = load()
+    nt, nv = data.shape
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+    with torch.cuda.device(data.device):
+        err = lib.fabber_fused_nlls(
+            km.kind, km.nparams, _int_array(tcodes), km.dt,
+            _float_array(consts), mode, int(marquardt), max_its, dof,
+            params0.data_ptr(), data.data_ptr(), w.data_ptr(), ptr(state),
+            nt, nv, *(ptr(o) for o in outs), _stream(data.device))
+    _raise_on(err, "fused_nlls")

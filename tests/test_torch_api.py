@@ -2,7 +2,11 @@
 run_with_data returns the same output keys with matching values, and
 the CLI writes the same file set as the JAX CLI. Value tolerances are
 those of tests/test_spectral.py scaled to each output (the JAX package
-runs its XLA route here; the port its spectral route's plain torch)."""
+runs its XLA route here; the port its spectral route's plain torch).
+method=nlls, continue-from-mvn (with continue-from-params), output-only
+and the NLLS->VB workflow are held to the JAX API at float64 (1e-9 of
+each output before the API's float32 cast, so 1e-6 relative after it)
+and at float32 (the kernel routes: each test's stated bounds)."""
 
 import os
 
@@ -92,11 +96,15 @@ def test_final_mvn_matches_jax(runs):
 def test_api_introspection():
     fab = FabberTpu(device="cpu")
     assert "poly" in fab.get_models()
-    assert fab.get_methods() == ["vb"]
+    assert fab.get_methods() == ["vb", "nlls"]
     assert fab.get_model_params({"model": "poly", "degree": "2"}) == \
         ["c0", "c1", "c2"]
     opts, _ = fab.get_options(method="vb")
     assert "max-iterations" in {o["name"] for o in opts}
+    opts, desc = fab.get_options(method="nlls")
+    jopts, jdesc = JFabber().get_options(method="nlls")
+    assert [o["name"] for o in opts] == [o["name"] for o in jopts]
+    assert desc == jdesc
     out = fab.model_evaluate({"model": "poly", "degree": "2"},
                              {"c0": 1.0, "c1": 2.0, "c2": 0.5}, 4)
     np.testing.assert_allclose(out, JFabber().model_evaluate(
@@ -104,11 +112,16 @@ def test_api_introspection():
         {"c0": 1.0, "c1": 2.0, "c2": 0.5}, 4))
 
 
-@pytest.mark.parametrize("method", ["nlls", "spatialvb"])
-def test_unported_methods_raise(method):
-    with pytest.raises(NotImplementedError, match=method):
+@pytest.mark.parametrize("method,extra,what", [
+    ("nlls", {"shard-voxels": True}, "shard-voxels"),
+    ("spatialvb", {}, "spatialvb")], ids=["nlls", "spatialvb"])
+def test_unported_methods_raise(method, extra, what):
+    """spatialvb, and the multi-device modes of every method (nlls's
+    run itself is ported: see the NLLS tests below)."""
+    with pytest.raises(NotImplementedError, match=what):
         FabberTpu(device="cpu").run_with_data(
-            {**OPTS, "method": method}, {"data": phantom((2, 2, 1))})
+            {**OPTS, "method": method, **extra},
+            {"data": phantom((2, 2, 1))})
 
 
 def test_api_cuda_without_card_raises(monkeypatch):
@@ -276,3 +289,142 @@ def test_cli_default_dtype_matches_jax(tmp_path, extra):
     jn = jnifti.load(os.path.join(jout, "noise_means.nii.gz")).data
     tn = nifti.load(os.path.join(tout, "noise_means.nii.gz")).data
     np.testing.assert_allclose(tn, jn, rtol=1e-9)
+
+
+# -- method=nlls, continue-from-mvn, output-only -----------------------------
+
+NLLS_SAVE = {"save-mean": True, "save-std": True, "save-mvn": True,
+             "save-model-fit": True, "save-residuals": True}
+
+
+def assert_outputs_match(td, jd, rtol=1e-6):
+    """Same keys and shapes, values within rtol of each output's max
+    (both sides float32 after the API's cast)."""
+    assert sorted(td) == sorted(jd)
+    for key in jd:
+        assert td[key].shape == jd[key].shape, key
+        scale = max(float(np.abs(jd[key]).max()), 1e-30)
+        assert np.abs(td[key] - jd[key]).max() <= rtol * scale, key
+
+
+@pytest.mark.parametrize("opts", [
+    {"model": "poly", "degree": "2", "dtype": "double", "lm": True},
+    {"model": "exp", "dt": "0.05", "dtype": "double"}],
+    ids=["poly-stats-lm", "exp-generic"])
+def test_run_with_data_nlls_matches_jax(opts):
+    """method=nlls through run_with_data at float64: the fixed-design
+    and the generic route."""
+    if opts["model"] == "poly":
+        vol = phantom((4, 4, 2), nt=20, seed=5)
+    else:
+        vol = biexp_phantom((4, 2, 2), nt=20, seed=5)
+    o = {**opts, "method": "nlls", **NLLS_SAVE}
+    jd = JFabber().run_with_data(o, {"data": vol}).data
+    run = FabberTpu(device="cpu").run_with_data(o, {"data": vol})
+    assert_outputs_match(run.data, jd)
+    assert "NLLS::Engine route" in run.log
+
+
+def test_run_with_data_nlls_kernel_route_matches_jax():
+    """method=nlls at float32 on the kernel route (the plain version
+    here) against the JAX kernel interpreted: outputs within the kernel
+    bounds of tests/test_nlls_stats.py (means 2e-3 of their scale)."""
+    vol = biexp_phantom((4, 4, 2), nt=30, seed=6)[..., :30]
+    o = {"model": "exp", "dt": "0.05", "dtype": "single", "method": "nlls",
+         **NLLS_SAVE}
+    jd = JFabber().run_with_data({**o, "engine-kernel": "pallas-loop"},
+                                 {"data": vol}).data
+    run = FabberTpu(device="cpu").run_with_data(o, {"data": vol})
+    assert "whole-loop nonlinear NLLS kernel" in run.log
+    assert_outputs_match(run.data, jd, rtol=2e-3)
+
+
+def test_continue_from_mvn_and_output_only_match_jax(tmp_path):
+    """A VB run continued from an MVN whose parameters are named by
+    continue-from-params (reordered, one unknown name, one parameter
+    missing: merged by name), and output-only from the same MVN, at
+    float64 against the JAX API."""
+    vol = phantom((4, 4, 2), nt=20, seed=7)
+    base = {"model": "poly", "degree": "2", "noise": "white",
+            "method": "vb", "dtype": "double", "save-mean": True,
+            "save-std": True, "save-noise-mean": True, "save-mvn": True}
+    jfab, tfab = JFabber(), FabberTpu(device="cpu")
+    first = jfab.run_with_data({**base, "max-iterations": "2"},
+                               {"data": vol}).data["finalMVN"]
+    # the file's parameters: c2, c0, a name the model lacks (the noise
+    # block follows); c1 is missing and takes the model default
+    means, cov = mvn.unpack(first.reshape(-1, first.shape[-1], order="F").T)
+    perm = [2, 0, 1, 3]
+    means, cov = means[:, perm], cov[:, perm][:, :, perm]
+    mvn_vol = mvn.pack(means, cov).T.reshape(first.shape, order="F")
+    pfile = str(tmp_path / "params.txt")
+    with open(pfile, "w") as f:
+        f.write("c2\nc0\nunknown\n")
+    data = {"data": vol, "continue-from-mvn": mvn_vol}
+    for extra in ({"max-iterations": "3"}, {"output-only": True}):
+        o = {**base, **extra, "continue-from-params": pfile}
+        jd = jfab.run_with_data(o, data).data
+        run = tfab.run_with_data(o, data)
+        assert_outputs_match(run.data, jd)
+    assert "output-only set" in run.log
+    with pytest.raises(Exception, match="continue-from-mvn"):
+        tfab.run_with_data({**base, "output-only": True}, {"data": vol})
+
+
+def flow_phantom(shape=(4, 4, 2), nt=100, dt=0.02, noise=0.05, seed=0):
+    """tests/test_flows.py's biexp phantom (a1 ~ U(0.8, 1.2), second
+    component 0.5 a1 at rate 5) as float32, and a1."""
+    rng = np.random.default_rng(seed)
+    nv = int(np.prod(shape))
+    t = np.arange(nt) * dt
+    a1 = rng.uniform(0.8, 1.2, nv)
+    data = (a1[:, None] * np.exp(-1.0 * t)[None, :]
+            + 0.5 * a1[:, None] * np.exp(-5.0 * t)[None, :]
+            + rng.normal(0, noise, (nv, nt)))
+    return (data.reshape(shape + (nt,), order="F").astype(np.float32),
+            a1.reshape(shape, order="F"))
+
+
+def nlls_then_vb(fab, vol, pfile, dtype, vb_extra=None, nlls_extra=None):
+    """tests/test_flows.py's NLLS->VB workflow: method=nlls with
+    save-mvn, then VB (trialmode) continued from its finalMVN, merged by
+    name."""
+    base = {"model": "biexp", "dt": "0.02", "noise": "white",
+            "dtype": dtype}
+    nlls = fab.run_with_data({
+        **base, "method": "nlls", "vb-init": True, "save-mvn": True,
+        "save-mean": True, **(nlls_extra or {})}, {"data": vol})
+    vb = fab.run_with_data({
+        **base, "method": "vb", "convergence": "trialmode",
+        "max-iterations": "30", "save-mean": True, "save-noise-mean": True,
+        "save-mvn": True, "continue-from-params": pfile,
+        **(vb_extra or {})},
+        {"data": vol, "continue-from-mvn": nlls.data["finalMVN"]})
+    return nlls, vb
+
+
+def test_nlls_then_vb_flow_matches_jax(tmp_path):
+    """The workflow at float64 (both packages' generic routes) against
+    the JAX API, every output; at float32 on the port's kernel routes
+    (the NLLS kernel, then kernel 7 per iteration: the JAX gates' routes
+    for a continued run), held to tests/test_flows.py's bounds (total
+    amplitude within 0.25 of 1.5 a1 everywhere, 0.08 on average; NLLS
+    0.2 on average)."""
+    vol, a1 = flow_phantom()
+    pfile = str(tmp_path / "params.txt")
+    with open(pfile, "w") as f:
+        f.write("amp1\nr1\namp2\nr2\n")
+    jn, jv = nlls_then_vb(JFabber(), vol, pfile, "double")
+    tn, tv = nlls_then_vb(FabberTpu(device="cpu"), vol, pfile, "double")
+    assert_outputs_match(tn.data, jn.data)
+    assert_outputs_match(tv.data, jv.data)
+    assert "no noise block" in tv.log
+
+    tn, tv = nlls_then_vb(FabberTpu(device="cpu"), vol, pfile, "single")
+    assert "whole-loop nonlinear NLLS kernel" in tn.log
+    assert "per-iteration fused kernel" in tv.log
+    total = tv.data["mean_amp1"] + tv.data["mean_amp2"]
+    np.testing.assert_allclose(total, 1.5 * a1, atol=0.25)
+    assert np.abs(total - 1.5 * a1).mean() < 0.08
+    total_nlls = tn.data["mean_amp1"] + tn.data["mean_amp2"]
+    assert np.abs(total_nlls - 1.5 * a1).mean() < 0.2

@@ -818,3 +818,186 @@ def test_fixed_design_engine_on_card_matches_cpu(cuda, extra, route,
     np.testing.assert_allclose(g.noise_means[ok], c.noise_means[ok],
                                rtol=2e-3)
     np.testing.assert_array_equal(g.bad_voxels, c.bad_voxels)
+
+
+# -- the NLLS kernel (fused_nlls.cu) -------------------------------------------
+#
+# A step's accept decision is discontinuous and float32 biexp is chaotic
+# near its exchange symmetry, so the kernel is held to the plain version
+# at float64 by shares of lanes "off" float64, each at most twice the
+# plain float32 version's + 1e-3: lanes whose cost lies beyond 1e-3 of
+# float64's or whose fit (the model at the params) lies beyond 1e-3 of
+# float64's largest sample, and lanes with another iteration count too.
+# The second share is large (40-60% of lanes for the plain float32
+# version on the CPU): near the optimum a Gauss-Newton step's cost gain
+# drops from above CFTOL to below float32's resolution in one step, so
+# whether it is accepted, or rejected until the plateau exit, turns on
+# rounding; fits and costs agree to ~1e-5 all the same.
+
+# every (kind, P) of csrc/vb_device.cuh FABBER_NL_INSTANCES
+NLLS_CASES = ["exp", "biexp", "poly0-L", "poly1-S", "poly2-A", "poly3-F"]
+
+
+def nlls_inputs(name, nv, device, seed=0):
+    """nl_inputs' data and start (latent truth + N(0, 0.05^2)), one group
+    with its masked sample as the NLLS weights."""
+    c = nl_inputs(name, 1, nv, device, seed=seed)
+    c["tmask"] = c["q"].sum(axis=0)
+    return c
+
+
+def nlls_off(o, r64, c):
+    """([V] bool, [V] bool): the lanes of the outputs o whose fit or
+    cost is off float64 r64, and those off it in any of fit, cost and
+    iteration count."""
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    t = fv.time_index(c["data"].shape[0], torch.float64, r64[0].device)
+    tsj = c["model"].time_signal_jac
+
+    def fit(params):
+        return fv.block_eval(tsj, c["tr"], params.double(), t)[0]
+    f64 = fit(r64[0])
+    fit_off = (fit(o[0]) - f64).abs().amax(dim=0) > 1e-3 * f64.abs().max()
+    cost_off = (o[1].double() - r64[1]).abs() > 1e-3 * r64[1].abs()
+    its_off = o[2].double() != r64[2]
+    fit_cost = ~(~fit_off & ~cost_off)             # NaN counts as off
+    return fit_cost, fit_cost | its_off
+
+
+def nlls_post_err(o, r64):
+    """[V]: the larger of prec's and cov's errors against float64 in the
+    lane's own scale (lane_errors)."""
+    return torch.maximum(lane_errors(o[3], r64[3]), lane_errors(o[4], r64[4]))
+
+
+@pytest.mark.parametrize("marquardt", [False, True], ids=["L", "LM"])
+@pytest.mark.parametrize("name", NLLS_CASES)
+def test_nlls_kernel_matches_plain(cuda, name, marquardt):
+    """Every instance of fused_nlls.cu, fresh mode, ragged voxel count,
+    held to the plain version at float64 by the module's share rule;
+    the posterior (prec, cov) on the lanes where the kernel and plain
+    float32 agree with float64 in fit and cost and plain float32's
+    posterior is finite: the kernel's worst lane within max(1e-3, 2x
+    plain float32's worst), as assert_near_f64 (poly3-F's plain float32
+    reaches 8e-4 there); no lane past the budget."""
+    from fabber_core_tpu_torch.ops import fused_nlls as fn
+    c = nlls_inputs(name, 3001, cuda)
+    args = (c["centre"], c["data"], c["tmask"], 40, marquardt)
+    before = fn.fused_nlls_loop.launches
+    k = fn.fused_nlls_loop(c["model"], c["tr"], *args)
+    assert fn.fused_nlls_loop.launches == before + 1
+    tsj = c["model"].time_signal_jac
+    r32 = fn.fused_nlls_loop_plain(tsj, c["tr"], *args)
+    r64 = fn.fused_nlls_loop_plain(tsj, c["tr"], c["centre"].double(),
+                                   c["data"].double(), *args[2:])
+    offs = [nlls_off(o, r64, c) for o in (k, r32)]
+    for off_k, off_32 in zip(*offs):
+        share_k = float(off_k.double().mean())
+        share_32 = float(off_32.double().mean())
+        assert share_k <= 2 * share_32 + 1e-3, (share_k, share_32)
+    e_k, e_32 = nlls_post_err(k, r64), nlls_post_err(r32, r64)
+    keep = ~(offs[0][0] | offs[1][0]) & torch.isfinite(e_32)
+    assert bool(keep.any())
+    worst_k, worst_32 = float(e_k[keep].max()), float(e_32[keep].max())
+    assert worst_k <= max(1e-3, 2 * worst_32), (worst_k, worst_32)
+    assert float(k[2].max()) <= 40 and float(k[2].min()) >= 1
+
+
+@pytest.mark.parametrize("marquardt", [False, True], ids=["L", "LM"])
+def test_nlls_two_phase_bit_identical_on_card(cuda, marquardt):
+    """The engine's compaction (NLLSInference._solve_kernel: phase 1
+    capped at 3, the lanes sorted by done, the resumed launch, the
+    inverse permutation) gives the fresh launch's outputs bit for bit
+    (csrc/fused_nlls.cu: one summation order, no contraction)."""
+    from fabber_core_tpu_torch.inference.nlls import NLLSInference
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.ops import fused_nlls as fn
+    from fabber_core_tpu_torch.options import RunOptions
+    c = nlls_inputs("biexp", 20_001, cuda, seed=2)
+    nt = c["data"].shape[0]
+    opts = RunOptions({"model": "biexp", "dt": "0.1", "dtype": "single",
+                       "mt1": str(nt // 3 + 1),
+                       "nlls-phase1-iterations": "3",
+                       "nlls-max-iterations": "60",
+                       **({"lm": True} if marquardt else {})})
+    eng = NLLSInference(get_model_class("biexp")(opts), opts, None,
+                        data_plane=c["data"], device=cuda)
+    np.testing.assert_array_equal(eng.tmask_host, c["tmask"])
+    p0 = c["centre"]
+    fresh = fn.fused_nlls_loop(c["model"], c["tr"], p0, c["data"],
+                               c["tmask"], 60, marquardt)
+    before = fn.fused_nlls_loop.resume_launches
+    s, prec, cov = eng._solve_kernel(p0)
+    assert fn.fused_nlls_loop.resume_launches == before + 1
+    # a lane that made at most 3 steps was done in phase 1
+    assert 0.0 < float((s.its <= 3).double().mean()) < 1.0
+    for a, b in zip((s.params, s.cost, prec, cov),
+                    (fresh[0], fresh[1], fresh[3], fresh[4])):
+        assert torch.equal(a.contiguous().view(torch.int32),
+                           b.contiguous().view(torch.int32))
+    assert torch.equal(s.its, fresh[2].to(torch.int32))
+
+
+def test_nlls_instances_are_the_listed_ones(cuda):
+    from fabber_core_tpu_torch.models.base import (KERNEL_EXP, KERNEL_POLY,
+                                                   KernelModel)
+    from fabber_core_tpu_torch.ops import fused_nlls as fn
+    for p in (2, 4):
+        assert fn.nlls_instantiated(KernelModel(KERNEL_EXP, p))
+    assert not fn.nlls_instantiated(KernelModel(KERNEL_EXP, 6))
+    for p in (1, 2, 3, 4):
+        assert fn.nlls_instantiated(KernelModel(KERNEL_POLY, p))
+    assert not fn.nlls_instantiated(KernelModel(KERNEL_POLY, 5))
+    assert not fn.nlls_instantiated(None)
+
+
+def test_nlls_engine_on_card_matches_cpu(cuda):
+    """The exp NLLS engine on the card (the kernel, phase 1 + resume:
+    two launches) against the CPU engine (the plain version):
+    tests/test_nlls_stats.py's kernel bounds; and a run the kernel has
+    no instance for raises at construction."""
+    from fabber_core_tpu_torch.inference.nlls import NLLSInference
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.ops import fused_nlls as fn
+    from fabber_core_tpu_torch.options import RunOptions
+    rng = np.random.default_rng(0)
+    nv, nt = 3000, 40
+    t = np.arange(nt) * 0.05
+    data = (rng.uniform(0.6, 1.4, (nv, 1)) * np.exp(-t)[None]
+            + rng.normal(0, 0.05, (nv, nt))).astype(np.float32)
+    opts = RunOptions({"model": "exp", "dt": "0.05", "dtype": "single",
+                       "nlls-phase1-iterations": "3"})
+    res = {}
+    for dev in (cuda, "cpu"):
+        eng = NLLSInference(get_model_class("exp")(opts), opts, data,
+                            device=dev)
+        assert eng.route == "nlls-kernel"
+        n0 = fn.fused_nlls_loop.launches
+        res[str(dev)] = eng.run()
+        assert fn.fused_nlls_loop.launches - n0 == (0 if dev == "cpu"
+                                                    else 2)
+    g, c = res[str(cuda)], res["cpu"]
+    np.testing.assert_allclose(g.means, c.means, rtol=2e-3, atol=2e-4)
+    np.testing.assert_allclose(g.cov, c.cov, rtol=5e-3, atol=1e-5)
+    diff = np.abs(g.iterations - c.iterations)
+    assert diff.max() <= 30 and np.median(diff) <= 4
+    np.testing.assert_array_equal(g.bad_voxels, c.bad_voxels)
+    opts = RunOptions({"model": "exp", "dt": "0.05", "dtype": "single",
+                       "num-exps": "3"})
+    with pytest.raises(NotImplementedError, match="FABBER_NL_INSTANCES"):
+        NLLSInference(get_model_class("exp")(opts), opts, data, device=cuda)
+
+
+def test_nlls_wrapper_refuses_what_no_kernel_takes(cuda):
+    from fabber_core_tpu_torch.ops import fused_nlls as fn
+    c = nlls_inputs("exp", 64, cuda)
+    with pytest.raises(TypeError):
+        fn.fused_nlls_loop(c["model"], c["tr"], c["centre"].double(),
+                           c["data"], c["tmask"], 5)
+    with pytest.raises(ValueError, match="is on"):
+        fn.fused_nlls_loop(c["model"], c["tr"], c["centre"],
+                           c["data"].cpu(), c["tmask"], 5)
+    with pytest.raises(ValueError, match="state"):
+        fn.fused_nlls_loop(c["model"], c["tr"], c["centre"], c["data"],
+                           c["tmask"], 5, state=torch.zeros(3, 64,
+                                                            device=cuda))

@@ -124,7 +124,6 @@ GATES = [
     ({"engine-kernel": "spectral"}, "spectral"),
     ({"param-spatial-priors": "A"}, "ard-priors"),
     ({"param-spatial-priors": "M"}, "spatial-priors"),
-    ({"continue-from-mvn": "x.nii.gz"}, "continue-from-mvn"),
     ({"locked-linear-from-mvn": "m.nii.gz"}, "locked-linear"),
     ({"fixed-design-route": "direct"}, "xla-direct"),
     ({"mcsteps": "1"}, "motion-correction"),
@@ -163,7 +162,6 @@ def test_former_gate_runs_and_matches_jax(extra, route, jmode):
 NONLINEAR_GATES = [
     ("biexp", {"param-spatial-priors": "A"}, "'ard-priors'"),
     ("biexp", {"param-spatial-priors": "M"}, "'spatial-priors'"),
-    ("biexp", {"continue-from-mvn": "x.nii.gz"}, "'continue-from-mvn'"),
     ("biexp", {"locked-linear-from-mvn": "m.nii.gz"}, "'locked-linear'"),
 ]
 
@@ -176,6 +174,32 @@ def test_nonlinear_family_refusals(model, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         VBInference(get_model_class(model)(opts), opts, make_data(16),
                     device="cpu")
+
+
+@pytest.mark.parametrize("model,route", [("poly", "xla"),
+                                         ("biexp", "pallas")])
+def test_continue_from_mvn_takes_the_continuation_route(model, route,
+                                                       monkeypatch):
+    """continue-from-mvn used to raise. A continued run now takes the
+    route the JAX engine's gates give it (loop_gates_common, whole_core
+    and the whole-loop gate exclude it, vb.py:412, 498, 636; its auto as
+    on the TPU): the statistics route for a fixed design, the
+    per-iteration kernel for a time_signal model at float32."""
+    from fabber_core_tpu.inference import vb as jvb_module
+    monkeypatch.setattr(jvb_module.jax, "default_backend", lambda: "tpu")
+    extra = {**BASE, "model": model, "dt": "0.1",
+             "continue-from-mvn": "x.nii.gz"}
+    opts = RunOptions(extra)
+    eng = VBInference(get_model_class(model)(opts), opts, make_data(16),
+                      device="cpu")
+    assert eng.route == route and eng.continued
+    assert eng.continuation_route() == route
+    jo = JOptions(extra)
+    je = JVB(jmodel(model)(jo), jo, make_data(16), np.zeros((16, 3)))
+    assert (je.use_fused, je.use_stats) == (route == "pallas",
+                                            route == "xla")
+    assert not (je.use_nl_loop or je.use_loop_kernel
+                or je.use_whole_kernel or je.use_spectral_whole)
 
 
 @pytest.mark.parametrize("extra,route", GATES,

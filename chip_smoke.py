@@ -23,9 +23,11 @@ LM branch); drives method=nlls (the NLLS kernel with its two-phase
 straggler compaction, Levenberg and --lm, on the biexp volume; the
 fixed-design route on linear) and the NLLS->VB workflow (nlls with
 save-mvn, then VB continued from its finalMVN through the per-iteration
-kernel); then times the kernels, their plain versions, a
-device-to-device copy and the whole engine run, poly at 16,777,216
-voxels and biexp at 4,000,000 (VB and NLLS). Every phase passes or the script exits
+kernel); drives --noise=ar (the AR(1) kernel, one and two echoes, maxits
+and pointzeroone, held to the float64 'xla' route on the card); then
+times the kernels, their plain versions, a device-to-device copy and the
+whole engine run, poly at 16,777,216 voxels (white and AR noise) and
+biexp at 4,000,000 (VB and NLLS). Every phase passes or the script exits
 non-zero without printing the result line. The last line of standard
 output is the JSON result object; the line before it lists the
 kernels, each with its bound (the least time the card could take:
@@ -880,13 +882,14 @@ def near_f64(name, k, r32, r64, dk=None, d32=None, d64=None, tol=1e-2):
     if dk is None:
         keep = torch.ones(r64[0].shape[-1], dtype=torch.bool,
                           device=r64[0].device)
-        ratios = []
+        ratios, labels = [], []
     else:
         miss_k = (dk != d64).any(dim=0)
         miss_32 = (d32 != d64).any(dim=0)
         keep = ~(miss_k | miss_32)
         ratios = [float(miss_k.double().mean())
                   / (2 * float(miss_32.double().mean()) + 1e-3)]
+        labels = ["decision share"]
     e_k = [e[keep] for e in lane_errors(k, r64)]
     e_32 = [e[keep] for e in lane_errors(r32, r64)]
 
@@ -896,11 +899,14 @@ def near_f64(name, k, r32, r64, dk=None, d32=None, d64=None, tol=1e-2):
                      / ref.abs().max().clamp_min(1e-30))
 
     ratios.append(float(e_k[0].max()) / max(1e-3, 2 * float(e_32[0].max())))
+    labels.append("means")
     for i in range(1, len(k)):
         ratios.append(rel_max(k, i) / max(1e-3, 2 * rel_max(r32, i)))
+        labels.append(f"output {i} over its max")
     if dk is None:
         ratios += [float(a.max()) / max(1e-3, 2 * float(b.max()))
                    for a, b in zip(e_k, e_32)]
+        labels += [f"output {i}'s worst lane" for i in range(len(e_k))]
         lanes = ""
     else:
         def share_off(e):
@@ -908,17 +914,19 @@ def near_f64(name, k, r32, r64, dk=None, d32=None, d64=None, tol=1e-2):
                          .mean())
         off_k, off_32 = share_off(e_k), share_off(e_32)
         ratios.append(off_k / (2 * off_32 + 1e-3))
+        labels.append("share of lanes off")
         lanes = (f"; decisions off float64 (kernel or plain) in "
                  f"{1 - float(keep.double().mean()):.6f} of lanes; beyond "
                  f"{tol:g} in the lane's scale in {off_k:.6f} of the rest "
                  f"(plain float32 {off_32:.6f})")
     ok = all(r <= 1.0 for r in ratios)          # False where NaN
-    ratio = max(r if r == r else float("inf") for r in ratios)
+    ratio, label = max((r if r == r else float("inf"), lb)
+                       for r, lb in zip(ratios, labels))
     abs_err = max(float((a[..., keep].double() - r[..., keep].double())
                         .abs().max()) for a, r in zip(k, r64)) \
         if bool(keep.any()) else 0.0
-    log(f"  {name:<34} worst err/bound {ratio:.3g}{lanes}; max abs err "
-        f"{abs_err:.4g} {'ok' if ok else 'FAIL'}")
+    log(f"  {name:<34} worst err/bound {ratio:.3g} ({label}){lanes}; "
+        f"max abs err {abs_err:.4g} {'ok' if ok else 'FAIL'}")
     return ok, abs_err, ratio
 
 
@@ -1636,7 +1644,10 @@ def launch_counts():
     from fabber_core_tpu_torch.ops import fused_spectral as fs
     from fabber_core_tpu_torch.ops import fused_vb as fv
     from fabber_core_tpu_torch.ops import fused_whole as fw
-    return {"fused_nlls": fn.fused_nlls_loop.launches,
+    from fabber_core_tpu_torch.ops import fused_loop_ar as fa
+    return {"fused_ar_loop": fa.fused_ar_loop.launches,
+            "fused_ar_loop:detector": fa.fused_ar_loop.det_launches,
+            "fused_nlls": fn.fused_nlls_loop.launches,
             "fused_nlls:resume": fn.fused_nlls_loop.resume_launches,
             "fused_nlls:marquardt": fn.fused_nlls_loop.marquardt_launches,
             "spectral_stats": fs.spectral_stats.launches,
@@ -1667,6 +1678,8 @@ def reset_launches():
     fv.fused_iteration.lm_launches = 0
     fn.fused_nlls_loop.resume_launches = 0
     fn.fused_nlls_loop.marquardt_launches = 0
+    from fabber_core_tpu_torch.ops import fused_loop_ar as fa
+    fa.fused_ar_loop.launches = fa.fused_ar_loop.det_launches = 0
 
 
 def api_run(device, options, vol):
@@ -2361,12 +2374,22 @@ def nlls_ops(p, nexp, nlog, nt, marquardt):
     jac_pass = rows + nt * (5 * nexp + p + 4 + 3 * p + 2 * ntri) \
         + blocks * (ntri + p + 1)
     cost_pass = rows + nt * (4 * nexp + 4) + blocks
-    chol = sum(3 + 2 * i + (p - 1 - i) * (2 * i + 1) for i in range(p)) + p
+    chol = chol_ops(p)
     solve = (2 if marquardt else 1) * p + chol + 2 * p * p + p
-    inverse = p + sum(2 * (i - j) + 1 for i in range(p) for j in range(i)) \
-        + sum((i + 1) * 2 * (p - i) for i in range(p))
     return {"pass": jac_pass, "cost": cost_pass, "step": solve + 16,
-            "post": 1 + ntri + p + chol + inverse}
+            "post": 1 + ntri + p + chol + inverse_ops(p)}
+
+
+def chol_ops(p):
+    """float32 operations of vb_device.cuh's P x P Cholesky with its
+    finite test (the jitter refactorization left out)."""
+    return sum(3 + 2 * i + (p - 1 - i) * (2 * i + 1) for i in range(p)) + p
+
+
+def inverse_ops(p):
+    """float32 operations of vb_device.cuh inverse_from_chol."""
+    return p + sum(2 * (i - j) + 1 for i in range(p) for j in range(i)) \
+        + sum((i + 1) * 2 * (p - i) for i in range(p))
 
 
 def once_ms(fn):
@@ -2478,6 +2501,351 @@ def time_nlls(device, card, nv=4_000_000):
     return out
 
 
+# ---------------------------------------------------------------------------
+# AR(1) noise (phases 3f, 4p, 5f)
+# ---------------------------------------------------------------------------
+
+AR_ALPHA, AR_SD = 0.4, 0.1   # the volumes' AR coefficient, innovation sd
+
+
+def ar_plane(nq, nv, gen, device, sd_range=None):
+    """[T,V] float32 poly degree 2 signal (c0 ~ U(0.5, 1.5), c1 ~
+    U(-0.05, 0.05), c2 ~ U(-5e-4, 5e-4)) plus AR(1) noise of coefficient
+    AR_ALPHA per echo (nq interleaved echoes), made on the card. The
+    innovation sd is AR_SD, or log-uniform over sd_range per voxel (so
+    detector lanes stop apart). Returns (plane, c0 truth [V])."""
+    import torch
+    d = torch.as_tensor(poly_design(3), dtype=torch.float32, device=device)
+    lo = torch.tensor([0.5, -0.05, -5e-4], device=device)[:, None]
+    hi = torch.tensor([1.5, 0.05, 5e-4], device=device)[:, None]
+    truth = lo + (hi - lo) * torch.rand((3, nv), generator=gen,
+                                        device=device)
+    plane = torch.randn((NT, nv), generator=gen, device=device)
+    if sd_range is None:
+        plane.mul_(AR_SD)
+    else:
+        a, b = (float(np.log10(x)) for x in sd_range)
+        plane.mul_(10.0 ** (a + (b - a) * torch.rand(
+            nv, generator=gen, device=device)))
+    for t in range(nq, NT):   # e_t += alpha e_{t-nq}, echo by echo
+        plane[t].add_(plane[t - nq], alpha=AR_ALPHA)
+    plane.addmm_(d, truth)
+    return plane, truth[0]
+
+
+def ar_kernel_inputs(plane, nq, device):
+    """Kernel 9's inputs for the poly priors (mean 0, precision 1e-12)
+    from make_design_stats in plain torch: (args, noise model)."""
+    import torch
+    from fabber_core_tpu_torch.noise.ar1 import Ar1NoiseModel
+    from fabber_core_tpu_torch.ops import fused_loop_ar as fa
+    from fabber_core_tpu_torch.options import RunOptions
+    nm = Ar1NoiseModel(RunOptions({"num-echoes": str(nq)}), NT)
+    d = torch.as_tensor(poly_design(3), dtype=torch.float32, device=device)
+    st = nm.make_design_stats(d, plane)
+    prior, post = nm.initial_state(1, torch.float32)
+    consts = fa.pack_ar_consts(
+        st.dmd, prior.alpha_prec, prior.b, prior.c, nm.ntimes,
+        post.b[:, 0], post.c[:, 0],
+        [post.alpha_cov[n, n, 0] for n in range(nq)],
+        [post.alpha_prec[n, n, 0] for n in range(nq)], nq)
+    nv = plane.shape[1]
+    pm = torch.zeros((3, nv), dtype=torch.float32, device=device)
+    pp = torch.full((3, nv), 1e-12, dtype=torch.float32, device=device)
+    return (st.m0.contiguous(), st.rmr.contiguous(), st.dmr.contiguous(),
+            consts, pm, pp), nm
+
+
+def ar_detector(kind, nq, nm):
+    """Kernel 9's detector dict (the engine's host ELBO constants at the
+    model-default noise prior) and the engine's loop cap."""
+    from fabber_core_tpu_torch.ops import fused_loop_ar as fa
+    det = make_detector(kind)
+    f_const, lb = fa.ar_elbo_consts(3, nq, float(nm.ntimes), 1e6, 1e-6)
+    return ({"det": det, "f_const": f_const, "lb_coeff": lb},
+            int(det.max_iterations) + 2)
+
+
+def check_ar_kernels(device, nvs=(1_048_576, 1_000_003), seed=SEED + 17):
+    """Phase 3f: kernel 9 against its plain version at the main path's
+    poly shapes (P=3, T=106, the raw degree-2 design), nq = 1 and 2, in
+    maxits and under pointzeroone and freduce at the engine's loop cap,
+    each held by near_f64 (detector modes by decision share: iteration
+    count and engine-initial tag), on AR(1) data whose innovation sd is
+    log-uniform over 1e-2..1 per voxel. Built without multiply-add
+    contraction, the kernel should match the plain float32 version bit
+    for bit (logged, not required)."""
+    import torch
+    from fabber_core_tpu_torch.ops import fused_loop_ar as fa
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    worst = {k: [0.0, 0.0] for k in ("fused_ar_loop",
+                                     "fused_ar_loop:detector")}
+    ok_all = True
+
+    def note(kname, res):
+        nonlocal ok_all
+        ok, abs_err, ratio = res
+        ok_all &= ok
+        worst[kname][0] = max(worst[kname][0], abs_err)
+        worst[kname][1] = max(worst[kname][1], ratio)
+
+    def dec(o):
+        return torch.stack([o[9][0].double(), (o[6][0] < 0).double()])
+
+    def tidy(o):
+        return o[:6] + (o[6].abs(),) + o[7:]
+
+    for nv in nvs:
+        for nq in (1, 2):
+            plane, _ = ar_plane(nq, nv, gen, device, sd_range=(1e-2, 1.0))
+            args, nm = ar_kernel_inputs(plane, nq, device)
+            del plane
+            k = fa.fused_ar_loop(*args, ITERS)
+            r32 = fa.fused_ar_loop_plain(*args, ITERS)
+            r64 = fa.fused_ar_loop_plain(*to64(args), ITERS)
+            torch.cuda.synchronize()
+            log(f"  kernel and plain float32 bit for bit: "
+                f"{all(torch.equal(a, b) for a, b in zip(k, r32))}")
+            note("fused_ar_loop", near_f64(f"fused_ar_loop Q={nq} V={nv}", k,
+                                           r32, r64))
+            del k, r32, r64
+            for kind in ("pointzeroone", "freduce"):
+                det, cap = ar_detector(kind, nq, nm)
+                k = fa.fused_ar_loop(*args, cap, det)
+                r32 = fa.fused_ar_loop_plain(*args, cap, det)
+                r64 = fa.fused_ar_loop_plain(*to64(args), cap, det)
+                torch.cuda.synchronize()
+                log(f"  tags (engine-initial) kernel {int((k[6] < 0).sum())}"
+                    f", plain float32 {int((r32[6] < 0).sum())}, float64 "
+                    f"{int((r64[6] < 0).sum())}; its "
+                    f"{its_histogram(k[9][0].cpu().numpy())}")
+                note("fused_ar_loop:detector", near_f64(
+                    f"fused_ar_loop {kind} Q={nq} V={nv}", tidy(k),
+                    tidy(r32), tidy(r64), dec(k), dec(r32), dec(r64)))
+                del k, r32, r64
+            del args
+            torch.cuda.empty_cache()
+    return ok_all, worst
+
+
+AR_OPTIONS = {**MAIN_OPTIONS, "noise": "ar"}
+
+
+def ar_volume(nq, shape, seed, device):
+    """Phase 4p input: ar_plane's data (innovation sd AR_SD) made on the
+    card from the seed, as a [nx,ny,nz,T] float32 host volume, and the
+    c0 truth volume."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    plane, c0 = ar_plane(nq, int(np.prod(shape)), gen, device)
+    vol = plane.t().cpu().numpy().reshape(shape + (NT,), order="F")
+    return vol, c0.cpu().numpy().reshape(shape, order="F")
+
+
+def ar_against_f64(name, res, ref, na, bound=1e-2):
+    """Phase 4p: the float32 run against the float64 run ('xla'): the
+    iteration counts at most 1 apart on < 2% of voxels (near-threshold
+    F decisions, tests/test_fused_loop_ar.py); on the other voxels every
+    std within bound relative and every phi noise mean within bound
+    relative. Reports the means (in float64 posterior sd) and the alpha
+    means (absolute) beside them."""
+    diff = np.abs(res.iterations - ref.iterations)
+    keep = diff == 0
+    sd = np.sqrt(np.diagonal(ref.cov, axis1=1, axis2=2))
+    sd_res = np.sqrt(np.diagonal(res.cov, axis1=1, axis2=2))
+    e_m = np.max(np.abs(res.means - ref.means) / sd, axis=1)[keep]
+    e_s = np.max(np.abs(sd_res / sd - 1), axis=1)[keep]
+    e_n = np.max(np.abs(res.noise_means[:, na:] / ref.noise_means[:, na:]
+                        - 1), axis=1)[keep]
+    e_a = np.max(np.abs(res.noise_means[:, :na] - ref.noise_means[:, :na]),
+                 axis=1)[keep]
+    good = (diff.max() <= 1 and float((diff != 0).mean()) < 0.02
+            and max(e_s.max(), e_n.max()) <= bound
+            and not res.bad_voxels.any())
+    log(f" {name} against float64: iterations differ (by <= "
+        f"{int(diff.max())}) in {float((diff != 0).mean()):.5f} of voxels "
+        f"(bound < 0.02, <= 1); on the rest std within {e_s.max():.3g} and "
+        f"phi within {e_n.max():.3g} relative (bound {bound:g} each); means "
+        f"within {e_m.max():.4g} posterior sd (p99.9 "
+        f"{np.quantile(e_m, 0.999):.3g}), alpha means within {e_a.max():.3g}"
+        f" (p99.9 {np.quantile(e_a, 0.999):.3g}) {'ok' if good else 'FAIL'}")
+    return good
+
+
+def run_ar_paths(device, shape=(128, 128, 64)):
+    """Phase 4p: run_with_data with noise=ar, dtype=single (the
+    pallas-loop-ar route: make_design_stats in plain torch, then kernel
+    9 launched once) on a 128x128x64 x 106 poly degree 2 volume with
+    AR(1) noise (alpha 0.4, innovation sd 0.1; ar_volume), for
+    num-echoes 1 and 2 in maxits, and num-echoes 1 under pointzeroone
+    (kernel 9's detector mode, launched once); each beside the float64
+    run (the 'xla' route in plain torch on the card, no kernel;
+    ar_against_f64); c0 within 3 posterior sd of the truth in >= 99% of
+    voxels, or, where the model itself covers less at float64 (two
+    echoes; the float64 route is the JAX package's within 1e-9 in the
+    CPU tests), in at least the float64 run's share less 1e-3; mean
+    alpha_1 within 0.15 of 0.4. Returns (ok, launches)."""
+    import torch
+    ok, launches = True, {}
+    for nq, kind in ((1, "maxits"), (2, "maxits"), (1, "pointzeroone")):
+        vol, c0 = ar_volume(nq, shape, SEED + 18 + nq, device)
+        torch.cuda.empty_cache()
+        opts = {**AR_OPTIONS, "num-echoes": str(nq), "convergence": kind}
+        log(f"phase 4p: run_with_data, noise=ar, num-echoes={nq}, {kind}, "
+            f"volume {shape + (NT,)}")
+        run, res, eng, n32, _ = api_run(device, opts, vol)
+        want = {"fused_ar_loop": 1}
+        if kind != "maxits":
+            want["fused_ar_loop:detector"] = 1
+        for key in want:
+            launches[key] = launches.get(key, 0) + n32.get(key, 0)
+        ok &= eng.route == "pallas-loop-ar" and n32 == want
+        run64, r64, eng64, n64, _ = api_run(
+            device, {**opts, "dtype": "double"}, vol)
+        ok &= eng64.route == "xla" and not n64
+        ok &= ar_against_f64(f"num-echoes={nq} {kind}", res, r64, 2)
+
+        def cover(d):
+            return float((np.abs(d["mean_c0"] - c0)
+                          <= 3 * d["std_c0"]).mean())
+        frac, frac64 = cover(run.data), cover(run64.data)
+        nm = run.data["noise_means"]
+        alpha1 = float(nm[..., 0].mean())
+        phi_sd = np.median(1 / np.sqrt(nm[..., 2:].reshape(-1, nq)), axis=0)
+        good = (frac >= min(0.99, frac64) - 1e-3
+                and abs(alpha1 - AR_ALPHA) <= 0.15
+                and all(np.isfinite(a).all() for a in run.data.values()))
+        log(f" c0 within 3 posterior sd of truth in {frac:.5f} of voxels "
+            f"(float64 {frac64:.5f}; bound >= min(0.99, float64's) - 1e-3);"
+            f" mean alpha_1 {alpha1:.4f} (truth {AR_ALPHA}, bound 0.15); "
+            f"median innovation sd per echo "
+            f"{[round(float(x), 5) for x in phi_sd]} (truth {AR_SD}) "
+            f"{'ok' if good else 'FAIL'}")
+        ok &= good
+        del vol, run, res, run64, r64
+    return ok, launches
+
+
+def ar_ops(p, nq, det=False):
+    """float32 operations per voxel of csrc/fused_ar_loop.cu, counted
+    from its source and vb_device.cuh's (a division, logf and sqrtf one
+    each; the rare jitter refactorization left out): (setup, step) with
+    setup the iteration-invariant D'M_sy (and, in MODE 1, the ELBO's
+    base) and step one iteration (ar_step, and in MODE 1 F and the
+    detector's test)."""
+    s = 3 * nq
+    ntri = p * (p + 1) // 2
+    setup = s * p * (2 * p + 1) + (3 * nq + 3 * p if det else 0)
+    step = (5 * nq + ntri * 2 * s + p + chol_ops(p) + inverse_ops(p)
+            + p * (2 * s + 2) + 2 * p * p + p + 2 * ntri
+            + s * (2 * p + 2 + 2 * p * p) + 15 * nq)
+    if det:
+        step += 8 * p + 5 + 18 * nq + 10
+    return setup, step
+
+
+def time_ar(device, card, nv=16_777_216):
+    """Phase 5f at 16,777,216 voxels, T=106, P=3, nq = 1 and 2, on
+    ar_plane's data made on the card (innovation sd log-uniform over
+    1e-2..1): kernel 9 in maxits and under pointzeroone (CUDA events,
+    best of 3 after a warm-up), its plain version once (maxits),
+    make_design_stats (best of 3), VBInference.run() on the host clock
+    with its stages. Bounds: bytes = each input read once and each
+    output written once; operations = ar_ops' counts, times ITERS
+    (maxits) or the lane iterations the plain version needed
+    (pointzeroone, TripCounter)."""
+    import torch
+    import fabber_core_tpu_torch.inference.vb as vbm
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.ops import fused_loop_ar as fa
+    from fabber_core_tpu_torch.options import RunOptions
+
+    out = {}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 21)
+    p = 3
+    for nq in (1, 2):
+        plane, _ = ar_plane(nq, nv, gen, device, sd_range=(1e-2, 1.0))
+        args, nm = ar_kernel_inputs(plane, nq, device)
+        s = 3 * nq
+        in_b = 4 * (p + s + s * p + 2 * p) * nv
+        out_b = 4 * (p + 2 * p * p + 5 * nq) * nv
+        out[f"ar_q{nq}_bytes_per_voxel"] = (in_b + out_b) // nv
+        out[f"ar_q{nq}_ms"] = best_ms(lambda: fa.fused_ar_loop(*args, ITERS))
+        out[f"ar_q{nq}_plain_ms"], _ = once_ms(
+            lambda: fa.fused_ar_loop_plain(*args, ITERS))
+        torch.cuda.empty_cache()
+        setup, step = ar_ops(p, nq)
+        out[f"ar_q{nq}_bound"] = bound(in_b + out_b, (setup + ITERS * step)
+                                       * nv)
+        det, cap = ar_detector("pointzeroone", nq, nm)
+        out[f"ar_det_q{nq}_ms"], k = best_ms(
+            lambda: fa.fused_ar_loop(*args, cap, det), keep=True)
+        out[f"ar_det_q{nq}_its"] = its_histogram(k[9][0].cpu().numpy())
+        del k
+        torch.cuda.empty_cache()
+        counter = trip_counter(det["det"])
+        out[f"ar_det_q{nq}_plain_ms"], _ = once_ms(
+            lambda: fa.fused_ar_loop_plain(*args, cap,
+                                           {**det, "det": counter}))
+        setup, step = ar_ops(p, nq, det=True)
+        out[f"ar_det_q{nq}_bound"] = bound(
+            in_b + out_b + 8 * nv, setup * nv + step * counter.trips)
+        del args
+        torch.cuda.empty_cache()
+        d = torch.as_tensor(poly_design(3), dtype=torch.float32,
+                            device=device)
+        out[f"ar_stats_q{nq}_ms"] = best_ms(
+            lambda: nm.make_design_stats(d, plane))
+        torch.cuda.empty_cache()
+        # the engine's run() with its stages
+        opts = RunOptions({**{k: v for k, v in AR_OPTIONS.items()
+                              if not k.startswith("save")},
+                           "num-echoes": str(nq)})
+        eng = VBInference(get_model_class("poly")(opts), opts, None,
+                          data_plane=plane, device=device)
+        if eng.route != "pallas-loop-ar":
+            raise RuntimeError(f"AR run took {eng.route}")
+        eng.run()                                   # warm-up
+        stages = {}
+
+        def timed(name, fn):
+            def wrapped(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = fn(*a, **kw)
+                torch.cuda.synchronize()
+                stages[name] = stages.get(name, 0.0) \
+                    + (time.perf_counter() - t0) * 1e3
+                return r
+            return wrapped
+        eng.initial_state = timed("initial_state_ms", eng.initial_state)
+        eng.ar_loop_args = timed("statistics_ms", eng.ar_loop_args)
+        eng._to_result = timed("to_result_ms", eng._to_result)
+        orig = vbm.fused_ar_loop
+        vbm.fused_ar_loop = timed("kernel_ms", orig)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.run()
+            out[f"run_ar_q{nq}_s"] = time.perf_counter() - t0
+        finally:
+            vbm.fused_ar_loop = orig
+        out[f"run_ar_q{nq}_stages"] = stages
+        out[f"run_ar_q{nq}_voxels_per_s"] = nv / out[f"run_ar_q{nq}_s"]
+        if res.bad_voxels.any():
+            raise RuntimeError("AR run: bad voxels")
+        del eng, res, plane
+        torch.cuda.empty_cache()
+    for key, v in out.items():
+        log(f" {key} = {v!r}  [V={nv} T={NT} P={p}; {card}]")
+    return out
+
+
 def main():
     try:
         import torch
@@ -2529,6 +2897,9 @@ def main():
     log("phase 3e: the NLLS kernel against its plain version")
     ok3e, worst_nlls = check_nlls_kernels(device)
     worst.update(worst_nlls)
+    log("phase 3f: the AR(1) kernel against its plain version")
+    ok3f, worst_ar = check_ar_kernels(device)
+    worst.update(worst_ar)
 
     # phase 4: the main paths through the API; each path's launch
     # counters are zeroed just before it and read just after it
@@ -2567,6 +2938,8 @@ def main():
     ok4n, _ = run_nlls_vb_flow(device)
     log("phase 4o: run_with_data, method=nlls, 128x128x32 x 106, linear")
     ok4o = run_nlls_linear_path(device)
+    ok4p, ar_launches = run_ar_paths(device)
+    launches.update(ar_launches)
 
     # phase 5: timing at the headline sizes
     log("phase 5: timing at 16,777,216 voxels")
@@ -2579,6 +2952,8 @@ def main():
     fig_fd = time_fixed_design(device, card, fig)
     log("phase 5e: the NLLS kernel at 4,000,000 biexp voxels")
     fig_nlls = time_nlls(device, card)
+    log("phase 5f: the AR(1) kernel and route at 16,777,216 voxels")
+    fig_ar = time_ar(device, card)
 
     phases = {"kernels": ok3, "nl_kernels": ok3b, "detector_kernels": ok3c,
               "main_path": ok4, "engine_vs_f64": ok4b, "biexp_path": ok4c,
@@ -2587,7 +2962,8 @@ def main():
               "per_iteration_lm": ok4h, "detector_lanes_at_4M": ok5c,
               "fixed_design_kernels": ok3d, "pattern_paths": ok4i,
               "linear_path": ok4k, "nlls_kernels": ok3e, "nlls_path": ok4m,
-              "nlls_vb_flow": ok4n, "nlls_linear_path": ok4o}
+              "nlls_vb_flow": ok4n, "nlls_linear_path": ok4o,
+              "ar_kernels": ok3f, "ar_paths": ok4p}
     if not all(phases.values()):
         log(f"FAILED phases: {[k for k, v in phases.items() if not v]}")
         return 1
@@ -2606,6 +2982,7 @@ def main():
     nl_at = "fabber_core_tpu/ops/fused_loop_nl.py:162"
     it_at = "fabber_core_tpu/ops/fused_vb.py:184"
     nlls_at = "fabber_core_tpu/ops/fused_nlls.py:72"
+    ar_at = "fabber_core_tpu/ops/fused_loop_ar.py:50"
     kernels = [
         entry("spectral_stats", "spectral_stats.cu",
               "fabber_core_tpu/ops/fused_spectral.py:632", fig["stats_ms"],
@@ -2651,6 +3028,11 @@ def main():
         entry("fused_nlls:marquardt", "fused_nlls.cu", nlls_at,
               fig_nlls["fresh_lm_ms"], fig_nlls["fresh_lm_plain_ms"],
               fig_nlls["fresh_lm_bound"]),
+        entry("fused_ar_loop", "fused_ar_loop.cu", ar_at, fig_ar["ar_q1_ms"],
+              fig_ar["ar_q1_plain_ms"], fig_ar["ar_q1_bound"]),
+        entry("fused_ar_loop:detector", "fused_ar_loop.cu", ar_at,
+              fig_ar["ar_det_q1_ms"], fig_ar["ar_det_q1_plain_ms"],
+              fig_ar["ar_det_q1_bound"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

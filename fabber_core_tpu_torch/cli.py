@@ -26,6 +26,7 @@ from .easylog import EasyLog
 from .exceptions import DataNotFound, FabberError
 from .io import nifti
 from .models import get_model_class, resolve_parameters
+from .noise import get_noise_class, known_noise_models
 from .options import OptionSpec, OPT_STR, RunOptions
 from .version import __version__
 
@@ -95,6 +96,13 @@ def print_usage(options):
     elif options.have("method"):
         method = options.get_string("method")
         opts, desc = fab.get_options(method=method)
+        if method == "vb":
+            # the noise models' options (--noise=...) belong to VB's
+            opts = opts + [
+                {"name": s.name, "description": f"({name} noise) "
+                 + s.description, "optional": True, "default": s.default}
+                for name in known_noise_models()
+                for s in get_noise_class(name).get_options()]
         print(f"Usage information for method: {method}\n\n{desc}\n\nOptions:\n")
     else:
         opts, desc = fab.get_options()

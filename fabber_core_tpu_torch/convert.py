@@ -3,8 +3,9 @@
 The system has no trained weights; what crosses over is per-run state:
 the fixed-design sufficient statistics, the posterior (and the best
 state the detectors keep, a posterior too), the noise state, the
-convergence detectors' lane state, the whole-loop kernel's constant
-vector, and NLLS's optimizer state and fixed-design statistics. Inputs are
+convergence detectors' lane state, the whole-loop kernels' constant
+vectors, NLLS's optimizer state and fixed-design statistics, and the
+AR(1) noise model's state and statistics. Inputs are
 anything numpy can read (JAX arrays included, through np.asarray, so
 this module never imports jax); outputs are the port's tensors, and
 to_numpy goes back the other way.
@@ -16,6 +17,7 @@ import torch
 from .inference.convergence import ConvState
 from .inference.nlls import NLLSState, NLLSStats
 from .inference.vb import PosteriorState, VBResult
+from .noise.ar1 import Ar1DesignStats, Ar1NoiseState
 from .noise.white import DesignStats, WhiteNoiseState
 
 
@@ -26,12 +28,15 @@ def _tensor(x, device, dtype):
 
 def design_stats_from_numpy(stats, device="cpu", dtype=None):
     """The port's DesignStats from the JAX package's (any number of
-    noise groups: m0 [P,V], rtqr [Q,V], dtqr [Q,P,V], dtqd [Q,P,P]), or
-    the single-group statistics kernels' outputs (m0 [P,V], rtqr [1,V],
-    dtqr [P,V]) -> that tuple of tensors."""
-    if hasattr(stats, "dtqd"):
-        return DesignStats(*(_tensor(getattr(stats, f), device, dtype)
-                             for f in DesignStats._fields))
+    noise groups: m0 [P,V], rtqr [Q,V], dtqr [Q,P,V], dtqd [Q,P,P]), its
+    Ar1DesignStats from the JAX AR(1) noise model's (m0 [P,V], rmr
+    [S,V], dmr [S,P,V], dmd [S,P,P]), or the single-group statistics
+    kernels' outputs (m0 [P,V], rtqr [1,V], dtqr [P,V]) -> that tuple of
+    tensors."""
+    for cls in (DesignStats, Ar1DesignStats):
+        if hasattr(stats, cls._fields[-1]):
+            return cls(*(_tensor(getattr(stats, f), device, dtype)
+                         for f in cls._fields))
     m0, rtqr, dtqr = (np.asarray(x) for x in stats)
     p, nv = m0.shape
     return tuple(_tensor(x, device, dtype)
@@ -39,10 +44,14 @@ def design_stats_from_numpy(stats, device="cpu", dtype=None):
 
 
 def noise_state_from_numpy(state, device="cpu", dtype=None):
-    """The port's WhiteNoiseState from the JAX package's (.b, .c
-    [Q,V] or [Q,1])."""
-    return WhiteNoiseState(_tensor(state.b, device, dtype),
-                           _tensor(state.c, device, dtype))
+    """The port's noise state from the JAX package's: WhiteNoiseState
+    (.b, .c [Q,V] or [Q,1]) or Ar1NoiseState (alpha_means [A,V],
+    alpha_cov/alpha_prec [A,A,V], b/c [Q,V]; the prior's voxel axis a
+    singleton)."""
+    cls = Ar1NoiseState if hasattr(state, "alpha_means") \
+        else WhiteNoiseState
+    return cls(*(_tensor(getattr(state, f), device, dtype)
+                 for f in cls._fields))
 
 
 def conv_state_from_numpy(state, device="cpu"):
@@ -57,6 +66,13 @@ def nl_consts_from_numpy(consts):
     """The port's [4Q] float64 host vector (ops/fused_loop_nl.py
     pack_nl_consts) from the JAX kernel's [4Q,1] constant column."""
     return torch.as_tensor(np.asarray(consts, np.float64).reshape(-1))
+
+
+def ar_consts_from_numpy(consts):
+    """The port's float64 host vector (ops/fused_loop_ar.py
+    pack_ar_consts) from the JAX AR(1) kernel's [K*ROWS,1] constant
+    column, each value replicated on ROWS = 8 sublanes."""
+    return torch.as_tensor(np.asarray(consts, np.float64)[::8, 0].copy())
 
 
 def nlls_state_from_numpy(state, device="cpu", dtype=None):
@@ -81,8 +97,8 @@ def posterior_from_numpy(state, device="cpu", dtype=None):
     """The port's posterior from the JAX package's.
 
     state: a JAX PosteriorState (SoA planes: means [P,V], prec/cov
-    [P,P,V], prior_means/prior_prec [P,V] or [P,1], noise with .b/.c
-    [Q,V]) -> the port's PosteriorState of tensors; or a JAX VBResult
+    [P,P,V], prior_means/prior_prec [P,V] or [P,1], a white or AR(1)
+    noise state) -> the port's PosteriorState of tensors; or a JAX VBResult
     (voxel-major numpy arrays) -> the port's VBResult."""
     if hasattr(state, "noise_means"):
         return VBResult(**{f: (None if getattr(state, f, None) is None
@@ -99,8 +115,8 @@ def posterior_from_numpy(state, device="cpu", dtype=None):
 
 def to_numpy(obj):
     """Tensors -> numpy arrays, through tuples and NamedTuples
-    (PosteriorState, WhiteNoiseState, VBResult, NLLSState, statistics
-    tuples)."""
+    (PosteriorState, WhiteNoiseState, Ar1NoiseState, VBResult,
+    NLLSState, statistics tuples)."""
     if torch.is_tensor(obj):
         return obj.detach().cpu().numpy()
     if isinstance(obj, tuple):

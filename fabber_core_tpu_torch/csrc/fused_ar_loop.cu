@@ -1,0 +1,416 @@
+// fused_ar_loop: the whole fixed point of fixed-design VB with AR(1)
+// noise (1 or 2 interleaved echoes, no cross terms) from its sufficient
+// statistics, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel fabber_core_tpu/ops/fused_loop_ar.py
+// make_fused_ar_loop (its pallas_call at line 366; the step at lines
+// 133-230) in both its modes: maxits (MODE 0) and the in-kernel
+// pointzeroone / freduce detectors (MODE 1). Plain version:
+// fabber_core_tpu_torch/ops/fused_loop_ar.py fused_ar_loop_plain.
+//
+// One thread per voxel; the statistics m0 [P], r0'M_s r0 [S], D'M_s r0
+// [S][P] (S = 3 NQ, made beforehand by noise/ar1.py make_design_stats)
+// and the priors are read once, coalesced (voxels on the last axis), the
+// state lives in registers, and the posterior and the AR noise state are
+// written once. Per iteration, from the noise state (b, c, alpha mean,
+// alpha var) of each echo group n:
+//   theta  w = (phi_n, phi_n mu_n, phi_n (acov_n + mu_n^2)) per group,
+//          prec = sum_s w_s D'M_sD + diag(pp), the jitter-retry Cholesky
+//          (vb_device.cuh), cov, means = cov (sum_s w_s D'M_sy + pp pm)
+//          with the iteration-invariant D'M_sy = D'M_sr0 + D'M_sD m0
+//   noise  op_s = r0'M_sr0 - 2 d'D'M_sr0 + sum_aj D'M_sD_aj (d_a d_j +
+//          cov_aj), d = means - m0; aprec_n = ap_n + phi_n op_{3n+2},
+//          acov_n = 1/aprec_n, mu_n = -phi_n op_{3n+1} acov_n / 2,
+//          tmp1_n = op_{3n} + mu_n op_{3n+1} + (acov_n + mu_n^2)
+//          op_{3n+2}, b_n = 1/(tmp1_n/2 + 1/b0_n), c_n = c_post_n
+// starting from zero means, zero alpha means and the model-default noise
+// (b_init, c_init, acov_init, aprec_init). MODE 1 computes the degenerate
+// AR(1) ELBO at each new state (fused_loop_ar.py:202-223; its
+// Gamma-function terms in the host constant f_const) and runs the
+// detector's lane state machine (detectors.cuh) in the engine's order:
+// the update, F, the test; a lane whose test says done leaves its loop
+// (the TPU kernel's freeze). Neither pointzeroone nor freduce sets the
+// save flag (the launch refuses init_save), so the best copy of the
+// engine's save/revert protocol is always the engine-initial state: a
+// freduce revert selects it, and the kernel writes the initial planes
+// (zero means, prec, cov; the initial noise) with b negated, for the
+// engine to restore from its own initial posterior (fused_loop_ar.py:
+// 325-350). MODE 1 also writes the lane's last F and iteration count.
+//
+// Built with -fmad=false (ops/_cuda.py SOURCE_FLAGS): with the raw
+// degree-2 poly design (t^2 to 11,236 at T=106, D'M_sD ~ 1e10) the noise
+// quadratics op_s cancel heavily in float32, and which lanes land worst
+// depends on the rounding. Contracted multiply-adds put one lane's alpha
+// precision at 1.33x its bound in chip_smoke.py phase 3f; without them
+// the kernel computes the plain version's float32 arithmetic bit for bit
+// on the card, at +25-30% time (probes/fmad_kernel9.py, PERF.md row 9).
+//
+// Dropped TPU machinery: the ROWS=8 voxel fold and edge padding, the
+// sublane-replicated constant column (the constants ride by value in
+// ArConsts), the VMEM block picker and the float32 0/1-mask detector
+// transcription (real bools and selects here).
+//
+// What bounds it on this card: per voxel it reads (P + 3NQ + 3NQ P + 2P)
+// floats and writes (P + 2P^2 + 5NQ) (+2 in MODE 1): 47 planes at P=3,
+// NQ=1, 64 at NQ=2, 0.94 / 1.28 ms at 16,777,216 voxels at 3.35 TB/s. An
+// iteration is a P x P Cholesky and inverse plus ~2 S P^2 operations for
+// the precision and the quadratics (S = 3NQ): ~250 at P=3, NQ=1, ~400 at
+// NQ=2 (chip_smoke.py ar_ops), so ten iterations (0.6 / 1.0 ms at the
+// card's float32 rate) stay just below the bytes bound. A MODE 1 warp
+// runs until its slowest lane is done.
+
+#include "detectors.cuh"
+#include "vb_device.cuh"
+
+// Every (P, NQ) fused_ar_loop.cu is compiled for, as X(P, NQ); each gives
+// MODE 0 and MODE 1. This list is the one source of the C entry point's
+// dispatch and of fabber_ar_has_instance, which the engine's route gate
+// asks.
+#define FABBER_AR_INSTANCES(X) \
+  X(1, 1) X(1, 2) X(2, 1) X(2, 2) X(3, 1) X(3, 2) X(4, 1) X(4, 2)
+
+namespace {
+
+using namespace fabber;
+
+constexpr int kThreads = 128;
+constexpr int kAMaxP = 4;   // largest P of FABBER_AR_INSTANCES
+constexpr int kAMaxQ = 2;   // largest NQ of FABBER_AR_INSTANCES
+constexpr int kSpecs = 3;   // basis specs per echo group
+
+// Everything a launch passes by value: D'M_sD ([S][P][P] row-major at the
+// launch's P), the alpha prior precision diagonal, the per-group noise
+// constants and initial state, the loop controls and, in MODE 1, the
+// detector and the ELBO constants (110 floats of constants at P=4,
+// NQ=2).
+struct ArConsts {
+  float dmd[kSpecs * kAMaxQ * kAMaxP * kAMaxP];
+  float ap[2];                 // alpha prior precision ap00, ap11
+  float inv_b0[kAMaxQ];        // 1 / b0 of the noise prior
+  float c_post[kAMaxQ];        // (ntimes - 1)/2 + c0
+  float init_b[kAMaxQ];
+  float init_c[kAMaxQ];
+  float init_acov[kAMaxQ];
+  float init_aprec[kAMaxQ];
+  int n_iters;
+  long long V;
+  DetParams d;
+  float f_const;               // voxel-invariant ELBO terms at c_post
+  float lb_coeff;              // (ntimes - 1)/2 + c0, the log b coefficient
+};
+
+#define DMD(s, i, j) k.dmd[((s) * P + (i)) * P + (j)]
+
+// The lane's state: posterior (packed prec/cov) and the AR noise state
+// per echo group.
+template <int P, int NQ>
+struct ArState {
+  float means[P];
+  float prec[P * (P + 1) / 2];
+  float cov[P * (P + 1) / 2];
+  float b[NQ], c[NQ], amu[NQ], acov[NQ], aprec[NQ];
+};
+
+// The engine-initial state as the kernel writes it: zero posterior
+// planes (the TPU kernel's), zero alpha means and the model-default noise.
+template <int P, int NQ>
+__device__ __forceinline__ void initial_state(const ArConsts& k,
+                                              ArState<P, NQ>& st) {
+#pragma unroll
+  for (int i = 0; i < P; ++i) st.means[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < P * (P + 1) / 2; ++i) st.prec[i] = st.cov[i] = 0.f;
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    st.b[q] = k.init_b[q];
+    st.c[q] = k.init_c[q];
+    st.amu[q] = 0.f;
+    st.acov[q] = k.init_acov[q];
+    st.aprec[q] = k.init_aprec[q];
+  }
+}
+
+// One fixed-point step from s's noise into n; tmp1 receives each group's
+// phi-update quadratic and logdet log det prec (MODE 1's ELBO).
+template <int P, int NQ>
+__device__ __forceinline__ void ar_step(
+    const ArConsts& k, const float* m0, const float* rmr,
+    const float (&dmr)[kSpecs * NQ][P], const float (&dmy)[kSpecs * NQ][P],
+    const float* pm, const float* pp, const ArState<P, NQ>& s,
+    ArState<P, NQ>& n, float* tmp1, float& logdet) {
+  constexpr int S = kSpecs * NQ;
+  constexpr int NT = P * (P + 1) / 2;
+  float sici[NQ], w[S];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    sici[q] = s.b[q] * s.c[q];
+    w[3 * q] = sici[q];
+    w[3 * q + 1] = sici[q] * s.amu[q];
+    w[3 * q + 2] = sici[q] * (s.acov[q] + s.amu[q] * s.amu[q]);
+  }
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      float v = 0.f;
+#pragma unroll
+      for (int t = 0; t < S; ++t) v = v + w[t] * DMD(t, i, j);
+      if (i == j) v = v + pp[i];
+      n.prec[tri(i, j)] = v;
+    }
+  }
+  float ch[NT];
+  cholesky_jittered<P>(n.prec, ch);
+  inverse_from_chol<P>(ch, n.cov);
+  float rhs[P];
+#pragma unroll
+  for (int a = 0; a < P; ++a) {
+    float v = 0.f;
+#pragma unroll
+    for (int t = 0; t < S; ++t) v = v + w[t] * dmy[t][a];
+    rhs[a] = v + pp[a] * pm[a];
+  }
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    float m = 0.f;
+#pragma unroll
+    for (int j = 0; j < P; ++j) m = m + n.cov[tri(i, j)] * rhs[j];
+    n.means[i] = m;
+  }
+
+  // noise quadratics: op_s = k'M_s k + tr(cov D'M_s D), with the
+  // packed d d' + cov shared by every spec
+  float d[P], ddc[NT], op[S];
+#pragma unroll
+  for (int a = 0; a < P; ++a) d[a] = n.means[a] - m0[a];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) ddc[tri(i, j)] = d[i] * d[j] + n.cov[tri(i, j)];
+  }
+#pragma unroll
+  for (int t = 0; t < S; ++t) {
+    float cross = 0.f;
+#pragma unroll
+    for (int a = 0; a < P; ++a) cross = cross + d[a] * dmr[t][a];
+    float acc = rmr[t] - 2.f * cross;
+#pragma unroll
+    for (int a = 0; a < P; ++a) {
+#pragma unroll
+      for (int j = 0; j < P; ++j) acc = acc + DMD(t, a, j) * ddc[tri(a, j)];
+    }
+    op[t] = acc;
+  }
+  // alpha updates (diagonal), then phi with the new alpha marginals
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const float aprec = k.ap[q] + sici[q] * op[3 * q + 2];
+    const float acov = 1.f / aprec;
+    const float amu = -0.5f * sici[q] * op[3 * q + 1] * acov;
+    const float c2 = acov + amu * amu;
+    const float t1 = op[3 * q] + amu * op[3 * q + 1] + c2 * op[3 * q + 2];
+    n.aprec[q] = aprec;
+    n.acov[q] = acov;
+    n.amu[q] = amu;
+    n.b[q] = 1.f / (t1 * 0.5f + k.inv_b0[q]);
+    n.c[q] = k.c_post[q];
+    tmp1[q] = t1;
+  }
+  float ld = 0.f;
+#pragma unroll
+  for (int i = 0; i < P; ++i) ld = ld + 2.f * logf(ch[tri(i, i)]);
+  logdet = ld;
+}
+
+// MODE 0: maxits; 1: pointzeroone / freduce.
+template <int P, int NQ, int MODE>
+__global__ void __launch_bounds__(kThreads)
+fused_ar_loop_kernel(const ArConsts k, const float* __restrict__ m0_in,
+                     const float* __restrict__ rmr_in,
+                     const float* __restrict__ dmr_in,
+                     const float* __restrict__ pm_in,
+                     const float* __restrict__ pp_in,
+                     float* __restrict__ means_out,
+                     float* __restrict__ prec_out,
+                     float* __restrict__ cov_out,
+                     float* __restrict__ amu_out,
+                     float* __restrict__ acov_out,
+                     float* __restrict__ aprec_out,
+                     float* __restrict__ b_out, float* __restrict__ c_out,
+                     float* __restrict__ f_out,
+                     float* __restrict__ its_out) {
+  constexpr int S = kSpecs * NQ;
+  const long long V = k.V;
+  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= V) return;
+
+  float m0[P], rmr[S], dmr[S][P], pm[P], pp[P];
+#pragma unroll
+  for (int a = 0; a < P; ++a) {
+    m0[a] = m0_in[(size_t)a * V + v];
+    pm[a] = pm_in[(size_t)a * V + v];
+    pp[a] = pp_in[(size_t)a * V + v];
+  }
+#pragma unroll
+  for (int t = 0; t < S; ++t) {
+    rmr[t] = rmr_in[(size_t)t * V + v];
+#pragma unroll
+    for (int a = 0; a < P; ++a) dmr[t][a] = dmr_in[(size_t)(t * P + a) * V + v];
+  }
+  // D'M_s y = D'M_s r0 + (D'M_s D) m0, iteration-invariant
+  float dmy[S][P];
+#pragma unroll
+  for (int t = 0; t < S; ++t) {
+#pragma unroll
+    for (int a = 0; a < P; ++a) {
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < P; ++j) s = s + DMD(t, a, j) * m0[j];
+      dmy[t][a] = dmr[t][a] + s;
+    }
+  }
+
+  ArState<P, NQ> st;
+  initial_state<P, NQ>(k, st);
+  float tmp1[NQ], logdet;
+  bool sel_init = false;
+  float f_lane = 0.f;
+  int its = 0;
+  if constexpr (MODE == 0) {
+    for (int it = 0; it < k.n_iters; ++it)
+      ar_step<P, NQ>(k, m0, rmr, dmr, dmy, pm, pp, st, st, tmp1, logdet);
+  } else {
+    // loop-invariant ELBO pieces: part3 and the surviving alpha-prior
+    // logs of the updated alphas
+    float f_base = 0.f;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) f_base = f_base + 0.5f * logf(k.ap[q]);
+#pragma unroll
+    for (int i = 0; i < P; ++i) f_base = f_base + 0.5f * logf(pp[i]);
+    DetState cv = det_init(k.d);
+    f_lane = cv.prev_f;
+    for (int it = 0; it < k.n_iters && !cv.done; ++it) {
+      ar_step<P, NQ>(k, m0, rmr, dmr, dmy, pm, pp, st, st, tmp1, logdet);
+      float dmsum = 0.f;
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        const float dm = st.means[i] - pm[i];
+        dmsum = dmsum + (dm * dm + st.cov[tri(i, i)]) * pp[i];
+      }
+      float f = k.f_const + f_base - 0.5f * logdet - 0.5f * dmsum;
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const float sici = st.b[q] * k.c_post[q];
+        f = f - 0.5f * logf(st.aprec[q]) + k.lb_coeff * logf(st.b[q]) -
+            0.5f * sici * tmp1[q] - st.b[q] * k.c_post[q] * k.inv_b0[q] -
+            0.5f * k.ap[q] * (st.amu[q] * st.amu[q] + st.acov[q]);
+      }
+      f_lane = f;
+      det_test(k.d, cv, f);
+    }
+    // the engine's finalize: a revert selects the best copy, which is
+    // the engine-initial state (the save flag is never set)
+    if (cv.revert) {
+      initial_state<P, NQ>(k, st);
+      sel_init = true;
+    }
+    its = cv.its;
+  }
+
+#pragma unroll
+  for (int i = 0; i < P; ++i) means_out[(size_t)i * V + v] = st.means[i];
+  store_full<P>(st.prec, prec_out, V, v);
+  store_full<P>(st.cov, cov_out, V, v);
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const size_t o = (size_t)q * V + v;
+    amu_out[o] = st.amu[q];
+    acov_out[o] = st.acov[q];
+    aprec_out[o] = st.aprec[q];
+    b_out[o] = sel_init ? -st.b[q] : st.b[q];
+    c_out[o] = st.c[q];
+  }
+  if constexpr (MODE == 1) {
+    f_out[v] = f_lane;
+    its_out[v] = (float)its;
+  }
+}
+
+#undef DMD
+
+// ---- launch and C entry points ------------------------------------------
+
+template <int P, int NQ>
+int launch_ar(const ArConsts& k, const float* const* ins, float* const* outs,
+              cudaStream_t stream) {
+  const unsigned grid = (unsigned)((k.V + kThreads - 1) / kThreads);
+  if (k.d.kind == kMaxits) {
+    fused_ar_loop_kernel<P, NQ, 0><<<grid, kThreads, 0, stream>>>(
+        k, ins[0], ins[1], ins[2], ins[3], ins[4], outs[0], outs[1], outs[2],
+        outs[3], outs[4], outs[5], outs[6], outs[7], outs[8], outs[9]);
+  } else {
+    fused_ar_loop_kernel<P, NQ, 1><<<grid, kThreads, 0, stream>>>(
+        k, ins[0], ins[1], ins[2], ins[3], ins[4], outs[0], outs[1], outs[2],
+        outs[3], outs[4], outs[5], outs[6], outs[7], outs[8], outs[9]);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// 1 when fused_ar_loop.cu is compiled for (p, nq), else 0.
+extern "C" int fabber_ar_has_instance(int p, int nq) {
+#define FABBER_HAS(NP, NQ) \
+  if (p == NP && nq == NQ) return 1;
+  FABBER_AR_INSTANCES(FABBER_HAS)
+#undef FABBER_HAS
+  return 0;
+}
+
+// Kernel 9. (p, nq): one of FABBER_AR_INSTANCES. consts_host [3*nq*p*p +
+// 2 + 6*nq] (host, by value: D'M_sD, ap00, ap11, then per group 1/b0,
+// c_post, init_b, init_c, init_acov, init_aprec). det_kind: 0 maxits,
+// 1 pointzeroone, 2 freduce (detectors.cuh), with the detector's
+// tolerance, max_its, max_trials and initial save flag (must be 0), and
+// the ELBO constants f_const, lb_coeff (unread under maxits). m0 [p,V],
+// rmr [3nq,V], dmr [3nq,p,V], pm, pp [p,V] (device). Outputs (device,
+// preallocated): means [p,V], prec, cov [p,p,V], amu, acov, aprec, b, c
+// [nq,V]; under a detector f and its [1,V] (else null).
+extern "C" int fabber_fused_ar_loop(
+    int p, int nq, int n_iters, const float* consts_host, int det_kind,
+    float det_tol, int det_max_its, int det_max_trials, int det_init_save,
+    float f_const, float lb_coeff, const float* m0, const float* rmr,
+    const float* dmr, const float* pm, const float* pp, long long V,
+    float* means, float* prec, float* cov, float* amu, float* acov,
+    float* aprec, float* b, float* c, float* f, float* its, void* stream) {
+  if (p < 1 || p > kAMaxP || nq < 1 || nq > kAMaxQ || n_iters < 1 || V < 1 ||
+      det_kind < kMaxits || det_kind > kFreduce ||
+      (det_kind != kMaxits && (det_init_save != 0 || !f || !its)))
+    return (int)cudaErrorInvalidValue;
+  ArConsts k = {};
+  const int n = kSpecs * nq * p * p;
+  for (int i = 0; i < n; ++i) k.dmd[i] = consts_host[i];
+  k.ap[0] = consts_host[n];
+  k.ap[1] = consts_host[n + 1];
+  for (int q = 0; q < nq; ++q) {
+    k.inv_b0[q] = consts_host[n + 2 + q];
+    k.c_post[q] = consts_host[n + 2 + nq + q];
+    k.init_b[q] = consts_host[n + 2 + 2 * nq + q];
+    k.init_c[q] = consts_host[n + 2 + 3 * nq + q];
+    k.init_acov[q] = consts_host[n + 2 + 4 * nq + q];
+    k.init_aprec[q] = consts_host[n + 2 + 5 * nq + q];
+  }
+  k.n_iters = n_iters;
+  k.V = V;
+  k.d = {det_kind, det_tol, det_max_its, det_max_trials, det_init_save};
+  k.f_const = f_const;
+  k.lb_coeff = lb_coeff;
+  const float* const ins[5] = {m0, rmr, dmr, pm, pp};
+  float* const outs[10] = {means, prec, cov, amu, acov, aprec, b, c, f, its};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FABBER_LAUNCH(NP, NQ) \
+  if (p == NP && nq == NQ) return launch_ar<NP, NQ>(k, ins, outs, s);
+  FABBER_AR_INSTANCES(FABBER_LAUNCH)
+#undef FABBER_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}

@@ -25,6 +25,12 @@ interacting use_* flags (vb.py:340-660). The live ones:
                   (ops/fused_loop.py; vb.py:1050-1130), maxits:
                   engine-kernel=pallas-loop, and dtype=bf16 with several
                   noise groups;
+  pallas-loop-ar  AR(1) noise (1 or 2 echoes, no cross terms, the
+                  model-default noise prior) at float32: the statistics
+                  in plain torch (noise/ar1.py make_design_stats), then
+                  the whole fixed point in one launch of the AR(1) kernel
+                  (ops/fused_loop_ar.py; vb.py:1328-1494), maxits or an
+                  in-kernel pointzeroone / freduce detector;
   xla             the sufficient-statistics route (vb.py:954-1047 and
                   2028-2048 with stats): make_design_stats once, then
                   the engine's loop on [P,V] planes in plain torch, where
@@ -32,7 +38,8 @@ interacting use_* flags (vb.py:340-660). The live ones:
                   float64 (the CLI's default), save-free-energy-history,
                   engine-kernel=xla, continuation (continue-from-mvn or
                   programmatic), and whatever the fixed-design kernels'
-                  gates refuse;
+                  gates refuse (for AR noise: cross terms, a noise prior
+                  from a file, trialmode, lm);
   pallas-loop-nl  time-local nonlinear models (exp/biexp, poly with a
                   non-identity transform): the whole-loop kernel
                   (ops/fused_loop_nl.py; vb.py:593-660, 1132-1326),
@@ -44,7 +51,8 @@ interacting use_* flags (vb.py:340-660). The live ones:
   xla-generic     the generic-Jacobian loop in plain torch
                   (vb.py:954-1047 with stats=None), where the JAX
                   package uses XLA: float64, linearization=fd, models
-                  without a time_signal. No kernel, by design.
+                  without a time_signal, AR noise on a nonlinear model or
+                  with fixed-design-route=direct. No kernel, by design.
 
 The per-iteration routes run the engine's own loop: a static trip
 count under maxits, else a while loop over the lanes' detector state
@@ -56,7 +64,8 @@ _select_route applies the JAX gates in the JAX engine's order (its
 gates send to an unported route raises NotImplementedError naming it.
 On "cuda" a kernel route also needs its kernels compiled for the run's
 shape (csrc/vb_device.cuh FABBER_NL_INSTANCES for the model functors,
-csrc/fused_whole.cu FABBER_WHOLE_INSTANCES for (P, Q)); a run outside
+csrc/fused_whole.cu FABBER_WHOLE_INSTANCES for (P, Q), csrc/
+fused_ar_loop.cu FABBER_AR_INSTANCES for AR's (P, echoes)); a run outside
 them raises at construction. Choosing a route is a decision made before
 any launch, never a fallback after a failure.
 """
@@ -71,10 +80,14 @@ from .. import resolve_device
 from ..exceptions import InvalidOptionValue
 from ..models.base import resolve_parameters, PRIOR_IMAGE
 from ..noise import get_noise_class
+from ..noise.ar1 import Ar1NoiseState
 from ..noise.white import DesignStats, WhiteNoiseState
 from ..ops import smallmat as sm
 from ..ops.fused_loop import (fused_vb_loop, pack_loop_consts,
                               whole_instantiated)
+from ..ops.fused_loop_ar import (DETECTOR_KINDS as AR_DETECTORS,
+                                 ar_elbo_consts, ar_instantiated,
+                                 fused_ar_loop, pack_ar_consts)
 from ..ops.fused_loop_nl import fused_nl_loop, pack_nl_consts
 from ..ops.fused_spectral import (MAX_P, pack_mxu_consts, pack_solve_consts,
                                   pack_spectral_consts, spectral_core,
@@ -116,7 +129,8 @@ ROUTES = {
                    "ROADMAP Queue 1 item 8"),
     "spectral": ("spectral eigenbasis fixed point (pure XLA; bf16 storage "
                  "with one noise group)", "ROADMAP Queue 1 item 8"),
-    "pallas-loop-ar": ("whole-loop AR(1) kernel", "ROADMAP Queue 2 item 9"),
+    "pallas-loop-ar": ("whole-loop AR(1) fixed-design kernel (plain-torch "
+                       "statistics input)", None),
     "motion-correction": ("VB with interleaved motion correction "
                           "(mcsteps > 0)", "ROADMAP Queue 1 item 17"),
     "noprior-output": ("likelihood-only posterior output "
@@ -141,7 +155,7 @@ WHOLE_ROUTES = ("pallas-whole", "pallas-loop")
 # the fixed-design kernel routes (a programmatic initial posterior
 # takes "xla" instead: the kernels start from the model default)
 DESIGN_KERNEL_ROUTES = ("spectral-whole", "spectral-fused",
-                        "spectral-xstats") + WHOLE_ROUTES
+                        "spectral-xstats", "pallas-loop-ar") + WHOLE_ROUTES
 # the detectors the spectral kernels run in-kernel (vb.py:568-570)
 SPECTRAL_DETECTORS = ("pointzeroone", "freduce", "trialmode")
 SPECTRAL_IMPLS = {"split": "spectral-whole", "fused": "spectral-fused",
@@ -154,7 +168,7 @@ class PosteriorState(NamedTuple):
     cov: Any         # [P,P,V]
     prior_means: Any  # [P,V]
     prior_prec: Any  # [P,V] diagonal prior precision
-    noise: Any       # noise-model state (WhiteNoiseState)
+    noise: Any       # noise-model state (WhiteNoiseState, Ar1NoiseState)
 
 
 class VBLoopState(NamedTuple):
@@ -350,6 +364,13 @@ class VBInference:
                        and hasattr(model, "time_signal"))
         if ts_eligible and mode == "pallas":
             self.design = None
+        if (self.design is not None
+                and options.get_string("fixed-design-route", "stats")
+                != "stats"
+                and not getattr(self.noise, "fixed_design_direct", True)):
+            # a statistics-only noise model (AR) has no direct design
+            # route: the generic-Jacobian route instead (vb.py:376-380)
+            self.design = None
         self._ts_eligible = ts_eligible and self.design is None
 
         self.route = self._select_route()
@@ -388,6 +409,7 @@ class VBInference:
             return feature
         det = type(self.detector).name
         p, nq, nt = self.nparams, self.noise.nphis, self.nt
+        white, ar = self.noise.name == "white", self.noise.name == "ar"
         f32 = self.dtype == torch.float32
         f32_store = self.store_dtype == torch.float32
         default_post = o.get_string("noise-initial-posterior",
@@ -395,15 +417,16 @@ class VBInference:
         # loop_gates_common (vb.py:410-420)
         common = f32 and not self.is_lm and not self.save_fhist \
             and default_post and not self.continued
-        # spectral_ok (vb.py:465-467): one phi group, unlocked stdev
-        spectral_ok = nq == 1 and self.noise.locked_noise_stdev <= 0
+        # spectral_ok (vb.py:465-467): white noise, one phi group,
+        # unlocked stdev (AR noise has no locked_noise_stdev)
+        spectral_ok = white and nq == 1 and self.noise.locked_noise_stdev <= 0
         # sw_core (vb.py:571-581): f32 storage, P <= 8 template
         # instances, the (2P+1) x T rows in one block's shared memory
         sw_core = (common and spectral_ok and f32_store
                    and det in ("maxits",) + SPECTRAL_DETECTORS
                    and p <= MAX_P and (2 * p + 1) * nt * 4 <= SMEM_BYTES)
         # whole_core (vb.py:494-514): admits lm; the (P+QP+Q) x T rows
-        whole_core = (f32 and f32_store and not self.save_fhist
+        whole_core = (white and f32 and f32_store and not self.save_fhist
                       and default_post and not self.continued
                       and det in ("maxits",) + WHOLE_DETECTORS
                       and smem_bytes(p, nq, nt) <= SMEM_BYTES)
@@ -411,8 +434,19 @@ class VBInference:
         # apply, auto prefers them to the whole-program kernel
         spectral_covers = spectral_ok and common \
             and det in ("maxits",) + SPECTRAL_DETECTORS
-        loop_eligible = common and det == "maxits" \
-            and mode in ("auto", "pallas-loop", "spectral")
+        # loop_noise_ok and ar_fdet_ok (vb.py:389-449): white noise, or
+        # AR(1) without cross terms under the model-default noise prior,
+        # whose kernel also runs pointzeroone / freduce. The JAX VMEM
+        # picker (pick_block) is not ported: kernel 9 keeps a voxel's
+        # state in registers and admits every (P, echoes) of its
+        # instances (_require_kernel_instance)
+        loop_noise_ok = white or (
+            ar and nq in (1, 2) and self.noise.nalphas == 2
+            and o.get_string("noise-initial-prior",
+                             "modeldefault") == "modeldefault")
+        ar_fdet_ok = common and ar and det in AR_DETECTORS
+        loop_eligible = ((common and det == "maxits") or ar_fdet_ok) \
+            and loop_noise_ok and mode in ("auto", "pallas-loop", "spectral")
         spectral_fdet = common and spectral_ok \
             and det in SPECTRAL_DETECTORS and mode in ("auto", "spectral")
         if mode == "spectral-whole":
@@ -428,7 +462,7 @@ class VBInference:
                              and mode != "pallas-loop"):
             return "spectral"
         if loop_eligible and mode != "spectral":
-            return "pallas-loop"
+            return "pallas-loop-ar" if ar else "pallas-loop"
         return "xla"
 
     def _spectral_impl(self):
@@ -476,6 +510,15 @@ class VBInference:
         if self.device.type != "cuda":
             return
         nq = self.noise.nphis
+        if self.route == "pallas-loop-ar":
+            if ar_instantiated(self.nparams, nq):
+                return
+            raise NotImplementedError(
+                f"P={self.nparams} with {nq} echo group(s) is not among the "
+                "AR(1) kernel's instances (csrc/fused_ar_loop.cu "
+                "FABBER_AR_INSTANCES), so the 'pallas-loop-ar' route "
+                f"({ROUTES[self.route][0]}) cannot run it on the card; "
+                "device='cpu' runs the route's plain version")
         if self.route in WHOLE_ROUTES:
             if whole_instantiated(self.nparams, nq):
                 return
@@ -507,7 +550,7 @@ class VBInference:
         det = type(self.detector).name
         if det != "maxits" and self.route in (
                 "spectral-whole", "spectral-fused", "spectral-xstats",
-                "pallas-whole", "pallas-loop-nl"):
+                "pallas-whole", "pallas-loop-nl", "pallas-loop-ar"):
             return f"{ROUTES[self.route][0]}, in-kernel {det} detector"
         return ROUTES[self.route][0]
 
@@ -561,7 +604,7 @@ class VBInference:
         from ..io import mvn as mvn_io
         means, cov = mvn_io.load_matrix(filename)
         state = self.noise.state_from_mvn(means[None, :], cov[None, :, :])
-        return WhiteNoiseState(*(
+        return type(default_state)(*(
             x.to(self.dtype).to(self.device).expand_as(d).contiguous()
             for x, d in zip(state, default_state)))
 
@@ -592,7 +635,7 @@ class VBInference:
             chol, _ = sm.cholesky_jittered(cov)
             prec = sm.inverse_from_chol(chol)
             if continue_noise is not None:
-                noise_post = WhiteNoiseState(*(
+                noise_post = type(noise_post)(*(
                     torch.as_tensor(np.asarray(x), dtype=self.dtype,
                                     device=self.device)
                     for x in continue_noise))
@@ -828,6 +871,94 @@ class VBInference:
             its=torch.full((nv,), n_iters, dtype=torch.int32,
                            device=self.device),
             done=torch.ones(nv, dtype=torch.bool, device=self.device))
+        return s._replace(it=n_iters, post=post, centre=means, f=f,
+                          conv=conv)
+
+    def ar_loop_args(self):
+        """Kernel 9's inputs from make_design_stats (plain torch, as the
+        JAX package leaves it to XLA): (m0, rmr, dmr, consts,
+        prior_means, prior_prec), and the Ar1DesignStats."""
+        self._ensure_noise_prior()
+        nq = self.noise.nphis
+        _, post1 = self.noise.initial_state(1, self.dtype)
+        stats = self.noise.make_design_stats(self._design_tensor(),
+                                             self.data)
+        consts = pack_ar_consts(
+            stats.dmd, self.noise_prior.alpha_prec, self.noise_prior.b,
+            self.noise_prior.c, self.noise.ntimes, post1.b[:, 0],
+            post1.c[:, 0], [post1.alpha_cov[n, n, 0] for n in range(nq)],
+            [post1.alpha_prec[n, n, 0] for n in range(nq)], nq)
+        planes = tuple(x.to(self.dtype).contiguous()
+                       for x in (stats.m0, stats.rmr, stats.dmr))
+        return planes + (consts,) + self._prior_planes(), stats
+
+    def _ar_fdet_consts(self):
+        """Kernel 9's detector dict (vb.py:1349-1374): the detector and
+        the host float64 constants of the degenerate AR(1) ELBO."""
+        self._ensure_noise_prior()
+        f_const, lb_coeff = ar_elbo_consts(
+            self.nparams, self.noise.nphis, float(self.noise.ntimes),
+            float(self.noise_prior.b.reshape(-1)[0]),
+            float(self.noise_prior.c.reshape(-1)[0]))
+        return {"det": self.detector, "f_const": f_const,
+                "lb_coeff": lb_coeff}
+
+    def _run_ar_loop(self, s):
+        """The AR(1) whole-loop kernel (vb.py:1328-1494): the statistics
+        in plain torch, then the fixed point in one launch, maxits or an
+        in-kernel pointzeroone / freduce detector at the while loop's
+        cap. Lanes whose selected state is the engine-initial posterior
+        come back tagged (b < 0) and are restored from s, prior planes
+        included; the 2x2 alpha MVN is reassembled (with one echo
+        alpha_2 keeps its prior); F is recomputed from the statistics at
+        the final state."""
+        fdet = type(self.detector).name != "maxits"
+        n_iters = self.max_iter_cap if fdet \
+            else int(self.detector.max_iterations)
+        nv, nq = self.nvoxels, self.noise.nphis
+        args, stats = self.ar_loop_args()
+        prior_means, prior_prec = args[4], args[5]
+        outs = fused_ar_loop(*args, n_iters,
+                             self._ar_fdet_consts() if fdet else None)
+        means, prec, cov, amu, acov, aprec, nb, nc = outs[:8]
+        if fdet:
+            sel_init = nb[0] < 0
+            nb = torch.abs(nb)
+            n0 = s.post.noise
+            means, prec, cov, nb, nc, amu, acov, aprec, prior_means, \
+                prior_prec = (_lane_where(sel_init, old, new) for old, new in (
+                    (s.post.means, means), (s.post.prec, prec),
+                    (s.post.cov, cov), (n0.b, nb), (n0.c, nc),
+                    (n0.alpha_means[:nq], amu),
+                    (torch.stack([n0.alpha_cov[n, n] for n in range(nq)]),
+                     acov),
+                    (torch.stack([n0.alpha_prec[n, n] for n in range(nq)]),
+                     aprec),
+                    (s.post.prior_means, prior_means),
+                    (s.post.prior_prec, prior_prec)))
+        # the 2x2 alpha MVN: alpha_n is updated by echo group n; with one
+        # echo alpha_2 keeps its prior
+        ap11 = float(self.noise_prior.alpha_prec[1, 1, 0])
+        zero = torch.zeros_like(amu[0])
+        acv = list(acov) + [torch.full_like(zero, 1.0 / ap11)] * (2 - nq)
+        apr = list(aprec) + [torch.full_like(zero, ap11)] * (2 - nq)
+        noise_post = Ar1NoiseState(
+            alpha_means=torch.stack(list(amu) + [zero] * (2 - nq)),
+            alpha_cov=torch.stack([torch.stack([acv[0], zero]),
+                                   torch.stack([zero, acv[1]])]),
+            alpha_prec=torch.stack([torch.stack([apr[0], zero]),
+                                    torch.stack([zero, apr[1]])]),
+            b=nb, c=nc)
+        post = PosteriorState(means, prec, cov, prior_means, prior_prec,
+                              noise_post)
+        # fprior is zero for the priors this route admits
+        f = self.noise.free_energy_stats(
+            noise_post, self.noise_prior, means, prec, cov, prior_means,
+            prior_prec, stats) if self.need_f else s.f
+        its = outs[9][0].to(torch.int32) if fdet else torch.full(
+            (nv,), n_iters, dtype=torch.int32, device=self.device)
+        conv = s.conv._replace(
+            its=its, done=torch.ones(nv, dtype=torch.bool, device=self.device))
         return s._replace(it=n_iters, post=post, centre=means, f=f,
                           conv=conv)
 
@@ -1096,6 +1227,8 @@ class VBInference:
             final = self._run_whole(s)
         elif route == "pallas-loop":
             final = self._run_loop_kernel(s)
+        elif route == "pallas-loop-ar":
+            final = self._run_ar_loop(s)
         elif route == "pallas-loop-nl":
             final = self._run_nl_loop(s)
         else:

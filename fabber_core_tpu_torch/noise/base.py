@@ -10,9 +10,6 @@ from ..exceptions import InvalidOptionValue
 
 _NOISE = {}
 
-# noise models of the JAX package the port does not have yet
-_UNPORTED_NOISE = {"ar": "ROADMAP Queue 1 item 15"}
-
 
 def register_noise(cls):
     _NOISE[cls.name] = cls
@@ -23,10 +20,6 @@ def get_noise_class(name):
     try:
         return _NOISE[name]
     except KeyError:
-        if name in _UNPORTED_NOISE:
-            raise NotImplementedError(
-                f"noise model '{name}' is not ported to "
-                f"fabber_core_tpu_torch yet ({_UNPORTED_NOISE[name]})")
         raise InvalidOptionValue("noise", name, "Unrecognized noise type")
 
 

@@ -25,15 +25,17 @@ from ..exceptions import FabberError
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("spectral_stats.cu", "spectral_core.cu", "spectral_fused.cu",
            "fused_nl_loop.cu", "fused_vb_iter.cu", "fused_whole.cu",
-           "fused_nlls.cu")
+           "fused_nlls.cu", "fused_ar_loop.cu")
 HEADERS = ("vb_device.cuh", "detectors.cuh", "spectral_device.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # flags of one source on top of NVCC_FLAGS: the NLLS kernel contracts no
 # multiply-add, so its fresh and two-phase modes compute the same bits
-# (csrc/fused_nlls.cu)
-SOURCE_FLAGS = {"fused_nlls.cu": ["-fmad=false"]}
+# (csrc/fused_nlls.cu); the AR(1) kernel neither, so it computes its
+# plain version's float32 arithmetic bit for bit (csrc/fused_ar_loop.cu)
+SOURCE_FLAGS = {"fused_nlls.cu": ["-fmad=false"],
+                "fused_ar_loop.cu": ["-fmad=false"]}
 
 # csrc/detectors.cuh DetectorKind
 DETECTOR_CODES = {"maxits": 0, "pointzeroone": 1, "freduce": 2,
@@ -147,6 +149,12 @@ def load():
         lib.fabber_fused_nlls.restype = i32
         lib.fabber_nlls_has_instance.argtypes = [i32, i32]
         lib.fabber_nlls_has_instance.restype = i32
+        lib.fabber_fused_ar_loop.argtypes = [
+            i32, i32, i32, vp, i32, f32, i32, i32, i32, f32, f32, vp, vp, vp,
+            vp, vp, i64] + [vp] * 10 + [vp]
+        lib.fabber_fused_ar_loop.restype = i32
+        lib.fabber_ar_has_instance.argtypes = [i32, i32]
+        lib.fabber_ar_has_instance.restype = i32
         _lib = lib
     return _lib
 
@@ -167,6 +175,12 @@ def has_nlls_instance(kind, p):
     """True when the NLLS kernel is compiled for this model functor kind
     and P (every (kind, P) of csrc/vb_device.cuh FABBER_NL_INSTANCES)."""
     return bool(load().fabber_nlls_has_instance(kind, p))
+
+
+def has_ar_instance(p, nq):
+    """True when the AR(1) kernel (kernel 9) is compiled for P and nq
+    echo groups (csrc/fused_ar_loop.cu FABBER_AR_INSTANCES)."""
+    return bool(load().fabber_ar_has_instance(p, nq))
 
 
 def _raise_on(err, name):
@@ -319,3 +333,21 @@ def launch_nlls(km, tcodes, consts, mode, marquardt, max_its, dof, params0,
             params0.data_ptr(), data.data_ptr(), w.data_ptr(), ptr(state),
             nt, nv, *(ptr(o) for o in outs), _stream(data.device))
     _raise_on(err, "fused_nlls")
+
+
+def launch_ar_loop(p, nq, n_iters, consts, detector, elbo, m0, rmr, dmr, pm,
+                   pp, outs):
+    """consts: [3nq*P*P + 2 + 6nq] float32 host tensor (pack_ar_consts);
+    detector: a pointzeroone / freduce detector object or None (maxits);
+    elbo: (f_const, lb_coeff) or None; outs: the eight planes, then f
+    and its under a detector."""
+    lib = load()
+    nv = m0.shape[-1]
+    f_const, lb_coeff = elbo if elbo is not None else (0.0, 0.0)
+    ptrs = [o.data_ptr() for o in outs] + [0] * (10 - len(outs))
+    with torch.cuda.device(m0.device):
+        err = lib.fabber_fused_ar_loop(
+            p, nq, n_iters, consts.data_ptr(), *detector_args(detector),
+            f_const, lb_coeff, m0.data_ptr(), rmr.data_ptr(), dmr.data_ptr(),
+            pm.data_ptr(), pp.data_ptr(), nv, *ptrs, _stream(m0.device))
+    _raise_on(err, "fused_ar_loop")

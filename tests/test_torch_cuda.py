@@ -240,7 +240,7 @@ def assert_near_f64(k, r32, r64, per_lane=True):
     at most 0.72 of the bound relative to the max on the H100."""
     e_means = sd_err(k[0], r64[0], r64[2])
     assert e_means <= max(1e-3, 2 * sd_err(r32[0], r64[0], r64[2])), e_means
-    for i in range(1, 7):
+    for i in range(1, len(k)):
         assert k[i].shape == r64[i].shape
         e = rel(k[i], r64[i])
         assert e <= max(1e-3, 2 * rel(r32[i], r64[i])), (i, e)
@@ -1001,3 +1001,169 @@ def test_nlls_wrapper_refuses_what_no_kernel_takes(cuda):
         fn.fused_nlls_loop(c["model"], c["tr"], c["centre"], c["data"],
                            c["tmask"], 5, state=torch.zeros(3, 64,
                                                             device=cuda))
+
+
+# -- the AR(1) whole-loop kernel (fused_ar_loop.cu, kernel 9) ------------------
+
+AR_INSTANCES = [(p, nq) for p in (1, 2, 3, 4) for nq in (1, 2)]
+AR_IDS = [f"P{p}-Q{nq}" for p, nq in AR_INSTANCES]
+
+
+def ar_inputs(p, nq, nv, device, seed=0):
+    """Kernel 9's inputs: the plain statistics (float32, on the card) of
+    a poly design scaled to [0, 1] and AR(1) data (alpha 0.4 per echo,
+    noise sd log-uniform over 1e-2..1 per voxel), the constants of the
+    model-default noise, weak priors around random means."""
+    from fabber_core_tpu_torch.noise.ar1 import Ar1NoiseModel
+    from fabber_core_tpu_torch.ops import fused_loop_ar as fa
+    from fabber_core_tpu_torch.options import RunOptions
+    rng = np.random.default_rng(seed + 10 * p + nq)
+    nt = 30 * nq
+    d = (np.arange(1, nt + 1.0)[:, None] / nt) ** np.arange(p)[None]
+    e = rng.standard_normal((nt, nv))
+    for k in range(nq, nt):
+        e[k] += 0.4 * e[k - nq]
+    y = d @ rng.uniform(-1, 1, (p, nv)) + 10.0 ** rng.uniform(-2, 0, nv) * e
+    nm = Ar1NoiseModel(RunOptions({"num-echoes": str(nq)}), nt)
+
+    def dev(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32,
+                               device=device)
+    st = nm.make_design_stats(dev(d), dev(y))
+    prior, post = nm.initial_state(1, torch.float32)
+    consts = fa.pack_ar_consts(
+        st.dmd, prior.alpha_prec, prior.b, prior.c, nm.ntimes,
+        post.b[:, 0], post.c[:, 0],
+        [post.alpha_cov[n, n, 0] for n in range(nq)],
+        [post.alpha_prec[n, n, 0] for n in range(nq)], nq)
+    return (st.m0.contiguous(), st.rmr.contiguous(), st.dmr.contiguous(),
+            consts, dev(rng.uniform(-0.5, 0.5, (p, nv))),
+            dev(np.full((p, nv), 1e-6))), nm
+
+
+def ar_detector(kind, p, nq, ntimes):
+    from fabber_core_tpu_torch.ops import fused_loop_ar as fa
+    f_const, lb = fa.ar_elbo_consts(p, nq, float(ntimes), 1e6, 1e-6)
+    return {"det": detector(kind), "f_const": f_const, "lb_coeff": lb}
+
+
+@pytest.mark.parametrize("p,nq", AR_INSTANCES, ids=AR_IDS)
+def test_ar_kernel_matches_plain(cuda, p, nq):
+    """Every (P, nq) instance of kernel 9 in maxits, 10 iterations,
+    ragged voxel count, held to the plain version at float64
+    (assert_near_f64)."""
+    from fabber_core_tpu_torch.ops import fused_loop_ar as fa
+    args, _ = ar_inputs(p, nq, 20_001, cuda)
+    before = fa.fused_ar_loop.launches
+    k = fa.fused_ar_loop(*args, 10)
+    assert fa.fused_ar_loop.launches == before + 1
+    assert_near_f64(k, fa.fused_ar_loop_plain(*args, 10),
+                    fa.fused_ar_loop_plain(*to_f64(args), 10))
+
+
+@pytest.mark.parametrize("kind", ["pointzeroone", "freduce"])
+@pytest.mark.parametrize("p,nq", AR_INSTANCES, ids=AR_IDS)
+def test_ar_kernel_detector_matches_plain(cuda, p, nq, kind):
+    """Every (P, nq) instance of kernel 9's detector mode at the engine's
+    loop cap, held to the plain version at float64 by decision share
+    (iteration count, engine-initial tag; assert_detector_near_f64)."""
+    from fabber_core_tpu_torch.ops import fused_loop_ar as fa
+    args, nm = ar_inputs(p, nq, 20_001, cuda, seed=1)
+    det = ar_detector(kind, p, nq, nm.ntimes)
+    cap = int(det["det"].max_iterations) + 2
+    before = (fa.fused_ar_loop.launches, fa.fused_ar_loop.det_launches)
+    k = fa.fused_ar_loop(*args, cap, det)
+    assert (fa.fused_ar_loop.launches, fa.fused_ar_loop.det_launches) == \
+        (before[0] + 1, before[1] + 1)
+    r32 = fa.fused_ar_loop_plain(*args, cap, det)
+    r64 = fa.fused_ar_loop_plain(*to_f64(args), cap, det)
+
+    def dec(o):
+        return decisions(o[9][0], o[6][0] < 0)
+
+    def tidy(o):
+        return o[:6] + (o[6].abs(),) + o[7:]
+
+    assert_detector_near_f64(tidy(k), tidy(r32), tidy(r64), dec(k),
+                             dec(r32), dec(r64))
+
+
+def test_ar_instances_are_the_listed_ones(cuda):
+    """The route gate's instance query answers from the one list,
+    csrc/fused_ar_loop.cu FABBER_AR_INSTANCES."""
+    from fabber_core_tpu_torch.ops.fused_loop_ar import ar_instantiated
+    for p in (1, 2, 3, 4):
+        assert ar_instantiated(p, 1) and ar_instantiated(p, 2)
+        assert not ar_instantiated(p, 3)
+    assert not ar_instantiated(5, 1)
+
+
+def test_engine_on_card_refuses_ar_runs_without_an_instance(cuda):
+    """An AR run on the kernel route whose P has no instance raises at
+    construction on the card; the CPU runs the plain version."""
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.options import RunOptions
+    opts = RunOptions({"model": "poly", "degree": "4", "noise": "ar",
+                       "dtype": "single"})
+    data = np.random.default_rng(0).standard_normal((64, 30)).astype(
+        np.float32)
+    with pytest.raises(NotImplementedError, match="FABBER_AR_INSTANCES"):
+        VBInference(get_model_class("poly")(opts), opts, data, device=cuda)
+    eng = VBInference(get_model_class("poly")(opts), opts, data,
+                      device="cpu")
+    assert eng.route == "pallas-loop-ar"
+    eng.run()
+
+
+@pytest.mark.parametrize("extra", [
+    {}, {"num-echoes": "2"}, {"convergence": "pointzeroone"},
+    {"convergence": "freduce", "num-echoes": "2"}],
+    ids=["maxits", "maxits-echoes2", "pointzeroone", "freduce-echoes2"])
+def test_ar_engine_on_card_matches_cpu(cuda, extra, monkeypatch):
+    """pallas-loop-ar on the card (kernel 9, launched once) against the
+    CPU engine (its plain version): iteration counts at most 1 apart on
+    < 2% of lanes, the other lanes' means within 5e-3 posterior sd, std
+    and noise rtol 2e-3 per voxel (alpha means: atol 5e-4). On the card
+    the plain version is replaced by one that raises."""
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.ops import fused_loop_ar as fa
+    from fabber_core_tpu_torch.options import RunOptions
+    rng = np.random.default_rng(0)
+    nv, nt = 3000, 30
+    t = np.arange(1, nt + 1)
+    e = rng.standard_normal((nv, nt))
+    for k in range(1, nt):
+        e[:, k] += 0.4 * e[:, k - 1]
+    data = (rng.uniform(-1, 1, (nv, 1)) + rng.uniform(-.05, .05, (nv, 1)) * t
+            + 0.1 * e).astype(np.float32)
+    res = {}
+    for dev in ("cpu", cuda):
+        if dev != "cpu":
+            def refuse(*a, **k):
+                raise AssertionError("a plain version ran on the card")
+            monkeypatch.setattr(fa, "fused_ar_loop_plain", refuse)
+        opts = RunOptions({"model": "poly", "degree": "1", "noise": "ar",
+                           "dtype": "single", "print-free-energy": True,
+                           "max-iterations": "10", **extra})
+        eng = VBInference(get_model_class("poly")(opts), opts, data,
+                          device=dev)
+        assert eng.route == "pallas-loop-ar"
+        n0 = fa.fused_ar_loop.launches
+        res[str(dev)] = eng.run()
+        assert fa.fused_ar_loop.launches - n0 == (0 if dev == "cpu" else 1)
+    g, c = res[str(cuda)], res["cpu"]
+    diff = np.abs(g.iterations - c.iterations)
+    assert diff.max() <= 1 and (diff != 0).mean() < 0.02
+    ok = diff == 0
+    sdp = np.sqrt(np.diagonal(c.cov[ok], axis1=1, axis2=2))
+    assert np.max(np.abs(g.means[ok] - c.means[ok]) / sdp) < 5e-3
+    np.testing.assert_allclose(
+        np.sqrt(np.diagonal(g.cov[ok], axis1=1, axis2=2)), sdp, rtol=2e-3)
+    a = 2   # the noise block: the two alphas, then the phis
+    np.testing.assert_allclose(g.noise_means[ok][:, :a],
+                               c.noise_means[ok][:, :a], atol=5e-4)
+    np.testing.assert_allclose(g.noise_means[ok][:, a:],
+                               c.noise_means[ok][:, a:], rtol=2e-3)
+    np.testing.assert_array_equal(g.bad_voxels, c.bad_voxels)

@@ -247,7 +247,7 @@ def test_detector_runs_match_jax(conv, extra, mode):
 
 
 @pytest.mark.parametrize("extra,err", [
-    ({"noise": "ar"}, NotImplementedError),
+    ({"fixed-design-route": "direct"}, NotImplementedError),
     ({"engine-kernel": "bogus"}, InvalidOptionValue),
     ({"dtype": "half"}, InvalidOptionValue),
     ({"convergence": "bogus"}, InvalidOptionValue),

@@ -319,6 +319,30 @@ ROUTE_TABLE = [
     ({"save-free-energy-history": True}, "xla"),
     ({"noise-initial-posterior": "n.mtx"}, "xla"),
     ({"engine-kernel": "spectral", "noise-pattern": "12"}, "xla"),
+    # the AR(1) detector gate admits no white-noise run
+    ({"convergence": "pointzeroone", "engine-kernel": "pallas-loop"}, "xla"),
+    # AR(1) noise: kernel 9 without cross terms under the model-default
+    # noise prior, maxits / pointzeroone / freduce at float32; the rest
+    # the statistics route; fixed-design-route=direct the generic one
+    ({"noise": "ar"}, "pallas-loop-ar"),
+    ({"noise": "ar", "num-echoes": "2"}, "pallas-loop-ar"),
+    ({"noise": "ar", "convergence": "pointzeroone"}, "pallas-loop-ar"),
+    ({"noise": "ar", "convergence": "freduce", "num-echoes": "2"},
+     "pallas-loop-ar"),
+    ({"noise": "ar", "engine-kernel": "pallas-loop"}, "pallas-loop-ar"),
+    ({"noise": "ar", "dtype": "bf16"}, "pallas-loop-ar"),
+    ({"noise": "ar", "convergence": "trialmode"}, "xla"),
+    ({"noise": "ar", "convergence": "lm"}, "xla"),
+    ({"noise": "ar", "dtype": "double"}, "xla"),
+    ({"noise": "ar", "num-echoes": "2", "ar1-cross-terms": "same"}, "xla"),
+    ({"noise": "ar", "num-echoes": "2", "ar1-cross-terms": "dual"}, "xla"),
+    ({"noise": "ar", "noise-initial-prior": "n.mtx"}, "xla"),
+    ({"noise": "ar", "save-free-energy-history": True}, "xla"),
+    ({"noise": "ar", "engine-kernel": "spectral"}, "xla"),
+    ({"noise": "ar", "engine-kernel": "spectral-whole"}, "xla"),
+    ({"noise": "ar", "engine-kernel": "pallas-whole"}, "xla"),
+    ({"noise": "ar", "engine-kernel": "xla"}, "xla"),
+    ({"noise": "ar", "fixed-design-route": "direct"}, "xla-generic"),
 ]
 
 
@@ -334,9 +358,10 @@ def jax_route(jeng):
     if getattr(jeng, "use_spectral_fdet", False):
         return "spectral"
     if jeng.use_loop_kernel:
-        return "spectral" if getattr(jeng, "use_spectral", False) \
-            else "pallas-loop"
-    return "xla"
+        if getattr(jeng, "use_spectral", False):
+            return "spectral"
+        return "pallas-loop-ar" if jeng.noise.name == "ar" else "pallas-loop"
+    return "xla" if jeng.design is not None else "xla-generic"
 
 
 @pytest.mark.parametrize("extra,route", ROUTE_TABLE,

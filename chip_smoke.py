@@ -8,7 +8,8 @@ Run from the repository root, with no arguments:
 It builds the CUDA kernels from fabber_core_tpu_torch/csrc/ (one nvcc
 per source, all started together, into build/kernels/) and holds each
 kernel, in each of its modes, against its plain-torch version on the
-card. It drives the port's main paths end to end through the public
+card, with three functors generated from models' evaluate (the whole-loop
+kernel's generic mode) built beside them. It drives the port's main paths end to end through the public
 API on a 128x128x64 volume: poly degree 2 (T=106) on the fixed-design
 spectral route, and biexp (T=100, bench.py's biexp data) on the
 whole-loop nonlinear route, each under maxits and under
@@ -24,10 +25,15 @@ straggler compaction, Levenberg and --lm, on the biexp volume; the
 fixed-design route on linear) and the NLLS->VB workflow (nlls with
 save-mvn, then VB continued from its finalMVN through the per-iteration
 kernel); drives --noise=ar (the AR(1) kernel, one and two echoes, maxits
-and pointzeroone, held to the float64 'xla' route on the card); then
+and pointzeroone, held to the float64 'xla' route on the card); drives
+the generic mode (a Gaussian bump and biexp's evaluate through their
+generated functors against the plain version, --loadmodels on the torch
+myexp plugin through its time_signal functor and evaluate-only, a
+suppdata run against the float64 'xla-generic' route on the card); then
 times the kernels, their plain versions, a device-to-device copy and the
 whole engine run, poly at 16,777,216 voxels (white and AR noise) and
-biexp at 4,000,000 (VB and NLLS). Every phase passes or the script exits
+biexp at 4,000,000 (VB and NLLS; the generated biexp functor beside the
+hand-written one). Every phase passes or the script exits
 non-zero without printing the result line. The last line of standard
 output is the JSON result object; the line before it lists the
 kernels, each with its bound (the least time the card could take:
@@ -540,12 +546,20 @@ def run_biexp_path(device, shape=(128, 128, 64)):
                 "fused_vb_iter": fv.fused_iteration.launches}
     log(f" run_with_data: {secs:.3f} s; launches {launches}")
     ok = launches["fused_nl_loop"] >= 1 and launches["fused_vb_iter"] == 0
-    names = ["amp1", "r1", "amp2", "r2"]
+    ok &= check_biexp_outputs(run, vol, clean, shape,
+                              ["amp1", "r1", "amp2", "r2"])
+    return ok, launches, secs
+
+
+def check_biexp_outputs(run, vol, clean, shape, names):
+    """Phase 4c's checks of a biexp run_with_data (the run_biexp_path
+    docstring's bounds)."""
     want = ({f"mean_{n}" for n in names} | {f"std_{n}" for n in names}
             | {"noise_means", "modelfit", "residuals"})
     if set(run.data) != want:
         log(f" FAIL outputs {sorted(run.data)}")
-        return False, launches, secs
+        return False
+    ok = True
     # a voxel whose latent means or variances left float32's range in
     # model space (exp(x) > 3.4e38: a diverged fit) has an infinite
     # mean_* or std_* output, and its fit need not be finite either;
@@ -576,9 +590,8 @@ def run_biexp_path(device, shape=(128, 128, 64)):
     log(f" fit within 3 noise sd of the noiseless signal: {within:.5f} of "
         f"voxels (bound >= 0.70); median noise sd {noise_sd:.5f} (truth "
         f"0.05, bound 5%); residual - (data - fit) max {resid_err:.3g}")
-    ok &= within >= 0.70 and abs(noise_sd / BI_SD - 1) <= 0.05 \
+    return ok and within >= 0.70 and abs(noise_sd / BI_SD - 1) <= 0.05 \
         and resid_err <= 1e-5
-    return ok, launches, secs
 
 
 def check_exp_engine_vs_f64(device, nv=4096):
@@ -1658,6 +1671,7 @@ def launch_counts():
             "fused_whole:lm": fw.fused_whole.lm_launches,
             "fused_vb_loop": fl.fused_vb_loop.launches,
             "fused_nl_loop": fnl.fused_nl_loop.launches,
+            "fused_nl_loop:generic": fnl.fused_nl_loop.generic_launches,
             "fused_vb_iter": fv.fused_iteration.launches}
 
 
@@ -1675,6 +1689,7 @@ def reset_launches():
     fs.spectral_core.det_launches = fs.spectral_fused.det_launches = 0
     fw.fused_whole.det_launches = fw.fused_whole.lm_launches = 0
     fnl.fused_nl_loop.det_launches = 0
+    fnl.fused_nl_loop.generic_launches = 0
     fv.fused_iteration.lm_launches = 0
     fn.fused_nlls_loop.resume_launches = 0
     fn.fused_nlls_loop.marquardt_launches = 0
@@ -1682,15 +1697,17 @@ def reset_launches():
     fa.fused_ar_loop.launches = fa.fused_ar_loop.det_launches = 0
 
 
-def api_run(device, options, vol):
+def api_run(device, options, vol, extra_data=None):
     """run_with_data with its launch counters zeroed just before and
-    read just after: (run, VBResult, engine, launches, seconds)."""
+    read just after: (run, VBResult, engine, launches, seconds);
+    extra_data: more data keys (suppdata)."""
     from fabber_core_tpu_torch.api import FabberTpu
     captured, restore = capture_results()
     reset_launches()
     t0 = time.perf_counter()
     try:
-        run = FabberTpu(device=device).run_with_data(options, {"data": vol})
+        run = FabberTpu(device=device).run_with_data(
+            options, {"data": vol, **(extra_data or {})})
     finally:
         restore()
     secs = time.perf_counter() - t0
@@ -2846,6 +2863,344 @@ def time_ar(device, card, nv=16_777_216):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The whole-loop kernel's generic mode: functors generated from a model
+# (phases 3g, 4q, 5g)
+# ---------------------------------------------------------------------------
+
+GA_NT, GA_DT, GA_SD = 30, 0.1, 0.02   # the Gaussian bump: T, dt, noise sd
+PLUGIN = "fabber_core_tpu_torch/examples/fwdmodel_exp.py"
+_GENERIC_MODELS = []
+
+
+def generic_models():
+    """(GaussAct, SuppGauss, StrippedBiexp), registered by name:
+    GaussAct an evaluate-only Gaussian bump (the JAX package's test
+    plugin GaussianActModel), SuppGauss the same scaled and offset by two
+    suppdata values per voxel, StrippedBiexp the port's biexp with its
+    time_signal (and so its hand-written functor's route) taken away."""
+    if _GENERIC_MODELS:
+        return _GENERIC_MODELS
+    import torch
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.models.base import (DistParams, Model,
+                                                   ParamSpec, register_model)
+
+    @register_model
+    class GaussAct(Model):
+        name = "gaussact-smoke"
+
+        def __init__(self, options=None):
+            pass
+
+        def param_defaults(self):
+            return [ParamSpec(i, n, DistParams(m, 10), DistParams(m, 5))
+                    for i, (n, m) in enumerate(
+                        [("off", 0.0), ("amp", 1.0), ("mu", 1.2),
+                         ("width", 0.6)])]
+
+        def evaluate(self, params, ctx, key=""):
+            t = torch.arange(ctx.nt, dtype=params.dtype,
+                             device=params.device) * GA_DT
+            z = (t - params[2]) / params[3]
+            return params[0] + params[1] * torch.exp(-0.5 * z * z)
+
+    @register_model
+    class SuppGauss(GaussAct):
+        name = "suppgauss-smoke"
+
+        def evaluate(self, params, ctx, key=""):
+            return (ctx.suppdata[0] * super().evaluate(params, ctx)
+                    + ctx.suppdata[1])
+
+    @register_model
+    class StrippedBiexp(get_model_class("biexp")):
+        name = "biexp-evaluate-smoke"
+
+        @property
+        def time_signal(self):
+            raise AttributeError("evaluate only")
+
+    _GENERIC_MODELS.extend([GaussAct, SuppGauss, StrippedBiexp])
+    return _GENERIC_MODELS
+
+
+def generic_functors():
+    """The generated functors the run builds, as (name, TimeLocalEval,
+    P, Q): the Gaussian bump (T=30), with two suppdata values, and
+    biexp's evaluate (T=100; the myexp plugin's time_signal and evaluate
+    generate the same source)."""
+    from fabber_core_tpu_torch.models.kernelgen import \
+        derive_time_local_eval
+    from fabber_core_tpu_torch.options import RunOptions
+    ga, sg, sb = generic_models()
+    bi = sb(RunOptions({"model": "biexp", "dt": str(BI_DT)}))
+    return [("gaussact", derive_time_local_eval(ga(), GA_NT, 4), 4, 1),
+            ("suppgauss", derive_time_local_eval(sg(), GA_NT, 4, 2), 4, 1),
+            ("biexp", derive_time_local_eval(bi, BI_NT, 4), 4, 1)]
+
+
+def gauss_plane(nv, gen, device, supp=False):
+    """The Gaussian bump's data made on the card: off ~ U(-0.2, 0.2),
+    amp ~ U(0.8, 1.5), mu ~ U(0.9, 1.5), width ~ U(0.4, 0.8), noise sd
+    0.02 (tests/test_fused_loop_generic.py's); with supp, scaled by
+    U(0.8, 1.2) and offset by U(-0.1, 0.1) per voxel -> (data [T,V],
+    suppdata [2,V] or None)."""
+    import torch
+
+    def u(lo, hi):
+        return torch.rand((1, nv), generator=gen, device=device) \
+            * (hi - lo) + lo
+    t = torch.arange(GA_NT, dtype=torch.float32, device=device)[:, None] \
+        * GA_DT
+    z = (t - u(0.9, 1.5)) / u(0.4, 0.8)
+    clean = u(-0.2, 0.2) + u(0.8, 1.5) * torch.exp(-0.5 * z * z)
+    sv = None
+    if supp:
+        sv = torch.cat([u(0.8, 1.2), u(-0.1, 0.1)])
+        clean = sv[0:1] * clean + sv[1:2]
+    data = torch.randn((GA_NT, nv), generator=gen, device=device)
+    return data.mul_(GA_SD).add_(clean), sv
+
+
+def generic_engine(name, plane, device, extra=None, supp=None):
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.options import RunOptions
+    ga, sg, sb = generic_models()
+    base = {"noise": "white", "max-iterations": str(ITERS),
+            "dtype": "single", **(extra or {})}
+    if name == "biexp":
+        opts = RunOptions({**base, "model": "biexp", "dt": str(BI_DT)})
+        model = sb(opts)
+    else:
+        opts = RunOptions({**base, "model": "gaussact-smoke"})
+        model = ga() if supp is None else sg()
+    return VBInference(model, opts, None, data_plane=plane, device=device,
+                       suppdata=None if supp is None
+                       else supp.t().cpu().numpy())
+
+
+def check_generic_kernels(device, nvs=(1_048_576, 1_000_003),
+                          seed=SEED + 23):
+    """Phase 3g: the whole-loop kernel with functors generated from a
+    model's evaluate against the generic plain version (full_eval), held
+    to float64 by near_f64 as phases 3b/3c hold kernel 6: the Gaussian
+    bump (T=30, P=4) at 10 iterations under maxits and trialmode
+    (max-trials 10), on the engine's own start and priors; biexp's
+    evaluate (T=100) at 2 iterations (maxits) and 3 (trialmode,
+    max-trials 2), the short horizons of phases 3b/3c (its float32 fixed
+    point is chaotic further out: ROADMAP Queue 3 item 7)."""
+    import torch
+    from fabber_core_tpu_torch.ops import fused_loop_nl as fl
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    worst = {"fused_nl_loop:generic": [0.0, 0.0]}
+    ok_all = True
+
+    def note(res):
+        nonlocal ok_all
+        ok, abs_err, ratio = res
+        ok_all &= ok
+        w = worst["fused_nl_loop:generic"]
+        w[0], w[1] = max(w[0], abs_err), max(w[1], ratio)
+
+    for name in ("gaussact", "biexp"):
+        for nv in nvs:
+            if name == "gaussact":
+                plane, _ = gauss_plane(nv, gen, device)
+                its = (ITERS, {})
+            else:
+                plane, _, _ = biexp_plane(nv, gen, device)
+                its = (2, {"max-iterations": "3", "max-trials": "2"})
+            for kind in ("maxits", "trialmode"):
+                eng = generic_engine(name, plane, device,
+                                     {"convergence": kind, **its[1]})
+                if eng.route != "pallas-loop-nl" or eng.generic is None:
+                    log(f"  FAIL {name}: route {eng.route_description()}")
+                    return False, worst
+                tr = eng._transforms()
+                args = eng.nl_loop_args(eng.initial_state())
+                ev = fv.full_eval(eng.generic.fn, tr)
+                det = None if kind == "maxits" else eng._nl_fdet_consts()
+                n_it = its[0] if kind == "maxits" \
+                    else int(eng.detector.max_iterations)
+                k = fl.fused_nl_loop(eng.model, tr, *args, n_it, True,
+                                     detector=det, functor=eng.functor)
+                r32 = fl.fused_nl_loop_plain(None, tr, *args, n_it, True,
+                                             detector=det, evaluator=ev)
+                r64 = fl.fused_nl_loop_plain(None, tr, *to64(args), n_it,
+                                             True, detector=det,
+                                             evaluator=ev)
+                torch.cuda.synchronize()
+                label = f"generic {name} {kind} {n_it} its V={nv}"
+                if det is None:
+                    note(near_f64(label, k, r32, r64))
+                else:
+                    def dec(o):
+                        return torch.stack([o[6][0].double(),
+                                            0 * o[6][0].double()])
+                    note(near_f64(label, k, r32, r64, dec(k), dec(r32),
+                                  dec(r64)))
+                del k, r32, r64, args, eng
+                torch.cuda.empty_cache()
+            del plane
+    return ok_all, worst
+
+
+def run_plugin_paths(device, shape=(128, 128, 64), supp_shape=(32, 32, 16)):
+    """Phase 4q: run_with_data with --loadmodels on the torch myexp
+    plugin (num-exps 2) on phase 4c's biexp volume: through the functor
+    generated from its time_signal, then with its time_signal taken away
+    (the generic full-time mode, the functor generated from evaluate).
+    Each: the route line says which mode, fused_nl_loop launched once
+    (in the generic mode, generic_launches, only in the second), and
+    phase 4c's checks of the outputs. Then a suppdata run (the Gaussian bump scaled
+    and offset per voxel, NS=2) on a 32x32x16 x 30 volume against the
+    float64 run on the card (xla-generic, no kernel): the share of voxels
+    whose means lie beyond 1e-2 posterior sd, or std or noise beyond
+    1e-2 relative, of float64 at most 1e-3. Returns (ok, launches)."""
+    import torch
+    from fabber_core_tpu_torch.models import (get_model_class,
+                                              load_models_from_file)
+    from fabber_core_tpu_torch.models.base import register_model
+
+    vol, clean = make_biexp_volume(shape)
+    names = ["amp1", "r1", "amp2", "r2"]
+    opts = {**BIEXP_OPTIONS, "model": "myexp", "num-exps": "2",
+            "loadmodels": PLUGIN}
+    log(f"phase 4q: run_with_data --loadmodels={PLUGIN} --model=myexp, "
+        f"volume {shape + (BI_NT,)}")
+    run, res, eng, n, _ = api_run(device, opts, vol)
+    ok = (eng.route == "pallas-loop-nl" and eng.generic is None
+          and eng.functor is not None
+          and "time_signal mode" in eng.route_description()
+          and n == {"fused_nl_loop": 1})
+    want = {"fused_nl_loop": 1, "fused_nl_loop:generic": 1}
+    ok &= check_biexp_outputs(run, vol, clean, shape, names)
+    del run, res, eng
+
+    load_models_from_file(PLUGIN)
+
+    @register_model
+    class MyExpEvaluateOnly(get_model_class("myexp")):
+        name = "myexp-evaluate-only"
+
+        @property
+        def time_signal(self):
+            raise AttributeError("evaluate only")
+
+    log(" the same plugin with its time_signal taken away")
+    run, res, eng, n, _ = api_run(device, {**opts,
+                                           "model": "myexp-evaluate-only"},
+                                  vol)
+    ok &= (eng.route == "pallas-loop-nl" and eng.generic is not None
+           and "generic full-time mode" in eng.route_description()
+           and n == want)
+    ok &= check_biexp_outputs(run, vol, clean, shape, names)
+    launches = {"fused_nl_loop:generic": n.get("fused_nl_loop:generic", 0)}
+    del run, res, eng, vol
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 24)
+    nv = int(np.prod(supp_shape))
+    plane, sv = gauss_plane(nv, gen, device, supp=True)
+    vols = plane.t().cpu().numpy().reshape(supp_shape + (GA_NT,))
+    svol = sv.t().cpu().numpy().reshape(supp_shape + (2,))
+    generic_models()
+    sopts = {"model": "suppgauss-smoke", "noise": "white", "method": "vb",
+             "max-iterations": str(ITERS), "dtype": "single",
+             "save-mean": True}
+    log(f" suppdata: the Gaussian bump scaled per voxel, volume "
+        f"{supp_shape + (GA_NT,)}")
+    _, res, eng, n, _ = api_run(device, sopts, vols, {"suppdata": svol})
+    ok &= (eng.route == "pallas-loop-nl" and eng.generic is not None
+           and eng.generic.nsupp == 2 and n == want)
+    _, r64, eng64, n64, _ = api_run(device, {**sopts, "dtype": "double"},
+                                    vols, {"suppdata": svol})
+    ok &= eng64.route == "xla-generic" and not n64
+    e_m, e_s, e_n = voxel_errors(res, r64)
+    off = (e_m > 1e-2) | (e_s > 1e-2) | (e_n > 1e-2)
+    good = float(off.mean()) <= 1e-3 and not res.bad_voxels.any()
+    log(f" suppdata float32 (generated functor, NS=2) against float64 "
+        f"(xla-generic): {int(off.sum())} voxels off ({off.mean():.3g}; "
+        f"bound 1e-3); means within {np.quantile(e_m, 0.999):.3g} sd at "
+        f"p99.9 {'ok' if good else 'FAIL'}")
+    return ok and good, launches
+
+
+def gen_pass_ops(tle, nq, kind):
+    """nl_pass_ops with the operations a generated functor does per
+    sample (value and all P tangents, models/kernelgen.py) and the chain
+    factors in place of the hand-written model's: a diagnostic of the
+    generated code, not the function's bound."""
+    p = tle.nparams
+    own = nl_pass_ops(p, nq, 0, kind) - p
+    return own + tle.value_ops + tle.tangent_ops + p
+
+
+def time_generic(device, card, nv=4_000_000):
+    """Phase 5g at bench.py's biexp size (4,000,000 voxels, T=100, P=4,
+    maxits 10, phase 5b's plane): the kernel with the functor generated
+    from biexp's evaluate beside kernel 6's hand-written ExpSum<2> on
+    the same inputs, in turns (generated, hand-written, hand-written,
+    generated; CUDA events, best of 3 after a warm-up each), the generic
+    plain version once, the generated build's seconds and ptxas lines.
+    Bound: kernel 6's for biexp (phase 5b's), since the function is the
+    same; the generated code's own operations (gen_pass_ops) are logged
+    beside it as gen_code_ops_ms."""
+    import torch
+    from fabber_core_tpu_torch.ops import _cuda
+    from fabber_core_tpu_torch.ops import fused_loop_nl as fl
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 7)
+    plane, _, _ = biexp_plane(nv, gen, device)
+    eng = generic_engine("biexp", plane, device)
+    ref = nl_engine("biexp", "1", plane, device)
+    tr = eng._transforms()
+    args = eng.nl_loop_args(eng.initial_state())
+    tle = eng.functor
+
+    def gen_run():
+        return fl.fused_nl_loop(eng.model, tr, *args, ITERS, True,
+                                functor=tle)
+
+    def ref_run():
+        return fl.fused_nl_loop(ref.model, tr, *args, ITERS, True)
+    out = {}
+    g1 = best_ms(gen_run)
+    r1 = best_ms(ref_run)
+    r2 = best_ms(ref_run)
+    g2 = best_ms(gen_run)
+    out["gen_ms"], out["expsum_ms"] = min(g1, g2), min(r1, r2)
+    out["gen_over_expsum"] = out["gen_ms"] / out["expsum_ms"]
+    ev = fv.full_eval(eng.generic.fn, tr)
+    out["gen_plain_ms"], _ = once_ms(lambda: fl.fused_nl_loop_plain(
+        None, tr, *args, ITERS, True, evaluator=ev))
+    torch.cuda.empty_cache()
+    nl_bytes = 4 * BI_NT * nv + 4 * (3 * 4 + 4 + 2 * 16 + 4) * nv
+    a_ops = nl_pass_ops(4, 1, 2, "A") * BI_NT
+    f_ops = nl_pass_ops(4, 1, 2, "F") * BI_NT
+    out["gen_bound"] = bound(nl_bytes, (ITERS * a_ops + f_ops + 200 * ITERS)
+                             * nv)
+    code_ops = (ITERS * gen_pass_ops(tle, 1, "A")
+                + gen_pass_ops(tle, 1, "F")) * BI_NT + 200 * ITERS
+    out["gen_code_ops_ms"] = code_ops * nv / PEAK_F32_PER_S * 1e3
+    out["gen_ops_per_sample"] = (tle.value_ops, tle.tangent_ops)
+    secs, text = _cuda.gen_build_log.get(_cuda.generated_key(
+        tle.source, 4, 1), (float("nan"), ""))
+    out["gen_build_s"] = secs
+    for line in text.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas (generated biexp): {line.strip()}")
+    for k, v in out.items():
+        log(f" {k} = {v!r}  [V={nv} T={BI_NT} P=4; {card}]")
+    return out
+
+
 def main():
     try:
         import torch
@@ -2872,15 +3227,36 @@ def main():
 
     # phase 2: build the kernels from csrc/ (one nvcc per source, in
     # parallel, then one link)
+    # and the functors generated from models (phases 3g, 4q, 5g), each
+    # its own nvcc, all started together
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    path = _cuda.build()
+    functors = generic_functors()
+    with ThreadPoolExecutor(len(functors) + 1) as pool:
+        lib = pool.submit(_cuda.build)
+        gens = [pool.submit(_cuda.build_generated, tle.source, p, q)
+                for _, tle, p, q in functors]
+        path = lib.result()
+        for g in gens:
+            g.result()
     _cuda.load()
-    log(f"phase 2: {len(_cuda.SOURCES)} kernel sources built in "
+    log(f"phase 2: {len(_cuda.SOURCES)} kernel sources and "
+        f"{len(functors)} generated functors built in "
         f"{time.perf_counter() - t0:.1f} s -> {path}")
     for line in _cuda.build_log.splitlines():
         if ("registers" in line or "spill" in line or "stack frame" in line
                 or "Compiling entry" in line):
             log(f"  ptxas: {line.strip()}")
+    for name, tle, p, q in functors:
+        # no entry: the library was on disk already (an earlier process)
+        secs, text = _cuda.gen_build_log.get(
+            _cuda.generated_key(tle.source, p, q), (float("nan"), ""))
+        log(f"  generated {name} (P={p}, Q={q}, {tle.value_ops} value + "
+            f"{tle.tangent_ops} tangent operations per sample): nvcc "
+            f"{secs:.1f} s")
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas ({name}): {line.strip()}")
 
     # phase 3: kernel against plain
     log("phase 3: spectral kernels against their plain versions")
@@ -2900,6 +3276,10 @@ def main():
     log("phase 3f: the AR(1) kernel against its plain version")
     ok3f, worst_ar = check_ar_kernels(device)
     worst.update(worst_ar)
+    log("phase 3g: the generated functors' kernel against its plain "
+        "version")
+    ok3g, worst_gen = check_generic_kernels(device)
+    worst.update(worst_gen)
 
     # phase 4: the main paths through the API; each path's launch
     # counters are zeroed just before it and read just after it
@@ -2940,6 +3320,8 @@ def main():
     ok4o = run_nlls_linear_path(device)
     ok4p, ar_launches = run_ar_paths(device)
     launches.update(ar_launches)
+    ok4q, gen_launches = run_plugin_paths(device)
+    launches.update(gen_launches)
 
     # phase 5: timing at the headline sizes
     log("phase 5: timing at 16,777,216 voxels")
@@ -2954,6 +3336,9 @@ def main():
     fig_nlls = time_nlls(device, card)
     log("phase 5f: the AR(1) kernel and route at 16,777,216 voxels")
     fig_ar = time_ar(device, card)
+    log("phase 5g: the generated functors' kernel at 4,000,000 biexp "
+        "voxels")
+    fig_gen = time_generic(device, card)
 
     phases = {"kernels": ok3, "nl_kernels": ok3b, "detector_kernels": ok3c,
               "main_path": ok4, "engine_vs_f64": ok4b, "biexp_path": ok4c,
@@ -2963,7 +3348,8 @@ def main():
               "fixed_design_kernels": ok3d, "pattern_paths": ok4i,
               "linear_path": ok4k, "nlls_kernels": ok3e, "nlls_path": ok4m,
               "nlls_vb_flow": ok4n, "nlls_linear_path": ok4o,
-              "ar_kernels": ok3f, "ar_paths": ok4p}
+              "ar_kernels": ok3f, "ar_paths": ok4p, "generic_kernels": ok3g,
+              "plugin_paths": ok4q}
     if not all(phases.values()):
         log(f"FAILED phases: {[k for k, v in phases.items() if not v]}")
         return 1
@@ -3033,6 +3419,9 @@ def main():
         entry("fused_ar_loop:detector", "fused_ar_loop.cu", ar_at,
               fig_ar["ar_det_q1_ms"], fig_ar["ar_det_q1_plain_ms"],
               fig_ar["ar_det_q1_bound"]),
+        entry("fused_nl_loop:generic", "fused_nl_loop.cuh", nl_at,
+              fig_gen["gen_ms"], fig_gen["gen_plain_ms"],
+              fig_gen["gen_bound"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,421 +1,16 @@
-// fused_nl_loop: the whole VB loop of a time-local nonlinear model with
-// white noise, for Hopper (sm_90a).
+// fused_nl_loop: the C entry points of the whole-loop nonlinear kernel
+// (kernel 6, fused_nl_loop.cuh) for the hand-written model functors of
+// FABBER_NL_INSTANCES (vb_device.cuh), for Hopper (sm_90a).
 //
 // Replaces the TPU kernel fabber_core_tpu/ops/fused_loop_nl.py
-// make_fused_nl_loop (its pallas_call at line 890) in time_signal mode,
-// in three modes (template MODE): maxits (0), the in-kernel pointzeroone
-// and freduce detectors (1), and the in-kernel trialmode and lm
-// detectors with their best-state copies (2). Plain version:
-// fabber_core_tpu_torch/ops/fused_loop_nl.py fused_nl_loop_plain.
-//
-// One thread per voxel; the posterior, the noise and every per-iteration
-// quadratic live in registers. Per iteration, one pass over the T
-// samples evaluates the model and its latent-space Jacobian at the
-// centre (vb_device.cuh functors) and accumulates, per noise group q,
-// J'Q_qJ (packed lower triangle), J'Q_q r and r'Q_q r. Then the solve
-// (jitter-retry Cholesky, inverse, means), k'Q_qk by the exact expansion
-// r'Q_qr + 2 d'J'Q_qr + d'J'Q_qJ d (d = centre - means) clamped at 0,
-// and the phi update b = 1/((k'Qk + tr(Sigma J'Q_qJ))/2 + 1/b0),
-// c = c_post. The new means are the next centre. When F is needed one
-// more pass at the final means gives the free-energy quadratics
-// (fkqk, ftr); the digamma/lgamma assembly stays in torch.
-// The posterior carry starts at zero and the noise at (b_init, c_init),
-// as the TPU kernel's.
-//
-// Detector modes (fused_loop_nl.py:56-84, 281-292): pass k's model
-// evaluation at its centre (iteration k-1's means) yields exactly
-// iteration k-1's k'Q_qk and J'Q_qJ, so iteration k-1's F is assembled
-// from the current pass's quadratics, the carried posterior and host
-// constants (the Gamma-function terms at the fixed c_post: lb_coeff,
-// f_const), and its test (detectors.cuh) runs before iteration k's
-// update, with no extra model pass. A lane whose test says done keeps
-// its state and its thread leaves the loop; a lane still running after
-// n_iters passes takes its last test on the F pass at the final means.
-// freduce also captures the ELBO of the initial posterior on pass 0
-// (f_const_init: the Gamma terms at c_init; pd0 = its variances) as the
-// F a reverted lane reports, and flags the lane; the engine restores the
-// initial planes. trialmode and lm keep a best state (means, b, c, prec,
-// cov, F), save the carry into it where the test sets save, and after
-// the loop apply the engine's finalize (best-save, then the revert
-// selection). The best state is written through to the lane's own
-// output columns at each save (the columns a reverted lane keeps; F
-// stays in a register) rather than copied into 26 more registers at
-// biexp Q=1, which measured slower on the H100 (PERF.md). lm takes the
-// damped step centre + (Lambda + alpha diag Lambda)^-1 (sum_q phi_q
-// J'Q_q r + pp (pm - centre)) where alpha > 0 (fused_loop_nl.py:562-591).
-// Outputs
-// in detector modes: fkqk[0] = F, ftr[0] = the lane's iteration count;
-// freduce adds fkqk[1] = the revert flag, ftr[1] = 0.
-//
-// Dropped TPU machinery: the [TB,B] partial-sum planes (the time sums
-// are two-level in registers instead: kTB = 8 samples into block sums,
-// blocks into the totals, which keeps the accuracy the partial planes
-// gave), the edge-padded time axis (the [T,Q] group weights carry
-// masked samples as 0; the last block runs short), the 1024-voxel
-// padding (a bounds check masks the ragged last block), the [4Q,1]
-// constant column (the constants ride by value) and the tile-wide
-// early-exit reduction (each thread leaves its own loop).
-//
-// What bounds it on this card: the data column is read once per
-// iteration and once for F, 4*T bytes per voxel each time, coalesced
-// across the warp (voxels on the last axis). At 4,000,000 voxels the
-// 1.6 GB plane is far above the 50 MB L2, so each pass goes to HBM. Per
-// sample and iteration the arithmetic is one model evaluation (NEXP expf
-// for exp-sum models) plus Q*(P(P+1)/2 + P + 1) multiply-adds. The data
-// tile is not staged in shared memory yet (a later change could read it
-// once). In the detector modes a warp runs until its slowest lane is
-// done.
+// make_fused_nl_loop (its pallas_call at line 890) in time_signal mode;
+// the design, the modes and what bounds it are in fused_nl_loop.cuh.
+// Functors generated from a model (its generic full-time mode) are built
+// into libraries of their own (ops/_cuda.py build_generated) from the
+// same header. Plain version: fabber_core_tpu_torch/ops/fused_loop_nl.py
+// fused_nl_loop_plain.
 
-#include "detectors.cuh"
-#include "vb_device.cuh"
-
-namespace {
-
-using namespace fabber;
-
-constexpr int kThreads = 128;
-
-// Everything a detector-mode launch adds: the detector's options and the
-// host float64 ELBO constants of VBInference._nl_fdet_consts, rounded to
-// float32.
-struct NLDetConsts {
-  DetParams d;
-  float lb_coeff[kMaxQ];   // n_q/2 + c0_q, the coefficient of log b_q
-  float f_const;           // voxel-invariant ELBO terms at c_post
-  float f_const_init;      // the same at c_init (freduce's initial F)
-};
-
-// free_energy_from_parts with the noise shape fixed (the Gamma-function
-// terms live in base and lb_coeff), operation order of the TPU kernel's
-// assemble_f.
-template <int P, int Q>
-__device__ __forceinline__ float assemble_f(
-    const VBParams& k, const NLDetConsts& dc, float base, const float* cen,
-    const float* b, const float* c, const float* covdiag, float logdet,
-    const float* kqk, const float* trace, const float* pm, const float* pp) {
-  float v = base - 0.5f * logdet;
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    const float phi = b[q] * c[q];
-    v = v + dc.lb_coeff[q] * logf(b[q]) - phi * k.inv_b0[q] -
-        0.5f * phi * kqk[q] - 0.5f * trace[q];
-  }
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    const float dm = cen[i] - pm[i];
-    v = v - 0.5f * (dm * dm + covdiag[i]) * pp[i];
-  }
-  return v;
-}
-
-template <int P>
-__device__ __forceinline__ void packed_diag(const float* packed, float* d) {
-#pragma unroll
-  for (int i = 0; i < P; ++i) d[i] = packed[tri(i, i)];
-}
-
-// the lane's posterior into its output columns
-template <int P, int Q>
-__device__ __forceinline__ void store_state(
-    const float* means, const float* prec, const float* cov, const float* b,
-    const float* c, float* __restrict__ means_out,
-    float* __restrict__ prec_out, float* __restrict__ cov_out,
-    float* __restrict__ b_out, float* __restrict__ c_out, long long V,
-    long long v) {
-#pragma unroll
-  for (int i = 0; i < P; ++i) means_out[(size_t)i * V + v] = means[i];
-  store_full<P>(prec, prec_out, V, v);
-  store_full<P>(cov, cov_out, V, v);
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    b_out[(size_t)q * V + v] = b[q];
-    c_out[(size_t)q * V + v] = c[q];
-  }
-}
-
-// MODE 0: maxits; 1: pointzeroone / freduce; 2: trialmode / lm
-template <class M, int Q, int MODE>
-__global__ void __launch_bounds__(kThreads)
-fused_nl_loop_kernel(const VBParams k, const NLDetConsts dc,
-                     const float* __restrict__ centre0,
-                     const float* __restrict__ pm_in,
-                     const float* __restrict__ pp_in,
-                     const float* __restrict__ pd0_in,
-                     const float* __restrict__ data,
-                     const float* __restrict__ qw,
-                     float* __restrict__ means_out,
-                     float* __restrict__ prec_out,
-                     float* __restrict__ cov_out, float* __restrict__ b_out,
-                     float* __restrict__ c_out, float* __restrict__ fkqk_out,
-                     float* __restrict__ ftr_out) {
-  constexpr int P = M::P, NT = P * (P + 1) / 2;
-  constexpr bool kDet = MODE != 0, kBest = MODE == 2;
-  const long long V = k.V;
-  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= V) return;
-
-  float centre[P], pm[P], pp[P];
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    centre[i] = centre0[(size_t)i * V + v];
-    pm[i] = pm_in[(size_t)i * V + v];
-    pp[i] = pp_in[(size_t)i * V + v];
-  }
-  float b[Q], c[Q];
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    b[q] = k.b_init[q];
-    c[q] = k.c_init[q];
-  }
-  float prec[NT], cov[NT], means[P];
-#pragma unroll
-  for (int i = 0; i < NT; ++i) prec[i] = cov[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < P; ++i) means[i] = centre[i];
-
-  // detector lanes (dead code in MODE 0)
-  DetState cv = fabber::det_init(dc.d);
-  const bool freduce = MODE == 1 && dc.d.kind == fabber::kFreduce;
-  const bool with_lm = kBest && dc.d.kind == fabber::kLM;
-  // b_f: the F of the best state (MODE 2; the state itself lives in
-  // the output columns)
-  float logdet = 0.f, f_st = 0.f, rev_f = 0.f, part3 = 0.f, b_f = 0.f;
-  if constexpr (kDet) {
-    // voxel-varying but iteration-invariant ELBO piece
-    part3 = dc.f_const;
-#pragma unroll
-    for (int i = 0; i < P; ++i) part3 = part3 + 0.5f * logf(pp[i]);
-  }
-
-  for (int it = 0; it < k.n_iters; ++it) {
-    float phi[Q];
-#pragma unroll
-    for (int q = 0; q < Q; ++q) phi[q] = b[q] * c[q];
-
-    // ---- one pass over time at the centre ------------------------------
-    float mrow[P], chain[P];
-    model_rows<P>(k.tcode, centre, mrow, chain);
-    float jtj[Q][NT], jtr[Q][P], rqr[Q];
-    zero_sums<P, Q>(jtj, jtr, rqr);
-    // two-level sums: kTB samples into block sums, blocks into the
-    // totals (the TPU kernel's [TB,B] partial planes play this role)
-    for (int t0 = 0; t0 < k.nt; t0 += kTB) {
-      float bjtj[Q][NT], bjtr[Q][P], brqr[Q];
-      zero_sums<P, Q>(bjtj, bjtr, brqr);
-      const int t1 = min(t0 + kTB, k.nt);
-      for (int t = t0; t < t1; ++t) {
-        float jac[P];
-        const float sig = eval_latent<M>(mrow, chain, (float)t, k.dt, jac);
-        const float r = data[(size_t)t * V + v] - sig;
-#pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          const float w = __ldg(qw + t * Q + q);
-          const float wr = w * r;
-#pragma unroll
-          for (int i = 0; i < P; ++i) {
-            const float wj = w * jac[i];
-#pragma unroll
-            for (int j = 0; j <= i; ++j)
-              bjtj[q][tri(i, j)] = bjtj[q][tri(i, j)] + wj * jac[j];
-            bjtr[q][i] = bjtr[q][i] + jac[i] * wr;
-          }
-          brqr[q] = brqr[q] + wr * r;
-        }
-      }
-      add_sums<P, Q>(jtj, jtr, rqr, bjtj, bjtr, brqr);
-    }
-
-    if constexpr (kDet) {
-      // ---- the deferred test of iteration it-1: this pass evaluated
-      // the model at its means, so rqr is its k'Q_qk and jtj its J'Q_qJ
-      float trace[Q], cdiag[P];
-#pragma unroll
-      for (int q = 0; q < Q; ++q) trace[q] = trace_packed<P>(cov, jtj[q]);
-      packed_diag<P>(cov, cdiag);
-      const float f_here = assemble_f<P, Q>(k, dc, part3, centre, b, c,
-                                            cdiag, logdet, rqr, trace, pm,
-                                            pp);
-      if (freduce && it == 0) {
-        // pass 0 evaluates at the initial means: the initial-state ELBO
-        // (diagonal initial covariance pd0, noise shape c_init) is the
-        // F a reverted lane reports
-        float pd0[P], tr0[Q];
-        float ld0 = 0.f, base = dc.f_const_init;
-#pragma unroll
-        for (int i = 0; i < P; ++i) {
-          pd0[i] = pd0_in[(size_t)i * V + v];
-          ld0 = ld0 - logf(pd0[i]);
-          base = base + 0.5f * logf(pp[i]);
-        }
-#pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          float s = 0.f;
-#pragma unroll
-          for (int i = 0; i < P; ++i) s = s + pd0[i] * jtj[q][tri(i, i)];
-          tr0[q] = s;
-        }
-        rev_f = assemble_f<P, Q>(k, dc, base, centre, b, c, pd0, ld0, rqr,
-                                 tr0, pm, pp);
-      }
-      if (it >= 1) {
-        const bool reduced = f_here - cv.prev_f < 0.f;
-        fabber::det_test(dc.d, cv, f_here);
-        f_st = (freduce && reduced) ? rev_f : f_here;
-        if constexpr (kBest) {
-          if (cv.save) {
-            // the top-of-iteration save of the engine: the carry is
-            // iteration it-1's state
-            store_state<P, Q>(centre, prec, cov, b, c, means_out, prec_out,
-                              cov_out, b_out, c_out, V, v);
-            b_f = f_here;
-          }
-        }
-        if (cv.done) break;   // a frozen lane keeps iteration it-1's state
-      }
-    }
-
-    // ---- solve (Eq 19/20) ----------------------------------------------
-    float ch[NT];
-    posterior_solve<P, Q, true>(jtj, jtr, phi, centre, pm, pp, prec, cov,
-                                means, ch);
-    if constexpr (kBest) {
-      if (with_lm && cv.alpha > 0.f) {
-        // LM-damped step: (Lambda + alpha diag Lambda) x = sum_q phi_q
-        // J'Q_q r + pp (pm - centre), means = centre + x; prec and cov
-        // stay undamped
-        float damped[NT], dch[NT], delta[P];
-#pragma unroll
-        for (int i = 0; i < P; ++i) {
-#pragma unroll
-          for (int j = 0; j <= i; ++j)
-            damped[tri(i, j)] =
-                prec[tri(i, j)] + (i == j ? cv.alpha * prec[tri(i, i)] : 0.f);
-          float s = pp[i] * (pm[i] - centre[i]);
-#pragma unroll
-          for (int q = 0; q < Q; ++q) s = s + phi[q] * jtr[q][i];
-          delta[i] = s;
-        }
-        cholesky_jittered<P>(damped, dch);
-        chol_solve<P>(dch, delta);
-#pragma unroll
-        for (int i = 0; i < P; ++i) means[i] = centre[i] + delta[i];
-      }
-    }
-
-    // ---- k'Q_qk by exact expansion, then the phi update (Eq 21/22) ------
-    float d[P];
-#pragma unroll
-    for (int i = 0; i < P; ++i) d[i] = centre[i] - means[i];
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      float kq = rqr[q];
-#pragma unroll
-      for (int a = 0; a < P; ++a) kq = kq + 2.f * d[a] * jtr[q][a];
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-#pragma unroll
-        for (int j = 0; j <= i; ++j) {
-          const float dd = d[i] * d[j];
-          kq = kq + (i == j ? dd : 2.f * dd) * jtj[q][tri(i, j)];
-        }
-      }
-      const float kqk = fmaxf(kq, 0.f);
-      const float tr = trace_packed<P>(cov, jtj[q]);
-      float bq = 1.f / ((kqk + tr) * 0.5f + k.inv_b0[q]);
-      const float cq = k.c_post[q];
-      if (k.locked_sd > 0.f) bq = 1.f / cq / (k.locked_sd * k.locked_sd);
-      b[q] = bq;
-      c[q] = cq;
-    }
-#pragma unroll
-    for (int i = 0; i < P; ++i) centre[i] = means[i];
-    if constexpr (kDet) {
-      float ld = 0.f;
-#pragma unroll
-      for (int i = 0; i < P; ++i) ld = ld + 2.f * logf(ch[tri(i, i)]);
-      logdet = ld;
-    }
-  }
-
-  if constexpr (!kDet) {
-#pragma unroll
-    for (int i = 0; i < P; ++i) means_out[(size_t)i * V + v] = means[i];
-    store_full<P>(prec, prec_out, V, v);
-    store_full<P>(cov, cov_out, V, v);
-    float fkqk[Q], ftr[Q];
-    if (k.need_f) {
-      f_pass<M, Q>(k.tcode, k.dt, means, cov, data, qw, k.nt, V, v, fkqk,
-                   ftr);
-    } else {
-#pragma unroll
-      for (int q = 0; q < Q; ++q) fkqk[q] = ftr[q] = 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      b_out[(size_t)q * V + v] = b[q];
-      c_out[(size_t)q * V + v] = c[q];
-      fkqk_out[(size_t)q * V + v] = fkqk[q];
-      ftr_out[(size_t)q * V + v] = ftr[q];
-    }
-  } else {
-    if (!cv.done) {
-      // the last iteration's test, on the F pass at the final means
-      float kqk2[Q], trace2[Q], cdiag[P];
-      f_pass<M, Q>(k.tcode, k.dt, centre, cov, data, qw, k.nt, V, v, kqk2,
-                   trace2);
-      packed_diag<P>(cov, cdiag);
-      const float f_last = assemble_f<P, Q>(k, dc, part3, centre, b, c,
-                                            cdiag, logdet, kqk2, trace2, pm,
-                                            pp);
-      const bool reduced = f_last - cv.prev_f < 0.f;
-      fabber::det_test(dc.d, cv, f_last);
-      f_st = (freduce && reduced) ? rev_f : f_last;
-    }
-    // the engine's finalize: best <- final where save, then the output
-    // <- best where revert (its F is the one captured at the save); a
-    // lane's first save precedes any revert (the first test always
-    // continues), so the best copy is always written before it is read
-    const bool keep_best = kBest && cv.revert && !cv.save;
-    // a lane keeping its best state has it in its output columns already
-    if (keep_best)
-      f_st = b_f;
-    else
-      store_state<P, Q>(centre, prec, cov, b, c, means_out, prec_out,
-                        cov_out, b_out, c_out, V, v);
-    fkqk_out[v] = f_st;
-    ftr_out[v] = (float)cv.its;
-    if (freduce) {
-      fkqk_out[(size_t)V + v] = cv.revert ? 1.f : 0.f;
-      ftr_out[(size_t)V + v] = 0.f;
-    }
-  }
-}
-
-// ---- launch and C entry point -------------------------------------------
-
-template <class M, int Q, int MODE>
-int launch_mode(const VBParams& k, const NLDetConsts& dc,
-                const float* const* ins, float* const* outs,
-                cudaStream_t stream) {
-  const unsigned grid = (unsigned)((k.V + kThreads - 1) / kThreads);
-  fused_nl_loop_kernel<M, Q, MODE><<<grid, kThreads, 0, stream>>>(
-      k, dc, ins[0], ins[1], ins[2], ins[3], ins[4], ins[5], outs[0],
-      outs[1], outs[2], outs[3], outs[4], outs[5], outs[6]);
-  return (int)cudaGetLastError();
-}
-
-template <class M, int Q>
-int launch(const VBParams& k, const NLDetConsts& dc, const float* const* ins,
-           float* const* outs, cudaStream_t stream) {
-  switch (dc.d.kind) {
-    case fabber::kMaxits: return launch_mode<M, Q, 0>(k, dc, ins, outs, stream);
-    case fabber::kPointZeroOne:
-    case fabber::kFreduce: return launch_mode<M, Q, 1>(k, dc, ins, outs, stream);
-    default: return launch_mode<M, Q, 2>(k, dc, ins, outs, stream);
-  }
-}
-
-}  // namespace
+#include "fused_nl_loop.cuh"
 
 // 1 when both nonlinear kernels are compiled for (kind, p, q), else 0.
 extern "C" int fabber_nl_has_instance(int kind, int p, int q) {
@@ -447,32 +42,14 @@ extern "C" int fabber_fused_nl_loop(
     const float* pp, const float* pd0, const float* data, const float* qw,
     int nt, long long V, float* means, float* prec, float* cov, float* b,
     float* c, float* fkqk, float* ftr, void* stream) {
-  if (p < 1 || p > kMaxP || q < 1 || q > kMaxQ || n_iters < 1 || nt < 1 ||
-      V < 1 || det_kind < fabber::kMaxits || det_kind > fabber::kLM ||
-      (det_kind == fabber::kFreduce && pd0 == nullptr))
+  VBParams k;
+  NLDetConsts dc;
+  if (!nl_setup(p, q, tcodes_host, dt, n_iters, need_f, locked_sd,
+                consts_host, det_kind, det_tol, det_max_its, det_max_trials,
+                det_init_save, det_consts_host, pd0, nt, V, &k, &dc))
     return (int)cudaErrorInvalidValue;
-  VBParams k = {};
-  for (int i = 0; i < p; ++i) k.tcode[i] = tcodes_host[i];
-  k.dt = dt;
-  k.n_iters = n_iters;
-  k.need_f = need_f;
-  k.locked_sd = locked_sd;
-  for (int i = 0; i < q; ++i) {
-    k.inv_b0[i] = consts_host[i];
-    k.c_post[i] = consts_host[q + i];
-    k.b_init[i] = consts_host[2 * q + i];
-    k.c_init[i] = consts_host[3 * q + i];
-  }
-  k.nt = nt;
-  k.V = V;
-  NLDetConsts dc = {};
-  dc.d = {det_kind, det_tol, det_max_its, det_max_trials, det_init_save};
-  if (det_kind != fabber::kMaxits) {
-    for (int i = 0; i < q; ++i) dc.lb_coeff[i] = det_consts_host[i];
-    dc.f_const = det_consts_host[q];
-    dc.f_const_init = det_consts_host[q + 1];
-  }
-  const float* const ins[6] = {centre0, pm, pp, pd0, data, qw};
+  // the built-in functors read no suppdata
+  const float* const ins[7] = {centre0, pm, pp, pd0, data, nullptr, qw};
   float* const outs[7] = {means, prec, cov, b, c, fkqk, ftr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FABBER_LAUNCH(KIND, NP, MODEL, NQ) \

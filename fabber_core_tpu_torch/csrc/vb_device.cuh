@@ -12,7 +12,10 @@
 // (i, j <= i) at i(i+1)/2 + j, the order of the TPU code's _tri(p).
 //
 // Model functors give the signal and the model-space Jacobian at one
-// 0-based time index t (a float); dt is a runtime argument:
+// 0-based time index t (a float); dt is a runtime argument. NS is the
+// number of per-voxel suppdata values a functor reads (eval's supp; 0
+// for the hand-written ones, which ignore it; a functor generated from a
+// model's evaluate, models/kernelgen.py, may read some):
 //   PolyModel<P>   c0 + c1 (t+1) + ... + c_{P-1} (t+1)^{P-1}
 //                  (models/poly.py: samples indexed from 1)
 //   ExpSum<NEXP>   sum_i a_i exp(-r_i t dt), parameters (a_1, r_1, ...)
@@ -41,7 +44,9 @@
 
 namespace fabber {
 
-constexpr int kMaxP = 4;   // largest P of FABBER_NL_INSTANCES
+// largest P of FABBER_NL_INSTANCES, and of a generated functor: the
+// engine refuses a larger model on the card at construction
+constexpr int kMaxP = 4;
 constexpr int kMaxQ = 4;   // largest Q of FABBER_NL_INSTANCES
 // samples per block of the two-level time sums: each pass sums kTB
 // samples into block sums and adds the blocks into its totals. One
@@ -94,6 +99,13 @@ __device__ __forceinline__ float chain_factor(int code, float x) {
 template <int NP>
 struct PolyModel {
   static constexpr int P = NP;
+  static constexpr int NS = 0;
+  __device__ __forceinline__ static float eval(const float* m,
+                                               const float* /*supp*/,
+                                               float t, float dt,
+                                               float* jac) {
+    return eval(m, t, dt, jac);
+  }
   __device__ __forceinline__ static float eval(const float* m, float t,
                                                float /*dt*/, float* jac) {
     const float tv = t + 1.f;
@@ -113,6 +125,13 @@ struct PolyModel {
 template <int NEXP>
 struct ExpSum {
   static constexpr int P = 2 * NEXP;
+  static constexpr int NS = 0;
+  __device__ __forceinline__ static float eval(const float* m,
+                                               const float* /*supp*/,
+                                               float t, float dt,
+                                               float* jac) {
+    return eval(m, t, dt, jac);
+  }
   __device__ __forceinline__ static float eval(const float* m, float t,
                                                float dt, float* jac) {
     const float tv = t * dt;
@@ -136,6 +155,18 @@ __device__ __forceinline__ float eval_latent(const float* mrow,
                                              const float* chain, float t,
                                              float dt, float* jac) {
   const float sig = M::eval(mrow, t, dt, jac);
+#pragma unroll
+  for (int i = 0; i < M::P; ++i) jac[i] *= chain[i];
+  return sig;
+}
+
+// the same with the voxel's suppdata (the whole-loop kernel's functors)
+template <class M>
+__device__ __forceinline__ float eval_latent(const float* mrow,
+                                             const float* chain,
+                                             const float* supp, float t,
+                                             float dt, float* jac) {
+  const float sig = M::eval(mrow, supp, t, dt, jac);
 #pragma unroll
   for (int i = 0; i < M::P; ++i) jac[i] *= chain[i];
   return sig;
@@ -329,13 +360,15 @@ __device__ __forceinline__ void add_sums(
 
 // The free energy's per-group quadratics at the given latent means:
 // k'Q_qk and tr(Sigma J'Q_qJ), k = y - g(means) (the TPU kernels' pass C).
+// supp: the voxel's suppdata (M::NS values; none for NS = 0).
 template <class M, int Q>
 __device__ __forceinline__ void f_pass(const int* tcode, float dt,
                                        const float* means, const float* cov,
                                        const float* __restrict__ data,
                                        const float* __restrict__ qw, int nt,
                                        long long V, long long v, float* fkqk,
-                                       float* ftr) {
+                                       float* ftr,
+                                       const float* supp = nullptr) {
   constexpr int P = M::P, NT = P * (P + 1) / 2;
   float mrow[P], chain[P];
   model_rows<P>(tcode, means, mrow, chain);
@@ -347,7 +380,7 @@ __device__ __forceinline__ void f_pass(const int* tcode, float dt,
     const int t1 = min(t0 + kTB, nt);
     for (int t = t0; t < t1; ++t) {
       float jac[P];
-      const float sig = eval_latent<M>(mrow, chain, (float)t, dt, jac);
+      const float sig = eval_latent<M>(mrow, chain, supp, (float)t, dt, jac);
       const float kb = data[(size_t)t * V + v] - sig;
       const float k2 = kb * kb;
 #pragma unroll

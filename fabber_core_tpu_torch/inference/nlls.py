@@ -25,8 +25,8 @@ Routes (ROUTES), chosen by the JAX engine's gates in its order (its
                 the damp-whitened Gram (host float64). Plain torch: the
                 JAX package runs it in XLA, so it has no kernel;
   nlls-kernel   time-local models at float32 with linearization=auto,
-                the model-default start and engine-kernel auto or
-                pallas-loop: the whole loop in the NLLS kernel
+                no suppdata, the model-default start and engine-kernel
+                auto or pallas-loop: the whole loop in the NLLS kernel
                 (ops/fused_nlls.py, csrc/fused_nlls.cu), with the
                 two-phase straggler compaction (a phase 1 capped at
                 nlls-phase1-iterations, the lanes sorted by their done
@@ -55,7 +55,7 @@ from ..ops.fused_nlls import (LAMBDA_INIT, PREC_DIAG_FLOOR, accept,
                               fused_nlls_loop, nlls_instantiated)
 from ..options import OptionSpec, OPT_BOOL, OPT_INT, OPT_STR
 from .linearize import Linearizer
-from .vb import VBResult
+from .vb import VBResult, supp_plane
 
 FAIL_PRECISION = 1e-12
 
@@ -108,12 +108,14 @@ class NLLSInference:
         ]
 
     def __init__(self, model, options, data, voxel_data_getter=None,
-                 data_plane=None, device="cuda", coords=None):
+                 data_plane=None, device="cuda", coords=None,
+                 suppdata=None):
         """data [V,T] (voxel-major, as at the API boundary), or
         data_plane a [T,V] tensor already on the device; device "cuda"
         (the kernel) or "cpu" (its plain version); coords [V,3] voxel
         grid coordinates for the model evaluation context (zeros if
-        None)."""
+        None); suppdata [V,S] per-voxel supplemental data for the
+        model's ctx.suppdata, or None."""
         self.model = model
         self.options = options
         self.device = resolve_device(device)
@@ -135,6 +137,8 @@ class NLLSInference:
             self.coords = torch.as_tensor(
                 np.asarray(coords), dtype=self.dtype).t().contiguous().to(
                     self.device)                               # [3,V]
+        self.supp = supp_plane(suppdata, self.nvoxels, self.dtype,
+                               self.device)                    # [S,V]
 
         tmask = np.ones(self.nt)
         for t in options.get_int_list("mt", 1):
@@ -174,6 +178,7 @@ class NLLSInference:
         if self.design is not None:
             self.route = "nlls-stats"
         elif (hasattr(model, "time_signal") and lin_mode == "auto"
+              and self.supp is None
               and self.dtype == torch.float32
               and self.init_file == "modeldefault"
               and mode in ("auto", "pallas-loop")):
@@ -201,8 +206,8 @@ class NLLSInference:
         raise NotImplementedError(
             f"model '{self.model.name}' {what}, so the 'nlls-kernel' route "
             f"({ROUTES['nlls-kernel']}) cannot run it on the card (ROADMAP "
-            "Queue 2 item 6: more functors and instances); device='cpu' "
-            "runs the route's plain version")
+            "Queue 1 item 19: functors generated for kernels 7 and 8); "
+            "device='cpu' runs the route's plain version")
 
     def route_description(self):
         """Which optimizer arithmetic this configuration landed on
@@ -246,16 +251,19 @@ class NLLSInference:
         model-fit and residual outputs)."""
         means = torch.as_tensor(means_planes, dtype=self.dtype,
                                 device=self.device)
-        return self.linearizer.evaluate(means, self.data, self.coords)
+        return self.linearizer.evaluate(means, self.data, self.coords,
+                                        self.supp)
 
     # -- nlls-generic -------------------------------------------------------
     def _cost(self, params):
-        pred = self.linearizer.evaluate(params, self.data, self.coords)
+        pred = self.linearizer.evaluate(params, self.data, self.coords,
+                                        self.supp)
         r = (self.data - pred) * self.tmask
         return torch.sum(r * r, dim=0)
 
     def _jtj_jtr(self, params):
-        offset, jac = self.linearizer(params, self.data, self.coords)
+        offset, jac = self.linearizer(params, self.data, self.coords,
+                                      self.supp)
         jac = jac * self.tmask[None]
         r = (self.data - offset) * self.tmask
         p = self.nparams

@@ -44,6 +44,10 @@ interacting use_* flags (vb.py:340-660). The live ones:
                   non-identity transform): the whole-loop kernel
                   (ops/fused_loop_nl.py; vb.py:593-660, 1132-1326),
                   maxits or any of the four F-based detectors in-kernel;
+                  also, in its generic full-time mode, models with only
+                  an evaluate that the probe admits (data-free,
+                  time-local, every op known: models/kernelgen.py), on
+                  the card through a functor generated from evaluate;
   pallas          the same models, one fused-iteration kernel launch
                   per iteration (ops/fused_vb.py; vb.py:340-366,
                   891-951): save-free-energy-history, continuation
@@ -63,7 +67,8 @@ _select_route applies the JAX gates in the JAX engine's order (its
 `auto` as on the TPU), the same way on "cpu" and "cuda"; a run those
 gates send to an unported route raises NotImplementedError naming it.
 On "cuda" a kernel route also needs its kernels compiled for the run's
-shape (csrc/vb_device.cuh FABBER_NL_INSTANCES for the model functors,
+shape (csrc/vb_device.cuh FABBER_NL_INSTANCES for the model functors, or
+a functor generated from the model, built at first use,
 csrc/fused_whole.cu FABBER_WHOLE_INSTANCES for (P, Q), csrc/
 fused_ar_loop.cu FABBER_AR_INSTANCES for AR's (P, echoes)); a run outside
 them raises at construction. Choosing a route is a decision made before
@@ -79,6 +84,8 @@ import torch
 from .. import resolve_device
 from ..exceptions import InvalidOptionValue
 from ..models.base import resolve_parameters, PRIOR_IMAGE
+from ..models.kernelgen import (derive_time_local_eval,
+                                derive_time_signal_functor)
 from ..noise import get_noise_class
 from ..noise.ar1 import Ar1NoiseState
 from ..noise.white import DesignStats, WhiteNoiseState
@@ -268,7 +275,7 @@ class VBInference:
 
     def __init__(self, model, options, data, voxel_data_getter=None,
                  data_plane=None, device="cuda", coords=None,
-                 continued=False):
+                 continued=False, suppdata=None):
         """data [V,T] (voxel-major, as at the API boundary; uploaded,
         then transposed to [T,V] on the device).
 
@@ -282,6 +289,8 @@ class VBInference:
         runner's loaded MVN; the continue-from-mvn option says so too),
         which the JAX gates keep off the whole-loop and whole-program
         kernels: run() then takes the continuation.
+        suppdata: [V,S] per-voxel supplemental data (--suppdata), handed
+        to the model's evaluate as ctx.suppdata [S] (None: none).
         """
         self.model = model
         self.options = options
@@ -309,6 +318,8 @@ class VBInference:
             self.coords = torch.as_tensor(
                 np.asarray(coords), dtype=self.dtype).t().contiguous().to(
                     self.device)                                # [3,V]
+        self.supp = supp_plane(suppdata, self.nvoxels, self.dtype,
+                               self.device)                     # [S,V]
 
         self.params = resolve_parameters(model, options)
         self.nparams = len(self.params)
@@ -372,6 +383,11 @@ class VBInference:
             # route: the generic-Jacobian route instead (vb.py:376-380)
             self.design = None
         self._ts_eligible = ts_eligible and self.design is None
+        # the whole-loop kernel's generic mode: the probe's TimeLocalEval
+        # of evaluate (_nonlinear_route), and the generated functor the
+        # card runs (_require_kernel_instance)
+        self.generic = None
+        self.functor = None
 
         self.route = self._select_route()
         _raise_unported(self.route)
@@ -488,14 +504,28 @@ class VBInference:
         feature = self._unported_feature()
         if feature is not None:
             return feature
-        if not self._ts_eligible:
-            return "xla-generic"
         # every detector runs in the kernel (vb.py:621-640)
         nl_ok = (mode in ("auto", "pallas-loop")
                  and int(self.detector.max_iterations) >= 1
                  and not self.save_fhist and not self.continued
                  and o.get_string("noise-initial-posterior",
                                   "modeldefault") == "modeldefault")
+        if not self._ts_eligible:
+            # the generic mode's gate (vb.py:600-617): an evaluate the
+            # probe admits, decided here, before any launch
+            if (mode in ("auto", "pallas-loop")
+                    and getattr(self.noise, "name", "") == "white"
+                    and not self.locked_linear
+                    and o.get_string("linearization", "auto") == "auto"
+                    and self.design is None
+                    and self.dtype == torch.float32):
+                nsupp = 0 if self.supp is None else self.supp.shape[0]
+                self.generic = derive_time_local_eval(
+                    self.model, self.nt, self.nparams, nsupp)
+            if self.generic is not None and nl_ok:
+                self.functor = self.generic
+                return "pallas-loop-nl"
+            return "xla-generic"
         if nl_ok:
             return "pallas-loop-nl"
         return "pallas" if mode in ("auto", "pallas") else "xla-generic"
@@ -528,6 +558,11 @@ class VBInference:
                 f"FABBER_WHOLE_INSTANCES), so the '{self.route}' route "
                 f"({ROUTES[self.route][0]}) cannot run it on the card; "
                 "device='cpu' runs the route's plain version")
+        if self.route == "pallas-loop-nl" and (
+                self.generic is not None
+                or self.model.kernel_model() is None):
+            self._require_generated(nq)
+            return
         if self.route not in FUNCTOR_ROUTES:
             return
         km = self.model.kernel_model()
@@ -540,9 +575,30 @@ class VBInference:
         raise NotImplementedError(
             f"model '{self.model.name}' {what}, so the '{self.route}' "
             f"route ({ROUTES[self.route][0]}) cannot run it on the card "
-            "(ROADMAP Queue 2 item 6: more functors and instances, the "
-            "whole-loop kernel's generic mode); device='cpu' runs the "
-            "route's plain version")
+            "(ROADMAP Queue 1 item 19: functors generated for kernels 7 "
+            "and 8); device='cpu' runs the route's plain version")
+
+    def _require_generated(self, nq):
+        """The whole-loop kernel with a functor generated from the model
+        (its evaluate on the generic route, else its time_signal),
+        built (or loaded) now; raises when it cannot be."""
+        functor = self.generic or derive_time_signal_functor(
+            self.model, self.nparams)
+        why = None
+        if functor is None:
+            why = "its time_signal traces to an op the generator lacks"
+        elif self.nparams > 4 or nq > 4:
+            why = (f"P={self.nparams}, Q={nq} is above the kernel's "
+                   "P <= 4, Q <= 4 (csrc/vb_device.cuh kMaxP, kMaxQ)")
+        if why is not None:
+            raise NotImplementedError(
+                f"model '{self.model.name}' has no CUDA model functor "
+                f"(kernel_model) and none can be generated: {why}; "
+                "device='cpu' runs the route's plain version")
+        from ..ops import _cuda
+        functor.libs[nq] = _cuda.build_generated(functor.source,
+                                                 self.nparams, nq)
+        self.functor = functor
 
     def route_description(self):
         """Human-readable name of the selected update route (logged by
@@ -551,7 +607,14 @@ class VBInference:
         if det != "maxits" and self.route in (
                 "spectral-whole", "spectral-fused", "spectral-xstats",
                 "pallas-whole", "pallas-loop-nl", "pallas-loop-ar"):
-            return f"{ROUTES[self.route][0]}, in-kernel {det} detector"
+            return f"{self._route_name()}, in-kernel {det} detector"
+        return self._route_name()
+
+    def _route_name(self):
+        if self.route == "pallas-loop-nl" and self.generic is not None:
+            # the JAX engine's words (vb.py:695-702)
+            return ("whole-loop nonlinear kernel (generic full-time mode, "
+                    "in-kernel evaluator derived from evaluate())")
         return ROUTES[self.route][0]
 
     def evaluate_model(self, means_planes):
@@ -564,7 +627,7 @@ class VBInference:
                                 device=self.device)
             return d @ means
         return self.linearizer.evaluate(means, self.data.to(self.dtype),
-                                        self.coords)
+                                        self.coords, self.supp)
 
     # -- initial state ----------------------------------------------------
     def initial_posterior(self):
@@ -998,7 +1061,8 @@ class VBInference:
             else None
         means, prec, cov, nb, nc, fkqk, ftr = fused_nl_loop(
             self.model, self._transforms(), *args, n_iters, self.need_f,
-            self.noise.locked_noise_stdev, detector=det, post_var0=pd0)
+            self.noise.locked_noise_stdev, detector=det, post_var0=pd0,
+            functor=self.functor, supp=self.supp)
         if kind == "freduce":
             rev = fkqk[1] > 0.5
             means, prec, cov, nb, nc = (
@@ -1092,7 +1156,8 @@ class VBInference:
         post = s.post
         data = self.data.to(self.dtype)
         if route == "xla-generic":
-            offset_c, jac_c = self.linearizer(s.centre, data, self.coords)
+            offset_c, jac_c = self.linearizer(s.centre, data, self.coords,
+                                              self.supp)
         # 1. save the current state as best-so-far where the detector
         #    flagged it (top of the reference do-loop, inference_vb.cc:451)
         best = _lane_where(s.conv.save, post, s.best) \
@@ -1137,7 +1202,8 @@ class VBInference:
                 prior_means, prior_prec, stats)
             f = f + fprior
         elif self.need_f:
-            offset, jac = self.linearizer(centre, data, self.coords)
+            offset, jac = self.linearizer(centre, data, self.coords,
+                                          self.supp)
             f = self.noise.free_energy(
                 noise_post, self.noise_prior, means, prec, cov,
                 prior_means, prior_prec, centre, offset, jac, data)
@@ -1192,7 +1258,8 @@ class VBInference:
             f = torch.where(s.conv.revert, f_rev, s.f)
         elif self.need_f:
             data = self.data.to(self.dtype)
-            offset, jac = self.linearizer(post.means, data, self.coords)
+            offset, jac = self.linearizer(post.means, data, self.coords,
+                                          self.supp)
             f_rev = self.noise.free_energy(
                 post.noise, self.noise_prior, post.means, post.prec,
                 post.cov, post.prior_means, post.prior_prec, post.means,
@@ -1210,7 +1277,8 @@ class VBInference:
         if self.route != "pallas-loop-nl":
             return self.route
         mode = self.options.get_string("engine-kernel", "auto")
-        return "pallas" if mode in ("auto", "pallas") else "xla-generic"
+        return "pallas" if mode in ("auto", "pallas") \
+            and self.generic is None else "xla-generic"
 
     def run(self, continue_means=None, continue_cov=None,
             continue_noise=None):
@@ -1278,6 +1346,17 @@ class VBInference:
 
 def _no_voxel_data(key):
     raise KeyError(key)
+
+
+def supp_plane(suppdata, nvoxels, dtype, device):
+    """[V,S] suppdata (numpy, at the API boundary) as an [S,V] plane on
+    the device, or None for none (S = 0), as the JAX engines keep it."""
+    if suppdata is None:
+        return None
+    arr = np.asarray(suppdata).reshape(nvoxels, -1)
+    if arr.shape[1] == 0:
+        return None
+    return torch.as_tensor(arr, dtype=dtype).t().contiguous().to(device)
 
 
 def _digamma(x):

@@ -6,10 +6,10 @@ fwdmodel.cc:210-313). A model is a plain function
 linear in its parameters also exposes its constant [T,P] design
 (``fixed_design``), which is what the port's spectral route runs on.
 A time-local model adds ``time_signal``/``time_signal_jac`` and, when
-the CUDA kernels carry a functor for it, ``kernel_model``. The JAX
-package's jaxpr probe for the whole-loop kernel's generic mode
-(derive_time_local_eval) is not ported: evaluate-only models run on
-the generic-Jacobian route.
+the CUDA kernels carry a functor for it, ``kernel_model``. A model with
+only an ``evaluate`` reaches the whole-loop kernel through the probe of
+models/kernelgen.py (derive_time_local_eval), which also generates its
+CUDA functor.
 """
 
 import importlib
@@ -123,8 +123,8 @@ class Model:
 
     def kernel_model(self):
         """The KernelModel the CUDA kernels evaluate this model's
-        time_signal_jac with, or None (the model then runs on the
-        generic-Jacobian route)."""
+        time_signal_jac with, or None (the whole-loop kernel then runs a
+        functor generated from the model, models/kernelgen.py)."""
         return None
 
 

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -26,7 +27,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("spectral_stats.cu", "spectral_core.cu", "spectral_fused.cu",
            "fused_nl_loop.cu", "fused_vb_iter.cu", "fused_whole.cu",
            "fused_nlls.cu", "fused_ar_loop.cu")
-HEADERS = ("vb_device.cuh", "detectors.cuh", "spectral_device.cuh")
+HEADERS = ("vb_device.cuh", "detectors.cuh", "spectral_device.cuh",
+           "fused_nl_loop.cuh", "dual.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -43,6 +45,9 @@ DETECTOR_CODES = {"maxits": 0, "pointzeroone": 1, "freduce": 2,
 
 _lib = None
 build_log = ""   # nvcc's output (incl. -Xptxas -v) of this process's build
+# generated model functors: source hash -> (library, nq, nparams, nsupp)
+_gen_libs = {}
+gen_build_log = {}   # source hash -> (seconds, nvcc's output)
 
 
 def _nvcc():
@@ -157,6 +162,130 @@ def load():
         lib.fabber_ar_has_instance.restype = i32
         _lib = lib
     return _lib
+
+
+# the C entry point of a library built from a generated model functor:
+# kernel 6 at the functor's P and the run's Q, its three MODEs
+_GEN_TEMPLATE = """// generated by fabber_core_tpu_torch/ops/_cuda.py build_generated: the
+// whole-loop kernel (fused_nl_loop.cuh) with a model functor generated
+// from a model (models/kernelgen.py) at P = {p}, Q = {q}.
+#include "dual.cuh"
+#include "fused_nl_loop.cuh"
+
+namespace {{
+using namespace fabber::gen;
+{source}
+}}  // namespace
+
+// fabber_fused_nl_loop's arguments (fused_nl_loop.cu) without the kind,
+// P and Q, which the library is built for, and with supp [NS,V] (device,
+// null when NS = 0).
+extern "C" int fabber_gen_nl_loop(
+    const int* tcodes_host, int n_iters, int need_f, float locked_sd,
+    const float* consts_host, int det_kind, float det_tol, int det_max_its,
+    int det_max_trials, int det_init_save, const float* det_consts_host,
+    const float* centre0, const float* pm, const float* pp, const float* pd0,
+    const float* data, const float* supp, const float* qw, int nt,
+    long long V, float* means, float* prec, float* cov, float* b, float* c,
+    float* fkqk, float* ftr, void* stream) {{
+  VBParams k;
+  NLDetConsts dc;
+  if (!nl_setup({p}, {q}, tcodes_host, 0.f, n_iters, need_f, locked_sd,
+                consts_host, det_kind, det_tol, det_max_its, det_max_trials,
+                det_init_save, det_consts_host, pd0, nt, V, &k, &dc) ||
+      (GenModel::NS > 0 && supp == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const float* const ins[7] = {{centre0, pm, pp, pd0, data, supp, qw}};
+  float* const outs[7] = {{means, prec, cov, b, c, fkqk, ftr}};
+  return launch<GenModel, {q}>(k, dc, ins, outs,
+                               static_cast<cudaStream_t>(stream));
+}}
+"""
+
+
+def generated_source(source, p, q):
+    """The .cu of a generated functor (GenModel source) at P, Q."""
+    return _GEN_TEMPLATE.format(source=source, p=p, q=q)
+
+
+def generated_key(source, p, q):
+    """The hash naming a generated functor's build: its .cu (source, P,
+    Q), the headers and the flags."""
+    h = hashlib.sha256(generated_source(source, p, q).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for name in HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_generated(source, p, q):
+    """Build (once per source, P, Q, headers and flags) and load the
+    whole-loop kernel with a generated model functor: writes
+    build/kernels/gen/<hash>.cu, compiles it with nvcc for sm_90a into
+    libfabber_gen_<hash>.so (a temporary file, then os.replace) and loads
+    it with its own ctypes.CDLL. Returns the library; raises with nvcc's
+    stderr when the build fails. gen_build_log[hash] keeps the build's
+    seconds and nvcc's output (ptxas's register and spill lines)."""
+    if not 1 <= p <= 4:
+        raise FabberError(f"a generated functor takes P <= 4, not {p} "
+                          "(csrc/vb_device.cuh kMaxP)")
+    cu = generated_source(source, p, q)
+    key = generated_key(source, p, q)
+    if key in _gen_libs:
+        return _gen_libs[key]
+    gdir = BUILD_DIR / "gen"
+    src = gdir / f"{key}.cu"
+    out = gdir / f"libfabber_gen_{key}.so"
+    if not out.exists():
+        nvcc = _nvcc()
+        gdir.mkdir(parents=True, exist_ok=True)
+        tmp_src = src.with_suffix(f".tmp{os.getpid()}.cu")
+        tmp_src.write_text(cu)
+        os.replace(tmp_src, src)
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-shared", "-o",
+               str(tmp), str(src)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        gen_build_log[key] = (time.perf_counter() - t0,
+                              proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise FabberError(f"nvcc failed ({proc.returncode}) on a "
+                              f"generated model functor:\n{' '.join(cmd)}"
+                              f"\n{proc.stderr}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_float)
+    lib.fabber_gen_nl_loop.argtypes = [
+        vp, i32, i32, f32, vp, i32, f32, i32, i32, i32, vp,
+        vp, vp, vp, vp, vp, vp, vp, i32, i64] + [vp] * 7 + [vp]
+    lib.fabber_gen_nl_loop.restype = i32
+    _gen_libs[key] = lib
+    return lib
+
+
+def launch_gen_nl_loop(lib, tcodes, n_iters, need_f, locked_sd, consts,
+                       detector, det_consts, centre0, pm, pp, pd0, data,
+                       supp, qw, outs):
+    """launch_nl_loop for a library of build_generated; supp: the [S,V]
+    suppdata plane or None."""
+    nt, nv = data.shape
+    consts = consts.contiguous()
+    dc = 0 if det_consts is None else det_consts.contiguous().data_ptr()
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+    with torch.cuda.device(data.device):
+        err = lib.fabber_gen_nl_loop(
+            _int_array(tcodes), n_iters, int(need_f), locked_sd,
+            consts.data_ptr(), *detector_args(detector), dc,
+            centre0.data_ptr(), pm.data_ptr(), pp.data_ptr(), ptr(pd0),
+            data.data_ptr(), ptr(supp), qw.data_ptr(), nt, nv,
+            *(o.data_ptr() for o in outs), _stream(data.device))
+    _raise_on(err, "fused_nl_loop (generated functor)")
 
 
 def has_nl_instance(kind, p, q):

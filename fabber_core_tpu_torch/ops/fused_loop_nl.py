@@ -1,9 +1,11 @@
 """Whole-VB-loop kernel for time-local (nonlinear) models, and its
 plain-torch version.
 
-Port of fabber_core_tpu/ops/fused_loop_nl.py in its time_signal mode,
-maxits and the in-kernel detectors. One hand-written CUDA kernel for
-Hopper (csrc/fused_nl_loop.cu) replaces make_fused_nl_loop: per voxel,
+Port of fabber_core_tpu/ops/fused_loop_nl.py in its time_signal and
+generic modes, maxits and the in-kernel detectors. One hand-written CUDA
+kernel for Hopper (csrc/fused_nl_loop.cuh, with the hand-written
+functors' entry points in csrc/fused_nl_loop.cu) replaces
+make_fused_nl_loop: per voxel,
 the whole fixed point of white-noise VB runs in registers —
 
   per iteration, one pass over the T samples: model + latent-space
@@ -36,20 +38,33 @@ save/revert after the loop; lm takes the damped step where its alpha is
 > 0. The last two outputs are then F and the iteration count [1,V]
 (freduce: [2,V], with the revert flag and zeros).
 
+Generic full-time mode (fused_loop_nl.py:37-46, 204-227, 294-310 of the
+JAX package, TPU kernel 6g): a model with only an ``evaluate`` that
+models/kernelgen.py admits runs the same loop with the model in place
+of time_signal_jac. On the card the kernel's template
+(csrc/fused_nl_loop.cuh) is built with a C++ functor generated from the
+traced evaluate (ops/_cuda.py build_generated), which reads the voxel's
+suppdata [S,V]; its plain version evaluates the model with ops/fused_vb.py
+full_eval (make_full_eval's counterpart) and sums each quadratic over
+the whole time axis at once. A time_signal model without a hand-written
+functor runs a functor generated from its time_signal the same way.
+
 The wrapper takes the plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises. ``fused_nl_loop.
 launches`` counts kernel launches, ``det_launches`` those in detector
-mode.
+mode, ``generic_launches`` those in the generic full-time mode (a
+functor generated from evaluate; one generated from a time_signal is
+the time_signal mode).
 """
 
 import numpy as np
 import torch
 
 from . import smallmat as sm
-from .fused_vb import (block_eval, check_plane, f_quadratics, group_masks,
+from .fused_vb import (TRANSFORM_CODES, block_evaluator, check_plane,
+                       f_quadratics, full_eval, group_masks,
                        group_quadratics, group_weights, kernel_args,
-                       posterior_solve, signal_jac_fn, time_index,
-                       trace_terms)
+                       posterior_solve, signal_jac_fn, trace_terms)
 
 DETECTOR_KINDS = ("pointzeroone", "freduce", "trialmode", "lm")
 
@@ -69,7 +84,7 @@ def pack_nl_consts(noise_prior_b, noise_prior_c, ntimes_per_group,
 def fused_nl_loop_plain(time_signal_jac, transforms, centre0, prior_means,
                         prior_prec, data, qmasks, consts, n_iters, need_f,
                         locked_noise_stdev=-1.0, detector=None,
-                        post_var0=None):
+                        post_var0=None, evaluator=None):
     """Plain torch, the whole loop: centre0/prior_means/prior_prec
     [P,V], data [T,V], qmasks [Q,T], consts [4Q] (pack_nl_consts) ->
     (means [P,V], prec [P,P,V], cov [P,P,V], b [Q,V], c [Q,V],
@@ -77,14 +92,18 @@ def fused_nl_loop_plain(time_signal_jac, transforms, centre0, prior_means,
     False. detector: None (maxits) or the dict of
     VBInference._nl_fdet_consts (the module docstring's detector mode;
     post_var0 [P,V] are the initial posterior variances freduce's
-    initial F needs)."""
+    initial F needs). evaluator: the model as ops/fused_vb.py full_eval
+    makes it (the generic full-time mode: each quadratic summed over the
+    whole time axis at once, as the TPU kernel's generic mode does);
+    default, time_signal mode from time_signal_jac."""
     if n_iters < 1:
         raise ValueError("n_iters must be >= 1")
+    ev = evaluator or block_evaluator(time_signal_jac, transforms,
+                                      data.shape[0])
     if detector is not None:
         return _nl_loop_detector_plain(
-            time_signal_jac, transforms, centre0, prior_means, prior_prec,
-            data, qmasks, consts, n_iters, locked_noise_stdev, detector,
-            post_var0)
+            ev, centre0, prior_means, prior_prec, data, qmasks, consts,
+            n_iters, locked_noise_stdev, detector, post_var0)
     dt, dev = centre0.dtype, centre0.device
     p, nv = centre0.shape
     q = group_masks(qmasks, dt, dev)
@@ -92,14 +111,13 @@ def fused_nl_loop_plain(time_signal_jac, transforms, centre0, prior_means,
     data = data.to(dt)
     k = consts.to(dt).tolist()      # values rounded to the dtype
     inv_b0, c_post = k[:nq], k[nq:2 * nq]
-    t = time_index(data.shape[0], dt, dev)
 
     centre = centre0
     b = torch.full((nq, nv), k[2 * nq], dtype=dt, device=dev)
     c = torch.full((nq, nv), k[3 * nq], dtype=dt, device=dev)
     for _ in range(n_iters):
         phi = b * c
-        sig, jac = block_eval(time_signal_jac, transforms, centre, t)
+        sig, jac = ev(centre)
         r = data - sig
         jtj, _ = group_quadratics(jac, q)
         # J'Q_i r and r'Q_i r with the weight folded into r, as the
@@ -132,8 +150,7 @@ def fused_nl_loop_plain(time_signal_jac, transforms, centre0, prior_means,
         centre = means
 
     if need_f:
-        fkqk, ftr = f_quadratics(time_signal_jac, transforms, means, data,
-                                 q, cov)
+        fkqk, ftr = f_quadratics(ev, means, data, q, cov)
     else:
         fkqk = torch.zeros((nq, nv), dtype=dt, device=dev)
         ftr = torch.zeros_like(fkqk)
@@ -142,10 +159,15 @@ def fused_nl_loop_plain(time_signal_jac, transforms, centre0, prior_means,
 
 def fused_nl_loop(model, transforms, centre0, prior_means, prior_prec, data,
                   qmasks, consts, n_iters, need_f, locked_noise_stdev=-1.0,
-                  detector=None, post_var0=None):
+                  detector=None, post_var0=None, functor=None, supp=None):
     """The whole VB loop (see fused_nl_loop_plain for the shapes and
     the detector mode). model: the forward model (signal_jac_fn(model)
-    on the CPU, kernel_model() for the CUDA functor)."""
+    on the CPU, kernel_model() for the CUDA functor). functor: a
+    models/kernelgen.py TimeLocalEval, whose kernel the card launches
+    from functor.libs[Q] (built before, ops/_cuda.py build_generated):
+    generated from the model's evaluate (its fn set: the generic full-time mode, whose
+    plain version is ops/fused_vb.py full_eval, with supp [S,V] when the
+    functor reads suppdata) or from its time_signal."""
     if n_iters < 1:
         raise ValueError("n_iters must be >= 1")
     kind = None if detector is None else type(detector["det"]).name
@@ -153,21 +175,36 @@ def fused_nl_loop(model, transforms, centre0, prior_means, prior_prec, data,
         raise ValueError(f"no detector mode for '{kind}'")
     if kind == "freduce" and post_var0 is None:
         raise ValueError("freduce needs post_var0 (the initial variances)")
+    nsupp = 0 if functor is None else functor.nsupp
+    if nsupp and (supp is None or supp.shape[0] != nsupp):
+        raise ValueError(f"the model reads {nsupp} suppdata values per "
+                         f"voxel: supp must be [S,V] with S = {nsupp}")
+    generic = functor is not None and functor.fn is not None
     if centre0.device.type == "cpu":
-        return fused_nl_loop_plain(signal_jac_fn(model), transforms,
-                                   centre0, prior_means, prior_prec, data,
-                                   qmasks, consts, n_iters, need_f,
-                                   locked_noise_stdev, detector, post_var0)
+        ev = full_eval(functor.fn, transforms, supp if nsupp else None) \
+            if generic else None
+        return fused_nl_loop_plain(
+            None if generic else signal_jac_fn(model), transforms, centre0,
+            prior_means, prior_prec, data, qmasks, consts, n_iters, need_f,
+            locked_noise_stdev, detector, post_var0, ev)
     dev = centre0.device
     p, nv = centre0.shape
     nq = len(qmasks)
-    km, tcodes = kernel_args(model, transforms, nq, dev)
+    if functor is None:
+        km, tcodes = kernel_args(model, transforms, nq, dev)
+    else:
+        if len(transforms) != functor.nparams:
+            raise ValueError(f"{len(transforms)} transforms for "
+                             f"{functor.nparams} parameters")
+        tcodes = [TRANSFORM_CODES[tr.code] for tr in transforms]
     nt = data.shape[0]
     for t, name, shape in ((centre0, "centre0", (p, nv)),
                            (prior_means, "prior_means", (p, nv)),
                            (prior_prec, "prior_prec", (p, nv)),
                            (data, "data", (nt, nv))):
         check_plane(t, name, shape, dev)
+    if nsupp:
+        check_plane(supp, "supp", (nsupp, nv), dev)
     if consts.device.type != "cpu" or consts.numel() != 4 * nq:
         raise ValueError(f"consts must be a host vector of {4 * nq} "
                          "values: it is passed to the kernel by value")
@@ -187,13 +224,28 @@ def fused_nl_loop(model, transforms, centre0, prior_means, prior_prec, data,
         dtype=torch.float32)
     if nv:
         from . import _cuda
-        _cuda.launch_nl_loop(km, nq, tcodes, int(n_iters), bool(need_f),
-                             float(locked_noise_stdev),
-                             consts.to(torch.float32),
-                             None if kind is None else detector["det"],
-                             det_consts, centre0, prior_means, prior_prec,
-                             post_var0 if kind == "freduce" else None, data,
-                             qw, outs)
+        det = None if kind is None else detector["det"]
+        pd0 = post_var0 if kind == "freduce" else None
+        if functor is None:
+            _cuda.launch_nl_loop(km, nq, tcodes, int(n_iters), bool(need_f),
+                                 float(locked_noise_stdev),
+                                 consts.to(torch.float32), det, det_consts,
+                                 centre0, prior_means, prior_prec, pd0, data,
+                                 qw, outs)
+        else:
+            lib = functor.libs.get(nq)
+            if lib is None:
+                raise ValueError(
+                    f"no kernel built for this functor at Q={nq}: "
+                    "functor.libs[Q] = ops/_cuda.py build_generated(...) "
+                    "(the engine builds it at construction)")
+            _cuda.launch_gen_nl_loop(
+                lib, tcodes, int(n_iters), bool(need_f),
+                float(locked_noise_stdev), consts.to(torch.float32), det,
+                det_consts, centre0, prior_means, prior_prec, pd0, data,
+                supp if nsupp else None, qw, outs)
+            if generic:
+                fused_nl_loop.generic_launches += 1
         fused_nl_loop.launches += 1
         if kind is not None:
             fused_nl_loop.det_launches += 1
@@ -202,6 +254,7 @@ def fused_nl_loop(model, transforms, centre0, prior_means, prior_prec, data,
 
 fused_nl_loop.launches = 0
 fused_nl_loop.det_launches = 0
+fused_nl_loop.generic_launches = 0
 
 
 def _round(x, dt):
@@ -210,10 +263,9 @@ def _round(x, dt):
     return float(torch.tensor(float(x), dtype=dt))
 
 
-def _nl_loop_detector_plain(time_signal_jac, transforms, centre0,
-                            prior_means, prior_prec, data, qmasks, consts,
-                            n_iters, locked_noise_stdev, detector,
-                            post_var0):
+def _nl_loop_detector_plain(ev, centre0, prior_means, prior_prec, data,
+                            qmasks, consts, n_iters, locked_noise_stdev,
+                            detector, post_var0):
     """The detector mode of fused_nl_loop_plain (module docstring),
     step for step the TPU kernel's (fused_loop_nl.py:346-857 of the JAX
     package), with the lanes' tests from inference/convergence.py."""
@@ -224,7 +276,6 @@ def _nl_loop_detector_plain(time_signal_jac, transforms, centre0,
     data = data.to(dt)
     k = consts.to(dt).tolist()
     inv_b0, c_post = k[:nq], k[nq:2 * nq]
-    t = time_index(data.shape[0], dt, dev)
     det = detector["det"]
     kind = type(det).name
     freduce = kind == "freduce"
@@ -285,7 +336,7 @@ def _nl_loop_detector_plain(time_signal_jac, transforms, centre0,
     it = 0
     while it < n_iters and not bool(conv.done.all()):
         phi = b * c
-        sig, jac = block_eval(time_signal_jac, transforms, centre, t)
+        sig, jac = ev(centre)
         r = data - sig
         jtj, _ = group_quadratics(jac, q)
         wr = [q[qi][:, None] * r for qi in range(nq)]
@@ -360,8 +411,7 @@ def _nl_loop_detector_plain(time_signal_jac, transforms, centre0,
         it += 1
 
     # the last iteration's test, on the F pass at the final means
-    kqk2, trace2 = f_quadratics(time_signal_jac, transforms, centre, data,
-                                q, cov)
+    kqk2, trace2 = f_quadratics(ev, centre, data, q, cov)
     f_last = assemble_f(centre, b, c, sm.diag_of(cov), logdet, kqk2, trace2,
                         part3vox)
     conv, f_st, _ = commit_test(conv, f_st, f_last)

@@ -113,6 +113,49 @@ def block_eval(time_signal_jac, transforms, latent, t):
     return sig.expand(t.shape[0], latent.shape[1]), jac
 
 
+def block_evaluator(time_signal_jac, transforms, nt):
+    """latent [P,V] -> (signal [T,V], latent-space Jacobian [P,T,V])
+    from the model's time_signal_jac (block_eval over the T samples)."""
+    def evaluator(latent):
+        return block_eval(time_signal_jac, transforms, latent,
+                          time_index(nt, latent.dtype, latent.device))
+    return evaluator
+
+
+def full_eval(fn, transforms, supp=None):
+    """make_full_eval's counterpart (the whole-loop kernel's generic
+    full-time mode): latent [P,V] -> (signal [T,V], latent-space
+    Jacobian [P,T,V]) from fn(params [P][, supp [S]]) -> [T] (a model's
+    data-free evaluate, models/kernelgen.py) vmapped over the voxel
+    lanes. The model-space Jacobian comes from forward mode (one
+    torch.func.jvp per parameter, as the TPU kernel's jax.linearize
+    applies its linear map per basis tangent), times the chain factors;
+    supp [S,V] rides along per lane with no derivative taken through
+    it."""
+    def evaluator(latent):
+        p = latent.shape[0]
+        rows = [latent[i] for i in range(p)]
+        mrows = torch.stack([tr.to_model(r)
+                             for tr, r in zip(transforms, rows)])
+        if supp is None:
+            def f(m):
+                return torch.func.vmap(fn, in_dims=1, out_dims=1)(m)
+        else:
+            s = supp.to(latent.dtype)
+
+            def f(m):
+                return torch.func.vmap(fn, in_dims=(1, 1), out_dims=1)(m, s)
+        sig = f(mrows).to(latent.dtype)
+        jac = []
+        for i, tr in enumerate(transforms):
+            basis = torch.zeros_like(mrows)
+            basis[i] = 1.0
+            _, d = torch.func.jvp(f, (mrows,), (basis,))
+            jac.append(d.to(latent.dtype) * chain_factor(tr, rows[i])[None])
+        return sig, torch.stack(jac)
+    return evaluator
+
+
 def group_masks(qmasks, dtype, device):
     """The [Q,T] group indicators (numpy or tensor) as a tensor."""
     return torch.as_tensor(np.asarray(qmasks), dtype=dtype, device=device)
@@ -173,11 +216,11 @@ def trace_terms(cov, jtj):
     return torch.stack(out)
 
 
-def f_quadratics(time_signal_jac, transforms, means, data, q, cov):
+def f_quadratics(evaluator, means, data, q, cov):
     """(k'Q_ik, tr(Sigma J'Q_iJ)) [Q,V] at the given means: the free
-    energy's quadratics (the TPU kernels' pass C)."""
-    t = time_index(data.shape[0], means.dtype, means.device)
-    sig, jac = block_eval(time_signal_jac, transforms, means, t)
+    energy's quadratics (the TPU kernels' pass C). evaluator: the model
+    as block_evaluator or full_eval make it."""
+    sig, jac = evaluator(means)
     k = data - sig
     k2 = k * k
     kqk = torch.stack([torch.sum(q[qi][:, None] * k2, dim=0)
@@ -225,8 +268,9 @@ def fused_iteration_plain(time_signal_jac, transforms, centre, prior_means,
                         for qi in range(q.shape[0])])
     ntr = trace_terms(cov, jtj)
     if need_f:
-        fkqk, ftr = f_quadratics(time_signal_jac, transforms, means, data,
-                                 q, cov)
+        fkqk, ftr = f_quadratics(
+            block_evaluator(time_signal_jac, transforms, data.shape[0]),
+            means, data, q, cov)
     else:
         fkqk = torch.zeros_like(nkqk)
         ftr = torch.zeros_like(ntr)

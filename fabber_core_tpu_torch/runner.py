@@ -102,17 +102,21 @@ def run(options, store, log=None, progress_cb=None, device="cuda"):
                                                   log)
 
     getter, coords = store.get, store.geom.coords
+    # per-voxel supplemental data, handed to the model as ctx.suppdata
+    # (JAX runner.py:67)
+    suppdata = store.get("suppdata") if store.have("suppdata") else None
     if method == "nlls":
         engine = NLLSInference(model, options, data,
                                voxel_data_getter=getter, device=device,
-                               coords=coords)
+                               coords=coords, suppdata=suppdata)
         engine.progress_cb = progress_cb
         log.log(f"NLLS::Engine route: {engine.route_description()}")
         result = engine.run()
     else:
         engine = VBInference(model, options, data, voxel_data_getter=getter,
                              device=device, coords=coords,
-                             continued=cont_means is not None)
+                             continued=cont_means is not None,
+                             suppdata=suppdata)
         engine.progress_cb = progress_cb
         log.log(f"Vb::Engine route: {engine.route_description()}")
         result = _run_vb(engine, options, params, cont_means, cont_cov, log)

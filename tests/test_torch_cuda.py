@@ -1167,3 +1167,208 @@ def test_ar_engine_on_card_matches_cpu(cuda, extra, monkeypatch):
     np.testing.assert_allclose(g.noise_means[ok][:, a:],
                                c.noise_means[ok][:, a:], rtol=2e-3)
     np.testing.assert_array_equal(g.bad_voxels, c.bad_voxels)
+
+
+# -- the whole-loop kernel's generic mode (kernel 6g: a functor generated
+#    from a model's evaluate, ops/_cuda.py build_generated) ------------------
+
+def generic_inputs(nq, nsupp, nv, device, seed=0, nt=30):
+    """The GaussianAct (nsupp 0) or SuppScaled (nsupp 2) twin's inputs
+    from one numpy seed: data = model(truth) + N(0, 0.02^2) (truths
+    within 0.2 of the prior means), the centre 0.05 off the truth, the
+    models' priors N(default, 10), nq groups alternating in time, one
+    sample masked, suppdata scale 0.8..1.2 and offset +-0.1."""
+    from fabber_core_tpu_torch.models.kernelgen import \
+        derive_time_local_eval
+    from torch_generic_models import GaussianAct, SuppScaled
+    model = SuppScaled() if nsupp else GaussianAct()
+    tle = derive_time_local_eval(model, nt, 4, nsupp)
+    if torch.device(device).type == "cuda":
+        from fabber_core_tpu_torch.ops import _cuda
+        tle.libs[nq] = _cuda.build_generated(tle.source, 4, nq)
+    rng = np.random.default_rng(seed)
+    truth = np.array([0.0, 1.0, 1.2, 0.6])
+    mt = truth[:, None] + rng.uniform(-0.2, 0.2, (4, nv)) \
+        * np.array([1, 1, 0.5, 0.3])[:, None]
+    supp = np.stack([rng.uniform(0.8, 1.2, nv),
+                     rng.uniform(-0.1, 0.1, nv)]) if nsupp else None
+    t = np.arange(nt)[:, None] * 0.1
+    z = (t - mt[2]) / mt[3]
+    sig = mt[0] + mt[1] * np.exp(-0.5 * z * z)
+    if nsupp:
+        sig = supp[0] * sig + supp[1]
+    q = np.zeros((nq, nt))
+    q[np.arange(nt) % nq, np.arange(nt)] = 1.0
+    q[:, 4] = 0.0
+
+    def dev(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32,
+                               device=device)
+
+    from fabber_core_tpu_torch.core.transforms import TRANSFORM_IDENTITY
+    return dict(
+        model=model, tle=tle, tr=[TRANSFORM_IDENTITY] * 4, q=q, nq=nq,
+        data=dev(sig + 0.02 * rng.standard_normal((nt, nv))),
+        centre=dev(mt + 0.05 * rng.standard_normal((4, nv))),
+        pm=dev(np.repeat(truth[:, None], nv, 1)),
+        pp=dev(np.full((4, nv), 0.1)),
+        supp=None if supp is None else dev(supp),
+        pd0=dev(rng.uniform(0.5, 2.0, (4, nv))))
+
+
+def generic_detector(kind, nq, nsupp, nt=30):
+    if kind == "maxits":
+        return None
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.options import RunOptions
+    from torch_generic_models import GaussianAct, SuppScaled
+    opts = RunOptions({"model": "gaussact-test", "noise": "white",
+                       "dtype": "single", "convergence": kind,
+                       "max-iterations": "10", "max-trials": "3",
+                       "noise-pattern": "12"[:nq]})
+    model = SuppScaled() if nsupp else GaussianAct()
+    eng = VBInference(model, opts, np.ones((4, nt), np.float32),
+                      device="cpu",
+                      suppdata=np.ones((4, 2)) if nsupp else None)
+    return eng._nl_fdet_consts()
+
+
+@pytest.mark.parametrize("kind,nv", [
+    ("maxits", 1024), ("maxits", 1_000_003), ("pointzeroone", 100_003),
+    ("freduce", 100_003), ("trialmode", 100_003), ("lm", 100_003)])
+@pytest.mark.parametrize("nq,nsupp", [(1, 0), (2, 2)],
+                         ids=["Q1-NS0", "Q2-NS2"])
+def test_generated_kernel_matches_plain(cuda, nq, nsupp, kind, nv):
+    """6g: the whole-loop kernel with the functor generated from
+    GaussianAct's (SuppScaled's) evaluate, 10 iterations with F, held to
+    the generic plain version at float64: maxits by assert_near_f64,
+    the detector modes by assert_detector_near_f64."""
+    from fabber_core_tpu_torch.ops import fused_loop_nl as nl
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    c = generic_inputs(nq, nsupp, nv, cuda)
+    det = generic_detector(kind, nq, nsupp)
+    consts = nl.pack_nl_consts(np.full(nq, 1e6), np.full(nq, 1e-6),
+                               c["q"].sum(axis=1), 1e-8, 50.0, nq)
+    args = (c["centre"], c["pm"], c["pp"], c["data"], c["q"], consts, 10,
+            True)
+    kw = dict(detector=det, post_var0=c["pd0"], functor=c["tle"],
+              supp=c["supp"])
+    before = nl.fused_nl_loop.generic_launches
+    k = nl.fused_nl_loop(c["model"], c["tr"], *args, **kw)
+    assert nl.fused_nl_loop.generic_launches == before + 1
+    r32 = nl.fused_nl_loop_plain(
+        None, c["tr"], *args, detector=det, post_var0=c["pd0"],
+        evaluator=fv.full_eval(c["tle"].fn, c["tr"], c["supp"]))
+    s64 = None if c["supp"] is None else c["supp"].double()
+    r64 = nl.fused_nl_loop_plain(
+        None, c["tr"], *to_f64(args), detector=det,
+        post_var0=c["pd0"].double(),
+        evaluator=fv.full_eval(c["tle"].fn, c["tr"], s64))
+    if kind == "maxits":
+        assert_near_f64(k, r32, r64)
+        return
+
+    def dec(o):
+        rev = o[5][1] if kind == "freduce" else torch.zeros_like(o[6][0])
+        return decisions(o[6][0], rev)
+
+    assert_detector_near_f64(k, r32, r64, dec(k), dec(r32), dec(r64))
+
+
+def test_generated_build_failure_raises(cuda):
+    from fabber_core_tpu_torch.exceptions import FabberError
+    from fabber_core_tpu_torch.ops import _cuda
+    with pytest.raises(FabberError, match="nvcc failed"):
+        _cuda.build_generated("struct GenModel { this is no C++ };", 2, 1)
+
+
+def test_generated_kernel_not_built_raises(cuda):
+    """The wrapper only launches: a functor with no library built at the
+    run's Q raises rather than build on the launch path."""
+    from fabber_core_tpu_torch.ops import fused_loop_nl as nl
+    c = generic_inputs(1, 0, 256, cuda)
+    c["tle"].libs.clear()
+    consts = nl.pack_nl_consts([1e6], [1e-6], c["q"].sum(axis=1), 1e-8,
+                               50.0, 1)
+    before = nl.fused_nl_loop.launches
+    with pytest.raises(ValueError, match="no kernel built"):
+        nl.fused_nl_loop(c["model"], c["tr"], c["centre"], c["pm"], c["pp"],
+                         c["data"], c["q"], consts, 2, True,
+                         functor=c["tle"])
+    assert nl.fused_nl_loop.launches == before
+
+
+def test_generic_engine_on_card_matches_cpu(cuda):
+    """GaussianAct through the engine on the card (the generated
+    functor) against the CPU engine (the generic plain version):
+    tests/test_fused_loop_generic.py's tolerances."""
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.ops import fused_loop_nl as nl
+    from fabber_core_tpu_torch.options import RunOptions
+    from torch_generic_models import GaussianAct
+    c = generic_inputs(1, 0, 2048, "cpu", seed=4)
+    data = c["data"].t().numpy()
+    opts = RunOptions({"model": "gaussact-test", "noise": "white",
+                       "dtype": "single", "max-iterations": "10",
+                       "save-free-energy": True})
+    rc = VBInference(GaussianAct(), opts, data, device="cpu").run()
+    eng = VBInference(GaussianAct(), opts, data, device=cuda)
+    assert eng.route == "pallas-loop-nl" and eng.generic is not None
+    before = nl.fused_nl_loop.generic_launches
+    rk = eng.run()
+    assert nl.fused_nl_loop.generic_launches == before + 1
+    sd = np.sqrt(np.diagonal(rc.cov, axis1=1, axis2=2))
+    assert np.max(np.abs(rk.means - rc.means) / sd) < 5e-3
+    np.testing.assert_allclose(rk.noise_means, rc.noise_means, rtol=2e-3)
+    np.testing.assert_allclose(rk.free_energy, rc.free_energy, rtol=1e-4,
+                               atol=2e-3)
+
+
+def test_rejected_model_takes_generic_route_on_card(cuda):
+    """A model the probe refuses runs plain torch on xla-generic, a
+    route chosen at construction: nothing is built or launched."""
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.ops import _cuda
+    from fabber_core_tpu_torch.options import RunOptions
+    from torch_generic_models import DataUsing
+    opts = RunOptions({"model": "datause-test", "noise": "white",
+                       "dtype": "single", "max-iterations": "3"})
+    n = len(_cuda._gen_libs)
+    eng = VBInference(DataUsing(), opts, np.ones((64, 30), np.float32),
+                      device=cuda)
+    assert eng.route == "xla-generic" and eng.generic is None
+    assert len(_cuda._gen_libs) == n
+    assert np.isfinite(eng.run().means).all()
+
+
+def test_time_signal_plugin_routes_on_card(cuda):
+    """The myexp plugin (a time_signal, no kernel_model): the whole-loop
+    route builds a functor generated from its time_signal; the
+    per-iteration route, which has no generated functors yet, raises
+    naming the ROADMAP item."""
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.models import (get_model_class,
+                                              load_models_from_file)
+    from fabber_core_tpu_torch.ops import fused_loop_nl as nl
+    from fabber_core_tpu_torch.options import RunOptions
+    from pathlib import Path
+    load_models_from_file(str(Path(__file__).resolve().parents[1]
+                              / "fabber_core_tpu_torch" / "examples"
+                              / "fwdmodel_exp.py"))
+    data = np.exp(-np.arange(40) * 0.05)[None].repeat(64, 0).astype(
+        np.float32)
+    base = {"model": "myexp", "dt": "0.05", "noise": "white",
+            "dtype": "single", "max-iterations": "5"}
+    opts = RunOptions(base)
+    eng = VBInference(get_model_class("myexp")(opts), opts, data,
+                      device=cuda)
+    assert eng.route == "pallas-loop-nl" and eng.generic is None
+    assert eng.functor is not None and eng.functor.fn is None
+    before = (nl.fused_nl_loop.launches, nl.fused_nl_loop.generic_launches)
+    assert np.isfinite(eng.run().means).all()
+    # the time_signal mode, through a generated functor: not kernel 6g
+    assert (nl.fused_nl_loop.launches,
+            nl.fused_nl_loop.generic_launches) == (before[0] + 1, before[1])
+    opts = RunOptions({**base, "engine-kernel": "pallas"})
+    with pytest.raises(NotImplementedError, match="Queue 1 item 19"):
+        VBInference(get_model_class("myexp")(opts), opts, data, device=cuda)

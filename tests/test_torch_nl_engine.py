@@ -361,17 +361,31 @@ def on_card(eng):
     eng._require_kernel_instance()
 
 
-def test_asym4_float32_has_no_kernel_and_matches_jax():
-    """A time-signal model without a CUDA functor takes the JAX gates'
-    route, the whole-loop kernel's: on the CPU its plain version (the
-    Jacobian by forward-mode autodiff of time_signal, as the JAX
-    kernel's jax.jvp) matches JAX; on the card it raises at
+def test_asym4_float32_has_no_kernel_and_matches_jax(monkeypatch):
+    """A time-signal model without a hand-written CUDA functor takes the
+    JAX gates' route, the whole-loop kernel's: on the CPU its plain
+    version (the Jacobian by forward-mode autodiff of time_signal, as
+    the JAX kernel's jax.jvp) matches JAX; on the card the route builds
+    a functor generated from its time_signal (models/kernelgen.py; the
+    build is stood in for here, the card tests run it), and the
+    per-iteration route, which has no generated functor yet, raises at
     construction rather than run plain torch."""
+    from fabber_core_tpu_torch.ops import _cuda
     data = asym4_data(seed=1).astype(np.float32)
     o = RunOptions(options("asym4test", {}))
     eng = port_engine(data, tm=Asym4(o), route="pallas-loop-nl")
     assert_match(run_jax(data, "pallas-loop", jm=JAsym4()), eng.run(),
                  mean_rtol=1e-3)
+    built = []
+    monkeypatch.setattr(_cuda, "build_generated",
+                        lambda src, p, q: built.append((src, p, q)))
+    on_card(eng)
+    assert [(p, q) for _, p, q in built] == [(4, 1)]
+    assert "g_sin" in built[0][0] and "g_cos" in built[0][0]
+    assert eng.functor is not None and eng.functor.fn is None
+    extra = {"engine-kernel": "pallas"}
+    eng = port_engine(data, extra, tm=Asym4(RunOptions(
+        options("asym4test", extra))), route="pallas")
     with pytest.raises(NotImplementedError, match="no CUDA model functor"):
         on_card(eng)
 

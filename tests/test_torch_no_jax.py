@@ -1,6 +1,8 @@
-"""fabber_core_tpu_torch never imports jax: every module of the port
-imports in a fresh interpreter without jax entering sys.modules, and no
-source file of the port has an import statement naming jax."""
+"""fabber_core_tpu_torch never imports jax nor the JAX package: every
+module of the port (the generic mode's models/kernelgen.py and the
+examples/ plugin among them) imports in a fresh interpreter without jax
+or fabber_core_tpu entering sys.modules, and no source file of the port,
+nor chip_smoke.py, has an import statement naming either."""
 
 import os
 import re
@@ -21,8 +23,9 @@ import fabber_core_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     __import__(name)
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-print(len(names), bad)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "fabber_core_tpu"))
+print(len(names), bad, " ".join(names))
 sys.exit(1 if bad else 0)
 """
 
@@ -36,6 +39,10 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     nmods = int(proc.stdout.split()[0])
     assert nmods >= 25, proc.stdout
+    names = proc.stdout.split()
+    for mod in ("models.kernelgen", "examples.fwdmodel_exp",
+                "ops.fused_loop_nl", "ops.fused_vb"):
+        assert f"fabber_core_tpu_torch.{mod}" in names, proc.stdout
 
 
 def test_port_sources_have_no_jax_import():
@@ -43,3 +50,17 @@ def test_port_sources_have_no_jax_import():
     offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
                  if pat.search(p.read_text())]
     assert offenders == []
+
+
+def test_port_sources_have_no_jax_package_import():
+    """Neither `import fabber_core_tpu` nor `from fabber_core_tpu.` (nor
+    `from fabber_core_tpu import`) in the port or chip_smoke.py."""
+    pat = re.compile(r"^\s*(import\s+fabber_core_tpu\b(?!_torch)"
+                     r"|from\s+fabber_core_tpu(\.|\s))", re.M)
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(p.relative_to(ROOT)) for p in files
+                 if pat.search(p.read_text())]
+    assert offenders == []
+    assert pat.search("from fabber_core_tpu.models import x")
+    assert pat.search("import fabber_core_tpu")
+    assert not pat.search("from fabber_core_tpu_torch.models import x")

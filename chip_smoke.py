@@ -33,7 +33,8 @@ suppdata run against the float64 'xla-generic' route on the card); then
 times the kernels, their plain versions, a device-to-device copy and the
 whole engine run, poly at 16,777,216 voxels (white and AR noise) and
 biexp at 4,000,000 (VB and NLLS; the generated biexp functor beside the
-hand-written one). Every phase passes or the script exits
+hand-written one; kernels 6 and 8 in their staged and streamed forms,
+csrc/tile.cuh, with each form's plan, blocks per SM and registers). Every phase passes or the script exits
 non-zero without printing the result line. The last line of standard
 output is the JSON result object; the line before it lists the
 kernels, each with its bound (the least time the card could take:
@@ -518,10 +519,10 @@ BIEXP_OPTIONS = {"model": "biexp", "dt": str(BI_DT), "noise": "white",
 
 def run_biexp_path(device, shape=(128, 128, 64)):
     """Phase 4c: biexp through run_with_data on a whole volume. Bounds:
-    kernel 6 launched (and kernel 7 not); every output of the volume's
-    shape and finite, except in voxels whose means or sds overflow
-    float32 in model space, at most 1% (0.2% of 8,192 voxels on the
-    CPU, 0.24% of the volume on the H100; the
+    kernel 6 launched, in its staged form (and kernel 7 not); every
+    output of the volume's shape and finite, except in voxels whose
+    means or sds overflow float32 in model space, at most 1% (0.2% of
+    8,192 voxels on the CPU, 0.24% of the volume on the H100; the
     model-space output is the JAX package's own unguarded float32 cast,
     ROADMAP Queue 3 fault 4); residuals = data - fit; median noise sd
     within 5% of 0.05; the fit within 3 noise sd of the noiseless
@@ -536,7 +537,7 @@ def run_biexp_path(device, shape=(128, 128, 64)):
 
     vol, clean = make_biexp_volume(shape)
     log(f" volume {shape + (BI_NT,)}: {vol.nbytes / 1e6:.0f} MB float32")
-    fl.fused_nl_loop.launches = 0
+    fl.fused_nl_loop.launches = fl.fused_nl_loop.staged_launches = 0
     fv.fused_iteration.launches = 0
     t0 = time.perf_counter()
     run = FabberTpu(device=device).run_with_data(BIEXP_OPTIONS,
@@ -544,8 +545,11 @@ def run_biexp_path(device, shape=(128, 128, 64)):
     secs = time.perf_counter() - t0
     launches = {"fused_nl_loop": fl.fused_nl_loop.launches,
                 "fused_vb_iter": fv.fused_iteration.launches}
-    log(f" run_with_data: {secs:.3f} s; launches {launches}")
-    ok = launches["fused_nl_loop"] >= 1 and launches["fused_vb_iter"] == 0
+    staged = fl.fused_nl_loop.staged_launches
+    log(f" run_with_data: {secs:.3f} s; launches {launches}, "
+        f"{staged} in the staged form")
+    ok = (launches["fused_nl_loop"] >= 1 and launches["fused_vb_iter"] == 0
+          and staged == launches["fused_nl_loop"])
     ok &= check_biexp_outputs(run, vol, clean, shape,
                               ["amp1", "r1", "amp2", "r2"])
     return ok, launches, secs
@@ -692,6 +696,52 @@ def best_ms(fn, reps=3, keep=False):
     return (best, res) if keep else best
 
 
+def time_forms(run, reps=3):
+    """Kernels 6 and 8 in their two forms (csrc/tile.cuh) on the same
+    inputs: run(vb) launches with the plan's form (vb None: staged at
+    T=100) or the streamed one (vb 0), timed in turns (streamed, staged,
+    staged, streamed; each best of reps after a warm-up). Returns (staged
+    ms, streamed ms, the last staged result, the last streamed
+    result)."""
+    t, res = {None: [], 0: []}, {}
+    for vb in (0, None, None, 0):
+        ms, res[vb] = best_ms(lambda: run(vb), reps=reps, keep=True)
+        t[vb].append(ms)
+    return min(t[None]), min(t[0]), res[None], res[0]
+
+
+def ptxas_entry(text, *parts):
+    """'N registers, S B spill stores' of the kernel entry whose mangled
+    name holds every string of parts, from nvcc's -Xptxas -v output."""
+    lines = text.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and all(x in line for x in parts):
+            regs, spill = "?", "?"
+            for nxt in lines[i + 1:i + 6]:
+                if "spill stores" in nxt:
+                    spill = nxt.split("bytes stack frame,")[-1].split(
+                        "bytes spill stores")[0].strip()
+                if "Used" in nxt and "registers" in nxt:
+                    regs = nxt.split("Used")[1].split("registers")[0].strip()
+                    break
+            return f"{regs} registers, {spill} B spill stores"
+    return "not found"
+
+
+def log_forms(name, nt, nq, occ, ptx):
+    """One line per kernel of phases 5b, 5c, 5e, 5g: the plan
+    (ops/_cuda.py tile_plan), the blocks per SM of each form (occ(vb),
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor) and ptxas's registers
+    and spills of each form (ptx(staged))."""
+    from fabber_core_tpu_torch.ops import _cuda
+    staged, vb, smem = _cuda.tile_plan(nt, nq)
+    log(f"  {name}: plan staged={staged} VB={vb} smem={smem} B, "
+        f"{occ(vb if staged else 0)} blocks/SM ({ptx(True)}); streamed "
+        f"{occ(0)} blocks/SM of {_cuda.STREAM_THREADS} ({ptx(False)})")
+    return {"vb": vb, "smem": smem, "staged_blocks_per_sm":
+            occ(vb if staged else 0), "streamed_blocks_per_sm": occ(0)}
+
+
 def time_headline(device, card, nv=16_777_216):
     """Phase 5: kernels, plain versions, copy probe and the whole
     engine run at the README's headline size, with the [T,V] plane
@@ -756,8 +806,12 @@ def time_headline(device, card, nv=16_777_216):
 def time_biexp(device, card, nv=4_000_000):
     """Phase 5b: the nonlinear kernels, their plain versions, a copy
     probe and the whole engine run at bench.py's biexp size (4,000,000
-    voxels, T=100, P=4), data made on the card."""
+    voxels, T=100, P=4), data made on the card; kernel 6 in its staged
+    and streamed forms (time_forms), with their plan, occupancy and
+    registers, and whether their outputs agree bit for bit (nvcc
+    contracts multiply-adds in kernel 6, so they need not)."""
     import torch
+    from fabber_core_tpu_torch.ops import _cuda
     from fabber_core_tpu_torch.ops import fused_loop_nl as fl
     from fabber_core_tpu_torch.ops import fused_vb as fv
 
@@ -772,8 +826,16 @@ def time_biexp(device, card, nv=4_000_000):
     it_args = (lat, args[1], args[2], phi, args[3], args[4], True)
     ts = eng.model.time_signal_jac
     fig = {}
-    fig["nl_loop_ms"] = best_ms(
-        lambda: fl.fused_nl_loop(eng.model, tr, *args, ITERS, True))
+    fig["nl_loop_ms"], fig["nl_loop_streamed_ms"], ks, kt = time_forms(
+        lambda vb: fl.fused_nl_loop(eng.model, tr, *args, ITERS, True,
+                                    _vb=vb))
+    fig["nl_loop_staged_bits_equal_streamed"] = bits_equal(ks, kt)
+    fig["nl_loop_forms"] = log_forms(
+        "fused_nl_loop ExpSum<2> Q=1 MODE 0", BI_NT, 1,
+        lambda vb: _cuda.nl_occupancy(1, 4, 1, 0, vb, BI_NT),
+        lambda st: ptxas_entry(_cuda.build_log, "fused_nl_loop_kernel",
+                               f"ExpSumILi2EEELi1ELi0ELb{int(st)}E"))
+    del ks, kt
     fig["nl_loop_plain_ms"] = best_ms(
         lambda: fl.fused_nl_loop_plain(ts, tr, *args, ITERS, True))
     fig["vb_iter_ms"] = best_ms(lambda: fv.fused_iteration(eng.model, tr,
@@ -1144,7 +1206,8 @@ def its_histogram(its):
 def run_biexp_trialmode_path(device, shape=(128, 128, 64)):
     """Phase 4f: biexp through run_with_data under
     --convergence=trialmode (max-iterations 10, max-trials 10): kernel
-    6 launched once, in detector mode, and kernel 7 not at all; the
+    6 launched once, in detector mode and its staged form, and kernel 7
+    not at all; the
     bounds of phase 4c on the outputs, fit quality and noise; no lane
     reports more iterations than the detector's bound
     (max_iterations)."""
@@ -1155,6 +1218,7 @@ def run_biexp_trialmode_path(device, shape=(128, 128, 64)):
     vol, clean = make_biexp_volume(shape)
     opts = {**BIEXP_OPTIONS, "convergence": "trialmode"}
     fl.fused_nl_loop.launches = fl.fused_nl_loop.det_launches = 0
+    fl.fused_nl_loop.staged_launches = 0
     fv.fused_iteration.launches = 0
     captured, restore = capture_results()
     t0 = time.perf_counter()
@@ -1168,12 +1232,14 @@ def run_biexp_trialmode_path(device, shape=(128, 128, 64)):
     hist = its_histogram(res.iterations)
     log(f" run_with_data: {secs:.3f} s; fused_nl_loop launches "
         f"{fl.fused_nl_loop.launches} (detector mode "
-        f"{fl.fused_nl_loop.det_launches}), fused_vb_iter "
+        f"{fl.fused_nl_loop.det_launches}, staged "
+        f"{fl.fused_nl_loop.staged_launches}), fused_vb_iter "
         f"{fv.fused_iteration.launches}; route: "
         f"{eng.route_description()}")
     log(f" iterations histogram {hist} (bound {eng.detector.max_iterations})")
     ok = (fl.fused_nl_loop.det_launches == 1
           and fl.fused_nl_loop.launches == 1
+          and fl.fused_nl_loop.staged_launches == 1
           and fv.fused_iteration.launches == 0
           and int(res.iterations.max()) <= eng.detector.max_iterations
           and int(res.iterations.min()) >= 1)
@@ -1310,8 +1376,11 @@ def time_detectors(device, card, fig, fig_nl, nv_poly=16_777_216,
     fused_vb_iter launch with the LM branch; VBInference.run() of biexp
     under trialmode. The iteration histograms are the kernels' own (the
     last timed launch), the plain version's beside them; the pass counts
-    behind the bounds are the plain version's. Returns (ok, figures)."""
+    behind the bounds are the plain version's. fused_nl_loop's detector
+    modes in their staged and streamed forms (time_forms); MODE 1's plan
+    and registers logged beside. Returns (ok, figures)."""
     import torch
+    from fabber_core_tpu_torch.ops import _cuda
     from fabber_core_tpu_torch.ops import fused_loop_nl as fl
     from fabber_core_tpu_torch.ops import fused_spectral as fs
     from fabber_core_tpu_torch.ops import fused_vb as fv
@@ -1366,6 +1435,11 @@ def time_detectors(device, card, fig, fig_nl, nv_poly=16_777_216,
     out["nl_maxits_bound"] = bound(nl_bytes,
                                    (ITERS * a_ops + f_ops + 200 * ITERS)
                                    * nv_bi)
+    out["nl_mode1_forms"] = log_forms(
+        "fused_nl_loop ExpSum<2> Q=1 MODE 1", BI_NT, 1,
+        lambda vb: _cuda.nl_occupancy(1, 4, 1, 1, vb, BI_NT),
+        lambda st: ptxas_entry(_cuda.build_log, "fused_nl_loop_kernel",
+                               f"ExpSumILi2EEELi1ELi1ELb{int(st)}E"))
     for kind in ("trialmode", "lm"):
         eng = nl_engine("biexp", "1", plane, device, {"convergence": kind})
         tr = eng._transforms()
@@ -1373,8 +1447,14 @@ def time_detectors(device, card, fig, fig_nl, nv_poly=16_777_216,
         args = eng.nl_loop_args(s0)
         det = eng._nl_fdet_consts()
         n_it = int(eng.detector.max_iterations)
-        out[f"nl_{kind}_ms"], k = best_ms(lambda: fl.fused_nl_loop(
-            eng.model, tr, *args, n_it, True, detector=det), keep=True)
+        out[f"nl_{kind}_ms"], out[f"nl_{kind}_streamed_ms"], k, _ = \
+            time_forms(lambda vb: fl.fused_nl_loop(
+                eng.model, tr, *args, n_it, True, detector=det, _vb=vb))
+        out[f"nl_{kind}_forms"] = log_forms(
+            f"fused_nl_loop ExpSum<2> Q=1 MODE 2 ({kind})", BI_NT, 1,
+            lambda vb: _cuda.nl_occupancy(1, 4, 1, 2, vb, BI_NT),
+            lambda st: ptxas_entry(_cuda.build_log, "fused_nl_loop_kernel",
+                                   f"ExpSumILi2EEELi1ELi2ELb{int(st)}E"))
         out[f"nl_{kind}_its"] = its_histogram(k[6][0].cpu().numpy())
         ts = eng.model.time_signal_jac
         counter = trip_counter(eng.detector)
@@ -1663,6 +1743,7 @@ def launch_counts():
             "fused_nlls": fn.fused_nlls_loop.launches,
             "fused_nlls:resume": fn.fused_nlls_loop.resume_launches,
             "fused_nlls:marquardt": fn.fused_nlls_loop.marquardt_launches,
+            "fused_nlls:staged": fn.fused_nlls_loop.staged_launches,
             "spectral_stats": fs.spectral_stats.launches,
             "spectral_core": fs.spectral_core.launches,
             "spectral_fused": fs.spectral_fused.launches,
@@ -1672,6 +1753,7 @@ def launch_counts():
             "fused_vb_loop": fl.fused_vb_loop.launches,
             "fused_nl_loop": fnl.fused_nl_loop.launches,
             "fused_nl_loop:generic": fnl.fused_nl_loop.generic_launches,
+            "fused_nl_loop:staged": fnl.fused_nl_loop.staged_launches,
             "fused_vb_iter": fv.fused_iteration.launches}
 
 
@@ -1690,9 +1772,11 @@ def reset_launches():
     fw.fused_whole.det_launches = fw.fused_whole.lm_launches = 0
     fnl.fused_nl_loop.det_launches = 0
     fnl.fused_nl_loop.generic_launches = 0
+    fnl.fused_nl_loop.staged_launches = 0
     fv.fused_iteration.lm_launches = 0
     fn.fused_nlls_loop.resume_launches = 0
     fn.fused_nlls_loop.marquardt_launches = 0
+    fn.fused_nlls_loop.staged_launches = 0
     from fabber_core_tpu_torch.ops import fused_loop_ar as fa
     fa.fused_ar_loop.launches = fa.fused_ar_loop.det_launches = 0
 
@@ -2052,9 +2136,11 @@ def check_nlls_case(name, eng, p0, worst, two_phase=True):
     plain float32 version's + 1e-3: lanes off float64 in fit or cost,
     in fit, cost or its (nlls_off), and, on the lanes where the kernel
     and plain float32 agree with float64 in fit and cost, in the
-    posterior (nlls_post_off); no lane past the budget; with two_phase,
-    the engine's compaction (NLLSInference._solve_kernel: phase 1 +
-    resume) bit-identical to the fresh launch. max_abs_err: fit, prec
+    posterior (nlls_post_off); no lane past the budget; the fresh launch
+    in the streamed form bit-identical to the staged one (the plan's at
+    T=100, csrc/tile.cuh); with two_phase, the engine's compaction
+    (NLLSInference._solve_kernel: phase 1 + resume) bit-identical to the
+    fresh launch. max_abs_err: fit, prec
     and cov on the agreeing lanes whose posterior is finite in both the
     kernel's and the float64 run (a non-finite one counts in the
     posterior share). Returns ok."""
@@ -2099,6 +2185,11 @@ def check_nlls_case(name, eng, p0, worst, two_phase=True):
                 and torch.equal(s.its, k[2].to(torch.int32)))
         ok &= same
         bits = f"; two-phase {'bit-identical' if same else 'DIFFERS'}"
+    # the streamed form (csrc/tile.cuh) on the same inputs, bit for bit
+    same = bits_equal(fn.fused_nlls_loop(eng.model, tr, p0, eng.data, *args,
+                                         _vb=0), k)
+    ok &= same
+    bits += f"; streamed {'bit-identical' if same else 'DIFFERS'}"
     ratio = max(r if r == r else float("inf") for r in ratios)
     log(f"  {name:<30} {'; '.join(lines)}; worst ratio {ratio:.3g}; max its "
         f"{its_max:g}{bits}; max abs err on agreeing finite lanes "
@@ -2199,7 +2290,9 @@ def run_nlls_path(device, shape=(128, 128, 64)):
         secs = time.perf_counter() - t0
         n = {k: v for k, v in launch_counts().items() if v}
         eng, res = captured[-1]
-        want = {"fused_nlls": 2, "fused_nlls:resume": 1}
+        # both launches in the staged form (the plan's at T=100)
+        want = {"fused_nlls": 2, "fused_nlls:resume": 1,
+                "fused_nlls:staged": 2}
         if lm:
             want["fused_nlls:marquardt"] = 2
             launches["fused_nlls:marquardt"] = n.get("fused_nlls:marquardt",
@@ -2437,14 +2530,18 @@ def time_nlls(device, card, nv=4_000_000):
     needed (its its): fresh, a pass per voxel to start, a pass and a
     step per lane step, the posterior per voxel; the resume launch, per
     lane step past phase 1 a pass, a cost pass and a step, then a pass
-    and the posterior per voxel."""
+    and the posterior per voxel. The fresh and resume launches in their
+    staged and streamed forms (time_forms), each form's plan, occupancy
+    and registers; the two forms' fresh outputs must agree bit for bit.
+    Returns (ok, figures)."""
     import torch
+    from fabber_core_tpu_torch.ops import _cuda
     from fabber_core_tpu_torch.ops import fused_nlls as fn
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 16)
     plane, _, _ = biexp_plane(nv, gen, device)
-    out = {}
+    out, ok = {}, True
     p, t = 4, BI_NT
     io_bytes = 4 * (p + t) * nv + 4 * (p + 2 + 2 * p * p) * nv
     resume_bytes = io_bytes + 4 * 4 * nv
@@ -2456,14 +2553,32 @@ def time_nlls(device, card, nv=4_000_000):
         tsj = eng.model.time_signal_jac
         p0 = eng.initial_means()
         args = (eng.tmask_host, eng.max_its, lm)
-        out[f"fresh_{tag}_ms"], k = best_ms(lambda: fn.fused_nlls_loop(
-            eng.model, tr, p0, plane, *args), keep=True)
+        out[f"fresh_{tag}_ms"], out[f"fresh_{tag}_streamed_ms"], k, ks = \
+            time_forms(lambda vb: fn.fused_nlls_loop(
+                eng.model, tr, p0, plane, *args, _vb=vb))
+        same = bits_equal(k, ks)
+        ok &= same
+        out[f"fresh_{tag}_staged_bits_equal_streamed"] = same
+        del ks
+        out[f"fresh_{tag}_forms"] = log_forms(
+            f"fused_nlls ExpSum<2> fresh {'Marquardt' if lm else 'Levenberg'}",
+            BI_NT, 1, lambda vb: _cuda.nlls_occupancy(1, 4, 0, lm, vb, BI_NT),
+            lambda st: ptxas_entry(
+                _cuda.build_log, "fused_nlls_kernel",
+                f"ExpSumILi2EEELi0ELb{int(lm)}ELb{int(st)}E"))
         out[f"fresh_{tag}_its"] = its_histogram(k[2].cpu().numpy())
         out[f"pair_{tag}_ms"] = best_ms(lambda: eng._solve_kernel(p0))
         resume_in, _ = eng._phase1(p0)
-        out[f"resume_{tag}_ms"] = best_ms(lambda: fn.fused_nlls_loop(
-            eng.model, tr, resume_in[0], resume_in[1], eng.tmask_host,
-            eng.max_its - NLLS_PHASE1, lm, state=resume_in[2]))
+        out[f"resume_{tag}_ms"], out[f"resume_{tag}_streamed_ms"], _, _ = \
+            time_forms(lambda vb: fn.fused_nlls_loop(
+                eng.model, tr, resume_in[0], resume_in[1], eng.tmask_host,
+                eng.max_its - NLLS_PHASE1, lm, state=resume_in[2], _vb=vb))
+        if not lm:
+            out["resume_l_forms"] = log_forms(
+                "fused_nlls ExpSum<2> resume Levenberg", BI_NT, 1,
+                lambda vb: _cuda.nlls_occupancy(1, 4, 2, False, vb, BI_NT),
+                lambda st: ptxas_entry(_cuda.build_log, "fused_nlls_kernel",
+                                       f"ExpSumILi2EEELi2ELb0ELb{int(st)}E"))
         out[f"resume_{tag}_lanes_unfinished"] = int(
             (resume_in[2][2] < 0.5).sum())
         del k
@@ -2515,7 +2630,7 @@ def time_nlls(device, card, nv=4_000_000):
     out["copy_ms"] = best_ms(lambda: dst.copy_(plane))
     for key, v in out.items():
         log(f" {key} = {v!r}  [V={nv} T={BI_NT} P=4; {card}]")
-    return out
+    return ok, out
 
 
 # ---------------------------------------------------------------------------
@@ -3076,8 +3191,9 @@ def run_plugin_paths(device, shape=(128, 128, 64), supp_shape=(32, 32, 16)):
     ok = (eng.route == "pallas-loop-nl" and eng.generic is None
           and eng.functor is not None
           and "time_signal mode" in eng.route_description()
-          and n == {"fused_nl_loop": 1})
-    want = {"fused_nl_loop": 1, "fused_nl_loop:generic": 1}
+          and n == {"fused_nl_loop": 1, "fused_nl_loop:staged": 1})
+    want = {"fused_nl_loop": 1, "fused_nl_loop:generic": 1,
+            "fused_nl_loop:staged": 1}
     ok &= check_biexp_outputs(run, vol, clean, shape, names)
     del run, res, eng
 
@@ -3144,9 +3260,10 @@ def time_generic(device, card, nv=4_000_000):
     """Phase 5g at bench.py's biexp size (4,000,000 voxels, T=100, P=4,
     maxits 10, phase 5b's plane): the kernel with the functor generated
     from biexp's evaluate beside kernel 6's hand-written ExpSum<2> on
-    the same inputs, in turns (generated, hand-written, hand-written,
-    generated; CUDA events, best of 3 after a warm-up each), the generic
-    plain version once, the generated build's seconds and ptxas lines.
+    the same inputs, each in its staged and streamed forms (time_forms;
+    CUDA events, best of 3 after a warm-up each), the generic plain
+    version once, the generated forms' plan, occupancy and registers in
+    MODE 0, 1 and 2, the generated build's seconds and ptxas lines.
     Bound: kernel 6's for biexp (phase 5b's), since the function is the
     same; the generated code's own operations (gen_pass_ops) are logged
     beside it as gen_code_ops_ms."""
@@ -3164,19 +3281,27 @@ def time_generic(device, card, nv=4_000_000):
     args = eng.nl_loop_args(eng.initial_state())
     tle = eng.functor
 
-    def gen_run():
+    def gen_run(vb):
         return fl.fused_nl_loop(eng.model, tr, *args, ITERS, True,
-                                functor=tle)
+                                functor=tle, _vb=vb)
 
-    def ref_run():
-        return fl.fused_nl_loop(ref.model, tr, *args, ITERS, True)
+    def ref_run(vb):
+        return fl.fused_nl_loop(ref.model, tr, *args, ITERS, True, _vb=vb)
     out = {}
-    g1 = best_ms(gen_run)
-    r1 = best_ms(ref_run)
-    r2 = best_ms(ref_run)
-    g2 = best_ms(gen_run)
-    out["gen_ms"], out["expsum_ms"] = min(g1, g2), min(r1, r2)
+    out["gen_ms"], out["gen_streamed_ms"], _, _ = time_forms(gen_run)
+    out["expsum_ms"], out["expsum_streamed_ms"], _, _ = time_forms(ref_run)
     out["gen_over_expsum"] = out["gen_ms"] / out["expsum_ms"]
+    out["gen_over_expsum_streamed"] = (out["gen_streamed_ms"]
+                                       / out["expsum_streamed_ms"])
+    lib = tle.libs[1]
+    gen_log = _cuda.gen_build_log.get(_cuda.generated_key(
+        tle.source, 4, 1), (float("nan"), ""))[1]
+    for mode in (0, 1, 2):
+        out[f"gen_mode{mode}_forms"] = log_forms(
+            f"fused_nl_loop generated biexp Q=1 MODE {mode}", BI_NT, 1,
+            lambda vb, m=mode: _cuda.gen_occupancy(lib, m, vb, BI_NT),
+            lambda st, m=mode: ptxas_entry(gen_log, "fused_nl_loop_kernel",
+                                           f"Li1ELi{m}ELb{int(st)}E"))
     ev = fv.full_eval(eng.generic.fn, tr)
     out["gen_plain_ms"], _ = once_ms(lambda: fl.fused_nl_loop_plain(
         None, tr, *args, ITERS, True, evaluator=ev))
@@ -3333,7 +3458,7 @@ def main():
     log("phase 5d: the fixed-design kernels at 16,777,216 voxels")
     fig_fd = time_fixed_design(device, card, fig)
     log("phase 5e: the NLLS kernel at 4,000,000 biexp voxels")
-    fig_nlls = time_nlls(device, card)
+    ok5e, fig_nlls = time_nlls(device, card)
     log("phase 5f: the AR(1) kernel and route at 16,777,216 voxels")
     fig_ar = time_ar(device, card)
     log("phase 5g: the generated functors' kernel at 4,000,000 biexp "
@@ -3349,7 +3474,7 @@ def main():
               "linear_path": ok4k, "nlls_kernels": ok3e, "nlls_path": ok4m,
               "nlls_vb_flow": ok4n, "nlls_linear_path": ok4o,
               "ar_kernels": ok3f, "ar_paths": ok4p, "generic_kernels": ok3g,
-              "plugin_paths": ok4q}
+              "plugin_paths": ok4q, "nlls_forms_bit_identical": ok5e}
     if not all(phases.values()):
         log(f"FAILED phases: {[k for k, v in phases.items() if not v]}")
         return 1

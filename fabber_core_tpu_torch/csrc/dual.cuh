@@ -10,11 +10,14 @@
 // sample index, suppdata, constants): only these carry no tangent. A
 // value of type S carries all P tangents, the seeds' zeros included, and
 // its operations compute each of them. The tangent rules are torch's
-// forward-mode formulas (tools/autograd/derivatives.yaml), so the kernel
-// differentiates as the plain version's torch.func.jvp does; where they
-// differ from jax's at a kink (abs at 0, clamp at its bounds) the ROADMAP
-// records it (Queue 3 item 20). Transcendentals are the full-accuracy
-// expf/logf/... (no --use_fast_math), as vb_device.cuh requires.
+// forward-mode formulas (tools/autograd/derivatives.yaml) away from
+// kinks, and jax's at them, as the JAX package (and the port's plain
+// versions, models/kinks.py) differentiate: abs has tangent +t at 0
+// (jax selects on x >= 0), clamp is max then min against its bounds,
+// each splitting a tie in half (t/2 at a bound, as jnp.clip), and
+// amax/amin share the tangent evenly among the tied elements.
+// Transcendentals are the full-accuracy expf/logf/... (no
+// --use_fast_math), as vb_device.cuh requires.
 //
 // Every function is __host__ __device__, so a generated functor also
 // compiles as host C++ (at double) for the CPU tests.
@@ -313,8 +316,8 @@ FABBER_GEN_DUAL(g_erf, g_erf(x),
 FABBER_GEN_DUAL(g_erfc, g_erfc(x),
                 T(-1.1283791670955126) * g_exp(-x * x) * di)
 FABBER_GEN_DUAL(g_sigmoid, g_sigmoid(x), di * (T(1) - y) * y)
-// torch: sgn(x) * t, so 0 at 0 (jax: +1 at 0, ROADMAP Queue 3 item 20)
-FABBER_GEN_DUAL(g_abs, g_abs(x), di * g_sign(x))
+// jax: select(x >= 0, t, -t), so +t at 0 (torch's sgn(x) t gives 0)
+FABBER_GEN_DUAL(g_abs, g_abs(x), x >= T(0) ? di : -di)
 FABBER_GEN_DUAL(g_reciprocal, g_reciprocal(x), -di * (y * y))
 #undef FABBER_GEN_DUAL
 
@@ -396,13 +399,51 @@ __host__ __device__ __forceinline__ Dual<N, T> g_min(T a,
   return max_min(g_lift<Dual<N, T>>(a), b, false);
 }
 
-// torch: where(lo <= x <= hi, x_t, 0) (jax: strictly inside, Queue 3
-// item 20)
+// jax's clip: min(max(x, lo), hi), so t strictly inside, t/2 at a bound
+// (each tie splits), 0 outside (torch's clamp gives t at a bound)
 template <int N, class T>
 __host__ __device__ __forceinline__ Dual<N, T> g_clamp(const Dual<N, T>& a,
                                                        T lo, T hi) {
-  const bool in = a.v >= lo && a.v <= hi;
-  return scaled(a, g_clamp(a.v, lo, hi), in ? T(1) : T(0));
+  return g_min(g_max(a, lo), hi);
+}
+
+// amax/amin over n values, jax's (and torch's) rule: the value of the
+// extremum (NaN if any is NaN), the tangent the mean of the tangents of
+// the elements equal to it (0/0 where the value is NaN, as jax's).
+// g_extremum<true>(a, b, ...) is amax; g_extremum<false> amin.
+template <bool MAX, class T>
+__host__ __device__ __forceinline__ T g_extremum(T a) {
+  return a;
+}
+template <bool MAX, class T, class... R>
+__host__ __device__ __forceinline__ T g_extremum(T a, T b, R... rest) {
+  return g_extremum<MAX>(MAX ? g_max(a, b) : g_min(a, b), rest...);
+}
+template <bool MAX, int N, class T, class... R>
+__host__ __device__ __forceinline__ Dual<N, T> g_extremum(
+    const Dual<N, T>& a, const Dual<N, T>& b, const R&... rest) {
+  const Dual<N, T>* xs[] = {&a, &b, &rest...};
+  constexpr int n = 2 + sizeof...(R);
+  T m = a.v;
+#pragma unroll
+  for (int i = 1; i < n; ++i)
+    m = MAX ? g_max(m, xs[i]->v) : g_min(m, xs[i]->v);
+  Dual<N, T> r;
+  r.v = m;
+  T count = T(0);
+#pragma unroll
+  for (int j = 0; j < N; ++j) r.d[j] = T(0);
+#pragma unroll
+  for (int i = 0; i < n; ++i) {
+    if (xs[i]->v == m) {
+      count = count + T(1);
+#pragma unroll
+      for (int j = 0; j < N; ++j) r.d[j] = r.d[j] + xs[i]->d[j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) r.d[j] = r.d[j] / count;
+  return r;
 }
 
 // torch atan2_backward: recip = 1 / (x^2 + y^2); dy x recip - dx y recip

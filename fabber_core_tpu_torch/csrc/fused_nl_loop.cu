@@ -33,7 +33,10 @@ extern "C" int fabber_nl_has_instance(int kind, int p, int q) {
 // (device, preallocated): means [p,V], prec [p,p,V], cov [p,p,V], b, c
 // [q,V]; fkqk, ftr [q,V] under maxits (the F quadratics, zero without
 // need_f), else [1,V] (F, iteration count) or [2,V] under freduce (and
-// the revert flag, zeros).
+// the revert flag, zeros). vb: 0 streams the plane; > 0 stages it in
+// blocks of vb lanes (a multiple of 32, at most 128, with 4 (nt vb + nt q)
+// bytes of shared memory at most 232,448; ops/_cuda.py tile_plan); other
+// values return cudaErrorInvalidValue.
 extern "C" int fabber_fused_nl_loop(
     int kind, int p, int q, const int* tcodes_host, float dt, int n_iters,
     int need_f, float locked_sd, const float* consts_host, int det_kind,
@@ -41,10 +44,12 @@ extern "C" int fabber_fused_nl_loop(
     const float* det_consts_host, const float* centre0, const float* pm,
     const float* pp, const float* pd0, const float* data, const float* qw,
     int nt, long long V, float* means, float* prec, float* cov, float* b,
-    float* c, float* fkqk, float* ftr, void* stream) {
+    float* c, float* fkqk, float* ftr, int vb, void* stream) {
   VBParams k;
   NLDetConsts dc;
-  if (!nl_setup(p, q, tcodes_host, dt, n_iters, need_f, locked_sd,
+  const long long smem = nl_smem(vb, nt, q);
+  if (smem < 0 ||
+      !nl_setup(p, q, tcodes_host, dt, n_iters, need_f, locked_sd,
                 consts_host, det_kind, det_tol, det_max_its, det_max_trials,
                 det_init_save, det_consts_host, pd0, nt, V, &k, &dc))
     return (int)cudaErrorInvalidValue;
@@ -54,8 +59,24 @@ extern "C" int fabber_fused_nl_loop(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FABBER_LAUNCH(KIND, NP, MODEL, NQ) \
   if (kind == KIND && p == NP && q == NQ)  \
-    return launch<MODEL, NQ>(k, dc, ins, outs, s);
+    return launch<MODEL, NQ>(k, dc, vb, smem, ins, outs, s);
   FABBER_NL_INSTANCES(FABBER_LAUNCH)
 #undef FABBER_LAUNCH
   return (int)cudaErrorInvalidValue;
+}
+
+// Blocks per SM of the (kind, p, q) instance in MODE mode (0 maxits, 1
+// pointzeroone/freduce, 2 trialmode/lm) and the form vb selects
+// (fabber_fused_nl_loop's vb) at nt samples; -1 where the arguments are
+// refused or the CUDA call fails.
+extern "C" int fabber_nl_occupancy(int kind, int p, int q, int mode, int vb,
+                                   int nt) {
+  const long long smem = nl_smem(vb, nt, q);
+  if (smem < 0 || mode < 0 || mode > 2) return -1;
+#define FABBER_OCC(KIND, NP, MODEL, NQ) \
+  if (kind == KIND && p == NP && q == NQ)  \
+    return occupancy<MODEL, NQ>(mode, vb, smem);
+  FABBER_NL_INSTANCES(FABBER_OCC)
+#undef FABBER_OCC
+  return -1;
 }

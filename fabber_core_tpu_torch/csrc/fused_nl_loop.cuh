@@ -68,15 +68,25 @@
 // constant column (the constants ride by value) and the tile-wide
 // early-exit reduction (each thread leaves its own loop).
 //
-// What bounds it on this card: the data column is read once per
-// iteration and once for F, 4*T bytes per voxel each time, coalesced
-// across the warp (voxels on the last axis). At 4,000,000 voxels the
-// 1.6 GB plane is far above the 50 MB L2, so each pass goes to HBM. Per
-// sample and iteration the arithmetic is one model evaluation (NEXP expf
-// for exp-sum models) plus Q*(P(P+1)/2 + P + 1) multiply-adds. The data
-// tile is not staged in shared memory yet (a later change could read it
-// once). In the detector modes a warp runs until its slowest lane is
-// done.
+// Design for this card (tile.cuh): the data column is read once per
+// iteration and once for F, 11 passes at maxits 10, and at 4,000,000
+// voxels the 1.6 GB plane is 32x the 50 MB L2, so a streamed pass goes
+// to HBM every time and each sample waits on one dependent load. The
+// staged form (template STAGED) copies the block's [T, VB] tile and the
+// [T, Q] group weights into shared memory once, with cp.async, and every
+// pass (the iterations' and the F pass) reads them there: HBM sees the
+// plane once. ops/_cuda.py tile_plan stages in one-warp blocks (VB =
+// 32: a block's shared memory is freed as soon as its warp is done)
+// where at least five fit an SM; a longer T streams, as fewer warps
+// cannot hide the latency. What bounds the staged form is instruction
+// throughput: per sample and iteration one model evaluation (NEXP expf for
+// exp-sum models) plus Q*(P(P+1)/2 + P + 1) multiply-adds, at 16 warps
+// per SM at T=100 (biexp at 4,000,000 voxels on an NVIDIA H100 80GB
+// HBM3, chip_smoke.py phase 5b: 11.3 ms staged, 17.0 streamed). The
+// arithmetic and its order are the streamed form's; nvcc contracts
+// multiply-adds in this kernel, so the two forms need not agree bit for
+// bit (they did there). In the detector modes a warp runs until its
+// slowest lane is done.
 
 #pragma once
 
@@ -147,8 +157,9 @@ __device__ __forceinline__ void store_state(
   }
 }
 
-// MODE 0: maxits; 1: pointzeroone / freduce; 2: trialmode / lm
-template <class M, int Q, int MODE>
+// MODE 0: maxits; 1: pointzeroone / freduce; 2: trialmode / lm;
+// STAGED: the passes read the block's shared tile (tile.cuh)
+template <class M, int Q, int MODE, bool STAGED>
 __global__ void __launch_bounds__(kThreads)
 fused_nl_loop_kernel(const VBParams k, const NLDetConsts dc,
                      const float* __restrict__ centre0,
@@ -167,6 +178,10 @@ fused_nl_loop_kernel(const VBParams k, const NLDetConsts dc,
   constexpr bool kDet = MODE != 0, kBest = MODE == 2;
   const long long V = k.V;
   const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  // every thread of the block takes part in the staging copy and its
+  // barrier, those past V included, before any leaves
+  const Column<STAGED> col =
+      stage_column<STAGED>(data, qw, k.nt, k.nt * Q, V, v);
   if (v >= V) return;
 
   float centre[P], pm[P], pp[P];
@@ -226,10 +241,10 @@ fused_nl_loop_kernel(const VBParams k, const NLDetConsts dc,
         float jac[P];
         const float sig = eval_latent<M>(mrow, chain, sv, (float)t, k.dt,
                                          jac);
-        const float r = data[(size_t)t * V + v] - sig;
+        const float r = col.sample(t) - sig;
 #pragma unroll
         for (int q = 0; q < Q; ++q) {
-          const float w = __ldg(qw + t * Q + q);
+          const float w = col.weight(t * Q + q);
           const float wr = w * r;
 #pragma unroll
           for (int i = 0; i < P; ++i) {
@@ -364,8 +379,7 @@ fused_nl_loop_kernel(const VBParams k, const NLDetConsts dc,
     store_full<P>(cov, cov_out, V, v);
     float fkqk[Q], ftr[Q];
     if (k.need_f) {
-      f_pass<M, Q>(k.tcode, k.dt, means, cov, data, qw, k.nt, V, v, fkqk,
-                   ftr, sv);
+      f_pass<M, Q>(k.tcode, k.dt, means, cov, col, k.nt, fkqk, ftr, sv);
     } else {
 #pragma unroll
       for (int q = 0; q < Q; ++q) fkqk[q] = ftr[q] = 0.f;
@@ -381,8 +395,7 @@ fused_nl_loop_kernel(const VBParams k, const NLDetConsts dc,
     if (!cv.done) {
       // the last iteration's test, on the F pass at the final means
       float kqk2[Q], trace2[Q], cdiag[P];
-      f_pass<M, Q>(k.tcode, k.dt, centre, cov, data, qw, k.nt, V, v, kqk2,
-                   trace2, sv);
+      f_pass<M, Q>(k.tcode, k.dt, centre, cov, col, k.nt, kqk2, trace2, sv);
       packed_diag<P>(cov, cdiag);
       const float f_last = assemble_f<P, Q>(k, dc, part3, centre, b, c,
                                             cdiag, logdet, kqk2, trace2, pm,
@@ -451,26 +464,72 @@ inline bool nl_setup(int p, int q, const int* tcodes_host, float dt,
 
 // ---- launch ---------------------------------------------------------------
 
-template <class M, int Q, int MODE>
-int launch_mode(const VBParams& k, const NLDetConsts& dc,
-                const float* const* ins, float* const* outs,
-                cudaStream_t stream) {
-  const unsigned grid = (unsigned)((k.V + kThreads - 1) / kThreads);
-  fused_nl_loop_kernel<M, Q, MODE><<<grid, kThreads, 0, stream>>>(
+// the dynamic shared memory of vb (0: streamed) at nt samples and Q
+// groups, -1 where it is refused (tile.cuh tile_bytes)
+inline long long nl_smem(int vb, int nt, int q) {
+  return vb == 0 ? 0 : tile_bytes(vb, nt, nt * q, kThreads);
+}
+
+// One instance's launch, or (occ not null) its blocks per SM: vb = 0
+// streams in blocks of kThreads, vb > 0 stages in blocks of vb lanes with
+// smem bytes of dynamic shared memory.
+template <class M, int Q, int MODE, bool STAGED>
+int launch_form(const VBParams& k, const NLDetConsts& dc, int vb,
+                long long smem, const float* const* ins, float* const* outs,
+                cudaStream_t stream, int* occ) {
+  const auto kernel = fused_nl_loop_kernel<M, Q, MODE, STAGED>;
+  const int threads = STAGED ? vb : kThreads;
+  const int err = tile_setup(kernel, STAGED ? vb : 0, smem);
+  if (err != 0) return err;
+  if (occ != nullptr) {
+    *occ = tile_occupancy(kernel, threads, smem);
+    return 0;
+  }
+  const unsigned grid = (unsigned)((k.V + threads - 1) / threads);
+  kernel<<<grid, threads, smem, stream>>>(
       k, dc, ins[0], ins[1], ins[2], ins[3], ins[4], ins[5], ins[6],
       outs[0], outs[1], outs[2], outs[3], outs[4], outs[5], outs[6]);
   return (int)cudaGetLastError();
 }
 
+template <class M, int Q, int MODE>
+int launch_mode(const VBParams& k, const NLDetConsts& dc, int vb,
+                long long smem, const float* const* ins, float* const* outs,
+                cudaStream_t stream, int* occ) {
+  if (vb > 0)
+    return launch_form<M, Q, MODE, true>(k, dc, vb, smem, ins, outs, stream,
+                                         occ);
+  return launch_form<M, Q, MODE, false>(k, dc, 0, 0, ins, outs, stream, occ);
+}
+
+// mode: the detector kind (dc.d.kind) picks MODE; occ: see launch_form
 template <class M, int Q>
-int launch(const VBParams& k, const NLDetConsts& dc, const float* const* ins,
-           float* const* outs, cudaStream_t stream) {
+int launch(const VBParams& k, const NLDetConsts& dc, int vb, long long smem,
+           const float* const* ins, float* const* outs, cudaStream_t stream,
+           int* occ = nullptr) {
   switch (dc.d.kind) {
-    case fabber::kMaxits: return launch_mode<M, Q, 0>(k, dc, ins, outs, stream);
+    case fabber::kMaxits:
+      return launch_mode<M, Q, 0>(k, dc, vb, smem, ins, outs, stream, occ);
     case fabber::kPointZeroOne:
-    case fabber::kFreduce: return launch_mode<M, Q, 1>(k, dc, ins, outs, stream);
-    default: return launch_mode<M, Q, 2>(k, dc, ins, outs, stream);
+    case fabber::kFreduce:
+      return launch_mode<M, Q, 1>(k, dc, vb, smem, ins, outs, stream, occ);
+    default:
+      return launch_mode<M, Q, 2>(k, dc, vb, smem, ins, outs, stream, occ);
   }
+}
+
+// the blocks per SM of MODE (0, 1, 2) as launch_form reports them
+template <class M, int Q>
+int occupancy(int mode, int vb, long long smem) {
+  VBParams k = {};
+  NLDetConsts dc = {};
+  dc.d.kind = mode == 0 ? fabber::kMaxits
+                        : (mode == 1 ? fabber::kPointZeroOne
+                                     : fabber::kTrialMode);
+  int occ = 0;
+  return launch<M, Q>(k, dc, vb, smem, nullptr, nullptr, nullptr, &occ) == 0
+             ? occ
+             : -1;
 }
 
 }  // namespace

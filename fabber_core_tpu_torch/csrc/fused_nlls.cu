@@ -33,11 +33,14 @@
 // (NaN kept), cov = prec^-1 through the jitter-retry factor.
 //
 // Phase 1 + resume gives the fresh launch's outputs bit for bit: a lane's
-// trajectory depends on its own column only, every pass goes through one
-// function in one summation order, and the source is compiled with
-// -fmad=false (ops/_cuda.py SOURCE_FLAGS), so no call site or mode
-// contracts a multiply-add the others do not (the cost-only pass of the
-// resume form computes r'r as the full pass does).
+// trajectory depends on its own column only, and every pass goes through
+// one function (nlls_pass) in one summation order. Its J'J, J'r and r'r
+// accumulations are explicit fused multiply-adds (madd: __fmaf_rn), and
+// the source is compiled with -fmad=false (ops/_cuda.py SOURCE_FLAGS),
+// so nvcc contracts nothing else and no call site or mode rounds
+// differently from the others (the cost-only pass of the resume form
+// computes r'r as the full pass does). The staged and streamed forms
+// differ only in where a sample is read, so they agree bit for bit too.
 //
 // Dropped TPU machinery: the edge-padded time axis (the [T] weights carry
 // masked samples as 0; the last block runs short), the [TB,B] partial-sum
@@ -47,14 +50,27 @@
 // or has made max_its steps (a done lane never commits, so the outcome is
 // the tile loop's).
 //
-// What bounds it on this card: each step reads the data column once
-// (4*T bytes per voxel, coalesced across the warp, voxels on the last
-// axis); at 4,000,000 voxels the 1.6 GB plane is far above the 50 MB L2,
-// so every pass goes to HBM, 20-40 passes per voxel on biexp. Per sample
-// and pass the arithmetic is one model evaluation (NEXP expf for exp-sum
-// models) plus P(P+1)/2 + P + 1 multiply-adds. A warp runs until its
-// slowest lane is done. Not staged in shared memory yet.
+// Design for this card (tile.cuh): a lane makes ~26 passes over its T
+// samples on biexp (the fresh pass, one per step, up to 100 steps), and
+// at 4,000,000 voxels the 1.6 GB plane is 32x the 50 MB L2, so a
+// streamed pass goes to HBM every time and each sample waits on one
+// dependent load. The staged form (template STAGED) copies the block's
+// [T, VB] tile and the [T] weights into shared memory once, with
+// cp.async, and every pass reads them there: HBM sees the plane once.
+// ops/_cuda.py tile_plan stages in one-warp blocks (VB = 32), so a
+// straggler holds its own warp's tile only, where at least five fit an
+// SM; a longer T streams, as fewer warps cannot hide the latency. What
+// bounds the staged form is instruction throughput: per sample and pass one
+// model evaluation (NEXP expf for exp-sum models) plus P(P+1)/2 + P + 1
+// fused multiply-adds (with -fmad=false alone each was a multiply and
+// an add), and a warp runs until its slowest lane is done (the engine's
+// two-phase compaction, inference/nlls.py, trims that). On an NVIDIA
+// H100 80GB HBM3 at 4,000,000 biexp voxels (chip_smoke.py phase 5e) the
+// fresh Levenberg launch took 49.5 ms staged, 59.3 streamed, 65.8 before
+// the explicit FMAs; the resume mode's 32-byte spill is gone (64
+// registers).
 
+#include "tile.cuh"
 #include "vb_device.cuh"
 
 namespace {
@@ -62,6 +78,17 @@ namespace {
 using namespace fabber;
 
 constexpr int kThreads = 128;
+
+// c + a * b rounded once. Explicit, so the fused form survives
+// -fmad=false; FABBER_NLLS_NO_FMA builds the unfused form instead (a
+// multiply, then an add), which probes/fmad_kernel8.py times against it.
+__device__ __forceinline__ float madd(float a, float b, float c) {
+#ifdef FABBER_NLLS_NO_FMA
+  return c + a * b;
+#else
+  return __fmaf_rn(a, b, c);
+#endif
+}
 
 enum Mode : int { kFresh = 0, kPhase1 = 1, kResume = 2 };
 
@@ -77,13 +104,12 @@ struct NLLSParams {
 };
 
 // J'J (packed), J'r and r'r at latent params x (JAC false: r'r alone,
-// computed as the full pass computes it).
-template <class M, bool JAC>
+// computed as the full pass computes it), the samples and weights read
+// through col (tile.cuh: the staged tile or the plane).
+template <class M, bool JAC, class C>
 __device__ __forceinline__ void nlls_pass(const NLLSParams& k, const float* x,
-                                          const float* __restrict__ data,
-                                          const float* __restrict__ w,
-                                          long long v, float* jtj, float* jtr,
-                                          float& rr) {
+                                          const C& col, float* jtj,
+                                          float* jtr, float& rr) {
   constexpr int P = M::P, NT = P * (P + 1) / 2;
   float mrow[P], chain[P];
   model_rows<P>(k.tcode, x, mrow, chain);
@@ -102,8 +128,8 @@ __device__ __forceinline__ void nlls_pass(const NLLSParams& k, const float* x,
     for (int t = t0; t < t1; ++t) {
       float jac[P];
       const float sig = eval_latent<M>(mrow, chain, (float)t, k.dt, jac);
-      const float wt = __ldg(w + t);
-      const float d = data[(size_t)t * k.V + v] - sig;
+      const float wt = col.weight(t);
+      const float d = col.sample(t) - sig;
       const float r = wt * d;
       if constexpr (JAC) {
 #pragma unroll
@@ -111,11 +137,11 @@ __device__ __forceinline__ void nlls_pass(const NLLSParams& k, const float* x,
           const float wj = wt * jac[i];
 #pragma unroll
           for (int j = 0; j <= i; ++j)
-            bjtj[tri(i, j)] = bjtj[tri(i, j)] + wj * jac[j];
-          bjtr[i] = bjtr[i] + jac[i] * r;
+            bjtj[tri(i, j)] = madd(wj, jac[j], bjtj[tri(i, j)]);
+          bjtr[i] = madd(jac[i], r, bjtr[i]);
         }
       }
-      brr = brr + r * d;
+      brr = madd(r, d, brr);
     }
     srr = srr + brr;
     if constexpr (JAC) {
@@ -154,7 +180,7 @@ __device__ __forceinline__ void solve_step(const float* jtj, const float* jtr,
   for (int i = 0; i < P; ++i) trial[i] = params[i] + delta[i];
 }
 
-template <class M, int MODE, bool MARQ>
+template <class M, int MODE, bool MARQ, bool STAGED>
 __global__ void __launch_bounds__(kThreads)
 fused_nlls_kernel(const NLLSParams k, const float* __restrict__ params0,
                   const float* __restrict__ data, const float* __restrict__ w,
@@ -165,6 +191,9 @@ fused_nlls_kernel(const NLLSParams k, const float* __restrict__ params0,
   constexpr int P = M::P, NT = P * (P + 1) / 2;
   const long long V = k.V;
   const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  // every thread of the block takes part in the staging copy and its
+  // barrier, those past V included, before any leaves
+  const Column<STAGED> col = stage_column<STAGED>(data, w, k.nt, k.nt, V, v);
   if (v >= V) return;
 
   float params[P], jtj[NT], jtr[P];
@@ -178,7 +207,7 @@ fused_nlls_kernel(const NLLSParams k, const float* __restrict__ params0,
     done = state_in[2 * V + v] > 0.5f;
     its = state_in[3 * V + v];
   } else {
-    nlls_pass<M, true>(k, params, data, w, v, jtj, jtr, cost);
+    nlls_pass<M, true>(k, params, col, jtj, jtr, cost);
     lam = k.lam_init;
     done = false;
     its = 0.f;
@@ -188,12 +217,12 @@ fused_nlls_kernel(const NLLSParams k, const float* __restrict__ params0,
     float trial[P], tjtj[NT], tjtr[P], tcost;
     if constexpr (MODE == kResume) {
       float rr_here;
-      nlls_pass<M, true>(k, params, data, w, v, jtj, jtr, rr_here);
+      nlls_pass<M, true>(k, params, col, jtj, jtr, rr_here);
       solve_step<P, MARQ>(jtj, jtr, params, lam, trial);
-      nlls_pass<M, false>(k, trial, data, w, v, tjtj, tjtr, tcost);
+      nlls_pass<M, false>(k, trial, col, tjtj, tjtr, tcost);
     } else {
       solve_step<P, MARQ>(jtj, jtr, params, lam, trial);
-      nlls_pass<M, true>(k, trial, data, w, v, tjtj, tjtr, tcost);
+      nlls_pass<M, true>(k, trial, col, tjtj, tjtr, tcost);
     }
     const bool fin = isfinite(tcost);
     const bool better = tcost < cost && fin;
@@ -230,7 +259,7 @@ fused_nlls_kernel(const NLLSParams k, const float* __restrict__ params0,
   }
   if constexpr (MODE == kResume) {
     float rr_final;
-    nlls_pass<M, true>(k, params, data, w, v, jtj, jtr, rr_final);
+    nlls_pass<M, true>(k, params, col, jtj, jtr, rr_final);
   }
   const float mse = cost / k.dof;
   float prec[NT], ch[NT], cov[NT];
@@ -254,27 +283,60 @@ fused_nlls_kernel(const NLLSParams k, const float* __restrict__ params0,
 
 // ---- launch and C entry point -------------------------------------------
 
-template <class M, int MODE, bool MARQ>
-int launch_mode(const NLLSParams& k, const float* const* ins,
-                float* const* outs, cudaStream_t stream) {
-  const unsigned grid = (unsigned)((k.V + kThreads - 1) / kThreads);
-  fused_nlls_kernel<M, MODE, MARQ><<<grid, kThreads, 0, stream>>>(
-      k, ins[0], ins[1], ins[2], ins[3], outs[0], outs[1], outs[2], outs[3],
-      outs[4], outs[5]);
+// One instance's launch, or (occ not null) its blocks per SM: vb = 0
+// streams in blocks of kThreads, vb > 0 stages in blocks of vb lanes with
+// smem bytes of dynamic shared memory (tile.cuh).
+template <class M, int MODE, bool MARQ, bool STAGED>
+int launch_form(const NLLSParams& k, int vb, long long smem,
+                const float* const* ins, float* const* outs,
+                cudaStream_t stream, int* occ) {
+  const auto kernel = fused_nlls_kernel<M, MODE, MARQ, STAGED>;
+  const int threads = STAGED ? vb : kThreads;
+  const int err = tile_setup(kernel, STAGED ? vb : 0, smem);
+  if (err != 0) return err;
+  if (occ != nullptr) {
+    *occ = tile_occupancy(kernel, threads, smem);
+    return 0;
+  }
+  const unsigned grid = (unsigned)((k.V + threads - 1) / threads);
+  kernel<<<grid, threads, smem, stream>>>(k, ins[0], ins[1], ins[2], ins[3],
+                                          outs[0], outs[1], outs[2], outs[3],
+                                          outs[4], outs[5]);
   return (int)cudaGetLastError();
 }
 
+template <class M, int MODE, bool MARQ>
+int launch_mode(const NLLSParams& k, int vb, long long smem,
+                const float* const* ins, float* const* outs, cudaStream_t s,
+                int* occ) {
+  if (vb > 0)
+    return launch_form<M, MODE, MARQ, true>(k, vb, smem, ins, outs, s, occ);
+  return launch_form<M, MODE, MARQ, false>(k, 0, 0, ins, outs, s, occ);
+}
+
 template <class M>
-int launch(const NLLSParams& k, int mode, int marq, const float* const* ins,
-           float* const* outs, cudaStream_t s) {
+int launch(const NLLSParams& k, int mode, int marq, int vb, long long smem,
+           const float* const* ins, float* const* outs, cudaStream_t s,
+           int* occ) {
   switch (mode * 2 + (marq ? 1 : 0)) {
-    case 0: return launch_mode<M, kFresh, false>(k, ins, outs, s);
-    case 1: return launch_mode<M, kFresh, true>(k, ins, outs, s);
-    case 2: return launch_mode<M, kPhase1, false>(k, ins, outs, s);
-    case 3: return launch_mode<M, kPhase1, true>(k, ins, outs, s);
-    case 4: return launch_mode<M, kResume, false>(k, ins, outs, s);
-    default: return launch_mode<M, kResume, true>(k, ins, outs, s);
+    case 0:
+      return launch_mode<M, kFresh, false>(k, vb, smem, ins, outs, s, occ);
+    case 1:
+      return launch_mode<M, kFresh, true>(k, vb, smem, ins, outs, s, occ);
+    case 2:
+      return launch_mode<M, kPhase1, false>(k, vb, smem, ins, outs, s, occ);
+    case 3:
+      return launch_mode<M, kPhase1, true>(k, vb, smem, ins, outs, s, occ);
+    case 4:
+      return launch_mode<M, kResume, false>(k, vb, smem, ins, outs, s, occ);
+    default:
+      return launch_mode<M, kResume, true>(k, vb, smem, ins, outs, s, occ);
   }
+}
+
+// the dynamic shared memory of vb (0: streamed), -1 where it is refused
+inline long long nlls_smem(int vb, int nt) {
+  return vb == 0 ? 0 : tile_bytes(vb, nt, nt, kThreads);
 }
 
 }  // namespace
@@ -297,17 +359,21 @@ extern "C" int fabber_nlls_has_instance(int kind, int p) {
 // w [nt] (0/1), state_in [4,V] (resume only, else may be null). Outputs
 // (device, preallocated): params [p,V] always; fresh and resume: cost,
 // its [V], prec, cov [p,p,V] (state_out may be null); phase 1: state_out
-// [4,V] (cost, its, prec, cov may be null).
+// [4,V] (cost, its, prec, cov may be null). vb: 0 streams the plane;
+// > 0 stages it in blocks of vb lanes (a multiple of 32, at most 128,
+// with 4 (nt vb + nt) bytes of shared memory at most 232,448;
+// ops/_cuda.py tile_plan); other values return cudaErrorInvalidValue.
 extern "C" int fabber_fused_nlls(
     int kind, int p, const int* tcodes_host, float dt,
     const float* consts_host, int mode, int marquardt, int max_its,
     float dof, const float* params0, const float* data, const float* w,
     const float* state_in, int nt, long long V, float* params_out,
     float* cost_out, float* its_out, float* prec_out, float* cov_out,
-    float* state_out, void* stream) {
+    float* state_out, int vb, void* stream) {
   const bool post = mode != kPhase1;
-  if (p < 1 || p > kMaxP || mode < kFresh || mode > kResume || max_its < 0 ||
-      nt < 1 || V < 1 || params_out == nullptr ||
+  const long long smem = nlls_smem(vb, nt);
+  if (smem < 0 || p < 1 || p > kMaxP || mode < kFresh || mode > kResume ||
+      max_its < 0 || nt < 1 || V < 1 || params_out == nullptr ||
       (mode == kResume && state_in == nullptr) ||
       (post && (cost_out == nullptr || its_out == nullptr ||
                 prec_out == nullptr || cov_out == nullptr)) ||
@@ -332,8 +398,29 @@ extern "C" int fabber_fused_nlls(
                           state_out};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FABBER_LAUNCH(KIND, NP, MODEL, NQ) \
-  if (kind == KIND && p == NP) return launch<MODEL>(k, mode, marquardt, ins, outs, s);
+  if (kind == KIND && p == NP)          \
+    return launch<MODEL>(k, mode, marquardt, vb, smem, ins, outs, s, nullptr);
   FABBER_NL_INSTANCES(FABBER_LAUNCH)
 #undef FABBER_LAUNCH
   return (int)cudaErrorInvalidValue;
+}
+
+// Blocks per SM of the (kind, p, mode, marquardt) instance in the form
+// vb selects (fabber_fused_nlls's vb) at nt samples; -1 where the
+// arguments are refused or the CUDA call fails.
+extern "C" int fabber_nlls_occupancy(int kind, int p, int mode, int marquardt,
+                                     int vb, int nt) {
+  const long long smem = nlls_smem(vb, nt);
+  if (smem < 0 || mode < kFresh || mode > kResume) return -1;
+  NLLSParams k = {};
+  int occ = 0;
+#define FABBER_OCC(KIND, NP, MODEL, NQ)                                    \
+  if (kind == KIND && p == NP)                                             \
+    return launch<MODEL>(k, mode, marquardt, vb, smem, nullptr, nullptr,   \
+                         nullptr, &occ) == 0                               \
+               ? occ                                                       \
+               : -1;
+  FABBER_NL_INSTANCES(FABBER_OCC)
+#undef FABBER_OCC
+  return -1;
 }

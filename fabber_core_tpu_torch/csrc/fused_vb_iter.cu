@@ -160,8 +160,8 @@ fused_vb_iter_kernel(const VBParams k, const float* __restrict__ centre_in,
   // ---- pass C: free-energy quadratics at the new means ------------------
   float fkqk[Q], ftr[Q];
   if (k.need_f) {
-    f_pass<M, Q>(k.tcode, k.dt, means, cov, data, qw, k.nt, V, v, fkqk,
-                 ftr);
+    f_pass<M, Q>(k.tcode, k.dt, means, cov, Column<false>{data, qw, V, v},
+                 k.nt, fkqk, ftr);
   } else {
 #pragma unroll
     for (int q = 0; q < Q; ++q) fkqk[q] = ftr[q] = 0.f;

@@ -28,6 +28,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tile.cuh"
+
 // Every (model functor, P, Q) both nonlinear kernels are compiled for,
 // as X(kind, P, functor, Q); kind 0 = PolyModel, 1 = ExpSum (the
 // KERNEL_POLY / KERNEL_EXP codes of models/base.py). This list is the
@@ -359,14 +361,13 @@ __device__ __forceinline__ void add_sums(
 }
 
 // The free energy's per-group quadratics at the given latent means:
-// k'Q_qk and tr(Sigma J'Q_qJ), k = y - g(means) (the TPU kernels' pass C).
+// k'Q_qk and tr(Sigma J'Q_qJ), k = y - g(means) (the TPU kernels' pass C),
+// the samples and the [T,Q] group weights read through col (tile.cuh).
 // supp: the voxel's suppdata (M::NS values; none for NS = 0).
-template <class M, int Q>
+template <class M, int Q, class C>
 __device__ __forceinline__ void f_pass(const int* tcode, float dt,
                                        const float* means, const float* cov,
-                                       const float* __restrict__ data,
-                                       const float* __restrict__ qw, int nt,
-                                       long long V, long long v, float* fkqk,
+                                       const C& col, int nt, float* fkqk,
                                        float* ftr,
                                        const float* supp = nullptr) {
   constexpr int P = M::P, NT = P * (P + 1) / 2;
@@ -381,11 +382,11 @@ __device__ __forceinline__ void f_pass(const int* tcode, float dt,
     for (int t = t0; t < t1; ++t) {
       float jac[P];
       const float sig = eval_latent<M>(mrow, chain, supp, (float)t, dt, jac);
-      const float kb = data[(size_t)t * V + v] - sig;
+      const float kb = col.sample(t) - sig;
       const float k2 = kb * kb;
 #pragma unroll
       for (int q = 0; q < Q; ++q) {
-        const float w = __ldg(qw + t * Q + q);
+        const float w = col.weight(t * Q + q);
         bkqk[q] = bkqk[q] + w * k2;
 #pragma unroll
         for (int i = 0; i < P; ++i) {

@@ -6,7 +6,10 @@ one batched evaluation and Jacobian over all voxels, voxels on the
 last axis. Two Jacobian sources:
 
   * "auto" (default): torch.func.jacfwd through the latent->model
-    transform and the model function, vmapped over voxels;
+    transform and the model function, vmapped over voxels, with jax's
+    derivative rules at kinks (models/kinks.py: the per-voxel evaluation
+    traced and rewritten, so abs at 0 and clamp at a bound differentiate
+    as in the JAX package; a model that does not trace keeps torch's);
   * "fd": central finite differences with the reference's step rule
     delta = max(|m_i| * 1e-5, 1e-10).
 
@@ -17,6 +20,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from ..models.base import EvalContext
+from ..models.kinks import JaxKinks
 
 FD_REL_STEP = 1e-5
 FD_MIN_STEP = 1e-10
@@ -51,6 +55,7 @@ class Linearizer:
         self.nt = nt
         self.mode = mode
         self._eval_one = make_latent_evaluator(model, params, nt, key)
+        self._kinks = JaxKinks(self._eval_one)
 
     @staticmethod
     def _dims(supp):
@@ -65,13 +70,22 @@ class Linearizer:
         offset = self.evaluate(means, data, coords, supp)
         if self.mode == "auto":
             # per voxel a [T,P] Jacobian, stacked on the last axis
-            jac = vmap(jacfwd(self._eval_one, argnums=0),
+            jac = vmap(jacfwd(self.jacobian_fn(means, data, coords, supp),
+                              argnums=0),
                        in_dims=self._dims(supp), out_dims=-1)(
                            means, data, coords, supp)
             jac = jac.permute(1, 0, 2)  # [T,P,V] -> [P,T,V]
         else:
             jac = self._fd_jacobian(means, data, coords, supp)
         return offset, jac
+
+    def jacobian_fn(self, means, data, coords, supp=None):
+        """The per-voxel evaluation the "auto" Jacobian differentiates:
+        traced at one voxel's shapes with jax's rules at kinks, or the
+        model's own where it does not trace."""
+        return self._kinks.at(*(None if x is None else torch.zeros(
+            x.shape[:-1], dtype=x.dtype, device=x.device)
+            for x in (means, data, coords, supp)))
 
     def _fd_jacobian(self, means, data, coords, supp):
         """Central differences with the reference's step rule."""
@@ -88,3 +102,4 @@ class Linearizer:
             f_dn = self.evaluate(dn, data, coords, supp)
             rows.append((f_up - f_dn) / (up[i] - dn[i])[None, :])
         return torch.stack(rows)  # [P,T,V]
+

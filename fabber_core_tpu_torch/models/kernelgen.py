@@ -185,7 +185,7 @@ def _lit(x):
 
 # elementwise ops: aten name -> (C++ function, value ops, tangent ops
 # per component); the tangent rules are torch's forward-mode formulas
-# (csrc/dual.cuh)
+# away from kinks and jax's at them (csrc/dual.cuh)
 _UNARY = {
     "exp": ("g_exp", 1, 1), "log": ("g_log", 1, 1),
     "log1p": ("g_log1p", 1, 2), "expm1": ("g_expm1", 1, 2),
@@ -471,11 +471,32 @@ class _Gen:
                 raise Rejected("clamp bound depends on the parameters")
         lo = "R(-INFINITY)" if lo is None else lo
         hi = "R(INFINITY)" if hi is None else hi
+        # csrc/dual.cuh: a max then a min, jax's clip
         return self.emit(self.kind_of(x), f"g_clamp({x}, {lo}, {hi})", 2,
-                         1)
+                         6)
+
+    def extremum(self, is_max, items):
+        """amax/amin of the elements: pairwise on reals; with a
+        parameter-dependent element, one g_extremum over all of them
+        (csrc/dual.cuh: the tangent shared evenly among ties, as jax's
+        and torch's rules share it, which a pairwise fold would not)."""
+        items = [self.to_real(e) for e in items]
+        if len(items) == 1:
+            return items[0]
+        if "S" not in self.kinds(*items):
+            fn = "g_max" if is_max else "g_min"
+            acc = items[0]
+            for e in items[1:]:
+                acc = self.binfn(fn, acc, e, 3)
+            return acc
+        lifted = [e if self.kind_of(e) == "S" else
+                  self.emit("S", f"g_lift<S>({e})") for e in items]
+        flag = "true" if is_max else "false"
+        return self.emit("S", f"g_extremum<{flag}>({', '.join(lifted)})",
+                         len(items) - 1, len(items) + 1)
 
     # -- reductions over non-time axes ------------------------------------
-    def reduce(self, x, dims, keepdim, combine):
+    def reduce(self, x, dims, keepdim, combine, combine_all=None):
         if dims is None or len(dims) == 0:
             dims = list(range(len(x.shape)))
         dims = sorted(d % max(len(x.shape), 1) for d in dims)
@@ -489,6 +510,9 @@ class _Gen:
         out = np.empty(lead, object)
         for idx in np.ndindex(lead):
             items = list(flat[idx])
+            if combine_all is not None:
+                out[idx] = combine_all(items)
+                continue
             acc = items[0]
             for it in items[1:]:
                 acc = combine(acc, it)
@@ -827,10 +851,10 @@ class _Gen:
 
     def op_amax(self, node, a, kw, val):
         dims, keep = self.red_args(a, kw)
-        return self.reduce(a[0], dims, keep,
-                           lambda p, q: self.binfn("g_max", p, q, 3))
+        return self.reduce(a[0], dims, keep, None,
+                           lambda items: self.extremum(True, items))
 
     def op_amin(self, node, a, kw, val):
         dims, keep = self.red_args(a, kw)
-        return self.reduce(a[0], dims, keep,
-                           lambda p, q: self.binfn("g_min", p, q, 3))
+        return self.reduce(a[0], dims, keep, None,
+                           lambda items: self.extremum(False, items))

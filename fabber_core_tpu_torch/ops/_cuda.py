@@ -28,7 +28,7 @@ SOURCES = ("spectral_stats.cu", "spectral_core.cu", "spectral_fused.cu",
            "fused_nl_loop.cu", "fused_vb_iter.cu", "fused_whole.cu",
            "fused_nlls.cu", "fused_ar_loop.cu")
 HEADERS = ("vb_device.cuh", "detectors.cuh", "spectral_device.cuh",
-           "fused_nl_loop.cuh", "dual.cuh")
+           "fused_nl_loop.cuh", "dual.cuh", "tile.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -38,6 +38,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # plain version's float32 arithmetic bit for bit (csrc/fused_ar_loop.cu)
 SOURCE_FLAGS = {"fused_nlls.cu": ["-fmad=false"],
                 "fused_ar_loop.cu": ["-fmad=false"]}
+
+# Shared memory of an H100 (sm_90) SM and the runtime's reservation per
+# block (the most one block may take is csrc/tile.cuh kMaxBlockSmem).
+SMEM_PER_SM = 233_472
+SMEM_RESERVED = 1_024
+# The staged tile's plan (tile_plan). One warp per block: a block's
+# shared memory is freed when its one warp is done, so a straggler holds
+# its own tile only (NVIDIA H100 80GB HBM3, T=100, probes/tile_vb.py:
+# kernel 8 fresh Marquardt 34.86 ms at 32 lanes a block against 40.11 at
+# 128, kernel 6 the same at every width). The tile is staged where at
+# least TILE_MIN_WARPS such blocks fit an SM's shared memory: in the
+# probe's T sweep five fit at T=300 and both kernels ran faster staged
+# (kernel 6 17.69 against 18.38 ms, kernel 8 63.07 against 83.55), three
+# at T=440 and both ran slower, with too few warps to hide latency.
+TILE_VB = 32
+TILE_MIN_WARPS = 5
+STREAM_THREADS = 128       # the kernels' kThreads (streamed blocks)
 
 # csrc/detectors.cuh DetectorKind
 DETECTOR_CODES = {"maxits": 0, "pointzeroone": 1, "freduce": 2,
@@ -69,12 +86,28 @@ def library_path():
     return BUILD_DIR / f"libfabber_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _keep_log(out, text):
+    """nvcc's output beside the library it built (<library>.log), so a
+    later process that loads the library can still read it."""
+    tmp = out.with_suffix(f".log.tmp{os.getpid()}")
+    tmp.write_text(text)
+    os.replace(tmp, out.with_suffix(".log"))
+
+
+def _kept_log(out):
+    log = out.with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
 def build():
     """Compile the kernels if this source hash has no library yet.
-    Returns the library path; raises with nvcc's stderr on failure."""
+    Returns the library path; raises with nvcc's stderr on failure.
+    build_log holds nvcc's output, also when an earlier process built
+    the library."""
     global build_log
     out = library_path()
     if out.exists():
+        build_log = _kept_log(out) or build_log
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -105,6 +138,7 @@ def build():
     if proc.returncode != 0:
         raise FabberError(f"nvcc link failed ({proc.returncode}):\n"
                           f"{' '.join(cmd)}\n{proc.stderr}")
+    _keep_log(out, build_log)
     os.replace(tmp, out)
     return out
 
@@ -126,8 +160,10 @@ def load():
         lib.fabber_fused_nl_loop.argtypes = [
             i32, i32, i32, vp, f32, i32, i32, f32, vp,
             i32, f32, i32, i32, i32, vp,
-            vp, vp, vp, vp, vp, vp, i32, i64] + [vp] * 7 + [vp]
+            vp, vp, vp, vp, vp, vp, i32, i64] + [vp] * 7 + [i32, vp]
         lib.fabber_fused_nl_loop.restype = i32
+        lib.fabber_nl_occupancy.argtypes = [i32] * 6
+        lib.fabber_nl_occupancy.restype = i32
         lib.fabber_fused_vb_iter.argtypes = [
             i32, i32, i32, vp, f32, i32,
             vp, vp, vp, vp, vp, vp, vp, i32, i64] + [vp] * 7 + [vp]
@@ -150,8 +186,10 @@ def load():
         lib.fabber_whole_has_instance.restype = i32
         lib.fabber_fused_nlls.argtypes = [
             i32, i32, vp, f32, vp, i32, i32, i32, f32, vp, vp, vp, vp, i32,
-            i64] + [vp] * 6 + [vp]
+            i64] + [vp] * 6 + [i32, vp]
         lib.fabber_fused_nlls.restype = i32
+        lib.fabber_nlls_occupancy.argtypes = [i32] * 6
+        lib.fabber_nlls_occupancy.restype = i32
         lib.fabber_nlls_has_instance.argtypes = [i32, i32]
         lib.fabber_nlls_has_instance.restype = i32
         lib.fabber_fused_ar_loop.argtypes = [
@@ -187,20 +225,53 @@ extern "C" int fabber_gen_nl_loop(
     const float* centre0, const float* pm, const float* pp, const float* pd0,
     const float* data, const float* supp, const float* qw, int nt,
     long long V, float* means, float* prec, float* cov, float* b, float* c,
-    float* fkqk, float* ftr, void* stream) {{
+    float* fkqk, float* ftr, int vb, void* stream) {{
   VBParams k;
   NLDetConsts dc;
-  if (!nl_setup({p}, {q}, tcodes_host, 0.f, n_iters, need_f, locked_sd,
+  const long long smem = nl_smem(vb, nt, {q});
+  if (smem < 0 ||
+      !nl_setup({p}, {q}, tcodes_host, 0.f, n_iters, need_f, locked_sd,
                 consts_host, det_kind, det_tol, det_max_its, det_max_trials,
                 det_init_save, det_consts_host, pd0, nt, V, &k, &dc) ||
       (GenModel::NS > 0 && supp == nullptr))
     return (int)cudaErrorInvalidValue;
   const float* const ins[7] = {{centre0, pm, pp, pd0, data, supp, qw}};
   float* const outs[7] = {{means, prec, cov, b, c, fkqk, ftr}};
-  return launch<GenModel, {q}>(k, dc, ins, outs,
+  return launch<GenModel, {q}>(k, dc, vb, smem, ins, outs,
                                static_cast<cudaStream_t>(stream));
 }}
+
+// fabber_nl_occupancy (fused_nl_loop.cu) for this library's functor and Q
+extern "C" int fabber_gen_occupancy(int mode, int vb, int nt) {{
+  const long long smem = nl_smem(vb, nt, {q});
+  if (smem < 0 || mode < 0 || mode > 2) return -1;
+  return occupancy<GenModel, {q}>(mode, vb, smem);
+}}
 """
+
+
+def tile_plan(nt, nq):
+    """(staged, VB, smem bytes) of a whole-loop kernel launch (kernels 6
+    and 8, csrc/tile.cuh) at nt samples and nq weights per sample (Q
+    groups for kernel 6, 1 for kernel 8): blocks of TILE_VB lanes with a
+    [nt, TILE_VB] tile and [nt, nq] weights, 4 (nt VB + nt nq) bytes,
+    where at least TILE_MIN_WARPS such blocks fit an SM; else the
+    streamed form (False, STREAM_THREADS, 0)."""
+    smem = 4 * (nt * TILE_VB + nt * nq)
+    if SMEM_PER_SM // (smem + SMEM_RESERVED) >= TILE_MIN_WARPS:
+        return True, TILE_VB, smem
+    return False, STREAM_THREADS, 0
+
+
+def launch_vb(nt, nq, vb=None):
+    """The vb argument of a kernel 6 or 8 C entry point: 0 streams, > 0
+    stages in blocks of vb lanes. None takes tile_plan's choice; an int
+    forces it (the tests' and chip_smoke.py's means to time or check a
+    form; a value the entry point refuses raises at the launch)."""
+    if vb is not None:
+        return int(vb)
+    staged, pvb, _ = tile_plan(nt, nq)
+    return pvb if staged else 0
 
 
 def generated_source(source, p, q):
@@ -226,7 +297,8 @@ def build_generated(source, p, q):
     libfabber_gen_<hash>.so (a temporary file, then os.replace) and loads
     it with its own ctypes.CDLL. Returns the library; raises with nvcc's
     stderr when the build fails. gen_build_log[hash] keeps the build's
-    seconds and nvcc's output (ptxas's register and spill lines)."""
+    seconds and nvcc's output (ptxas's register and spill lines; the
+    seconds are nan where an earlier process built the library)."""
     if not 1 <= p <= 4:
         raise FabberError(f"a generated functor takes P <= 4, not {p} "
                           "(csrc/vb_device.cuh kMaxP)")
@@ -255,21 +327,26 @@ def build_generated(source, p, q):
             raise FabberError(f"nvcc failed ({proc.returncode}) on a "
                               f"generated model functor:\n{' '.join(cmd)}"
                               f"\n{proc.stderr}")
+        _keep_log(out, proc.stdout + proc.stderr)
         os.replace(tmp, out)
+    elif key not in gen_build_log:
+        gen_build_log[key] = (float("nan"), _kept_log(out))
     lib = ctypes.CDLL(str(out))
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_float)
     lib.fabber_gen_nl_loop.argtypes = [
         vp, i32, i32, f32, vp, i32, f32, i32, i32, i32, vp,
-        vp, vp, vp, vp, vp, vp, vp, i32, i64] + [vp] * 7 + [vp]
+        vp, vp, vp, vp, vp, vp, vp, i32, i64] + [vp] * 7 + [i32, vp]
     lib.fabber_gen_nl_loop.restype = i32
+    lib.fabber_gen_occupancy.argtypes = [i32, i32, i32]
+    lib.fabber_gen_occupancy.restype = i32
     _gen_libs[key] = lib
     return lib
 
 
 def launch_gen_nl_loop(lib, tcodes, n_iters, need_f, locked_sd, consts,
                        detector, det_consts, centre0, pm, pp, pd0, data,
-                       supp, qw, outs):
+                       supp, qw, outs, vb):
     """launch_nl_loop for a library of build_generated; supp: the [S,V]
     suppdata plane or None."""
     nt, nv = data.shape
@@ -284,7 +361,7 @@ def launch_gen_nl_loop(lib, tcodes, n_iters, need_f, locked_sd, consts,
             consts.data_ptr(), *detector_args(detector), dc,
             centre0.data_ptr(), pm.data_ptr(), pp.data_ptr(), ptr(pd0),
             data.data_ptr(), ptr(supp), qw.data_ptr(), nt, nv,
-            *(o.data_ptr() for o in outs), _stream(data.device))
+            *(o.data_ptr() for o in outs), vb, _stream(data.device))
     _raise_on(err, "fused_nl_loop (generated functor)")
 
 
@@ -404,11 +481,12 @@ def _int_array(values):
 
 def launch_nl_loop(km, nq, tcodes, n_iters, need_f, locked_sd, consts,
                    detector, det_consts, centre0, pm, pp, pd0, data, qw,
-                   outs):
+                   outs, vb):
     """consts: [4Q] float32 host tensor (pack_nl_consts); detector: a
     convergence detector object or None (maxits); det_consts: [Q+2]
     float32 host tensor (lb_coeff, f_const, f_const_init) or None; pd0:
-    the initial posterior variances [P,V] (freduce) or None."""
+    the initial posterior variances [P,V] (freduce) or None; vb: 0
+    streamed, > 0 staged in blocks of vb lanes (launch_vb)."""
     lib = load()
     nt, nv = data.shape
     consts = consts.contiguous()
@@ -420,7 +498,7 @@ def launch_nl_loop(km, nq, tcodes, n_iters, need_f, locked_sd, consts,
             *detector_args(detector), dc, centre0.data_ptr(),
             pm.data_ptr(), pp.data_ptr(),
             0 if pd0 is None else pd0.data_ptr(), data.data_ptr(),
-            qw.data_ptr(), nt, nv, *(o.data_ptr() for o in outs),
+            qw.data_ptr(), nt, nv, *(o.data_ptr() for o in outs), vb,
             _stream(data.device))
     _raise_on(err, "fused_nl_loop")
 
@@ -445,11 +523,12 @@ def _float_array(values):
 
 
 def launch_nlls(km, tcodes, consts, mode, marquardt, max_its, dof, params0,
-                data, w, state, outs):
+                data, w, state, outs, vb):
     """consts: the 7 optimizer constants (ops/fused_nlls.py); mode: 0
     fresh, 1 phase 1, 2 resume; w: the [T] 0/1 weights on the device;
     state: [4,V] or None; outs: (params, cost, its, prec, cov, state_out)
-    with None for what the mode does not write."""
+    with None for what the mode does not write; vb: 0 streamed, > 0
+    staged in blocks of vb lanes (launch_vb)."""
     lib = load()
     nt, nv = data.shape
 
@@ -460,8 +539,29 @@ def launch_nlls(km, tcodes, consts, mode, marquardt, max_its, dof, params0,
             km.kind, km.nparams, _int_array(tcodes), km.dt,
             _float_array(consts), mode, int(marquardt), max_its, dof,
             params0.data_ptr(), data.data_ptr(), w.data_ptr(), ptr(state),
-            nt, nv, *(ptr(o) for o in outs), _stream(data.device))
+            nt, nv, *(ptr(o) for o in outs), vb, _stream(data.device))
     _raise_on(err, "fused_nlls")
+
+
+def nl_occupancy(kind, p, nq, mode, vb, nt):
+    """Blocks per SM of kernel 6's (kind, P, Q) instance in MODE mode (0
+    maxits, 1 pointzeroone/freduce, 2 trialmode/lm) and form vb at nt
+    samples (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1 where
+    refused."""
+    return int(load().fabber_nl_occupancy(kind, p, nq, mode, vb, nt))
+
+
+def gen_occupancy(lib, mode, vb, nt):
+    """nl_occupancy for a library of build_generated."""
+    return int(lib.fabber_gen_occupancy(mode, vb, nt))
+
+
+def nlls_occupancy(kind, p, mode, marquardt, vb, nt):
+    """Blocks per SM of kernel 8's (kind, P) instance in mode (0 fresh, 1
+    phase 1, 2 resume), with or without Marquardt damping, in form vb at
+    nt samples; -1 where refused."""
+    return int(load().fabber_nlls_occupancy(kind, p, mode, int(marquardt),
+                                            vb, nt))
 
 
 def launch_ar_loop(p, nq, n_iters, consts, detector, elbo, m0, rmr, dmr, pm,

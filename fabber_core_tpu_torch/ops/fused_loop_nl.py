@@ -49,12 +49,17 @@ full_eval (make_full_eval's counterpart) and sums each quadratic over
 the whole time axis at once. A time_signal model without a hand-written
 functor runs a functor generated from its time_signal the same way.
 
+The kernel stages each block's [T, VB] data tile and the [T, Q] group
+weights in shared memory once (csrc/tile.cuh) where ops/_cuda.py
+tile_plan says they fit, and streams the plane from global memory
+otherwise.
+
 The wrapper takes the plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises. ``fused_nl_loop.
 launches`` counts kernel launches, ``det_launches`` those in detector
 mode, ``generic_launches`` those in the generic full-time mode (a
 functor generated from evaluate; one generated from a time_signal is
-the time_signal mode).
+the time_signal mode), ``staged_launches`` those in the staged form.
 """
 
 import numpy as np
@@ -159,7 +164,8 @@ def fused_nl_loop_plain(time_signal_jac, transforms, centre0, prior_means,
 
 def fused_nl_loop(model, transforms, centre0, prior_means, prior_prec, data,
                   qmasks, consts, n_iters, need_f, locked_noise_stdev=-1.0,
-                  detector=None, post_var0=None, functor=None, supp=None):
+                  detector=None, post_var0=None, functor=None, supp=None,
+                  _vb=None):
     """The whole VB loop (see fused_nl_loop_plain for the shapes and
     the detector mode). model: the forward model (signal_jac_fn(model)
     on the CPU, kernel_model() for the CUDA functor). functor: a
@@ -167,7 +173,9 @@ def fused_nl_loop(model, transforms, centre0, prior_means, prior_prec, data,
     from functor.libs[Q] (built before, ops/_cuda.py build_generated):
     generated from the model's evaluate (its fn set: the generic full-time mode, whose
     plain version is ops/fused_vb.py full_eval, with supp [S,V] when the
-    functor reads suppdata) or from its time_signal."""
+    functor reads suppdata) or from its time_signal. _vb: private, for
+    the tests and chip_smoke.py: forces the kernel's form (0 streamed,
+    > 0 staged in blocks of that many lanes; ops/_cuda.py launch_vb)."""
     if n_iters < 1:
         raise ValueError("n_iters must be >= 1")
     kind = None if detector is None else type(detector["det"]).name
@@ -226,12 +234,13 @@ def fused_nl_loop(model, transforms, centre0, prior_means, prior_prec, data,
         from . import _cuda
         det = None if kind is None else detector["det"]
         pd0 = post_var0 if kind == "freduce" else None
+        vb = _cuda.launch_vb(nt, nq, _vb)
         if functor is None:
             _cuda.launch_nl_loop(km, nq, tcodes, int(n_iters), bool(need_f),
                                  float(locked_noise_stdev),
                                  consts.to(torch.float32), det, det_consts,
                                  centre0, prior_means, prior_prec, pd0, data,
-                                 qw, outs)
+                                 qw, outs, vb)
         else:
             lib = functor.libs.get(nq)
             if lib is None:
@@ -243,18 +252,21 @@ def fused_nl_loop(model, transforms, centre0, prior_means, prior_prec, data,
                 lib, tcodes, int(n_iters), bool(need_f),
                 float(locked_noise_stdev), consts.to(torch.float32), det,
                 det_consts, centre0, prior_means, prior_prec, pd0, data,
-                supp if nsupp else None, qw, outs)
+                supp if nsupp else None, qw, outs, vb)
             if generic:
                 fused_nl_loop.generic_launches += 1
         fused_nl_loop.launches += 1
         if kind is not None:
             fused_nl_loop.det_launches += 1
+        if vb > 0:
+            fused_nl_loop.staged_launches += 1
     return outs
 
 
 fused_nl_loop.launches = 0
 fused_nl_loop.det_launches = 0
 fused_nl_loop.generic_launches = 0
+fused_nl_loop.staged_launches = 0
 
 
 def _round(x, dt):

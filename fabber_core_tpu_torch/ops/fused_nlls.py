@@ -45,10 +45,15 @@ tile-wide early exit (the kernel's threads leave their loops when their
 lane is done; a done lane never commits, so each lane's outcome is the
 same).
 
+The kernel stages each block's [T, VB] data tile in shared memory once
+(csrc/tile.cuh) where ops/_cuda.py tile_plan says it fits, and streams
+the plane from global memory otherwise; the two forms agree bit for bit.
+
 The wrapper takes the plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises. ``fused_nlls_loop.
-launches`` counts kernel launches, ``resume_launches`` and
-``marquardt_launches`` those in resume mode and with Marquardt damping.
+launches`` counts kernel launches, ``resume_launches``,
+``marquardt_launches`` and ``staged_launches`` those in resume mode,
+with Marquardt damping and in the staged form.
 """
 
 import numpy as np
@@ -198,10 +203,12 @@ def fused_nlls_loop_plain(time_signal_jac, transforms, params0, data,
 
 
 def fused_nlls_loop(model, transforms, params0, data, tmask, max_its,
-                    marquardt=False, state=None, posterior=True):
+                    marquardt=False, state=None, posterior=True, _vb=None):
     """The whole NLLS loop (see fused_nlls_loop_plain for the shapes and
     the modes). model: the forward model (signal_jac_fn(model) on the
-    CPU, kernel_model() for the CUDA functor)."""
+    CPU, kernel_model() for the CUDA functor). _vb: private, for the
+    tests and chip_smoke.py: forces the kernel's form (0 streamed, > 0
+    staged in blocks of that many lanes; ops/_cuda.py launch_vb)."""
     if max_its < 0:
         raise ValueError("max_its must be >= 0")
     if state is not None and not posterior:
@@ -242,10 +249,13 @@ def fused_nlls_loop(model, transforms, params0, data, tmask, max_its,
               PREC_DIAG_FLOOR, CFTOL, PLATEAU_LAMBDA]
     if nv:
         from . import _cuda
+        vb = _cuda.launch_vb(nt, 1, _vb)
         _cuda.launch_nlls(km, tcodes, consts, mode, bool(marquardt),
                           int(max_its), float(w_h.sum() - p), params0, data,
-                          w, state, outs)
+                          w, state, outs, vb)
         fused_nlls_loop.launches += 1
+        if vb > 0:
+            fused_nlls_loop.staged_launches += 1
         if mode == MODE_RESUME:
             fused_nlls_loop.resume_launches += 1
         if marquardt:
@@ -258,3 +268,4 @@ def fused_nlls_loop(model, transforms, params0, data, tmask, max_its,
 fused_nlls_loop.launches = 0
 fused_nlls_loop.resume_launches = 0
 fused_nlls_loop.marquardt_launches = 0
+fused_nlls_loop.staged_launches = 0

@@ -58,16 +58,20 @@ def kernel_instantiated(kmodel, nq):
 def signal_jac_fn(model):
     """The model's time_signal_jac; for a model with a time_signal
     alone, its forward-mode derivative per parameter (as
-    make_block_eval's jax.jvp branch does)."""
+    make_block_eval's jax.jvp branch does), with jax's rules at kinks
+    (models/kinks.py)."""
     tsj = getattr(model, "time_signal_jac", None)
     if tsj is not None:
         return tsj
+    from ..models.kinks import JaxKinks
+    kinks = JaxKinks(lambda *a: model.time_signal(list(a[:-1]), a[-1]))
 
     def jvp_jac(mrows, t):
+        g = kinks.at(*mrows, t)
         jac = []
         for i, row in enumerate(mrows):
             def f(x, i=i):
-                return model.time_signal(mrows[:i] + [x] + mrows[i + 1:], t)
+                return g(*mrows[:i], x, *mrows[i + 1:], t)
             sig, d = torch.func.jvp(f, (row,), (torch.ones_like(row),))
             jac.append(d)
         return sig, jac
@@ -129,22 +133,30 @@ def full_eval(fn, transforms, supp=None):
     data-free evaluate, models/kernelgen.py) vmapped over the voxel
     lanes. The model-space Jacobian comes from forward mode (one
     torch.func.jvp per parameter, as the TPU kernel's jax.linearize
-    applies its linear map per basis tangent), times the chain factors;
-    supp [S,V] rides along per lane with no derivative taken through
-    it."""
+    applies its linear map per basis tangent) with jax's rules at kinks
+    (models/kinks.py), times the chain factors; supp [S,V] rides along
+    per lane with no derivative taken through it."""
+    from ..models.kinks import JaxKinks
+    kinks = JaxKinks(fn)
+
     def evaluator(latent):
         p = latent.shape[0]
         rows = [latent[i] for i in range(p)]
         mrows = torch.stack([tr.to_model(r)
                              for tr, r in zip(transforms, rows)])
+        one = torch.zeros(p, dtype=mrows.dtype, device=mrows.device)
         if supp is None:
-            def f(m):
-                return torch.func.vmap(fn, in_dims=1, out_dims=1)(m)
-        else:
-            s = supp.to(latent.dtype)
+            g = kinks.at(one)
 
             def f(m):
-                return torch.func.vmap(fn, in_dims=(1, 1), out_dims=1)(m, s)
+                return torch.func.vmap(g, in_dims=1, out_dims=1)(m)
+        else:
+            s = supp.to(latent.dtype)
+            g = kinks.at(one, torch.zeros(s.shape[0], dtype=s.dtype,
+                                          device=s.device))
+
+            def f(m):
+                return torch.func.vmap(g, in_dims=(1, 1), out_dims=1)(m, s)
         sig = f(mrows).to(latent.dtype)
         jac = []
         for i, tr in enumerate(transforms):

@@ -886,6 +886,13 @@ def test_nlls_kernel_matches_plain(cuda, name, marquardt):
     before = fn.fused_nlls_loop.launches
     k = fn.fused_nlls_loop(c["model"], c["tr"], *args)
     assert fn.fused_nlls_loop.launches == before + 1
+    assert_nlls_near_f64(c, k, args)
+
+
+def assert_nlls_near_f64(c, k, args):
+    """test_nlls_kernel_matches_plain's bounds on the kernel's outputs k
+    for the plain version's arguments args (budget args[3])."""
+    from fabber_core_tpu_torch.ops import fused_nlls as fn
     tsj = c["model"].time_signal_jac
     r32 = fn.fused_nlls_loop_plain(tsj, c["tr"], *args)
     r64 = fn.fused_nlls_loop_plain(tsj, c["tr"], c["centre"].double(),
@@ -900,7 +907,7 @@ def test_nlls_kernel_matches_plain(cuda, name, marquardt):
     assert bool(keep.any())
     worst_k, worst_32 = float(e_k[keep].max()), float(e_32[keep].max())
     assert worst_k <= max(1e-3, 2 * worst_32), (worst_k, worst_32)
-    assert float(k[2].max()) <= 40 and float(k[2].min()) >= 1
+    assert float(k[2].max()) <= args[3] and float(k[2].min()) >= 1
 
 
 @pytest.mark.parametrize("marquardt", [False, True], ids=["L", "LM"])
@@ -1001,6 +1008,253 @@ def test_nlls_wrapper_refuses_what_no_kernel_takes(cuda):
         fn.fused_nlls_loop(c["model"], c["tr"], c["centre"], c["data"],
                            c["tmask"], 5, state=torch.zeros(3, 64,
                                                             device=cuda))
+
+
+# -- kernels 6 and 8 staged and streamed (csrc/tile.cuh) --------------------
+
+def plan_edges(nq):
+    """For tile_plan at nq weights per sample: the longest T of each VB
+    it stages with and the T just past it (the last one streams)."""
+    from fabber_core_tpu_torch.ops import _cuda
+    edges, last = [], _cuda.tile_plan(1, nq)[1]
+    for nt in range(2, 4000):
+        staged, vb, _ = _cuda.tile_plan(nt, nq)
+        if vb != last or not staged:
+            edges += [nt - 1, nt]
+            last = vb
+        if not staged:
+            return edges
+    raise AssertionError("no T streams")
+
+
+def expect_staged(nt, nq, vb=None):
+    from fabber_core_tpu_torch.ops import _cuda
+    return 1 if _cuda.launch_vb(nt, nq, vb) > 0 else 0
+
+
+@pytest.mark.parametrize("marquardt", [False, True], ids=["L", "LM"])
+def test_nlls_staged_bit_identical_to_streamed(cuda, marquardt):
+    """Kernel 8 at V = 1,000,003: the fresh launch, phase 1 (3 steps)
+    and the resumed launch from its state, in the plan's staged form
+    (VB 32 at T=40), staged at VB 128 and 64, and streamed: every output
+    of every form equal bit for bit."""
+    from fabber_core_tpu_torch.ops import fused_nlls as fn
+    c = nlls_inputs("biexp", 1_000_003, cuda, seed=4)
+    base = (c["centre"], c["data"], c["tmask"])
+    outs = {}
+    for vb in (None, 128, 64, 0):
+        st = fn.fused_nlls_loop.staged_launches
+        fresh = fn.fused_nlls_loop(c["model"], c["tr"], *base, 40,
+                                   marquardt, _vb=vb)
+        p1 = fn.fused_nlls_loop(c["model"], c["tr"], *base, 3, marquardt,
+                                posterior=False, _vb=vb)
+        res = fn.fused_nlls_loop(c["model"], c["tr"], p1[0], c["data"],
+                                 c["tmask"], 37, marquardt, state=p1[1],
+                                 _vb=vb)
+        assert fn.fused_nlls_loop.staged_launches - st == (
+            0 if vb == 0 else 3)
+        outs[vb] = list(fresh) + list(p1) + list(res)
+    for vb in (128, 64, 0):
+        for a, b in zip(outs[None], outs[vb]):
+            assert torch.equal(a.contiguous().view(torch.int32),
+                               b.contiguous().view(torch.int32)), vb
+
+
+@pytest.mark.parametrize("nt", plan_edges(1))
+def test_nlls_plan_edges_match_plain(cuda, nt):
+    """Kernel 8 (exp, Levenberg) at T on tile_plan's edges, the last
+    too long for any tile (streamed): held to float64 as
+    test_nlls_kernel_matches_plain, in the form the plan picks."""
+    from fabber_core_tpu_torch.ops import fused_nlls as fn
+    c = nl_inputs("exp", 1, 2001, cuda, nt=nt, seed=5)
+    c["tmask"] = c["q"].sum(axis=0)
+    args = (c["centre"], c["data"], c["tmask"], 30, False)
+    st = fn.fused_nlls_loop.staged_launches
+    k = fn.fused_nlls_loop(c["model"], c["tr"], *args)
+    assert fn.fused_nlls_loop.staged_launches - st == expect_staged(nt, 1)
+    assert_nlls_near_f64(c, k, args)
+
+
+@pytest.mark.parametrize("vb", [None, 128, 64, 0],
+                         ids=["plan", "vb128", "vb64", "streamed"])
+@pytest.mark.parametrize("name,nq", [("biexp", 1), ("exp", 4),
+                                     ("poly3-F", 2)],
+                         ids=["biexp-Q1", "exp-Q4", "poly3-F-Q2"])
+def test_nl_loop_forms_match_plain(cuda, name, nq, vb):
+    """Kernel 6 MODE 0 in each form on a ragged V, held to the plain
+    version at float64 (assert_near_f64)."""
+    from fabber_core_tpu_torch.ops import fused_loop_nl as nl
+    c = nl_inputs(name, nq, 1001, cuda)
+    consts = nl.pack_nl_consts(np.full(nq, 1e6), np.full(nq, 1e-6),
+                               c["q"].sum(axis=1), 1e-8, 50.0, nq)
+    args = (c["centre"], c["pm"], c["pp"], c["data"], c["q"], consts, 10,
+            True)
+    st = nl.fused_nl_loop.staged_launches
+    k = nl.fused_nl_loop(c["model"], c["tr"], *args, _vb=vb)
+    assert nl.fused_nl_loop.staged_launches - st == (0 if vb == 0 else 1)
+    tsj = c["model"].time_signal_jac
+    assert_near_f64(k, nl.fused_nl_loop_plain(tsj, c["tr"], *args),
+                    nl.fused_nl_loop_plain(tsj, c["tr"], *to_f64(args)))
+
+
+@pytest.mark.parametrize("kind", ["pointzeroone", "freduce", "trialmode",
+                                  "lm"])
+def test_nl_loop_detector_streamed_matches_plain(cuda, kind):
+    """Kernel 6's detector modes (MODE 1, 2) in the streamed form, held
+    as test_nl_loop_detector_kernel_matches_plain holds the plan's
+    staged form."""
+    from fabber_core_tpu_torch.ops import fused_loop_nl as nl
+    c = nl_inputs("exp", 2, 3001, cuda, seed=2)
+    nt = c["data"].shape[0]
+    det = nl_detector(kind, 2, nt, "exp")
+    consts = nl.pack_nl_consts(np.full(2, 1e6), np.full(2, 1e-6),
+                               c["q"].sum(axis=1), 1e-8, 50.0, 2)
+    pd0 = torch.full_like(c["centre"], 0.5)
+    args = (c["centre"], c["pm"], c["pp"], c["data"], c["q"], consts, 6,
+            True)
+    st = nl.fused_nl_loop.staged_launches
+    k = nl.fused_nl_loop(c["model"], c["tr"], *args, detector=det,
+                         post_var0=pd0, _vb=0)
+    assert nl.fused_nl_loop.staged_launches == st
+    tsj = c["model"].time_signal_jac
+    r32 = nl.fused_nl_loop_plain(tsj, c["tr"], *args, detector=det,
+                                 post_var0=pd0)
+    r64 = nl.fused_nl_loop_plain(tsj, c["tr"], *to_f64(args), detector=det,
+                                 post_var0=pd0.double())
+
+    def dec(o):
+        rev = o[5][1] if kind == "freduce" else torch.zeros_like(o[6][0])
+        return decisions(o[6][0], rev)
+
+    assert_detector_near_f64(k, r32, r64, dec(k), dec(r32), dec(r64))
+
+
+@pytest.mark.parametrize("nq", [1, 4])
+def test_nl_loop_plan_edges_match_plain(cuda, nq):
+    """Kernel 6 (exp) at every T on tile_plan's edges for nq groups, the
+    last streamed: each held to float64 (assert_near_f64), in the form
+    the plan picks."""
+    from fabber_core_tpu_torch.ops import fused_loop_nl as nl
+    for nt in plan_edges(nq):
+        c = nl_inputs("exp", nq, 2001, cuda, nt=nt, seed=6)
+        consts = nl.pack_nl_consts(np.full(nq, 1e6), np.full(nq, 1e-6),
+                                   c["q"].sum(axis=1), 1e-8, 50.0, nq)
+        args = (c["centre"], c["pm"], c["pp"], c["data"], c["q"], consts,
+                6, True)
+        st = nl.fused_nl_loop.staged_launches
+        k = nl.fused_nl_loop(c["model"], c["tr"], *args)
+        assert nl.fused_nl_loop.staged_launches - st == expect_staged(nt,
+                                                                      nq)
+        tsj = c["model"].time_signal_jac
+        assert_near_f64(k, nl.fused_nl_loop_plain(tsj, c["tr"], *args),
+                        nl.fused_nl_loop_plain(tsj, c["tr"], *to_f64(args)))
+
+
+@pytest.mark.parametrize("nq,nsupp", [(1, 0), (2, 2)],
+                         ids=["Q1-NS0", "Q2-NS2"])
+def test_generated_kernel_streamed_matches_plain(cuda, nq, nsupp):
+    """6g in the streamed form, held as test_generated_kernel_matches_
+    plain holds the plan's staged form (maxits)."""
+    from fabber_core_tpu_torch.ops import fused_loop_nl as nl
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    c = generic_inputs(nq, nsupp, 100_003, cuda)
+    consts = nl.pack_nl_consts(np.full(nq, 1e6), np.full(nq, 1e-6),
+                               c["q"].sum(axis=1), 1e-8, 50.0, nq)
+    args = (c["centre"], c["pm"], c["pp"], c["data"], c["q"], consts, 10,
+            True)
+    st = nl.fused_nl_loop.staged_launches
+    k = nl.fused_nl_loop(c["model"], c["tr"], *args, functor=c["tle"],
+                         supp=c["supp"], _vb=0)
+    assert nl.fused_nl_loop.staged_launches == st
+    r32 = nl.fused_nl_loop_plain(
+        None, c["tr"], *args,
+        evaluator=fv.full_eval(c["tle"].fn, c["tr"], c["supp"]))
+    s64 = None if c["supp"] is None else c["supp"].double()
+    r64 = nl.fused_nl_loop_plain(
+        None, c["tr"], *to_f64(args),
+        evaluator=fv.full_eval(c["tle"].fn, c["tr"], s64))
+    assert_near_f64(k, r32, r64)
+
+
+def test_refused_tiles_raise(cuda):
+    """A VB or a tile the C entry points refuse (VB not a multiple of 32
+    or above 128, a tile above 232,448 bytes) raises in the wrapper and
+    counts no launch; nothing falls back to the other form."""
+    from fabber_core_tpu_torch.exceptions import FabberError
+    from fabber_core_tpu_torch.ops import fused_loop_nl as nl
+    from fabber_core_tpu_torch.ops import fused_nlls as fn
+    c = nl_inputs("exp", 1, 256, cuda, nt=500)
+    consts = nl.pack_nl_consts([1e6], [1e-6], c["q"].sum(axis=1), 1e-8,
+                               50.0, 1)
+    g = generic_inputs(1, 0, 256, cuda)
+    gconsts = nl.pack_nl_consts([1e6], [1e-6], g["q"].sum(axis=1), 1e-8,
+                                50.0, 1)
+    for vb in (48, 160, 128):     # 128: 4 (500 x 128 + 500) B > 232,448
+        n_nl, n_nlls = nl.fused_nl_loop.launches, fn.fused_nlls_loop.launches
+        with pytest.raises(FabberError, match="launch failed"):
+            nl.fused_nl_loop(c["model"], c["tr"], c["centre"], c["pm"],
+                             c["pp"], c["data"], c["q"], consts, 2, True,
+                             _vb=vb)
+        with pytest.raises(FabberError, match="launch failed"):
+            fn.fused_nlls_loop(c["model"], c["tr"], c["centre"], c["data"],
+                               c["q"].sum(axis=0), 5, _vb=vb)
+        if vb != 128:
+            with pytest.raises(FabberError, match="launch failed"):
+                nl.fused_nl_loop(g["model"], g["tr"], g["centre"], g["pm"],
+                                 g["pp"], g["data"], g["q"], gconsts, 2,
+                                 True, functor=g["tle"], _vb=vb)
+        assert nl.fused_nl_loop.launches == n_nl
+        assert fn.fused_nlls_loop.launches == n_nlls
+
+
+def test_occupancy_queries(cuda):
+    """The plan keeps at least TILE_MIN_WARPS staged one-warp blocks per
+    SM at T=100 and at its last staged T, for kernel 6 MODE 0-2 (biexp,
+    Q=1), kernel 8 and a generated functor; refused arguments give
+    -1."""
+    from fabber_core_tpu_torch.ops import _cuda
+    least = _cuda.TILE_MIN_WARPS
+    for nt in (100, plan_edges(1)[-2]):
+        staged, vb, _ = _cuda.tile_plan(nt, 1)
+        assert staged and vb == 32
+        for mode in (0, 1, 2):
+            assert _cuda.nl_occupancy(1, 4, 1, mode, vb, nt) >= least
+            assert _cuda.nlls_occupancy(1, 4, mode, False, vb, nt) >= least
+        assert _cuda.nl_occupancy(1, 4, 1, 0, 0, nt) >= 2
+    assert _cuda.nl_occupancy(1, 4, 1, 0, 48, 100) == -1
+    assert _cuda.nlls_occupancy(1, 4, 0, False, 128, 500) == -1
+    g = generic_inputs(1, 0, 64, cuda)
+    assert _cuda.gen_occupancy(g["tle"].libs[1], 0, 32, 100) >= least
+
+
+# the longest T each block width takes within the 232,448-byte limit
+LARGEST_TILES = [(450, 128), (894, 64), (1760, 32)]
+
+
+@pytest.mark.parametrize("nt,vb", LARGEST_TILES,
+                         ids=[f"T{nt}-vb{vb}" for nt, vb in LARGEST_TILES])
+def test_largest_tiles_match_plain(cuda, nt, vb):
+    """Kernels 6 and 8 (exp, Q=1) forced to stage the largest tile each
+    VB takes (above 48 KB: the shared-memory opt-in), held to float64 as
+    test_nl_loop_kernel_matches_plain and test_nlls_kernel_matches_plain
+    hold the plan's forms."""
+    from fabber_core_tpu_torch.ops import fused_loop_nl as nl
+    from fabber_core_tpu_torch.ops import fused_nlls as fn
+    c = nl_inputs("exp", 1, 1501, cuda, nt=nt, seed=7)
+    consts = nl.pack_nl_consts([1e6], [1e-6], c["q"].sum(axis=1), 1e-8,
+                               50.0, 1)
+    args = (c["centre"], c["pm"], c["pp"], c["data"], c["q"], consts, 6,
+            True)
+    st = nl.fused_nl_loop.staged_launches
+    k = nl.fused_nl_loop(c["model"], c["tr"], *args, _vb=vb)
+    assert nl.fused_nl_loop.staged_launches == st + 1
+    tsj = c["model"].time_signal_jac
+    assert_near_f64(k, nl.fused_nl_loop_plain(tsj, c["tr"], *args),
+                    nl.fused_nl_loop_plain(tsj, c["tr"], *to_f64(args)))
+    c["tmask"] = c["q"].sum(axis=0)
+    nargs = (c["centre"], c["data"], c["tmask"], 30, False)
+    k = fn.fused_nlls_loop(c["model"], c["tr"], *nargs, _vb=vb)
+    assert_nlls_near_f64(c, k, nargs)
 
 
 # -- the AR(1) whole-loop kernel (fused_ar_loop.cu, kernel 9) ------------------

@@ -14,7 +14,8 @@ through both engines, and the torch myexp plugin.
             kernel itself (csrc/fused_nl_loop.cuh with the generated
             functor) compiled as host C++ at double (tests/
             torch_hostcc.py, skipped without g++) against the same plain
-            version to 1e-9;
+            version to 1e-9, and its streamed form equal to its staged
+            one bit for bit;
   engine    VBInference(device="cpu") on generic pallas-loop-nl against
             the JAX engine's interpreted pallas-loop (and, once, its xla
             route) at float32 with tests/test_fused_loop_generic.py's
@@ -248,8 +249,16 @@ def test_generated_kernel_on_host_matches_plain(kind, tmp_path, gxx):
     SuppScaled's evaluate, compiled as host C++ at double, one call per
     voxel, against the plain generic loop at float64."""
     c = kernel_case("gauss", "12", 2, seed=1)
+    got = run_host_kernel(c, kind, tmp_path, staged=True)
+    ref = run_port_plain(c, kind)
+    assert_outputs([g.reshape(r.shape) for g, r in zip(got, ref)], ref)
+
+
+def run_host_kernel(c, kind, tmp_path, staged):
+    """The host-compiled kernel (tests/torch_hostcc.py kernel_fn) on a
+    kernel_case, in its staged or streamed form."""
     _, tdet = detector_dicts(c, kind)
-    fn = torch_hostcc.kernel_fn(c["tle"], 2, tmp_path)
+    fn = torch_hostcc.kernel_fn(c["tle"], 2, tmp_path, staged)
     from fabber_core_tpu_torch.ops import _cuda
     consts = port_args(c)[5].numpy()
     if tdet is None:
@@ -258,11 +267,22 @@ def test_generated_kernel_on_host_matches_plain(kind, tmp_path, gxx):
         det = _cuda.detector_args(tdet["det"])
         dcs = np.array(list(tdet["lb_coeff"])
                        + [tdet["f_const"], tdet["f_const_init"]])
-    got = fn([0] * 4, 10, True, consts, det, dcs, c["centre"], c["pm"],
-             c["pp"], c["pd0"], c["data"], c["supp"],
-             np.ascontiguousarray(c["q"].T))
-    ref = run_port_plain(c, kind)
-    assert_outputs([g.reshape(r.shape) for g, r in zip(got, ref)], ref)
+    return fn([0] * 4, 10, True, consts, det, dcs, c["centre"], c["pm"],
+              c["pp"], c["pd0"], c["data"], c["supp"],
+              np.ascontiguousarray(c["q"].T))
+
+
+@pytest.mark.parametrize("kind", ["maxits", "freduce", "lm"])
+def test_generated_kernel_on_host_streamed_equals_staged(kind, tmp_path,
+                                                         gxx):
+    """The kernel's two forms (csrc/tile.cuh), compiled as host C++ at
+    double: the streamed form reads the plane where the staged one reads
+    its one-lane tile, and every output agrees bit for bit."""
+    c = kernel_case("gauss", "12", 2, seed=1)
+    staged = run_host_kernel(c, kind, tmp_path, staged=True)
+    streamed = run_host_kernel(c, kind, tmp_path, staged=False)
+    for a, b in zip(staged, streamed):
+        np.testing.assert_array_equal(a, b)
 
 
 # -- engine level -----------------------------------------------------------

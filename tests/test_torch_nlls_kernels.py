@@ -33,6 +33,8 @@ from fabber_core_tpu_torch.ops import fused_nlls as fn
 from fabber_core_tpu_torch.ops import fused_vb as fv
 from fabber_core_tpu_torch.options import RunOptions
 
+import torch_hostcc
+
 torch.set_num_threads(1)
 
 NT, NV, DT, MAX_ITS = 24, 128, 0.1, 50
@@ -191,3 +193,64 @@ def test_wrapper_checks_its_arguments():
         fn.fused_nlls_loop(c["tm"], c["tr"], p0, data, c["tmask"][:-1], 5)
     with pytest.raises(ValueError, match="max_its"):
         fn.fused_nlls_loop(c["tm"], c["tr"], p0, data, c["tmask"], -1)
+
+
+# -- the kernel's device code on the host ---------------------------------
+
+FUNCTORS = {"exp": "ExpSum<1>", "biexp": "ExpSum<2>",
+            "poly-log": "PolyModel<2>"}
+
+
+@pytest.fixture
+def gxx():
+    if not torch_hostcc.have_gxx():
+        pytest.skip("g++ is not installed")
+
+
+def host_args(c):
+    km = c["tm"].kernel_model()
+    consts = [fn.LAMBDA_INIT, fn.LAMBDA_GROW, fn.LAMBDA_SHRINK,
+              fn.LAMBDA_MAX, fn.PREC_DIAG_FLOOR, fn.CFTOL,
+              fn.PLATEAU_LAMBDA]
+    return ([fv.TRANSFORM_CODES[tr.code] for tr in c["tr"]], km.dt, consts,
+            float(c["tmask"].sum() - c["p"]))
+
+
+@pytest.mark.parametrize("name,marquardt", [
+    ("exp", False), ("biexp", False), ("biexp", True), ("poly-log", True)],
+    ids=["exp-L", "biexp-L", "biexp-LM", "poly-log-LM"])
+def test_kernel_on_host_matches_plain_float64(name, marquardt, tmp_path,
+                                               gxx):
+    """csrc/fused_nlls.cu compiled as host C++ at double (one block of
+    one lane per voxel, tests/torch_hostcc.py), in its staged and
+    streamed forms: the fresh launch against the plain version at
+    float64 (assert_f64_match), phase 1 (3 steps) + resume equal to the
+    fresh launch, and the two forms equal bit for bit in every mode."""
+    c = make_case(name, seed=3)
+    tc, dt, consts, dof = host_args(c)
+    runs = {}
+    for staged in (True, False):
+        k = torch_hostcc.nlls_kernel_fn(FUNCTORS[name], tmp_path, staged)
+        fresh = k(0, marquardt, tc, dt, consts, MAX_ITS, dof, c["p0"],
+                  c["data"], c["tmask"], None)
+        p1 = k(1, marquardt, tc, dt, consts, 3, dof, c["p0"], c["data"],
+               c["tmask"], None)
+        res = k(2, marquardt, tc, dt, consts, MAX_ITS - 3, dof, p1[0],
+                c["data"], c["tmask"], p1[5])
+        runs[staged] = (fresh, p1, res)
+        for a, b in zip(res[:5], fresh[:5]):
+            np.testing.assert_array_equal(a, b)
+    for a, b in zip(runs[True], runs[False]):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    fresh = runs[True][0]
+    ref = run_port(c, MAX_ITS, marquardt)
+    got = [fresh[0], fresh[1], fresh[2], fresh[3], fresh[4]]
+    assert_f64_match(got, [ref[0], ref[1], ref[2],
+                           ref[3].reshape(got[3].shape),
+                           ref[4].reshape(got[4].shape)])
+    assert 0.0 < p1_done_share(runs[True][1]) < 1.0
+
+
+def p1_done_share(p1):
+    return float(p1[5][2].mean())

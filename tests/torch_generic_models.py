@@ -139,3 +139,52 @@ class KitchenSink(GaussianAct):
         s = s + params.view(2, 2)[1, 0] * torch.ones(
             ctx.nt, dtype=params.dtype, device=params.device)
         return s + torch.minimum(s, torch.tensor(50.0))
+
+
+class AbsAmp(GaussianAct):
+    """a * |p1| * exp(-t dt): p1's prior and initial posterior mean, 0,
+    is abs's kink, where jax's tangent is +1 and torch's 0 (the kink
+    twins of tests/test_torch_kinks.py)."""
+    name = "absamp-test"
+
+    def param_defaults(self):
+        return [ParamSpec(0, "a", DistParams(1.0, 10), DistParams(1.0, 5)),
+                ParamSpec(1, "p1", DistParams(0.0, 10), DistParams(0.0, 5))]
+
+    def evaluate(self, params, ctx, key=""):
+        t = torch.arange(ctx.nt, dtype=params.dtype,
+                         device=params.device) * self.dt
+        return params[0] * torch.abs(params[1]) * torch.exp(-t)
+
+
+class ClampOffset(GaussianAct):
+    """a exp(-t dt) + clamp(c, 0, 2): c's prior and initial posterior
+    mean, 0, is the clamp's lower bound, where jax's tangent is 1/2 and
+    torch's 1."""
+    name = "clampoff-test"
+
+    def param_defaults(self):
+        return [ParamSpec(0, "a", DistParams(1.0, 10), DistParams(1.0, 5)),
+                ParamSpec(1, "c", DistParams(0.0, 10), DistParams(0.0, 5))]
+
+    def evaluate(self, params, ctx, key=""):
+        t = torch.arange(ctx.nt, dtype=params.dtype,
+                         device=params.device) * self.dt
+        return params[0] * torch.exp(-t) + torch.clamp(params[1], 0.0, 2.0)
+
+
+class MaxTie(GaussianAct):
+    """max over (a, b, b) times exp(-t dt) plus b: at a == b the three
+    elements tie, and jax shares the tangent evenly (a pairwise max
+    would give a 1/4 and b 3/4)."""
+    name = "maxtie-test"
+
+    def param_defaults(self):
+        return [ParamSpec(0, "a", DistParams(1.0, 10), DistParams(1.0, 5)),
+                ParamSpec(1, "b", DistParams(1.0, 10), DistParams(1.0, 5))]
+
+    def evaluate(self, params, ctx, key=""):
+        t = torch.arange(ctx.nt, dtype=params.dtype,
+                         device=params.device) * self.dt
+        top = torch.stack([params[0], params[1], params[1]]).amax(0)
+        return top * torch.exp(-t) + params[1]

@@ -33,8 +33,10 @@ suppdata run against the float64 'xla-generic' route on the card); then
 times the kernels, their plain versions, a device-to-device copy and the
 whole engine run, poly at 16,777,216 voxels (white and AR noise) and
 biexp at 4,000,000 (VB and NLLS; the generated biexp functor beside the
-hand-written one; kernels 6 and 8 in their staged and streamed forms,
-csrc/tile.cuh, with each form's plan, blocks per SM and registers). Every phase passes or the script exits
+hand-written one; kernels 4, 6, 7 and 8 in their staged and streamed
+forms, csrc/tile.cuh, with each form's plan, blocks per SM and
+registers, kernels 4 and 7 bit for bit). Every phase passes or the
+script exits
 non-zero without printing the result line. The last line of standard
 output is the JSON result object; the line before it lists the
 kernels, each with its bound (the least time the card could take:
@@ -642,7 +644,8 @@ def check_exp_engine_vs_f64(device, nv=4096):
 def check_per_iteration_route(device, nv=65_536):
     """Phase 4e: the per-iteration route (engine-kernel=pallas) on the
     biexp data at 65,536 voxels: kernel 7 launched once per iteration
-    (10), and the result against the whole-loop route's on the same
+    (10), each in its staged form (the plan's at T=100), and the result
+    against the whole-loop route's on the same
     data. Bound: the fraction of voxels whose fit is within 3 noise sd
     of the noiseless signal within 0.03 between the routes, and the
     sorted parameters agreeing in >= 50% of voxels (the two plain
@@ -658,21 +661,24 @@ def check_per_iteration_route(device, nv=65_536):
     for mode in ("pallas", "auto"):
         eng = nl_engine("biexp", "1", data, device, {"engine-kernel": mode})
         fl.fused_nl_loop.launches = 0
-        fv.fused_iteration.launches = 0
+        fv.fused_iteration.launches = fv.fused_iteration.staged_launches = 0
         r = eng.run()
         res[mode] = (eng.route, fv.fused_iteration.launches,
                      fl.fused_nl_loop.launches,
-                     torch.as_tensor(r.means.T.copy(), device=device))
+                     torch.as_tensor(r.means.T.copy(), device=device),
+                     fv.fused_iteration.staged_launches)
     good = {m: fit_quality(eng.model, eng._transforms(), res[m][3],
                            clean)[0] for m in res}
     agree = canonical_close(res["pallas"][3], res["auto"][3])
     ok = (res["pallas"][0] == "pallas" and res["pallas"][1] == ITERS
+          and res["pallas"][4] == ITERS
           and res["pallas"][2] == 0 and res["auto"][0] == "pallas-loop-nl"
           and res["auto"][2] == 1 and abs(good["pallas"] - good["auto"])
           <= 0.03 and agree >= 0.5)
     log(f" per-iteration route: {res['pallas'][1]} fused_vb_iter launches "
-        f"(want {ITERS}); fit within 3 sd {good['pallas']:.5f} vs "
-        f"whole-loop {good['auto']:.5f} (bound |diff| <= 0.03); sorted "
+        f"(want {ITERS}), {res['pallas'][4]} staged; fit within 3 sd "
+        f"{good['pallas']:.5f} vs whole-loop {good['auto']:.5f} (bound "
+        f"|diff| <= 0.03); sorted "
         f"parameters agree in {agree:.5f} (bound >= 0.5) "
         f"{'ok' if ok else 'FAIL'}")
     return ok, res["pallas"][1]
@@ -697,12 +703,12 @@ def best_ms(fn, reps=3, keep=False):
 
 
 def time_forms(run, reps=3):
-    """Kernels 6 and 8 in their two forms (csrc/tile.cuh) on the same
-    inputs: run(vb) launches with the plan's form (vb None: staged at
-    T=100) or the streamed one (vb 0), timed in turns (streamed, staged,
-    staged, streamed; each best of reps after a warm-up). Returns (staged
-    ms, streamed ms, the last staged result, the last streamed
-    result)."""
+    """Kernels 4, 6, 7 and 8 in their two forms (csrc/tile.cuh) on the
+    same inputs: run(vb) launches with the plan's form (vb None: staged
+    at T=100 and 106) or the streamed one (vb 0), timed in turns
+    (streamed, staged, staged, streamed; each best of reps after a
+    warm-up). Returns (staged ms, streamed ms, the last staged result,
+    the last streamed result)."""
     t, res = {None: [], 0: []}, {}
     for vb in (0, None, None, 0):
         ms, res[vb] = best_ms(lambda: run(vb), reps=reps, keep=True)
@@ -729,7 +735,7 @@ def ptxas_entry(text, *parts):
 
 
 def log_forms(name, nt, nq, occ, ptx):
-    """One line per kernel of phases 5b, 5c, 5e, 5g: the plan
+    """One line per kernel of phases 5b, 5c, 5d, 5e, 5g: the plan
     (ops/_cuda.py tile_plan), the blocks per SM of each form (occ(vb),
     cudaOccupancyMaxActiveBlocksPerMultiprocessor) and ptxas's registers
     and spills of each form (ptx(staged))."""
@@ -806,10 +812,11 @@ def time_headline(device, card, nv=16_777_216):
 def time_biexp(device, card, nv=4_000_000):
     """Phase 5b: the nonlinear kernels, their plain versions, a copy
     probe and the whole engine run at bench.py's biexp size (4,000,000
-    voxels, T=100, P=4), data made on the card; kernel 6 in its staged
-    and streamed forms (time_forms), with their plan, occupancy and
-    registers, and whether their outputs agree bit for bit (nvcc
-    contracts multiply-adds in kernel 6, so they need not)."""
+    voxels, T=100, P=4), data made on the card; kernels 6 and 7 in their
+    staged and streamed forms (time_forms), with their plan, occupancy
+    and registers, and whether their outputs agree bit for bit (nvcc
+    contracts multiply-adds in these kernels, so they need not; kernel
+    7's forms must, phase 5b fails otherwise)."""
     import torch
     from fabber_core_tpu_torch.ops import _cuda
     from fabber_core_tpu_torch.ops import fused_loop_nl as fl
@@ -838,8 +845,15 @@ def time_biexp(device, card, nv=4_000_000):
     del ks, kt
     fig["nl_loop_plain_ms"] = best_ms(
         lambda: fl.fused_nl_loop_plain(ts, tr, *args, ITERS, True))
-    fig["vb_iter_ms"] = best_ms(lambda: fv.fused_iteration(eng.model, tr,
-                                                           *it_args))
+    fig["vb_iter_ms"], fig["vb_iter_streamed_ms"], ks, kt = time_forms(
+        lambda vb: fv.fused_iteration(eng.model, tr, *it_args, _vb=vb))
+    fig["vb_iter_staged_bits_equal_streamed"] = bits_equal(ks, kt)
+    fig["vb_iter_forms"] = log_forms(
+        "fused_vb_iter ExpSum<2> Q=1 LM=0", BI_NT, 1,
+        lambda vb: _cuda.vb_iter_occupancy(1, 4, 1, False, vb, BI_NT),
+        lambda st: ptxas_entry(_cuda.build_log, "fused_vb_iter_kernel",
+                               f"ExpSumILi2EEELi1ELb0ELb{int(st)}E"))
+    del ks, kt
     fig["vb_iter_plain_ms"] = best_ms(
         lambda: fv.fused_iteration_plain(ts, tr, *it_args))
     dst = torch.empty_like(plane)
@@ -1305,7 +1319,8 @@ def run_poly_trialmode_path(device, shape=(128, 128, 64)):
 def check_per_iteration_lm(device, nv=65_536):
     """Phase 4h: the per-iteration route under lm (engine-kernel=pallas,
     biexp, 65,536 voxels): kernel 7 launched with its LM branch once
-    per iteration of the engine's while loop, and the result against
+    per iteration of the engine's while loop, each in its staged form,
+    and the result against
     the whole-loop route under lm on the same data, held as phase 4e."""
     import torch
     from fabber_core_tpu_torch.ops import fused_loop_nl as fl
@@ -1319,22 +1334,26 @@ def check_per_iteration_lm(device, nv=65_536):
                         {"engine-kernel": mode, "convergence": "lm"})
         fl.fused_nl_loop.launches = fl.fused_nl_loop.det_launches = 0
         fv.fused_iteration.launches = fv.fused_iteration.lm_launches = 0
+        fv.fused_iteration.staged_launches = 0
         r = eng.run()
         res[mode] = (eng.route, fv.fused_iteration.lm_launches,
                      fv.fused_iteration.launches,
                      fl.fused_nl_loop.det_launches,
                      torch.as_tensor(r.means.T.copy(), device=device),
-                     r.iterations, eng.max_iter_cap)
+                     r.iterations, eng.max_iter_cap,
+                     fv.fused_iteration.staged_launches)
     good = {m: fit_quality(eng.model, eng._transforms(), res[m][4],
                            clean)[0] for m in res}
     agree = canonical_close(res["pallas"][4], res["auto"][4])
     n_lm = res["pallas"][1]
     ok = (res["pallas"][0] == "pallas" and n_lm == res["pallas"][2]
+          and n_lm == res["pallas"][7]
           and 1 <= n_lm <= res["pallas"][6] and res["auto"][3] == 1
           and res["auto"][0] == "pallas-loop-nl"
           and abs(good["pallas"] - good["auto"]) <= 0.03 and agree >= 0.5)
     log(f" per-iteration route under lm: {n_lm} fused_vb_iter launches, "
-        f"all with the LM branch (one per iteration of the engine's while "
+        f"all with the LM branch, {res['pallas'][7]} staged (one per "
+        f"iteration of the engine's while "
         f"loop, cap {res['pallas'][6]}); iterations "
         f"{its_histogram(res['pallas'][5])}; fit within 3 sd "
         f"{good['pallas']:.5f} vs whole-loop {good['auto']:.5f} (bound "
@@ -1377,8 +1396,10 @@ def time_detectors(device, card, fig, fig_nl, nv_poly=16_777_216,
     under trialmode. The iteration histograms are the kernels' own (the
     last timed launch), the plain version's beside them; the pass counts
     behind the bounds are the plain version's. fused_nl_loop's detector
-    modes in their staged and streamed forms (time_forms); MODE 1's plan
-    and registers logged beside. Returns (ok, figures)."""
+    modes and fused_vb_iter's LM branch in their staged and streamed
+    forms (time_forms; fused_vb_iter's forms bit for bit, else the phase
+    fails); MODE 1's plan and registers logged beside. Returns (ok,
+    figures)."""
     import torch
     from fabber_core_tpu_torch.ops import _cuda
     from fabber_core_tpu_torch.ops import fused_loop_nl as fl
@@ -1486,8 +1507,17 @@ def time_detectors(device, card, fig, fig_nl, nv_poly=16_777_216,
     lat = torch.log(truth).contiguous()
     alpha = torch.full((nv_bi,), 1e-3, device=device)
     it_args = (lat, args[1], args[2], phi, args[3], args[4], True)
-    out["vb_iter_lm_ms"] = best_ms(lambda: fv.fused_iteration(
-        eng.model, tr, *it_args, alpha))
+    out["vb_iter_lm_ms"], out["vb_iter_lm_streamed_ms"], ks, kt = \
+        time_forms(lambda vb: fv.fused_iteration(eng.model, tr, *it_args,
+                                                 alpha, _vb=vb))
+    out["vb_iter_lm_staged_bits_equal_streamed"] = bits_equal(ks, kt)
+    ok &= out["vb_iter_lm_staged_bits_equal_streamed"]
+    out["vb_iter_lm_forms"] = log_forms(
+        "fused_vb_iter ExpSum<2> Q=1 LM=1", BI_NT, 1,
+        lambda vb: _cuda.vb_iter_occupancy(1, 4, 1, True, vb, BI_NT),
+        lambda st: ptxas_entry(_cuda.build_log, "fused_vb_iter_kernel",
+                               f"ExpSumILi2EEELi1ELb1ELb{int(st)}E"))
+    del ks, kt
     out["vb_iter_lm_plain_ms"] = best_ms(lambda: fv.fused_iteration_plain(
         eng.model.time_signal_jac, tr, *it_args, alpha), reps=1)
     vb_ops = (nl_pass_ops(4, 1, 2, "A") + nl_pass_ops(4, 1, 2, "B")
@@ -1750,11 +1780,13 @@ def launch_counts():
             "fused_whole": fw.fused_whole.launches,
             "fused_whole:detector": fw.fused_whole.det_launches,
             "fused_whole:lm": fw.fused_whole.lm_launches,
+            "fused_whole:staged": fw.fused_whole.staged_launches,
             "fused_vb_loop": fl.fused_vb_loop.launches,
             "fused_nl_loop": fnl.fused_nl_loop.launches,
             "fused_nl_loop:generic": fnl.fused_nl_loop.generic_launches,
             "fused_nl_loop:staged": fnl.fused_nl_loop.staged_launches,
-            "fused_vb_iter": fv.fused_iteration.launches}
+            "fused_vb_iter": fv.fused_iteration.launches,
+            "fused_vb_iter:staged": fv.fused_iteration.staged_launches}
 
 
 def reset_launches():
@@ -1770,10 +1802,12 @@ def reset_launches():
         f.launches = 0
     fs.spectral_core.det_launches = fs.spectral_fused.det_launches = 0
     fw.fused_whole.det_launches = fw.fused_whole.lm_launches = 0
+    fw.fused_whole.staged_launches = 0
     fnl.fused_nl_loop.det_launches = 0
     fnl.fused_nl_loop.generic_launches = 0
     fnl.fused_nl_loop.staged_launches = 0
     fv.fused_iteration.lm_launches = 0
+    fv.fused_iteration.staged_launches = 0
     fn.fused_nlls_loop.resume_launches = 0
     fn.fused_nlls_loop.marquardt_launches = 0
     fn.fused_nlls_loop.staged_launches = 0
@@ -1848,13 +1882,15 @@ def run_pattern_paths(device, shape=(128, 128, 64)):
     """Phases 4i, 4j, 4l on one 128x128x64 x 106 volume with the noise
     pattern 12 (make_pattern_volume), each through run_with_data:
       4i  float32 (auto: the whole-program kernel): fused_whole launched
-          once and no spectral kernel; in every voxel the posterior
-          means within 1e-2 posterior sd of the float64 run (the 'xla'
-          route, plain torch on the card, no kernel launched), the std
-          and both groups' noise within 1e-2 relative; both groups'
+          once, in its staged form, and no spectral kernel; in every
+          voxel the posterior means within 1e-2 posterior sd of the
+          float64 run (the 'xla' route, plain torch on the card, no
+          kernel launched), the std and both groups' noise within 1e-2
+          relative; both groups'
           median noise sd within 5% of the truth (0.1, 0.2);
       4j  --convergence=trialmode (kernel 4's detector mode, launched
-          once) and --convergence=lm (its lm mode, launched once), each
+          once, staged) and --convergence=lm (its lm mode, launched once,
+          staged), each
           at float32 and at float64 ('xla', no kernel), held by
           detector_against_f64;
       4l  --engine-kernel=pallas-loop (kernel 5, launched once, from
@@ -1869,7 +1905,8 @@ def run_pattern_paths(device, shape=(128, 128, 64)):
     log("phase 4i: run_with_data, noise-pattern=12")
     run, res, eng, n32, _ = api_run(device, PATTERN_OPTIONS, vol)
     launches["fused_whole"] = n32.get("fused_whole", 0)
-    ok &= (eng.route == "pallas-whole" and n32 == {"fused_whole": 1})
+    ok &= (eng.route == "pallas-whole"
+           and n32 == {"fused_whole": 1, "fused_whole:staged": 1})
     _, r64, eng64, n64, _ = api_run(device, {**PATTERN_OPTIONS,
                                              "dtype": "double"}, vol)
     ok &= eng64.route == "xla" and not n64
@@ -1886,7 +1923,8 @@ def run_pattern_paths(device, shape=(128, 128, 64)):
     for kind in ("trialmode", "lm"):
         opts = {**PATTERN_OPTIONS, "convergence": kind}
         _, rd, engd, nd, _ = api_run(device, opts, vol)
-        want = {"fused_whole": 1, "fused_whole:detector": 1}
+        want = {"fused_whole": 1, "fused_whole:detector": 1,
+                "fused_whole:staged": 1}
         if kind == "lm":
             want["fused_whole:lm"] = 1
             launches["fused_whole:lm"] = nd.get("fused_whole:lm", 0)
@@ -1965,7 +2003,10 @@ def whole_ops(p, nq, iters, det=False):
 def time_fixed_design(device, card, fig, nv=16_777_216):
     """Phase 5d at 16,777,216 voxels, T=106, P=3, on a plane made on the
     card: kernel 4 in maxits at Q=1 and Q=2, under trialmode at Q=2 and
-    lm at Q=1; kernel 5 at Q=2 with make_design_stats's time beside it;
+    lm at Q=1, each in its staged and streamed forms (time_forms; every
+    pair bit for bit, or the phase fails) with their plan, occupancy
+    and registers (log_forms); kernel 5 at Q=2 with make_design_stats's
+    time beside it;
     kernel 3 beside the split pair (phase 5); VBInference.run() of poly
     with noise-pattern 12. CUDA events, best of 3 after a warm-up; the
     plain versions best of 1 after a warm-up. Detector bounds count the
@@ -1973,6 +2014,7 @@ def time_fixed_design(device, card, fig, nv=16_777_216):
     import torch
     from fabber_core_tpu_torch.inference.vb import VBInference
     from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.ops import _cuda
     from fabber_core_tpu_torch.ops import fused_loop as fl
     from fabber_core_tpu_torch.ops import fused_spectral as fs
     from fabber_core_tpu_torch.ops import fused_whole as fw
@@ -1985,9 +2027,26 @@ def time_fixed_design(device, card, fig, nv=16_777_216):
     plane = pattern_plane(design, 2, nv, gen, device)
     out_bytes = {nq: 4 * (p + 2 * p * p + 4 * nq) * nv for nq in (1, 2)}
     in_bytes = 4 * NT * nv + 4 * 2 * p * nv
+    same = []
+
+    def forms(tag, nq, mode, run):
+        """Kernel 4's two forms on one input (time_forms), their bit
+        identity and their plan, occupancy and registers (log_forms)."""
+        out[f"{tag}_ms"], out[f"{tag}_streamed_ms"], ks, kt = time_forms(run)
+        out[f"{tag}_staged_bits_equal_streamed"] = bits_equal(ks, kt)
+        same.append(out[f"{tag}_staged_bits_equal_streamed"])
+        out[f"{tag}_forms"] = log_forms(
+            f"fused_whole P=3 Q={nq} MODE {mode} ({tag})", NT,
+            fw.tile_weights(p, nq),
+            lambda vb: _cuda.whole_occupancy(p, nq, mode, vb, NT),
+            lambda st: ptxas_entry(_cuda.build_log, "fused_whole_kernel",
+                                   f"ILi3ELi{nq}ELi{mode}ELb0ELb{int(st)}E"))
+        return ks
+
     for nq in (1, 2):
         args = whole_inputs(design, group_masks(nq), plane, device)
-        out[f"whole_q{nq}_ms"] = best_ms(lambda: fw.fused_whole(*args, ITERS))
+        forms(f"whole_q{nq}", nq, 0,
+              lambda vb: fw.fused_whole(*args, ITERS, _vb=vb))
         out[f"whole_q{nq}_plain_ms"] = best_ms(
             lambda: fw.fused_whole_plain(*args, ITERS), reps=1)
         out[f"whole_q{nq}_bound"] = bound(
@@ -1995,8 +2054,8 @@ def time_fixed_design(device, card, fig, nv=16_777_216):
     for kind, nq in (("trialmode", 2), ("lm", 1)):
         args = whole_inputs(design, group_masks(nq), plane, device)
         det, cap = whole_detector(kind, p, nq)
-        out[f"whole_{kind}_ms"], k = best_ms(
-            lambda: fw.fused_whole(*args, cap, -1.0, det), keep=True)
+        k = forms(f"whole_{kind}", nq, 2, lambda vb: fw.fused_whole(
+            *args, cap, -1.0, det, _vb=vb))
         out[f"whole_{kind}_its"] = its_histogram(k[6][0].cpu().numpy())
         del k
         counter = trip_counter(det["det"])
@@ -2064,6 +2123,7 @@ def time_fixed_design(device, card, fig, nv=16_777_216):
         log(f" {k} = {v!r}  [V={nv} T={NT} P={p}; {card}]")
     log(f" beside: the split pair spectral_stats + spectral_core "
         f"{fig['stats_ms']!r} + {fig['core_ms']!r} ms (phase 5)")
+    out["whole_forms_bit_identical"] = all(same)
     return out
 
 
@@ -2363,8 +2423,8 @@ def run_nlls_vb_flow(device, shape=(32, 32, 16)):
     dtype=single: method=nlls with save-mvn (kernel 8), then VB
     --convergence=trialmode (max-iterations 30) from its finalMVN with
     continue-from-mvn and continue-from-params (the VB route the JAX
-    gates give a continued run: 'pallas', kernel 7 once per iteration;
-    kernel 6 not at all). Bounds, that test's: the VB total amplitude
+    gates give a continued run: 'pallas', kernel 7 once per iteration,
+    staged; kernel 6 not at all). Bounds, that test's: the VB total amplitude
     amp1 + amp2 within 0.25 of 1.5 a1 in every voxel and within 0.08 on
     average; NLLS's within 0.2 on average. Returns (ok, launches)."""
     from pathlib import Path
@@ -2400,7 +2460,8 @@ def run_nlls_vb_flow(device, shape=(32, 32, 16)):
     err_nlls = np.abs(nlls.data["mean_amp1"] + nlls.data["mean_amp2"]
                       - 1.5 * a1)
     ok = (n_nlls.get("fused_nlls", 0) == 2 and eng.route == "pallas"
-          and set(n_vb) == {"fused_vb_iter"}
+          and set(n_vb) == {"fused_vb_iter", "fused_vb_iter:staged"}
+          and n_vb["fused_vb_iter:staged"] == n_vb["fused_vb_iter"]
           and 1 <= n_vb["fused_vb_iter"] <= eng.max_iter_cap
           and float(err.max()) <= 0.25 and float(err.mean()) < 0.08
           and float(err_nlls.mean()) < 0.2)
@@ -3474,7 +3535,10 @@ def main():
               "linear_path": ok4k, "nlls_kernels": ok3e, "nlls_path": ok4m,
               "nlls_vb_flow": ok4n, "nlls_linear_path": ok4o,
               "ar_kernels": ok3f, "ar_paths": ok4p, "generic_kernels": ok3g,
-              "plugin_paths": ok4q, "nlls_forms_bit_identical": ok5e}
+              "plugin_paths": ok4q, "nlls_forms_bit_identical": ok5e,
+              "vb_iter_forms_bit_identical":
+                  fig_nl["vb_iter_staged_bits_equal_streamed"],
+              "whole_forms_bit_identical": fig_fd["whole_forms_bit_identical"]}
     if not all(phases.values()):
         log(f"FAILED phases: {[k for k, v in phases.items() if not v]}")
         return 1

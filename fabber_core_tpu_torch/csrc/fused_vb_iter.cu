@@ -22,14 +22,30 @@
 //           tr(Sigma J'Q_qJ) for the phi update (assembled in torch);
 //   pass C  (need_f) k'Q_qk and tr(Sigma J'Q_qJ) at the new means.
 // The TPU kernel stages J and r for pass B in VMEM scratch. Here that
-// would be (P+1)*T*4 bytes per voxel (2 KB at biexp, T=100: 256 KB for
-// a 128-thread block, more than a block's shared memory), so pass B
+// would be (P+1)*T*4 bytes per voxel (2 KB at biexp, T=100: 64 KB for a
+// one-warp block, which would leave three blocks per SM), so pass B
 // re-evaluates the model at the centre instead: the same code on the
 // same inputs gives the same J and r as pass A, and k is formed
-// explicitly, as the plain version (and the TPU kernel) does.
+// explicitly, as the plain version (and the TPU kernel) does (the
+// expansion r'Qr + 2d'J'Qr + d'J'QJd would cancel in float32 when the
+// step is large).
 //
-// What bounds it on this card: 2 or 3 coalesced reads of the voxel's
-// data column (4*T bytes each) and 2 or 3 model evaluations per sample.
+// Design for this card (tile.cuh): each pass reads the voxel's data
+// column, 2 or 3 reads of 4*T bytes, and at 4,000,000 voxels the 1.6 GB
+// plane is 32x the 50 MB L2, so a streamed pass goes to HBM every time
+// and each sample waits on one dependent load. The staged form (template
+// STAGED) copies the block's [T, VB] tile and the [T, Q] group weights
+// into shared memory once with cp.async; passes A, B and C read them
+// there, so HBM sees the plane once. ops/_cuda.py tile_plan stages in
+// one-warp blocks (VB = 32) where at least five fit an SM (T=100: 13,200
+// B, 16 blocks per SM), else the streamed form (blocks of 128, the plane
+// in global memory) serves. Each pass is one function for both forms
+// (a Column, tile.cuh), so the two forms run the same arithmetic in the
+// same order. What bounds the staged form is instruction throughput: per
+// sample 2 or 3 model evaluations (NEXP expf each for exp-sum models) and
+// Q*(P(P+1)/2 + P + 1) multiply-adds in pass A (biexp at 4,000,000
+// voxels on an NVIDIA H100 80GB HBM3, chip_smoke.py phase 5b: 2.70 ms
+// staged, 4.28 streamed).
 
 #include "vb_device.cuh"
 
@@ -39,7 +55,73 @@ using namespace fabber;
 
 constexpr int kThreads = 128;
 
-template <class M, int Q, bool LM>
+// pass A at the centre (model rows mrow, chain factors chain): per group
+// J'Q_qJ (packed) and J'Q_q r, r = y - g(centre), samples and [T,Q]
+// weights read through col (tile.cuh)
+template <class M, int Q, class C>
+__device__ __forceinline__ void jac_pass(
+    const float* mrow, const float* chain, float dt, const C& col, int nt,
+    float (&jtj)[Q][M::P * (M::P + 1) / 2], float (&jtr)[Q][M::P]) {
+  constexpr int P = M::P, NT = P * (P + 1) / 2;
+  float unused[Q];
+  zero_sums<P, Q>(jtj, jtr, unused);
+  // two-level sums: kTB samples into block sums, blocks into the totals
+  for (int t0 = 0; t0 < nt; t0 += kTB) {
+    float bjtj[Q][NT], bjtr[Q][P], bunused[Q];
+    zero_sums<P, Q>(bjtj, bjtr, bunused);
+    const int t1 = min(t0 + kTB, nt);
+    for (int t = t0; t < t1; ++t) {
+      float jac[P];
+      const float sig = eval_latent<M>(mrow, chain, (float)t, dt, jac);
+      const float r = col.sample(t) - sig;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const float w = col.weight(t * Q + q);
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+          const float wj = w * jac[i];
+#pragma unroll
+          for (int j = 0; j <= i; ++j)
+            bjtj[q][tri(i, j)] = bjtj[q][tri(i, j)] + wj * jac[j];
+          bjtr[q][i] = bjtr[q][i] + wj * r;
+        }
+      }
+    }
+    add_sums<P, Q>(jtj, jtr, unused, bjtj, bjtr, bunused);
+  }
+}
+
+// pass B at the centre: per group k'Q_qk with k = r + J d, d = centre -
+// means, formed explicitly (the model re-evaluated as in pass A)
+template <class M, int Q, class C>
+__device__ __forceinline__ void k_pass(const float* mrow, const float* chain,
+                                       float dt, const float* d, const C& col,
+                                       int nt, float* nkqk) {
+  constexpr int P = M::P;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) nkqk[q] = 0.f;
+  for (int t0 = 0; t0 < nt; t0 += kTB) {
+    float bk[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) bk[q] = 0.f;
+    const int t1 = min(t0 + kTB, nt);
+    for (int t = t0; t < t1; ++t) {
+      float jac[P];
+      const float sig = eval_latent<M>(mrow, chain, (float)t, dt, jac);
+      float kk = col.sample(t) - sig;
+#pragma unroll
+      for (int i = 0; i < P; ++i) kk = kk + jac[i] * d[i];
+      const float k2 = kk * kk;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) bk[q] = bk[q] + col.weight(t * Q + q) * k2;
+    }
+#pragma unroll
+    for (int q = 0; q < Q; ++q) nkqk[q] = nkqk[q] + bk[q];
+  }
+}
+
+// STAGED: the passes read the block's shared tile (tile.cuh)
+template <class M, int Q, bool LM, bool STAGED>
 __global__ void __launch_bounds__(kThreads)
 fused_vb_iter_kernel(const VBParams k, const float* __restrict__ centre_in,
                      const float* __restrict__ pm_in,
@@ -58,6 +140,10 @@ fused_vb_iter_kernel(const VBParams k, const float* __restrict__ centre_in,
   constexpr int P = M::P, NT = P * (P + 1) / 2;
   const long long V = k.V;
   const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  // every thread of the block takes part in the staging copy and its
+  // barrier, those past V included, before any leaves
+  const Column<STAGED> col =
+      stage_column<STAGED>(data, qw, k.nt, k.nt * Q, V, v);
   if (v >= V) return;
 
   float centre[P], pm[P], pp[P], phi[Q];
@@ -73,32 +159,8 @@ fused_vb_iter_kernel(const VBParams k, const float* __restrict__ centre_in,
   // ---- pass A: J'Q_qJ, J'Q_q r at the centre ----------------------------
   float mrow[P], chain[P];
   model_rows<P>(k.tcode, centre, mrow, chain);
-  float jtj[Q][NT], jtr[Q][P], unused[Q];
-  zero_sums<P, Q>(jtj, jtr, unused);
-  // two-level sums: kTB samples into block sums, blocks into the totals
-  for (int t0 = 0; t0 < k.nt; t0 += kTB) {
-    float bjtj[Q][NT], bjtr[Q][P], bunused[Q];
-    zero_sums<P, Q>(bjtj, bjtr, bunused);
-    const int t1 = min(t0 + kTB, k.nt);
-    for (int t = t0; t < t1; ++t) {
-      float jac[P];
-      const float sig = eval_latent<M>(mrow, chain, (float)t, k.dt, jac);
-      const float r = data[(size_t)t * V + v] - sig;
-#pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        const float w = __ldg(qw + t * Q + q);
-#pragma unroll
-        for (int i = 0; i < P; ++i) {
-          const float wj = w * jac[i];
-#pragma unroll
-          for (int j = 0; j <= i; ++j)
-            bjtj[q][tri(i, j)] = bjtj[q][tri(i, j)] + wj * jac[j];
-          bjtr[q][i] = bjtr[q][i] + wj * r;
-        }
-      }
-    }
-    add_sums<P, Q>(jtj, jtr, unused, bjtj, bjtr, bunused);
-  }
+  float jtj[Q][NT], jtr[Q][P];
+  jac_pass<M, Q>(mrow, chain, k.dt, col, k.nt, jtj, jtr);
 
   // ---- solve (Eq 19/20) --------------------------------------------------
   float prec[NT], cov[NT], means[P], ch[NT];
@@ -131,26 +193,7 @@ fused_vb_iter_kernel(const VBParams k, const float* __restrict__ centre_in,
 #pragma unroll
   for (int i = 0; i < P; ++i) d[i] = centre[i] - means[i];
   float nkqk[Q];
-#pragma unroll
-  for (int q = 0; q < Q; ++q) nkqk[q] = 0.f;
-  for (int t0 = 0; t0 < k.nt; t0 += kTB) {
-    float bk[Q];
-#pragma unroll
-    for (int q = 0; q < Q; ++q) bk[q] = 0.f;
-    const int t1 = min(t0 + kTB, k.nt);
-    for (int t = t0; t < t1; ++t) {
-      float jac[P];
-      const float sig = eval_latent<M>(mrow, chain, (float)t, k.dt, jac);
-      float kk = data[(size_t)t * V + v] - sig;
-#pragma unroll
-      for (int i = 0; i < P; ++i) kk = kk + jac[i] * d[i];
-      const float k2 = kk * kk;
-#pragma unroll
-      for (int q = 0; q < Q; ++q) bk[q] = bk[q] + __ldg(qw + t * Q + q) * k2;
-    }
-#pragma unroll
-    for (int q = 0; q < Q; ++q) nkqk[q] = nkqk[q] + bk[q];
-  }
+  k_pass<M, Q>(mrow, chain, k.dt, d, col, k.nt, nkqk);
 
 #pragma unroll
   for (int i = 0; i < P; ++i) means_out[(size_t)i * V + v] = means[i];
@@ -160,8 +203,7 @@ fused_vb_iter_kernel(const VBParams k, const float* __restrict__ centre_in,
   // ---- pass C: free-energy quadratics at the new means ------------------
   float fkqk[Q], ftr[Q];
   if (k.need_f) {
-    f_pass<M, Q>(k.tcode, k.dt, means, cov, Column<false>{data, qw, V, v},
-                 k.nt, fkqk, ftr);
+    f_pass<M, Q>(k.tcode, k.dt, means, cov, col, k.nt, fkqk, ftr);
   } else {
 #pragma unroll
     for (int q = 0; q < Q; ++q) fkqk[q] = ftr[q] = 0.f;
@@ -177,20 +219,50 @@ fused_vb_iter_kernel(const VBParams k, const float* __restrict__ centre_in,
 
 // ---- launch and C entry point -------------------------------------------
 
-template <class M, int Q>
-int launch(const VBParams& k, const float* const* ins, float* const* outs,
-           cudaStream_t stream) {
-  const unsigned grid = (unsigned)((k.V + kThreads - 1) / kThreads);
-  if (ins[6] == nullptr) {
-    fused_vb_iter_kernel<M, Q, false><<<grid, kThreads, 0, stream>>>(
-        k, ins[0], ins[1], ins[2], ins[3], ins[4], ins[5], ins[6], outs[0],
-        outs[1], outs[2], outs[3], outs[4], outs[5], outs[6]);
-  } else {
-    fused_vb_iter_kernel<M, Q, true><<<grid, kThreads, 0, stream>>>(
-        k, ins[0], ins[1], ins[2], ins[3], ins[4], ins[5], ins[6], outs[0],
-        outs[1], outs[2], outs[3], outs[4], outs[5], outs[6]);
+// the dynamic shared memory of vb (0: streamed) at nt samples and Q
+// groups, -1 where it is refused (tile.cuh tile_bytes)
+inline long long iter_smem(int vb, int nt, int q) {
+  return vb == 0 ? 0 : tile_bytes(vb, nt, nt * q, kThreads);
+}
+
+// One instance's launch, or (occ not null) its blocks per SM: vb = 0
+// streams in blocks of kThreads, vb > 0 stages in blocks of vb lanes with
+// smem bytes of dynamic shared memory.
+template <class M, int Q, bool LM, bool STAGED>
+int launch_form(const VBParams& k, int vb, long long smem,
+                const float* const* ins, float* const* outs,
+                cudaStream_t stream, int* occ) {
+  const auto kernel = fused_vb_iter_kernel<M, Q, LM, STAGED>;
+  const int threads = STAGED ? vb : kThreads;
+  const int err = tile_setup(kernel, STAGED ? vb : 0, smem);
+  if (err != 0) return err;
+  if (occ != nullptr) {
+    *occ = tile_occupancy(kernel, threads, smem);
+    return 0;
   }
+  const unsigned grid = (unsigned)((k.V + threads - 1) / threads);
+  kernel<<<grid, threads, smem, stream>>>(
+      k, ins[0], ins[1], ins[2], ins[3], ins[4], ins[5], ins[6], outs[0],
+      outs[1], outs[2], outs[3], outs[4], outs[5], outs[6]);
   return (int)cudaGetLastError();
+}
+
+template <class M, int Q, bool LM>
+int launch_lm(const VBParams& k, int vb, long long smem,
+              const float* const* ins, float* const* outs,
+              cudaStream_t stream, int* occ) {
+  if (vb > 0)
+    return launch_form<M, Q, LM, true>(k, vb, smem, ins, outs, stream, occ);
+  return launch_form<M, Q, LM, false>(k, 0, 0, ins, outs, stream, occ);
+}
+
+// lm: the LM branch (alpha given); occ: see launch_form
+template <class M, int Q>
+int launch(const VBParams& k, bool lm, int vb, long long smem,
+           const float* const* ins, float* const* outs, cudaStream_t stream,
+           int* occ = nullptr) {
+  if (lm) return launch_lm<M, Q, true>(k, vb, smem, ins, outs, stream, occ);
+  return launch_lm<M, Q, false>(k, vb, smem, ins, outs, stream, occ);
 }
 
 }  // namespace
@@ -200,15 +272,20 @@ int launch(const VBParams& k, const float* const* ins, float* const* outs,
 // qw [nt,q]; alpha [V], the lm detector's damping, or null for the
 // plain iteration (device). Outputs (device, preallocated): means [p,V],
 // prec [p,p,V], cov [p,p,V], nkqk, ntr, fkqk, ftr [q,V] (the last two
-// zero when need_f is 0).
+// zero when need_f is 0). vb: 0 streams the plane; > 0 stages it in
+// blocks of vb lanes (a multiple of 32, at most 128, with 4 (nt vb + nt q)
+// bytes of shared memory at most 232,448; ops/_cuda.py tile_plan); other
+// values return cudaErrorInvalidValue.
 extern "C" int fabber_fused_vb_iter(
     int kind, int p, int q, const int* tcodes_host, float dt, int need_f,
     const float* centre, const float* pm, const float* pp, const float* phi,
     const float* data, const float* qw, const float* alpha, int nt,
     long long V, float* means,
     float* prec, float* cov, float* nkqk, float* ntr, float* fkqk,
-    float* ftr, void* stream) {
-  if (p < 1 || p > kMaxP || q < 1 || q > kMaxQ || nt < 1 || V < 1)
+    float* ftr, int vb, void* stream) {
+  const long long smem = iter_smem(vb, nt, q);
+  if (p < 1 || p > kMaxP || q < 1 || q > kMaxQ || nt < 1 || V < 1 ||
+      smem < 0)
     return (int)cudaErrorInvalidValue;
   VBParams k = {};
   for (int i = 0; i < p; ++i) k.tcode[i] = tcodes_host[i];
@@ -221,8 +298,28 @@ extern "C" int fabber_fused_vb_iter(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FABBER_LAUNCH(KIND, NP, MODEL, NQ) \
   if (kind == KIND && p == NP && q == NQ)  \
-    return launch<MODEL, NQ>(k, ins, outs, s);
+    return launch<MODEL, NQ>(k, alpha != nullptr, vb, smem, ins, outs, s);
   FABBER_NL_INSTANCES(FABBER_LAUNCH)
 #undef FABBER_LAUNCH
   return (int)cudaErrorInvalidValue;
+}
+
+// Blocks per SM of the (kind, p, q) instance, with (lm 1) or without its
+// LM branch, in the form vb selects (fabber_fused_vb_iter's vb) at nt
+// samples; -1 where the arguments are refused or the CUDA call fails.
+extern "C" int fabber_vb_iter_occupancy(int kind, int p, int q, int lm,
+                                        int vb, int nt) {
+  const long long smem = iter_smem(vb, nt, q);
+  if (smem < 0) return -1;
+  VBParams k = {};
+  int occ = 0;
+#define FABBER_OCC(KIND, NP, MODEL, NQ)                                  \
+  if (kind == KIND && p == NP && q == NQ)                                \
+    return launch<MODEL, NQ>(k, lm != 0, vb, smem, nullptr, nullptr,     \
+                             nullptr, &occ) == 0                         \
+               ? occ                                                     \
+               : -1;
+  FABBER_NL_INSTANCES(FABBER_OCC)
+#undef FABBER_OCC
+  return -1;
 }

@@ -27,7 +27,8 @@
 //   pass 2  about r0 = y - D m0: rtqr_q = sum_t q_q r0^2,
 //           dtqr_{q,a} = sum_t DW_q[a,t] r0
 // The (P + QP + Q) x T rows (D, DW_q = D*q_q, q_q) are staged in shared
-// memory once per block. Then, with D'Q_qy = dtqr_q + D'Q_qD m0, each
+// memory once per block (below: the staged form copies the data tile
+// beside them). Then, with D'Q_qy = dtqr_q + D'Q_qD m0, each
 // iteration (fused_loop.py:257-305, fused_whole.py:449-553):
 //   theta   prec = sum_q phi_q D'Q_qD + diag(pp), jitter-retry Cholesky,
 //           cov, means = cov (sum_q phi_q D'Q_qy + pp pm); lm where
@@ -57,13 +58,32 @@
 // and the tile-wide early exit (each thread leaves its own loop).
 //
 // What bounds it on this card: kernel 4 reads the [T,V] data, 4*T bytes
-// per voxel, and writes (2P^2 + P + 4Q)*4 bytes; it re-reads the column
-// in pass 2 (from L2 where still resident), as spectral_stats.cu does.
-// Per iteration the arithmetic is a P x P Cholesky, inverse and a few
-// Q*P^2 products, ~200-400 operations at P=3, so with the maxits 10
-// iterations it stays below the bytes bound; a detector mode's warp runs
-// to its slowest lane. Kernel 5 reads (P + Q + QP + 2P)*4 bytes of
-// statistics and priors and writes the posterior.
+// per voxel, and writes (2P^2 + P + 4Q)*4 bytes. Per iteration the
+// arithmetic is a P x P Cholesky, inverse and a few Q*P^2 products,
+// ~200-400 operations at P=3, so with the maxits 10 iterations it stays
+// below the bytes bound; a detector mode's warp runs to its slowest lane.
+// Kernel 5 reads (P + Q + QP + 2P)*4 bytes of statistics and priors and
+// writes the posterior.
+//
+// Design for this card (tile.cuh): the statistics read the voxel's
+// column twice (pass 1 for dty, pass 2 for r0 = y - D m0). Streamed, in
+// blocks of 128 lanes, the column goes to HBM in pass 1 and, once the
+// resident blocks' columns overflow the 50 MB L2, again in pass 2. The
+// staged form (template STAGED) copies the block's [T, VB] tile into
+// shared memory once, with cp.async, beside the design rows (one copy
+// per block, as the tile's weights), and both passes read it there:
+// HBM sees the plane once. ops/_cuda.py tile_plan stages in one-warp
+// blocks (VB = 32) where at least five fit an SM (4 (T VB + (P + QP +
+// Q) T) bytes: 18,232 at T=106, P=3, Q=2: 12 blocks per SM), else the
+// streamed form serves (poly at 16,777,216 voxels on an NVIDIA H100 80GB
+// HBM3, chip_smoke.py phase 5d: maxits 5.51 ms staged against 7.84
+// streamed at Q=1, 7.71 against 9.51 at Q=2). The two forms run the same
+// arithmetic in the same order. Built with -DFABBER_WHOLE_CONST_ROWS
+// (probes/whole_rows.py), the staged form reads the design rows from
+// __constant__ memory instead (a broadcast: every lane of a warp reads
+// the same rows[t]), copied there on the launch's stream, and stages
+// the tile alone: 16 blocks per SM, but maxits at Q=2 ran 4.4x slower
+// there and trialmode 8%, so the rows stay in shared memory.
 
 #include "detectors.cuh"
 #include "vb_device.cuh"
@@ -104,16 +124,20 @@ struct WholeConsts {
 
 #define DTQD(q, i, j) k.dtqd[((q) * P + (i)) * P + (j)]
 
-// Kernel 4's statistics of one voxel from its data column col (stride
-// V) and the staged rows.
-template <int P, int Q>
+#if defined(FABBER_WHOLE_CONST_ROWS)
+// the staged form's design rows (kernel 4), copied by the C entry point
+constexpr int kConstRows = 16000;   // floats (64,000 B)
+__constant__ float c_rows[kConstRows];
+#endif
+
+// Kernel 4's statistics of one voxel from its data column col (tile.cuh:
+// the block's shared tile or the plane) and the design rows.
+template <int P, int Q, class C>
 __device__ __forceinline__ void whole_stats(const WholeConsts& k,
-                                            const float* rows,
-                                            const float* __restrict__ col,
+                                            const float* rows, const C& col,
                                             float* m0, float* rtqr,
                                             float (&dtqr)[Q][P]) {
   const int T = k.nt;
-  const long long V = k.V;
   const float* dcol = rows;                  // [P][T]
   const float* dwq = rows + P * T;           // [Q][P][T]
   const float* qrow = rows + (P + Q * P) * T;  // [Q][T]
@@ -123,7 +147,7 @@ __device__ __forceinline__ void whole_stats(const WholeConsts& k,
   for (int a = 0; a < P; ++a) dty[a] = 0.f;
 #pragma unroll 2
   for (int t = 0; t < T; ++t) {
-    const float y = __ldg(col + (size_t)t * V);
+    const float y = col.sample(t);
 #pragma unroll
     for (int a = 0; a < P; ++a) {
       float w = dwq[a * T + t];
@@ -163,7 +187,7 @@ __device__ __forceinline__ void whole_stats(const WholeConsts& k,
   }
 #pragma unroll 2
   for (int t = 0; t < T; ++t) {
-    float r = __ldg(col + (size_t)t * V);
+    float r = col.sample(t);
 #pragma unroll
     for (int a = 0; a < P; ++a) r = r - dcol[a * T + t] * m0[a];
 #pragma unroll
@@ -292,9 +316,35 @@ __device__ __forceinline__ void whole_step(
   logdet = ld;
 }
 
+// Kernel 4's data column and design rows (col.w). Staged: the block's
+// tile and the rows in dynamic shared memory (tile.cuh; the rows in
+// __constant__ memory with FABBER_WHOLE_CONST_ROWS). Streamed: the plane
+// in global memory and the rows copied into shared memory by the block.
+// Every thread of the block takes part, those past V included.
+template <bool STAGED>
+__device__ __forceinline__ Column<STAGED> whole_column(
+    const float* __restrict__ data, const float* __restrict__ tconsts,
+    int nt, int nrows, long long V, long long v) {
+  if constexpr (STAGED) {
+#if defined(FABBER_WHOLE_CONST_ROWS)
+    Column<true> col = stage_column<true>(data, tconsts, nt, 0, V, v);
+    col.w = c_rows;
+    return col;
+#else
+    return stage_column<true>(data, tconsts, nt, nrows, V, v);
+#endif
+  } else {
+    float* rows = dynamic_smem();
+    for (int i = threadIdx.x; i < nrows; i += blockDim.x) rows[i] = tconsts[i];
+    __syncthreads();
+    return Column<false>{data, rows, V, v};
+  }
+}
+
 // MODE 0: maxits; 1: pointzeroone; 2: trialmode / lm. STATS_IN: kernel 5
-// (statistics read) else kernel 4 (statistics from the data).
-template <int P, int Q, int MODE, bool STATS_IN>
+// (statistics read) else kernel 4 (statistics from the data); STAGED:
+// kernel 4's statistics read the block's shared tile (tile.cuh).
+template <int P, int Q, int MODE, bool STATS_IN, bool STAGED>
 __global__ void __launch_bounds__(kThreads)
 fused_whole_kernel(const WholeConsts k, const float* __restrict__ data,
                    const float* __restrict__ tconsts,
@@ -309,14 +359,12 @@ fused_whole_kernel(const WholeConsts k, const float* __restrict__ data,
                    float* __restrict__ c_out, float* __restrict__ fkqk_out,
                    float* __restrict__ ftr_out) {
   constexpr int NT = P * (P + 1) / 2;
-  extern __shared__ float rows[];   // kernel 4: (P + QP + Q) x T
   const long long V = k.V;
-  if constexpr (!STATS_IN) {
-    const int nrows = (P + Q * P + Q) * k.nt;
-    for (int i = threadIdx.x; i < nrows; i += blockDim.x) rows[i] = tconsts[i];
-    __syncthreads();
-  }
   const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  Column<STAGED> col = {};
+  if constexpr (!STATS_IN)
+    col = whole_column<STAGED>(data, tconsts, k.nt, (P + Q * P + Q) * k.nt,
+                               V, v);
   if (v >= V) return;
 
   float m0[P], rtqr[Q], dtqr[Q][P];
@@ -331,7 +379,7 @@ fused_whole_kernel(const WholeConsts k, const float* __restrict__ data,
         dtqr[q][a] = dtqr_in[(size_t)(q * P + a) * V + v];
     }
   } else {
-    whole_stats<P, Q>(k, rows, data + v, m0, rtqr, dtqr);
+    whole_stats<P, Q>(k, col.w, col, m0, rtqr, dtqr);
   }
   float pm[P], pp[P];
 #pragma unroll
@@ -436,32 +484,72 @@ fused_whole_kernel(const WholeConsts k, const float* __restrict__ data,
 
 // ---- launch and C entry points ------------------------------------------
 
-template <int P, int Q, int MODE, bool STATS_IN>
-int launch_mode(const WholeConsts& k, const float* const* ins,
-                float* const* outs, cudaStream_t stream) {
-  const size_t smem =
-      STATS_IN ? 0 : (size_t)(P + Q * P + Q) * k.nt * sizeof(float);
-  if (smem > 48 * 1024) {
+// Kernel 4's dynamic shared memory at (vb, nt) with nrows design-row
+// floats: streamed (vb 0) the rows; staged the [nt, vb] tile and the rows
+// (the tile alone with FABBER_WHOLE_CONST_ROWS); -1 where refused
+// (tile.cuh tile_bytes, or rows beyond a block's shared memory or the
+// __constant__ array).
+inline long long whole_smem(int vb, int nt, int nrows) {
+  if (vb == 0) {
+    const long long b = 4LL * nrows;
+    return b <= kMaxBlockSmem ? b : -1;
+  }
+#if defined(FABBER_WHOLE_CONST_ROWS)
+  if (nrows > kConstRows) return -1;
+  return tile_bytes(vb, nt, 0, kThreads);
+#else
+  return tile_bytes(vb, nt, nrows, kThreads);
+#endif
+}
+
+// One instance's launch, or (occ not null) its blocks per SM: STAGED in
+// blocks of vb lanes, else blocks of kThreads; smem bytes of dynamic
+// shared memory (raised above the 48 KB default before the launch).
+template <int P, int Q, int MODE, bool STATS_IN, bool STAGED>
+int launch_form(const WholeConsts& k, int vb, long long smem,
+                const float* const* ins, float* const* outs,
+                cudaStream_t stream, int* occ) {
+  const auto kernel = fused_whole_kernel<P, Q, MODE, STATS_IN, STAGED>;
+  const int threads = STAGED ? vb : kThreads;
+  if (STAGED || smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fused_whole_kernel<P, Q, MODE, STATS_IN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const unsigned grid = (unsigned)((k.V + kThreads - 1) / kThreads);
-  fused_whole_kernel<P, Q, MODE, STATS_IN><<<grid, kThreads, smem, stream>>>(
+  if (occ != nullptr) {
+    *occ = tile_occupancy(kernel, threads, smem);
+    return 0;
+  }
+  const unsigned grid = (unsigned)((k.V + threads - 1) / threads);
+  kernel<<<grid, threads, smem, stream>>>(
       k, ins[0], ins[1], ins[2], ins[3], ins[4], ins[5], ins[6], outs[0],
       outs[1], outs[2], outs[3], outs[4], outs[5], outs[6]);
   return (int)cudaGetLastError();
 }
 
+template <int P, int Q, int MODE>
+int launch_mode(const WholeConsts& k, int vb, long long smem,
+                const float* const* ins, float* const* outs,
+                cudaStream_t stream, int* occ) {
+  if (vb > 0)
+    return launch_form<P, Q, MODE, false, true>(k, vb, smem, ins, outs,
+                                                stream, occ);
+  return launch_form<P, Q, MODE, false, false>(k, 0, smem, ins, outs, stream,
+                                               occ);
+}
+
+// kernel 4 in the MODE of its detector (k.d.kind); occ: see launch_form
 template <int P, int Q>
-int launch_whole(const WholeConsts& k, const float* const* ins,
-                 float* const* outs, cudaStream_t stream) {
+int launch_whole(const WholeConsts& k, int vb, long long smem,
+                 const float* const* ins, float* const* outs,
+                 cudaStream_t stream, int* occ = nullptr) {
   switch (k.d.kind) {
-    case kMaxits: return launch_mode<P, Q, 0, false>(k, ins, outs, stream);
+    case kMaxits:
+      return launch_mode<P, Q, 0>(k, vb, smem, ins, outs, stream, occ);
     case kPointZeroOne:
-      return launch_mode<P, Q, 1, false>(k, ins, outs, stream);
-    default: return launch_mode<P, Q, 2, false>(k, ins, outs, stream);
+      return launch_mode<P, Q, 1>(k, vb, smem, ins, outs, stream, occ);
+    default:
+      return launch_mode<P, Q, 2>(k, vb, smem, ins, outs, stream, occ);
   }
 }
 
@@ -506,17 +594,25 @@ extern "C" int fabber_whole_has_instance(int p, int q) {
 // per group, q_g rows), pm, pp [p,V] (device). Outputs (device,
 // preallocated): means [p,V], prec, cov [p,p,V], b, c [q,V]; fkqk, ftr
 // [q,V] (maxits: the last iteration's k'Q_gk and tr(Sigma D'Q_gD)) or
-// [1,V] (detector modes: F and the iteration count).
+// [1,V] (detector modes: F and the iteration count). vb: 0 streams the
+// plane (blocks of 128, the rows in 4 (p + qp + q) nt bytes of shared
+// memory); > 0 stages it in blocks of vb lanes (a multiple of 32, at most
+// 128, with 4 (nt vb + (p + qp + q) nt) bytes of shared memory at most
+// 232,448; ops/_cuda.py tile_plan); other values, or rows beyond a
+// block's shared memory, return cudaErrorInvalidValue.
 extern "C" int fabber_fused_whole(
     int p, int q, int n_iters, float locked_sd, const float* consts_host,
     int det_kind, float det_tol, int det_max_its, int det_max_trials,
     int det_init_save, const float* det_consts_host, const float* data,
     const float* tconsts, int nt, const float* pm, const float* pp,
     long long V, float* means, float* prec, float* cov, float* b, float* c,
-    float* fkqk, float* ftr, void* stream) {
+    float* fkqk, float* ftr, int vb, void* stream) {
   if (p < 1 || p > kWMaxP || q < 1 || q > kWMaxQ || n_iters < 1 || nt < 1 ||
       V < 1 || det_kind < kMaxits || det_kind > kLM || det_kind == kFreduce)
     return (int)cudaErrorInvalidValue;
+  const int nrows = (p + q * p + q) * nt;
+  const long long smem = whole_smem(vb, nt, nrows);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
   WholeConsts k = make_consts(p, q, n_iters, locked_sd, consts_host, nt, V);
   k.d = {det_kind, det_tol, det_max_its, det_max_trials, det_init_save};
   if (det_kind != kMaxits) {
@@ -527,11 +623,42 @@ extern "C" int fabber_fused_whole(
                                pp};
   float* const outs[7] = {means, prec, cov, b, c, fkqk, ftr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#if defined(FABBER_WHOLE_CONST_ROWS)
+  if (vb > 0) {
+    const cudaError_t e = cudaMemcpyToSymbolAsync(
+        c_rows, tconsts, sizeof(float) * nrows, 0, cudaMemcpyDeviceToDevice,
+        s);
+    if (e != cudaSuccess) return (int)e;
+  }
+#endif
 #define FABBER_LAUNCH(NP, NQ) \
-  if (p == NP && q == NQ) return launch_whole<NP, NQ>(k, ins, outs, s);
+  if (p == NP && q == NQ)     \
+    return launch_whole<NP, NQ>(k, vb, smem, ins, outs, s);
   FABBER_WHOLE_INSTANCES(FABBER_LAUNCH)
 #undef FABBER_LAUNCH
   return (int)cudaErrorInvalidValue;
+}
+
+// Blocks per SM of kernel 4's (p, q) instance in MODE mode (0 maxits, 1
+// pointzeroone, 2 trialmode/lm) and the form vb selects
+// (fabber_fused_whole's vb) at nt samples; -1 where the arguments are
+// refused or the CUDA call fails.
+extern "C" int fabber_whole_occupancy(int p, int q, int mode, int vb,
+                                      int nt) {
+  const long long smem = whole_smem(vb, nt, (p + q * p + q) * nt);
+  if (smem < 0 || mode < 0 || mode > 2) return -1;
+  WholeConsts k = {};
+  k.d.kind = mode == 0 ? kMaxits : (mode == 1 ? kPointZeroOne : kTrialMode);
+  int occ = 0;
+#define FABBER_OCC(NP, NQ)                                                   \
+  if (p == NP && q == NQ)                                                    \
+    return launch_whole<NP, NQ>(k, vb, smem, nullptr, nullptr, nullptr,      \
+                                &occ) == 0                                   \
+               ? occ                                                         \
+               : -1;
+  FABBER_WHOLE_INSTANCES(FABBER_OCC)
+#undef FABBER_OCC
+  return -1;
 }
 
 // Kernel 5. (p, q): one of FABBER_WHOLE_INSTANCES; consts_host as
@@ -554,7 +681,8 @@ extern "C" int fabber_fused_vb_loop(int p, int q, int n_iters,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FABBER_LAUNCH(NP, NQ) \
   if (p == NP && q == NQ)     \
-    return launch_mode<NP, NQ, 0, true>(k, ins, outs, s);
+    return launch_form<NP, NQ, 0, true, false>(k, 0, 0, ins, outs, s, \
+                                               nullptr);
   FABBER_WHOLE_INSTANCES(FABBER_LAUNCH)
 #undef FABBER_LAUNCH
   return (int)cudaErrorInvalidValue;

@@ -1,10 +1,13 @@
 // tile.cuh: a block's slice of the [T, V] data plane staged in shared
-// memory once, for the whole-loop kernels (fused_nlls.cu, kernel 8;
-// fused_nl_loop.cuh, kernel 6), for Hopper (sm_90a).
+// memory once, for the kernels that read a voxel's data column in more
+// than one pass (fused_nlls.cu, kernel 8; fused_nl_loop.cuh, kernel 6;
+// fused_vb_iter.cu, kernel 7; fused_whole.cu, kernel 4), for Hopper
+// (sm_90a).
 //
 // A block of VB lanes (VB = blockDim.x, a multiple of 32 and at most the
 // kernel's kThreads) copies its [T, VB] slice of the plane and the nw
-// per-sample weights ([T] for kernel 8, [T, Q] for kernel 6) into dynamic
+// per-sample weights ([T] for kernel 8, [T, Q] for kernels 6 and 7, the
+// (P + QP + Q) x T design rows for kernel 4) into dynamic
 // shared memory with 4-byte cp.async copies (lanes past V are zero
 // filled), one commit group, then waits for it and meets the block's
 // barrier. Each thread copies its own column: row t of the tile is

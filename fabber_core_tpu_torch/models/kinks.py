@@ -10,6 +10,9 @@ torch.func (jacfwd, jvp). Their rules agree everywhere except at a kink:
                       max/min split a tie)
   maximum/minimum tie t/2 each side              t/2 each side
   amax/amin ties      shared evenly              shared evenly
+  hardtanh at +-1     t (jax.nn.hard_tanh is     0 (where(-1 < x < 1))
+                      where(x > 1, 1, where(x <
+                      -1, -1, x)))
 
 A generic model's initial centre is its prior mean, 0 by default, so
 abs(p) starts on its kink: with torch's rule its Jacobian column is 0
@@ -17,10 +20,14 @@ and the parameter cannot move, with jax's it is 1.
 
 JaxKinks(fn).at(*args) traces fn with make_fx (fake tensors, so a
 value-dependent Python branch fails the trace) at the shapes, dtypes
-and devices of the arguments it is called with (once per such key) and
-rewrites the aten graph: abs(x) becomes where(x >= 0, x, -x), and every
-clamp, clamp_min and clamp_max becomes maximum and minimum against its
-bounds, whose ties split the tangent as jax's do. The values are fn's.
+and devices of the arguments it is called with (once per such key),
+functionalized (torch.func.functionalize: an in-place abs_, clamp_ or
+hardtanh_ is traced as abs, clamp or hardtanh), and rewrites the aten
+graph: abs(x) becomes where(x >= 0, x, -x), every clamp, clamp_min and
+clamp_max becomes maximum and minimum against its bounds, whose ties
+split the tangent as jax's do, and hardtanh at its default bounds (-1,
+1) becomes jax.nn.hard_tanh's nested where (other bounds have no jax
+counterpart and keep torch's rule). The values are fn's.
 A function that does not trace (value-dependent control flow, .item(),
 numpy) is called as it is and keeps torch's rules (ROADMAP Queue 3
 item 20).
@@ -34,6 +41,9 @@ _CLAMPS = {
     _aten.clamp_min.default: (1, None), _aten.clamp_min.Tensor: (1, None),
     _aten.clamp_max.default: (None, 1), _aten.clamp_max.Tensor: (None, 1),
 }
+
+
+_HARDTANH_DEFAULTS = (-1.0, 1.0)
 
 
 def _arg(node, i, name):
@@ -59,6 +69,16 @@ def rewrite_kinks(gm):
                 ge = g.call_function(_aten.ge.Scalar, (x, 0))
                 neg = g.call_function(_aten.neg.default, (x,))
                 new = g.call_function(_aten.where.self, (ge, x, neg))
+        elif target is _aten.hardtanh.default and _hardtanh_bounds(
+                node) == _HARDTANH_DEFAULTS:
+            x = node.args[0]
+            with g.inserting_before(node):
+                lo, hi = (g.call_function(_aten.full_like.default, (x, b))
+                          for b in _HARDTANH_DEFAULTS)
+                below = g.call_function(_aten.lt.Scalar, (x, -1.0))
+                above = g.call_function(_aten.gt.Scalar, (x, 1.0))
+                inner = g.call_function(_aten.where.self, (below, lo, x))
+                new = g.call_function(_aten.where.self, (above, hi, inner))
         elif target in _CLAMPS:
             ilo, ihi = _CLAMPS[target]
             x = node.args[0]
@@ -82,6 +102,12 @@ def rewrite_kinks(gm):
     g.lint()
     gm.recompile()
     return n
+
+
+def _hardtanh_bounds(node):
+    lo, hi = _arg(node, 1, "min_val"), _arg(node, 2, "max_val")
+    return (_HARDTANH_DEFAULTS[0] if lo is None else lo,
+            _HARDTANH_DEFAULTS[1] if hi is None else hi)
 
 
 def _key(args):
@@ -126,8 +152,8 @@ def _traced(fn, args):
         return fn(*full)
 
     try:
-        gm = make_fx(tensors_only, tracing_mode="fake")(
-            *[args[i] for i in pos])
+        gm = make_fx(torch.func.functionalize(tensors_only),
+                     tracing_mode="fake")(*[args[i] for i in pos])
     except Exception:   # untraceable: torch's rules (module docstring)
         return None
     rewrite_kinks(gm)

@@ -166,8 +166,10 @@ def load():
         lib.fabber_nl_occupancy.restype = i32
         lib.fabber_fused_vb_iter.argtypes = [
             i32, i32, i32, vp, f32, i32,
-            vp, vp, vp, vp, vp, vp, vp, i32, i64] + [vp] * 7 + [vp]
+            vp, vp, vp, vp, vp, vp, vp, i32, i64] + [vp] * 7 + [i32, vp]
         lib.fabber_fused_vb_iter.restype = i32
+        lib.fabber_vb_iter_occupancy.argtypes = [i32] * 6
+        lib.fabber_vb_iter_occupancy.restype = i32
         lib.fabber_nl_has_instance.argtypes = [i32, i32, i32]
         lib.fabber_nl_has_instance.restype = i32
         lib.fabber_spectral_fused.argtypes = [
@@ -176,8 +178,10 @@ def load():
         lib.fabber_spectral_fused.restype = i32
         lib.fabber_fused_whole.argtypes = [
             i32, i32, i32, f32, vp, i32, f32, i32, i32, i32, vp, vp, vp,
-            i32, vp, vp, i64] + [vp] * 7 + [vp]
+            i32, vp, vp, i64] + [vp] * 7 + [i32, vp]
         lib.fabber_fused_whole.restype = i32
+        lib.fabber_whole_occupancy.argtypes = [i32] * 5
+        lib.fabber_whole_occupancy.restype = i32
         lib.fabber_fused_vb_loop.argtypes = [
             i32, i32, i32, f32, vp, vp, vp, vp, vp, vp, i64] + [vp] * 5 \
             + [vp]
@@ -251,11 +255,12 @@ extern "C" int fabber_gen_occupancy(int mode, int vb, int nt) {{
 
 
 def tile_plan(nt, nq):
-    """(staged, VB, smem bytes) of a whole-loop kernel launch (kernels 6
-    and 8, csrc/tile.cuh) at nt samples and nq weights per sample (Q
-    groups for kernel 6, 1 for kernel 8): blocks of TILE_VB lanes with a
-    [nt, TILE_VB] tile and [nt, nq] weights, 4 (nt VB + nt nq) bytes,
-    where at least TILE_MIN_WARPS such blocks fit an SM; else the
+    """(staged, VB, smem bytes) of a launch of a kernel that stages its
+    data tile (kernels 4, 6, 7 and 8, csrc/tile.cuh) at nt samples and
+    nq weights per sample (Q groups for kernels 6 and 7, 1 for kernel 8,
+    the P + QP + Q design rows for kernel 4): blocks of TILE_VB lanes
+    with a [nt, TILE_VB] tile and [nt, nq] weights, 4 (nt VB + nt nq)
+    bytes, where at least TILE_MIN_WARPS such blocks fit an SM; else the
     streamed form (False, STREAM_THREADS, 0)."""
     smem = 4 * (nt * TILE_VB + nt * nq)
     if SMEM_PER_SM // (smem + SMEM_RESERVED) >= TILE_MIN_WARPS:
@@ -264,10 +269,11 @@ def tile_plan(nt, nq):
 
 
 def launch_vb(nt, nq, vb=None):
-    """The vb argument of a kernel 6 or 8 C entry point: 0 streams, > 0
-    stages in blocks of vb lanes. None takes tile_plan's choice; an int
-    forces it (the tests' and chip_smoke.py's means to time or check a
-    form; a value the entry point refuses raises at the launch)."""
+    """The vb argument of a kernel 4, 6, 7 or 8 C entry point (nq as
+    tile_plan's): 0 streams, > 0 stages in blocks of vb lanes. None
+    takes tile_plan's choice; an int forces it (the tests' and
+    chip_smoke.py's means to time or check a form; a value the entry
+    point refuses raises at the launch)."""
     if vb is not None:
         return int(vb)
     staged, pvb, _ = tile_plan(nt, nq)
@@ -447,10 +453,11 @@ def launch_spectral_fused(p, n_iters, data, tconsts, aconsts, pm, consts,
 
 
 def launch_whole(p, nq, n_iters, locked_sd, consts, detector, det_consts,
-                 data, tconsts, pm, pp, outs):
+                 data, tconsts, pm, pp, outs, vb):
     """consts: [Q*P*P + 4Q] float32 host tensor; detector: a convergence
     detector object or None (maxits); det_consts: [Q+1] float32 host
-    tensor (lb_coeff, f_const) or None."""
+    tensor (lb_coeff, f_const) or None; vb: 0 streamed, > 0 staged in
+    blocks of vb lanes (launch_vb)."""
     lib = load()
     nt, nv = data.shape
     dc = 0 if det_consts is None else det_consts.data_ptr()
@@ -459,7 +466,7 @@ def launch_whole(p, nq, n_iters, locked_sd, consts, detector, det_consts,
             p, nq, n_iters, locked_sd, consts.data_ptr(),
             *detector_args(detector), dc, data.data_ptr(),
             tconsts.data_ptr(), nt, pm.data_ptr(), pp.data_ptr(), nv,
-            *(o.data_ptr() for o in outs), _stream(data.device))
+            *(o.data_ptr() for o in outs), vb, _stream(data.device))
     _raise_on(err, "fused_whole")
 
 
@@ -504,8 +511,9 @@ def launch_nl_loop(km, nq, tcodes, n_iters, need_f, locked_sd, consts,
 
 
 def launch_vb_iter(km, nq, tcodes, need_f, centre, pm, pp, phi, data, qw,
-                   alpha, outs):
-    """alpha: the lm detector's [V] damping (the LM branch) or None."""
+                   alpha, outs, vb):
+    """alpha: the lm detector's [V] damping (the LM branch) or None; vb:
+    0 streamed, > 0 staged in blocks of vb lanes (launch_vb)."""
     lib = load()
     nt, nv = data.shape
     with torch.cuda.device(data.device):
@@ -514,7 +522,7 @@ def launch_vb_iter(km, nq, tcodes, need_f, centre, pm, pp, phi, data, qw,
             centre.data_ptr(), pm.data_ptr(), pp.data_ptr(), phi.data_ptr(),
             data.data_ptr(), qw.data_ptr(),
             0 if alpha is None else alpha.data_ptr(), nt, nv,
-            *(o.data_ptr() for o in outs), _stream(data.device))
+            *(o.data_ptr() for o in outs), vb, _stream(data.device))
     _raise_on(err, "fused_vb_iter")
 
 
@@ -549,6 +557,20 @@ def nl_occupancy(kind, p, nq, mode, vb, nt):
     samples (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1 where
     refused."""
     return int(load().fabber_nl_occupancy(kind, p, nq, mode, vb, nt))
+
+
+def whole_occupancy(p, nq, mode, vb, nt):
+    """Blocks per SM of kernel 4's (P, Q) instance in MODE mode (0
+    maxits, 1 pointzeroone, 2 trialmode/lm) and form vb at nt samples;
+    -1 where refused."""
+    return int(load().fabber_whole_occupancy(p, nq, mode, vb, nt))
+
+
+def vb_iter_occupancy(kind, p, nq, lm, vb, nt):
+    """Blocks per SM of kernel 7's (kind, P, Q) instance, with or without
+    its LM branch, in form vb at nt samples; -1 where refused."""
+    return int(load().fabber_vb_iter_occupancy(kind, p, nq, int(lm), vb,
+                                               nt))
 
 
 def gen_occupancy(lib, mode, vb, nt):

@@ -19,10 +19,13 @@ time t depends only on its parameters and t (exp/biexp, poly):
           tr(Sigma J'Q_iJ) for the phi update (assembled outside);
   pass C  (need_f) the same quadratics at the new means, for F.
 
-The wrapper takes the plain version only for tensors on the CPU; for a
-CUDA tensor it launches the kernel or raises. ``fused_iteration.
+The kernel stages each block's data tile in shared memory where
+ops/_cuda.py tile_plan says it fits (csrc/tile.cuh), else streams the
+plane. The wrapper takes the plain version only for tensors on the CPU;
+for a CUDA tensor it launches the kernel or raises. ``fused_iteration.
 launches`` counts kernel launches (never plain calls), ``lm_launches``
-those with the LM branch.
+those with the LM branch, ``staged_launches`` those in the staged
+form.
 
 block_eval is make_block_eval's counterpart: the model's analytic
 time_signal_jac in model space times the per-parameter chain factor
@@ -329,12 +332,14 @@ def group_weights(qmasks, device):
 
 
 def fused_iteration(model, transforms, centre, prior_means, prior_prec,
-                    phi, data, qmasks, need_f, lm_alpha=None):
+                    phi, data, qmasks, need_f, lm_alpha=None, _vb=None):
     """One fused VB iteration (see fused_iteration_plain for the
     shapes). model: the forward model (signal_jac_fn(model) on the
     CPU, kernel_model() for the CUDA functor); transforms: per-parameter
     Transform objects; lm_alpha: the lm detector's [V] damping (the
-    LM branch) or None."""
+    LM branch) or None. _vb: private, for the tests and chip_smoke.py:
+    forces the kernel's form (0 streamed, > 0 staged in blocks of that
+    many lanes; ops/_cuda.py launch_vb)."""
     if centre.device.type == "cpu":
         return fused_iteration_plain(signal_jac_fn(model), transforms,
                                      centre, prior_means, prior_prec, phi,
@@ -360,14 +365,18 @@ def fused_iteration(model, transforms, centre, prior_means, prior_prec,
             out(nq, nv), out(nq, nv), out(nq, nv))
     if nv:
         from . import _cuda
+        vb = _cuda.launch_vb(nt, nq, _vb)
         _cuda.launch_vb_iter(km, nq, tcodes, bool(need_f), centre,
                              prior_means, prior_prec, phi, data, qw,
-                             lm_alpha, outs)
+                             lm_alpha, outs, vb)
         fused_iteration.launches += 1
         if lm_alpha is not None:
             fused_iteration.lm_launches += 1
+        if vb > 0:
+            fused_iteration.staged_launches += 1
     return outs
 
 
 fused_iteration.launches = 0
 fused_iteration.lm_launches = 0
+fused_iteration.staged_launches = 0

@@ -38,10 +38,14 @@ Constants: ``pack_whole_time_consts`` [(P + QP + Q), T] rows (D', then
 D'Q_qD from the host design in float64. The TPU form's ROWS fold, its
 time padding and its replicated constant columns are gone.
 
-The wrapper takes the plain version only for tensors on the CPU; for a
-CUDA tensor it launches the kernel or raises. ``fused_whole.launches``
-counts kernel launches, ``det_launches`` those in detector mode and
-``lm_launches`` those under lm.
+The kernel stages each block's data tile beside the design rows in
+shared memory where ops/_cuda.py tile_plan says it fits (csrc/tile.cuh;
+tile_weights gives the plan's weights per sample), else streams the
+plane. The wrapper takes the plain version only for tensors on the CPU;
+for a CUDA tensor it launches the kernel or raises.
+``fused_whole.launches`` counts kernel launches, ``det_launches`` those
+in detector mode, ``lm_launches`` those under lm and ``staged_launches``
+those in the staged form.
 """
 
 import numpy as np
@@ -86,6 +90,12 @@ def pack_whole_consts(design, qmasks, nt, noise_prior_b, noise_prior_c,
 def smem_bytes(p, nq, nt):
     """Shared memory kernel 4's block stages: the time rows, float32."""
     return (p + nq * p + nq) * nt * 4
+
+
+def tile_weights(p, nq):
+    """The staged form's shared floats per sample beside its data tile
+    (ops/_cuda.py tile_plan's nq): the P + QP + Q design rows."""
+    return p + nq * p + nq
 
 
 def whole_stats_plain(data, tconsts, consts, p, nq):
@@ -206,9 +216,11 @@ def _whole_detector_plain(args, b, c, inv_b0, c_post, locked_sd, n_iters,
 
 
 def fused_whole(data, tconsts, consts, prior_means, prior_prec, n_iters,
-                locked_noise_stdev=-1.0, detector=None):
+                locked_noise_stdev=-1.0, detector=None, _vb=None):
     """The whole program (see fused_whole_plain for the shapes and the
-    detector mode)."""
+    detector mode). _vb: private, for the tests and chip_smoke.py:
+    forces the kernel's form (0 streamed, > 0 staged in blocks of that
+    many lanes; ops/_cuda.py launch_vb)."""
     if n_iters < 1:
         raise ValueError("n_iters must be >= 1")
     kind = None if detector is None else type(detector["det"]).name
@@ -248,12 +260,15 @@ def fused_whole(data, tconsts, consts, prior_means, prior_prec, n_iters,
         dtype=torch.float32)
     if nv:
         from . import _cuda
+        vb = _cuda.launch_vb(nt, tile_weights(p, nq), _vb)
         _cuda.launch_whole(p, nq, int(n_iters), float(locked_noise_stdev),
                            consts.to(torch.float32).contiguous(),
                            None if kind is None else detector["det"],
                            det_consts, data, tconsts, prior_means,
-                           prior_prec, outs)
+                           prior_prec, outs, vb)
         fused_whole.launches += 1
+        if vb > 0:
+            fused_whole.staged_launches += 1
         if kind is not None:
             fused_whole.det_launches += 1
         if kind == "lm":
@@ -264,3 +279,4 @@ def fused_whole(data, tconsts, consts, prior_means, prior_prec, n_iters,
 fused_whole.launches = 0
 fused_whole.det_launches = 0
 fused_whole.lm_launches = 0
+fused_whole.staged_launches = 0

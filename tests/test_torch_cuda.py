@@ -1257,6 +1257,163 @@ def test_largest_tiles_match_plain(cuda, nt, vb):
     assert_nlls_near_f64(c, k, nargs)
 
 
+# -- kernels 7 and 4 staged and streamed (csrc/tile.cuh) --------------------
+
+def bits_equal(outs_a, outs_b):
+    return all(torch.equal(a.contiguous().view(torch.int32),
+                           b.contiguous().view(torch.int32))
+               for a, b in zip(outs_a, outs_b))
+
+
+@pytest.mark.parametrize("lm", [False, True], ids=["plain", "LM"])
+def test_vb_iter_staged_bit_identical_to_streamed(cuda, lm):
+    """Kernel 7 (biexp, Q=1) at V = 1,000,003, T=40, one iteration with
+    F, with and without its LM branch (alpha 0 in a quarter of the
+    lanes): the plan's staged form (VB 32), staged at VB 128 and 64, and
+    streamed, every output equal bit for bit."""
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    c = nl_inputs("biexp", 1, 1_000_003, cuda, seed=4)
+    alpha = None
+    if lm:
+        alpha = 10.0 ** (torch.rand(1_000_003, device=cuda) * 8 - 6)
+        alpha[::4] = 0.0
+    args = (c["centre"], c["pm"], c["pp"], c["phi"], c["data"], c["q"], True,
+            alpha)
+    outs = {}
+    for vb in (None, 128, 64, 0):
+        st = fv.fused_iteration.staged_launches
+        outs[vb] = fv.fused_iteration(c["model"], c["tr"], *args, _vb=vb)
+        assert fv.fused_iteration.staged_launches - st == (
+            0 if vb == 0 else 1)
+    for vb in (128, 64, 0):
+        assert bits_equal(outs[None], outs[vb]), vb
+
+
+@pytest.mark.parametrize("vb", [None, 0], ids=["plan", "streamed"])
+@pytest.mark.parametrize("name,nq", [("biexp", 1), ("exp", 4),
+                                     ("poly3-F", 2)],
+                         ids=["biexp-Q1", "exp-Q4", "poly3-F-Q2"])
+def test_vb_iter_forms_match_plain(cuda, name, nq, vb):
+    """Kernel 7 in each form on a ragged V, held to the plain version at
+    float64 (assert_near_f64)."""
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    c = nl_inputs(name, nq, 3001, cuda, seed=3)
+    args = (c["centre"], c["pm"], c["pp"], c["phi"], c["data"], c["q"], True)
+    st = fv.fused_iteration.staged_launches
+    k = fv.fused_iteration(c["model"], c["tr"], *args, _vb=vb)
+    assert fv.fused_iteration.staged_launches - st == (0 if vb == 0 else 1)
+    tsj = c["model"].time_signal_jac
+    assert_near_f64(k, fv.fused_iteration_plain(tsj, c["tr"], *args),
+                    fv.fused_iteration_plain(tsj, c["tr"], *to_f64(args)))
+
+
+WHOLE_FORM_CASES = [(kind, nq) for kind in (None, "pointzeroone",
+                                            "trialmode", "lm")
+                    for nq in (1, 2, 3)]
+
+
+@pytest.mark.parametrize("kind,nq", WHOLE_FORM_CASES,
+                         ids=[f"{k or 'maxits'}-Q{q}"
+                              for k, q in WHOLE_FORM_CASES])
+def test_whole_staged_bit_identical_to_streamed(cuda, kind, nq):
+    """Kernel 4 (P=3) at V = 200,003, T=106, in MODE 0 (maxits), 1
+    (pointzeroone) and 2 (trialmode, lm): the plan's staged form (VB
+    32), staged at VB 128 and 64, and streamed, every output equal bit
+    for bit."""
+    from fabber_core_tpu_torch.ops import fused_whole as fw
+    args = whole_inputs(3, nq, 200_003, cuda, nt=106, seed=5)
+    det, cap = (None, 10) if kind is None else whole_detector(kind, 3, nq,
+                                                              nt=106)
+    outs = {}
+    for vb in (None, 128, 64, 0):
+        st = fw.fused_whole.staged_launches
+        outs[vb] = fw.fused_whole(*args, cap, -1.0, det, _vb=vb)
+        assert fw.fused_whole.staged_launches - st == (0 if vb == 0 else 1)
+    for vb in (128, 64, 0):
+        assert bits_equal(outs[None], outs[vb]), vb
+
+
+@pytest.mark.parametrize("kind", [None, "trialmode", "lm"])
+def test_whole_streamed_matches_plain(cuda, kind):
+    """Kernel 4 (P=3, Q=2) in the streamed form, held as
+    test_whole_kernel_matches_plain and test_whole_kernel_detector_
+    matches_plain hold the plan's staged form."""
+    from fabber_core_tpu_torch.ops import fused_whole as fw
+    args = whole_inputs(3, 2, 20_001, cuda, seed=6)
+    det, cap = (None, 10) if kind is None else whole_detector(kind, 3, 2)
+    st = fw.fused_whole.staged_launches
+    k = fw.fused_whole(*args, cap, -1.0, det, _vb=0)
+    assert fw.fused_whole.staged_launches == st
+    r32 = fw.fused_whole_plain(*args, cap, -1.0, det)
+    r64 = fw.fused_whole_plain(*to_f64(args), cap, -1.0, det)
+    if kind is None:
+        assert_near_f64(k, r32, r64)
+    else:
+        def dec(o):
+            return decisions(o[6][0], torch.zeros_like(o[6][0]))
+        assert_detector_near_f64(k, r32, r64, dec(k), dec(r32), dec(r64))
+
+
+@pytest.mark.parametrize("p,nq", [(1, 1), (4, 3)], ids=["P1-Q1", "P4-Q3"])
+def test_whole_plan_edges_match_plain(cuda, p, nq):
+    """Kernel 4 (maxits) at every T on tile_plan's edges for its P + QP
+    + Q design rows per sample, the last streamed: each held to float64
+    (assert_near_f64), in the form the plan picks."""
+    from fabber_core_tpu_torch.ops import fused_whole as fw
+    nw = fw.tile_weights(p, nq)
+    for nt in plan_edges(nw):
+        args = whole_inputs(p, nq, 2001, cuda, nt=nt, seed=7)
+        st = fw.fused_whole.staged_launches
+        k = fw.fused_whole(*args, 10)
+        assert fw.fused_whole.staged_launches - st == expect_staged(nt, nw)
+        assert_near_f64(k, fw.fused_whole_plain(*args, 10),
+                        fw.fused_whole_plain(*to_f64(args), 10))
+
+
+def test_refused_tiles_raise_kernels_7_and_4(cuda):
+    """Kernels 7 and 4 refuse a VB not a multiple of 32 or above 128 and
+    a tile above 232,448 bytes: the wrapper raises and counts no launch,
+    nothing falls back to the other form."""
+    from fabber_core_tpu_torch.exceptions import FabberError
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    from fabber_core_tpu_torch.ops import fused_whole as fw
+    c = nl_inputs("exp", 1, 256, cuda, nt=500)
+    it_args = (c["centre"], c["pm"], c["pp"], c["phi"], c["data"], c["q"],
+               True)
+    w_args = whole_inputs(3, 2, 256, cuda, nt=500)
+    for vb in (48, 160, 128):     # 128: 4 (500 x 128 + 500) B > 232,448
+        n7, n4 = fv.fused_iteration.launches, fw.fused_whole.launches
+        with pytest.raises(FabberError, match="launch failed"):
+            fv.fused_iteration(c["model"], c["tr"], *it_args, _vb=vb)
+        with pytest.raises(FabberError, match="launch failed"):
+            fw.fused_whole(*w_args, 10, _vb=vb)
+        assert fv.fused_iteration.launches == n7
+        assert fw.fused_whole.launches == n4
+
+
+def test_occupancy_queries_kernels_7_and_4(cuda):
+    """The plan keeps at least TILE_MIN_WARPS staged one-warp blocks per
+    SM for kernel 7 (biexp, Q=1, T=100, with and without LM) and kernel
+    4 (P=3, Q=1, 2, T=106, MODE 0-2); refused arguments give -1."""
+    from fabber_core_tpu_torch.ops import _cuda
+    from fabber_core_tpu_torch.ops import fused_whole as fw
+    least = _cuda.TILE_MIN_WARPS
+    staged, vb, _ = _cuda.tile_plan(100, 1)
+    assert staged and vb == 32
+    for lm in (False, True):
+        assert _cuda.vb_iter_occupancy(1, 4, 1, lm, vb, 100) >= least
+        assert _cuda.vb_iter_occupancy(1, 4, 1, lm, 0, 100) >= 2
+    for nq in (1, 2):
+        staged, vb, _ = _cuda.tile_plan(106, fw.tile_weights(3, nq))
+        assert staged and vb == 32
+        for mode in (0, 1, 2):
+            assert _cuda.whole_occupancy(3, nq, mode, vb, 106) >= least
+            assert _cuda.whole_occupancy(3, nq, mode, 0, 106) >= 1
+    assert _cuda.vb_iter_occupancy(1, 4, 1, False, 48, 100) == -1
+    assert _cuda.whole_occupancy(3, 2, 0, 128, 500) == -1
+    assert _cuda.whole_occupancy(3, 2, 3, 32, 106) == -1
+
+
 # -- the AR(1) whole-loop kernel (fused_ar_loop.cu, kernel 9) ------------------
 
 AR_INSTANCES = [(p, nq) for p in (1, 2, 3, 4) for nq in (1, 2)]

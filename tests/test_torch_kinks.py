@@ -18,7 +18,15 @@ package (fabber_core_tpu_torch/models/kinks.py, csrc/dual.cuh).
             (tests/torch_hostcc.py, skipped without g++): its Jacobian
             at the kink equals jax.jvp's;
   remainder a model that does not trace keeps torch's rule, and
-            differentiates as before.
+            differentiates as before;
+  in place  AbsInPlace and ClampInPlace (abs_ and clamp_ on a copy of
+            the parameter: the functionalized trace sees abs and clamp)
+            and HardTanhOffset (hardtanh(c) starting on its upper bound,
+            where jax.nn.hard_tanh's tangent is 1 and torch's 0): the
+            Linearizer's and full_eval's Jacobians at the kink against
+            jax.jacfwd of the twin, and run_with_data of both packages,
+            as above. The generic probe refuses these ops, so such a
+            model runs xla-generic (the Linearizer) on every device.
 """
 
 import jax
@@ -41,7 +49,8 @@ from fabber_core_tpu_torch.ops import fused_vb as fv
 from fabber_core_tpu_torch.options import RunOptions
 
 import torch_hostcc
-from torch_generic_models import AbsAmp, ClampOffset, MaxTie
+from torch_generic_models import (AbsAmp, AbsInPlace, ClampInPlace,
+                                  ClampOffset, HardTanhOffset, MaxTie)
 
 jax.config.update("jax_enable_x64", True)
 torch.set_num_threads(1)
@@ -88,15 +97,39 @@ class JMaxTie(JTwin):
         return top * jnp.exp(-t) + params[1]
 
 
+class JAbsInPlace(JAbsAmp):
+    name = "absinplace-test"
+
+
+class JClampInPlace(JClampOffset):
+    name = "clampinplace-test"
+
+
+class JHardTanhOffset(JTwin):
+    name = "hardtanh-test"
+    PARAMS = [("a", 1.0), ("c", 1.0)]
+
+    def evaluate(self, params, ctx, key=""):
+        t = jnp.arange(ctx.nt, dtype=params.dtype) * self.dt
+        return params[0] * jnp.exp(-t) + jax.nn.hard_tanh(params[1])
+
+
 TWINS = {"abs": (AbsAmp, JAbsAmp), "clamp": (ClampOffset, JClampOffset),
          "amax": (MaxTie, JMaxTie)}
-# a point on each twin's kink (its initial centre for abs and clamp),
-# and the jax tangent of the kinked column there (at every t)
-KINKS = {"abs": [1.0, 0.0], "clamp": [1.0, 0.0], "amax": [1.0, 1.0]}
+# twins whose kink the probe refuses (in-place ops, hardtanh): reached
+# through the functionalized trace of models/kinks.py
+UNPROBED = {"abs_": (AbsInPlace, JAbsInPlace),
+            "clamp_": (ClampInPlace, JClampInPlace),
+            "hardtanh": (HardTanhOffset, JHardTanhOffset)}
+ALL_TWINS = {**TWINS, **UNPROBED}
+# a point on each twin's kink (its initial centre for abs, clamp and
+# hardtanh), and the jax tangent of the kinked column there (at every t)
+KINKS = {"abs": [1.0, 0.0], "clamp": [1.0, 0.0], "amax": [1.0, 1.0],
+         "abs_": [1.0, 0.0], "clamp_": [1.0, 0.0], "hardtanh": [1.0, 1.0]}
 
 
 def jax_jacobian(name, pvec):
-    jm = TWINS[name][1]()
+    jm = ALL_TWINS[name][1]()
 
     class Ctx:
         nt = NT
@@ -104,13 +137,13 @@ def jax_jacobian(name, pvec):
         jnp.asarray(pvec, jnp.float64)))                       # [T,P]
 
 
-@pytest.mark.parametrize("name", ["abs", "clamp"])
+@pytest.mark.parametrize("name", ["abs", "clamp", *UNPROBED])
 def test_jax_twin_has_the_kink(name):
     """jax's rules at the kink differ from torch.func's there, so the
     tests below tell the two apart (amax's ties torch.func shares as jax
     does; only a pairwise fold, which the generated functor had, does
     not)."""
-    tm = TWINS[name][0]()
+    tm = ALL_TWINS[name][0]()
     from fabber_core_tpu_torch.models.base import EvalContext
     p = torch.tensor(KINKS[name], dtype=torch.float64)
     tj = torch.func.jacfwd(
@@ -118,9 +151,9 @@ def test_jax_twin_has_the_kink(name):
     assert not np.allclose(tj, jax_jacobian(name, KINKS[name]))
 
 
-@pytest.mark.parametrize("name", list(TWINS))
+@pytest.mark.parametrize("name", list(ALL_TWINS))
 def test_linearizer_jacobian_at_kink_matches_jax(name):
-    tm = TWINS[name][0]()
+    tm = ALL_TWINS[name][0]()
     params = resolve_parameters(tm, RunOptions({}))
     lin = Linearizer(tm, params, NT)
     nv = 3
@@ -150,6 +183,24 @@ def test_full_eval_jacobian_at_kink_matches_jax(name):
                                rtol=1e-14, atol=1e-14)
 
 
+@pytest.mark.parametrize("name", list(UNPROBED))
+def test_unprobed_full_eval_jacobian_at_kink_matches_jax(name):
+    """full_eval of the model's evaluate itself (the probe refuses
+    abs_, clamp_ and hardtanh, so there is no generated functor): the
+    functionalized trace gives jax's tangent at the kink."""
+    from fabber_core_tpu_torch.models.base import EvalContext
+    tm = UNPROBED[name][0]()
+    assert derive_time_local_eval(tm, NT, 2) is None
+    params = resolve_parameters(tm, RunOptions({}))
+    ev = fv.full_eval(lambda p: tm.evaluate(p, EvalContext(nt=NT)),
+                      [p.transform for p in params])
+    latent = torch.tensor(KINKS[name], dtype=torch.float64)[:, None]
+    _, jac = ev(latent)
+    np.testing.assert_allclose(jac[:, :, 0].numpy().T,
+                               jax_jacobian(name, KINKS[name]),
+                               rtol=1e-14, atol=1e-14)
+
+
 def test_time_signal_jacobian_at_kink_follows_jax():
     """signal_jac_fn's forward mode for a model with a time_signal and no
     time_signal_jac: |p1| at 0 has slope +1 (jax's), clamp at its bound
@@ -171,7 +222,7 @@ def test_time_signal_jacobian_at_kink_follows_jax():
 
 @pytest.fixture
 def registered_twins():
-    for tm, jm in TWINS.values():
+    for tm, jm in ALL_TWINS.values():
         register_model(tm)
         jregister(jm)
 
@@ -184,7 +235,7 @@ def twin_volume(name, shape=(4, 2, 2), seed=11):
     a = rng.uniform(0.8, 1.2, nv)
     x = rng.uniform(0.4, 0.9, nv) if name != "amax" \
         else rng.uniform(0.5, 0.9, nv)
-    jm = TWINS[name][1]()
+    jm = ALL_TWINS[name][1]()
 
     class Ctx:
         nt = NT
@@ -194,7 +245,7 @@ def twin_volume(name, shape=(4, 2, 2), seed=11):
         shape + (NT,))
 
 
-@pytest.mark.parametrize("name", ["abs", "clamp"])
+@pytest.mark.parametrize("name", ["abs", "clamp", *UNPROBED])
 def test_kink_twins_api_match_jax_float64(name, registered_twins):
     """Both packages' run_with_data at float64 (the CLI default; the
     port's xla-generic route, the JAX package's xla route), from the
@@ -202,7 +253,8 @@ def test_kink_twins_api_match_jax_float64(name, registered_twins):
     (with torch's rules the port's |p1| never leaves 0, and its clamped
     offset takes another path)."""
     vol = twin_volume(name)
-    opts = {"model": TWINS[name][0].name, "method": "vb", "noise": "white",
+    opts = {"model": ALL_TWINS[name][0].name, "method": "vb",
+            "noise": "white",
             "max-iterations": "10", "save-mean": True, "save-std": True,
             "save-noise-mean": True}
     jd = JFabber().run_with_data(opts, {"data": vol}).data
@@ -214,8 +266,8 @@ def test_kink_twins_api_match_jax_float64(name, registered_twins):
         np.testing.assert_allclose(td[key], jd[key], rtol=1e-9,
                                    atol=1e-9 * np.abs(jd[key]).max())
     # the kinked parameter moved off its start
-    moved = jd["mean_p1" if name == "abs" else "mean_c"]
-    assert np.abs(moved).min() > 0.1
+    moved = jd["mean_p1" if name.startswith("abs") else "mean_c"]
+    assert np.abs(moved - KINKS[name][1]).min() > 0.1
 
 
 @pytest.fixture
@@ -264,3 +316,26 @@ def test_rewrite_keeps_values():
     assert rewrite_kinks(gm) == 4
     x = torch.tensor([-1.0, -0.5, 0.0, 0.3, 2.0])
     torch.testing.assert_close(gm(x), f(x), rtol=0, atol=0)
+
+
+def test_rewrite_hardtanh_at_default_bounds_only():
+    """hardtanh(x) (bounds -1, 1, as jax.nn.hard_tanh) is rewritten with
+    its values kept; hardtanh at other bounds has no jax counterpart and
+    is left to torch's rule."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+    f_nn = torch.nn.functional
+
+    def f(x):
+        return f_nn.hardtanh(x) + 3.0 * f_nn.hardtanh(x, -0.5, 2.0)
+
+    gm = make_fx(f, tracing_mode="fake")(torch.zeros(6))
+    assert rewrite_kinks(gm) == 1
+    x = torch.tensor([-2.0, -1.0, -0.25, 0.5, 1.0, 3.0])
+    torch.testing.assert_close(gm(x), f(x), rtol=0, atol=0)
+    x = torch.tensor([-1.0, 1.0], dtype=torch.float64)
+    g = JaxKinks(f).at(x)
+    assert g is not f
+    # jax's slope 1 at both of hardtanh's bounds; the (-0.5, 2) one
+    # clips -1 (slope 0) and passes 1 (slope 3)
+    torch.testing.assert_close(torch.func.jacfwd(g)(x).diagonal(),
+                               torch.tensor([1.0, 4.0], dtype=torch.float64))

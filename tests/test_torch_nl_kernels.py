@@ -14,6 +14,10 @@ for that reason). Tolerances are those of tests/test_fused_loop_nl.py:
 means within 5e-3 posterior sd and rtol 3e-4 (atol 1e-5); noise
 (b, c and the k'Qk, trace quadratics) rtol 2e-3; the free-energy
 quadratics rtol 1e-4 / atol 2e-3. prec and cov are held at rtol 2e-3.
+
+Kernel 7 itself, compiled as host C++ at double (tests/torch_hostcc.py;
+skipped without g++): its staged and streamed forms bit for bit, both
+within 1e-10 of the plain version at float64.
 """
 
 import jax.numpy as jnp
@@ -31,6 +35,8 @@ from fabber_core_tpu_torch.models import get_model_class, resolve_parameters
 from fabber_core_tpu_torch.ops import fused_loop_nl as nl
 from fabber_core_tpu_torch.ops import fused_vb as fv
 from fabber_core_tpu_torch.options import RunOptions
+
+import torch_hostcc
 
 torch.set_num_threads(1)
 
@@ -351,3 +357,68 @@ def test_fused_iteration_lm_plain_matches_jax_kernel(name, pattern):
         np.testing.assert_allclose(got[k].numpy(),
                                    np.asarray(ref[k])[:, :NV], rtol=1e-4,
                                    atol=2e-3)
+
+
+# -- kernel 7 compiled as host C++ (tests/torch_hostcc.py) ------------------
+
+FUNCTORS = {"exp": "ExpSum<1>", "biexp": "ExpSum<2>",
+            "poly-log": "PolyModel<2>"}
+
+
+@pytest.fixture(scope="module")
+def iter_host(tmp_path_factory):
+    """(case name, Q) -> kernel 7 at double on the host, both forms
+    (built once per module; skipped without g++)."""
+    if not torch_hostcc.have_gxx():
+        pytest.skip("g++ is not installed")
+    libs = {}
+
+    def get(name, nq):
+        if (name, nq) not in libs:
+            libs[name, nq] = torch_hostcc.vb_iter_kernel_fn(
+                FUNCTORS[name], nq,
+                tmp_path_factory.mktemp(f"iter{len(libs)}"))
+        return libs[name, nq]
+    return get
+
+
+ITER_HOST = [("biexp", "1", False), ("biexp", "1", True),
+             ("exp", "12", False), ("exp", "12", True),
+             ("poly-log", "1", True)]
+
+
+@pytest.mark.parametrize("name,pattern,lm", ITER_HOST,
+                         ids=[f"{n}-{p}{'-lm' if lm else ''}"
+                              for n, p, lm in ITER_HOST])
+def test_iteration_kernel_on_host_staged_equals_streamed(name, pattern, lm,
+                                                         iter_host):
+    """Kernel 7's staged form (the block's tile and weights in shared
+    memory, csrc/tile.cuh) equals its streamed form bit for bit at
+    double, with (LM=1: alpha 0 in a quarter of the voxels, 1e-6..1e2
+    elsewhere) and without its LM branch, and both match the plain
+    version at float64 within 1e-10 of each output's max."""
+    c = make_case(name, pattern, seed=8)
+    nq = c["nq"]
+    rng = np.random.default_rng(9)
+    phi = rng.uniform(1000.0, 3000.0, (nq, NV))
+    alpha = None
+    if lm:
+        alpha = 10.0 ** rng.uniform(-6, 2, NV)
+        alpha[::4] = 0.0
+    km = c["pm_"].kernel_model()
+    tcodes = [fv.TRANSFORM_CODES[tr.code] for tr in c["tr"]]
+    f64 = [c[k].astype(np.float64) for k in ("centre", "pm", "pp")]
+    fn = iter_host(name, nq)
+    args = (tcodes, km.dt, True, *f64, phi, c["data"], c["q"].T, alpha)
+    staged, streamed = fn(True, *args), fn(False, *args)
+    for a, b in zip(staged, streamed):
+        assert np.array_equal(a, b)
+    ref = fv.fused_iteration_plain(
+        fv.signal_jac_fn(c["pm_"]), c["tr"],
+        *(torch.from_numpy(x) for x in f64), torch.from_numpy(phi),
+        torch.from_numpy(c["data"]).double(), c["q"], True,
+        None if alpha is None else torch.from_numpy(alpha))
+    for a, r in zip(staged, ref):
+        r = r.numpy()
+        assert np.abs(a.reshape(r.shape) - r).max() <= \
+            1e-10 * max(np.abs(r).max(), 1e-30)

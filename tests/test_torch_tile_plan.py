@@ -1,19 +1,23 @@
 """The staged tile's plan (fabber_core_tpu_torch/ops/_cuda.py tile_plan,
-launch_vb) for the whole-loop kernels 6 and 8 (csrc/tile.cuh), on the
-CPU: the VB and shared-memory bytes at T = 1, 7, 8, 100 and at the edge
-where the tile stops fitting five one-warp blocks per SM and just past
-it, for one weight per sample (kernel 8, kernel 6 at Q=1) and for Q =
-2-4; the rule at every T up to 1,200 (a staged tile never leaves fewer
-than TILE_MIN_WARPS blocks per SM, a streamed T would); and the C
-side's refusal rule (tile_bytes, compiled as host C++ with g++ through
-tests/torch_hostcc.py's shim; skipped without g++) refuses nothing the
+launch_vb) for the kernels that stage their data tile (4, 6, 7 and 8,
+csrc/tile.cuh), on the CPU: the VB and shared-memory bytes at T = 1, 7,
+8, 100 and at the edge where the tile stops fitting five one-warp
+blocks per SM and just past it, for one weight per sample (kernel 8,
+kernels 6 and 7 at Q=1), for Q = 2-4 and for kernel 4's P + QP + Q
+design rows per sample; the rule at every T up to 1,200 (a staged tile
+never leaves fewer than TILE_MIN_WARPS blocks per SM, a streamed T
+would); and the C side's refusal rules (tile_bytes, and kernels 7's and
+4's iter_smem and whole_smem, compiled as host C++ with g++ through
+tests/torch_hostcc.py's shim; skipped without g++) refuse nothing the
 plan picks and everything past the hardware's per-block limit."""
 
 import ctypes
+import re
 
 import pytest
 
 from fabber_core_tpu_torch.ops import _cuda
+from fabber_core_tpu_torch.ops import fused_whole as fw
 
 import torch_hostcc
 
@@ -115,3 +119,79 @@ def test_c_side_limit(tile_bytes):
     nw = BLOCK_MAX // 4 - nt * 128
     assert tile_bytes(128, nt, nw) == BLOCK_MAX
     assert tile_bytes(128, nt, nw + 1) == -1
+
+
+# kernel 4 (P, Q) -> its design rows per sample, and the longest T staged
+WHOLE_EDGES = [(1, 1, 3, 326), (3, 1, 7, 292), (3, 2, 11, 265),
+               (4, 3, 19, 223)]
+
+
+@pytest.mark.parametrize("p,nq,nw,last", WHOLE_EDGES,
+                         ids=[f"P{p}-Q{q}" for p, q, _, _ in WHOLE_EDGES])
+def test_whole_tile_plan(p, nq, nw, last):
+    """Kernel 4 stages its tile beside its P + QP + Q design rows: at
+    T=106 (the main paths' poly) in one-warp blocks, up to the last T
+    where five such blocks fit an SM; the next T streams."""
+    assert fw.tile_weights(p, nq) == nw
+    assert _cuda.tile_plan(106, nw) == (True, 32, 4 * (106 * 32 + 106 * nw))
+    assert _cuda.tile_plan(last, nw) == (True, 32, smem(last, 32, nw))
+    assert _cuda.tile_plan(last + 1, nw) == (False, 128, 0)
+    assert _cuda.launch_vb(106, nw) == 32
+    assert _cuda.launch_vb(last + 1, nw) == 0
+
+
+def _c_function(source, name):
+    """The text of one inline function of a csrc/ source."""
+    text = (torch_hostcc.CSRC / source).read_text()
+    m = re.search(rf"inline long long {name}\(.*?\n}}\n", text, re.S)
+    assert m, name
+    return m.group(0)
+
+
+@pytest.fixture
+def smem_rules(tmp_path):
+    """Kernels 7's and 4's C entry points' shared-memory rules
+    (iter_smem, whole_smem: -1 refuses the launch), compiled as host
+    C++."""
+    if not torch_hostcc.have_gxx():
+        pytest.skip("g++ is not installed")
+    src = ('#include "cuda_runtime.h"\n#include "tile.cuh"\n'
+           "namespace {\nusing namespace fabber;\n"
+           "constexpr int kThreads = 128;\n"
+           + _c_function("fused_vb_iter.cu", "iter_smem")
+           + _c_function("fused_whole.cu", "whole_smem")
+           + "}  // namespace\n"
+           'extern "C" long long it(int vb, int nt, int q) {\n'
+           "  return iter_smem(vb, nt, q);\n}\n"
+           'extern "C" long long wh(int vb, int nt, int nrows) {\n'
+           "  return whole_smem(vb, nt, nrows);\n}\n")
+    lib = torch_hostcc.build_source(tmp_path, "smem_rules", src)
+    for f in (lib.it, lib.wh):
+        f.restype = ctypes.c_longlong
+        f.argtypes = [ctypes.c_int] * 3
+    return lib
+
+
+def test_c_side_kernels_7_and_4_take_every_plan(smem_rules):
+    for nt in range(1, 800, 7):
+        for nq in (1, 4):
+            staged, vb, b = _cuda.tile_plan(nt, nq)
+            assert smem_rules.it(vb if staged else 0, nt, nq) == b
+        for p, nq, nw, _ in WHOLE_EDGES:
+            staged, vb, b = _cuda.tile_plan(nt, nw)
+            want = b if staged else 4 * nw * nt   # streamed: the rows
+            assert smem_rules.wh(vb if staged else 0, nt, nw * nt) == want
+
+
+@pytest.mark.parametrize("vb,nt", [(48, 100), (16, 100), (160, 100),
+                                   (256, 10), (128, 500), (32, 1800)])
+def test_c_side_kernels_7_and_4_refuse(smem_rules, vb, nt):
+    assert smem_rules.it(vb, nt, 1) == -1
+    assert smem_rules.wh(vb, nt, 11 * nt) == -1
+
+
+def test_c_side_whole_streamed_rows_limit(smem_rules):
+    """Streamed, kernel 4's block holds the design rows alone: refused
+    past a block's 232,448 bytes."""
+    assert smem_rules.wh(0, 1000, BLOCK_MAX // 4) == BLOCK_MAX
+    assert smem_rules.wh(0, 1000, BLOCK_MAX // 4 + 1) == -1

@@ -16,6 +16,9 @@ Float32 bounds (the two sides sum the statistics in different orders):
   kernel 3: every output 1e-4, iteration counts and engine-initial tags
     equal.
 Float64: kernel 4 and 5 against the JAX engine's statistics route, 1e-9.
+Kernel 4 itself, compiled as host C++ at double (tests/torch_hostcc.py;
+skipped without g++): its staged and streamed forms bit for bit, and
+both within 1e-9 of the plain version at float64.
 """
 
 import jax.numpy as jnp
@@ -39,7 +42,10 @@ from fabber_core_tpu_torch.models import get_model_class
 from fabber_core_tpu_torch.ops import fused_loop as tfl
 from fabber_core_tpu_torch.ops import fused_spectral as tfs
 from fabber_core_tpu_torch.ops import fused_whole as tfw
+from fabber_core_tpu_torch.ops import _cuda
 from fabber_core_tpu_torch.options import RunOptions
+
+import torch_hostcc
 
 torch.set_num_threads(1)
 
@@ -352,3 +358,59 @@ def test_pack_consts_match_jax_layout():
                                             jnp.float64))[::8, 0]
     tsc = tfw.pack_whole_consts(d, q, nt, b0, c0, ntg, ib, ic).numpy()
     np.testing.assert_allclose(tsc, jsc, rtol=1e-15, atol=0)
+
+
+# -- kernel 4 compiled as host C++ (tests/torch_hostcc.py) ------------------
+
+@pytest.fixture(scope="module")
+def whole_host(tmp_path_factory):
+    """(P, Q) -> kernel 4 at double on the host, both forms (built once
+    per module; skipped without g++)."""
+    if not torch_hostcc.have_gxx():
+        pytest.skip("g++ is not installed")
+    libs = {}
+
+    def get(p, nq):
+        if (p, nq) not in libs:
+            libs[p, nq] = torch_hostcc.whole_kernel_fn(
+                p, nq, tmp_path_factory.mktemp(f"whole{p}{nq}"))
+        return libs[p, nq]
+    return get
+
+
+HOST_CASES = [("maxits", 1), ("maxits", 2), ("pointzeroone", 1),
+              ("pointzeroone", 2), ("trialmode", 1), ("trialmode", 2),
+              ("lm", 1), ("lm", 2)]
+
+
+@pytest.mark.parametrize("kind,nq", HOST_CASES,
+                         ids=[f"{k}-Q{q}" for k, q in HOST_CASES])
+def test_kernel_on_host_staged_equals_streamed(kind, nq, whole_host):
+    """Kernel 4's staged form (the block's tile in shared memory,
+    csrc/tile.cuh) equals its streamed form bit for bit at double, in
+    MODE 0 (maxits), 1 (pointzeroone) and 2 (trialmode, lm), and both
+    match the plain version at float64 within 1e-9 of each output's max
+    (iteration counts equal); lm within 1e-8: its damped steps leave the
+    prior-dominated first states with a large d = means - m0, where
+    k'Qk = rtqr - 2 d'D'Qr0 + d'D'QDd cancels (4.6e-9 seen at Q=2)."""
+    p, nt = 3, 29
+    d, q, data, pm, pp = make_case(p, nq, nt, masked=True, seed=3)
+    b0, c0, ntg, ib, ic = noise_consts(q)
+    tc = tfw.pack_whole_time_consts(d, q, nt, torch.float64)
+    sc = tfw.pack_whole_consts(d, q, nt, b0, c0, ntg, ib, ic)
+    if kind == "maxits":
+        det, n_iters, dargs, dcs = None, 10, (0, 0.0, 0, 0, 0), [0.0] * (
+            nq + 1)
+    else:
+        det, n_iters = det_dict(kind, p, nq, nt)
+        dargs = _cuda.detector_args(det["det"])
+        dcs = list(det["lb_coeff"]) + [det["f_const"]]
+    fn = whole_host(p, nq)
+    args = (n_iters, -1.0, sc.numpy(), dargs, dcs, data, tc.numpy(), pm, pp)
+    staged, streamed = fn(True, *args), fn(False, *args)
+    for a, b in zip(staged, streamed):
+        assert np.array_equal(a, b)
+    ref = port_whole(p, nq, nt, d, q, data, pm, pp, n_iters, det=det,
+                     dtype=torch.float64)
+    for a, r in zip(staged, ref):
+        assert rel(a.reshape(r.shape), r) <= (1e-8 if kind == "lm" else 1e-9)

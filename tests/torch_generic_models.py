@@ -188,3 +188,42 @@ class MaxTie(GaussianAct):
                          device=params.device) * self.dt
         top = torch.stack([params[0], params[1], params[1]]).amax(0)
         return top * torch.exp(-t) + params[1]
+
+
+class AbsInPlace(AbsAmp):
+    """AbsAmp with the kink taken in place (abs_ on a copy of p1): jax's
+    tangent +1 at 0 once the trace is functionalized (models/kinks.py)."""
+    name = "absinplace-test"
+
+    def evaluate(self, params, ctx, key=""):
+        t = torch.arange(ctx.nt, dtype=params.dtype,
+                         device=params.device) * self.dt
+        return params[0] * params[1].clone().abs_() * torch.exp(-t)
+
+
+class ClampInPlace(ClampOffset):
+    """ClampOffset with clamp_ on a copy of c: jax's tangent 1/2 at the
+    lower bound."""
+    name = "clampinplace-test"
+
+    def evaluate(self, params, ctx, key=""):
+        t = torch.arange(ctx.nt, dtype=params.dtype,
+                         device=params.device) * self.dt
+        return params[0] * torch.exp(-t) + params[1].clone().clamp_(0.0, 2.0)
+
+
+class HardTanhOffset(GaussianAct):
+    """a exp(-t dt) + hardtanh(c): c's prior and initial posterior mean,
+    1, is hardtanh's upper bound, where jax.nn.hard_tanh's tangent is 1
+    and torch's 0."""
+    name = "hardtanh-test"
+
+    def param_defaults(self):
+        return [ParamSpec(0, "a", DistParams(1.0, 10), DistParams(1.0, 5)),
+                ParamSpec(1, "c", DistParams(1.0, 10), DistParams(1.0, 5))]
+
+    def evaluate(self, params, ctx, key=""):
+        t = torch.arange(ctx.nt, dtype=params.dtype,
+                         device=params.device) * self.dt
+        return params[0] * torch.exp(-t) + torch.nn.functional.hardtanh(
+            params[1])

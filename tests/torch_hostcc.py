@@ -4,8 +4,10 @@ as nothing, __ldg as a load, one block of one thread per call, so a
 staged tile (tile.cuh) is one lane wide), and at double the kernel
 headers are text-substituted float -> double (vb_device.cuh,
 detectors.cuh, tile.cuh and fused_nl_loop.cuh cut before its launch
-section; dual.cuh has both overloads and is used as it is). Tests skip
-when g++ is missing."""
+section; dual.cuh has both overloads and is used as it is). Kernels 4
+(fused_whole.cu), 7 (fused_vb_iter.cu) and 8 (fused_nlls.cu) are cut
+before their launch sections the same way. Tests skip when g++ is
+missing."""
 
 import ctypes
 import re
@@ -48,7 +50,7 @@ def have_gxx():
 def _to_double(text):
     text = re.sub(r"\bfloat\b(?!\.h)", "double", text)
     for f in ("expf", "logf", "log1pf", "sqrtf", "fabsf", "fminf",
-              "fmaxf"):
+              "fmaxf", "fmaf"):
         text = re.sub(rf"\b{f}\(", f"{f[:-1]}(", text)
     return text
 
@@ -264,5 +266,155 @@ extern "C" void host_nlls(int mode, int marq, const int* tcodes, double dt,
         cs = np.ascontiguousarray(consts, np.float64)
         lib.host_nlls(mode, int(marquardt), tc, dt, _ptr(cs), max_its, dof,
                       in_ptrs, out_ptrs, nt, nv)
+        return outs
+    return fn
+
+
+def vb_iter_kernel_fn(functor, q, tmpdir):
+    """Kernel 7 (fused_vb_iter.cu, cut before its launch section) with a
+    hand-written functor of vb_device.cuh (its C++ name, e.g.
+    "ExpSum<2>") at Q groups, at double, both forms in one library, one
+    block of one thread per voxel: fn(staged, tcodes, dt, need_f, centre,
+    pm, pp [P,V], phi [Q,V], data [T,V], qw [T,Q], alpha [V] or None) ->
+    the seven outputs (means, prec, cov, nkqk, ntr, fkqk, ftr)."""
+    d = Path(tmpdir)
+    _write_headers(d)
+    src = (CSRC / "fused_vb_iter.cu").read_text()
+    src = src[:src.index("// ---- launch and C entry point")]
+    src = _to_double(src) + f"""
+using Model = {functor};
+template <bool LM, bool STAGED>
+static void run_all(const VBParams& k, const double* const* in,
+                    double* const* out) {{
+  for (long long v = 0; v < k.V; ++v) {{
+    blockIdx.x = (unsigned)v;
+    fused_vb_iter_kernel<Model, {q}, LM, STAGED>(
+        k, in[0], in[1], in[2], in[3], in[4], in[5], in[6], out[0], out[1],
+        out[2], out[3], out[4], out[5], out[6]);
+  }}
+}}
+}}  // namespace
+extern "C" void host_vb_iter(int staged, const int* tcodes, double dt,
+                             int need_f, const double* const* in,
+                             double* const* out, int nt, long long V) {{
+  VBParams k = {{}};
+  for (int i = 0; i < Model::P; ++i) k.tcode[i] = tcodes[i];
+  k.dt = dt;
+  k.need_f = need_f;
+  k.nt = nt;
+  k.V = V;
+  const bool lm = in[6] != nullptr;
+  if (staged) {{
+    if (lm) run_all<true, true>(k, in, out);
+    else run_all<false, true>(k, in, out);
+  }} else {{
+    if (lm) run_all<true, false>(k, in, out);
+    else run_all<false, false>(k, in, out);
+  }}
+}}
+"""
+    name = re.sub(r"\W", "", functor)
+    lib = _build(d, f"iter_{name}_q{q}", '#include "cuda_runtime.h"\n' + src)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.host_vb_iter.restype = None
+    lib.host_vb_iter.argtypes = [i32, vp, ctypes.c_double, i32, vp, vp, i32,
+                                 ctypes.c_longlong]
+
+    def fn(staged, tcodes, dt, need_f, centre, pm, pp, phi, data, qw,
+           alpha):
+        nt, nv = data.shape
+        p = centre.shape[0]
+        outs = [np.zeros(s) for s in ((p, nv), (p, p, nv), (p, p, nv),
+                                      (q, nv), (q, nv), (q, nv), (q, nv))]
+        ins = [np.ascontiguousarray(x, np.float64) if x is not None
+               else None for x in (centre, pm, pp, phi, data, qw, alpha)]
+        in_ptrs = (ctypes.c_void_p * 7)(*[
+            None if x is None else x.ctypes.data for x in ins])
+        out_ptrs = (ctypes.c_void_p * 7)(*[o.ctypes.data for o in outs])
+        tc = (ctypes.c_int * p)(*tcodes)
+        lib.host_vb_iter(int(staged), tc, dt, int(need_f), in_ptrs,
+                         out_ptrs, nt, nv)
+        return outs
+    return fn
+
+
+def whole_kernel_fn(p, q, tmpdir):
+    """Kernel 4 (fused_whole.cu, cut before its launch section) at (P, Q),
+    at double, both forms in one library, one block of one thread per
+    voxel: fn(staged, n_iters, locked_sd, consts [Q*P*P + 4Q], det (kind,
+    tol, max_its, max_trials, init_save), det_consts [Q+1], data [T,V],
+    tconsts [(P + QP + Q), T], pm, pp [P,V]) -> the seven outputs (means,
+    prec, cov, b, c, then fkqk and ftr [Q,V] under maxits or F and the
+    iteration count [1,V] under a detector)."""
+    d = Path(tmpdir)
+    _write_headers(d)
+    src = (CSRC / "fused_whole.cu").read_text()
+    src = src[:src.index("// ---- launch and C entry points")]
+    src = _to_double(src) + f"""
+template <int MODE, bool STAGED>
+static void run_all(const WholeConsts& k, const double* const* in,
+                    double* const* out) {{
+  for (long long v = 0; v < k.V; ++v) {{
+    blockIdx.x = (unsigned)v;
+    fused_whole_kernel<{p}, {q}, MODE, false, STAGED>(
+        k, in[0], in[1], nullptr, nullptr, nullptr, in[2], in[3], out[0],
+        out[1], out[2], out[3], out[4], out[5], out[6]);
+  }}
+}}
+template <bool STAGED>
+static void run_mode(const WholeConsts& k, const double* const* in,
+                     double* const* out) {{
+  if (k.d.kind == kMaxits) run_all<0, STAGED>(k, in, out);
+  else if (k.d.kind == kPointZeroOne) run_all<1, STAGED>(k, in, out);
+  else run_all<2, STAGED>(k, in, out);
+}}
+}}  // namespace
+extern "C" void host_whole(int staged, int n_iters, double locked_sd,
+                           const double* consts, const int* det,
+                           double det_tol, const double* det_consts,
+                           const double* const* in, double* const* out,
+                           int nt, long long V) {{
+  const int p = {p}, q = {q}, n = q * p * p;
+  WholeConsts k = {{}};
+  for (int i = 0; i < n; ++i) k.dtqd[i] = consts[i];
+  for (int i = 0; i < q; ++i) {{
+    k.inv_b0[i] = consts[n + i];
+    k.c_post[i] = consts[n + q + i];
+    k.b_init[i] = consts[n + 2 * q + i];
+    k.c_init[i] = consts[n + 3 * q + i];
+    k.lb_coeff[i] = det_consts[i];
+  }}
+  k.f_const = det_consts[q];
+  k.locked_sd = locked_sd;
+  k.n_iters = n_iters;
+  k.nt = nt;
+  k.V = V;
+  k.d = {{det[0], det_tol, det[1], det[2], det[3]}};
+  if (staged) run_mode<true>(k, in, out);
+  else run_mode<false>(k, in, out);
+}}
+"""
+    lib = _build(d, f"whole_p{p}_q{q}", '#include "cuda_runtime.h"\n' + src)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.host_whole.restype = None
+    lib.host_whole.argtypes = [i32, i32, ctypes.c_double, vp, vp,
+                               ctypes.c_double, vp, vp, vp, i32,
+                               ctypes.c_longlong]
+
+    def fn(staged, n_iters, locked_sd, consts, det, det_consts, data,
+           tconsts, pm, pp):
+        nt, nv = data.shape
+        fq = q if det[0] == 0 else 1
+        outs = [np.zeros(s) for s in ((p, nv), (p, p, nv), (p, p, nv),
+                                      (q, nv), (q, nv), (fq, nv), (fq, nv))]
+        ins = [np.ascontiguousarray(x, np.float64)
+               for x in (data, tconsts, pm, pp)]
+        in_ptrs = (ctypes.c_void_p * 4)(*[x.ctypes.data for x in ins])
+        out_ptrs = (ctypes.c_void_p * 7)(*[o.ctypes.data for o in outs])
+        cs = np.ascontiguousarray(consts, np.float64)
+        dcs = np.ascontiguousarray(det_consts, np.float64)
+        dk = (ctypes.c_int * 4)(det[0], det[2], det[3], det[4])
+        lib.host_whole(int(staged), n_iters, locked_sd, _ptr(cs), dk,
+                       det[1], _ptr(dcs), in_ptrs, out_ptrs, nt, nv)
         return outs
     return fn

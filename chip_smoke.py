@@ -33,9 +33,9 @@ suppdata run against the float64 'xla-generic' route on the card); then
 times the kernels, their plain versions, a device-to-device copy and the
 whole engine run, poly at 16,777,216 voxels (white and AR noise) and
 biexp at 4,000,000 (VB and NLLS; the generated biexp functor beside the
-hand-written one; kernels 4, 6, 7 and 8 in their staged and streamed
+hand-written one; kernels 1, 4, 6, 7 and 8 in their staged and streamed
 forms, csrc/tile.cuh, with each form's plan, blocks per SM and
-registers, kernels 4 and 7 bit for bit). Every phase passes or the
+registers, kernels 1, 4 and 7 bit for bit). Every phase passes or the
 script exits
 non-zero without printing the result line. The last line of standard
 output is the JSON result object; the line before it lists the
@@ -129,6 +129,12 @@ def check_kernels(device, nvs=(1_048_576, 1_000_003), seed=SEED):
     inputs, at the main path's shapes (T=106; P=3 poly and a P=4
     synthetic design; a power-of-two and a ragged voxel count).
 
+    The statistics kernel runs in the plan's staged form (its block's
+    tile in shared memory, copied in 16-byte chunks, each row rotated by
+    its first sample's offset from 16-byte alignment: none at 1,048,576
+    voxels, every offset in turn at the ragged 1,000,003) and streamed
+    on the same data: the two must agree bit for bit.
+
     Stated bounds (errors over the max |plain| of the quantity, both
     sides float32 with different summation orders):
       stats: m0 1e-3 (an OLS point through the cond~2e8 poly Gram:
@@ -160,8 +166,10 @@ def check_kernels(device, nvs=(1_048_576, 1_000_003), seed=SEED):
             log(f" P={p} T={NT} V={nv}")
             data, _ = gen_plane(design, nv, gen, scale, 1.0, device)
             ks = fs.spectral_stats(data, tc, ac)
+            same = bits_equal(ks, fs.spectral_stats(data, tc, ac, _vb=0))
             ps = fs.spectral_stats_plain(data, tc, ac)
             torch.cuda.synchronize()
+            log(f"  stats staged (plan) and streamed bit for bit: {same}")
             a64 = ac.double().reshape(p, p).to(device)
             dtqy_k = ks[2].double() + a64 @ ks[0].double()
             dtqy_p = ps[2].double() + a64 @ ps[0].double()
@@ -178,6 +186,7 @@ def check_kernels(device, nvs=(1_048_576, 1_000_003), seed=SEED):
                 err_check("stats dtqr+A.m0", dtqy_k, dtqy_p, 1e-5),
                 err_check("stats -> means/sd", post_k[0] / sd,
                           post_p[0] / sd, 1e-3, scale=1.0),
+                (same, 0.0, 0.0),
             ]
             del post_k, post_p, dtqy_k, dtqy_p, pm0
             pm = (torch.rand((p, nv), generator=gen, device=device) - 0.5) \
@@ -228,15 +237,18 @@ def run_main_path(device, shape=(128, 128, 64)):
 
     vol, c0 = make_volume(shape)
     log(f" volume {shape + (NT,)}: {vol.nbytes / 1e6:.0f} MB float32")
-    fs.spectral_stats.launches = 0
+    fs.spectral_stats.launches = fs.spectral_stats.staged_launches = 0
     fs.spectral_core.launches = 0
     t0 = time.perf_counter()
     run = FabberTpu(device=device).run_with_data(MAIN_OPTIONS, {"data": vol})
     secs = time.perf_counter() - t0
     launches = {"spectral_stats": fs.spectral_stats.launches,
                 "spectral_core": fs.spectral_core.launches}
-    log(f" run_with_data: {secs:.3f} s; launches {launches}")
-    ok = all(n > 0 for n in launches.values())
+    staged = fs.spectral_stats.staged_launches
+    log(f" run_with_data: {secs:.3f} s; launches {launches} (statistics "
+        f"staged {staged})")
+    ok = all(n > 0 for n in launches.values()) and \
+        staged == launches["spectral_stats"]
     want = {"mean_c0", "mean_c1", "mean_c2", "std_c0", "std_c1", "std_c2",
             "noise_means", "freeEnergy"}
     if set(run.data) != want:
@@ -703,9 +715,9 @@ def best_ms(fn, reps=3, keep=False):
 
 
 def time_forms(run, reps=3):
-    """Kernels 4, 6, 7 and 8 in their two forms (csrc/tile.cuh) on the
-    same inputs: run(vb) launches with the plan's form (vb None: staged
-    at T=100 and 106) or the streamed one (vb 0), timed in turns
+    """Kernels 1, 4, 6, 7 and 8 in their two forms (csrc/tile.cuh) on
+    the same inputs: run(vb) launches with the plan's form (vb None:
+    staged at T=100 and 106) or the streamed one (vb 0), timed in turns
     (streamed, staged, staged, streamed; each best of reps after a
     warm-up). Returns (staged ms, streamed ms, the last staged result,
     the last streamed result)."""
@@ -734,16 +746,19 @@ def ptxas_entry(text, *parts):
     return "not found"
 
 
-def log_forms(name, nt, nq, occ, ptx):
-    """One line per kernel of phases 5b, 5c, 5d, 5e, 5g: the plan
-    (ops/_cuda.py tile_plan), the blocks per SM of each form (occ(vb),
+def log_forms(name, nt, nq, occ, ptx, threads=None, widths=None):
+    """One line per kernel of phases 5, 5b, 5c, 5d, 5e, 5g: the plan
+    (ops/_cuda.py tile_plan, at widths: default its own), the blocks per
+    SM of each form (occ(vb),
     cudaOccupancyMaxActiveBlocksPerMultiprocessor) and ptxas's registers
-    and spills of each form (ptx(staged))."""
+    and spills of each form (ptx(staged)); threads: the streamed form's
+    block (default _cuda.STREAM_THREADS)."""
     from fabber_core_tpu_torch.ops import _cuda
-    staged, vb, smem = _cuda.tile_plan(nt, nq)
+    staged, vb, smem = _cuda.tile_plan(nt, nq, widths or (_cuda.TILE_VB,))
     log(f"  {name}: plan staged={staged} VB={vb} smem={smem} B, "
         f"{occ(vb if staged else 0)} blocks/SM ({ptx(True)}); streamed "
-        f"{occ(0)} blocks/SM of {_cuda.STREAM_THREADS} ({ptx(False)})")
+        f"{occ(0)} blocks/SM of {threads or _cuda.STREAM_THREADS} "
+        f"({ptx(False)})")
     return {"vb": vb, "smem": smem, "staged_blocks_per_sm":
             occ(vb if staged else 0), "streamed_blocks_per_sm": occ(0)}
 
@@ -751,10 +766,16 @@ def log_forms(name, nt, nq, occ, ptx):
 def time_headline(device, card, nv=16_777_216):
     """Phase 5: kernels, plain versions, copy probe and the whole
     engine run at the README's headline size, with the [T,V] plane
-    made on the card and passed as data_plane."""
+    made on the card and passed as data_plane. The statistics kernel in
+    its staged (the plan's) and streamed forms on the same plane
+    (time_forms), which must agree bit for bit, with their plan,
+    occupancy and registers (log_forms); and again on a ragged plane of
+    nv - 3 voxels, a masked volume's count, whose tile rows rotate
+    through every offset from 16-byte alignment."""
     import torch
     from fabber_core_tpu_torch.inference.vb import VBInference
     from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.ops import _cuda
     from fabber_core_tpu_torch.ops import fused_spectral as fs
     from fabber_core_tpu_torch.options import RunOptions
 
@@ -776,7 +797,25 @@ def time_headline(device, card, nv=16_777_216):
     stats = fs.spectral_stats(plane, tc, ac)
     pm = torch.zeros((p, nv), dtype=torch.float32, device=device)
     fig = {}
-    fig["stats_ms"] = best_ms(lambda: fs.spectral_stats(plane, tc, ac))
+    fig["stats_ms"], fig["stats_streamed_ms"], ks, kt = time_forms(
+        lambda vb: fs.spectral_stats(plane, tc, ac, _vb=vb))
+    fig["stats_staged_bits_equal_streamed"] = bits_equal(ks, kt)
+    del ks, kt
+    ragged = plane[:, :nv - 3].contiguous()
+    fig["stats_ragged_ms"], fig["stats_ragged_streamed_ms"], ks, kt = \
+        time_forms(lambda vb: fs.spectral_stats(ragged, tc, ac, _vb=vb))
+    fig["stats_staged_bits_equal_streamed"] &= bits_equal(ks, kt)
+    del ks, kt, ragged
+    torch.cuda.empty_cache()
+    log(f"  spectral_stats at {nv - 3} voxels: staged "
+        f"{fig['stats_ragged_ms']!r} ms, streamed "
+        f"{fig['stats_ragged_streamed_ms']!r} ms")
+    fig["stats_forms"] = log_forms(
+        "spectral_stats P=3", NT, 2 * p + 1,
+        lambda vb: _cuda.stats_occupancy(p, vb, NT),
+        lambda st: ptxas_entry(_cuda.build_log, "spectral_stats_kernel",
+                               f"ILi3ELb{int(st)}E"), threads=256,
+        widths=_cuda.STATS_WIDTHS)
     fig["stats_plain_ms"] = best_ms(
         lambda: fs.spectral_stats_plain(plane, tc, ac))
     fig["core_ms"] = best_ms(lambda: fs.spectral_core(*stats, pm, sc, ITERS))
@@ -800,6 +839,7 @@ def time_headline(device, card, nv=16_777_216):
     core_bytes = 4 * ((3 * p + 1) + (2 * p * p + p + 4)) * nv
     fig["copy_GBps"] = copy_gbs
     fig["stats_GBps"] = stats_bytes / fig["stats_ms"] / 1e6
+    fig["stats_streamed_GBps"] = stats_bytes / fig["stats_streamed_ms"] / 1e6
     fig["core_GBps"] = core_bytes / fig["core_ms"] / 1e6
     fig["stats_share_of_copy_bw"] = fig["stats_GBps"] / copy_gbs
     fig["core_share_of_copy_bw"] = fig["core_GBps"] / copy_gbs
@@ -1287,7 +1327,7 @@ def run_poly_trialmode_path(device, shape=(128, 128, 64)):
     from fabber_core_tpu_torch.ops import fused_spectral as fs
 
     vol, c0 = make_volume(shape)
-    fs.spectral_stats.launches = 0
+    fs.spectral_stats.launches = fs.spectral_stats.staged_launches = 0
     fs.spectral_core.launches = fs.spectral_core.det_launches = 0
     captured, restore = capture_results()
     t0 = time.perf_counter()
@@ -1309,6 +1349,7 @@ def run_poly_trialmode_path(device, shape=(128, 128, 64)):
     log(f" c0 within 3 posterior sd of truth: {frac:.5f} of voxels "
         f"(bound >= 0.99); median noise sd {noise_sd:.4f} (truth 1)")
     ok = (launches["spectral_stats"] == 1
+          and fs.spectral_stats.staged_launches == 1
           and launches["spectral_core:detector"] == 1
           and fs.spectral_core.launches == 1
           and all(np.isfinite(a).all() for a in run.data.values())
@@ -1775,6 +1816,7 @@ def launch_counts():
             "fused_nlls:marquardt": fn.fused_nlls_loop.marquardt_launches,
             "fused_nlls:staged": fn.fused_nlls_loop.staged_launches,
             "spectral_stats": fs.spectral_stats.launches,
+            "spectral_stats:staged": fs.spectral_stats.staged_launches,
             "spectral_core": fs.spectral_core.launches,
             "spectral_fused": fs.spectral_fused.launches,
             "fused_whole": fw.fused_whole.launches,
@@ -1801,6 +1843,7 @@ def reset_launches():
               fv.fused_iteration, fn.fused_nlls_loop):
         f.launches = 0
     fs.spectral_core.det_launches = fs.spectral_fused.det_launches = 0
+    fs.spectral_stats.staged_launches = 0
     fw.fused_whole.det_launches = fw.fused_whole.lm_launches = 0
     fw.fused_whole.staged_launches = 0
     fnl.fused_nl_loop.det_launches = 0
@@ -2765,9 +2808,10 @@ def check_ar_kernels(device, nvs=(1_048_576, 1_000_003), seed=SEED + 17):
     maxits and under pointzeroone and freduce at the engine's loop cap,
     each held by near_f64 (detector modes by decision share: iteration
     count and engine-initial tag), on AR(1) data whose innovation sd is
-    log-uniform over 1e-2..1 per voxel. Built without multiply-add
-    contraction, the kernel should match the plain float32 version bit
-    for bit (logged, not required)."""
+    log-uniform over 1e-2..1 per voxel. The kernel computes the plain
+    float32 version's arithmetic (no fused multiply-add: every grouping
+    broke a bound here, probes/fmad_kernel9.py), so the two should agree
+    bit for bit (logged, not required)."""
     import torch
     from fabber_core_tpu_torch.ops import fused_loop_ar as fa
 
@@ -3538,7 +3582,9 @@ def main():
               "plugin_paths": ok4q, "nlls_forms_bit_identical": ok5e,
               "vb_iter_forms_bit_identical":
                   fig_nl["vb_iter_staged_bits_equal_streamed"],
-              "whole_forms_bit_identical": fig_fd["whole_forms_bit_identical"]}
+              "whole_forms_bit_identical": fig_fd["whole_forms_bit_identical"],
+              "stats_forms_bit_identical":
+                  fig["stats_staged_bits_equal_streamed"]}
     if not all(phases.values()):
         log(f"FAILED phases: {[k for k, v in phases.items() if not v]}")
         return 1

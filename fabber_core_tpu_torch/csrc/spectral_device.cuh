@@ -3,21 +3,24 @@
 // spectral_core.cu (kernel 2) and spectral_fused.cu (kernel 3, both in
 // one thread).
 //
-//   stats_voxel  the one-read single-group statistics of one voxel:
+//   stats_voxel  the single-group statistics of one voxel:
 //                dty = (DW)'y, m0 by an unrolled f32 Cholesky of the f32
 //                A = D'QD (a non-finite m0 becomes 0), then about
 //                r0 = y - D m0: rtqr = sum_t q r0^2, dtqr = (DW)'r0.
 //                The per-timepoint rows (D, DW, q: (2P+1) x T floats)
-//                are read from the block's shared-memory copy.
+//                are read from the block's shared-memory copy, the data
+//                column through a column object's sample(t): the plane
+//                (PlaneColumn: kernel 3, kernel 1 streamed) or kernel
+//                1's staged tile (spectral_stats.cu StatsTile), so each
+//                pass is one function for both forms and they agree bit
+//                for bit.
 //   core_voxel   the eigenbasis rotation, the scalar fixed point (maxits,
 //                or the lane's detector state machine, DET) and the
 //                posterior reconstruction of one voxel, written to its
 //                output columns.
 //
 // The comments of spectral_stats.cu and spectral_core.cu describe the
-// arithmetic; the functions are those kernels' bodies, moved here
-// unchanged and force-inlined, so each kernel compiles to the code it
-// compiled to before.
+// arithmetic; the functions are force-inlined into each kernel.
 
 #pragma once
 
@@ -37,10 +40,20 @@ struct CoreConsts {
   float v[4 * kMaxP * kMaxP + 2 * kMaxP + 6];
 };
 
-template <int P>
+// A voxel's column in the [T, V] plane, read through the read-only path
+// (x = data + v).
+struct PlaneColumn {
+  const float* __restrict__ x;
+  long long V;
+
+  __device__ __forceinline__ float sample(int t) const {
+    return __ldg(x + (size_t)t * V);
+  }
+};
+
+template <int P, class Col>
 __device__ __forceinline__ void stats_voxel(const float* rows, int T,
-                                            const float* __restrict__ col,
-                                            long long V,
+                                            const Col& col,
                                             const SolveConsts& ac, float* m0,
                                             float& rtqr_out, float* dtqr) {
   const float* dcol = rows;
@@ -53,7 +66,7 @@ __device__ __forceinline__ void stats_voxel(const float* rows, int T,
   for (int a = 0; a < P; ++a) dty[a] = 0.f;
 #pragma unroll 4
   for (int t = 0; t < T; ++t) {
-    const float y = __ldg(col + (size_t)t * V);
+    const float y = col.sample(t);
 #pragma unroll
     for (int a = 0; a < P; ++a) dty[a] = fmaf(dw[a * T + t], y, dty[a]);
   }
@@ -102,7 +115,7 @@ __device__ __forceinline__ void stats_voxel(const float* rows, int T,
   for (int a = 0; a < P; ++a) dtqr[a] = 0.f;
 #pragma unroll 4
   for (int t = 0; t < T; ++t) {
-    const float y = __ldg(col + (size_t)t * V);
+    const float y = col.sample(t);
     float fit = 0.f;
 #pragma unroll
     for (int a = 0; a < P; ++a) fit = fmaf(dcol[a * T + t], m0[a], fit);

@@ -20,10 +20,12 @@
 // What bounds it on this card: the [T,V] data read, 4*T bytes per voxel,
 // plus the (2P^2+P+4)*4-byte posterior write and the prior means read;
 // the split pair adds a (2P+1)-plane write and a (3P+1)-plane read of
-// the statistics in between (72 B per voxel at P=3). Like the stats
-// kernel it re-reads the column in pass 2. It holds the registers of
-// both bodies at once, so it may run at a lower occupancy than either
-// half (chip_smoke.py phase 2 prints ptxas's counts).
+// the statistics in between (72 B per voxel at P=3). It reads the column
+// in the plane in both passes, as the stats kernel's streamed form does
+// (pass 2 from L2 where it is still resident, else from HBM). It holds
+// the registers of both bodies at once, so it may run at a lower
+// occupancy than either half (chip_smoke.py phase 2 prints ptxas's
+// counts).
 
 #include <cuda_runtime.h>
 
@@ -56,7 +58,9 @@ spectral_fused_kernel(const float* __restrict__ data,
   const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= V) return;
   float m0[P], rtqr, dtqr[P], pm[P];
-  fabber_spectral::stats_voxel<P>(rows, T, data + v, V, ac, m0, rtqr, dtqr);
+  fabber_spectral::stats_voxel<P>(
+      rows, T, fabber_spectral::PlaneColumn{data + v, V}, ac, m0, rtqr,
+      dtqr);
 #pragma unroll
   for (int a = 0; a < P; ++a) pm[a] = pm_in[(size_t)a * V + v];
   fabber_spectral::core_voxel<P, DET>(m0, rtqr, dtqr, pm, k, det, n_iters, V,

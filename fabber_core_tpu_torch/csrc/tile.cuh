@@ -13,7 +13,10 @@
 // barrier. Each thread copies its own column: row t of the tile is
 // tile[t * VB + lane], so a warp's 32 copies (and later its 32 reads) of
 // one row are consecutive words, one per bank. Every pass of the loop
-// then reads its samples from shared memory instead of HBM.
+// then reads its samples from shared memory instead of HBM. Kernel 1
+// (spectral_stats.cu) lays its tile out its own way, rows rotated for
+// 16-byte copies, with the copies, the size rule and the occupancy query
+// below.
 //
 // The streamed form reads the plane in global memory as before; it
 // serves a T whose tile leaves too few warps per SM (ops/_cuda.py
@@ -65,6 +68,20 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                : "memory");
 #else
   *dst = valid ? *src : 0.f;
+#endif
+}
+
+// dst <- the n (0 to 4) floats at src, zeros after them (asynchronously,
+// around L1; src unread where n is 0); both 16-byte aligned
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int n) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(4 * n)
+               : "memory");
+#else
+  for (int i = 0; i < 4; ++i) dst[i] = i < n ? src[i] : 0.f;
 #endif
 }
 

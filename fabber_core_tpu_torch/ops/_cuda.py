@@ -32,10 +32,11 @@ HEADERS = ("vb_device.cuh", "detectors.cuh", "spectral_device.cuh",
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# flags of one source on top of NVCC_FLAGS: the NLLS kernel contracts no
-# multiply-add, so its fresh and two-phase modes compute the same bits
-# (csrc/fused_nlls.cu); the AR(1) kernel neither, so it computes its
-# plain version's float32 arithmetic bit for bit (csrc/fused_ar_loop.cu)
+# flags of one source on top of NVCC_FLAGS: nvcc contracts no multiply-add
+# of its own in the NLLS kernel, which writes its fused ones explicitly,
+# so its fresh and two-phase modes compute the same bits (csrc/
+# fused_nlls.cu), nor in the AR(1) kernel, which computes its plain
+# version's float32 arithmetic (csrc/fused_ar_loop.cu)
 SOURCE_FLAGS = {"fused_nlls.cu": ["-fmad=false"],
                 "fused_ar_loop.cu": ["-fmad=false"]}
 
@@ -55,6 +56,12 @@ SMEM_RESERVED = 1_024
 TILE_VB = 32
 TILE_MIN_WARPS = 5
 STREAM_THREADS = 128       # the kernels' kThreads (streamed blocks)
+# Kernel 1's staged widths, widest first (tile_plan's widths): each lane
+# makes one pass of each kind, so no straggler holds a block's tile, and
+# wider blocks ran faster (NVIDIA H100 80GB HBM3, T=106, P=3, 16,777,216
+# voxels, probes/stats_tile.py: 16-byte tile copies 3.31 ms at 128 lanes
+# a block against 3.54 at 64 and 3.68 at 32).
+STATS_WIDTHS = (128, 64, 32)
 
 # csrc/detectors.cuh DetectorKind
 DETECTOR_CODES = {"maxits": 0, "pointzeroone": 1, "freduce": 2,
@@ -151,8 +158,10 @@ def load():
         vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
                              ctypes.c_longlong, ctypes.c_float)
         lib.fabber_spectral_stats.argtypes = [
-            i32, vp, vp, vp, i32, i64, vp, vp, vp, vp]
+            i32, vp, vp, vp, i32, i64, vp, vp, vp, i32, vp]
         lib.fabber_spectral_stats.restype = i32
+        lib.fabber_stats_occupancy.argtypes = [i32] * 3
+        lib.fabber_stats_occupancy.restype = i32
         lib.fabber_spectral_core.argtypes = [
             i32, i32, vp, vp, vp, vp, vp, i32, f32, i32, i32, i32,
             i64] + [vp] * 7 + [vp]
@@ -254,29 +263,32 @@ extern "C" int fabber_gen_occupancy(int mode, int vb, int nt) {{
 """
 
 
-def tile_plan(nt, nq):
+def tile_plan(nt, nq, widths=(TILE_VB,)):
     """(staged, VB, smem bytes) of a launch of a kernel that stages its
-    data tile (kernels 4, 6, 7 and 8, csrc/tile.cuh) at nt samples and
+    data tile (kernels 1, 4, 6, 7 and 8, csrc/tile.cuh) at nt samples and
     nq weights per sample (Q groups for kernels 6 and 7, 1 for kernel 8,
-    the P + QP + Q design rows for kernel 4): blocks of TILE_VB lanes
-    with a [nt, TILE_VB] tile and [nt, nq] weights, 4 (nt VB + nt nq)
-    bytes, where at least TILE_MIN_WARPS such blocks fit an SM; else the
+    the P + QP + Q design rows for kernel 4, the 2P + 1 for kernel 1):
+    blocks of the first VB of widths (TILE_VB; kernel 1 STATS_WIDTHS)
+    with a [nt, VB] tile and [nt, nq] weights, 4 (nt VB + nt nq) bytes,
+    whose blocks leave at least TILE_MIN_WARPS warps per SM; else the
     streamed form (False, STREAM_THREADS, 0)."""
-    smem = 4 * (nt * TILE_VB + nt * nq)
-    if SMEM_PER_SM // (smem + SMEM_RESERVED) >= TILE_MIN_WARPS:
-        return True, TILE_VB, smem
+    for vb in widths:
+        smem = 4 * (nt * vb + nt * nq)
+        blocks = SMEM_PER_SM // (smem + SMEM_RESERVED)
+        if blocks * (vb // 32) >= TILE_MIN_WARPS:
+            return True, vb, smem
     return False, STREAM_THREADS, 0
 
 
-def launch_vb(nt, nq, vb=None):
-    """The vb argument of a kernel 4, 6, 7 or 8 C entry point (nq as
-    tile_plan's): 0 streams, > 0 stages in blocks of vb lanes. None
-    takes tile_plan's choice; an int forces it (the tests' and
+def launch_vb(nt, nq, vb=None, widths=(TILE_VB,)):
+    """The vb argument of a kernel 1, 4, 6, 7 or 8 C entry point (nq and
+    widths as tile_plan's): 0 streams, > 0 stages in blocks of vb lanes.
+    None takes tile_plan's choice; an int forces it (the tests' and
     chip_smoke.py's means to time or check a form; a value the entry
     point refuses raises at the launch)."""
     if vb is not None:
         return int(vb)
-    staged, pvb, _ = tile_plan(nt, nq)
+    staged, pvb, _ = tile_plan(nt, nq, widths)
     return pvb if staged else 0
 
 
@@ -404,15 +416,22 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def launch_stats(p, data, tconsts, aconsts, m0, rtqr, dtqr):
+def launch_stats(p, data, tconsts, aconsts, m0, rtqr, dtqr, vb):
+    """vb: 0 streamed, > 0 staged in blocks of vb lanes (launch_vb)."""
     lib = load()
     nt, nv = data.shape
     with torch.cuda.device(data.device):
         err = lib.fabber_spectral_stats(
             p, data.data_ptr(), tconsts.data_ptr(), aconsts.data_ptr(),
-            nt, nv, m0.data_ptr(), rtqr.data_ptr(), dtqr.data_ptr(),
+            nt, nv, m0.data_ptr(), rtqr.data_ptr(), dtqr.data_ptr(), vb,
             _stream(data.device))
     _raise_on(err, "spectral_stats")
+
+
+def stats_occupancy(p, vb, nt):
+    """Blocks per SM of kernel 1's P instance in form vb at nt samples;
+    -1 where refused."""
+    return int(load().fabber_stats_occupancy(p, vb, nt))
 
 
 def detector_args(detector):

@@ -7,8 +7,11 @@ Three hand-written CUDA kernels for Hopper (csrc/spectral_stats.cu,
 csrc/spectral_core.cu, csrc/spectral_fused.cu; their per-voxel bodies
 are csrc/spectral_device.cuh) carry the route:
 
-  spectral_stats  reads the [T,V] data once per pass and writes the
-                  single-group sufficient statistics m0 [P,V],
+  spectral_stats  reads the [T,V] data once (its staged form: each
+                  block's [T, VB] tile copied into shared memory in
+                  16-byte chunks; the streamed form reads the plane in
+                  both passes) and
+                  writes the single-group sufficient statistics m0 [P,V],
                   rtqr [1,V], dtqr [P,V] (replaces
                   make_spectral_stats_kernel);
   spectral_core   rotates them into the whitened design eigenbasis,
@@ -32,7 +35,8 @@ Each wrapper takes its plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises. Each keeps an integer
 ``launches`` count of kernel launches (never of plain calls);
 spectral_core and spectral_fused also count their detector-mode
-launches in ``det_launches``.
+launches in ``det_launches``, spectral_stats its staged ones in
+``staged_launches``.
 
 Constant layout (host-built in float64, cast once):
   pack_mxu_consts     [2P+1, T] device rows: raw design D (P rows),
@@ -303,10 +307,12 @@ def _cuda_device(t):
     return t.device
 
 
-def spectral_stats(data, tconsts, aconsts):
+def spectral_stats(data, tconsts, aconsts, _vb=None):
     """One-read single-group statistics: data [T,V], tconsts [2P+1,T]
     (pack_mxu_consts), aconsts [P*P] host (pack_solve_consts) ->
-    (m0 [P,V], rtqr [1,V], dtqr [P,V])."""
+    (m0 [P,V], rtqr [1,V], dtqr [P,V]). _vb: private, for the tests and
+    chip_smoke.py: forces the kernel's form (0 streamed, > 0 staged in
+    blocks of that many lanes; ops/_cuda.py launch_vb)."""
     if data.device.type == "cpu":
         return spectral_stats_plain(data, tconsts, aconsts)
     dev = _cuda_device(data)
@@ -322,12 +328,16 @@ def spectral_stats(data, tconsts, aconsts):
     dtqr = torch.empty((p, nv), dtype=torch.float32, device=dev)
     if nv:
         from . import _cuda
-        _cuda.launch_stats(p, data, tconsts, aconsts, m0, rtqr, dtqr)
+        vb = _cuda.launch_vb(nt, 2 * p + 1, _vb, _cuda.STATS_WIDTHS)
+        _cuda.launch_stats(p, data, tconsts, aconsts, m0, rtqr, dtqr, vb)
         spectral_stats.launches += 1
+        if vb > 0:
+            spectral_stats.staged_launches += 1
     return m0, rtqr, dtqr
 
 
 spectral_stats.launches = 0
+spectral_stats.staged_launches = 0
 
 
 DETECTOR_KINDS = ("pointzeroone", "freduce", "trialmode")

@@ -12,7 +12,13 @@ make_design_stats of one numpy seed's data) and constants go to both.
     tolerances;
   pack_ar_consts against the JAX constant column, the constants and
     the AR state and statistics through convert.py, and the wrapper on
-    CPU tensors (the plain version, no launch).
+    CPU tensors (the plain version, no launch);
+  the kernel itself (csrc/fused_ar_loop.cu) compiled as host C++
+    (tests/torch_hostcc.py, skipped
+    without g++) on the raw degree-2 poly design at T=106 (chip_smoke.py
+    phase 3f's), nq 1 and 2, maxits and pointzeroone: at double against
+    the plain version at float64, at float32 held to it as the card
+    tests hold the kernel (near_f64).
 """
 
 import jax.numpy as jnp
@@ -36,7 +42,13 @@ from fabber_core_tpu_torch.inference.vb import VBInference
 from fabber_core_tpu_torch.models import get_model_class
 from fabber_core_tpu_torch.noise.ar1 import Ar1DesignStats, Ar1NoiseState
 from fabber_core_tpu_torch.ops import fused_loop_ar as tfa
+from fabber_core_tpu_torch.noise.ar1 import Ar1NoiseModel
+from fabber_core_tpu_torch.ops import _cuda
 from fabber_core_tpu_torch.options import RunOptions
+
+import torch_hostcc
+from test_torch_cuda import (assert_detector_near_f64, assert_near_f64,
+                             decisions)
 
 torch.set_num_threads(1)
 
@@ -240,3 +252,134 @@ def test_wrapper_on_cpu_runs_the_plain_version():
     with pytest.raises(ValueError, match="no kernel"):
         tfa.fused_ar_loop(*(a.to("meta") if i != 3 else a
                             for i, a in enumerate(args)), 3)
+
+
+# -- kernel 9 compiled as host C++ (tests/torch_hostcc.py) ------------------
+
+@pytest.fixture(scope="module")
+def ar_host(tmp_path_factory):
+    """(nq, double) -> kernel 9 at P=3 on the host (built once per
+    module; skipped without g++)."""
+    if not torch_hostcc.have_gxx():
+        pytest.skip("g++ is not installed")
+    libs = {}
+
+    def get(nq, double):
+        if (nq, double) not in libs:
+            libs[nq, double] = torch_hostcc.ar_kernel_fn(
+                3, nq, tmp_path_factory.mktemp(f"ar{nq}{int(double)}"),
+                double)
+        return libs[nq, double]
+    return get
+
+
+def raw_poly_inputs(nq, nv, seed=0):
+    """Kernel 9's float32 inputs on chip_smoke.py phase 3f's case: the
+    raw degree-2 poly design at T=106 (t^2 to 11,236: D'M_sD ~ 1e10),
+    c0 ~ U(0.5, 1.5), c1 ~ U(-0.05, 0.05), c2 ~ U(-5e-4, 5e-4), AR(1)
+    noise (alpha 0.4 per echo) of sd log-uniform over 1e-2..1, the
+    port's make_design_stats, the poly priors (mean 0, precision
+    1e-12). Returns (args, noise model)."""
+    nt = 106
+    rng = np.random.default_rng(seed + nq)
+    d = np.arange(1, nt + 1.0)[:, None] ** np.arange(3)[None]
+    lo, hi = np.array([0.5, -0.05, -5e-4]), np.array([1.5, 0.05, 5e-4])
+    truth = lo[:, None] + (hi - lo)[:, None] * rng.uniform(size=(3, nv))
+    e = rng.standard_normal((nt, nv))
+    for k in range(nq, nt):
+        e[k] += 0.4 * e[k - nq]
+    y = d @ truth + 10.0 ** rng.uniform(-2, 0, nv) * e
+    nm = Ar1NoiseModel(RunOptions({"num-echoes": str(nq)}), nt)
+
+    def f32(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32)
+    st = nm.make_design_stats(f32(d), f32(y))
+    prior, post = nm.initial_state(1, torch.float32)
+    consts = tfa.pack_ar_consts(
+        st.dmd, prior.alpha_prec, prior.b, prior.c, nm.ntimes,
+        post.b[:, 0], post.c[:, 0],
+        [post.alpha_cov[n, n, 0] for n in range(nq)],
+        [post.alpha_prec[n, n, 0] for n in range(nq)], nq)
+    return (st.m0.contiguous(), st.rmr.contiguous(), st.dmr.contiguous(),
+            consts, torch.zeros((3, nv)), torch.full((3, nv), 1e-12)), nm
+
+
+def host_ar_case(nq, kind, nv):
+    """(args, the plain version's detector dict or None, the loop
+    count, the host launch's detector tuple and ELBO constants)."""
+    args, nm = raw_poly_inputs(nq, nv)
+    if kind == "maxits":
+        return args, None, 10, (0, 0.0, 0, 0, 0), (0.0, 0.0)
+    _, _, det = detectors(kind, 3, nq, nm.ntimes, np.float32)
+    return (args, det, int(det["det"].max_iterations) + 2,
+            _cuda.detector_args(det["det"]),
+            (det["f_const"], det["lb_coeff"]))
+
+
+def host_ar_run(fn, args, n_iters, dargs, elbo, dtype):
+    m0, rmr, dmr, consts, pm, pp = args
+    return [torch.from_numpy(o) for o in fn(
+        n_iters, consts.numpy(), dargs, elbo,
+        *(x.to(dtype).numpy() for x in (m0, rmr, dmr, pm, pp)))]
+
+
+HOST_AR_CASES = [(nq, kind) for nq in (1, 2)
+                 for kind in ("maxits", "pointzeroone")]
+
+
+@pytest.mark.parametrize("nq,kind", HOST_AR_CASES,
+                         ids=[f"Q{q}-{k}" for q, k in HOST_AR_CASES])
+def test_ar_kernel_on_host_f64_matches_plain(nq, kind, ar_host):
+    """At double the kernel (the plain version's operations) against the
+    plain version at float64 on the same inputs: F within 1e-12 of its
+    max and every
+    other output within 1e-11, iteration counts and engine-initial tags
+    equal. The two round a few operations apart (torch's CPU square root
+    is not always correctly rounded: in float32 one ulp off at
+    13,005,776), and the noise quadratics op_s, which cancel ~1e4-fold in
+    float64 too, amplify that: up to 2.3e-12 in the alpha planes at
+    nq=2, 3.3e-13 in prec, 1e-13 in the means."""
+    args, det, n_iters, dargs, elbo = host_ar_case(nq, kind, 256)
+    k = host_ar_run(ar_host(nq, True), args, n_iters, dargs, elbo,
+                    torch.float64)
+    a64 = tuple(a.double() if torch.is_tensor(a) else a for a in args)
+    ref = tfa.fused_ar_loop_plain(*a64, n_iters, det)
+    assert len(k) == len(ref) == (8 if det is None else 10)
+    for i, (a, r) in enumerate(zip(k, ref)):
+        bound = 1e-12 if i == 8 else 1e-11
+        assert float((a - r).abs().max() / r.abs().max()) <= bound, i
+    if det is not None:
+        assert torch.equal(k[9], ref[9])
+        assert torch.equal(k[6] < 0, ref[6] < 0)
+
+
+@pytest.mark.parametrize("nq,kind", HOST_AR_CASES,
+                         ids=[f"Q{q}-{k}" for q, k in HOST_AR_CASES])
+def test_ar_kernel_on_host_f32_near_f64(nq, kind, ar_host):
+    """At float32 (the card's rounding, every product and sum rounded
+    apart) the kernel is held to the plain version at float64 as the
+    card tests hold it (tests/
+    test_torch_cuda.py assert_near_f64: within twice the plain float32
+    version's distance, lane by lane; pointzeroone by the share of lanes
+    whose iteration count or engine-initial tag differ), at the card
+    tests' 20,001 lanes: the rule compares worst lanes, and over a few
+    hundred lanes the plain float32 version's worst is too few draws to
+    bound another rounding's (one case of 512 lanes landed at 1.21x;
+    0.37-0.75x over four seeds here)."""
+    args, det, n_iters, dargs, elbo = host_ar_case(nq, kind, 20_001)
+    k = host_ar_run(ar_host(nq, False), args, n_iters, dargs, elbo,
+                    torch.float32)
+    a64 = tuple(a.double() if torch.is_tensor(a) else a for a in args)
+    r32 = tfa.fused_ar_loop_plain(*args, n_iters, det)
+    r64 = tfa.fused_ar_loop_plain(*a64, n_iters, det)
+    if det is None:
+        assert_near_f64(k, r32, r64)
+        return
+
+    def dec(o):
+        return decisions(o[9][0], o[6][0] < 0)
+
+    def tidy(o):
+        return tuple(o[:6]) + (o[6].abs(),) + tuple(o[7:])
+    assert_detector_near_f64(tidy(k), tidy(r32), tidy(r64), dec(k),
+                             dec(r32), dec(r64))

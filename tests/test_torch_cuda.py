@@ -1012,13 +1012,15 @@ def test_nlls_wrapper_refuses_what_no_kernel_takes(cuda):
 
 # -- kernels 6 and 8 staged and streamed (csrc/tile.cuh) --------------------
 
-def plan_edges(nq):
-    """For tile_plan at nq weights per sample: the longest T of each VB
-    it stages with and the T just past it (the last one streams)."""
+def plan_edges(nq, widths=None):
+    """For tile_plan at nq weights per sample (and its widths): the
+    longest T of each VB it stages with and the T just past it (the last
+    one streams)."""
     from fabber_core_tpu_torch.ops import _cuda
-    edges, last = [], _cuda.tile_plan(1, nq)[1]
+    widths = widths or (_cuda.TILE_VB,)
+    edges, last = [], _cuda.tile_plan(1, nq, widths)[1]
     for nt in range(2, 4000):
-        staged, vb, _ = _cuda.tile_plan(nt, nq)
+        staged, vb, _ = _cuda.tile_plan(nt, nq, widths)
         if vb != last or not staged:
             edges += [nt - 1, nt]
             last = vb
@@ -1027,9 +1029,10 @@ def plan_edges(nq):
     raise AssertionError("no T streams")
 
 
-def expect_staged(nt, nq, vb=None):
+def expect_staged(nt, nq, vb=None, widths=None):
     from fabber_core_tpu_torch.ops import _cuda
-    return 1 if _cuda.launch_vb(nt, nq, vb) > 0 else 0
+    widths = widths or (_cuda.TILE_VB,)
+    return 1 if _cuda.launch_vb(nt, nq, vb, widths) > 0 else 0
 
 
 @pytest.mark.parametrize("marquardt", [False, True], ids=["L", "LM"])
@@ -1414,6 +1417,108 @@ def test_occupancy_queries_kernels_7_and_4(cuda):
     assert _cuda.whole_occupancy(3, 2, 3, 32, 106) == -1
 
 
+# -- kernel 1's staged tile (spectral_stats.cu, csrc/tile.cuh) -----------------
+
+def stats_inputs(p, nt, nv, cuda, seed=0, masked=True, offset=0):
+    """Kernel 1's inputs: data [T,V] of design(p, nt) at random truths
+    plus unit noise, made on the card (offset floats into its buffer:
+    1 leaves the plane's rows 4 bytes off 16-byte alignment), and its
+    constants (two samples masked)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed + 100 * p + nt)
+    d = design(p, nt)
+    q = np.ones(nt)
+    if masked:
+        q[[1, nt // 3]] = 0.0
+    truth = torch.rand((p, nv), generator=gen, device=cuda) * 4 - 2
+    buf = torch.empty(nt * nv + offset, device=cuda)
+    data = buf[offset:].view(nt, nv)
+    torch.matmul(torch.as_tensor(d, dtype=torch.float32, device=cuda),
+                 truth, out=data)
+    data += torch.randn((nt, nv), generator=gen, device=cuda)
+    return (data, fs.pack_mxu_consts(d, q, nt, torch.float32, cuda),
+            fs.pack_solve_consts(d, q, nt, torch.float32))
+
+
+STATS_FORM_CASES = [(1_000_003, 0), (1_048_576, 0), (1_048_576, 1),
+                    (1_000_002, 3), (1_000_001, 2)]
+
+
+@pytest.mark.parametrize("nv,offset", STATS_FORM_CASES,
+                         ids=["ragged", "aligned", "misaligned",
+                              "ragged2-off3", "ragged1-off2"])
+@pytest.mark.parametrize("p", [1, 3, 8])
+def test_stats_staged_bit_identical_to_streamed(cuda, p, nv, offset):
+    """Kernel 1 at T=106, its tile copied in 16-byte chunks with each
+    row rotated by its offset from 16-byte alignment (0 throughout for
+    the aligned plane; V mod 4 of 3, 2 and 1 and planes 1-3 floats into
+    their buffers turn every offset up): the plan's staged form (VB 128),
+    staged at VB 32, 64, 96, 160 and 256, and streamed, every output equal
+    bit for bit."""
+    args = stats_inputs(p, 106, nv, cuda, seed=1, offset=offset)
+    outs = {}
+    for vb in (None, 32, 64, 96, 160, 256, 0):
+        st = fs.spectral_stats.staged_launches
+        outs[vb] = fs.spectral_stats(*args, _vb=vb)
+        assert fs.spectral_stats.staged_launches - st == (0 if vb == 0
+                                                          else 1)
+    for vb in (32, 64, 96, 160, 256, 0):
+        assert bits_equal(outs[None], outs[vb]), vb
+
+
+@pytest.mark.parametrize("p", [1, 3, 8])
+def test_stats_plan_edges_match_plain(cuda, p):
+    """Kernel 1 at every T on tile_plan's edges for its 2P + 1 design
+    rows per sample and its widths (STATS_WIDTHS), the last streamed, in
+    the form the plan picks: the bounds of
+    test_kernels_match_plain_every_p, and the staged form at 32 lanes
+    equal to the streamed one bit for bit."""
+    from fabber_core_tpu_torch.ops import _cuda
+    nq, widths = 2 * p + 1, _cuda.STATS_WIDTHS
+    for nt in plan_edges(nq, widths):
+        args = stats_inputs(p, nt, 4000, cuda, seed=2)
+        st = fs.spectral_stats.staged_launches
+        ks = fs.spectral_stats(*args)
+        assert fs.spectral_stats.staged_launches - st == expect_staged(
+            nt, nq, None, widths)
+        ps = fs.spectral_stats_plain(*args)
+        a = args[2].reshape(p, p).to(cuda).double()
+        assert rel(ks[0], ps[0]) <= 1e-3
+        assert rel(ks[1], ps[1]) <= 1e-4
+        assert rel(ks[2].double() + a @ ks[0].double(),
+                   ps[2].double() + a @ ps[0].double()) <= 1e-5
+        assert bits_equal(fs.spectral_stats(*args, _vb=0),
+                          fs.spectral_stats(*args, _vb=32))
+
+
+def test_stats_refused_tiles_raise(cuda):
+    """Kernel 1 refuses a VB not a multiple of 32 or above 256 and a
+    tile above 232,448 bytes: the wrapper raises and counts no launch,
+    nothing falls back to the other form."""
+    from fabber_core_tpu_torch.exceptions import FabberError
+    args = stats_inputs(3, 500, 256, cuda)
+    for vb in (48, 288, 128):     # 128: 4 (500 x 128 + 7 x 500) B > 232,448
+        n = fs.spectral_stats.launches
+        with pytest.raises(FabberError, match="launch failed"):
+            fs.spectral_stats(*args, _vb=vb)
+        assert fs.spectral_stats.launches == n
+
+
+def test_stats_occupancy_queries(cuda):
+    """The plan keeps at least TILE_MIN_WARPS warps of kernel 1 per SM
+    at T=106 (P = 1, 3, 8) in blocks of 128 lanes; refused arguments
+    give -1."""
+    from fabber_core_tpu_torch.ops import _cuda
+    for p in (1, 3, 8):
+        staged, vb, _ = _cuda.tile_plan(106, 2 * p + 1, _cuda.STATS_WIDTHS)
+        assert staged and vb == 128
+        assert _cuda.stats_occupancy(p, vb, 106) * 4 >= _cuda.TILE_MIN_WARPS
+        assert _cuda.stats_occupancy(p, 0, 106) >= 1
+    assert _cuda.stats_occupancy(3, 48, 106) == -1
+    assert _cuda.stats_occupancy(3, 128, 500) == -1
+    assert _cuda.stats_occupancy(9, 32, 106) == -1
+
+
 # -- the AR(1) whole-loop kernel (fused_ar_loop.cu, kernel 9) ------------------
 
 AR_INSTANCES = [(p, nq) for p in (1, 2, 3, 4) for nq in (1, 2)]
@@ -1752,7 +1857,18 @@ def test_rejected_model_takes_generic_route_on_card(cuda):
     assert np.isfinite(eng.run().means).all()
 
 
-def test_time_signal_plugin_routes_on_card(cuda):
+@pytest.fixture
+def port_registry():
+    """The port's model registry holds what it held before, after a test
+    that loads a plugin (no jax here, so the JAX package's is not
+    touched)."""
+    from fabber_core_tpu_torch.models import base
+    from torch_generic_models import restored
+    with restored(base._MODELS):
+        yield
+
+
+def test_time_signal_plugin_routes_on_card(cuda, port_registry):
     """The myexp plugin (a time_signal, no kernel_model): the whole-loop
     route builds a functor generated from its time_signal; the
     per-iteration route, which has no generated functors yet, raises

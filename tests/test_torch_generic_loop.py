@@ -50,6 +50,7 @@ from fabber_core_tpu.core.volume import (VolumeGeometry as JGeom,
 from fabber_core_tpu.inference import vb as jvb_module
 from fabber_core_tpu.inference.vb import VBInference as JVB
 from fabber_core_tpu.io import nifti as jnifti
+from fabber_core_tpu.models import base as jbase
 from fabber_core_tpu.models import get_model_class as jmodel
 from fabber_core_tpu.models.base import derive_time_local_eval as jderive
 from fabber_core_tpu.ops import fused_loop_nl as jnl
@@ -61,6 +62,7 @@ from fabber_core_tpu_torch.api import FabberTpu
 from fabber_core_tpu_torch.core.volume import VolumeGeometry, VoxelDataStore
 from fabber_core_tpu_torch.inference.vb import VBInference
 from fabber_core_tpu_torch.io import nifti
+from fabber_core_tpu_torch.models import base as tbase
 from fabber_core_tpu_torch.models import get_model_class
 from fabber_core_tpu_torch.models.kernelgen import derive_time_local_eval
 from fabber_core_tpu_torch.ops import fused_loop_nl as nl
@@ -69,12 +71,22 @@ from fabber_core_tpu_torch.options import RunOptions
 import test_fused_loop_generic as jgen
 import torch_hostcc
 from torch_generic_models import (DataUsing, GaussianAct, SumOverTime,
-                                  SuppScaled, UnsafeOp, stripped_exp)
+                                  SuppScaled, UnsafeOp, restored,
+                                  stripped_exp)
 
 torch.set_num_threads(1)
 
 NT, NV = 30, 128
 ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True)
+def restored_registries():
+    """The plugins these tests load (--loadmodels, model_files,
+    load_models_from_file) leave neither package's model registry
+    changed."""
+    with restored(tbase._MODELS, jbase._MODELS):
+        yield
 
 
 # -- kernel level ---------------------------------------------------------

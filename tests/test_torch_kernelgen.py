@@ -23,7 +23,9 @@ import numpy as np
 import pytest
 import torch
 
+from fabber_core_tpu.models import base as jbase
 from fabber_core_tpu.models.base import derive_time_local_eval as jderive
+from fabber_core_tpu_torch.models import base as tbase
 from fabber_core_tpu_torch.models.base import EvalContext
 from fabber_core_tpu_torch.models.kernelgen import (
     derive_time_local_eval, derive_time_signal_functor)
@@ -34,7 +36,7 @@ import torch_hostcc
 from torch_generic_models import (CoordsUsing, CumSum, DataUsing, Flip,
                                   GaussianAct, KitchenSink, PresenceCheck,
                                   StridedExp, SumOverTime, SuppScaled,
-                                  UnsafeOp, stripped_exp)
+                                  UnsafeOp, restored, stripped_exp)
 
 torch.set_num_threads(1)
 
@@ -141,8 +143,10 @@ def test_generated_functor_matches_jacfwd(cls, nsupp, tmp_path, gxx):
 
 def test_time_signal_functor_matches_jacfwd(tmp_path, gxx):
     """A functor generated from a time_signal (P scalar planes and a
-    scalar t): the torch myexp plugin at two components."""
-    from fabber_core_tpu_torch.examples.fwdmodel_exp import MyExpModel
+    scalar t): the torch myexp plugin at two components (its import
+    registers myexp: both registries are put back)."""
+    with restored(tbase._MODELS, jbase._MODELS):
+        from fabber_core_tpu_torch.examples.fwdmodel_exp import MyExpModel
     model = MyExpModel(RunOptions({"dt": "0.05", "num-exps": "2"}))
     tle = derive_time_signal_functor(model, 4)
     assert tle is not None and tle.fn is None

@@ -36,13 +36,17 @@ import pytest
 import torch
 
 from fabber_core_tpu.api import FabberTpu as JFabber
+from fabber_core_tpu.models import known_models as jknown_models
 from fabber_core_tpu.models import register_model as jregister
+from fabber_core_tpu.models import base as jbase
 from fabber_core_tpu.models.base import DistParams as JDist
 from fabber_core_tpu.models.base import Model as JModel
 from fabber_core_tpu.models.base import ParamSpec as JSpec
 from fabber_core_tpu_torch.api import FabberTpu
 from fabber_core_tpu_torch.inference.linearize import Linearizer
-from fabber_core_tpu_torch.models import register_model, resolve_parameters
+from fabber_core_tpu_torch.models import (known_models, register_model,
+                                          resolve_parameters)
+from fabber_core_tpu_torch.models import base as tbase
 from fabber_core_tpu_torch.models.kernelgen import derive_time_local_eval
 from fabber_core_tpu_torch.models.kinks import JaxKinks, rewrite_kinks
 from fabber_core_tpu_torch.ops import fused_vb as fv
@@ -50,7 +54,8 @@ from fabber_core_tpu_torch.options import RunOptions
 
 import torch_hostcc
 from torch_generic_models import (AbsAmp, AbsInPlace, ClampInPlace,
-                                  ClampOffset, HardTanhOffset, MaxTie)
+                                  ClampOffset, HardTanhOffset, MaxTie,
+                                  restored)
 
 jax.config.update("jax_enable_x64", True)
 torch.set_num_threads(1)
@@ -220,11 +225,37 @@ def test_time_signal_jacobian_at_kink_follows_jax():
                                                   dtype=torch.float64))
 
 
-@pytest.fixture
-def registered_twins():
+def register_twins():
     for tm, jm in ALL_TWINS.values():
         register_model(tm)
         jregister(jm)
+
+
+@pytest.fixture
+def registered_twins():
+    """The twins in both packages' model registries for one test; both
+    registries hold what they held before once it is done."""
+    with restored(tbase._MODELS, jbase._MODELS):
+        register_twins()
+        yield
+
+
+def test_registered_twins_leave_both_registries_as_they_were():
+    """The registered_twins fixture itself, driven through its set-up and
+    tear-down: the twins are listed while it is set up, and afterwards
+    the port lists its four built-in models again and the JAX package
+    its own list (a twin left behind would be printed by the CLI's
+    --listmodels in a later test of the same process)."""
+    jbefore = jknown_models()
+    names = {tm.name for tm, _ in ALL_TWINS.values()}
+    run = registered_twins.__wrapped__()   # the fixture's own generator
+    next(run)
+    assert names <= set(known_models())
+    assert names <= set(jknown_models())
+    with pytest.raises(StopIteration):
+        next(run)
+    assert known_models() == ["biexp", "exp", "linear", "poly"]
+    assert jknown_models() == jbefore
 
 
 def twin_volume(name, shape=(4, 2, 2), seed=11):

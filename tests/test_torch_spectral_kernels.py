@@ -13,6 +13,15 @@ two sides sum in different orders):
          core consumes; dtqr alone is rounding residue);
   core   every output 1e-4.
 Float64 bound: 1e-9 (same algebra, same inputs).
+
+Kernel 1 itself (csrc/spectral_stats.cu), compiled as host C++ (tests/
+torch_hostcc.py, skipped without g++) in its staged form (blocks of 32
+or 64 lanes run as threads, on planes whose rows start at each offset
+from 16-byte alignment, with ragged last blocks) and its streamed form:
+the two agree bit for bit, at double the plain version at float64
+within 1e-12 (m0 in the well-conditioned synthetic design; the poly
+design's m0 within 1e-9) and at float32 within the plain float32 bounds
+above.
 """
 
 import jax.numpy as jnp
@@ -29,6 +38,8 @@ from fabber_core_tpu_torch.convert import design_stats_from_numpy, to_numpy
 from fabber_core_tpu_torch.noise.white import WhiteNoiseModel as TWhite
 from fabber_core_tpu_torch.ops import fused_spectral as tfs
 from fabber_core_tpu_torch.options import RunOptions as TOptions
+
+import torch_hostcc
 
 torch.set_num_threads(1)
 
@@ -343,3 +354,85 @@ def test_cuda_device_without_card_raises(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(FabberError):
         resolve_device("meta")
+
+
+# -- kernel 1 compiled as host C++ (tests/torch_hostcc.py) ------------------
+
+@pytest.fixture(scope="module")
+def stats_host(tmp_path_factory):
+    """(P, double) -> kernel 1 on the host, both forms (built once per
+    module; skipped without g++)."""
+    if not torch_hostcc.have_gxx():
+        pytest.skip("g++ is not installed")
+    libs = {}
+
+    def get(p, double):
+        if (p, double) not in libs:
+            libs[p, double] = torch_hostcc.stats_kernel_fn(
+                p, tmp_path_factory.mktemp(f"stats{p}{int(double)}"), double)
+        return libs[p, double]
+    return get
+
+
+# (V, offset of the plane in its buffer, VB): V mod 4 = 0, 2, 1, 3, 0,
+# so the tile's rows rotate by a fixed offset, two offsets in turn, and
+# every offset in turn; every last block ragged but the first case's;
+# VB 96 is not a power of two
+STATS_PLANES = [(64, 0, 32), (70, 1, 32), (61, 2, 64), (75, 3, 32),
+                (200, 1, 96)]
+STATS_PLANE_IDS = [f"v{v}-off{o}-vb{vb}" for v, o, vb in STATS_PLANES]
+
+
+@pytest.mark.parametrize("plane", STATS_PLANES, ids=STATS_PLANE_IDS)
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("p", [3, 4])
+def test_stats_kernel_on_host_staged_equals_streamed_f64(p, masked, plane,
+                                                        stats_host):
+    """Kernel 1's staged form (the block's tile and rows in shared
+    memory) equals its streamed form bit for bit at double, and both
+    match the plain version at float64: rtqr and D'Qy = dtqr + A m0
+    within 1e-12 of their max, m0 within 1e-12 on the synthetic P=4
+    design and 1e-9 on the poly cubic, whose Gram (cond ~1e9 at T=106)
+    scales two orders of float64 rounding into it."""
+    nt = 106
+    nv, offset, vb = plane
+    d, q, data = make_case(p, nt, nv, masked)
+    tc, ac = port_consts(d, q, nt, torch.float64)
+    fn = stats_host(p, True)
+    staged = fn(True, data, tc.numpy(), ac.numpy(), vb, offset)
+    streamed = fn(False, data, tc.numpy(), ac.numpy())
+    for a, b in zip(staged, streamed):
+        assert np.array_equal(a, b)
+    m0, rtqr, dtqr = to_numpy(tfs.spectral_stats_plain(
+        torch.from_numpy(data.astype(np.float64)), tc, ac))
+    a = ac.numpy().reshape(p, p)
+    assert rel(staged[0], m0) <= (1e-9 if p == 3 else 1e-12)
+    assert rel(staged[1], rtqr) <= 1e-12
+    assert rel(staged[2] + a @ staged[0], dtqr + a @ m0) <= 1e-12
+
+
+@pytest.mark.parametrize("plane", STATS_PLANES, ids=STATS_PLANE_IDS)
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("p", [3, 4])
+def test_stats_kernel_on_host_staged_equals_streamed_f32(p, masked, plane,
+                                                        stats_host):
+    """At float32 (the card's rounding: fmaf fused, the rest apart) the
+    two forms agree bit for bit, and both meet the plain float32
+    version's bounds of the module docstring (m0 1e-3, rtqr 1e-4,
+    D'Qy 1e-5)."""
+    nt = 106
+    nv, offset, vb = plane
+    d, q, data = make_case(p, nt, nv, masked, seed=1)
+    tc, ac = port_consts(d, q, nt, torch.float32)
+    fn = stats_host(p, False)
+    staged = fn(True, data, tc.numpy(), ac.numpy(), vb, offset)
+    streamed = fn(False, data, tc.numpy(), ac.numpy())
+    for a, b in zip(staged, streamed):
+        assert a.dtype == np.float32 and np.array_equal(a, b)
+    m0, rtqr, dtqr = to_numpy(tfs.spectral_stats_plain(
+        torch.from_numpy(data), tc, ac))
+    a = ac.double().reshape(p, p).numpy()
+    km0 = staged[0].astype(np.float64)
+    assert rel(km0, m0) <= 1e-3
+    assert rel(staged[1], rtqr) <= 1e-4
+    assert rel(staged[2] + a @ km0, dtqr + a @ m0) <= 1e-5

@@ -1,5 +1,5 @@
 """The staged tile's plan (fabber_core_tpu_torch/ops/_cuda.py tile_plan,
-launch_vb) for the kernels that stage their data tile (4, 6, 7 and 8,
+launch_vb) for the kernels that stage their data tile (1, 4, 6, 7 and 8,
 csrc/tile.cuh), on the CPU: the VB and shared-memory bytes at T = 1, 7,
 8, 100 and at the edge where the tile stops fitting five one-warp
 blocks per SM and just past it, for one weight per sample (kernel 8,
@@ -9,7 +9,9 @@ never leaves fewer than TILE_MIN_WARPS blocks per SM, a streamed T
 would); and the C side's refusal rules (tile_bytes, and kernels 7's and
 4's iter_smem and whole_smem, compiled as host C++ with g++ through
 tests/torch_hostcc.py's shim; skipped without g++) refuse nothing the
-plan picks and everything past the hardware's per-block limit."""
+plan picks and everything past the hardware's per-block limit. Kernel 1
+takes the widest of STATS_WIDTHS whose blocks leave TILE_MIN_WARPS warps
+per SM, and its C side (spectral_stats.cu stats_smem) the same bytes."""
 
 import ctypes
 import re
@@ -140,10 +142,10 @@ def test_whole_tile_plan(p, nq, nw, last):
     assert _cuda.launch_vb(last + 1, nw) == 0
 
 
-def _c_function(source, name):
+def _c_function(source, name, ret="long long"):
     """The text of one inline function of a csrc/ source."""
     text = (torch_hostcc.CSRC / source).read_text()
-    m = re.search(rf"inline long long {name}\(.*?\n}}\n", text, re.S)
+    m = re.search(rf"inline {ret} {name}\(.*?\n}}\n", text, re.S)
     assert m, name
     return m.group(0)
 
@@ -195,3 +197,68 @@ def test_c_side_whole_streamed_rows_limit(smem_rules):
     past a block's 232,448 bytes."""
     assert smem_rules.wh(0, 1000, BLOCK_MAX // 4) == BLOCK_MAX
     assert smem_rules.wh(0, 1000, BLOCK_MAX // 4 + 1) == -1
+
+
+# -- kernel 1 (spectral_stats.cu): the widest of STATS_WIDTHS --------------
+
+def test_stats_tile_plan():
+    """At T=106 kernel 1 stages in blocks of 128 lanes for P = 1..8 (4
+    blocks per SM at P=3: 57,240 bytes); at every T up to 1,200 a staged
+    plan takes the widest of STATS_WIDTHS whose blocks leave at least
+    TILE_MIN_WARPS warps per SM, and a streamed one has none."""
+    assert _cuda.STATS_WIDTHS == (128, 64, 32)
+    assert _cuda.tile_plan(106, 7, _cuda.STATS_WIDTHS) == (True, 128, 57_240)
+    assert blocks_per_sm(57_240) == 4
+    for p in range(1, 9):
+        nq = 2 * p + 1
+        assert _cuda.tile_plan(106, nq, _cuda.STATS_WIDTHS)[:2] == (True,
+                                                                    128)
+        streamed = False
+        for nt in range(1, 1200):
+            staged, vb, b = _cuda.tile_plan(nt, nq, _cuda.STATS_WIDTHS)
+            fits = [w for w in _cuda.STATS_WIDTHS
+                    if blocks_per_sm(smem(nt, w, nq)) * (w // 32)
+                    >= _cuda.TILE_MIN_WARPS]
+            if staged:
+                assert not streamed and vb == fits[0]
+                assert b == smem(nt, vb, nq) <= BLOCK_MAX
+            else:
+                streamed = True
+                assert not fits and (vb, b) == (_cuda.STREAM_THREADS, 0)
+        assert streamed
+    assert _cuda.launch_vb(106, 7, None, _cuda.STATS_WIDTHS) == 128
+    assert _cuda.launch_vb(106, 7, 32, _cuda.STATS_WIDTHS) == 32
+    assert _cuda.launch_vb(2000, 7, None, _cuda.STATS_WIDTHS) == 0
+
+
+@pytest.fixture
+def stats_smem(tmp_path):
+    """Kernel 1's C entry point's shared-memory rule (stats_smem: -1
+    refuses the launch), compiled as host C++."""
+    if not torch_hostcc.have_gxx():
+        pytest.skip("g++ is not installed")
+    src = ('#include "cuda_runtime.h"\n#include "tile.cuh"\n'
+           "namespace {\nconstexpr int kThreads = 256;\n"
+           + _c_function("spectral_stats.cu", "stats_smem")
+           + "}  // namespace\n"
+           'extern "C" long long ss(int p, int vb, int nt) {\n'
+           "  return stats_smem(p, vb, nt);\n}\n")
+    lib = torch_hostcc.build_source(tmp_path, "stats_smem", src)
+    lib.ss.restype = ctypes.c_longlong
+    lib.ss.argtypes = [ctypes.c_int] * 3
+    return lib.ss
+
+
+def test_c_side_kernel_1_takes_every_plan(stats_smem):
+    for nt in range(1, 1200, 7):
+        for p in (1, 3, 8):
+            nq = 2 * p + 1
+            staged, vb, b = _cuda.tile_plan(nt, nq, _cuda.STATS_WIDTHS)
+            want = b if staged else 4 * nq * nt   # streamed: the rows
+            assert stats_smem(p, vb if staged else 0, nt) == want
+
+
+@pytest.mark.parametrize("vb,nt", [(48, 100), (16, 100), (288, 100),
+                                   (512, 10), (256, 300), (32, 1700)])
+def test_c_side_kernel_1_refuses(stats_smem, vb, nt):
+    assert stats_smem(3, vb, nt) == -1

@@ -2,14 +2,33 @@
 the twins of tests/test_fused_loop_generic.py's models (GaussianAct,
 SuppScaled, DataUsing, UnsafeOp), the port's exp without its time_signal,
 and models the probe must refuse (coords, a presence check, time-mixing
-ops) or that use most of its allowlist. No jax here: the card tests
+ops) or that use most of its allowlist; and restored(), which puts
+model registries back as they were. No jax here: the card tests
 (tests/test_torch_cuda.py) import it too."""
+
+import contextlib
 
 import torch
 
 from fabber_core_tpu_torch.models import get_model_class
 from fabber_core_tpu_torch.models.base import DistParams, Model, ParamSpec
 from fabber_core_tpu_torch.options import RunOptions
+
+
+@contextlib.contextmanager
+def restored(*registries):
+    """Each registry (a model registry's name -> class dict, such as
+    models.base._MODELS) holds on exit what it held on entry: a test
+    that registers a model or loads a plugin leaves no name behind for
+    the next test of its process (the CLI's --listmodels prints them
+    all)."""
+    saved = [dict(r) for r in registries]
+    try:
+        yield
+    finally:
+        for reg, snap in zip(registries, saved):
+            reg.clear()
+            reg.update(snap)
 
 
 class GaussianAct(Model):

@@ -1,13 +1,18 @@
 """The port's CUDA device code compiled as host C++ with g++, for the CPU
 tests: a shim header stands in for cuda_runtime.h (the CUDA qualifiers
 as nothing, __ldg as a load, one block of one thread per call, so a
-staged tile (tile.cuh) is one lane wide), and at double the kernel
+staged tile (tile.cuh) is one lane wide; kernel 1's staged form runs a
+block's lanes as threads that meet at __syncthreads), and at double the kernel
 headers are text-substituted float -> double (vb_device.cuh,
-detectors.cuh, tile.cuh and fused_nl_loop.cuh cut before its launch
-section; dual.cuh has both overloads and is used as it is). Kernels 4
-(fused_whole.cu), 7 (fused_vb_iter.cu) and 8 (fused_nlls.cu) are cut
-before their launch sections the same way. Tests skip when g++ is
-missing."""
+detectors.cuh, tile.cuh, spectral_device.cuh and fused_nl_loop.cuh cut
+before its launch section; dual.cuh has both overloads and is used as it
+is). Kernels 1 (spectral_stats.cu), 4 (fused_whole.cu), 7
+(fused_vb_iter.cu), 8 (fused_nlls.cu) and 9 (fused_ar_loop.cu) are cut
+before their launch sections the same way; kernels 1 and 9 also build
+at float32, the headers as they are (g++ contracts no multiply-add on
+x86-64's baseline, so the float32 build rounds as the card's kernel
+does: fmaf and __fmaf_rn fused, every other product and sum rounded
+apart). Tests skip when g++ is missing."""
 
 import ctypes
 import re
@@ -22,6 +27,8 @@ CSRC = Path(__file__).resolve().parents[1] / "fabber_core_tpu_torch" / "csrc"
 SHIM = """#pragma once
 #include <math.h>
 #include <algorithm>
+#include <condition_variable>
+#include <mutex>
 using std::max;
 using std::min;
 #define __host__
@@ -29,14 +36,35 @@ using std::min;
 #define __global__
 #define __forceinline__ inline
 #define __restrict__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 template <class T> inline T __ldg(const T* p) { return *p; }
-inline void __syncthreads() {}
+// a block's barrier where its lanes run as threads (stats_kernel_fn's
+// staged form); elsewhere a block is one thread and there is none
+struct FabberHostBarrier {
+  std::mutex m;
+  std::condition_variable cv;
+  unsigned n = 1, arrived = 0, gen = 0;
+  void wait() {
+    std::unique_lock<std::mutex> lk(m);
+    const unsigned g = gen;
+    if (++arrived == n) {
+      arrived = 0;
+      ++gen;
+      cv.notify_all();
+    } else {
+      cv.wait(lk, [&] { return gen != g; });
+    }
+  }
+};
+static FabberHostBarrier* fabber_host_barrier = nullptr;
+inline void __syncthreads() {
+  if (fabber_host_barrier) fabber_host_barrier->wait();
+}
 inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
 inline double __fmaf_rn(double a, double b, double c) { return fma(a, b, c); }
 struct FabberDim3 { unsigned x, y, z; };
-static FabberDim3 blockIdx = {0, 0, 0}, blockDim = {1, 1, 1},
-                  threadIdx = {0, 0, 0};
+static FabberDim3 blockIdx = {0, 0, 0}, blockDim = {1, 1, 1};
+static thread_local FabberDim3 threadIdx = {0, 0, 0};
 typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return 0; }
@@ -55,21 +83,32 @@ def _to_double(text):
     return text
 
 
-def _write_headers(d):
+def _write_headers(d, double=True):
+    conv = _to_double if double else (lambda text: text)
     (d / "cuda_runtime.h").write_text(SHIM)
     (d / "dual.cuh").write_text((CSRC / "dual.cuh").read_text())
-    for name in ("vb_device.cuh", "detectors.cuh", "tile.cuh"):
-        (d / name).write_text(_to_double((CSRC / name).read_text()))
+    for name in ("vb_device.cuh", "detectors.cuh", "tile.cuh",
+                 "spectral_device.cuh"):
+        (d / name).write_text(conv((CSRC / name).read_text()))
     nl = (CSRC / "fused_nl_loop.cuh").read_text()
     nl = nl[:nl.index("// ---- launch ----")] + "}  // namespace\n"
-    (d / "fused_nl_loop.cuh").write_text(_to_double(nl))
+    (d / "fused_nl_loop.cuh").write_text(conv(nl))
+
+
+def _kernel_source(name, marker, double):
+    """A kernel's .cu cut before its launch section (marker), at double
+    (text-substituted) or as it is."""
+    src = (CSRC / name).read_text()
+    src = src[:src.index(marker)]
+    return _to_double(src) if double else src
 
 
 def _build(d, name, src):
     (d / f"{name}.cpp").write_text(src)
     out = d / f"{name}.so"
     proc = subprocess.run(
-        ["g++", "-O1", "-std=c++17", "-shared", "-fPIC", "-w", "-I", str(d),
+        ["g++", "-O1", "-std=c++17", "-pthread", "-shared", "-fPIC", "-w",
+         "-I", str(d),
          "-o", str(out), str(d / f"{name}.cpp")],
         capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
@@ -416,5 +455,155 @@ extern "C" void host_whole(int staged, int n_iters, double locked_sd,
         dk = (ctypes.c_int * 4)(det[0], det[2], det[3], det[4])
         lib.host_whole(int(staged), n_iters, locked_sd, _ptr(cs), dk,
                        det[1], _ptr(dcs), in_ptrs, out_ptrs, nt, nv)
+        return outs
+    return fn
+
+
+def stats_kernel_fn(p, tmpdir, double=True):
+    """Kernel 1 (spectral_stats.cu, cut before its launch section) at P,
+    at double or float32, both forms in one library: fn(staged, data
+    [T,V], tconsts [2P+1,T], aconsts [P*P], vb=32, offset=0) -> (m0
+    [P,V], rtqr [1,V], dtqr [P,V]). Streamed: one block of one thread per
+    voxel. Staged: blocks of vb lanes, each lane a thread, so the tile's
+    16-byte chunks, its rotated rows and the ragged last block run as on
+    the card; offset puts the plane that many elements past the start of
+    its buffer (rows off 16-byte alignment)."""
+    d = Path(tmpdir)
+    _write_headers(d, double)
+    real = "double" if double else "float"
+    src = _kernel_source("spectral_stats.cu",
+                         "// ---- launch and C entry points", double) + f"""
+static void run_streamed(const {real}* data, const {real}* tc,
+                         const SolveConsts& ac, int nt, long long V,
+                         {real}* m0, {real}* rtqr, {real}* dtqr) {{
+  for (long long v = 0; v < V; ++v) {{
+    blockIdx.x = (unsigned)v;
+    spectral_stats_kernel<{p}, false>(data, tc, nt, V, ac, m0, rtqr, dtqr);
+  }}
+}}
+static void run_staged(const {real}* data, const {real}* tc,
+                       const SolveConsts& ac, int nt, long long V,
+                       {real}* m0, {real}* rtqr, {real}* dtqr, int vb) {{
+  FabberHostBarrier bar;
+  bar.n = (unsigned)vb;
+  fabber_host_barrier = &bar;
+  blockDim.x = (unsigned)vb;
+  for (long long b = 0; b * vb < V; ++b) {{
+    blockIdx.x = (unsigned)b;
+    std::vector<std::thread> lanes;
+    for (int l = 0; l < vb; ++l)
+      lanes.emplace_back([=, &ac] {{
+        threadIdx.x = (unsigned)l;
+        spectral_stats_kernel<{p}, true>(data, tc, nt, V, ac, m0, rtqr, dtqr);
+      }});
+    for (auto& th : lanes) th.join();
+  }}
+  blockDim.x = 1;
+  fabber_host_barrier = nullptr;
+}}
+}}  // namespace
+extern "C" void host_stats(int vb, const {real}* data, const {real}* tc,
+                           const {real}* a, int nt, long long V, {real}* m0,
+                           {real}* rtqr, {real}* dtqr) {{
+  SolveConsts ac = {{}};
+  for (int i = 0; i < {p} * {p}; ++i) ac.a[i] = a[i];
+  if (vb > 0) run_staged(data, tc, ac, nt, V, m0, rtqr, dtqr, vb);
+  else run_streamed(data, tc, ac, nt, V, m0, rtqr, dtqr);
+}}
+"""
+    lib = _build(d, f"stats_p{p}_{real}", '#include "cuda_runtime.h"\n'
+                 "#include <thread>\n#include <vector>\n" + src)
+    vp = ctypes.c_void_p
+    lib.host_stats.restype = None
+    lib.host_stats.argtypes = [ctypes.c_int, vp, vp, vp, ctypes.c_int,
+                               ctypes.c_longlong, vp, vp, vp]
+    dt = np.float64 if double else np.float32
+
+    def fn(staged, data, tconsts, aconsts, vb=32, offset=0):
+        nt, nv = data.shape
+        buf = np.zeros(data.size + offset, dt)
+        buf[offset:] = np.asarray(data, dt).ravel()
+        ins = [buf[offset:]] + [np.ascontiguousarray(x, dt)
+                                for x in (tconsts, aconsts)]
+        outs = [np.zeros(s, dt) for s in ((p, nv), (1, nv), (p, nv))]
+        lib.host_stats(vb if staged else 0, *(_ptr(x) for x in ins), nt, nv,
+                       *(_ptr(o) for o in outs))
+        return outs
+    return fn
+
+
+def ar_kernel_fn(p, nq, tmpdir, double=True):
+    """Kernel 9 (fused_ar_loop.cu, cut before its launch section) at (P,
+    nq), at double or float32, one block of one thread per voxel:
+    fn(n_iters, consts [3nq P^2 + 2 + 6nq], det (kind, tol, max_its,
+    max_trials, init_save), elbo (f_const, lb_coeff), m0 [P,V], rmr
+    [3nq,V], dmr [3nq,P,V], pm, pp [P,V]) -> the eight planes (means,
+    prec, cov, amu, acov, aprec, b, c), then f and its [1,V] under a
+    detector (kind > 0)."""
+    d = Path(tmpdir)
+    _write_headers(d, double)
+    real = "double" if double else "float"
+    src = _kernel_source("fused_ar_loop.cu",
+                         "// ---- launch and C entry points", double) + f"""
+template <int MODE>
+static void run_all(const ArConsts& k, const {real}* const* in,
+                    {real}* const* out) {{
+  for (long long v = 0; v < k.V; ++v) {{
+    blockIdx.x = (unsigned)v;
+    fused_ar_loop_kernel<{p}, {nq}, MODE>(
+        k, in[0], in[1], in[2], in[3], in[4], out[0], out[1], out[2],
+        out[3], out[4], out[5], out[6], out[7], out[8], out[9]);
+  }}
+}}
+}}  // namespace
+extern "C" void host_ar(int n_iters, const {real}* consts, const int* det,
+                        {real} det_tol, {real} f_const, {real} lb_coeff,
+                        const {real}* const* in, {real}* const* out,
+                        long long V) {{
+  const int p = {p}, nq = {nq}, n = kSpecs * nq * p * p;
+  ArConsts k = {{}};
+  for (int i = 0; i < n; ++i) k.dmd[i] = consts[i];
+  k.ap[0] = consts[n];
+  k.ap[1] = consts[n + 1];
+  for (int q = 0; q < nq; ++q) {{
+    k.inv_b0[q] = consts[n + 2 + q];
+    k.c_post[q] = consts[n + 2 + nq + q];
+    k.init_b[q] = consts[n + 2 + 2 * nq + q];
+    k.init_c[q] = consts[n + 2 + 3 * nq + q];
+    k.init_acov[q] = consts[n + 2 + 4 * nq + q];
+    k.init_aprec[q] = consts[n + 2 + 5 * nq + q];
+  }}
+  k.n_iters = n_iters;
+  k.V = V;
+  k.d = {{det[0], det_tol, det[1], det[2], det[3]}};
+  k.f_const = f_const;
+  k.lb_coeff = lb_coeff;
+  if (det[0] == 0) run_all<0>(k, in, out);
+  else run_all<1>(k, in, out);
+}}
+"""
+    lib = _build(d, f"ar_p{p}_q{nq}_{real}",
+                 '#include "cuda_runtime.h"\n' + src)
+    vp = ctypes.c_void_p
+    cr = ctypes.c_double if double else ctypes.c_float
+    lib.host_ar.restype = None
+    lib.host_ar.argtypes = [ctypes.c_int, vp, vp, cr, cr, cr, vp, vp,
+                            ctypes.c_longlong]
+    dt = np.float64 if double else np.float32
+
+    def fn(n_iters, consts, det, elbo, m0, rmr, dmr, pm, pp):
+        nv = m0.shape[-1]
+        ins = [np.ascontiguousarray(x, dt) for x in (m0, rmr, dmr, pm, pp)]
+        shapes = [(p, nv), (p, p, nv), (p, p, nv)] + [(nq, nv)] * 5
+        if det[0] != 0:
+            shapes += [(1, nv), (1, nv)]
+        outs = [np.zeros(s, dt) for s in shapes]
+        in_ptrs = (ctypes.c_void_p * 5)(*[x.ctypes.data for x in ins])
+        out_ptrs = (ctypes.c_void_p * 10)(*([o.ctypes.data for o in outs]
+                                            + [None] * (10 - len(outs))))
+        cs = np.ascontiguousarray(consts, dt)
+        dk = (ctypes.c_int * 4)(det[0], det[2], det[3], det[4])
+        lib.host_ar(n_iters, _ptr(cs), dk, det[1], elbo[0], elbo[1],
+                    in_ptrs, out_ptrs, nv)
         return outs
     return fn

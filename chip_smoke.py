@@ -17,7 +17,8 @@ whole-loop nonlinear route, each under maxits and under
 with --noise-pattern=12 (the whole-program kernel), under lm, with
 engine-kernel=pallas-loop (the stats-input kernel), each held to the
 float64 'xla' route on the card; the linear model (128x128x32) with
---spectral-impl=fused (the one-kernel spectral form). It checks that
+--spectral-impl=fused (the one-kernel spectral form, staged), under
+maxits and trialmode. It checks that
 each path went through its kernels and that the results are right;
 runs the per-iteration nonlinear route, under maxits and under lm (its
 LM branch); drives method=nlls (the NLLS kernel with its two-phase
@@ -33,11 +34,11 @@ suppdata run against the float64 'xla-generic' route on the card); then
 times the kernels, their plain versions, a device-to-device copy and the
 whole engine run, poly at 16,777,216 voxels (white and AR noise) and
 biexp at 4,000,000 (VB and NLLS; the generated biexp functor beside the
-hand-written one; kernels 1, 4, 6, 7 and 8 in their staged and streamed
-forms, csrc/tile.cuh, with each form's plan, blocks per SM and
-registers, kernels 1, 4 and 7 bit for bit). Every phase passes or the
-script exits
-non-zero without printing the result line. The last line of standard
+hand-written one; kernels 1, 3, 4, 6, 7 and 8 in their staged and
+streamed forms, csrc/tile.cuh, with each form's plan, blocks per SM and
+registers, kernels 1, 4 and 7 bit for bit, kernel 3 equal to the split
+pair bit for bit; kernel 2's detector instances). Every phase passes
+or the script exits non-zero without printing the result line. The last line of standard
 output is the JSON result object; the line before it lists the
 kernels, each with its bound (the least time the card could take:
 bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the
@@ -728,6 +729,17 @@ def time_forms(run, reps=3):
     return min(t[None]), min(t[0]), res[None], res[0]
 
 
+def time_turns(runs, reps=3):
+    """{name: (best ms over its turns, the last result)} of runs {name:
+    fn}, timed in their order and then in reverse (each best of reps
+    after a warm-up)."""
+    t, res = {n: [] for n in runs}, {}
+    for n in list(runs) + list(reversed(runs)):
+        ms, res[n] = best_ms(runs[n], reps=reps, keep=True)
+        t[n].append(ms)
+    return {n: (min(t[n]), res[n]) for n in runs}
+
+
 def ptxas_entry(text, *parts):
     """'N registers, S B spill stores' of the kernel entry whose mangled
     name holds every string of parts, from nvcc's -Xptxas -v output."""
@@ -1319,7 +1331,7 @@ def run_biexp_trialmode_path(device, shape=(128, 128, 64)):
 
 def run_poly_trialmode_path(device, shape=(128, 128, 64)):
     """Phase 4g: poly degree 2 (T=106) through run_with_data under
-    --convergence=trialmode: the statistics kernel and the core
+    --convergence=trialmode: the statistics kernel (staged) and the core
     kernel's detector mode each launched once; c0 within 3 posterior sd
     of truth in >= 99% of voxels and the median noise sd within 5% of
     1, as phase 4."""
@@ -1429,9 +1441,11 @@ def time_detectors(device, card, fig, fig_nl, nv_poly=16_777_216,
                    nv_bi=4_000_000):
     """Phase 5c: the detector modes at the headline sizes (CUDA events,
     best of 3 after a warm-up; the plain versions best of 1 after a
-    warm-up): spectral_core under trialmode at 16,777,216 poly voxels
-    beside its maxits time (phase 5); fused_nl_loop under trialmode
-    and lm at 4,000,000 biexp voxels beside its maxits time (phase 5b),
+    warm-up): spectral_core under trialmode, pointzeroone and freduce at
+    16,777,216 poly voxels beside its maxits time (phase 5), each
+    detector instance's registers logged; fused_nl_loop under
+    trialmode and lm at 4,000,000 biexp voxels beside its maxits time
+    (phase 5b),
     its lanes held to the plain version by lane_decisions; one
     fused_vb_iter launch with the LM branch; VBInference.run() of biexp
     under trialmode. The iteration histograms are the kernels' own (the
@@ -1466,11 +1480,20 @@ def time_detectors(device, card, fig, fig_nl, nv_poly=16_777_216,
     stats = fs.spectral_stats(plane, tc, ac)
     del plane
     pm = torch.zeros((p, nv_poly), dtype=torch.float32, device=device)
+    for kind in ("pointzeroone", "freduce"):
+        d = make_detector(kind)
+        out[f"core_{kind}_ms"] = best_ms(lambda: fs.spectral_core(
+            *stats, pm, sc, int(d.max_iterations) + 2, d))
     det = make_detector("trialmode")
     cap = int(det.max_iterations) + 2
     out["core_det_ms"], k = best_ms(
         lambda: fs.spectral_core(*stats, pm, sc, cap, det), keep=True)
     out["core_det_its"] = its_histogram(k[6][0].cpu().numpy())
+    for kind in ("maxits",) + fs.DETECTOR_KINDS:
+        parts = ("spectral_core_kernel",
+                 f"ILi3ELi{_cuda.DETECTOR_CODES[kind]}E")
+        log(f"  spectral_core P=3 {kind}: "
+            f"{ptxas_entry(_cuda.build_log, *parts)}")
     del k
     counter = trip_counter(det)
     r = fs.spectral_core_plain(*stats, pm, sc, cap, counter)
@@ -1667,8 +1690,9 @@ def check_fixed_design_kernels(device, nvs=(1_048_576, 1_000_003),
       fused_whole's detector modes pointzeroone, trialmode and lm (4d,
         4l) at Q = 1, 2, at the engine's loop cap, by decision share;
       fused_vb_loop (5) at Q = 1, 2 from the plain statistics;
-      spectral_fused (3) in maxits and trialmode, against the split
-        pair (kernels 1 + 2) bit for bit and against its plain version.
+      spectral_fused (3) in maxits and each detector mode, in the plan's
+        form and streamed, against the split pair (kernels 1 + 2) bit for
+        bit and against its plain version.
     Voxel noise sd varies over 1e-2..3 (detector lanes stop apart); the
     truth is c0 ~ U(-1, 1), c1 ~ U(-0.05, 0.05), c2 ~ U(-5e-4, 5e-4)."""
     import torch
@@ -1679,7 +1703,8 @@ def check_fixed_design_kernels(device, nvs=(1_048_576, 1_000_003),
 
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    worst = {k: [0.0, 0.0] for k in ("spectral_fused", "fused_whole",
+    worst = {k: [0.0, 0.0] for k in ("spectral_fused",
+                                     "spectral_fused:detector", "fused_whole",
                                      "fused_whole:detector",
                                      "fused_whole:lm", "fused_vb_loop")}
     ok_all = True
@@ -1750,13 +1775,14 @@ def check_fixed_design_kernels(device, nvs=(1_048_576, 1_000_003),
         data, _ = gen_plane(design, nv, gen, [100.0, 0.5, 0.005], 1.0,
                             device)
         pm = torch.zeros((p, nv), dtype=torch.float32, device=device)
-        for kind in (None, "trialmode"):
+        for kind in (None,) + fs.DETECTOR_KINDS:
             det = None if kind is None else make_detector(kind)
             n_it = ITERS if det is None else int(det.max_iterations) + 2
             k = fs.spectral_fused(data, tc, ac, pm, sc, n_it, det)
             split = fs.spectral_core(*fs.spectral_stats(data, tc, ac), pm,
                                      sc, n_it, det)
-            same = all(torch.equal(a, b) for a, b in zip(k, split))
+            same = bits_equal(k, split) and bits_equal(fs.spectral_fused(
+                data, tc, ac, pm, sc, n_it, det, _vb=0), split)
             del split
             r32 = fs.spectral_fused_plain(data, tc, ac, pm, sc, n_it, det)
             r64 = fs.spectral_fused_plain(data.double(), tc, ac, pm.double(),
@@ -1770,12 +1796,14 @@ def check_fixed_design_kernels(device, nvs=(1_048_576, 1_000_003),
             def tidy(o):
                 return (o[0], o[1], o[2], o[3].abs()) + tuple(o[4:])
 
-            log(f"  spectral_fused {kind or 'maxits'} V={nv}: the split "
-                f"pair's outputs bit for bit: {same}")
+            log(f"  spectral_fused {kind or 'maxits'} V={nv}: the plan's "
+                f"form and the streamed one equal the split pair's outputs "
+                f"bit for bit: {same}")
             ok_all &= same
-            note("spectral_fused", near_f64(
-                f"spectral_fused {kind or 'maxits'} V={nv}", tidy(k),
-                tidy(r32), tidy(r64), dec(k), dec(r32), dec(r64)))
+            note("spectral_fused" if det is None
+                 else "spectral_fused:detector", near_f64(
+                     f"spectral_fused {kind or 'maxits'} V={nv}", tidy(k),
+                     tidy(r32), tidy(r64), dec(k), dec(r32), dec(r64)))
             del k, r32, r64
         del data, pm
         torch.cuda.empty_cache()
@@ -1819,6 +1847,8 @@ def launch_counts():
             "spectral_stats:staged": fs.spectral_stats.staged_launches,
             "spectral_core": fs.spectral_core.launches,
             "spectral_fused": fs.spectral_fused.launches,
+            "spectral_fused:detector": fs.spectral_fused.det_launches,
+            "spectral_fused:staged": fs.spectral_fused.staged_launches,
             "fused_whole": fw.fused_whole.launches,
             "fused_whole:detector": fw.fused_whole.det_launches,
             "fused_whole:lm": fw.fused_whole.lm_launches,
@@ -1844,6 +1874,7 @@ def reset_launches():
         f.launches = 0
     fs.spectral_core.det_launches = fs.spectral_fused.det_launches = 0
     fs.spectral_stats.staged_launches = 0
+    fs.spectral_fused.staged_launches = 0
     fw.fused_whole.det_launches = fw.fused_whole.lm_launches = 0
     fw.fused_whole.staged_launches = 0
     fnl.fused_nl_loop.det_launches = 0
@@ -1993,9 +2024,11 @@ def run_pattern_paths(device, shape=(128, 128, 64)):
 def run_linear_path(device, shape=(128, 128, 32)):
     """Phase 4k: the linear model (P=4 synthetic_design, T=106, written
     by this script to a VEST file under build/) through run_with_data
-    with --spectral-impl=fused: spectral_fused launched once and no
-    other kernel; each parameter within 3 posterior sd of the truth in
-    >= 99% of voxels; median noise sd within 5% of 1."""
+    with --spectral-impl=fused, under maxits and under trialmode:
+    spectral_fused launched once and no other kernel, staged (the
+    plan at T=106, in both modes: ops/fused_spectral.py fused_vb); each
+    parameter within 3 posterior sd of the truth in >= 99% of voxels;
+    median noise sd within 5% of 1."""
     from pathlib import Path
     from fabber_core_tpu_torch.io import matfile
     out = Path(__file__).resolve().parent / "build" / "chip_smoke"
@@ -2013,19 +2046,31 @@ def run_linear_path(device, shape=(128, 128, 32)):
     opts = {**MAIN_OPTIONS, "model": "linear", "basis": path,
             "spectral-impl": "fused"}
     opts.pop("degree")
-    run, res, eng, n, _ = api_run(device, opts, vol)
-    ok = eng.route == "spectral-fused" and n == {"spectral_fused": 1}
-    fracs = []
-    for i in range(4):
-        m = run.data[f"mean_Parameter_{i + 1}"].reshape(-1, order="F")
-        s = run.data[f"std_Parameter_{i + 1}"].reshape(-1, order="F")
-        fracs.append(float((np.abs(m - truth[i]) <= 3 * s).mean()))
-    nsd = float(np.median(1 / np.sqrt(run.data["noise_means"])))
-    good = min(fracs) >= 0.99 and abs(nsd - 1) <= 0.05
-    log(f" linear P=4: parameters within 3 posterior sd of truth in "
-        f"{[round(f, 5) for f in fracs]} of voxels (bound >= 0.99); median "
-        f"noise sd {nsd:.4f} (truth 1, bound 5%) {'ok' if good else 'FAIL'}")
-    return ok and good, {"spectral_fused": n.get("spectral_fused", 0)}
+    ok, launches = True, {}
+    for kind in ("maxits", "trialmode"):
+        o = opts if kind == "maxits" else {**opts, "convergence": kind}
+        run, res, eng, n, _ = api_run(device, o, vol)
+        det = None if kind == "maxits" else eng.detector
+        key = "spectral_fused" if det is None else "spectral_fused:detector"
+        want = {"spectral_fused": 1, key: 1, "spectral_fused:staged": 1}
+        ok &= eng.route == "spectral-fused" and n == want
+        launches[key] = n.get(key, 0)
+        fracs = []
+        for i in range(4):
+            m = run.data[f"mean_Parameter_{i + 1}"].reshape(-1, order="F")
+            s = run.data[f"std_Parameter_{i + 1}"].reshape(-1, order="F")
+            fracs.append(float((np.abs(m - truth[i]) <= 3 * s).mean()))
+        nsd = float(np.median(1 / np.sqrt(run.data["noise_means"])))
+        good = (min(fracs) >= 0.99 and abs(nsd - 1) <= 0.05
+                and all(np.isfinite(a).all() for a in run.data.values()))
+        its = "" if det is None else \
+            f"; iterations {its_histogram(res.iterations)}"
+        log(f" linear P=4 {kind}: parameters within 3 posterior sd of truth "
+            f"in {[round(f, 5) for f in fracs]} of voxels (bound >= 0.99); "
+            f"median noise sd {nsd:.4f} (truth 1, bound 5%){its} "
+            f"{'ok' if good else 'FAIL'}")
+        ok &= good
+    return ok, launches
 
 
 def whole_ops(p, nq, iters, det=False):
@@ -2049,11 +2094,14 @@ def time_fixed_design(device, card, fig, nv=16_777_216):
     lm at Q=1, each in its staged and streamed forms (time_forms; every
     pair bit for bit, or the phase fails) with their plan, occupancy
     and registers (log_forms); kernel 5 at Q=2 with make_design_stats's
-    time beside it;
-    kernel 3 beside the split pair (phase 5); VBInference.run() of poly
-    with noise-pattern 12. CUDA events, best of 3 after a warm-up; the
-    plain versions best of 1 after a warm-up. Detector bounds count the
-    loop trips the plain version needed on this data."""
+    time beside it; kernel 3 in maxits and trialmode, staged at each of
+    STATS_WIDTHS' VB (maxits: the widest) and streamed, beside the split
+    pair (kernels 1 + 2) in turns (time_turns), every form equal to the
+    split pair bit for bit (or the phase fails), with each form's plan,
+    occupancy and registers; VBInference.run() of poly with noise-pattern
+    12. CUDA events, best of 3 after a warm-up; the plain versions best
+    of 1 after a warm-up. Detector bounds count the loop trips the plain
+    version needed on this data."""
     import torch
     from fabber_core_tpu_torch.inference.vb import VBInference
     from fabber_core_tpu_torch.models import get_model_class
@@ -2061,6 +2109,7 @@ def time_fixed_design(device, card, fig, nv=16_777_216):
     from fabber_core_tpu_torch.ops import fused_loop as fl
     from fabber_core_tpu_torch.ops import fused_spectral as fs
     from fabber_core_tpu_torch.ops import fused_whole as fw
+    from fabber_core_tpu_torch.ops.spectral import eigen_elbo_const
     from fabber_core_tpu_torch.options import RunOptions
 
     out = {}
@@ -2130,23 +2179,56 @@ def time_fixed_design(device, card, fig, nv=16_777_216):
          + 2 * 2 * p * p) * nv)
     del largs, eng
     torch.cuda.empty_cache()
-    # kernel 3 beside the split pair
+    # kernel 3 in each form beside the split pair, in turns
     q1 = np.ones(NT)
+    c_post = (NT - 1) * 0.5 + 1e-6
     tc = fs.pack_mxu_consts(design, q1, NT, torch.float32, device)
     ac = fs.pack_solve_consts(design, q1, NT, torch.float32)
-    sc = fs.pack_spectral_consts(design, q1, NT, np.full(p, 1e-12), 1e-6,
-                                 (NT - 1) * 0.5 + 1e-6, 1e-8, 50.0,
-                                 torch.float32, (-100.0, 53.5))
+    sc = fs.pack_spectral_consts(
+        design, q1, NT, np.full(p, 1e-12), 1e-6, c_post, 1e-8, 50.0,
+        torch.float32, (eigen_elbo_const(q1, c_post, 1e-6, 1e6, p),
+                        c_post + 0.5))
     pm = torch.zeros((p, nv), dtype=torch.float32, device=device)
-    out["fused_ms"] = best_ms(
-        lambda: fs.spectral_fused(plane, tc, ac, pm, sc, ITERS))
-    out["fused_plain_ms"] = best_ms(
-        lambda: fs.spectral_fused_plain(plane, tc, ac, pm, sc, ITERS),
-        reps=1)
-    out["fused_bound"] = bound(
-        4 * NT * nv + 4 * p * nv + 4 * (2 * p * p + p + 4) * nv,
-        ((6 * p + 2) * NT + 10 * p * p + 12 * p + 2 * p * p + 3 * p ** 3
-         + 40 + (ITERS - 1) * (9 * p + 5)) * nv)
+    fused_bytes = 4 * NT * nv + 4 * p * nv + 4 * (2 * p * p + p + 4) * nv
+    stats_ops = (6 * p + 2) * NT + 10 * p * p + 12 * p + 2 * p * p \
+        + 3 * p ** 3 + 40
+    widths = _cuda.STATS_WIDTHS
+    for kind in (None, "trialmode"):
+        det = None if kind is None else make_detector(kind)
+        n_it = ITERS if det is None else int(det.max_iterations) + 2
+        code = _cuda.DETECTOR_CODES[kind or "maxits"]
+        tag = "fused" if det is None else "fused_det"
+        runs = {f"vb{vb}": (lambda vb=vb: fs.spectral_fused(
+            plane, tc, ac, pm, sc, n_it, det, _vb=vb))
+            for vb in ((0,) + widths if det is not None else (0, widths[0]))}
+        runs["split"] = lambda: fs.spectral_core(
+            *fs.spectral_stats(plane, tc, ac), pm, sc, n_it, det)
+        t = time_turns(runs)
+        equal = all(bits_equal(t[n][1], t["split"][1]) for n in runs)
+        out[f"{tag}_bits_equal_split"] = equal
+        log(f"  spectral_fused {kind or 'maxits'}: every form equals the "
+            f"split pair bit for bit: {equal}")
+        out[f"{tag}_ms"] = t[f"vb{fs.fused_vb(NT, p)}"][0]
+        for n in runs:
+            out[f"{tag}_{n}_ms"] = t[n][0]
+        del t
+        out[f"{tag}_forms"] = log_forms(
+            f"spectral_fused P=3 {kind or 'maxits'}", NT, 2 * p + 1,
+            lambda vb: _cuda.fused_occupancy(p, code, vb, NT),
+            lambda st: ptxas_entry(_cuda.build_log, "spectral_fused_kernel",
+                                   f"ILi3ELi{code}ELb{int(st)}E"),
+            threads=256, widths=widths)
+        out[f"{tag}_plain_ms"] = best_ms(lambda: fs.spectral_fused_plain(
+            plane, tc, ac, pm, sc, n_it, det), reps=1)
+        if det is None:
+            out["fused_bound"] = bound(
+                fused_bytes, (stats_ops + (ITERS - 1) * (9 * p + 5)) * nv)
+        else:
+            counter = trip_counter(det)
+            fs.spectral_fused_plain(plane, tc, ac, pm, sc, n_it, counter)
+            out["fused_det_bound"] = bound(
+                fused_bytes, stats_ops * nv + (12 * p + 30) * counter.trips)
+        torch.cuda.empty_cache()
     del pm
     torch.cuda.empty_cache()
     # the whole engine run with the noise pattern 12
@@ -2167,6 +2249,8 @@ def time_fixed_design(device, card, fig, nv=16_777_216):
     log(f" beside: the split pair spectral_stats + spectral_core "
         f"{fig['stats_ms']!r} + {fig['core_ms']!r} ms (phase 5)")
     out["whole_forms_bit_identical"] = all(same)
+    out["fused_forms_bit_identical"] = (out["fused_bits_equal_split"]
+                                        and out["fused_det_bits_equal_split"])
     return out
 
 
@@ -3583,6 +3667,7 @@ def main():
               "vb_iter_forms_bit_identical":
                   fig_nl["vb_iter_staged_bits_equal_streamed"],
               "whole_forms_bit_identical": fig_fd["whole_forms_bit_identical"],
+              "fused_forms_bit_identical": fig_fd["fused_forms_bit_identical"],
               "stats_forms_bit_identical":
                   fig["stats_staged_bits_equal_streamed"]}
     if not all(phases.values()):
@@ -3599,6 +3684,7 @@ def main():
                 "bound_by": bnd[1], "library_ms": None}
 
     core_at = "fabber_core_tpu/ops/fused_spectral.py:760"
+    fused_at = "fabber_core_tpu/ops/fused_spectral.py:376"
     whole_at = "fabber_core_tpu/ops/fused_whole.py:298"
     nl_at = "fabber_core_tpu/ops/fused_loop_nl.py:162"
     it_at = "fabber_core_tpu/ops/fused_vb.py:184"
@@ -3625,9 +3711,12 @@ def main():
         entry("fused_vb_iter:lm", "fused_vb_iter.cu", it_at,
               fig_det["vb_iter_lm_ms"], fig_det["vb_iter_lm_plain_ms"],
               fig_det["vb_iter_lm_bound"]),
-        entry("spectral_fused", "spectral_fused.cu",
-              "fabber_core_tpu/ops/fused_spectral.py:376", fig_fd["fused_ms"],
-              fig_fd["fused_plain_ms"], fig_fd["fused_bound"]),
+        entry("spectral_fused", "spectral_fused.cu", fused_at,
+              fig_fd["fused_ms"], fig_fd["fused_plain_ms"],
+              fig_fd["fused_bound"]),
+        entry("spectral_fused:detector", "spectral_fused.cu", fused_at,
+              fig_fd["fused_det_ms"], fig_fd["fused_det_plain_ms"],
+              fig_fd["fused_det_bound"]),
         entry("fused_whole", "fused_whole.cu", whole_at,
               fig_fd["whole_q2_ms"], fig_fd["whole_q2_plain_ms"],
               fig_fd["whole_q2_bound"]),

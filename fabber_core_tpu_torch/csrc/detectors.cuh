@@ -152,4 +152,16 @@ __device__ __forceinline__ void det_test(const DetParams& d, DetState& s,
   }
 }
 
+// det_test for a detector fixed at compile time (kernels 2 and 3: one
+// instance per detector): the switch folds to KIND's case, so the lane
+// keeps only that detector's state and branch; det_test itself, which
+// kernels 4, 6 and 9 call with a runtime kind, is unchanged.
+template <int KIND>
+__device__ __forceinline__ void det_test_kind(const DetParams& d,
+                                              DetState& s, float f) {
+  DetParams dk = d;
+  dk.kind = KIND;
+  det_test(dk, s, f);
+}
+
 }  // namespace fabber

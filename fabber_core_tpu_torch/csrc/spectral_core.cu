@@ -4,8 +4,9 @@
 // Replaces the TPU kernel fabber_core_tpu/ops/fused_spectral.py
 // make_spectral_core_kernel (its pallas_call at line 840; body
 // _spectral_core at line 162, output writes _write_outputs at line 350),
-// in both its modes: maxits (DET = false) and the in-kernel F-based
-// detectors pointzeroone / freduce / trialmode (DET = true). Plain
+// in both its modes: maxits (KIND = kMaxits) and the in-kernel F-based
+// detectors pointzeroone / freduce / trialmode (KIND their code, one
+// instance per detector: detectors.cuh det_test_kind). Plain
 // version: fabber_core_tpu_torch/ops/fused_spectral.py
 // spectral_core_plain.
 //
@@ -46,8 +47,14 @@
 // negligible: each trip adds P+1 logf and P divides, and a warp runs
 // until its slowest lane is done (under trialmode at its defaults ~17
 // trips for a lane that reverts), which took the kernel from 0.94 to
-// 2.49 ms at 16,777,216 voxels, P=3, on an H100. There is no
-// block-level state, so no barrier. The per-voxel body is
+// 2.49 ms at 16,777,216 voxels, P=3, on an H100. Each detector has its
+// own instance (template KIND), so a lane carries only its detector's
+// state and a trip runs only its test, with no switch on a runtime kind.
+// Compacting the lanes still running after a few trips did not beat one
+// launch (grid-wide in two launches, 4.06-4.16 against 2.36-2.51 ms;
+// within each block, no gain: probes/csrc/core_compact.cu, probes/
+// core_stragglers.py), so there is one launch. There is no block-level
+// state, so no barrier. The per-voxel body is
 // csrc/spectral_device.cuh core_voxel, which kernel 3 (spectral_fused.cu)
 // runs too.
 
@@ -63,7 +70,7 @@ constexpr int kThreads = 256;
 
 using fabber::DetParams;
 
-template <int P, bool DET>
+template <int P, int KIND>
 __global__ void __launch_bounds__(kThreads)
 spectral_core_kernel(const float* __restrict__ m0_in,
                      const float* __restrict__ rtqr_in,
@@ -84,27 +91,47 @@ spectral_core_kernel(const float* __restrict__ m0_in,
     pm[a] = pm_in[(size_t)a * V + v];
   }
   const float rtqr = rtqr_in[v];
-  fabber_spectral::core_voxel<P, DET>(m0, rtqr, dtqr, pm, k, det, n_iters, V,
-                                      v, means_out, prec_out, cov_out, b_out,
-                                      c_out, f_out, tr_out);
+  fabber_spectral::core_voxel<P, KIND>(m0, rtqr, dtqr, pm, k, det, n_iters,
+                                       V, v, means_out, prec_out, cov_out,
+                                       b_out, c_out, f_out, tr_out);
+}
+
+// ---- launch and C entry point -------------------------------------------
+
+// One launch's arguments.
+struct CoreArgs {
+  const float* m0;
+  const float* rtqr;
+  const float* dtqr;
+  const float* pm;
+  CoreConsts k;
+  DetParams det;
+  int n_iters;
+  long long V;
+  float* outs[7];
+};
+
+template <int P, int KIND>
+int launch_kind(const CoreArgs& a, cudaStream_t stream) {
+  const unsigned grid = (unsigned)((a.V + kThreads - 1) / kThreads);
+  spectral_core_kernel<P, KIND><<<grid, kThreads, 0, stream>>>(
+      a.m0, a.rtqr, a.dtqr, a.pm, a.k, a.det, a.n_iters, a.V, a.outs[0],
+      a.outs[1], a.outs[2], a.outs[3], a.outs[4], a.outs[5], a.outs[6]);
+  return (int)cudaGetLastError();
 }
 
 template <int P>
-int launch(const float* m0, const float* rtqr, const float* dtqr,
-           const float* pm, const CoreConsts& k, const DetParams& det,
-           int n_iters, long long V, float* const* outs,
-           cudaStream_t stream) {
-  const unsigned grid = (unsigned)((V + kThreads - 1) / kThreads);
-  if (det.kind == fabber::kMaxits) {
-    spectral_core_kernel<P, false><<<grid, kThreads, 0, stream>>>(
-        m0, rtqr, dtqr, pm, k, det, n_iters, V, outs[0], outs[1], outs[2],
-        outs[3], outs[4], outs[5], outs[6]);
-  } else {
-    spectral_core_kernel<P, true><<<grid, kThreads, 0, stream>>>(
-        m0, rtqr, dtqr, pm, k, det, n_iters, V, outs[0], outs[1], outs[2],
-        outs[3], outs[4], outs[5], outs[6]);
+int launch(const CoreArgs& a, cudaStream_t stream) {
+  switch (a.det.kind) {
+    case fabber::kMaxits:
+      return launch_kind<P, fabber::kMaxits>(a, stream);
+    case fabber::kPointZeroOne:
+      return launch_kind<P, fabber::kPointZeroOne>(a, stream);
+    case fabber::kFreduce:
+      return launch_kind<P, fabber::kFreduce>(a, stream);
+    default:
+      return launch_kind<P, fabber::kTrialMode>(a, stream);
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -127,20 +154,20 @@ extern "C" int fabber_spectral_core(int p, int n_iters, const float* m0,
   if (p < 1 || p > kMaxP || n_iters < 1 || V < 1 || det_kind < 0 ||
       det_kind > fabber::kTrialMode)
     return (int)cudaErrorInvalidValue;
-  CoreConsts k = {};
-  for (int i = 0; i < 4 * p * p + 2 * p + 6; ++i) k.v[i] = consts_host[i];
-  const DetParams det = {det_kind, det_tol, det_max_its, det_max_trials,
-                         det_init_save};
-  float* const outs[7] = {means, prec, cov, b, c, f, tr};
+  CoreArgs a = {m0, rtqr, dtqr, pm, {},
+                {det_kind, det_tol, det_max_its, det_max_trials,
+                 det_init_save},
+                n_iters, V, {means, prec, cov, b, c, f, tr}};
+  for (int i = 0; i < 4 * p * p + 2 * p + 6; ++i) a.k.v[i] = consts_host[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (p) {
-    case 1: return launch<1>(m0, rtqr, dtqr, pm, k, det, n_iters, V, outs, s);
-    case 2: return launch<2>(m0, rtqr, dtqr, pm, k, det, n_iters, V, outs, s);
-    case 3: return launch<3>(m0, rtqr, dtqr, pm, k, det, n_iters, V, outs, s);
-    case 4: return launch<4>(m0, rtqr, dtqr, pm, k, det, n_iters, V, outs, s);
-    case 5: return launch<5>(m0, rtqr, dtqr, pm, k, det, n_iters, V, outs, s);
-    case 6: return launch<6>(m0, rtqr, dtqr, pm, k, det, n_iters, V, outs, s);
-    case 7: return launch<7>(m0, rtqr, dtqr, pm, k, det, n_iters, V, outs, s);
-    default: return launch<8>(m0, rtqr, dtqr, pm, k, det, n_iters, V, outs, s);
+    case 1: return launch<1>(a, s);
+    case 2: return launch<2>(a, s);
+    case 3: return launch<3>(a, s);
+    case 4: return launch<4>(a, s);
+    case 5: return launch<5>(a, s);
+    case 6: return launch<6>(a, s);
+    case 7: return launch<7>(a, s);
+    default: return launch<8>(a, s);
   }
 }

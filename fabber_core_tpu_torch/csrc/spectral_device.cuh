@@ -3,6 +3,11 @@
 // spectral_core.cu (kernel 2) and spectral_fused.cu (kernel 3, both in
 // one thread).
 //
+//   stage_stats  the staged form's copy of a block's [T, VB] tile of the
+//                data plane and the design rows into shared memory
+//                (kernels 1 and 3): 16-byte cp.async chunks, each tile
+//                row rotated by its first sample's offset from 16-byte
+//                alignment (StatsTile undoes it).
 //   stats_voxel  the single-group statistics of one voxel:
 //                dty = (DW)'y, m0 by an unrolled f32 Cholesky of the f32
 //                A = D'QD (a non-finite m0 becomes 0), then about
@@ -10,14 +15,14 @@
 //                The per-timepoint rows (D, DW, q: (2P+1) x T floats)
 //                are read from the block's shared-memory copy, the data
 //                column through a column object's sample(t): the plane
-//                (PlaneColumn: kernel 3, kernel 1 streamed) or kernel
-//                1's staged tile (spectral_stats.cu StatsTile), so each
-//                pass is one function for both forms and they agree bit
-//                for bit.
+//                (PlaneColumn: the streamed forms) or the staged tile
+//                (StatsTile), so each pass is one function for both
+//                forms and they agree bit for bit.
 //   core_voxel   the eigenbasis rotation, the scalar fixed point (maxits,
-//                or the lane's detector state machine, DET) and the
-//                posterior reconstruction of one voxel, written to its
-//                output columns.
+//                or the lane's detector state machine: KIND, one
+//                instance per detector, detectors.cuh det_test_kind) and
+//                the posterior reconstruction of one voxel, written to
+//                its output columns.
 //
 // The comments of spectral_stats.cu and spectral_core.cu describe the
 // arithmetic; the functions are force-inlined into each kernel.
@@ -25,12 +30,16 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "detectors.cuh"
+#include "tile.cuh"
 
 namespace fabber_spectral {
 
 constexpr int kMaxP = 8;
+// kernels 1 and 3: the streamed block and the widest staged one
+constexpr int kStatsThreads = 256;
 
 struct SolveConsts {
   float a[kMaxP * kMaxP];  // A = D'QD, row-major P x P (first P*P used)
@@ -50,6 +59,90 @@ struct PlaneColumn {
     return __ldg(x + (size_t)t * V);
   }
 };
+
+// The staged form's [T, vb] tile in shared memory (kernels 1 and 3).
+// Row t holds the
+// block's vb samples of plane row t rotated by rot(t), the offset in
+// floats of the row's first sample from 16-byte alignment: sample j sits
+// in word (rot(t) + j) mod vb, so each 16-byte aligned chunk of the plane
+// lands on 16-byte aligned words. rot(t) = (r0 + t vm) mod 4, r0 the
+// first row's offset and vm = V mod 4: 0 throughout for an aligned plane
+// with V a multiple of 4.
+struct StatsTile {
+  const float* tile;
+  int vb, lane;
+  unsigned r0, vm;
+
+  __device__ __forceinline__ int rot(int t) const {
+    return (int)((r0 + (unsigned)t * vm) & 3u);
+  }
+  __device__ __forceinline__ float sample(int t) const {
+    int w = lane + rot(t);
+    if (w >= vb) w -= vb;
+    return tile[t * vb + w];
+  }
+};
+
+// The staged form's copies, by every thread of the block (those past V
+// included, which must meet the barrier), then the wait and the barrier:
+//   words 4 .. vb-1 of row t, chunk c = 1 .. vb/4 - 1: 16 bytes from the
+//     plane's aligned chunk whose first sample is j = 4c - rot(t) (fewer
+//     floats past V, zero filled); a row's chunks on consecutive lanes,
+//     four rows at a time (lane = (vb/4) r + c; the c = 0 lanes idle);
+//   words 0 .. 3 of row t: samples (w - rot(t)) mod vb, the row's
+//     unaligned head and tail, one float each;
+//   the (2P+1) x T design rows after the tile, one float each.
+template <int P>
+__device__ __forceinline__ StatsTile stage_stats(
+    const float* __restrict__ data, const float* __restrict__ tconsts,
+    int T, long long V) {
+  const int vb = (int)blockDim.x, lane = (int)threadIdx.x, nc = vb / 4;
+  float* tile = fabber::dynamic_smem();
+  const long long v0 = (long long)blockIdx.x * vb;
+  const long long left = V - v0;   // the block's samples in a row: > 0
+  const StatsTile col{
+      tile, vb, lane,
+      (unsigned)((reinterpret_cast<uintptr_t>(data) / sizeof(float) +
+                  (unsigned long long)v0) & 3u),
+      (unsigned)(V & 3)};
+  const int c = lane % nc;
+  if (c != 0) {
+    for (int t = lane / nc; t < T; t += 4) {
+      const int j = 4 * c - col.rot(t);
+      const long long n = left - j, row = (long long)t * V + v0;
+      // past V nothing is read: the address stays the row's first chunk
+      fabber::cp_async16(tile + t * vb + 4 * c,
+                         data + row + (n > 0 ? j : -col.rot(t)),
+                         n >= 4 ? 4 : n > 0 ? (int)n : 0);
+    }
+  }
+  for (int i = lane; i < 4 * T; i += vb) {
+    const int t = i >> 2, w = i & 3;
+    int j = w - col.rot(t);
+    if (j < 0) j += vb;
+    const bool in = j < left;
+    fabber::cp_async4(tile + t * vb + w,
+                      data + ((long long)t * V + v0 + (in ? j : 0)), in);
+  }
+  float* rows = tile + T * vb;
+  for (int i = lane; i < (2 * P + 1) * T; i += vb)
+    fabber::cp_async4(rows + i, tconsts + i, true);
+  fabber::cp_async_wait_block();
+  return col;
+}
+
+// Dynamic shared memory of a kernel 1 or 3 launch at (vb, T): streamed
+// (vb 0) the rows; staged the [T, vb] tile and the rows; -1 where
+// refused (tile.cuh tile_bytes: vb not a multiple of 32 or above
+// kStatsThreads, or a tile above a block's shared memory; rows beyond
+// it).
+inline long long stats_smem(int p, int vb, int T) {
+  if (vb == 0) {
+    const long long b = 4LL * (2 * p + 1) * T;
+    return b <= fabber::kMaxBlockSmem ? b : -1;
+  }
+  return fabber::tile_bytes(vb, T, (2 * p + 1) * T, kStatsThreads);
+}
 
 template <int P, class Col>
 __device__ __forceinline__ void stats_voxel(const float* rows, int T,
@@ -127,147 +220,179 @@ __device__ __forceinline__ void stats_voxel(const float* rows, int T,
   rtqr_out = rtqr;
 }
 
-template <int P, bool DET>
-__device__ __forceinline__ void core_voxel(
-    const float* m0, const float rtqr, const float* dtqr, const float* pm,
-    const CoreConsts& k, const fabber::DetParams& det, int n_iters,
-    long long V, long long v, float* __restrict__ means_out,
-    float* __restrict__ prec_out, float* __restrict__ cov_out,
-    float* __restrict__ b_out, float* __restrict__ c_out,
-    float* __restrict__ f_out, float* __restrict__ tr_out) {
-  // constant-block offsets; every index below is a compile-time
-  // constant after unrolling, so each read is a direct constant-bank
-  // operand (no pointer into the parameter space, no local copy)
-  constexpr int oA = 0, oETW = P * P, oETWI = 2 * P * P, oEW = 3 * P * P,
-                oLAM = 4 * P * P, oPP = oLAM + P, oS = oPP + P;
-#define A(i, j) k.v[oA + (i) * P + (j)]
-#define ETW(i, a) k.v[oETW + (i) * P + (a)]
-#define ETWI(i, a) k.v[oETWI + (i) * P + (a)]
-#define EW(a, i) k.v[oEW + (a) * P + (i)]
-#define LAM(i) k.v[oLAM + (i)]
-#define PP(i) k.v[oPP + (i)]
-  const float inv_b0 = k.v[oS], c_post = k.v[oS + 1], b_init = k.v[oS + 2],
-              c_init = k.v[oS + 3], f_const = k.v[oS + 4],
-              lb_coeff = k.v[oS + 5];
+// The core constants (pack_spectral_consts' layout) by name; every index
+// is a compile-time constant after unrolling, so each read is a direct
+// constant-bank operand (no pointer into the parameter space, no local
+// copy). k and P are the enclosing function's.
+#define FS_A(i, j) k.v[(i) * P + (j)]
+#define FS_ETW(i, a) k.v[P * P + (i) * P + (a)]
+#define FS_ETWI(i, a) k.v[2 * P * P + (i) * P + (a)]
+#define FS_EW(a, i) k.v[3 * P * P + (a) * P + (i)]
+#define FS_LAM(i) k.v[4 * P * P + (i)]
+#define FS_PP(i) k.v[4 * P * P + P + (i)]
+#define FS_S(i) k.v[4 * P * P + 2 * P + (i)]   // 1/b0, c_post, b_init,
+                                               // c_init, f_const, lb_coeff
 
-  // ---- rotation into the whitened eigenbasis -------------------------
+// A lane's statistics rotated into the whitened eigenbasis:
+// ut = E'W (dtqr + A m0), u0t = E'W dtqr, vt = E'W (pp*pm),
+// m0t = E'W^-1 m0, with rtqr beside them.
+template <int P>
+struct Rotated {
+  float ut[P], u0t[P], vt[P], m0t[P], rtqr;
+};
+
+template <int P>
+__device__ __forceinline__ Rotated<P> rotate(const float* m0, float rtqr,
+                                             const float* dtqr,
+                                             const float* pm,
+                                             const CoreConsts& k) {
+  Rotated<P> r;
   float dtqy[P];
 #pragma unroll
   for (int a = 0; a < P; ++a) {
     float s = 0.f;
 #pragma unroll
-    for (int j = 0; j < P; ++j) s += A(a, j) * m0[j];
+    for (int j = 0; j < P; ++j) s += FS_A(a, j) * m0[j];
     dtqy[a] = dtqr[a] + s;
   }
-  float ut[P], u0t[P], vt[P], m0t[P];
 #pragma unroll
   for (int i = 0; i < P; ++i) {
     float su = 0.f, s0 = 0.f, sv = 0.f, sm = 0.f;
 #pragma unroll
     for (int a = 0; a < P; ++a) {
-      su += ETW(i, a) * dtqy[a];
-      s0 += ETW(i, a) * dtqr[a];
-      sv += ETW(i, a) * (PP(a) * pm[a]);
-      sm += ETWI(i, a) * m0[a];
+      su += FS_ETW(i, a) * dtqy[a];
+      s0 += FS_ETW(i, a) * dtqr[a];
+      sv += FS_ETW(i, a) * (FS_PP(a) * pm[a]);
+      sm += FS_ETWI(i, a) * m0[a];
     }
-    ut[i] = su;
-    u0t[i] = s0;
-    vt[i] = sv;
-    m0t[i] = sm;
+    r.ut[i] = su;
+    r.u0t[i] = s0;
+    r.vt[i] = sv;
+    r.m0t[i] = sm;
   }
+  r.rtqr = rtqr;
+  return r;
+}
 
-  float s = b_init * c_init;
-  bool sel_init = false;
-  int its = n_iters;
-  if constexpr (!DET) {
-    // ---- scalar fixed point: n_iters-1 noise updates -----------------
-    for (int it = 0; it < n_iters - 1; ++it) {
-      float cross = 0.f, quad = 0.f, tr = 0.f;
+// The detector loop's state of one lane. cur: the phi of the next
+// update; gen: the phi that generated the current posterior; best: the
+// saved generating phi; the *_init flags mark the engine-initial
+// posterior; it: the trips made; cv: the detector's state.
+struct DetLoop {
+  float cur_s, gen_s, best_s;
+  bool is_init, best_init;
+  int it;
+  fabber::DetState cv;
+};
+
+// The loop's start: every phi the engine-initial s0 = b_init c_init.
+__device__ __forceinline__ DetLoop det_loop_start(float s0,
+                                                  const fabber::DetParams& d) {
+  DetLoop l;
+  l.cur_s = l.gen_s = l.best_s = s0;
+  l.is_init = l.best_init = true;
+  l.it = 0;
+  l.cv = fabber::det_init(d);
+  return l;
+}
+
+// Trips of the detector loop until the lane is done or has made end
+// trips: per trip, best-save where the detector's save flag is set, the
+// update generated by the current phi, the noise, the eigenbasis ELBO F
+// and the detector's test.
+template <int P, int KIND>
+__device__ __forceinline__ void det_loop(const Rotated<P>& r,
+                                         const CoreConsts& k,
+                                         const fabber::DetParams& det,
+                                         int end, DetLoop& l) {
+  const float inv_b0 = FS_S(0), c_post = FS_S(1), f_const = FS_S(4),
+              lb_coeff = FS_S(5);
+  for (; l.it < end && !l.cv.done; ++l.it) {
+    if (l.cv.save) {
+      l.best_s = l.gen_s;
+      l.best_init = l.is_init;
+    }
+    const float g = l.cur_s;
+    float cross = 0.f, quad = 0.f, tr = 0.f, logden = 0.f, rdensum = 0.f,
+          mv2 = 0.f;
 #pragma unroll
-      for (int i = 0; i < P; ++i) {
-        const float rd = 1.f / (s * LAM(i) + 1.f);
-        const float d = (s * ut[i] + vt[i]) * rd - m0t[i];
-        cross += d * u0t[i];
-        quad += LAM(i) * d * d;
-        tr += LAM(i) * rd;
-      }
-      const float kqk = fmaxf(rtqr - 2.f * cross + quad, 0.f);
-      s = 1.f / ((kqk + tr) * 0.5f + inv_b0) * c_post;
+    for (int i = 0; i < P; ++i) {
+      const float den = g * FS_LAM(i) + 1.f;
+      const float rd = 1.f / den;
+      const float mt = (g * r.ut[i] + r.vt[i]) * rd;
+      const float d = mt - r.m0t[i];
+      cross += d * r.u0t[i];
+      quad += FS_LAM(i) * d * d;
+      tr += FS_LAM(i) * rd;
+      logden += logf(den);
+      rdensum += rd;
+      mv2 += (mt - r.vt[i]) * (mt - r.vt[i]);
     }
-  } else {
-    // ---- detector mode: the lane's state machine in the loop ---------
-    // cur: the phi of the next update; gen: the phi that generated the
-    // current posterior; best: the saved generating phi; the *_init
-    // flags mark the engine-initial posterior
-    float cur_s = s, gen_s = s, best_s = s;
-    bool is_init = true, best_init = true;
-    fabber::DetState cv = fabber::det_init(det);
-    for (int it = 0; it < n_iters && !cv.done; ++it) {
-      if (cv.save) {
-        best_s = gen_s;
-        best_init = is_init;
-      }
-      const float g = cur_s;
-      float cross = 0.f, quad = 0.f, tr = 0.f, logden = 0.f, rdensum = 0.f,
-            mv2 = 0.f;
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-        const float den = g * LAM(i) + 1.f;
-        const float rd = 1.f / den;
-        const float mt = (g * ut[i] + vt[i]) * rd;
-        const float d = mt - m0t[i];
-        cross += d * u0t[i];
-        quad += LAM(i) * d * d;
-        tr += LAM(i) * rd;
-        logden += logf(den);
-        rdensum += rd;
-        mv2 += (mt - vt[i]) * (mt - vt[i]);
-      }
-      const float kqk = fmaxf(rtqr - 2.f * cross + quad, 0.f);
-      const float b_new = 1.f / ((kqk + tr) * 0.5f + inv_b0);
-      const float f = f_const - 0.5f * logden + lb_coeff * logf(b_new) -
-                      b_new * c_post * (inv_b0 + 0.5f * kqk) - 0.5f * tr -
-                      0.5f * mv2 - 0.5f * rdensum;
-      fabber::det_test(det, cv, f);
-      cur_s = b_new * c_post;
-      gen_s = g;
-      is_init = false;
-    }
-    // the engine's finalize: best-save, then revert
-    if (cv.save) {
-      best_s = gen_s;
-      best_init = is_init;
-    }
-    s = cv.revert ? best_s : gen_s;
-    sel_init = cv.revert ? best_init : is_init;
-    its = cv.its;
+    const float kqk = fmaxf(r.rtqr - 2.f * cross + quad, 0.f);
+    const float b_new = 1.f / ((kqk + tr) * 0.5f + inv_b0);
+    const float f = f_const - 0.5f * logden + lb_coeff * logf(b_new) -
+                    b_new * c_post * (inv_b0 + 0.5f * kqk) - 0.5f * tr -
+                    0.5f * mv2 - 0.5f * rdensum;
+    fabber::det_test_kind<KIND>(det, l.cv, f);
+    l.cur_s = b_new * c_post;
+    l.gen_s = g;
+    l.is_init = false;
   }
+}
 
-  // ---- reconstruction from the phi that generated the posterior ------
+// The engine's finalize after the loop: best-save, then the revert
+// selection of the generating phi. Returns the selected phi; sel_init:
+// whether it generated the engine-initial posterior; its: the
+// detector's count.
+__device__ __forceinline__ float det_finish(DetLoop& l, bool& sel_init,
+                                            int& its) {
+  if (l.cv.save) {
+    l.best_s = l.gen_s;
+    l.best_init = l.is_init;
+  }
+  sel_init = l.cv.revert ? l.best_init : l.is_init;
+  its = l.cv.its;
+  return l.cv.revert ? l.best_s : l.gen_s;
+}
+
+// The posterior rebuilt from the phi s that generated it, written to the
+// lane's output columns: means = WE mt, prec = s A + diag(pp), cov, the
+// noise b (with a minus sign where sel_init) and c = c_post, F, and tr
+// (maxits) or the detector's count its.
+template <int P, int KIND>
+__device__ __forceinline__ void rebuild(
+    const Rotated<P>& r, float s, bool sel_init, int its,
+    const CoreConsts& k, long long V, long long v,
+    float* __restrict__ means_out, float* __restrict__ prec_out,
+    float* __restrict__ cov_out, float* __restrict__ b_out,
+    float* __restrict__ c_out, float* __restrict__ f_out,
+    float* __restrict__ tr_out) {
+  const float inv_b0 = FS_S(0), c_post = FS_S(1), f_const = FS_S(4),
+              lb_coeff = FS_S(5);
   float mt[P], rden[P];
   float cross = 0.f, quad = 0.f, tr = 0.f, logden = 0.f, rdensum = 0.f,
         mv2 = 0.f;
 #pragma unroll
   for (int i = 0; i < P; ++i) {
-    const float den = s * LAM(i) + 1.f;
+    const float den = s * FS_LAM(i) + 1.f;
     rden[i] = 1.f / den;
-    mt[i] = (s * ut[i] + vt[i]) * rden[i];
-    const float d = mt[i] - m0t[i];
-    cross += d * u0t[i];
-    quad += LAM(i) * d * d;
-    tr += LAM(i) * rden[i];
+    mt[i] = (s * r.ut[i] + r.vt[i]) * rden[i];
+    const float d = mt[i] - r.m0t[i];
+    cross += d * r.u0t[i];
+    quad += FS_LAM(i) * d * d;
+    tr += FS_LAM(i) * rden[i];
     logden += logf(den);
     rdensum += rden[i];
-    mv2 += (mt[i] - vt[i]) * (mt[i] - vt[i]);
+    mv2 += (mt[i] - r.vt[i]) * (mt[i] - r.vt[i]);
   }
-  const float kqk = fmaxf(rtqr - 2.f * cross + quad, 0.f);
+  const float kqk = fmaxf(r.rtqr - 2.f * cross + quad, 0.f);
   const float b = 1.f / ((kqk + tr) * 0.5f + inv_b0);
 
 #pragma unroll
   for (int a = 0; a < P; ++a) {
     float m = 0.f;
 #pragma unroll
-    for (int i = 0; i < P; ++i) m += EW(a, i) * mt[i];
+    for (int i = 0; i < P; ++i) m += FS_EW(a, i) * mt[i];
     means_out[(size_t)a * V + v] = m;
   }
 #pragma unroll
@@ -277,10 +402,10 @@ __device__ __forceinline__ void core_voxel(
       float c = 0.f;
 #pragma unroll
       for (int kk = 0; kk < P; ++kk)
-        c += EW(i, kk) * EW(j, kk) * rden[kk];
+        c += FS_EW(i, kk) * FS_EW(j, kk) * rden[kk];
       const size_t o = (size_t)(i * P + j) * V + v;
       cov_out[o] = c;
-      prec_out[o] = s * A(i, j) + (i == j ? PP(i) : 0.f);
+      prec_out[o] = s * FS_A(i, j) + (i == j ? FS_PP(i) : 0.f);
     }
   }
   const float f = f_const - 0.5f * logden + lb_coeff * logf(b) -
@@ -289,13 +414,60 @@ __device__ __forceinline__ void core_voxel(
   b_out[v] = sel_init ? -b : b;
   c_out[v] = c_post;
   f_out[v] = f;
-  tr_out[v] = DET ? (float)its : tr;
-#undef A
-#undef ETW
-#undef ETWI
-#undef EW
-#undef LAM
-#undef PP
+  tr_out[v] = KIND != fabber::kMaxits ? (float)its : tr;
 }
+
+// One voxel's whole core: rotate, the fixed point (maxits: n_iters-1
+// noise updates from s0 = b_init c_init; a detector KIND: its loop to
+// n_iters trips and the finalize), rebuild. KIND: fabber::kMaxits, or
+// the detector of the instance (kPointZeroOne, kFreduce, kTrialMode),
+// whose test is compiled alone (det_test_kind): the lane keeps only that
+// detector's state and branch.
+template <int P, int KIND>
+__device__ __forceinline__ void core_voxel(
+    const float* m0, const float rtqr, const float* dtqr, const float* pm,
+    const CoreConsts& k, const fabber::DetParams& det, int n_iters,
+    long long V, long long v, float* __restrict__ means_out,
+    float* __restrict__ prec_out, float* __restrict__ cov_out,
+    float* __restrict__ b_out, float* __restrict__ c_out,
+    float* __restrict__ f_out, float* __restrict__ tr_out) {
+  const Rotated<P> r = rotate<P>(m0, rtqr, dtqr, pm, k);
+  float s = FS_S(2) * FS_S(3);
+  if constexpr (KIND == fabber::kMaxits) {
+    // ---- scalar fixed point: n_iters-1 noise updates -----------------
+    const float inv_b0 = FS_S(0), c_post = FS_S(1);
+    for (int it = 0; it < n_iters - 1; ++it) {
+      float cross = 0.f, quad = 0.f, tr = 0.f;
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        const float rd = 1.f / (s * FS_LAM(i) + 1.f);
+        const float d = (s * r.ut[i] + r.vt[i]) * rd - r.m0t[i];
+        cross += d * r.u0t[i];
+        quad += FS_LAM(i) * d * d;
+        tr += FS_LAM(i) * rd;
+      }
+      const float kqk = fmaxf(r.rtqr - 2.f * cross + quad, 0.f);
+      s = 1.f / ((kqk + tr) * 0.5f + inv_b0) * c_post;
+    }
+    rebuild<P, KIND>(r, s, false, n_iters, k, V, v, means_out, prec_out,
+                     cov_out, b_out, c_out, f_out, tr_out);
+  } else {
+    DetLoop l = det_loop_start(s, det);
+    det_loop<P, KIND>(r, k, det, n_iters, l);
+    bool sel_init;
+    int its;
+    s = det_finish(l, sel_init, its);
+    rebuild<P, KIND>(r, s, sel_init, its, k, V, v, means_out, prec_out,
+                     cov_out, b_out, c_out, f_out, tr_out);
+  }
+}
+
+#undef FS_A
+#undef FS_ETW
+#undef FS_ETWI
+#undef FS_EW
+#undef FS_LAM
+#undef FS_PP
+#undef FS_S
 
 }  // namespace fabber_spectral

@@ -3,29 +3,35 @@
 //
 // Replaces the TPU kernel fabber_core_tpu/ops/fused_spectral.py
 // make_fused_spectral_loop (its pallas_call at line 529), in maxits
-// (DET = false) and in the pointzeroone / freduce / trialmode detector
-// mode (DET = true). Plain version: fabber_core_tpu_torch/ops/
-// fused_spectral.py spectral_fused_plain (the plain statistics, then the
-// plain core).
+// (KIND = kMaxits) and in the pointzeroone / freduce / trialmode detector
+// mode (KIND their code, one instance per detector). Plain version:
+// fabber_core_tpu_torch/ops/fused_spectral.py spectral_fused_plain (the
+// plain statistics, then the plain core).
 //
-// One thread per voxel. The block stages the (2P+1) x T design rows in
-// shared memory, as spectral_stats.cu does; each thread then runs
-// csrc/spectral_device.cuh stats_voxel on its data column and hands its
-// m0, rtqr and dtqr in registers to core_voxel, which writes the
-// posterior. The statistics never reach device memory, so the kernel's
-// outputs are those of the split pair (spectral_stats.cu followed by
-// spectral_core.cu) bit for bit: the same device code on the same
-// values.
+// One thread per voxel. Each thread runs csrc/spectral_device.cuh
+// stats_voxel on its data column and hands its m0, rtqr and dtqr in
+// registers to core_voxel, which writes the posterior. The statistics
+// never reach device memory, so the kernel's outputs are those of the
+// split pair (spectral_stats.cu followed by spectral_core.cu) bit for
+// bit, in either form: the same device code on the same values.
 //
 // What bounds it on this card: the [T,V] data read, 4*T bytes per voxel,
 // plus the (2P^2+P+4)*4-byte posterior write and the prior means read;
 // the split pair adds a (2P+1)-plane write and a (3P+1)-plane read of
-// the statistics in between (72 B per voxel at P=3). It reads the column
-// in the plane in both passes, as the stats kernel's streamed form does
-// (pass 2 from L2 where it is still resident, else from HBM). It holds
-// the registers of both bodies at once, so it may run at a lower
-// occupancy than either half (chip_smoke.py phase 2 prints ptxas's
-// counts).
+// the statistics in between (72 B per voxel at P=3). Both statistics
+// passes read the column, and a block's columns outlive the 50 MB L2,
+// so reading them in the plane (the streamed form, blocks of 256 with
+// the (2P+1) x T design rows alone in shared memory) sends pass 2 back
+// to HBM: it ran 8-20% slower than the split pair on an H100. The staged
+// form (template STAGED) takes kernel 1's staged tile (spectral_device.cuh
+// stage_stats: the block's [T, VB] tile and the rows copied into shared
+// memory once, in 16-byte cp.async chunks of rotated rows), so HBM sees
+// the plane once; the core then runs in registers while the block keeps
+// its tile. Staged at VB 128 it ran 5% under the split pair (3.89
+// against 4.11 ms at 16,777,216 voxels, T=106, P=3, on an H100), and
+// beat streamed and the narrower blocks under trialmode too, so
+// ops/fused_spectral.py fused_vb takes kernel 1's plan (ops/_cuda.py
+// tile_plan, STATS_WIDTHS) in every mode.
 
 #include <cuda_runtime.h>
 
@@ -36,10 +42,13 @@ namespace {
 using fabber::DetParams;
 using fabber_spectral::CoreConsts;
 using fabber_spectral::kMaxP;
+using fabber_spectral::PlaneColumn;
 using fabber_spectral::SolveConsts;
-constexpr int kThreads = 256;
+using fabber_spectral::StatsTile;
+using fabber_spectral::stats_smem;
+constexpr int kThreads = fabber_spectral::kStatsThreads;
 
-template <int P, bool DET>
+template <int P, int KIND, bool STAGED>
 __global__ void __launch_bounds__(kThreads)
 spectral_fused_kernel(const float* __restrict__ data,
                       const float* __restrict__ tconsts, int T, long long V,
@@ -50,62 +59,119 @@ spectral_fused_kernel(const float* __restrict__ data,
                       float* __restrict__ cov_out, float* __restrict__ b_out,
                       float* __restrict__ c_out, float* __restrict__ f_out,
                       float* __restrict__ tr_out) {
-  extern __shared__ float rows[];  // [(2P+1), T]: D rows, DW rows, q
-  const int nrows = (2 * P + 1) * T;
-  for (int i = threadIdx.x; i < nrows; i += blockDim.x) rows[i] = tconsts[i];
-  __syncthreads();
-
+  // rows [(2P+1), T]: D rows, DW rows, q. Every thread of the block
+  // takes part in the copies and the barrier, those past V included.
   const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= V) return;
   float m0[P], rtqr, dtqr[P], pm[P];
-  fabber_spectral::stats_voxel<P>(
-      rows, T, fabber_spectral::PlaneColumn{data + v, V}, ac, m0, rtqr,
-      dtqr);
+  if constexpr (STAGED) {
+    const StatsTile col =
+        fabber_spectral::stage_stats<P>(data, tconsts, T, V);
+    if (v >= V) return;
+    fabber_spectral::stats_voxel<P>(col.tile + T * col.vb, T, col, ac, m0,
+                                    rtqr, dtqr);
+  } else {
+    float* rows = fabber::dynamic_smem();
+    for (int i = threadIdx.x; i < (2 * P + 1) * T; i += blockDim.x)
+      rows[i] = tconsts[i];
+    __syncthreads();
+    if (v >= V) return;
+    fabber_spectral::stats_voxel<P>(rows, T, PlaneColumn{data + v, V}, ac,
+                                    m0, rtqr, dtqr);
+  }
 #pragma unroll
   for (int a = 0; a < P; ++a) pm[a] = pm_in[(size_t)a * V + v];
-  fabber_spectral::core_voxel<P, DET>(m0, rtqr, dtqr, pm, k, det, n_iters, V,
-                                      v, means_out, prec_out, cov_out, b_out,
-                                      c_out, f_out, tr_out);
+  fabber_spectral::core_voxel<P, KIND>(m0, rtqr, dtqr, pm, k, det, n_iters,
+                                       V, v, means_out, prec_out, cov_out,
+                                       b_out, c_out, f_out, tr_out);
 }
 
-template <int P, bool DET>
-int launch_mode(const float* data, const float* tconsts, int T, long long V,
-                const SolveConsts& ac, const float* pm, const CoreConsts& k,
-                const DetParams& det, int n_iters, float* const* outs,
-                cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * P + 1) * T * sizeof(float);
-  if (smem > 48 * 1024) {
+// ---- launch and C entry points ------------------------------------------
+
+// One launch's arguments.
+struct FusedArgs {
+  const float* data;
+  const float* tconsts;
+  const float* pm;
+  int T, n_iters;
+  long long V;
+  SolveConsts ac;
+  CoreConsts k;
+  DetParams det;
+  float* outs[7];
+};
+
+// One instance's launch, or (occ not null) its blocks per SM: STAGED in
+// blocks of vb lanes, else blocks of kThreads; smem bytes of dynamic
+// shared memory (raised above the 48 KB default before the launch).
+template <int P, int KIND, bool STAGED>
+int launch_form(const FusedArgs& a, int vb, long long smem,
+                cudaStream_t stream, int* occ) {
+  const auto kernel = spectral_fused_kernel<P, KIND, STAGED>;
+  const int threads = STAGED ? vb : kThreads;
+  if (STAGED || smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        spectral_fused_kernel<P, DET>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const unsigned grid = (unsigned)((V + kThreads - 1) / kThreads);
-  spectral_fused_kernel<P, DET><<<grid, kThreads, smem, stream>>>(
-      data, tconsts, T, V, ac, pm, k, det, n_iters, outs[0], outs[1],
-      outs[2], outs[3], outs[4], outs[5], outs[6]);
+  if (occ != nullptr) {
+    *occ = fabber::tile_occupancy(kernel, threads, smem);
+    return 0;
+  }
+  const unsigned grid = (unsigned)((a.V + threads - 1) / threads);
+  kernel<<<grid, threads, smem, stream>>>(
+      a.data, a.tconsts, a.T, a.V, a.ac, a.pm, a.k, a.det, a.n_iters,
+      a.outs[0], a.outs[1], a.outs[2], a.outs[3], a.outs[4], a.outs[5],
+      a.outs[6]);
   return (int)cudaGetLastError();
 }
 
+template <int P, int KIND>
+int launch_kind(const FusedArgs& a, int vb, long long smem,
+                cudaStream_t stream, int* occ) {
+  if (vb > 0) return launch_form<P, KIND, true>(a, vb, smem, stream, occ);
+  return launch_form<P, KIND, false>(a, 0, smem, stream, occ);
+}
+
 template <int P>
-int launch(const float* data, const float* tconsts, int T, long long V,
-           const SolveConsts& ac, const float* pm, const CoreConsts& k,
-           const DetParams& det, int n_iters, float* const* outs,
-           cudaStream_t stream) {
-  if (det.kind == fabber::kMaxits)
-    return launch_mode<P, false>(data, tconsts, T, V, ac, pm, k, det,
-                                 n_iters, outs, stream);
-  return launch_mode<P, true>(data, tconsts, T, V, ac, pm, k, det, n_iters,
-                              outs, stream);
+int launch(const FusedArgs& a, int vb, long long smem, cudaStream_t stream,
+           int* occ) {
+  switch (a.det.kind) {
+    case fabber::kMaxits:
+      return launch_kind<P, fabber::kMaxits>(a, vb, smem, stream, occ);
+    case fabber::kPointZeroOne:
+      return launch_kind<P, fabber::kPointZeroOne>(a, vb, smem, stream, occ);
+    case fabber::kFreduce:
+      return launch_kind<P, fabber::kFreduce>(a, vb, smem, stream, occ);
+    default:
+      return launch_kind<P, fabber::kTrialMode>(a, vb, smem, stream, occ);
+  }
+}
+
+int dispatch(int p, const FusedArgs& a, int vb, long long smem,
+             cudaStream_t s, int* occ) {
+  switch (p) {
+    case 1: return launch<1>(a, vb, smem, s, occ);
+    case 2: return launch<2>(a, vb, smem, s, occ);
+    case 3: return launch<3>(a, vb, smem, s, occ);
+    case 4: return launch<4>(a, vb, smem, s, occ);
+    case 5: return launch<5>(a, vb, smem, s, occ);
+    case 6: return launch<6>(a, vb, smem, s, occ);
+    case 7: return launch<7>(a, vb, smem, s, occ);
+    default: return launch<8>(a, vb, smem, s, occ);
+  }
 }
 
 }  // namespace
 
-// data [T,V], tconsts [2P+1,T], pm [P,V] (device); a_host [P*P] and
-// consts_host [4P^2+2P+6] (host, by value; the layouts of
+// Kernel 3. data [T,V], tconsts [2P+1,T], pm [P,V] (device); a_host
+// [P*P] and consts_host [4P^2+2P+6] (host, by value; the layouts of
 // fabber_spectral_stats and fabber_spectral_core). det_kind 0 is maxits;
 // 1, 2, 3 are pointzeroone, freduce, trialmode. Outputs as
-// fabber_spectral_core's.
+// fabber_spectral_core's. vb: 0 streams the plane (blocks of 256, the
+// rows in 4 (2P+1) T bytes of shared memory); > 0 stages it in blocks of
+// vb lanes (a multiple of 32, at most 256, with 4 (T vb + (2P+1) T)
+// bytes of shared memory at most 232,448; fabber_spectral_stats's rule);
+// other values return cudaErrorInvalidValue.
 extern "C" int fabber_spectral_fused(int p, int n_iters, const float* data,
                                      const float* tconsts,
                                      const float* a_host, int T,
@@ -115,26 +181,34 @@ extern "C" int fabber_spectral_fused(int p, int n_iters, const float* data,
                                      int det_init_save, long long V,
                                      float* means, float* prec, float* cov,
                                      float* b, float* c, float* f, float* tr,
-                                     void* stream) {
+                                     int vb, void* stream) {
   if (p < 1 || p > kMaxP || n_iters < 1 || T < 1 || V < 1 || det_kind < 0 ||
       det_kind > fabber::kTrialMode)
     return (int)cudaErrorInvalidValue;
-  SolveConsts ac = {};
-  for (int i = 0; i < p * p; ++i) ac.a[i] = a_host[i];
-  CoreConsts k = {};
-  for (int i = 0; i < 4 * p * p + 2 * p + 6; ++i) k.v[i] = consts_host[i];
-  const DetParams det = {det_kind, det_tol, det_max_its, det_max_trials,
-                         det_init_save};
-  float* const outs[7] = {means, prec, cov, b, c, f, tr};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (p) {
-    case 1: return launch<1>(data, tconsts, T, V, ac, pm, k, det, n_iters, outs, s);
-    case 2: return launch<2>(data, tconsts, T, V, ac, pm, k, det, n_iters, outs, s);
-    case 3: return launch<3>(data, tconsts, T, V, ac, pm, k, det, n_iters, outs, s);
-    case 4: return launch<4>(data, tconsts, T, V, ac, pm, k, det, n_iters, outs, s);
-    case 5: return launch<5>(data, tconsts, T, V, ac, pm, k, det, n_iters, outs, s);
-    case 6: return launch<6>(data, tconsts, T, V, ac, pm, k, det, n_iters, outs, s);
-    case 7: return launch<7>(data, tconsts, T, V, ac, pm, k, det, n_iters, outs, s);
-    default: return launch<8>(data, tconsts, T, V, ac, pm, k, det, n_iters, outs, s);
-  }
+  const long long smem = stats_smem(p, vb, T);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
+  FusedArgs a = {data, tconsts, pm, T, n_iters, V, {}, {},
+                 {det_kind, det_tol, det_max_its, det_max_trials,
+                  det_init_save},
+                 {means, prec, cov, b, c, f, tr}};
+  for (int i = 0; i < p * p; ++i) a.ac.a[i] = a_host[i];
+  for (int i = 0; i < 4 * p * p + 2 * p + 6; ++i) a.k.v[i] = consts_host[i];
+  return dispatch(p, a, vb, smem, static_cast<cudaStream_t>(stream),
+                  nullptr);
+}
+
+// Blocks per SM of kernel 3 at P = p, detector det_kind, in the form vb
+// selects (fabber_spectral_fused's vb) at T samples; -1 where the
+// arguments are refused or the CUDA call fails.
+extern "C" int fabber_fused_occupancy(int p, int det_kind, int vb, int T) {
+  const long long smem = stats_smem(p, vb, T);
+  if (p < 1 || p > kMaxP || T < 1 || smem < 0 || det_kind < 0 ||
+      det_kind > fabber::kTrialMode)
+    return -1;
+  FusedArgs a = {};
+  a.T = T;
+  a.V = 1;
+  a.det.kind = det_kind;
+  int occ = 0;
+  return dispatch(p, a, vb, smem, nullptr, &occ) == 0 ? occ : -1;
 }

@@ -183,8 +183,10 @@ def load():
         lib.fabber_nl_has_instance.restype = i32
         lib.fabber_spectral_fused.argtypes = [
             i32, i32, vp, vp, vp, i32, vp, vp, i32, f32, i32, i32, i32,
-            i64] + [vp] * 7 + [vp]
+            i64] + [vp] * 7 + [i32, vp]
         lib.fabber_spectral_fused.restype = i32
+        lib.fabber_fused_occupancy.argtypes = [i32] * 4
+        lib.fabber_fused_occupancy.restype = i32
         lib.fabber_fused_whole.argtypes = [
             i32, i32, i32, f32, vp, i32, f32, i32, i32, i32, vp, vp, vp,
             i32, vp, vp, i64] + [vp] * 7 + [i32, vp]
@@ -265,13 +267,13 @@ extern "C" int fabber_gen_occupancy(int mode, int vb, int nt) {{
 
 def tile_plan(nt, nq, widths=(TILE_VB,)):
     """(staged, VB, smem bytes) of a launch of a kernel that stages its
-    data tile (kernels 1, 4, 6, 7 and 8, csrc/tile.cuh) at nt samples and
-    nq weights per sample (Q groups for kernels 6 and 7, 1 for kernel 8,
-    the P + QP + Q design rows for kernel 4, the 2P + 1 for kernel 1):
-    blocks of the first VB of widths (TILE_VB; kernel 1 STATS_WIDTHS)
-    with a [nt, VB] tile and [nt, nq] weights, 4 (nt VB + nt nq) bytes,
-    whose blocks leave at least TILE_MIN_WARPS warps per SM; else the
-    streamed form (False, STREAM_THREADS, 0)."""
+    data tile (kernels 1, 3, 4, 6, 7 and 8, csrc/tile.cuh) at nt samples
+    and nq weights per sample (Q groups for kernels 6 and 7, 1 for kernel
+    8, the P + QP + Q design rows for kernel 4, the 2P + 1 for kernels 1
+    and 3): blocks of the first VB of widths (TILE_VB; kernels 1 and 3
+    STATS_WIDTHS) with a [nt, VB] tile and [nt, nq] weights, 4 (nt VB +
+    nt nq) bytes, whose blocks leave at least TILE_MIN_WARPS warps per SM;
+    else the streamed form (False, STREAM_THREADS, 0)."""
     for vb in widths:
         smem = 4 * (nt * vb + nt * nq)
         blocks = SMEM_PER_SM // (smem + SMEM_RESERVED)
@@ -281,7 +283,7 @@ def tile_plan(nt, nq, widths=(TILE_VB,)):
 
 
 def launch_vb(nt, nq, vb=None, widths=(TILE_VB,)):
-    """The vb argument of a kernel 1, 4, 6, 7 or 8 C entry point (nq and
+    """The vb argument of a kernel 1, 3, 4, 6, 7 or 8 C entry point (nq and
     widths as tile_plan's): 0 streams, > 0 stages in blocks of vb lanes.
     None takes tile_plan's choice; an int forces it (the tests' and
     chip_smoke.py's means to time or check a form; a value the entry
@@ -459,7 +461,8 @@ def launch_core(p, n_iters, m0, rtqr, dtqr, pm, consts, detector, outs):
 
 
 def launch_spectral_fused(p, n_iters, data, tconsts, aconsts, pm, consts,
-                          detector, outs):
+                          detector, outs, vb):
+    """vb: 0 streamed, > 0 staged in blocks of vb lanes (launch_vb)."""
     lib = load()
     nt, nv = data.shape
     with torch.cuda.device(data.device):
@@ -467,8 +470,15 @@ def launch_spectral_fused(p, n_iters, data, tconsts, aconsts, pm, consts,
             p, n_iters, data.data_ptr(), tconsts.data_ptr(),
             aconsts.data_ptr(), nt, pm.data_ptr(), consts.data_ptr(),
             *detector_args(detector), nv, *(o.data_ptr() for o in outs),
-            _stream(data.device))
+            vb, _stream(data.device))
     _raise_on(err, "spectral_fused")
+
+
+def fused_occupancy(p, kind, vb, nt):
+    """Blocks per SM of kernel 3's P instance for the detector kind
+    (DETECTOR_CODES: 0 maxits, 1-3 pointzeroone, freduce, trialmode) in
+    form vb at nt samples; -1 where refused."""
+    return int(load().fabber_fused_occupancy(p, kind, vb, nt))
 
 
 def launch_whole(p, nq, n_iters, locked_sd, consts, detector, det_consts,

@@ -26,17 +26,18 @@ are csrc/spectral_device.cuh) carry the route:
                   a minus sign on b where the selected state is the
                   engine-initial posterior;
   spectral_fused  both in one thread (replaces make_fused_spectral_loop,
-                  spectral-impl=fused): the statistics stay in
-                  registers, the outputs are spectral_core's, in both
-                  modes; its plain version is the plain statistics
-                  followed by the plain core.
+                  spectral-impl=fused; staged as spectral_stats is, or
+                  streamed): the statistics stay in registers, the
+                  outputs are spectral_core's, in both modes; its plain
+                  version is the plain statistics followed by the plain
+                  core.
 
 Each wrapper takes its plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises. Each keeps an integer
 ``launches`` count of kernel launches (never of plain calls);
 spectral_core and spectral_fused also count their detector-mode
-launches in ``det_launches``, spectral_stats its staged ones in
-``staged_launches``.
+launches in ``det_launches``, spectral_stats and spectral_fused their
+staged ones in ``staged_launches``.
 
 Constant layout (host-built in float64, cast once):
   pack_mxu_consts     [2P+1, T] device rows: raw design D (P rows),
@@ -393,12 +394,27 @@ def spectral_fused_plain(data, tconsts, aconsts, pm, consts, n_iters,
                                detector)
 
 
+def fused_vb(nt, p, vb=None):
+    """The vb argument of kernel 3's launch at nt samples and P = p (0
+    streamed, > 0 staged in blocks of vb lanes): kernel 1's plan (ops/
+    _cuda.py tile_plan at 2P + 1 rows per sample, STATS_WIDTHS), in every
+    mode. A detector's lanes keep the block's tile through their loop,
+    yet staged at VB 128 beat streamed and the narrower blocks under
+    trialmode as in maxits on an H100 (PERF.md §6 row 3). An int vb
+    forces the form."""
+    from . import _cuda
+    return _cuda.launch_vb(nt, 2 * p + 1, vb, _cuda.STATS_WIDTHS)
+
+
 def spectral_fused(data, tconsts, aconsts, pm, consts, n_iters,
-                   detector=None):
+                   detector=None, _vb=None):
     """The one-kernel spectral form: data [T,V], tconsts [2P+1,T]
     (pack_mxu_consts), aconsts [P*P] host (pack_solve_consts), pm [P,V],
     consts [4P^2+2P+6] host (pack_spectral_consts) -> spectral_core's
-    outputs, in maxits or (with a detector) its detector mode."""
+    outputs, in maxits or (with a detector) its detector mode. _vb:
+    private, for the tests and chip_smoke.py: forces the kernel's form
+    (0 streamed, > 0 staged in blocks of that many lanes); by default
+    fused_vb's plan."""
     if n_iters < 1:
         raise ValueError("n_iters must be >= 1")
     if detector is not None and type(detector).name not in DETECTOR_KINDS:
@@ -424,13 +440,17 @@ def spectral_fused(data, tconsts, aconsts, pm, consts, n_iters,
             out(1, nv), out(1, nv), out(1, nv), out(1, nv))
     if nv:
         from . import _cuda
+        vb = fused_vb(nt, p, _vb)
         _cuda.launch_spectral_fused(p, n_iters, data, tconsts, aconsts, pm,
-                                    consts, detector, outs)
+                                    consts, detector, outs, vb)
         spectral_fused.launches += 1
         if detector is not None:
             spectral_fused.det_launches += 1
+        if vb > 0:
+            spectral_fused.staged_launches += 1
     return outs
 
 
 spectral_fused.launches = 0
 spectral_fused.det_launches = 0
+spectral_fused.staged_launches = 0

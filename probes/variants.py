@@ -37,7 +37,7 @@ def library_path(source, flags, srcdir=None):
     srcdir = Path(srcdir or c.CSRC)
     h = hashlib.sha256(" ".join(c.NVCC_FLAGS + list(flags)).encode())
     h.update((srcdir / source).read_bytes())
-    for name in c.HEADERS:
+    for name in c.SOURCES + c.HEADERS:   # a patched copy may include one
         h.update(name.encode())
         h.update((c.CSRC / name).read_bytes())
     for extra in sorted(srcdir.glob("*.cuh")):   # a patched copy's own

@@ -681,19 +681,15 @@ def test_vb_loop_kernel_matches_plain(cuda, p, nq):
         assert e <= max(1e-3, 2 * lane_rel(r32[i], r64[i])), (i, e)
 
 
-@pytest.mark.parametrize("kind", [None, "pointzeroone", "freduce",
-                                  "trialmode"])
-@pytest.mark.parametrize("p", [1, 2, 3, 4, 5, 6, 7, 8])
-def test_spectral_fused_matches_split_pair(cuda, p, kind):
-    """Kernel 3 runs the statistics and core kernels' device code in one
-    thread: its outputs are the split pair's (kernels 1 + 2) bit for
-    bit, in maxits and in each detector mode."""
-    nt, nv = 106, 30_001
+def fused_inputs(p, nt, nv, cuda, seed=None):
+    """Kernel 3's inputs: data [T,V] of design(p, nt) at random truths
+    plus noise (two samples masked: 1 and 50, or nt // 2 on a shorter
+    series), its constants and prior means."""
     gen = torch.Generator(device=cuda)
-    gen.manual_seed(p)
+    gen.manual_seed(p if seed is None else seed)
     d = design(p, nt)
     q = np.ones(nt)
-    q[[1, 50]] = 0.0
+    q[[1, min(50, nt // 2)]] = 0.0
     data = torch.as_tensor(d, dtype=torch.float32, device=cuda) @ (
         torch.rand((p, nv), generator=gen, device=cuda) * 4 - 2)
     data += 0.3 * torch.randn((nt, nv), generator=gen, device=cuda)
@@ -704,16 +700,93 @@ def test_spectral_fused_matches_split_pair(cuda, p, kind):
                                  1e-8, 50.0, torch.float32,
                                  (-10.0, c_post + 0.5))
     pm = torch.rand((p, nv), generator=gen, device=cuda) - 0.5
+    return data, tc, ac, pm, sc
+
+
+def fused_detector(kind):
+    """(detector or None, loop bound) of kernel 3's mode."""
     det = None if kind is None else detector(kind)
-    n_iters = 10 if det is None else int(det.max_iterations) + 2
-    before = (fs.spectral_fused.launches, fs.spectral_fused.det_launches)
-    k = fs.spectral_fused(data, tc, ac, pm, sc, n_iters, det)
+    return det, 10 if det is None else int(det.max_iterations) + 2
+
+
+FUSED_FORMS = [0, 128, 64, 32]
+
+
+@pytest.mark.parametrize("vb", FUSED_FORMS,
+                         ids=["streamed", "vb128", "vb64", "vb32"])
+@pytest.mark.parametrize("kind", [None, "pointzeroone", "freduce",
+                                  "trialmode"])
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_spectral_fused_matches_split_pair(cuda, p, kind, vb):
+    """Kernel 3 runs the statistics and core kernels' device code in one
+    thread: its outputs are the split pair's (kernels 1 + 2) bit for
+    bit, in maxits and in each detector mode, streamed and staged at
+    each of STATS_WIDTHS (on a ragged V: the last block part empty)."""
+    from fabber_core_tpu_torch.ops import _cuda
+    assert tuple(FUSED_FORMS[1:]) == _cuda.STATS_WIDTHS
+    data, tc, ac, pm, sc = fused_inputs(p, 106, 30_001, cuda)
+    det, n_iters = fused_detector(kind)
+    before = (fs.spectral_fused.launches, fs.spectral_fused.det_launches,
+              fs.spectral_fused.staged_launches)
+    k = fs.spectral_fused(data, tc, ac, pm, sc, n_iters, det, _vb=vb)
     assert fs.spectral_fused.launches == before[0] + 1
     assert fs.spectral_fused.det_launches == before[1] + (det is not None)
+    assert fs.spectral_fused.staged_launches == before[2] + (vb > 0)
     split = fs.spectral_core(*fs.spectral_stats(data, tc, ac), pm, sc,
                              n_iters, det)
-    for a, b in zip(k, split):
-        assert torch.equal(a, b)
+    assert bits_equal(k, split)
+
+
+@pytest.mark.parametrize("kind", [None, "trialmode"])
+@pytest.mark.parametrize("p", [1, 3, 8])
+def test_spectral_fused_plan_edges_match_split_pair(cuda, p, kind):
+    """Kernel 3 at every T on tile_plan's edges for its 2P + 1 design
+    rows per sample (kernel 1's plan, STATS_WIDTHS; the last T
+    streamed), in the form its plan picks (fused_spectral.fused_vb)
+    and streamed: both equal the split pair bit for bit."""
+    from fabber_core_tpu_torch.ops import _cuda
+    det, n_iters = fused_detector(kind)
+    for nt in plan_edges(2 * p + 1, _cuda.STATS_WIDTHS):
+        data, tc, ac, pm, sc = fused_inputs(p, nt, 4000, cuda, seed=nt)
+        st = fs.spectral_fused.staged_launches
+        k = fs.spectral_fused(data, tc, ac, pm, sc, n_iters, det)
+        assert fs.spectral_fused.staged_launches - st == int(
+            fs.fused_vb(nt, p) > 0)
+        split = fs.spectral_core(*fs.spectral_stats(data, tc, ac), pm, sc,
+                                 n_iters, det)
+        assert bits_equal(k, split), nt
+        assert bits_equal(fs.spectral_fused(data, tc, ac, pm, sc, n_iters,
+                                            det, _vb=0), split), nt
+
+
+def test_spectral_fused_refused_tiles_raise(cuda):
+    """Kernel 3 refuses a VB not a multiple of 32 or above 256 and a tile
+    above 232,448 bytes (kernel 1's rule): the wrapper raises and counts
+    no launch, nothing falls back to the other form."""
+    from fabber_core_tpu_torch.exceptions import FabberError
+    data, tc, ac, pm, sc = fused_inputs(3, 500, 256, cuda)
+    for vb in (48, 288, 128):     # 128: 4 (500 x 128 + 7 x 500) B > 232,448
+        n = fs.spectral_fused.launches
+        with pytest.raises(FabberError, match="launch failed"):
+            fs.spectral_fused(data, tc, ac, pm, sc, 10, _vb=vb)
+        assert fs.spectral_fused.launches == n
+
+
+def test_spectral_fused_occupancy_queries(cuda):
+    """Kernel 3's plan at T=106 (P = 1, 3, 8) stages in blocks of 128
+    lanes and keeps at least TILE_MIN_WARPS warps per SM in every mode;
+    refused arguments give -1."""
+    from fabber_core_tpu_torch.ops import _cuda
+    for p in (1, 3, 8):
+        for code in range(4):
+            assert _cuda.fused_occupancy(p, code, 128, 106) * 4 \
+                >= _cuda.TILE_MIN_WARPS
+            assert _cuda.fused_occupancy(p, code, 0, 106) >= 1
+    assert fs.fused_vb(106, 3) == 128
+    assert _cuda.fused_occupancy(3, 0, 48, 106) == -1
+    assert _cuda.fused_occupancy(3, 0, 128, 500) == -1
+    assert _cuda.fused_occupancy(9, 0, 32, 106) == -1
+    assert _cuda.fused_occupancy(3, 4, 128, 106) == -1
 
 
 def test_whole_instances_are_the_listed_ones(cuda):

@@ -21,7 +21,13 @@ from 16-byte alignment, with ragged last blocks) and its streamed form:
 the two agree bit for bit, at double the plain version at float64
 within 1e-12 (m0 in the well-conditioned synthetic design; the poly
 design's m0 within 1e-9) and at float32 within the plain float32 bounds
-above.
+above. Kernels 2 (csrc/spectral_core.cu, one instance per detector) and
+3 (csrc/spectral_fused.cu, staged and streamed) compiled the same way:
+kernel 3 in both forms equals kernel 1 staged followed by kernel 2, bit
+for bit at double and at float32; at double both match the plain
+versions within 1e-9 with identical decisions. The two-phase trialmode
+form of kernel 2 that the probes keep (probes/csrc/core_compact.cu)
+equals one launch bit for bit.
 """
 
 import jax.numpy as jnp
@@ -436,3 +442,155 @@ def test_stats_kernel_on_host_staged_equals_streamed_f32(p, masked, plane,
     assert rel(km0, m0) <= 1e-3
     assert rel(staged[1], rtqr) <= 1e-4
     assert rel(staged[2] + a @ km0, dtqr + a @ m0) <= 1e-5
+
+
+# -- kernels 2 and 3 compiled as host C++ (tests/torch_hostcc.py) -----------
+
+@pytest.fixture(scope="module")
+def spectral_host(tmp_path_factory):
+    """(name, P, double) -> kernel 2 ("core", every detector instance),
+    the two-phase form of its trialmode instance that probes/csrc/
+    core_compact.cu keeps ("two_phase") or kernel 3 ("fused", both forms
+    too) on the host (built once per module; skipped without g++)."""
+    if not torch_hostcc.have_gxx():
+        pytest.skip("g++ is not installed")
+    build = {"core": torch_hostcc.core_kernel_fn,
+             "two_phase": torch_hostcc.core_two_phase_fn,
+             "fused": torch_hostcc.fused_kernel_fn}
+    libs = {}
+
+    def get(name, p, double):
+        key = (name, p, double)
+        if key not in libs:
+            libs[key] = build[name](p, tmp_path_factory.mktemp(
+                f"{name}{p}{int(double)}"), double)
+        return libs[key]
+    return get
+
+
+KINDS = ["maxits", "pointzeroone", "freduce", "trialmode"]
+
+
+def host_detector(kind):
+    """(detector or None, the launch's detector arguments, loop bound) of
+    a run at max-iterations 10 (trialmode: max-trials 3)."""
+    from fabber_core_tpu_torch.ops import _cuda
+    if kind == "maxits":
+        return None, _cuda.detector_args(None), 10
+    extra = {"max-trials": "3"} if kind == "trialmode" else {}
+    td, _, cap = det_pair(kind, extra)
+    return td, _cuda.detector_args(td), cap
+
+
+def host_consts(p, d, q, nt, dtype):
+    c_post = (q.sum() - 1) * 0.5 + 1e-6
+    extra = (jspec.eigen_elbo_const(q, c_post, 1e-6, 1e6, p), c_post + 0.5)
+    return tfs.pack_spectral_consts(d, q, nt, np.full(p, 1e-6), 1e-6,
+                                    c_post, 1e-8, 50.0, dtype, extra)
+
+
+# (V, offset of the plane in its buffer, VB): aligned, then ragged last
+# blocks on planes 1-3 floats off 16-byte alignment
+FUSED_PLANES = [(64, 0, 32), (70, 1, 32), (61, 2, 64), (75, 3, 32)]
+FUSED_PLANE_IDS = [f"v{v}-off{o}-vb{vb}" for v, o, vb in FUSED_PLANES]
+
+
+@pytest.mark.parametrize("plane", FUSED_PLANES, ids=FUSED_PLANE_IDS)
+@pytest.mark.parametrize("double", [True, False], ids=["f64", "f32"])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("p", [3, 4])
+def test_fused_kernel_on_host_equals_split_pair(p, kind, double, plane,
+                                                stats_host, spectral_host):
+    """Kernel 3 staged (the block's lanes as threads meeting at the
+    staging barrier) == kernel 3 streamed == kernel 1 staged followed by
+    kernel 2, every output bit for bit, at double and at float32 (the
+    card's rounding), in maxits and each detector instance; at double
+    also the plain version at float64 within 1e-9 of each output's max,
+    its iteration counts and engine-initial tags identical."""
+    nt = 106
+    nv, offset, vb = plane
+    dt = torch.float64 if double else torch.float32
+    d, q, data = make_case(p, nt, nv, masked=True, seed=2)
+    tc, ac = port_consts(d, q, nt, dt)
+    sc = host_consts(p, d, q, nt, dt)
+    pm = np.random.default_rng(nv).uniform(-1, 1, (p, nv))
+    det, dargs, n_it = host_detector(kind)
+    k3 = spectral_host("fused", p, double)
+    args = (tc.numpy(), ac.numpy(), pm, sc.numpy(), n_it, dargs)
+    staged = k3(True, data, *args, vb, offset)
+    streamed = k3(False, data, *args)
+    stats = stats_host(p, double)(True, data, tc.numpy(), ac.numpy(), vb,
+                                  offset)
+    split = spectral_host("core", p, double)(*stats, pm, sc.numpy(), n_it,
+                                             dargs)
+    for a, b, c in zip(staged, streamed, split):
+        assert np.array_equal(a, b) and np.array_equal(a, c)
+    if double:
+        ref = [r.numpy() for r in tfs.spectral_fused_plain(
+            torch.from_numpy(data.astype(np.float64)), tc, ac,
+            torch.from_numpy(pm), sc, n_it, det)]
+        if det is not None:
+            np.testing.assert_array_equal(staged[6], ref[6])
+            np.testing.assert_array_equal(staged[3] < 0, ref[3] < 0)
+        for a, r in zip(staged, ref):
+            assert rel(a, r) <= 1e-9
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("p", [3, 4])
+def test_core_kernel_on_host_matches_plain_f64(p, kind, spectral_host):
+    """Kernel 2's instance for each detector (maxits and the three F
+    detectors, each compiled alone: detectors.cuh det_test_kind) at
+    double against its plain version at float64: iteration counts and
+    engine-initial tags identical, every output within 1e-9 of its
+    max."""
+    nt, nv = 106, 200
+    d, q, data = make_case(p, nt, nv, masked=False, seed=4)
+    tc, ac = port_consts(d, q, nt, torch.float64)
+    stats = tfs.spectral_stats_plain(torch.from_numpy(
+        data.astype(np.float64)), tc, ac)
+    sc = host_consts(p, d, q, nt, torch.float64)
+    pm = torch.from_numpy(np.random.default_rng(p).uniform(-1, 1, (p, nv)))
+    det, dargs, n_it = host_detector(kind)
+    k = spectral_host("core", p, True)(*(s.numpy() for s in stats),
+                                       pm.numpy(), sc.numpy(), n_it, dargs)
+    ref = [r.numpy() for r in tfs.spectral_core_plain(*stats, pm, sc, n_it,
+                                                      det)]
+    if det is not None:
+        np.testing.assert_array_equal(k[6], ref[6])
+        np.testing.assert_array_equal(k[3] < 0, ref[3] < 0)
+        assert len(np.unique(k[6])) > 1      # lanes stop apart
+    for a, r in zip(k, ref):
+        assert a.shape == r.shape
+        assert rel(a, r) <= 1e-9
+
+
+@pytest.mark.parametrize("double", [True, False], ids=["f64", "f32"])
+@pytest.mark.parametrize("trials", ["3", "10"])
+@pytest.mark.parametrize("p", [3, 4])
+def test_core_kernel_on_host_two_phase_equals_one_phase(p, trials, double,
+                                                        spectral_host):
+    """Kernel 2's two-phase trialmode form (the probe's patched copy
+    probes/csrc/core_compact.cu: phase 1 to a fixed number of trips, the
+    unfinished lanes appended to the compact buffer by their warp's
+    atomicAdd, phase 2 over them) equals its one launch bit for bit, at double and at float32, on lanes that stop within 8 trips and
+    lanes that enter their trials and run to 10-17 (its count reset to
+    1), so both phases write outputs."""
+    from fabber_core_tpu_torch.ops import _cuda
+    nt, nv = 106, 400
+    dt = torch.float64 if double else torch.float32
+    d, q, data = make_case(p, nt, nv, masked=False, seed=4)
+    tc, ac = port_consts(d, q, nt, dt)
+    stats = [s.numpy() for s in tfs.spectral_stats_plain(
+        torch.from_numpy(data.astype(np.float64 if double else np.float32)),
+        tc, ac)]
+    sc = host_consts(p, d, q, nt, dt).numpy()
+    pm = np.random.default_rng(p).uniform(-1, 1, (p, nv))
+    td, _, cap = det_pair("trialmode", {"max-trials": trials})
+    one = spectral_host("core", p, double)(*stats, pm, sc, cap,
+                                           _cuda.detector_args(td))
+    two = spectral_host("two_phase", p, double)(*stats, pm, sc, cap,
+                                                _cuda.detector_args(td))
+    assert (one[6] == 1).any() and (one[6] > 1).any()
+    for a, b in zip(one, two):
+        assert np.array_equal(a, b)

@@ -11,7 +11,8 @@ would); and the C side's refusal rules (tile_bytes, and kernels 7's and
 tests/torch_hostcc.py's shim; skipped without g++) refuse nothing the
 plan picks and everything past the hardware's per-block limit. Kernel 1
 takes the widest of STATS_WIDTHS whose blocks leave TILE_MIN_WARPS warps
-per SM, and its C side (spectral_stats.cu stats_smem) the same bytes."""
+per SM, and its C side (spectral_device.cuh stats_smem, kernel 3's too)
+the same bytes."""
 
 import ctypes
 import re
@@ -233,16 +234,14 @@ def test_stats_tile_plan():
 
 @pytest.fixture
 def stats_smem(tmp_path):
-    """Kernel 1's C entry point's shared-memory rule (stats_smem: -1
-    refuses the launch), compiled as host C++."""
+    """Kernels 1's and 3's C entry points' shared-memory rule
+    (spectral_device.cuh stats_smem: -1 refuses the launch), compiled as
+    host C++."""
     if not torch_hostcc.have_gxx():
         pytest.skip("g++ is not installed")
-    src = ('#include "cuda_runtime.h"\n#include "tile.cuh"\n'
-           "namespace {\nconstexpr int kThreads = 256;\n"
-           + _c_function("spectral_stats.cu", "stats_smem")
-           + "}  // namespace\n"
+    src = ('#include "cuda_runtime.h"\n#include "spectral_device.cuh"\n'
            'extern "C" long long ss(int p, int vb, int nt) {\n'
-           "  return stats_smem(p, vb, nt);\n}\n")
+           "  return fabber_spectral::stats_smem(p, vb, nt);\n}\n")
     lib = torch_hostcc.build_source(tmp_path, "stats_smem", src)
     lib.ss.restype = ctypes.c_longlong
     lib.ss.argtypes = [ctypes.c_int] * 3

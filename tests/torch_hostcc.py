@@ -1,15 +1,18 @@
 """The port's CUDA device code compiled as host C++ with g++, for the CPU
 tests: a shim header stands in for cuda_runtime.h (the CUDA qualifiers
 as nothing, __ldg as a load, one block of one thread per call, so a
-staged tile (tile.cuh) is one lane wide; kernel 1's staged form runs a
-block's lanes as threads that meet at __syncthreads), and at double the kernel
-headers are text-substituted float -> double (vb_device.cuh,
+staged tile (tile.cuh) is one lane wide, and a warp too (the ballot and
+atomicAdd of kernel 2's two-phase form, kept in the patched copy
+probes/csrc/core_compact.cu); kernels 1's and 3's staged forms run a
+block's lanes as threads that meet at __syncthreads), and at double the
+kernel headers are text-substituted float -> double (vb_device.cuh,
 detectors.cuh, tile.cuh, spectral_device.cuh and fused_nl_loop.cuh cut
 before its launch section; dual.cuh has both overloads and is used as it
-is). Kernels 1 (spectral_stats.cu), 4 (fused_whole.cu), 7
-(fused_vb_iter.cu), 8 (fused_nlls.cu) and 9 (fused_ar_loop.cu) are cut
-before their launch sections the same way; kernels 1 and 9 also build
-at float32, the headers as they are (g++ contracts no multiply-add on
+is). Kernels 1 (spectral_stats.cu), 2 (spectral_core.cu), 3
+(spectral_fused.cu), 4 (fused_whole.cu), 7 (fused_vb_iter.cu), 8
+(fused_nlls.cu) and 9 (fused_ar_loop.cu) are cut before their launch
+sections the same way; kernels 1-3 and 9 also build at float32, the
+headers as they are (g++ contracts no multiply-add on
 x86-64's baseline, so the float32 build rounds as the card's kernel
 does: fmaf and __fmaf_rn fused, every other product and sum rounded
 apart). Tests skip when g++ is missing."""
@@ -23,6 +26,7 @@ from pathlib import Path
 import numpy as np
 
 CSRC = Path(__file__).resolve().parents[1] / "fabber_core_tpu_torch" / "csrc"
+PROBES_CSRC = Path(__file__).resolve().parents[1] / "probes" / "csrc"
 
 SHIM = """#pragma once
 #include <math.h>
@@ -60,10 +64,26 @@ static FabberHostBarrier* fabber_host_barrier = nullptr;
 inline void __syncthreads() {
   if (fabber_host_barrier) fabber_host_barrier->wait();
 }
+// warps of one lane (one thread per block): the warp intrinsics of the
+// two-phase form of kernel 2 (probes/csrc/core_compact.cu), and its
+// atomicAdd on the compact buffer's count
+inline unsigned __activemask() { return 1u; }
+inline unsigned __ballot_sync(unsigned, int pred) { return pred ? 1u : 0u; }
+template <class T> inline T __shfl_sync(unsigned, T v, int) { return v; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline int atomicAdd(int* p, int v) {
+  static std::mutex m;
+  std::lock_guard<std::mutex> g(m);
+  const int old = *p;
+  *p += v;
+  return old;
+}
 inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
 inline double __fmaf_rn(double a, double b, double c) { return fma(a, b, c); }
 struct FabberDim3 { unsigned x, y, z; };
-static FabberDim3 blockIdx = {0, 0, 0}, blockDim = {1, 1, 1};
+static FabberDim3 blockIdx = {0, 0, 0}, blockDim = {1, 1, 1},
+                  gridDim = {1, 1, 1};
 static thread_local FabberDim3 threadIdx = {0, 0, 0};
 typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1 };
@@ -605,5 +625,234 @@ extern "C" void host_ar(int n_iters, const {real}* consts, const int* det,
         dk = (ctypes.c_int * 4)(det[0], det[2], det[3], det[4])
         lib.host_ar(n_iters, _ptr(cs), dk, det[1], elbo[0], elbo[1],
                     in_ptrs, out_ptrs, nv)
+        return outs
+    return fn
+
+
+def _core_source(p, double):
+    """Kernel 2 (spectral_core.cu) cut before its launch section, with
+    run_all<KIND>(in, k, det, n_iters, V, out): every voxel of the KIND
+    instance, one block of one thread each."""
+    real = "double" if double else "float"
+    return _kernel_source("spectral_core.cu",
+                          "// ---- launch and C entry point", double) + f"""
+template <int KIND>
+static void run_all(const {real}* const* in, const CoreConsts& k,
+                    const DetParams& det, int n_iters, long long V,
+                    {real}* const* out) {{
+  for (long long v = 0; v < V; ++v) {{
+    blockIdx.x = (unsigned)v;
+    spectral_core_kernel<{p}, KIND>(in[0], in[1], in[2], in[3], k, det,
+                                    n_iters, V, out[0], out[1], out[2],
+                                    out[3], out[4], out[5], out[6]);
+  }}
+}}
+}}  // namespace
+"""
+
+
+def _core_lib_fn(lib, p, double):
+    """fn(m0 [P,V], rtqr [1,V], dtqr [P,V], pm [P,V], consts, n_iters,
+    det) -> the seven outputs of lib's host_core."""
+    vp = ctypes.c_void_p
+    cr = ctypes.c_double if double else ctypes.c_float
+    lib.host_core.restype = None
+    lib.host_core.argtypes = [vp, vp, vp, cr, ctypes.c_int,
+                              ctypes.c_longlong, vp]
+    dt = np.float64 if double else np.float32
+
+    def fn(m0, rtqr, dtqr, pm, consts, n_iters, det):
+        nv = m0.shape[-1]
+        ins = [np.ascontiguousarray(x, dt) for x in (m0, rtqr, dtqr, pm)]
+        outs = [np.zeros(s, dt) for s in ((p, nv), (p, p, nv), (p, p, nv),
+                                          (1, nv), (1, nv), (1, nv), (1, nv))]
+        in_ptrs = (ctypes.c_void_p * 4)(*[x.ctypes.data for x in ins])
+        out_ptrs = (ctypes.c_void_p * 7)(*[o.ctypes.data for o in outs])
+        cs = np.ascontiguousarray(consts, dt)
+        dk = (ctypes.c_int * 4)(det[0], det[2], det[3], det[4])
+        lib.host_core(in_ptrs, _ptr(cs), dk, det[1], n_iters, nv, out_ptrs)
+        return outs
+    return fn
+
+
+_HOST_CORE_HEAD = """extern "C" void host_core(const {real}* const* in, const {real}* consts,
+                          const int* det, {real} det_tol, int n_iters,
+                          long long V, {real}* const* out) {{
+  CoreConsts k = {{}};
+  for (int i = 0; i < 4 * {p} * {p} + 2 * {p} + 6; ++i) k.v[i] = consts[i];
+  const DetParams dp = {{det[0], det_tol, det[1], det[2], det[3]}};
+"""
+
+
+def core_kernel_fn(p, tmpdir, double=True):
+    """Kernel 2 (spectral_core.cu, cut before its launch section) at P, at
+    double or float32, every detector instance (KIND) in one library, one
+    block of one thread per voxel: fn(m0 [P,V], rtqr [1,V], dtqr [P,V],
+    pm [P,V], consts [4P^2+2P+6], n_iters, det (kind, tol, max_its,
+    max_trials, init_save)) -> the seven outputs (means, prec, cov, b, c,
+    F, tr or the lane's iteration count)."""
+    d = Path(tmpdir)
+    _write_headers(d, double)
+    real = "double" if double else "float"
+    src = _core_source(p, double) + _HOST_CORE_HEAD.format(
+        real=real, p=p) + """  switch (det[0]) {
+    case 0: run_all<0>(in, k, dp, n_iters, V, out); break;
+    case 1: run_all<1>(in, k, dp, n_iters, V, out); break;
+    case 2: run_all<2>(in, k, dp, n_iters, V, out); break;
+    default: run_all<3>(in, k, dp, n_iters, V, out);
+  }
+}
+"""
+    lib = _build(d, f"core_p{p}_{real}", '#include "cuda_runtime.h"\n' + src)
+    return _core_lib_fn(lib, p, double)
+
+
+def core_two_phase_fn(p, tmpdir, double=True):
+    """The two-phase trialmode form of kernel 2 that the patched copy
+    probes/csrc/core_compact.cu keeps (its device code between its
+    include of spectral_core.cu and its block-local form, on kernel 2 cut
+    as core_kernel_fn cuts it) at P, at double or float32: fn as
+    core_kernel_fn's (trialmode only): phase 1 over every voxel, one
+    block of one thread each (one-lane warps: ballot, popc and the
+    atomicAdd of the shim), then phase 2 as one thread over the
+    compacted lanes."""
+    d = Path(tmpdir)
+    _write_headers(d, double)
+    real = "double" if double else "float"
+    probe = (PROBES_CSRC / "core_compact.cu").read_text()
+    probe = probe[probe.index('#include "spectral_core.cu"\n'):
+                  probe.index("// ---- the block-local form")]
+    probe = probe.split("\n", 1)[1]
+    src = _core_source(p, double) + (
+        _to_double(probe) if double else probe) + f"""
+static void run_two_phase(const {real}* const* in, const CoreConsts& k,
+                          const DetParams& det, int n_iters, long long V,
+                          {real}* const* out) {{
+  std::vector<{real}> fs((4 * {p} + 5) * V);
+  std::vector<int> is(5 * V);
+  int count = 0;
+  for (long long v = 0; v < V; ++v) {{
+    blockIdx.x = (unsigned)v;
+    core_phase1_kernel<{p}, 3>(in[0], in[1], in[2], in[3], k, det, n_iters,
+                               V, out[0], out[1], out[2], out[3], out[4],
+                               out[5], out[6], fs.data(), is.data(), &count);
+  }}
+  blockIdx.x = 0;
+  core_phase2_kernel<{p}, 3>(k, det, n_iters, V, fs.data(), is.data(),
+                             &count, out[0], out[1], out[2], out[3], out[4],
+                             out[5], out[6]);
+}}
+}}  // namespace
+""" + _HOST_CORE_HEAD.format(real=real, p=p) + """  run_two_phase(in, k, dp, n_iters, V, out);
+}
+"""
+    lib = _build(d, f"core2_p{p}_{real}", '#include "cuda_runtime.h"\n'
+                 "#include <vector>\n" + src)
+    return _core_lib_fn(lib, p, double)
+
+
+def fused_kernel_fn(p, tmpdir, double=True):
+    """Kernel 3 (spectral_fused.cu, cut before its launch section) at P,
+    at double or float32, both forms and every detector instance in one
+    library: fn(staged, data [T,V], tconsts [2P+1,T], aconsts [P*P], pm
+    [P,V], consts [4P^2+2P+6], n_iters, det (kind, tol, max_its,
+    max_trials, init_save), vb=32, offset=0) -> the seven outputs of
+    core_kernel_fn. Streamed: one block of one thread per voxel. Staged:
+    blocks of vb lanes, each lane a thread meeting the others at the
+    staging barrier (stats_kernel_fn's staged form), the plane offset
+    floats into its buffer."""
+    d = Path(tmpdir)
+    _write_headers(d, double)
+    real = "double" if double else "float"
+    src = _kernel_source("spectral_fused.cu",
+                         "// ---- launch and C entry points", double) + f"""
+struct HostArgs {{
+  const {real}* data;
+  const {real}* tc;
+  const {real}* pm;
+  int nt, n_iters;
+  long long V;
+  SolveConsts ac;
+  CoreConsts k;
+  DetParams det;
+  {real}* const* out;
+}};
+template <int KIND, bool STAGED>
+static void lane(const HostArgs& a) {{
+  spectral_fused_kernel<{p}, KIND, STAGED>(
+      a.data, a.tc, a.nt, a.V, a.ac, a.pm, a.k, a.det, a.n_iters, a.out[0],
+      a.out[1], a.out[2], a.out[3], a.out[4], a.out[5], a.out[6]);
+}}
+template <int KIND>
+static void run_streamed(const HostArgs& a) {{
+  for (long long v = 0; v < a.V; ++v) {{
+    blockIdx.x = (unsigned)v;
+    lane<KIND, false>(a);
+  }}
+}}
+template <int KIND>
+static void run_staged(const HostArgs& a, int vb) {{
+  FabberHostBarrier bar;
+  bar.n = (unsigned)vb;
+  fabber_host_barrier = &bar;
+  blockDim.x = (unsigned)vb;
+  for (long long b = 0; b * vb < a.V; ++b) {{
+    blockIdx.x = (unsigned)b;
+    std::vector<std::thread> lanes;
+    for (int l = 0; l < vb; ++l)
+      lanes.emplace_back([=, &a] {{
+        threadIdx.x = (unsigned)l;
+        lane<KIND, true>(a);
+      }});
+    for (auto& th : lanes) th.join();
+  }}
+  blockDim.x = 1;
+  fabber_host_barrier = nullptr;
+}}
+template <int KIND>
+static void run(const HostArgs& a, int vb) {{
+  if (vb > 0) run_staged<KIND>(a, vb);
+  else run_streamed<KIND>(a);
+}}
+}}  // namespace
+extern "C" void host_fused(int vb, const {real}* data, const {real}* tc,
+                           const {real}* aconsts, const {real}* pm,
+                           const {real}* consts, int n_iters, const int* det,
+                           {real} det_tol, int nt, long long V,
+                           {real}* const* out) {{
+  HostArgs a = {{data, tc, pm, nt, n_iters, V, {{}}, {{}},
+                {{det[0], det_tol, det[1], det[2], det[3]}}, out}};
+  for (int i = 0; i < {p} * {p}; ++i) a.ac.a[i] = aconsts[i];
+  for (int i = 0; i < 4 * {p} * {p} + 2 * {p} + 6; ++i) a.k.v[i] = consts[i];
+  switch (det[0]) {{
+    case 0: run<0>(a, vb); break;
+    case 1: run<1>(a, vb); break;
+    case 2: run<2>(a, vb); break;
+    default: run<3>(a, vb);
+  }}
+}}
+"""
+    lib = _build(d, f"fused_p{p}_{real}", '#include "cuda_runtime.h"\n'
+                 "#include <thread>\n#include <vector>\n" + src)
+    vp = ctypes.c_void_p
+    cr = ctypes.c_double if double else ctypes.c_float
+    lib.host_fused.restype = None
+    lib.host_fused.argtypes = [ctypes.c_int, vp, vp, vp, vp, vp, ctypes.c_int,
+                               vp, cr, ctypes.c_int, ctypes.c_longlong, vp]
+    dt = np.float64 if double else np.float32
+
+    def fn(staged, data, tconsts, aconsts, pm, consts, n_iters, det, vb=32,
+           offset=0):
+        nt, nv = data.shape
+        buf = np.zeros(data.size + offset, dt)
+        buf[offset:] = np.asarray(data, dt).ravel()
+        ins = [buf[offset:]] + [np.ascontiguousarray(x, dt) for x in
+                                (tconsts, aconsts, pm, consts)]
+        outs = [np.zeros(s, dt) for s in ((p, nv), (p, p, nv), (p, p, nv),
+                                          (1, nv), (1, nv), (1, nv), (1, nv))]
+        out_ptrs = (ctypes.c_void_p * 7)(*[o.ctypes.data for o in outs])
+        dk = (ctypes.c_int * 4)(det[0], det[2], det[3], det[4])
+        lib.host_fused(vb if staged else 0, *(_ptr(x) for x in ins), n_iters,
+                       dk, det[1], nt, nv, out_ptrs)
         return outs
     return fn

@@ -1082,7 +1082,9 @@ def lane_decisions(name, k, r32, r64, sl):
     of non-finite lanes over every lane lies within [0.8, 1.25] times the
     plain float32 version's, +-1e-3 (float32 lm diverges on ~4.5% of
     bench.py's biexp lanes, float64 on ~0.7%: a kernel fault that
-    diverges where the plain version does not moves that share)."""
+    diverges where the plain version does not moves that share).
+    Returns (ok, the non-finite shares: the kernel's and plain float32's
+    over every lane and over sl, float64's over sl)."""
     import torch
 
     def nonfinite(o):
@@ -1107,7 +1109,11 @@ def lane_decisions(name, k, r32, r64, sl):
         f"lanes (plain float32 {frac_32:.6f}, bound x[0.8, 1.25] +-1e-3; "
         f"float64 {frac_64:.6f}), {both} lanes non-finite in both "
         f"{'ok' if ok else 'FAIL'}")
-    return ok
+    shares = {"kernel": frac_k, "plain_f32": frac_32,
+              "kernel_on_f64_lanes": float(nf_k[sl].double().mean()),
+              "plain_f32_on_f64_lanes": float(nf_32[sl].double().mean()),
+              "plain_f64_on_f64_lanes": frac_64}
+    return ok, shares
 
 
 def check_detector_kernels(device, nvs=(1_048_576, 1_000_003),
@@ -1445,8 +1451,9 @@ def time_detectors(device, card, fig, fig_nl, nv_poly=16_777_216,
     16,777,216 poly voxels beside its maxits time (phase 5), each
     detector instance's registers logged; fused_nl_loop under
     trialmode and lm at 4,000,000 biexp voxels beside its maxits time
-    (phase 5b),
-    its lanes held to the plain version by lane_decisions; one
+    (phase 5b), its lanes held to the plain version by lane_decisions
+    (its non-finite shares logged: the staged kernel's and plain
+    float32's over every lane, float64's over its F64_LANES); one
     fused_vb_iter launch with the LM branch; VBInference.run() of biexp
     under trialmode. The iteration histograms are the kernels' own (the
     last timed launch), the plain version's beside them; the pass counts
@@ -1555,8 +1562,16 @@ def time_detectors(device, card, fig, fig_nl, nv_poly=16_777_216,
         r64 = fl.fused_nl_loop_plain(
             ts, tr, *(a[..., sl].double() for a in args[:4]), *args[4:],
             n_it, True, detector=det)
-        ok &= lane_decisions(f"fused_nl_loop biexp {kind} V={nv_bi}", k, r,
-                             r64, sl)
+        lanes_ok, out[f"nl_{kind}_nonfinite"] = lane_decisions(
+            f"fused_nl_loop biexp {kind} V={nv_bi}", k, r, r64, sl)
+        ok &= lanes_ok
+        nf = out[f"nl_{kind}_nonfinite"]
+        log(f"  fused_nl_loop biexp {kind}: non-finite means, staged kernel "
+            f"{nf['kernel']!r} of {nv_bi} lanes, plain float32 "
+            f"{nf['plain_f32']!r}; on the first {F64_LANES} lanes kernel "
+            f"{nf['kernel_on_f64_lanes']!r}, plain float32 "
+            f"{nf['plain_f32_on_f64_lanes']!r}, plain float64 "
+            f"{nf['plain_f64_on_f64_lanes']!r}")
         # model passes of the plain version: pass 0 of every lane plus
         # one per test of a lane still running (the last of which is the
         # F pass's)
@@ -1680,6 +1695,51 @@ def to64(args):
     return tuple(a.double() if hasattr(a, "double") else a for a in args)
 
 
+LOOP_CASES = ((1, False, -1.0), (2, False, -1.0), (3, True, -1.0),
+              (2, True, 0.2))   # phase 3d's (Q, masked, locked sd)
+
+
+def check_loop_case(tag, args, p, nq, locked):
+    """Kernel 5 on one of phase 3d's cases (whole_inputs' args), from the
+    statistics of kernel 4's plain version, held by near_f64."""
+    import torch
+    from fabber_core_tpu_torch.ops import fused_loop as fl
+    from fabber_core_tpu_torch.ops import fused_whole as fw
+    stats = tuple(x.contiguous() for x in fw.whole_stats_plain(
+        args[0], args[1], args[2], p, nq))
+    rest = (args[2], args[3], args[4], ITERS, locked)
+    k = fl.fused_vb_loop(*stats, *rest)
+    r32 = fl.fused_vb_loop_plain(*stats, *rest)
+    r64 = fl.fused_vb_loop_plain(*to64(stats), args[2], args[3].double(),
+                                 args[4].double(), ITERS, locked)
+    torch.cuda.synchronize()
+    return near_f64(f"fused_vb_loop {tag}", k, r32, r64)
+
+
+def check_loop_kernel(device, nvs=(1_048_576, 1_000_003), seed=SEED + 10):
+    """Kernel 5 alone in phase 3d's four cases and voxel counts (the
+    probes' check of a build of it). Returns (ok, worst max abs error,
+    worst ratio to its bound)."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    p, design = 3, poly_design(3)
+    ok, err, ratio = True, 0.0, 0.0
+    for nv in nvs:
+        for nq, masked, locked in LOOP_CASES:
+            plane = pattern_plane(design, nq, nv, gen, device)
+            args = whole_inputs(design, group_masks(nq, masked), plane,
+                                device)
+            tag = f"Q={nq}{' masked' if masked else ''}" \
+                f"{' locked' if locked > 0 else ''} V={nv}"
+            res = check_loop_case(tag, args, p, nq, locked)
+            ok, err, ratio = (ok and res[0], max(err, res[1]),
+                              max(ratio, res[2]))
+            del plane, args
+            torch.cuda.empty_cache()
+    return ok, err, ratio
+
+
 def check_fixed_design_kernels(device, nvs=(1_048_576, 1_000_003),
                                seed=SEED + 10):
     """Phase 3d: the fixed-design kernels against their plain versions
@@ -1689,14 +1749,14 @@ def check_fixed_design_kernels(device, nvs=(1_048_576, 1_000_003),
         timepoints) and with a locked noise sd (Q=2, masked);
       fused_whole's detector modes pointzeroone, trialmode and lm (4d,
         4l) at Q = 1, 2, at the engine's loop cap, by decision share;
-      fused_vb_loop (5) at Q = 1, 2 from the plain statistics;
+      fused_vb_loop (5) in the same four cases, from the plain
+        statistics (check_loop_case);
       spectral_fused (3) in maxits and each detector mode, in the plan's
         form and streamed, against the split pair (kernels 1 + 2) bit for
         bit and against its plain version.
     Voxel noise sd varies over 1e-2..3 (detector lanes stop apart); the
     truth is c0 ~ U(-1, 1), c1 ~ U(-0.05, 0.05), c2 ~ U(-5e-4, 5e-4)."""
     import torch
-    from fabber_core_tpu_torch.ops import fused_loop as fl
     from fabber_core_tpu_torch.ops import fused_spectral as fs
     from fabber_core_tpu_torch.ops import fused_whole as fw
     from fabber_core_tpu_torch.ops.spectral import eigen_elbo_const
@@ -1718,8 +1778,7 @@ def check_fixed_design_kernels(device, nvs=(1_048_576, 1_000_003),
 
     p, design = 3, poly_design(3)
     for nv in nvs:
-        for nq, masked, locked in ((1, False, -1.0), (2, False, -1.0),
-                                   (3, True, -1.0), (2, True, 0.2)):
+        for nq, masked, locked in LOOP_CASES:
             q = group_masks(nq, masked)
             plane = pattern_plane(design, nq, nv, gen, device)
             args = whole_inputs(design, q, plane, device)
@@ -1731,19 +1790,7 @@ def check_fixed_design_kernels(device, nvs=(1_048_576, 1_000_003),
                 f"{' locked' if locked > 0 else ''} V={nv}"
             note("fused_whole", near_f64(f"fused_whole {tag}", k, r32, r64))
             del k, r32, r64
-            if nq <= 2 and locked < 0:
-                stats = tuple(x.contiguous() for x in fw.whole_stats_plain(
-                    plane, args[1], args[2], p, nq))
-                rest = (args[2], args[3], args[4], ITERS)
-                k = fl.fused_vb_loop(*stats, *rest)
-                r32 = fl.fused_vb_loop_plain(*stats, *rest)
-                r64 = fl.fused_vb_loop_plain(*to64(stats), args[2],
-                                             args[3].double(),
-                                             args[4].double(), ITERS)
-                torch.cuda.synchronize()
-                note("fused_vb_loop", near_f64(f"fused_vb_loop {tag}", k,
-                                               r32, r64))
-                del k, r32, r64, stats
+            note("fused_vb_loop", check_loop_case(tag, args, p, nq, locked))
             if nq <= 2 and not masked:
                 for kind in ("pointzeroone", "trialmode", "lm"):
                     det, cap = whole_detector(kind, p, nq)
@@ -2088,13 +2135,36 @@ def whole_ops(p, nq, iters, det=False):
     return stats + 2 * nq * p * p + step * iters
 
 
+def log_loop(p, nq):
+    """Kernel 5's line of phase 5d: its form (one voxel per thread in
+    blocks of 128), blocks per SM, ptxas's registers and spills, and the
+    SASS instructions of its entry and of one step (probes/variants.py
+    sass_counts: the iteration loop's body; None without cuobjdump)."""
+    from fabber_core_tpu_torch.ops import _cuda
+    from probes import variants
+    parts = f"ILi{p}ELi{nq}E"
+    sass = variants.sass_counts(_cuda.library_path(), "fused_loop_kernel",
+                                [parts])
+    form = {"threads": 128, "blocks_per_sm": _cuda.loop_occupancy(p, nq),
+            "ptxas": ptxas_entry(_cuda.build_log, "fused_loop_kernel",
+                                 parts),
+            "sass": sass}
+    log(f"  fused_loop P={p} Q={nq}: one voxel per thread in blocks of 128, "
+        f"{form['blocks_per_sm']} blocks/SM ({form['ptxas']}); SASS "
+        f"{sass}")
+    return form
+
+
 def time_fixed_design(device, card, fig, nv=16_777_216):
     """Phase 5d at 16,777,216 voxels, T=106, P=3, on a plane made on the
     card: kernel 4 in maxits at Q=1 and Q=2, under trialmode at Q=2 and
     lm at Q=1, each in its staged and streamed forms (time_forms; every
     pair bit for bit, or the phase fails) with their plan, occupancy
     and registers (log_forms); kernel 5 at Q=2 with make_design_stats's
-    time beside it; kernel 3 in maxits and trialmode, staged at each of
+    time beside it, on the plane and on its first nv - 3 voxels (equal
+    there bit for bit, or the phase fails), its form, blocks per SM,
+    registers and SASS instructions a step logged (log_loop); kernel 3
+    in maxits and trialmode, staged at each of
     STATS_WIDTHS' VB (maxits: the widest) and streamed, beside the split
     pair (kernels 1 + 2) in turns (time_turns), every form equal to the
     split pair bit for bit (or the phase fails), with each form's plan,
@@ -2170,14 +2240,26 @@ def time_fixed_design(device, card, fig, nv=16_777_216):
     out["design_stats_ms"] = best_ms(
         lambda: eng.noise.make_design_stats(dt, plane), reps=1)
     largs, _ = eng.loop_kernel_args()
-    out["loop_q2_ms"] = best_ms(lambda: fl.fused_vb_loop(*largs, ITERS))
+    del eng
+    # and on the first nv - 3 voxels' statistics (a masked volume's ragged
+    # count; each voxel's statistics are its own), equal there bit for bit
+    rargs = tuple(x[..., :nv - 3].contiguous() if x.is_cuda else x
+                  for x in largs)
+    out["loop_q2_ms"], ka = best_ms(lambda: fl.fused_vb_loop(*largs, ITERS),
+                                    keep=True)
+    out["loop_q2_ragged_ms"], kr = best_ms(
+        lambda: fl.fused_vb_loop(*rargs, ITERS), keep=True)
+    out["loop_ragged_bits_equal_aligned"] = bits_equal(
+        kr, tuple(x[..., :nv - 3] for x in ka))
+    del ka, kr, rargs
     out["loop_q2_plain_ms"] = best_ms(
         lambda: fl.fused_vb_loop_plain(*largs, ITERS), reps=1)
     out["loop_q2_bound"] = bound(
         4 * (p + 2 + 2 * p + 2 * p) * nv + 4 * (p + 2 * p * p + 4) * nv,
         (whole_ops(p, 2, ITERS) - whole_ops(p, 2, 0)
          + 2 * 2 * p * p) * nv)
-    del largs, eng
+    out["loop_q2_form"] = log_loop(p, 2)
+    del largs
     torch.cuda.empty_cache()
     # kernel 3 in each form beside the split pair, in turns
     q1 = np.ones(NT)
@@ -3667,6 +3749,8 @@ def main():
               "vb_iter_forms_bit_identical":
                   fig_nl["vb_iter_staged_bits_equal_streamed"],
               "whole_forms_bit_identical": fig_fd["whole_forms_bit_identical"],
+              "loop_ragged_bits_equal_aligned":
+                  fig_fd["loop_ragged_bits_equal_aligned"],
               "fused_forms_bit_identical": fig_fd["fused_forms_bit_identical"],
               "stats_forms_bit_identical":
                   fig["stats_staged_bits_equal_streamed"]}
@@ -3727,7 +3811,7 @@ def main():
         entry("fused_whole:lm", "fused_whole.cu", whole_at,
               fig_fd["whole_lm_ms"], fig_fd["whole_lm_plain_ms"],
               fig_fd["whole_lm_bound"]),
-        entry("fused_vb_loop", "fused_whole.cu",
+        entry("fused_vb_loop", "fused_loop.cu",
               "fabber_core_tpu/ops/fused_loop.py:200", fig_fd["loop_q2_ms"],
               fig_fd["loop_q2_plain_ms"], fig_fd["loop_q2_bound"]),
         entry("fused_nlls", "fused_nlls.cu", nlls_at, fig_nlls["fresh_l_ms"],

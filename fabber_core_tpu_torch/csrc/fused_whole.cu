@@ -1,23 +1,17 @@
-// fused_whole: the whole fixed point of fixed-design white-noise VB with
-// any number of noise groups, for Hopper (sm_90a), as one per-voxel
-// kernel in two forms:
-//
-//   kernel 4 (STATS_IN = false) replaces fabber_core_tpu/ops/
-//     fused_whole.py make_fused_whole_loop (its pallas_call at line 707):
-//     the statistics are accumulated from the voxel's data column, then
-//     the fixed point runs; template MODE 0 is maxits, 1 the in-kernel
-//     pointzeroone detector, 2 trialmode and lm (with best-state copies
-//     and lm's damped update). Plain version: fabber_core_tpu_torch/ops/
-//     fused_whole.py fused_whole_plain.
-//   kernel 5 (STATS_IN = true, MODE 0) replaces fabber_core_tpu/ops/
-//     fused_loop.py make_fused_vb_loop (its pallas_call at line 330,
-//     algebra make_plane_algebra at line 137): the statistics m0, rtqr,
-//     dtqr are read, made beforehand by noise/white.py
-//     make_design_stats. Plain version: ops/fused_loop.py
-//     fused_vb_loop_plain.
+// fused_whole: kernel 4, the whole fixed point of fixed-design
+// white-noise VB with any number of noise groups, its statistics
+// accumulated from the voxel's data column, for Hopper (sm_90a), as one
+// per-voxel kernel. It replaces fabber_core_tpu/ops/fused_whole.py
+// make_fused_whole_loop (its pallas_call at line 707); template MODE 0 is
+// maxits, 1 the in-kernel pointzeroone detector, 2 trialmode and lm
+// (with best-state copies and lm's damped update). Plain version:
+// fabber_core_tpu_torch/ops/fused_whole.py fused_whole_plain. Its fixed
+// point (the constants, the lane's state and one step) is shared with
+// kernel 5 through whole_device.cuh; kernel 5, the same fixed point from
+// statistics made beforehand, is fused_loop.cu.
 //
 // One thread per voxel; every statistic and the whole posterior live in
-// registers. Kernel 4's statistics, per voxel (fused_whole.py:382-436):
+// registers. The statistics, per voxel (fused_whole.py:382-436):
 //   pass 1  dty_a = sum_t (sum_q DW_q[a,t]) y[t]  (each sample lies in
 //           one group or none, so the weight sum is exact)
 //   solve   m0 by the jitter-retry Cholesky of the f32 A = sum_q
@@ -29,7 +23,7 @@
 // The (P + QP + Q) x T rows (D, DW_q = D*q_q, q_q) are staged in shared
 // memory once per block (below: the staged form copies the data tile
 // beside them). Then, with D'Q_qy = dtqr_q + D'Q_qD m0, each
-// iteration (fused_loop.py:257-305, fused_whole.py:449-553):
+// iteration (whole_device.cuh whole_step):
 //   theta   prec = sum_q phi_q D'Q_qD + diag(pp), jitter-retry Cholesky,
 //           cov, means = cov (sum_q phi_q D'Q_qy + pp pm); lm where
 //           alpha > 0: means = centre + (prec + alpha diag prec)^-1
@@ -57,13 +51,11 @@
 // float32 0/1-mask detector transcription, the concrete-layout anchors
 // and the tile-wide early exit (each thread leaves its own loop).
 //
-// What bounds it on this card: kernel 4 reads the [T,V] data, 4*T bytes
-// per voxel, and writes (2P^2 + P + 4Q)*4 bytes. Per iteration the
+// What bounds it on this card: it reads the [T,V] data, 4*T bytes per
+// voxel, and writes (2P^2 + P + 4Q)*4 bytes. Per iteration the
 // arithmetic is a P x P Cholesky, inverse and a few Q*P^2 products,
 // ~200-400 operations at P=3, so with the maxits 10 iterations it stays
 // below the bytes bound; a detector mode's warp runs to its slowest lane.
-// Kernel 5 reads (P + Q + QP + 2P)*4 bytes of statistics and priors and
-// writes the posterior.
 //
 // Design for this card (tile.cuh): the statistics read the voxel's
 // column twice (pass 1 for dty, pass 2 for r0 = y - D m0). Streamed, in
@@ -85,44 +77,11 @@
 // the tile alone: 16 blocks per SM, but maxits at Q=2 ran 4.4x slower
 // there and trialmode 8%, so the rows stay in shared memory.
 
-#include "detectors.cuh"
-#include "vb_device.cuh"
-
-// Every (P, Q) fused_whole.cu is compiled for, as X(P, Q); each gives
-// kernel 4 in MODEs 0-2 and kernel 5. This list is the one source of the
-// C entry points' dispatch and of fabber_whole_has_instance, which the
-// engine's route gate asks.
-#define FABBER_WHOLE_INSTANCES(X)                                   \
-  X(1, 1) X(1, 2) X(1, 3) X(2, 1) X(2, 2) X(2, 3) X(3, 1) X(3, 2)   \
-  X(3, 3) X(4, 1) X(4, 2) X(4, 3)
+#include "whole_device.cuh"
 
 namespace {
 
-using namespace fabber;
-
 constexpr int kThreads = 128;
-constexpr int kWMaxP = 4;   // largest P of FABBER_WHOLE_INSTANCES
-constexpr int kWMaxQ = 3;   // largest Q of FABBER_WHOLE_INSTANCES
-
-// Everything a launch passes by value: D'Q_qD ([Q][P][P] row-major at the
-// launch's P), the per-group noise constants, the loop controls and, in
-// the detector modes, the detector and the ELBO constants.
-struct WholeConsts {
-  float dtqd[kWMaxQ * kWMaxP * kWMaxP];
-  float inv_b0[kWMaxQ];     // 1 / b0 of the noise prior
-  float c_post[kWMaxQ];     // (n_q - 1)/2 + c0
-  float b_init[kWMaxQ];
-  float c_init[kWMaxQ];
-  float locked_sd;          // > 0: noise sd locked to this value
-  int n_iters;
-  int nt;
-  long long V;
-  DetParams d;
-  float lb_coeff[kWMaxQ];   // n_q/2 + c0_q, the coefficient of log b_q
-  float f_const;            // voxel-invariant ELBO terms at c_post
-};
-
-#define DTQD(q, i, j) k.dtqd[((q) * P + (i)) * P + (j)]
 
 #if defined(FABBER_WHOLE_CONST_ROWS)
 // the staged form's design rows (kernel 4), copied by the C entry point
@@ -200,122 +159,6 @@ __device__ __forceinline__ void whole_stats(const WholeConsts& k,
   }
 }
 
-// The lane's state: posterior (packed prec/cov), noise, and (detector
-// modes) the lane's F.
-template <int P, int Q>
-struct WholeState {
-  float means[P];
-  float prec[P * (P + 1) / 2];
-  float cov[P * (P + 1) / 2];
-  float b[Q], c[Q];
-  float f;
-};
-
-// One fixed-point step from s (its noise, and its means as the lm
-// centre) into n; kqk/trq receive the new state's per-group quadratics
-// and logdet log det prec (for F).
-template <int P, int Q>
-__device__ __forceinline__ void whole_step(
-    const WholeConsts& k, const float* m0, const float* rtqr,
-    const float (&dtqr)[Q][P], const float (&dtqy)[Q][P], const float* pm,
-    const float* pp, const WholeState<P, Q>& s, float alpha,
-    WholeState<P, Q>& n, float* kqk, float* trq, float& logdet) {
-  constexpr int NT = P * (P + 1) / 2;
-  float phi[Q];
-#pragma unroll
-  for (int q = 0; q < Q; ++q) phi[q] = s.b[q] * s.c[q];
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-#pragma unroll
-    for (int j = 0; j <= i; ++j) {
-      float v = 0.f;
-#pragma unroll
-      for (int q = 0; q < Q; ++q) v = v + phi[q] * DTQD(q, i, j);
-      if (i == j) v = v + pp[i];
-      n.prec[tri(i, j)] = v;
-    }
-  }
-  float ch[NT];
-  cholesky_jittered<P>(n.prec, ch);
-  inverse_from_chol<P>(ch, n.cov);
-  float rhs[P];
-#pragma unroll
-  for (int a = 0; a < P; ++a) {
-    float v = 0.f;
-#pragma unroll
-    for (int q = 0; q < Q; ++q) v = v + phi[q] * dtqy[q][a];
-    rhs[a] = v + pp[a] * pm[a];
-  }
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    float m = 0.f;
-#pragma unroll
-    for (int j = 0; j < P; ++j) m = m + n.cov[tri(i, j)] * rhs[j];
-    n.means[i] = m;
-  }
-  if (alpha > 0.f) {
-    // LM-damped step about the previous means (white.py
-    // update_theta_stats); prec and cov stay undamped
-    float dc[P], delta[P], damped[NT], dch[NT];
-#pragma unroll
-    for (int a = 0; a < P; ++a) dc[a] = s.means[a] - m0[a];
-#pragma unroll
-    for (int a = 0; a < P; ++a) {
-      float v = 0.f;
-#pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        float g = dtqr[q][a];
-#pragma unroll
-        for (int j = 0; j < P; ++j) g = g - DTQD(q, a, j) * dc[j];
-        v = v + phi[q] * g;
-      }
-      delta[a] = v + pp[a] * pm[a] - pp[a] * s.means[a];
-    }
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-#pragma unroll
-      for (int j = 0; j <= i; ++j)
-        damped[tri(i, j)] = n.prec[tri(i, j)] +
-                            (i == j ? alpha * n.prec[tri(i, i)] : 0.f);
-    }
-    cholesky_jittered<P>(damped, dch);
-    chol_solve<P>(dch, delta);
-#pragma unroll
-    for (int a = 0; a < P; ++a) n.means[a] = s.means[a] + delta[a];
-  }
-
-  float d[P];
-#pragma unroll
-  for (int a = 0; a < P; ++a) d[a] = n.means[a] - m0[a];
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    float cross = 0.f, quad = 0.f, tr = 0.f;
-#pragma unroll
-    for (int a = 0; a < P; ++a) cross = cross + d[a] * dtqr[q][a];
-#pragma unroll
-    for (int a = 0; a < P; ++a) {
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        const float daj = DTQD(q, a, j);
-        quad = quad + daj * d[a] * d[j];
-        tr = tr + daj * n.cov[tri(a, j)];
-      }
-    }
-    const float kq = fmaxf(rtqr[q] - 2.f * cross + quad, 0.f);
-    float bq = 1.f / ((kq + tr) * 0.5f + k.inv_b0[q]);
-    const float cq = k.c_post[q];
-    if (k.locked_sd > 0.f) bq = 1.f / cq / (k.locked_sd * k.locked_sd);
-    n.b[q] = bq;
-    n.c[q] = cq;
-    kqk[q] = kq;
-    trq[q] = tr;
-  }
-  float ld = 0.f;
-#pragma unroll
-  for (int i = 0; i < P; ++i) ld = ld + 2.f * logf(ch[tri(i, i)]);
-  logdet = ld;
-}
-
 // Kernel 4's data column and design rows (col.w). Staged: the block's
 // tile and the rows in dynamic shared memory (tile.cuh; the rows in
 // __constant__ memory with FABBER_WHOLE_CONST_ROWS). Streamed: the plane
@@ -341,16 +184,12 @@ __device__ __forceinline__ Column<STAGED> whole_column(
   }
 }
 
-// MODE 0: maxits; 1: pointzeroone; 2: trialmode / lm. STATS_IN: kernel 5
-// (statistics read) else kernel 4 (statistics from the data); STAGED:
-// kernel 4's statistics read the block's shared tile (tile.cuh).
-template <int P, int Q, int MODE, bool STATS_IN, bool STAGED>
+// MODE 0: maxits; 1: pointzeroone; 2: trialmode / lm. STAGED: the
+// statistics read the block's shared tile (tile.cuh).
+template <int P, int Q, int MODE, bool STAGED>
 __global__ void __launch_bounds__(kThreads)
 fused_whole_kernel(const WholeConsts k, const float* __restrict__ data,
                    const float* __restrict__ tconsts,
-                   const float* __restrict__ m0_in,
-                   const float* __restrict__ rtqr_in,
-                   const float* __restrict__ dtqr_in,
                    const float* __restrict__ pm_in,
                    const float* __restrict__ pp_in,
                    float* __restrict__ means_out,
@@ -361,26 +200,12 @@ fused_whole_kernel(const WholeConsts k, const float* __restrict__ data,
   constexpr int NT = P * (P + 1) / 2;
   const long long V = k.V;
   const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  Column<STAGED> col = {};
-  if constexpr (!STATS_IN)
-    col = whole_column<STAGED>(data, tconsts, k.nt, (P + Q * P + Q) * k.nt,
-                               V, v);
+  const Column<STAGED> col = whole_column<STAGED>(
+      data, tconsts, k.nt, (P + Q * P + Q) * k.nt, V, v);
   if (v >= V) return;
 
   float m0[P], rtqr[Q], dtqr[Q][P];
-  if constexpr (STATS_IN) {
-#pragma unroll
-    for (int a = 0; a < P; ++a) m0[a] = m0_in[(size_t)a * V + v];
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      rtqr[q] = rtqr_in[(size_t)q * V + v];
-#pragma unroll
-      for (int a = 0; a < P; ++a)
-        dtqr[q][a] = dtqr_in[(size_t)(q * P + a) * V + v];
-    }
-  } else {
-    whole_stats<P, Q>(k, col.w, col, m0, rtqr, dtqr);
-  }
+  whole_stats<P, Q>(k, col.w, col, m0, rtqr, dtqr);
   float pm[P], pp[P];
 #pragma unroll
   for (int i = 0; i < P; ++i) {
@@ -466,21 +291,17 @@ fused_whole_kernel(const WholeConsts k, const float* __restrict__ data,
     b_out[(size_t)q * V + v] = st.b[q];
     c_out[(size_t)q * V + v] = st.c[q];
   }
-  if constexpr (!STATS_IN) {
-    if constexpr (MODE == 0) {
+  if constexpr (MODE == 0) {
 #pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        fkqk_out[(size_t)q * V + v] = kqk[q];
-        ftr_out[(size_t)q * V + v] = trq[q];
-      }
-    } else {
-      fkqk_out[v] = st.f;
-      ftr_out[v] = (float)cv.its;
+    for (int q = 0; q < Q; ++q) {
+      fkqk_out[(size_t)q * V + v] = kqk[q];
+      ftr_out[(size_t)q * V + v] = trq[q];
     }
+  } else {
+    fkqk_out[v] = st.f;
+    ftr_out[v] = (float)cv.its;
   }
 }
-
-#undef DTQD
 
 // ---- launch and C entry points ------------------------------------------
 
@@ -505,11 +326,11 @@ inline long long whole_smem(int vb, int nt, int nrows) {
 // One instance's launch, or (occ not null) its blocks per SM: STAGED in
 // blocks of vb lanes, else blocks of kThreads; smem bytes of dynamic
 // shared memory (raised above the 48 KB default before the launch).
-template <int P, int Q, int MODE, bool STATS_IN, bool STAGED>
+template <int P, int Q, int MODE, bool STAGED>
 int launch_form(const WholeConsts& k, int vb, long long smem,
                 const float* const* ins, float* const* outs,
                 cudaStream_t stream, int* occ) {
-  const auto kernel = fused_whole_kernel<P, Q, MODE, STATS_IN, STAGED>;
+  const auto kernel = fused_whole_kernel<P, Q, MODE, STAGED>;
   const int threads = STAGED ? vb : kThreads;
   if (STAGED || smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -522,8 +343,8 @@ int launch_form(const WholeConsts& k, int vb, long long smem,
   }
   const unsigned grid = (unsigned)((k.V + threads - 1) / threads);
   kernel<<<grid, threads, smem, stream>>>(
-      k, ins[0], ins[1], ins[2], ins[3], ins[4], ins[5], ins[6], outs[0],
-      outs[1], outs[2], outs[3], outs[4], outs[5], outs[6]);
+      k, ins[0], ins[1], ins[2], ins[3], outs[0], outs[1], outs[2], outs[3],
+      outs[4], outs[5], outs[6]);
   return (int)cudaGetLastError();
 }
 
@@ -532,10 +353,9 @@ int launch_mode(const WholeConsts& k, int vb, long long smem,
                 const float* const* ins, float* const* outs,
                 cudaStream_t stream, int* occ) {
   if (vb > 0)
-    return launch_form<P, Q, MODE, false, true>(k, vb, smem, ins, outs,
-                                                stream, occ);
-  return launch_form<P, Q, MODE, false, false>(k, 0, smem, ins, outs, stream,
-                                               occ);
+    return launch_form<P, Q, MODE, true>(k, vb, smem, ins, outs, stream,
+                                         occ);
+  return launch_form<P, Q, MODE, false>(k, 0, smem, ins, outs, stream, occ);
 }
 
 // kernel 4 in the MODE of its detector (k.d.kind); occ: see launch_form
@@ -553,30 +373,10 @@ int launch_whole(const WholeConsts& k, int vb, long long smem,
   }
 }
 
-// the scalar constants of a launch: consts_host [Q*P*P + 4Q] (D'Q_qD,
-// then 1/b0, c_post, b_init, c_init per group)
-WholeConsts make_consts(int p, int q, int n_iters, float locked_sd,
-                        const float* consts_host, int nt, long long V) {
-  WholeConsts k = {};
-  const int n = q * p * p;
-  for (int i = 0; i < n; ++i) k.dtqd[i] = consts_host[i];
-  for (int i = 0; i < q; ++i) {
-    k.inv_b0[i] = consts_host[n + i];
-    k.c_post[i] = consts_host[n + q + i];
-    k.b_init[i] = consts_host[n + 2 * q + i];
-    k.c_init[i] = consts_host[n + 3 * q + i];
-  }
-  k.locked_sd = locked_sd;
-  k.n_iters = n_iters;
-  k.nt = nt;
-  k.V = V;
-  k.d = {kMaxits, 0.f, 0, 0, 0};
-  return k;
-}
-
 }  // namespace
 
-// 1 when fused_whole.cu is compiled for (p, q), else 0.
+// 1 when kernels 4 and 5 (fused_whole.cu, fused_loop.cu) are compiled
+// for (p, q), else 0.
 extern "C" int fabber_whole_has_instance(int p, int q) {
 #define FABBER_HAS(NP, NQ) \
   if (p == NP && q == NQ) return 1;
@@ -619,8 +419,7 @@ extern "C" int fabber_fused_whole(
     for (int i = 0; i < q; ++i) k.lb_coeff[i] = det_consts_host[i];
     k.f_const = det_consts_host[q];
   }
-  const float* const ins[7] = {data, tconsts, nullptr, nullptr, nullptr, pm,
-                               pp};
+  const float* const ins[4] = {data, tconsts, pm, pp};
   float* const outs[7] = {means, prec, cov, b, c, fkqk, ftr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #if defined(FABBER_WHOLE_CONST_ROWS)
@@ -659,31 +458,4 @@ extern "C" int fabber_whole_occupancy(int p, int q, int mode, int vb,
   FABBER_WHOLE_INSTANCES(FABBER_OCC)
 #undef FABBER_OCC
   return -1;
-}
-
-// Kernel 5. (p, q): one of FABBER_WHOLE_INSTANCES; consts_host as
-// fabber_fused_whole's. m0 [p,V], rtqr [q,V], dtqr [q,p,V], pm, pp [p,V]
-// (device). Outputs (device, preallocated): means [p,V], prec, cov
-// [p,p,V], b, c [q,V].
-extern "C" int fabber_fused_vb_loop(int p, int q, int n_iters,
-                                    float locked_sd, const float* consts_host,
-                                    const float* m0, const float* rtqr,
-                                    const float* dtqr, const float* pm,
-                                    const float* pp, long long V,
-                                    float* means, float* prec, float* cov,
-                                    float* b, float* c, void* stream) {
-  if (p < 1 || p > kWMaxP || q < 1 || q > kWMaxQ || n_iters < 1 || V < 1)
-    return (int)cudaErrorInvalidValue;
-  const WholeConsts k =
-      make_consts(p, q, n_iters, locked_sd, consts_host, 1, V);
-  const float* const ins[7] = {nullptr, nullptr, m0, rtqr, dtqr, pm, pp};
-  float* const outs[7] = {means, prec, cov, b, c, nullptr, nullptr};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FABBER_LAUNCH(NP, NQ) \
-  if (p == NP && q == NQ)     \
-    return launch_form<NP, NQ, 0, true, false>(k, 0, 0, ins, outs, s, \
-                                               nullptr);
-  FABBER_WHOLE_INSTANCES(FABBER_LAUNCH)
-#undef FABBER_LAUNCH
-  return (int)cudaErrorInvalidValue;
 }

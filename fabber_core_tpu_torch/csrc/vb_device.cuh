@@ -221,8 +221,10 @@ __device__ __forceinline__ void cholesky_jittered(const float* a,
   if (bad) cholesky<P>(a, 1e-10f, ch);
 }
 
-// A^-1 = L^-T L^-1 from the packed factor, into packed cov.
-template <int P>
+// A^-1 = L^-T L^-1 from the packed factor, into packed cov. BY_RECIP:
+// each division by L_jj a product with the 1 / L_jj already taken
+// (fewer instructions, another rounding; kernel 5's step).
+template <int P, bool BY_RECIP = false>
 __device__ __forceinline__ void inverse_from_chol(const float* ch,
                                                   float* cov) {
   float invl[P * (P + 1) / 2];
@@ -235,7 +237,7 @@ __device__ __forceinline__ void inverse_from_chol(const float* ch,
       float s = 0.f;
 #pragma unroll
       for (int k = j + 1; k <= i; ++k) s = s + ch[tri(k, j)] * invl[tri(i, k)];
-      invl[tri(i, j)] = -s / ch[tri(j, j)];
+      invl[tri(i, j)] = BY_RECIP ? -s * invl[tri(j, j)] : -s / ch[tri(j, j)];
     }
   }
 #pragma unroll

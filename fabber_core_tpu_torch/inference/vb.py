@@ -69,7 +69,7 @@ gates send to an unported route raises NotImplementedError naming it.
 On "cuda" a kernel route also needs its kernels compiled for the run's
 shape (csrc/vb_device.cuh FABBER_NL_INSTANCES for the model functors, or
 a functor generated from the model, built at first use,
-csrc/fused_whole.cu FABBER_WHOLE_INSTANCES for (P, Q), csrc/
+csrc/whole_device.cuh FABBER_WHOLE_INSTANCES for (P, Q), csrc/
 fused_ar_loop.cu FABBER_AR_INSTANCES for AR's (P, echoes)); a run outside
 them raises at construction. Choosing a route is a decision made before
 any launch, never a fallback after a failure.
@@ -554,7 +554,7 @@ class VBInference:
                 return
             raise NotImplementedError(
                 f"P={self.nparams}, Q={nq} is not among the fixed-design "
-                "kernels' instances (csrc/fused_whole.cu "
+                "kernels' instances (csrc/whole_device.cuh "
                 f"FABBER_WHOLE_INSTANCES), so the '{self.route}' route "
                 f"({ROUTES[self.route][0]}) cannot run it on the card; "
                 "device='cpu' runs the route's plain version")

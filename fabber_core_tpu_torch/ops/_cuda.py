@@ -26,9 +26,9 @@ from ..exceptions import FabberError
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("spectral_stats.cu", "spectral_core.cu", "spectral_fused.cu",
            "fused_nl_loop.cu", "fused_vb_iter.cu", "fused_whole.cu",
-           "fused_nlls.cu", "fused_ar_loop.cu")
+           "fused_loop.cu", "fused_nlls.cu", "fused_ar_loop.cu")
 HEADERS = ("vb_device.cuh", "detectors.cuh", "spectral_device.cuh",
-           "fused_nl_loop.cuh", "dual.cuh", "tile.cuh")
+           "fused_nl_loop.cuh", "dual.cuh", "tile.cuh", "whole_device.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -197,6 +197,8 @@ def load():
             i32, i32, i32, f32, vp, vp, vp, vp, vp, vp, i64] + [vp] * 5 \
             + [vp]
         lib.fabber_fused_vb_loop.restype = i32
+        lib.fabber_loop_occupancy.argtypes = [i32] * 2
+        lib.fabber_loop_occupancy.restype = i32
         lib.fabber_whole_has_instance.argtypes = [i32, i32]
         lib.fabber_whole_has_instance.restype = i32
         lib.fabber_fused_nlls.argtypes = [
@@ -393,7 +395,7 @@ def has_nl_instance(kind, p, q):
 
 def has_whole_instance(p, q):
     """True when the fixed-design kernels (kernels 4 and 5) are compiled
-    for P and Q (csrc/fused_whole.cu FABBER_WHOLE_INSTANCES)."""
+    for P and Q (csrc/whole_device.cuh FABBER_WHOLE_INSTANCES)."""
     return bool(load().fabber_whole_has_instance(p, q))
 
 
@@ -593,6 +595,11 @@ def whole_occupancy(p, nq, mode, vb, nt):
     maxits, 1 pointzeroone, 2 trialmode/lm) and form vb at nt samples;
     -1 where refused."""
     return int(load().fabber_whole_occupancy(p, nq, mode, vb, nt))
+
+
+def loop_occupancy(p, nq):
+    """Blocks per SM of kernel 5's (P, Q) instance; -1 where refused."""
+    return int(load().fabber_loop_occupancy(p, nq))
 
 
 def vb_iter_occupancy(kind, p, nq, lm, vb, nt):

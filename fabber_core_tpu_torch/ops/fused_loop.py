@@ -6,7 +6,7 @@ Port of fabber_core_tpu/ops/fused_loop.py. With a constant design D
 and white noise, the VB fixed point (Eq 19-22) depends on the data only
 through the sufficient statistics of noise/white.py make_design_stats:
 m0 [P,V], r0'Q_qr0 [Q,V], D'Q_qr0 [Q,P,V] and the constant D'Q_qD. One
-hand-written CUDA kernel (csrc/fused_whole.cu, STATS_IN) replaces
+hand-written CUDA kernel (csrc/fused_loop.cu) replaces
 make_fused_vb_loop: per voxel, the n_iters fixed-point steps run in
 registers from one read of the statistics, and the posterior is written
 once —
@@ -19,8 +19,13 @@ once —
       1/b0), c = c_post (a locked sd: b = 1/(c sd^2)) —
 
 from zero means and the noise at (b_init, c_init), maxits only (the JAX
-package's gate). The arithmetic and its order are noise/white.py
-update_theta_stats / update_noise_stats'.
+package's gate). The plain version's arithmetic and its order are
+noise/white.py update_theta_stats / update_noise_stats'; the kernel's
+step takes fewer instructions (whole_device.cuh whole_step, LEAN: it
+multiplies by the Cholesky's diagonal reciprocals where the plain version
+divides, and sums the noise quadratic and trace over the distinct terms),
+so its float32 rounding differs and the card checks hold it to the plain
+version at float64 (chip_smoke.py near_f64).
 
 The wrapper takes the plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises. ``fused_vb_loop.
@@ -37,9 +42,9 @@ from .fused_vb import check_plane
 
 
 def whole_instantiated(p, nq):
-    """True when csrc/fused_whole.cu is compiled for P and Q (kernels 4
-    and 5; FABBER_WHOLE_INSTANCES: P = 1..4, Q = 1..3), asked of the
-    built library."""
+    """True when csrc/fused_whole.cu and csrc/fused_loop.cu are compiled
+    for P and Q (kernels 4 and 5; whole_device.cuh FABBER_WHOLE_INSTANCES:
+    P = 1..4, Q = 1..3), asked of the built library."""
     from . import _cuda
     return _cuda.has_whole_instance(p, nq)
 
@@ -200,7 +205,7 @@ def fused_vb_loop(m0, rtqr, dtqr, consts, prior_means, prior_prec, n_iters,
     nq = rtqr.shape[0]
     if not whole_instantiated(p, nq):
         raise ValueError(f"no CUDA kernel instantiation for P={p}, Q={nq} "
-                         "(csrc/fused_whole.cu FABBER_WHOLE_INSTANCES)")
+                         "(csrc/whole_device.cuh FABBER_WHOLE_INSTANCES)")
     for t, name, shape in ((m0, "m0", (p, nv)), (rtqr, "rtqr", (nq, nv)),
                            (dtqr, "dtqr", (nq, p, nv)),
                            (prior_means, "prior_means", (p, nv)),

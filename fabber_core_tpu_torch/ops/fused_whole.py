@@ -238,7 +238,7 @@ def fused_whole(data, tconsts, consts, prior_means, prior_prec, n_iters,
     nq = (tconsts.shape[0] - p) // (p + 1)
     if not whole_instantiated(p, nq):
         raise ValueError(f"no CUDA kernel instantiation for P={p}, Q={nq} "
-                         "(csrc/fused_whole.cu FABBER_WHOLE_INSTANCES)")
+                         "(csrc/whole_device.cuh FABBER_WHOLE_INSTANCES)")
     if smem_bytes(p, nq, nt) > SMEM_BYTES:
         raise ValueError(f"the time rows ({smem_bytes(p, nq, nt)} bytes) "
                          "do not fit a block's shared memory")

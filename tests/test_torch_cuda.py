@@ -570,8 +570,8 @@ def test_fused_iteration_lm_kernel_matches_plain(cuda, name, nq):
                                  alpha.double()))
 
 
-# -- the fixed-design kernels (fused_whole.cu kernels 4 and 5,
-#    spectral_fused.cu kernel 3) --------------------------------------------
+# -- the fixed-design kernels (fused_whole.cu kernel 4, fused_loop.cu
+#    kernel 5, spectral_fused.cu kernel 3) ----------------------------------
 
 WHOLE_INSTANCES = [(p, nq) for p in (1, 2, 3, 4) for nq in (1, 2, 3)]
 WHOLE_IDS = [f"P{p}-Q{nq}" for p, nq in WHOLE_INSTANCES]
@@ -791,7 +791,7 @@ def test_spectral_fused_occupancy_queries(cuda):
 
 def test_whole_instances_are_the_listed_ones(cuda):
     """The route gate's instance query answers from the one list,
-    csrc/fused_whole.cu FABBER_WHOLE_INSTANCES."""
+    csrc/whole_device.cuh FABBER_WHOLE_INSTANCES."""
     from fabber_core_tpu_torch.ops.fused_loop import whole_instantiated
     for p in (1, 2, 3, 4):
         for nq in (1, 2, 3):

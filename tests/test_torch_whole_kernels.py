@@ -18,7 +18,9 @@ Float32 bounds (the two sides sum the statistics in different orders):
 Float64: kernel 4 and 5 against the JAX engine's statistics route, 1e-9.
 Kernel 4 itself, compiled as host C++ at double (tests/torch_hostcc.py;
 skipped without g++): its staged and streamed forms bit for bit, and
-both within 1e-9 of the plain version at float64.
+both within 1e-9 of the plain version at float64. Kernel 5 itself, the
+same way: within 1e-9 of the JAX kernel interpreted at float64, and of
+its plain version at float64 on a ragged voxel count.
 """
 
 import jax.numpy as jnp
@@ -414,3 +416,64 @@ def test_kernel_on_host_staged_equals_streamed(kind, nq, whole_host):
                      dtype=torch.float64)
     for a, r in zip(staged, ref):
         assert rel(a.reshape(r.shape), r) <= (1e-8 if kind == "lm" else 1e-9)
+
+
+# -- kernel 5 compiled as host C++ (tests/torch_hostcc.py) ------------------
+
+LOOP_HOST_CASES = [(nq, locked) for nq in (1, 2, 3) for locked in (-1.0, 0.2)]
+
+
+@pytest.mark.parametrize("nq,locked", LOOP_HOST_CASES,
+                         ids=[f"Q{q}-{'locked' if lk > 0 else 'free'}"
+                              for q, lk in LOOP_HOST_CASES])
+def test_loop_kernel_on_host_matches_pallas_kernel_and_plain(nq, locked,
+                                                             tmp_path):
+    """Kernel 5 (csrc/fused_loop.cu) at double, 10 iterations, from the
+    JAX package's make_design_stats at float64: within 1e-9 of each
+    output's max of the JAX Pallas kernel interpreted at float64 on 64
+    voxels (a multiple of its ROWS=8 that its block divides), and of the
+    plain version at float64 on 61 voxels (a multiple of neither 4 nor
+    a block)."""
+    if not torch_hostcc.have_gxx():
+        pytest.skip("g++ is not installed")
+    p, nt = 3, 29
+    fn = torch_hostcc.loop_kernel_fn(p, nq, tmp_path)
+    d, q, data, pm, pp = make_case(p, nq, nt, masked=True, seed=5)
+    mt = {f"mt{i + 1}": str(t + 1)
+          for i, t in enumerate(np.flatnonzero(q.sum(axis=0) == 0))}
+    jnoise = JWhite(JOptions({"noise-pattern": "123"[:nq], **mt}), nt,
+                    [int(v) for v in mt.values()])
+    js = jnoise.make_design_stats(jnp.asarray(d),
+                                  jnp.asarray(data.astype(np.float64)))
+    ts = design_stats_from_numpy(js)
+    b0, c0, ntg, ib, ic = noise_consts(q)
+    consts = tfl.pack_loop_consts(ts.dtqd, b0, c0, ntg, ib, ic)
+    pm64, pp64 = pm.astype(np.float64), pp.astype(np.float64)
+
+    nv = 64
+    call = jfl.make_fused_vb_loop(p, nq, 10, nv, jnp.float64,
+                                  locked_noise_stdev=locked, block=nv,
+                                  interpret=True)
+    jconsts = jfl.pack_consts(js.dtqd, b0[:, None], c0[:, None], ntg, ib,
+                              ic, jnp.float64)
+    np.testing.assert_array_equal(consts.numpy(), np.asarray(jconsts)[::8, 0])
+    jout = call(js.m0[:, :nv], js.rtqr[:, :nv], js.dtqr[:, :, :nv], jconsts,
+                jnp.asarray(pm64[:, :nv]), jnp.asarray(pp64[:, :nv]))
+    kout = fn(10, locked, consts.numpy(), np.asarray(js.m0)[:, :nv],
+              np.asarray(js.rtqr)[:, :nv], np.asarray(js.dtqr)[:, :, :nv],
+              pm64[:, :nv], pp64[:, :nv])
+    for k, j in zip(kout, jout):
+        assert k.shape == j.shape
+        assert rel(k, np.asarray(j)) <= 1e-9
+
+    nv = 61
+    kout = fn(10, locked, consts.numpy(), ts.m0[:, :nv].numpy(),
+              ts.rtqr[:, :nv].numpy(), ts.dtqr[:, :, :nv].numpy(),
+              pm64[:, :nv], pp64[:, :nv])
+    ref = tfl.fused_vb_loop_plain(
+        ts.m0[:, :nv], ts.rtqr[:, :nv], ts.dtqr[:, :, :nv], consts,
+        torch.from_numpy(pm64[:, :nv]), torch.from_numpy(pp64[:, :nv]), 10,
+        locked)
+    for k, r in zip(kout, ref):
+        assert k.shape == tuple(r.shape)
+        assert rel(k, r.numpy()) <= 1e-9

@@ -6,16 +6,16 @@ atomicAdd of kernel 2's two-phase form, kept in the patched copy
 probes/csrc/core_compact.cu); kernels 1's and 3's staged forms run a
 block's lanes as threads that meet at __syncthreads), and at double the
 kernel headers are text-substituted float -> double (vb_device.cuh,
-detectors.cuh, tile.cuh, spectral_device.cuh and fused_nl_loop.cuh cut
-before its launch section; dual.cuh has both overloads and is used as it
-is). Kernels 1 (spectral_stats.cu), 2 (spectral_core.cu), 3
-(spectral_fused.cu), 4 (fused_whole.cu), 7 (fused_vb_iter.cu), 8
-(fused_nlls.cu) and 9 (fused_ar_loop.cu) are cut before their launch
-sections the same way; kernels 1-3 and 9 also build at float32, the
-headers as they are (g++ contracts no multiply-add on
-x86-64's baseline, so the float32 build rounds as the card's kernel
-does: fmaf and __fmaf_rn fused, every other product and sum rounded
-apart). Tests skip when g++ is missing."""
+detectors.cuh, tile.cuh, spectral_device.cuh, whole_device.cuh and
+fused_nl_loop.cuh cut before its launch section; dual.cuh has both
+overloads and is used as it is). Kernels 1 (spectral_stats.cu), 2
+(spectral_core.cu), 3 (spectral_fused.cu), 4 (fused_whole.cu), 5
+(fused_loop.cu), 7 (fused_vb_iter.cu), 8 (fused_nlls.cu) and 9
+(fused_ar_loop.cu) are cut before their launch sections the same way;
+kernels 1-3 and 9 also build at float32, the headers as they are (g++
+contracts no multiply-add on x86-64's baseline, so the float32 build
+rounds as the card's kernel does: fmaf and __fmaf_rn fused, every other
+product and sum rounded apart). Tests skip when g++ is missing."""
 
 import ctypes
 import re
@@ -108,7 +108,7 @@ def _write_headers(d, double=True):
     (d / "cuda_runtime.h").write_text(SHIM)
     (d / "dual.cuh").write_text((CSRC / "dual.cuh").read_text())
     for name in ("vb_device.cuh", "detectors.cuh", "tile.cuh",
-                 "spectral_device.cuh"):
+                 "spectral_device.cuh", "whole_device.cuh"):
         (d / name).write_text(conv((CSRC / name).read_text()))
     nl = (CSRC / "fused_nl_loop.cuh").read_text()
     nl = nl[:nl.index("// ---- launch ----")] + "}  // namespace\n"
@@ -415,9 +415,9 @@ static void run_all(const WholeConsts& k, const double* const* in,
                     double* const* out) {{
   for (long long v = 0; v < k.V; ++v) {{
     blockIdx.x = (unsigned)v;
-    fused_whole_kernel<{p}, {q}, MODE, false, STAGED>(
-        k, in[0], in[1], nullptr, nullptr, nullptr, in[2], in[3], out[0],
-        out[1], out[2], out[3], out[4], out[5], out[6]);
+    fused_whole_kernel<{p}, {q}, MODE, STAGED>(
+        k, in[0], in[1], in[2], in[3], out[0], out[1], out[2], out[3],
+        out[4], out[5], out[6]);
   }}
 }}
 template <bool STAGED>
@@ -475,6 +475,48 @@ extern "C" void host_whole(int staged, int n_iters, double locked_sd,
         dk = (ctypes.c_int * 4)(det[0], det[2], det[3], det[4])
         lib.host_whole(int(staged), n_iters, locked_sd, _ptr(cs), dk,
                        det[1], _ptr(dcs), in_ptrs, out_ptrs, nt, nv)
+        return outs
+    return fn
+
+
+def loop_kernel_fn(p, q, tmpdir):
+    """Kernel 5 (fused_loop.cu, cut before its launch section) at (P, Q),
+    at double, one block of one thread per voxel: fn(n_iters, locked_sd,
+    consts [Q*P*P + 4Q], m0 [P,V], rtqr [Q,V], dtqr [Q,P,V], pm, pp
+    [P,V]) -> (means [P,V], prec, cov [P,P,V], b, c [Q,V])."""
+    d = Path(tmpdir)
+    _write_headers(d)
+    src = _kernel_source("fused_loop.cu", "// ---- launch and C entry points",
+                         True) + f"""
+}}  // namespace
+extern "C" void host_loop(int n_iters, double locked_sd,
+                          const double* consts, const double* const* in,
+                          double* const* out, long long V) {{
+  const WholeConsts k = make_consts({p}, {q}, n_iters, locked_sd, consts,
+                                    1, V);
+  for (long long v = 0; v < V; ++v) {{
+    blockIdx.x = (unsigned)v;
+    fused_loop_kernel<{p}, {q}>(k, in[0], in[1], in[2], in[3], in[4],
+                                out[0], out[1], out[2], out[3], out[4]);
+  }}
+}}
+"""
+    lib = _build(d, f"loop_p{p}_q{q}", '#include "cuda_runtime.h"\n' + src)
+    vp = ctypes.c_void_p
+    lib.host_loop.restype = None
+    lib.host_loop.argtypes = [ctypes.c_int, ctypes.c_double, vp, vp, vp,
+                              ctypes.c_longlong]
+
+    def fn(n_iters, locked_sd, consts, m0, rtqr, dtqr, pm, pp):
+        nv = m0.shape[-1]
+        ins = [np.ascontiguousarray(x, np.float64)
+               for x in (m0, rtqr, dtqr, pm, pp)]
+        outs = [np.zeros(s) for s in ((p, nv), (p, p, nv), (p, p, nv),
+                                      (q, nv), (q, nv))]
+        in_ptrs = (ctypes.c_void_p * 5)(*[x.ctypes.data for x in ins])
+        out_ptrs = (ctypes.c_void_p * 5)(*[o.ctypes.data for o in outs])
+        cs = np.ascontiguousarray(consts, np.float64)
+        lib.host_loop(n_iters, locked_sd, _ptr(cs), in_ptrs, out_ptrs, nv)
         return outs
     return fn
 

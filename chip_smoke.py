@@ -30,11 +30,19 @@ and pointzeroone, held to the float64 'xla' route on the card); drives
 the generic mode (a Gaussian bump and biexp's evaluate through their
 generated functors against the plain version, --loadmodels on the torch
 myexp plugin through its time_signal functor and evaluate-only, a
-suppdata run against the float64 'xla-generic' route on the card); then
+suppdata run against the float64 'xla-generic' route on the card);
+drives method=spatialvb (bench.py's spatial and spatial-p4 shapes on a
+1024x1024 grid and an MPmp mix, each against its float64 run on the
+card; Gauss-Seidel against the CPU, blocked sweeps against unblocked)
+and the features without a kernel of their own (ARD priors, kernel 7
+once per iteration on biexp; locked linearization; the spectral route
+at bf16, engine-kernel=spectral and P=9; the direct route), each beside
+its float64 run; then
 times the kernels, their plain versions, a device-to-device copy and the
 whole engine run, poly at 16,777,216 voxels (white and AR noise) and
 biexp at 4,000,000 (VB and NLLS; the generated biexp functor beside the
-hand-written one; kernels 1, 3, 4, 6, 7 and 8 in their staged and
+hand-written one; spatial VB at 3,999,744 voxels, its sweep split and
+the card's idle share; kernels 1, 3, 4, 6, 7 and 8 in their staged and
 streamed forms, csrc/tile.cuh, with each form's plan, blocks per SM and
 registers, kernels 1, 4 and 7 bit for bit, kernel 3 equal to the split
 pair bit for bit; kernel 2's detector instances). Every phase passes
@@ -1936,12 +1944,13 @@ def reset_launches():
     fa.fused_ar_loop.launches = fa.fused_ar_loop.det_launches = 0
 
 
-def api_run(device, options, vol, extra_data=None):
+def api_run(device, options, vol, extra_data=None, cls=None):
     """run_with_data with its launch counters zeroed just before and
     read just after: (run, VBResult, engine, launches, seconds);
-    extra_data: more data keys (suppdata)."""
+    extra_data: more data keys (suppdata); cls: the engine class whose
+    run to capture (default VBInference)."""
     from fabber_core_tpu_torch.api import FabberTpu
-    captured, restore = capture_results()
+    captured, restore = capture_results(cls)
     reset_launches()
     t0 = time.perf_counter()
     try:
@@ -3597,6 +3606,541 @@ def time_generic(device, card, nv=4_000_000):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 4r-4u and 5h: spatial VB, ARD priors, locked linearization, the
+# spectral and direct fixed-design routes
+# ---------------------------------------------------------------------------
+
+SP_NT = 50               # bench.py spatial: T
+SPATIAL_OPTIONS = {"model": "poly", "degree": "0", "noise": "white",
+                   "method": "spatialvb", "param-spatial-priors": "M",
+                   "spatial-dims": "2", "max-iterations": str(ITERS),
+                   "dtype": "single", "save-mean": True, "save-std": True,
+                   "save-noise-mean": True, "save-free-energy": True}
+# phase 4t's locked-linear bound: the share of voxels off float64 (a
+# mean beyond 1e-2 posterior sd, an sd or noise beyond 1e-2 relative, or
+# failed in either) is at most twice plain float32's on the CPU, 0.0762
+# of 8,192 voxels of bench.py's biexp data (centres from the whole-loop
+# route at float32, ten iterations), plus 1e-3
+LOCKED_OFF_SHARE = 2 * 0.0762 + 1e-3
+
+
+def spatial_volume(shape, seed):
+    """bench.py's spatial data as a [nx,ny,nz,T] float32 volume from
+    numpy: a base ~ U(3, 5) per voxel plus white noise of sd 0.5."""
+    rng = np.random.default_rng(seed)
+    nv = int(np.prod(shape))
+    base = rng.uniform(3.0, 5.0, (nv, 1)).astype(np.float32)
+    data = base + 0.5 * rng.standard_normal((nv, SP_NT), dtype=np.float32)
+    return data.reshape(shape + (SP_NT,), order="F")
+
+
+def design_file(name, design):
+    """Write a design matrix as a VEST file under build/chip_smoke/."""
+    from pathlib import Path
+    from fabber_core_tpu_torch.io import matfile
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    path = str(out / name)
+    matfile.write_vest(design, path)
+    return path
+
+
+def linear_volume(design, shape, seed, noise_sd=0.1):
+    """bench.py's spatial-p4 data: D @ p, p ~ U(-1, 1), plus white noise,
+    as a [nx,ny,nz,T] float32 volume from numpy."""
+    rng = np.random.default_rng(seed)
+    nv = int(np.prod(shape))
+    p = rng.uniform(-1, 1, (design.shape[1], nv)).astype(np.float32)
+    data = (design.astype(np.float32) @ p).T
+    data += noise_sd * rng.standard_normal(data.shape, dtype=np.float32)
+    return data.reshape(shape + (design.shape[0],), order="F")
+
+
+def spatial_api_pair(device, name, opts, vol, bound=1e-2):
+    """A spatial run through run_with_data at float32 and at float64 on
+    the card: the route, no kernel launched (spatial VB has none), aK
+    finite and positive, the route line logged, and the float32 run in
+    every voxel within bound of the float64 one (against_f64; the JAX
+    package's float32 spatial runs sit within 1.2e-4 posterior sd of
+    its float64 ones on the CPU, far inside it). Returns (ok, float32
+    run, its VBResult, its engine)."""
+    from fabber_core_tpu_torch.inference.spatial import SpatialVBInference
+    run, res, eng, n32, secs = api_run(device, opts, vol,
+                                       cls=SpatialVBInference)
+    _, r64, eng64, n64, _ = api_run(device, {**opts, "dtype": "double"},
+                                    vol, cls=SpatialVBInference)
+    ak, ak64 = eng.final_ak, eng64.final_ak
+    good = (eng.route == eng64.route == "spatial" and not n32 and not n64
+            and "Vb::Engine route: spatial jacobi sweeps" in run.log
+            and np.isfinite(ak).all() and (ak > 0).all()
+            and all(np.isfinite(a).all() for a in run.data.values()))
+    log(f" {name}: aK {[float(a) for a in ak]} (float64 "
+        f"{[float(a) for a in ak64]}); coefficient resels "
+        f"{[round(float(g), 6) for g in eng.coefficient_resels]} "
+        f"{'ok' if good else 'FAIL'}")
+    good &= against_f64(name, res, r64, bound)
+    return good, run, res, eng
+
+
+def run_spatial_path(device, shape=(1024, 1024, 1)):
+    """Phase 4r: method=spatialvb through run_with_data at bench.py's
+    spatial shape (poly degree 0, an M prior, spatial-dims 2, T=50) on a
+    1024x1024 grid: float32 against float64 (spatial_api_pair), and the
+    spatial posterior sd of c0 below the voxelwise run's (method=vb, N
+    prior, the same volume) on >= 99% of voxels. Returns ok."""
+    vol = spatial_volume(shape, SEED + 20)
+    log(f" volume {shape + (SP_NT,)}: {vol.nbytes / 1e6:.0f} MB float32")
+    ok, run, res, eng = spatial_api_pair(device, "spatial M",
+                                         SPATIAL_OPTIONS, vol)
+    _, rv, engv, _, _ = api_run(device, {
+        **SPATIAL_OPTIONS, "method": "vb", "param-spatial-priors": "N"}, vol)
+    shrunk = float((res.cov[:, 0, 0] < rv.cov[:, 0, 0]).mean())
+    good = shrunk >= 0.99 and engv.route != "spatial"
+    log(f" spatial posterior sd of c0 below the voxelwise run's "
+        f"({engv.route}) in {shrunk:.5f} of voxels (bound >= 0.99) "
+        f"{'ok' if good else 'FAIL'}")
+    return ok and good
+
+
+def run_spatial_p4_paths(device, shape=(1024, 1024, 1),
+                         small=(256, 256, 1)):
+    """Phase 4s: bench.py's spatial-p4 shape, the linear model (P=4,
+    chip_smoke's synthetic_design, T=106) with MMNN priors on a
+    1024x1024 grid, and an MPmp mix (the second-neighbour sums of the
+    Penny types) on 256x256; each float32 against float64
+    (spatial_api_pair). Returns ok."""
+    design = synthetic_design()
+    opts = {**SPATIAL_OPTIONS, "model": "linear",
+            "basis": design_file("spatial_p4_design.mat", design),
+            "param-spatial-priors": "MMNN"}
+    opts.pop("degree")
+    ok = True
+    for name, shp, priors in (("spatial-p4 MMNN", shape, "MMNN"),
+                              ("spatial MPmp", small, "MPmp")):
+        vol = linear_volume(design, shp, SEED + 21)
+        log(f" {name}: volume {shp + (NT,)}")
+        good, _, _, _ = spatial_api_pair(
+            device, name, {**opts, "param-spatial-priors": priors}, vol)
+        ok &= good
+        del vol
+    return ok
+
+
+def ard_against_plain(device, opts, vol, clean, run, res):
+    """Phase 4t: ten iterations of ARD on biexp drive unneeded
+    components towards zero amplitude, where float32 and float64 part
+    (97.6% of 8,192 voxels differ beyond 1e-2 in the CPU's plain runs)
+    and where phase 4c's bounds do not hold (the fit within 3 noise sd
+    in 0.657 of voxels on the CPU). So the kernel's run is held to the
+    same run with kernel 7's plain version in its place, on the card:
+    the share of voxels whose fit is within 3 noise sd of the noiseless
+    signal within 0.03, the median noise sd within 1%, the failed
+    voxels within 0.5% of the volume."""
+    from fabber_core_tpu_torch.inference import vb as vbm
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+
+    def plain(model, transforms, *args):
+        return fv.fused_iteration_plain(fv.signal_jac_fn(model), transforms,
+                                        *args)
+    kernel = vbm.fused_iteration
+    vbm.fused_iteration = plain
+    try:
+        ref, rres, _, n, _ = api_run(device, opts, vol)
+    finally:
+        vbm.fused_iteration = kernel
+    nv = clean.shape[0]
+
+    def stats(r, res):
+        fit = r.data["modelfit"].reshape(nv, -1, order="F")
+        within = float((np.abs(fit - clean) <= 3 * BI_SD).all(axis=1).mean())
+        with np.errstate(divide="ignore"):
+            nsd = float(np.median(1 / np.sqrt(r.data["noise_means"])))
+        return within, nsd, int(res.bad_voxels.sum())
+    (w, nsd, bad), (w0, nsd0, bad0) = stats(run, res), stats(ref, rres)
+    ok = (not n and abs(w - w0) <= 0.03 and abs(nsd / nsd0 - 1) <= 0.01
+          and abs(bad - bad0) <= 0.005 * nv)
+    log(f" ARD biexp, {ITERS} iterations, kernel 7 against its plain "
+        f"version in the same run: fit within 3 noise sd in {w:.5f} / "
+        f"{w0:.5f} of voxels (bound |diff| <= 0.03), median noise sd "
+        f"{nsd:.5f} / {nsd0:.5f} (bound 1%), failed voxels {bad} / {bad0} "
+        f"(bound |diff| <= {0.005 * nv:.0f}) {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def run_feature_paths(device, shape=(128, 128, 64)):
+    """Phase 4t: the slice's other features through run_with_data on
+    128x128x64 volumes, each beside its float64 run on the card:
+      ARD on biexp (all four parameters): the per-iteration route,
+          kernel 7 launched once per iteration (10) with the prior
+          precisions changing between launches; ten iterations checked
+          as phase 4c checks biexp (its float32 fixed point is chaotic
+          at ten), two iterations held to float64 (against_f64);
+      ARD on poly: the 'xla' statistics route, against float64;
+      locked-linear-from-mvn on biexp, the centres the finalMVN of
+          phase 4c's run: 'xla-generic', the share of voxels off float64
+          at most LOCKED_OFF_SHARE;
+      poly at dtype=bf16 and at engine-kernel=spectral: the 'spectral'
+          route (plain torch), against float64 (for bf16, of the
+          bf16-rounded data);
+      P=9 on 'spectral': a nine-cosine linear design (poly degree 8 takes
+          the same route, checked by its engine's route only: its
+          uncentred powers of t make float32 meaningless, ROADMAP Queue 3);
+      the linear model at fixed-design-route=direct: 'xla-direct'.
+    Returns (ok, launches)."""
+    import torch
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.options import RunOptions
+    ok, launches = True, {}
+    nv = int(np.prod(shape))
+
+    log("phase 4t: ARD on biexp (kernel 7 once per iteration)")
+    vol, clean = make_biexp_volume(shape)
+    ard = {**BIEXP_OPTIONS, "param-spatial-priors": "A+"}
+    run, res, eng, n, _ = api_run(device, ard, vol)
+    launches["fused_vb_iter"] = n.get("fused_vb_iter", 0)
+    good = (eng.route == "pallas" and eng.prior_setup.has_ard
+            and n.get("fused_vb_iter") == ITERS
+            and n.get("fused_vb_iter:staged") == ITERS
+            and set(n) == {"fused_vb_iter", "fused_vb_iter:staged"})
+    log(f" ARD biexp: route {eng.route}, kernel 7 launched "
+        f"{n.get('fused_vb_iter', 0)} times for {ITERS} iterations "
+        f"{'ok' if good else 'FAIL'}")
+    ok &= good and ard_against_plain(device, ard, vol, clean, run, res)
+    short = {**ard, "max-iterations": "2"}
+    _, r2, e2, n2, _ = api_run(device, short, vol)
+    _, r64, e64, n64, _ = api_run(device, {**short, "dtype": "double"}, vol)
+    ok &= (e2.route == "pallas" and n2.get("fused_vb_iter") == 2
+           and e64.route == "xla-generic" and not n64)
+    ok &= against_f64("ARD biexp, 2 iterations", r2, r64)
+
+    log("phase 4t: locked-linear-from-mvn on biexp, phase 4c's finalMVN")
+    run_c, _, eng_c, _, _ = api_run(device, {**BIEXP_OPTIONS,
+                                             "save-mvn": True}, vol)
+    locked = {**BIEXP_OPTIONS, "locked-linear-from-mvn": "finalMVN"}
+    extra = {"locked-linear-from-mvn": run_c.data["finalMVN"]}
+    _, rl, el, nl, _ = api_run(device, locked, vol, extra)
+    _, rl64, el64, nl64, _ = api_run(device, {**locked, "dtype": "double"},
+                                     vol, extra)
+    e_m, e_s, e_n = voxel_errors(rl, rl64)
+    with np.errstate(invalid="ignore"):
+        off = ((e_m > 1e-2) | (e_s > 1e-2) | (e_n > 1e-2) | rl.bad_voxels
+               | rl64.bad_voxels)
+    good = (eng_c.route == "pallas-loop-nl" and el.route == "xla-generic"
+            and el64.route == "xla-generic" and el.locked_linear
+            and not nl and not nl64
+            and float(off.mean()) <= LOCKED_OFF_SHARE)
+    log(f" locked biexp float32 against float64: {int(off.sum())} voxels "
+        f"off ({off.mean():.4f}; bound {LOCKED_OFF_SHARE:.4f}), failed "
+        f"{int(rl.bad_voxels.sum())} (float64 {int(rl64.bad_voxels.sum())})"
+        f" {'ok' if good else 'FAIL'}")
+    ok &= good
+    del vol, clean, run, run_c, extra
+    torch.cuda.empty_cache()
+
+    log("phase 4t: ARD on poly ('xla'), bf16 and engine-kernel=spectral "
+        "('spectral')")
+    pvol, _ = make_volume(shape, seed=SEED + 22)
+    bvol = torch.as_tensor(pvol).to(torch.bfloat16).float().numpy()
+    cases = (("ARD poly", {"param-spatial-priors": "NNA"}, pvol, "xla"),
+             ("bf16 poly", {"dtype": "bf16"}, bvol, "spectral"),
+             ("spectral poly", {"engine-kernel": "spectral"}, pvol,
+              "spectral"))
+    ref64 = {}
+    for name, extra, v, route in cases:
+        opts = {**MAIN_OPTIONS, **extra}
+        _, r32, e32, n32, _ = api_run(device, opts, v)
+        key = (id(v), extra.get("param-spatial-priors", ""))
+        if key not in ref64:
+            o64 = {**opts, "dtype": "double"}
+            o64.pop("engine-kernel", None)
+            _, ref64[key], e64, n64, _ = api_run(device, o64, v)
+            ok &= e64.route == "xla" and not n64
+        ok &= e32.route == route and not n32
+        ok &= against_f64(name, r32, ref64[key])
+    del pvol, bvol, ref64
+
+    log("phase 4t: P=9 on the spectral route, and the direct route")
+    nt9 = np.arange(NT) / NT
+    d9 = np.stack([np.ones(NT)] + [np.cos(np.pi * k * nt9)
+                                   for k in range(1, 9)], axis=1)
+    lin_shape = (128, 128, 32)
+    for name, design, extra, route in (
+            ("P=9 spectral", d9, {}, "spectral"),
+            ("linear direct", synthetic_design(),
+             {"fixed-design-route": "direct"}, "xla-direct")):
+        opts = {**MAIN_OPTIONS, "model": "linear", **extra,
+                "basis": design_file(f"design_p{design.shape[1]}.mat",
+                                     design)}
+        opts.pop("degree")
+        v = linear_volume(design, lin_shape, SEED + 23)
+        _, r32, e32, n32, _ = api_run(device, opts, v)
+        _, r64, e64, n64, _ = api_run(device, {**opts, "dtype": "double"}, v)
+        ok &= e32.route == route and e64.route in ("xla", "xla-direct")
+        ok &= not n32 and not n64
+        ok &= against_f64(name, r32, r64)
+    deg8 = RunOptions({**MAIN_OPTIONS, "degree": "8"})
+    e8 = VBInference(get_model_class("poly")(deg8), deg8,
+                     np.zeros((16, NT), np.float32), device=device)
+    good = e8.nparams == 9 and e8.route == "spectral"
+    log(f" poly degree 8: P={e8.nparams}, route {e8.route} "
+        f"{'ok' if good else 'FAIL'}")
+    return ok and good, launches
+
+
+def run_spatial_modes(device, gs_shape=(32, 32), shape=(1024, 1024, 1)):
+    """Phase 4u: the Gauss-Seidel sweep (a Python loop over the voxels)
+    at 32x32, float64 on the card against the same run on the CPU
+    (every output within 1e-9 relative, means in posterior sd); blocked
+    sweeps at 1,048,576 voxels in 4 blocks (the data plane pinned on the
+    host) against the unblocked run, float32, to roundoff (the JAX
+    package's tests/test_spatial_blocked.py bounds: means rtol 2e-4 /
+    atol 1e-5, std and noise 2e-4 relative, aK 2e-4). Returns ok."""
+    import torch
+    from fabber_core_tpu_torch.inference.spatial import SpatialVBInference
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.options import RunOptions
+
+    nx, ny = gs_shape
+    coords = np.array([[x, y, 0] for y in range(ny) for x in range(nx)],
+                      float)
+    vol = spatial_volume((nx * ny, 1, 1), SEED + 24).reshape(nx * ny, SP_NT)
+    opts = RunOptions({**SPATIAL_OPTIONS, "dtype": "double",
+                       "spatial-sweep-mode": "gauss-seidel",
+                       "max-iterations": "5"})
+    res, secs = {}, {}
+    for dev in (device, "cpu"):
+        eng = SpatialVBInference(get_model_class("poly")(opts), opts, vol,
+                                 device=dev, coords=coords)
+        t0 = time.perf_counter()
+        res[dev] = eng.run()
+        secs[dev] = time.perf_counter() - t0
+    a, b = res[device], res["cpu"]
+    sd = np.sqrt(b.cov[:, 0, 0])
+    errs = {"means/sd": float(np.max(np.abs(a.means - b.means)[:, 0] / sd)),
+            "cov": float(np.max(np.abs(a.cov / b.cov - 1))),
+            "noise": float(np.max(np.abs(a.noise_means / b.noise_means - 1))),
+            "F": float(np.max(np.abs(a.free_energy / b.free_energy - 1)))}
+    ok = max(errs.values()) <= 1e-9 and not a.bad_voxels.any()
+    log(f" gauss-seidel {nx}x{ny}, 5 sweeps, float64: card against CPU "
+        f"{errs} (bound 1e-9); {secs[device]:.2f} s on the card, "
+        f"{secs['cpu']:.2f} s on the CPU {'ok' if ok else 'FAIL'}")
+
+    vol = spatial_volume(shape, SEED + 25)
+    nv = int(np.prod(shape))
+    _, r_ref, e_ref, _, _ = api_run(device, SPATIAL_OPTIONS, vol,
+                                    cls=SpatialVBInference)
+    blk = {**SPATIAL_OPTIONS, "spatial-block-voxels": str(nv // 4)}
+    _, r_blk, e_blk, _, t_blk = api_run(device, blk, vol,
+                                        cls=SpatialVBInference)
+    e_m = np.abs(r_blk.means - r_ref.means) - 2e-4 * np.abs(r_ref.means)
+    e_s = np.abs(np.sqrt(r_blk.cov[:, 0, 0] / r_ref.cov[:, 0, 0]) - 1)
+    e_n = np.abs(r_blk.noise_means / r_ref.noise_means - 1)
+    e_ak = np.abs(e_blk.final_ak / e_ref.final_ak - 1)
+    good = (e_blk.data.device.type == "cpu" and e_blk.data.is_pinned()
+            and "blocked streaming sweeps" in e_blk.route_description()
+            and e_m.max() <= 1e-5 and e_s.max() <= 2e-4
+            and e_n.max() <= 2e-4 and e_ak.max() <= 2e-4
+            and np.array_equal(r_blk.bad_voxels, r_ref.bad_voxels))
+    log(f" blocked ({nv // 4} voxels/block, 4 blocks, {t_blk:.2f} s) "
+        f"against unblocked: means beyond rtol 2e-4 by {e_m.max():.3g} "
+        f"(bound 1e-5), std {e_s.max():.3g}, noise {e_n.max():.3g}, aK "
+        f"{e_ak.max():.3g} relative (bound 2e-4) {'ok' if good else 'FAIL'}")
+    return ok and good
+
+
+def cuda_ms(fn, reps=3):
+    """Mean device time of fn() in ms over reps calls, from CUDA events
+    (after one warm-up call)."""
+    import torch
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_busy_s(prof, name):
+    """Seconds in which the card ran a kernel, a copy or a memset in a
+    torch.profiler trace (the union of those events' intervals in its
+    chrome trace, written to chiprun_out/ and removed once read); 0 if
+    the trace holds no device event."""
+    import json as _json
+    from pathlib import Path
+    path = Path(__file__).resolve().parent / "chiprun_out" / name
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = _json.loads(path.read_text()).get("traceEvents", [])
+    path.unlink()
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and "dur" in e)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy / 1e6
+
+
+def time_spatial(device, card, nx=1024, ny=3906):
+    """Phase 5h: spatial VB at bench.py's spatial size, 3,999,744 voxels
+    on a 1024x3906 grid, for `spatial` (poly degree 0, M, T=50) and
+    `spatial-p4` (linear P=4, MMNN, T=106), the data made on the card:
+    run() wall time (best of two after a warm-up), device time per sweep
+    from CUDA events, the split of a sweep (neighbour sums, aK, priors,
+    theta and noise updates, F, the excision merge) and of _to_result,
+    each from CUDA events over its own calls, a torch.profiler trace of
+    one run() for the device's busy time (its idle share of the profiled
+    run, which the profiler's host work lengthens, and of the unprofiled
+    run() wall), and
+    torch.cuda.max_memory_allocated. Returns the figures."""
+    import torch
+    from fabber_core_tpu_torch.inference.spatial import (SpatialState,
+                                                         SpatialVBInference)
+    from fabber_core_tpu_torch.inference.vb import _lane_where
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.ops import smallmat as sm
+    from fabber_core_tpu_torch.options import RunOptions
+
+    nv = nx * ny
+    coords = np.stack([np.tile(np.arange(nx), ny),
+                       np.repeat(np.arange(ny), nx), np.zeros(nv)], 1)
+    gen = torch.Generator(device=device)
+    figs = {}
+    design = synthetic_design()
+    for cell in ("spatial", "spatial-p4"):
+        gen.manual_seed(SEED + 26)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if cell == "spatial":
+            opts = dict(SPATIAL_OPTIONS)
+            plane = (torch.rand((1, nv), generator=gen, device=device) * 2
+                     + 3) + 0.5 * torch.randn((SP_NT, nv), generator=gen,
+                                              device=device)
+        else:
+            opts = {**SPATIAL_OPTIONS, "model": "linear",
+                    "basis": design_file("spatial_p4_design.mat", design),
+                    "param-spatial-priors": "MMNN"}
+            opts.pop("degree")
+            plane, _ = gen_plane(design, nv, gen, [1.0] * 4, 0.1, device)
+        opts = RunOptions(opts)
+        eng = SpatialVBInference(
+            get_model_class(opts.get_string("model"))(opts), opts, None,
+            data_plane=plane, device=device, coords=coords)
+        eng.run()                       # warm-up
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+
+        # the sweep and its parts, on the state after one sweep
+        base = eng.initial_state()
+        s = SpatialState(post=base.post, centre=base.centre, f=base.f,
+                         ak=torch.full((len(eng.spatial_params),), 1e-8,
+                                       dtype=eng.dtype, device=device),
+                         bad=torch.zeros(nv, dtype=torch.bool,
+                                         device=device))
+        stats = eng.noise.make_design_stats(eng._design_tensor(), eng.data)
+        planes = eng._planes()
+        s = eng._sweep(0, s, planes, stats)
+        post, active = s.post, ~s.bad
+        nsums = eng._neighbour_sums(post.means, active)
+        ak = eng._calculate_ak(post.means, sm.diag_of(post.cov), active,
+                               nsums)
+
+        def priors():
+            pm, pp, _ = eng.prior_setup.apply(
+                post.prior_means, post.prior_prec, post.means,
+                sm.diag_of(post.cov), 1, base_means=planes.base_means)
+            return eng._apply_spatial_priors(pm, pp, ak, nsums)
+        pm, pp = priors()
+        th = eng.noise.update_theta_stats(post.noise, pm, pp, stats)
+        nz = eng.noise.update_noise_stats(post.noise, eng.noise_prior, th[0],
+                                          th[2], stats)
+
+        def merge():
+            finite = (torch.isfinite(th[0]).all(dim=0)
+                      & torch.isfinite(th[2]).all(dim=0).all(dim=0))
+            bad = s.bad | ~finite
+            return _lane_where(~bad, s._replace(ak=None, bad=None),
+                               s._replace(ak=None, bad=None)), bad
+        parts = {
+            "sweep": lambda: eng._sweep(1, s, planes, stats, skip_f=True),
+            "sweep_with_f": lambda: eng._sweep(1, s, planes, stats),
+            "neighbour_sums": lambda: eng._neighbour_sums(post.means,
+                                                          active),
+            "ak": lambda: eng._calculate_ak(post.means, sm.diag_of(post.cov),
+                                            active, nsums),
+            "priors": priors,
+            "theta": lambda: eng.noise.update_theta_stats(post.noise, pm, pp,
+                                                          stats),
+            "noise": lambda: eng.noise.update_noise_stats(
+                post.noise, eng.noise_prior, th[0], th[2], stats),
+            "free_energy": lambda: eng.noise.free_energy_stats(
+                nz, eng.noise_prior, th[0], th[1], th[2], pm, pp, stats),
+            "excision_merge": merge,
+            "statistics": lambda: eng.noise.make_design_stats(
+                eng._design_tensor(), eng.data)}
+        ms = {k: cuda_ms(fn) for k, fn in parts.items()}
+        from fabber_core_tpu_torch.inference.vb import VBLoopState
+        conv = eng.detector.init_state(nv, eng.dtype, device=device)
+        final = VBLoopState(it=ITERS, post=post, centre=s.centre, f=s.f,
+                            fprior=s.f, conv=conv)
+        t0 = time.perf_counter()
+        eng._to_result(final)
+        ms["to_result_host"] = (time.perf_counter() - t0) * 1e3
+        del parts, th, nz, pm, pp, nsums, stats, s, post, base
+
+        # the device's busy share over one run()
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.run()
+            torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+        busy = device_busy_s(prof, f"trace_{cell}.json")
+        p, t = eng.nparams, eng.nt
+        f = {"voxels": nv, "T": t, "P": p, "wall_s": min(walls),
+             "walls_s": walls, "sweep_ms": ms["sweep"],
+             "sweep_with_f_ms": ms["sweep_with_f"], "parts_ms": ms,
+             "device_busy_s": busy, "profiled_wall_s": wall_prof,
+             "idle_share": 1.0 - busy / wall_prof,
+             "idle_share_of_unprofiled_run": 1.0 - busy / min(walls),
+             "max_memory_allocated": peak,
+             "data_bytes": t * nv * 4,
+             "route": eng.route_description(), "card": card}
+        log(f" phase 5h {cell}: {nv} voxels x T={t}, P={p} ({card}): run() "
+            f"{min(walls):.3f} s (runs {[round(w, 3) for w in walls]}); "
+            f"sweep {ms['sweep']:.3f} ms device ({ms['sweep_with_f']:.3f} "
+            f"with F); parts ms "
+            f"{ {k: round(v, 3) for k, v in ms.items()} }; device busy "
+            f"{busy:.3f} s of {wall_prof:.3f} s profiled (idle share "
+            f"{1 - busy / wall_prof:.3f}; of the unprofiled run() "
+            f"{1 - busy / min(walls):.3f}); max_memory_allocated "
+            f"{peak / 1e9:.3f} GB; data plane {t * nv * 4 / 1e9:.3f} GB")
+        figs[cell] = f
+        del eng, plane, prof
+    import json as _json
+    from pathlib import Path
+    out = Path(__file__).resolve().parent / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "spatial_5h.json").write_text(_json.dumps(figs, indent=1,
+                                                     default=str))
+    return figs
+
+
 def main():
     try:
         import torch
@@ -3718,6 +4262,18 @@ def main():
     launches.update(ar_launches)
     ok4q, gen_launches = run_plugin_paths(device)
     launches.update(gen_launches)
+    log("phase 4r: run_with_data, method=spatialvb, 1024x1024 x 50, poly "
+        "degree 0, an M prior")
+    ok4r = run_spatial_path(device)
+    log("phase 4s: run_with_data, method=spatialvb, linear P=4 MMNN "
+        "(1024x1024 x 106) and MPmp (256x256)")
+    ok4s = run_spatial_p4_paths(device)
+    ok4t, feat_launches = run_feature_paths(device)
+    log(f" kernel 7 launches: phase 4e {launches['fused_vb_iter']}, phase 4t "
+        f"(ARD) {feat_launches['fused_vb_iter']}")
+    launches["fused_vb_iter"] += feat_launches["fused_vb_iter"]
+    log("phase 4u: spatial sweep modes: gauss-seidel, blocked")
+    ok4u = run_spatial_modes(device)
 
     # phase 5: timing at the headline sizes
     log("phase 5: timing at 16,777,216 voxels")
@@ -3735,6 +4291,8 @@ def main():
     log("phase 5g: the generated functors' kernel at 4,000,000 biexp "
         "voxels")
     fig_gen = time_generic(device, card)
+    log("phase 5h: spatial VB at 3,999,744 voxels (1024x3906)")
+    time_spatial(device, card)
 
     phases = {"kernels": ok3, "nl_kernels": ok3b, "detector_kernels": ok3c,
               "main_path": ok4, "engine_vs_f64": ok4b, "biexp_path": ok4c,
@@ -3746,6 +4304,8 @@ def main():
               "nlls_vb_flow": ok4n, "nlls_linear_path": ok4o,
               "ar_kernels": ok3f, "ar_paths": ok4p, "generic_kernels": ok3g,
               "plugin_paths": ok4q, "nlls_forms_bit_identical": ok5e,
+              "spatial_path": ok4r, "spatial_p4_paths": ok4s,
+              "feature_paths": ok4t, "spatial_modes": ok4u,
               "vb_iter_forms_bit_identical":
                   fig_nl["vb_iter_staged_bits_equal_streamed"],
               "whole_forms_bit_identical": fig_fd["whole_forms_bit_identical"],

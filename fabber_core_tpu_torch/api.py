@@ -16,6 +16,7 @@ from .core.volume import VolumeGeometry, VoxelDataStore
 from .easylog import EasyLog
 from .exceptions import FabberError
 from .inference.nlls import NLLSInference
+from .inference.spatial import SpatialVBInference
 from .inference.vb import VBInference
 from .models import get_model_class, known_models, resolve_parameters
 from .models.base import EvalContext
@@ -48,7 +49,7 @@ class FabberTpu:
         return known_models()
 
     def get_methods(self):
-        return ["vb", "nlls"]
+        return ["vb", "spatialvb", "nlls"]
 
     def get_options(self, method=None, model=None):
         """Returns (list of option dicts, description string)."""
@@ -58,6 +59,9 @@ class FabberTpu:
         elif method == "vb":
             specs, desc = VBInference.get_options(), \
                 "Variational Bayes inference technique"
+        elif method == "spatialvb":
+            specs, desc = SpatialVBInference.get_options(), \
+                "Spatial Variational Bayes inference technique"
         elif method == "nlls":
             specs, desc = NLLSInference.get_options(), \
                 "Non-linear least squares inference technique"

@@ -1,5 +1,5 @@
 """Command-line interface — the `fabber` executable equivalent, for
-method=vb and method=nlls.
+method=vb, method=spatialvb and method=nlls.
 
 Port of fabber_core_tpu/cli.py (fabber_core.cc:88-323): option parsing
 with --key=value / -f optfile, the help/list/evaluate fast paths, NIFTI
@@ -96,7 +96,7 @@ def print_usage(options):
     elif options.have("method"):
         method = options.get_string("method")
         opts, desc = fab.get_options(method=method)
-        if method == "vb":
+        if method in ("vb", "spatialvb"):
             # the noise models' options (--noise=...) belong to VB's
             opts = opts + [
                 {"name": s.name, "description": f"({name} noise) "

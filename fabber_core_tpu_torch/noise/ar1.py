@@ -364,6 +364,14 @@ class Ar1NoiseModel(NoiseModel):
             tr[sk] = t
         return kmk, tr
 
+    @staticmethod
+    def design_stats_voxel(stats, v):
+        """Voxel v's slice of the statistics ([..., 1] planes; the
+        Gauss-Seidel sweep's per-voxel update)."""
+        return Ar1DesignStats(m0=stats.m0[:, v:v + 1],
+                              rmr=stats.rmr[:, v:v + 1],
+                              dmr=stats.dmr[..., v:v + 1], dmd=stats.dmd)
+
     def update_theta_stats(self, noise_post, prior_means, prior_prec,
                            stats, lm_alpha=None, centre=None):
         """Eq 19/20 from the statistics (update_theta's arithmetic up to

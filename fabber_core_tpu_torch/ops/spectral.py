@@ -24,7 +24,12 @@ rationals per voxel:
 The eigendecomposition of the P x P constant runs in float64 numpy on
 the host. make_spectral_loop below is the plain-torch algebraic
 reference for the core CUDA kernel (ops/fused_spectral.py
-spectral_core): same algebra, torch matmuls for the rotations.
+spectral_core): same algebra, torch matmuls for the rotations. With
+make_spectral_detector_loop (the F-based detectors) it also carries the
+engine's `spectral` route, which the JAX package runs in XLA with no
+Pallas kernel: the route's runs are those the core kernel's gate
+refuses (bf16 storage, P above its instances, a design too long for
+shared memory) or engine-kernel=spectral asks for.
 """
 
 import math
@@ -138,3 +143,40 @@ def eigen_elbo_const(qmask_host, c_post, c0, b0, p):
             + 0.5 * float(_digamma(cpost_f))
             - float(_gammaln(float(c0)))
             - float(c0) * math.log(float(b0)))
+
+
+def make_spectral_detector_loop(design_host, qmask_host, pp_host, detector,
+                                max_iter_cap, init_b, init_c, inv_b0,
+                                c_post, b0, c0):
+    """The spectral fixed point under an F-based detector (pointzeroone
+    / freduce / trialmode), fabber_core_tpu/ops/spectral.py
+    make_spectral_detector_loop: the detector's lane state machines run
+    on the eigenbasis ELBO inside the loop, each lane's save/revert
+    state being the phi that generated its posterior. The algebra and
+    the loop are the core kernel's detector mode, whose plain version
+    (ops/fused_spectral.py spectral_core_plain) runs here on the
+    statistics the caller made.
+
+    Returns fn(m0 [P,V], rtqr [1,V], dtqr [P,V], pm [P,V]) ->
+    (means [P,V], prec [P,P,V], cov [P,P,V], b [1,V], sel_init [V]
+    bool, its [V] int32): lanes with sel_init select the engine's
+    initial posterior, which is off the spectral manifold, and must be
+    restored by the caller.
+    """
+    from .fused_spectral import pack_spectral_consts, spectral_core_plain
+    design = np.asarray(design_host, np.float64)
+    nt, p = design.shape
+    elbo_extra = (eigen_elbo_const(qmask_host, c_post, c0, b0, p),
+                  float(c_post) + 0.5)
+    consts = pack_spectral_consts(design, qmask_host, nt, pp_host, inv_b0,
+                                  c_post, init_b, init_c, torch.float64,
+                                  elbo_extra)
+
+    def run(m0, rtqr, dtqr, pm):
+        means, prec, cov, b, _, _, its = spectral_core_plain(
+            m0, rtqr.reshape(1, -1), dtqr, pm, consts, max_iter_cap,
+            detector)
+        return (means, prec, cov, torch.abs(b), b[0] < 0,
+                its[0].to(torch.int32))
+
+    return run

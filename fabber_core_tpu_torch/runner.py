@@ -1,7 +1,8 @@
 """Run orchestration: options + voxel data -> inference -> outputs.
 
-Port of fabber_core_tpu/runner.py for method=vb and method=nlls
-(FabberRunData::Run + InferenceTechnique::SaveResults,
+Port of fabber_core_tpu/runner.py for method=vb, method=spatialvb (also
+reached through spatial prior types) and method=nlls (FabberRunData::Run
++ InferenceTechnique::SaveResults,
 rundata.cc:248-311, inference.cc:112-281): creates the model, resolves
 parameters, loads a previous run's MVN (continue-from-mvn, merged by
 name under continue-from-params), runs the engine on the requested
@@ -20,6 +21,7 @@ import numpy as np
 from .easylog import EasyLog
 from .exceptions import FabberError, BadVoxelError
 from .inference.nlls import NLLSInference
+from .inference.spatial import SpatialVBInference
 from .inference.vb import VBInference, VBResult
 from .io import mvn as mvn_io
 from .models import (get_model_class, load_models_from_file,
@@ -27,9 +29,8 @@ from .models import (get_model_class, load_models_from_file,
 from .models.base import SPATIAL_PRIOR_TYPES
 from .version import __version__
 
-# methods and run modes of the JAX runner the port does not have yet
+# run modes of the JAX runner the port does not have yet
 _UNPORTED = {
-    "spatialvb": "ROADMAP Queue 1 item 16",
     "shard-voxels": "ROADMAP Queue 1 item 18",
     "distributed": "ROADMAP Queue 1 item 18",
 }
@@ -83,10 +84,7 @@ def run(options, store, log=None, progress_cb=None, device="cuda"):
     log.log(f"Data size = {nt} timepoints by {nvoxels} voxels")
 
     method = options.get_string("method")
-    spatial = method == "vb" and is_spatial(options, params)
-    if method in _UNPORTED or spatial:
-        raise _not_ported(method if method in _UNPORTED else "spatialvb")
-    if method not in ("vb", "nlls"):
+    if method not in ("vb", "spatialvb", "nlls"):
         raise FabberError(f"Unrecognized inference method: {method}")
     for mode in ("shard-voxels", "distributed"):
         if options.get_bool(mode):
@@ -113,13 +111,25 @@ def run(options, store, log=None, progress_cb=None, device="cuda"):
         log.log(f"NLLS::Engine route: {engine.route_description()}")
         result = engine.run()
     else:
-        engine = VBInference(model, options, data, voxel_data_getter=getter,
-                             device=device, coords=coords,
-                             continued=cont_means is not None,
-                             suppdata=suppdata)
+        engine_cls = VBInference
+        if is_spatial(options, params):
+            engine_cls = SpatialVBInference
+            if options.get_bool("save-free-energy-history"):
+                log.warn("save-free-energy-history is a voxelwise-mode "
+                         "output; the spatial loop does not record "
+                         "per-iteration history")
+        engine = engine_cls(model, options, data, voxel_data_getter=getter,
+                            device=device, coords=coords,
+                            continued=cont_means is not None,
+                            suppdata=suppdata)
         engine.progress_cb = progress_cb
         log.log(f"Vb::Engine route: {engine.route_description()}")
         result = _run_vb(engine, options, params, cont_means, cont_cov, log)
+        # Penny-2005 diagnostic, logged as the reference does
+        # (inference_vb.cc:753-755)
+        for k, val in enumerate(getattr(engine, "coefficient_resels", ())):
+            log.log(f"Vb::Coefficient resels per voxel for param "
+                    f"{k + 1}: {val:.6g}")
 
     if result.bad_voxels.any():
         n = int(result.bad_voxels.sum())

@@ -96,7 +96,8 @@ def test_final_mvn_matches_jax(runs):
 def test_api_introspection():
     fab = FabberTpu(device="cpu")
     assert "poly" in fab.get_models()
-    assert fab.get_methods() == ["vb", "nlls"]
+    assert fab.get_methods() == JFabber().get_methods() == \
+        ["vb", "spatialvb", "nlls"]
     assert fab.get_model_params({"model": "poly", "degree": "2"}) == \
         ["c0", "c1", "c2"]
     opts, _ = fab.get_options(method="vb")
@@ -114,14 +115,31 @@ def test_api_introspection():
 
 @pytest.mark.parametrize("method,extra,what", [
     ("nlls", {"shard-voxels": True}, "shard-voxels"),
-    ("spatialvb", {}, "spatialvb")], ids=["nlls", "spatialvb"])
+    ("spatialvb", {"distributed": True}, "distributed")],
+    ids=["nlls", "spatialvb"])
 def test_unported_methods_raise(method, extra, what):
-    """spatialvb, and the multi-device modes of every method (nlls's
-    run itself is ported: see the NLLS tests below)."""
+    """The multi-device modes of every method (the runs themselves are
+    ported: see the NLLS tests below, and the spatialvb one)."""
     with pytest.raises(NotImplementedError, match=what):
         FabberTpu(device="cpu").run_with_data(
             {**OPTS, "method": method, **extra},
             {"data": phantom((2, 2, 1))})
+
+
+def test_spatialvb_run_matches_jax():
+    """method=spatialvb (which used to raise) through run_with_data,
+    with an M prior on c0, at float64 against the JAX API: every output
+    within 1e-6 relative after the API's float32 cast."""
+    opts = {**OPTS, "method": "spatialvb", "dtype": "double",
+            "param-spatial-priors": "MNN", "max-iterations": "5"}
+    vol = phantom((4, 3, 2), seed=5)
+    tr = FabberTpu(device="cpu").run_with_data(opts, {"data": vol})
+    jr = JFabber().run_with_data(opts, {"data": vol})
+    assert sorted(tr.data) == sorted(jr.data)
+    for key in jr.data:
+        np.testing.assert_allclose(tr.data[key], jr.data[key], rtol=1e-6,
+                                   atol=1e-6 * np.abs(jr.data[key]).max(),
+                                   err_msg=key)
 
 
 def test_api_cuda_without_card_raises(monkeypatch):

@@ -1972,3 +1972,121 @@ def test_time_signal_plugin_routes_on_card(cuda, port_registry):
     opts = RunOptions({**base, "engine-kernel": "pallas"})
     with pytest.raises(NotImplementedError, match="Queue 1 item 19"):
         VBInference(get_model_class("myexp")(opts), opts, data, device=cuda)
+
+
+# -- spatial VB and ARD on the card --------------------------------------
+
+def spatial_grid(nx, ny, nz):
+    return np.array([[x, y, z] for z in range(nz) for y in range(ny)
+                     for x in range(nx)], float)
+
+
+def spatial_engine(device, extra, data, coords):
+    from fabber_core_tpu_torch.inference.spatial import SpatialVBInference
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.options import RunOptions
+    opts = RunOptions({"model": "poly", "degree": "1", "noise": "white",
+                       "method": "spatialvb", "max-iterations": "6",
+                       "print-free-energy": True, **extra})
+    return SpatialVBInference(get_model_class("poly")(opts), opts, data,
+                              device=device, coords=coords)
+
+
+def spatial_data(coords, nt=14, seed=0):
+    rng = np.random.default_rng(seed)
+    t = np.arange(1, nt + 1, dtype=float)
+    truth = 1.0 + 0.1 * coords[:, 0] - 0.05 * coords[:, 1]
+    return (truth[:, None] * (1.0 + 0.02 * t[None, :])
+            + 0.05 * rng.standard_normal((len(coords), nt))
+            ).astype(np.float32)
+
+
+@pytest.mark.parametrize("stencil", ["dense", "gather"])
+@pytest.mark.parametrize("priors", ["MP", "mp"])
+def test_spatial_engine_on_card_matches_cpu(cuda, priors, stencil):
+    """Spatial VB (plain torch) on the card against the same run on the
+    CPU at float64: every output, aK and the resels within 1e-9
+    relative (means in posterior sd)."""
+    coords = spatial_grid(16, 12, 3)
+    data = spatial_data(coords)
+    extra = {"param-spatial-priors": priors, "dtype": "double",
+             "spatial-stencil": stencil}
+    res, engs = {}, {}
+    for dev in ("cuda", "cpu"):
+        engs[dev] = spatial_engine(dev, extra, data, coords)
+        res[dev] = engs[dev].run()
+    a, b = res["cuda"], res["cpu"]
+    sd = np.sqrt(np.diagonal(b.cov, axis1=1, axis2=2))
+    assert np.max(np.abs(a.means - b.means) / sd) <= 1e-9
+    np.testing.assert_allclose(a.cov, b.cov, rtol=1e-9,
+                               atol=1e-9 * np.abs(b.cov).max())
+    np.testing.assert_allclose(a.noise_means, b.noise_means, rtol=1e-9)
+    np.testing.assert_allclose(a.free_energy, b.free_energy, rtol=1e-9)
+    np.testing.assert_allclose(engs["cuda"].final_ak, engs["cpu"].final_ak,
+                               rtol=1e-9)
+    np.testing.assert_allclose(engs["cuda"].coefficient_resels,
+                               engs["cpu"].coefficient_resels, rtol=1e-9)
+
+
+def test_spatial_blocked_on_card_equals_unblocked(cuda):
+    """Blocked sweeps on the card (the data pinned on the host, blocks
+    of 1,000 voxels shipped per sweep) against the unblocked run, float32,
+    to roundoff: the JAX package's tests/test_spatial_blocked.py bounds."""
+    coords = spatial_grid(32, 32, 4)
+    data = spatial_data(coords, seed=3)
+    extra = {"param-spatial-priors": "MN", "dtype": "single"}
+    e_ref = spatial_engine("cuda", extra, data, coords)
+    r_ref = e_ref.run()
+    e_blk = spatial_engine("cuda", {**extra, "spatial-block-voxels": "1000"},
+                           data, coords)
+    assert e_blk.data.device.type == "cpu" and e_blk.data.is_pinned()
+    r_blk = e_blk.run()
+    np.testing.assert_allclose(r_blk.means, r_ref.means, rtol=2e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(r_blk.cov, r_ref.cov, rtol=2e-4, atol=1e-6)
+    np.testing.assert_allclose(r_blk.noise_means, r_ref.noise_means,
+                               rtol=2e-4)
+    np.testing.assert_allclose(e_blk.final_ak, e_ref.final_ak, rtol=2e-4)
+    np.testing.assert_array_equal(r_blk.bad_voxels, r_ref.bad_voxels)
+
+
+def test_ard_kernel7_matches_plain_over_ten_iterations(cuda, monkeypatch):
+    """ARD on every exp parameter takes the per-iteration route: kernel 7
+    once per iteration, the prior precisions changing between launches.
+    Ten iterations against the same run with kernel 7's plain version in
+    its place, on the card: means within 5e-3 posterior sd, noise rtol
+    2e-3, F rtol 1e-4 / atol 2e-3 (tests/test_torch_nl_engine.py's exp
+    bounds)."""
+    from fabber_core_tpu_torch.inference import vb as vbm
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    from fabber_core_tpu_torch.options import RunOptions
+    rng = np.random.default_rng(31)
+    t = np.arange(24) * 0.05
+    data = (rng.uniform(0.5, 2.0, (20_000, 1)) * np.exp(-t)[None, :]
+            + rng.normal(0, 0.05, (20_000, 24))).astype(np.float32)
+    opts = RunOptions({"model": "exp", "dt": "0.05", "noise": "white",
+                       "max-iterations": "10", "dtype": "single",
+                       "param-spatial-priors": "A+",
+                       "save-free-energy": True})
+
+    def run():
+        eng = vbm.VBInference(get_model_class("exp")(opts), opts, data,
+                              device="cuda")
+        assert eng.route == "pallas" and eng.prior_setup.has_ard
+        return eng.run()
+    before = fv.fused_iteration.launches
+    rk = run()
+    assert fv.fused_iteration.launches == before + 10
+
+    def plain(model, transforms, *args):
+        return fv.fused_iteration_plain(fv.signal_jac_fn(model), transforms,
+                                        *args)
+    monkeypatch.setattr(vbm, "fused_iteration", plain)
+    rp = run()
+    sd = np.sqrt(np.diagonal(rp.cov, axis1=1, axis2=2))
+    assert np.max(np.abs(rk.means - rp.means) / sd) < 5e-3
+    np.testing.assert_allclose(rk.noise_means, rp.noise_means, rtol=2e-3)
+    np.testing.assert_allclose(rk.free_energy, rp.free_energy, rtol=1e-4,
+                               atol=2e-3)
+    np.testing.assert_array_equal(rk.bad_voxels, rp.bad_voxels)

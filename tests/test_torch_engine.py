@@ -9,9 +9,16 @@ move poly off the fixed-design route (engine-kernel=pallas,
 linearization=fd, a non-identity transform) run the nonlinear routes
 and are held to the same tolerances; so are the F-based detectors
 (pointzeroone, freduce, trialmode) on the spectral-whole route, whose
-core kernel runs them in-kernel. Also: every route gate the port does
-not serve yet raises NotImplementedError naming its route. The
-fixed-design statistics routes (xla, pallas-whole, pallas-loop,
+core kernel runs them in-kernel. The route gates the port used to
+refuse (bf16 storage, engine-kernel=spectral, P above the spectral
+kernels' instances, ARD priors, spatial priors, locked linearization
+centres, fixed-design-route=direct) run and are held to the JAX route of
+the same name at the same tolerances (spatial priors through
+SpatialVBInference; biexp at a two-iteration horizon, its float32 fixed
+point being chaotic further out); the two it still refuses
+(motion correction, the likelihood-only output) raise
+NotImplementedError naming their route. The fixed-design statistics
+routes (xla, pallas-whole, pallas-loop,
 spectral-fused, spectral-xstats), lm on a fixed-design model and the
 linear model are held to the JAX engine in test_torch_stats_engine.py.
 """
@@ -20,12 +27,15 @@ import numpy as np
 import pytest
 import torch
 
+from fabber_core_tpu.inference.spatial import SpatialVBInference as JSVB
 from fabber_core_tpu.inference.vb import VBInference as JVB
 from fabber_core_tpu.models import get_model_class as jmodel
 from fabber_core_tpu.options import RunOptions as JOptions
 from fabber_core_tpu_torch.convert import posterior_from_numpy, to_numpy
 from fabber_core_tpu_torch.exceptions import InvalidOptionValue
+from fabber_core_tpu_torch.inference.spatial import SpatialVBInference
 from fabber_core_tpu_torch.inference.vb import ROUTES, VBInference, VBResult
+from fabber_core_tpu_torch.io import matfile, mvn
 from fabber_core_tpu_torch.models import get_model_class
 from fabber_core_tpu_torch.options import RunOptions
 
@@ -46,7 +56,7 @@ def make_data(nv, nt=30, seed=0):
 
 
 def run_jax(data, mode, extra=None, getter=None):
-    opts = JOptions({**BASE, "engine-kernel": mode, **(extra or {})})
+    opts = JOptions({**BASE, **(extra or {}), "engine-kernel": mode})
     nv = data.shape[0]
     coords = np.stack([np.arange(nv), np.zeros(nv), np.zeros(nv)], 1)
     eng = JVB(jmodel("poly")(opts), opts, data, coords,
@@ -120,16 +130,91 @@ def test_engine_cases_match_jax_xla(extra, tmp_path):
 
 
 GATES = [
-    ({"dtype": "bf16"}, "spectral"),
-    ({"engine-kernel": "spectral"}, "spectral"),
-    ({"param-spatial-priors": "A"}, "ard-priors"),
-    ({"param-spatial-priors": "M"}, "spatial-priors"),
-    ({"locked-linear-from-mvn": "m.nii.gz"}, "locked-linear"),
-    ({"fixed-design-route": "direct"}, "xla-direct"),
     ({"mcsteps": "1"}, "motion-correction"),
     ({"spatial-prior-output-correction": True}, "noprior-output"),
-    ({"degree": "8"}, "spectral"),
 ]
+
+
+def locked_mvn(nv, p, seed=11):
+    """An MVN data key ([V, rows], voxel-major as the data store holds
+    it) whose latent means are the fixed linearization centres."""
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(0.5, 1.5, (nv, p + 1))
+    cov = np.broadcast_to(np.eye(p + 1), (nv, p + 1, p + 1))
+    return mvn.pack(means, cov).T
+
+
+# gates that used to raise, each now held to the JAX engine's route of
+# the same name (port route, JAX engine-kernel): the pure-XLA spectral
+# route at bf16 storage and at engine-kernel=spectral, an ARD prior on
+# the last parameter (voxelwise mode keeps the last prior's F term),
+# fixed linearization centres (on a fixed design they move nothing but
+# the route), spatial priors through the spatial engine (its Jacobi
+# sweep), the direct route
+ROUTE_GATES = [
+    ({"dtype": "bf16"}, "spectral", "spectral"),
+    ({"engine-kernel": "spectral"}, "spectral", "spectral"),
+    ({"param-spatial-priors": "NNA"}, "xla", "xla"),
+    ({"param-spatial-priors": "M"}, "spatial", "auto"),
+    ({"locked-linear-from-mvn": "m.nii.gz"}, "xla", "xla"),
+    ({"fixed-design-route": "direct"}, "xla-direct", "xla"),
+]
+
+
+@pytest.mark.parametrize("extra,route,jmode", ROUTE_GATES,
+                         ids=[r + ":" + ",".join(e)
+                              for e, r, _ in ROUTE_GATES])
+def test_former_route_gate_matches_jax(extra, route, jmode):
+    nv = 128
+    data = make_data(nv, seed=9)
+    mvn_key = locked_mvn(nv, 3)
+
+    def getter(key):
+        return mvn_key
+    if route == "spatial":
+        coords = np.stack([np.arange(nv) % 16, np.arange(nv) // 16,
+                           np.zeros(nv)], 1)
+        opts = {**BASE, "spatial-dims": "2", **extra}
+        jo = JOptions(opts)
+        rx = JSVB(jmodel("poly")(jo), jo, data, coords).run()
+        po = RunOptions(opts)
+        eng = SpatialVBInference(get_model_class("poly")(po), po, data,
+                                 device="cpu", coords=coords)
+        assert eng.route == route
+        assert_match(rx, eng.run())
+        return
+    rp = run_port(data, extra, getter, route=route)
+    assert_match(run_jax(data, jmode, extra, getter), rp)
+
+
+def test_parameters_above_the_spectral_kernels_take_spectral(tmp_path):
+    """P above the spectral kernels' instances (MAX_P = 8) takes the
+    plain spectral route: a well-conditioned P=9 linear design against
+    the JAX spectral route. (Poly degree 8, the same gate, is not
+    compared: its uncentred powers of t make the float32 fixed point
+    meaningless in both packages, ROADMAP Queue 3.)"""
+    nt, nv = 30, 128
+    t = np.arange(nt) / nt
+    design = np.stack([np.ones(nt)] + [np.cos(np.pi * k * t)
+                                       for k in range(1, 9)], axis=1)
+    path = str(tmp_path / "design9.mat")
+    matfile.write_vest(design, path)
+    rng = np.random.default_rng(10)
+    data = (rng.uniform(-1, 1, (nv, 9)) @ design.T
+            + 0.1 * rng.standard_normal((nv, nt))).astype(np.float32)
+    extra = {"model": "linear", "basis": path}
+    opts = RunOptions({**BASE, **extra})
+    eng = VBInference(get_model_class("linear")(opts), opts, data,
+                      device="cpu")
+    assert eng.nparams == 9 and eng.route == "spectral"
+    rp = eng.run()
+    jo = JOptions({**BASE, **extra, "engine-kernel": "spectral"})
+    je = JVB(jmodel("linear")(jo), jo, data, np.zeros((nv, 3)))
+    assert je.use_spectral
+    assert_match(je.run(), rp)
+    deg8 = RunOptions({**BASE, "degree": "8"})
+    assert VBInference(get_model_class("poly")(deg8), deg8, make_data(16),
+                       device="cpu").route == "spectral"
 
 
 # gates that used to raise: each now runs a nonlinear route of the port,
@@ -159,21 +244,83 @@ def test_former_gate_runs_and_matches_jax(extra, route, jmode):
     assert_match(rx, run_port(data, extra, lambda key: img, route=route))
 
 
+def biexp_data(nv, nt=30, seed=12):
+    rng = np.random.default_rng(seed)
+    t = np.arange(nt) * 0.1
+    return (rng.uniform(1.0, 2.0, (nv, 1)) * np.exp(-1.0 * t)[None, :]
+            + rng.uniform(1.0, 2.0, (nv, 1)) * np.exp(-8.0 * t)[None, :]
+            + rng.normal(0, 0.02, (nv, nt))).astype(np.float32)
+
+
+# the biexp runs that used to raise: ARD on every parameter through the
+# per-iteration kernel's plain version (JAX: engine-kernel=pallas,
+# interpreted) at float32; an M prior (the spatial sweep's generic
+# route) and fixed linearization centres (xla-generic) at float64
 NONLINEAR_GATES = [
-    ("biexp", {"param-spatial-priors": "A"}, "'ard-priors'"),
-    ("biexp", {"param-spatial-priors": "M"}, "'spatial-priors'"),
-    ("biexp", {"locked-linear-from-mvn": "m.nii.gz"}, "'locked-linear'"),
+    ({"param-spatial-priors": "A+"}, "pallas", "pallas"),
+    ({"param-spatial-priors": "MN", "dtype": "double"}, "spatial", "auto"),
+    ({"locked-linear-from-mvn": "m.nii.gz", "dtype": "double"},
+     "xla-generic", "xla"),
 ]
 
 
-@pytest.mark.parametrize("model,extra,match", NONLINEAR_GATES,
-                         ids=[m + ":" + ",".join(e)
-                              for m, e, _ in NONLINEAR_GATES])
-def test_nonlinear_family_refusals(model, extra, match):
-    opts = RunOptions({**BASE, "model": model, "dt": "0.1", **extra})
-    with pytest.raises(NotImplementedError, match=match):
-        VBInference(get_model_class(model)(opts), opts, make_data(16),
-                    device="cpu")
+@pytest.mark.parametrize("extra,route,jmode", NONLINEAR_GATES,
+                         ids=["biexp:" + ",".join(e)
+                              for e, _, _ in NONLINEAR_GATES])
+def test_nonlinear_family_former_refusals_match_jax(extra, route, jmode):
+    """Two iterations (biexp's float32 fixed point is chaotic further
+    out, ROADMAP Queue 3 item 7): float32 at this file's tolerances,
+    float64 to 1e-9 relative (means in posterior sd)."""
+    nv = 96
+    data = biexp_data(nv)
+    if extra.get("dtype") == "double":
+        data = data.astype(np.float64)
+    centres = locked_mvn(nv, 4, seed=13)
+    opts = {**BASE, "model": "biexp", "dt": "0.1", "max-iterations": "2",
+            **extra}
+    coords = np.stack([np.arange(nv) % 12, np.arange(nv) // 12,
+                       np.zeros(nv)], 1)
+    jo, po = JOptions({**opts, "engine-kernel": jmode}), RunOptions(opts)
+    jcls, pcls = (JSVB, SpatialVBInference) if route == "spatial" \
+        else (JVB, VBInference)
+    je = jcls(jmodel("biexp")(jo), jo, data, coords,
+              voxel_data_getter=lambda key: centres)
+    eng = pcls(get_model_class("biexp")(po), po, data, device="cpu",
+               coords=coords, voxel_data_getter=lambda key: centres)
+    assert eng.route == route
+    rx, rp = je.run(), eng.run()
+    if extra.get("dtype") != "double":
+        assert je.use_fused
+        assert_match(rx, rp)
+        return
+    sd = np.sqrt(np.diagonal(rx.cov, axis1=1, axis2=2))
+    assert np.max(np.abs(rx.means - rp.means) / sd) < 1e-9
+    np.testing.assert_allclose(rp.noise_means, rx.noise_means, rtol=1e-9)
+    np.testing.assert_allclose(rp.free_energy, rx.free_energy, rtol=1e-9)
+
+
+@pytest.mark.parametrize("model,route", [("biexp", "pallas"),
+                                         ("poly", "xla")])
+def test_ard_takes_the_jax_route(model, route, monkeypatch):
+    """An ARD run takes the route the JAX gates give it, auto as on the
+    TPU: the whole-loop and whole-program gates exclude ARD
+    (vb.py:415, 641), the per-iteration kernel's does not (vb.py:
+    344-360), so biexp at float32 runs kernel 7 once per iteration and
+    poly the statistics route."""
+    from fabber_core_tpu.inference import vb as jvb_module
+    monkeypatch.setattr(jvb_module.jax, "default_backend", lambda: "tpu")
+    extra = {**BASE, "model": model, "dt": "0.1",
+             "param-spatial-priors": "A+"}
+    opts = RunOptions(extra)
+    eng = VBInference(get_model_class(model)(opts), opts, make_data(16),
+                      device="cpu")
+    assert eng.route == route and eng.prior_setup.has_ard
+    jo = JOptions(extra)
+    je = JVB(jmodel(model)(jo), jo, make_data(16), np.zeros((16, 3)))
+    assert (je.use_fused, je.use_stats) == (route == "pallas",
+                                            route == "xla")
+    assert not (je.use_nl_loop or je.use_loop_kernel
+                or je.use_whole_kernel or je.use_spectral_whole)
 
 
 @pytest.mark.parametrize("model,route", [("poly", "xla"),
@@ -246,8 +393,31 @@ def test_detector_runs_match_jax(conv, extra, mode):
         assert len(np.unique(rp.iterations)) > 1   # lanes stop apart
 
 
+@pytest.mark.parametrize("conv,extra", DETECTOR_RUNS,
+                         ids=[c + "".join(f"-{k}={v}" for k, v in e.items())
+                              for c, e in DETECTOR_RUNS])
+def test_spectral_route_detectors_match_jax(conv, extra):
+    """engine-kernel=spectral under an F-based detector: the lanes'
+    state machines in the eigenbasis loop (make_spectral_detector_loop,
+    the core kernel's detector algebra in plain torch) against the JAX
+    package's spectral route with its in-loop detector."""
+    extra = {"convergence": conv, "engine-kernel": "spectral", **extra}
+    data = make_det_data(200, seed=15)
+    rp = run_port(data, extra, route="spectral")
+    assert_match(run_jax(data, "spectral", extra), rp)
+
+
+def test_direct_route_matches_jax_under_lm():
+    """fixed-design-route=direct used to be refused here: the design as
+    the Jacobian, with the LM-damped update, against the JAX direct
+    route."""
+    extra = {"fixed-design-route": "direct", "convergence": "lm"}
+    data = make_data(96, seed=14)
+    assert_match(run_jax(data, "xla", extra),
+                 run_port(data, extra, route="xla-direct"))
+
+
 @pytest.mark.parametrize("extra,err", [
-    ({"fixed-design-route": "direct"}, NotImplementedError),
     ({"engine-kernel": "bogus"}, InvalidOptionValue),
     ({"dtype": "half"}, InvalidOptionValue),
     ({"convergence": "bogus"}, InvalidOptionValue),

@@ -343,6 +343,15 @@ ROUTE_TABLE = [
     ({"noise": "ar", "engine-kernel": "pallas-whole"}, "xla"),
     ({"noise": "ar", "engine-kernel": "xla"}, "xla"),
     ({"noise": "ar", "fixed-design-route": "direct"}, "xla-generic"),
+    # routes and features that used to raise: the pure-XLA spectral
+    # route under a detector, ARD priors (off every whole-loop gate),
+    # the direct route
+    ({"engine-kernel": "spectral", "convergence": "trialmode"}, "spectral"),
+    ({"dtype": "bf16", "convergence": "freduce"}, "spectral"),
+    ({"param-spatial-priors": "A"}, "xla"),
+    ({"param-spatial-priors": "A", "noise-pattern": "12"}, "xla"),
+    ({"fixed-design-route": "direct"}, "xla-direct"),
+    ({"fixed-design-route": "direct", "convergence": "lm"}, "xla-direct"),
 ]
 
 
@@ -361,7 +370,9 @@ def jax_route(jeng):
         if getattr(jeng, "use_spectral", False):
             return "spectral"
         return "pallas-loop-ar" if jeng.noise.name == "ar" else "pallas-loop"
-    return "xla" if jeng.design is not None else "xla-generic"
+    if jeng.use_stats:
+        return "xla"
+    return "xla-direct" if jeng.design is not None else "xla-generic"
 
 
 @pytest.mark.parametrize("extra,route", ROUTE_TABLE,
@@ -374,12 +385,9 @@ def test_route_table_matches_jax(extra, route, monkeypatch):
     assert jax_route(jax_engine(data, extra)) == route
     monkeypatch.undo()
     opts = RunOptions({**BASE, **extra})
-    try:
-        eng = VBInference(get_model_class("poly")(opts), opts, data,
-                          device="cpu")
-        assert eng.route == route
-    except NotImplementedError as e:
-        assert route == "spectral" and "'spectral'" in str(e)
+    eng = VBInference(get_model_class("poly")(opts), opts, data,
+                      device="cpu")
+    assert eng.route == route
 
 
 def test_kernel_routes_count_no_launch_on_cpu():

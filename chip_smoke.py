@@ -1913,7 +1913,9 @@ def launch_counts():
             "fused_nl_loop:generic": fnl.fused_nl_loop.generic_launches,
             "fused_nl_loop:staged": fnl.fused_nl_loop.staged_launches,
             "fused_vb_iter": fv.fused_iteration.launches,
-            "fused_vb_iter:staged": fv.fused_iteration.staged_launches}
+            "fused_vb_iter:staged": fv.fused_iteration.staged_launches,
+            "fused_vb_iter:generated": fv.fused_iteration.generated_launches,
+            "fused_nlls:generated": fn.fused_nlls_loop.generated_launches}
 
 
 def reset_launches():
@@ -1937,6 +1939,8 @@ def reset_launches():
     fnl.fused_nl_loop.staged_launches = 0
     fv.fused_iteration.lm_launches = 0
     fv.fused_iteration.staged_launches = 0
+    fv.fused_iteration.generated_launches = 0
+    fn.fused_nlls_loop.generated_launches = 0
     fn.fused_nlls_loop.resume_launches = 0
     fn.fused_nlls_loop.marquardt_launches = 0
     fn.fused_nlls_loop.staged_launches = 0
@@ -2371,7 +2375,7 @@ def nlls_fit(eng, params):
     from fabber_core_tpu_torch.ops import fused_vb as fv
     t = fv.time_index(eng.nt, torch.float64, params.device)
     tr = [pm.transform for pm in eng.params]
-    return fv.block_eval(eng.model.time_signal_jac, tr, params.double(),
+    return fv.block_eval(fv.signal_jac_fn(eng.model), tr, params.double(),
                          t)[0]
 
 
@@ -2408,7 +2412,7 @@ def nlls_post_off(o, r64, keep):
     return ~(err[keep] <= NLLS_POST_TOL)
 
 
-def check_nlls_case(name, eng, p0, worst, two_phase=True):
+def check_nlls_case(name, eng, p0, worst, two_phase=True, keys=None):
     """One kernel 8 check (phase 3e): the fresh launch against the plain
     version at float32 and float64 by three shares, each at most 2x the
     plain float32 version's + 1e-3: lanes off float64 in fit or cost,
@@ -2421,13 +2425,18 @@ def check_nlls_case(name, eng, p0, worst, two_phase=True):
     fresh launch. max_abs_err: fit, prec
     and cov on the agreeing lanes whose posterior is finite in both the
     kernel's and the float64 run (a non-finite one counts in the
-    posterior share). Returns ok."""
+    posterior share). The engine's functor (eng.functor: one generated
+    from the model's time_signal, or None for a hand-written one) runs
+    every launch; keys: the `worst` entries to note (default kernel 8's
+    by mode). Returns ok."""
     import torch
     from fabber_core_tpu_torch.ops import fused_nlls as fn
+    from fabber_core_tpu_torch.ops import fused_vb as fv
     tr = [pm.transform for pm in eng.params]
-    tsj = eng.model.time_signal_jac
+    tsj = fv.signal_jac_fn(eng.model)
     args = (eng.tmask_host, eng.max_its, eng.marquardt)
-    k = fn.fused_nlls_loop(eng.model, tr, p0, eng.data, *args)
+    k = fn.fused_nlls_loop(eng.model, tr, p0, eng.data, *args,
+                           functor=eng.functor)
     r32 = fn.fused_nlls_loop_plain(tsj, tr, p0, eng.data, *args)
     r64 = fn.fused_nlls_loop_plain(tsj, tr, p0.double(), eng.data.double(),
                                    *args)
@@ -2465,7 +2474,7 @@ def check_nlls_case(name, eng, p0, worst, two_phase=True):
         bits = f"; two-phase {'bit-identical' if same else 'DIFFERS'}"
     # the streamed form (csrc/tile.cuh) on the same inputs, bit for bit
     same = bits_equal(fn.fused_nlls_loop(eng.model, tr, p0, eng.data, *args,
-                                         _vb=0), k)
+                                         functor=eng.functor, _vb=0), k)
     ok &= same
     bits += f"; streamed {'bit-identical' if same else 'DIFFERS'}"
     ratio = max(r if r == r else float("inf") for r in ratios)
@@ -2474,7 +2483,8 @@ def check_nlls_case(name, eng, p0, worst, two_phase=True):
         f"{', '.join(f'{w} {e:.3g}' for w, e in errs.items())} "
         f"{'ok' if ok else 'FAIL'}")
     kname = "fused_nlls:marquardt" if eng.marquardt else "fused_nlls"
-    for key in (kname,) + (("fused_nlls:resume",) if two_phase else ()):
+    for key in keys or ((kname,) + (("fused_nlls:resume",) if two_phase
+                                    else ())):
         worst[key][0] = max(worst[key][0], abs_err)
         worst[key][1] = max(worst[key][1], ratio)
     return ok
@@ -3573,7 +3583,7 @@ def time_generic(device, card, nv=4_000_000):
     out["gen_over_expsum"] = out["gen_ms"] / out["expsum_ms"]
     out["gen_over_expsum_streamed"] = (out["gen_streamed_ms"]
                                        / out["expsum_streamed_ms"])
-    lib = tle.libs[1]
+    lib = tle.libs[("nl_loop", 1)]
     gen_log = _cuda.gen_build_log.get(_cuda.generated_key(
         tle.source, 4, 1), (float("nan"), ""))[1]
     for mode in (0, 1, 2):
@@ -3603,6 +3613,521 @@ def time_generic(device, card, nv=4_000_000):
             log(f"  ptxas (generated biexp): {line.strip()}")
     for k, v in out.items():
         log(f" {k} = {v!r}  [V={nv} T={BI_NT} P=4; {card}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernels 7 and 8 with functors generated from a model's time_signal, the
+# routes that ran into them for plugins, motion correction and the
+# likelihood-only output (phases 3g, 4v, 4w, 5g)
+# ---------------------------------------------------------------------------
+
+MC_SHAPE, MC_NT = (64, 64, 32), 16     # phase 4w's volume
+MC_SHIFT = 1.2                          # voxels, the last quarter in x
+
+
+def myexp_class():
+    """The torch myexp plugin's model class, registered."""
+    from fabber_core_tpu_torch.models import (get_model_class,
+                                              load_models_from_file)
+    load_models_from_file(PLUGIN)
+    return get_model_class("myexp")
+
+
+def kernel_functors():
+    """The functors of myexp's time_signal that phases 3g, 4v, 4w and 5g
+    build kernels for, as (name, TimeLocalEval, P, Q, kernel): num-exps
+    2 (biexp's signal at T=100, dt=0.02) for kernels 7 and 8, num-exps 1
+    for kernels 6, 7 and 8."""
+    from fabber_core_tpu_torch.models.kernelgen import \
+        derive_time_signal_functor
+    from fabber_core_tpu_torch.options import RunOptions
+    cls = myexp_class()
+    out = []
+    for num, kernels in ((2, ("vb_iter", "nlls")),
+                         (1, ("nl_loop", "vb_iter", "nlls"))):
+        tle = derive_time_signal_functor(cls(RunOptions(
+            {"model": "myexp", "dt": str(BI_DT), "num-exps": str(num)})),
+            2 * num)
+        for kernel in kernels:
+            out.append((f"myexp{num} {kernel}", tle, 2 * num,
+                        None if kernel == "nlls" else 1, kernel))
+    return out
+
+
+def myexp_engine(plane, device, extra=None, num=2):
+    """VBInference for myexp (num-exps num) at float32 on the data
+    plane, engine-kernel=pallas: on the card it builds kernel 7 with the
+    functor generated from the time_signal."""
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.options import RunOptions
+    opts = RunOptions({"model": "myexp", "dt": str(BI_DT),
+                       "num-exps": str(num), "noise": "white",
+                       "max-iterations": str(ITERS), "dtype": "single",
+                       "engine-kernel": "pallas", **(extra or {})})
+    return VBInference(myexp_class()(opts), opts, None, data_plane=plane,
+                       device=device)
+
+
+def check_generated_kernels(device, nvs=(1_048_576, 1_000_003),
+                            seed=SEED + 25):
+    """Phase 3g, kernels 7 and 8: each with the functor generated from
+    myexp's time_signal (num-exps 2: biexp's signal, log transforms) on
+    bench.py's biexp data at a power-of-two and a ragged voxel count.
+    Kernel 7: one iteration from the latent truth + N(0, 0.05^2), with
+    (alpha 10^U(-6, 2), a quarter of the lanes 0) and without its LM
+    branch, held lane by lane to the plain version at float64 by
+    near_f64, and its streamed form equal to the staged one bit for bit.
+    Kernel 8: fresh Levenberg (on the power-of-two count) and fresh
+    Marquardt (on the ragged one) from the engine's start by
+    check_nlls_case (fits, costs, iteration counts and posterior against
+    float64 by shares; the engine's phase 1 + resume and the streamed
+    form bit for bit)."""
+    import torch
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    worst = {"fused_vb_iter:generated": [0.0, 0.0],
+             "fused_nlls:generated": [0.0, 0.0]}
+    ok_all = True
+    for nv in nvs:
+        data, _, truth = biexp_plane(nv, gen, device)
+        eng = myexp_engine(data, device)
+        ok_all &= (eng.route == "pallas" and eng.functor is not None
+                   and ("vb_iter", 1) in eng.functor.libs)
+        tr = eng._transforms()
+        tsj = fv.signal_jac_fn(eng.model)
+        args = eng.nl_loop_args(eng.initial_state())
+        lat = torch.log(truth) + 0.05 * torch.randn(
+            truth.shape, generator=gen, device=device)
+        phi = torch.full((1, nv), 1.0 / BI_SD ** 2, device=device)
+        alpha = 10.0 ** (torch.rand(nv, generator=gen, device=device) * 8
+                         - 6)
+        alpha[::4] = 0.0
+        it_args = (lat, args[1], args[2], phi, args[3], args[4], True)
+        for lm in (False, True):
+            extra = (alpha,) if lm else ()
+            k = fv.fused_iteration(eng.model, tr, *it_args, *extra,
+                                   functor=eng.functor)
+            ks = fv.fused_iteration(eng.model, tr, *it_args, *extra,
+                                    functor=eng.functor, _vb=0)
+            r32 = fv.fused_iteration_plain(tsj, tr, *it_args, *extra)
+            r64 = fv.fused_iteration_plain(tsj, tr, *to64(it_args),
+                                           *to64(extra))
+            torch.cuda.synchronize()
+            same = bits_equal(k, ks)
+            ok, abs_err, ratio = near_f64(
+                f"generated fused_vb_iter LM={int(lm)} V={nv}", k, r32, r64)
+            log(f"   streamed form {'bit-identical' if same else 'DIFFERS'}")
+            ok_all &= ok and same
+            w = worst["fused_vb_iter:generated"]
+            w[0], w[1] = max(w[0], abs_err), max(w[1], ratio)
+            del k, ks, r32, r64
+        del eng, args, lat, phi, alpha, it_args
+        torch.cuda.empty_cache()
+        # one damping per size (Levenberg on the power-of-two count,
+        # Marquardt on the ragged one): the float64 references dominate
+        for lm in ((False,) if nv == nvs[0] else (True,)):
+            neng = nlls_engine(data, device, {"num-exps": "2",
+                                              **({"lm": True} if lm else {})},
+                               "myexp")
+            ok_all &= (neng.route == "nlls-kernel"
+                       and neng.functor is not None)
+            ok_all &= check_nlls_case(
+                f"generated {'LM' if lm else 'L'} V={nv}", neng,
+                neng.initial_means(), worst,
+                keys=("fused_nlls:generated",))
+            del neng
+            torch.cuda.empty_cache()
+        del data, truth
+    return ok_all, worst
+
+
+def exp_volume(shape, seed, nt=BI_NT):
+    """A one-exponential volume [nx,ny,nz,T] (float32, from numpy): amp
+    ~ U(0.5, 1.5), rate ~ U(0.7, 1.3) per second, dt 0.02, noise sd
+    0.05 (bench.py's exp terms)."""
+    rng = np.random.default_rng(seed)
+    nv = int(np.prod(shape))
+    t = np.arange(nt) * BI_DT
+    amp = rng.uniform(0.5, 1.5, (nv, 1))
+    rate = rng.uniform(0.7, 1.3, (nv, 1))
+    data = amp * np.exp(-rate * t[None]) + rng.normal(0, BI_SD, (nv, nt))
+    return data.astype(np.float32).reshape(shape + (nt,), order="F")
+
+
+def off_share(e, bound=1e-2):
+    """The share of voxels whose worst error (a [V] array, or several)
+    lies beyond bound (a non-finite error counts as off)."""
+    e = np.max(np.stack(e), axis=0) if isinstance(e, tuple) else e
+    return float((~(e <= bound)).mean())
+
+
+def run_generated_plugin_paths(device, shape=(128, 128, 64),
+                               flow_shape=(32, 32, 16)):
+    """Phase 4v: run_with_data --loadmodels on the torch myexp plugin on
+    the two routes that raised for it before kernels 7 and 8 took
+    generated functors, each held to its float64 run on the card (the
+    plain-torch routes: xla-generic, nlls-generic):
+      engine-kernel=pallas, num-exps 1, 128x128x64 x 100: kernel 7 once
+        per iteration, every launch with the generated functor and
+        staged; the share of voxels whose means lie beyond 1e-2
+        posterior sd, or std or noise beyond 1e-2 relative, of float64
+        at most 1e-3;
+      method=nlls, num-exps 1, the same volume: kernel 8 twice (phase 1
+        and resume) with the generated functor; the share of voxels
+        whose model fit lies beyond 1e-3 of float64's largest sample at
+        most 1e-3 (fits, not iteration counts: ROADMAP Queue 3 item 14);
+      the NLLS->VB flow (phase 4n's, myexp num-exps 2, 32x32x16):
+        kernel 8 with the generated functor, then the continued VB run
+        on 'pallas', kernel 7 with the generated functor once per
+        iteration; phase 4n's bounds on the total amplitude for float32
+        and float64 alike, and their mean errors within 0.02 of each
+        other (biexp's float32 fixed point moves voxels between basins:
+        phase 3b).
+    Returns (ok, launches of each generated kernel)."""
+    from pathlib import Path
+    from fabber_core_tpu_torch.inference.nlls import NLLSInference
+    vol = exp_volume(shape, SEED + 26)
+    myexp_class()
+    base = {"model": "myexp", "dt": str(BI_DT), "num-exps": "1",
+            "loadmodels": PLUGIN, "noise": "white", "dtype": "single",
+            "max-iterations": str(ITERS), "save-mean": True,
+            "save-std": True}
+    launches = {}
+    log(f"phase 4v: run_with_data --loadmodels={PLUGIN} --model=myexp "
+        f"--engine-kernel=pallas, volume {shape + (BI_NT,)}")
+    opts = {**base, "method": "vb", "engine-kernel": "pallas"}
+    _, res, eng, n, _ = api_run(device, opts, vol)
+    _, r64, eng64, n64, _ = api_run(device, {**opts, "dtype": "double"}, vol)
+    share = off_share(voxel_errors(res, r64))
+    want = {"fused_vb_iter": ITERS, "fused_vb_iter:staged": ITERS,
+            "fused_vb_iter:generated": ITERS}
+    ok = (eng.route == "pallas" and eng64.route == "xla-generic"
+          and n == want and not n64 and share <= 1e-3
+          and not res.bad_voxels.any())
+    launches["fused_vb_iter:generated"] = n.get("fused_vb_iter:generated", 0)
+    log(f" pallas (generated kernel 7) against float64: {share:.3g} of "
+        f"voxels off (bound 1e-3); launches {n} (want {want}) "
+        f"{'ok' if ok else 'FAIL'}")
+
+    log(" method=nlls on the same volume")
+    opts = {**base, "method": "nlls", "save-model-fit": True}
+    run, res, eng, n, _ = api_run(device, opts, vol, cls=NLLSInference)
+    run64, _, eng64, n64, _ = api_run(device, {**opts, "dtype": "double"},
+                                      vol, cls=NLLSInference)
+    fit = run.data["modelfit"].reshape(-1, BI_NT)
+    fit64 = run64.data["modelfit"].reshape(-1, BI_NT)
+    e_fit = np.abs(fit - fit64).max(axis=1) / np.abs(fit64).max()
+    share = off_share(e_fit, 1e-3)
+    want = {"fused_nlls": 2, "fused_nlls:resume": 1, "fused_nlls:staged": 2,
+            "fused_nlls:generated": 2}
+    good = (eng.route == "nlls-kernel" and eng64.route == "nlls-generic"
+            and n == want and not n64 and share <= 1e-3
+            and not res.bad_voxels.any())
+    launches["fused_nlls:generated"] = n.get("fused_nlls:generated", 0)
+    log(f" nlls (generated kernel 8) against float64: fit off in {share:.3g}"
+        f" of voxels (bound 1e-3); iterations {its_histogram(res.iterations)}"
+        f"; launches {n} (want {want}) {'ok' if good else 'FAIL'}")
+    ok &= good
+
+    log(f" the NLLS->VB flow, myexp num-exps 2, {flow_shape + (BI_NT,)}")
+    fvol, a1 = flow_volume(flow_shape)
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    pfile = out / "myexp_params.txt"
+    pfile.write_text("amp1\nr1\namp2\nr2\n")
+    errs = {}
+    for dtype in ("single", "double"):
+        fbase = {**base, "num-exps": "2", "dtype": dtype}
+        nrun, _, neng, n_nlls, _ = api_run(
+            device, {**fbase, "method": "nlls", "save-mvn": True}, fvol,
+            cls=NLLSInference)
+        vrun, vres, veng, n_vb, _ = api_run(
+            device, {**fbase, "method": "vb", "convergence": "trialmode",
+                     "max-iterations": "30",
+                     "continue-from-params": str(pfile)}, fvol,
+            {"continue-from-mvn": nrun.data["finalMVN"]})
+        total = vrun.data["mean_amp1"] + vrun.data["mean_amp2"]
+        err = np.abs(total - 1.5 * a1)
+        errs[dtype] = float(err.mean())
+        good = float(err.max()) <= 0.25 and float(err.mean()) < 0.08
+        if dtype == "single":
+            good &= (neng.route == "nlls-kernel" and veng.route == "pallas"
+                     and n_nlls.get("fused_nlls:generated", 0) == 2
+                     and 1 <= n_vb.get("fused_vb_iter:generated", 0)
+                     == n_vb.get("fused_vb_iter", 0) <= veng.max_iter_cap
+                     and "fused_nl_loop" not in n_vb)
+        else:
+            good &= not n_nlls and not n_vb
+        log(f"  {dtype}: NLLS {neng.route}, VB {veng.route}; iterations "
+            f"{its_histogram(vres.iterations)}; total amplitude off 1.5 a1 "
+            f"max {float(err.max()):.5f} (bound 0.25) mean "
+            f"{float(err.mean()):.5f} (bound 0.08) "
+            f"{'ok' if good else 'FAIL'}")
+        ok &= good
+    good = abs(errs["single"] - errs["double"]) <= 0.02
+    log(f"  mean error float32 - float64 {errs['single'] - errs['double']:+.5f}"
+        f" (bound 0.02) {'ok' if good else 'FAIL'}")
+    return ok and good, launches
+
+
+def motion_volume(amp_fn, seed, shape=MC_SHAPE, nt=MC_NT):
+    """A [nx,ny,nz,T] float32 volume (from numpy) whose voxel values at
+    each timepoint come from amp_fn(coords [V,3], t) -> [V], the last
+    quarter of the timepoints displaced MC_SHIFT voxels in x (the scene
+    sampled at coords + shift), plus N(0, 0.02^2); and the coords."""
+    rng = np.random.default_rng(seed)
+    g = np.stack(np.meshgrid(*[np.arange(n) for n in shape],
+                             indexing="ij"), -1).reshape(-1, 3)
+    g = g.astype(np.float64)
+    data = np.empty((g.shape[0], nt))
+    for t in range(nt):
+        shift = np.array([MC_SHIFT if t >= 3 * nt // 4 else 0.0, 0, 0])
+        data[:, t] = amp_fn(g + shift, t)
+    data += 0.02 * rng.standard_normal(data.shape)
+    return data.reshape(shape + (nt,)).astype(np.float32), g
+
+
+def blob(c, shape):
+    """A Gaussian blob at the grid's centre, of sd an eighth of its x
+    extent, at coords c [V,3]."""
+    centre = (np.asarray(shape, np.float64) - 1) / 2
+    sigma = shape[0] / 8
+    return np.exp(-((c - centre) ** 2).sum(axis=1) / (2 * sigma ** 2))
+
+
+def run_motion_noprior_paths(device, shape=MC_SHAPE,
+                             np_shape=(128, 128, 64), sp_shape=(256, 256, 1)):
+    """Phase 4w, motion correction and the likelihood-only output:
+      mcsteps=2 on poly degree 0 (c0 = 1 + a Gaussian blob of sd 8
+        voxels, blob()) at 64x64x32 x 16, the last quarter of the volumes
+        displaced 1.2 voxels in x, float32 against the same run at
+        float64 (the registration at the registerer's float32 in both,
+        as the JAX package's): c0 within 1e-2 posterior sd of float64 in
+        every voxel, every step's largest translation within 0.9-1.5
+        voxels (tests/test_motion.py's bound), not saturated;
+      mcsteps=1 on myexp (num-exps 1, amplitude 1 + the blob, rate 1,
+        dt 0.02, the same shape): kernel 6 once with the generated
+        functor, then kernel 7 with the generated functor once per
+        iteration of the continued run; the step's translation positive
+        and unsaturated (the model's rate absorbs part of a late shift,
+        so its size is no bound here), the outputs finite;
+      spatial-prior-output-correction on voxelwise poly (degree 1,
+        128x128x64 x 106, phase 4's data scaled) and on spatial VB (M
+        prior, 256x256 x 50, phase 4r's data): the likelihood-only
+        means within 1e-2 of their float64 sd, and their sd within 1e-2
+        relative, of the float64 run in all but 1e-3 of voxels.
+    Returns (ok, kernel 7 launches with a generated functor, the seconds
+    of one motion-correction step)."""
+    import torch
+    from fabber_core_tpu_torch.inference.spatial import SpatialVBInference
+    from fabber_core_tpu_torch.core.motion import register_timeseries
+    vol, _ = motion_volume(lambda c, t: 1.0 + blob(c, shape), SEED + 27,
+                           shape)
+    opts = {"model": "poly", "degree": "0", "noise": "white",
+            "method": "vb", "max-iterations": "6", "dtype": "single",
+            "mcsteps": "2", "save-mean": True}
+    log(f"phase 4w: mcsteps=2, poly degree 0, volume {shape + (MC_NT,)}, "
+        f"the last quarter shifted {MC_SHIFT} voxels in x")
+    run, res, eng, n, secs = api_run(device, opts, vol)
+    _, r64, eng64, _, _ = api_run(device, {**opts, "dtype": "double"}, vol)
+    e_m = voxel_errors(res, r64)[0]
+    tr = eng.mc_translations
+    ok = (len(tr) == 2 and all(0.9 < x < 1.5 for x in tr)
+          and not eng.mc_saturated and float(e_m.max()) <= 1e-2
+          and "Motion correction step 2/2" in run.log
+          and eng._mc_registerer.dtype == torch.float32)
+    log(f" {eng.route_description()}: translations {tr} (float64 run "
+        f"{eng64.mc_translations}; bound 0.9-1.5), capture range "
+        f"{eng.mc_capture_range}; c0 within {float(e_m.max()):.3g} sd of "
+        f"float64 (bound 1e-2) {'ok' if ok else 'FAIL'}")
+    # one step's registration alone, at this shape
+    fit = eng.evaluate_model(np.asarray(res.means).T)
+    reg, orig = eng._mc_registerer, eng._mc_orig_data
+    coords = eng.coords.t().cpu().numpy()
+    step_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        register_timeseries(orig, fit, coords, shape, reg=reg)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    mc_step_s = min(step_s)
+    log(f" one registration step (every timepoint, estimate and apply): "
+        f"{mc_step_s:.4f} s; the whole run {secs:.3f} s")
+    del run, res, r64, eng, eng64, fit, orig
+
+    myexp_class()
+    mvol, _ = motion_volume(
+        lambda c, t: (1.0 + blob(c, shape)) * np.exp(-t * BI_DT), SEED + 28,
+        shape)
+    mopts = {"model": "myexp", "dt": str(BI_DT), "num-exps": "1",
+             "loadmodels": PLUGIN, "noise": "white", "method": "vb",
+             "max-iterations": "5", "dtype": "single", "mcsteps": "1",
+             "save-mean": True}
+    log(" mcsteps=1 on myexp (kernel 6, then kernel 7, both generated)")
+    _, mres, meng, n, _ = api_run(device, mopts, mvol)
+    tr = meng.mc_translations
+    good = (meng.route == "pallas-loop-nl" and meng.generic is None
+            and n.get("fused_nl_loop") == 1
+            and n.get("fused_vb_iter:generated", 0)
+            == n.get("fused_vb_iter", 0) == 5
+            and len(tr) == 1 and 0.0 < tr[0] < 0.75 * meng.mc_capture_range
+            and np.isfinite(mres.means).all())
+    gen7 = n.get("fused_vb_iter:generated", 0)
+    log(f" launches {n}; translation {tr} {'ok' if good else 'FAIL'}")
+    ok &= good
+    del mvol, mres, meng
+
+    pvol, _ = make_volume(np_shape)
+    pvol = pvol / 100.0
+    popts = {**MAIN_OPTIONS, "degree": "1",
+             "spatial-prior-output-correction": True}
+    log(f" spatial-prior-output-correction, voxelwise poly degree 1, "
+        f"{np_shape + (NT,)}")
+    run, res, eng, _, _ = api_run(device, popts, pvol)
+    _, r64, _, _, _ = api_run(device, {**popts, "dtype": "double"}, pvol)
+    ok &= noprior_against_f64("voxelwise", run, res, r64, eng)
+    del run, res, r64, pvol
+    svol = spatial_volume(sp_shape, SEED + 29)
+    sopts = {**SPATIAL_OPTIONS, "spatial-prior-output-correction": True}
+    log(f" spatial-prior-output-correction, spatial M, {sp_shape + (SP_NT,)}")
+    run, res, eng, _, _ = api_run(device, sopts, svol,
+                                  cls=SpatialVBInference)
+    _, r64, _, _, _ = api_run(device, {**sopts, "dtype": "double"}, svol,
+                              cls=SpatialVBInference)
+    ok &= noprior_against_f64("spatial", run, res, r64, eng)
+    return ok, gen7, mc_step_s
+
+
+def noprior_against_f64(name, run, res, r64, eng):
+    """The likelihood-only posterior of res against the float64 run's:
+    means within 1e-2 of the float64 sd and sd within 1e-2 relative in
+    all but 1e-3 of voxels; its maps written for every parameter."""
+    sd64 = np.sqrt(np.diagonal(r64.noprior_cov, axis1=1, axis2=2))
+    sd = np.sqrt(np.diagonal(res.noprior_cov, axis1=1, axis2=2))
+    e_m = np.max(np.abs(res.noprior_means - r64.noprior_means) / sd64,
+                 axis=1)
+    e_s = np.max(np.abs(sd / sd64 - 1), axis=1)
+    share = off_share((e_m, e_s))
+    names = [p.name for p in eng.params]
+    maps = all(f"mean_noprior_{p}" in run.data
+               and f"std_noprior_{p}" in run.data for p in names)
+    good = share <= 1e-3 and maps
+    log(f"  {name} ({eng.route}): likelihood-only posterior off float64 in "
+        f"{share:.3g} of voxels (bound 1e-3; means p99.9 "
+        f"{np.quantile(e_m, 0.999):.3g} sd, sd p99.9 "
+        f"{np.quantile(e_s, 0.999):.3g}); maps "
+        f"{'written' if maps else 'MISSING'} {'ok' if good else 'FAIL'}")
+    return good
+
+
+def time_generated(device, card, nv=4_000_000):
+    """Phase 5g, kernels 7 and 8: at bench.py's biexp size (4,000,000
+    voxels, T=100, P=4, phase 5b's plane) each with the functor generated
+    from myexp's time_signal (num-exps 2) beside the hand-written
+    ExpSum<2> on the same inputs, each in its staged and streamed forms
+    (time_forms): kernel 7 one iteration from the latent truth (phase
+    5b's), kernel 8 fresh Levenberg from the engine's start (phase 5e's);
+    the plain version once each, the generated forms' plan, occupancy
+    and registers, the generated builds' ptxas lines. Bounds: rows 7's
+    and 8's (the function is the same); the generated code's own
+    operations per sample (models/kernelgen.py) give gen_code_ops_ms
+    beside them."""
+    import torch
+    from fabber_core_tpu_torch.ops import _cuda
+    from fabber_core_tpu_torch.ops import fused_nlls as fn
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 7)
+    plane, _, truth = biexp_plane(nv, gen, device)
+    out = {}
+    eng = myexp_engine(plane, device)
+    ref = nl_engine("biexp", "1", plane, device)
+    tr = eng._transforms()
+    tle = eng.functor
+    args = eng.nl_loop_args(eng.initial_state())
+    phi = torch.full((1, nv), 1.0 / BI_SD ** 2, device=device)
+    it_args = (torch.log(truth).contiguous(), args[1], args[2], phi,
+               args[3], args[4], True)
+    out["iter_gen_ms"], out["iter_gen_streamed_ms"], _, _ = time_forms(
+        lambda vb: fv.fused_iteration(eng.model, tr, *it_args, functor=tle,
+                                      _vb=vb))
+    out["iter_expsum_ms"], out["iter_expsum_streamed_ms"], _, _ = \
+        time_forms(lambda vb: fv.fused_iteration(ref.model, tr, *it_args,
+                                                 _vb=vb))
+    out["iter_gen_over_expsum"] = out["iter_gen_ms"] / out["iter_expsum_ms"]
+    lib7 = tle.libs[("vb_iter", 1)]
+    key7 = _cuda.generated_key(tle.source, 4, 1, "vb_iter")
+    log7 = _cuda.gen_build_log.get(key7, (float("nan"), ""))[1]
+    out["iter_gen_forms"] = log_forms(
+        "fused_vb_iter generated biexp Q=1 LM=0", BI_NT, 1,
+        lambda vb: _cuda.gen_vb_iter_occupancy(lib7, False, vb, BI_NT),
+        lambda st: ptxas_entry(log7, "fused_vb_iter_kernel",
+                               f"Li1ELb0ELb{int(st)}E"))
+    out["iter_gen_plain_ms"], _ = once_ms(lambda: fv.fused_iteration_plain(
+        fv.signal_jac_fn(eng.model), tr, *it_args))
+    vb_ops = (nl_pass_ops(4, 1, 2, "A") + nl_pass_ops(4, 1, 2, "B")
+              + nl_pass_ops(4, 1, 2, "F")) * BI_NT + 400
+    vb_bytes = 4 * BI_NT * nv + 4 * (3 * 4 + 1 + 4 + 2 * 16 + 4) * nv
+    out["iter_gen_bound"] = bound(vb_bytes, vb_ops * nv)
+    code = (gen_pass_ops(tle, 1, "A") + gen_pass_ops(tle, 1, "B")
+            + gen_pass_ops(tle, 1, "F")) * BI_NT + 400
+    out["iter_gen_code_ops_ms"] = code * nv / PEAK_F32_PER_S * 1e3
+    del phi, it_args, args, eng, ref
+    torch.cuda.empty_cache()
+
+    neng = nlls_engine(plane, device, {"num-exps": "2"}, "myexp")
+    nref = nlls_engine(plane, device)
+    ntr = [pm.transform for pm in neng.params]
+    p0 = neng.initial_means()
+    nargs = (neng.tmask_host, neng.max_its, False)
+    out["nlls_gen_ms"], out["nlls_gen_streamed_ms"], k, _ = time_forms(
+        lambda vb: fn.fused_nlls_loop(neng.model, ntr, p0, plane, *nargs,
+                                      functor=neng.functor, _vb=vb))
+    out["nlls_expsum_ms"], out["nlls_expsum_streamed_ms"], kr, _ = \
+        time_forms(lambda vb: fn.fused_nlls_loop(nref.model, ntr, p0, plane,
+                                                 *nargs, _vb=vb))
+    out["nlls_gen_over_expsum"] = out["nlls_gen_ms"] / out["nlls_expsum_ms"]
+    out["nlls_gen_its"] = its_histogram(k[2].cpu().numpy())
+    out["nlls_gen_its_equal_expsum"] = float(
+        (k[2] == kr[2]).double().mean())
+    del k, kr
+    lib8 = neng.functor.libs[("nlls", None)]
+    key8 = _cuda.generated_key(neng.functor.source, 4, None, "nlls")
+    log8 = _cuda.gen_build_log.get(key8, (float("nan"), ""))[1]
+    out["nlls_gen_forms"] = log_forms(
+        "fused_nlls generated biexp fresh Levenberg", BI_NT, 1,
+        lambda vb: _cuda.gen_nlls_occupancy(lib8, 0, False, vb, BI_NT),
+        lambda st: ptxas_entry(log8, "fused_nlls_kernel",
+                               f"Li0ELb0ELb{int(st)}E"))
+    torch.cuda.empty_cache()
+    out["nlls_gen_plain_ms"], r = once_ms(lambda: fn.fused_nlls_loop_plain(
+        fv.signal_jac_fn(neng.model), ntr, p0, plane, *nargs))
+    trips = float(r[2].double().sum())
+    del r
+    ops = nlls_ops(4, 2, 4, BI_NT, False)
+    io_bytes = 4 * (4 + BI_NT) * nv + 4 * (4 + 2 + 2 * 16) * nv
+    out["nlls_gen_bound"] = bound(io_bytes, (nv + trips) * ops["pass"]
+                                  + trips * ops["step"] + nv * ops["post"])
+    # the generated functor's own operations in place of ExpSum<2>'s
+    own = (neng.functor.value_ops + neng.functor.tangent_ops - 5 * 2) * BI_NT
+    out["nlls_gen_code_ops_ms"] = ((nv + trips) * (ops["pass"] + own)
+                                   + trips * ops["step"] + nv * ops["post"]) \
+        / PEAK_F32_PER_S * 1e3
+    for name, key in (("kernel 7", key7), ("kernel 8", key8)):
+        secs, text = _cuda.gen_build_log.get(key, (float("nan"), ""))
+        out[f"{name.replace(' ', '')}_gen_build_s"] = secs
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas (generated biexp, {name}): {line.strip()}")
+    for k_, v in out.items():
+        log(f" {k_} = {v!r}  [V={nv} T={BI_NT} P=4; {card}]")
+    del neng, nref, p0, plane
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3740,7 +4265,7 @@ def ard_against_plain(device, opts, vol, clean, run, res):
     from fabber_core_tpu_torch.inference import vb as vbm
     from fabber_core_tpu_torch.ops import fused_vb as fv
 
-    def plain(model, transforms, *args):
+    def plain(model, transforms, *args, functor=None):
         return fv.fused_iteration_plain(fv.signal_jac_fn(model), transforms,
                                         *args)
     kernel = vbm.fused_iteration
@@ -4171,11 +4696,12 @@ def main():
     # its own nvcc, all started together
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    functors = generic_functors()
+    functors = [f + ("nl_loop",) for f in generic_functors()] \
+        + kernel_functors()
     with ThreadPoolExecutor(len(functors) + 1) as pool:
         lib = pool.submit(_cuda.build)
-        gens = [pool.submit(_cuda.build_generated, tle.source, p, q)
-                for _, tle, p, q in functors]
+        gens = [pool.submit(_cuda.build_generated, tle.source, p, q, kernel)
+                for _, tle, p, q, kernel in functors]
         path = lib.result()
         for g in gens:
             g.result()
@@ -4187,13 +4713,14 @@ def main():
         if ("registers" in line or "spill" in line or "stack frame" in line
                 or "Compiling entry" in line):
             log(f"  ptxas: {line.strip()}")
-    for name, tle, p, q in functors:
+    for name, tle, p, q, kernel in functors:
         # no entry: the library was on disk already (an earlier process)
         secs, text = _cuda.gen_build_log.get(
-            _cuda.generated_key(tle.source, p, q), (float("nan"), ""))
-        log(f"  generated {name} (P={p}, Q={q}, {tle.value_ops} value + "
-            f"{tle.tangent_ops} tangent operations per sample): nvcc "
-            f"{secs:.1f} s")
+            _cuda.generated_key(tle.source, p, q, kernel),
+            (float("nan"), ""))
+        log(f"  generated {name} for {kernel} (P={p}, Q={q}, "
+            f"{tle.value_ops} value + {tle.tangent_ops} tangent operations "
+            f"per sample): nvcc {secs:.1f} s")
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas ({name}): {line.strip()}")
@@ -4219,6 +4746,10 @@ def main():
     log("phase 3g: the generated functors' kernel against its plain "
         "version")
     ok3g, worst_gen = check_generic_kernels(device)
+    worst.update(worst_gen)
+    log("phase 3g: kernels 7 and 8 with the functor generated from "
+        "myexp's time_signal against their plain versions")
+    ok3g7, worst_gen = check_generated_kernels(device)
     worst.update(worst_gen)
 
     # phase 4: the main paths through the API; each path's launch
@@ -4274,6 +4805,12 @@ def main():
     launches["fused_vb_iter"] += feat_launches["fused_vb_iter"]
     log("phase 4u: spatial sweep modes: gauss-seidel, blocked")
     ok4u = run_spatial_modes(device)
+    ok4v, gen_launches = run_generated_plugin_paths(device)
+    ok4w, mc_gen7, mc_step_s = run_motion_noprior_paths(device)
+    log(f" kernel 7 with a generated functor: phase 4v "
+        f"{gen_launches['fused_vb_iter:generated']}, phase 4w {mc_gen7}")
+    gen_launches["fused_vb_iter:generated"] += mc_gen7
+    launches.update(gen_launches)
 
     # phase 5: timing at the headline sizes
     log("phase 5: timing at 16,777,216 voxels")
@@ -4291,6 +4828,11 @@ def main():
     log("phase 5g: the generated functors' kernel at 4,000,000 biexp "
         "voxels")
     fig_gen = time_generic(device, card)
+    log("phase 5g: kernels 7 and 8 with the generated functor at "
+        "4,000,000 biexp voxels")
+    fig_gen78 = time_generated(device, card)
+    log(f" one motion-correction registration step at phase 4w's shape "
+        f"{MC_SHAPE + (MC_NT,)}: {mc_step_s!r} s  [{card}]")
     log("phase 5h: spatial VB at 3,999,744 voxels (1024x3906)")
     time_spatial(device, card)
 
@@ -4306,6 +4848,8 @@ def main():
               "plugin_paths": ok4q, "nlls_forms_bit_identical": ok5e,
               "spatial_path": ok4r, "spatial_p4_paths": ok4s,
               "feature_paths": ok4t, "spatial_modes": ok4u,
+              "generated_kernels_7_8": ok3g7, "generated_plugin_paths": ok4v,
+              "motion_noprior_paths": ok4w,
               "vb_iter_forms_bit_identical":
                   fig_nl["vb_iter_staged_bits_equal_streamed"],
               "whole_forms_bit_identical": fig_fd["whole_forms_bit_identical"],
@@ -4390,6 +4934,12 @@ def main():
         entry("fused_nl_loop:generic", "fused_nl_loop.cuh", nl_at,
               fig_gen["gen_ms"], fig_gen["gen_plain_ms"],
               fig_gen["gen_bound"]),
+        entry("fused_vb_iter:generated", "fused_vb_iter.cuh", it_at,
+              fig_gen78["iter_gen_ms"], fig_gen78["iter_gen_plain_ms"],
+              fig_gen78["iter_gen_bound"]),
+        entry("fused_nlls:generated", "fused_nlls.cuh", nlls_at,
+              fig_gen78["nlls_gen_ms"], fig_gen78["nlls_gen_plain_ms"],
+              fig_gen78["nlls_gen_bound"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

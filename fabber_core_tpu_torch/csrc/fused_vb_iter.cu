@@ -1,271 +1,15 @@
-// fused_vb_iter: one white-noise VB iteration of a time-local nonlinear
-// model, for Hopper (sm_90a).
+// fused_vb_iter: the C entry points of the per-iteration VB kernel
+// (kernel 7, fused_vb_iter.cuh) for the hand-written model functors of
+// FABBER_NL_INSTANCES (vb_device.cuh), for Hopper (sm_90a).
 //
 // Replaces the TPU kernel fabber_core_tpu/ops/fused_vb.py
-// make_fused_iteration (its pallas_call at line 481), with its LM branch
-// (with_lm, fused_vb.py:362-391) as the template flag LM. Plain version:
-// fabber_core_tpu_torch/ops/fused_vb.py fused_iteration_plain. The
-// engine's per-iteration route launches it once per iteration
-// (save-free-energy-history, programmatic continuation,
-// engine-kernel=pallas); under the lm detector with the lane's damping
-// alpha.
-//
-// One thread per voxel, state in registers:
-//   pass A  model + latent-space Jacobian at the centre; per noise group
-//           q, J'Q_qJ (packed lower triangle) and J'Q_q r;
-//   solve   prec = sum_q phi_q J'Q_qJ + diag(pp), unrolled Cholesky
-//           without the jitter retry (as the TPU kernel), covariance,
-//           means; with LM, where alpha > 0, means = centre + x with
-//           (Lambda + alpha diag Lambda) x = sum_q phi_q J'Q_q r +
-//           pp (pm - centre) (plain Cholesky; prec and cov undamped);
-//   pass B  k = r + J (centre - means), per group k'Q_qk, and
-//           tr(Sigma J'Q_qJ) for the phi update (assembled in torch);
-//   pass C  (need_f) k'Q_qk and tr(Sigma J'Q_qJ) at the new means.
-// The TPU kernel stages J and r for pass B in VMEM scratch. Here that
-// would be (P+1)*T*4 bytes per voxel (2 KB at biexp, T=100: 64 KB for a
-// one-warp block, which would leave three blocks per SM), so pass B
-// re-evaluates the model at the centre instead: the same code on the
-// same inputs gives the same J and r as pass A, and k is formed
-// explicitly, as the plain version (and the TPU kernel) does (the
-// expansion r'Qr + 2d'J'Qr + d'J'QJd would cancel in float32 when the
-// step is large).
-//
-// Design for this card (tile.cuh): each pass reads the voxel's data
-// column, 2 or 3 reads of 4*T bytes, and at 4,000,000 voxels the 1.6 GB
-// plane is 32x the 50 MB L2, so a streamed pass goes to HBM every time
-// and each sample waits on one dependent load. The staged form (template
-// STAGED) copies the block's [T, VB] tile and the [T, Q] group weights
-// into shared memory once with cp.async; passes A, B and C read them
-// there, so HBM sees the plane once. ops/_cuda.py tile_plan stages in
-// one-warp blocks (VB = 32) where at least five fit an SM (T=100: 13,200
-// B, 16 blocks per SM), else the streamed form (blocks of 128, the plane
-// in global memory) serves. Each pass is one function for both forms
-// (a Column, tile.cuh), so the two forms run the same arithmetic in the
-// same order. What bounds the staged form is instruction throughput: per
-// sample 2 or 3 model evaluations (NEXP expf each for exp-sum models) and
-// Q*(P(P+1)/2 + P + 1) multiply-adds in pass A (biexp at 4,000,000
-// voxels on an NVIDIA H100 80GB HBM3, chip_smoke.py phase 5b: 2.70 ms
-// staged, 4.28 streamed).
+// make_fused_iteration (its pallas_call at line 481); the design and what
+// bounds it are in fused_vb_iter.cuh. Functors generated from a model's
+// time_signal are built into libraries of their own (ops/_cuda.py
+// build_generated) from the same header. Plain version:
+// fabber_core_tpu_torch/ops/fused_vb.py fused_iteration_plain.
 
-#include "vb_device.cuh"
-
-namespace {
-
-using namespace fabber;
-
-constexpr int kThreads = 128;
-
-// pass A at the centre (model rows mrow, chain factors chain): per group
-// J'Q_qJ (packed) and J'Q_q r, r = y - g(centre), samples and [T,Q]
-// weights read through col (tile.cuh)
-template <class M, int Q, class C>
-__device__ __forceinline__ void jac_pass(
-    const float* mrow, const float* chain, float dt, const C& col, int nt,
-    float (&jtj)[Q][M::P * (M::P + 1) / 2], float (&jtr)[Q][M::P]) {
-  constexpr int P = M::P, NT = P * (P + 1) / 2;
-  float unused[Q];
-  zero_sums<P, Q>(jtj, jtr, unused);
-  // two-level sums: kTB samples into block sums, blocks into the totals
-  for (int t0 = 0; t0 < nt; t0 += kTB) {
-    float bjtj[Q][NT], bjtr[Q][P], bunused[Q];
-    zero_sums<P, Q>(bjtj, bjtr, bunused);
-    const int t1 = min(t0 + kTB, nt);
-    for (int t = t0; t < t1; ++t) {
-      float jac[P];
-      const float sig = eval_latent<M>(mrow, chain, (float)t, dt, jac);
-      const float r = col.sample(t) - sig;
-#pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        const float w = col.weight(t * Q + q);
-#pragma unroll
-        for (int i = 0; i < P; ++i) {
-          const float wj = w * jac[i];
-#pragma unroll
-          for (int j = 0; j <= i; ++j)
-            bjtj[q][tri(i, j)] = bjtj[q][tri(i, j)] + wj * jac[j];
-          bjtr[q][i] = bjtr[q][i] + wj * r;
-        }
-      }
-    }
-    add_sums<P, Q>(jtj, jtr, unused, bjtj, bjtr, bunused);
-  }
-}
-
-// pass B at the centre: per group k'Q_qk with k = r + J d, d = centre -
-// means, formed explicitly (the model re-evaluated as in pass A)
-template <class M, int Q, class C>
-__device__ __forceinline__ void k_pass(const float* mrow, const float* chain,
-                                       float dt, const float* d, const C& col,
-                                       int nt, float* nkqk) {
-  constexpr int P = M::P;
-#pragma unroll
-  for (int q = 0; q < Q; ++q) nkqk[q] = 0.f;
-  for (int t0 = 0; t0 < nt; t0 += kTB) {
-    float bk[Q];
-#pragma unroll
-    for (int q = 0; q < Q; ++q) bk[q] = 0.f;
-    const int t1 = min(t0 + kTB, nt);
-    for (int t = t0; t < t1; ++t) {
-      float jac[P];
-      const float sig = eval_latent<M>(mrow, chain, (float)t, dt, jac);
-      float kk = col.sample(t) - sig;
-#pragma unroll
-      for (int i = 0; i < P; ++i) kk = kk + jac[i] * d[i];
-      const float k2 = kk * kk;
-#pragma unroll
-      for (int q = 0; q < Q; ++q) bk[q] = bk[q] + col.weight(t * Q + q) * k2;
-    }
-#pragma unroll
-    for (int q = 0; q < Q; ++q) nkqk[q] = nkqk[q] + bk[q];
-  }
-}
-
-// STAGED: the passes read the block's shared tile (tile.cuh)
-template <class M, int Q, bool LM, bool STAGED>
-__global__ void __launch_bounds__(kThreads)
-fused_vb_iter_kernel(const VBParams k, const float* __restrict__ centre_in,
-                     const float* __restrict__ pm_in,
-                     const float* __restrict__ pp_in,
-                     const float* __restrict__ phi_in,
-                     const float* __restrict__ data,
-                     const float* __restrict__ qw,
-                     const float* __restrict__ alpha_in,
-                     float* __restrict__ means_out,
-                     float* __restrict__ prec_out,
-                     float* __restrict__ cov_out,
-                     float* __restrict__ nkqk_out,
-                     float* __restrict__ ntr_out,
-                     float* __restrict__ fkqk_out,
-                     float* __restrict__ ftr_out) {
-  constexpr int P = M::P, NT = P * (P + 1) / 2;
-  const long long V = k.V;
-  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  // every thread of the block takes part in the staging copy and its
-  // barrier, those past V included, before any leaves
-  const Column<STAGED> col =
-      stage_column<STAGED>(data, qw, k.nt, k.nt * Q, V, v);
-  if (v >= V) return;
-
-  float centre[P], pm[P], pp[P], phi[Q];
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    centre[i] = centre_in[(size_t)i * V + v];
-    pm[i] = pm_in[(size_t)i * V + v];
-    pp[i] = pp_in[(size_t)i * V + v];
-  }
-#pragma unroll
-  for (int q = 0; q < Q; ++q) phi[q] = phi_in[(size_t)q * V + v];
-
-  // ---- pass A: J'Q_qJ, J'Q_q r at the centre ----------------------------
-  float mrow[P], chain[P];
-  model_rows<P>(k.tcode, centre, mrow, chain);
-  float jtj[Q][NT], jtr[Q][P];
-  jac_pass<M, Q>(mrow, chain, k.dt, col, k.nt, jtj, jtr);
-
-  // ---- solve (Eq 19/20) --------------------------------------------------
-  float prec[NT], cov[NT], means[P], ch[NT];
-  posterior_solve<P, Q, false>(jtj, jtr, phi, centre, pm, pp, prec, cov,
-                               means, ch);
-  if constexpr (LM) {
-    const float alpha = alpha_in[v];
-    if (alpha > 0.f) {
-      float damped[NT], dch[NT], x[P];
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-        float s = 0.f;
-#pragma unroll
-        for (int q = 0; q < Q; ++q) s = s + phi[q] * jtr[q][i];
-        x[i] = s + pp[i] * (pm[i] - centre[i]);
-#pragma unroll
-        for (int j = 0; j <= i; ++j)
-          damped[tri(i, j)] =
-              prec[tri(i, j)] + (i == j ? alpha * prec[tri(i, i)] : 0.f);
-      }
-      cholesky<P>(damped, 0.f, dch);
-      chol_solve<P>(dch, x);
-#pragma unroll
-      for (int i = 0; i < P; ++i) means[i] = centre[i] + x[i];
-    }
-  }
-
-  // ---- pass B: k = r + J (centre - means) at the centre -----------------
-  float d[P];
-#pragma unroll
-  for (int i = 0; i < P; ++i) d[i] = centre[i] - means[i];
-  float nkqk[Q];
-  k_pass<M, Q>(mrow, chain, k.dt, d, col, k.nt, nkqk);
-
-#pragma unroll
-  for (int i = 0; i < P; ++i) means_out[(size_t)i * V + v] = means[i];
-  store_full<P>(prec, prec_out, V, v);
-  store_full<P>(cov, cov_out, V, v);
-
-  // ---- pass C: free-energy quadratics at the new means ------------------
-  float fkqk[Q], ftr[Q];
-  if (k.need_f) {
-    f_pass<M, Q>(k.tcode, k.dt, means, cov, col, k.nt, fkqk, ftr);
-  } else {
-#pragma unroll
-    for (int q = 0; q < Q; ++q) fkqk[q] = ftr[q] = 0.f;
-  }
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    nkqk_out[(size_t)q * V + v] = nkqk[q];
-    ntr_out[(size_t)q * V + v] = trace_packed<P>(cov, jtj[q]);
-    fkqk_out[(size_t)q * V + v] = fkqk[q];
-    ftr_out[(size_t)q * V + v] = ftr[q];
-  }
-}
-
-// ---- launch and C entry point -------------------------------------------
-
-// the dynamic shared memory of vb (0: streamed) at nt samples and Q
-// groups, -1 where it is refused (tile.cuh tile_bytes)
-inline long long iter_smem(int vb, int nt, int q) {
-  return vb == 0 ? 0 : tile_bytes(vb, nt, nt * q, kThreads);
-}
-
-// One instance's launch, or (occ not null) its blocks per SM: vb = 0
-// streams in blocks of kThreads, vb > 0 stages in blocks of vb lanes with
-// smem bytes of dynamic shared memory.
-template <class M, int Q, bool LM, bool STAGED>
-int launch_form(const VBParams& k, int vb, long long smem,
-                const float* const* ins, float* const* outs,
-                cudaStream_t stream, int* occ) {
-  const auto kernel = fused_vb_iter_kernel<M, Q, LM, STAGED>;
-  const int threads = STAGED ? vb : kThreads;
-  const int err = tile_setup(kernel, STAGED ? vb : 0, smem);
-  if (err != 0) return err;
-  if (occ != nullptr) {
-    *occ = tile_occupancy(kernel, threads, smem);
-    return 0;
-  }
-  const unsigned grid = (unsigned)((k.V + threads - 1) / threads);
-  kernel<<<grid, threads, smem, stream>>>(
-      k, ins[0], ins[1], ins[2], ins[3], ins[4], ins[5], ins[6], outs[0],
-      outs[1], outs[2], outs[3], outs[4], outs[5], outs[6]);
-  return (int)cudaGetLastError();
-}
-
-template <class M, int Q, bool LM>
-int launch_lm(const VBParams& k, int vb, long long smem,
-              const float* const* ins, float* const* outs,
-              cudaStream_t stream, int* occ) {
-  if (vb > 0)
-    return launch_form<M, Q, LM, true>(k, vb, smem, ins, outs, stream, occ);
-  return launch_form<M, Q, LM, false>(k, 0, 0, ins, outs, stream, occ);
-}
-
-// lm: the LM branch (alpha given); occ: see launch_form
-template <class M, int Q>
-int launch(const VBParams& k, bool lm, int vb, long long smem,
-           const float* const* ins, float* const* outs, cudaStream_t stream,
-           int* occ = nullptr) {
-  if (lm) return launch_lm<M, Q, true>(k, vb, smem, ins, outs, stream, occ);
-  return launch_lm<M, Q, false>(k, vb, smem, ins, outs, stream, occ);
-}
-
-}  // namespace
+#include "fused_vb_iter.cuh"
 
 // (kind, p, q): one of FABBER_NL_INSTANCES (vb_device.cuh).
 // tcodes_host [p] (host). centre, pm, pp [p,V]; phi [q,V]; data [nt,V];
@@ -284,15 +28,9 @@ extern "C" int fabber_fused_vb_iter(
     float* prec, float* cov, float* nkqk, float* ntr, float* fkqk,
     float* ftr, int vb, void* stream) {
   const long long smem = iter_smem(vb, nt, q);
-  if (p < 1 || p > kMaxP || q < 1 || q > kMaxQ || nt < 1 || V < 1 ||
-      smem < 0)
+  VBParams k;
+  if (!iter_setup(p, q, tcodes_host, dt, need_f, nt, V, smem, &k))
     return (int)cudaErrorInvalidValue;
-  VBParams k = {};
-  for (int i = 0; i < p; ++i) k.tcode[i] = tcodes_host[i];
-  k.dt = dt;
-  k.need_f = need_f;
-  k.nt = nt;
-  k.V = V;
   const float* const ins[7] = {centre, pm, pp, phi, data, qw, alpha};
   float* const outs[7] = {means, prec, cov, nkqk, ntr, fkqk, ftr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -311,14 +49,9 @@ extern "C" int fabber_vb_iter_occupancy(int kind, int p, int q, int lm,
                                         int vb, int nt) {
   const long long smem = iter_smem(vb, nt, q);
   if (smem < 0) return -1;
-  VBParams k = {};
-  int occ = 0;
-#define FABBER_OCC(KIND, NP, MODEL, NQ)                                  \
-  if (kind == KIND && p == NP && q == NQ)                                \
-    return launch<MODEL, NQ>(k, lm != 0, vb, smem, nullptr, nullptr,     \
-                             nullptr, &occ) == 0                         \
-               ? occ                                                     \
-               : -1;
+#define FABBER_OCC(KIND, NP, MODEL, NQ)  \
+  if (kind == KIND && p == NP && q == NQ) \
+    return occupancy<MODEL, NQ>(lm != 0, vb, smem);
   FABBER_NL_INSTANCES(FABBER_OCC)
 #undef FABBER_OCC
   return -1;

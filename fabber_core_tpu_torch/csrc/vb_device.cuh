@@ -1,5 +1,6 @@
-// vb_device.cuh: device code shared by the nonlinear VB kernels
-// (fused_nl_loop.cu, fused_vb_iter.cu), for Hopper (sm_90a).
+// vb_device.cuh: device code shared by the nonlinear kernels
+// (fused_nl_loop.cuh, fused_vb_iter.cuh, fused_nlls.cuh), for Hopper
+// (sm_90a).
 //
 // The counterpart of what the TPU kernels share in
 // fabber_core_tpu/ops/fused_vb.py (make_block_eval: the in-kernel model
@@ -151,18 +152,9 @@ struct ExpSum {
 };
 
 // The model at one time index: signal, latent-space Jacobian
-// (model-space Jacobian times the hoisted chain factors).
-template <class M>
-__device__ __forceinline__ float eval_latent(const float* mrow,
-                                             const float* chain, float t,
-                                             float dt, float* jac) {
-  const float sig = M::eval(mrow, t, dt, jac);
-#pragma unroll
-  for (int i = 0; i < M::P; ++i) jac[i] *= chain[i];
-  return sig;
-}
-
-// the same with the voxel's suppdata (the whole-loop kernel's functors)
+// (model-space Jacobian times the hoisted chain factors), with the
+// voxel's suppdata supp (M::NS values; the kernels whose functors read
+// none pass null).
 template <class M>
 __device__ __forceinline__ float eval_latent(const float* mrow,
                                              const float* chain,

@@ -36,10 +36,13 @@ Routes (ROUTES), chosen by the JAX engine's gates in its order (its
                 posterior from a file): the per-iteration loop through
                 the Linearizer, plain torch (XLA in the JAX package).
 
-On "cuda" the kernel route needs the model's functor (kernel_model())
-among the kernel's instances (csrc/vb_device.cuh FABBER_NL_INSTANCES):
-a run without one raises at construction, never runs plain torch on the
-card. The whole volume runs in one pass; the JAX engine's voxel windows
+On "cuda" the kernel route needs the model's functor: a hand-written
+one among the kernel's instances (kernel_model(), csrc/vb_device.cuh
+FABBER_NL_INSTANCES), else one generated from its time_signal
+(models/kernelgen.py), built at construction (ops/_cuda.py
+build_generated, kernel "nlls"). A run with neither (P > 4, or a
+time_signal the generator refuses) raises at construction, never runs
+plain torch on the card. The whole volume runs in one pass; the JAX engine's voxel windows
 and its per-shard dispatch are not ported (ROADMAP Queue 1 item 18).
 """
 
@@ -54,8 +57,9 @@ from ..ops import smallmat as sm
 from ..ops.fused_nlls import (LAMBDA_INIT, PREC_DIAG_FLOOR, accept,
                               fused_nlls_loop, nlls_instantiated)
 from ..options import OptionSpec, OPT_BOOL, OPT_INT, OPT_STR
+from ..models.kernelgen import derive_time_signal_functor
 from .linearize import Linearizer
-from .vb import VBResult, supp_plane
+from .vb import VBResult, require_generatable, supp_plane
 
 FAIL_PRECISION = 1e-12
 
@@ -185,6 +189,9 @@ class NLLSInference:
             self.route = "nlls-kernel"
         else:
             self.route = "nlls-generic"
+        # the NLLS kernel's functor generated from the model's
+        # time_signal, where it has no hand-written one (on "cuda")
+        self.functor = None
         self._require_kernel_instance()
         if self.route == "nlls-stats":
             self._eig = self._eigenbasis()
@@ -192,22 +199,22 @@ class NLLSInference:
 
     def _require_kernel_instance(self):
         """On "cuda" the kernel route needs the NLLS kernel compiled for
-        the model's functor; a run without one raises here, before
-        anything launches. On "cpu" the route runs the plain version,
-        which takes any time-local model."""
+        the model's functor: a hand-written instance, else a functor
+        generated from the model's time_signal, built (or loaded) now
+        into functor.libs[("nlls", None)]; a run with neither raises
+        here, before anything launches. On "cpu" the route runs the
+        plain version, which takes any time-local model."""
         if self.device.type != "cuda" or self.route != "nlls-kernel":
             return
-        km = self.model.kernel_model()
-        if nlls_instantiated(km):
+        if nlls_instantiated(self.model.kernel_model()):
             return
-        what = ("has no CUDA model functor (kernel_model)" if km is None
-                else f"at P={km.nparams} is not among the NLLS kernel's "
-                "instances (csrc/vb_device.cuh FABBER_NL_INSTANCES)")
-        raise NotImplementedError(
-            f"model '{self.model.name}' {what}, so the 'nlls-kernel' route "
-            f"({ROUTES['nlls-kernel']}) cannot run it on the card (ROADMAP "
-            "Queue 1 item 19: functors generated for kernels 7 and 8); "
-            "device='cpu' runs the route's plain version")
+        functor = derive_time_signal_functor(self.model, self.nparams)
+        require_generatable(self.model, functor, self.nparams, None,
+                            self.route)
+        from ..ops import _cuda
+        functor.libs[("nlls", None)] = _cuda.build_generated(
+            functor.source, self.nparams, None, "nlls")
+        self.functor = functor
 
     def route_description(self):
         """Which optimizer arithmetic this configuration landed on
@@ -332,12 +339,13 @@ class NLLSInference:
         if cap == 0 or self.max_its <= cap:
             params, cost, its, prec, cov = fused_nlls_loop(
                 self.model, tr, p0, self.data.contiguous(), self.tmask_host,
-                self.max_its, self.marquardt)
+                self.max_its, self.marquardt, functor=self.functor)
         else:
             (params1, data1, state1), inv = self._phase1(p0)
             outs = fused_nlls_loop(self.model, tr, params1, data1,
                                    self.tmask_host, self.max_its - cap,
-                                   self.marquardt, state=state1)
+                                   self.marquardt, state=state1,
+                                   functor=self.functor)
             params, cost, its, prec, cov = (o[..., inv] for o in outs)
         nv = self.nvoxels
         s = NLLSState(params=params, cost=cost,
@@ -357,7 +365,7 @@ class NLLSInference:
         params1, state1 = fused_nlls_loop(
             self.model, [pm.transform for pm in self.params], p0, data,
             self.tmask_host, self.phase1_its, self.marquardt,
-            posterior=False)
+            posterior=False, functor=self.functor)
         order = torch.argsort(state1[2], stable=True)
         return ((params1[:, order].contiguous(), data[:, order].contiguous(),
                  state1[:, order].contiguous()), torch.argsort(order))

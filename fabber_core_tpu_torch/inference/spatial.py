@@ -35,8 +35,10 @@ fixed-design-route=direct). Sweep modes:
 Not ported: the JAX package's grid-carried P=1 fast sweep
 (_compiled_sweeps_dense_p1), a fix for the TPU's tile layout of [1,V]
 planes; bench.py's `spatial` configuration (P=1) runs the general sweep
-here. Still raising: spatial-prior-output-correction (ROADMAP Queue 1
-item 17b) and sharded or distributed runs (item 18).
+here. spatial-prior-output-correction adds the likelihood-only
+posterior after the sweeps (compute_noprior, a blocked run's data
+shipped block by block). Still raising: sharded or distributed runs
+(ROADMAP Queue 1 item 18).
 """
 
 from typing import Any, NamedTuple
@@ -238,7 +240,8 @@ class SpatialVBInference(VBInference):
 
     def _select_route(self):
         """Spatial runs take the spatial sweep (motion correction is
-        refused as the JAX package refuses it, spatial.py:140-145)."""
+        refused as the JAX package refuses it, spatial.py:140-145; the
+        likelihood-only output is computed after it, _finish)."""
         mode = self.options.get_string("engine-kernel", "auto")
         if mode not in ENGINE_KERNELS:
             raise InvalidOptionValue("engine-kernel", mode,
@@ -247,8 +250,6 @@ class SpatialVBInference(VBInference):
             raise InvalidOptionValue(
                 "mcsteps", self.options.get_string("mcsteps"),
                 "Motion correction is implemented for method=vb only")
-        if self.options.get_bool("spatial-prior-output-correction"):
-            return "noprior-output"
         return "spatial"
 
     def route_description(self):
@@ -684,11 +685,18 @@ class SpatialVBInference(VBInference):
         s, nswept = self._sweeps(s, self._planes(), stats)
         return self._finish(s, nswept)
 
+    def _noprior_chunk(self):
+        """compute_noprior's voxels per pass: a blocked run's block, its
+        data shipped from the host one block at a time."""
+        return self.block_voxels or self.nvoxels
+
     def _finish(self, s, nswept):
         """final_ak, the coefficient resels (Penny 2005,
         inference_vb.cc:727-756: per parameter the mean over voxels of
         1 - sigma_post/sigma_prior, excised voxels counting 0) and the
-        result, excised voxels marked bad."""
+        result, excised voxels marked bad, with the likelihood-only
+        posterior under spatial-prior-output-correction (JAX
+        spatial.py:919-920, 1186-1187)."""
         self.final_ak = s.ak.to(self.dtype).cpu().numpy()
         gamma = 1.0 - sm.diag_of(s.post.cov) * s.post.prior_prec
         gamma = torch.where(s.bad[None] | ~torch.isfinite(gamma), 0.0, gamma)
@@ -705,8 +713,11 @@ class SpatialVBInference(VBInference):
         result = self._to_result(final)
         if self.progress_cb is not None:
             self.progress_cb(nv, nv)
-        return result._replace(
+        result = result._replace(
             bad_voxels=result.bad_voxels | s.bad.cpu().numpy())
+        if self.options.get_bool("spatial-prior-output-correction"):
+            result = self.compute_noprior(result)
+        return result
 
     def _run_blocked(self, continue_means, continue_cov, continue_noise):
         """The beyond-device-memory run: the state lives on the host;

@@ -82,16 +82,22 @@ with the best-state save/revert protocol (vb.py:954-1047, 2028-2048,
 2603-2627).
 
 _select_route applies the JAX gates in the JAX engine's order (its
-`auto` as on the TPU), the same way on "cpu" and "cuda"; a run those
-gates send to an unported route (motion correction, the likelihood-only
-output) raises NotImplementedError naming it.
+`auto` as on the TPU), the same way on "cpu" and "cuda".
 On "cuda" a kernel route also needs its kernels compiled for the run's
 shape (csrc/vb_device.cuh FABBER_NL_INSTANCES for the model functors, or
-a functor generated from the model, built at first use,
-csrc/whole_device.cuh FABBER_WHOLE_INSTANCES for (P, Q), csrc/
+a functor generated from the model for kernels 6 and 7, built at first
+use, csrc/whole_device.cuh FABBER_WHOLE_INSTANCES for (P, Q), csrc/
 fused_ar_loop.cu FABBER_AR_INSTANCES for AR's (P, echoes)); a run outside
-them raises at construction. Choosing a route is a decision made before
-any launch, never a fallback after a failure.
+them raises at construction (a continued run's route, before its first
+launch). Choosing a route is a decision made before any launch, never a
+fallback after a failure.
+
+run() is the route's run, then, with mcsteps > 0, the motion-correction
+steps (core/motion.py: the original data registered to the model fit,
+then VB continued on the realigned data through continuation_route()),
+then, with spatial-prior-output-correction, the likelihood-only
+posterior (compute_noprior) at the final state: features of every
+route, as the JAX engine's run() (vb.py:2421-2526) has them.
 """
 
 import math
@@ -129,50 +135,46 @@ from .convergence import get_detector_class
 from .linearize import Linearizer
 from .priors import PriorSetup
 
-# Named route table: JAX route name -> (what it is, None if ported here
-# else the ROADMAP item that ports it). Names follow the JAX package's
-# --engine-kernel values and route_description strings.
+# Named route table: JAX route name -> what it is. Names follow the JAX
+# package's --engine-kernel values and route_description strings.
 ROUTES = {
     "spectral-whole": (
         "whole-program spectral route (CUDA statistics kernel + "
-        "eigenbasis core kernel)", None),
+        "eigenbasis core kernel)"),
     "spectral-fused": ("whole-program spectral route in one kernel "
-                       "(spectral-impl=fused)", None),
+                       "(spectral-impl=fused)"),
     "spectral-xstats": ("whole-program spectral route (plain-torch "
                         "statistics + eigenbasis core kernel, "
-                        "spectral-impl=xstats)", None),
+                        "spectral-impl=xstats)"),
     "pallas-whole": ("whole-program fixed-design kernel (in-kernel "
-                     "sufficient statistics + fixed point)", None),
+                     "sufficient statistics + fixed point)"),
     "pallas-loop": ("whole-loop fixed-design kernel (plain-torch "
-                    "statistics input)", None),
+                    "statistics input)"),
     "xla": ("fixed-design sufficient-statistics route (plain torch; the "
-            "JAX package leaves it to XLA, so it has no kernel)", None),
-    "pallas-loop-nl": (
-        "whole-loop nonlinear kernel (time_signal mode)", None),
-    "pallas": ("per-iteration fused kernel (time_signal mode)", None),
+            "JAX package leaves it to XLA, so it has no kernel)"),
+    "pallas-loop-nl": "whole-loop nonlinear kernel (time_signal mode)",
+    "pallas": "per-iteration fused kernel (time_signal mode)",
     "xla-generic": ("generic-Jacobian route (plain torch; the JAX "
-                    "package leaves it to XLA, so it has no kernel)", None),
+                    "package leaves it to XLA, so it has no kernel)"),
     "xla-direct": ("fixed-design direct route (plain torch; the JAX "
-                   "package leaves it to XLA, so it has no kernel)", None),
+                   "package leaves it to XLA, so it has no kernel)"),
     "spectral": ("spectral eigenbasis fixed point (plain torch; the JAX "
-                 "package leaves it to XLA, so it has no kernel)", None),
+                 "package leaves it to XLA, so it has no kernel)"),
     "pallas-loop-ar": ("whole-loop AR(1) fixed-design kernel (plain-torch "
-                       "statistics input)", None),
-    "motion-correction": ("VB with interleaved motion correction "
-                          "(mcsteps > 0)", "ROADMAP Queue 1 item 17b"),
-    "noprior-output": ("likelihood-only posterior output "
-                       "(spatial-prior-output-correction)",
-                       "ROADMAP Queue 1 item 17b"),
+                       "statistics input)"),
     "spatial": ("spatial VB sweeps (inference/spatial.py; plain torch, "
                 "the JAX package leaves them to XLA, so they have no "
-                "kernel)", None),
+                "kernel)"),
     # features a run needs beyond its route, served by the routes above
-    "ard-priors": ("ARD priors (an iteration-dependent prior sweep)", None),
-    "spatial-priors": ("spatial priors (spatial VB)", None),
+    "motion-correction": ("VB with interleaved motion correction "
+                          "(mcsteps > 0; core/motion.py)"),
+    "noprior-output": ("likelihood-only posterior output "
+                       "(spatial-prior-output-correction)"),
+    "ard-priors": "ARD priors (an iteration-dependent prior sweep)",
+    "spatial-priors": "spatial priors (spatial VB)",
     "locked-linear": ("fixed linearization centres "
-                      "(locked-linear-from-mvn)", None),
+                      "(locked-linear-from-mvn)"),
 }
-LIVE_ROUTES = tuple(k for k, (_, todo) in ROUTES.items() if todo is None)
 # the JAX package's --engine-kernel values
 ENGINE_KERNELS = ("auto", "pallas", "pallas-loop", "pallas-whole",
                   "spectral", "spectral-whole", "xla")
@@ -276,6 +278,9 @@ class VBInference:
                        "Also output the likelihood-only posterior"),
             OptionSpec("mcsteps", OPT_INT,
                        "Number of motion correction steps", default="0"),
+            OptionSpec("mc-dof", OPT_INT,
+                       "Motion correction degrees of freedom: 6 (rigid) "
+                       "or 12 (affine)", default="6"),
             OptionSpec("engine-kernel", OPT_STR,
                        "Iteration backend, as the JAX package names it: "
                        "auto, pallas (per-iteration time-signal kernel), "
@@ -391,6 +396,19 @@ class VBInference:
                 dtype=self.dtype, device=plane_device)
         self.continued = continued or options.get_string(
             "continue-from-mvn", "") != ""
+        # motion correction (core/motion.py; JAX vb.py:327-338): mcsteps
+        # > 0 re-registers the original data to the model fit between VB
+        # passes
+        self.num_mcsteps = options.get_int("mcsteps", 0)
+        self.mc_dof = options.get_int("mc-dof", 6)
+        if self.mc_dof not in (6, 12):
+            raise InvalidOptionValue(
+                "mc-dof", str(self.mc_dof),
+                "Motion-correction dof must be 6 (rigid) or 12 (affine)")
+        self.mc_translations = []   # per step, max |translation| (voxels)
+        self.mc_saturated = False
+        self._mc_orig_data = None
+        self._mc_registerer = None
 
         # constant design [T,P] (float64 host) for models linear in
         # their untransformed parameters
@@ -429,7 +447,6 @@ class VBInference:
         self.functor = None
 
         self.route = self._select_route()
-        _raise_unported(self.route)
         self._require_kernel_instance()
         self.noise_prior = None
         self.progress_cb = None
@@ -442,10 +459,6 @@ class VBInference:
         if mode not in ENGINE_KERNELS:
             raise InvalidOptionValue("engine-kernel", mode,
                                      "Unknown engine route")
-        if o.get_int("mcsteps", 0) > 0:
-            return "motion-correction"
-        if o.get_bool("spatial-prior-output-correction"):
-            return "noprior-output"
         if self.design is not None:
             return self._design_route(mode)
         return self._nonlinear_route(mode)
@@ -560,74 +573,56 @@ class VBInference:
             return "pallas-loop-nl"
         return "pallas" if mode in ("auto", "pallas") else "xla-generic"
 
-    def _require_kernel_instance(self):
-        """On "cuda" the kernel routes need their kernels compiled for
-        the run: the nonlinear kernels a hand-written model functor
-        (model.kernel_model()) at its (P, Q), the fixed-design kernels
-        4 and 5 the run's (P, Q). A run without one raises here, before
-        anything launches. On "cpu" the routes run their plain
-        versions, which take any shape."""
+    def _require_kernel_instance(self, route=None):
+        """On "cuda" a kernel route (default the run's; a continued run
+        asks for continuation_route()'s) needs its kernels compiled for
+        the run: the nonlinear kernels 6 and 7 a model functor at the
+        run's (P, Q), hand-written (model.kernel_model(), among
+        FABBER_NL_INSTANCES) or else generated from the model and built
+        now, the fixed-design kernels 4 and 5 the run's (P, Q). A run
+        without one raises here, before anything launches. On "cpu" the
+        routes run their plain versions, which take any shape."""
         if self.device.type != "cuda":
             return
+        route = route or self.route
         nq = self.noise.nphis
-        if self.route == "pallas-loop-ar":
+        if route == "pallas-loop-ar":
             if ar_instantiated(self.nparams, nq):
                 return
             raise NotImplementedError(
                 f"P={self.nparams} with {nq} echo group(s) is not among the "
                 "AR(1) kernel's instances (csrc/fused_ar_loop.cu "
                 "FABBER_AR_INSTANCES), so the 'pallas-loop-ar' route "
-                f"({ROUTES[self.route][0]}) cannot run it on the card; "
+                f"({ROUTES[route]}) cannot run it on the card; "
                 "device='cpu' runs the route's plain version")
-        if self.route in WHOLE_ROUTES:
+        if route in WHOLE_ROUTES:
             if whole_instantiated(self.nparams, nq):
                 return
             raise NotImplementedError(
                 f"P={self.nparams}, Q={nq} is not among the fixed-design "
                 "kernels' instances (csrc/whole_device.cuh "
-                f"FABBER_WHOLE_INSTANCES), so the '{self.route}' route "
-                f"({ROUTES[self.route][0]}) cannot run it on the card; "
+                f"FABBER_WHOLE_INSTANCES), so the '{route}' route "
+                f"({ROUTES[route]}) cannot run it on the card; "
                 "device='cpu' runs the route's plain version")
-        if self.route == "pallas-loop-nl" and (
-                self.generic is not None
-                or self.model.kernel_model() is None):
-            self._require_generated(nq)
+        if route not in FUNCTOR_ROUTES:
             return
-        if self.route not in FUNCTOR_ROUTES:
+        if self.generic is None and kernel_instantiated(
+                self.model.kernel_model(), nq):
             return
-        km = self.model.kernel_model()
-        if kernel_instantiated(km, nq):
-            return
-        what = ("has no CUDA model functor (kernel_model)" if km is None
-                else f"at P={km.nparams}, Q={nq} is not among the CUDA "
-                "kernels' instances (csrc/vb_device.cuh "
-                "FABBER_NL_INSTANCES)")
-        raise NotImplementedError(
-            f"model '{self.model.name}' {what}, so the '{self.route}' "
-            f"route ({ROUTES[self.route][0]}) cannot run it on the card "
-            "(ROADMAP Queue 1 item 19: functors generated for kernels 7 "
-            "and 8); device='cpu' runs the route's plain version")
+        self._require_generated(route, nq)
 
-    def _require_generated(self, nq):
-        """The whole-loop kernel with a functor generated from the model
-        (its evaluate on the generic route, else its time_signal),
-        built (or loaded) now; raises when it cannot be."""
-        functor = self.generic or derive_time_signal_functor(
-            self.model, self.nparams)
-        why = None
-        if functor is None:
-            why = "its time_signal traces to an op the generator lacks"
-        elif self.nparams > 4 or nq > 4:
-            why = (f"P={self.nparams}, Q={nq} is above the kernel's "
-                   "P <= 4, Q <= 4 (csrc/vb_device.cuh kMaxP, kMaxQ)")
-        if why is not None:
-            raise NotImplementedError(
-                f"model '{self.model.name}' has no CUDA model functor "
-                f"(kernel_model) and none can be generated: {why}; "
-                "device='cpu' runs the route's plain version")
+    def _require_generated(self, route, nq):
+        """route's kernel (6 for pallas-loop-nl, 7 for pallas) with a
+        functor generated from the model (its evaluate on the generic
+        route, else its time_signal), built (or loaded) now into
+        functor.libs[(kernel, Q)]; raises when it cannot be."""
+        kernel = "nl_loop" if route == "pallas-loop-nl" else "vb_iter"
+        functor = self.functor or self.generic \
+            or derive_time_signal_functor(self.model, self.nparams)
+        require_generatable(self.model, functor, self.nparams, nq, route)
         from ..ops import _cuda
-        functor.libs[nq] = _cuda.build_generated(functor.source,
-                                                 self.nparams, nq)
+        functor.libs[(kernel, nq)] = _cuda.build_generated(
+            functor.source, self.nparams, nq, kernel)
         self.functor = functor
 
     def route_description(self):
@@ -645,7 +640,7 @@ class VBInference:
             # the JAX engine's words (vb.py:695-702)
             return ("whole-loop nonlinear kernel (generic full-time mode, "
                     "in-kernel evaluator derived from evaluate())")
-        return ROUTES[self.route][0]
+        return ROUTES[self.route]
 
     def evaluate_model(self, means_planes):
         """Model prediction [T,V] tensor at latent means [P,V] (for the
@@ -1227,7 +1222,8 @@ class VBInference:
             self.model, self._transforms(), s.centre.contiguous(),
             prior_means.contiguous(), prior_prec.contiguous(), phi,
             self._kernel_data(), self.noise.qmasks, self.need_f,
-            s.conv.alpha.contiguous() if self.is_lm else None)
+            s.conv.alpha.contiguous() if self.is_lm else None,
+            functor=self.functor)
         noise_post = self.noise._noise_from_quadratics(
             list(nkqk), list(ntr), self.noise_prior)
         return means, prec, cov, noise_post, (fkqk, ftr)
@@ -1391,10 +1387,117 @@ class VBInference:
             continue_noise=None):
         """The VB run -> VBResult. continue_means [V,P] / continue_cov
         [V,P,P] / continue_noise (a noise state of [Q,V] planes) start
-        it from a programmatic posterior (the per-iteration routes)."""
+        it from a programmatic posterior (the per-iteration routes).
+        Then, with mcsteps > 0, the motion-correction steps (voxelwise VB
+        only) and, with spatial-prior-output-correction, the
+        likelihood-only posterior (JAX vb.py:2421-2427)."""
+        result = self._run_vb(continue_means, continue_cov, continue_noise)
+        if self.num_mcsteps > 0 and type(self) is VBInference:
+            result = self._run_mc_steps(result)
+        if self.options.get_bool("spatial-prior-output-correction"):
+            result = self.compute_noprior(result)
+        return result
+
+    def _noprior_chunk(self):
+        """Voxels per compute_noprior pass: the whole volume, or a
+        blocked spatial run's block (its data stays on the host)."""
+        return self.nvoxels
+
+    def compute_noprior(self, result):
+        """thetaWithoutPrior (--spatial-prior-output-correction; JAX
+        vb.py:2429-2461): the likelihood-only posterior, precision J'XJ
+        with no prior term and means (J'XJ)^-1 J'X(data - g(m) + Jm), at
+        the final state: the noise model's update_theta with zero prior
+        planes at the result's means and noise, in voxel chunks, on any
+        route (a kernel route's result too). Where J'XJ is singular the
+        update's jitter retry decides, as in the JAX package."""
+        p, nv = self.nparams, self.nvoxels
+        nst = self.noise.state_from_mvn(result.noise_means, result.noise_cov)
+        chunk = self._noprior_chunk()
+        # the design is the Jacobian where the noise model takes it
+        # directly; a statistics-only noise model (AR) linearizes it
+        direct = self.design is not None and getattr(
+            self.noise, "fixed_design_direct", True)
+        outs_m, outs_c = [], []
+        for lo in range(0, nv, chunk):
+            hi = min(lo + chunk, nv)
+
+            def ship(x):
+                return None if x is None else x[..., lo:hi].to(self.device)
+            means = torch.as_tensor(np.asarray(result.means)[lo:hi].T,
+                                    dtype=self.dtype, device=self.device)
+            noise = type(nst)(*(ship(torch.as_tensor(x)).to(self.dtype)
+                                for x in nst))
+            data = ship(self.data).to(self.dtype)
+            centre = ship(self.locked_centres) if self.locked_linear \
+                else means
+            if direct:
+                offset, jac = self._design_tensor() @ centre, None
+                kw = {"design": self._design_tensor()}
+            else:
+                offset, jac = self.linearizer(centre, data,
+                                              ship(self.coords),
+                                              ship(self.supp))
+                kw = {}
+            zeros = torch.zeros((p, hi - lo), dtype=self.dtype,
+                                device=self.device)
+            m, _, cov, _ = self.noise.update_theta(
+                noise, means, zeros, zeros, means, offset, jac, data, None,
+                **kw)
+            outs_m.append(m.t().cpu().numpy())
+            outs_c.append(cov.permute(2, 0, 1).cpu().numpy())
+        return result._replace(noprior_means=np.concatenate(outs_m),
+                               noprior_cov=np.concatenate(outs_c))
+
+    def _run_mc_steps(self, result):
+        """Motion correction interleaved with VB continuation passes
+        (MCobj::run_mc; JAX vb.py:2462-2526): per step, every timepoint of
+        the original data registered to the model fit at the current
+        means (core/motion.py), then VB continued on the realigned data
+        from the current posterior and noise (continuation_route()).
+        Sets mc_translations (per step, the largest |translation| of the
+        volume centre, voxels), mc_saturated (a step came within 75% of
+        the pyramid's capture range) and mc_capture_range."""
+        from ..core.motion import make_registerer, register_timeseries
+        # repeated run() calls register from the original data, never
+        # from data an earlier call realigned
+        if self._mc_orig_data is None:
+            self._mc_orig_data = self.data
+        orig = self._mc_orig_data
+        coords = self.coords.t().cpu().numpy()                 # [V,3]
+        shape = tuple(int(c) + 1 for c in coords.max(axis=0))
+        if self._mc_registerer is None:
+            self._mc_registerer = make_registerer(
+                coords, shape, dof=self.mc_dof, device=self.device)
+        reg = self._mc_registerer
+        self.mc_translations = []
+        self.mc_saturated = False
+        self.mc_capture_range = reg.capture_range
+        for _ in range(self.num_mcsteps):
+            fit = self.evaluate_model(np.asarray(result.means).T)  # [T,V]
+            realigned, disp = register_timeseries(
+                orig, fit, coords, shape, dof=self.mc_dof, reg=reg)
+            step_max = float(np.abs(disp).max())
+            self.mc_translations.append(step_max)
+            if step_max >= 0.75 * reg.capture_range:
+                self.mc_saturated = True
+            self.data = realigned.to(self.data.dtype).contiguous()
+            cn = self.noise.state_from_mvn(result.noise_means,
+                                           result.noise_cov)
+            result = self._run_vb(continue_means=result.means,
+                                  continue_cov=result.cov,
+                                  continue_noise=cn)
+        return result
+
+    def _run_vb(self, continue_means=None, continue_cov=None,
+                continue_noise=None):
+        """The route's run (a continued run on continuation_route(), its
+        kernel built first) -> VBResult."""
         route = self.route
         if continue_means is not None or continue_noise is not None:
             route = self.continuation_route()
+            if route != self.route:
+                self._require_kernel_instance(route)
         s = self.initial_state(continue_means, continue_cov, continue_noise)
         if route in ("spectral-whole", "spectral-fused", "spectral-xstats"):
             final = self._run_spectral_whole(s)
@@ -1457,6 +1560,27 @@ def _no_voxel_data(key):
     raise KeyError(key)
 
 
+def require_generatable(model, functor, nparams, nq, route):
+    """Raise where a functor generated from the model cannot serve the
+    route's kernel on the card: none could be generated (functor None),
+    or P (and Q; None for the NLLS kernel) lie above the generated
+    functors' P <= 4, Q <= 4. Both are ROADMAP Queue 1 item 20's."""
+    why = None
+    if functor is None:
+        why = "its time_signal traces to an op the generator lacks"
+    elif nparams > 4 or (nq or 1) > 4:
+        shape = f"P={nparams}" + ("" if nq is None else f", Q={nq}")
+        why = (f"{shape} is above the generated functors' P <= 4, Q <= 4 "
+               "(csrc/vb_device.cuh kMaxP, kMaxQ)")
+    if why is not None:
+        raise NotImplementedError(
+            f"model '{model.name}' has no CUDA model functor among the "
+            "kernels' instances (csrc/vb_device.cuh FABBER_NL_INSTANCES) "
+            f"and none can be generated: {why}, so the '{route}' route "
+            "cannot run it on the card (ROADMAP Queue 1 item 20); "
+            "device='cpu' runs the route's plain version")
+
+
 def supp_plane(suppdata, nvoxels, dtype, device):
     """[V,S] suppdata (numpy, at the API boundary) as an [S,V] plane on
     the device, or None for none (S = 0), as the JAX engines keep it."""
@@ -1480,12 +1604,3 @@ def _digamma(x):
     return (r + math.log(x) - 0.5 / x
             - inv2 * (1 / 12 - inv2 * (1 / 120 - inv2
                                        * (1 / 252 - inv2 / 240))))
-
-
-def _raise_unported(route):
-    desc, todo = ROUTES[route]
-    if todo is not None:
-        raise NotImplementedError(
-            f"this run needs the JAX package's '{route}' ({desc}), which "
-            f"is not ported to fabber_core_tpu_torch yet ({todo}); the "
-            f"port runs {', '.join(LIVE_ROUTES)}")

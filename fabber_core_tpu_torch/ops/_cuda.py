@@ -28,7 +28,8 @@ SOURCES = ("spectral_stats.cu", "spectral_core.cu", "spectral_fused.cu",
            "fused_nl_loop.cu", "fused_vb_iter.cu", "fused_whole.cu",
            "fused_loop.cu", "fused_nlls.cu", "fused_ar_loop.cu")
 HEADERS = ("vb_device.cuh", "detectors.cuh", "spectral_device.cuh",
-           "fused_nl_loop.cuh", "dual.cuh", "tile.cuh", "whole_device.cuh")
+           "fused_nl_loop.cuh", "fused_vb_iter.cuh", "fused_nlls.cuh",
+           "dual.cuh", "tile.cuh", "whole_device.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -69,7 +70,7 @@ DETECTOR_CODES = {"maxits": 0, "pointzeroone": 1, "freduce": 2,
 
 _lib = None
 build_log = ""   # nvcc's output (incl. -Xptxas -v) of this process's build
-# generated model functors: source hash -> (library, nq, nparams, nsupp)
+# libraries of generated model functors: build key -> loaded library
 _gen_libs = {}
 gen_build_log = {}   # source hash -> (seconds, nvcc's output)
 
@@ -219,19 +220,23 @@ def load():
     return _lib
 
 
-# the C entry point of a library built from a generated model functor:
-# kernel 6 at the functor's P and the run's Q, its three MODEs
-_GEN_TEMPLATE = """// generated by fabber_core_tpu_torch/ops/_cuda.py build_generated: the
-// whole-loop kernel (fused_nl_loop.cuh) with a model functor generated
-// from a model (models/kernelgen.py) at P = {p}, Q = {q}.
+# The head of a library built from a generated model functor: the
+# kernel's header and the functor.
+_GEN_HEAD = """// generated by fabber_core_tpu_torch/ops/_cuda.py build_generated: the
+// {what} ({header}) with a model functor generated
+// from a model (models/kernelgen.py) at P = {p}{qtext}.
 #include "dual.cuh"
-#include "fused_nl_loop.cuh"
+#include "{header}"
 
 namespace {{
 using namespace fabber::gen;
 {source}
 }}  // namespace
+"""
 
+# the C entry points of kernel 6 at the functor's P and the run's Q, its
+# three MODEs
+_GEN_NL_LOOP = """
 // fabber_fused_nl_loop's arguments (fused_nl_loop.cu) without the kind,
 // P and Q, which the library is built for, and with supp [NS,V] (device,
 // null when NS = 0).
@@ -266,6 +271,79 @@ extern "C" int fabber_gen_occupancy(int mode, int vb, int nt) {{
 }}
 """
 
+# the C entry points of kernel 7 at the functor's P and the run's Q, with
+# and without its LM branch; the dt is the functor's own
+_GEN_VB_ITER = """
+// fabber_fused_vb_iter's arguments (fused_vb_iter.cu) without the kind,
+// P, Q and dt, which the library and its functor are built for.
+extern "C" int fabber_gen_vb_iter(
+    const int* tcodes_host, int need_f, const float* centre, const float* pm,
+    const float* pp, const float* phi, const float* data, const float* qw,
+    const float* alpha, int nt, long long V, float* means, float* prec,
+    float* cov, float* nkqk, float* ntr, float* fkqk, float* ftr, int vb,
+    void* stream) {{
+  const long long smem = iter_smem(vb, nt, {q});
+  VBParams k;
+  if (!iter_setup({p}, {q}, tcodes_host, 0.f, need_f, nt, V, smem, &k))
+    return (int)cudaErrorInvalidValue;
+  const float* const ins[7] = {{centre, pm, pp, phi, data, qw, alpha}};
+  float* const outs[7] = {{means, prec, cov, nkqk, ntr, fkqk, ftr}};
+  return launch<GenModel, {q}>(k, alpha != nullptr, vb, smem, ins, outs,
+                               static_cast<cudaStream_t>(stream));
+}}
+
+// fabber_vb_iter_occupancy (fused_vb_iter.cu) for this library's functor
+// and Q
+extern "C" int fabber_gen_vb_iter_occupancy(int lm, int vb, int nt) {{
+  const long long smem = iter_smem(vb, nt, {q});
+  if (smem < 0) return -1;
+  return occupancy<GenModel, {q}>(lm != 0, vb, smem);
+}}
+"""
+
+# the C entry points of kernel 8 at the functor's P, every mode, with and
+# without Marquardt damping; the dt is the functor's own
+_GEN_NLLS = """
+// fabber_fused_nlls's arguments (fused_nlls.cu) without the kind, P and
+// dt, which the library and its functor are built for.
+extern "C" int fabber_gen_nlls(
+    const int* tcodes_host, const float* consts_host, int mode,
+    int marquardt, int max_its, float dof, const float* params0,
+    const float* data, const float* w, const float* state_in, int nt,
+    long long V, float* params_out, float* cost_out, float* its_out,
+    float* prec_out, float* cov_out, float* state_out, int vb,
+    void* stream) {{
+  const long long smem = nlls_smem(vb, nt);
+  float* const outs[6] = {{params_out, cost_out, its_out, prec_out,
+                          cov_out, state_out}};
+  NLLSParams k;
+  if (!nlls_setup({p}, tcodes_host, 0.f, consts_host, mode, max_its, dof,
+                  state_in, nt, V, smem, outs, &k))
+    return (int)cudaErrorInvalidValue;
+  const float* const ins[4] = {{params0, data, w, state_in}};
+  return launch<GenModel>(k, mode, marquardt, vb, smem, ins, outs,
+                          static_cast<cudaStream_t>(stream), nullptr);
+}}
+
+// fabber_nlls_occupancy (fused_nlls.cu) for this library's functor
+extern "C" int fabber_gen_nlls_occupancy(int mode, int marquardt, int vb,
+                                         int nt) {{
+  const long long smem = nlls_smem(vb, nt);
+  if (smem < 0 || mode < kFresh || mode > kResume) return -1;
+  return occupancy<GenModel>(mode, marquardt, vb, smem);
+}}
+"""
+
+# kernel -> (what it is, its header, the entry points' template, the
+# source whose SOURCE_FLAGS its library takes too)
+GEN_KERNELS = {
+    "nl_loop": ("whole-loop kernel", "fused_nl_loop.cuh", _GEN_NL_LOOP,
+                "fused_nl_loop.cu"),
+    "vb_iter": ("per-iteration VB kernel", "fused_vb_iter.cuh",
+                _GEN_VB_ITER, "fused_vb_iter.cu"),
+    "nlls": ("NLLS kernel", "fused_nlls.cuh", _GEN_NLLS, "fused_nlls.cu"),
+}
+
 
 def tile_plan(nt, nq, widths=(TILE_VB,)):
     """(staged, VB, smem bytes) of a launch of a kernel that stages its
@@ -296,25 +374,39 @@ def launch_vb(nt, nq, vb=None, widths=(TILE_VB,)):
     return pvb if staged else 0
 
 
-def generated_source(source, p, q):
-    """The .cu of a generated functor (GenModel source) at P, Q."""
-    return _GEN_TEMPLATE.format(source=source, p=p, q=q)
+def generated_source(source, p, q, kernel="nl_loop"):
+    """The .cu of a generated functor (GenModel source) in kernel's
+    template (GEN_KERNELS) at P, Q (q None for kernel 8, which has no
+    noise groups)."""
+    what, header, body, _ = GEN_KERNELS[kernel]
+    qtext = "" if q is None else f", Q = {q}"
+    return (_GEN_HEAD.format(what=what, header=header, p=p, qtext=qtext,
+                             source=source)
+            + body.format(p=p, q=q))
 
 
-def generated_key(source, p, q):
-    """The hash naming a generated functor's build: its .cu (source, P,
-    Q), the headers and the flags."""
-    h = hashlib.sha256(generated_source(source, p, q).encode())
-    h.update(" ".join(NVCC_FLAGS).encode())
+def _gen_flags(kernel):
+    """nvcc's flags of a generated build: NVCC_FLAGS and those of the
+    kernel's own source (kernel 8's -fmad=false, so its fresh and
+    two-phase modes compute the same bits there too)."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(GEN_KERNELS[kernel][3], [])
+
+
+def generated_key(source, p, q, kernel="nl_loop"):
+    """The hash naming a generated functor's build: its .cu (source,
+    kernel template, P, Q), the headers and the flags."""
+    h = hashlib.sha256(generated_source(source, p, q, kernel).encode())
+    h.update(" ".join(_gen_flags(kernel)).encode())
     for name in HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build_generated(source, p, q):
-    """Build (once per source, P, Q, headers and flags) and load the
-    whole-loop kernel with a generated model functor: writes
+def build_generated(source, p, q, kernel="nl_loop"):
+    """Build (once per source, kernel, P, Q, headers and flags) and load
+    kernel (GEN_KERNELS: "nl_loop" kernel 6, "vb_iter" kernel 7, "nlls"
+    kernel 8, whose q is None) with a generated model functor: writes
     build/kernels/gen/<hash>.cu, compiles it with nvcc for sm_90a into
     libfabber_gen_<hash>.so (a temporary file, then os.replace) and loads
     it with its own ctypes.CDLL. Returns the library; raises with nvcc's
@@ -324,8 +416,11 @@ def build_generated(source, p, q):
     if not 1 <= p <= 4:
         raise FabberError(f"a generated functor takes P <= 4, not {p} "
                           "(csrc/vb_device.cuh kMaxP)")
-    cu = generated_source(source, p, q)
-    key = generated_key(source, p, q)
+    if (q is None) != (kernel == "nlls"):
+        raise ValueError(f"kernel {kernel!r} with q={q!r}: the NLLS kernel "
+                         "takes no Q, the VB kernels one")
+    cu = generated_source(source, p, q, kernel)
+    key = generated_key(source, p, q, kernel)
     if key in _gen_libs:
         return _gen_libs[key]
     gdir = BUILD_DIR / "gen"
@@ -338,7 +433,7 @@ def build_generated(source, p, q):
         tmp_src.write_text(cu)
         os.replace(tmp_src, src)
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-shared", "-o",
+        cmd = [nvcc, *_gen_flags(kernel), "-I", str(CSRC), "-shared", "-o",
                str(tmp), str(src)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -356,12 +451,25 @@ def build_generated(source, p, q):
     lib = ctypes.CDLL(str(out))
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_float)
-    lib.fabber_gen_nl_loop.argtypes = [
-        vp, i32, i32, f32, vp, i32, f32, i32, i32, i32, vp,
-        vp, vp, vp, vp, vp, vp, vp, i32, i64] + [vp] * 7 + [i32, vp]
-    lib.fabber_gen_nl_loop.restype = i32
-    lib.fabber_gen_occupancy.argtypes = [i32, i32, i32]
-    lib.fabber_gen_occupancy.restype = i32
+    if kernel == "nl_loop":
+        lib.fabber_gen_nl_loop.argtypes = [
+            vp, i32, i32, f32, vp, i32, f32, i32, i32, i32, vp,
+            vp, vp, vp, vp, vp, vp, vp, i32, i64] + [vp] * 7 + [i32, vp]
+        lib.fabber_gen_nl_loop.restype = i32
+        lib.fabber_gen_occupancy.argtypes = [i32, i32, i32]
+        lib.fabber_gen_occupancy.restype = i32
+    elif kernel == "vb_iter":
+        lib.fabber_gen_vb_iter.argtypes = [vp, i32] + [vp] * 7 + [
+            i32, i64] + [vp] * 7 + [i32, vp]
+        lib.fabber_gen_vb_iter.restype = i32
+        lib.fabber_gen_vb_iter_occupancy.argtypes = [i32, i32, i32]
+        lib.fabber_gen_vb_iter_occupancy.restype = i32
+    else:
+        lib.fabber_gen_nlls.argtypes = [vp, vp, i32, i32, i32, f32] + [
+            vp] * 4 + [i32, i64] + [vp] * 6 + [i32, vp]
+        lib.fabber_gen_nlls.restype = i32
+        lib.fabber_gen_nlls_occupancy.argtypes = [i32] * 4
+        lib.fabber_gen_nlls_occupancy.restype = i32
     _gen_libs[key] = lib
     return lib
 
@@ -385,6 +493,36 @@ def launch_gen_nl_loop(lib, tcodes, n_iters, need_f, locked_sd, consts,
             data.data_ptr(), ptr(supp), qw.data_ptr(), nt, nv,
             *(o.data_ptr() for o in outs), vb, _stream(data.device))
     _raise_on(err, "fused_nl_loop (generated functor)")
+
+
+def launch_gen_vb_iter(lib, tcodes, need_f, centre, pm, pp, phi, data, qw,
+                       alpha, outs, vb):
+    """launch_vb_iter for a library of build_generated (kernel
+    "vb_iter")."""
+    nt, nv = data.shape
+    with torch.cuda.device(data.device):
+        err = lib.fabber_gen_vb_iter(
+            _int_array(tcodes), int(need_f), centre.data_ptr(),
+            pm.data_ptr(), pp.data_ptr(), phi.data_ptr(), data.data_ptr(),
+            qw.data_ptr(), 0 if alpha is None else alpha.data_ptr(), nt, nv,
+            *(o.data_ptr() for o in outs), vb, _stream(data.device))
+    _raise_on(err, "fused_vb_iter (generated functor)")
+
+
+def launch_gen_nlls(lib, tcodes, consts, mode, marquardt, max_its, dof,
+                    params0, data, w, state, outs, vb):
+    """launch_nlls for a library of build_generated (kernel "nlls")."""
+    nt, nv = data.shape
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+    with torch.cuda.device(data.device):
+        err = lib.fabber_gen_nlls(
+            _int_array(tcodes), _float_array(consts), mode, int(marquardt),
+            max_its, dof, params0.data_ptr(), data.data_ptr(), w.data_ptr(),
+            ptr(state), nt, nv, *(ptr(o) for o in outs), vb,
+            _stream(data.device))
+    _raise_on(err, "fused_nlls (generated functor)")
 
 
 def has_nl_instance(kind, p, q):
@@ -610,8 +748,20 @@ def vb_iter_occupancy(kind, p, nq, lm, vb, nt):
 
 
 def gen_occupancy(lib, mode, vb, nt):
-    """nl_occupancy for a library of build_generated."""
+    """nl_occupancy for a library of build_generated (kernel
+    "nl_loop")."""
     return int(lib.fabber_gen_occupancy(mode, vb, nt))
+
+
+def gen_vb_iter_occupancy(lib, lm, vb, nt):
+    """vb_iter_occupancy for a library of build_generated (kernel
+    "vb_iter")."""
+    return int(lib.fabber_gen_vb_iter_occupancy(int(lm), vb, nt))
+
+
+def gen_nlls_occupancy(lib, mode, marquardt, vb, nt):
+    """nlls_occupancy for a library of build_generated (kernel "nlls")."""
+    return int(lib.fabber_gen_nlls_occupancy(mode, int(marquardt), vb, nt))
 
 
 def nlls_occupancy(kind, p, mode, marquardt, vb, nt):

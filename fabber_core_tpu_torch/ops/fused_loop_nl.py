@@ -66,8 +66,8 @@ import numpy as np
 import torch
 
 from . import smallmat as sm
-from .fused_vb import (TRANSFORM_CODES, block_evaluator, check_plane,
-                       f_quadratics, full_eval, group_masks,
+from .fused_vb import (block_evaluator, check_plane, f_quadratics,
+                       full_eval, functor_codes, generated_lib, group_masks,
                        group_quadratics, group_weights, kernel_args,
                        posterior_solve, signal_jac_fn, trace_terms)
 
@@ -170,7 +170,8 @@ def fused_nl_loop(model, transforms, centre0, prior_means, prior_prec, data,
     the detector mode). model: the forward model (signal_jac_fn(model)
     on the CPU, kernel_model() for the CUDA functor). functor: a
     models/kernelgen.py TimeLocalEval, whose kernel the card launches
-    from functor.libs[Q] (built before, ops/_cuda.py build_generated):
+    from functor.libs[("nl_loop", Q)] (built before, ops/_cuda.py
+    build_generated):
     generated from the model's evaluate (its fn set: the generic full-time mode, whose
     plain version is ops/fused_vb.py full_eval, with supp [S,V] when the
     functor reads suppdata) or from its time_signal. _vb: private, for
@@ -201,10 +202,7 @@ def fused_nl_loop(model, transforms, centre0, prior_means, prior_prec, data,
     if functor is None:
         km, tcodes = kernel_args(model, transforms, nq, dev)
     else:
-        if len(transforms) != functor.nparams:
-            raise ValueError(f"{len(transforms)} transforms for "
-                             f"{functor.nparams} parameters")
-        tcodes = [TRANSFORM_CODES[tr.code] for tr in transforms]
+        tcodes = functor_codes(functor, transforms)
     nt = data.shape[0]
     for t, name, shape in ((centre0, "centre0", (p, nv)),
                            (prior_means, "prior_means", (p, nv)),
@@ -242,12 +240,7 @@ def fused_nl_loop(model, transforms, centre0, prior_means, prior_prec, data,
                                  centre0, prior_means, prior_prec, pd0, data,
                                  qw, outs, vb)
         else:
-            lib = functor.libs.get(nq)
-            if lib is None:
-                raise ValueError(
-                    f"no kernel built for this functor at Q={nq}: "
-                    "functor.libs[Q] = ops/_cuda.py build_generated(...) "
-                    "(the engine builds it at construction)")
+            lib = generated_lib(functor, "nl_loop", nq)
             _cuda.launch_gen_nl_loop(
                 lib, tcodes, int(n_iters), bool(need_f),
                 float(locked_noise_stdev), consts.to(torch.float32), det,

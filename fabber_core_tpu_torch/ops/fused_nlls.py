@@ -49,11 +49,16 @@ The kernel stages each block's [T, VB] data tile in shared memory once
 (csrc/tile.cuh) where ops/_cuda.py tile_plan says it fits, and streams
 the plane from global memory otherwise; the two forms agree bit for bit.
 
-The wrapper takes the plain version only for tensors on the CPU; for a
-CUDA tensor it launches the kernel or raises. ``fused_nlls_loop.
-launches`` counts kernel launches, ``resume_launches``,
-``marquardt_launches`` and ``staged_launches`` those in resume mode,
-with Marquardt damping and in the staged form.
+The model's functor is a hand-written one (kernel_model(), the
+instances of csrc/fused_nlls.cu) or one generated from its time_signal
+(models/kernelgen.py), whose library the engine builds (ops/_cuda.py
+build_generated, kernel "nlls", with the source's -fmad=false) before it
+launches. The wrapper takes the plain version only for tensors on the
+CPU; for a CUDA tensor it launches the kernel or raises.
+``fused_nlls_loop.launches`` counts kernel launches, ``resume_launches``,
+``marquardt_launches``, ``staged_launches`` and ``generated_launches``
+those in resume mode, with Marquardt damping, in the staged form and
+with a generated functor.
 """
 
 import numpy as np
@@ -61,7 +66,7 @@ import torch
 
 from . import smallmat as sm
 from .fused_vb import (TRANSFORM_CODES, block_eval, check_plane,
-                       signal_jac_fn, time_index)
+                       generated_lib, signal_jac_fn, time_index)
 
 # The optimizer's constants (the JAX package's inference/nlls.py:62-98 =
 # ops/fused_nlls.py:43-49; inference/nlls.py here imports them, and the
@@ -203,12 +208,16 @@ def fused_nlls_loop_plain(time_signal_jac, transforms, params0, data,
 
 
 def fused_nlls_loop(model, transforms, params0, data, tmask, max_its,
-                    marquardt=False, state=None, posterior=True, _vb=None):
+                    marquardt=False, state=None, posterior=True,
+                    functor=None, _vb=None):
     """The whole NLLS loop (see fused_nlls_loop_plain for the shapes and
     the modes). model: the forward model (signal_jac_fn(model) on the
-    CPU, kernel_model() for the CUDA functor). _vb: private, for the
-    tests and chip_smoke.py: forces the kernel's form (0 streamed, > 0
-    staged in blocks of that many lanes; ops/_cuda.py launch_vb)."""
+    CPU, kernel_model() for the CUDA functor); functor: a
+    models/kernelgen.py TimeLocalEval generated from the model's
+    time_signal, whose kernel the card launches from
+    functor.libs[("nlls", None)]. _vb: private, for the tests and
+    chip_smoke.py: forces the kernel's form (0 streamed, > 0 staged in
+    blocks of that many lanes; ops/_cuda.py launch_vb)."""
     if max_its < 0:
         raise ValueError("max_its must be >= 0")
     if state is not None and not posterior:
@@ -220,13 +229,17 @@ def fused_nlls_loop(model, transforms, params0, data, tmask, max_its,
     dev = params0.device
     p, nv = params0.shape
     nt = data.shape[0]
-    km = model.kernel_model()
-    if not nlls_instantiated(km):
-        raise ValueError(f"no CUDA NLLS kernel instantiation for model "
-                         f"{getattr(model, 'name', model)} ({km})")
-    if len(transforms) != km.nparams or p != km.nparams:
+    if functor is None:
+        km = model.kernel_model()
+        if not nlls_instantiated(km):
+            raise ValueError(f"no CUDA NLLS kernel instantiation for model "
+                             f"{getattr(model, 'name', model)} ({km})")
+        npar = km.nparams
+    else:
+        npar = functor.nparams
+    if len(transforms) != npar or p != npar:
         raise ValueError(f"{len(transforms)} transforms and {p} parameter "
-                         f"rows for {km.nparams} parameters")
+                         f"rows for {npar} parameters")
     tcodes = [TRANSFORM_CODES[tr.code] for tr in transforms]
     check_plane(params0, "params0", (p, nv), dev)
     check_plane(data, "data", (nt, nv), dev)
@@ -250,9 +263,17 @@ def fused_nlls_loop(model, transforms, params0, data, tmask, max_its,
     if nv:
         from . import _cuda
         vb = _cuda.launch_vb(nt, 1, _vb)
-        _cuda.launch_nlls(km, tcodes, consts, mode, bool(marquardt),
-                          int(max_its), float(w_h.sum() - p), params0, data,
-                          w, state, outs, vb)
+        dof = float(w_h.sum() - p)
+        if functor is None:
+            _cuda.launch_nlls(km, tcodes, consts, mode, bool(marquardt),
+                              int(max_its), dof, params0, data, w, state,
+                              outs, vb)
+        else:
+            _cuda.launch_gen_nlls(
+                generated_lib(functor, "nlls", None), tcodes, consts, mode,
+                bool(marquardt), int(max_its), dof, params0, data, w, state,
+                outs, vb)
+            fused_nlls_loop.generated_launches += 1
         fused_nlls_loop.launches += 1
         if vb > 0:
             fused_nlls_loop.staged_launches += 1
@@ -269,3 +290,4 @@ fused_nlls_loop.launches = 0
 fused_nlls_loop.resume_launches = 0
 fused_nlls_loop.marquardt_launches = 0
 fused_nlls_loop.staged_launches = 0
+fused_nlls_loop.generated_launches = 0

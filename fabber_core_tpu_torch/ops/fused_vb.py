@@ -21,11 +21,15 @@ time t depends only on its parameters and t (exp/biexp, poly):
 
 The kernel stages each block's data tile in shared memory where
 ops/_cuda.py tile_plan says it fits (csrc/tile.cuh), else streams the
-plane. The wrapper takes the plain version only for tensors on the CPU;
-for a CUDA tensor it launches the kernel or raises. ``fused_iteration.
-launches`` counts kernel launches (never plain calls), ``lm_launches``
-those with the LM branch, ``staged_launches`` those in the staged
-form.
+plane. The model's functor is a hand-written one (kernel_model(), the
+instances of csrc/fused_vb_iter.cu) or one generated from its
+time_signal (models/kernelgen.py), whose library the engine builds
+(ops/_cuda.py build_generated, kernel "vb_iter") before it launches. The
+wrapper takes the plain version only for tensors on the CPU; for a CUDA
+tensor it launches the kernel or raises. ``fused_iteration.launches``
+counts kernel launches (never plain calls), ``lm_launches`` those with
+the LM branch, ``staged_launches`` those in the staged form,
+``generated_launches`` those with a generated functor.
 
 block_eval is make_block_eval's counterpart: the model's analytic
 time_signal_jac in model space times the per-parameter chain factor
@@ -308,6 +312,28 @@ def check_plane(t, name, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def generated_lib(functor, kernel, q):
+    """The library of a TimeLocalEval's generated functor for kernel
+    ("nl_loop", "vb_iter" or "nlls") at Q (None for "nlls"); raises
+    where none was built."""
+    lib = functor.libs.get((kernel, q))
+    if lib is None:
+        raise ValueError(
+            f"no kernel built for this functor ({kernel!r} at Q={q}): "
+            f"functor.libs[({kernel!r}, Q)] = ops/_cuda.py "
+            "build_generated(...) (the engine builds it before it "
+            "launches)")
+    return lib
+
+
+def functor_codes(functor, transforms):
+    """The transform codes of a launch with a generated functor."""
+    if len(transforms) != functor.nparams:
+        raise ValueError(f"{len(transforms)} transforms for "
+                         f"{functor.nparams} parameters")
+    return [TRANSFORM_CODES[tr.code] for tr in transforms]
+
+
 def kernel_args(model, transforms, nq, device):
     """(KernelModel, transform codes) for a launch; raises when the
     kernels have no instantiation for it."""
@@ -332,14 +358,18 @@ def group_weights(qmasks, device):
 
 
 def fused_iteration(model, transforms, centre, prior_means, prior_prec,
-                    phi, data, qmasks, need_f, lm_alpha=None, _vb=None):
+                    phi, data, qmasks, need_f, lm_alpha=None, functor=None,
+                    _vb=None):
     """One fused VB iteration (see fused_iteration_plain for the
     shapes). model: the forward model (signal_jac_fn(model) on the
     CPU, kernel_model() for the CUDA functor); transforms: per-parameter
     Transform objects; lm_alpha: the lm detector's [V] damping (the
-    LM branch) or None. _vb: private, for the tests and chip_smoke.py:
-    forces the kernel's form (0 streamed, > 0 staged in blocks of that
-    many lanes; ops/_cuda.py launch_vb)."""
+    LM branch) or None; functor: a models/kernelgen.py TimeLocalEval
+    generated from the model's time_signal, whose kernel the card
+    launches from functor.libs[("vb_iter", Q)] (on the CPU the plain
+    version differentiates the time_signal itself). _vb: private, for
+    the tests and chip_smoke.py: forces the kernel's form (0 streamed,
+    > 0 staged in blocks of that many lanes; ops/_cuda.py launch_vb)."""
     if centre.device.type == "cpu":
         return fused_iteration_plain(signal_jac_fn(model), transforms,
                                      centre, prior_means, prior_prec, phi,
@@ -347,7 +377,10 @@ def fused_iteration(model, transforms, centre, prior_means, prior_prec,
     dev = centre.device
     p, nv = centre.shape
     nq = len(qmasks)
-    km, tcodes = kernel_args(model, transforms, nq, dev)
+    if functor is None:
+        km, tcodes = kernel_args(model, transforms, nq, dev)
+    else:
+        tcodes = functor_codes(functor, transforms)
     nt = data.shape[0]
     for t, name, shape in ((centre, "centre", (p, nv)),
                            (prior_means, "prior_means", (p, nv)),
@@ -366,9 +399,16 @@ def fused_iteration(model, transforms, centre, prior_means, prior_prec,
     if nv:
         from . import _cuda
         vb = _cuda.launch_vb(nt, nq, _vb)
-        _cuda.launch_vb_iter(km, nq, tcodes, bool(need_f), centre,
-                             prior_means, prior_prec, phi, data, qw,
-                             lm_alpha, outs, vb)
+        if functor is None:
+            _cuda.launch_vb_iter(km, nq, tcodes, bool(need_f), centre,
+                                 prior_means, prior_prec, phi, data, qw,
+                                 lm_alpha, outs, vb)
+        else:
+            _cuda.launch_gen_vb_iter(
+                generated_lib(functor, "vb_iter", nq), tcodes, bool(need_f),
+                centre, prior_means, prior_prec, phi, data, qw, lm_alpha,
+                outs, vb)
+            fused_iteration.generated_launches += 1
         fused_iteration.launches += 1
         if lm_alpha is not None:
             fused_iteration.lm_launches += 1
@@ -380,3 +420,4 @@ def fused_iteration(model, transforms, centre, prior_means, prior_prec,
 fused_iteration.launches = 0
 fused_iteration.lm_launches = 0
 fused_iteration.staged_launches = 0
+fused_iteration.generated_launches = 0

@@ -9,7 +9,8 @@ name under continue-from-params), runs the engine on the requested
 device (or, under output-only, takes the loaded MVN as the result) and
 assembles the output data products (means/std/var/zstat with
 model-space back-transform, model fit, residuals, noise stats, free
-energy, finalMVN checkpoint).
+energy, finalMVN checkpoint, the likelihood-only maps of
+spatial-prior-output-correction) and logs the motion-correction steps.
 Outputs are a dict of voxel-major numpy arrays; the CLI and API map
 them back to volumes or files.
 """
@@ -125,6 +126,7 @@ def run(options, store, log=None, progress_cb=None, device="cuda"):
         engine.progress_cb = progress_cb
         log.log(f"Vb::Engine route: {engine.route_description()}")
         result = _run_vb(engine, options, params, cont_means, cont_cov, log)
+        _log_motion(engine, log)
         # Penny-2005 diagnostic, logged as the reference does
         # (inference_vb.cc:753-755)
         for k, val in enumerate(getattr(engine, "coefficient_resels", ())):
@@ -175,6 +177,26 @@ def _run_vb(engine, options, params, cont_means, cont_cov, log):
                     "initial noise")
         cont_means, cont_cov = cont_means[:, :p], cont_cov[:, :p, :p]
     return engine.run(cont_means, cont_cov, cn)
+
+
+def _log_motion(engine, log):
+    """Each motion-correction step's largest translation, and the
+    warning where a step came near the pyramid's capture range (JAX
+    runner.py:90-102)."""
+    mc_shifts = getattr(engine, "mc_translations", None)
+    if not mc_shifts:
+        return
+    for k, val in enumerate(mc_shifts):
+        log.log(f"Motion correction step {k + 1}/{len(mc_shifts)}: "
+                f"max |translation| {val:.4f} voxels")
+    if getattr(engine, "mc_saturated", False):
+        rng = getattr(engine, "mc_capture_range", 2.0)
+        log.warn(
+            "Motion correction estimated displacements near its "
+            f"capture range (+-{rng:.0f} voxels, multi-resolution "
+            "Gauss-Newton pyramid): true subject motion may exceed "
+            "it and be under-corrected. Pre-register the data "
+            "externally if large motion is expected.")
 
 
 def _result_from_mvn(engine, means, cov):
@@ -261,6 +283,16 @@ def _save_results(options, model, params, result, engine, data, log):
                 outputs[f"std_{p.name}"] = std
             if options.get_bool("save-var"):
                 outputs[f"var_{p.name}"] = var
+
+    if getattr(result, "noprior_means", None) is not None:
+        # --spatial-prior-output-correction: the likelihood-only
+        # posterior's maps (thetaWithoutPrior, noisemodel.h:132); under
+        # spatial priors the unshrunk per-voxel estimates
+        for i, p in enumerate(params):
+            m, var = p.transform.to_model_moments(
+                result.noprior_means[:, i], result.noprior_cov[:, i, i])
+            outputs[f"mean_noprior_{p.name}"] = np.asarray(m)
+            outputs[f"std_noprior_{p.name}"] = np.sqrt(np.asarray(var))
 
     if result.noise_means.shape[1] > 0:
         if options.get_bool("save-noise-mean"):

@@ -1300,7 +1300,8 @@ def test_occupancy_queries(cuda):
     assert _cuda.nl_occupancy(1, 4, 1, 0, 48, 100) == -1
     assert _cuda.nlls_occupancy(1, 4, 0, False, 128, 500) == -1
     g = generic_inputs(1, 0, 64, cuda)
-    assert _cuda.gen_occupancy(g["tle"].libs[1], 0, 32, 100) >= least
+    assert _cuda.gen_occupancy(g["tle"].libs[("nl_loop", 1)], 0, 32,
+                               100) >= least
 
 
 # the longest T each block width takes within the 232,448-byte limit
@@ -1774,7 +1775,7 @@ def generic_inputs(nq, nsupp, nv, device, seed=0, nt=30):
     tle = derive_time_local_eval(model, nt, 4, nsupp)
     if torch.device(device).type == "cuda":
         from fabber_core_tpu_torch.ops import _cuda
-        tle.libs[nq] = _cuda.build_generated(tle.source, 4, nq)
+        tle.libs[("nl_loop", nq)] = _cuda.build_generated(tle.source, 4, nq)
     rng = np.random.default_rng(seed)
     truth = np.array([0.0, 1.0, 1.2, 0.6])
     mt = truth[:, None] + rng.uniform(-0.2, 0.2, (4, nv)) \
@@ -1943,20 +1944,27 @@ def port_registry():
 
 def test_time_signal_plugin_routes_on_card(cuda, port_registry):
     """The myexp plugin (a time_signal, no kernel_model): the whole-loop
-    route builds a functor generated from its time_signal; the
-    per-iteration route, which has no generated functors yet, raises
-    naming the ROADMAP item."""
+    route builds a functor generated from its time_signal for kernel 6;
+    the per-iteration route (engine-kernel=pallas) builds the same
+    functor for kernel 7 and launches it once per iteration, every
+    launch with the generated functor, near the CPU run (kernel 7's
+    plain version; float32 on both, tests/test_torch_nl_engine.py's
+    bounds); an earlier engine's continued run builds kernel 7 before
+    its first launch."""
     from fabber_core_tpu_torch.inference.vb import VBInference
     from fabber_core_tpu_torch.models import (get_model_class,
                                               load_models_from_file)
     from fabber_core_tpu_torch.ops import fused_loop_nl as nl
+    from fabber_core_tpu_torch.ops import fused_vb as fv
     from fabber_core_tpu_torch.options import RunOptions
     from pathlib import Path
     load_models_from_file(str(Path(__file__).resolve().parents[1]
                               / "fabber_core_tpu_torch" / "examples"
                               / "fwdmodel_exp.py"))
-    data = np.exp(-np.arange(40) * 0.05)[None].repeat(64, 0).astype(
-        np.float32)
+    rng = np.random.default_rng(3)
+    data = (rng.uniform(0.6, 1.4, (64, 1))
+            * np.exp(-np.arange(40) * 0.05)[None]
+            + rng.normal(0, 0.02, (64, 40))).astype(np.float32)
     base = {"model": "myexp", "dt": "0.05", "noise": "white",
             "dtype": "single", "max-iterations": "5"}
     opts = RunOptions(base)
@@ -1965,13 +1973,110 @@ def test_time_signal_plugin_routes_on_card(cuda, port_registry):
     assert eng.route == "pallas-loop-nl" and eng.generic is None
     assert eng.functor is not None and eng.functor.fn is None
     before = (nl.fused_nl_loop.launches, nl.fused_nl_loop.generic_launches)
-    assert np.isfinite(eng.run().means).all()
+    res = eng.run()
+    assert np.isfinite(res.means).all()
     # the time_signal mode, through a generated functor: not kernel 6g
     assert (nl.fused_nl_loop.launches,
             nl.fused_nl_loop.generic_launches) == (before[0] + 1, before[1])
+    # a continued run: kernel 7, built now
+    n7 = fv.fused_iteration.generated_launches
+    res2 = eng.run(res.means, res.cov)
+    assert fv.fused_iteration.generated_launches - n7 == 5
+    assert set(eng.functor.libs) == {("nl_loop", 1), ("vb_iter", 1)}
+    assert np.isfinite(res2.means).all()
     opts = RunOptions({**base, "engine-kernel": "pallas"})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 19"):
-        VBInference(get_model_class("myexp")(opts), opts, data, device=cuda)
+    res = {}
+    for dev in (cuda, "cpu"):
+        e = VBInference(get_model_class("myexp")(opts), opts, data,
+                        device=dev)
+        assert e.route == "pallas"
+        n0 = (fv.fused_iteration.launches,
+              fv.fused_iteration.generated_launches)
+        res[str(dev)] = e.run()
+        n1 = (fv.fused_iteration.launches,
+              fv.fused_iteration.generated_launches)
+        assert n1 == ((n0[0] + 5, n0[1] + 5) if dev != "cpu" else n0)
+    g, c = res[str(cuda)], res["cpu"]
+    sd = np.sqrt(np.diagonal(c.cov, axis1=1, axis2=2))
+    assert np.max(np.abs(g.means - c.means) / sd) < 5e-3
+    np.testing.assert_allclose(g.noise_means, c.noise_means, rtol=2e-3)
+
+
+def test_time_signal_plugin_nlls_on_card(cuda, port_registry):
+    """method=nlls on the myexp plugin: kernel 8 with the functor
+    generated from its time_signal, phase 1 and the resume (two-phase
+    compaction, bit for bit the fresh launch), near the CPU run at
+    float32 (tests/test_nlls_stats.py's kernel bounds)."""
+    from fabber_core_tpu_torch.inference.nlls import NLLSInference
+    from fabber_core_tpu_torch.models import (get_model_class,
+                                              load_models_from_file)
+    from fabber_core_tpu_torch.ops import fused_nlls as fn
+    from fabber_core_tpu_torch.options import RunOptions
+    from pathlib import Path
+    load_models_from_file(str(Path(__file__).resolve().parents[1]
+                              / "fabber_core_tpu_torch" / "examples"
+                              / "fwdmodel_exp.py"))
+    rng = np.random.default_rng(4)
+    t = np.arange(40) * 0.05
+    data = (rng.uniform(0.6, 1.4, (256, 1))
+            * np.exp(-rng.uniform(0.7, 1.3, (256, 1)) * t[None])
+            + rng.normal(0, 0.05, (256, 40))).astype(np.float32)
+    opts = RunOptions({"model": "myexp", "dt": "0.05", "method": "nlls",
+                       "dtype": "single", "nlls-phase1-iterations": "4"})
+    res = {}
+    for dev in (cuda, "cpu"):
+        eng = NLLSInference(get_model_class("myexp")(opts), opts, data,
+                            device=dev)
+        assert eng.route == "nlls-kernel"
+        assert (eng.functor is not None) == (dev != "cpu")
+        n0 = fn.fused_nlls_loop.generated_launches
+        res[str(dev)] = eng.run()
+        assert fn.fused_nlls_loop.generated_launches - n0 == (
+            0 if dev == "cpu" else 2)
+        if dev != "cpu":
+            p0 = eng.initial_means()
+            s, prec, cov = eng._solve_kernel(p0)
+            fresh = fn.fused_nlls_loop(
+                eng.model, [p.transform for p in eng.params], p0,
+                eng.data.contiguous(), eng.tmask_host, eng.max_its,
+                functor=eng.functor)
+            for a, b in zip((s.params, s.cost, prec, cov),
+                            (fresh[0], fresh[1], fresh[3], fresh[4])):
+                assert torch.equal(a, b)
+    g, c = res[str(cuda)], res["cpu"]
+    np.testing.assert_allclose(g.means, c.means, rtol=2e-3, atol=2e-4)
+    np.testing.assert_allclose(g.cov, c.cov, rtol=5e-3, atol=1e-5)
+    np.testing.assert_array_equal(g.bad_voxels, c.bad_voxels)
+
+
+def test_generated_libraries_distinct_per_kernel(cuda):
+    """One functor at one Q: kernel 6's and kernel 7's generated
+    libraries are two builds under two keys, each with its own entry
+    points; kernel 8's a third."""
+    from fabber_core_tpu_torch.models.kernelgen import \
+        derive_time_local_eval
+    from fabber_core_tpu_torch.ops import _cuda
+    from torch_generic_models import GaussianAct
+    tle = derive_time_local_eval(GaussianAct(), 30, 4)
+    libs = {k: _cuda.build_generated(tle.source, 4, None if k == "nlls"
+                                     else 1, k)
+            for k in ("nl_loop", "vb_iter", "nlls")}
+    keys = {k: _cuda.generated_key(tle.source, 4, None if k == "nlls"
+                                   else 1, k) for k in libs}
+    assert len(set(keys.values())) == 3
+    assert len({id(lib) for lib in libs.values()}) == 3
+    for k, names in (("nl_loop", ("fabber_gen_nl_loop",
+                                  "fabber_gen_occupancy")),
+                     ("vb_iter", ("fabber_gen_vb_iter",
+                                  "fabber_gen_vb_iter_occupancy")),
+                     ("nlls", ("fabber_gen_nlls",
+                               "fabber_gen_nlls_occupancy"))):
+        for name in names:
+            assert hasattr(libs[k], name)
+    assert not hasattr(libs["nl_loop"], "fabber_gen_vb_iter")
+    assert not hasattr(libs["vb_iter"], "fabber_gen_nl_loop")
+    assert _cuda.gen_vb_iter_occupancy(libs["vb_iter"], True, 32, 30) >= 1
+    assert _cuda.gen_nlls_occupancy(libs["nlls"], 2, True, 32, 30) >= 1
 
 
 # -- spatial VB and ARD on the card --------------------------------------
@@ -2079,7 +2184,7 @@ def test_ard_kernel7_matches_plain_over_ten_iterations(cuda, monkeypatch):
     rk = run()
     assert fv.fused_iteration.launches == before + 10
 
-    def plain(model, transforms, *args):
+    def plain(model, transforms, *args, functor=None):
         return fv.fused_iteration_plain(fv.signal_jac_fn(model), transforms,
                                         *args)
     monkeypatch.setattr(vbm, "fused_iteration", plain)

@@ -15,9 +15,10 @@ kernels' instances, ARD priors, spatial priors, locked linearization
 centres, fixed-design-route=direct) run and are held to the JAX route of
 the same name at the same tolerances (spatial priors through
 SpatialVBInference; biexp at a two-iteration horizon, its float32 fixed
-point being chaotic further out); the two it still refuses
-(motion correction, the likelihood-only output) raise
-NotImplementedError naming their route. The fixed-design statistics
+point being chaotic further out); the two features it used to refuse
+(motion correction, the likelihood-only output) run on the route the
+run would take without them (tests/test_torch_motion_noprior.py holds
+them to the JAX package). The fixed-design statistics
 routes (xla, pallas-whole, pallas-loop,
 spectral-fused, spectral-xstats), lm on a fixed-design model and the
 linear model are held to the JAX engine in test_torch_stats_engine.py.
@@ -352,10 +353,25 @@ def test_continue_from_mvn_takes_the_continuation_route(model, route,
 @pytest.mark.parametrize("extra,route", GATES,
                          ids=[r + ":" + ",".join(e) for e, r in GATES])
 def test_unported_route_raises(extra, route):
+    """The two features that raised until they were ported are feature
+    rows of ROUTES with no ROADMAP item; a run with one takes (and
+    logs) the route it takes without it, and runs: one motion-correction
+    step on a 4x4x1 grid, the likelihood-only maps beside the result."""
     data = make_data(16)
-    with pytest.raises(NotImplementedError, match=f"'{route}'"):
-        run_port(data, extra)
-    assert ROUTES[route][1] is not None
+    assert route in ROUTES
+    opts = RunOptions({**BASE, **extra})
+    coords = np.stack([np.arange(16) % 4, np.arange(16) // 4,
+                       np.zeros(16)], 1)
+    eng = VBInference(get_model_class("poly")(opts), opts, data,
+                      coords=coords, device="cpu")
+    assert eng.route == "spectral-whole"
+    res = eng.run()
+    assert np.isfinite(res.means).all()
+    if route == "motion-correction":
+        assert len(eng.mc_translations) == 1 and res.noprior_means is None
+    else:
+        assert res.noprior_means.shape == res.means.shape
+        assert np.isfinite(res.noprior_cov).all()
 
 
 def make_det_data(nv, nt=30, seed=0):

@@ -418,7 +418,7 @@ def test_rejected_model_takes_generic_route_before_any_launch(monkeypatch):
     _, teng = engines({}, "auto")
     teng.device = torch.device("cuda")
     teng._require_kernel_instance()
-    assert [(p, q) for _, p, q in built] == [(4, 1)]
+    assert [(p, q, k) for _, p, q, k in built] == [(4, 1, "nl_loop")]
     assert teng.functor is teng.generic
 
 

@@ -367,9 +367,9 @@ def test_asym4_float32_has_no_kernel_and_matches_jax(monkeypatch):
     version (the Jacobian by forward-mode autodiff of time_signal, as
     the JAX kernel's jax.jvp) matches JAX; on the card the route builds
     a functor generated from its time_signal (models/kernelgen.py; the
-    build is stood in for here, the card tests run it), and the
-    per-iteration route, which has no generated functor yet, raises at
-    construction rather than run plain torch."""
+    build is stood in for here, the card tests run it) for kernel 6, and
+    the per-iteration route builds the same functor for kernel 7, each
+    a library of its own, before anything launches."""
     from fabber_core_tpu_torch.ops import _cuda
     data = asym4_data(seed=1).astype(np.float32)
     o = RunOptions(options("asym4test", {}))
@@ -378,16 +378,23 @@ def test_asym4_float32_has_no_kernel_and_matches_jax(monkeypatch):
                  mean_rtol=1e-3)
     built = []
     monkeypatch.setattr(_cuda, "build_generated",
-                        lambda src, p, q: built.append((src, p, q)))
+                        lambda src, p, q, kernel:
+                        built.append((src, p, q, kernel)) or kernel)
     on_card(eng)
-    assert [(p, q) for _, p, q in built] == [(4, 1)]
+    assert [(p, q, k) for _, p, q, k in built] == [(4, 1, "nl_loop")]
     assert "g_sin" in built[0][0] and "g_cos" in built[0][0]
     assert eng.functor is not None and eng.functor.fn is None
+    # the continuation's kernel 7, built before its first launch
+    eng._require_kernel_instance(eng.continuation_route())
+    assert [(p, q, k) for _, p, q, k in built[1:]] == [(4, 1, "vb_iter")]
+    assert eng.functor.libs == {("nl_loop", 1): "nl_loop",
+                                ("vb_iter", 1): "vb_iter"}
     extra = {"engine-kernel": "pallas"}
     eng = port_engine(data, extra, tm=Asym4(RunOptions(
         options("asym4test", extra))), route="pallas")
-    with pytest.raises(NotImplementedError, match="no CUDA model functor"):
-        on_card(eng)
+    on_card(eng)
+    assert [k for _, _, _, k in built[2:]] == ["vb_iter"]
+    assert built[2][0] == built[0][0]
 
 
 def test_asym4_per_iteration_route_matches_jax():

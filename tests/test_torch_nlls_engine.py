@@ -319,24 +319,35 @@ def on_card(eng):
 
 
 def test_kernel_route_without_instance_raises_on_card(monkeypatch):
-    """On the card the kernel route needs the model's functor among the
-    kernel's instances (csrc/vb_device.cuh FABBER_NL_INSTANCES); without
-    one the engine raises at construction rather than run plain torch.
-    The library's instance query is stood in for here; the card tests
-    ask the real one."""
+    """On the card the kernel route needs the model's functor: among the
+    kernel's instances (csrc/vb_device.cuh FABBER_NL_INSTANCES), else one
+    generated from its time_signal and built at construction (kernel
+    "nlls"); where none can be (P above 4) the engine raises at
+    construction, naming ROADMAP Queue 1 item 20, rather than run plain
+    torch. The library's instance query and the build are stood in for
+    here; the card tests ask the real ones."""
     from fabber_core_tpu_torch.ops import _cuda
     data = exp_data(8, seed=8, model="biexp", dtype=np.float32)
     o = RunOptions({"model": "biexp", "dt": str(DT), "dtype": "single"})
     eng = NLLSInference(get_model_class("biexp")(o), o, data, device="cpu")
-    asked = []
+    asked, built = [], []
     monkeypatch.setattr(_cuda, "has_nlls_instance",
                         lambda kind, p: asked.append((kind, p)) or False)
-    with pytest.raises(NotImplementedError, match="P=4"):
-        on_card(eng)
-    assert asked == [(1, 4)]
+    monkeypatch.setattr(_cuda, "build_generated",
+                        lambda src, p, q, kernel: built.append(
+                            (p, q, kernel)) or "lib")
+    on_card(eng)
+    assert asked == [(1, 4)] and built == [(4, None, "nlls")]
+    assert eng.functor.libs == {("nlls", None): "lib"}
     monkeypatch.setattr(eng.model, "kernel_model", lambda: None)
-    with pytest.raises(NotImplementedError, match="no CUDA model functor"):
+    on_card(eng)
+    assert built[1:] == [(4, None, "nlls")]
+    o = RunOptions({"model": "exp", "dt": str(DT), "dtype": "single",
+                    "num-exps": "3"})
+    eng = NLLSInference(get_model_class("exp")(o), o, data, device="cpu")
+    with pytest.raises(NotImplementedError, match="P=6.*item 20"):
         on_card(eng)
+    assert asked[1:] == [(1, 6)] and len(built) == 2
     # the plain-torch routes have no kernel to ask for
     for extra in ({"dtype": "double"}, {"engine-kernel": "xla"}):
         o = RunOptions({"model": "biexp", "dt": str(DT), "dtype": "single",
@@ -344,5 +355,5 @@ def test_kernel_route_without_instance_raises_on_card(monkeypatch):
         eng = NLLSInference(get_model_class("biexp")(o), o, data,
                             device="cpu")
         on_card(eng)
-    assert asked == [(1, 4)]
+    assert asked == [(1, 4), (1, 6)]
     assert nlls_module.ROUTES[eng.route]

@@ -264,8 +264,6 @@ REFUSALS = [
      InvalidOptionValue, "jacobi"),
     ({"spatial-sweep-mode": "red-black"}, InvalidOptionValue, "jacobi"),
     ({"mcsteps": "1"}, InvalidOptionValue, "method=vb only"),
-    ({"spatial-prior-output-correction": True}, NotImplementedError,
-     "item 17b"),
 ]
 
 

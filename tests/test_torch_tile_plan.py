@@ -161,7 +161,7 @@ def smem_rules(tmp_path):
     src = ('#include "cuda_runtime.h"\n#include "tile.cuh"\n'
            "namespace {\nusing namespace fabber;\n"
            "constexpr int kThreads = 128;\n"
-           + _c_function("fused_vb_iter.cu", "iter_smem")
+           + _c_function("fused_vb_iter.cuh", "iter_smem")
            + _c_function("fused_whole.cu", "whole_smem")
            + "}  // namespace\n"
            'extern "C" long long it(int vb, int nt, int q) {\n'

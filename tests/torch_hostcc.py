@@ -18,6 +18,7 @@ rounds as the card's kernel does: fmaf and __fmaf_rn fused, every other
 product and sum rounded apart). Tests skip when g++ is missing."""
 
 import ctypes
+import hashlib
 import re
 import shutil
 import subprocess
@@ -110,9 +111,11 @@ def _write_headers(d, double=True):
     for name in ("vb_device.cuh", "detectors.cuh", "tile.cuh",
                  "spectral_device.cuh", "whole_device.cuh"):
         (d / name).write_text(conv((CSRC / name).read_text()))
-    nl = (CSRC / "fused_nl_loop.cuh").read_text()
-    nl = nl[:nl.index("// ---- launch ----")] + "}  // namespace\n"
-    (d / "fused_nl_loop.cuh").write_text(conv(nl))
+    for name in ("fused_nl_loop.cuh", "fused_vb_iter.cuh",
+                 "fused_nlls.cuh"):
+        text = (CSRC / name).read_text()
+        text = text[:text.index("// ---- launch ----")] + "}  // namespace\n"
+        (d / name).write_text(conv(text))
 
 
 def _kernel_source(name, marker, double):
@@ -248,20 +251,41 @@ extern "C" int host_nl_loop(const int* tcodes, int n_iters, int need_f,
     return fn
 
 
+def _functor_model(functor):
+    """(the C++ model type, a file-name tag) of a hand-written functor's
+    name or a TimeLocalEval's generated GenModel."""
+    if isinstance(functor, str):
+        return functor, re.sub(r"\W", "", functor)
+    return "GenModel", "gen" + hashlib.sha256(
+        functor.source.encode()).hexdigest()[:12]
+
+
+def _kernel_head(header, functor):
+    """The source's head: the shim, dual.cuh, a kernel header and, for a
+    TimeLocalEval, its generated functor, at double."""
+    src = '#include "cuda_runtime.h"\n#include "dual.cuh"\n' \
+        f'#include "{header}"\n'
+    if not isinstance(functor, str):
+        src += ("namespace {\nusing namespace fabber::gen;\n"
+                + _to_double(functor.source) + "}  // namespace\n")
+    return src
+
+
 def nlls_kernel_fn(functor, tmpdir, staged=True):
-    """The NLLS kernel (fused_nlls.cu, cut before its launch section) with
+    """The NLLS kernel (fused_nlls.cuh, cut before its launch section) with
     a hand-written functor of vb_device.cuh (functor: its C++ name, e.g.
-    "ExpSum<2>"), at double, in its staged or streamed form, one block of
-    one thread per voxel: fn(mode, marquardt, tcodes, dt, consts [7],
-    max_its, dof, params0 [P,V], data [T,V], w [T], state [4,V] or None)
-    -> (params, cost, its, prec, cov, state_out) with zeros for what the
-    mode does not write."""
+    "ExpSum<2>") or a TimeLocalEval's generated one (models/kernelgen.py;
+    its dt is its own), at double, in its staged or streamed form, one
+    block of one thread per voxel: fn(mode, marquardt, tcodes, dt, consts
+    [7], max_its, dof, params0 [P,V], data [T,V], w [T], state [4,V] or
+    None) -> (params, cost, its, prec, cov, state_out) with zeros for
+    what the mode does not write."""
     d = Path(tmpdir)
     _write_headers(d)
-    src = (CSRC / "fused_nlls.cu").read_text()
-    src = src[:src.index("// ---- launch and C entry point")]
-    src = _to_double(src) + f"""
-using Model = {functor};
+    model, name = _functor_model(functor)
+    src = _kernel_head("fused_nlls.cuh", functor) + f"""
+namespace {{
+using Model = {model};
 template <int MODE, bool MARQ>
 static void run_all(const NLLSParams& k, const double* const* in,
                     double* const* out) {{
@@ -301,9 +325,8 @@ extern "C" void host_nlls(int mode, int marq, const int* tcodes, double dt,
   }}
 }}
 """
-    name = re.sub(r"\W", "", functor)
     lib = _build(d, f"nlls_{name}_{'staged' if staged else 'streamed'}",
-                 '#include "cuda_runtime.h"\n' + src)
+                 src)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.host_nlls.restype = None
     lib.host_nlls.argtypes = [i32, i32, vp, ctypes.c_double, vp, i32,
@@ -330,18 +353,19 @@ extern "C" void host_nlls(int mode, int marq, const int* tcodes, double dt,
 
 
 def vb_iter_kernel_fn(functor, q, tmpdir):
-    """Kernel 7 (fused_vb_iter.cu, cut before its launch section) with a
+    """Kernel 7 (fused_vb_iter.cuh, cut before its launch section) with a
     hand-written functor of vb_device.cuh (its C++ name, e.g.
-    "ExpSum<2>") at Q groups, at double, both forms in one library, one
-    block of one thread per voxel: fn(staged, tcodes, dt, need_f, centre,
-    pm, pp [P,V], phi [Q,V], data [T,V], qw [T,Q], alpha [V] or None) ->
-    the seven outputs (means, prec, cov, nkqk, ntr, fkqk, ftr)."""
+    "ExpSum<2>") or a TimeLocalEval's generated one (models/kernelgen.py;
+    its dt is its own) at Q groups, at double, both forms in one library,
+    one block of one thread per voxel: fn(staged, tcodes, dt, need_f,
+    centre, pm, pp [P,V], phi [Q,V], data [T,V], qw [T,Q], alpha [V] or
+    None) -> the seven outputs (means, prec, cov, nkqk, ntr, fkqk, ftr)."""
     d = Path(tmpdir)
     _write_headers(d)
-    src = (CSRC / "fused_vb_iter.cu").read_text()
-    src = src[:src.index("// ---- launch and C entry point")]
-    src = _to_double(src) + f"""
-using Model = {functor};
+    model, name = _functor_model(functor)
+    src = _kernel_head("fused_vb_iter.cuh", functor) + f"""
+namespace {{
+using Model = {model};
 template <bool LM, bool STAGED>
 static void run_all(const VBParams& k, const double* const* in,
                     double* const* out) {{
@@ -372,8 +396,7 @@ extern "C" void host_vb_iter(int staged, const int* tcodes, double dt,
   }}
 }}
 """
-    name = re.sub(r"\W", "", functor)
-    lib = _build(d, f"iter_{name}_q{q}", '#include "cuda_runtime.h"\n' + src)
+    lib = _build(d, f"iter_{name}_q{q}", src)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.host_vb_iter.restype = None
     lib.host_vb_iter.argtypes = [i32, vp, ctypes.c_double, i32, vp, vp, i32,

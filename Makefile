@@ -1,7 +1,7 @@
 # Convenience targets (the reference's CMake/Make role; the Python
 # package itself needs no build step — only the native C API does).
 
-.PHONY: all test capi capi-test bench examples clean
+.PHONY: all test capi capi-test capi-torch capi-torch-test bench examples clean
 
 all: capi
 
@@ -16,6 +16,14 @@ capi-test: capi
 	cd capi && FABBER_TPU_PLATFORM=cpu \
 	  FABBER_TPU_PYTHONPATH="$(CURDIR):$$(python -c 'import site; print(site.getsitepackages()[0])')" \
 	  ./test_host
+
+# the port's C API (fabber_core_tpu_torch/capi/), built at first use
+# into build/capi/<key>/; its C host on the CPU (DEVICE=cuda: the card)
+capi-torch:
+	python -c 'from fabber_core_tpu_torch import capi; print(capi.build_host())'
+
+capi-torch-test:
+	python -m fabber_core_tpu_torch.capi $(if $(DEVICE),$(DEVICE),cpu)
 
 bench:
 	python bench.py

@@ -37,7 +37,11 @@ card; Gauss-Seidel against the CPU, blocked sweeps against unblocked)
 and the features without a kernel of their own (ARD priors, kernel 7
 once per iteration on biexp; locked linearization; the spectral route
 at bf16, engine-kernel=spectral and P=9; the direct route), each beside
-its float64 run; then
+its float64 run; drives the rest of the user surface (phase 4x): the
+C API by ctypes attach on the 128x128x64 poly volume, equal to
+run_with_data bit for bit, the port's C host in a subprocess on the
+card, the CLI's --profile-dir (a torch.profiler trace naming the
+kernels) and the exp self-test at its documented accuracy; then
 times the kernels, their plain versions, a device-to-device copy and the
 whole engine run, poly at 16,777,216 voxels (white and AR noise) and
 biexp at 4,000,000 (VB and NLLS; the generated biexp functor beside the
@@ -80,7 +84,13 @@ PEAK_F32_PER_S = 67e12
 F64_LANES = 1_048_576
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg):
+    """Print msg; a phase's first line also gets the script's seconds."""
+    if msg.startswith("phase"):
+        msg += f"  [{time.perf_counter() - _T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -4666,6 +4676,280 @@ def time_spatial(device, card, nx=1024, ny=3906):
     return figs
 
 
+# the rest of the user surface (phase 4x): the C API by ctypes attach and
+# from a C host, --profile-dir, the self-test harness
+SURFACE_DIR = "build/chip_smoke/surface"     # under the checkout
+PROFILE_SHAPE = (64, 64, 32)                  # the --profile-dir volume
+# the documented exp self-test (tests/test_selftest_reference.py:36-50):
+# |recovered - truth| per ROI, doc/models.rst:399-409, held at 2x
+SELFTEST_DOC_DEV = {("amp1", 1.0): 3e-4, ("amp1", 0.5): 7e-4,
+                    ("r1", 1.0): 7.3e-4, ("r1", 0.8): 1.3e-3}
+SELFTEST_NOISE_DEV = 4.8e-4
+
+
+def surface_dir():
+    from pathlib import Path
+    out = Path(__file__).resolve().parent / SURFACE_DIR
+    out.mkdir(parents=True, exist_ok=True)
+    return out
+
+
+def capi_call(lib, flat, shape, nt, options, names):
+    """One run through the C ABI (the handle's fabber_set_opt for every
+    option, no device): (outputs as run_with_data's volumes, log text,
+    seconds of set_data + dorun + get_data)."""
+    import ctypes
+    err = ctypes.create_string_buffer(256)
+    fab = lib.fabber_new(err)
+    if not fab:
+        raise RuntimeError(f"fabber_new: {err.value.decode()}")
+
+    def check(rc, what):
+        if rc < 0:
+            raise RuntimeError(f"{what} -> {rc}: {err.value.decode()}")
+        return rc
+    fp = ctypes.POINTER(ctypes.c_float)
+    try:
+        check(lib.fabber_set_extent(fab, *shape, None, err), "set_extent")
+        for key, value in options.items():
+            value = "" if value is True else str(value)
+            check(lib.fabber_set_opt(fab, key.encode(), value.encode(), err),
+                  f"set_opt {key}")
+        logbuf = ctypes.create_string_buffer(1 << 20)
+        t0 = time.perf_counter()
+        check(lib.fabber_set_data(fab, b"data", nt,
+                                  flat.ctypes.data_as(fp), err), "set_data")
+        check(lib.fabber_dorun(fab, 1 << 20, logbuf, err, None), "dorun")
+        out = {}
+        for name in names:
+            size = check(lib.fabber_get_data_size(fab, name.encode(), err),
+                         f"get_data_size {name}")
+            buf = np.empty(int(np.prod(shape)) * size, np.float32)
+            check(lib.fabber_get_data(fab, name.encode(), buf.ctypes.data_as(
+                fp), err), f"get_data {name}")
+            vol = buf.reshape(tuple(shape) + (size,), order="F")
+            out[name] = vol[..., 0] if size == 1 else vol
+        secs = time.perf_counter() - t0
+        return out, logbuf.value.decode(), secs
+    finally:
+        lib.fabber_destroy(fab)
+
+
+def check_capi_attach(device, card, shape=(128, 128, 64)):
+    """Phase 4x (1): the port's C API by ctypes attach in this process,
+    on phase 4's volume with MAIN_OPTIONS set through fabber_set_opt and
+    no device option (so the card), in turns with run_with_data on the
+    same volume: every output of fabber_get_data equal to run_with_data's
+    bit for bit, kernels 1 (staged) and 2 launched once a run and no
+    other, the log naming the spectral-whole route."""
+    from fabber_core_tpu_torch import capi
+    from fabber_core_tpu_torch.api import FabberTpu
+    from fabber_core_tpu_torch.inference.vb import ROUTES
+    t0 = time.perf_counter()
+    lib = capi.load()
+    log(f" shim built (c++) and loaded in {time.perf_counter() - t0:.2f} s "
+        f"-> {capi.build()}")
+    vol, _ = make_volume(shape)
+    flat = np.ascontiguousarray(vol.flatten(order="F"))
+    ok, times, runs = True, {"run_with_data": [], "capi": []}, {}
+    want = {"spectral_stats": 1, "spectral_stats:staged": 1,
+            "spectral_core": 1}
+    for turn in ("run_with_data", "capi", "capi", "run_with_data"):
+        reset_launches()
+        if turn == "run_with_data":
+            t1 = time.perf_counter()
+            run = FabberTpu(device=device).run_with_data(MAIN_OPTIONS,
+                                                         {"data": vol})
+            times[turn].append(time.perf_counter() - t1)
+            runs[turn], text = run.data, run.log
+        else:
+            runs[turn], text, secs = capi_call(
+                lib, flat, shape, NT, MAIN_OPTIONS, sorted(runs[
+                    "run_with_data"]))
+            times[turn].append(secs)
+        launches = {k: v for k, v in launch_counts().items() if v}
+        route = f"Vb::Engine route: {ROUTES['spectral-whole']}" in text
+        log(f" {turn}: {times[turn][-1]:.3f} s; launches {launches}; "
+            f"spectral-whole route line {route}")
+        ok &= launches == want and route
+        if turn == "capi":
+            same = sorted(runs["capi"]) == sorted(runs["run_with_data"]) and \
+                all(np.array_equal(runs["capi"][k].view(np.uint32),
+                                   runs["run_with_data"][k].view(np.uint32))
+                    for k in runs["capi"])
+            log(f" fabber_get_data equals run_with_data bit for bit over "
+                f"{len(runs['capi'])} outputs: {same}")
+            ok &= same
+    log(f" set_data + dorun + get_data {times['capi']!r} s beside "
+        f"run_with_data {times['run_with_data']!r} s at {shape + (NT,)} "
+        f"({vol.nbytes / 1e6:.0f} MB in)  [{card}]")
+    return ok, times
+
+
+def check_capi_host(card):
+    """Phase 4x (2): the port's standalone C host in a subprocess, its
+    embedded interpreter on the card by default (no device argument):
+    exit 0, its phantom recovered, the spectral-whole route, and no
+    module of jax or of the JAX package in that interpreter."""
+    import subprocess
+    from fabber_core_tpu_torch import capi
+    from fabber_core_tpu_torch.inference.vb import ROUTES
+    t0 = time.perf_counter()
+    host = capi.build_host()
+    log(f" C host built in {time.perf_counter() - t0:.2f} s -> {host}")
+    t0 = time.perf_counter()
+    res = subprocess.run([str(host)], capture_output=True, text=True,
+                         env=capi.host_env(), cwd=str(host.parent),
+                         timeout=600)
+    secs = time.perf_counter() - t0
+    lines = res.stdout.splitlines()
+    for line in lines:
+        log(f"  host: {line}")
+    for line in res.stderr.splitlines()[-20:]:
+        log(f"  host stderr: {line}")
+    ok = (res.returncode == 0
+          and f"Vb::Engine route: {ROUTES['spectral-whole']}" in lines
+          and "modules of jax or the JAX package: none" in lines
+          and lines[-1:] == ["C API host test PASSED"])
+    log(f" C host rc {res.returncode}, {secs:.3f} s in all  [{card}] "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok, secs
+
+
+def trace_kernel_ms(path, names):
+    """Summed device durations (ms) of the trace's kernel events whose
+    name holds each of names."""
+    import json
+    events = json.loads(path.read_text())["traceEvents"]
+    out = {n: 0.0 for n in names}
+    for e in events:
+        if e.get("cat") == "kernel":
+            for n in names:
+                if n in e.get("name", ""):
+                    out[n] += e.get("dur", 0) / 1e3
+    return out
+
+
+def check_profile_dir(device, card):
+    """Phase 4x (3): the port's CLI on a 64x64x32 x 106 poly NIfTI
+    volume at dtype=single, with --profile-dir and without, in turns:
+    each profiled run writes one trace whose device events name kernels
+    1 and 2 (spectral_stats_kernel, spectral_core_kernel) and the log
+    says where; every run launches each once. Returns (ok, the kernels'
+    trace ms, wall seconds with and without the profiler)."""
+    import shutil
+    from fabber_core_tpu_torch import cli
+    from fabber_core_tpu_torch.io import nifti
+    out = surface_dir()
+    vol, _ = make_volume(PROFILE_SHAPE, seed=SEED + 40)
+    data = out / "profile_data.nii"
+    nifti.save(nifti.NiftiImage(vol), str(data))
+    names = ("spectral_stats_kernel", "spectral_core_kernel")
+    ok, walls, traces = True, {"profiled": [], "plain": []}, []
+    for turn in ("plain", "profiled", "profiled", "plain"):
+        prof = out / f"profile{len(walls['profiled'])}"
+        args = ["--model=poly", "--degree=2", "--noise=white",
+                "--method=vb", f"--max-iterations={ITERS}",
+                "--dtype=single", f"--data={data}", "--overwrite",
+                f"--output={out / 'profile_out'}"]
+        if turn == "profiled":
+            args.append(f"--profile-dir={prof}")
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.execute(args)
+        walls[turn].append(time.perf_counter() - t0)
+        launches = {k: v for k, v in launch_counts().items() if v}
+        ok &= rc == 0 and launches == {"spectral_stats": 1,
+                                       "spectral_stats:staged": 1,
+                                       "spectral_core": 1}
+        if turn == "profiled":
+            files = sorted(prof.glob("*.pt.trace.json"))
+            logtext = (out / "profile_out" / "logfile").read_text()
+            said = f"Profiler trace written to {prof}" in logtext
+            ms = trace_kernel_ms(files[0], names) if len(files) == 1 else {}
+            traces.append(ms)
+            ok &= said and len(files) == 1 and all(
+                ms.get(n, 0) > 0 for n in names)
+            log(f" profiled CLI run: rc {rc}, {walls[turn][-1]:.3f} s, "
+                f"{len(files)} trace file(s) "
+                f"({files[0].stat().st_size if files else 0} bytes), log "
+                f"line {said}; kernel trace ms {ms}; launches {launches}")
+        else:
+            log(f" CLI run: rc {rc}, {walls[turn][-1]:.3f} s; launches "
+                f"{launches}")
+    log(f" CLI wall s at {PROFILE_SHAPE + (NT,)}: with --profile-dir "
+        f"{walls['profiled']!r}, without {walls['plain']!r}  [{card}]")
+    shutil.rmtree(out, ignore_errors=True)
+    return ok, traces, walls
+
+
+def check_self_test(card):
+    """Phase 4x (4): the documented exp self-test (dt 0.02, nt 100,
+    patchsize 10, noise 0.1, seed 7) at dtype=single on the card (the
+    harness's default device): every ROI within 2x the documented
+    deviation, the noise too, kernel 6 launched once; and model_evaluate
+    on the card (the API's default device) equal to the CPU's within
+    1e-12 at float64."""
+    from fabber_core_tpu_torch.api import FabberTpu
+    from fabber_core_tpu_torch.selftest import self_test
+    reset_launches()
+    t0 = time.perf_counter()
+    results, text = self_test(
+        "exp", {"dt": "0.02", "num-exps": "1", "dtype": "single"},
+        {"amp1": [1.0, 0.5], "r1": [1.0, 0.8]},
+        nt=100, patchsize=10, noise=0.1, seed=7)
+    secs = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    ok = launches.get("fused_nl_loop") == 1
+    route = [ln for ln in text.splitlines() if "Engine route:" in ln]
+    log(f" self_test: {secs:.3f} s; launches {launches}; {route}")
+    for (param, truth), dev in SELFTEST_DOC_DEV.items():
+        got = results[param][truth]
+        good = abs(got - truth) <= 2 * dev
+        ok &= good
+        log(f"  {param}: {truth} -> {got!r} (bound {2 * dev:g}) "
+            f"{'ok' if good else 'FAIL'}")
+    (_, noise_out), = results["noise"].items()
+    good = abs(noise_out - 0.1) <= 2 * SELFTEST_NOISE_DEV
+    ok &= good
+    log(f"  noise: 0.1 -> {noise_out!r} (bound {2 * SELFTEST_NOISE_DEV:g}) "
+        f"{'ok' if good else 'FAIL'}")
+    for opts, values in (
+            ({"model": "exp", "dt": "0.02", "num-exps": "2"},
+             {"amp1": 1.0, "r1": 0.8, "amp2": 0.5, "r2": 6.0}),
+            ({"model": "poly", "degree": "2"},
+             {"c0": 100.0, "c1": 0.5, "c2": -0.005})):
+        card_out = FabberTpu().model_evaluate(opts, values, NT)
+        cpu_out = FabberTpu(device="cpu").model_evaluate(opts, values, NT)
+        rel = float(np.abs(card_out - cpu_out).max()
+                    / np.abs(cpu_out).max())
+        ok &= rel <= 1e-12 and card_out.dtype == np.float64
+        log(f"  model_evaluate {opts['model']} on the card vs the CPU at "
+            f"float64: {rel:.3g} of max (bound 1e-12)")
+    log(f" self_test  [{card}] {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def run_surface_paths(device, card):
+    """Phase 4x: the rest of the user surface on the card. Returns
+    (ok, figures for the log after phase 5)."""
+    t0 = time.perf_counter()
+    log("phase 4x (1): the C API by ctypes attach, 128x128x64 x 106, "
+        "poly degree 2, no device option")
+    ok1, capi_s = check_capi_attach(device, card)
+    log("phase 4x (2): the port's C host, no device argument")
+    ok2, host_s = check_capi_host(card)
+    log("phase 4x (3): --profile-dir, 64x64x32 x 106, poly degree 2")
+    ok3, traces, walls = check_profile_dir(device, card)
+    log("phase 4x (4): self_test (exp) and model_evaluate on the card")
+    ok4 = check_self_test(card)
+    secs = time.perf_counter() - t0
+    log(f"phase 4x: {secs:.1f} s; C API {ok1}, C host {ok2}, profile "
+        f"{ok3}, self_test {ok4}")
+    return ok1 and ok2 and ok3 and ok4, {"traces": traces, "walls": walls,
+                                         "capi_s": capi_s, "host_s": host_s}
+
+
 def main():
     try:
         import torch
@@ -4683,6 +4967,7 @@ def main():
         print(f"run from the repository root ({e})", file=sys.stderr)
         return 2
     device = "cuda"
+    t_start = time.perf_counter()
 
     # phase 1: the card
     card = card_line()
@@ -4811,6 +5096,7 @@ def main():
         f"{gen_launches['fused_vb_iter:generated']}, phase 4w {mc_gen7}")
     gen_launches["fused_vb_iter:generated"] += mc_gen7
     launches.update(gen_launches)
+    ok4x, fig4x = run_surface_paths(device, card)
 
     # phase 5: timing at the headline sizes
     log("phase 5: timing at 16,777,216 voxels")
@@ -4835,6 +5121,13 @@ def main():
         f"{MC_SHAPE + (MC_NT,)}: {mc_step_s!r} s  [{card}]")
     log("phase 5h: spatial VB at 3,999,744 voxels (1024x3906)")
     time_spatial(device, card)
+    nv_prof = int(np.prod(PROFILE_SHAPE))
+    for name, key in (("spectral_stats_kernel", "stats_ms"),
+                      ("spectral_core_kernel", "core_ms")):
+        log(f" phase 4x trace ms of {name} at {nv_prof} voxels "
+            f"{[t[name] for t in fig4x['traces']]!r} beside phase 5's "
+            f"CUDA-event {fig[key]!r} ms at 16,777,216 "
+            f"({fig[key] * nv_prof / 16_777_216!r} ms scaled)  [{card}]")
 
     phases = {"kernels": ok3, "nl_kernels": ok3b, "detector_kernels": ok3c,
               "main_path": ok4, "engine_vs_f64": ok4b, "biexp_path": ok4c,
@@ -4849,7 +5142,7 @@ def main():
               "spatial_path": ok4r, "spatial_p4_paths": ok4s,
               "feature_paths": ok4t, "spatial_modes": ok4u,
               "generated_kernels_7_8": ok3g7, "generated_plugin_paths": ok4v,
-              "motion_noprior_paths": ok4w,
+              "motion_noprior_paths": ok4w, "surface_paths": ok4x,
               "vb_iter_forms_bit_identical":
                   fig_nl["vb_iter_staged_bits_equal_streamed"],
               "whole_forms_bit_identical": fig_fd["whole_forms_bit_identical"],
@@ -4941,6 +5234,8 @@ def main():
               fig_gen78["nlls_gen_ms"], fig_gen78["nlls_gen_plain_ms"],
               fig_gen78["nlls_gen_bound"]),
     ]
+    log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all  "
+        f"[{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

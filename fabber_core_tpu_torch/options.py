@@ -93,7 +93,7 @@ GLOBAL_OPTIONS = [
                "Precision: double|single|bf16 (bf16 = bfloat16 data "
                "storage with float32 compute)", default="double"),
     OptionSpec("gzip-log", OPT_BOOL, "Compress the logfile on normal exit"),
-    OptionSpec("profile-dir", OPT_STR, "Write a jax.profiler device trace here"),
+    OptionSpec("profile-dir", OPT_STR, "Write a torch.profiler trace here"),
     OptionSpec("no-compat-output", OPT_BOOL,
                "Disable the backwards-compatible default output set"),
     OptionSpec("shard-voxels", OPT_BOOL,

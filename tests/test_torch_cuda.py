@@ -2195,3 +2195,120 @@ def test_ard_kernel7_matches_plain_over_ten_iterations(cuda, monkeypatch):
     np.testing.assert_allclose(rk.free_energy, rp.free_energy, rtol=1e-4,
                                atol=2e-3)
     np.testing.assert_array_equal(rk.bad_voxels, rp.bad_voxels)
+
+
+# the user surface: the C API, --profile-dir, model_evaluate, self_test
+
+CAPI_OPTS = {"model": "poly", "degree": "2", "noise": "white",
+             "method": "vb", "max-iterations": "10", "dtype": "single",
+             "save-mean": True, "save-std": True, "save-noise-mean": True,
+             "save-free-energy": True}
+
+
+def poly_volume(shape, seed, nt=106):
+    rng = np.random.default_rng(seed)
+    t = np.arange(1, nt + 1, dtype=np.float64)
+    design = t[:, None] ** np.arange(3)[None, :]
+    nv = int(np.prod(shape))
+    truth = np.stack([rng.uniform(50, 150, nv), rng.uniform(-0.5, 0.5, nv),
+                      rng.uniform(-0.005, 0.005, nv)])
+    data = (design @ truth).T + rng.standard_normal((nv, nt))
+    return data.reshape(tuple(shape) + (nt,), order="F").astype(np.float32)
+
+
+def test_capi_on_card_equals_run_with_data(cuda):
+    """The port's C API by ctypes attach with no device option runs on
+    the card: kernels 1 and 2 once each, every fabber_get_data output
+    equal to run_with_data's on the card bit for bit."""
+    import ctypes
+    from fabber_core_tpu_torch import capi
+    from fabber_core_tpu_torch.api import FabberTpu
+    shape = (24, 16, 8)
+    vol = poly_volume(shape, 3)
+    ref = FabberTpu(device="cuda").run_with_data(CAPI_OPTS, {"data": vol})
+    lib = capi.load()
+    err = ctypes.create_string_buffer(256)
+    fab = lib.fabber_new(err)
+    assert fab, err.value
+    assert lib.fabber_set_extent(fab, *shape, None, err) == 0
+    for key, value in CAPI_OPTS.items():
+        value = "" if value is True else value
+        assert lib.fabber_set_opt(fab, key.encode(), value.encode(), err) == 0
+    flat = np.ascontiguousarray(vol.flatten(order="F"))
+    fp = ctypes.POINTER(ctypes.c_float)
+    assert lib.fabber_set_data(fab, b"data", 106, flat.ctypes.data_as(fp),
+                               err) == 0
+    before = (fs.spectral_stats.launches, fs.spectral_core.launches)
+    logbuf = ctypes.create_string_buffer(1 << 20)
+    assert lib.fabber_dorun(fab, 1 << 20, logbuf, err, None) == 0, err.value
+    assert (fs.spectral_stats.launches - before[0],
+            fs.spectral_core.launches - before[1]) == (1, 1)
+    for name, want in ref.data.items():
+        buf = np.empty(int(np.prod(shape)), np.float32)
+        assert lib.fabber_get_data_size(fab, name.encode(), err) == 1
+        assert lib.fabber_get_data(fab, name.encode(), buf.ctypes.data_as(fp),
+                                   err) == 0
+        got = buf.reshape(shape, order="F")
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32), err_msg=name)
+    lib.fabber_destroy(fab)
+
+
+def test_profile_dir_trace_names_the_kernels_on_card(cuda, tmp_path):
+    """--profile-dir on the card: one Chrome trace whose device events
+    name kernels 1 and 2 by their __global__ names."""
+    import json
+    from fabber_core_tpu_torch import cli
+    from fabber_core_tpu_torch.io import nifti
+    nifti.save(nifti.NiftiImage(poly_volume((16, 16, 8), 4)),
+               str(tmp_path / "data.nii"))
+    prof = tmp_path / "prof"
+    assert cli.execute(["--model=poly", "--degree=2", "--method=vb",
+                        "--noise=white", "--dtype=single",
+                        f"--data={tmp_path / 'data.nii'}",
+                        f"--output={tmp_path / 'out'}",
+                        f"--profile-dir={prof}"]) == 0
+    traces = sorted(prof.glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    kernels = [e["name"] for e in json.loads(traces[0].read_text())[
+        "traceEvents"] if e.get("cat") == "kernel"]
+    for name in ("spectral_stats_kernel", "spectral_core_kernel"):
+        assert any(name in k for k in kernels), (name, kernels[:20])
+    assert f"Profiler trace written to {prof}" in \
+        (tmp_path / "out" / "logfile").read_text()
+
+
+@pytest.mark.parametrize("opts,values", [
+    ({"model": "exp", "dt": "0.02", "num-exps": "2"},
+     {"amp1": 1.0, "r1": 0.8, "amp2": 0.5, "r2": 6.0}),
+    ({"model": "poly", "degree": "2"}, {"c0": 100.0, "c1": 0.5,
+                                        "c2": -0.005})],
+    ids=["biexp", "poly"])
+def test_model_evaluate_on_card(cuda, opts, values):
+    """FabberTpu().model_evaluate runs on the card by default, float64
+    there, equal to the CPU's within 1e-12 of its max."""
+    from fabber_core_tpu_torch.api import FabberTpu
+    got = FabberTpu().model_evaluate(opts, values, 106)
+    ref = FabberTpu(device="cpu").model_evaluate(opts, values, 106)
+    assert got.dtype == np.float64
+    assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+def test_self_test_on_card(cuda):
+    """The documented exp self-test (tests/test_selftest_reference.py) at
+    dtype=single on the card, the harness's default device: kernel 6
+    once, every ROI and the noise within 2x the documented deviations."""
+    from fabber_core_tpu_torch.ops import fused_loop_nl as nl
+    from fabber_core_tpu_torch.selftest import self_test
+    before = nl.fused_nl_loop.launches
+    res, _ = self_test("exp", {"dt": "0.02", "num-exps": "1",
+                               "dtype": "single"},
+                       {"amp1": [1.0, 0.5], "r1": [1.0, 0.8]},
+                       nt=100, patchsize=10, noise=0.1, seed=7)
+    assert nl.fused_nl_loop.launches == before + 1
+    for (param, truth), dev in {("amp1", 1.0): 3e-4, ("amp1", 0.5): 7e-4,
+                                ("r1", 1.0): 7.3e-4,
+                                ("r1", 0.8): 1.3e-3}.items():
+        assert abs(res[param][truth] - truth) <= 2 * dev, (param, truth)
+    (_, noise_out), = res["noise"].items()
+    assert abs(noise_out - 0.1) <= 2 * 4.8e-4

@@ -1,8 +1,11 @@
 """fabber_core_tpu_torch never imports jax nor the JAX package: every
-module of the port (the generic mode's models/kernelgen.py and the
-examples/ plugin among them) imports in a fresh interpreter without jax
-or fabber_core_tpu entering sys.modules, and no source file of the port,
-nor chip_smoke.py, has an import statement naming either."""
+module of the port (the generic mode's models/kernelgen.py, the
+examples/ plugin, the C API's backend and builder, the tools, .fab
+files and the self-test harness among them) imports in a fresh
+interpreter without jax or fabber_core_tpu entering sys.modules, no
+source file of the port, nor chip_smoke.py, has an import statement
+naming either, and the port's C shim and C host import only the
+port."""
 
 import os
 import re
@@ -41,7 +44,9 @@ def test_port_imports_no_jax():
     assert nmods >= 25, proc.stdout
     names = proc.stdout.split()
     for mod in ("models.kernelgen", "examples.fwdmodel_exp",
-                "ops.fused_loop_nl", "ops.fused_vb"):
+                "ops.fused_loop_nl", "ops.fused_vb", "capi", "capi_backend",
+                "fabfile", "selftest", "tools.mvntool", "tools.fabber_var",
+                "tools.niftidiff"):
         assert f"fabber_core_tpu_torch.{mod}" in names, proc.stdout
 
 
@@ -64,3 +69,15 @@ def test_port_sources_have_no_jax_package_import():
     assert pat.search("from fabber_core_tpu.models import x")
     assert pat.search("import fabber_core_tpu")
     assert not pat.search("from fabber_core_tpu_torch.models import x")
+
+
+def test_port_c_sources_import_only_the_port():
+    """The shim embeds an interpreter and imports the backend by name:
+    the port's own (fabber_core_tpu_torch.capi_backend), never the JAX
+    package's; the C host runs no import of its own."""
+    shim = (PKG / "capi" / "fabber_capi_torch.cc").read_text()
+    imports = re.findall(r'PyImport_ImportModule\("([^"]+)"\)', shim)
+    assert imports == ["fabber_core_tpu_torch.capi_backend"]
+    host = (PKG / "capi" / "test_host.c").read_text()
+    assert "PyImport_ImportModule" not in host
+    assert not re.search(r"import\s+(jax|fabber_core_tpu)\b", host)

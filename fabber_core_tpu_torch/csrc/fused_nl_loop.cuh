@@ -112,9 +112,9 @@ struct NLDetConsts {
 // free_energy_from_parts with the noise shape fixed (the Gamma-function
 // terms live in base and lb_coeff), operation order of the TPU kernel's
 // assemble_f.
-template <int P, int Q>
+template <int P, int Q, class K>
 __device__ __forceinline__ float assemble_f(
-    const VBParams& k, const NLDetConsts& dc, float base, const float* cen,
+    const K& k, const NLDetConsts& dc, float base, const float* cen,
     const float* b, const float* c, const float* covdiag, float logdet,
     const float* kqk, const float* trace, const float* pm, const float* pp) {
   float v = base - 0.5f * logdet;
@@ -161,7 +161,7 @@ __device__ __forceinline__ void store_state(
 // STAGED: the passes read the block's shared tile (tile.cuh)
 template <class M, int Q, int MODE, bool STAGED>
 __global__ void __launch_bounds__(kThreads)
-fused_nl_loop_kernel(const VBParams k, const NLDetConsts dc,
+fused_nl_loop_kernel(const VBParamsFor<M::P> k, const NLDetConsts dc,
                      const float* __restrict__ centre0,
                      const float* __restrict__ pm_in,
                      const float* __restrict__ pp_in,
@@ -487,8 +487,9 @@ int launch_form(const VBParams& k, const NLDetConsts& dc, int vb,
   }
   const unsigned grid = (unsigned)((k.V + threads - 1) / threads);
   kernel<<<grid, threads, smem, stream>>>(
-      k, dc, ins[0], ins[1], ins[2], ins[3], ins[4], ins[5], ins[6],
-      outs[0], outs[1], outs[2], outs[3], outs[4], outs[5], outs[6]);
+      params_for<M::P>(k), dc, ins[0], ins[1], ins[2], ins[3], ins[4],
+      ins[5], ins[6], outs[0], outs[1], outs[2], outs[3], outs[4], outs[5],
+      outs[6]);
   return (int)cudaGetLastError();
 }
 

@@ -105,9 +105,12 @@ __device__ __forceinline__ float madd(float a, float b, float c) {
 
 enum Mode : int { kFresh = 0, kPhase1 = 1, kResume = 2 };
 
-// Everything a launch passes by value.
-struct NLLSParams {
-  int tcode[kMaxP];
+// Everything a launch passes by value, with room for NC codes: the C
+// entry points fill an NLLSParams, an instance takes NLLSParamsFor<P>
+// (as VBParamsFor, vb_device.cuh).
+template <int NC>
+struct NLLSParamsN {
+  int tcode[NC];
   float dt;
   int max_its;        // step budget (resume: the remaining one)
   float lam_init, grow, shrink, lam_max, prec_floor, cftol, plateau;
@@ -115,12 +118,35 @@ struct NLLSParams {
   int nt;
   long long V;
 };
+using NLLSParams = NLLSParamsN<kMaxP>;
+template <int P>
+using NLLSParamsFor = NLLSParamsN<(P <= 4 ? 4 : kMaxP)>;
+
+// k as the block of a P-parameter instance, on the host
+template <int P>
+NLLSParamsFor<P> nlls_params_for(const NLLSParams& k) {
+  NLLSParamsFor<P> n = {};
+  for (int i = 0; i < P; ++i) n.tcode[i] = k.tcode[i];
+  n.dt = k.dt;
+  n.max_its = k.max_its;
+  n.lam_init = k.lam_init;
+  n.grow = k.grow;
+  n.shrink = k.shrink;
+  n.lam_max = k.lam_max;
+  n.prec_floor = k.prec_floor;
+  n.cftol = k.cftol;
+  n.plateau = k.plateau;
+  n.dof = k.dof;
+  n.nt = k.nt;
+  n.V = k.V;
+  return n;
+}
 
 // J'J (packed), J'r and r'r at latent params x (JAC false: r'r alone,
 // computed as the full pass computes it), the samples and weights read
 // through col (tile.cuh: the staged tile or the plane).
-template <class M, bool JAC, class C>
-__device__ __forceinline__ void nlls_pass(const NLLSParams& k, const float* x,
+template <class M, bool JAC, class K, class C>
+__device__ __forceinline__ void nlls_pass(const K& k, const float* x,
                                           const C& col, float* jtj,
                                           float* jtr, float& rr) {
   constexpr int P = M::P, NT = P * (P + 1) / 2;
@@ -196,7 +222,8 @@ __device__ __forceinline__ void solve_step(const float* jtj, const float* jtr,
 
 template <class M, int MODE, bool MARQ, bool STAGED>
 __global__ void __launch_bounds__(kThreads)
-fused_nlls_kernel(const NLLSParams k, const float* __restrict__ params0,
+fused_nlls_kernel(const NLLSParamsFor<M::P> k,
+                  const float* __restrict__ params0,
                   const float* __restrict__ data, const float* __restrict__ w,
                   const float* __restrict__ state_in,
                   float* __restrict__ params_out, float* __restrict__ cost_out,
@@ -314,9 +341,9 @@ int launch_form(const NLLSParams& k, int vb, long long smem,
     return 0;
   }
   const unsigned grid = (unsigned)((k.V + threads - 1) / threads);
-  kernel<<<grid, threads, smem, stream>>>(k, ins[0], ins[1], ins[2], ins[3],
-                                          outs[0], outs[1], outs[2], outs[3],
-                                          outs[4], outs[5]);
+  kernel<<<grid, threads, smem, stream>>>(
+      nlls_params_for<M::P>(k), ins[0], ins[1], ins[2], ins[3], outs[0],
+      outs[1], outs[2], outs[3], outs[4], outs[5]);
   return (int)cudaGetLastError();
 }
 

@@ -136,7 +136,8 @@ __device__ __forceinline__ void k_pass(const float* mrow, const float* chain,
 // STAGED: the passes read the block's shared tile (tile.cuh)
 template <class M, int Q, bool LM, bool STAGED>
 __global__ void __launch_bounds__(kThreads)
-fused_vb_iter_kernel(const VBParams k, const float* __restrict__ centre_in,
+fused_vb_iter_kernel(const VBParamsFor<M::P> k,
+                     const float* __restrict__ centre_in,
                      const float* __restrict__ pm_in,
                      const float* __restrict__ pp_in,
                      const float* __restrict__ phi_in,
@@ -256,8 +257,9 @@ int launch_form(const VBParams& k, int vb, long long smem,
   }
   const unsigned grid = (unsigned)((k.V + threads - 1) / threads);
   kernel<<<grid, threads, smem, stream>>>(
-      k, ins[0], ins[1], ins[2], ins[3], ins[4], ins[5], ins[6], outs[0],
-      outs[1], outs[2], outs[3], outs[4], outs[5], outs[6]);
+      params_for<M::P>(k), ins[0], ins[1], ins[2], ins[3], ins[4], ins[5],
+      ins[6], outs[0], outs[1], outs[2], outs[3], outs[4], outs[5],
+      outs[6]);
   return (int)cudaGetLastError();
 }
 

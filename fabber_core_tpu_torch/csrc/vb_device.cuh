@@ -40,6 +40,8 @@
   X(1, 2, ExpSum<1>, 1) X(1, 2, ExpSum<1>, 2) X(1, 2, ExpSum<1>, 3)   \
   X(1, 2, ExpSum<1>, 4) X(1, 4, ExpSum<2>, 1) X(1, 4, ExpSum<2>, 2)   \
   X(1, 4, ExpSum<2>, 3) X(1, 4, ExpSum<2>, 4)                         \
+  X(1, 6, ExpSum<3>, 1) X(1, 6, ExpSum<3>, 2)                         \
+  X(1, 8, ExpSum<4>, 1) X(1, 8, ExpSum<4>, 2)                         \
   X(0, 1, PolyModel<1>, 1) X(0, 1, PolyModel<1>, 2)                   \
   X(0, 2, PolyModel<2>, 1) X(0, 2, PolyModel<2>, 2)                   \
   X(0, 3, PolyModel<3>, 1) X(0, 3, PolyModel<3>, 2)                   \
@@ -48,8 +50,9 @@
 namespace fabber {
 
 // largest P of FABBER_NL_INSTANCES, and of a generated functor: the
-// engine refuses a larger model on the card at construction
-constexpr int kMaxP = 4;
+// engine refuses a larger model on the card at construction (ops/_cuda.py
+// gen_limits reads kMaxP and kMaxQ from these two lines)
+constexpr int kMaxP = 8;
 constexpr int kMaxQ = 4;   // largest Q of FABBER_NL_INSTANCES
 // samples per block of the two-level time sums: each pass sums kTB
 // samples into block sums and adds the blocks into its totals. One
@@ -414,9 +417,13 @@ __device__ __forceinline__ void store_full(const float* packed,
 }
 
 // Everything a launch passes by value: the per-parameter transform
-// codes, dt, the loop controls and the per-group noise constants.
-struct VBParams {
-  int tcode[kMaxP];
+// codes (room for NC), dt, the loop controls and the per-group noise
+// constants. The C entry points fill a VBParams (kMaxP codes); an
+// instance takes VBParamsFor<P>: at P <= 4 the block of 4 codes the
+// instances had when kMaxP was 4, whose type their SASS depends on.
+template <int NC>
+struct VBParamsN {
+  int tcode[NC];
   float dt;
   int n_iters;
   int need_f;
@@ -428,5 +435,29 @@ struct VBParams {
   int nt;
   long long V;
 };
+using VBParams = VBParamsN<kMaxP>;
+template <int P>
+using VBParamsFor = VBParamsN<(P <= 4 ? 4 : kMaxP)>;
+
+// k as the block of a P-parameter instance (the codes it reads and the
+// rest), on the host
+template <int P>
+VBParamsFor<P> params_for(const VBParams& k) {
+  VBParamsFor<P> n = {};
+  for (int i = 0; i < P; ++i) n.tcode[i] = k.tcode[i];
+  n.dt = k.dt;
+  n.n_iters = k.n_iters;
+  n.need_f = k.need_f;
+  n.locked_sd = k.locked_sd;
+  for (int i = 0; i < kMaxQ; ++i) {
+    n.inv_b0[i] = k.inv_b0[i];
+    n.c_post[i] = k.c_post[i];
+    n.b_init[i] = k.b_init[i];
+    n.c_init[i] = k.c_init[i];
+  }
+  n.nt = k.nt;
+  n.V = k.V;
+  return n;
+}
 
 }  // namespace fabber

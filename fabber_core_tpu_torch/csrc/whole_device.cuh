@@ -18,16 +18,18 @@
 // Every (P, Q) kernels 4 and 5 are compiled for, as X(P, Q); each gives
 // kernel 4 in MODEs 0-2 (fused_whole.cu) and kernel 5 (fused_loop.cu).
 // This list is the one source of both C entry points' dispatch and of
-// fabber_whole_has_instance, which the engine's route gate asks.
+// fabber_whole_has_instance, which the engine's route gate asks. Q = 3
+// stops at P = 5: from P = 6 ptxas spills one of its instances.
 #define FABBER_WHOLE_INSTANCES(X)                                   \
   X(1, 1) X(1, 2) X(1, 3) X(2, 1) X(2, 2) X(2, 3) X(3, 1) X(3, 2)   \
-  X(3, 3) X(4, 1) X(4, 2) X(4, 3)
+  X(3, 3) X(4, 1) X(4, 2) X(4, 3) X(5, 1) X(5, 2) X(5, 3) X(6, 1)   \
+  X(6, 2) X(7, 1) X(7, 2) X(8, 1) X(8, 2)
 
 namespace {
 
 using namespace fabber;
 
-constexpr int kWMaxP = 4;   // largest P of FABBER_WHOLE_INSTANCES
+constexpr int kWMaxP = 8;   // largest P of FABBER_WHOLE_INSTANCES
 constexpr int kWMaxQ = 3;   // largest Q of FABBER_WHOLE_INSTANCES
 
 // Everything a launch passes by value: D'Q_qD ([Q][P][P] row-major at the

@@ -40,9 +40,10 @@ On "cuda" the kernel route needs the model's functor: a hand-written
 one among the kernel's instances (kernel_model(), csrc/vb_device.cuh
 FABBER_NL_INSTANCES), else one generated from its time_signal
 (models/kernelgen.py), built at construction (ops/_cuda.py
-build_generated, kernel "nlls"). A run with neither (P > 4, or a
-time_signal the generator refuses) raises at construction, never runs
-plain torch on the card. The whole volume runs in one pass; the JAX engine's voxel windows
+build_generated, kernel "nlls"). A run with neither (P > 8, or a
+time_signal the generator refuses) raises at construction
+(vb.py require_card_instance), never runs plain torch on the card. The
+whole volume runs in one pass; the JAX engine's voxel windows
 and its per-shard dispatch are not ported (ROADMAP Queue 1 item 18).
 """
 
@@ -59,7 +60,8 @@ from ..ops.fused_nlls import (LAMBDA_INIT, PREC_DIAG_FLOOR, accept,
 from ..options import OptionSpec, OPT_BOOL, OPT_INT, OPT_STR
 from ..models.kernelgen import derive_time_signal_functor
 from .linearize import Linearizer
-from .vb import VBResult, require_generatable, supp_plane
+from .vb import (VBResult, generatable, require_card_instance,
+                 supp_plane)
 
 FAIL_PRECISION = 1e-12
 
@@ -202,15 +204,19 @@ class NLLSInference:
         the model's functor: a hand-written instance, else a functor
         generated from the model's time_signal, built (or loaded) now
         into functor.libs[("nlls", None)]; a run with neither raises
-        here, before anything launches. On "cpu" the route runs the
-        plain version, which takes any time-local model."""
+        here (require_card_instance), before anything is built or
+        launched. On "cpu" the route runs the plain version, which takes
+        any time-local model."""
         if self.device.type != "cuda" or self.route != "nlls-kernel":
             return
-        if nlls_instantiated(self.model.kernel_model()):
+        has = nlls_instantiated(self.model.kernel_model())
+        functor = None if has else derive_time_signal_functor(
+            self.model, self.nparams)
+        require_card_instance(
+            self.route, self.nparams, None, lambda r: has,
+            lambda r: generatable(functor, self.nparams, None))
+        if has:
             return
-        functor = derive_time_signal_functor(self.model, self.nparams)
-        require_generatable(self.model, functor, self.nparams, None,
-                            self.route)
         from ..ops import _cuda
         functor.libs[("nlls", None)] = _cuda.build_generated(
             functor.source, self.nparams, None, "nlls")

@@ -89,8 +89,8 @@ a functor generated from the model for kernels 6 and 7, built at first
 use, csrc/whole_device.cuh FABBER_WHOLE_INSTANCES for (P, Q), csrc/
 fused_ar_loop.cu FABBER_AR_INSTANCES for AR's (P, echoes)); a run outside
 them raises at construction (a continued run's route, before its first
-launch). Choosing a route is a decision made before any launch, never a
-fallback after a failure.
+launch; require_card_instance). Choosing a route is a decision made before
+any launch, never a fallback after a failure.
 
 run() is the route's run, then, with mcsteps > 0, the motion-correction
 steps (core/motion.py: the original data registered to the model fit,
@@ -100,6 +100,7 @@ posterior (compute_noprior) at the final state: features of every
 route, as the JAX engine's run() (vb.py:2421-2526) has them.
 """
 
+import functools
 import math
 from typing import Any, NamedTuple
 
@@ -115,6 +116,7 @@ from ..noise import get_noise_class
 from ..noise.ar1 import Ar1NoiseState
 from ..noise.white import DesignStats, WhiteNoiseState
 from ..ops import smallmat as sm
+from ..ops import _cuda
 from ..ops.fused_loop import (fused_vb_loop, pack_loop_consts,
                               whole_instantiated)
 from ..ops.fused_loop_ar import (DETECTOR_KINDS as AR_DETECTORS,
@@ -182,6 +184,16 @@ ENGINE_KERNELS = ("auto", "pallas", "pallas-loop", "pallas-whole",
 FUNCTOR_ROUTES = ("pallas-loop-nl", "pallas")
 # the fixed-design routes whose kernels take (P, Q) instances
 WHOLE_ROUTES = ("pallas-whole", "pallas-loop")
+# the kernel each kernel route launches (PERF.md's numbering), and the
+# list of the shapes that kernel is compiled for
+ROUTE_KERNEL = {"pallas-whole": 4, "pallas-loop": 5, "pallas-loop-ar": 9,
+                "pallas-loop-nl": 6, "pallas": 7, "nlls-kernel": 8}
+INSTANCE_LISTS = {4: "csrc/whole_device.cuh FABBER_WHOLE_INSTANCES",
+                  5: "csrc/whole_device.cuh FABBER_WHOLE_INSTANCES",
+                  9: "csrc/fused_ar_loop.cu FABBER_AR_INSTANCES",
+                  6: "csrc/vb_device.cuh FABBER_NL_INSTANCES",
+                  7: "csrc/vb_device.cuh FABBER_NL_INSTANCES",
+                  8: "csrc/vb_device.cuh FABBER_NL_INSTANCES"}
 # the fixed-design routes that start from the model default (a
 # programmatic initial posterior takes "xla" instead, vb.py:2516-2539)
 DESIGN_KERNEL_ROUTES = ("spectral-whole", "spectral-fused",
@@ -575,52 +587,57 @@ class VBInference:
 
     def _require_kernel_instance(self, route=None):
         """On "cuda" a kernel route (default the run's; a continued run
-        asks for continuation_route()'s) needs its kernels compiled for
-        the run: the nonlinear kernels 6 and 7 a model functor at the
-        run's (P, Q), hand-written (model.kernel_model(), among
-        FABBER_NL_INSTANCES) or else generated from the model and built
-        now, the fixed-design kernels 4 and 5 the run's (P, Q). A run
-        without one raises here, before anything launches. On "cpu" the
-        routes run their plain versions, which take any shape."""
+        asks for continuation_route()'s) needs its kernel compiled for the
+        run's (P, Q): a hand-written instance (FABBER_NL_INSTANCES for the
+        model's functor, FABBER_WHOLE_INSTANCES, FABBER_AR_INSTANCES) or,
+        for kernels 6 and 7, a functor generated from the model (its
+        evaluate on the generic route, else its time_signal), built now
+        (_require_functor). A run with neither raises here
+        (require_card_instance), before anything is built or launched.
+        On "cpu" the routes run their plain versions, which take any
+        shape."""
         if self.device.type != "cuda":
             return
         route = route or self.route
-        nq = self.noise.nphis
-        if route == "pallas-loop-ar":
-            if ar_instantiated(self.nparams, nq):
-                return
-            raise NotImplementedError(
-                f"P={self.nparams} with {nq} echo group(s) is not among the "
-                "AR(1) kernel's instances (csrc/fused_ar_loop.cu "
-                "FABBER_AR_INSTANCES), so the 'pallas-loop-ar' route "
-                f"({ROUTES[route]}) cannot run it on the card; "
-                "device='cpu' runs the route's plain version")
-        if route in WHOLE_ROUTES:
-            if whole_instantiated(self.nparams, nq):
-                return
-            raise NotImplementedError(
-                f"P={self.nparams}, Q={nq} is not among the fixed-design "
-                "kernels' instances (csrc/whole_device.cuh "
-                f"FABBER_WHOLE_INSTANCES), so the '{route}' route "
-                f"({ROUTES[route]}) cannot run it on the card; "
-                "device='cpu' runs the route's plain version")
-        if route not in FUNCTOR_ROUTES:
-            return
-        if self.generic is None and kernel_instantiated(
-                self.model.kernel_model(), nq):
-            return
-        self._require_generated(route, nq)
+        p, nq = self.nparams, self.noise.nphis
 
-    def _require_generated(self, route, nq):
-        """route's kernel (6 for pallas-loop-nl, 7 for pallas) with a
-        functor generated from the model (its evaluate on the generic
-        route, else its time_signal), built (or loaded) now into
-        functor.libs[(kernel, Q)]; raises when it cannot be."""
+        def has_instance(r):
+            if r == "pallas-loop-ar":
+                return ar_instantiated(p, nq)
+            if r in WHOLE_ROUTES:
+                return whole_instantiated(p, nq)
+            return self.generic is None and kernel_instantiated(
+                self.model.kernel_model(), nq)
+
+        def functor_ok(r):
+            if r not in FUNCTOR_ROUTES or (r == "pallas"
+                                           and self.generic is not None):
+                return False
+            return generatable(self._gen_functor, p, nq)
+        require_card_instance(route, p, nq, has_instance, functor_ok)
+        self._require_functor(route)
+
+    @functools.cached_property
+    def _gen_functor(self):
+        """The functor generated from the model for kernels 6 and 7: the
+        generic route's (from evaluate), else one from its time_signal
+        (None where the generator refuses it), derived once."""
+        return self.generic or derive_time_signal_functor(self.model,
+                                                          self.nparams)
+
+    def _require_functor(self, route):
+        """On "cuda", route's kernel (6 for pallas-loop-nl, 7 for pallas)
+        where the model's functor has no hand-written instance at the
+        run's Q: the generated one (require_card_instance admitted it),
+        built (or loaded) now into functor.libs[(kernel, Q)]. A failed
+        build raises."""
+        nq = self.noise.nphis
+        if route not in FUNCTOR_ROUTES or (
+                self.generic is None and kernel_instantiated(
+                    self.model.kernel_model(), nq)):
+            return
         kernel = "nl_loop" if route == "pallas-loop-nl" else "vb_iter"
-        functor = self.functor or self.generic \
-            or derive_time_signal_functor(self.model, self.nparams)
-        require_generatable(self.model, functor, self.nparams, nq, route)
-        from ..ops import _cuda
+        functor = self._gen_functor
         functor.libs[(kernel, nq)] = _cuda.build_generated(
             functor.source, self.nparams, nq, kernel)
         self.functor = functor
@@ -1560,25 +1577,37 @@ def _no_voxel_data(key):
     raise KeyError(key)
 
 
-def require_generatable(model, functor, nparams, nq, route):
-    """Raise where a functor generated from the model cannot serve the
-    route's kernel on the card: none could be generated (functor None),
-    or P (and Q; None for the NLLS kernel) lie above the generated
-    functors' P <= 4, Q <= 4. Both are ROADMAP Queue 1 item 20's."""
-    why = None
-    if functor is None:
-        why = "its time_signal traces to an op the generator lacks"
-    elif nparams > 4 or (nq or 1) > 4:
-        shape = f"P={nparams}" + ("" if nq is None else f", Q={nq}")
-        why = (f"{shape} is above the generated functors' P <= 4, Q <= 4 "
-               "(csrc/vb_device.cuh kMaxP, kMaxQ)")
-    if why is not None:
-        raise NotImplementedError(
-            f"model '{model.name}' has no CUDA model functor among the "
-            "kernels' instances (csrc/vb_device.cuh FABBER_NL_INSTANCES) "
-            f"and none can be generated: {why}, so the '{route}' route "
-            "cannot run it on the card (ROADMAP Queue 1 item 20); "
-            "device='cpu' runs the route's plain version")
+def generatable(functor, nparams, nq):
+    """True where a functor generated from a model can serve a kernel on
+    the card: one was generated (functor not None; the generator refuses
+    some ops) and P, Q (None for the NLLS kernel, which has no noise
+    groups) lie within csrc/vb_device.cuh's kMaxP, kMaxQ."""
+    max_p, max_q = _cuda.gen_limits()
+    return functor is not None and nparams <= max_p and (nq or 1) <= max_q
+
+
+def require_card_instance(route, p, q, has_instance, functor_ok):
+    """Raise NotImplementedError where route's kernel (ROUTE_KERNEL)
+    cannot serve a run of P parameters and Q noise groups (None for the
+    NLLS kernel) on the card: has_instance(route) is false (no
+    hand-written instance at the shape) and so is functor_ok(route) (no
+    functor generated from the model can serve it: kernels 6, 7 and 8
+    only). The JAX engine runs its kernel at such shapes, so the card
+    takes no other route in its place. Routes without a kernel pass. A
+    decision from the lists alone: nothing is built or launched here."""
+    if route not in ROUTE_KERNEL or has_instance(route) \
+            or functor_ok(route):
+        return
+    kernel = ROUTE_KERNEL[route]
+    shape = f"P={p}" + ("" if q is None else f", Q={q}")
+    gen = (", and no functor can be generated from the model (P, Q above "
+           "csrc/vb_device.cuh kMaxP, kMaxQ, or an op the generator lacks)"
+           if kernel in (6, 7, 8) else "")
+    raise NotImplementedError(
+        f"no ({shape}) instance of kernel {kernel} "
+        f"({INSTANCE_LISTS[kernel]}){gen}, so the '{route}' route cannot run "
+        "this on the card, where the JAX engine runs its kernel (ROADMAP "
+        "Queue 3 item 28); device='cpu' runs the route's plain version")
 
 
 def supp_plane(suppdata, nvoxels, dtype, device):

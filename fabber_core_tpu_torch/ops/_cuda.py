@@ -12,8 +12,10 @@ raises here.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -120,20 +122,32 @@ def build():
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     objs, procs = [], []
+    t0 = time.perf_counter()
     for name in SOURCES:
         obj = BUILD_DIR / f"{out.stem}.{Path(name).stem}.{os.getpid()}.o"
         cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, []), "-I",
                str(CSRC), "-c", "-o", str(obj), str(CSRC / name)]
         objs.append(obj)
-        procs.append((name, cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        # nvcc's output to a file, so a full pipe stalls no compiler and
+        # each source's seconds are its own
+        text = obj.with_suffix(".txt")
+        with open(text, "w") as fh:
+            procs.append((name, cmd, text, subprocess.Popen(
+                cmd, stdout=fh, stderr=subprocess.STDOUT)))
+    secs = {}
+    while len(secs) < len(procs):
+        for name, _, _, proc in procs:
+            if name not in secs and proc.poll() is not None:
+                secs[name] = time.perf_counter() - t0
+        time.sleep(0.05)
     logs, failed = [], []
-    for name, cmd, proc in procs:
-        stdout, stderr = proc.communicate()
-        logs.append(f"== {name}\n{stdout}{stderr}")
+    for name, cmd, text, proc in procs:
+        output = text.read_text()
+        text.unlink()
+        logs.append(f"== {name} (nvcc {secs[name]:.1f} s)\n{output}")
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n"
-                          f"{' '.join(cmd)}\n{stderr}")
+                          f"{' '.join(cmd)}\n{output}")
     build_log = "\n".join(logs)
     if failed:
         raise FabberError("\n".join(failed))
@@ -403,6 +417,16 @@ def generated_key(source, p, q, kernel="nl_loop"):
     return h.hexdigest()[:16]
 
 
+@functools.cache
+def gen_limits():
+    """(kMaxP, kMaxQ): the largest P and Q of a generated model functor,
+    read from csrc/vb_device.cuh, the header its kernels compile with."""
+    text = (CSRC / "vb_device.cuh").read_text()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);",
+                               text).group(1))
+                 for name in ("kMaxP", "kMaxQ"))
+
+
 def build_generated(source, p, q, kernel="nl_loop"):
     """Build (once per source, kernel, P, Q, headers and flags) and load
     kernel (GEN_KERNELS: "nl_loop" kernel 6, "vb_iter" kernel 7, "nlls"
@@ -413,9 +437,10 @@ def build_generated(source, p, q, kernel="nl_loop"):
     stderr when the build fails. gen_build_log[hash] keeps the build's
     seconds and nvcc's output (ptxas's register and spill lines; the
     seconds are nan where an earlier process built the library)."""
-    if not 1 <= p <= 4:
-        raise FabberError(f"a generated functor takes P <= 4, not {p} "
-                          "(csrc/vb_device.cuh kMaxP)")
+    max_p = gen_limits()[0]
+    if not 1 <= p <= max_p:
+        raise FabberError(f"a generated functor takes P <= {max_p}, "
+                          f"not {p} (csrc/vb_device.cuh kMaxP)")
     if (q is None) != (kernel == "nlls"):
         raise ValueError(f"kernel {kernel!r} with q={q!r}: the NLLS kernel "
                          "takes no Q, the VB kernels one")

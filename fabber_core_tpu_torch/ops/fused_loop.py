@@ -44,7 +44,8 @@ from .fused_vb import check_plane
 def whole_instantiated(p, nq):
     """True when csrc/fused_whole.cu and csrc/fused_loop.cu are compiled
     for P and Q (kernels 4 and 5; whole_device.cuh FABBER_WHOLE_INSTANCES:
-    P = 1..4, Q = 1..3), asked of the built library."""
+    Q = 1..3 at P = 1..5, Q = 1, 2 at P = 6..8), asked of the built
+    library."""
     from . import _cuda
     return _cuda.has_whole_instance(p, nq)
 

@@ -64,7 +64,7 @@ DETECTOR_KINDS = ("pointzeroone", "freduce")
 
 def ar_instantiated(p, nq):
     """True when csrc/fused_ar_loop.cu is compiled for P and nq
-    (FABBER_AR_INSTANCES: P = 1..4, nq = 1..2), asked of the built
+    (FABBER_AR_INSTANCES: P = 1..8, nq = 1..2), asked of the built
     library."""
     from . import _cuda
     return _cuda.has_ar_instance(p, nq)

@@ -54,8 +54,8 @@ def kernel_instantiated(kmodel, nq):
     """True when the CUDA kernels are compiled for this model functor
     (a KernelModel, or None for a model without one) at nq noise
     groups. The list is csrc/vb_device.cuh's FABBER_NL_INSTANCES,
-    asked of the built library (exp and biexp at Q = 1..4, poly
-    P = 1..4 at Q = 1, 2)."""
+    asked of the built library (exp and biexp at Q = 1..4, exp with
+    num-exps 3 and 4 and poly P = 1..4 at Q = 1, 2)."""
     if kmodel is None:
         return False
     from . import _cuda

@@ -177,9 +177,17 @@ def _unhashed(text):
                   r"_GLOBAL__N__\1", text)
 
 
+def entry_key(name):
+    """A kernel entry's mangled name up to its template arguments' end
+    (the parameter list dropped: a parameter block's type may be spelt
+    anew, as VBParamsFor<P> is, with the same layout and code)."""
+    cut = name.find("EEv")
+    return name if cut < 0 else name[:cut + 3]
+
+
 def sass_text(path):
-    """{kernel entry: [instruction, ...]} of the library at path
-    (cuobjdump --dump-sass; addresses, labels and the anonymous
+    """{kernel entry (entry_key): [instruction, ...]} of the library at
+    path (cuobjdump --dump-sass; addresses, labels and the anonymous
     namespace's path hash dropped), or None when cuobjdump is absent."""
     tool = shutil.which("cuobjdump") or str(
         Path(_cuda()._nvcc()).parent / "cuobjdump")
@@ -190,7 +198,7 @@ def sass_text(path):
     out = {}
     for f in re.split(r"\n\s*Function : ", text)[1:]:
         name, body = f.split("\n", 1)
-        out[name.strip()] = [
+        out[entry_key(name.strip())] = [
             re.sub(r"`\(\.L_x_\d+\)", "L", m.group(1).strip())
             for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(.*?);", body)]
     return out

@@ -53,13 +53,23 @@ from test_torch_cuda import (assert_detector_near_f64, assert_near_f64,
 torch.set_num_threads(1)
 
 
+def cosine_design(p, nt):
+    """[T,P] cosine columns (a constant, then cos(pi k (t + 1/2) / T)):
+    the P = 5..8 cases' design, where a poly design of degree >= 5 is
+    beyond float32."""
+    t = (np.arange(nt) + 0.5) / nt
+    return np.cos(np.pi * t[:, None] * np.arange(p)[None])
+
+
 def make_case(p, nq, nv, dtype, seed=0):
-    """The JAX noise model's statistics of a scaled poly design and
-    AR(1) data whose noise sd varies per voxel (so detector lanes stop
-    apart), the model-default initial values, and weak priors."""
+    """The JAX noise model's statistics of a scaled poly design (P > 4:
+    cosine_design) and AR(1) data whose noise sd varies per voxel (so
+    detector lanes stop apart), the model-default initial values, and
+    weak priors."""
     nt = 30 * nq
     rng = np.random.default_rng(seed + 10 * p + nq)
-    d = (np.arange(1, nt + 1.0)[:, None] / nt) ** np.arange(p)[None]
+    d = (np.arange(1, nt + 1.0)[:, None] / nt) ** np.arange(p)[None] \
+        if p <= 4 else cosine_design(p, nt)
     e = rng.standard_normal((nt, nv))
     for k in range(nq, nt):
         e[k] += 0.4 * e[k - nq]
@@ -115,7 +125,10 @@ KERNEL_CASES = [(1, 2, None, 64), (1, 3, None, 200), (2, 2, None, 200),
                 (2, 3, None, 64), (1, 2, "pointzeroone", 200),
                 (2, 3, "pointzeroone", 64), (1, 3, "pointzeroone", 64),
                 (1, 3, "freduce", 64), (2, 2, "freduce", 200),
-                (2, 3, "freduce", 200)]
+                (2, 3, "freduce", 200),
+                # the P = 5..8 instances
+                (1, 6, None, 64), (2, 8, None, 64),
+                (1, 8, "pointzeroone", 200), (2, 6, "pointzeroone", 200)]
 
 
 @pytest.mark.parametrize("nq,p,kind,nv", KERNEL_CASES,
@@ -258,18 +271,18 @@ def test_wrapper_on_cpu_runs_the_plain_version():
 
 @pytest.fixture(scope="module")
 def ar_host(tmp_path_factory):
-    """(nq, double) -> kernel 9 at P=3 on the host (built once per
-    module; skipped without g++)."""
+    """(nq, double[, P]) -> kernel 9 at P (default 3) on the host (built
+    once per module; skipped without g++)."""
     if not torch_hostcc.have_gxx():
         pytest.skip("g++ is not installed")
     libs = {}
 
-    def get(nq, double):
-        if (nq, double) not in libs:
-            libs[nq, double] = torch_hostcc.ar_kernel_fn(
-                3, nq, tmp_path_factory.mktemp(f"ar{nq}{int(double)}"),
+    def get(nq, double, p=3):
+        if (p, nq, double) not in libs:
+            libs[p, nq, double] = torch_hostcc.ar_kernel_fn(
+                p, nq, tmp_path_factory.mktemp(f"ar{p}{nq}{int(double)}"),
                 double)
-        return libs[nq, double]
+        return libs[p, nq, double]
     return get
 
 
@@ -304,13 +317,43 @@ def raw_poly_inputs(nq, nv, seed=0):
             consts, torch.zeros((3, nv)), torch.full((3, nv), 1e-12)), nm
 
 
-def host_ar_case(nq, kind, nv):
+def wide_inputs(p, nq, nv, seed=0):
+    """raw_poly_inputs' case on cosine_design(p, 106) (truth: c0 ~ U(0.5,
+    1.5), the other columns ~ U(-0.5, 0.5)) and the priors of P
+    parameters."""
+    nt = 106
+    rng = np.random.default_rng(seed + 10 * p + nq)
+    d = cosine_design(p, nt)
+    truth = rng.uniform(-0.5, 0.5, (p, nv))
+    truth[0] += 1.0
+    e = rng.standard_normal((nt, nv))
+    for k in range(nq, nt):
+        e[k] += 0.4 * e[k - nq]
+    y = d @ truth + 10.0 ** rng.uniform(-2, 0, nv) * e
+    nm = Ar1NoiseModel(RunOptions({"num-echoes": str(nq)}), nt)
+
+    def f32(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32)
+    st = nm.make_design_stats(f32(d), f32(y))
+    prior, post = nm.initial_state(1, torch.float32)
+    consts = tfa.pack_ar_consts(
+        st.dmd, prior.alpha_prec, prior.b, prior.c, nm.ntimes,
+        post.b[:, 0], post.c[:, 0],
+        [post.alpha_cov[n, n, 0] for n in range(nq)],
+        [post.alpha_prec[n, n, 0] for n in range(nq)], nq)
+    return (st.m0.contiguous(), st.rmr.contiguous(), st.dmr.contiguous(),
+            consts, torch.zeros((p, nv)), torch.full((p, nv), 1e-12)), nm
+
+
+def host_ar_case(nq, kind, nv, p=3):
     """(args, the plain version's detector dict or None, the loop
-    count, the host launch's detector tuple and ELBO constants)."""
-    args, nm = raw_poly_inputs(nq, nv)
+    count, the host launch's detector tuple and ELBO constants); P > 3:
+    wide_inputs."""
+    args, nm = raw_poly_inputs(nq, nv) if p == 3 else \
+        wide_inputs(p, nq, nv)
     if kind == "maxits":
         return args, None, 10, (0, 0.0, 0, 0, 0), (0.0, 0.0)
-    _, _, det = detectors(kind, 3, nq, nm.ntimes, np.float32)
+    _, _, det = detectors(kind, p, nq, nm.ntimes, np.float32)
     return (args, det, int(det["det"].max_iterations) + 2,
             _cuda.detector_args(det["det"]),
             (det["f_const"], det["lb_coeff"]))
@@ -339,8 +382,34 @@ def test_ar_kernel_on_host_f64_matches_plain(nq, kind, ar_host):
     13,005,776), and the noise quadratics op_s, which cancel ~1e4-fold in
     float64 too, amplify that: up to 2.3e-12 in the alpha planes at
     nq=2, 3.3e-13 in prec, 1e-13 in the means."""
-    args, det, n_iters, dargs, elbo = host_ar_case(nq, kind, 256)
-    k = host_ar_run(ar_host(nq, True), args, n_iters, dargs, elbo,
+    check_host_f64(nq, kind, ar_host, 3)
+
+
+# the P = 5..8 instances on the host: (P, nq, mode)
+WIDE_HOST_AR_CASES = [(6, 1, "maxits"), (8, 2, "pointzeroone")]
+
+
+@pytest.mark.parametrize("p,nq,kind", WIDE_HOST_AR_CASES,
+                         ids=[f"P{p}-Q{q}-{k}"
+                              for p, q, k in WIDE_HOST_AR_CASES])
+def test_ar_kernel_on_host_wide_f64_matches_plain(p, nq, kind, ar_host):
+    """test_ar_kernel_on_host_f64_matches_plain at P = 6 and 8, on
+    cosine designs (wide_inputs)."""
+    check_host_f64(nq, kind, ar_host, p)
+
+
+@pytest.mark.parametrize("p,nq,kind", WIDE_HOST_AR_CASES,
+                         ids=[f"P{p}-Q{q}-{k}"
+                              for p, q, k in WIDE_HOST_AR_CASES])
+def test_ar_kernel_on_host_wide_f32_near_f64(p, nq, kind, ar_host):
+    """test_ar_kernel_on_host_f32_near_f64 at P = 6 and 8."""
+    check_host_f32(nq, kind, ar_host, p)
+
+
+def check_host_f64(nq, kind, ar_host, p):
+    """test_ar_kernel_on_host_f64_matches_plain's comparison at P."""
+    args, det, n_iters, dargs, elbo = host_ar_case(nq, kind, 256, p)
+    k = host_ar_run(ar_host(nq, True, p), args, n_iters, dargs, elbo,
                     torch.float64)
     a64 = tuple(a.double() if torch.is_tensor(a) else a for a in args)
     ref = tfa.fused_ar_loop_plain(*a64, n_iters, det)
@@ -366,8 +435,13 @@ def test_ar_kernel_on_host_f32_near_f64(nq, kind, ar_host):
     hundred lanes the plain float32 version's worst is too few draws to
     bound another rounding's (one case of 512 lanes landed at 1.21x;
     0.37-0.75x over four seeds here)."""
-    args, det, n_iters, dargs, elbo = host_ar_case(nq, kind, 20_001)
-    k = host_ar_run(ar_host(nq, False), args, n_iters, dargs, elbo,
+    check_host_f32(nq, kind, ar_host, 3)
+
+
+def check_host_f32(nq, kind, ar_host, p):
+    """test_ar_kernel_on_host_f32_near_f64's comparison at P."""
+    args, det, n_iters, dargs, elbo = host_ar_case(nq, kind, 20_001, p)
+    k = host_ar_run(ar_host(nq, False, p), args, n_iters, dargs, elbo,
                     torch.float32)
     a64 = tuple(a.double() if torch.is_tensor(a) else a for a in args)
     r32 = tfa.fused_ar_loop_plain(*args, n_iters, det)

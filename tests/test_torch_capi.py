@@ -29,6 +29,7 @@ import torch
 
 from fabber_core_tpu import runner as jrunner
 from fabber_core_tpu.api import FabberTpu as JFabber
+from fabber_core_tpu.models import base as jbase
 from fabber_core_tpu.core.volume import (VolumeGeometry as JGeometry,
                                          VoxelDataStore as JStore)
 from fabber_core_tpu.options import RunOptions as JOptions
@@ -242,6 +243,19 @@ def tsv_rows(text):
     return {r[0]: r[1:] for r in rows}
 
 
+def own_models_only(*registries):
+    """Drop from each model registry (a name -> class dict) the names
+    whose class was defined outside fabber_core_tpu and
+    fabber_core_tpu_torch: models a test of this process registered and
+    left behind (tests/test_cli.py's and tests/test_plugin_models.py's
+    plugins stay in the JAX registry; pytest-xdist's loadfile runs any
+    file before this one in its worker)."""
+    for reg in registries:
+        for name in [n for n, cls in reg.items() if cls.__module__.split(
+                ".")[0] not in ("fabber_core_tpu", "fabber_core_tpu_torch")]:
+            del reg[name]
+
+
 def test_capi_introspection_matches_jax(port_lib, jax_lib):
     """Models, methods, parameters, their descriptions, the model
     outputs and every model's options are the JAX backend's TSVs; the
@@ -250,7 +264,31 @@ def test_capi_introspection_matches_jax(port_lib, jax_lib):
     The method options keep each shared row's type, optional flag and
     default; their names differ as the port's engines do (no
     voxel-chunk-size/chunk-streaming: no chunked passes; spatialvb lists
-    the spatial engine's own options)."""
+    the spatial engine's own options). Both packages' own models only:
+    own_models_only drops what other tests left registered, and the
+    registries are put back afterwards."""
+    with restored(jbase._MODELS, tbase._MODELS):
+        own_models_only(jbase._MODELS, tbase._MODELS)
+        check_introspection(port_lib, jax_lib)
+
+
+def test_capi_introspection_ignores_a_leaked_model(port_lib, jax_lib):
+    """A model another test registered in the JAX registry and left
+    there (as tests/test_cli.py's plugin does) changes nothing: the
+    comparison passes whichever test file ran before it in its worker,
+    and the leaked name is still registered afterwards."""
+    with restored(jbase._MODELS):
+        @jbase.register_model
+        class Leaked(jbase.Model):
+            name = "leakedtestmodel"
+
+        test_capi_introspection_matches_jax(port_lib, jax_lib)
+        assert jbase._MODELS["leakedtestmodel"] is Leaked
+    assert "leakedtestmodel" not in jbase._MODELS
+
+
+def check_introspection(port_lib, jax_lib):
+    """test_capi_introspection_matches_jax's comparison."""
     tfab, jfab = new(port_lib), new(jax_lib)
 
     def text(lib, fab, fn, *args):

@@ -294,7 +294,11 @@ def test_nl_instances_are_the_listed_ones(cuda):
         for nq in (1, 2, 3, 4):
             assert fv.kernel_instantiated(KernelModel(KERNEL_EXP, p), nq)
         assert not fv.kernel_instantiated(KernelModel(KERNEL_EXP, p), 5)
-    assert not fv.kernel_instantiated(KernelModel(KERNEL_EXP, 6), 1)
+    for p in (6, 8):
+        for nq in (1, 2):
+            assert fv.kernel_instantiated(KernelModel(KERNEL_EXP, p), nq)
+        assert not fv.kernel_instantiated(KernelModel(KERNEL_EXP, p), 3)
+    assert not fv.kernel_instantiated(KernelModel(KERNEL_EXP, 10), 1)
     for p in (1, 2, 3, 4):
         for nq in (1, 2):
             assert fv.kernel_instantiated(KernelModel(KERNEL_POLY, p), nq)
@@ -304,20 +308,29 @@ def test_nl_instances_are_the_listed_ones(cuda):
 
 def test_engine_on_card_refuses_runs_without_an_instance(cuda):
     """A cuda run the kernels have no instance for raises at
-    construction: it never runs plain torch on the card."""
+    construction, before any launch: it never runs plain torch on the
+    card. Five noise groups have no instance, and no functor past Q = 4;
+    exp at num-exps 3 runs its hand-written ExpSum<3>, and poly degree 4
+    with a log transform (P = 5, no hand-written PolyModel<5>) a functor
+    generated from its time_signal."""
     from fabber_core_tpu_torch.inference.vb import VBInference
     from fabber_core_tpu_torch.models import get_model_class
     from fabber_core_tpu_torch.options import RunOptions
     data = np.ones((64, 30), np.float32)
-    for model, extra in (("exp", {"noise-pattern": "12345"}),
-                         ("exp", {"num-exps": "3"}),
-                         ("poly", {"degree": "4", "PSP_byname1": "c0",
-                                   "PSP_byname1_transform": "L"})):
+    opts = RunOptions({"model": "exp", "dt": "0.1", "noise": "white",
+                       "dtype": "single", "noise-pattern": "12345"})
+    with pytest.raises(NotImplementedError, match="FABBER_NL_INSTANCES"):
+        VBInference(get_model_class("exp")(opts), opts, data, device=cuda)
+    for model, extra, generated in (
+            ("exp", {"num-exps": "3"}, False),
+            ("poly", {"degree": "4", "PSP_byname1": "c0",
+                      "PSP_byname1_transform": "L"}, True)):
         opts = RunOptions({"model": model, "dt": "0.1", "noise": "white",
                            "dtype": "single", **extra})
-        with pytest.raises(NotImplementedError, match="FABBER_NL_INSTANCES"):
-            VBInference(get_model_class(model)(opts), opts, data,
-                        device=cuda)
+        eng = VBInference(get_model_class(model)(opts), opts, data,
+                          device=cuda)
+        assert eng.route == "pallas-loop-nl"
+        assert (eng.functor is not None) == generated
 
 
 def test_nl_kernels_without_f_write_zeros(cuda):
@@ -793,33 +806,102 @@ def test_whole_instances_are_the_listed_ones(cuda):
     """The route gate's instance query answers from the one list,
     csrc/whole_device.cuh FABBER_WHOLE_INSTANCES."""
     from fabber_core_tpu_torch.ops.fused_loop import whole_instantiated
-    for p in (1, 2, 3, 4):
+    for p in range(1, 9):
         for nq in (1, 2, 3):
-            assert whole_instantiated(p, nq)
+            assert whole_instantiated(p, nq) == (nq < 3 or p <= 5)
         assert not whole_instantiated(p, 4)
-    assert not whole_instantiated(5, 1)
+    assert not whole_instantiated(9, 1)
 
 
-def test_engine_on_card_refuses_whole_runs_without_an_instance(cuda):
-    """A fixed-design kernel route the kernels have no (P, Q) instance
-    for raises at construction on the card; the CPU runs its plain
-    version."""
+def wide_linear_runs(cuda, tmp_path, p, extra, nq=2, ar=False, nv=3000,
+                     nt=30, seed=0):
+    """linear P (the cosine design(p, nt) as a VEST basis file) on one
+    data set: (the card's float32 run, its engine, its launches of kernels
+    4, 5 and 9, the CPU's float32 and float64 runs). Truth U(-1, 1) per
+    column, noise sd log-uniform over 1e-2..1 per voxel, x (1 + t mod nq) (white) or AR(1) of alpha 0.4 per
+    echo (ar)."""
     from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.io import matfile
     from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.ops import fused_loop as fl
+    from fabber_core_tpu_torch.ops import fused_loop_ar as fa
+    from fabber_core_tpu_torch.ops import fused_whole as fw
     from fabber_core_tpu_torch.options import RunOptions
-    data = np.ones((64, 30), np.float32)
-    for extra in ({"degree": "4", "noise-pattern": "12"},
-                  {"noise-pattern": "1234"},
-                  {"degree": "5", "engine-kernel": "pallas-loop",
-                   "noise-pattern": "12"}):
-        opts = RunOptions({"model": "poly", "degree": "2", "noise": "white",
-                           "dtype": "single", **extra})
-        with pytest.raises(NotImplementedError,
-                           match="FABBER_WHOLE_INSTANCES"):
-            VBInference(get_model_class("poly")(opts), opts, data,
-                        device=cuda)
-        VBInference(get_model_class("poly")(opts), opts, data,
-                    device="cpu").run()
+    rng = np.random.default_rng(seed)
+    d = design(p, nt)
+    path = str(tmp_path / f"cosine{p}.mat")
+    matfile.write_vest(d, path)
+    e = rng.standard_normal((nt, nv))
+    if ar:
+        for k in range(nq, nt):
+            e[k] += 0.4 * e[k - nq]
+    else:
+        e *= (1.0 + np.arange(nt) % nq)[:, None]
+    data = (d @ rng.uniform(-1, 1, (p, nv))
+            + 10.0 ** rng.uniform(-2, 0, nv) * e).T.astype(np.float32)
+    kernels = (fw.fused_whole, fl.fused_vb_loop, fa.fused_ar_loop)
+
+    def counts():
+        return [k.launches for k in kernels]
+    runs = {}
+    for dev, dtype in ((cuda, "single"), ("cpu", "single"),
+                       ("cpu", "double")):
+        opts = RunOptions({"model": "linear", "basis": path,
+                           "noise": "ar" if ar else "white",
+                           "dtype": dtype, "print-free-energy": True,
+                           **extra})
+        eng = VBInference(get_model_class("linear")(opts), opts, data,
+                          device=dev)
+        before = counts()
+        runs[str(dev), dtype] = (eng.run(), eng,
+                                 [a - b for a, b in zip(counts(), before)])
+    g, eng, launched = runs[str(cuda), "single"]
+    return (g, eng, launched, runs["cpu", "single"][0],
+            runs["cpu", "double"][0])
+
+
+def assert_run_near_f64(g, c32, c64, na=0, max_flips=3):
+    """A float32 run on the card (g) against the CPU's float64 run of the
+    same configuration (c64), on the lanes whose iteration count both
+    float32 runs share with it (at most max_flips others): its means
+    (in float64 posterior sd), std and noise precision means (the
+    columns from na: AR's alpha means, absolute, before) no further
+    from float64 than twice the CPU float32 run (c32) is, and within
+    1e-3 in any case, voxel by voxel."""
+    flip = (g.iterations != c64.iterations) | (c32.iterations
+                                               != c64.iterations)
+    assert flip.sum() <= max_flips, flip.sum()
+    ok = ~flip
+
+    def errs(r):
+        sd = np.sqrt(np.diagonal(c64.cov[ok], axis1=1, axis2=2))
+        sdr = np.sqrt(np.diagonal(r.cov[ok], axis1=1, axis2=2))
+        return (np.max(np.abs(r.means[ok] - c64.means[ok]) / sd),
+                np.max(np.abs(sdr / sd - 1)),
+                np.max(np.abs(r.noise_means[ok][:, na:]
+                              / c64.noise_means[ok][:, na:] - 1)),
+                np.max(np.abs(r.noise_means[ok][:, :na]
+                              - c64.noise_means[ok][:, :na]), initial=0.0))
+    for eg, e32 in zip(errs(g), errs(c32)):
+        assert eg <= max(1e-3, 2 * e32), (eg, e32)
+    assert not g.bad_voxels.any()
+
+
+def test_engine_on_card_refuses_whole_runs_without_an_instance(cuda,
+                                                               tmp_path):
+    """The fixed-design kernels at P > 4 (their instances since P <= 4
+    raised here): linear P = 5 with noise-pattern=12 on 'pallas-whole'
+    (kernel 4) and P = 6 with engine-kernel=pallas-loop (kernel 5), each
+    launched once, its P > 4 instance, and held to the CPU's float64
+    run by assert_run_near_f64."""
+    for p, extra, route, k in (
+            (5, {"noise-pattern": "12"}, "pallas-whole", 0),
+            (6, {"noise-pattern": "12", "engine-kernel": "pallas-loop"},
+             "pallas-loop", 1)):
+        g, eng, launched, c32, c64 = wide_linear_runs(cuda, tmp_path, p,
+                                                      extra)
+        assert eng.route == route and launched[k] == 1
+        assert_run_near_f64(g, c32, c64)
 
 
 FIXED_DESIGN_ROUTES = [
@@ -1022,9 +1104,9 @@ def test_nlls_instances_are_the_listed_ones(cuda):
     from fabber_core_tpu_torch.models.base import (KERNEL_EXP, KERNEL_POLY,
                                                    KernelModel)
     from fabber_core_tpu_torch.ops import fused_nlls as fn
-    for p in (2, 4):
+    for p in (2, 4, 6, 8):
         assert fn.nlls_instantiated(KernelModel(KERNEL_EXP, p))
-    assert not fn.nlls_instantiated(KernelModel(KERNEL_EXP, 6))
+    assert not fn.nlls_instantiated(KernelModel(KERNEL_EXP, 10))
     for p in (1, 2, 3, 4):
         assert fn.nlls_instantiated(KernelModel(KERNEL_POLY, p))
     assert not fn.nlls_instantiated(KernelModel(KERNEL_POLY, 5))
@@ -1035,7 +1117,8 @@ def test_nlls_engine_on_card_matches_cpu(cuda):
     """The exp NLLS engine on the card (the kernel, phase 1 + resume:
     two launches) against the CPU engine (the plain version):
     tests/test_nlls_stats.py's kernel bounds; and a run the kernel has
-    no instance for raises at construction."""
+    no instance for, and no functor can be generated for (P = 10),
+    raises at construction."""
     from fabber_core_tpu_torch.inference.nlls import NLLSInference
     from fabber_core_tpu_torch.models import get_model_class
     from fabber_core_tpu_torch.ops import fused_nlls as fn
@@ -1063,7 +1146,7 @@ def test_nlls_engine_on_card_matches_cpu(cuda):
     assert diff.max() <= 30 and np.median(diff) <= 4
     np.testing.assert_array_equal(g.bad_voxels, c.bad_voxels)
     opts = RunOptions({"model": "exp", "dt": "0.05", "dtype": "single",
-                       "num-exps": "3"})
+                       "num-exps": "5"})
     with pytest.raises(NotImplementedError, match="FABBER_NL_INSTANCES"):
         NLLSInference(get_model_class("exp")(opts), opts, data, device=cuda)
 
@@ -1682,28 +1765,62 @@ def test_ar_instances_are_the_listed_ones(cuda):
     """The route gate's instance query answers from the one list,
     csrc/fused_ar_loop.cu FABBER_AR_INSTANCES."""
     from fabber_core_tpu_torch.ops.fused_loop_ar import ar_instantiated
-    for p in (1, 2, 3, 4):
+    for p in range(1, 9):
         assert ar_instantiated(p, 1) and ar_instantiated(p, 2)
         assert not ar_instantiated(p, 3)
-    assert not ar_instantiated(5, 1)
+    assert not ar_instantiated(9, 1)
 
 
-def test_engine_on_card_refuses_ar_runs_without_an_instance(cuda):
-    """An AR run on the kernel route whose P has no instance raises at
-    construction on the card; the CPU runs the plain version."""
+def test_engine_on_card_refuses_ar_runs_without_an_instance(cuda,
+                                                            tmp_path):
+    """AR(1) noise at P > 4 on kernel 9 (its instances since P <= 4
+    raised here): linear P = 5 at one echo and P = 8 at two, each
+    launched once (its P > 4 instance) and held to the CPU's float64
+    run by assert_run_near_f64 (the alpha means absolutely)."""
+    for p, nq in ((5, 1), (8, 2)):
+        g, eng, launched, c32, c64 = wide_linear_runs(
+            cuda, tmp_path, p, {"num-echoes": str(nq)}, nq=nq, ar=True,
+            nt=60)
+        assert eng.route == "pallas-loop-ar" and launched[2] == 1
+        assert_run_near_f64(g, c32, c64, na=2)
+
+
+@pytest.mark.parametrize("p,extra", [
+    (3, {"noise-pattern": "1234"}), (9, {"noise-pattern": "12"}),
+    (6, {"noise-pattern": "123"})],
+    ids=["pattern-1234", "P9", "P6-pattern-123"])
+def test_fixed_design_on_card_refuses_shapes_without_an_instance(
+        cuda, tmp_path, p, extra):
+    """Where kernels 4 and 5 have no (P, Q) instance (Q = 4; P = 9; Q = 3
+    past P = 5) the card raises at construction, naming kernel 4 and the
+    shape, and launches none of kernels 4, 5 and 9: the JAX engine runs
+    its kernel there, so the card takes no other route. The CPU runs the
+    route's plain version."""
     from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.io import matfile
     from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.ops import fused_loop as fl
+    from fabber_core_tpu_torch.ops import fused_loop_ar as fa
+    from fabber_core_tpu_torch.ops import fused_whole as fw
     from fabber_core_tpu_torch.options import RunOptions
-    opts = RunOptions({"model": "poly", "degree": "4", "noise": "ar",
-                       "dtype": "single"})
-    data = np.random.default_rng(0).standard_normal((64, 30)).astype(
+    nq = len(extra["noise-pattern"])
+    path = str(tmp_path / f"cosine{p}.mat")
+    matfile.write_vest(design(p, 30), path)
+    opts = RunOptions({"model": "linear", "basis": path, "noise": "white",
+                       "dtype": "single", **extra})
+    data = np.random.default_rng(p).standard_normal((64, 30)).astype(
         np.float32)
-    with pytest.raises(NotImplementedError, match="FABBER_AR_INSTANCES"):
-        VBInference(get_model_class("poly")(opts), opts, data, device=cuda)
-    eng = VBInference(get_model_class("poly")(opts), opts, data,
+    kernels = (fw.fused_whole, fl.fused_vb_loop, fa.fused_ar_loop)
+    before = [k.launches for k in kernels]
+    with pytest.raises(NotImplementedError,
+                       match=rf"no \(P={p}, Q={nq}\) instance of kernel 4 "):
+        VBInference(get_model_class("linear")(opts), opts, data,
+                    device=cuda)
+    assert [k.launches for k in kernels] == before
+    eng = VBInference(get_model_class("linear")(opts), opts, data,
                       device="cpu")
-    assert eng.route == "pallas-loop-ar"
-    eng.run()
+    assert eng.route == "pallas-whole"
+    assert np.isfinite(eng.run().means).all()
 
 
 @pytest.mark.parametrize("extra", [
@@ -1929,6 +2046,110 @@ def test_rejected_model_takes_generic_route_on_card(cuda):
     assert eng.route == "xla-generic" and eng.generic is None
     assert len(_cuda._gen_libs) == n
     assert np.isfinite(eng.run().means).all()
+
+
+def multiexp_data(num, nv=2000, nt=40, seed=0):
+    """A sum of num exponentials (amplitudes 1.5, 1, 0.75, 0.5 and rates
+    0.3, 1.5, 6, 0.1 per second, each x U(0.8, 1.2) per voxel), dt 0.05,
+    noise sd 0.02, float32 [V,T]."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(nt) * 0.05
+    amps, rates = (1.5, 1.0, 0.75, 0.5), (0.3, 1.5, 6.0, 0.1)
+    sig = sum(a * rng.uniform(0.8, 1.2, (nv, 1))
+              * np.exp(-r * rng.uniform(0.8, 1.2, (nv, 1)) * t[None])
+              for a, r in zip(amps[:num], rates[:num]))
+    return (sig + rng.normal(0, 0.02, (nv, nt))).astype(np.float32)
+
+
+def multiexp_vb_on_card(cuda, model, num, extra, route):
+    """VB on the card and on the CPU (float32, 2 iterations from the
+    model's start: a sum of exponentials is chaotic at float32 over
+    more, ROADMAP Queue 3 item 7): (card engine, its launches of
+    kernels 6 and 7, card run, CPU run)."""
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.ops import fused_loop_nl as nl
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    from fabber_core_tpu_torch.options import RunOptions
+    data = multiexp_data(num)
+    opts = RunOptions({"model": model, "num-exps": str(num), "dt": "0.05",
+                       "noise": "white", "dtype": "single",
+                       "max-iterations": "2", **extra})
+    res = {}
+    for dev in (cuda, "cpu"):
+        eng = VBInference(get_model_class(model)(opts), opts, data,
+                          device=dev)
+        assert eng.route == route
+        before = nl.fused_nl_loop.launches + fv.fused_iteration.launches
+        res[str(dev)] = eng.run()
+        wide = nl.fused_nl_loop.launches + fv.fused_iteration.launches \
+            - before
+        if dev != "cpu":
+            card, launched = eng, wide
+    return card, launched, res[str(cuda)], res["cpu"]
+
+
+def assert_runs_close(g, c, frac=0.99):
+    """The card's run against the CPU's on the same route: iteration
+    counts and bad voxels equal; means within 5e-3 posterior sd and noise
+    within 2e-3 relative in >= frac of the voxels."""
+    np.testing.assert_array_equal(g.iterations, c.iterations)
+    np.testing.assert_array_equal(g.bad_voxels, c.bad_voxels)
+    sd = np.sqrt(np.diagonal(c.cov, axis1=1, axis2=2))
+    e = np.max(np.abs(g.means - c.means) / sd, axis=1)
+    n = np.max(np.abs(g.noise_means / c.noise_means - 1), axis=1)
+    assert ((e < 5e-3) & (n < 2e-3)).mean() >= frac
+
+
+@pytest.mark.parametrize("num", [3, 4])
+@pytest.mark.parametrize("extra,route", [
+    ({}, "pallas-loop-nl"), ({"engine-kernel": "pallas"}, "pallas")],
+    ids=["pallas-loop-nl", "pallas"])
+def test_multiexp_vb_on_card_runs_expsum(cuda, num, extra, route):
+    """exp at num-exps 3 and 4 (P = 6, 8) on the card runs its
+    hand-written ExpSum<3> / ExpSum<4> (no functor generated): kernel 6
+    once, or kernel 7 once per iteration, every launch a P > 4 one, near
+    the CPU's run (assert_runs_close)."""
+    eng, launched, g, c = multiexp_vb_on_card(cuda, "exp", num, extra,
+                                              route)
+    assert eng.functor is None
+    assert launched == (1 if route == "pallas-loop-nl" else 2)
+    assert_runs_close(g, c)
+
+
+@pytest.mark.parametrize("num", [3, 4])
+def test_multiexp_nlls_on_card_runs_expsum(cuda, num):
+    """exp at num-exps 3 and 4 with method=nlls on the card: kernel 8
+    with ExpSum<3> / ExpSum<4> (phase 1 and the resume: two P > 4
+    launches) against the CPU's plain version, by fit (a float32 J'J
+    of several exponentials is near singular, so bad voxels and
+    parameters move with rounding): bad voxels within 5 of the CPU's,
+    and on the lanes both fit, the fits within 1e-3 of the data's scale
+    in >= 95%."""
+    from fabber_core_tpu_torch.inference.nlls import NLLSInference
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.ops import fused_nlls as fn
+    from fabber_core_tpu_torch.options import RunOptions
+    data = multiexp_data(num, seed=1)
+    opts = RunOptions({"model": "exp", "num-exps": str(num), "dt": "0.05",
+                       "dtype": "single", "method": "nlls"})
+    res = {}
+    for dev in (cuda, "cpu"):
+        eng = NLLSInference(get_model_class("exp")(opts), opts, data,
+                            device=dev)
+        assert eng.route == "nlls-kernel" and eng.functor is None
+        before = fn.fused_nlls_loop.launches
+        res[str(dev)] = eng.run()
+        assert fn.fused_nlls_loop.launches - before == (
+            0 if dev == "cpu" else 2)
+    g, c = res[str(cuda)], res["cpu"]
+    assert g.bad_voxels.sum() <= c.bad_voxels.sum() + 5
+    ok = ~(g.bad_voxels | c.bad_voxels)
+    fits = [eng.evaluate_model(torch.as_tensor(r.means.T,
+                                               dtype=torch.float64))
+            .cpu().numpy()[:, ok] for r in (g, c)]
+    err = np.abs(fits[0] - fits[1]).max(axis=0)
+    assert (err <= 1e-3 * np.abs(data).max()).mean() >= 0.95
 
 
 @pytest.fixture
@@ -2312,3 +2533,20 @@ def test_self_test_on_card(cuda):
         assert abs(res[param][truth] - truth) <= 2 * dev, (param, truth)
     (_, noise_out), = res["noise"].items()
     assert abs(noise_out - 0.1) <= 2 * 4.8e-4
+
+
+def test_generated_p6_plugin_on_card(cuda, port_registry):
+    """The myexp plugin at num-exps 3 (P = 6, no kernel_model): the
+    whole-loop route builds kernel 6 with a functor generated from its
+    time_signal (P <= 8 since kMaxP is 8) and launches it once, a P > 4
+    launch, near the CPU's run (assert_runs_close)."""
+    from pathlib import Path
+    from fabber_core_tpu_torch.models import load_models_from_file
+    load_models_from_file(str(Path(__file__).resolve().parents[1]
+                              / "fabber_core_tpu_torch" / "examples"
+                              / "fwdmodel_exp.py"))
+    eng, launched, g, c = multiexp_vb_on_card(cuda, "myexp", 3, {},
+                                              "pallas-loop-nl")
+    assert eng.functor is not None and eng.functor.nparams == 6
+    assert ("nl_loop", 1) in eng.functor.libs and launched == 1
+    assert_runs_close(g, c)

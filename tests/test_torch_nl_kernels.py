@@ -48,6 +48,8 @@ CASES = {
     "biexp": ("biexp", {}, [1.5, 0.5, 1.5, 5.0]),
     "poly-log": ("poly", {"degree": "1", "PSP_byname1": "c0",
                           "PSP_byname1_transform": "L"}, [2.0, 0.05]),
+    # num-exps 3: P = 6, the ExpSum<3> instance
+    "triexp": ("exp", {"num-exps": "3"}, [1.5, 0.3, 1.0, 1.5, 0.75, 6.0]),
 }
 
 
@@ -234,6 +236,64 @@ def test_signal_jac_fn_differentiates_time_signal():
                                    atol=1e-15)
 
 
+def well_conditioned(prec, max_cond=1e6):
+    """[V] bool: lanes whose [P,P,V] precision has a condition number at
+    most max_cond (where float64's covariance is determined to ~1e-10)."""
+    prec = np.asarray(prec, np.float64)
+    return np.array([np.linalg.cond(prec[:, :, v]) <= max_cond
+                     for v in range(prec.shape[-1])])
+
+
+def test_triexp_plain_matches_jax_kernels_float64():
+    """exp with num-exps 3 (P = 6, the card's ExpSum<3> instance) at
+    float64 and short horizons (ROADMAP Queue 3 item 7: a sum of
+    exponentials is chaotic at float32, and over 10 iterations at
+    float64 too, a few lanes going apart): kernel 6's plain version over
+    3 iterations and kernel 7's over one, pattern 12, against the JAX
+    kernels interpreted at float64. Means, precision, noise and F quadratics within 1e-9 of
+    each output's max; the covariance too on the lanes whose precision
+    has a condition number <= 1e6 (beyond it the inverse turns float64
+    rounding into errors of the condition's order on both sides; the
+    precision holds those lanes)."""
+    c = make_case("triexp", "12", seed=4)
+    p, nq, q = c["p"], c["nq"], c["q"]
+    for k in ("data", "centre", "pm", "pp"):
+        c[k] = c[k].astype(np.float64)
+    padv, jdata, vp = _pad(c)
+    ntg = q.sum(axis=1)
+    jconsts = jnl.pack_nl_consts(np.full(nq, 1e6), np.full(nq, 1e-6), ntg,
+                                 1e-8, 50.0, jnp.float64, nq)
+    run = jnl.make_fused_nl_loop(
+        c["jm"].time_signal, c["jtr"], p, NT, 3, vp, jnp.float64, True, q,
+        block=BLOCK, interpret=True, time_signal_jac=c["jm"].time_signal_jac)
+    nl_ref = run(padv(c["centre"]), padv(c["pm"]), padv(c["pp"]), jdata,
+                 jconsts)
+    consts = nl.pack_nl_consts(np.full(nq, 1e6), np.full(nq, 1e-6), ntg,
+                               1e-8, 50.0, nq)
+    x = {k: torch.from_numpy(c[k]) for k in ("centre", "pm", "pp", "data")}
+    nl_got = nl.fused_nl_loop(c["pm_"], c["tr"], x["centre"], x["pm"],
+                              x["pp"], x["data"], q, consts, 3, True)
+    rng = np.random.default_rng(5)
+    phi = rng.uniform(1000.0, 3000.0, (nq, NV))
+    run = jfv.make_fused_iteration(
+        c["jm"].time_signal, c["jtr"], p, NT, vp, jnp.float64, True, q,
+        block=BLOCK, interpret=True, time_signal_jac=c["jm"].time_signal_jac)
+    it_ref = run(padv(c["centre"]), padv(c["pm"]), padv(c["pp"]), padv(phi),
+                 jdata)
+    it_got = fv.fused_iteration(c["pm_"], c["tr"], x["centre"], x["pm"],
+                                x["pp"], torch.from_numpy(phi), x["data"], q,
+                                True)
+    for got, ref in ((nl_got, nl_ref), (it_got, it_ref)):
+        ref = [np.asarray(r)[..., :NV] for r in ref]
+        keep = well_conditioned(ref[1])
+        assert keep.mean() > 0.5
+        for k, (g, r) in enumerate(zip(got, ref)):
+            g = g.numpy().reshape(r.shape)
+            if k == 2:
+                g, r = g[..., keep], r[..., keep]
+            assert np.abs(g - r).max() <= 1e-9 * np.abs(r).max(), k
+
+
 def test_kernel_instances_and_wrapper_refusals():
     """A model without a functor has no instance (the instance list of
     csrc/vb_device.cuh is asked of the built library, on the card:
@@ -362,7 +422,7 @@ def test_fused_iteration_lm_plain_matches_jax_kernel(name, pattern):
 # -- kernel 7 compiled as host C++ (tests/torch_hostcc.py) ------------------
 
 FUNCTORS = {"exp": "ExpSum<1>", "biexp": "ExpSum<2>",
-            "poly-log": "PolyModel<2>"}
+            "poly-log": "PolyModel<2>", "triexp": "ExpSum<3>"}
 
 
 @pytest.fixture(scope="module")
@@ -384,7 +444,7 @@ def iter_host(tmp_path_factory):
 
 ITER_HOST = [("biexp", "1", False), ("biexp", "1", True),
              ("exp", "12", False), ("exp", "12", True),
-             ("poly-log", "1", True)]
+             ("poly-log", "1", True), ("triexp", "12", True)]
 
 
 @pytest.mark.parametrize("name,pattern,lm", ITER_HOST,

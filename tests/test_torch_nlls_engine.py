@@ -322,8 +322,8 @@ def test_kernel_route_without_instance_raises_on_card(monkeypatch):
     """On the card the kernel route needs the model's functor: among the
     kernel's instances (csrc/vb_device.cuh FABBER_NL_INSTANCES), else one
     generated from its time_signal and built at construction (kernel
-    "nlls"); where none can be (P above 4) the engine raises at
-    construction, naming ROADMAP Queue 1 item 20, rather than run plain
+    "nlls"); where none can be (P above 8) the engine raises at
+    construction, naming ROADMAP Queue 3 item 28, rather than run plain
     torch. The library's instance query and the build are stood in for
     here; the card tests ask the real ones."""
     from fabber_core_tpu_torch.ops import _cuda
@@ -343,11 +343,11 @@ def test_kernel_route_without_instance_raises_on_card(monkeypatch):
     on_card(eng)
     assert built[1:] == [(4, None, "nlls")]
     o = RunOptions({"model": "exp", "dt": str(DT), "dtype": "single",
-                    "num-exps": "3"})
+                    "num-exps": "5"})
     eng = NLLSInference(get_model_class("exp")(o), o, data, device="cpu")
-    with pytest.raises(NotImplementedError, match="P=6.*item 20"):
+    with pytest.raises(NotImplementedError, match="P=10.*item 28"):
         on_card(eng)
-    assert asked[1:] == [(1, 6)] and len(built) == 2
+    assert asked[1:] == [(1, 10)] and len(built) == 2
     # the plain-torch routes have no kernel to ask for
     for extra in ({"dtype": "double"}, {"engine-kernel": "xla"}):
         o = RunOptions({"model": "biexp", "dt": str(DT), "dtype": "single",
@@ -355,5 +355,5 @@ def test_kernel_route_without_instance_raises_on_card(monkeypatch):
         eng = NLLSInference(get_model_class("biexp")(o), o, data,
                             device="cpu")
         on_card(eng)
-    assert asked == [(1, 4), (1, 6)]
+    assert asked == [(1, 4), (1, 10)]
     assert nlls_module.ROUTES[eng.route]

@@ -45,6 +45,8 @@ CASES = {
     "biexp": ("biexp", {}, [1.5, 0.5, 1.5, 5.0]),
     "poly-log": ("poly", {"degree": "1", "PSP_byname1": "c0",
                           "PSP_byname1_transform": "L"}, [2.0, 0.05]),
+    # num-exps 3: P = 6, the ExpSum<3> instance
+    "triexp": ("exp", {"num-exps": "3"}, [1.5, 0.3, 1.0, 1.5, 0.75, 6.0]),
 }
 
 
@@ -105,11 +107,25 @@ def lane_err(got, ref):
     return float(np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)))
 
 
-def assert_f64_match(got, ref, its_row=2, cost_row=1):
+def assert_f64_match(got, ref, its_row=2, cost_row=1, max_cond=None):
     """params/cost/prec/cov to 1e-9; iteration counts per the module
-    docstring's tie rule."""
+    docstring's tie rule. max_cond: cov (row 4) only on the lanes whose
+    precision (row 3) has a condition number at most max_cond; on the
+    rest the inverse turns float64 rounding into errors of that
+    condition's order, on both sides (a sum of three exponentials: lanes
+    of condition 3e7-4e8 had covariances 0.1-15 of their sd apart, each
+    as far from numpy's inverse of the same precision), so prec holds
+    them."""
+    keep = slice(None)
+    if max_cond is not None:
+        p = ref[3].shape[0]
+        pr = np.asarray(ref[3]).reshape(p, p, -1)
+        keep = np.array([np.linalg.cond(pr[:, :, v]) <= max_cond
+                         for v in range(pr.shape[-1])])
     for k, (g, r) in enumerate(zip(got, ref)):
         assert g.shape == r.shape
+        if k == 4:
+            g, r = g[..., keep], r[..., keep]
         if k != its_row:
             assert lane_err(g, r) < 1e-9
     its_g, its_r = got[its_row], ref[its_row]
@@ -121,15 +137,16 @@ def assert_f64_match(got, ref, its_row=2, cost_row=1):
 
 
 @pytest.mark.parametrize("name,marquardt", [
-    ("exp", False), ("biexp", False), ("biexp", True), ("poly-log", True)],
-    ids=["exp-L", "biexp-L", "biexp-LM", "poly-log-LM"])
+    ("exp", False), ("biexp", False), ("biexp", True), ("poly-log", True),
+    ("triexp", False)],
+    ids=["exp-L", "biexp-L", "biexp-LM", "poly-log-LM", "triexp-L"])
 def test_fresh_matches_jax_kernel_float64(name, marquardt):
     c = make_case(name)
     ref = run_jax(c, MAX_ITS, marquardt)
     before = fn.fused_nlls_loop.launches
     got = run_port(c, MAX_ITS, marquardt)
     assert fn.fused_nlls_loop.launches == before   # plain on the CPU
-    assert_f64_match(got, ref)
+    assert_f64_match(got, ref, max_cond=1e6 if name == "triexp" else None)
     assert np.isfinite(got[0]).all()
     # lanes differ in optimizer effort; none exceeds the budget
     assert len(np.unique(got[2])) > 1 and got[2].max() <= MAX_ITS
@@ -198,7 +215,7 @@ def test_wrapper_checks_its_arguments():
 # -- the kernel's device code on the host ---------------------------------
 
 FUNCTORS = {"exp": "ExpSum<1>", "biexp": "ExpSum<2>",
-            "poly-log": "PolyModel<2>"}
+            "poly-log": "PolyModel<2>", "triexp": "ExpSum<3>"}
 
 
 @pytest.fixture
@@ -217,8 +234,9 @@ def host_args(c):
 
 
 @pytest.mark.parametrize("name,marquardt", [
-    ("exp", False), ("biexp", False), ("biexp", True), ("poly-log", True)],
-    ids=["exp-L", "biexp-L", "biexp-LM", "poly-log-LM"])
+    ("exp", False), ("biexp", False), ("biexp", True), ("poly-log", True),
+    ("triexp", True)],
+    ids=["exp-L", "biexp-L", "biexp-LM", "poly-log-LM", "triexp-LM"])
 def test_kernel_on_host_matches_plain_float64(name, marquardt, tmp_path,
                                                gxx):
     """csrc/fused_nlls.cu compiled as host C++ at double (one block of
@@ -248,7 +266,8 @@ def test_kernel_on_host_matches_plain_float64(name, marquardt, tmp_path,
     got = [fresh[0], fresh[1], fresh[2], fresh[3], fresh[4]]
     assert_f64_match(got, [ref[0], ref[1], ref[2],
                            ref[3].reshape(got[3].shape),
-                           ref[4].reshape(got[4].shape)])
+                           ref[4].reshape(got[4].shape)],
+                     max_cond=1e6 if name == "triexp" else None)
     assert 0.0 < p1_done_share(runs[True][1]) < 1.0
 
 

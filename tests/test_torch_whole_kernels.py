@@ -158,7 +158,11 @@ def assert_outputs_match(tout, jout, keep=slice(None)):
 WHOLE_CASES = [(1, 1, 106, False, -1.0), (3, 1, 106, True, -1.0),
                (2, 2, 29, False, -1.0), (3, 2, 106, True, -1.0),
                (4, 3, 29, True, -1.0), (3, 2, 29, False, 0.5),
-               (4, 1, 106, False, 0.2)]
+               (4, 1, 106, False, 0.2),
+               # P = 5..8 (the card's instances since P <= 4), the cosine
+               # design: poly degree >= 5 is beyond float32
+               (6, 1, 106, False, -1.0), (6, 2, 29, True, -1.0),
+               (8, 1, 29, False, 0.2), (8, 2, 29, True, -1.0)]
 
 
 @pytest.mark.parametrize("p,nq,nt,masked,locked", WHOLE_CASES,
@@ -179,7 +183,18 @@ def test_whole_plain_matches_pallas_kernel(p, nq, nt, masked, locked):
 def test_whole_plain_detector_matches_pallas_kernel(kind, nq):
     """Kernel 4's detector modes at the engine's loop cap: iteration
     counts, F and the selected state."""
-    p, nt = 3, 29
+    check_detector_vs_pallas(kind, 3, nq, 29)
+
+
+@pytest.mark.parametrize("kind", ["trialmode", "lm"])
+def test_whole_plain_detector_matches_pallas_kernel_p6(kind):
+    """The same at P = 6, Q = 2 (masked), T=106 (at T=29 no P = 6 lane
+    stops before the cap)."""
+    check_detector_vs_pallas(kind, 6, 2, 106)
+
+
+def check_detector_vs_pallas(kind, p, nq, nt):
+    """test_whole_plain_detector_matches_pallas_kernel's comparison."""
     d, q, data, pm, pp = make_case(p, nq, nt, masked=nq == 2, seed=1)
     det, cap = det_dict(kind, p, nq, nt)
     jout = jax_whole(p, nq, nt, d, q, data, pm, pp, cap, kind=kind, det=det)
@@ -197,7 +212,18 @@ def test_whole_plain_f64_matches_stats_route(kind):
     and its maxits posterior equals fused_vb_loop_plain's from them, to
     1e-9; the detector modes' outputs are finite and their F matches a
     float32 run's within its rounding."""
-    p, nq, nt = 3, 2, 29
+    check_f64_stats_route(kind, 3)
+
+
+@pytest.mark.parametrize("p", [6, 8])
+def test_whole_plain_f64_matches_stats_route_wide(p):
+    """The same at P = 6 and 8, maxits."""
+    check_f64_stats_route("maxits", p)
+
+
+def check_f64_stats_route(kind, p):
+    """test_whole_plain_f64_matches_stats_route's comparison at P."""
+    nq, nt = 2, 29
     d, q, data, pm, pp = make_case(p, nq, nt, masked=True, seed=2)
     data64 = data.astype(np.float64)
     mt = {f"mt{i + 1}": str(t + 1)
@@ -244,7 +270,18 @@ def test_whole_plain_f64_matches_stats_route(kind):
 def test_loop_plain_matches_pallas_kernel(nq, locked):
     """Kernel 5: the JAX package's make_design_stats (float32) into both
     the Pallas kernel and the plain version."""
-    p, nt = 3, 29
+    check_loop_vs_pallas(3, nq, locked)
+
+
+@pytest.mark.parametrize("p,nq,locked", [(6, 2, -1.0), (8, 1, 0.3)])
+def test_loop_plain_matches_pallas_kernel_wide(p, nq, locked):
+    """The same at P = 6 and 8."""
+    check_loop_vs_pallas(p, nq, locked)
+
+
+def check_loop_vs_pallas(p, nq, locked):
+    """test_loop_plain_matches_pallas_kernel's comparison at P."""
+    nt = 29
     d, q, data, pm, pp = make_case(p, nq, nt, masked=True, seed=3)
     pattern = "123"[:nq]
     mt = {f"mt{i + 1}": str(t + 1)
@@ -383,6 +420,16 @@ def whole_host(tmp_path_factory):
 HOST_CASES = [("maxits", 1), ("maxits", 2), ("pointzeroone", 1),
               ("pointzeroone", 2), ("trialmode", 1), ("trialmode", 2),
               ("lm", 1), ("lm", 2)]
+# the P = 5..8 instances: (P, Q, mode)
+WIDE_HOST_CASES = [(6, 1, "maxits"), (6, 2, "lm"), (8, 2, "maxits"),
+                   (8, 1, "trialmode")]
+
+
+@pytest.mark.parametrize("p,nq,kind", WIDE_HOST_CASES,
+                         ids=[f"P{p}-{k}-Q{q}" for p, q, k in WIDE_HOST_CASES])
+def test_kernel_on_host_wide(p, nq, kind, whole_host):
+    """test_kernel_on_host_staged_equals_streamed at P = 6 and 8."""
+    check_kernel_on_host(kind, nq, whole_host, p)
 
 
 @pytest.mark.parametrize("kind,nq", HOST_CASES,
@@ -395,7 +442,12 @@ def test_kernel_on_host_staged_equals_streamed(kind, nq, whole_host):
     (iteration counts equal); lm within 1e-8: its damped steps leave the
     prior-dominated first states with a large d = means - m0, where
     k'Qk = rtqr - 2 d'D'Qr0 + d'D'QDd cancels (4.6e-9 seen at Q=2)."""
-    p, nt = 3, 29
+    check_kernel_on_host(kind, nq, whole_host, 3)
+
+
+def check_kernel_on_host(kind, nq, whole_host, p):
+    """test_kernel_on_host_staged_equals_streamed's comparison at P."""
+    nt = 29
     d, q, data, pm, pp = make_case(p, nq, nt, masked=True, seed=3)
     b0, c0, ntg, ib, ic = noise_consts(q)
     tc = tfw.pack_whole_time_consts(d, q, nt, torch.float64)
@@ -421,6 +473,17 @@ def test_kernel_on_host_staged_equals_streamed(kind, nq, whole_host):
 # -- kernel 5 compiled as host C++ (tests/torch_hostcc.py) ------------------
 
 LOOP_HOST_CASES = [(nq, locked) for nq in (1, 2, 3) for locked in (-1.0, 0.2)]
+# the P = 5..8 instances: (P, Q, locked sd)
+WIDE_LOOP_HOST_CASES = [(6, 2, -1.0), (8, 1, 0.2)]
+
+
+@pytest.mark.parametrize("p,nq,locked", WIDE_LOOP_HOST_CASES,
+                         ids=[f"P{p}-Q{q}-{'locked' if lk > 0 else 'free'}"
+                              for p, q, lk in WIDE_LOOP_HOST_CASES])
+def test_loop_kernel_on_host_wide(p, nq, locked, tmp_path):
+    """test_loop_kernel_on_host_matches_pallas_kernel_and_plain at P = 6
+    and 8."""
+    check_loop_kernel_on_host(p, nq, locked, tmp_path)
 
 
 @pytest.mark.parametrize("nq,locked", LOOP_HOST_CASES,
@@ -434,9 +497,15 @@ def test_loop_kernel_on_host_matches_pallas_kernel_and_plain(nq, locked,
     voxels (a multiple of its ROWS=8 that its block divides), and of the
     plain version at float64 on 61 voxels (a multiple of neither 4 nor
     a block)."""
+    check_loop_kernel_on_host(3, nq, locked, tmp_path)
+
+
+def check_loop_kernel_on_host(p, nq, locked, tmp_path):
+    """test_loop_kernel_on_host_matches_pallas_kernel_and_plain's
+    comparison at P."""
     if not torch_hostcc.have_gxx():
         pytest.skip("g++ is not installed")
-    p, nt = 3, 29
+    nt = 29
     fn = torch_hostcc.loop_kernel_fn(p, nq, tmp_path)
     d, q, data, pm, pp = make_case(p, nq, nt, masked=True, seed=5)
     mt = {f"mt{i + 1}": str(t + 1)

@@ -178,33 +178,36 @@ def functor_fn(tle, tmpdir):
     return fn
 
 
-def kernel_fn(tle, q, tmpdir, staged=True):
-    """The whole-loop kernel (fused_nl_loop.cuh) with a TimeLocalEval's
-    generated functor, at double, in its staged (tile.cuh) or streamed
-    form, one block of one thread per voxel: fn(tcodes,
+def kernel_fn(functor, q, tmpdir, staged=True):
+    """The whole-loop kernel (fused_nl_loop.cuh) with a hand-written
+    functor of vb_device.cuh (its C++ name, e.g. "ExpSum<3>") or a
+    TimeLocalEval's generated one, at double, in its staged (tile.cuh) or
+    streamed form, one block of one thread per voxel: fn(tcodes,
     n_iters, need_f, consts [4Q], det (kind, tol, max_its, max_trials,
     init_save), det_consts [Q+2], centre0, pm, pp, pd0 [P,V], data
-    [T,V], supp [S,V] or None, qw [T,Q]) -> the seven outputs."""
+    [T,V], supp [S,V] or None, qw [T,Q]) -> the seven outputs. A
+    hand-written functor's dt is an argument of the kernel: fn's dt
+    keyword (a generated one has its own)."""
     d = Path(tmpdir)
     _write_headers(d)
-    p = tle.nparams
-    src = _to_double(
-        '#include "cuda_runtime.h"\n#include "dual.cuh"\n'
-        '#include "fused_nl_loop.cuh"\n'
-        "namespace {\nusing namespace fabber::gen;\n" + tle.source
-        + "}  // namespace\n") + f"""
+    model, name = _functor_model(functor)
+    src = _kernel_head("fused_nl_loop.cuh", functor) + f"""
+namespace {{
+using Model = {model};
 template <int MODE>
 static void run_all(const VBParams& k, const NLDetConsts& dc,
                     const double* const* in, double* const* out) {{
+  const auto kp = params_for<Model::P>(k);
   for (long long v = 0; v < k.V; ++v) {{
     blockIdx.x = (unsigned)v;
-    fused_nl_loop_kernel<GenModel, {q}, MODE, {"true" if staged else "false"}>(
-        k, dc, in[0], in[1], in[2], in[3], in[4], in[5], in[6], out[0],
+    fused_nl_loop_kernel<Model, {q}, MODE, {"true" if staged else "false"}>(
+        kp, dc, in[0], in[1], in[2], in[3], in[4], in[5], in[6], out[0],
         out[1], out[2], out[3], out[4], out[5], out[6]);
   }}
 }}
-extern "C" int host_nl_loop(const int* tcodes, int n_iters, int need_f,
-                            const double* consts, int det_kind,
+}}  // namespace
+extern "C" int host_nl_loop(const int* tcodes, double dt, int n_iters,
+                            int need_f, const double* consts, int det_kind,
                             double det_tol, int det_max_its,
                             int det_max_trials, int det_init_save,
                             const double* det_consts,
@@ -212,7 +215,7 @@ extern "C" int host_nl_loop(const int* tcodes, int n_iters, int need_f,
                             int nt, long long V) {{
   VBParams k;
   NLDetConsts dc;
-  if (!nl_setup({p}, {q}, tcodes, 0.0, n_iters, need_f, -1.0, consts,
+  if (!nl_setup(Model::P, {q}, tcodes, dt, n_iters, need_f, -1.0, consts,
                 det_kind, det_tol, det_max_its, det_max_trials,
                 det_init_save, det_consts, in[3], nt, V, &k, &dc))
     return 1;
@@ -222,16 +225,18 @@ extern "C" int host_nl_loop(const int* tcodes, int n_iters, int need_f,
   return 0;
 }}
 """
-    lib = _build(d, f"kernel_{'staged' if staged else 'streamed'}", src)
+    lib = _build(d, f"kernel_{name}_q{q}_{'staged' if staged else 'streamed'}",
+                 src)
     lib.host_nl_loop.restype = ctypes.c_int
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.host_nl_loop.argtypes = [vp, i32, i32, vp, i32, ctypes.c_double,
-                                 i32, i32, i32, vp, vp, vp, i32,
-                                 ctypes.c_longlong]
+    lib.host_nl_loop.argtypes = [vp, ctypes.c_double, i32, i32, vp, i32,
+                                 ctypes.c_double, i32, i32, i32, vp, vp, vp,
+                                 i32, ctypes.c_longlong]
 
     def fn(tcodes, n_iters, need_f, consts, det, det_consts, centre0, pm,
-           pp, pd0, data, supp, qw):
+           pp, pd0, data, supp, qw, dt=0.0):
         nt, nv = data.shape
+        p = centre0.shape[0]
         fq = q if det[0] == 0 else (2 if det[0] == 2 else 1)
         outs = [np.zeros(s) for s in ((p, nv), (p, p, nv), (p, p, nv),
                                       (q, nv), (q, nv), (fq, nv), (fq, nv))]
@@ -243,9 +248,9 @@ extern "C" int host_nl_loop(const int* tcodes, int n_iters, int need_f,
         tc = (ctypes.c_int * p)(*tcodes)
         cs = np.ascontiguousarray(consts, np.float64)
         dcs = np.ascontiguousarray(det_consts, np.float64)
-        rc = lib.host_nl_loop(tc, n_iters, int(need_f), _ptr(cs), det[0],
-                              det[1], det[2], det[3], det[4], _ptr(dcs),
-                              in_ptrs, out_ptrs, nt, nv)
+        rc = lib.host_nl_loop(tc, dt, n_iters, int(need_f), _ptr(cs),
+                              det[0], det[1], det[2], det[3], det[4],
+                              _ptr(dcs), in_ptrs, out_ptrs, nt, nv)
         assert rc == 0
         return outs
     return fn
@@ -289,10 +294,11 @@ using Model = {model};
 template <int MODE, bool MARQ>
 static void run_all(const NLLSParams& k, const double* const* in,
                     double* const* out) {{
+  const auto kp = nlls_params_for<Model::P>(k);
   for (long long v = 0; v < k.V; ++v) {{
     blockIdx.x = (unsigned)v;
     fused_nlls_kernel<Model, MODE, MARQ, {"true" if staged else "false"}>(
-        k, in[0], in[1], in[2], in[3], out[0], out[1], out[2], out[3],
+        kp, in[0], in[1], in[2], in[3], out[0], out[1], out[2], out[3],
         out[4], out[5]);
   }}
 }}
@@ -369,10 +375,11 @@ using Model = {model};
 template <bool LM, bool STAGED>
 static void run_all(const VBParams& k, const double* const* in,
                     double* const* out) {{
+  const auto kp = params_for<Model::P>(k);
   for (long long v = 0; v < k.V; ++v) {{
     blockIdx.x = (unsigned)v;
     fused_vb_iter_kernel<Model, {q}, LM, STAGED>(
-        k, in[0], in[1], in[2], in[3], in[4], in[5], in[6], out[0], out[1],
+        kp, in[0], in[1], in[2], in[3], in[4], in[5], in[6], out[0], out[1],
         out[2], out[3], out[4], out[5], out[6]);
   }}
 }}

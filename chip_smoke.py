@@ -36,8 +36,12 @@ drives method=spatialvb (bench.py's spatial and spatial-p4 shapes on a
 card; Gauss-Seidel against the CPU, blocked sweeps against unblocked)
 and the features without a kernel of their own (ARD priors, kernel 7
 once per iteration on biexp; locked linearization; the spectral route
-at bf16, engine-kernel=spectral and P=9; the direct route), each beside
-its float64 run; drives the rest of the user surface (phase 4x): the
+at bf16 and engine-kernel=spectral; the direct route) and P=9 on the
+spectral-whole route (its per-shape kernels 1 and 2), each beside its
+float64 run; holds the per-shape instances of kernels 1-5 and 9 (P 9-20,
+Q 3-4 at small P; ops/_cuda.py build_instance, built at the script's
+top) against their plain versions and drives an fMRI-like linear design
+at P=16 through them (phases 3j, 4z, 5j); drives the rest of the user surface (phase 4x): the
 C API by ctypes attach on the 128x128x64 poly volume, equal to
 run_with_data bit for bit, the port's C host in a subprocess on the
 card, the CLI's --profile-dir (a torch.profiler trace naming the
@@ -1968,7 +1972,13 @@ def launch_counts():
             "fused_vb_iter": fv.fused_iteration.launches,
             "fused_vb_iter:staged": fv.fused_iteration.staged_launches,
             "fused_vb_iter:generated": fv.fused_iteration.generated_launches,
-            "fused_nlls:generated": fn.fused_nlls_loop.generated_launches}
+            "fused_nlls:generated": fn.fused_nlls_loop.generated_launches,
+            "spectral_stats:instance": fs.spectral_stats.instance_launches,
+            "spectral_core:instance": fs.spectral_core.instance_launches,
+            "spectral_fused:instance": fs.spectral_fused.instance_launches,
+            "fused_whole:instance": fw.fused_whole.instance_launches,
+            "fused_vb_loop:instance": fl.fused_vb_loop.instance_launches,
+            "fused_ar_loop:instance": fa.fused_ar_loop.instance_launches}
 
 
 def reset_launches():
@@ -1999,6 +2009,9 @@ def reset_launches():
     fn.fused_nlls_loop.staged_launches = 0
     from fabber_core_tpu_torch.ops import fused_loop_ar as fa
     fa.fused_ar_loop.launches = fa.fused_ar_loop.det_launches = 0
+    for f in (fs.spectral_stats, fs.spectral_core, fs.spectral_fused,
+              fw.fused_whole, fl.fused_vb_loop, fa.fused_ar_loop):
+        f.instance_launches = 0
 
 
 def api_run(device, options, vol, extra_data=None, cls=None):
@@ -3677,9 +3690,9 @@ def run_wide_paths(device, shape=(128, 128, 32), nl_shape=(128, 128, 64)):
       the same under AR noise at one and two echoes ('pallas-loop-ar',
         kernel 9, held by ar_against_f64);
       engine-kernel=pallas-loop at P=8 (kernel 5, against_f64);
-      noise-pattern=1234 at P=8: no (P=8, Q=4) instance, so the card
-        refuses the run at construction (NotImplementedError naming
-        kernel 4) and launches none of kernels 4, 5 and 9;
+      noise-pattern=1234 at P=4 (cosine_design(4)): 'pallas-whole' on
+        the per-shape (4, 4) instance (kernel 4, one launch), against
+        its float64 run;
       exp num-exps 3 (128x128x64 x 100) on 'pallas-loop-nl', on 'pallas'
         (engine-kernel=pallas) and with method=nlls (kernels 6, 7, 8 at
         P=6): outputs finite outside at most 1% overflowed voxels, the
@@ -3725,19 +3738,18 @@ def run_wide_paths(device, shape=(128, 128, 32), nl_shape=(128, 128, 64)):
     ok &= wide_route_ok(eng, "pallas-loop", n, {"fused_vb_loop": 1})
     launches["fused_vb_loop:wide"] = n.get("fused_vb_loop", 0)
     ok &= against_f64("kernel 5 P=8", res, refs["maxits"])
-    log(" noise-pattern=1234, linear P=8: no (P=8, Q=4) instance")
-    vol4 = wide_volume(design, (8, 8, 4), SEED + 33, nq=4)
-    reset_launches()
-    try:
-        api_run(device, {**base, "noise-pattern": "1234"}, vol4)
-        msg = "ran"
-    except NotImplementedError as e:
-        msg = str(e)
-    n = {k: v for k, v in launch_counts().items() if v}
-    good = msg.startswith("no (P=8, Q=4) instance of kernel 4 ") and not n
-    log(f"  refused at construction ({msg[:60]}...), launches {n}: "
-        f"{'ok' if good else 'FAIL'}")
-    ok &= good
+    log(" noise-pattern=1234, linear P=4: the per-shape (4, 4) instance")
+    d4 = cosine_design(4)
+    vol4 = wide_volume(d4, shape, SEED + 33, nq=4)
+    o4 = {**base, "basis": linear_cosine_file(4), "noise-pattern": "1234"}
+    _, res, eng, n, _ = api_run(device, o4, vol4)
+    ok &= wide_route_ok(eng, "pallas-whole", n, {
+        "fused_whole": 1, "fused_whole:staged": 1,
+        "fused_whole:instance": 1})
+    launches["fused_whole:instance"] = n.get("fused_whole:instance", 0)
+    _, r64, eng64, n64, _ = api_run(device, {**o4, "dtype": "double"}, vol4)
+    ok &= eng64.route == "xla" and not n64
+    ok &= against_f64("linear P=4 noise-pattern=1234", res, r64)
     del vol, vol4
     for nq in (1, 2):
         log(f" linear P=8, noise=ar, num-echoes={nq}")
@@ -3825,13 +3837,13 @@ def exp_within(eng, means, clean):
     return float((err <= 3 * BI_SD).double().mean())
 
 
-def time_wide(device, card, nv=16_777_216, nv_plain=4_194_304,
+def time_wide(device, card, nv=4_194_304, nv_plain=4_194_304,
               nv_nl=4_000_000):
     """Phase 5i, CUDA events, best of 3 after a warm-up: kernel 4 at P=8,
     Q=1, maxits in its staged and streamed forms (time_forms, bit for
-    bit) and kernel 9 at P=8, nq=1, maxits, on 16,777,216 voxels (each
-    [V] float32 plane 67.1 MB); kernel 5 at P=8, Q=1 on the statistics
-    of the same plane; ExpSum<3> on kernels 6 (maxits, both forms), 7 (one
+    bit) and kernel 9 at P=8, nq=1, maxits, on 4,194,304 voxels (16,777,216
+    until the per-shape phases took the time); kernel 5 at P=8, Q=1 on
+    the statistics of the same plane; ExpSum<3> on kernels 6 (maxits, both forms), 7 (one
     iteration, both forms) and 8 (fresh Levenberg, both forms) at
     4,000,000 voxels, T=100, with ExpSum<4> and the generated P=6
     functor beside them (the staged form, no plain version). The plain
@@ -5067,9 +5079,11 @@ def run_feature_paths(device, shape=(128, 128, 64)):
       poly at dtype=bf16 and at engine-kernel=spectral: the 'spectral'
           route (plain torch), against float64 (for bf16, of the
           bf16-rounded data);
-      P=9 on 'spectral': a nine-cosine linear design (poly degree 8 takes
-          the same route, checked by its engine's route only: its
-          uncentred powers of t make float32 meaningless, ROADMAP Queue 3);
+      P=9 on 'spectral-whole': a nine-cosine linear design through the
+          per-shape kernels 1 and 2 (one launch each; poly degree 8
+          takes the same route, checked by its engine's route only: its
+          uncentred powers of t make float32 meaningless, ROADMAP Queue
+          3);
       the linear model at fixed-design-route=direct: 'xla-direct'.
     Returns (ok, launches)."""
     import torch
@@ -5145,15 +5159,19 @@ def run_feature_paths(device, shape=(128, 128, 64)):
         ok &= against_f64(name, r32, ref64[key])
     del pvol, bvol, ref64
 
-    log("phase 4t: P=9 on the spectral route, and the direct route")
+    log("phase 4t: P=9 on the spectral-whole route (kernels 1 and 2, "
+        "per-shape), and the direct route")
     nt9 = np.arange(NT) / NT
     d9 = np.stack([np.ones(NT)] + [np.cos(np.pi * k * nt9)
                                    for k in range(1, 9)], axis=1)
     lin_shape = (128, 128, 32)
-    for name, design, extra, route in (
-            ("P=9 spectral", d9, {}, "spectral"),
+    p9 = {"spectral_stats": 1, "spectral_stats:staged": 1,
+          "spectral_stats:instance": 1, "spectral_core": 1,
+          "spectral_core:instance": 1}
+    for name, design, extra, route, want in (
+            ("P=9 spectral-whole", d9, {}, "spectral-whole", p9),
             ("linear direct", synthetic_design(),
-             {"fixed-design-route": "direct"}, "xla-direct")):
+             {"fixed-design-route": "direct"}, "xla-direct", {})):
         opts = {**MAIN_OPTIONS, "model": "linear", **extra,
                 "basis": design_file(f"design_p{design.shape[1]}.mat",
                                      design)}
@@ -5161,13 +5179,19 @@ def run_feature_paths(device, shape=(128, 128, 64)):
         v = linear_volume(design, lin_shape, SEED + 23)
         _, r32, e32, n32, _ = api_run(device, opts, v)
         _, r64, e64, n64, _ = api_run(device, {**opts, "dtype": "double"}, v)
-        ok &= e32.route == route and e64.route in ("xla", "xla-direct")
-        ok &= not n32 and not n64
+        good = e32.route == route and e64.route in ("xla", "xla-direct")
+        good &= n32 == want and not n64
+        if not good:
+            log(f"  FAIL route {e32.route} (want {route}), launches {n32} "
+                f"(want {want})")
+        ok &= good
+        for k in ("spectral_stats:instance", "spectral_core:instance"):
+            launches[k] = launches.get(k, 0) + n32.get(k, 0)
         ok &= against_f64(name, r32, r64)
     deg8 = RunOptions({**MAIN_OPTIONS, "degree": "8"})
     e8 = VBInference(get_model_class("poly")(deg8), deg8,
                      np.zeros((16, NT), np.float32), device=device)
-    good = e8.nparams == 9 and e8.route == "spectral"
+    good = e8.nparams == 9 and e8.route == "spectral-whole"
     log(f" poly degree 8: P={e8.nparams}, route {e8.route} "
         f"{'ok' if good else 'FAIL'}")
     return ok and good, launches
@@ -5699,6 +5723,489 @@ def run_surface_paths(device, card):
                                          "capi_s": capi_s, "host_s": host_s}
 
 
+# ---------------------------------------------------------------------------
+# Fixed designs past P = 8: the per-shape instances of kernels 1-5 and 9
+# (ops/_cuda.py build_instance; phases 2, 3j, 4t, 4y, 4z, 5j)
+# ---------------------------------------------------------------------------
+
+# the per-shape instances this run builds, concurrently, beside phase 2's
+# library (phase 4t launches spectral P=9, 4y whole (4, 4), 3j, 4z and 5j
+# the rest): (family, P, Q)
+INSTANCE_SHAPES = (("spectral", 9, 1), ("spectral", 12, 1),
+                   ("spectral", 16, 1), ("spectral", 20, 1),
+                   ("whole", 4, 4), ("whole", 12, 2), ("whole", 16, 1),
+                   ("whole", 16, 2), ("ar", 12, 1), ("ar", 12, 2),
+                   ("ar", 16, 1))
+# the kernels line's entries of the per-shape instances: (name, source,
+# the TPU kernel it replaces)
+INSTANCE_ENTRIES = (("spectral_stats:instance", "spectral_stats.cu",
+                     "fabber_core_tpu/ops/fused_spectral.py:632"),
+                    ("spectral_core:instance", "spectral_core.cu",
+                     "fabber_core_tpu/ops/fused_spectral.py:760"),
+                    ("spectral_fused:instance", "spectral_fused.cu",
+                     "fabber_core_tpu/ops/fused_spectral.py:376"),
+                    ("fused_whole:instance", "fused_whole.cu",
+                     "fabber_core_tpu/ops/fused_whole.py:298"),
+                    ("fused_vb_loop:instance", "fused_loop.cu",
+                     "fabber_core_tpu/ops/fused_loop.py:200"),
+                    ("fused_ar_loop:instance", "fused_ar_loop.cu",
+                     "fabber_core_tpu/ops/fused_loop_ar.py:50"))
+
+
+def instance_logs(shapes=INSTANCE_SHAPES):
+    """{shape: (build seconds, {unit: nvcc seconds}, nvcc's output)} of
+    the per-shape builds of this process (ops/_cuda.py inst_build_log)."""
+    import re
+    from fabber_core_tpu_torch.ops import _cuda
+    out = {}
+    for shape in shapes:
+        secs, text = _cuda.inst_build_log.get(
+            _cuda.instance_key(*shape), (float("nan"), ""))
+        units = {u: float(s) for u, s in
+                 re.findall(r"== (\S+) \(nvcc ([\d.]+) s\)", text)}
+        out[shape] = (secs, units, text)
+    return out
+
+
+def log_instance_builds(card):
+    """Each per-shape build's seconds, its units' nvcc seconds and its
+    entries' ptxas register and spill lines."""
+    for shape, (secs, units, text) in instance_logs().items():
+        log(f"  per-shape {shape[0]} P={shape[1]} Q={shape[2]}: built in "
+            f"{secs:.1f} s, nvcc {units}  [{card}]")
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line \
+                    or "Compiling entry" in line:
+                log(f"  ptxas: {line.strip()}")
+
+
+def inst_ptxas(shape, *parts):
+    """ptxas_entry of a per-shape build's entry."""
+    return ptxas_entry(instance_logs((shape,))[shape][2], *parts)
+
+
+def spectral_inputs(p, nv, gen, device, nq=1):
+    """Kernels 1-3's inputs on cosine_design(p) at T=106: the data plane
+    (pattern_plane: truth ~ U(-1, 1), a voxel noise sd over 1e-2..3), the
+    rows, A, the core constants with the poly priors (mean 0, precision
+    1e-12) and zero prior means."""
+    import torch
+    from fabber_core_tpu_torch.ops import fused_spectral as fs
+    from fabber_core_tpu_torch.ops.spectral import eigen_elbo_const
+    design = cosine_design(p)
+    q = np.ones(NT)
+    c_post = (NT - 1) * 0.5 + 1e-6
+    data = pattern_plane(design, nq, nv, gen, device, (1.0,) * p)
+    tc = fs.pack_mxu_consts(design, q, NT, torch.float32, device)
+    ac = fs.pack_solve_consts(design, q, NT, torch.float32)
+    sc = fs.pack_spectral_consts(
+        design, q, NT, np.full(p, 1e-12), 1e-6, c_post, 1e-8, 50.0,
+        torch.float32, (eigen_elbo_const(q, c_post, 1e-6, 1e6, p),
+                        c_post + 0.5))
+    pm = torch.zeros((p, nv), device=device)
+    return data, tc, ac, sc, pm
+
+
+def check_wide_design_kernels(device, nv=1_048_576, seed=SEED + 40):
+    """Phase 3j: the per-shape instances against their plain versions on
+    1,048,576 voxels, T=106, cosine designs, each held lane by lane by
+    near_f64 (the plain version at float64 beside the plain float32 one;
+    a detector mode by its decision share):
+      spectral_stats (1), spectral_core (2, 2d) and spectral_fused (3,
+        3d) at P = 12 and 20 in maxits and under trialmode (the split
+        pair on kernel 1's statistics, the fused form on the data);
+      fused_whole (4) at P = 12, Q = 2 in maxits, trialmode and lm, at
+        P = 4, Q = 4 and at P = 16, Q = 1 in maxits;
+      fused_vb_loop (5) at P = 16, Q = 1 (check_loop_case);
+      fused_ar_loop (9) at P = 12, one and two echoes, maxits.
+    Each launch asserts one per-shape launch of its wrapper
+    (instance_launches)."""
+    import torch
+    from fabber_core_tpu_torch.ops import fused_loop as fl
+    from fabber_core_tpu_torch.ops import fused_loop_ar as fa
+    from fabber_core_tpu_torch.ops import fused_spectral as fs
+    from fabber_core_tpu_torch.ops import fused_whole as fw
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    worst = {name: [0.0, 0.0] for name, _, _ in INSTANCE_ENTRIES}
+    ok_all = True
+
+    def note(kname, res):
+        nonlocal ok_all
+        ok, abs_err, ratio = res
+        ok_all &= ok
+        worst[kname][0] = max(worst[kname][0], abs_err)
+        worst[kname][1] = max(worst[kname][1], ratio)
+
+    def counted(fn, wrapper):
+        """fn() with wrapper's per-shape launches counted: exactly one."""
+        nonlocal ok_all
+        before = wrapper.instance_launches
+        out = fn()
+        good = wrapper.instance_launches == before + 1
+        if not good:
+            log(f"  FAIL: {wrapper.__name__} made "
+                f"{wrapper.instance_launches - before} per-shape launches")
+        ok_all &= good
+        return out
+
+    def sdec(o):
+        return torch.stack([o[6][0].double(), (o[3][0] < 0).double()])
+
+    def tidy(o):
+        return (o[0], o[1], o[2], o[3].abs()) + tuple(o[4:])
+
+    for p in (12, 20):
+        data, tc, ac, sc, pm = spectral_inputs(p, nv, gen, device)
+        tag = f"P={p} V={nv}"
+        stats = counted(lambda: fs.spectral_stats(data, tc, ac),
+                        fs.spectral_stats)
+        ps = fs.spectral_stats_plain(data, tc, ac)
+        torch.cuda.synchronize()
+        # phase 3's bounds: m0 1e-3, rtqr 1e-4, D'Qy 1e-5 of their max,
+        # and the posterior means both statistics give through one
+        # float64 core 1e-3 posterior sd
+        a64 = ac.double().reshape(p, p).to(device)
+        post_k = fs.spectral_core_plain(*(x.double() for x in stats),
+                                        pm.double(), sc.double(), ITERS)
+        post_p = fs.spectral_core_plain(*(x.double() for x in ps),
+                                        pm.double(), sc.double(), ITERS)
+        sd = torch.sqrt(torch.stack([post_p[2][i, i] for i in range(p)]))
+        for res in (err_check(f"stats m0 {tag}", stats[0], ps[0], 1e-3),
+                    err_check("stats rtqr", stats[1], ps[1], 1e-4),
+                    err_check("stats dtqr+A.m0",
+                              stats[2].double() + a64 @ stats[0].double(),
+                              ps[2].double() + a64 @ ps[0].double(), 1e-5),
+                    err_check("stats -> means/sd", post_k[0] / sd,
+                              post_p[0] / sd, 1e-3, scale=1.0)):
+            note("spectral_stats:instance", res)
+        del ps, post_k, post_p, sd
+        stats64 = tuple(x.double() for x in stats)
+        for kind in ("maxits", "trialmode"):
+            det = None if kind == "maxits" else make_detector(kind)
+            n = ITERS if det is None else int(det.max_iterations) + 2
+            k = counted(lambda: fs.spectral_core(*stats, pm, sc, n, det),
+                        fs.spectral_core)
+            r32 = fs.spectral_core_plain(*stats, pm, sc, n, det)
+            r64 = fs.spectral_core_plain(*stats64, pm.double(), sc.double(),
+                                         n, det)
+            torch.cuda.synchronize()
+            decs = () if det is None else (sdec(k), sdec(r32), sdec(r64))
+            note("spectral_core:instance", near_f64(
+                f"spectral_core {kind} {tag}", tidy(k), tidy(r32),
+                tidy(r64), *decs))
+            del k, r32, r64
+            k = counted(lambda: fs.spectral_fused(data, tc, ac, pm, sc, n,
+                                                  det), fs.spectral_fused)
+            r32 = fs.spectral_fused_plain(data, tc, ac, pm, sc, n, det)
+            r64 = fs.spectral_fused_plain(data.double(), tc.double(),
+                                          ac.double(), pm.double(),
+                                          sc.double(), n, det)
+            torch.cuda.synchronize()
+            decs = () if det is None else (sdec(k), sdec(r32), sdec(r64))
+            note("spectral_fused:instance", near_f64(
+                f"spectral_fused {kind} {tag}", tidy(k), tidy(r32),
+                tidy(r64), *decs))
+            del k, r32, r64
+        del data, stats, stats64, pm
+        torch.cuda.empty_cache()
+
+    def wdec(o):
+        return torch.stack([o[6][0].double(), 0 * o[6][0].double()])
+
+    for p, nq, kinds in ((12, 2, ("maxits", "trialmode", "lm")),
+                         (4, 4, ("maxits",)), (16, 1, ("maxits",))):
+        design = cosine_design(p)
+        plane = pattern_plane(design, nq, nv, gen, device, (1.0,) * p)
+        args = whole_inputs(design, group_masks(nq), plane, device)
+        del plane
+        tag = f"P={p} Q={nq} V={nv}"
+        for kind in kinds:
+            if kind == "maxits":
+                k = counted(lambda: fw.fused_whole(*args, ITERS),
+                            fw.fused_whole)
+                r32 = fw.fused_whole_plain(*args, ITERS)
+                r64 = fw.fused_whole_plain(*to64(args), ITERS)
+                torch.cuda.synchronize()
+                note("fused_whole:instance",
+                     near_f64(f"fused_whole {tag}", k, r32, r64))
+            else:
+                det, cap = whole_detector(kind, p, nq)
+                k = counted(lambda: fw.fused_whole(*args, cap, -1.0, det),
+                            fw.fused_whole)
+                r32 = fw.fused_whole_plain(*args, cap, -1.0, det)
+                r64 = fw.fused_whole_plain(*to64(args), cap, -1.0, det)
+                torch.cuda.synchronize()
+                note("fused_whole:instance", near_f64(
+                    f"fused_whole {kind} {tag}", k, r32, r64, wdec(k),
+                    wdec(r32), wdec(r64), by_share=True))
+            del k, r32, r64
+        if p == 16:
+            before = fl.fused_vb_loop.instance_launches
+            note("fused_vb_loop:instance",
+                 check_loop_case(tag, args, p, nq, -1.0))
+            ok_all &= fl.fused_vb_loop.instance_launches == before + 1
+        del args
+        torch.cuda.empty_cache()
+
+    p = 12
+    design = cosine_design(p)
+    for nq in (1, 2):
+        plane, _ = ar_plane(nq, nv, gen, device, (1e-2, 1.0), design)
+        args, _ = ar_kernel_inputs(plane, nq, device, design)
+        del plane
+        k = counted(lambda: fa.fused_ar_loop(*args, ITERS), fa.fused_ar_loop)
+        r32 = fa.fused_ar_loop_plain(*args, ITERS)
+        r64 = fa.fused_ar_loop_plain(*to64(args), ITERS)
+        torch.cuda.synchronize()
+        note("fused_ar_loop:instance", near_f64(
+            f"fused_ar_loop P={p} Q={nq} V={nv}", k, r32, r64))
+        del k, r32, r64, args
+        torch.cuda.empty_cache()
+    return ok_all, worst
+
+
+def fmri_design(p=16, nt=NT, tr=2.0, seed=SEED + 41):
+    """[T,P] an fMRI task design, made with numpy from the seed: three
+    conditions (random 10-20 s blocks) convolved with a gamma HRF (shape
+    6, scale 1 s, sampled at the TR), their temporal derivatives, six
+    smooth random-walk motion columns, a constant and P - 13 cosine
+    drifts; every column but the constant scaled to unit sd."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(nt) * tr
+    th = np.arange(0.0, 32.0, tr)
+    hrf = th ** 5 * np.exp(-th) / 120.0
+    cols = []
+    for _ in range(3):
+        box = np.zeros(nt)
+        at = rng.uniform(0, 20)
+        while at < t[-1]:
+            dur = rng.uniform(10, 20)
+            box[(t >= at) & (t < at + dur)] = 1.0
+            at += dur + rng.uniform(15, 40)
+        cols.append(np.convolve(box, hrf)[:nt])
+    cols += [np.gradient(c) for c in cols]
+    for _ in range(6):
+        walk = np.cumsum(rng.standard_normal(nt))
+        cols.append(np.convolve(walk, np.ones(5) / 5, mode="same"))
+    u = (np.arange(nt) + 0.5) / nt
+    drifts = [np.cos(np.pi * k * u) for k in range(1, p - 12)]
+    cols = [(c - c.mean()) / c.std() for c in cols + drifts]
+    return np.stack([np.ones(nt)] + cols, axis=1)
+
+
+def run_wide_design_paths(device, shape=(128, 128, 32)):
+    """Phase 4z: run_with_data on linear P=16 (fmri_design, 128x128x32 x
+    106), each path's launch counters zeroed just before it and read just
+    after (api_run), each float32 run beside its float64 run on the card
+    (the plain 'xla' route, no kernel):
+      white noise, maxits: 'spectral-whole' (kernels 1 and 2, per-shape
+        P=16), against_f64;
+      spectral-impl=fused: 'spectral-fused' (kernel 3), against_f64;
+      AR noise, one echo: 'pallas-loop-ar' (kernel 9, per-shape P=16),
+        ar_against_f64;
+      noise-pattern=12 under trialmode: 'pallas-whole' (kernel 4 MODE 2,
+        per-shape (16, 2)), detector_against_f64;
+      noise-pattern=12, engine-kernel=pallas-loop: 'pallas-loop' (kernel
+        5, per-shape (16, 2)), against_f64;
+    and, past the caps, the JAX engine's non-kernel route on the card with
+    no raise: AR at P=17, white at P=26, pattern 12 at P=21 (each 'xla',
+    a 4x4x1 volume run). Returns (ok, launches per kernel entry)."""
+    import torch
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.options import RunOptions
+    p = 16
+    design = fmri_design(p)
+    cond = np.linalg.cond(design)
+    basis = design_file("fmri_design_p16.mat", design)
+    base = {**MAIN_OPTIONS, "model": "linear", "basis": basis}
+    base.pop("degree")
+    ok, launches = True, {}
+    log(f" linear P={p}: an fMRI design (condition number {cond:.4g}), "
+        f"volume {shape + (NT,)}")
+    white = wide_volume(design, shape, SEED + 42)
+    pat = wide_volume(design, shape, SEED + 43, nq=2)
+    ar = wide_volume(design, shape, SEED + 44, nq=1, ar=True)
+    refs = {}
+
+    def ref(key, opts, vol):
+        if key not in refs:
+            _, refs[key], e64, n64, _ = api_run(
+                device, {**opts, "dtype": "double"}, vol)
+            good = e64.route == "xla" and not n64
+            if not good:
+                log(f"  FAIL float64 route {e64.route}, launches {n64}")
+            refs[key] = refs[key] if good else None
+        return refs[key]
+
+    cases = (
+        ("white maxits", {}, white, "spectral-whole",
+         ("spectral_stats:instance", "spectral_core:instance"),
+         against_f64, "white"),
+        ("white maxits, spectral-impl=fused", {"spectral-impl": "fused"},
+         white, "spectral-fused", ("spectral_fused:instance",), against_f64,
+         "white"),
+        ("AR one echo", {"noise": "ar"}, ar, "pallas-loop-ar",
+         ("fused_ar_loop:instance",), None, "ar"),
+        ("noise-pattern=12, trialmode", {"noise-pattern": "12",
+                                         "convergence": "trialmode"},
+         pat, "pallas-whole", ("fused_whole:instance",),
+         detector_against_f64, "pat-trialmode"),
+        ("noise-pattern=12, engine-kernel=pallas-loop",
+         {"noise-pattern": "12", "engine-kernel": "pallas-loop"}, pat,
+         "pallas-loop", ("fused_vb_loop:instance",), against_f64, "pat"))
+    for name, extra, vol, route, keys, check, rkey in cases:
+        opts = {**base, **extra}
+        _, res, eng, n, _ = api_run(device, opts, vol)
+        good = eng.route == route and all(n.get(k, 0) == 1 for k in keys)
+        if not good:
+            log(f"  FAIL route {eng.route} (want {route}), launches {n}")
+        for k in keys:
+            launches[k] = launches.get(k, 0) + n.get(k, 0)
+        o64 = {k: v for k, v in opts.items() if k != "engine-kernel"}
+        r64 = ref(rkey, o64, vol)
+        if r64 is None:
+            good = False
+        elif check is None:
+            good &= ar_against_f64(f"P={p} {name}", res, r64, 2)
+        else:
+            good &= check(f"P={p} {name}", res, r64)
+        ok &= good
+    del white, pat, ar, refs
+    torch.cuda.empty_cache()
+    # past the caps: the JAX engine's route, which takes no kernel
+    for name, pp, extra in (("AR", 17, {"noise": "ar"}), ("white", 26, {}),
+                            ("pattern 12", 21, {"noise-pattern": "12"})):
+        d = cosine_design(pp)
+        vol = wide_volume(d, (4, 4, 1), SEED + 45, nq=1 + ("noise-pattern"
+                                                            in extra))
+        opts = {**base, "basis": linear_cosine_file(pp), **extra}
+        o = RunOptions(opts)
+        eng = VBInference(get_model_class("linear")(o), o,
+                          vol.reshape(16, NT), device=device)
+        _, res, eng2, n, _ = api_run(device, opts, vol)
+        good = (eng.route == eng2.route == "xla" and not n
+                and np.isfinite(res.means).all())
+        log(f" {name} at P={pp}: route {eng.route}, launches {n} "
+            f"{'ok' if good else 'FAIL'}")
+        ok &= good
+    return ok, launches
+
+
+def time_wide_design(device, card, nv=4_194_304):
+    """Phase 5j, CUDA events, best of 3 after a warm-up, at 4,194,304
+    voxels, T=106, cosine designs, each per-shape kernel beside its plain
+    version (once), its bound (each input read once, each output written
+    once, over 3.35 TB/s; the float32 operations over 67 TFLOP/s; the
+    larger; kernel 1 per voxel (6P + 3) T for its two passes and 2 P^2 for
+    the solve, the block's factor left out; kernel 2 the rotation 8 P^2,
+    10 noise updates 12 P each and the rebuild 2 P^3 + 3 P^2), its
+    registers and spills (ptxas) and its unit's nvcc seconds:
+      kernels 1, 2 and 3 at P = 12 and 20 (maxits);
+      kernel 4 at P = 12, Q = 2 and at P = 16, Q = 1 (maxits; staged);
+      kernel 5 at P = 16, Q = 1, on kernel 4's plain statistics;
+      kernel 9 at P = 12, one echo (maxits).
+    Returns the figures (the kernels line's instance entries)."""
+    import torch
+    from fabber_core_tpu_torch.ops import fused_loop as fl
+    from fabber_core_tpu_torch.ops import fused_loop_ar as fa
+    from fabber_core_tpu_torch.ops import fused_spectral as fs
+    from fabber_core_tpu_torch.ops import fused_whole as fw
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 46)
+    out = {}
+    logs = instance_logs()
+
+    def row(key, shape, name, kernel, plain, nbytes, nops, entry):
+        """The kernel's best of 3, its plain version's one run, the bound
+        and ptxas's line of its entry."""
+        out[f"{key}_ms"] = best_ms(kernel)
+        torch.cuda.empty_cache()
+        out[f"{key}_plain_ms"] = once_ms(plain)[0]
+        torch.cuda.empty_cache()
+        out[f"{key}_bound"] = bound(nbytes, nops)
+        out[f"{key}_ptxas"] = inst_ptxas(shape, *entry)
+        secs, units, _ = logs[shape]
+        out[f"{key}_nvcc_s"] = units
+        log(f"  {name}: {out[f'{key}_ms']!r} ms (plain "
+            f"{out[f'{key}_plain_ms']!r} ms); bound "
+            f"{out[f'{key}_bound'][0]!r} ms by {out[f'{key}_bound'][1]} "
+            f"({out[f'{key}_ms'] / out[f'{key}_bound'][0]:.3g}x); "
+            f"{out[f'{key}_ptxas']}; nvcc {units} (build {secs:.1f} s)  "
+            f"[{card}]")
+
+    for p in (12, 20):
+        shape = ("spectral", p, 1)
+        data, tc, ac, sc, pm = spectral_inputs(p, nv, gen, device)
+        stats = fs.spectral_stats(data, tc, ac)
+        nout = p + 2 * p * p + 4
+        row(f"stats_p{p}", shape, f"spectral_stats P={p}",
+            lambda: fs.spectral_stats(data, tc, ac),
+            lambda: fs.spectral_stats_plain(data, tc, ac),
+            4 * (NT + 2 * p + 1) * nv,
+            ((6 * p + 3) * NT + 2 * p * p) * nv,
+            ("spectral_stats_wide_kernel", f"ILi{p}ELb1E"))
+        core_ops = (8 * p * p + (ITERS - 1) * 12 * p + 2 * p ** 3
+                    + 3 * p * p) * nv
+        row(f"core_p{p}", shape, f"spectral_core P={p}",
+            lambda: fs.spectral_core(*stats, pm, sc, ITERS),
+            lambda: fs.spectral_core_plain(*stats, pm, sc, ITERS),
+            4 * (3 * p + 1) * nv + 4 * nout * nv, core_ops,
+            ("spectral_core_wide_kernel", f"ILi{p}ELi0E"))
+        row(f"fused_p{p}", shape, f"spectral_fused P={p}",
+            lambda: fs.spectral_fused(data, tc, ac, pm, sc, ITERS),
+            lambda: fs.spectral_fused_plain(data, tc, ac, pm, sc, ITERS),
+            4 * (NT + p) * nv + 4 * nout * nv,
+            core_ops + ((6 * p + 3) * NT + 2 * p * p) * nv,
+            ("spectral_fused_wide_kernel", f"ILi{p}ELi0ELb1E"))
+        del data, stats, pm
+        torch.cuda.empty_cache()
+    for p, nq in ((12, 2), (16, 1)):
+        shape = ("whole", p, nq)
+        design = cosine_design(p)
+        plane = pattern_plane(design, nq, nv, gen, device, (1.0,) * p)
+        args = whole_inputs(design, group_masks(nq), plane, device)
+        del plane
+        row(f"whole_p{p}", shape, f"fused_whole P={p} Q={nq} maxits",
+            lambda: fw.fused_whole(*args, ITERS),
+            lambda: fw.fused_whole_plain(*args, ITERS),
+            4 * (NT + 2 * p) * nv + 4 * (p + 2 * p * p + 4 * nq) * nv,
+            whole_ops(p, nq, ITERS) * nv,
+            ("fused_whole_wide_kernel", f"ILi{p}ELi{nq}ELi0ELb1E"))
+        if p == 16:
+            stats = tuple(x.contiguous() for x in fw.whole_stats_plain(
+                args[0], args[1], args[2], p, nq))
+            rest = (args[2], args[3], args[4], ITERS, -1.0)
+            row(f"loop_p{p}", shape, f"fused_vb_loop P={p} Q={nq}",
+                lambda: fl.fused_vb_loop(*stats, *rest),
+                lambda: fl.fused_vb_loop_plain(*stats, *rest),
+                4 * (p + nq + nq * p + 2 * p) * nv
+                + 4 * (p + 2 * p * p + 2 * nq) * nv,
+                (whole_ops(p, nq, ITERS) - whole_ops(p, nq, 0)) * nv,
+                ("fused_loop_wide_kernel", f"ILi{p}ELi{nq}E"))
+            del stats, rest
+        del args
+        torch.cuda.empty_cache()
+    p = 12
+    design = cosine_design(p)
+    plane, _ = ar_plane(1, nv, gen, device, (1e-2, 1.0), design)
+    args, _ = ar_kernel_inputs(plane, 1, device, design)
+    del plane
+    s = 3
+    row(f"ar_p{p}", ("ar", p, 1), f"fused_ar_loop P={p} nq=1 maxits",
+        lambda: fa.fused_ar_loop(*args, ITERS),
+        lambda: fa.fused_ar_loop_plain(*args, ITERS),
+        4 * (p + s + s * p + 2 * p) * nv + 4 * (p + 2 * p * p + 5) * nv,
+        (ar_ops(p, 1)[0] + ITERS * ar_ops(p, 1)[1]) * nv,
+        ("fused_ar_loop_wide_kernel", f"ILi{p}ELi1ELi0E"))
+    del args
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     try:
         import torch
@@ -5739,6 +6246,12 @@ def main():
         path = lib.result()
         for g in gens:
             g.result()
+    # the per-shape instances (INSTANCE_SHAPES), all their nvcc processes
+    # started together in the background once the library's are done;
+    # phase 4t and phase 3j wait for them
+    t_inst = time.perf_counter()
+    inst_pool = ThreadPoolExecutor(1)
+    insts = inst_pool.submit(_cuda.build_instances, INSTANCE_SHAPES, False)
     _cuda.load()
     log(f"phase 2: {len(_cuda.SOURCES)} kernel sources and "
         f"{len(functors)} generated functors built in "
@@ -5793,6 +6306,16 @@ def main():
         "generated P=6 functor against their plain versions")
     ok3i, worst_wide = check_wide_nl_kernels(device)
     worst.update(worst_wide)
+    insts.result()
+    inst_pool.shutdown()
+    log(f"phase 3j: {len(INSTANCE_SHAPES)} per-shape instances built "
+        f"({time.perf_counter() - t_inst:.1f} s after phase 2's library, "
+        f"in the background)")
+    log_instance_builds(card)
+    log("phase 3j: the per-shape instances of kernels 1-5 and 9 against "
+        "their plain versions")
+    ok3j, worst_wide = check_wide_design_kernels(device)
+    worst.update(worst_wide)
 
     # phase 4: the main paths through the API; each path's launch
     # counters are zeroed just before it and read just after it
@@ -5842,6 +6365,8 @@ def main():
         "(1024x1024 x 106) and MPmp (256x256)")
     ok4s = run_spatial_p4_paths(device)
     ok4t, feat_launches = run_feature_paths(device)
+    for name, _, _ in INSTANCE_ENTRIES:
+        launches[name] = feat_launches.get(name, 0)
     log(f" kernel 7 launches: phase 4e {launches['fused_vb_iter']}, phase 4t "
         f"(ARD) {feat_launches['fused_vb_iter']}")
     launches["fused_vb_iter"] += feat_launches["fused_vb_iter"]
@@ -5857,7 +6382,14 @@ def main():
     log("phase 4y: run_with_data at P = 8 (linear, 128x128x32 x 106) and "
         "exp num-exps 3 (128x128x64 x 100)")
     ok4y, wide_launches = run_wide_paths(device)
+    launches["fused_whole:instance"] += wide_launches.pop(
+        "fused_whole:instance", 0)
     launches.update(wide_launches)
+    log("phase 4z: run_with_data at P = 16 (linear, an fMRI design, "
+        "128x128x32 x 106) on the per-shape instances")
+    ok4z, design_launches = run_wide_design_paths(device)
+    for name, n in design_launches.items():
+        launches[name] += n
 
     # phase 5: timing at the headline sizes
     log("phase 5: timing at 16,777,216 voxels")
@@ -5882,10 +6414,12 @@ def main():
         f"{MC_SHAPE + (MC_NT,)}: {mc_step_s!r} s  [{card}]")
     log("phase 5h: spatial VB at 3,999,744 voxels (1024x3906)")
     time_spatial(device, card)
-    log("phase 5i: kernels 4, 5 and 9 at P=8 (16,777,216 voxels) and 6, 7, "
+    log("phase 5i: kernels 4, 5 and 9 at P=8 (4,194,304 voxels) and 6, 7, "
         "8 with ExpSum<3>, ExpSum<4> and the generated P=6 functor "
         "(4,000,000 voxels)")
     ok5i, fig_wide = time_wide(device, card)
+    log("phase 5j: the per-shape instances at 4,194,304 voxels")
+    fig_inst = time_wide_design(device, card)
     nv_prof = int(np.prod(PROFILE_SHAPE))
     for name, key in (("spectral_stats_kernel", "stats_ms"),
                       ("spectral_core_kernel", "core_ms")):
@@ -5910,6 +6444,7 @@ def main():
               "motion_noprior_paths": ok4w, "surface_paths": ok4x,
               "wide_fixed_design_kernels": ok3h,
               "wide_nl_kernels": ok3i, "wide_paths": ok4y,
+              "wide_design_kernels": ok3j, "wide_design_paths": ok4z,
               "whole_p8_forms_bit_identical": ok5i,
               "vb_iter_forms_bit_identical":
                   fig_nl["vb_iter_staged_bits_equal_streamed"],
@@ -6018,6 +6553,19 @@ def main():
         kernels.append(entry(name, source, at, fig_wide[f"{tag}_ms"],
                              fig_wide[f"{plain}_plain_ms"],
                              fig_wide[f"{tag}_bound"]))
+    # the per-shape instances (phase 3j errors; 4t, 4y, 4z launches; 5j
+    # times at 4,194,304 voxels: kernels 1-3 at P=20, 4 and 5 at P=16, 9
+    # at P=12)
+    for (name, source, at), tag in zip(INSTANCE_ENTRIES, (
+            "stats_p20", "core_p20", "fused_p20", "whole_p16", "loop_p16",
+            "ar_p12")):
+        kernels.append(entry(name, source, at, fig_inst[f"{tag}_ms"],
+                             fig_inst[f"{tag}_plain_ms"],
+                             fig_inst[f"{tag}_bound"]))
+    missing = [name for name, _, _ in INSTANCE_ENTRIES if not launches[name]]
+    if missing:
+        log(f"FAILED: no launch on the main paths of {missing}")
+        return 1
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all  "
         f"[{card}]")
     print(json.dumps({"kernels": kernels}))

@@ -71,6 +71,15 @@
 // fewer and 14% faster; 389 contracted: 22% fewer and 18% faster), and
 // each multiply-add left unfused is two instructions where the ops
 // bound counts one. A MODE 1 warp runs until its slowest lane is done.
+//
+// A per-shape instance (ops/_cuda.py build_instance: this file compiled
+// with FABBER_INST_P and FABBER_INST_Q, P 9 to 16, nq 1-2, still with
+// -fmad=false) runs the same body (fused_ar_loop_wide_kernel) with
+// WideArConsts: D'M_sD, 3 nq P^2 floats, read from a device buffer. A
+// lane's packed state outgrows the registers there (it took 253 at P =
+// 8, nq = 1), and ptxas keeps the rest in local memory.
+
+#include <type_traits>
 
 #include "detectors.cuh"
 #include "vb_device.cuh"
@@ -114,7 +123,53 @@ struct ArConsts {
   float lb_coeff;              // (ntimes - 1)/2 + c0, the log b coefficient
 };
 
+// A per-shape instance's largest P (the JAX engine's kernel 9 admits no
+// larger P at one echo)
+constexpr int kWideMaxP = 16;
+
+// A per-shape instance's launch constants: ArConsts's, with D'M_sD
+// ([S][P][P]) in a device buffer.
+struct WideArConsts {
+  DevRows dmd;
+  float ap[2];
+  float inv_b0[kAMaxQ];
+  float c_post[kAMaxQ];
+  float init_b[kAMaxQ];
+  float init_c[kAMaxQ];
+  float init_acov[kAMaxQ];
+  float init_aprec[kAMaxQ];
+  int n_iters;
+  long long V;
+  DetParams d;
+  float f_const;
+  float lb_coeff;
+};
+
 #define DMD(s, i, j) k.dmd[((s) * P + (i)) * P + (j)]
+
+// The launch constants but D'M_sD from consts_host (the layout of
+// fabber_fused_ar_loop's).
+template <class K>
+void fill_ar_consts(K& k, int n, int nq, int n_iters,
+                    const float* consts_host, int det_kind, float det_tol,
+                    int det_max_its, int det_max_trials, int det_init_save,
+                    float f_const, float lb_coeff, long long V) {
+  k.ap[0] = consts_host[n];
+  k.ap[1] = consts_host[n + 1];
+  for (int q = 0; q < nq; ++q) {
+    k.inv_b0[q] = consts_host[n + 2 + q];
+    k.c_post[q] = consts_host[n + 2 + nq + q];
+    k.init_b[q] = consts_host[n + 2 + 2 * nq + q];
+    k.init_c[q] = consts_host[n + 2 + 3 * nq + q];
+    k.init_acov[q] = consts_host[n + 2 + 4 * nq + q];
+    k.init_aprec[q] = consts_host[n + 2 + 5 * nq + q];
+  }
+  k.n_iters = n_iters;
+  k.V = V;
+  k.d = {det_kind, det_tol, det_max_its, det_max_trials, det_init_save};
+  k.f_const = f_const;
+  k.lb_coeff = lb_coeff;
+}
 
 // The lane's state: posterior (packed prec/cov) and the AR noise state
 // per echo group.
@@ -128,8 +183,8 @@ struct ArState {
 
 // The engine-initial state as the kernel writes it: zero posterior
 // planes (the TPU kernel's), zero alpha means and the model-default noise.
-template <int P, int NQ>
-__device__ __forceinline__ void initial_state(const ArConsts& k,
+template <int P, int NQ, class K>
+__device__ __forceinline__ void initial_state(const K& k,
                                               ArState<P, NQ>& st) {
 #pragma unroll
   for (int i = 0; i < P; ++i) st.means[i] = 0.f;
@@ -147,9 +202,9 @@ __device__ __forceinline__ void initial_state(const ArConsts& k,
 
 // One fixed-point step from s's noise into n; tmp1 receives each group's
 // phi-update quadratic and logdet log det prec (MODE 1's ELBO).
-template <int P, int NQ>
+template <int P, int NQ, class K>
 __device__ __forceinline__ void ar_step(
-    const ArConsts& k, const float* m0, const float* rmr,
+    const K& k, const float* m0, const float* rmr,
     const float (&dmr)[kSpecs * NQ][P], const float (&dmy)[kSpecs * NQ][P],
     const float* pm, const float* pp, const ArState<P, NQ>& s,
     ArState<P, NQ>& n, float* tmp1, float& logdet) {
@@ -254,125 +309,61 @@ fused_ar_loop_kernel(const ArConsts k, const float* __restrict__ m0_in,
                      float* __restrict__ b_out, float* __restrict__ c_out,
                      float* __restrict__ f_out,
                      float* __restrict__ its_out) {
-  constexpr int S = kSpecs * NQ;
-  const long long V = k.V;
-  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= V) return;
+#include "fused_ar_loop_body.inc"
+}
 
-  float m0[P], rmr[S], dmr[S][P], pm[P], pp[P];
-#pragma unroll
-  for (int a = 0; a < P; ++a) {
-    m0[a] = m0_in[(size_t)a * V + v];
-    pm[a] = pm_in[(size_t)a * V + v];
-    pp[a] = pp_in[(size_t)a * V + v];
-  }
-#pragma unroll
-  for (int t = 0; t < S; ++t) {
-    rmr[t] = rmr_in[(size_t)t * V + v];
-#pragma unroll
-    for (int a = 0; a < P; ++a) dmr[t][a] = dmr_in[(size_t)(t * P + a) * V + v];
-  }
-  // D'M_s y = D'M_s r0 + (D'M_s D) m0, iteration-invariant
-  float dmy[S][P];
-#pragma unroll
-  for (int t = 0; t < S; ++t) {
-#pragma unroll
-    for (int a = 0; a < P; ++a) {
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < P; ++j) s = s + DMD(t, a, j) * m0[j];
-      dmy[t][a] = dmr[t][a] + s;
-    }
-  }
-
-  ArState<P, NQ> st;
-  initial_state<P, NQ>(k, st);
-  float tmp1[NQ], logdet;
-  bool sel_init = false;
-  float f_lane = 0.f;
-  int its = 0;
-  if constexpr (MODE == 0) {
-    for (int it = 0; it < k.n_iters; ++it)
-      ar_step<P, NQ>(k, m0, rmr, dmr, dmy, pm, pp, st, st, tmp1, logdet);
-  } else {
-    // loop-invariant ELBO pieces: part3 and the surviving alpha-prior
-    // logs of the updated alphas
-    float f_base = 0.f;
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) f_base = f_base + 0.5f * logf(k.ap[q]);
-#pragma unroll
-    for (int i = 0; i < P; ++i) f_base = f_base + 0.5f * logf(pp[i]);
-    DetState cv = det_init(k.d);
-    f_lane = cv.prev_f;
-    for (int it = 0; it < k.n_iters && !cv.done; ++it) {
-      ar_step<P, NQ>(k, m0, rmr, dmr, dmy, pm, pp, st, st, tmp1, logdet);
-      float dmsum = 0.f;
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-        const float dm = st.means[i] - pm[i];
-        dmsum = dmsum + (dm * dm + st.cov[tri(i, i)]) * pp[i];
-      }
-      float f = k.f_const + f_base - 0.5f * logdet - 0.5f * dmsum;
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        const float sici = st.b[q] * k.c_post[q];
-        f = f - 0.5f * logf(st.aprec[q]) + k.lb_coeff * logf(st.b[q]) -
-            0.5f * sici * tmp1[q] - st.b[q] * k.c_post[q] * k.inv_b0[q] -
-            0.5f * k.ap[q] * (st.amu[q] * st.amu[q] + st.acov[q]);
-      }
-      f_lane = f;
-      det_test(k.d, cv, f);
-    }
-    // the engine's finalize: a revert selects the best copy, which is
-    // the engine-initial state (the save flag is never set)
-    if (cv.revert) {
-      initial_state<P, NQ>(k, st);
-      sel_init = true;
-    }
-    its = cv.its;
-  }
-
-#pragma unroll
-  for (int i = 0; i < P; ++i) means_out[(size_t)i * V + v] = st.means[i];
-  store_full<P>(st.prec, prec_out, V, v);
-  store_full<P>(st.cov, cov_out, V, v);
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    const size_t o = (size_t)q * V + v;
-    amu_out[o] = st.amu[q];
-    acov_out[o] = st.acov[q];
-    aprec_out[o] = st.aprec[q];
-    b_out[o] = sel_init ? -st.b[q] : st.b[q];
-    c_out[o] = st.c[q];
-  }
-  if constexpr (MODE == 1) {
-    f_out[v] = f_lane;
-    its_out[v] = (float)its;
-  }
+// A per-shape instance's kernel 9 (WideArConsts)
+template <int P, int NQ, int MODE>
+__global__ void __launch_bounds__(kThreads)
+fused_ar_loop_wide_kernel(const WideArConsts k, const float* __restrict__ m0_in,
+                     const float* __restrict__ rmr_in,
+                     const float* __restrict__ dmr_in,
+                     const float* __restrict__ pm_in,
+                     const float* __restrict__ pp_in,
+                     float* __restrict__ means_out,
+                     float* __restrict__ prec_out,
+                     float* __restrict__ cov_out,
+                     float* __restrict__ amu_out,
+                     float* __restrict__ acov_out,
+                     float* __restrict__ aprec_out,
+                     float* __restrict__ b_out, float* __restrict__ c_out,
+                     float* __restrict__ f_out,
+                     float* __restrict__ its_out) {
+#include "fused_ar_loop_body.inc"
 }
 
 #undef DMD
 
 // ---- launch and C entry points ------------------------------------------
 
-template <int P, int NQ>
-int launch_ar(const ArConsts& k, const float* const* ins, float* const* outs,
-              cudaStream_t stream) {
+template <int P, int NQ, int MODE, class K>
+void launch_ar_mode(const K& k, const float* const* ins, float* const* outs,
+                    cudaStream_t stream) {
   const unsigned grid = (unsigned)((k.V + kThreads - 1) / kThreads);
-  if (k.d.kind == kMaxits) {
-    fused_ar_loop_kernel<P, NQ, 0><<<grid, kThreads, 0, stream>>>(
-        k, ins[0], ins[1], ins[2], ins[3], ins[4], outs[0], outs[1], outs[2],
-        outs[3], outs[4], outs[5], outs[6], outs[7], outs[8], outs[9]);
-  } else {
-    fused_ar_loop_kernel<P, NQ, 1><<<grid, kThreads, 0, stream>>>(
-        k, ins[0], ins[1], ins[2], ins[3], ins[4], outs[0], outs[1], outs[2],
-        outs[3], outs[4], outs[5], outs[6], outs[7], outs[8], outs[9]);
-  }
+  const auto kernel = [] {
+    if constexpr (std::is_same_v<K, WideArConsts>)
+      return fused_ar_loop_wide_kernel<P, NQ, MODE>;
+    else
+      return fused_ar_loop_kernel<P, NQ, MODE>;
+  }();
+  kernel<<<grid, kThreads, 0, stream>>>(
+      k, ins[0], ins[1], ins[2], ins[3], ins[4], outs[0], outs[1], outs[2],
+      outs[3], outs[4], outs[5], outs[6], outs[7], outs[8], outs[9]);
+}
+
+template <int P, int NQ, class K>
+int launch_ar(const K& k, const float* const* ins, float* const* outs,
+              cudaStream_t stream) {
+  if (k.d.kind == kMaxits)
+    launch_ar_mode<P, NQ, 0>(k, ins, outs, stream);
+  else
+    launch_ar_mode<P, NQ, 1>(k, ins, outs, stream);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+#if !defined(FABBER_INST_P)
 // 1 when fused_ar_loop.cu is compiled for (p, nq), else 0.
 extern "C" int fabber_ar_has_instance(int p, int nq) {
 #define FABBER_HAS(NP, NQ) \
@@ -405,21 +396,9 @@ extern "C" int fabber_fused_ar_loop(
   ArConsts k = {};
   const int n = kSpecs * nq * p * p;
   for (int i = 0; i < n; ++i) k.dmd[i] = consts_host[i];
-  k.ap[0] = consts_host[n];
-  k.ap[1] = consts_host[n + 1];
-  for (int q = 0; q < nq; ++q) {
-    k.inv_b0[q] = consts_host[n + 2 + q];
-    k.c_post[q] = consts_host[n + 2 + nq + q];
-    k.init_b[q] = consts_host[n + 2 + 2 * nq + q];
-    k.init_c[q] = consts_host[n + 2 + 3 * nq + q];
-    k.init_acov[q] = consts_host[n + 2 + 4 * nq + q];
-    k.init_aprec[q] = consts_host[n + 2 + 5 * nq + q];
-  }
-  k.n_iters = n_iters;
-  k.V = V;
-  k.d = {det_kind, det_tol, det_max_its, det_max_trials, det_init_save};
-  k.f_const = f_const;
-  k.lb_coeff = lb_coeff;
+  fill_ar_consts(k, n, nq, n_iters, consts_host, det_kind, det_tol,
+                 det_max_its, det_max_trials, det_init_save, f_const,
+                 lb_coeff, V);
   const float* const ins[5] = {m0, rmr, dmr, pm, pp};
   float* const outs[10] = {means, prec, cov, amu, acov, aprec, b, c, f, its};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -429,3 +408,33 @@ extern "C" int fabber_fused_ar_loop(
 #undef FABBER_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
+#else
+// A per-shape instance's entry point (ops/_cuda.py build_instance, (P,
+// nq) = (FABBER_INST_P, FABBER_INST_Q)): fabber_fused_ar_loop's arguments
+// and, last before the stream, dmd [3*nq*p*p] (consts_host's first
+// floats, on the device). Another (p, nq) returns cudaErrorInvalidValue.
+extern "C" int fabber_inst_fused_ar_loop(
+    int p, int nq, int n_iters, const float* consts_host, int det_kind,
+    float det_tol, int det_max_its, int det_max_trials, int det_init_save,
+    float f_const, float lb_coeff, const float* m0, const float* rmr,
+    const float* dmr, const float* pm, const float* pp, long long V,
+    float* means, float* prec, float* cov, float* amu, float* acov,
+    float* aprec, float* b, float* c, float* f, float* its,
+    const float* dmd, void* stream) {
+  constexpr int P = FABBER_INST_P, NQ = FABBER_INST_Q;
+  static_assert(P > kAMaxP && P <= kWideMaxP && NQ >= 1 && NQ <= kAMaxQ,
+                "a kernel 9 instance past the prebuilt P");
+  if (p != P || nq != NQ || n_iters < 1 || V < 1 || det_kind < kMaxits ||
+      det_kind > kFreduce ||
+      (det_kind != kMaxits && (det_init_save != 0 || !f || !its)))
+    return (int)cudaErrorInvalidValue;
+  WideArConsts k = {};
+  k.dmd = DevRows{dmd};
+  fill_ar_consts(k, kSpecs * NQ * P * P, NQ, n_iters, consts_host, det_kind,
+                 det_tol, det_max_its, det_max_trials, det_init_save,
+                 f_const, lb_coeff, V);
+  const float* const ins[5] = {m0, rmr, dmr, pm, pp};
+  float* const outs[10] = {means, prec, cov, amu, acov, aprec, b, c, f, its};
+  return launch_ar<P, NQ>(k, ins, outs, static_cast<cudaStream_t>(stream));
+}
+#endif

@@ -38,6 +38,13 @@
 // correctly rounded square root, turns a zero pivot into a jitter retry
 // and came to 0.83 of near_f64's bound in phase 3d's cases, against
 // 0.50).
+//
+// A per-shape instance (ops/_cuda.py build_instance, with fused_whole.cu:
+// any (P, Q) with P <= 20, Q <= 4 outside FABBER_WHOLE_INSTANCES; the
+// engine's gate serves P <= 17) runs the same body with WideConsts, D'Q_qD
+// from a device buffer (fused_loop_wide_kernel).
+
+#include <type_traits>
 
 #include "whole_device.cuh"
 
@@ -45,16 +52,15 @@ namespace {
 
 constexpr int kThreads = 128;
 
-template <int P, int Q>
-__global__ void __launch_bounds__(kThreads)
-fused_loop_kernel(const WholeConsts k, const float* __restrict__ m0_in,
-                  const float* __restrict__ rtqr_in,
-                  const float* __restrict__ dtqr_in,
-                  const float* __restrict__ pm_in,
-                  const float* __restrict__ pp_in,
-                  float* __restrict__ means_out, float* __restrict__ prec_out,
-                  float* __restrict__ cov_out, float* __restrict__ b_out,
-                  float* __restrict__ c_out) {
+// K: WholeConsts, or a per-shape instance's WideConsts.
+template <int P, int Q, class K>
+__device__ __forceinline__ void loop_body(
+    const K& k, const float* __restrict__ m0_in,
+    const float* __restrict__ rtqr_in, const float* __restrict__ dtqr_in,
+    const float* __restrict__ pm_in, const float* __restrict__ pp_in,
+    float* __restrict__ means_out, float* __restrict__ prec_out,
+    float* __restrict__ cov_out, float* __restrict__ b_out,
+    float* __restrict__ c_out) {
   constexpr int NT = P * (P + 1) / 2;
   const long long V = k.V;
   const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -119,13 +125,48 @@ fused_loop_kernel(const WholeConsts k, const float* __restrict__ m0_in,
   }
 }
 
+template <int P, int Q>
+__global__ void __launch_bounds__(kThreads)
+fused_loop_kernel(const WholeConsts k, const float* __restrict__ m0_in,
+                  const float* __restrict__ rtqr_in,
+                  const float* __restrict__ dtqr_in,
+                  const float* __restrict__ pm_in,
+                  const float* __restrict__ pp_in,
+                  float* __restrict__ means_out, float* __restrict__ prec_out,
+                  float* __restrict__ cov_out, float* __restrict__ b_out,
+                  float* __restrict__ c_out) {
+  loop_body<P, Q>(k, m0_in, rtqr_in, dtqr_in, pm_in, pp_in, means_out,
+                  prec_out, cov_out, b_out, c_out);
+}
+
+// A per-shape instance's kernel 5 (WideConsts)
+template <int P, int Q>
+__global__ void __launch_bounds__(kThreads)
+fused_loop_wide_kernel(const WideConsts k, const float* __restrict__ m0_in,
+                       const float* __restrict__ rtqr_in,
+                       const float* __restrict__ dtqr_in,
+                       const float* __restrict__ pm_in,
+                       const float* __restrict__ pp_in,
+                       float* __restrict__ means_out,
+                       float* __restrict__ prec_out,
+                       float* __restrict__ cov_out, float* __restrict__ b_out,
+                       float* __restrict__ c_out) {
+  loop_body<P, Q>(k, m0_in, rtqr_in, dtqr_in, pm_in, pp_in, means_out,
+                  prec_out, cov_out, b_out, c_out);
+}
+
 // ---- launch and C entry points ------------------------------------------
 
 // One instance's launch, or (occ not null) its blocks per SM.
-template <int P, int Q>
-int launch_loop(const WholeConsts& k, const float* const* ins,
-                float* const* outs, cudaStream_t stream, int* occ) {
-  const auto kernel = fused_loop_kernel<P, Q>;
+template <int P, int Q, class K>
+int launch_loop(const K& k, const float* const* ins, float* const* outs,
+                cudaStream_t stream, int* occ) {
+  const auto kernel = [] {
+    if constexpr (std::is_same_v<K, WideConsts>)
+      return fused_loop_wide_kernel<P, Q>;
+    else
+      return fused_loop_kernel<P, Q>;
+  }();
   if (occ != nullptr)
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, kernel,
                                                               kThreads, 0);
@@ -138,6 +179,7 @@ int launch_loop(const WholeConsts& k, const float* const* ins,
 
 }  // namespace
 
+#if !defined(FABBER_INST_P)
 // Kernel 5. (p, q): one of FABBER_WHOLE_INSTANCES (whole_device.cuh);
 // consts_host [q*p*p + 4q] (host, by value: D'Q_gD, then 1/b0, c_post,
 // b_init, c_init per group). m0 [p,V], rtqr [q,V], dtqr [q,p,V], pm, pp
@@ -179,3 +221,35 @@ extern "C" int fabber_loop_occupancy(int p, int q) {
 #undef FABBER_OCC
   return -1;
 }
+#else
+// A per-shape instance's entry points (ops/_cuda.py build_instance, (P,
+// Q) = (FABBER_INST_P, FABBER_INST_Q)): fabber_fused_vb_loop's arguments
+// and, last before the stream, dtqd [q*p*p] (consts_host's first q*p*p
+// floats, on the device). Another (p, q) returns cudaErrorInvalidValue.
+extern "C" int fabber_inst_fused_vb_loop(
+    int p, int q, int n_iters, float locked_sd, const float* consts_host,
+    const float* m0, const float* rtqr, const float* dtqr, const float* pm,
+    const float* pp, long long V, float* means, float* prec, float* cov,
+    float* b, float* c, const float* dtqd_dev, void* stream) {
+  constexpr int P = FABBER_INST_P, Q = FABBER_INST_Q;
+  if (p != P || q != Q || n_iters < 1 || V < 1)
+    return (int)cudaErrorInvalidValue;
+  const WideConsts k = make_wide_consts(Q, n_iters, locked_sd, consts_host,
+                                        dtqd_dev, Q * P * P, 1, V);
+  const float* const ins[5] = {m0, rtqr, dtqr, pm, pp};
+  float* const outs[5] = {means, prec, cov, b, c};
+  return launch_loop<P, Q>(k, ins, outs, static_cast<cudaStream_t>(stream),
+                           nullptr);
+}
+
+// fabber_loop_occupancy for this instance
+extern "C" int fabber_inst_loop_occupancy(int p, int q) {
+  constexpr int P = FABBER_INST_P, Q = FABBER_INST_Q;
+  if (p != P || q != Q) return -1;
+  int occ = 0;
+  return launch_loop<P, Q>(WideConsts{}, nullptr, nullptr, nullptr, &occ) ==
+                 0
+             ? occ
+             : -1;
+}
+#endif

@@ -76,6 +76,17 @@
 // the same rows[t]), copied there on the launch's stream, and stages
 // the tile alone: 16 blocks per SM, but maxits at Q=2 ran 4.4x slower
 // there and trialmode 8%, so the rows stay in shared memory.
+//
+// A per-shape instance (ops/_cuda.py build_instance: this file compiled
+// with FABBER_INST_P and FABBER_INST_Q, any (P, Q) with P <= 20, Q <= 4
+// outside FABBER_WHOLE_INSTANCES) runs the same body
+// (fused_whole_wide_kernel) with whole_device.cuh's WideConsts: D'Q_qD
+// read from a device buffer. Past P = 8 a lane's packed state (prec, cov
+// and the factor, P(P+1)/2 floats each, 136 at P = 16; MODE 2 keeps a
+// best copy too) outgrows the registers and ptxas keeps the rest in
+// local memory; the operations a step bound it, about P^3/2.
+
+#include <type_traits>
 
 #include "whole_device.cuh"
 
@@ -91,8 +102,8 @@ __constant__ float c_rows[kConstRows];
 
 // Kernel 4's statistics of one voxel from its data column col (tile.cuh:
 // the block's shared tile or the plane) and the design rows.
-template <int P, int Q, class C>
-__device__ __forceinline__ void whole_stats(const WholeConsts& k,
+template <int P, int Q, class C, class K>
+__device__ __forceinline__ void whole_stats(const K& k,
                                             const float* rows, const C& col,
                                             float* m0, float* rtqr,
                                             float (&dtqr)[Q][P]) {
@@ -197,110 +208,23 @@ fused_whole_kernel(const WholeConsts k, const float* __restrict__ data,
                    float* __restrict__ cov_out, float* __restrict__ b_out,
                    float* __restrict__ c_out, float* __restrict__ fkqk_out,
                    float* __restrict__ ftr_out) {
-  constexpr int NT = P * (P + 1) / 2;
-  const long long V = k.V;
-  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const Column<STAGED> col = whole_column<STAGED>(
-      data, tconsts, k.nt, (P + Q * P + Q) * k.nt, V, v);
-  if (v >= V) return;
+#include "fused_whole_body.inc"
+}
 
-  float m0[P], rtqr[Q], dtqr[Q][P];
-  whole_stats<P, Q>(k, col.w, col, m0, rtqr, dtqr);
-  float pm[P], pp[P];
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    pm[i] = pm_in[(size_t)i * V + v];
-    pp[i] = pp_in[(size_t)i * V + v];
-  }
-  // D'Q_qy = D'Q_qr0 + (D'Q_qD) m0, iteration-invariant
-  float dtqy[Q][P];
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-#pragma unroll
-    for (int a = 0; a < P; ++a) {
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < P; ++j) s = s + DTQD(q, a, j) * m0[j];
-      dtqy[q][a] = dtqr[q][a] + s;
-    }
-  }
-
-  WholeState<P, Q> st;
-#pragma unroll
-  for (int i = 0; i < P; ++i) st.means[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < NT; ++i) st.prec[i] = st.cov[i] = 0.f;
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    st.b[q] = k.b_init[q];
-    st.c[q] = k.c_init[q];
-  }
-  st.f = 1234.5678f;
-  float kqk[Q], trq[Q], logdet;
-#pragma unroll
-  for (int q = 0; q < Q; ++q) kqk[q] = trq[q] = 0.f;
-
-  DetState cv = det_init(k.d);
-  if constexpr (MODE == 0) {
-    for (int it = 0; it < k.n_iters; ++it)
-      whole_step<P, Q>(k, m0, rtqr, dtqr, dtqy, pm, pp, st, 0.f, st, kqk,
-                       trq, logdet);
-  } else {
-    // voxel-varying but iteration-invariant ELBO piece
-    float part3 = k.f_const;
-#pragma unroll
-    for (int i = 0; i < P; ++i) part3 = part3 + 0.5f * logf(pp[i]);
-    // the saved best state (MODE 2): the initial state, F 0
-    WholeState<P, Q> best = st;
-    best.f = 0.f;
-    for (int it = 0; it < k.n_iters && !cv.done; ++it) {
-      if (MODE == 2 && cv.save) best = st;
-      WholeState<P, Q> nx;
-      whole_step<P, Q>(k, m0, rtqr, dtqr, dtqy, pm, pp, st,
-                       MODE == 2 ? cv.alpha : 0.f, nx, kqk, trq, logdet);
-      // F at the new state (free_energy_from_parts, noise shape c_post)
-      float f = part3 - 0.5f * logdet;
-#pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        const float phi = nx.b[q] * nx.c[q];
-        f = f + k.lb_coeff[q] * logf(nx.b[q]) - phi * k.inv_b0[q] -
-            0.5f * phi * kqk[q] - 0.5f * trq[q];
-      }
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-        const float dm = nx.means[i] - pm[i];
-        f = f - 0.5f * (dm * dm + nx.cov[tri(i, i)]) * pp[i];
-      }
-      nx.f = f;
-      det_test(k.d, cv, f);
-      st = nx;
-    }
-    if constexpr (MODE == 2) {
-      // the engine's finalize: best <- final where save, then final <-
-      // best where revert
-      if (cv.revert && !cv.save) st = best;
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < P; ++i) means_out[(size_t)i * V + v] = st.means[i];
-  store_full<P>(st.prec, prec_out, V, v);
-  store_full<P>(st.cov, cov_out, V, v);
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    b_out[(size_t)q * V + v] = st.b[q];
-    c_out[(size_t)q * V + v] = st.c[q];
-  }
-  if constexpr (MODE == 0) {
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      fkqk_out[(size_t)q * V + v] = kqk[q];
-      ftr_out[(size_t)q * V + v] = trq[q];
-    }
-  } else {
-    fkqk_out[v] = st.f;
-    ftr_out[v] = (float)cv.its;
-  }
+// A per-shape instance's kernel 4 (WideConsts)
+template <int P, int Q, int MODE, bool STAGED>
+__global__ void __launch_bounds__(kThreads)
+fused_whole_wide_kernel(const WideConsts k, const float* __restrict__ data,
+                        const float* __restrict__ tconsts,
+                        const float* __restrict__ pm_in,
+                        const float* __restrict__ pp_in,
+                        float* __restrict__ means_out,
+                        float* __restrict__ prec_out,
+                        float* __restrict__ cov_out,
+                        float* __restrict__ b_out, float* __restrict__ c_out,
+                        float* __restrict__ fkqk_out,
+                        float* __restrict__ ftr_out) {
+#include "fused_whole_body.inc"
 }
 
 // ---- launch and C entry points ------------------------------------------
@@ -326,11 +250,15 @@ inline long long whole_smem(int vb, int nt, int nrows) {
 // One instance's launch, or (occ not null) its blocks per SM: STAGED in
 // blocks of vb lanes, else blocks of kThreads; smem bytes of dynamic
 // shared memory (raised above the 48 KB default before the launch).
-template <int P, int Q, int MODE, bool STAGED>
-int launch_form(const WholeConsts& k, int vb, long long smem,
-                const float* const* ins, float* const* outs,
-                cudaStream_t stream, int* occ) {
-  const auto kernel = fused_whole_kernel<P, Q, MODE, STAGED>;
+template <int P, int Q, int MODE, bool STAGED, class K>
+int launch_form(const K& k, int vb, long long smem, const float* const* ins,
+                float* const* outs, cudaStream_t stream, int* occ) {
+  const auto kernel = [] {
+    if constexpr (std::is_same_v<K, WideConsts>)
+      return fused_whole_wide_kernel<P, Q, MODE, STAGED>;
+    else
+      return fused_whole_kernel<P, Q, MODE, STAGED>;
+  }();
   const int threads = STAGED ? vb : kThreads;
   if (STAGED || smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -348,8 +276,8 @@ int launch_form(const WholeConsts& k, int vb, long long smem,
   return (int)cudaGetLastError();
 }
 
-template <int P, int Q, int MODE>
-int launch_mode(const WholeConsts& k, int vb, long long smem,
+template <int P, int Q, int MODE, class K>
+int launch_mode(const K& k, int vb, long long smem,
                 const float* const* ins, float* const* outs,
                 cudaStream_t stream, int* occ) {
   if (vb > 0)
@@ -359,8 +287,8 @@ int launch_mode(const WholeConsts& k, int vb, long long smem,
 }
 
 // kernel 4 in the MODE of its detector (k.d.kind); occ: see launch_form
-template <int P, int Q>
-int launch_whole(const WholeConsts& k, int vb, long long smem,
+template <int P, int Q, class K>
+int launch_whole(const K& k, int vb, long long smem,
                  const float* const* ins, float* const* outs,
                  cudaStream_t stream, int* occ = nullptr) {
   switch (k.d.kind) {
@@ -375,6 +303,7 @@ int launch_whole(const WholeConsts& k, int vb, long long smem,
 
 }  // namespace
 
+#if !defined(FABBER_INST_P)
 // 1 when kernels 4 and 5 (fused_whole.cu, fused_loop.cu) are compiled
 // for (p, q), else 0.
 extern "C" int fabber_whole_has_instance(int p, int q) {
@@ -459,3 +388,51 @@ extern "C" int fabber_whole_occupancy(int p, int q, int mode, int vb,
 #undef FABBER_OCC
   return -1;
 }
+#else
+// A per-shape instance's entry points (ops/_cuda.py build_instance, (P,
+// Q) = (FABBER_INST_P, FABBER_INST_Q)): fabber_fused_whole's arguments
+// and, last before the stream, dtqd [q*p*p] (consts_host's first q*p*p
+// floats, on the device). Another (p, q) returns cudaErrorInvalidValue.
+extern "C" int fabber_inst_fused_whole(
+    int p, int q, int n_iters, float locked_sd, const float* consts_host,
+    int det_kind, float det_tol, int det_max_its, int det_max_trials,
+    int det_init_save, const float* det_consts_host, const float* data,
+    const float* tconsts, int nt, const float* pm, const float* pp,
+    long long V, float* means, float* prec, float* cov, float* b, float* c,
+    float* fkqk, float* ftr, int vb, const float* dtqd, void* stream) {
+  constexpr int P = FABBER_INST_P, Q = FABBER_INST_Q;
+  static_assert(P >= 1 && P <= kWideMaxP && Q >= 1 && Q <= kWideMaxQ,
+                "a kernel 4 and 5 instance within their limits");
+  if (p != P || q != Q || n_iters < 1 || nt < 1 || V < 1 ||
+      det_kind < kMaxits || det_kind > kLM || det_kind == kFreduce)
+    return (int)cudaErrorInvalidValue;
+  const long long smem = whole_smem(vb, nt, (P + Q * P + Q) * nt);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
+  WideConsts k = make_wide_consts(Q, n_iters, locked_sd, consts_host, dtqd,
+                                  Q * P * P, nt, V);
+  k.d = {det_kind, det_tol, det_max_its, det_max_trials, det_init_save};
+  if (det_kind != kMaxits) {
+    for (int i = 0; i < Q; ++i) k.lb_coeff[i] = det_consts_host[i];
+    k.f_const = det_consts_host[Q];
+  }
+  const float* const ins[4] = {data, tconsts, pm, pp};
+  float* const outs[7] = {means, prec, cov, b, c, fkqk, ftr};
+  return launch_whole<P, Q>(k, vb, smem, ins, outs,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// fabber_whole_occupancy for this instance
+extern "C" int fabber_inst_whole_occupancy(int p, int q, int mode, int vb,
+                                           int nt) {
+  constexpr int P = FABBER_INST_P, Q = FABBER_INST_Q;
+  const long long smem = whole_smem(vb, nt, (P + Q * P + Q) * nt);
+  if (p != P || q != Q || smem < 0 || mode < 0 || mode > 2) return -1;
+  WideConsts k = {};
+  k.d.kind = mode == 0 ? kMaxits : (mode == 1 ? kPointZeroOne : kTrialMode);
+  int occ = 0;
+  return launch_whole<P, Q>(k, vb, smem, nullptr, nullptr, nullptr, &occ) ==
+                 0
+             ? occ
+             : -1;
+}
+#endif

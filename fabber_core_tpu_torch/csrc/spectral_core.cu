@@ -57,6 +57,14 @@
 // state, so no barrier. The per-voxel body is
 // csrc/spectral_device.cuh core_voxel, which kernel 3 (spectral_fused.cu)
 // runs too.
+//
+// Past P = 8 (a per-shape instance: ops/_cuda.py build_instance compiles
+// this file with FABBER_INST_P defined, P 9 to 25) the constants come
+// from a device buffer, copied into the block's shared memory once
+// (spectral_core_wide_kernel; 10.3 KB at P = 25), and the rebuild runs
+// its P x P planes in loops over rows and columns. From P ~ 12 the
+// posterior's 2P^2 planes are most of what the kernel moves, so its
+// writes bound it: (P + 2P^2 + 4) floats a voxel, 3.3 KB at P = 20.
 
 #include <cuda_runtime.h>
 
@@ -66,6 +74,7 @@ namespace {
 
 using fabber_spectral::CoreConsts;
 using fabber_spectral::kMaxP;
+using fabber_spectral::SharedCore;
 constexpr int kThreads = 256;
 
 using fabber::DetParams;
@@ -96,6 +105,42 @@ spectral_core_kernel(const float* __restrict__ m0_in,
                                        b_out, c_out, f_out, tr_out);
 }
 
+// A per-shape instance (P > kMaxP): the core constants [4P^2+2P+6]
+// (device) copied into the block's shared memory first; every thread
+// takes part in the copy and the barrier.
+template <int P, int KIND>
+__global__ void __launch_bounds__(kThreads)
+spectral_core_wide_kernel(const float* __restrict__ m0_in,
+                          const float* __restrict__ rtqr_in,
+                          const float* __restrict__ dtqr_in,
+                          const float* __restrict__ pm_in,
+                          const float* __restrict__ consts,
+                          const DetParams det, int n_iters, long long V,
+                          float* __restrict__ means_out,
+                          float* __restrict__ prec_out,
+                          float* __restrict__ cov_out,
+                          float* __restrict__ b_out, float* __restrict__ c_out,
+                          float* __restrict__ f_out,
+                          float* __restrict__ tr_out) {
+  float* kc = fabber::dynamic_smem();
+  fabber_spectral::copy_block(consts, kc, fabber_spectral::core_floats(P));
+  __syncthreads();
+  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= V) return;
+  float m0[P], dtqr[P], pm[P];
+#pragma unroll
+  for (int a = 0; a < P; ++a) {
+    m0[a] = m0_in[(size_t)a * V + v];
+    dtqr[a] = dtqr_in[(size_t)a * V + v];
+    pm[a] = pm_in[(size_t)a * V + v];
+  }
+  const float rtqr = rtqr_in[v];
+  fabber_spectral::core_voxel<P, KIND>(m0, rtqr, dtqr, pm, SharedCore{kc},
+                                       det, n_iters, V, v, means_out,
+                                       prec_out, cov_out, b_out, c_out, f_out,
+                                       tr_out);
+}
+
 // ---- launch and C entry point -------------------------------------------
 
 // One launch's arguments.
@@ -105,6 +150,7 @@ struct CoreArgs {
   const float* dtqr;
   const float* pm;
   CoreConsts k;
+  const float* consts;   // a per-shape instance's, on the device
   DetParams det;
   int n_iters;
   long long V;
@@ -114,9 +160,23 @@ struct CoreArgs {
 template <int P, int KIND>
 int launch_kind(const CoreArgs& a, cudaStream_t stream) {
   const unsigned grid = (unsigned)((a.V + kThreads - 1) / kThreads);
-  spectral_core_kernel<P, KIND><<<grid, kThreads, 0, stream>>>(
-      a.m0, a.rtqr, a.dtqr, a.pm, a.k, a.det, a.n_iters, a.V, a.outs[0],
-      a.outs[1], a.outs[2], a.outs[3], a.outs[4], a.outs[5], a.outs[6]);
+  if constexpr (P > kMaxP) {
+    const auto kernel = spectral_core_wide_kernel<P, KIND>;
+    const int smem = 4 * fabber_spectral::core_floats(P);
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    kernel<<<grid, kThreads, smem, stream>>>(
+        a.m0, a.rtqr, a.dtqr, a.pm, a.consts, a.det, a.n_iters, a.V,
+        a.outs[0], a.outs[1], a.outs[2], a.outs[3], a.outs[4], a.outs[5],
+        a.outs[6]);
+  } else {
+    spectral_core_kernel<P, KIND><<<grid, kThreads, 0, stream>>>(
+        a.m0, a.rtqr, a.dtqr, a.pm, a.k, a.det, a.n_iters, a.V, a.outs[0],
+        a.outs[1], a.outs[2], a.outs[3], a.outs[4], a.outs[5], a.outs[6]);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -136,6 +196,7 @@ int launch(const CoreArgs& a, cudaStream_t stream) {
 
 }  // namespace
 
+#if !defined(FABBER_INST_P)
 // m0, dtqr, pm [P,V], rtqr [1,V] (device); consts_host [4P^2+2P+6]
 // (host, by value). det_kind 0 is maxits; 1, 2, 3 are pointzeroone,
 // freduce, trialmode (detectors.cuh), with their tolerance, max_its,
@@ -154,7 +215,7 @@ extern "C" int fabber_spectral_core(int p, int n_iters, const float* m0,
   if (p < 1 || p > kMaxP || n_iters < 1 || V < 1 || det_kind < 0 ||
       det_kind > fabber::kTrialMode)
     return (int)cudaErrorInvalidValue;
-  CoreArgs a = {m0, rtqr, dtqr, pm, {},
+  CoreArgs a = {m0, rtqr, dtqr, pm, {}, nullptr,
                 {det_kind, det_tol, det_max_its, det_max_trials,
                  det_init_save},
                 n_iters, V, {means, prec, cov, b, c, f, tr}};
@@ -171,3 +232,27 @@ extern "C" int fabber_spectral_core(int p, int n_iters, const float* m0,
     default: return launch<8>(a, s);
   }
 }
+#else
+// A per-shape instance's entry point (ops/_cuda.py build_instance, P =
+// FABBER_INST_P, 9 to 25): fabber_spectral_core's arguments, with the
+// constants [4P^2+2P+6] on the device. Another p returns
+// cudaErrorInvalidValue.
+extern "C" int fabber_inst_spectral_core(int p, int n_iters, const float* m0,
+                                         const float* rtqr, const float* dtqr,
+                                         const float* pm, const float* consts,
+                                         int det_kind, float det_tol,
+                                         int det_max_its, int det_max_trials,
+                                         int det_init_save, long long V,
+                                         float* means, float* prec,
+                                         float* cov, float* b, float* c,
+                                         float* f, float* tr, void* stream) {
+  if (p != FABBER_INST_P || n_iters < 1 || V < 1 || det_kind < 0 ||
+      det_kind > fabber::kTrialMode)
+    return (int)cudaErrorInvalidValue;
+  const CoreArgs a = {m0, rtqr, dtqr, pm, {}, consts,
+                      {det_kind, det_tol, det_max_its, det_max_trials,
+                       det_init_save},
+                      n_iters, V, {means, prec, cov, b, c, f, tr}};
+  return launch<FABBER_INST_P>(a, static_cast<cudaStream_t>(stream));
+}
+#endif

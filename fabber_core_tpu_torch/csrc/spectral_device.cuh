@@ -26,11 +26,24 @@
 //
 // The comments of spectral_stats.cu and spectral_core.cu describe the
 // arithmetic; the functions are force-inlined into each kernel.
+//
+// Past kMaxP (a per-shape instance, ops/_cuda.py build_instance: P 9 to
+// kWideMaxP) the constants do not ride by value: 4P^2 + 2P + 6 core
+// floats are 6.6 KB at P = 20, past a launch's classic 4 KB of
+// parameters. The wide kernels copy them from a device buffer into the
+// block's shared memory once (SharedCore), and the factor of A, which
+// every lane's m0 solve reads, is taken once per block into shared
+// memory (factor_block) where the P <= kMaxP instances take it in each
+// lane's registers (400 floats at P = 20, past a thread's 255
+// registers). The fixed point and the rebuild read both through the
+// same index macros, so the arithmetic is the same.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "detectors.cuh"
 #include "tile.cuh"
@@ -38,6 +51,9 @@
 namespace fabber_spectral {
 
 constexpr int kMaxP = 8;
+// the largest P of a per-shape instance: the JAX engine's spectral gate
+// admits no larger P at any T
+constexpr int kWideMaxP = 25;
 // kernels 1 and 3: the streamed block and the widest staged one
 constexpr int kStatsThreads = 256;
 
@@ -48,6 +64,20 @@ struct SolveConsts {
 struct CoreConsts {
   float v[4 * kMaxP * kMaxP + 2 * kMaxP + 6];
 };
+
+// A per-shape instance's constants in the block's shared memory: the
+// lower factor of A (row-major P x P, the upper triangle unset) and the
+// core constants (pack_spectral_consts' layout, read as CoreConsts.v).
+struct SharedFactor {
+  const float* l;
+};
+struct SharedCore {
+  const float* v;
+};
+
+__host__ __device__ constexpr int core_floats(int p) {
+  return 4 * p * p + 2 * p + 6;
+}
 
 // A voxel's column in the [T, V] plane, read through the read-only path
 // (x = data + v).
@@ -136,18 +166,79 @@ __device__ __forceinline__ StatsTile stage_stats(
 // refused (tile.cuh tile_bytes: vb not a multiple of 32 or above
 // kStatsThreads, or a tile above a block's shared memory; rows beyond
 // it).
-inline long long stats_smem(int p, int vb, int T) {
+// A per-shape instance adds extra floats after the rows (its factor of
+// A, and kernel 3's core constants).
+inline long long stats_smem(int p, int vb, int T, int extra = 0) {
   if (vb == 0) {
-    const long long b = 4LL * (2 * p + 1) * T;
+    const long long b = 4LL * ((2 * p + 1) * T + extra);
     return b <= fabber::kMaxBlockSmem ? b : -1;
   }
-  return fabber::tile_bytes(vb, T, (2 * p + 1) * T, kStatsThreads);
+  return fabber::tile_bytes(vb, T, (2 * p + 1) * T + extra, kStatsThreads);
 }
 
-template <int P, class Col>
+// A per-shape instance's factor of the constant A (a [P*P] device
+// buffer) into l in shared memory, by the block: the same float32
+// operations as the unrolled per-lane Cholesky of stats_voxel, column by
+// column, lane 0 taking the pivot and the block's lanes the rows below
+// it, with a barrier after each (every thread of the block calls it,
+// those past V included; it ends with a barrier).
+template <int P>
+__device__ __forceinline__ void factor_block(const float* __restrict__ a,
+                                             float* l) {
+  const int lane = (int)threadIdx.x, n = (int)blockDim.x;
+  for (int i = 0; i < P; ++i) {
+    if (lane == 0) {
+      float s = __ldg(a + i * P + i);
+      for (int k = 0; k < i; ++k) s -= l[i * P + k] * l[i * P + k];
+      l[i * P + i] = sqrtf(s);
+    }
+    __syncthreads();
+    const float inv_d = 1.f / l[i * P + i];
+    for (int j = i + 1 + lane; j < P; j += n) {
+      float s2 = __ldg(a + j * P + i);
+      for (int k = 0; k < i; ++k) s2 -= l[j * P + k] * l[i * P + k];
+      l[j * P + i] = s2 * inv_d;
+    }
+    __syncthreads();
+  }
+}
+
+// The block's copy of n floats of a device buffer into shared memory
+// (no barrier: the caller's next one covers it).
+__device__ __forceinline__ void copy_block(const float* __restrict__ src,
+                                           float* dst, int n) {
+  for (int i = (int)threadIdx.x; i < n; i += (int)blockDim.x)
+    dst[i] = __ldg(src + i);
+}
+
+// m0 = A^-1 dty by the substitutions alone on the block's factor of A
+// (SharedFactor; the P <= kMaxP instances factor A per lane, inline in
+// stats_voxel, whose code a function of its own rescheduled).
+template <int P>
+__device__ __forceinline__ void solve_m0(const SharedFactor& f,
+                                         const float* dty, float* m0) {
+  const float* l = f.l;
+  float fwd[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    float s = dty[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) s -= l[i * P + k] * fwd[k];
+    fwd[i] = s / l[i * P + i];
+  }
+#pragma unroll
+  for (int i = P - 1; i >= 0; --i) {
+    float s = fwd[i];
+#pragma unroll
+    for (int k = i + 1; k < P; ++k) s -= l[k * P + i] * m0[k];
+    m0[i] = s / l[i * P + i];
+  }
+}
+
+template <int P, class Col, class AC>
 __device__ __forceinline__ void stats_voxel(const float* rows, int T,
                                             const Col& col,
-                                            const SolveConsts& ac, float* m0,
+                                            const AC& ac, float* m0,
                                             float& rtqr_out, float* dtqr) {
   const float* dcol = rows;
   const float* dw = rows + P * T;
@@ -165,36 +256,40 @@ __device__ __forceinline__ void stats_voxel(const float* rows, int T,
   }
 
   // ---- m0 by f32 Cholesky of the constant A --------------------------
-  float l[P][P];
+  if constexpr (std::is_same_v<AC, SharedFactor>) {
+    solve_m0<P>(ac, dty, m0);
+  } else {
+    float l[P][P];
 #pragma unroll
-  for (int i = 0; i < P; ++i) {
-    float s = ac.a[i * P + i];
+    for (int i = 0; i < P; ++i) {
+      float s = ac.a[i * P + i];
 #pragma unroll
-    for (int k = 0; k < i; ++k) s -= l[i][k] * l[i][k];
-    l[i][i] = sqrtf(s);
-    const float inv_d = 1.f / l[i][i];
+      for (int k = 0; k < i; ++k) s -= l[i][k] * l[i][k];
+      l[i][i] = sqrtf(s);
+      const float inv_d = 1.f / l[i][i];
 #pragma unroll
-    for (int j = i + 1; j < P; ++j) {
-      float s2 = ac.a[j * P + i];
+      for (int j = i + 1; j < P; ++j) {
+        float s2 = ac.a[j * P + i];
 #pragma unroll
-      for (int k = 0; k < i; ++k) s2 -= l[j][k] * l[i][k];
-      l[j][i] = s2 * inv_d;
+        for (int k = 0; k < i; ++k) s2 -= l[j][k] * l[i][k];
+        l[j][i] = s2 * inv_d;
+      }
     }
-  }
-  float fwd[P];
+    float fwd[P];
 #pragma unroll
-  for (int i = 0; i < P; ++i) {
-    float s = dty[i];
+    for (int i = 0; i < P; ++i) {
+      float s = dty[i];
 #pragma unroll
-    for (int k = 0; k < i; ++k) s -= l[i][k] * fwd[k];
-    fwd[i] = s / l[i][i];
-  }
+      for (int k = 0; k < i; ++k) s -= l[i][k] * fwd[k];
+      fwd[i] = s / l[i][i];
+    }
 #pragma unroll
-  for (int i = P - 1; i >= 0; --i) {
-    float s = fwd[i];
+    for (int i = P - 1; i >= 0; --i) {
+      float s = fwd[i];
 #pragma unroll
-    for (int k = i + 1; k < P; ++k) s -= l[k][i] * m0[k];
-    m0[i] = s / l[i][i];
+      for (int k = i + 1; k < P; ++k) s -= l[k][i] * m0[k];
+      m0[i] = s / l[i][i];
+    }
   }
   bool ok = true;
 #pragma unroll
@@ -241,11 +336,11 @@ struct Rotated {
   float ut[P], u0t[P], vt[P], m0t[P], rtqr;
 };
 
-template <int P>
+template <int P, class K>
 __device__ __forceinline__ Rotated<P> rotate(const float* m0, float rtqr,
                                              const float* dtqr,
                                              const float* pm,
-                                             const CoreConsts& k) {
+                                             const K& k) {
   Rotated<P> r;
   float dtqy[P];
 #pragma unroll
@@ -300,9 +395,9 @@ __device__ __forceinline__ DetLoop det_loop_start(float s0,
 // trips: per trip, best-save where the detector's save flag is set, the
 // update generated by the current phi, the noise, the eigenbasis ELBO F
 // and the detector's test.
-template <int P, int KIND>
+template <int P, int KIND, class K>
 __device__ __forceinline__ void det_loop(const Rotated<P>& r,
-                                         const CoreConsts& k,
+                                         const K& k,
                                          const fabber::DetParams& det,
                                          int end, DetLoop& l) {
   const float inv_b0 = FS_S(0), c_post = FS_S(1), f_const = FS_S(4),
@@ -359,10 +454,10 @@ __device__ __forceinline__ float det_finish(DetLoop& l, bool& sel_init,
 // lane's output columns: means = WE mt, prec = s A + diag(pp), cov, the
 // noise b (with a minus sign where sel_init) and c = c_post, F, and tr
 // (maxits) or the detector's count its.
-template <int P, int KIND>
+template <int P, int KIND, class K>
 __device__ __forceinline__ void rebuild(
     const Rotated<P>& r, float s, bool sel_init, int its,
-    const CoreConsts& k, long long V, long long v,
+    const K& k, long long V, long long v,
     float* __restrict__ means_out, float* __restrict__ prec_out,
     float* __restrict__ cov_out, float* __restrict__ b_out,
     float* __restrict__ c_out, float* __restrict__ f_out,
@@ -395,17 +490,36 @@ __device__ __forceinline__ void rebuild(
     for (int i = 0; i < P; ++i) m += FS_EW(a, i) * mt[i];
     means_out[(size_t)a * V + v] = m;
   }
+  if constexpr (P <= kMaxP) {
 #pragma unroll
-  for (int i = 0; i < P; ++i) {
+    for (int i = 0; i < P; ++i) {
 #pragma unroll
-    for (int j = 0; j < P; ++j) {
-      float c = 0.f;
+      for (int j = 0; j < P; ++j) {
+        float c = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < P; ++kk)
-        c += FS_EW(i, kk) * FS_EW(j, kk) * rden[kk];
-      const size_t o = (size_t)(i * P + j) * V + v;
-      cov_out[o] = c;
-      prec_out[o] = s * FS_A(i, j) + (i == j ? FS_PP(i) : 0.f);
+        for (int kk = 0; kk < P; ++kk)
+          c += FS_EW(i, kk) * FS_EW(j, kk) * rden[kk];
+        const size_t o = (size_t)(i * P + j) * V + v;
+        cov_out[o] = c;
+        prec_out[o] = s * FS_A(i, j) + (i == j ? FS_PP(i) : 0.f);
+      }
+    }
+  } else {
+    // a per-shape instance: the P x P planes row by row, each entry a
+    // sum over the eigenbasis unrolled (rden stays in registers), the
+    // rows and columns in loops, so the code grows as P^2, not P^3
+#pragma unroll 1
+    for (int i = 0; i < P; ++i) {
+#pragma unroll 1
+      for (int j = 0; j < P; ++j) {
+        float c = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < P; ++kk)
+          c += FS_EW(i, kk) * FS_EW(j, kk) * rden[kk];
+        const size_t o = (size_t)(i * P + j) * V + v;
+        cov_out[o] = c;
+        prec_out[o] = s * FS_A(i, j) + (i == j ? FS_PP(i) : 0.f);
+      }
     }
   }
   const float f = f_const - 0.5f * logden + lb_coeff * logf(b) -
@@ -423,10 +537,10 @@ __device__ __forceinline__ void rebuild(
 // the detector of the instance (kPointZeroOne, kFreduce, kTrialMode),
 // whose test is compiled alone (det_test_kind): the lane keeps only that
 // detector's state and branch.
-template <int P, int KIND>
+template <int P, int KIND, class K>
 __device__ __forceinline__ void core_voxel(
     const float* m0, const float rtqr, const float* dtqr, const float* pm,
-    const CoreConsts& k, const fabber::DetParams& det, int n_iters,
+    const K& k, const fabber::DetParams& det, int n_iters,
     long long V, long long v, float* __restrict__ means_out,
     float* __restrict__ prec_out, float* __restrict__ cov_out,
     float* __restrict__ b_out, float* __restrict__ c_out,

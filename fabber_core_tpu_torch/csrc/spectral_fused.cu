@@ -32,6 +32,13 @@
 // beat streamed and the narrower blocks under trialmode too, so
 // ops/fused_spectral.py fused_vb takes kernel 1's plan (ops/_cuda.py
 // tile_plan, STATS_WIDTHS) in every mode.
+//
+// Past P = 8 (a per-shape instance: ops/_cuda.py build_instance compiles
+// this file with FABBER_INST_P defined, P 9 to 25) the kernel is
+// spectral_fused_wide_kernel: kernel 1's wide statistics (the block's
+// factor of A in shared memory) and kernel 2's wide core (its constants
+// copied from a device buffer into shared memory after the factor), in
+// one thread as here.
 
 #include <cuda_runtime.h>
 
@@ -43,6 +50,8 @@ using fabber::DetParams;
 using fabber_spectral::CoreConsts;
 using fabber_spectral::kMaxP;
 using fabber_spectral::PlaneColumn;
+using fabber_spectral::SharedCore;
+using fabber_spectral::SharedFactor;
 using fabber_spectral::SolveConsts;
 using fabber_spectral::StatsTile;
 using fabber_spectral::stats_smem;
@@ -85,6 +94,57 @@ spectral_fused_kernel(const float* __restrict__ data,
                                        b_out, c_out, f_out, tr_out);
 }
 
+// A per-shape instance (P > kMaxP): after the rows, the block's factor of
+// a [P*P] (device; factor_block) and the core constants [4P^2+2P+6]
+// (device) copied into shared memory; otherwise spectral_fused_kernel.
+template <int P, int KIND, bool STAGED>
+__global__ void __launch_bounds__(kThreads)
+spectral_fused_wide_kernel(const float* __restrict__ data,
+                           const float* __restrict__ tconsts, int T,
+                           long long V, const float* __restrict__ a,
+                           const float* __restrict__ pm_in,
+                           const float* __restrict__ consts,
+                           const DetParams det, int n_iters,
+                           float* __restrict__ means_out,
+                           float* __restrict__ prec_out,
+                           float* __restrict__ cov_out,
+                           float* __restrict__ b_out,
+                           float* __restrict__ c_out,
+                           float* __restrict__ f_out,
+                           float* __restrict__ tr_out) {
+  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  float m0[P], rtqr, dtqr[P], pm[P];
+  float* l;
+  if constexpr (STAGED) {
+    const StatsTile col =
+        fabber_spectral::stage_stats<P>(data, tconsts, T, V);
+    const float* rows = col.tile + T * col.vb;
+    l = const_cast<float*>(rows) + (2 * P + 1) * T;
+    fabber_spectral::copy_block(consts, l + P * P,
+                                fabber_spectral::core_floats(P));
+    fabber_spectral::factor_block<P>(a, l);
+    if (v >= V) return;
+    fabber_spectral::stats_voxel<P>(rows, T, col, SharedFactor{l}, m0, rtqr,
+                                    dtqr);
+  } else {
+    float* rows = fabber::dynamic_smem();
+    l = rows + (2 * P + 1) * T;
+    fabber_spectral::copy_block(tconsts, rows, (2 * P + 1) * T);
+    fabber_spectral::copy_block(consts, l + P * P,
+                                fabber_spectral::core_floats(P));
+    fabber_spectral::factor_block<P>(a, l);
+    if (v >= V) return;
+    fabber_spectral::stats_voxel<P>(rows, T, PlaneColumn{data + v, V},
+                                    SharedFactor{l}, m0, rtqr, dtqr);
+  }
+#pragma unroll
+  for (int i = 0; i < P; ++i) pm[i] = pm_in[(size_t)i * V + v];
+  fabber_spectral::core_voxel<P, KIND>(m0, rtqr, dtqr, pm,
+                                       SharedCore{l + P * P}, det, n_iters,
+                                       V, v, means_out, prec_out, cov_out,
+                                       b_out, c_out, f_out, tr_out);
+}
+
 // ---- launch and C entry points ------------------------------------------
 
 // One launch's arguments.
@@ -96,6 +156,8 @@ struct FusedArgs {
   long long V;
   SolveConsts ac;
   CoreConsts k;
+  const float* a_dev;    // a per-shape instance's A and core constants,
+  const float* consts;   // on the device
   DetParams det;
   float* outs[7];
 };
@@ -106,7 +168,12 @@ struct FusedArgs {
 template <int P, int KIND, bool STAGED>
 int launch_form(const FusedArgs& a, int vb, long long smem,
                 cudaStream_t stream, int* occ) {
-  const auto kernel = spectral_fused_kernel<P, KIND, STAGED>;
+  const auto kernel = [] {
+    if constexpr (P > kMaxP)
+      return spectral_fused_wide_kernel<P, KIND, STAGED>;
+    else
+      return spectral_fused_kernel<P, KIND, STAGED>;
+  }();
   const int threads = STAGED ? vb : kThreads;
   if (STAGED || smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -118,10 +185,16 @@ int launch_form(const FusedArgs& a, int vb, long long smem,
     return 0;
   }
   const unsigned grid = (unsigned)((a.V + threads - 1) / threads);
-  kernel<<<grid, threads, smem, stream>>>(
-      a.data, a.tconsts, a.T, a.V, a.ac, a.pm, a.k, a.det, a.n_iters,
-      a.outs[0], a.outs[1], a.outs[2], a.outs[3], a.outs[4], a.outs[5],
-      a.outs[6]);
+  if constexpr (P > kMaxP)
+    kernel<<<grid, threads, smem, stream>>>(
+        a.data, a.tconsts, a.T, a.V, a.a_dev, a.pm, a.consts, a.det,
+        a.n_iters, a.outs[0], a.outs[1], a.outs[2], a.outs[3], a.outs[4],
+        a.outs[5], a.outs[6]);
+  else
+    kernel<<<grid, threads, smem, stream>>>(
+        a.data, a.tconsts, a.T, a.V, a.ac, a.pm, a.k, a.det, a.n_iters,
+        a.outs[0], a.outs[1], a.outs[2], a.outs[3], a.outs[4], a.outs[5],
+        a.outs[6]);
   return (int)cudaGetLastError();
 }
 
@@ -147,6 +220,7 @@ int launch(const FusedArgs& a, int vb, long long smem, cudaStream_t stream,
   }
 }
 
+#if !defined(FABBER_INST_P)
 int dispatch(int p, const FusedArgs& a, int vb, long long smem,
              cudaStream_t s, int* occ) {
   switch (p) {
@@ -160,8 +234,11 @@ int dispatch(int p, const FusedArgs& a, int vb, long long smem,
     default: return launch<8>(a, vb, smem, s, occ);
   }
 }
+#endif
 
 }  // namespace
+
+#if !defined(FABBER_INST_P)
 
 // Kernel 3. data [T,V], tconsts [2P+1,T], pm [P,V] (device); a_host
 // [P*P] and consts_host [4P^2+2P+6] (host, by value; the layouts of
@@ -187,7 +264,7 @@ extern "C" int fabber_spectral_fused(int p, int n_iters, const float* data,
     return (int)cudaErrorInvalidValue;
   const long long smem = stats_smem(p, vb, T);
   if (smem < 0) return (int)cudaErrorInvalidValue;
-  FusedArgs a = {data, tconsts, pm, T, n_iters, V, {}, {},
+  FusedArgs a = {data, tconsts, pm, T, n_iters, V, {}, {}, nullptr, nullptr,
                  {det_kind, det_tol, det_max_its, det_max_trials,
                   det_init_save},
                  {means, prec, cov, b, c, f, tr}};
@@ -212,3 +289,46 @@ extern "C" int fabber_fused_occupancy(int p, int det_kind, int vb, int T) {
   int occ = 0;
   return dispatch(p, a, vb, smem, nullptr, &occ) == 0 ? occ : -1;
 }
+#else
+// A per-shape instance's entry points (ops/_cuda.py build_instance, P =
+// FABBER_INST_P, 9 to 25): fabber_spectral_fused's arguments, with a
+// [P*P] and consts [4P^2+2P+6] on the device; 4 (5P^2 + 2P + 6) bytes of
+// shared memory more. Another p returns cudaErrorInvalidValue.
+extern "C" int fabber_inst_spectral_fused(
+    int p, int n_iters, const float* data, const float* tconsts,
+    const float* a_dev, int T, const float* pm, const float* consts,
+    int det_kind, float det_tol, int det_max_its, int det_max_trials,
+    int det_init_save, long long V, float* means, float* prec, float* cov,
+    float* b, float* c, float* f, float* tr, int vb, void* stream) {
+  constexpr int P = FABBER_INST_P;
+  if (p != P || n_iters < 1 || T < 1 || V < 1 || det_kind < 0 ||
+      det_kind > fabber::kTrialMode)
+    return (int)cudaErrorInvalidValue;
+  const long long smem =
+      stats_smem(P, vb, T, P * P + fabber_spectral::core_floats(P));
+  if (smem < 0) return (int)cudaErrorInvalidValue;
+  const FusedArgs a = {data, tconsts, pm, T, n_iters, V, {}, {}, a_dev,
+                       consts,
+                       {det_kind, det_tol, det_max_its, det_max_trials,
+                        det_init_save},
+                       {means, prec, cov, b, c, f, tr}};
+  return launch<P>(a, vb, smem, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// fabber_fused_occupancy for this instance
+extern "C" int fabber_inst_fused_occupancy(int p, int det_kind, int vb,
+                                           int T) {
+  constexpr int P = FABBER_INST_P;
+  const long long smem =
+      stats_smem(P, vb, T, P * P + fabber_spectral::core_floats(P));
+  if (p != P || T < 1 || smem < 0 || det_kind < 0 ||
+      det_kind > fabber::kTrialMode)
+    return -1;
+  FusedArgs a = {};
+  a.T = T;
+  a.V = 1;
+  a.det.kind = det_kind;
+  int occ = 0;
+  return launch<P>(a, vb, smem, nullptr, &occ) == 0 ? occ : -1;
+}
+#endif

@@ -44,6 +44,14 @@
 // arithmetic in the same order (per-voxel body csrc/spectral_device.cuh
 // stats_voxel, which kernel 3, spectral_fused.cu, runs in both forms
 // too), so they agree bit for bit.
+//
+// Past P = 8 (a per-shape instance: ops/_cuda.py build_instance compiles
+// this file with FABBER_INST_P defined, P 9 to 25) the kernel is
+// spectral_stats_wide_kernel: A comes from a device buffer, its factor
+// is taken once per block into shared memory after the rows
+// (spectral_device.cuh factor_block, 4 P^2 bytes more), and each lane
+// solves for its m0 on that factor; the passes are the same. The data
+// read still bounds it: the (2P+1) x T rows are broadcasts.
 
 #include <cuda_runtime.h>
 
@@ -53,6 +61,7 @@ namespace {
 
 using fabber_spectral::kMaxP;
 using fabber_spectral::PlaneColumn;
+using fabber_spectral::SharedFactor;
 using fabber_spectral::SolveConsts;
 using fabber_spectral::StatsTile;
 using fabber_spectral::stats_smem;
@@ -92,17 +101,60 @@ spectral_stats_kernel(const float* __restrict__ data,
   rtqr_out[v] = rtqr;
 }
 
+// A per-shape instance (P > kMaxP): a [P*P] (device) is factored once per
+// block into shared memory after the rows (factor_block), which every
+// lane's m0 solve reads. Otherwise spectral_stats_kernel.
+template <int P, bool STAGED>
+__global__ void __launch_bounds__(kThreads)
+spectral_stats_wide_kernel(const float* __restrict__ data,
+                           const float* __restrict__ tconsts, int T,
+                           long long V, const float* __restrict__ a,
+                           float* __restrict__ m0_out,
+                           float* __restrict__ rtqr_out,
+                           float* __restrict__ dtqr_out) {
+  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  float m0[P], rtqr, dtqr[P];
+  if constexpr (STAGED) {
+    const StatsTile col =
+        fabber_spectral::stage_stats<P>(data, tconsts, T, V);
+    const float* rows = col.tile + T * col.vb;
+    float* l = const_cast<float*>(rows) + (2 * P + 1) * T;
+    fabber_spectral::factor_block<P>(a, l);
+    if (v >= V) return;
+    fabber_spectral::stats_voxel<P>(rows, T, col, SharedFactor{l}, m0, rtqr,
+                                    dtqr);
+  } else {
+    float* rows = fabber::dynamic_smem();
+    float* l = rows + (2 * P + 1) * T;
+    fabber_spectral::copy_block(tconsts, rows, (2 * P + 1) * T);
+    fabber_spectral::factor_block<P>(a, l);
+    if (v >= V) return;
+    fabber_spectral::stats_voxel<P>(rows, T, PlaneColumn{data + v, V},
+                                    SharedFactor{l}, m0, rtqr, dtqr);
+  }
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    m0_out[(size_t)i * V + v] = m0[i];
+    dtqr_out[(size_t)i * V + v] = dtqr[i];
+  }
+  rtqr_out[v] = rtqr;
+}
+
 // ---- launch and C entry points ------------------------------------------
 
 // One instance's launch, or (occ not null) its blocks per SM: STAGED in
 // blocks of vb lanes, else blocks of kThreads; smem bytes of dynamic
 // shared memory (raised above the 48 KB default before the launch).
-template <int P, bool STAGED>
-int launch_form(const float* data, const float* tconsts,
-                const SolveConsts& ac, int T, long long V, float* m0,
-                float* rtqr, float* dtqr, int vb, long long smem,
-                cudaStream_t stream, int* occ) {
-  const auto kernel = spectral_stats_kernel<P, STAGED>;
+template <int P, bool STAGED, class AC>
+int launch_form(const float* data, const float* tconsts, const AC& ac,
+                int T, long long V, float* m0, float* rtqr, float* dtqr,
+                int vb, long long smem, cudaStream_t stream, int* occ) {
+  const auto kernel = [] {
+    if constexpr (P > kMaxP)
+      return spectral_stats_wide_kernel<P, STAGED>;
+    else
+      return spectral_stats_kernel<P, STAGED>;
+  }();
   const int threads = STAGED ? vb : kThreads;
   if (STAGED || smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -119,9 +171,9 @@ int launch_form(const float* data, const float* tconsts,
   return (int)cudaGetLastError();
 }
 
-template <int P>
-int launch(const float* data, const float* tconsts, const SolveConsts& ac,
-           int T, long long V, float* m0, float* rtqr, float* dtqr, int vb,
+template <int P, class AC>
+int launch(const float* data, const float* tconsts, const AC& ac, int T,
+           long long V, float* m0, float* rtqr, float* dtqr, int vb,
            long long smem, cudaStream_t stream, int* occ) {
   if (vb > 0)
     return launch_form<P, true>(data, tconsts, ac, T, V, m0, rtqr, dtqr, vb,
@@ -130,6 +182,7 @@ int launch(const float* data, const float* tconsts, const SolveConsts& ac,
                                smem, stream, occ);
 }
 
+#if !defined(FABBER_INST_P)
 int dispatch(int p, const float* data, const float* tconsts,
              const SolveConsts& ac, int T, long long V, float* m0,
              float* rtqr, float* dtqr, int vb, long long smem,
@@ -145,8 +198,11 @@ int dispatch(int p, const float* data, const float* tconsts,
     default: return launch<8>(data, tconsts, ac, T, V, m0, rtqr, dtqr, vb, smem, s, occ);
   }
 }
+#endif
 
 }  // namespace
+
+#if !defined(FABBER_INST_P)
 
 // Kernel 1. data [T,V], tconsts [2P+1,T] (device); a_host [P*P] (host, by
 // value). Outputs m0 [P,V], rtqr [1,V], dtqr [P,V] (device,
@@ -182,3 +238,37 @@ extern "C" int fabber_stats_occupancy(int p, int vb, int T) {
              ? occ
              : -1;
 }
+#else
+// A per-shape instance's entry points (ops/_cuda.py build_instance, P =
+// FABBER_INST_P, 9 to 25): fabber_spectral_stats's arguments, with a
+// [P*P] on the device; 4 P^2 bytes of shared memory more. Another p
+// returns cudaErrorInvalidValue.
+extern "C" int fabber_inst_spectral_stats(int p, const float* data,
+                                          const float* tconsts,
+                                          const float* a, int T, long long V,
+                                          float* m0, float* rtqr,
+                                          float* dtqr, int vb,
+                                          void* stream) {
+  constexpr int P = FABBER_INST_P;
+  static_assert(P > kMaxP && P <= fabber_spectral::kWideMaxP,
+                "a spectral instance past the prebuilt P");
+  if (p != P || T < 1 || V < 1) return (int)cudaErrorInvalidValue;
+  const long long smem = stats_smem(P, vb, T, P * P);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
+  return launch<P>(data, tconsts, a, T, V, m0, rtqr, dtqr, vb, smem,
+                   static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// fabber_stats_occupancy for this instance
+extern "C" int fabber_inst_stats_occupancy(int p, int vb, int T) {
+  constexpr int P = FABBER_INST_P;
+  const long long smem = stats_smem(P, vb, T, P * P);
+  if (p != P || T < 1 || smem < 0) return -1;
+  int occ = 0;
+  const float* a = nullptr;
+  return launch<P>(nullptr, nullptr, a, T, 1, nullptr, nullptr, nullptr, vb,
+                   smem, nullptr, &occ) == 0
+             ? occ
+             : -1;
+}
+#endif

@@ -61,6 +61,16 @@ constexpr int kMaxQ = 4;   // largest Q of FABBER_NL_INSTANCES
 // voxels into a worse basin in ten iterations.
 constexpr int kTB = 8;
 
+// A per-shape instance's constants in a device buffer (kernels 4, 5 and
+// 9 past their instance lists), read through the read-only cache: every
+// lane of a warp reads the same word.
+struct DevRows {
+  const float* p;
+  __device__ __forceinline__ float operator[](int i) const {
+    return __ldg(p + i);
+  }
+};
+
 __host__ __device__ constexpr int tri(int i, int j) {
   return i >= j ? i * (i + 1) / 2 + j : j * (j + 1) / 2 + i;
 }

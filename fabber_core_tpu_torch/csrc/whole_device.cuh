@@ -6,6 +6,15 @@
 // fused_whole.py:449-553 of the JAX package; plain version
 // ops/fused_loop.py fixed_point_step).
 //
+// A per-shape instance (ops/_cuda.py build_instance compiles
+// fused_whole.cu and fused_loop.cu with FABBER_INST_P and FABBER_INST_Q
+// defined: P to kWideMaxP, Q to kWideMaxQ, any shape outside
+// FABBER_WHOLE_INSTANCES) takes WideConsts: D'Q_qD, Q P^2 floats (4 KB
+// at P = 16, Q = 4), stays in a device buffer and is read through the
+// read-only cache (every lane of a warp reads the same word), and the
+// lane's state is the same template at the larger P, its packed
+// matrices in local memory where they outgrow the registers.
+//
 // Included once per translation unit; its definitions sit in that
 // unit's anonymous namespace, so each kernel's mangled name carries its
 // own source file's.
@@ -50,6 +59,28 @@ struct WholeConsts {
   float f_const;            // voxel-invariant ELBO terms at c_post
 };
 
+// A per-shape instance's largest P and Q (the JAX engine's kernel 4
+// admits no larger P at any T)
+constexpr int kWideMaxP = 20;
+constexpr int kWideMaxQ = 4;
+
+// A per-shape instance's launch constants: WholeConsts's, with D'Q_qD
+// ([Q][P][P]) in a device buffer.
+struct WideConsts {
+  DevRows dtqd;
+  float inv_b0[kWideMaxQ];
+  float c_post[kWideMaxQ];
+  float b_init[kWideMaxQ];
+  float c_init[kWideMaxQ];
+  float locked_sd;
+  int n_iters;
+  int nt;
+  long long V;
+  DetParams d;
+  float lb_coeff[kWideMaxQ];
+  float f_const;
+};
+
 #define DTQD(q, i, j) k.dtqd[((q) * P + (i)) * P + (j)]
 
 // The lane's state: posterior (packed prec/cov), noise, and (detector
@@ -71,9 +102,9 @@ struct WholeState {
 // trace of the noise update run over the P(P+1)/2 distinct terms with
 // dsym [Q][P(P+1)/2] (D_aa, and D_aj + D_ja for j < a), and logdet is
 // left unset.
-template <int P, int Q, bool LEAN = false>
+template <int P, int Q, bool LEAN = false, class K>
 __device__ __forceinline__ void whole_step(
-    const WholeConsts& k, const float* m0, const float* rtqr,
+    const K& k, const float* m0, const float* rtqr,
     const float (&dtqr)[Q][P], const float (&dtqy)[Q][P], const float* pm,
     const float* pp, const WholeState<P, Q>& s, float alpha,
     WholeState<P, Q>& n, float* kqk, float* trq, float& logdet,
@@ -192,6 +223,27 @@ WholeConsts make_consts(int p, int q, int n_iters, float locked_sd,
   WholeConsts k = {};
   const int n = q * p * p;
   for (int i = 0; i < n; ++i) k.dtqd[i] = consts_host[i];
+  for (int i = 0; i < q; ++i) {
+    k.inv_b0[i] = consts_host[n + i];
+    k.c_post[i] = consts_host[n + q + i];
+    k.b_init[i] = consts_host[n + 2 * q + i];
+    k.c_init[i] = consts_host[n + 3 * q + i];
+  }
+  k.locked_sd = locked_sd;
+  k.n_iters = n_iters;
+  k.nt = nt;
+  k.V = V;
+  k.d = {kMaxits, 0.f, 0, 0, 0};
+  return k;
+}
+
+// make_consts for a per-shape instance: dtqd_dev holds consts_host's
+// first q*p*p floats on the device
+WideConsts make_wide_consts(int q, int n_iters, float locked_sd,
+                            const float* consts_host, const float* dtqd_dev,
+                            int n, int nt, long long V) {
+  WideConsts k = {};
+  k.dtqd = DevRows{dtqd_dev};
   for (int i = 0; i < q; ++i) {
     k.inv_b0[i] = consts_host[n + i];
     k.c_post[i] = consts_host[n + q + i];

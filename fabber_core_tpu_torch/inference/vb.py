@@ -117,18 +117,21 @@ from ..noise.ar1 import Ar1NoiseState
 from ..noise.white import DesignStats, WhiteNoiseState
 from ..ops import smallmat as sm
 from ..ops import _cuda
-from ..ops.fused_loop import (fused_vb_loop, pack_loop_consts,
-                              whole_instantiated)
+from ..ops.fused_loop import (fused_vb_loop, n_ar_loop_planes,
+                              n_white_loop_planes, pack_loop_consts,
+                              pick_block, whole_instantiated)
 from ..ops.fused_loop_ar import (DETECTOR_KINDS as AR_DETECTORS,
                                  ar_elbo_consts, ar_instantiated,
                                  fused_ar_loop, pack_ar_consts)
 from ..ops.fused_loop_nl import fused_nl_loop, pack_nl_consts
 from ..ops.fused_spectral import (MAX_P, pack_mxu_consts, pack_solve_consts,
                                   pack_spectral_consts, spectral_core,
-                                  spectral_fused, spectral_stats)
+                                  spectral_fused, spectral_smem,
+                                  spectral_stats)
 from ..ops.fused_whole import (DETECTOR_KINDS as WHOLE_DETECTORS,
                                SMEM_BYTES, fused_whole, pack_whole_consts,
-                               pack_whole_time_consts, smem_bytes)
+                               pack_whole_time_consts, smem_bytes,
+                               whole_cap)
 from ..ops.fused_vb import fused_iteration, kernel_instantiated
 from ..ops.spectral import (eigen_elbo_const, make_spectral_detector_loop,
                             make_spectral_loop)
@@ -479,8 +482,14 @@ class VBInference:
         """Fixed-design models: the stats route's gates (vb.py:372-591)
         and the dispatch precedence spectral-whole > whole-program >
         spectral > stats-input loop > the stats loop (vb.py:2012-2048).
-        The JAX engine's VMEM pickers become the kernels' shared-memory
-        gate: the per-timepoint rows of a block fit 227 KB."""
+        The JAX engine's VMEM pickers of the kernels that read the data
+        (spectral-whole, whole-program) become the card's shared-memory
+        gate, the per-timepoint rows of a block in 227 KB, up to the
+        largest P each picker admits at any T (MAX_P, whole_cap); past
+        it the port takes the JAX engine's route. Those of the
+        stats-input loops do not depend on T and stay as they are
+        (pick_block), so kernels 5 and 9 serve exactly the JAX engine's
+        shapes."""
         o = self.options
         if o.get_string("fixed-design-route", "stats") != "stats":
             return "xla-direct"
@@ -501,16 +510,21 @@ class VBInference:
         # spectral_ok (vb.py:465-467): white noise, one phi group,
         # unlocked stdev (AR noise has no locked_noise_stdev)
         spectral_ok = white and nq == 1 and self.noise.locked_noise_stdev <= 0
-        # sw_core (vb.py:571-581): f32 storage, P <= 8 template
-        # instances, the (2P+1) x T rows in one block's shared memory
+        # sw_core (vb.py:571-581): f32 storage, P up to the JAX gate's
+        # largest at any T (25; P > 8 per-shape instances), the (2P+1) x
+        # T rows (and a per-shape instance's factor and constants) in
+        # one block's shared memory
         sw_core = (common and spectral_ok and f32_store
                    and det in ("maxits",) + SPECTRAL_DETECTORS
-                   and p <= MAX_P and (2 * p + 1) * nt * 4 <= SMEM_BYTES)
-        # whole_core (vb.py:494-514): admits lm; the (P+QP+Q) x T rows
+                   and p <= MAX_P and spectral_smem(p, nt) <= SMEM_BYTES)
+        # whole_core (vb.py:494-514): admits lm; P up to the JAX gate's
+        # largest at any T (20 under maxits, 19 at Q = 4, 17 under a
+        # detector); the (P+QP+Q) x T rows
         whole_core = (white and f32 and f32_store and not self.save_fhist
                       and default_post and not self.continued
                       and fixed_priors
                       and det in ("maxits",) + WHOLE_DETECTORS
+                      and p <= whole_cap(nq, det != "maxits")
                       and smem_bytes(p, nq, nt) <= SMEM_BYTES)
         # spectral_covers (vb.py:522-525): where the spectral routes
         # apply, auto prefers them to the whole-program kernel
@@ -518,15 +532,20 @@ class VBInference:
             and det in ("maxits",) + SPECTRAL_DETECTORS
         # loop_noise_ok and ar_fdet_ok (vb.py:389-449): white noise, or
         # AR(1) without cross terms under the model-default noise prior,
-        # whose kernel also runs pointzeroone / freduce. The JAX VMEM
-        # picker (pick_block) is not ported: kernel 9 keeps a voxel's
-        # state in registers and admits every (P, echoes) of its
-        # instances (_require_kernel_instance)
+        # whose kernel also runs pointzeroone / freduce; the JAX VMEM
+        # picker's bound on P (pick_block, T-independent: kernel 5 P <=
+        # 17, kernel 9 P <= 16 at one echo)
         loop_noise_ok = white or (
             ar and nq in (1, 2) and self.noise.nalphas == 2
             and o.get_string("noise-initial-prior",
                              "modeldefault") == "modeldefault")
-        ar_fdet_ok = common and ar and det in AR_DETECTORS
+        if loop_noise_ok:
+            loop_noise_ok = pick_block(1024, n_white_loop_planes(p, nq)
+                                       if white else
+                                       n_ar_loop_planes(p, nq=nq)) \
+                is not None
+        ar_fdet_ok = common and ar and det in AR_DETECTORS \
+            and pick_block(1024, n_ar_loop_planes(p, True, nq)) is not None
         loop_eligible = ((common and det == "maxits") or ar_fdet_ok) \
             and loop_noise_ok and mode in ("auto", "pallas-loop", "spectral")
         spectral_fdet = common and spectral_ok \
@@ -589,13 +608,16 @@ class VBInference:
         """On "cuda" a kernel route (default the run's; a continued run
         asks for continuation_route()'s) needs its kernel compiled for the
         run's (P, Q): a hand-written instance (FABBER_NL_INSTANCES for the
-        model's functor, FABBER_WHOLE_INSTANCES, FABBER_AR_INSTANCES) or,
-        for kernels 6 and 7, a functor generated from the model (its
-        evaluate on the generic route, else its time_signal), built now
-        (_require_functor). A run with neither raises here
-        (require_card_instance), before anything is built or launched.
-        On "cpu" the routes run their plain versions, which take any
-        shape."""
+        model's functor) or, for kernels 6 and 7, a functor generated from
+        the model (its evaluate on the generic route, else its
+        time_signal), built now (_require_functor). Kernels 4, 5 and 9
+        serve every shape the route gate gives them: a prebuilt instance
+        (FABBER_WHOLE_INSTANCES, FABBER_AR_INSTANCES) or a per-shape one,
+        built at the route's first launch (ops/_cuda.py build_instance;
+        whole_instantiated, ar_instantiated). A run with neither raises
+        here (require_card_instance), before anything is built or
+        launched. On "cpu" the routes run their plain versions, which take
+        any shape."""
         if self.device.type != "cuda":
             return
         route = route or self.route

@@ -24,6 +24,7 @@ from pathlib import Path
 import torch
 
 from ..exceptions import FabberError
+from .fused_spectral import PREBUILT_MAX_P
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("spectral_stats.cu", "spectral_core.cu", "spectral_fused.cu",
@@ -31,7 +32,8 @@ SOURCES = ("spectral_stats.cu", "spectral_core.cu", "spectral_fused.cu",
            "fused_loop.cu", "fused_nlls.cu", "fused_ar_loop.cu")
 HEADERS = ("vb_device.cuh", "detectors.cuh", "spectral_device.cuh",
            "fused_nl_loop.cuh", "fused_vb_iter.cuh", "fused_nlls.cuh",
-           "dual.cuh", "tile.cuh", "whole_device.cuh")
+           "dual.cuh", "tile.cuh", "whole_device.cuh",
+           "fused_whole_body.inc", "fused_ar_loop_body.inc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -109,24 +111,19 @@ def _kept_log(out):
     return log.read_text() if log.exists() else ""
 
 
-def build():
-    """Compile the kernels if this source hash has no library yet.
-    Returns the library path; raises with nvcc's stderr on failure.
-    build_log holds nvcc's output, also when an earlier process built
-    the library."""
-    global build_log
-    out = library_path()
-    if out.exists():
-        build_log = _kept_log(out) or build_log
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def _compile_link(units, out):
+    """Compile units ((name, .cu path, extra flags) each) with one nvcc
+    process per unit, all started together, and link them into the
+    shared library out (a temporary file, then os.replace). Returns
+    nvcc's output, a "== name (nvcc S s)" head per unit; raises with
+    nvcc's output when a unit or the link fails."""
     nvcc = _nvcc()
     objs, procs = [], []
     t0 = time.perf_counter()
-    for name in SOURCES:
-        obj = BUILD_DIR / f"{out.stem}.{Path(name).stem}.{os.getpid()}.o"
-        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, []), "-I",
-               str(CSRC), "-c", "-o", str(obj), str(CSRC / name)]
+    for name, src, flags in units:
+        obj = out.parent / f"{out.stem}.{Path(name).stem}.{os.getpid()}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-I", str(CSRC), "-c", "-o",
+               str(obj), str(src)]
         objs.append(obj)
         # nvcc's output to a file, so a full pipe stalls no compiler and
         # each source's seconds are its own
@@ -148,8 +145,10 @@ def build():
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n"
                           f"{' '.join(cmd)}\n{output}")
-    build_log = "\n".join(logs)
+    log = "\n".join(logs)
     if failed:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
         raise FabberError("\n".join(failed))
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
     cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
@@ -158,10 +157,32 @@ def build():
     for obj in objs:
         obj.unlink(missing_ok=True)
     if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
         raise FabberError(f"nvcc link failed ({proc.returncode}):\n"
                           f"{' '.join(cmd)}\n{proc.stderr}")
-    _keep_log(out, build_log)
+    _keep_log(out, log)
     os.replace(tmp, out)
+    return log
+
+
+def build():
+    """Compile the kernels if this source hash has no library yet.
+    Returns the library path; raises with nvcc's stderr on failure.
+    build_log holds nvcc's output, also when an earlier process built
+    the library."""
+    global build_log
+    out = library_path()
+    if out.exists():
+        build_log = _kept_log(out) or build_log
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        build_log = _compile_link(
+            [(name, CSRC / name, SOURCE_FLAGS.get(name, []))
+             for name in SOURCES], out)
+    except FabberError as e:
+        build_log = str(e)
+        raise
     return out
 
 
@@ -359,24 +380,25 @@ GEN_KERNELS = {
 }
 
 
-def tile_plan(nt, nq, widths=(TILE_VB,)):
+def tile_plan(nt, nq, widths=(TILE_VB,), extra=0):
     """(staged, VB, smem bytes) of a launch of a kernel that stages its
     data tile (kernels 1, 3, 4, 6, 7 and 8, csrc/tile.cuh) at nt samples
     and nq weights per sample (Q groups for kernels 6 and 7, 1 for kernel
     8, the P + QP + Q design rows for kernel 4, the 2P + 1 for kernels 1
     and 3): blocks of the first VB of widths (TILE_VB; kernels 1 and 3
     STATS_WIDTHS) with a [nt, VB] tile and [nt, nq] weights, 4 (nt VB +
-    nt nq) bytes, whose blocks leave at least TILE_MIN_WARPS warps per SM;
-    else the streamed form (False, STREAM_THREADS, 0)."""
+    nt nq) bytes (and extra floats: a per-shape spectral instance's
+    factor and constants), whose blocks leave at least TILE_MIN_WARPS
+    warps per SM; else the streamed form (False, STREAM_THREADS, 0)."""
     for vb in widths:
-        smem = 4 * (nt * vb + nt * nq)
+        smem = 4 * (nt * vb + nt * nq + extra)
         blocks = SMEM_PER_SM // (smem + SMEM_RESERVED)
         if blocks * (vb // 32) >= TILE_MIN_WARPS:
             return True, vb, smem
     return False, STREAM_THREADS, 0
 
 
-def launch_vb(nt, nq, vb=None, widths=(TILE_VB,)):
+def launch_vb(nt, nq, vb=None, widths=(TILE_VB,), extra=0):
     """The vb argument of a kernel 1, 3, 4, 6, 7 or 8 C entry point (nq and
     widths as tile_plan's): 0 streams, > 0 stages in blocks of vb lanes.
     None takes tile_plan's choice; an int forces it (the tests' and
@@ -384,7 +406,7 @@ def launch_vb(nt, nq, vb=None, widths=(TILE_VB,)):
     point refuses raises at the launch)."""
     if vb is not None:
         return int(vb)
-    staged, pvb, _ = tile_plan(nt, nq, widths)
+    staged, pvb, _ = tile_plan(nt, nq, widths, extra)
     return pvb if staged else 0
 
 
@@ -499,6 +521,175 @@ def build_generated(source, p, q, kernel="nl_loop"):
     return lib
 
 
+# Per-shape instances (build_instance): family -> its sources, and where
+# its limits stand (the header or source holding kWideMaxP / kWideMaxQ;
+# kernel 9's nq limit is its prebuilt kAMaxQ). Each source compiles with
+# FABBER_INST_P (and FABBER_INST_Q) defined into entry points of its own
+# names (fabber_inst_*), for that one shape.
+INSTANCE_FAMILIES = {
+    "spectral": (("spectral_stats.cu", "spectral_core.cu",
+                  "spectral_fused.cu"), "spectral_device.cuh"),
+    "whole": (("fused_whole.cu", "fused_loop.cu"), "whole_device.cuh"),
+    "ar": (("fused_ar_loop.cu",), "fused_ar_loop.cu"),
+}
+_inst_libs = {}
+inst_build_log = {}   # build key -> (seconds, nvcc's output)
+
+_INST_HEAD = """// generated by fabber_core_tpu_torch/ops/_cuda.py build_instance: the
+// entry points of csrc/{source} for one shape, P = {p}{qtext}.
+#define FABBER_INST_P {p}
+{qdef}#include "{source}"
+"""
+
+
+@functools.cache
+def instance_limits(family):
+    """(largest P, largest Q) of a per-shape instance of family, read
+    from the csrc file that fixes them (kWideMaxP; kWideMaxQ, or kernel
+    9's kAMaxQ; the spectral family has one noise group)."""
+    text = (CSRC / INSTANCE_FAMILIES[family][1]).read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             text).group(1))
+    max_q = {"spectral": lambda: 1, "whole": lambda: const("kWideMaxQ"),
+             "ar": lambda: const("kAMaxQ")}[family]()
+    return const("kWideMaxP"), max_q
+
+
+def instance_buildable(family, p, q=1):
+    """True where build_instance can compile family at (P, Q): within
+    instance_limits; the spectral and AR families past the prebuilt
+    library's P (every smaller shape is prebuilt there)."""
+    max_p, max_q = instance_limits(family)
+    low = 1 if family == "whole" else 9
+    return low <= p <= max_p and 1 <= q <= max_q
+
+
+def instance_sources(family, p, q=1):
+    """{unit name: .cu text} of family's per-shape instance at (P, Q): one
+    small unit per source of the family, defining the shape and
+    including the source."""
+    qtext = "" if family == "spectral" else f", Q = {q}"
+    qdef = "" if family == "spectral" else f"#define FABBER_INST_Q {q}\n"
+    return {Path(src).stem: _INST_HEAD.format(source=src, p=p, qtext=qtext,
+                                              qdef=qdef)
+            for src in INSTANCE_FAMILIES[family][0]}
+
+
+def instance_key(family, p, q=1):
+    """The hash naming a per-shape build: its units (family, shape), the
+    family's sources and every header, and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
+    for name, text in sorted(instance_sources(family, p, q).items()):
+        h.update(name.encode())
+        h.update(text.encode())
+    for name in INSTANCE_FAMILIES[family][0] + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+# argtypes of the per-shape entry points
+def _inst_argtypes(lib, family):
+    vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_float)
+    if family == "spectral":
+        entries = {
+            "fabber_inst_spectral_stats": [i32, vp, vp, vp, i32, i64, vp, vp,
+                                           vp, i32, vp],
+            "fabber_inst_stats_occupancy": [i32] * 3,
+            "fabber_inst_spectral_core": [i32, i32, vp, vp, vp, vp, vp, i32,
+                                          f32, i32, i32, i32, i64]
+            + [vp] * 7 + [vp],
+            "fabber_inst_spectral_fused": [i32, i32, vp, vp, vp, i32, vp, vp,
+                                           i32, f32, i32, i32, i32, i64]
+            + [vp] * 7 + [i32, vp],
+            "fabber_inst_fused_occupancy": [i32] * 4}
+    elif family == "whole":
+        entries = {
+            "fabber_inst_fused_whole": [i32, i32, i32, f32, vp, i32, f32, i32,
+                                        i32, i32, vp, vp, vp, i32, vp, vp,
+                                        i64] + [vp] * 7 + [i32, vp, vp],
+            "fabber_inst_whole_occupancy": [i32] * 5,
+            "fabber_inst_fused_vb_loop": [i32, i32, i32, f32, vp, vp, vp, vp,
+                                          vp, vp, i64] + [vp] * 5 + [vp, vp],
+            "fabber_inst_loop_occupancy": [i32] * 2}
+    else:
+        entries = {
+            "fabber_inst_fused_ar_loop": [i32, i32, i32, vp, i32, f32, i32,
+                                          i32, i32, f32, f32, vp, vp, vp, vp,
+                                          vp, i64] + [vp] * 10 + [vp, vp]}
+    for name, args in entries.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = i32
+
+
+def build_instance(family, p, q=1):
+    """Build (once per family, shape, sources, headers and flags) and load
+    the per-shape instance of family ("spectral": kernels 1, 2 and 3 at P
+    9-25; "whole": kernels 4 and 5 at any (P, Q) up to (20, 4); "ar":
+    kernel 9 at P 9-16, nq 1-2; instance_limits): writes one small .cu
+    per source of the family into build/kernels/inst/ (instance_sources),
+    compiles them with nvcc for sm_90a, one process each, all started
+    together, and links them into libfabber_inst_<hash>.so (a temporary
+    file, then os.replace), loaded with its own ctypes.CDLL. Returns the
+    library; raises with nvcc's output when the build fails (nothing runs
+    in its place). inst_build_log[hash] keeps the build's seconds and
+    nvcc's output (a "== unit (nvcc S s)" head per unit, then ptxas's
+    register and spill lines; the seconds are nan where an earlier
+    process built the library)."""
+    if not instance_buildable(family, p, q):
+        raise FabberError(f"no per-shape {family} instance at P={p}, Q={q} "
+                          f"(limits {instance_limits(family)})")
+    key = instance_key(family, p, q)
+    if key in _inst_libs:
+        return _inst_libs[key]
+    idir = BUILD_DIR / "inst"
+    out = idir / f"libfabber_inst_{key}.so"
+    if not out.exists():
+        idir.mkdir(parents=True, exist_ok=True)
+        units = []
+        for stem, text in instance_sources(family, p, q).items():
+            src = idir / f"{key}.{stem}.cu"
+            tmp_src = src.with_suffix(f".tmp{os.getpid()}.cu")
+            tmp_src.write_text(text)
+            os.replace(tmp_src, src)
+            units.append((f"{stem}.cu", src,
+                          SOURCE_FLAGS.get(f"{stem}.cu", [])))
+        t0 = time.perf_counter()
+        try:
+            log = _compile_link(units, out)
+        except FabberError as e:
+            inst_build_log[key] = (time.perf_counter() - t0, str(e))
+            raise FabberError(f"the per-shape {family} instance at P={p}, "
+                              f"Q={q} did not build:\n{e}") from None
+        inst_build_log[key] = (time.perf_counter() - t0, log)
+    elif key not in inst_build_log:
+        inst_build_log[key] = (float("nan"), _kept_log(out))
+    lib = ctypes.CDLL(str(out))
+    _inst_argtypes(lib, family)
+    _inst_libs[key] = lib
+    return lib
+
+
+def build_instances(shapes, with_library=True):
+    """Build the per-shape instances shapes ((family, p, q) each) and, with
+    with_library, the prebuilt library, concurrently (a thread per build,
+    each waiting on its nvcc processes). Returns {shape: library}; the
+    first failure raises once all have ended."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=len(shapes) + 1) as pool:
+        main = pool.submit(build) if with_library else None
+        futs = {shape: pool.submit(build_instance, *shape)
+                for shape in shapes}
+    if main is not None:
+        main.result()
+    return {shape: f.result() for shape, f in futs.items()}
+
+
 def launch_gen_nl_loop(lib, tcodes, n_iters, need_f, locked_sd, consts,
                        detector, det_consts, centre0, pm, pp, pd0, data,
                        supp, qw, outs, vb):
@@ -583,22 +774,47 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+# the largest P of the prebuilt spectral kernels (kernels 1-3; larger P
+# are per-shape instances, build_instance)
+SPECTRAL_PREBUILT_P = PREBUILT_MAX_P
+
+
+def _spectral_entry(p, name):
+    """The entry point name of kernel 1, 2 or 3 at P: the prebuilt
+    library's up to SPECTRAL_PREBUILT_P, else the per-shape instance's
+    (built at its first use)."""
+    if p <= SPECTRAL_PREBUILT_P:
+        return getattr(load(), f"fabber_{name}")
+    return getattr(build_instance("spectral", p), f"fabber_inst_{name}")
+
+
+def _on(t, dev):
+    """A host constant vector on the device: a per-shape instance reads
+    its constants from a device buffer."""
+    return t.to(device=dev, dtype=torch.float32).contiguous()
+
+
 def launch_stats(p, data, tconsts, aconsts, m0, rtqr, dtqr, vb):
     """vb: 0 streamed, > 0 staged in blocks of vb lanes (launch_vb)."""
-    lib = load()
+    fn = _spectral_entry(p, "spectral_stats")
     nt, nv = data.shape
+    if p > SPECTRAL_PREBUILT_P:
+        aconsts = _on(aconsts, data.device)
     with torch.cuda.device(data.device):
-        err = lib.fabber_spectral_stats(
-            p, data.data_ptr(), tconsts.data_ptr(), aconsts.data_ptr(),
-            nt, nv, m0.data_ptr(), rtqr.data_ptr(), dtqr.data_ptr(), vb,
-            _stream(data.device))
+        err = fn(p, data.data_ptr(), tconsts.data_ptr(), aconsts.data_ptr(),
+                 nt, nv, m0.data_ptr(), rtqr.data_ptr(), dtqr.data_ptr(), vb,
+                 _stream(data.device))
     _raise_on(err, "spectral_stats")
+    return p > SPECTRAL_PREBUILT_P
 
 
 def stats_occupancy(p, vb, nt):
-    """Blocks per SM of kernel 1's P instance in form vb at nt samples;
-    -1 where refused."""
-    return int(load().fabber_stats_occupancy(p, vb, nt))
+    """Blocks per SM of kernel 1's P instance in form vb at nt samples
+    (a per-shape instance past SPECTRAL_PREBUILT_P, built if need be); -1
+    where refused, P past the per-shape limit too."""
+    if p > SPECTRAL_PREBUILT_P and not instance_buildable("spectral", p):
+        return -1
+    return int(_spectral_entry(p, "stats_occupancy")(p, vb, nt))
 
 
 def detector_args(detector):
@@ -615,35 +831,44 @@ def detector_args(detector):
 
 
 def launch_core(p, n_iters, m0, rtqr, dtqr, pm, consts, detector, outs):
-    lib = load()
+    fn = _spectral_entry(p, "spectral_core")
     nv = m0.shape[-1]
+    if p > SPECTRAL_PREBUILT_P:
+        consts = _on(consts, m0.device)
     with torch.cuda.device(m0.device):
-        err = lib.fabber_spectral_core(
+        err = fn(
             p, n_iters, m0.data_ptr(), rtqr.data_ptr(), dtqr.data_ptr(),
             pm.data_ptr(), consts.data_ptr(), *detector_args(detector), nv,
             *(o.data_ptr() for o in outs), _stream(m0.device))
     _raise_on(err, "spectral_core")
+    return p > SPECTRAL_PREBUILT_P
 
 
 def launch_spectral_fused(p, n_iters, data, tconsts, aconsts, pm, consts,
                           detector, outs, vb):
     """vb: 0 streamed, > 0 staged in blocks of vb lanes (launch_vb)."""
-    lib = load()
+    fn = _spectral_entry(p, "spectral_fused")
     nt, nv = data.shape
+    if p > SPECTRAL_PREBUILT_P:
+        aconsts, consts = _on(aconsts, data.device), _on(consts, data.device)
     with torch.cuda.device(data.device):
-        err = lib.fabber_spectral_fused(
+        err = fn(
             p, n_iters, data.data_ptr(), tconsts.data_ptr(),
             aconsts.data_ptr(), nt, pm.data_ptr(), consts.data_ptr(),
             *detector_args(detector), nv, *(o.data_ptr() for o in outs),
             vb, _stream(data.device))
     _raise_on(err, "spectral_fused")
+    return p > SPECTRAL_PREBUILT_P
 
 
 def fused_occupancy(p, kind, vb, nt):
     """Blocks per SM of kernel 3's P instance for the detector kind
     (DETECTOR_CODES: 0 maxits, 1-3 pointzeroone, freduce, trialmode) in
-    form vb at nt samples; -1 where refused."""
-    return int(load().fabber_fused_occupancy(p, kind, vb, nt))
+    form vb at nt samples (stats_occupancy's rule past the prebuilt P); -1
+    where refused."""
+    if p > SPECTRAL_PREBUILT_P and not instance_buildable("spectral", p):
+        return -1
+    return int(_spectral_entry(p, "fused_occupancy")(p, kind, vb, nt))
 
 
 def launch_whole(p, nq, n_iters, locked_sd, consts, detector, det_consts,
@@ -651,29 +876,45 @@ def launch_whole(p, nq, n_iters, locked_sd, consts, detector, det_consts,
     """consts: [Q*P*P + 4Q] float32 host tensor; detector: a convergence
     detector object or None (maxits); det_consts: [Q+1] float32 host
     tensor (lb_coeff, f_const) or None; vb: 0 streamed, > 0 staged in
-    blocks of vb lanes (launch_vb)."""
-    lib = load()
+    blocks of vb lanes (launch_vb). A (P, Q) outside the prebuilt list
+    launches its per-shape instance (build_instance, at its first use),
+    with D'Q_qD on the device."""
     nt, nv = data.shape
     dc = 0 if det_consts is None else det_consts.data_ptr()
-    with torch.cuda.device(data.device):
-        err = lib.fabber_fused_whole(
-            p, nq, n_iters, locked_sd, consts.data_ptr(),
+    args = (p, nq, n_iters, locked_sd, consts.data_ptr(),
             *detector_args(detector), dc, data.data_ptr(),
             tconsts.data_ptr(), nt, pm.data_ptr(), pp.data_ptr(), nv,
-            *(o.data_ptr() for o in outs), vb, _stream(data.device))
+            *(o.data_ptr() for o in outs), vb)
+    with torch.cuda.device(data.device):
+        inst = not has_whole_instance(p, nq)
+        if not inst:
+            err = load().fabber_fused_whole(*args, _stream(data.device))
+        else:
+            dtqd = _on(consts[:nq * p * p], data.device)
+            err = build_instance("whole", p, nq).fabber_inst_fused_whole(
+                *args, dtqd.data_ptr(), _stream(data.device))
     _raise_on(err, "fused_whole")
+    return inst
 
 
 def launch_vb_loop(p, nq, n_iters, locked_sd, consts, m0, rtqr, dtqr, pm,
                    pp, outs):
-    lib = load()
+    """A (P, Q) outside the prebuilt list launches its per-shape
+    instance (launch_whole's rule)."""
     nv = m0.shape[-1]
-    with torch.cuda.device(m0.device):
-        err = lib.fabber_fused_vb_loop(
-            p, nq, n_iters, locked_sd, consts.data_ptr(), m0.data_ptr(),
+    args = (p, nq, n_iters, locked_sd, consts.data_ptr(), m0.data_ptr(),
             rtqr.data_ptr(), dtqr.data_ptr(), pm.data_ptr(), pp.data_ptr(),
-            nv, *(o.data_ptr() for o in outs), _stream(m0.device))
+            nv, *(o.data_ptr() for o in outs))
+    with torch.cuda.device(m0.device):
+        inst = not has_whole_instance(p, nq)
+        if not inst:
+            err = load().fabber_fused_vb_loop(*args, _stream(m0.device))
+        else:
+            dtqd = _on(consts[:nq * p * p], m0.device)
+            err = build_instance("whole", p, nq).fabber_inst_fused_vb_loop(
+                *args, dtqd.data_ptr(), _stream(m0.device))
     _raise_on(err, "fused_vb_loop")
+    return inst
 
 
 def _int_array(values):
@@ -757,12 +998,18 @@ def whole_occupancy(p, nq, mode, vb, nt):
     """Blocks per SM of kernel 4's (P, Q) instance in MODE mode (0
     maxits, 1 pointzeroone, 2 trialmode/lm) and form vb at nt samples;
     -1 where refused."""
-    return int(load().fabber_whole_occupancy(p, nq, mode, vb, nt))
+    if has_whole_instance(p, nq):
+        return int(load().fabber_whole_occupancy(p, nq, mode, vb, nt))
+    return int(build_instance("whole", p, nq).fabber_inst_whole_occupancy(
+        p, nq, mode, vb, nt))
 
 
 def loop_occupancy(p, nq):
     """Blocks per SM of kernel 5's (P, Q) instance; -1 where refused."""
-    return int(load().fabber_loop_occupancy(p, nq))
+    if has_whole_instance(p, nq):
+        return int(load().fabber_loop_occupancy(p, nq))
+    return int(build_instance("whole", p, nq).fabber_inst_loop_occupancy(
+        p, nq))
 
 
 def vb_iter_occupancy(kind, p, nq, lm, vb, nt):
@@ -802,14 +1049,22 @@ def launch_ar_loop(p, nq, n_iters, consts, detector, elbo, m0, rmr, dmr, pm,
     """consts: [3nq*P*P + 2 + 6nq] float32 host tensor (pack_ar_consts);
     detector: a pointzeroone / freduce detector object or None (maxits);
     elbo: (f_const, lb_coeff) or None; outs: the eight planes, then f
-    and its under a detector."""
-    lib = load()
+    and its under a detector. A (P, nq) outside the prebuilt list launches
+    its per-shape instance (build_instance, at its first use), with D'M_sD
+    on the device."""
     nv = m0.shape[-1]
     f_const, lb_coeff = elbo if elbo is not None else (0.0, 0.0)
     ptrs = [o.data_ptr() for o in outs] + [0] * (10 - len(outs))
-    with torch.cuda.device(m0.device):
-        err = lib.fabber_fused_ar_loop(
-            p, nq, n_iters, consts.data_ptr(), *detector_args(detector),
+    args = (p, nq, n_iters, consts.data_ptr(), *detector_args(detector),
             f_const, lb_coeff, m0.data_ptr(), rmr.data_ptr(), dmr.data_ptr(),
-            pm.data_ptr(), pp.data_ptr(), nv, *ptrs, _stream(m0.device))
+            pm.data_ptr(), pp.data_ptr(), nv, *ptrs)
+    with torch.cuda.device(m0.device):
+        inst = not has_ar_instance(p, nq)
+        if not inst:
+            err = load().fabber_fused_ar_loop(*args, _stream(m0.device))
+        else:
+            dmd = _on(consts[:3 * nq * p * p], m0.device)
+            err = build_instance("ar", p, nq).fabber_inst_fused_ar_loop(
+                *args, dmd.data_ptr(), _stream(m0.device))
     _raise_on(err, "fused_ar_loop")
+    return inst

@@ -29,7 +29,8 @@ version at float64 (chip_smoke.py near_f64).
 
 The wrapper takes the plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises. ``fused_vb_loop.
-launches`` counts kernel launches. The TPU form's ROWS=8 voxel fold and
+launches`` counts kernel launches, ``instance_launches`` those of a
+per-shape instance (ops/_cuda.py build_instance). The TPU form's ROWS=8 voxel fold and
 sublane-replicated constant column are gone: the constants are one
 host vector passed by value.
 """
@@ -42,12 +43,56 @@ from .fused_vb import check_plane
 
 
 def whole_instantiated(p, nq):
-    """True when csrc/fused_whole.cu and csrc/fused_loop.cu are compiled
-    for P and Q (kernels 4 and 5; whole_device.cuh FABBER_WHOLE_INSTANCES:
-    Q = 1..3 at P = 1..5, Q = 1, 2 at P = 6..8), asked of the built
-    library."""
+    """True when kernels 4 and 5 can run at P and Q on the card: the
+    prebuilt library holds them (csrc/whole_device.cuh
+    FABBER_WHOLE_INSTANCES: Q = 1..3 at P = 1..5, Q = 1, 2 at P = 6..8;
+    asked of the built library), or a per-shape instance can be built at
+    the route's first launch (ops/_cuda.py build_instance: P <= 20, Q <=
+    4). Nothing is built here."""
     from . import _cuda
-    return _cuda.has_whole_instance(p, nq)
+    return (_cuda.has_whole_instance(p, nq)
+            or _cuda.instance_buildable("whole", p, nq))
+
+
+# The JAX engine's whole-loop gate on a TPU (fabber_core_tpu/ops/
+# fused_loop.py VMEM_BUDGET, pick_block, n_white_loop_planes,
+# n_ar_loop_planes; the port's own copy): the TPU kernels' live planes
+# of a 1,024-voxel tile against its VMEM budget. They do not depend on T,
+# and the port's route gate takes them as they are, so kernels 5 and 9
+# serve the shapes the JAX engine runs its kernels at (kernel 5 P <= 17
+# at Q = 1, <= 16 at Q 2-4; kernel 9 P <= 16 at one echo, <= 15 at two)
+# and past them the port takes the JAX engine's route.
+VMEM_BUDGET = 8 << 20
+
+
+def pick_block(nvoxels, n_planes):
+    """The JAX engine's voxel tile for its whole-loop kernels, (block,
+    pad), or None where none fits (it takes another route)."""
+    fitting = [bb for bb in (16384, 8192, 4096, 2048, 1024)
+               if n_planes * bb * 4 * 2 <= VMEM_BUDGET]
+    if not fitting:
+        return None
+    for bb in fitting:
+        if nvoxels % bb == 0:
+            return bb, 0
+    return fitting[-1], (-nvoxels) % fitting[-1]
+
+
+def n_white_loop_planes(p, nq):
+    """Live planes of the JAX stats-input loop (kernel 5)."""
+    ntri = p * (p + 1) // 2
+    return ((3 * p + nq + nq * p) + (p + 2 * p * p + 2 * nq)
+            + (2 * nq + p + 2 * ntri) + nq * p)
+
+
+def n_ar_loop_planes(p, fdet=False, nq=1):
+    """Live planes of the JAX AR(1) loop (kernel 9); fdet its detector
+    mode."""
+    ntri = p * (p + 1) // 2
+    s = 3 * nq
+    return ((3 * p + s + s * p) + (p + 2 * p * p + 5 * nq)
+            + (5 * nq + p + 2 * ntri) + s * p
+            + ((9 + 4 + (5 * nq + p + 2 * ntri)) if fdet else 0))
 
 
 def check_host_consts(consts, n):
@@ -221,12 +266,15 @@ def fused_vb_loop(m0, rtqr, dtqr, consts, prior_means, prior_prec, n_iters,
             out(nq, nv))
     if nv:
         from . import _cuda
-        _cuda.launch_vb_loop(p, nq, int(n_iters), float(locked_noise_stdev),
-                             consts.to(torch.float32).contiguous(), m0, rtqr,
-                             dtqr, prior_means, prior_prec, outs)
+        if _cuda.launch_vb_loop(p, nq, int(n_iters),
+                                float(locked_noise_stdev),
+                                consts.to(torch.float32).contiguous(), m0,
+                                rtqr, dtqr, prior_means, prior_prec, outs):
+            fused_vb_loop.instance_launches += 1
         fused_vb_loop.launches += 1
     return outs
 
 
 fused_vb_loop.launches = 0
+fused_vb_loop.instance_launches = 0
 

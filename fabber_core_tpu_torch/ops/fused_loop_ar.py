@@ -43,7 +43,9 @@ means and the model-default noise. Two modes:
 
 The wrapper takes the plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises. ``fused_ar_loop.launches``
-counts kernel launches, ``.det_launches`` those in detector mode. The
+counts kernel launches, ``.det_launches`` those in detector mode,
+``.instance_launches`` those of a per-shape instance (P > 8, ops/_cuda.py
+build_instance). The
 TPU form's ROWS=8 voxel fold, edge padding, sublane-replicated constant
 column and VMEM block picker are not ported: the constants are one host
 vector passed by value.
@@ -63,11 +65,14 @@ DETECTOR_KINDS = ("pointzeroone", "freduce")
 
 
 def ar_instantiated(p, nq):
-    """True when csrc/fused_ar_loop.cu is compiled for P and nq
-    (FABBER_AR_INSTANCES: P = 1..8, nq = 1..2), asked of the built
-    library."""
+    """True when kernel 9 can run at P and nq on the card: the prebuilt
+    library holds it (csrc/fused_ar_loop.cu FABBER_AR_INSTANCES: P =
+    1..8, nq = 1..2; asked of the built library), or a per-shape instance
+    can be built at the route's first launch (ops/_cuda.py
+    build_instance: P 9..16). Nothing is built here."""
     from . import _cuda
-    return _cuda.has_ar_instance(p, nq)
+    return (_cuda.has_ar_instance(p, nq)
+            or _cuda.instance_buildable("ar", p, nq))
 
 
 def n_consts(p, nq):
@@ -334,12 +339,13 @@ def fused_ar_loop(m0, rmr, dmr, consts, prior_means, prior_prec, n_iters,
         outs += (out(1, nv), out(1, nv))
     if nv:
         from . import _cuda
-        _cuda.launch_ar_loop(
-            p, nq, int(n_iters), consts.to(torch.float32).contiguous(),
-            None if detector is None else detector["det"],
-            None if detector is None else (float(detector["f_const"]),
-                                           float(detector["lb_coeff"])),
-            m0, rmr, dmr, prior_means, prior_prec, outs)
+        if _cuda.launch_ar_loop(
+                p, nq, int(n_iters), consts.to(torch.float32).contiguous(),
+                None if detector is None else detector["det"],
+                None if detector is None else (float(detector["f_const"]),
+                                               float(detector["lb_coeff"])),
+                m0, rmr, dmr, prior_means, prior_prec, outs):
+            fused_ar_loop.instance_launches += 1
         fused_ar_loop.launches += 1
         if detector is not None:
             fused_ar_loop.det_launches += 1
@@ -348,6 +354,7 @@ def fused_ar_loop(m0, rmr, dmr, consts, prior_means, prior_prec, n_iters,
 
 fused_ar_loop.launches = 0
 fused_ar_loop.det_launches = 0
+fused_ar_loop.instance_launches = 0
 
 
 def ar_elbo_consts(p, nq, ntimes, b0, c0):

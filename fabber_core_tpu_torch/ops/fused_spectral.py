@@ -37,7 +37,8 @@ CUDA tensor it launches the kernel or raises. Each keeps an integer
 ``launches`` count of kernel launches (never of plain calls);
 spectral_core and spectral_fused also count their detector-mode
 launches in ``det_launches``, spectral_stats and spectral_fused their
-staged ones in ``staged_launches``.
+staged ones in ``staged_launches``; all three their launches of a
+per-shape instance (P > PREBUILT_MAX_P) in ``instance_launches``.
 
 Constant layout (host-built in float64, cast once):
   pack_mxu_consts     [2P+1, T] device rows: raw design D (P rows),
@@ -60,9 +61,13 @@ import torch
 from . import smallmat as sm
 from .spectral import spectral_basis
 
-# largest parameter count the kernels are instantiated for
-# (template<int P>, P = 1..8); the engine's route gate enforces it
-MAX_P = 8
+# The largest P of the prebuilt library's instances (template<int P>,
+# P = 1..8), and the largest P the kernels serve: P 9..25 are per-shape
+# instances (ops/_cuda.py build_instance, built at their first launch),
+# 25 the largest P the JAX engine's spectral gate admits at any T
+# (pick_spectral_block below). The engine's route gate enforces MAX_P.
+PREBUILT_MAX_P = 8
+MAX_P = 25
 
 
 def _design_q(design, qmask, nt):
@@ -106,6 +111,80 @@ def pack_spectral_consts(design, qmask, nt, pp, inv_b0, c_post,
     return torch.as_tensor(flat, dtype=dtype)
 
 
+def core_floats(p):
+    """Length of pack_spectral_consts' vector at P."""
+    return 4 * p * p + 2 * p + 6
+
+
+def wide_extra(p, fused=False):
+    """Shared floats a per-shape instance (P > PREBUILT_MAX_P) keeps after
+    the design rows: the block's factor of A (P*P; kernels 1 and 3) and,
+    in kernel 3, the core constants (csrc/spectral_stats.cu,
+    spectral_fused.cu)."""
+    if p <= PREBUILT_MAX_P:
+        return 0
+    return p * p + (core_floats(p) if fused else 0)
+
+
+def spectral_smem(p, nt):
+    """Shared memory of kernel 3's streamed form at (P, T), the most a
+    block of kernels 1-3 needs beside a data tile: the (2P+1) x T design
+    rows and wide_extra. The engine's gate asks that it fit a block."""
+    return 4 * ((2 * p + 1) * nt + wide_extra(p, fused=True))
+
+
+# The JAX engine's spectral gate on a TPU (fabber_core_tpu/ops/
+# fused_spectral.py n_spectral_planes, pick_spectral_block,
+# pick_core_block; the port's own copy), asked with the gate's 1,024
+# voxels: whether a [8, B/8]-plane tile of B voxels fits its VMEM budget.
+# The port's route gate takes from them only where the JAX engine stops
+# running its kernels (the caps, and route parity in the tests); the
+# card's own limit is shared memory (spectral_smem).
+VMEM_BUDGET = 8 << 20
+
+
+def n_spectral_planes(p, nt, det=False):
+    """Live [8, B/8]-plane estimate of the JAX one-kernel spectral
+    form: the data tile 4x, then the stats, eigen rows, loop carry and
+    outputs; det adds the detector lanes and the best-state pair."""
+    return (4 * nt + p + 3 * p + 1 + 4 * p + 2 + p + 2 * p * p + 4
+            + ((9 + 4 + 4) if det else 0))
+
+
+def pick_spectral_block(nvoxels, p, nt, det=False):
+    """The JAX engine's tile for its spectral-whole gate: None where no
+    tile fits (then it takes another route)."""
+    planes = n_spectral_planes(p, nt, det)
+    budget = max(VMEM_BUDGET, 12 << 20)
+    fitting = [bb for bb in (8192, 4096, 2048, 1024)
+               if planes * bb * 4 * 2 <= budget]
+    if not fitting:
+        return None
+    for bb in fitting:
+        if nvoxels % bb == 0:
+            return bb, 0
+    return fitting[-1], (-nvoxels) % fitting[-1]
+
+
+def pick_core_block(nvoxels, p, det=False):
+    """The JAX engine's core-kernel tile (its split and xstats forms):
+    None where none fits, which its gate does not ask (P 21-25 pass the
+    gate at short T and then fail; ROADMAP Queue 3)."""
+    planes = 10 * p + 2 * p * p + 12 + ((9 + 4) if det else 0)
+    fitting = [bb for bb in (16384, 8192, 4096, 2048, 1024)
+               if planes * bb * 4 * 2 <= VMEM_BUDGET]
+    if not fitting:
+        return None
+    return fitting[0], (-nvoxels) % 1024
+
+
+def jax_spectral_cap(det=False):
+    """The largest P the JAX spectral gate admits at any T (at T = 1, where
+    the data tile is least): 25."""
+    return max(p for p in range(1, 64)
+               if pick_spectral_block(1024, p, 1, det) is not None)
+
+
 def _nparams_from_solve(aconsts):
     p = int(round(aconsts.numel() ** 0.5))
     if p * p != aconsts.numel():
@@ -116,7 +195,7 @@ def _nparams_from_solve(aconsts):
 def _nparams_from_core(consts):
     n = consts.numel()
     for p in range(1, 64):
-        if 4 * p * p + 2 * p + 6 == n:
+        if core_floats(p) == n:
             return p
     raise ValueError(f"consts has {n} entries, not 4P^2+2P+6")
 
@@ -329,8 +408,10 @@ def spectral_stats(data, tconsts, aconsts, _vb=None):
     dtqr = torch.empty((p, nv), dtype=torch.float32, device=dev)
     if nv:
         from . import _cuda
-        vb = _cuda.launch_vb(nt, 2 * p + 1, _vb, _cuda.STATS_WIDTHS)
-        _cuda.launch_stats(p, data, tconsts, aconsts, m0, rtqr, dtqr, vb)
+        vb = _cuda.launch_vb(nt, 2 * p + 1, _vb, _cuda.STATS_WIDTHS,
+                             wide_extra(p))
+        if _cuda.launch_stats(p, data, tconsts, aconsts, m0, rtqr, dtqr, vb):
+            spectral_stats.instance_launches += 1
         spectral_stats.launches += 1
         if vb > 0:
             spectral_stats.staged_launches += 1
@@ -339,6 +420,7 @@ def spectral_stats(data, tconsts, aconsts, _vb=None):
 
 spectral_stats.launches = 0
 spectral_stats.staged_launches = 0
+spectral_stats.instance_launches = 0
 
 
 DETECTOR_KINDS = ("pointzeroone", "freduce", "trialmode")
@@ -374,8 +456,9 @@ def spectral_core(m0, rtqr, dtqr, pm, consts, n_iters, detector=None):
             out(1, nv), out(1, nv), out(1, nv), out(1, nv))
     if nv:
         from . import _cuda
-        _cuda.launch_core(p, n_iters, m0, rtqr, dtqr, pm, consts, detector,
-                          outs)
+        if _cuda.launch_core(p, n_iters, m0, rtqr, dtqr, pm, consts,
+                             detector, outs):
+            spectral_core.instance_launches += 1
         spectral_core.launches += 1
         if detector is not None:
             spectral_core.det_launches += 1
@@ -384,6 +467,7 @@ def spectral_core(m0, rtqr, dtqr, pm, consts, n_iters, detector=None):
 
 spectral_core.launches = 0
 spectral_core.det_launches = 0
+spectral_core.instance_launches = 0
 
 
 def spectral_fused_plain(data, tconsts, aconsts, pm, consts, n_iters,
@@ -403,7 +487,8 @@ def fused_vb(nt, p, vb=None):
     trialmode as in maxits on an H100 (PERF.md §6 row 3). An int vb
     forces the form."""
     from . import _cuda
-    return _cuda.launch_vb(nt, 2 * p + 1, vb, _cuda.STATS_WIDTHS)
+    return _cuda.launch_vb(nt, 2 * p + 1, vb, _cuda.STATS_WIDTHS,
+                           wide_extra(p, fused=True))
 
 
 def spectral_fused(data, tconsts, aconsts, pm, consts, n_iters,
@@ -441,8 +526,9 @@ def spectral_fused(data, tconsts, aconsts, pm, consts, n_iters,
     if nv:
         from . import _cuda
         vb = fused_vb(nt, p, _vb)
-        _cuda.launch_spectral_fused(p, n_iters, data, tconsts, aconsts, pm,
-                                    consts, detector, outs, vb)
+        if _cuda.launch_spectral_fused(p, n_iters, data, tconsts, aconsts,
+                                       pm, consts, detector, outs, vb):
+            spectral_fused.instance_launches += 1
         spectral_fused.launches += 1
         if detector is not None:
             spectral_fused.det_launches += 1
@@ -454,3 +540,4 @@ def spectral_fused(data, tconsts, aconsts, pm, consts, n_iters,
 spectral_fused.launches = 0
 spectral_fused.det_launches = 0
 spectral_fused.staged_launches = 0
+spectral_fused.instance_launches = 0

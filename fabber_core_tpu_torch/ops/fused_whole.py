@@ -43,7 +43,9 @@ shared memory where ops/_cuda.py tile_plan says it fits (csrc/tile.cuh;
 tile_weights gives the plan's weights per sample), else streams the
 plane. The wrapper takes the plain version only for tensors on the CPU;
 for a CUDA tensor it launches the kernel or raises.
-``fused_whole.launches`` counts kernel launches, ``det_launches`` those
+``fused_whole.launches`` counts kernel launches, ``instance_launches``
+those of a per-shape instance (ops/_cuda.py build_instance: a (P, Q)
+outside FABBER_WHOLE_INSTANCES), ``det_launches`` those
 in detector mode, ``lm_launches`` those under lm and ``staged_launches``
 those in the staged form.
 """
@@ -52,8 +54,8 @@ import numpy as np
 import torch
 
 from . import smallmat as sm
-from .fused_loop import (check_host_consts, fixed_point_step, loop_inputs,
-                         pack_loop_consts, whole_instantiated)
+from .fused_loop import (VMEM_BUDGET, check_host_consts, fixed_point_step,
+                         loop_inputs, pack_loop_consts, whole_instantiated)
 from .fused_vb import check_plane
 
 DETECTOR_KINDS = ("pointzeroone", "trialmode", "lm")
@@ -90,6 +92,50 @@ def pack_whole_consts(design, qmasks, nt, noise_prior_b, noise_prior_c,
 def smem_bytes(p, nq, nt):
     """Shared memory kernel 4's block stages: the time rows, float32."""
     return (p + nq * p + nq) * nt * 4
+
+
+# The JAX engine's whole-program gate on a TPU (fabber_core_tpu/ops/
+# fused_whole.py n_whole_planes, pick_whole_block; the port's own copy):
+# the live planes of a 1,024-voxel tile of the TPU kernel against its
+# VMEM budget, with the time axis padded to 8 (fused_vb.py pad_time).
+# The port's gate keeps its own limit, shared memory (smem_bytes), up to
+# the largest P this admits at any T (whole_cap): past it the port takes
+# the JAX engine's route.
+def n_whole_planes(p, nq, tp, det=False):
+    """Live planes of the JAX whole-program kernel at padded T tp."""
+    ntri = p * (p + 1) // 2
+    return (4 * tp + 2 * p + (p + nq + nq * p + p)
+            + (2 * nq + p + 2 * ntri) + (p + 2 * p * p + 4 * nq) + nq * p
+            + ((9 + 2 + (2 * nq + p + 2 * ntri + 1) + 4) if det else 0))
+
+
+def pick_whole_block(nvoxels, p, nq, tp, det=False):
+    """The JAX engine's tile for its whole-program gate, or None where
+    none fits (it takes another route)."""
+    planes = n_whole_planes(p, nq, tp, det)
+    budget = max(VMEM_BUDGET, 12 << 20)
+    fitting = [bb for bb in (8192, 4096, 2048, 1024)
+               if planes * bb * 4 * 2 <= budget]
+    if not fitting:
+        return None
+    for bb in fitting:
+        if nvoxels % bb == 0:
+            return bb, 0
+    return fitting[-1], (-nvoxels) % fitting[-1]
+
+
+def pad_time(nt):
+    """The JAX kernels' padded time length (a multiple of 8)."""
+    return -(-nt // 8) * 8
+
+
+def whole_cap(nq, det=False):
+    """The largest P the JAX whole-program gate admits at any T (at T <=
+    8, where the data tile is least): 20 under maxits, 17 under a
+    detector."""
+    return max(p for p in range(1, 64)
+               if pick_whole_block(1024, p, nq, pad_time(1), det)
+               is not None)
 
 
 def tile_weights(p, nq):
@@ -261,11 +307,12 @@ def fused_whole(data, tconsts, consts, prior_means, prior_prec, n_iters,
     if nv:
         from . import _cuda
         vb = _cuda.launch_vb(nt, tile_weights(p, nq), _vb)
-        _cuda.launch_whole(p, nq, int(n_iters), float(locked_noise_stdev),
-                           consts.to(torch.float32).contiguous(),
-                           None if kind is None else detector["det"],
-                           det_consts, data, tconsts, prior_means,
-                           prior_prec, outs, vb)
+        if _cuda.launch_whole(p, nq, int(n_iters), float(locked_noise_stdev),
+                              consts.to(torch.float32).contiguous(),
+                              None if kind is None else detector["det"],
+                              det_consts, data, tconsts, prior_means,
+                              prior_prec, outs, vb):
+            fused_whole.instance_launches += 1
         fused_whole.launches += 1
         if vb > 0:
             fused_whole.staged_launches += 1
@@ -280,3 +327,4 @@ fused_whole.launches = 0
 fused_whole.det_launches = 0
 fused_whole.lm_launches = 0
 fused_whole.staged_launches = 0
+fused_whole.instance_launches = 0

@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""What the P = 5..8 instances did to the P <= 4 ones, on one NVIDIA GPU.
+"""What a change to the kernel sources did to the prebuilt instances, on
+one NVIDIA GPU (written for the P = 5..8 instances against the P <= 4
+ones, kept for the per-shape instances against every prebuilt one).
 
 Run from the repository root:
 
@@ -7,22 +9,25 @@ Run from the repository root:
 
 DIR holds an earlier csrc/ (every .cu and .cuh of it). The probe builds
 the kernel library (ops/_cuda.py build) and, in parallel, the earlier
-fused_whole.cu, fused_loop.cu, fused_ar_loop.cu, fused_nl_loop.cu,
-fused_vb_iter.cu and fused_nlls.cu each alone from DIR
-(probes/variants.py, with their SOURCE_FLAGS), then prints:
+spectral_stats.cu, spectral_core.cu, spectral_fused.cu, fused_whole.cu,
+fused_loop.cu, fused_ar_loop.cu, fused_nl_loop.cu, fused_vb_iter.cu and
+fused_nlls.cu each alone from DIR (probes/variants.py, with their
+SOURCE_FLAGS), then prints:
 
   - each source's nvcc seconds in both builds (the library's sources
     compile in parallel, so its seconds are each compiler's wall time
     beside the others; the earlier sources alone, also in parallel);
-  - for every kernel entry both builds hold (kernels 4, 5, 6, 7, 8, 9 at
-    P <= 4), whether its SASS is the earlier build's (cuobjdump;
+  - for every kernel entry both builds hold (kernels 1-9), whether its
+    SASS is the earlier build's (cuobjdump;
     addresses, labels and the anonymous namespace's path hash dropped),
     and else whether it is once the constant-bank offsets of its
     parameters (c[0x0][...]) are dropped too, or once every constant
     bank's offsets are (the module's literals move with the other
     kernels of its translation unit), the rest with their instruction
     counts, and ptxas's registers and spill bytes in both;
-  - the times of kernels 4, 5 and 9 on chip_smoke.py phases 5d and 5f's
+  - the times of kernels 1, 2 and 3 on phase 5's shape (16,777,216
+    voxels, T=106, poly P=3, maxits, the plan's staged forms), and of
+    kernels 4, 5 and 9 on chip_smoke.py phases 5d and 5f's
     shapes (16,777,216 voxels, T=106, P=3; kernel 4 maxits at Q = 1, 2,
     trialmode at Q=2, lm at Q=1; kernel 5 at Q=2; kernel 9 maxits and
     pointzeroone at nq = 1, 2), and of kernels 6, 7 and 8 on phases 5b
@@ -43,19 +48,27 @@ import re
 import sys
 from pathlib import Path
 
+import numpy as np
+
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke as cs  # noqa: E402
 import variants  # noqa: E402
 
 # source -> its C entry point (the one the wrappers launch)
-SOURCES = {"fused_whole.cu": "fabber_fused_whole",
+SOURCES = {"spectral_stats.cu": "fabber_spectral_stats",
+           "spectral_core.cu": "fabber_spectral_core",
+           "spectral_fused.cu": "fabber_spectral_fused",
+           "fused_whole.cu": "fabber_fused_whole",
            "fused_loop.cu": "fabber_fused_vb_loop",
            "fused_ar_loop.cu": "fabber_fused_ar_loop",
            "fused_nl_loop.cu": "fabber_fused_nl_loop",
            "fused_vb_iter.cu": "fabber_fused_vb_iter",
            "fused_nlls.cu": "fabber_fused_nlls"}
-KERNEL_OF = {"fused_whole.cu": "fused_whole_kernel",
+KERNEL_OF = {"spectral_stats.cu": "spectral_stats_kernel",
+             "spectral_core.cu": "spectral_core_kernel",
+             "spectral_fused.cu": "spectral_fused_kernel",
+             "fused_whole.cu": "fused_whole_kernel",
              "fused_loop.cu": "fused_loop_kernel",
              "fused_ar_loop.cu": "fused_ar_loop_kernel",
              "fused_nl_loop.cu": "fused_nl_loop_kernel",
@@ -136,6 +149,7 @@ def main():
     from fabber_core_tpu_torch.ops import fused_loop_ar as fa
     from fabber_core_tpu_torch.ops import fused_loop_nl as fnl
     from fabber_core_tpu_torch.ops import fused_nlls as fn
+    from fabber_core_tpu_torch.ops import fused_spectral as fs
     from fabber_core_tpu_torch.ops import fused_vb as fv
     from fabber_core_tpu_torch.ops import fused_whole as fw
     ap = argparse.ArgumentParser()
@@ -192,6 +206,28 @@ def main():
     plane = cs.pattern_plane(design, 2, NV, gen, device)
     ppath = {src: built[src][0] for src in SOURCES}
     times = {}
+    # kernels 1, 2 and 3 at phase 5's shape (poly P=3, maxits)
+    q1 = np.ones(cs.NT)
+    tc = fs.pack_mxu_consts(design, q1, cs.NT, torch.float32, device)
+    ac = fs.pack_solve_consts(design, q1, cs.NT, torch.float32)
+    c_post = (cs.NT - 1) * 0.5 + 1e-6
+    sc = fs.pack_spectral_consts(design, q1, cs.NT, np.full(3, 1e-12), 1e-6,
+                                 c_post, 1e-8, 50.0, torch.float32,
+                                 (-100.0, c_post + 0.5))
+    pm = torch.zeros((3, NV), device=device)
+    stats = fs.spectral_stats(plane, tc, ac)
+    for name, run, src in (
+            ("kernel 1 P=3 staged", lambda: fs.spectral_stats(plane, tc, ac),
+             "spectral_stats.cu"),
+            ("kernel 2 P=3 maxits",
+             lambda: fs.spectral_core(*stats, pm, sc, cs.ITERS),
+             "spectral_core.cu"),
+            ("kernel 3 P=3 maxits staged",
+             lambda: fs.spectral_fused(plane, tc, ac, pm, sc, cs.ITERS),
+             "spectral_fused.cu")):
+        turns(card, name, run, SOURCES[src], ppath[src], times)
+    del stats, pm
+    torch.cuda.empty_cache()
     for nq in (1, 2):
         a = cs.whole_inputs(design, cs.group_masks(nq), plane, device)
         turns(card, f"kernel 4 P=3 Q={nq} maxits",

@@ -798,19 +798,27 @@ def test_spectral_fused_occupancy_queries(cuda):
     assert fs.fused_vb(106, 3) == 128
     assert _cuda.fused_occupancy(3, 0, 48, 106) == -1
     assert _cuda.fused_occupancy(3, 0, 128, 500) == -1
-    assert _cuda.fused_occupancy(9, 0, 32, 106) == -1
+    assert _cuda.fused_occupancy(26, 0, 32, 106) == -1
+    # P = 9: a per-shape instance, its factor and constants beside the rows
+    assert _cuda.fused_occupancy(9, 0, 128, 106) * 4 \
+        >= _cuda.TILE_MIN_WARPS
     assert _cuda.fused_occupancy(3, 4, 128, 106) == -1
 
 
 def test_whole_instances_are_the_listed_ones(cuda):
-    """The route gate's instance query answers from the one list,
-    csrc/whole_device.cuh FABBER_WHOLE_INSTANCES."""
+    """The library's instance query answers from the one list,
+    csrc/whole_device.cuh FABBER_WHOLE_INSTANCES; the route gate's adds
+    the per-shape instances (P <= 20, Q <= 4), decided without a build."""
+    from fabber_core_tpu_torch.ops import _cuda
     from fabber_core_tpu_torch.ops.fused_loop import whole_instantiated
     for p in range(1, 9):
         for nq in (1, 2, 3):
-            assert whole_instantiated(p, nq) == (nq < 3 or p <= 5)
-        assert not whole_instantiated(p, 4)
-    assert not whole_instantiated(9, 1)
+            assert _cuda.has_whole_instance(p, nq) == (nq < 3 or p <= 5)
+        assert not _cuda.has_whole_instance(p, 4)
+        assert whole_instantiated(p, 4)
+    assert not _cuda.has_whole_instance(9, 1)
+    assert whole_instantiated(9, 1) and whole_instantiated(20, 4)
+    assert not whole_instantiated(21, 1) and not whole_instantiated(3, 5)
 
 
 def wide_linear_runs(cuda, tmp_path, p, extra, nq=2, ar=False, nv=3000,
@@ -1673,7 +1681,8 @@ def test_stats_occupancy_queries(cuda):
         assert _cuda.stats_occupancy(p, 0, 106) >= 1
     assert _cuda.stats_occupancy(3, 48, 106) == -1
     assert _cuda.stats_occupancy(3, 128, 500) == -1
-    assert _cuda.stats_occupancy(9, 32, 106) == -1
+    assert _cuda.stats_occupancy(26, 32, 106) == -1
+    assert _cuda.stats_occupancy(9, 128, 106) * 4 >= _cuda.TILE_MIN_WARPS
 
 
 # -- the AR(1) whole-loop kernel (fused_ar_loop.cu, kernel 9) ------------------
@@ -1682,17 +1691,19 @@ AR_INSTANCES = [(p, nq) for p in (1, 2, 3, 4) for nq in (1, 2)]
 AR_IDS = [f"P{p}-Q{nq}" for p, nq in AR_INSTANCES]
 
 
-def ar_inputs(p, nq, nv, device, seed=0):
+def ar_inputs(p, nq, nv, device, seed=0, cosine=False):
     """Kernel 9's inputs: the plain statistics (float32, on the card) of
-    a poly design scaled to [0, 1] and AR(1) data (alpha 0.4 per echo,
-    noise sd log-uniform over 1e-2..1 per voxel), the constants of the
-    model-default noise, weak priors around random means."""
+    a poly design scaled to [0, 1] (cosine: design(p, nt), where powers
+    of t past degree 4 are beyond float32) and AR(1) data (alpha 0.4 per
+    echo, noise sd log-uniform over 1e-2..1 per voxel), the constants of
+    the model-default noise, weak priors around random means."""
     from fabber_core_tpu_torch.noise.ar1 import Ar1NoiseModel
     from fabber_core_tpu_torch.ops import fused_loop_ar as fa
     from fabber_core_tpu_torch.options import RunOptions
     rng = np.random.default_rng(seed + 10 * p + nq)
     nt = 30 * nq
-    d = (np.arange(1, nt + 1.0)[:, None] / nt) ** np.arange(p)[None]
+    d = design(p, nt) if cosine else \
+        (np.arange(1, nt + 1.0)[:, None] / nt) ** np.arange(p)[None]
     e = rng.standard_normal((nt, nv))
     for k in range(nq, nt):
         e[k] += 0.4 * e[k - nq]
@@ -1762,13 +1773,17 @@ def test_ar_kernel_detector_matches_plain(cuda, p, nq, kind):
 
 
 def test_ar_instances_are_the_listed_ones(cuda):
-    """The route gate's instance query answers from the one list,
-    csrc/fused_ar_loop.cu FABBER_AR_INSTANCES."""
+    """The library's instance query answers from the one list,
+    csrc/fused_ar_loop.cu FABBER_AR_INSTANCES; the route gate's adds the
+    per-shape instances (P 9-16), decided without a build."""
+    from fabber_core_tpu_torch.ops import _cuda
     from fabber_core_tpu_torch.ops.fused_loop_ar import ar_instantiated
     for p in range(1, 9):
-        assert ar_instantiated(p, 1) and ar_instantiated(p, 2)
+        assert _cuda.has_ar_instance(p, 1) and _cuda.has_ar_instance(p, 2)
         assert not ar_instantiated(p, 3)
-    assert not ar_instantiated(9, 1)
+    assert not _cuda.has_ar_instance(9, 1)
+    assert ar_instantiated(9, 1) and ar_instantiated(16, 2)
+    assert not ar_instantiated(17, 1)
 
 
 def test_engine_on_card_refuses_ar_runs_without_an_instance(cuda,
@@ -1791,36 +1806,19 @@ def test_engine_on_card_refuses_ar_runs_without_an_instance(cuda,
     ids=["pattern-1234", "P9", "P6-pattern-123"])
 def test_fixed_design_on_card_refuses_shapes_without_an_instance(
         cuda, tmp_path, p, extra):
-    """Where kernels 4 and 5 have no (P, Q) instance (Q = 4; P = 9; Q = 3
-    past P = 5) the card raises at construction, naming kernel 4 and the
-    shape, and launches none of kernels 4, 5 and 9: the JAX engine runs
-    its kernel there, so the card takes no other route. The CPU runs the
-    route's plain version."""
-    from fabber_core_tpu_torch.inference.vb import VBInference
-    from fabber_core_tpu_torch.io import matfile
-    from fabber_core_tpu_torch.models import get_model_class
-    from fabber_core_tpu_torch.ops import fused_loop as fl
-    from fabber_core_tpu_torch.ops import fused_loop_ar as fa
+    """Where kernels 4 and 5 have no prebuilt (P, Q) instance (Q = 4;
+    P = 9; Q = 3 past P = 5) the card builds the per-shape one at the
+    route's first launch and runs kernel 4 there, as the JAX engine runs
+    its kernel: 'pallas-whole', one launch, a per-shape one, held to the
+    CPU's float64 run by assert_run_near_f64."""
     from fabber_core_tpu_torch.ops import fused_whole as fw
-    from fabber_core_tpu_torch.options import RunOptions
     nq = len(extra["noise-pattern"])
-    path = str(tmp_path / f"cosine{p}.mat")
-    matfile.write_vest(design(p, 30), path)
-    opts = RunOptions({"model": "linear", "basis": path, "noise": "white",
-                       "dtype": "single", **extra})
-    data = np.random.default_rng(p).standard_normal((64, 30)).astype(
-        np.float32)
-    kernels = (fw.fused_whole, fl.fused_vb_loop, fa.fused_ar_loop)
-    before = [k.launches for k in kernels]
-    with pytest.raises(NotImplementedError,
-                       match=rf"no \(P={p}, Q={nq}\) instance of kernel 4 "):
-        VBInference(get_model_class("linear")(opts), opts, data,
-                    device=cuda)
-    assert [k.launches for k in kernels] == before
-    eng = VBInference(get_model_class("linear")(opts), opts, data,
-                      device="cpu")
-    assert eng.route == "pallas-whole"
-    assert np.isfinite(eng.run().means).all()
+    before = fw.fused_whole.instance_launches
+    g, eng, launched, c32, c64 = wide_linear_runs(cuda, tmp_path, p, extra,
+                                                  nq=nq)
+    assert eng.route == "pallas-whole" and launched == [1, 0, 0]
+    assert fw.fused_whole.instance_launches == before + 1
+    assert_run_near_f64(g, c32, c64)
 
 
 @pytest.mark.parametrize("extra", [
@@ -2550,3 +2548,169 @@ def test_generated_p6_plugin_on_card(cuda, port_registry):
     assert eng.functor is not None and eng.functor.nparams == 6
     assert ("nl_loop", 1) in eng.functor.libs and launched == 1
     assert_runs_close(g, c)
+
+
+# -- the per-shape instances past the prebuilt lists (ops/_cuda.py
+# build_instance, built at their first launch) -------------------------------
+
+WIDE_SPECTRAL = [(12, None), (12, "trialmode"), (20, None),
+                 (20, "trialmode"), (25, None)]
+
+
+@pytest.mark.parametrize("p,kind", WIDE_SPECTRAL,
+                         ids=[f"P{p}-{k or 'maxits'}"
+                              for p, k in WIDE_SPECTRAL])
+def test_spectral_instances_match_plain(cuda, p, kind):
+    """Kernels 1, 2 and 3 past P = 8 (per-shape instances: the block's
+    factor of A and the constants in shared memory), T=106, ragged voxel
+    count: kernel 1 staged equal to streamed bit for bit and within phase
+    3's bounds of its plain version (m0 1e-3, rtqr 1e-4, D'Qy 1e-5);
+    kernel 2 on its statistics and kernel 3 (staged and streamed) on the
+    data held to their plain versions at float64 (assert_near_f64, a
+    detector mode by decision share); each launch a per-shape one."""
+    nt, nv = 106, 20_001
+    data, tc, ac, pm, sc = fused_inputs(p, nt, nv, cuda)
+    before = fs.spectral_stats.instance_launches
+    ks = fs.spectral_stats(data, tc, ac)
+    assert fs.spectral_stats.instance_launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(
+        ks, fs.spectral_stats(data, tc, ac, _vb=0)))
+    ps = fs.spectral_stats_plain(data, tc, ac)
+    a64 = ac.double().reshape(p, p).to(cuda)
+    assert rel(ks[0], ps[0]) <= 1e-3 and rel(ks[1], ps[1]) <= 1e-4
+    assert rel(ks[2].double() + a64 @ ks[0].double(),
+               ps[2].double() + a64 @ ps[0].double()) <= 1e-5
+    det, cap = fused_detector(kind)
+
+    def dec(o):
+        return decisions(o[6][0], o[3][0] < 0)
+
+    def tidy(o):
+        return (o[0], o[1], o[2], o[3].abs()) + tuple(o[4:])
+
+    def held(k, r32, r64):
+        if det is None:
+            assert_near_f64(k, r32, r64)
+        else:
+            assert_detector_near_f64(tidy(k), tidy(r32), tidy(r64), dec(k),
+                                     dec(r32), dec(r64))
+    before = fs.spectral_core.instance_launches
+    k = fs.spectral_core(*ks, pm, sc, cap, det)
+    assert fs.spectral_core.instance_launches == before + 1
+    held(k, fs.spectral_core_plain(*ks, pm, sc, cap, det),
+         fs.spectral_core_plain(*to_f64(ks), pm.double(), sc.double(), cap,
+                                det))
+    r32 = fs.spectral_fused_plain(data, tc, ac, pm, sc, cap, det)
+    r64 = fs.spectral_fused_plain(data.double(), tc.double(), ac.double(),
+                                  pm.double(), sc.double(), cap, det)
+    for vb in (None, 0):
+        before = fs.spectral_fused.instance_launches
+        k = fs.spectral_fused(data, tc, ac, pm, sc, cap, det, _vb=vb)
+        assert fs.spectral_fused.instance_launches == before + 1
+        held(k, r32, r64)
+
+
+WIDE_WHOLE = [(12, 2, None), (12, 2, "trialmode"), (12, 1, "lm"),
+              (4, 4, None), (7, 3, None), (16, 1, None), (20, 1, None),
+              (17, 2, "trialmode")]
+
+
+@pytest.mark.parametrize("p,nq,kind", WIDE_WHOLE,
+                         ids=[f"P{p}-Q{q}-{k or 'maxits'}"
+                              for p, q, k in WIDE_WHOLE])
+def test_whole_instances_match_plain(cuda, p, nq, kind):
+    """Kernel 4's per-shape instances (D'Q_qD from a device buffer) past
+    the prebuilt list, in maxits and its detector modes, held to the
+    plain version at float64 (assert_near_f64; a detector mode by
+    decision share); kernel 5 at the same (P, Q) under maxits where the
+    route gate serves it (P <= 16 at Q > 1, 17 at Q = 1)."""
+    from fabber_core_tpu_torch.ops import fused_loop as fl
+    from fabber_core_tpu_torch.ops import fused_whole as fw
+    args = whole_inputs(p, nq, 20_001, cuda, seed=3)
+    before = fw.fused_whole.instance_launches
+    if kind is None:
+        k = fw.fused_whole(*args, 10)
+        assert_near_f64(k, fw.fused_whole_plain(*args, 10),
+                        fw.fused_whole_plain(*to_f64(args), 10))
+    else:
+        det, cap = whole_detector(kind, p, nq)
+        k = fw.fused_whole(*args, cap, -1.0, det)
+
+        def dec(o):
+            return decisions(o[6][0], torch.zeros_like(o[6][0]))
+        r32 = fw.fused_whole_plain(*args, cap, -1.0, det)
+        r64 = fw.fused_whole_plain(*to_f64(args), cap, -1.0, det)
+        assert_detector_near_f64(k, r32, r64, dec(k), dec(r32), dec(r64))
+    assert fw.fused_whole.instance_launches == before + 1
+    if kind is None and p <= (17 if nq == 1 else 16):
+        data, tc, consts, pm, pp = args
+        stats = tuple(x.contiguous() for x in fw.whole_stats_plain(
+            data, tc, consts, p, nq))
+        before = fl.fused_vb_loop.instance_launches
+        k = fl.fused_vb_loop(*stats, consts, pm, pp, 10)
+        assert fl.fused_vb_loop.instance_launches == before + 1
+        r32 = fl.fused_vb_loop_plain(*stats, consts, pm, pp, 10)
+        r64 = fl.fused_vb_loop_plain(*to_f64(stats), consts, pm.double(),
+                                     pp.double(), 10)
+        e = sd_err(k[0], r64[0], r64[2])
+        assert e <= max(1e-3, 2 * sd_err(r32[0], r64[0], r64[2])), e
+        for i in range(1, 5):
+            e = lane_rel(k[i], r64[i])
+            assert e <= max(1e-3, 2 * lane_rel(r32[i], r64[i])), (i, e)
+
+
+WIDE_AR = [(12, 1, None), (12, 2, None), (16, 1, None),
+           (12, 1, "pointzeroone")]
+
+
+@pytest.mark.parametrize("p,nq,kind", WIDE_AR,
+                         ids=[f"P{p}-Q{q}-{k or 'maxits'}"
+                              for p, q, k in WIDE_AR])
+def test_ar_instances_match_plain(cuda, p, nq, kind):
+    """Kernel 9's per-shape instances (P 9-16, D'M_sD from a device
+    buffer, -fmad=false) on a cosine design, held to the plain version at
+    float64 (assert_near_f64; pointzeroone by decision share)."""
+    from fabber_core_tpu_torch.ops import fused_loop_ar as fa
+    args, nm = ar_inputs(p, nq, 20_001, cuda, cosine=True)
+    before = fa.fused_ar_loop.instance_launches
+    if kind is None:
+        k = fa.fused_ar_loop(*args, 10)
+        assert_near_f64(k, fa.fused_ar_loop_plain(*args, 10),
+                        fa.fused_ar_loop_plain(*to_f64(args), 10))
+    else:
+        det = ar_detector(kind, p, nq, nm.ntimes)
+        cap = int(det["det"].max_iterations) + 2
+        k = fa.fused_ar_loop(*args, cap, det)
+        r32 = fa.fused_ar_loop_plain(*args, cap, det)
+        r64 = fa.fused_ar_loop_plain(*to_f64(args), cap, det)
+
+        def dec(o):
+            return decisions(o[9][0], o[6][0] < 0)
+
+        def tidy(o):
+            return o[:6] + (o[6].abs(),) + o[7:]
+        assert_detector_near_f64(tidy(k), tidy(r32), tidy(r64), dec(k),
+                                 dec(r32), dec(r64))
+    assert fa.fused_ar_loop.instance_launches == before + 1
+
+
+def test_failed_instance_build_raises_and_runs_nothing(cuda, tmp_path,
+                                                       monkeypatch):
+    """A per-shape build nvcc refuses (here: an nvcc that fails) raises at
+    the route's first launch with nvcc's output, and nothing runs in its
+    place: no plain torch on the card."""
+    from fabber_core_tpu_torch import FabberError
+    from fabber_core_tpu_torch.ops import _cuda
+    from fabber_core_tpu_torch.ops import fused_loop_ar as fa
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: refused today' >&2\nexit 1\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_cuda, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_cuda, "_inst_libs", {})
+    args, _ = ar_inputs(11, 1, 1000, cuda, cosine=True)
+    before = (fa.fused_ar_loop.launches, fa.fused_ar_loop.instance_launches)
+    with pytest.raises(FabberError, match="refused today"):
+        fa.fused_ar_loop(*args, 10)
+    assert before == (fa.fused_ar_loop.launches,
+                      fa.fused_ar_loop.instance_launches)

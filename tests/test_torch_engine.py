@@ -189,11 +189,14 @@ def test_former_route_gate_matches_jax(extra, route, jmode):
 
 
 def test_parameters_above_the_spectral_kernels_take_spectral(tmp_path):
-    """P above the spectral kernels' instances (MAX_P = 8) takes the
-    plain spectral route: a well-conditioned P=9 linear design against
-    the JAX spectral route. (Poly degree 8, the same gate, is not
-    compared: its uncentred powers of t make the float32 fixed point
-    meaningless in both packages, ROADMAP Queue 3.)"""
+    """P above the prebuilt spectral kernels (P <= 8) takes the
+    spectral-whole route, as the JAX engine on a TPU does (its gate
+    admits P <= 25; on the card kernels 1 and 2 are per-shape instances,
+    here their plain versions): a well-conditioned P=9 linear design
+    against the JAX engine's spectral route, the same eigenbasis fixed
+    point in XLA. (Poly degree 8, the same gate, is not compared: its
+    uncentred powers of t make the float32 fixed point meaningless in
+    both packages, ROADMAP Queue 3.)"""
     nt, nv = 30, 128
     t = np.arange(nt) / nt
     design = np.stack([np.ones(nt)] + [np.cos(np.pi * k * t)
@@ -207,7 +210,7 @@ def test_parameters_above_the_spectral_kernels_take_spectral(tmp_path):
     opts = RunOptions({**BASE, **extra})
     eng = VBInference(get_model_class("linear")(opts), opts, data,
                       device="cpu")
-    assert eng.nparams == 9 and eng.route == "spectral"
+    assert eng.nparams == 9 and eng.route == "spectral-whole"
     rp = eng.run()
     jo = JOptions({**BASE, **extra, "engine-kernel": "spectral"})
     je = JVB(jmodel("linear")(jo), jo, data, np.zeros((nv, 3)))
@@ -215,7 +218,7 @@ def test_parameters_above_the_spectral_kernels_take_spectral(tmp_path):
     assert_match(je.run(), rp)
     deg8 = RunOptions({**BASE, "degree": "8"})
     assert VBInference(get_model_class("poly")(deg8), deg8, make_data(16),
-                       device="cpu").route == "spectral"
+                       device="cpu").route == "spectral-whole"
 
 
 # gates that used to raise: each now runs a nonlinear route of the port,

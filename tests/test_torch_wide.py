@@ -24,7 +24,9 @@ to P = 8), the engines' runs at P = 6, and the card's route gate.
   route gate   vb.py require_card_instance on every branch and the
                messages it raises, and the engines' gates with the
                library's instance queries stood in for (the card tests
-               ask the real ones).
+               ask the real ones): kernels 6-8 raise past their lists
+               and functors, kernels 4, 5 and 9 take per-shape instances
+               past theirs (tests/test_torch_wide_design.py).
 """
 
 from pathlib import Path
@@ -456,28 +458,23 @@ def on_card(eng):
     ({"engine-kernel": "pallas-loop"}, "pallas-loop"),
     ({"noise": "ar"}, "pallas-loop-ar")])
 def test_fixed_design_gate_on_card(tmp_path, monkeypatch, extra, route):
-    """On the card a fixed-design kernel route without its (P, Q)
-    instance raises before anything launches, naming the kernel; with
-    the instance it stays. The library's instance queries are stood in
-    for (their lists: P <= 8, Q <= 2 at P > 5)."""
+    """On the card a fixed-design kernel route keeps its kernel past the
+    prebuilt lists, at (P=8, Q=4) and at P=9: a per-shape instance
+    serves it (ops/_cuda.py build_instance), built at the route's first
+    launch, so choosing the route builds nothing and raises nothing. The
+    library's instance queries are stood in for (their lists: P <= 8, Q
+    <= 2 at P > 5)."""
     monkeypatch.setattr(_cuda, "has_whole_instance",
                         lambda p, q: p <= 8 and q <= (3 if p <= 5 else 2))
     monkeypatch.setattr(_cuda, "has_ar_instance",
                         lambda p, q: p <= 8 and q <= 2)
-    eng = linear_engine(tmp_path, 8, extra)
-    assert eng.route == route
-    kernel = vb_module.ROUTE_KERNEL[route]
-    if route == "pallas-whole":          # no (8, 4) instance
-        with pytest.raises(NotImplementedError,
-                           match=r"no \(P=8, Q=4\) instance of kernel 4 "):
-            on_card(eng)
-    else:
+    built = []
+    monkeypatch.setattr(_cuda, "build_instance", lambda *a: built.append(a))
+    for p in (8, 9):
+        eng = linear_engine(tmp_path, p, extra)
+        assert eng.route == route
         assert on_card(eng).route == route
-    eng = linear_engine(tmp_path, 9, extra)
-    with pytest.raises(NotImplementedError) as err:
-        on_card(eng)
-    assert f"(P=9, Q={eng.noise.nphis}) instance of kernel {kernel}" \
-        in str(err.value) and eng.route == route
+    assert built == []
 
 
 def test_nonlinear_gate_on_card_builds_only_what_runs(monkeypatch):

@@ -92,6 +92,17 @@ inline int cudaGetLastError() { return 0; }
 """
 
 
+# the prebuilt instance lists (csrc/spectral_device.cuh kMaxP, kernel 9's
+# FABBER_AR_INSTANCES: P <= 8; csrc/whole_device.cuh
+# FABBER_WHOLE_INSTANCES); the kernel functions below take a per-shape
+# instance's kernel (the *_wide_fn at the end) past them
+SPECTRAL_PREBUILT_P = 8
+
+
+def whole_prebuilt(p, q):
+    return p <= 8 and (q <= 2 or (q == 3 and p <= 5))
+
+
 def have_gxx():
     return shutil.which("g++") is not None
 
@@ -109,7 +120,8 @@ def _write_headers(d, double=True):
     (d / "cuda_runtime.h").write_text(SHIM)
     (d / "dual.cuh").write_text((CSRC / "dual.cuh").read_text())
     for name in ("vb_device.cuh", "detectors.cuh", "tile.cuh",
-                 "spectral_device.cuh", "whole_device.cuh"):
+                 "spectral_device.cuh", "whole_device.cuh",
+                 "fused_whole_body.inc", "fused_ar_loop_body.inc"):
         (d / name).write_text(conv((CSRC / name).read_text()))
     for name in ("fused_nl_loop.cuh", "fused_vb_iter.cuh",
                  "fused_nlls.cuh"):
@@ -435,6 +447,8 @@ def whole_kernel_fn(p, q, tmpdir):
     tconsts [(P + QP + Q), T], pm, pp [P,V]) -> the seven outputs (means,
     prec, cov, b, c, then fkqk and ftr [Q,V] under maxits or F and the
     iteration count [1,V] under a detector)."""
+    if not whole_prebuilt(p, q):
+        return whole_wide_fn(p, q, tmpdir)
     d = Path(tmpdir)
     _write_headers(d)
     src = (CSRC / "fused_whole.cu").read_text()
@@ -484,29 +498,7 @@ extern "C" void host_whole(int staged, int n_iters, double locked_sd,
 }}
 """
     lib = _build(d, f"whole_p{p}_q{q}", '#include "cuda_runtime.h"\n' + src)
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.host_whole.restype = None
-    lib.host_whole.argtypes = [i32, i32, ctypes.c_double, vp, vp,
-                               ctypes.c_double, vp, vp, vp, i32,
-                               ctypes.c_longlong]
-
-    def fn(staged, n_iters, locked_sd, consts, det, det_consts, data,
-           tconsts, pm, pp):
-        nt, nv = data.shape
-        fq = q if det[0] == 0 else 1
-        outs = [np.zeros(s) for s in ((p, nv), (p, p, nv), (p, p, nv),
-                                      (q, nv), (q, nv), (fq, nv), (fq, nv))]
-        ins = [np.ascontiguousarray(x, np.float64)
-               for x in (data, tconsts, pm, pp)]
-        in_ptrs = (ctypes.c_void_p * 4)(*[x.ctypes.data for x in ins])
-        out_ptrs = (ctypes.c_void_p * 7)(*[o.ctypes.data for o in outs])
-        cs = np.ascontiguousarray(consts, np.float64)
-        dcs = np.ascontiguousarray(det_consts, np.float64)
-        dk = (ctypes.c_int * 4)(det[0], det[2], det[3], det[4])
-        lib.host_whole(int(staged), n_iters, locked_sd, _ptr(cs), dk,
-                       det[1], _ptr(dcs), in_ptrs, out_ptrs, nt, nv)
-        return outs
-    return fn
+    return _whole_lib_fn(lib, p, q)
 
 
 def loop_kernel_fn(p, q, tmpdir):
@@ -514,6 +506,8 @@ def loop_kernel_fn(p, q, tmpdir):
     at double, one block of one thread per voxel: fn(n_iters, locked_sd,
     consts [Q*P*P + 4Q], m0 [P,V], rtqr [Q,V], dtqr [Q,P,V], pm, pp
     [P,V]) -> (means [P,V], prec, cov [P,P,V], b, c [Q,V])."""
+    if not whole_prebuilt(p, q):
+        return loop_wide_fn(p, q, tmpdir)
     d = Path(tmpdir)
     _write_headers(d)
     src = _kernel_source("fused_loop.cu", "// ---- launch and C entry points",
@@ -560,6 +554,8 @@ def stats_kernel_fn(p, tmpdir, double=True):
     16-byte chunks, its rotated rows and the ragged last block run as on
     the card; offset puts the plane that many elements past the start of
     its buffer (rows off 16-byte alignment)."""
+    if p > SPECTRAL_PREBUILT_P:
+        return stats_wide_fn(p, tmpdir, double)
     d = Path(tmpdir)
     _write_headers(d, double)
     real = "double" if double else "float"
@@ -632,6 +628,8 @@ def ar_kernel_fn(p, nq, tmpdir, double=True):
     [3nq,V], dmr [3nq,P,V], pm, pp [P,V]) -> the eight planes (means,
     prec, cov, amu, acov, aprec, b, c), then f and its [1,V] under a
     detector (kind > 0)."""
+    if p > SPECTRAL_PREBUILT_P:
+        return ar_wide_fn(p, nq, tmpdir, double)
     d = Path(tmpdir)
     _write_headers(d, double)
     real = "double" if double else "float"
@@ -763,6 +761,8 @@ def core_kernel_fn(p, tmpdir, double=True):
     pm [P,V], consts [4P^2+2P+6], n_iters, det (kind, tol, max_its,
     max_trials, init_save)) -> the seven outputs (means, prec, cov, b, c,
     F, tr or the lane's iteration count)."""
+    if p > SPECTRAL_PREBUILT_P:
+        return core_wide_fn(p, tmpdir, double)
     d = Path(tmpdir)
     _write_headers(d, double)
     real = "double" if double else "float"
@@ -833,6 +833,8 @@ def fused_kernel_fn(p, tmpdir, double=True):
     blocks of vb lanes, each lane a thread meeting the others at the
     staging barrier (stats_kernel_fn's staged form), the plane offset
     floats into its buffer."""
+    if p > SPECTRAL_PREBUILT_P:
+        return fused_wide_fn(p, tmpdir, double)
     d = Path(tmpdir)
     _write_headers(d, double)
     real = "double" if double else "float"
@@ -926,5 +928,376 @@ extern "C" void host_fused(int vb, const {real}* data, const {real}* tc,
         dk = (ctypes.c_int * 4)(det[0], det[2], det[3], det[4])
         lib.host_fused(vb if staged else 0, *(_ptr(x) for x in ins), n_iters,
                        dk, det[1], nt, nv, out_ptrs)
+        return outs
+    return fn
+
+
+# -- the per-shape instances' kernels (P past the prebuilt lists) ----------
+#
+# The wide kernels (csrc/spectral_*.cu spectral_*_wide_kernel,
+# fused_whole.cu fused_whole_wide_kernel, fused_loop.cu
+# fused_loop_wide_kernel, fused_ar_loop.cu fused_ar_loop_wide_kernel)
+# read their constants through pointers (the device buffers on the card):
+# here host arrays. Each fn takes the arguments of its prebuilt
+# counterpart's fn above.
+
+def stats_wide_fn(p, tmpdir, double=True):
+    """Kernel 1's per-shape instance at P (stats_kernel_fn's fn): both
+    forms, the block's factor of A by the block (factor_block)."""
+    d = Path(tmpdir)
+    _write_headers(d, double)
+    real = "double" if double else "float"
+    src = _kernel_source("spectral_stats.cu",
+                         "// ---- launch and C entry points", double) + f"""
+}}  // namespace
+extern "C" void host_stats(int vb, const {real}* data, const {real}* tc,
+                           const {real}* a, int nt, long long V, {real}* m0,
+                           {real}* rtqr, {real}* dtqr) {{
+  if (vb == 0) {{
+    for (long long v = 0; v < V; ++v) {{
+      blockIdx.x = (unsigned)v;
+      spectral_stats_wide_kernel<{p}, false>(data, tc, nt, V, a, m0, rtqr,
+                                             dtqr);
+    }}
+    return;
+  }}
+  FabberHostBarrier bar;
+  bar.n = (unsigned)vb;
+  fabber_host_barrier = &bar;
+  blockDim.x = (unsigned)vb;
+  for (long long b = 0; b * vb < V; ++b) {{
+    blockIdx.x = (unsigned)b;
+    std::vector<std::thread> lanes;
+    for (int l = 0; l < vb; ++l)
+      lanes.emplace_back([=] {{
+        threadIdx.x = (unsigned)l;
+        spectral_stats_wide_kernel<{p}, true>(data, tc, nt, V, a, m0, rtqr,
+                                              dtqr);
+      }});
+    for (auto& th : lanes) th.join();
+  }}
+  blockDim.x = 1;
+  fabber_host_barrier = nullptr;
+}}
+"""
+    lib = _build(d, f"stats_wide_p{p}_{real}", '#include "cuda_runtime.h"\n'
+                 "#include <thread>\n#include <vector>\n" + src)
+    vp = ctypes.c_void_p
+    lib.host_stats.restype = None
+    lib.host_stats.argtypes = [ctypes.c_int, vp, vp, vp, ctypes.c_int,
+                               ctypes.c_longlong, vp, vp, vp]
+    dt = np.float64 if double else np.float32
+
+    def fn(staged, data, tconsts, aconsts, vb=32, offset=0):
+        nt, nv = data.shape
+        buf = np.zeros(data.size + offset, dt)
+        buf[offset:] = np.asarray(data, dt).ravel()
+        ins = [buf[offset:]] + [np.ascontiguousarray(x, dt)
+                                for x in (tconsts, aconsts)]
+        outs = [np.zeros(s, dt) for s in ((p, nv), (1, nv), (p, nv))]
+        lib.host_stats(vb if staged else 0, *(_ptr(x) for x in ins), nt, nv,
+                       *(_ptr(o) for o in outs))
+        return outs
+    return fn
+
+
+def core_wide_fn(p, tmpdir, double=True):
+    """Kernel 2's per-shape instance at P (core_kernel_fn's fn), every
+    detector instance, its constants copied into the block's shared
+    memory."""
+    d = Path(tmpdir)
+    _write_headers(d, double)
+    real = "double" if double else "float"
+    src = _kernel_source("spectral_core.cu",
+                         "// ---- launch and C entry point", double) + f"""
+template <int KIND>
+static void run_all(const {real}* const* in, const {real}* k,
+                    const DetParams& det, int n_iters, long long V,
+                    {real}* const* out) {{
+  for (long long v = 0; v < V; ++v) {{
+    blockIdx.x = (unsigned)v;
+    spectral_core_wide_kernel<{p}, KIND>(in[0], in[1], in[2], in[3], k, det,
+                                         n_iters, V, out[0], out[1], out[2],
+                                         out[3], out[4], out[5], out[6]);
+  }}
+}}
+}}  // namespace
+extern "C" void host_core(const {real}* const* in, const {real}* k,
+                          const int* det, {real} det_tol, int n_iters,
+                          long long V, {real}* const* out) {{
+  const DetParams dp = {{det[0], det_tol, det[1], det[2], det[3]}};
+  switch (det[0]) {{
+    case 0: run_all<0>(in, k, dp, n_iters, V, out); break;
+    case 1: run_all<1>(in, k, dp, n_iters, V, out); break;
+    case 2: run_all<2>(in, k, dp, n_iters, V, out); break;
+    default: run_all<3>(in, k, dp, n_iters, V, out);
+  }}
+}}
+"""
+    lib = _build(d, f"core_wide_p{p}_{real}",
+                 '#include "cuda_runtime.h"\n' + src)
+    return _core_lib_fn(lib, p, double)
+
+
+def fused_wide_fn(p, tmpdir, double=True):
+    """Kernel 3's per-shape instance at P (fused_kernel_fn's fn, without
+    the offset): both forms and every detector instance."""
+    d = Path(tmpdir)
+    _write_headers(d, double)
+    real = "double" if double else "float"
+    src = _kernel_source("spectral_fused.cu",
+                         "// ---- launch and C entry points", double) + f"""
+struct HostArgs {{
+  const {real}* data;
+  const {real}* tc;
+  const {real}* a;
+  const {real}* pm;
+  const {real}* k;
+  int nt, n_iters;
+  long long V;
+  DetParams det;
+  {real}* const* out;
+}};
+template <int KIND, bool STAGED>
+static void lane(const HostArgs& a) {{
+  spectral_fused_wide_kernel<{p}, KIND, STAGED>(
+      a.data, a.tc, a.nt, a.V, a.a, a.pm, a.k, a.det, a.n_iters, a.out[0],
+      a.out[1], a.out[2], a.out[3], a.out[4], a.out[5], a.out[6]);
+}}
+template <int KIND>
+static void run(const HostArgs& a, int vb) {{
+  if (vb == 0) {{
+    for (long long v = 0; v < a.V; ++v) {{
+      blockIdx.x = (unsigned)v;
+      lane<KIND, false>(a);
+    }}
+    return;
+  }}
+  FabberHostBarrier bar;
+  bar.n = (unsigned)vb;
+  fabber_host_barrier = &bar;
+  blockDim.x = (unsigned)vb;
+  for (long long b = 0; b * vb < a.V; ++b) {{
+    blockIdx.x = (unsigned)b;
+    std::vector<std::thread> lanes;
+    for (int l = 0; l < vb; ++l)
+      lanes.emplace_back([=, &a] {{
+        threadIdx.x = (unsigned)l;
+        lane<KIND, true>(a);
+      }});
+    for (auto& th : lanes) th.join();
+  }}
+  blockDim.x = 1;
+  fabber_host_barrier = nullptr;
+}}
+}}  // namespace
+extern "C" void host_fused(int vb, const {real}* data, const {real}* tc,
+                           const {real}* aconsts, const {real}* pm,
+                           const {real}* consts, int n_iters, const int* det,
+                           {real} det_tol, int nt, long long V,
+                           {real}* const* out) {{
+  const HostArgs a = {{data, tc, aconsts, pm, consts, nt, n_iters, V,
+                      {{det[0], det_tol, det[1], det[2], det[3]}}, out}};
+  switch (det[0]) {{
+    case 0: run<0>(a, vb); break;
+    case 1: run<1>(a, vb); break;
+    case 2: run<2>(a, vb); break;
+    default: run<3>(a, vb);
+  }}
+}}
+"""
+    lib = _build(d, f"fused_wide_p{p}_{real}", '#include "cuda_runtime.h"\n'
+                 "#include <thread>\n#include <vector>\n" + src)
+    vp = ctypes.c_void_p
+    cr = ctypes.c_double if double else ctypes.c_float
+    lib.host_fused.restype = None
+    lib.host_fused.argtypes = [ctypes.c_int, vp, vp, vp, vp, vp, ctypes.c_int,
+                               vp, cr, ctypes.c_int, ctypes.c_longlong, vp]
+    dt = np.float64 if double else np.float32
+
+    def fn(staged, data, tconsts, aconsts, pm, consts, n_iters, det, vb=32,
+           offset=0):
+        nt, nv = data.shape
+        buf = np.zeros(data.size + offset, dt)
+        buf[offset:] = np.asarray(data, dt).ravel()
+        ins = [buf[offset:]] + [np.ascontiguousarray(x, dt) for x in
+                                (tconsts, aconsts, pm, consts)]
+        outs = [np.zeros(s, dt) for s in ((p, nv), (p, p, nv), (p, p, nv),
+                                          (1, nv), (1, nv), (1, nv), (1, nv))]
+        out_ptrs = (ctypes.c_void_p * 7)(*[o.ctypes.data for o in outs])
+        dk = (ctypes.c_int * 4)(det[0], det[2], det[3], det[4])
+        lib.host_fused(vb if staged else 0, *(_ptr(x) for x in ins), n_iters,
+                       dk, det[1], nt, nv, out_ptrs)
+        return outs
+    return fn
+
+
+def whole_wide_fn(p, q, tmpdir):
+    """Kernel 4's per-shape instance at (P, Q) (whole_kernel_fn's fn), at
+    double, both forms: WideConsts with D'Q_qD read through a pointer."""
+    d = Path(tmpdir)
+    _write_headers(d)
+    src = _kernel_source("fused_whole.cu", "// ---- launch and C entry points",
+                         True) + f"""
+template <int MODE, bool STAGED>
+static void run_all(const WideConsts& k, const double* const* in,
+                    double* const* out) {{
+  for (long long v = 0; v < k.V; ++v) {{
+    blockIdx.x = (unsigned)v;
+    fused_whole_wide_kernel<{p}, {q}, MODE, STAGED>(
+        k, in[0], in[1], in[2], in[3], out[0], out[1], out[2], out[3],
+        out[4], out[5], out[6]);
+  }}
+}}
+template <bool STAGED>
+static void run_mode(const WideConsts& k, const double* const* in,
+                     double* const* out) {{
+  if (k.d.kind == kMaxits) run_all<0, STAGED>(k, in, out);
+  else if (k.d.kind == kPointZeroOne) run_all<1, STAGED>(k, in, out);
+  else run_all<2, STAGED>(k, in, out);
+}}
+}}  // namespace
+extern "C" void host_whole(int staged, int n_iters, double locked_sd,
+                           const double* consts, const int* det,
+                           double det_tol, const double* det_consts,
+                           const double* const* in, double* const* out,
+                           int nt, long long V) {{
+  const int q = {q};
+  WideConsts k = make_wide_consts(q, n_iters, locked_sd, consts, consts,
+                                  q * {p} * {p}, nt, V);
+  for (int i = 0; i < q; ++i) k.lb_coeff[i] = det_consts[i];
+  k.f_const = det_consts[q];
+  k.d = {{det[0], det_tol, det[1], det[2], det[3]}};
+  if (staged) run_mode<true>(k, in, out);
+  else run_mode<false>(k, in, out);
+}}
+"""
+    lib = _build(d, f"whole_wide_p{p}_q{q}",
+                 '#include "cuda_runtime.h"\n' + src)
+    return _whole_lib_fn(lib, p, q)
+
+
+def _whole_lib_fn(lib, p, q):
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.host_whole.restype = None
+    lib.host_whole.argtypes = [i32, i32, ctypes.c_double, vp, vp,
+                               ctypes.c_double, vp, vp, vp, i32,
+                               ctypes.c_longlong]
+
+    def fn(staged, n_iters, locked_sd, consts, det, det_consts, data,
+           tconsts, pm, pp):
+        nt, nv = data.shape
+        fq = q if det[0] == 0 else 1
+        outs = [np.zeros(s) for s in ((p, nv), (p, p, nv), (p, p, nv),
+                                      (q, nv), (q, nv), (fq, nv), (fq, nv))]
+        ins = [np.ascontiguousarray(x, np.float64)
+               for x in (data, tconsts, pm, pp)]
+        in_ptrs = (ctypes.c_void_p * 4)(*[x.ctypes.data for x in ins])
+        out_ptrs = (ctypes.c_void_p * 7)(*[o.ctypes.data for o in outs])
+        cs = np.ascontiguousarray(consts, np.float64)
+        dcs = np.ascontiguousarray(det_consts, np.float64)
+        dk = (ctypes.c_int * 4)(det[0], det[2], det[3], det[4])
+        lib.host_whole(int(staged), n_iters, locked_sd, _ptr(cs), dk,
+                       det[1], _ptr(dcs), in_ptrs, out_ptrs, nt, nv)
+        return outs
+    return fn
+
+
+def loop_wide_fn(p, q, tmpdir):
+    """Kernel 5's per-shape instance at (P, Q) (loop_kernel_fn's fn), at
+    double."""
+    d = Path(tmpdir)
+    _write_headers(d)
+    src = _kernel_source("fused_loop.cu", "// ---- launch and C entry points",
+                         True) + f"""
+}}  // namespace
+extern "C" void host_loop(int n_iters, double locked_sd,
+                          const double* consts, const double* const* in,
+                          double* const* out, long long V) {{
+  const WideConsts k = make_wide_consts({q}, n_iters, locked_sd, consts,
+                                        consts, {q} * {p} * {p}, 1, V);
+  for (long long v = 0; v < V; ++v) {{
+    blockIdx.x = (unsigned)v;
+    fused_loop_wide_kernel<{p}, {q}>(k, in[0], in[1], in[2], in[3], in[4],
+                                     out[0], out[1], out[2], out[3], out[4]);
+  }}
+}}
+"""
+    lib = _build(d, f"loop_wide_p{p}_q{q}",
+                 '#include "cuda_runtime.h"\n' + src)
+    vp = ctypes.c_void_p
+    lib.host_loop.restype = None
+    lib.host_loop.argtypes = [ctypes.c_int, ctypes.c_double, vp, vp, vp,
+                              ctypes.c_longlong]
+
+    def fn(n_iters, locked_sd, consts, m0, rtqr, dtqr, pm, pp):
+        nv = m0.shape[-1]
+        ins = [np.ascontiguousarray(x, np.float64)
+               for x in (m0, rtqr, dtqr, pm, pp)]
+        outs = [np.zeros(s) for s in ((p, nv), (p, p, nv), (p, p, nv),
+                                      (q, nv), (q, nv))]
+        in_ptrs = (ctypes.c_void_p * 5)(*[x.ctypes.data for x in ins])
+        out_ptrs = (ctypes.c_void_p * 5)(*[o.ctypes.data for o in outs])
+        cs = np.ascontiguousarray(consts, np.float64)
+        lib.host_loop(n_iters, locked_sd, _ptr(cs), in_ptrs, out_ptrs, nv)
+        return outs
+    return fn
+
+
+def ar_wide_fn(p, nq, tmpdir, double=True):
+    """Kernel 9's per-shape instance at (P, nq) (ar_kernel_fn's fn):
+    WideArConsts with D'M_sD read through a pointer."""
+    d = Path(tmpdir)
+    _write_headers(d, double)
+    real = "double" if double else "float"
+    src = _kernel_source("fused_ar_loop.cu",
+                         "// ---- launch and C entry points", double) + f"""
+template <int MODE>
+static void run_all(const WideArConsts& k, const {real}* const* in,
+                    {real}* const* out) {{
+  for (long long v = 0; v < k.V; ++v) {{
+    blockIdx.x = (unsigned)v;
+    fused_ar_loop_wide_kernel<{p}, {nq}, MODE>(
+        k, in[0], in[1], in[2], in[3], in[4], out[0], out[1], out[2],
+        out[3], out[4], out[5], out[6], out[7], out[8], out[9]);
+  }}
+}}
+}}  // namespace
+extern "C" void host_ar(int n_iters, const {real}* consts, const int* det,
+                        {real} det_tol, {real} f_const, {real} lb_coeff,
+                        const {real}* const* in, {real}* const* out,
+                        long long V) {{
+  WideArConsts k = {{}};
+  k.dmd = DevRows{{consts}};
+  fill_ar_consts(k, kSpecs * {nq} * {p} * {p}, {nq}, n_iters, consts,
+                 det[0], det_tol, det[1], det[2], det[3], f_const, lb_coeff,
+                 V);
+  if (det[0] == 0) run_all<0>(k, in, out);
+  else run_all<1>(k, in, out);
+}}
+"""
+    lib = _build(d, f"ar_wide_p{p}_q{nq}_{real}",
+                 '#include "cuda_runtime.h"\n' + src)
+    vp = ctypes.c_void_p
+    cr = ctypes.c_double if double else ctypes.c_float
+    lib.host_ar.restype = None
+    lib.host_ar.argtypes = [ctypes.c_int, vp, vp, cr, cr, cr, vp, vp,
+                            ctypes.c_longlong]
+    dt = np.float64 if double else np.float32
+
+    def fn(n_iters, consts, det, elbo, m0, rmr, dmr, pm, pp):
+        nv = m0.shape[-1]
+        ins = [np.ascontiguousarray(x, dt) for x in (m0, rmr, dmr, pm, pp)]
+        shapes = [(p, nv), (p, p, nv), (p, p, nv)] + [(nq, nv)] * 5
+        if det[0] != 0:
+            shapes += [(1, nv), (1, nv)]
+        outs = [np.zeros(s, dt) for s in shapes]
+        in_ptrs = (ctypes.c_void_p * 5)(*[x.ctypes.data for x in ins])
+        out_ptrs = (ctypes.c_void_p * 10)(*([o.ctypes.data for o in outs]
+                                            + [None] * (10 - len(outs))))
+        cs = np.ascontiguousarray(consts, dt)
+        dk = (ctypes.c_int * 4)(det[0], det[2], det[3], det[4])
+        lib.host_ar(n_iters, _ptr(cs), dk, det[1], elbo[0], elbo[1],
+                    in_ptrs, out_ptrs, nv)
         return outs
     return fn

@@ -12,6 +12,7 @@
 
 #include "fused_nl_loop.cuh"
 
+#if !defined(FABBER_INST_P)
 // 1 when both nonlinear kernels are compiled for (kind, p, q), else 0.
 extern "C" int fabber_nl_has_instance(int kind, int p, int q) {
 #define FABBER_HAS(KIND, NP, MODEL, NQ) \
@@ -80,3 +81,44 @@ extern "C" int fabber_nl_occupancy(int kind, int p, int q, int mode, int vb,
 #undef FABBER_OCC
   return -1;
 }
+#else
+// A per-shape instance's entry points (ops/_cuda.py build_instance "nl":
+// the functor InstModel at (P, Q) = (FABBER_INST_P, FABBER_INST_Q), any
+// shape up to (kWideMaxP, kWideMaxQ)): fabber_fused_nl_loop's and
+// fabber_nl_occupancy's arguments; another (kind, p, q) returns
+// cudaErrorInvalidValue (-1 for the occupancy).
+extern "C" int fabber_inst_fused_nl_loop(
+    int kind, int p, int q, const int* tcodes_host, float dt, int n_iters,
+    int need_f, float locked_sd, const float* consts_host, int det_kind,
+    float det_tol, int det_max_its, int det_max_trials, int det_init_save,
+    const float* det_consts_host, const float* centre0, const float* pm,
+    const float* pp, const float* pd0, const float* data, const float* qw,
+    int nt, long long V, float* means, float* prec, float* cov, float* b,
+    float* c, float* fkqk, float* ftr, int vb, void* stream) {
+  constexpr int P = FABBER_INST_P, Q = FABBER_INST_Q;
+  static_assert(P == InstModel::P && P <= nl::kWideMaxP &&
+                    Q <= nl::kWideMaxQ,
+                "a kernel 6 instance within its limits");
+  VBParamsFor<P, Q> k;
+  NLDetConstsFor<Q> dc;
+  const long long smem = nl_smem(vb, nt, q);
+  if (kind != FABBER_INST_KIND || p != P || q != Q || smem < 0 ||
+      !nl_setup(p, q, tcodes_host, dt, n_iters, need_f, locked_sd,
+                consts_host, det_kind, det_tol, det_max_its, det_max_trials,
+                det_init_save, det_consts_host, pd0, nt, V, &k, &dc))
+    return (int)cudaErrorInvalidValue;
+  const float* const ins[7] = {centre0, pm, pp, pd0, data, nullptr, qw};
+  float* const outs[7] = {means, prec, cov, b, c, fkqk, ftr};
+  return launch<InstModel, Q>(k, dc, vb, smem, ins, outs,
+                              static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fabber_inst_nl_occupancy(int kind, int p, int q, int mode,
+                                        int vb, int nt) {
+  const long long smem = nl_smem(vb, nt, q);
+  if (kind != FABBER_INST_KIND || p != FABBER_INST_P || q != FABBER_INST_Q ||
+      smem < 0 || mode < 0 || mode > 2)
+    return -1;
+  return occupancy<InstModel, FABBER_INST_Q>(mode, vb, smem);
+}
+#endif

@@ -101,30 +101,50 @@ constexpr int kThreads = 128;
 
 // Everything a detector-mode launch adds: the detector's options and the
 // host float64 ELBO constants of VBInference._nl_fdet_consts, rounded to
-// float32.
-struct NLDetConsts {
+// float32. NLDetConsts has room for kMaxQ groups; a per-shape instance past
+// kMaxQ takes NLDetConstsFor<Q>, sized to its own.
+template <int NQ>
+struct NLDetConstsN {
+  static constexpr int NGROUPS = NQ;
   DetParams d;
-  float lb_coeff[kMaxQ];   // n_q/2 + c0_q, the coefficient of log b_q
+  float lb_coeff[NQ];      // n_q/2 + c0_q, the coefficient of log b_q
   float f_const;           // voxel-invariant ELBO terms at c_post
   float f_const_init;      // the same at c_init (freduce's initial F)
 };
+using NLDetConsts = NLDetConstsN<kMaxQ>;
+template <int Q>
+using NLDetConstsFor = NLDetConstsN<(Q <= kMaxQ ? kMaxQ : Q)>;
+
+// a host block with room for Q groups as the block of a Q-group instance
+template <int Q, class H>
+NLDetConstsFor<Q> det_consts_for(const H& dc) {
+  using N = NLDetConstsFor<Q>;
+  static_assert(H::NGROUPS >= Q, "a block with room");
+  N n = {};
+  n.d = dc.d;
+  constexpr int nq = N::NGROUPS < H::NGROUPS ? N::NGROUPS : H::NGROUPS;
+  for (int i = 0; i < nq; ++i) n.lb_coeff[i] = dc.lb_coeff[i];
+  n.f_const = dc.f_const;
+  n.f_const_init = dc.f_const_init;
+  return n;
+}
 
 // free_energy_from_parts with the noise shape fixed (the Gamma-function
 // terms live in base and lb_coeff), operation order of the TPU kernel's
 // assemble_f.
-template <int P, int Q, class K>
+template <int P, int Q, class K, class D>
 __device__ __forceinline__ float assemble_f(
-    const K& k, const NLDetConsts& dc, float base, const float* cen,
+    const K& k, const D& dc, float base, const float* cen,
     const float* b, const float* c, const float* covdiag, float logdet,
     const float* kqk, const float* trace, const float* pm, const float* pp) {
   float v = base - 0.5f * logdet;
-#pragma unroll
+FABBER_UNROLL
   for (int q = 0; q < Q; ++q) {
     const float phi = b[q] * c[q];
     v = v + dc.lb_coeff[q] * logf(b[q]) - phi * k.inv_b0[q] -
         0.5f * phi * kqk[q] - 0.5f * trace[q];
   }
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < P; ++i) {
     const float dm = cen[i] - pm[i];
     v = v - 0.5f * (dm * dm + covdiag[i]) * pp[i];
@@ -134,7 +154,7 @@ __device__ __forceinline__ float assemble_f(
 
 template <int P>
 __device__ __forceinline__ void packed_diag(const float* packed, float* d) {
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < P; ++i) d[i] = packed[tri(i, i)];
 }
 
@@ -146,11 +166,11 @@ __device__ __forceinline__ void store_state(
     float* __restrict__ prec_out, float* __restrict__ cov_out,
     float* __restrict__ b_out, float* __restrict__ c_out, long long V,
     long long v) {
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < P; ++i) means_out[(size_t)i * V + v] = means[i];
   store_full<P>(prec, prec_out, V, v);
   store_full<P>(cov, cov_out, V, v);
-#pragma unroll
+FABBER_UNROLL
   for (int q = 0; q < Q; ++q) {
     b_out[(size_t)q * V + v] = b[q];
     c_out[(size_t)q * V + v] = c[q];
@@ -161,7 +181,8 @@ __device__ __forceinline__ void store_state(
 // STAGED: the passes read the block's shared tile (tile.cuh)
 template <class M, int Q, int MODE, bool STAGED>
 __global__ void __launch_bounds__(kThreads)
-fused_nl_loop_kernel(const VBParamsFor<M::P> k, const NLDetConsts dc,
+fused_nl_loop_kernel(const VBParamsFor<M::P, Q> k,
+                     const NLDetConstsFor<Q> dc,
                      const float* __restrict__ centre0,
                      const float* __restrict__ pm_in,
                      const float* __restrict__ pp_in,
@@ -185,7 +206,7 @@ fused_nl_loop_kernel(const VBParamsFor<M::P> k, const NLDetConsts dc,
   if (v >= V) return;
 
   float centre[P], pm[P], pp[P];
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < P; ++i) {
     centre[i] = centre0[(size_t)i * V + v];
     pm[i] = pm_in[(size_t)i * V + v];
@@ -193,18 +214,18 @@ fused_nl_loop_kernel(const VBParamsFor<M::P> k, const NLDetConsts dc,
   }
   // the voxel's suppdata, read once into registers (NS = 0: none)
   float sv[NS > 0 ? NS : 1];
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < NS; ++i) sv[i] = supp[(size_t)i * V + v];
   float b[Q], c[Q];
-#pragma unroll
+FABBER_UNROLL
   for (int q = 0; q < Q; ++q) {
     b[q] = k.b_init[q];
     c[q] = k.c_init[q];
   }
   float prec[NT], cov[NT], means[P];
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < NT; ++i) prec[i] = cov[i] = 0.f;
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < P; ++i) means[i] = centre[i];
 
   // detector lanes (dead code in MODE 0)
@@ -217,13 +238,13 @@ fused_nl_loop_kernel(const VBParamsFor<M::P> k, const NLDetConsts dc,
   if constexpr (kDet) {
     // voxel-varying but iteration-invariant ELBO piece
     part3 = dc.f_const;
-#pragma unroll
+FABBER_UNROLL
     for (int i = 0; i < P; ++i) part3 = part3 + 0.5f * logf(pp[i]);
   }
 
   for (int it = 0; it < k.n_iters; ++it) {
     float phi[Q];
-#pragma unroll
+FABBER_UNROLL
     for (int q = 0; q < Q; ++q) phi[q] = b[q] * c[q];
 
     // ---- one pass over time at the centre ------------------------------
@@ -242,14 +263,14 @@ fused_nl_loop_kernel(const VBParamsFor<M::P> k, const NLDetConsts dc,
         const float sig = eval_latent<M>(mrow, chain, sv, (float)t, k.dt,
                                          jac);
         const float r = col.sample(t) - sig;
-#pragma unroll
+FABBER_UNROLL
         for (int q = 0; q < Q; ++q) {
           const float w = col.weight(t * Q + q);
           const float wr = w * r;
-#pragma unroll
+FABBER_UNROLL
           for (int i = 0; i < P; ++i) {
             const float wj = w * jac[i];
-#pragma unroll
+FABBER_UNROLL
             for (int j = 0; j <= i; ++j)
               bjtj[q][tri(i, j)] = bjtj[q][tri(i, j)] + wj * jac[j];
             bjtr[q][i] = bjtr[q][i] + jac[i] * wr;
@@ -264,7 +285,7 @@ fused_nl_loop_kernel(const VBParamsFor<M::P> k, const NLDetConsts dc,
       // ---- the deferred test of iteration it-1: this pass evaluated
       // the model at its means, so rqr is its k'Q_qk and jtj its J'Q_qJ
       float trace[Q], cdiag[P];
-#pragma unroll
+FABBER_UNROLL
       for (int q = 0; q < Q; ++q) trace[q] = trace_packed<P>(cov, jtj[q]);
       packed_diag<P>(cov, cdiag);
       const float f_here = assemble_f<P, Q>(k, dc, part3, centre, b, c,
@@ -276,16 +297,16 @@ fused_nl_loop_kernel(const VBParamsFor<M::P> k, const NLDetConsts dc,
         // F a reverted lane reports
         float pd0[P], tr0[Q];
         float ld0 = 0.f, base = dc.f_const_init;
-#pragma unroll
+FABBER_UNROLL
         for (int i = 0; i < P; ++i) {
           pd0[i] = pd0_in[(size_t)i * V + v];
           ld0 = ld0 - logf(pd0[i]);
           base = base + 0.5f * logf(pp[i]);
         }
-#pragma unroll
+FABBER_UNROLL
         for (int q = 0; q < Q; ++q) {
           float s = 0.f;
-#pragma unroll
+FABBER_UNROLL
           for (int i = 0; i < P; ++i) s = s + pd0[i] * jtj[q][tri(i, i)];
           tr0[q] = s;
         }
@@ -319,36 +340,36 @@ fused_nl_loop_kernel(const VBParamsFor<M::P> k, const NLDetConsts dc,
         // J'Q_q r + pp (pm - centre), means = centre + x; prec and cov
         // stay undamped
         float damped[NT], dch[NT], delta[P];
-#pragma unroll
+FABBER_UNROLL
         for (int i = 0; i < P; ++i) {
-#pragma unroll
+FABBER_UNROLL
           for (int j = 0; j <= i; ++j)
             damped[tri(i, j)] =
                 prec[tri(i, j)] + (i == j ? cv.alpha * prec[tri(i, i)] : 0.f);
           float s = pp[i] * (pm[i] - centre[i]);
-#pragma unroll
+FABBER_UNROLL
           for (int q = 0; q < Q; ++q) s = s + phi[q] * jtr[q][i];
           delta[i] = s;
         }
         cholesky_jittered<P>(damped, dch);
         chol_solve<P>(dch, delta);
-#pragma unroll
+FABBER_UNROLL
         for (int i = 0; i < P; ++i) means[i] = centre[i] + delta[i];
       }
     }
 
     // ---- k'Q_qk by exact expansion, then the phi update (Eq 21/22) ------
     float d[P];
-#pragma unroll
+FABBER_UNROLL
     for (int i = 0; i < P; ++i) d[i] = centre[i] - means[i];
-#pragma unroll
+FABBER_UNROLL
     for (int q = 0; q < Q; ++q) {
       float kq = rqr[q];
-#pragma unroll
+FABBER_UNROLL
       for (int a = 0; a < P; ++a) kq = kq + 2.f * d[a] * jtr[q][a];
-#pragma unroll
+FABBER_UNROLL
       for (int i = 0; i < P; ++i) {
-#pragma unroll
+FABBER_UNROLL
         for (int j = 0; j <= i; ++j) {
           const float dd = d[i] * d[j];
           kq = kq + (i == j ? dd : 2.f * dd) * jtj[q][tri(i, j)];
@@ -362,18 +383,18 @@ fused_nl_loop_kernel(const VBParamsFor<M::P> k, const NLDetConsts dc,
       b[q] = bq;
       c[q] = cq;
     }
-#pragma unroll
+FABBER_UNROLL
     for (int i = 0; i < P; ++i) centre[i] = means[i];
     if constexpr (kDet) {
       float ld = 0.f;
-#pragma unroll
+FABBER_UNROLL
       for (int i = 0; i < P; ++i) ld = ld + 2.f * logf(ch[tri(i, i)]);
       logdet = ld;
     }
   }
 
   if constexpr (!kDet) {
-#pragma unroll
+FABBER_UNROLL
     for (int i = 0; i < P; ++i) means_out[(size_t)i * V + v] = means[i];
     store_full<P>(prec, prec_out, V, v);
     store_full<P>(cov, cov_out, V, v);
@@ -381,10 +402,10 @@ fused_nl_loop_kernel(const VBParamsFor<M::P> k, const NLDetConsts dc,
     if (k.need_f) {
       f_pass<M, Q>(k.tcode, k.dt, means, cov, col, k.nt, fkqk, ftr, sv);
     } else {
-#pragma unroll
+FABBER_UNROLL
       for (int q = 0; q < Q; ++q) fkqk[q] = ftr[q] = 0.f;
     }
-#pragma unroll
+FABBER_UNROLL
     for (int q = 0; q < Q; ++q) {
       b_out[(size_t)q * V + v] = b[q];
       c_out[(size_t)q * V + v] = c[q];
@@ -425,19 +446,23 @@ fused_nl_loop_kernel(const VBParamsFor<M::P> k, const NLDetConsts dc,
 }
 
 // The by-value blocks of a launch from the C entry points' host arrays
-// (see fabber_fused_nl_loop in fused_nl_loop.cu for their layout);
+// (see fabber_fused_nl_loop in fused_nl_loop.cu for their layout) into
+// host blocks with room for p codes and q groups (VBParams and
+// NLDetConsts for the prebuilt entry points; a per-shape instance's own);
 // false when an argument is out of range.
-inline bool nl_setup(int p, int q, const int* tcodes_host, float dt,
-                     int n_iters, int need_f, float locked_sd,
-                     const float* consts_host, int det_kind, float det_tol,
-                     int det_max_its, int det_max_trials, int det_init_save,
-                     const float* det_consts_host, const float* pd0, int nt,
-                     long long V, VBParams* k, NLDetConsts* dc) {
-  if (p < 1 || p > kMaxP || q < 1 || q > kMaxQ || n_iters < 1 || nt < 1 ||
-      V < 1 || det_kind < fabber::kMaxits || det_kind > fabber::kLM ||
+template <class HK, class HD>
+bool nl_setup(int p, int q, const int* tcodes_host, float dt, int n_iters,
+              int need_f, float locked_sd, const float* consts_host,
+              int det_kind, float det_tol, int det_max_its,
+              int det_max_trials, int det_init_save,
+              const float* det_consts_host, const float* pd0, int nt,
+              long long V, HK* k, HD* dc) {
+  if (p < 1 || p > HK::NCODES || q < 1 || q > HK::NGROUPS ||
+      q > HD::NGROUPS || n_iters < 1 || nt < 1 || V < 1 ||
+      det_kind < fabber::kMaxits || det_kind > fabber::kLM ||
       (det_kind == fabber::kFreduce && pd0 == nullptr))
     return false;
-  *k = VBParams{};
+  *k = HK{};
   for (int i = 0; i < p; ++i) k->tcode[i] = tcodes_host[i];
   k->dt = dt;
   k->n_iters = n_iters;
@@ -451,7 +476,7 @@ inline bool nl_setup(int p, int q, const int* tcodes_host, float dt,
   }
   k->nt = nt;
   k->V = V;
-  *dc = NLDetConsts{};
+  *dc = HD{};
   dc->d = {det_kind, det_tol, det_max_its, det_max_trials, det_init_save};
   if (det_kind != fabber::kMaxits) {
     for (int i = 0; i < q; ++i) dc->lb_coeff[i] = det_consts_host[i];
@@ -473,9 +498,9 @@ inline long long nl_smem(int vb, int nt, int q) {
 // One instance's launch, or (occ not null) its blocks per SM: vb = 0
 // streams in blocks of kThreads, vb > 0 stages in blocks of vb lanes with
 // smem bytes of dynamic shared memory.
-template <class M, int Q, int MODE, bool STAGED>
-int launch_form(const VBParams& k, const NLDetConsts& dc, int vb,
-                long long smem, const float* const* ins, float* const* outs,
+template <class M, int Q, int MODE, bool STAGED, class HK, class HD>
+int launch_form(const HK& k, const HD& dc, int vb, long long smem,
+                const float* const* ins, float* const* outs,
                 cudaStream_t stream, int* occ) {
   const auto kernel = fused_nl_loop_kernel<M, Q, MODE, STAGED>;
   const int threads = STAGED ? vb : kThreads;
@@ -487,15 +512,16 @@ int launch_form(const VBParams& k, const NLDetConsts& dc, int vb,
   }
   const unsigned grid = (unsigned)((k.V + threads - 1) / threads);
   kernel<<<grid, threads, smem, stream>>>(
-      params_for<M::P>(k), dc, ins[0], ins[1], ins[2], ins[3], ins[4],
+      params_for<M::P, Q>(k), det_consts_for<Q>(dc), ins[0], ins[1],
+      ins[2], ins[3], ins[4],
       ins[5], ins[6], outs[0], outs[1], outs[2], outs[3], outs[4], outs[5],
       outs[6]);
   return (int)cudaGetLastError();
 }
 
-template <class M, int Q, int MODE>
-int launch_mode(const VBParams& k, const NLDetConsts& dc, int vb,
-                long long smem, const float* const* ins, float* const* outs,
+template <class M, int Q, int MODE, class HK, class HD>
+int launch_mode(const HK& k, const HD& dc, int vb, long long smem,
+                const float* const* ins, float* const* outs,
                 cudaStream_t stream, int* occ) {
   if (vb > 0)
     return launch_form<M, Q, MODE, true>(k, dc, vb, smem, ins, outs, stream,
@@ -504,8 +530,8 @@ int launch_mode(const VBParams& k, const NLDetConsts& dc, int vb,
 }
 
 // mode: the detector kind (dc.d.kind) picks MODE; occ: see launch_form
-template <class M, int Q>
-int launch(const VBParams& k, const NLDetConsts& dc, int vb, long long smem,
+template <class M, int Q, class HK, class HD>
+int launch(const HK& k, const HD& dc, int vb, long long smem,
            const float* const* ins, float* const* outs, cudaStream_t stream,
            int* occ = nullptr) {
   switch (dc.d.kind) {
@@ -522,8 +548,8 @@ int launch(const VBParams& k, const NLDetConsts& dc, int vb, long long smem,
 // the blocks per SM of MODE (0, 1, 2) as launch_form reports them
 template <class M, int Q>
 int occupancy(int mode, int vb, long long smem) {
-  VBParams k = {};
-  NLDetConsts dc = {};
+  VBParamsFor<M::P, Q> k = {};
+  NLDetConstsFor<Q> dc = {};
   dc.d.kind = mode == 0 ? fabber::kMaxits
                         : (mode == 1 ? fabber::kPointZeroOne
                                      : fabber::kTrialMode);

@@ -12,6 +12,7 @@
 
 #include "fused_nlls.cuh"
 
+#if !defined(FABBER_INST_P)
 // 1 when the NLLS kernel is compiled for (kind, p): every (kind, P) of
 // FABBER_NL_INSTANCES (vb_device.cuh; its Q does not apply here).
 extern "C" int fabber_nlls_has_instance(int kind, int p) {
@@ -72,3 +73,41 @@ extern "C" int fabber_nlls_occupancy(int kind, int p, int mode, int marquardt,
 #undef FABBER_OCC
   return -1;
 }
+#else
+// A per-shape instance's entry points (ops/_cuda.py build_instance "nl":
+// InstModel at P = FABBER_INST_P, built with each (P, Q) of the family;
+// the NLLS kernel has no Q): fabber_fused_nlls's and
+// fabber_nlls_occupancy's arguments; another (kind, p) returns
+// cudaErrorInvalidValue (-1).
+extern "C" int fabber_inst_fused_nlls(
+    int kind, int p, const int* tcodes_host, float dt,
+    const float* consts_host, int mode, int marquardt, int max_its,
+    float dof, const float* params0, const float* data, const float* w,
+    const float* state_in, int nt, long long V, float* params_out,
+    float* cost_out, float* its_out, float* prec_out, float* cov_out,
+    float* state_out, int vb, void* stream) {
+  constexpr int P = FABBER_INST_P;
+  static_assert(P == InstModel::P && P <= nl::kWideMaxP,
+                "a kernel 8 instance within its limits");
+  const long long smem = nlls_smem(vb, nt);
+  float* const outs[6] = {params_out, cost_out, its_out, prec_out, cov_out,
+                          state_out};
+  NLLSParamsFor<P> k;
+  if (kind != FABBER_INST_KIND || p != P ||
+      !nlls_setup(p, tcodes_host, dt, consts_host, mode, max_its, dof,
+                  state_in, nt, V, smem, outs, &k))
+    return (int)cudaErrorInvalidValue;
+  const float* const ins[4] = {params0, data, w, state_in};
+  return launch<InstModel>(k, mode, marquardt, vb, smem, ins, outs,
+                           static_cast<cudaStream_t>(stream), nullptr);
+}
+
+extern "C" int fabber_inst_nlls_occupancy(int kind, int p, int mode,
+                                          int marquardt, int vb, int nt) {
+  const long long smem = nlls_smem(vb, nt);
+  if (kind != FABBER_INST_KIND || p != FABBER_INST_P || smem < 0 ||
+      mode < kFresh || mode > kResume)
+    return -1;
+  return occupancy<InstModel>(mode, marquardt, vb, smem);
+}
+#endif

@@ -107,9 +107,10 @@ enum Mode : int { kFresh = 0, kPhase1 = 1, kResume = 2 };
 
 // Everything a launch passes by value, with room for NC codes: the C
 // entry points fill an NLLSParams, an instance takes NLLSParamsFor<P>
-// (as VBParamsFor, vb_device.cuh).
+// (as VBParamsFor, vb_device.cuh; past kMaxP sized to its own P).
 template <int NC>
 struct NLLSParamsN {
+  static constexpr int NCODES = NC;
   int tcode[NC];
   float dt;
   int max_its;        // step budget (resume: the remaining one)
@@ -120,11 +121,14 @@ struct NLLSParamsN {
 };
 using NLLSParams = NLLSParamsN<kMaxP>;
 template <int P>
-using NLLSParamsFor = NLLSParamsN<(P <= 4 ? 4 : kMaxP)>;
+using NLLSParamsFor =
+    NLLSParamsN<(P <= 4 ? 4 : (P <= kMaxP ? kMaxP : P))>;
 
-// k as the block of a P-parameter instance, on the host
-template <int P>
-NLLSParamsFor<P> nlls_params_for(const NLLSParams& k) {
+// k (a host block with room for P codes) as the block of a P-parameter
+// instance, on the host
+template <int P, class H>
+NLLSParamsFor<P> nlls_params_for(const H& k) {
+  static_assert(H::NCODES >= P, "a block with room");
   NLLSParamsFor<P> n = {};
   for (int i = 0; i < P; ++i) n.tcode[i] = k.tcode[i];
   n.dt = k.dt;
@@ -153,15 +157,15 @@ __device__ __forceinline__ void nlls_pass(const K& k, const float* x,
   float mrow[P], chain[P];
   model_rows<P>(k.tcode, x, mrow, chain);
   float sjtj[NT], sjtr[P], srr = 0.f;
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < NT; ++i) sjtj[i] = 0.f;
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < P; ++i) sjtr[i] = 0.f;
   for (int t0 = 0; t0 < k.nt; t0 += kTB) {
     float bjtj[NT], bjtr[P], brr = 0.f;
-#pragma unroll
+FABBER_UNROLL
     for (int i = 0; i < NT; ++i) bjtj[i] = 0.f;
-#pragma unroll
+FABBER_UNROLL
     for (int i = 0; i < P; ++i) bjtr[i] = 0.f;
     const int t1 = min(t0 + kTB, k.nt);
     for (int t = t0; t < t1; ++t) {
@@ -172,10 +176,10 @@ __device__ __forceinline__ void nlls_pass(const K& k, const float* x,
       const float d = col.sample(t) - sig;
       const float r = wt * d;
       if constexpr (JAC) {
-#pragma unroll
+FABBER_UNROLL
         for (int i = 0; i < P; ++i) {
           const float wj = wt * jac[i];
-#pragma unroll
+FABBER_UNROLL
           for (int j = 0; j <= i; ++j)
             bjtj[tri(i, j)] = madd(wj, jac[j], bjtj[tri(i, j)]);
           bjtr[i] = madd(jac[i], r, bjtr[i]);
@@ -185,17 +189,17 @@ __device__ __forceinline__ void nlls_pass(const K& k, const float* x,
     }
     srr = srr + brr;
     if constexpr (JAC) {
-#pragma unroll
+FABBER_UNROLL
       for (int i = 0; i < NT; ++i) sjtj[i] = sjtj[i] + bjtj[i];
-#pragma unroll
+FABBER_UNROLL
       for (int i = 0; i < P; ++i) sjtr[i] = sjtr[i] + bjtr[i];
     }
   }
   rr = srr;
   if constexpr (JAC) {
-#pragma unroll
+FABBER_UNROLL
     for (int i = 0; i < NT; ++i) jtj[i] = sjtj[i];
-#pragma unroll
+FABBER_UNROLL
     for (int i = 0; i < P; ++i) jtr[i] = sjtr[i];
   }
 }
@@ -207,16 +211,16 @@ __device__ __forceinline__ void solve_step(const float* jtj, const float* jtr,
                                            float* trial) {
   constexpr int NT = P * (P + 1) / 2;
   float a[NT], ch[NT], delta[P];
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < NT; ++i) a[i] = jtj[i];
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < P; ++i) {
     a[tri(i, i)] = jtj[tri(i, i)] + lam * (MARQ ? jtj[tri(i, i)] : 1.f);
     delta[i] = jtr[i];
   }
   cholesky_jittered<P>(a, ch);
   chol_solve<P>(ch, delta);
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < P; ++i) trial[i] = params[i] + delta[i];
 }
 
@@ -239,7 +243,7 @@ fused_nlls_kernel(const NLLSParamsFor<M::P> k,
   if (v >= V) return;
 
   float params[P], jtj[NT], jtr[P];
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < P; ++i) params[i] = params0[(size_t)i * V + v];
   float cost, lam, its;
   bool done;
@@ -275,13 +279,13 @@ fused_nlls_kernel(const NLLSParamsFor<M::P> k,
         !better && fin && lam >= k.plateau &&
         tcost - cost <= k.cftol * fmaxf(fabsf(cost), 1e-30f);
     if (better) {
-#pragma unroll
+FABBER_UNROLL
       for (int i = 0; i < P; ++i) params[i] = trial[i];
       cost = tcost;
       if constexpr (MODE != kResume) {
-#pragma unroll
+FABBER_UNROLL
         for (int i = 0; i < NT; ++i) jtj[i] = tjtj[i];
-#pragma unroll
+FABBER_UNROLL
         for (int i = 0; i < P; ++i) jtr[i] = tjtr[i];
       }
     }
@@ -290,7 +294,7 @@ fused_nlls_kernel(const NLLSParamsFor<M::P> k,
     its = its + 1.f;
   }
 
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < P; ++i) params_out[(size_t)i * V + v] = params[i];
   if constexpr (MODE == kPhase1) {
     state_out[v] = lam;
@@ -305,9 +309,9 @@ fused_nlls_kernel(const NLLSParamsFor<M::P> k,
   }
   const float mse = cost / k.dof;
   float prec[NT], ch[NT], cov[NT];
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < P; ++i) {
-#pragma unroll
+FABBER_UNROLL
     for (int j = 0; j <= i; ++j) {
       float val = jtj[tri(i, j)] / mse;
       // the floor keeps a NaN, as jnp.maximum does
@@ -328,8 +332,8 @@ fused_nlls_kernel(const NLLSParamsFor<M::P> k,
 // One instance's launch, or (occ not null) its blocks per SM: vb = 0
 // streams in blocks of kThreads, vb > 0 stages in blocks of vb lanes with
 // smem bytes of dynamic shared memory (tile.cuh).
-template <class M, int MODE, bool MARQ, bool STAGED>
-int launch_form(const NLLSParams& k, int vb, long long smem,
+template <class M, int MODE, bool MARQ, bool STAGED, class HK>
+int launch_form(const HK& k, int vb, long long smem,
                 const float* const* ins, float* const* outs,
                 cudaStream_t stream, int* occ) {
   const auto kernel = fused_nlls_kernel<M, MODE, MARQ, STAGED>;
@@ -347,8 +351,8 @@ int launch_form(const NLLSParams& k, int vb, long long smem,
   return (int)cudaGetLastError();
 }
 
-template <class M, int MODE, bool MARQ>
-int launch_mode(const NLLSParams& k, int vb, long long smem,
+template <class M, int MODE, bool MARQ, class HK>
+int launch_mode(const HK& k, int vb, long long smem,
                 const float* const* ins, float* const* outs, cudaStream_t s,
                 int* occ) {
   if (vb > 0)
@@ -356,8 +360,8 @@ int launch_mode(const NLLSParams& k, int vb, long long smem,
   return launch_form<M, MODE, MARQ, false>(k, 0, 0, ins, outs, s, occ);
 }
 
-template <class M>
-int launch(const NLLSParams& k, int mode, int marq, int vb, long long smem,
+template <class M, class HK>
+int launch(const HK& k, int mode, int marq, int vb, long long smem,
            const float* const* ins, float* const* outs, cudaStream_t s,
            int* occ) {
   switch (mode * 2 + (marq ? 1 : 0)) {
@@ -385,7 +389,7 @@ inline long long nlls_smem(int vb, int nt) {
 // them; -1 where refused
 template <class M>
 int occupancy(int mode, int marq, int vb, long long smem) {
-  NLLSParams k = {};
+  NLLSParamsFor<M::P> k = {};
   int occ = 0;
   return launch<M>(k, mode, marq, vb, smem, nullptr, nullptr, nullptr,
                    &occ) == 0
@@ -394,21 +398,23 @@ int occupancy(int mode, int marq, int vb, long long smem) {
 }
 
 // The by-value block of a launch from the C entry points' host arguments
-// (see fabber_fused_nlls in fused_nlls.cu for their layout); false when
-// an argument is out of range.
-inline bool nlls_setup(int p, const int* tcodes_host, float dt,
-                       const float* consts_host, int mode, int max_its,
-                       float dof, const float* state_in, int nt, long long V,
-                       long long smem, float* const* outs, NLLSParams* k) {
+// (see fabber_fused_nlls in fused_nlls.cu for their layout) into a host
+// block with room for p codes; false when an argument is out of range.
+template <class HK>
+bool nlls_setup(int p, const int* tcodes_host, float dt,
+                const float* consts_host, int mode, int max_its, float dof,
+                const float* state_in, int nt, long long V, long long smem,
+                float* const* outs, HK* k) {
   const bool post = mode != kPhase1;
-  if (smem < 0 || p < 1 || p > kMaxP || mode < kFresh || mode > kResume ||
+  if (smem < 0 || p < 1 || p > HK::NCODES || mode < kFresh ||
+      mode > kResume ||
       max_its < 0 || nt < 1 || V < 1 || outs[0] == nullptr ||
       (mode == kResume && state_in == nullptr) ||
       (post && (outs[1] == nullptr || outs[2] == nullptr ||
                 outs[3] == nullptr || outs[4] == nullptr)) ||
       (!post && outs[5] == nullptr))
     return false;
-  *k = NLLSParams{};
+  *k = HK{};
   for (int i = 0; i < p; ++i) k->tcode[i] = tcodes_host[i];
   k->dt = dt;
   k->max_its = max_its;

@@ -11,6 +11,7 @@
 
 #include "fused_vb_iter.cuh"
 
+#if !defined(FABBER_INST_P)
 // (kind, p, q): one of FABBER_NL_INSTANCES (vb_device.cuh).
 // tcodes_host [p] (host). centre, pm, pp [p,V]; phi [q,V]; data [nt,V];
 // qw [nt,q]; alpha [V], the lm detector's damping, or null for the
@@ -56,3 +57,38 @@ extern "C" int fabber_vb_iter_occupancy(int kind, int p, int q, int lm,
 #undef FABBER_OCC
   return -1;
 }
+#else
+// A per-shape instance's entry points (ops/_cuda.py build_instance "nl":
+// InstModel at (P, Q) = (FABBER_INST_P, FABBER_INST_Q), the folded form
+// past kFoldSums): fabber_fused_vb_iter's and fabber_vb_iter_occupancy's
+// arguments; another (kind, p, q) returns cudaErrorInvalidValue (-1).
+extern "C" int fabber_inst_fused_vb_iter(
+    int kind, int p, int q, const int* tcodes_host, float dt, int need_f,
+    const float* centre, const float* pm, const float* pp, const float* phi,
+    const float* data, const float* qw, const float* alpha, int nt,
+    long long V, float* means, float* prec, float* cov, float* nkqk,
+    float* ntr, float* fkqk, float* ftr, int vb, void* stream) {
+  constexpr int P = FABBER_INST_P, Q = FABBER_INST_Q;
+  static_assert(P == InstModel::P && P <= nl::kWideMaxP &&
+                    Q <= nl::kWideMaxQ,
+                "a kernel 7 instance within its limits");
+  const long long smem = iter_smem(vb, nt, q);
+  VBParamsFor<P, Q> k;
+  if (kind != FABBER_INST_KIND || p != P || q != Q ||
+      !iter_setup(p, q, tcodes_host, dt, need_f, nt, V, smem, &k))
+    return (int)cudaErrorInvalidValue;
+  const float* const ins[7] = {centre, pm, pp, phi, data, qw, alpha};
+  float* const outs[7] = {means, prec, cov, nkqk, ntr, fkqk, ftr};
+  return launch<InstModel, Q>(k, alpha != nullptr, vb, smem, ins, outs,
+                              static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fabber_inst_vb_iter_occupancy(int kind, int p, int q, int lm,
+                                             int vb, int nt) {
+  const long long smem = iter_smem(vb, nt, q);
+  if (kind != FABBER_INST_KIND || p != FABBER_INST_P || q != FABBER_INST_Q ||
+      smem < 0)
+    return -1;
+  return occupancy<InstModel, FABBER_INST_Q>(lm != 0, vb, smem);
+}
+#endif

@@ -29,13 +29,32 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "tile.cuh"
+
+// The unroll pragma of the loops over P, Q and the packed triangles of
+// this header and the nonlinear kernels. A unit built past ops/_cuda.py
+// rolled_loops' sizes (P > 16, or more than 600 per-group sums) defines
+// FABBER_ROLL_LOOPS and rolls them: a lane's packed state then lives in
+// local memory, indexed by the loop counters, and nvcc's time no longer
+// grows as P^3 (a fully unrolled Cholesky, inverse and rebuild at P = 40
+// would be tens of thousands of instructions per kernel), at 25-32 times
+// the unrolled kernel's time at P = 10. Such a unit is built with -G
+// (ops/_cuda.py ROLL_FLAGS: optimized, its rolled loops came out wrong).
+#if defined(FABBER_ROLL_LOOPS)
+#define FABBER_UNROLL _Pragma("unroll 1")
+#else
+#define FABBER_UNROLL _Pragma("unroll")
+#endif
 
 // Every (model functor, P, Q) both nonlinear kernels are compiled for,
 // as X(kind, P, functor, Q); kind 0 = PolyModel, 1 = ExpSum (the
 // KERNEL_POLY / KERNEL_EXP codes of models/base.py). This list is the
 // one source of the C entry points' dispatch and of
-// fabber_nl_has_instance, which the engine's route gate asks.
+// fabber_nl_has_instance, which the engine's route gate asks. Any other
+// (functor, P, Q) up to (kWideMaxP, kWideMaxQ) is a per-shape instance,
+// built at its route's first launch (ops/_cuda.py build_instance "nl").
 #define FABBER_NL_INSTANCES(X)                                        \
   X(1, 2, ExpSum<1>, 1) X(1, 2, ExpSum<1>, 2) X(1, 2, ExpSum<1>, 3)   \
   X(1, 2, ExpSum<1>, 4) X(1, 4, ExpSum<2>, 1) X(1, 4, ExpSum<2>, 2)   \
@@ -49,11 +68,23 @@
 
 namespace fabber {
 
-// largest P of FABBER_NL_INSTANCES, and of a generated functor: the
-// engine refuses a larger model on the card at construction (ops/_cuda.py
-// gen_limits reads kMaxP and kMaxQ from these two lines)
+// largest P of FABBER_NL_INSTANCES: the prebuilt entry points take no
+// larger model (the host blocks VBParams, NLLSParams have room for no
+// more)
 constexpr int kMaxP = 8;
 constexpr int kMaxQ = 4;   // largest Q of FABBER_NL_INSTANCES
+// The largest P and Q of a per-shape instance of kernels 6-8 (ops/_cuda.py
+// build_instance "nl", the generated functors past kMaxP, kMaxQ; gen_limits
+// and instance_limits read these two lines): P 42 is the JAX engine's
+// kernel 8 bound (fused_nlls.py pick_nlls_block) and above its kernel 6
+// bound (39), Q 35 is a noise pattern's most groups (1-9, A-Z). Kernel 7
+// has no JAX picker; these are its cap.
+// (a namespace of their own: the fixed-design families' sources define
+// kWideMaxP, kWideMaxQ of theirs beside `using namespace fabber`)
+namespace nl {
+constexpr int kWideMaxP = 42;
+constexpr int kWideMaxQ = 35;
+}  // namespace nl
 // samples per block of the two-level time sums: each pass sums kTB
 // samples into block sums and adds the blocks into its totals. One
 // float32 accumulator over all T samples loses the accuracy the TPU
@@ -128,7 +159,7 @@ struct PolyModel {
     float sig = m[0];
     jac[0] = 1.f;
     float power = tv;
-#pragma unroll
+FABBER_UNROLL
     for (int i = 1; i < P; ++i) {
       sig = sig + m[i] * power;
       jac[i] = power;
@@ -152,7 +183,7 @@ struct ExpSum {
                                                float dt, float* jac) {
     const float tv = t * dt;
     float sig = 0.f;
-#pragma unroll
+FABBER_UNROLL
     for (int i = 0; i < NEXP; ++i) {
       const float e = expf(-m[2 * i + 1] * tv);
       const float term = m[2 * i] * e;
@@ -174,7 +205,7 @@ __device__ __forceinline__ float eval_latent(const float* mrow,
                                              const float* supp, float t,
                                              float dt, float* jac) {
   const float sig = M::eval(mrow, supp, t, dt, jac);
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < M::P; ++i) jac[i] *= chain[i];
   return sig;
 }
@@ -185,7 +216,7 @@ template <int P>
 __device__ __forceinline__ void model_rows(const int* tcode,
                                            const float* latent, float* mrow,
                                            float* chain) {
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < P; ++i) {
     mrow[i] = to_model(tcode[i], latent[i]);
     chain[i] = chain_factor(tcode[i], latent[i]);
@@ -197,17 +228,17 @@ __device__ __forceinline__ void model_rows(const int* tcode,
 template <int P>
 __device__ __forceinline__ void cholesky(const float* a, float jit,
                                          float* ch) {
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < P; ++i) {
     float s = a[tri(i, i)] + jit;
-#pragma unroll
+FABBER_UNROLL
     for (int k = 0; k < i; ++k) s = s - ch[tri(i, k)] * ch[tri(i, k)];
     ch[tri(i, i)] = sqrtf(s);
     const float inv_d = 1.f / ch[tri(i, i)];
-#pragma unroll
+FABBER_UNROLL
     for (int j = i + 1; j < P; ++j) {
       float s2 = a[tri(j, i)];
-#pragma unroll
+FABBER_UNROLL
       for (int k = 0; k < i; ++k) s2 = s2 - ch[tri(j, k)] * ch[tri(i, k)];
       ch[tri(j, i)] = s2 * inv_d;
     }
@@ -221,7 +252,7 @@ __device__ __forceinline__ void cholesky_jittered(const float* a,
                                                   float* ch) {
   cholesky<P>(a, 0.f, ch);
   bool bad = false;
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < P; ++i) bad = bad || !isfinite(ch[tri(i, i)]);
   if (bad) cholesky<P>(a, 1e-10f, ch);
 }
@@ -233,24 +264,24 @@ template <int P, bool BY_RECIP = false>
 __device__ __forceinline__ void inverse_from_chol(const float* ch,
                                                   float* cov) {
   float invl[P * (P + 1) / 2];
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < P; ++i) invl[tri(i, i)] = 1.f / ch[tri(i, i)];
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < P; ++i) {
-#pragma unroll
+FABBER_UNROLL
     for (int j = i - 1; j >= 0; --j) {
       float s = 0.f;
-#pragma unroll
+FABBER_UNROLL
       for (int k = j + 1; k <= i; ++k) s = s + ch[tri(k, j)] * invl[tri(i, k)];
       invl[tri(i, j)] = BY_RECIP ? -s * invl[tri(j, j)] : -s / ch[tri(j, j)];
     }
   }
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < P; ++i) {
-#pragma unroll
+FABBER_UNROLL
     for (int j = 0; j <= i; ++j) {
       float s = 0.f;
-#pragma unroll
+FABBER_UNROLL
       for (int k = i; k < P; ++k) s = s + invl[tri(k, i)] * invl[tri(k, j)];
       cov[tri(i, j)] = s;
     }
@@ -261,17 +292,17 @@ __device__ __forceinline__ void inverse_from_chol(const float* ch,
 // forward, then back substitution.
 template <int P>
 __device__ __forceinline__ void chol_solve(const float* ch, float* b) {
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < P; ++i) {
     float s = b[i];
-#pragma unroll
+FABBER_UNROLL
     for (int k = 0; k < i; ++k) s = s - ch[tri(i, k)] * b[k];
     b[i] = s / ch[tri(i, i)];
   }
-#pragma unroll
+FABBER_UNROLL
   for (int i = P - 1; i >= 0; --i) {
     float s = b[i];
-#pragma unroll
+FABBER_UNROLL
     for (int k = i + 1; k < P; ++k) s = s - ch[tri(k, i)] * b[k];
     b[i] = s / ch[tri(i, i)];
   }
@@ -286,12 +317,12 @@ __device__ __forceinline__ void posterior_solve(
     const float (&jtj)[Q][P * (P + 1) / 2], const float (&jtr)[Q][P],
     const float* phi, const float* centre, const float* pm, const float* pp,
     float* prec, float* cov, float* means, float* ch) {
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < P; ++i) {
-#pragma unroll
+FABBER_UNROLL
     for (int j = 0; j <= i; ++j) {
       float v = 0.f;
-#pragma unroll
+FABBER_UNROLL
       for (int q = 0; q < Q; ++q) v = v + phi[q] * jtj[q][tri(i, j)];
       if (i == j) v = v + pp[i];
       prec[tri(i, j)] = v;
@@ -304,22 +335,22 @@ __device__ __forceinline__ void posterior_solve(
   }
   inverse_from_chol<P>(ch, cov);
   float rhs[P];
-#pragma unroll
+FABBER_UNROLL
   for (int a = 0; a < P; ++a) {
     float v = 0.f;
-#pragma unroll
+FABBER_UNROLL
     for (int q = 0; q < Q; ++q) {
       float g = jtr[q][a];
-#pragma unroll
+FABBER_UNROLL
       for (int j = 0; j < P; ++j) g = g + jtj[q][tri(a, j)] * centre[j];
       v = v + phi[q] * g;
     }
     rhs[a] = v + pp[a] * pm[a];
   }
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < P; ++i) {
     float m = 0.f;
-#pragma unroll
+FABBER_UNROLL
     for (int j = 0; j < P; ++j) m = m + cov[tri(i, j)] * rhs[j];
     means[i] = m;
   }
@@ -331,9 +362,9 @@ template <int P>
 __device__ __forceinline__ float trace_packed(const float* cov,
                                               const float* g) {
   float tr = 0.f;
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < P; ++i) {
-#pragma unroll
+FABBER_UNROLL
     for (int j = 0; j < P; ++j) tr = tr + cov[tri(i, j)] * g[tri(i, j)];
   }
   return tr;
@@ -342,12 +373,12 @@ __device__ __forceinline__ float trace_packed(const float* cov,
 template <int P, int Q>
 __device__ __forceinline__ void zero_sums(float (&jtj)[Q][P * (P + 1) / 2],
                                           float (&jtr)[Q][P], float (&s)[Q]) {
-#pragma unroll
+FABBER_UNROLL
   for (int q = 0; q < Q; ++q) {
     s[q] = 0.f;
-#pragma unroll
+FABBER_UNROLL
     for (int i = 0; i < P * (P + 1) / 2; ++i) jtj[q][i] = 0.f;
-#pragma unroll
+FABBER_UNROLL
     for (int i = 0; i < P; ++i) jtr[q][i] = 0.f;
   }
 }
@@ -357,12 +388,12 @@ __device__ __forceinline__ void add_sums(
     float (&jtj)[Q][P * (P + 1) / 2], float (&jtr)[Q][P], float (&s)[Q],
     const float (&bjtj)[Q][P * (P + 1) / 2], const float (&bjtr)[Q][P],
     const float (&bs)[Q]) {
-#pragma unroll
+FABBER_UNROLL
   for (int q = 0; q < Q; ++q) {
     s[q] = s[q] + bs[q];
-#pragma unroll
+FABBER_UNROLL
     for (int i = 0; i < P * (P + 1) / 2; ++i) jtj[q][i] = jtj[q][i] + bjtj[q][i];
-#pragma unroll
+FABBER_UNROLL
     for (int i = 0; i < P; ++i) jtr[q][i] = jtr[q][i] + bjtr[q][i];
   }
 }
@@ -391,14 +422,14 @@ __device__ __forceinline__ void f_pass(const int* tcode, float dt,
       const float sig = eval_latent<M>(mrow, chain, supp, (float)t, dt, jac);
       const float kb = col.sample(t) - sig;
       const float k2 = kb * kb;
-#pragma unroll
+FABBER_UNROLL
       for (int q = 0; q < Q; ++q) {
         const float w = col.weight(t * Q + q);
         bkqk[q] = bkqk[q] + w * k2;
-#pragma unroll
+FABBER_UNROLL
         for (int i = 0; i < P; ++i) {
           const float wj = w * jac[i];
-#pragma unroll
+FABBER_UNROLL
           for (int j = 0; j <= i; ++j)
             bjtj[q][tri(i, j)] = bjtj[q][tri(i, j)] + wj * jac[j];
         }
@@ -406,7 +437,7 @@ __device__ __forceinline__ void f_pass(const int* tcode, float dt,
     }
     add_sums<P, Q>(jtj, unused, kqk, bjtj, bunused, bkqk);
   }
-#pragma unroll
+FABBER_UNROLL
   for (int q = 0; q < Q; ++q) {
     fkqk[q] = kqk[q];
     ftr[q] = trace_packed<P>(cov, jtj[q]);
@@ -418,9 +449,9 @@ template <int P>
 __device__ __forceinline__ void store_full(const float* packed,
                                            float* __restrict__ out,
                                            long long V, long long v) {
-#pragma unroll
+FABBER_UNROLL
   for (int i = 0; i < P; ++i) {
-#pragma unroll
+FABBER_UNROLL
     for (int j = 0; j < P; ++j)
       out[(size_t)(i * P + j) * V + v] = packed[tri(i, j)];
   }
@@ -431,35 +462,44 @@ __device__ __forceinline__ void store_full(const float* packed,
 // constants. The C entry points fill a VBParams (kMaxP codes); an
 // instance takes VBParamsFor<P>: at P <= 4 the block of 4 codes the
 // instances had when kMaxP was 4, whose type their SASS depends on.
-template <int NC>
+template <int NC, int NQ = kMaxQ>
 struct VBParamsN {
+  static constexpr int NCODES = NC, NGROUPS = NQ;
   int tcode[NC];
   float dt;
   int n_iters;
   int need_f;
   float locked_sd;        // > 0: noise sd locked to this value
-  float inv_b0[kMaxQ];    // 1 / b0 of the noise prior
-  float c_post[kMaxQ];    // (n_q - 1)/2 + c0
-  float b_init[kMaxQ];
-  float c_init[kMaxQ];
+  float inv_b0[NQ];       // 1 / b0 of the noise prior
+  float c_post[NQ];       // (n_q - 1)/2 + c0
+  float b_init[NQ];
+  float c_init[NQ];
   int nt;
   long long V;
 };
 using VBParams = VBParamsN<kMaxP>;
-template <int P>
-using VBParamsFor = VBParamsN<(P <= 4 ? 4 : kMaxP)>;
+// the block of a (P, Q) instance: past kMaxP or kMaxQ (a per-shape
+// instance) sized to its own shape, 4 (2P + 4Q + 8) bytes at most
+// (1,000 at P = 42, Q = 35, well under a launch's 4 KB of parameters)
+template <int P, int Q = 1>
+using VBParamsFor = VBParamsN<(P <= 4 ? 4 : (P <= kMaxP ? kMaxP : P)),
+                              (Q <= kMaxQ ? kMaxQ : Q)>;
 
-// k as the block of a P-parameter instance (the codes it reads and the
-// rest), on the host
-template <int P>
-VBParamsFor<P> params_for(const VBParams& k) {
-  VBParamsFor<P> n = {};
+// k (a host block with room for P codes and Q groups) as the block of a
+// (P, Q) instance (the codes and groups it reads and the rest), on the
+// host
+template <int P, int Q = 1, class H>
+VBParamsFor<P, Q> params_for(const H& k) {
+  using N = VBParamsFor<P, Q>;
+  static_assert(H::NCODES >= P && H::NGROUPS >= Q, "a block with room");
+  N n = {};
   for (int i = 0; i < P; ++i) n.tcode[i] = k.tcode[i];
   n.dt = k.dt;
   n.n_iters = k.n_iters;
   n.need_f = k.need_f;
   n.locked_sd = k.locked_sd;
-  for (int i = 0; i < kMaxQ; ++i) {
+  constexpr int nq = N::NGROUPS < H::NGROUPS ? N::NGROUPS : H::NGROUPS;
+  for (int i = 0; i < nq; ++i) {
     n.inv_b0[i] = k.inv_b0[i];
     n.c_post[i] = k.c_post[i];
     n.b_init[i] = k.b_init[i];
@@ -469,5 +509,13 @@ VBParamsFor<P> params_for(const VBParams& k) {
   n.V = k.V;
   return n;
 }
+
+#if defined(FABBER_INST_KIND)
+// A per-shape instance's functor (ops/_cuda.py build_instance "nl": the
+// unit defines FABBER_INST_KIND, P and Q): kind 0 PolyModel, 1 ExpSum
+using InstModel =
+    std::conditional_t<FABBER_INST_KIND == 0, PolyModel<FABBER_INST_P>,
+                       ExpSum<FABBER_INST_P / 2>>;
+#endif
 
 }  // namespace fabber

@@ -36,13 +36,17 @@ Routes (ROUTES), chosen by the JAX engine's gates in its order (its
                 posterior from a file): the per-iteration loop through
                 the Linearizer, plain torch (XLA in the JAX package).
 
-On "cuda" the kernel route needs the model's functor: a hand-written
-one among the kernel's instances (kernel_model(), csrc/vb_device.cuh
-FABBER_NL_INSTANCES), else one generated from its time_signal
-(models/kernelgen.py), built at construction (ops/_cuda.py
-build_generated, kernel "nlls"). A run with neither (P > 8, or a
-time_signal the generator refuses) raises at construction
-(vb.py require_card_instance), never runs plain torch on the card. The
+The kernel route is taken where the JAX engine's picker admits kernel 8
+(ops/fused_nlls.py pick_nlls_block, the port's copy: P <= 42 at T = 100),
+else nlls-generic, as the JAX engine (nlls.py:200-220), on "cpu" and
+"cuda" alike. On "cuda" the kernel route needs the model's functor: a
+hand-written one (kernel_model()) in a prebuilt instance
+(csrc/vb_device.cuh FABBER_NL_INSTANCES) or a per-shape one, built at its
+first launch (ops/_cuda.py build_instance "nl"), else one generated from
+its time_signal (models/kernelgen.py), built at construction
+(ops/_cuda.py build_generated, kernel "nlls"). A run with neither (a
+time_signal the generator refuses) raises at construction (vb.py
+require_card_instance), never runs plain torch on the card. The
 whole volume runs in one pass; the JAX engine's voxel windows
 and its per-shard dispatch are not ported (ROADMAP Queue 1 item 18).
 """
@@ -56,7 +60,9 @@ from .. import resolve_device
 from ..models.base import resolve_parameters, PRIOR_IMAGE
 from ..ops import smallmat as sm
 from ..ops.fused_nlls import (LAMBDA_INIT, PREC_DIAG_FLOOR, accept,
-                              fused_nlls_loop, nlls_instantiated)
+                              fused_nlls_loop, pick_nlls_block)
+from ..ops.fused_vb import nl_instantiated
+from ..ops.fused_whole import pad_time
 from ..options import OptionSpec, OPT_BOOL, OPT_INT, OPT_STR
 from ..models.kernelgen import derive_time_signal_functor
 from .linearize import Linearizer
@@ -187,7 +193,9 @@ class NLLSInference:
               and self.supp is None
               and self.dtype == torch.float32
               and self.init_file == "modeldefault"
-              and mode in ("auto", "pallas-loop")):
+              and mode in ("auto", "pallas-loop")
+              and pick_nlls_block(1024, self.nparams,
+                                  pad_time(self.nt)) is not None):
             self.route = "nlls-kernel"
         else:
             self.route = "nlls-generic"
@@ -200,16 +208,17 @@ class NLLSInference:
         self.progress_cb = None
 
     def _require_kernel_instance(self):
-        """On "cuda" the kernel route needs the NLLS kernel compiled for
-        the model's functor: a hand-written instance, else a functor
-        generated from the model's time_signal, built (or loaded) now
-        into functor.libs[("nlls", None)]; a run with neither raises
-        here (require_card_instance), before anything is built or
-        launched. On "cpu" the route runs the plain version, which takes
-        any time-local model."""
+        """On "cuda" the kernel route needs the NLLS kernel for the
+        model's functor: a hand-written one's prebuilt or per-shape
+        instance (nl_instantiated; a per-shape one is built at its first
+        launch), else a functor generated from the model's time_signal,
+        built (or loaded) now into functor.libs[("nlls", None)]; a run
+        with neither raises here (require_card_instance), before anything
+        is built or launched. On "cpu" the route runs the plain version,
+        which takes any time-local model."""
         if self.device.type != "cuda" or self.route != "nlls-kernel":
             return
-        has = nlls_instantiated(self.model.kernel_model())
+        has = nl_instantiated(self.model.kernel_model(), None)
         functor = None if has else derive_time_signal_functor(
             self.model, self.nparams)
         require_card_instance(

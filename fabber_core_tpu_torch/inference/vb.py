@@ -83,14 +83,19 @@ with the best-state save/revert protocol (vb.py:954-1047, 2028-2048,
 
 _select_route applies the JAX gates in the JAX engine's order (its
 `auto` as on the TPU), the same way on "cpu" and "cuda".
-On "cuda" a kernel route also needs its kernels compiled for the run's
-shape (csrc/vb_device.cuh FABBER_NL_INSTANCES for the model functors, or
-a functor generated from the model for kernels 6 and 7, built at first
-use, csrc/whole_device.cuh FABBER_WHOLE_INSTANCES for (P, Q), csrc/
-fused_ar_loop.cu FABBER_AR_INSTANCES for AR's (P, echoes)); a run outside
-them raises at construction (a continued run's route, before its first
-launch; require_card_instance). Choosing a route is a decision made before
-any launch, never a fallback after a failure.
+The whole-loop nonlinear kernel (6) is taken where the JAX engine's
+picker admits it (ops/fused_loop_nl.py pick_nl_block, the port's copy),
+else the per-iteration kernel 7 or the generic route, as the JAX engine.
+On "cuda" a kernel route also needs its kernels for the run's shape: a
+prebuilt instance (csrc/vb_device.cuh FABBER_NL_INSTANCES for the model
+functors, csrc/whole_device.cuh FABBER_WHOLE_INSTANCES for (P, Q), csrc/
+fused_ar_loop.cu FABBER_AR_INSTANCES for AR's (P, echoes)), a per-shape
+instance built at the route's first launch (ops/_cuda.py build_instance),
+or a functor generated from the model for kernels 6-8, built at
+construction; a run outside them (kernel 7 past P 42 or Q 35) raises at
+construction (a continued run's route, before its first launch;
+require_card_instance). Choosing a route is a decision made before any
+launch, never a fallback after a failure.
 
 run() is the route's run, then, with mcsteps > 0, the motion-correction
 steps (core/motion.py: the original data registered to the model fit,
@@ -123,16 +128,18 @@ from ..ops.fused_loop import (fused_vb_loop, n_ar_loop_planes,
 from ..ops.fused_loop_ar import (DETECTOR_KINDS as AR_DETECTORS,
                                  ar_elbo_consts, ar_instantiated,
                                  fused_ar_loop, pack_ar_consts)
-from ..ops.fused_loop_nl import fused_nl_loop, pack_nl_consts
+from ..ops.fused_loop_nl import (DETECTOR_KINDS as NL_DETECTORS,
+                                 fused_nl_loop, pack_nl_consts,
+                                 pick_nl_block)
 from ..ops.fused_spectral import (MAX_P, pack_mxu_consts, pack_solve_consts,
                                   pack_spectral_consts, spectral_core,
                                   spectral_fused, spectral_smem,
                                   spectral_stats)
 from ..ops.fused_whole import (DETECTOR_KINDS as WHOLE_DETECTORS,
                                SMEM_BYTES, fused_whole, pack_whole_consts,
-                               pack_whole_time_consts, smem_bytes,
+                               pack_whole_time_consts, pad_time, smem_bytes,
                                whole_cap)
-from ..ops.fused_vb import fused_iteration, kernel_instantiated
+from ..ops.fused_vb import fused_iteration, nl_instantiated
 from ..ops.spectral import (eigen_elbo_const, make_spectral_detector_loop,
                             make_spectral_loop)
 from ..options import OptionSpec, OPT_STR, OPT_INT, OPT_BOOL, OPT_MVN
@@ -194,9 +201,12 @@ ROUTE_KERNEL = {"pallas-whole": 4, "pallas-loop": 5, "pallas-loop-ar": 9,
 INSTANCE_LISTS = {4: "csrc/whole_device.cuh FABBER_WHOLE_INSTANCES",
                   5: "csrc/whole_device.cuh FABBER_WHOLE_INSTANCES",
                   9: "csrc/fused_ar_loop.cu FABBER_AR_INSTANCES",
-                  6: "csrc/vb_device.cuh FABBER_NL_INSTANCES",
-                  7: "csrc/vb_device.cuh FABBER_NL_INSTANCES",
-                  8: "csrc/vb_device.cuh FABBER_NL_INSTANCES"}
+                  6: "csrc/vb_device.cuh FABBER_NL_INSTANCES and "
+                     "kWideMaxP, kWideMaxQ",
+                  7: "csrc/vb_device.cuh FABBER_NL_INSTANCES and "
+                     "kWideMaxP, kWideMaxQ",
+                  8: "csrc/vb_device.cuh FABBER_NL_INSTANCES and "
+                     "kWideMaxP"}
 # the fixed-design routes that start from the model default (a
 # programmatic initial posterior takes "xla" instead, vb.py:2516-2539)
 DESIGN_KERNEL_ROUTES = ("spectral-whole", "spectral-fused",
@@ -572,8 +582,8 @@ class VBInference:
 
     def _nonlinear_route(self, mode):
         """Models without a fixed design: the whole-loop gate
-        (vb.py:593-660), then the per-iteration kernel's (vb.py:355-363),
-        then the generic-Jacobian route."""
+        (vb.py:593-660) with its VMEM picker, then the per-iteration
+        kernel's (vb.py:355-363), then the generic-Jacobian route."""
         o = self.options
         # every detector runs in the kernel (vb.py:621-640); ARD and
         # spatial priors change between iterations (vb.py:641-642)
@@ -584,6 +594,16 @@ class VBInference:
                  and not self.prior_setup.spatial_params
                  and o.get_string("noise-initial-posterior",
                                   "modeldefault") == "modeldefault")
+
+        def fits(generic):
+            # the JAX kernel's tile picker at 1,024 voxels (vb.py:643-651)
+            det = type(self.detector).name
+            return pick_nl_block(
+                1024, self.nparams, pad_time(self.nt), self.noise.nphis,
+                det in NL_DETECTORS, generic is not None,
+                getattr(generic, "time_planes", None),
+                getattr(generic, "nsupp", 0),
+                tracks_best=det in ("trialmode", "lm")) is not None
         if not self._ts_eligible:
             # the generic mode's gate (vb.py:600-617): an evaluate the
             # probe admits, decided here, before any launch
@@ -596,28 +616,31 @@ class VBInference:
                 nsupp = 0 if self.supp is None else self.supp.shape[0]
                 self.generic = derive_time_local_eval(
                     self.model, self.nt, self.nparams, nsupp)
-            if self.generic is not None and nl_ok:
+            if self.generic is not None and nl_ok and fits(self.generic):
                 self.functor = self.generic
                 return "pallas-loop-nl"
             return "xla-generic"
-        if nl_ok:
+        if nl_ok and fits(None):
             return "pallas-loop-nl"
         return "pallas" if mode in ("auto", "pallas") else "xla-generic"
 
     def _require_kernel_instance(self, route=None):
         """On "cuda" a kernel route (default the run's; a continued run
         asks for continuation_route()'s) needs its kernel compiled for the
-        run's (P, Q): a hand-written instance (FABBER_NL_INSTANCES for the
-        model's functor) or, for kernels 6 and 7, a functor generated from
-        the model (its evaluate on the generic route, else its
+        run's (P, Q): for the model's hand-written functor a prebuilt
+        instance (FABBER_NL_INSTANCES) or a per-shape one
+        (nl_instantiated), else, for kernels 6 and 7, a functor generated
+        from the model (its evaluate on the generic route, else its
         time_signal), built now (_require_functor). Kernels 4, 5 and 9
         serve every shape the route gate gives them: a prebuilt instance
-        (FABBER_WHOLE_INSTANCES, FABBER_AR_INSTANCES) or a per-shape one,
-        built at the route's first launch (ops/_cuda.py build_instance;
-        whole_instantiated, ar_instantiated). A run with neither raises
-        here (require_card_instance), before anything is built or
-        launched. On "cpu" the routes run their plain versions, which take
-        any shape."""
+        (FABBER_WHOLE_INSTANCES, FABBER_AR_INSTANCES) or a per-shape one.
+        Per-shape instances are built at the route's first launch
+        (ops/_cuda.py build_instance; whole_instantiated,
+        ar_instantiated, nl_instantiated). A run with none (kernel 7
+        past csrc/vb_device.cuh kWideMaxP, kWideMaxQ) raises here
+        (require_card_instance), before anything is built or launched.
+        On "cpu" the routes run their plain versions, which take any
+        shape."""
         if self.device.type != "cuda":
             return
         route = route or self.route
@@ -628,7 +651,7 @@ class VBInference:
                 return ar_instantiated(p, nq)
             if r in WHOLE_ROUTES:
                 return whole_instantiated(p, nq)
-            return self.generic is None and kernel_instantiated(
+            return self.generic is None and nl_instantiated(
                 self.model.kernel_model(), nq)
 
         def functor_ok(r):
@@ -649,13 +672,13 @@ class VBInference:
 
     def _require_functor(self, route):
         """On "cuda", route's kernel (6 for pallas-loop-nl, 7 for pallas)
-        where the model's functor has no hand-written instance at the
-        run's Q: the generated one (require_card_instance admitted it),
-        built (or loaded) now into functor.libs[(kernel, Q)]. A failed
-        build raises."""
+        where the model has no hand-written functor, or its functor no
+        prebuilt or per-shape instance at the run's (P, Q): the generated
+        one (require_card_instance admitted it), built (or loaded) now
+        into functor.libs[(kernel, Q)]. A failed build raises."""
         nq = self.noise.nphis
         if route not in FUNCTOR_ROUTES or (
-                self.generic is None and kernel_instantiated(
+                self.generic is None and nl_instantiated(
                     self.model.kernel_model(), nq)):
             return
         kernel = "nl_loop" if route == "pallas-loop-nl" else "vb_iter"
@@ -1603,7 +1626,7 @@ def generatable(functor, nparams, nq):
     """True where a functor generated from a model can serve a kernel on
     the card: one was generated (functor not None; the generator refuses
     some ops) and P, Q (None for the NLLS kernel, which has no noise
-    groups) lie within csrc/vb_device.cuh's kMaxP, kMaxQ."""
+    groups) lie within csrc/vb_device.cuh's kWideMaxP, kWideMaxQ."""
     max_p, max_q = _cuda.gen_limits()
     return functor is not None and nparams <= max_p and (nq or 1) <= max_q
 
@@ -1623,8 +1646,8 @@ def require_card_instance(route, p, q, has_instance, functor_ok):
     kernel = ROUTE_KERNEL[route]
     shape = f"P={p}" + ("" if q is None else f", Q={q}")
     gen = (", and no functor can be generated from the model (P, Q above "
-           "csrc/vb_device.cuh kMaxP, kMaxQ, or an op the generator lacks)"
-           if kernel in (6, 7, 8) else "")
+           "csrc/vb_device.cuh kWideMaxP, kWideMaxQ, or an op the "
+           "generator lacks)" if kernel in (6, 7, 8) else "")
     raise NotImplementedError(
         f"no ({shape}) instance of kernel {kernel} "
         f"({INSTANCE_LISTS[kernel]}){gen}, so the '{route}' route cannot run "

@@ -87,11 +87,18 @@ class TimeLocalEval:
     """An accepted model: ``fn(params [P][, supp [S]]) -> [nt]`` (the
     model's evaluate over a data-free context, plain torch), its
     parameter and suppdata counts, the generated functor's C++ source
-    (struct GenModel) and the float32 operations the functor does per
-    time sample for the value and for the P tangents."""
+    (struct GenModel), the float32 operations the functor does per
+    time sample for the value and for the P tangents, and (from evaluate
+    only, else None) time_planes: the intermediates of the trace that
+    carry the time axis, the JAX engine's measure of the generic mode's
+    VMEM (fabber_core_tpu/models/base.py _count_time_planes), which the
+    route gate's copy of its picker reads (ops/fused_loop_nl.py
+    pick_nl_block)."""
 
-    def __init__(self, fn, nparams, nsupp, source, value_ops, tangent_ops):
+    def __init__(self, fn, nparams, nsupp, source, value_ops, tangent_ops,
+                 time_planes=None):
         self.fn = fn
+        self.time_planes = time_planes
         self.nparams = nparams
         self.nsupp = nsupp
         self.source = source
@@ -132,7 +139,26 @@ def derive_time_local_eval(model, nt, nparams, nsupp=0):
     except Exception:   # a failed trace or a rejected op: the route says no
         return None
     return TimeLocalEval(fn, nparams, nsupp, gen.source(), gen.value_ops,
-                         gen.tangent_ops)
+                         gen.tangent_ops, count_time_planes(gm, nt))
+
+
+def count_time_planes(gm, nt):
+    """The nodes of a make_fx trace whose output carries the time axis (a
+    dimension of length nt), at least 1: the count of JAX's
+    _count_time_planes (jaxpr equation outputs with nt in their shape)
+    over the port's own trace. The traces are not the same program (an
+    aten op may stand for a pair of lax primitives), but on the models
+    tests/test_torch_wide_nl.py holds them against (a Gaussian, its
+    suppdata form, exp sums of 1-5 components) the counts agree."""
+    n = 0
+    for node in gm.graph.nodes:
+        if node.op != "call_function":
+            continue
+        vals = node.meta.get("val")
+        for v in vals if isinstance(vals, (tuple, list)) else (vals,):
+            if torch.is_tensor(v) and nt in tuple(v.shape):
+                n += 1
+    return max(n, 1)
 
 
 def derive_time_signal_functor(model, nparams):

@@ -260,7 +260,7 @@ def load():
 _GEN_HEAD = """// generated by fabber_core_tpu_torch/ops/_cuda.py build_generated: the
 // {what} ({header}) with a model functor generated
 // from a model (models/kernelgen.py) at P = {p}{qtext}.
-#include "dual.cuh"
+{roll}#include "dual.cuh"
 #include "{header}"
 
 namespace {{
@@ -283,8 +283,8 @@ extern "C" int fabber_gen_nl_loop(
     const float* data, const float* supp, const float* qw, int nt,
     long long V, float* means, float* prec, float* cov, float* b, float* c,
     float* fkqk, float* ftr, int vb, void* stream) {{
-  VBParams k;
-  NLDetConsts dc;
+  VBParamsFor<{p}, {q}> k;
+  NLDetConstsFor<{q}> dc;
   const long long smem = nl_smem(vb, nt, {q});
   if (smem < 0 ||
       !nl_setup({p}, {q}, tcodes_host, 0.f, n_iters, need_f, locked_sd,
@@ -318,7 +318,7 @@ extern "C" int fabber_gen_vb_iter(
     float* cov, float* nkqk, float* ntr, float* fkqk, float* ftr, int vb,
     void* stream) {{
   const long long smem = iter_smem(vb, nt, {q});
-  VBParams k;
+  VBParamsFor<{p}, {q}> k;
   if (!iter_setup({p}, {q}, tcodes_host, 0.f, need_f, nt, V, smem, &k))
     return (int)cudaErrorInvalidValue;
   const float* const ins[7] = {{centre, pm, pp, phi, data, qw, alpha}};
@@ -351,7 +351,7 @@ extern "C" int fabber_gen_nlls(
   const long long smem = nlls_smem(vb, nt);
   float* const outs[6] = {{params_out, cost_out, its_out, prec_out,
                           cov_out, state_out}};
-  NLLSParams k;
+  NLLSParamsFor<{p}> k;
   if (!nlls_setup({p}, tcodes_host, 0.f, consts_host, mode, max_its, dof,
                   state_in, nt, V, smem, outs, &k))
     return (int)cudaErrorInvalidValue;
@@ -417,36 +417,89 @@ def generated_source(source, p, q, kernel="nl_loop"):
     what, header, body, _ = GEN_KERNELS[kernel]
     qtext = "" if q is None else f", Q = {q}"
     return (_GEN_HEAD.format(what=what, header=header, p=p, qtext=qtext,
-                             source=source)
+                             source=source, roll=_roll_define(p, q or 1))
             + body.format(p=p, q=q))
 
 
-def _gen_flags(kernel):
+def _gen_flags(kernel, p=1, q=1):
     """nvcc's flags of a generated build: NVCC_FLAGS and those of the
     kernel's own source (kernel 8's -fmad=false, so its fresh and
-    two-phase modes compute the same bits there too)."""
-    return NVCC_FLAGS + SOURCE_FLAGS.get(GEN_KERNELS[kernel][3], [])
+    two-phase modes compute the same bits there too), and ROLL_FLAGS
+    past rolled_loops' sizes."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(GEN_KERNELS[kernel][3], []) + (
+        ROLL_FLAGS if rolled_loops(p, q or 1) else [])
 
 
 def generated_key(source, p, q, kernel="nl_loop"):
     """The hash naming a generated functor's build: its .cu (source,
     kernel template, P, Q), the headers and the flags."""
     h = hashlib.sha256(generated_source(source, p, q, kernel).encode())
-    h.update(" ".join(_gen_flags(kernel)).encode())
+    h.update(" ".join(_gen_flags(kernel, p, q)).encode())
     for name in HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-@functools.cache
-def gen_limits():
-    """(kMaxP, kMaxQ): the largest P and Q of a generated model functor,
-    read from csrc/vb_device.cuh, the header its kernels compile with."""
-    text = (CSRC / "vb_device.cuh").read_text()
+def _header_consts(names, header="vb_device.cuh"):
+    text = (CSRC / header).read_text()
     return tuple(int(re.search(rf"constexpr int {name} = (\d+);",
                                text).group(1))
-                 for name in ("kMaxP", "kMaxQ"))
+                 for name in names)
+
+
+@functools.cache
+def gen_limits():
+    """(kWideMaxP, kWideMaxQ): the largest P and Q of a generated model
+    functor, read from csrc/vb_device.cuh, the header its kernels compile
+    with (past kMaxP or kMaxQ the per-shape instances' body: kernel 7's
+    folded form past its kFoldSums, rolled loops past rolled_loops'
+    sizes)."""
+    return _header_consts(("kWideMaxP", "kWideMaxQ"))
+
+
+# the largest P, and per-group sums Q P(P+1)/2, of a nonlinear unit built
+# with its loops unrolled (rolled_loops). Unrolled, exp num-exps 5 (P =
+# 10) ran kernel 6 in 52.1-53.3 ms, 7 in 12.8-13.1 and 8 in 287.4-287.7 at
+# 4,000,000 voxels, T=100; rolled, 1,418.9-1,421.0, 276.7-277.6 and
+# 9,296.2-9,302.6 (NVIDIA H100 80GB HBM3, 700 W; probes/wide_nl.py
+# --unrolled), nvcc 10.9-30.8 s a unit unrolled.
+ROLL_P = 16
+ROLL_SUMS = 600
+
+
+def rolled_loops(p, q=1):
+    """True where a unit of kernels 6-8 at (P, Q) (a per-shape instance
+    or a generated functor) is built with FABBER_ROLL_LOOPS
+    (csrc/vb_device.cuh FABBER_UNROLL): past ROLL_P, or past ROLL_SUMS
+    per-group sums J'Q_qJ. Unrolled, a lane's packed state is the
+    registers' (and ptxas's spills, at static offsets) and nvcc's time
+    grows as P^3; rolled, local memory indexed by the loop counters, 25-32
+    times slower at P = 10, and nvcc's time that of P = 1."""
+    return p > ROLL_P or q * p * (p + 1) // 2 > ROLL_SUMS
+
+
+def _roll_define(p, q):
+    return "#define FABBER_ROLL_LOOPS\n" if rolled_loops(p, q) else ""
+
+
+# nvcc's flags on top of a rolled unit's (FABBER_ROLL_LOOPS): its device
+# code unoptimized. Optimized, the rolled loops came out wrong on an NVIDIA
+# H100 80GB HBM3 with the card machine's CUDA toolkit: kernel 6 under
+# trialmode at P = 10 and kernel 7's folded form at P = 24, Q = 4 gave
+# non-finite means in every lane, where the same units unrolled, or rolled
+# with -G, agree with their plain versions; -Xptxas -O0 and -O1, -Xcicc
+# -O1 and -O2 and -G -dopt on did not repair both (probes/wide_nl.py
+# --flags), and the same C++ at double on the host is right under
+# AddressSanitizer and UndefinedBehaviorSanitizer.
+ROLL_FLAGS = ["-G"]
+
+
+def _unit_flags(source, text):
+    """nvcc's flags of a unit (SOURCE_FLAGS' beside NVCC_FLAGS), with
+    ROLL_FLAGS where its text defines FABBER_ROLL_LOOPS."""
+    return SOURCE_FLAGS.get(source, []) + (
+        ROLL_FLAGS if "#define FABBER_ROLL_LOOPS" in text else [])
 
 
 def build_generated(source, p, q, kernel="nl_loop"):
@@ -459,10 +512,11 @@ def build_generated(source, p, q, kernel="nl_loop"):
     stderr when the build fails. gen_build_log[hash] keeps the build's
     seconds and nvcc's output (ptxas's register and spill lines; the
     seconds are nan where an earlier process built the library)."""
-    max_p = gen_limits()[0]
-    if not 1 <= p <= max_p:
-        raise FabberError(f"a generated functor takes P <= {max_p}, "
-                          f"not {p} (csrc/vb_device.cuh kMaxP)")
+    max_p, max_q = gen_limits()
+    if not 1 <= p <= max_p or not 1 <= (q or 1) <= max_q:
+        raise FabberError(f"a generated functor takes P <= {max_p} and Q "
+                          f"<= {max_q}, not P={p}, Q={q} "
+                          "(csrc/vb_device.cuh kWideMaxP, kWideMaxQ)")
     if (q is None) != (kernel == "nlls"):
         raise ValueError(f"kernel {kernel!r} with q={q!r}: the NLLS kernel "
                          "takes no Q, the VB kernels one")
@@ -480,8 +534,8 @@ def build_generated(source, p, q, kernel="nl_loop"):
         tmp_src.write_text(cu)
         os.replace(tmp_src, src)
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc, *_gen_flags(kernel), "-I", str(CSRC), "-shared", "-o",
-               str(tmp), str(src)]
+        cmd = [nvcc, *_gen_flags(kernel, p, q), "-I", str(CSRC), "-shared",
+               "-o", str(tmp), str(src)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         gen_build_log[key] = (time.perf_counter() - t0,
@@ -524,13 +578,17 @@ def build_generated(source, p, q, kernel="nl_loop"):
 # Per-shape instances (build_instance): family -> its sources, and where
 # its limits stand (the header or source holding kWideMaxP / kWideMaxQ;
 # kernel 9's nq limit is its prebuilt kAMaxQ). Each source compiles with
-# FABBER_INST_P (and FABBER_INST_Q) defined into entry points of its own
-# names (fabber_inst_*), for that one shape.
+# FABBER_INST_P (and FABBER_INST_Q; the nonlinear family also
+# FABBER_INST_KIND, its functor, and past rolled_loops' sizes
+# FABBER_ROLL_LOOPS) defined into entry points of its own names
+# (fabber_inst_*), for that one shape.
 INSTANCE_FAMILIES = {
     "spectral": (("spectral_stats.cu", "spectral_core.cu",
                   "spectral_fused.cu"), "spectral_device.cuh"),
     "whole": (("fused_whole.cu", "fused_loop.cu"), "whole_device.cuh"),
     "ar": (("fused_ar_loop.cu",), "fused_ar_loop.cu"),
+    "nl": (("fused_nl_loop.cu", "fused_vb_iter.cu", "fused_nlls.cu"),
+           "vb_device.cuh"),
 }
 _inst_libs = {}
 inst_build_log = {}   # build key -> (seconds, nvcc's output)
@@ -540,6 +598,9 @@ _INST_HEAD = """// generated by fabber_core_tpu_torch/ops/_cuda.py build_instanc
 #define FABBER_INST_P {p}
 {qdef}#include "{source}"
 """
+# the functor of a nonlinear instance (FABBER_INST_KIND): models/base.py's
+# KERNEL_POLY and KERNEL_EXP codes
+NL_KINDS = {0: "PolyModel", 1: "ExpSum"}
 
 
 @functools.cache
@@ -553,38 +614,48 @@ def instance_limits(family):
         return int(re.search(rf"constexpr int {name} = (\d+);",
                              text).group(1))
     max_q = {"spectral": lambda: 1, "whole": lambda: const("kWideMaxQ"),
-             "ar": lambda: const("kAMaxQ")}[family]()
+             "ar": lambda: const("kAMaxQ"),
+             "nl": lambda: const("kWideMaxQ")}[family]()
     return const("kWideMaxP"), max_q
 
 
-def instance_buildable(family, p, q=1):
+def instance_buildable(family, p, q=1, kind=None):
     """True where build_instance can compile family at (P, Q): within
     instance_limits; the spectral and AR families past the prebuilt
-    library's P (every smaller shape is prebuilt there)."""
+    library's P (every smaller shape is prebuilt there); the nonlinear
+    family for a functor kind of NL_KINDS (an exp sum at even P) at any
+    shape (the library serves its prebuilt ones)."""
     max_p, max_q = instance_limits(family)
-    low = 1 if family == "whole" else 9
+    if family == "nl" and (kind not in NL_KINDS or (kind == 1 and p % 2)):
+        return False
+    low = 1 if family in ("whole", "nl") else 9
     return low <= p <= max_p and 1 <= q <= max_q
 
 
-def instance_sources(family, p, q=1):
-    """{unit name: .cu text} of family's per-shape instance at (P, Q): one
-    small unit per source of the family, defining the shape and
-    including the source."""
+def instance_sources(family, p, q=1, kind=None):
+    """{unit name: .cu text} of family's per-shape instance at (P, Q) (and
+    functor kind, the nonlinear family's): one small unit per source of
+    the family, defining the shape and including the source."""
     qtext = "" if family == "spectral" else f", Q = {q}"
     qdef = "" if family == "spectral" else f"#define FABBER_INST_Q {q}\n"
+    if family == "nl":
+        qtext += f", {NL_KINDS[kind]}"
+        qdef += f"#define FABBER_INST_KIND {kind}\n" + _roll_define(p, q)
     return {Path(src).stem: _INST_HEAD.format(source=src, p=p, qtext=qtext,
                                               qdef=qdef)
             for src in INSTANCE_FAMILIES[family][0]}
 
 
-def instance_key(family, p, q=1):
+def instance_key(family, p, q=1, kind=None):
     """The hash naming a per-shape build: its units (family, shape), the
     family's sources and every header, and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
-    for name, text in sorted(instance_sources(family, p, q).items()):
+    for name, text in sorted(instance_sources(family, p, q,
+                                              kind).items()):
         h.update(name.encode())
         h.update(text.encode())
+        h.update(" ".join(_unit_flags(f"{name}.cu", text)).encode())
     for name in INSTANCE_FAMILIES[family][0] + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -607,6 +678,21 @@ def _inst_argtypes(lib, family):
                                            i32, f32, i32, i32, i32, i64]
             + [vp] * 7 + [i32, vp],
             "fabber_inst_fused_occupancy": [i32] * 4}
+    elif family == "nl":
+        entries = {
+            "fabber_inst_fused_nl_loop": [
+                i32, i32, i32, vp, f32, i32, i32, f32, vp, i32, f32, i32,
+                i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, i64]
+            + [vp] * 7 + [i32, vp],
+            "fabber_inst_nl_occupancy": [i32] * 6,
+            "fabber_inst_fused_vb_iter": [
+                i32, i32, i32, vp, f32, i32, vp, vp, vp, vp, vp, vp, vp, i32,
+                i64] + [vp] * 7 + [i32, vp],
+            "fabber_inst_vb_iter_occupancy": [i32] * 6,
+            "fabber_inst_fused_nlls": [
+                i32, i32, vp, f32, vp, i32, i32, i32, f32, vp, vp, vp, vp,
+                i32, i64] + [vp] * 6 + [i32, vp],
+            "fabber_inst_nlls_occupancy": [i32] * 6}
     elif family == "whole":
         entries = {
             "fabber_inst_fused_whole": [i32, i32, i32, f32, vp, i32, f32, i32,
@@ -627,11 +713,13 @@ def _inst_argtypes(lib, family):
         fn.restype = i32
 
 
-def build_instance(family, p, q=1):
+def build_instance(family, p, q=1, kind=None):
     """Build (once per family, shape, sources, headers and flags) and load
     the per-shape instance of family ("spectral": kernels 1, 2 and 3 at P
     9-25; "whole": kernels 4 and 5 at any (P, Q) up to (20, 4); "ar":
-    kernel 9 at P 9-16, nq 1-2; instance_limits): writes one small .cu
+    kernel 9 at P 9-16, nq 1-2; "nl": kernels 6, 7 and 8 with the
+    functor kind (NL_KINDS) at any (P, Q) up to (42, 35), kernel 8 at P;
+    instance_limits): writes one small .cu
     per source of the family into build/kernels/inst/ (instance_sources),
     compiles them with nvcc for sm_90a, one process each, all started
     together, and links them into libfabber_inst_<hash>.so (a temporary
@@ -641,10 +729,11 @@ def build_instance(family, p, q=1):
     nvcc's output (a "== unit (nvcc S s)" head per unit, then ptxas's
     register and spill lines; the seconds are nan where an earlier
     process built the library)."""
-    if not instance_buildable(family, p, q):
-        raise FabberError(f"no per-shape {family} instance at P={p}, Q={q} "
-                          f"(limits {instance_limits(family)})")
-    key = instance_key(family, p, q)
+    if not instance_buildable(family, p, q, kind):
+        raise FabberError(f"no per-shape {family} instance at P={p}, Q={q}"
+                          + ("" if kind is None else f", kind {kind}")
+                          + f" (limits {instance_limits(family)})")
+    key = instance_key(family, p, q, kind)
     if key in _inst_libs:
         return _inst_libs[key]
     idir = BUILD_DIR / "inst"
@@ -652,13 +741,13 @@ def build_instance(family, p, q=1):
     if not out.exists():
         idir.mkdir(parents=True, exist_ok=True)
         units = []
-        for stem, text in instance_sources(family, p, q).items():
+        for stem, text in instance_sources(family, p, q, kind).items():
             src = idir / f"{key}.{stem}.cu"
             tmp_src = src.with_suffix(f".tmp{os.getpid()}.cu")
             tmp_src.write_text(text)
             os.replace(tmp_src, src)
-            units.append((f"{stem}.cu", src,
-                          SOURCE_FLAGS.get(f"{stem}.cu", [])))
+            units.append((f"{stem}.cu", src, _unit_flags(f"{stem}.cu",
+                                                         text)))
         t0 = time.perf_counter()
         try:
             log = _compile_link(units, out)
@@ -676,7 +765,8 @@ def build_instance(family, p, q=1):
 
 
 def build_instances(shapes, with_library=True):
-    """Build the per-shape instances shapes ((family, p, q) each) and, with
+    """Build the per-shape instances shapes ((family, p, q) each, and the
+    functor kind for "nl") and, with
     with_library, the prebuilt library, concurrently (a thread per build,
     each waiting on its nvcc processes). Returns {shape: library}; the
     first failure raises once all have ended."""
@@ -928,13 +1018,15 @@ def launch_nl_loop(km, nq, tcodes, n_iters, need_f, locked_sd, consts,
     convergence detector object or None (maxits); det_consts: [Q+2]
     float32 host tensor (lb_coeff, f_const, f_const_init) or None; pd0:
     the initial posterior variances [P,V] (freduce) or None; vb: 0
-    streamed, > 0 staged in blocks of vb lanes (launch_vb)."""
-    lib = load()
+    streamed, > 0 staged in blocks of vb lanes (launch_vb). A (kind, P,
+    Q) outside FABBER_NL_INSTANCES launches its per-shape instance
+    (build_instance "nl", at its first use); returns True then."""
     nt, nv = data.shape
     consts = consts.contiguous()
     dc = 0 if det_consts is None else det_consts.contiguous().data_ptr()
     with torch.cuda.device(data.device):
-        err = lib.fabber_fused_nl_loop(
+        fn, inst = _nl_entry(km.kind, km.nparams, nq, "fused_nl_loop")
+        err = fn(
             km.kind, km.nparams, nq, _int_array(tcodes), km.dt, n_iters,
             int(need_f), locked_sd, consts.data_ptr(),
             *detector_args(detector), dc, centre0.data_ptr(),
@@ -943,22 +1035,26 @@ def launch_nl_loop(km, nq, tcodes, n_iters, need_f, locked_sd, consts,
             qw.data_ptr(), nt, nv, *(o.data_ptr() for o in outs), vb,
             _stream(data.device))
     _raise_on(err, "fused_nl_loop")
+    return inst
 
 
 def launch_vb_iter(km, nq, tcodes, need_f, centre, pm, pp, phi, data, qw,
                    alpha, outs, vb):
     """alpha: the lm detector's [V] damping (the LM branch) or None; vb:
-    0 streamed, > 0 staged in blocks of vb lanes (launch_vb)."""
-    lib = load()
+    0 streamed, > 0 staged in blocks of vb lanes (launch_vb). A (kind, P,
+    Q) outside FABBER_NL_INSTANCES launches its per-shape instance (the
+    folded form past its kFoldSums); returns True then."""
     nt, nv = data.shape
     with torch.cuda.device(data.device):
-        err = lib.fabber_fused_vb_iter(
+        fn, inst = _nl_entry(km.kind, km.nparams, nq, "fused_vb_iter")
+        err = fn(
             km.kind, km.nparams, nq, _int_array(tcodes), km.dt, int(need_f),
             centre.data_ptr(), pm.data_ptr(), pp.data_ptr(), phi.data_ptr(),
             data.data_ptr(), qw.data_ptr(),
             0 if alpha is None else alpha.data_ptr(), nt, nv,
             *(o.data_ptr() for o in outs), vb, _stream(data.device))
     _raise_on(err, "fused_vb_iter")
+    return inst
 
 
 def _float_array(values):
@@ -971,27 +1067,47 @@ def launch_nlls(km, tcodes, consts, mode, marquardt, max_its, dof, params0,
     fresh, 1 phase 1, 2 resume; w: the [T] 0/1 weights on the device;
     state: [4,V] or None; outs: (params, cost, its, prec, cov, state_out)
     with None for what the mode does not write; vb: 0 streamed, > 0
-    staged in blocks of vb lanes (launch_vb)."""
-    lib = load()
+    staged in blocks of vb lanes (launch_vb). A (kind, P) outside
+    FABBER_NL_INSTANCES launches its per-shape instance (at Q = 1);
+    returns True then."""
     nt, nv = data.shape
 
     def ptr(t):
         return 0 if t is None else t.data_ptr()
     with torch.cuda.device(data.device):
-        err = lib.fabber_fused_nlls(
+        fn, inst = _nl_entry(km.kind, km.nparams, None, "fused_nlls")
+        err = fn(
             km.kind, km.nparams, _int_array(tcodes), km.dt,
             _float_array(consts), mode, int(marquardt), max_its, dof,
             params0.data_ptr(), data.data_ptr(), w.data_ptr(), ptr(state),
             nt, nv, *(ptr(o) for o in outs), vb, _stream(data.device))
     _raise_on(err, "fused_nlls")
+    return inst
+
+
+def _nl_entry(kind, p, nq, name):
+    """(the C entry point name of kernel 6, 7 or 8 (nq None) for the
+    functor kind at (P, Q), whether it is a per-shape instance's): the
+    prebuilt library's where FABBER_NL_INSTANCES holds the shape, else
+    the per-shape instance's (build_instance "nl", built at its first
+    use; kernel 8 at Q = 1)."""
+    if (has_nl_instance(kind, p, nq) if nq is not None
+            else has_nlls_instance(kind, p)):
+        return getattr(load(), f"fabber_{name}"), False
+    lib = build_instance("nl", p, nq or 1, kind)
+    return getattr(lib, f"fabber_inst_{name}"), True
 
 
 def nl_occupancy(kind, p, nq, mode, vb, nt):
     """Blocks per SM of kernel 6's (kind, P, Q) instance in MODE mode (0
     maxits, 1 pointzeroone/freduce, 2 trialmode/lm) and form vb at nt
-    samples (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1 where
-    refused."""
-    return int(load().fabber_nl_occupancy(kind, p, nq, mode, vb, nt))
+    samples (cudaOccupancyMaxActiveBlocksPerMultiprocessor; a per-shape
+    instance built if need be); -1 where refused."""
+    if not (has_nl_instance(kind, p, nq)
+            or instance_buildable("nl", p, nq, kind)):
+        return -1
+    return int(_nl_entry(kind, p, nq, "nl_occupancy")[0](
+        kind, p, nq, mode, vb, nt))
 
 
 def whole_occupancy(p, nq, mode, vb, nt):
@@ -1014,9 +1130,13 @@ def loop_occupancy(p, nq):
 
 def vb_iter_occupancy(kind, p, nq, lm, vb, nt):
     """Blocks per SM of kernel 7's (kind, P, Q) instance, with or without
-    its LM branch, in form vb at nt samples; -1 where refused."""
-    return int(load().fabber_vb_iter_occupancy(kind, p, nq, int(lm), vb,
-                                               nt))
+    its LM branch, in form vb at nt samples (nl_occupancy's rule past the
+    prebuilt list); -1 where refused."""
+    if not (has_nl_instance(kind, p, nq)
+            or instance_buildable("nl", p, nq, kind)):
+        return -1
+    return int(_nl_entry(kind, p, nq, "vb_iter_occupancy")[0](
+        kind, p, nq, int(lm), vb, nt))
 
 
 def gen_occupancy(lib, mode, vb, nt):
@@ -1039,9 +1159,13 @@ def gen_nlls_occupancy(lib, mode, marquardt, vb, nt):
 def nlls_occupancy(kind, p, mode, marquardt, vb, nt):
     """Blocks per SM of kernel 8's (kind, P) instance in mode (0 fresh, 1
     phase 1, 2 resume), with or without Marquardt damping, in form vb at
-    nt samples; -1 where refused."""
-    return int(load().fabber_nlls_occupancy(kind, p, mode, int(marquardt),
-                                            vb, nt))
+    nt samples (nl_occupancy's rule past the prebuilt list); -1 where
+    refused."""
+    if not (has_nlls_instance(kind, p) or instance_buildable("nl", p, 1,
+                                                             kind)):
+        return -1
+    return int(_nl_entry(kind, p, None, "nlls_occupancy")[0](
+        kind, p, mode, int(marquardt), vb, nt))
 
 
 def launch_ar_loop(p, nq, n_iters, consts, detector, elbo, m0, rmr, dmr, pm,

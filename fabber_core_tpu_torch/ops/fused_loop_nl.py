@@ -59,7 +59,13 @@ CUDA tensor it launches the kernel or raises. ``fused_nl_loop.
 launches`` counts kernel launches, ``det_launches`` those in detector
 mode, ``generic_launches`` those in the generic full-time mode (a
 functor generated from evaluate; one generated from a time_signal is
-the time_signal mode), ``staged_launches`` those in the staged form.
+the time_signal mode), ``staged_launches`` those in the staged form,
+``instance_launches`` those of a per-shape instance (ops/_cuda.py
+build_instance "nl": a hand-written functor's (kind, P, Q) outside
+FABBER_NL_INSTANCES, built at its first launch).
+
+The route gate's copy of the JAX picker (pick_nl_block) decides where
+kernel 6 runs, on the card and on the CPU alike.
 """
 
 import numpy as np
@@ -72,6 +78,57 @@ from .fused_vb import (block_evaluator, check_plane, f_quadratics,
                        posterior_solve, signal_jac_fn, trace_terms)
 
 DETECTOR_KINDS = ("pointzeroone", "freduce", "trialmode", "lm")
+
+# The JAX engine's gate for its whole-loop nonlinear kernel on a TPU
+# (fabber_core_tpu/ops/fused_loop_nl.py n_nl_loop_rows, pick_nl_block;
+# the port's own copy, pure arithmetic on shapes): the TPU kernel's live
+# float32 rows of a voxel tile against its VMEM budget (ops/fused_loop.py
+# VMEM_BUDGET), at the time axis padded to TB samples. The port's route
+# gate takes kernel 6 where the JAX engine does (vb.py _nonlinear_route),
+# so past these bounds both take the per-iteration kernel 7 (or the
+# generic route): P <= 39 at Q = 1 under maxits, 19 at Q = 8, 8 at Q = 35.
+TB = 8
+
+
+def n_nl_loop_rows(p, tp, nq, fdet=False, full_eval=False,
+                   eval_planes=None, nsupp=0, tracks_best=False):
+    """Per-voxel live float32 rows of the JAX whole-loop kernel at P, the
+    padded time tp, Q groups: the data input, the small inputs and
+    outputs, the loop carry, the model evaluation's live rows and the
+    [TB,B] partial sums; fdet adds the detector lanes, tracks_best the
+    trialmode/lm best-state copies; full_eval (the generic mode) every
+    time-shaped intermediate of the model's trace (eval_planes, the
+    models/kernelgen.py TimeLocalEval's time_planes) times (2P + 3)."""
+    ntri = p * (p + 1) // 2
+    data_in = 2 * tp
+    small_io = 2 * (3 * p) + 2 * (p + 2 * p * p + 4 * nq)
+    carry = p + 2 * nq + 2 * ntri
+    if full_eval:
+        ep = (2 * p + 3) * (eval_planes if eval_planes is not None
+                            else 3 * (p + 1))
+        eval_live = (ep + p + 2) * tp + 3 * nsupp
+        time_partials = nq * (ntri + p + 1)
+    else:
+        eval_live = 3 * TB * (p + 1)
+        time_partials = TB * nq * (ntri + p + 1)
+    return (data_in + small_io + carry + eval_live + time_partials
+            + 2 * p
+            + (14 if fdet else 0)
+            + ((p + 2 * nq + 3 * (p * (p + 1) // 2) + 7)
+               if tracks_best else 0))
+
+
+def pick_nl_block(nvoxels, p, tp, nq, fdet=False, full_eval=False,
+                  eval_planes=None, nsupp=0, tracks_best=False):
+    """The JAX engine's voxel tile for kernel 6, (block, pad), or None
+    where none fits its VMEM budget (it takes another route)."""
+    from .fused_loop import VMEM_BUDGET
+    rows = n_nl_loop_rows(p, tp, nq, fdet, full_eval, eval_planes, nsupp,
+                          tracks_best)
+    for bb in (2048, 1024, 512, 256, 128):
+        if rows * bb * 4 <= VMEM_BUDGET:
+            return bb, (-nvoxels) % bb
+    return None
 
 
 def pack_nl_consts(noise_prior_b, noise_prior_c, ntimes_per_group,
@@ -234,11 +291,12 @@ def fused_nl_loop(model, transforms, centre0, prior_means, prior_prec, data,
         pd0 = post_var0 if kind == "freduce" else None
         vb = _cuda.launch_vb(nt, nq, _vb)
         if functor is None:
-            _cuda.launch_nl_loop(km, nq, tcodes, int(n_iters), bool(need_f),
-                                 float(locked_noise_stdev),
-                                 consts.to(torch.float32), det, det_consts,
-                                 centre0, prior_means, prior_prec, pd0, data,
-                                 qw, outs, vb)
+            if _cuda.launch_nl_loop(km, nq, tcodes, int(n_iters),
+                                    bool(need_f), float(locked_noise_stdev),
+                                    consts.to(torch.float32), det,
+                                    det_consts, centre0, prior_means,
+                                    prior_prec, pd0, data, qw, outs, vb):
+                fused_nl_loop.instance_launches += 1
         else:
             lib = generated_lib(functor, "nl_loop", nq)
             _cuda.launch_gen_nl_loop(
@@ -260,6 +318,7 @@ fused_nl_loop.launches = 0
 fused_nl_loop.det_launches = 0
 fused_nl_loop.generic_launches = 0
 fused_nl_loop.staged_launches = 0
+fused_nl_loop.instance_launches = 0
 
 
 def _round(x, dt):

@@ -58,7 +58,11 @@ CPU; for a CUDA tensor it launches the kernel or raises.
 ``fused_nlls_loop.launches`` counts kernel launches, ``resume_launches``,
 ``marquardt_launches``, ``staged_launches`` and ``generated_launches``
 those in resume mode, with Marquardt damping, in the staged form and
-with a generated functor.
+with a generated functor, ``instance_launches`` those of a per-shape
+instance (ops/_cuda.py build_instance "nl": a hand-written functor's
+(kind, P) outside FABBER_NL_INSTANCES, built at its first launch). The
+NLLS route takes kernel 8 where the JAX engine's picker does
+(pick_nlls_block), on the card and on the CPU alike.
 """
 
 import numpy as np
@@ -66,7 +70,8 @@ import torch
 
 from . import smallmat as sm
 from .fused_vb import (TRANSFORM_CODES, block_eval, check_plane,
-                       generated_lib, signal_jac_fn, time_index)
+                       generated_lib, nl_instantiated, signal_jac_fn,
+                       time_index)
 
 # The optimizer's constants (the JAX package's inference/nlls.py:62-98 =
 # ops/fused_nlls.py:43-49; inference/nlls.py here imports them, and the
@@ -115,6 +120,32 @@ def nlls_instantiated(kmodel):
         return False
     from . import _cuda
     return _cuda.has_nlls_instance(kmodel.kind, kmodel.nparams)
+
+
+# The JAX engine's gate for its NLLS kernel on a TPU (fabber_core_tpu/
+# ops/fused_nlls.py n_nlls_rows, pick_nlls_block; the port's own copy):
+# the TPU kernel's live float32 rows of a voxel tile against its VMEM
+# budget at the time axis padded to 8 samples. The port's NLLS route gate
+# takes kernel 8 where the JAX engine does (inference/nlls.py): P <= 42
+# at T = 100, else the generic route.
+def n_nlls_rows(p, tp):
+    """Per-voxel live float32 rows of the JAX NLLS kernel: the data input,
+    params and LM lanes, the [TB,B] partial sums, the evaluation's rows."""
+    ntri = p * (p + 1) // 2
+    tb = 8
+    return (2 * tp + 2 * p + 2 * (p + 2 * p * p + 2) + p + 5
+            + 3 * tb * (p + 1) + tb * (ntri + p + 1) + 10)
+
+
+def pick_nlls_block(nvoxels, p, tp):
+    """The JAX engine's voxel tile for kernel 8, (block, pad), or None
+    where none fits its VMEM budget."""
+    from .fused_loop import VMEM_BUDGET
+    rows = n_nlls_rows(p, tp)
+    for bb in (2048, 1024, 512, 256, 128):
+        if rows * bb * 4 <= VMEM_BUDGET:
+            return bb, (-nvoxels) % bb
+    return None
 
 
 def _tmask_host(tmask, nt):
@@ -231,7 +262,7 @@ def fused_nlls_loop(model, transforms, params0, data, tmask, max_its,
     nt = data.shape[0]
     if functor is None:
         km = model.kernel_model()
-        if not nlls_instantiated(km):
+        if not nl_instantiated(km, None):
             raise ValueError(f"no CUDA NLLS kernel instantiation for model "
                              f"{getattr(model, 'name', model)} ({km})")
         npar = km.nparams
@@ -265,9 +296,10 @@ def fused_nlls_loop(model, transforms, params0, data, tmask, max_its,
         vb = _cuda.launch_vb(nt, 1, _vb)
         dof = float(w_h.sum() - p)
         if functor is None:
-            _cuda.launch_nlls(km, tcodes, consts, mode, bool(marquardt),
-                              int(max_its), dof, params0, data, w, state,
-                              outs, vb)
+            if _cuda.launch_nlls(km, tcodes, consts, mode, bool(marquardt),
+                                 int(max_its), dof, params0, data, w, state,
+                                 outs, vb):
+                fused_nlls_loop.instance_launches += 1
         else:
             _cuda.launch_gen_nlls(
                 generated_lib(functor, "nlls", None), tcodes, consts, mode,
@@ -291,3 +323,4 @@ fused_nlls_loop.resume_launches = 0
 fused_nlls_loop.marquardt_launches = 0
 fused_nlls_loop.staged_launches = 0
 fused_nlls_loop.generated_launches = 0
+fused_nlls_loop.instance_launches = 0

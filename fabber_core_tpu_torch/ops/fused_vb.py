@@ -29,7 +29,11 @@ wrapper takes the plain version only for tensors on the CPU; for a CUDA
 tensor it launches the kernel or raises. ``fused_iteration.launches``
 counts kernel launches (never plain calls), ``lm_launches`` those with
 the LM branch, ``staged_launches`` those in the staged form,
-``generated_launches`` those with a generated functor.
+``generated_launches`` those with a generated functor,
+``instance_launches`` those of a per-shape instance (ops/_cuda.py
+build_instance "nl"; past csrc/fused_vb_iter.cuh kFoldSums per-group
+sums its folded form: the groups folded into one weighted sum for the
+solve, a pass per group for its trace).
 
 block_eval is make_block_eval's counterpart: the model's analytic
 time_signal_jac in model space times the per-parameter chain factor
@@ -60,6 +64,24 @@ def kernel_instantiated(kmodel, nq):
         return False
     from . import _cuda
     return _cuda.has_nl_instance(kmodel.kind, kmodel.nparams, nq)
+
+
+def nl_instantiated(kmodel, nq):
+    """True when kernels 6 and 7 (nq groups) or kernel 8 (nq None) can run
+    this model functor (a KernelModel, or None for a model without one)
+    on the card: the prebuilt library holds it (kernel_instantiated, and
+    fused_nlls.py nlls_instantiated), or a per-shape instance can be built
+    at the route's first launch (ops/_cuda.py build_instance "nl": any
+    (P, Q) up to csrc/vb_device.cuh kWideMaxP, kWideMaxQ, an exp sum at
+    even P). Nothing is built here."""
+    if kmodel is None:
+        return False
+    from . import _cuda
+    prebuilt = (_cuda.has_nl_instance(kmodel.kind, kmodel.nparams, nq)
+                if nq is not None
+                else _cuda.has_nlls_instance(kmodel.kind, kmodel.nparams))
+    return prebuilt or _cuda.instance_buildable(
+        "nl", kmodel.nparams, nq or 1, kmodel.kind)
 
 
 def signal_jac_fn(model):
@@ -340,7 +362,7 @@ def kernel_args(model, transforms, nq, device):
     if device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {device}")
     km = model.kernel_model()
-    if not kernel_instantiated(km, nq):
+    if not nl_instantiated(km, nq):
         raise ValueError(f"no CUDA kernel instantiation for model "
                          f"{getattr(model, 'name', model)} ({km}) at "
                          f"Q={nq}")
@@ -400,9 +422,10 @@ def fused_iteration(model, transforms, centre, prior_means, prior_prec,
         from . import _cuda
         vb = _cuda.launch_vb(nt, nq, _vb)
         if functor is None:
-            _cuda.launch_vb_iter(km, nq, tcodes, bool(need_f), centre,
-                                 prior_means, prior_prec, phi, data, qw,
-                                 lm_alpha, outs, vb)
+            if _cuda.launch_vb_iter(km, nq, tcodes, bool(need_f), centre,
+                                    prior_means, prior_prec, phi, data, qw,
+                                    lm_alpha, outs, vb):
+                fused_iteration.instance_launches += 1
         else:
             _cuda.launch_gen_vb_iter(
                 generated_lib(functor, "vb_iter", nq), tcodes, bool(need_f),
@@ -421,3 +444,4 @@ fused_iteration.launches = 0
 fused_iteration.lm_launches = 0
 fused_iteration.staged_launches = 0
 fused_iteration.generated_launches = 0
+fused_iteration.instance_launches = 0

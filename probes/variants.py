@@ -107,7 +107,8 @@ def restore():
 
 
 def sass_counts(path, kernel, parts, opcodes=("FFMA", "FMUL", "FADD",
-                                              "MUFU", "MUFU.RSQ")):
+                                              "MUFU", "MUFU.RSQ"),
+                function=None):
     """Instruction counts of one kernel entry of the library at path,
     from cuobjdump's SASS: the entry whose mangled name holds kernel and
     every string of parts. Returns {"total": n, op: n, ..., "loop":
@@ -115,12 +116,15 @@ def sass_counts(path, kernel, parts, opcodes=("FFMA", "FMUL", "FADD",
     (the iteration loop, with the jitter-retry Cholesky it branches
     over: 2P MUFU.RSQ per step, so their count over 2P is the number of
     steps nvcc unrolled into it), or None when cuobjdump is absent. An
-    opcode with a dot counts that exact form, one without any form."""
+    opcode with a dot counts that exact form, one without any form.
+    function, the entry's mangled name, has cuobjdump disassemble that
+    entry alone (a whole library takes it most of a minute)."""
     tool = shutil.which("cuobjdump") or str(
         Path(_cuda()._nvcc()).parent / "cuobjdump")
     if not Path(tool).exists():
         return None
-    text = subprocess.run([tool, "--dump-sass", str(path)],
+    only = [] if function is None else ["--function", function]
+    text = subprocess.run([tool, "--dump-sass", *only, str(path)],
                           capture_output=True, text=True).stdout
     funcs = re.split(r"\n\s*Function : ", text)
     body = next((f for f in funcs[1:] if kernel in f.split("\n", 1)[0]

@@ -167,6 +167,15 @@ NL_MODELS = {
     "poly3-F": ({"model": "poly", "degree": "3", "PSP_byname1": "c0",
                  "PSP_byname1_transform": "F"}, [0.4, 0.05, 0.001, 1e-5]),
 }
+# models past the prebuilt list (per-shape instances, ops/_cuda.py
+# build_instance "nl"): exp num-exps 5, P = 10
+WIDE_NL_MODELS = {"exp5": ({"model": "exp", "num-exps": "5"},
+                           [1.5, 0.2, 1.0, 0.8, 0.75, 2.5, 0.5, 6.0, 0.4,
+                            15.0]),
+                  # P = 18: past ops/_cuda.py ROLL_P, its loops rolled
+                  "exp9": ({"model": "exp", "num-exps": "9"},
+                           [v for i in range(9)
+                            for v in (0.3, 0.2 * 1.6 ** i)])}
 # every instance of csrc/vb_device.cuh FABBER_NL_INSTANCES: the exp
 # family at Q = 1..4, poly at Q = 1, 2
 NL_CASES = [(name, nq) for name in NL_MODELS
@@ -183,7 +192,7 @@ def nl_inputs(name, nq, nv, device, nt=None, seed=0):
                                               resolve_parameters)
     from fabber_core_tpu_torch.ops import fused_vb as fv
     from fabber_core_tpu_torch.options import RunOptions
-    extra, truth = NL_MODELS[name]
+    extra, truth = {**NL_MODELS, **WIDE_NL_MODELS}[name]
     nt = nt or NL_SHORT.get(name, 40)
     opts = RunOptions({"dt": "0.1", "noise": "white", **extra})
     model = get_model_class(extra["model"])(opts)
@@ -304,27 +313,40 @@ def test_nl_instances_are_the_listed_ones(cuda):
             assert fv.kernel_instantiated(KernelModel(KERNEL_POLY, p), nq)
         assert not fv.kernel_instantiated(KernelModel(KERNEL_POLY, p), 3)
     assert not fv.kernel_instantiated(KernelModel(KERNEL_POLY, 5), 1)
+    # past the list, per-shape instances (none built here)
+    assert fv.nl_instantiated(KernelModel(KERNEL_EXP, 10), 1)
+    assert fv.nl_instantiated(KernelModel(KERNEL_EXP, 4), 35)
+    assert fv.nl_instantiated(KernelModel(KERNEL_POLY, 5), 3)
+    assert not fv.nl_instantiated(KernelModel(KERNEL_EXP, 44), 1)
+    assert not fv.nl_instantiated(KernelModel(KERNEL_EXP, 5), 1)
+    assert not fv.nl_instantiated(None, 1)
 
 
 def test_engine_on_card_refuses_runs_without_an_instance(cuda):
-    """A cuda run the kernels have no instance for raises at
-    construction, before any launch: it never runs plain torch on the
-    card. Five noise groups have no instance, and no functor past Q = 4;
-    exp at num-exps 3 runs its hand-written ExpSum<3>, and poly degree 4
-    with a log transform (P = 5, no hand-written PolyModel<5>) a functor
-    generated from its time_signal."""
+    """A cuda run the kernels cannot serve raises at construction, before
+    any launch: it never runs plain torch on the card. Past the prebuilt
+    list a per-shape instance serves kernels 6-8 (five noise groups:
+    built at the route's first launch, not at construction), so only
+    kernel 7 past its cap raises (exp num-exps 22, P = 44, where the JAX
+    picker admits no kernel 6); exp at num-exps 3 runs its hand-written
+    ExpSum<3>, and poly degree 4 with a log transform (P = 5, no
+    hand-written PolyModel<5>) a per-shape PolyModel<5> instance."""
     from fabber_core_tpu_torch.inference.vb import VBInference
     from fabber_core_tpu_torch.models import get_model_class
     from fabber_core_tpu_torch.options import RunOptions
     data = np.ones((64, 30), np.float32)
     opts = RunOptions({"model": "exp", "dt": "0.1", "noise": "white",
                        "dtype": "single", "noise-pattern": "12345"})
-    with pytest.raises(NotImplementedError, match="FABBER_NL_INSTANCES"):
+    eng = VBInference(get_model_class("exp")(opts), opts, data, device=cuda)
+    assert eng.route == "pallas-loop-nl" and eng.functor is None
+    opts = RunOptions({"model": "exp", "dt": "0.1", "noise": "white",
+                       "dtype": "single", "num-exps": "22"})
+    with pytest.raises(NotImplementedError, match="kWideMaxP.*item 28"):
         VBInference(get_model_class("exp")(opts), opts, data, device=cuda)
     for model, extra, generated in (
             ("exp", {"num-exps": "3"}, False),
             ("poly", {"degree": "4", "PSP_byname1": "c0",
-                      "PSP_byname1_transform": "L"}, True)):
+                      "PSP_byname1_transform": "L"}, False)):
         opts = RunOptions({"model": model, "dt": "0.1", "noise": "white",
                            "dtype": "single", **extra})
         eng = VBInference(get_model_class(model)(opts), opts, data,
@@ -1119,14 +1141,19 @@ def test_nlls_instances_are_the_listed_ones(cuda):
         assert fn.nlls_instantiated(KernelModel(KERNEL_POLY, p))
     assert not fn.nlls_instantiated(KernelModel(KERNEL_POLY, 5))
     assert not fn.nlls_instantiated(None)
+    # past the list, per-shape instances (none built here)
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    assert fv.nl_instantiated(KernelModel(KERNEL_EXP, 10), None)
+    assert fv.nl_instantiated(KernelModel(KERNEL_POLY, 5), None)
+    assert not fv.nl_instantiated(KernelModel(KERNEL_EXP, 44), None)
 
 
 def test_nlls_engine_on_card_matches_cpu(cuda):
     """The exp NLLS engine on the card (the kernel, phase 1 + resume:
     two launches) against the CPU engine (the plain version):
-    tests/test_nlls_stats.py's kernel bounds; and a run the kernel has
-    no instance for, and no functor can be generated for (P = 10),
-    raises at construction."""
+    tests/test_nlls_stats.py's kernel bounds; and past the prebuilt
+    list (P = 10) the kernel route on a per-shape instance, past the JAX
+    picker (P = 44) the generic route, neither raising."""
     from fabber_core_tpu_torch.inference.nlls import NLLSInference
     from fabber_core_tpu_torch.models import get_model_class
     from fabber_core_tpu_torch.ops import fused_nlls as fn
@@ -1153,10 +1180,14 @@ def test_nlls_engine_on_card_matches_cpu(cuda):
     diff = np.abs(g.iterations - c.iterations)
     assert diff.max() <= 30 and np.median(diff) <= 4
     np.testing.assert_array_equal(g.bad_voxels, c.bad_voxels)
-    opts = RunOptions({"model": "exp", "dt": "0.05", "dtype": "single",
-                       "num-exps": "5"})
-    with pytest.raises(NotImplementedError, match="FABBER_NL_INSTANCES"):
-        NLLSInference(get_model_class("exp")(opts), opts, data, device=cuda)
+    # past the prebuilt list a per-shape instance (P = 10); past the JAX
+    # picker (P = 44) the generic route, no kernel
+    for num, route in (("5", "nlls-kernel"), ("22", "nlls-generic")):
+        opts = RunOptions({"model": "exp", "dt": "0.05", "dtype": "single",
+                           "num-exps": num})
+        eng = NLLSInference(get_model_class("exp")(opts), opts, data,
+                            device=cuda)
+        assert eng.route == route and eng.functor is None
 
 
 def test_nlls_wrapper_refuses_what_no_kernel_takes(cuda):
@@ -2714,3 +2745,70 @@ def test_failed_instance_build_raises_and_runs_nothing(cuda, tmp_path,
         fa.fused_ar_loop(*args, 10)
     assert before == (fa.fused_ar_loop.launches,
                       fa.fused_ar_loop.instance_launches)
+
+
+# -- kernels 6-8's per-shape instances (ops/_cuda.py build_instance "nl") ----
+
+WIDE_NL_CASES = [("exp5", 1), ("biexp", 6), ("exp", 5), ("exp9", 1)]
+
+
+@pytest.mark.parametrize("name,nq", WIDE_NL_CASES,
+                         ids=[f"{n}-Q{q}" for n, q in WIDE_NL_CASES])
+def test_nl_instances_match_plain(cuda, name, nq):
+    """Shapes past the prebuilt list (exp num-exps 5 at Q = 1, biexp at Q
+    = 6 and exp at Q = 5, unrolled; exp num-exps 9 at Q = 1, P = 18, its
+    loops rolled and built with ops/_cuda.py ROLL_FLAGS): kernel 6 over 3
+    iterations with F and kernel 7 over one, plain and LM, each launch a
+    per-shape instance, held to the plain version at float64
+    (assert_near_f64; the covariance's worst lane at P = 10 too, as both
+    float32 implementations carry the inverse's conditioning)."""
+    from fabber_core_tpu_torch.ops import fused_loop_nl as nl
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    c = nl_inputs(name, nq, 3001, cuda, seed=3)
+    pp = torch.ones_like(c["pp"])
+    consts = nl.pack_nl_consts(np.full(nq, 1e6), np.full(nq, 1e-6),
+                               c["q"].sum(axis=1), 1e-8, 50.0, nq)
+    tsj = fv.signal_jac_fn(c["model"])
+    args = (c["centre"], c["pm"], pp, c["data"], c["q"], consts, 3, True)
+    before = nl.fused_nl_loop.instance_launches
+    k = nl.fused_nl_loop(c["model"], c["tr"], *args)
+    assert nl.fused_nl_loop.instance_launches == before + 1
+    assert_near_f64(k, nl.fused_nl_loop_plain(tsj, c["tr"], *args),
+                    nl.fused_nl_loop_plain(tsj, c["tr"], *to_f64(args)))
+    alpha = torch.full((3001,), 0.1, device=cuda)
+    alpha[::4] = 0.0
+    for lm in (None, alpha):
+        args = (c["centre"], c["pm"], pp, c["phi"], c["data"], c["q"], True,
+                lm)
+        before = fv.fused_iteration.instance_launches
+        k = fv.fused_iteration(c["model"], c["tr"], *args)
+        assert fv.fused_iteration.instance_launches == before + 1
+        assert_near_f64(k, fv.fused_iteration_plain(tsj, c["tr"], *args),
+                        fv.fused_iteration_plain(tsj, c["tr"],
+                                                 *to_f64(args)))
+
+
+@pytest.mark.parametrize("name", ["exp5", "exp9"])
+def test_nlls_instance_two_phase_matches_fresh(cuda, name):
+    """exp num-exps 5 (P = 10, unrolled) and 9 (P = 18, rolled) on kernel
+    8's per-shape instance: the engine's phase 1 + resume equal to one
+    fresh launch bit for bit, each launch a per-shape one."""
+    from fabber_core_tpu_torch.inference.nlls import NLLSInference
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.ops import fused_nlls as fn
+    from fabber_core_tpu_torch.options import RunOptions
+    c = nl_inputs(name, 1, 3001, cuda, seed=4)
+    opts = RunOptions({**WIDE_NL_MODELS[name][0], "dt": "0.1",
+                       "dtype": "single", "nlls-phase1-iterations": "3"})
+    eng = NLLSInference(get_model_class("exp")(opts), opts, None,
+                        data_plane=c["data"], device=cuda)
+    assert eng.route == "nlls-kernel" and eng.functor is None
+    before = fn.fused_nlls_loop.instance_launches
+    fresh = fn.fused_nlls_loop(eng.model, c["tr"], c["centre"], c["data"],
+                               eng.tmask_host, eng.max_its)
+    s, prec, cov = eng._solve_kernel(c["centre"])
+    assert fn.fused_nlls_loop.instance_launches == before + 3
+    for a, b in zip((s.params, s.cost, prec, cov),
+                    (fresh[0], fresh[1], fresh[3], fresh[4])):
+        assert torch.equal(a.contiguous().view(torch.int32),
+                           b.contiguous().view(torch.int32))

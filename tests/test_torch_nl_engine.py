@@ -407,25 +407,32 @@ def test_asym4_per_iteration_route_matches_jax():
 
 
 def test_group_count_outside_the_kernels_raises_on_card(monkeypatch):
-    """Five noise groups: the CUDA kernels are compiled for Q <= 4
-    (csrc/vb_device.cuh FABBER_NL_INSTANCES), so on the card the run
-    raises at construction; on the CPU it takes the JAX route (the
-    whole-loop kernel's plain version) and matches JAX. The library's
-    instance query is stood in for here; the card tests ask the real
-    one."""
+    """Five noise groups: outside the prebuilt list (csrc/vb_device.cuh
+    FABBER_NL_INSTANCES, Q <= 4), where the card raised before its
+    per-shape instances. Now a per-shape instance (ops/_cuda.py
+    build_instance "nl") serves kernel 6, built at the route's first
+    launch: construction asks the list, builds nothing (no instance, no
+    generated functor) and raises nothing. On the CPU the run takes the
+    JAX route (the whole-loop kernel's plain version) and matches JAX.
+    The library's instance query is stood in for here; the card tests
+    ask the real one."""
     from fabber_core_tpu_torch.ops import _cuda
     data = exp_data(64, seed=11)
     extra = {"noise-pattern": "12345"}
     eng = port_engine(data, extra, route="pallas-loop-nl")
     assert_match(run_jax(data, "pallas-loop", extra), eng.run())
-    asked = []
+    asked, built = [], []
     monkeypatch.setattr(_cuda, "has_nl_instance",
                         lambda kind, p, q: asked.append((kind, p, q))
                         or q <= 4)
-    with pytest.raises(NotImplementedError, match="P=2, Q=5"):
-        on_card(eng)
-    assert asked == [(1, 2, 5)]
+    monkeypatch.setattr(_cuda, "build_instance", lambda *a: built.append(a))
+    monkeypatch.setattr(_cuda, "build_generated",
+                        lambda *a: built.append(a))
+    on_card(eng)
+    assert asked == [(1, 2, 5)] * 2 and built == []
+    assert eng.functor is None and eng.route == "pallas-loop-nl"
     on_card(port_engine(data, {"noise-pattern": "1234"}))
+    assert built == []
 
 
 # -- evaluate_model (model fit / residual outputs) ----------------------------

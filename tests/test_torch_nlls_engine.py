@@ -319,13 +319,19 @@ def on_card(eng):
 
 
 def test_kernel_route_without_instance_raises_on_card(monkeypatch):
-    """On the card the kernel route needs the model's functor: among the
-    kernel's instances (csrc/vb_device.cuh FABBER_NL_INSTANCES), else one
-    generated from its time_signal and built at construction (kernel
-    "nlls"); where none can be (P above 8) the engine raises at
+    """On the card the kernel route needs the model's functor: a
+    hand-written one's prebuilt instance (csrc/vb_device.cuh
+    FABBER_NL_INSTANCES) or per-shape one (ops/_cuda.py build_instance
+    "nl", built at the route's first launch, so nothing is built at
+    construction: biexp with the prebuilt list stood in as empty, exp at
+    num-exps 5, P = 10, which raised before per-shape instances), else
+    one generated from its time_signal and built at construction (kernel
+    "nlls"). Where none can be (no hand-written functor and a
+    time_signal the generator refuses) the engine raises at
     construction, naming ROADMAP Queue 3 item 28, rather than run plain
-    torch. The library's instance query and the build are stood in for
+    torch. The library's instance query and the builds are stood in for
     here; the card tests ask the real ones."""
+    from fabber_core_tpu_torch.inference import nlls as nlls_module
     from fabber_core_tpu_torch.ops import _cuda
     data = exp_data(8, seed=8, model="biexp", dtype=np.float32)
     o = RunOptions({"model": "biexp", "dt": str(DT), "dtype": "single"})
@@ -336,18 +342,27 @@ def test_kernel_route_without_instance_raises_on_card(monkeypatch):
     monkeypatch.setattr(_cuda, "build_generated",
                         lambda src, p, q, kernel: built.append(
                             (p, q, kernel)) or "lib")
+    monkeypatch.setattr(_cuda, "build_instance",
+                        lambda *a: built.append(a))
     on_card(eng)
-    assert asked == [(1, 4)] and built == [(4, None, "nlls")]
-    assert eng.functor.libs == {("nlls", None): "lib"}
+    assert asked == [(1, 4)] and built == [] and eng.functor is None
     monkeypatch.setattr(eng.model, "kernel_model", lambda: None)
     on_card(eng)
-    assert built[1:] == [(4, None, "nlls")]
+    assert built == [(4, None, "nlls")]
+    assert eng.functor.libs == {("nlls", None): "lib"}
     o = RunOptions({"model": "exp", "dt": str(DT), "dtype": "single",
                     "num-exps": "5"})
     eng = NLLSInference(get_model_class("exp")(o), o, data, device="cpu")
+    assert eng.route == "nlls-kernel"
+    on_card(eng)
+    assert asked[1:] == [(1, 10)] and len(built) == 1
+    assert eng.functor is None
+    monkeypatch.setattr(eng.model, "kernel_model", lambda: None)
+    monkeypatch.setattr(nlls_module, "derive_time_signal_functor",
+                        lambda model, p: None)
     with pytest.raises(NotImplementedError, match="P=10.*item 28"):
         on_card(eng)
-    assert asked[1:] == [(1, 10)] and len(built) == 2
+    assert len(built) == 1
     # the plain-torch routes have no kernel to ask for
     for extra in ({"dtype": "double"}, {"engine-kernel": "xla"}):
         o = RunOptions({"model": "biexp", "dt": str(DT), "dtype": "single",

@@ -413,14 +413,17 @@ def test_card_instance_raises_without_one(route):
 
 
 def test_generated_functor_limits_come_from_the_header():
-    """generatable asks csrc/vb_device.cuh's kMaxP and kMaxQ, read from
-    the header the kernels compile with (P <= 8, Q <= 4)."""
-    assert _cuda.gen_limits() == (8, 4)
+    """generatable asks csrc/vb_device.cuh's kWideMaxP and kWideMaxQ,
+    read from the header the kernels compile with (P <= 42, Q <= 35:
+    past kMaxP, kMaxQ a generated functor takes the wide body)."""
+    assert _cuda.gen_limits() == (42, 35)
     functor = object()
     assert vb_module.generatable(functor, 8, 4)
-    assert vb_module.generatable(functor, 8, None)
-    assert not vb_module.generatable(functor, 9, 1)
-    assert not vb_module.generatable(functor, 6, 5)
+    assert vb_module.generatable(functor, 12, 5)
+    assert vb_module.generatable(functor, 42, 35)
+    assert vb_module.generatable(functor, 42, None)
+    assert not vb_module.generatable(functor, 43, 1)
+    assert not vb_module.generatable(functor, 6, 36)
     assert not vb_module.generatable(None, 2, 1)
 
 
@@ -478,19 +481,25 @@ def test_fixed_design_gate_on_card(tmp_path, monkeypatch, extra, route):
 
 
 def test_nonlinear_gate_on_card_builds_only_what_runs(monkeypatch):
-    """exp at num-exps 3 and 4 has its hand-written instance (nothing is
-    built); at num-exps 5 (P = 10) no functor can be generated, so the
-    card raises at construction for kernel 6 and for the NLLS kernel,
-    and builds nothing."""
+    """exp at num-exps 3 and 4 has its hand-written instance, at num-exps
+    5 (P = 10, where the card raised before per-shape instances) a
+    per-shape one built at the route's first launch: construction builds
+    nothing for kernel 6 or the NLLS kernel and raises nothing. At
+    num-exps 22 (P = 44) the JAX pickers admit neither kernel 6 nor 8:
+    VB takes 'pallas', whose kernel 7 past its cap (csrc/vb_device.cuh
+    kWideMaxP = 42) still raises on the card, and NLLS 'nlls-generic',
+    which has no kernel."""
     built = []
     monkeypatch.setattr(_cuda, "build_generated",
+                        lambda *a: built.append(a) or "lib")
+    monkeypatch.setattr(_cuda, "build_instance",
                         lambda *a: built.append(a) or "lib")
     monkeypatch.setattr(_cuda, "has_nl_instance",
                         lambda kind, p, q: kind == 1 and p <= 8 and q <= 2)
     monkeypatch.setattr(_cuda, "has_nlls_instance",
                         lambda kind, p: kind == 1 and p <= 8)
     data = triexp_data(8)
-    for num in ("3", "4", "5"):
+    for num in ("3", "4", "5", "22"):
         o = RunOptions({"model": "exp", "num-exps": num, "dt": "0.05",
                         "noise": "white", "dtype": "single"})
         eng = VBInference(get_model_class("exp")(o), o, data, device="cpu")
@@ -498,16 +507,17 @@ def test_nonlinear_gate_on_card_builds_only_what_runs(monkeypatch):
                         "method": "nlls", "dtype": "single"})
         neng = NLLSInference(get_model_class("exp")(o), o, data,
                              device="cpu")
-        assert (eng.route, neng.route) == ("pallas-loop-nl", "nlls-kernel")
         neng.device = torch.device("cuda")
-        if num == "5":
+        if num == "22":
+            assert (eng.route, neng.route) == ("pallas", "nlls-generic")
             with pytest.raises(NotImplementedError,
-                               match=r"no \(P=10, Q=1\) instance of kernel 6"):
+                               match=r"no \(P=44, Q=1\) instance of "
+                                     r"kernel 7.*item 28"):
                 on_card(eng)
-            with pytest.raises(NotImplementedError,
-                               match=r"no \(P=10\) instance of kernel 8"):
-                neng._require_kernel_instance()
+            neng._require_kernel_instance()
         else:
+            assert (eng.route, neng.route) == ("pallas-loop-nl",
+                                               "nlls-kernel")
             assert on_card(eng).functor is None
             neng._require_kernel_instance()
             assert neng.functor is None

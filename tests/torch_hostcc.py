@@ -206,14 +206,17 @@ def kernel_fn(functor, q, tmpdir, staged=True):
     src = _kernel_head("fused_nl_loop.cuh", functor) + f"""
 namespace {{
 using Model = {model};
+using HK = VBParamsFor<Model::P, {q}>;
+using HD = NLDetConstsFor<{q}>;
 template <int MODE>
-static void run_all(const VBParams& k, const NLDetConsts& dc,
-                    const double* const* in, double* const* out) {{
-  const auto kp = params_for<Model::P>(k);
+static void run_all(const HK& k, const HD& dc, const double* const* in,
+                    double* const* out) {{
+  const auto kp = params_for<Model::P, {q}>(k);
+  const auto dp = det_consts_for<{q}>(dc);
   for (long long v = 0; v < k.V; ++v) {{
     blockIdx.x = (unsigned)v;
     fused_nl_loop_kernel<Model, {q}, MODE, {"true" if staged else "false"}>(
-        kp, dc, in[0], in[1], in[2], in[3], in[4], in[5], in[6], out[0],
+        kp, dp, in[0], in[1], in[2], in[3], in[4], in[5], in[6], out[0],
         out[1], out[2], out[3], out[4], out[5], out[6]);
   }}
 }}
@@ -225,8 +228,8 @@ extern "C" int host_nl_loop(const int* tcodes, double dt, int n_iters,
                             const double* det_consts,
                             const double* const* in, double* const* out,
                             int nt, long long V) {{
-  VBParams k;
-  NLDetConsts dc;
+  HK k;
+  HD dc;
   if (!nl_setup(Model::P, {q}, tcodes, dt, n_iters, need_f, -1.0, consts,
                 det_kind, det_tol, det_max_its, det_max_trials,
                 det_init_save, det_consts, in[3], nt, V, &k, &dc))
@@ -303,8 +306,9 @@ def nlls_kernel_fn(functor, tmpdir, staged=True):
     src = _kernel_head("fused_nlls.cuh", functor) + f"""
 namespace {{
 using Model = {model};
+using HK = NLLSParamsFor<Model::P>;
 template <int MODE, bool MARQ>
-static void run_all(const NLLSParams& k, const double* const* in,
+static void run_all(const HK& k, const double* const* in,
                     double* const* out) {{
   const auto kp = nlls_params_for<Model::P>(k);
   for (long long v = 0; v < k.V; ++v) {{
@@ -319,7 +323,7 @@ extern "C" void host_nlls(int mode, int marq, const int* tcodes, double dt,
                           const double* consts, int max_its, double dof,
                           const double* const* in, double* const* out,
                           int nt, long long V) {{
-  NLLSParams k = {{}};
+  HK k = {{}};
   for (int i = 0; i < Model::P; ++i) k.tcode[i] = tcodes[i];
   k.dt = dt;
   k.max_its = max_its;
@@ -384,22 +388,29 @@ def vb_iter_kernel_fn(functor, q, tmpdir):
     src = _kernel_head("fused_vb_iter.cuh", functor) + f"""
 namespace {{
 using Model = {model};
+using HK = VBParamsFor<Model::P, {q}>;
 template <bool LM, bool STAGED>
-static void run_all(const VBParams& k, const double* const* in,
+static void run_all(const HK& k, const double* const* in,
                     double* const* out) {{
-  const auto kp = params_for<Model::P>(k);
+  const auto kp = params_for<Model::P, {q}>(k);
   for (long long v = 0; v < k.V; ++v) {{
     blockIdx.x = (unsigned)v;
-    fused_vb_iter_kernel<Model, {q}, LM, STAGED>(
-        kp, in[0], in[1], in[2], in[3], in[4], in[5], in[6], out[0], out[1],
-        out[2], out[3], out[4], out[5], out[6]);
+    // past kFoldSums the folded form, as launch_form picks it
+    if constexpr (iter_folded<Model, {q}>)
+      fused_vb_iter_wide_kernel<Model, {q}, LM, STAGED>(
+          kp, in[0], in[1], in[2], in[3], in[4], in[5], in[6], out[0],
+          out[1], out[2], out[3], out[4], out[5], out[6]);
+    else
+      fused_vb_iter_kernel<Model, {q}, LM, STAGED>(
+          kp, in[0], in[1], in[2], in[3], in[4], in[5], in[6], out[0],
+          out[1], out[2], out[3], out[4], out[5], out[6]);
   }}
 }}
 }}  // namespace
 extern "C" void host_vb_iter(int staged, const int* tcodes, double dt,
                              int need_f, const double* const* in,
                              double* const* out, int nt, long long V) {{
-  VBParams k = {{}};
+  HK k = {{}};
   for (int i = 0; i < Model::P; ++i) k.tcode[i] = tcodes[i];
   k.dt = dt;
   k.need_f = need_f;

@@ -64,6 +64,7 @@ published H100 SXM peaks).
 Without a CUDA device (or outside the repository) it exits non-zero.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1996,6 +1997,7 @@ def launch_counts():
             "fused_ar_loop:instance": fa.fused_ar_loop.instance_launches,
             "fused_nl_loop:instance": fnl.fused_nl_loop.instance_launches,
             "fused_vb_iter:instance": fv.fused_iteration.instance_launches,
+            "fused_vb_iter:coop": fv.fused_iteration.coop_launches,
             "fused_nlls:instance": fn.fused_nlls_loop.instance_launches}
 
 
@@ -2021,6 +2023,7 @@ def reset_launches():
     fv.fused_iteration.lm_launches = 0
     fv.fused_iteration.staged_launches = 0
     fv.fused_iteration.generated_launches = 0
+    fv.fused_iteration.coop_launches = 0
     fn.fused_nlls_loop.generated_launches = 0
     fn.fused_nlls_loop.resume_launches = 0
     fn.fused_nlls_loop.marquardt_launches = 0
@@ -6269,34 +6272,85 @@ def time_wide_design(device, card, nv=4_194_304):
 # INSTANCE_SHAPES: (family, P, Q, functor kind; 1 = ExpSum): exp num-exps 5,
 # biexp at noise-pattern 123456, exp num-exps 12 at 1234 (P = 24, beside
 # kernel 6's bound there, 25) and exp num-exps 20 (P = 40, kernel 7)
-NL_INSTANCE_SHAPES = (("nl", 10, 1, 1), ("nl", 4, 6, 1), ("nl", 24, 4, 1),
-                      ("nl", 40, 1, 1))
+NL_INSTANCE_SHAPES = tuple(
+    ("nl", p, q, 1, kernel) for p, q, kernels in (
+        (10, 1, ("nl_loop", "vb_iter", "nlls")),
+        (4, 6, ("nl_loop", "vb_iter")), (24, 4, ("nl_loop", "vb_iter")),
+        (40, 1, ("vb_iter", "nlls")), (44, 1, ("vb_iter",)))
+    for kernel in kernels)
 _NL_AT = "fabber_core_tpu/ops/fused_loop_nl.py:162"
 _IT_AT = "fabber_core_tpu/ops/fused_vb.py:184"
 _NLLS_AT = "fabber_core_tpu/ops/fused_nlls.py:72"
-# the kernels line's entries of the nonlinear per-shape instances
+# the kernels line's entries of the nonlinear per-shape instances, and
+# kernel 7's cooperative form (csrc/fused_vb_iter.cuh
+# fused_vb_iter_coop_kernel, past ops/_cuda.py rolled_loops' sizes)
 NL_INSTANCE_ENTRIES = (("fused_nl_loop:instance", "fused_nl_loop.cu", _NL_AT),
                        ("fused_vb_iter:instance", "fused_vb_iter.cu", _IT_AT),
-                       ("fused_nlls:instance", "fused_nlls.cu", _NLLS_AT))
+                       ("fused_nlls:instance", "fused_nlls.cu", _NLLS_AT),
+                       ("fused_vb_iter:coop", "fused_vb_iter.cuh", _IT_AT))
 # phase 3k's cases: (name, model, num-exps, noise pattern, checks, V):
 # "6" kernel 6 maxits at 2 iterations, "6t" kernel 6 under trialmode (3
 # iterations, 2 trials), "7" / "7l" kernel 7 plain / LM, "8" kernel 8 fresh
-# and the engine's phase 1 + resume. ExpSum<12> at Q = 4 (P = 24) takes
-# kernel 6 rolled and kernel 7's folded form; ExpSum<20> (P = 40, Q = 1,
-# past kernel 6's picker) kernel 7 rolled but not folded (820 per-group
-# sums) and kernel 8 rolled.
+# and the engine's phase 1 + resume. "ExpSum<5> rolled" builds kernel 6 at
+# P = 10 with its loops rolled (ROLLED_CASES), the unit whose optimized
+# build lost every lane before the repair of csrc/vb_device.cuh
+# inverse_from_chol, and holds it bit for bit to its unrolled twin on its
+# data; ExpSum<12> at Q = 4 (P = 24) takes kernel 6 rolled and kernel 7's
+# cooperative form folded (1,200 per-group sums), on two draws;
+# ExpSum<20> (P = 40, Q = 1, past kernel 6's picker) and ExpSum<22> (P =
+# 44, past kernel 7's per-lane cap of earlier builds) kernel 7's
+# cooperative form per group, and ExpSum<20> kernel 8 rolled. Every case
+# draws from one generator, in this order.
 NL_CASES = (("ExpSum<5>", "exp", 5, "1", ("6", "6t", "7", "7l", "8"),
              131_072),
+            ("ExpSum<5> rolled", "exp", 5, "1", ("6", "6t"), 65_536),
             ("biexp Q=6", "biexp", 2, "123456", ("6", "6t", "7", "7l"),
              131_072),
             ("generated P=12", "myexp", 6, "1", ("6", "7", "8"), 131_072),
             ("ExpSum<12> Q=4", "exp", 12, "1234", ("6", "6t", "7"), 65_536),
-            ("ExpSum<20>", "exp", 20, "1", ("7", "7l", "8"), 4_096))
-# a case's NLLS options beside its num-exps: kernel 8 rolled (built with
-# ops/_cuda.py ROLL_FLAGS) takes about a second per Levenberg step at P =
-# 40 on 4,096 voxels, so 8 steps, 3 of them in phase 1
+            ("ExpSum<20>", "exp", 20, "1", ("7", "7l", "8"), 4_096),
+            ("ExpSum<22>", "exp", 22, "1", ("7", "7l"), 4_096),
+            ("ExpSum<12> Q=4, another draw", "exp", 12, "1234", ("6", "6t"),
+             65_536))
+# the cases built rolled (rolled_units), each held bit for bit to its
+# unrolled twin (the unit as ops/_cuda.py builds it) on the same data
+ROLLED_CASES = ("ExpSum<5> rolled",)
+# a case's NLLS options beside its num-exps: kernel 8 at P = 40, 8 steps, 3
+# of them in phase 1
 NL_NLLS_OPTIONS = {"ExpSum<20>": {"nlls-max-iterations": "8",
                                   "nlls-phase1-iterations": "3"}}
+
+
+class rolled_units:
+    """Within it, every per-shape nonlinear unit is built with its loops
+    rolled (FABBER_ROLL_LOOPS), whatever ops/_cuda.py rolled_loops says
+    of its shape, under a build key of its own; twin(fn) runs fn with the
+    units as ops/_cuda.py builds them."""
+
+    def __enter__(self):
+        from fabber_core_tpu_torch.ops import _cuda
+        self.cuda, self.define = _cuda, _cuda._roll_define
+        _cuda._roll_define = lambda p, q: "#define FABBER_ROLL_LOOPS\n"
+        return self
+
+    def __exit__(self, *exc):
+        self.cuda._roll_define = self.define
+
+    def twin(self, fn):
+        rolled, self.cuda._roll_define = self.cuda._roll_define, self.define
+        try:
+            return fn()
+        finally:
+            self.cuda._roll_define = rolled
+
+
+def same_bits(name, k, twin):
+    """True where every output of k equals twin's bit for bit (logged)."""
+    import torch
+    good = all(torch.equal(a, b) for a, b in zip(k, twin))
+    log(f"  {name}: the rolled unit's outputs equal its unrolled twin's "
+        f"bit for bit {'ok' if good else 'FAIL'}")
+    return good
 
 
 def nl_case_engine(model, num, pattern, plane, device, extra=None):
@@ -6325,18 +6379,24 @@ def instance_counts():
 
 def check_nl_instances(device, seed=SEED + 50):
     """Phase 3k: the per-shape instances of kernels 6, 7 and 8 (and
-    kernel 7's wide form, csrc/fused_vb_iter.cuh) against their plain
-    versions, lane by lane against float64 (near_f64), in each case of
-    NL_CASES: kernel 6 at 2 iterations from the engine's start (maxits)
-    and under trialmode (3 iterations, 2 trials; decisions as phase 3c's
-    6d); kernel 7 one iteration from the latent truth + N(0, 0.05^2),
-    plain and LM (alpha 10^U(-6, 2), every fourth 0), the covariance and
-    tr(cov J'J) in units of cond x 2^-24 (cov_cond), its free-energy
-    terms by f_terms_check; kernel 8 by check_nlls_case (fresh against
-    float64 by shares, streamed = staged and phase 1 + resume = fresh bit
-    for bit). The hand-written cases launch per-shape instances (their
-    counters must move), myexp's a functor generated past kMaxP. Returns
-    (ok, worst per kernels-line entry)."""
+    kernel 7's cooperative form, csrc/fused_vb_iter.cuh) against their
+    plain versions, lane by lane against float64 (near_f64), in each case
+    of NL_CASES (ROLLED_CASES with every unit's loops rolled,
+    rolled_units): kernel 6 at 2 iterations from the engine's start
+    (maxits) and under trialmode (3 iterations, 2 trials; iteration
+    counts as phase 3c's 6d, the lanes off float64 by share as phase 3h's
+    trialmode: a lane whose |dF| at a test lies within float32's error of
+    F converges in one implementation and enters a trial in another,
+    which no output shows; ROADMAP Queue 3 item 33), each rolled case's
+    outputs also equal to its unrolled twin's bit for bit; kernel 7 one
+    iteration from the latent truth + N(0, 0.05^2), plain and LM (alpha
+    10^U(-6, 2), every fourth 0), the covariance and tr(cov J'J) in units
+    of cond x 2^-24 (cov_cond), its free-energy terms by f_terms_check;
+    kernel 8 by check_nlls_case (fresh against float64 by shares,
+    streamed = staged and phase 1 + resume = fresh bit for bit). The
+    hand-written cases launch per-shape instances (their counters must
+    move), myexp's a functor generated past kMaxP. Returns (ok, worst per
+    kernels-line entry)."""
     import torch
     from fabber_core_tpu_torch.ops import fused_loop_nl as fnl
     from fabber_core_tpu_torch.ops import fused_vb as fv
@@ -6356,111 +6416,143 @@ def check_nl_instances(device, seed=SEED + 50):
         worst[kname][1] = max(worst[kname][1], ratio)
 
     for name, model, num, pattern, checks, nv in NL_CASES:
-        t0 = time.perf_counter()
-        data, clean, truth = nl_case_plane(model, num, nv, gen, device)
-        nq = int(pattern[-1])
-        log(f" {name} T={BI_NT} V={nv} Q={nq}")
-        n0 = instance_counts()
-        eng = nl_case_engine(model, num, pattern, data, device)
-        generated = model == "myexp"
-        # past kernel 6's picker (no "6" check) the engine takes kernel 7
-        want_route = "pallas-loop-nl" if "6" in checks else "pallas"
-        good = eng.route == want_route and (
-            (eng.functor is not None) == generated)
-        if not good:
-            log(f"  FAIL route {eng.route} (want {want_route})")
-        ok_all &= good
-        tr = eng._transforms()
-        tsj = fv.signal_jac_fn(eng.model)
-        s0 = eng.initial_state()
-        args = eng.nl_loop_args(s0)
-        if "6" in checks:
-            k = fnl.fused_nl_loop(eng.model, tr, *args, 2, True,
-                                  functor=eng.functor)
-            r32 = fnl.fused_nl_loop_plain(tsj, tr, *args, 2, True)
-            r64 = fnl.fused_nl_loop_plain(tsj, tr, *to64(args), 2, True)
-            torch.cuda.synchronize()
-            note(keys[0], near_f64(f"fused_nl_loop {name} 2 its", k, r32,
-                                   r64))
-            del k, r32, r64
-        if "6t" in checks:
-            teng = nl_case_engine(model, num, pattern, data, device, {
-                "convergence": "trialmode", "max-iterations": "3",
-                "max-trials": "2"})
-            ts0 = teng.initial_state()
-            targs = teng.nl_loop_args(ts0)
-            det = teng._nl_fdet_consts()
-            pd0 = sm.diag_of(ts0.post.cov).contiguous()
-            kw = dict(detector=det, post_var0=pd0)
-            k = fnl.fused_nl_loop(teng.model, tr, *targs, 3, True, **kw)
-            r32 = fnl.fused_nl_loop_plain(tsj, tr, *targs, 3, True, **kw)
-            r64 = fnl.fused_nl_loop_plain(tsj, tr, *to64(targs), 3, True,
-                                          detector=det,
-                                          post_var0=pd0.double())
-            torch.cuda.synchronize()
+        # ROLLED_CASES: their units built with the loops rolled
+        with (rolled_units() if name in ROLLED_CASES
+              else contextlib.nullcontext()) as rolled:
+            t0 = time.perf_counter()
+            data, clean, truth = nl_case_plane(model, num, nv, gen, device)
+            nq = int(pattern[-1])
+            log(f" {name} T={BI_NT} V={nv} Q={nq}")
+            n0 = instance_counts()
+            eng = nl_case_engine(model, num, pattern, data, device)
+            generated = model == "myexp"
+            # past kernel 6's picker (no "6" check) the engine takes
+            # kernel 7
+            want_route = "pallas-loop-nl" if "6" in checks else "pallas"
+            good = eng.route == want_route and (
+                (eng.functor is not None) == generated)
+            if not good:
+                log(f"  FAIL route {eng.route} (want {want_route})")
+            ok_all &= good
+            tr = eng._transforms()
+            tsj = fv.signal_jac_fn(eng.model)
+            s0 = eng.initial_state()
+            args = eng.nl_loop_args(s0)
+            if "6" in checks:
+                k = fnl.fused_nl_loop(eng.model, tr, *args, 2, True,
+                                      functor=eng.functor)
+                if rolled is not None:
+                    ok_all &= same_bits(f"fused_nl_loop {name} 2 its", k,
+                                        rolled.twin(lambda: fnl.fused_nl_loop(
+                                            eng.model, tr, *args, 2, True)))
+                r32 = fnl.fused_nl_loop_plain(tsj, tr, *args, 2, True)
+                r64 = fnl.fused_nl_loop_plain(tsj, tr, *to64(args), 2, True)
+                torch.cuda.synchronize()
+                note(keys[0], near_f64(f"fused_nl_loop {name} 2 its", k, r32,
+                                       r64))
+                del k, r32, r64
+            if "6t" in checks:
+                teng = nl_case_engine(model, num, pattern, data, device, {
+                    "convergence": "trialmode", "max-iterations": "3",
+                    "max-trials": "2"})
+                ts0 = teng.initial_state()
+                targs = teng.nl_loop_args(ts0)
+                det = teng._nl_fdet_consts()
+                pd0 = sm.diag_of(ts0.post.cov).contiguous()
+                kw = dict(detector=det, post_var0=pd0)
+                k = fnl.fused_nl_loop(teng.model, tr, *targs, 3, True, **kw)
+                if rolled is not None:
+                    ok_all &= same_bits(
+                        f"fused_nl_loop {name} trialmode", k,
+                        rolled.twin(lambda: fnl.fused_nl_loop(
+                            teng.model, tr, *targs, 3, True, **kw)))
+                r32 = fnl.fused_nl_loop_plain(tsj, tr, *targs, 3, True, **kw)
+                r64 = fnl.fused_nl_loop_plain(tsj, tr, *to64(targs), 3, True,
+                                              detector=det,
+                                              post_var0=pd0.double())
+                torch.cuda.synchronize()
 
-            def dec(o):
-                return torch.stack([o[6][0].double(), 0 * o[6][0].double()])
-            note(keys[0], near_f64(f"fused_nl_loop {name} trialmode", k,
-                                   r32, r64, dec(k), dec(r32), dec(r64)))
-            del k, r32, r64, teng, ts0, targs, pd0
-        lat = torch.log(truth) + 0.05 * torch.randn(
-            truth.shape, generator=gen, device=device)
-        phi = torch.full((nq, nv), 1.0 / BI_SD ** 2, device=device)
-        it_args = (lat, args[1], args[2], phi, args[3], args[4], True)
-        if "7" in checks or "7l" in checks:
-            # a generated functor's kernel 7 library is built beside
-            # kernel 6's (the continuation route's)
-            eng._require_kernel_instance("pallas")
-        for check in ("7", "7l"):
-            if check not in checks:
-                continue
-            alpha = None
-            if check == "7l":
-                alpha = 10.0 ** (torch.rand(nv, generator=gen,
-                                            device=device) * 8 - 6)
-                alpha[::4] = 0.0
-            k = fv.fused_iteration(eng.model, tr, *it_args, alpha,
-                                   functor=eng.functor)
-            r32 = fv.fused_iteration_plain(tsj, tr, *it_args, alpha)
-            r64 = fv.fused_iteration_plain(
-                tsj, tr, *to64(it_args),
-                None if alpha is None else alpha.double())
-            torch.cuda.synchronize()
-            cond = scaled_cond(r64[1])
-            log(f"  fused_vb_iter {name} {check}: the float64 precision's "
-                f"scaled condition {float(cond.median()):.3g} (median), "
-                f"{float(cond.max()):.3g} (max)")
-            note(keys[1], near_f64(
-                f"fused_vb_iter {name} {'lm' if alpha is not None else ''}",
-                k[:5], r32[:5], r64[:5], cov_cond=cond, cond_outputs=(2, 4)))
-            if alpha is None:
-                note(keys[1], f_terms_check(
-                    f"fused_vb_iter {name} F terms", tsj, tr, k, r32,
-                    it_args[4], it_args[5]))
-            del k, r32, r64, cond
-        del eng, args, lat, phi, it_args, s0
-        torch.cuda.empty_cache()
-        if "8" in checks:
-            neng = nlls_engine(data, device, {"num-exps": str(num),
-                                              **NL_NLLS_OPTIONS.get(name, {})},
-                               model)
-            ok_all &= neng.route == "nlls-kernel" and (
-                (neng.functor is not None) == generated)
-            ok_all &= check_nlls_case(f"fused_nlls {name} V={nv}", neng,
-                                      neng.initial_means(), worst,
-                                      keys=(keys[2],))
-            del neng
-        n1 = instance_counts()
-        moved = [b - a for a, b in zip(n0, n1)]
-        want = [0 if generated else int(c in checks) for c in ("6", "7")]
-        want.append(0 if generated else int("8" in checks))
-        good = all((m > 0) == bool(w) for m, w in zip(moved, want))
-        log(f"  per-shape launches (kernels 6, 7, 8) {moved} "
-            f"{'ok' if good else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
-        ok_all &= good
-        del data, clean, truth
-        torch.cuda.empty_cache()
+                def dec(o):
+                    return torch.stack([o[6][0].double(),
+                                        0 * o[6][0].double()])
+                # by share, as phase 3h holds kernel 4's trialmode: the
+                # detector's converge-or-trial choice, taken where |dF|
+                # lies within float32's error of F, is no output and moves
+                # a lane by O(1)
+                note(keys[0], near_f64(f"fused_nl_loop {name} trialmode", k,
+                                       r32, r64, dec(k), dec(r32), dec(r64),
+                                       by_share=True))
+                del k, r32, r64, teng, ts0, targs, pd0
+            lat = torch.log(truth) + 0.05 * torch.randn(
+                truth.shape, generator=gen, device=device)
+            phi = torch.full((nq, nv), 1.0 / BI_SD ** 2, device=device)
+            it_args = (lat, args[1], args[2], phi, args[3], args[4], True)
+            coop = False
+            if "7" in checks or "7l" in checks:
+                # a generated functor's kernel 7 library is built beside
+                # kernel 6's (the continuation route's)
+                eng._require_kernel_instance("pallas")
+                # kernel 7's entry: its cooperative form where its unit
+                # compiled that (its own counter must move), else the
+                # per-lane one
+                coop = fv.iteration_form(eng.model, nq, BI_NT,
+                                         eng.functor)[0]
+            k7 = keys[3] if coop else keys[1]
+            c0 = fv.fused_iteration.coop_launches
+            for check in ("7", "7l"):
+                if check not in checks:
+                    continue
+                alpha = None
+                if check == "7l":
+                    alpha = 10.0 ** (torch.rand(nv, generator=gen,
+                                                device=device) * 8 - 6)
+                    alpha[::4] = 0.0
+                k = fv.fused_iteration(eng.model, tr, *it_args, alpha,
+                                       functor=eng.functor)
+                r32 = fv.fused_iteration_plain(tsj, tr, *it_args, alpha)
+                r64 = fv.fused_iteration_plain(
+                    tsj, tr, *to64(it_args),
+                    None if alpha is None else alpha.double())
+                torch.cuda.synchronize()
+                cond = scaled_cond(r64[1])
+                log(f"  fused_vb_iter {name} {check}: the float64 precision's "
+                    f"scaled condition {float(cond.median()):.3g} (median), "
+                    f"{float(cond.max()):.3g} (max)")
+                lm = "lm" if alpha is not None else ""
+                note(k7, near_f64(
+                    f"fused_vb_iter {name} {lm}", k[:5], r32[:5], r64[:5],
+                    cov_cond=cond, cond_outputs=(2, 4)))
+                if alpha is None:
+                    note(k7, f_terms_check(
+                        f"fused_vb_iter {name} F terms", tsj, tr, k, r32,
+                        it_args[4], it_args[5]))
+                del k, r32, r64, cond
+            del eng, args, lat, phi, it_args, s0
+            torch.cuda.empty_cache()
+            if "8" in checks:
+                neng = nlls_engine(
+                    data, device,
+                    {"num-exps": str(num), **NL_NLLS_OPTIONS.get(name, {})},
+                    model)
+                ok_all &= neng.route == "nlls-kernel" and (
+                    (neng.functor is not None) == generated)
+                ok_all &= check_nlls_case(f"fused_nlls {name} V={nv}", neng,
+                                          neng.initial_means(), worst,
+                                          keys=(keys[2],))
+                del neng
+            n1 = instance_counts()
+            moved = [b - a for a, b in zip(n0, n1)]
+            want = [0 if generated else int(c in checks) for c in ("6", "7")]
+            want.append(0 if generated else int("8" in checks))
+            good = all((m > 0) == bool(w) for m, w in zip(moved, want))
+            n7 = fv.fused_iteration.coop_launches - c0
+            good &= (n7 > 0) == (coop and "7" in checks)
+            log(f"  per-shape launches (kernels 6, 7, 8) {moved}, kernel 7's "
+                f"cooperative form {n7} {'ok' if good else 'FAIL'} "
+                f"({time.perf_counter() - t0:.1f} s)")
+            ok_all &= good
+            del data, clean, truth
+            torch.cuda.empty_cache()
     return ok_all, worst
 
 
@@ -6510,10 +6602,12 @@ def run_nl_instance_paths(device, shape=(128, 128, 64),
       method=nlls (kernel 8: phase 1 + resume), "fit" and "fit64";
     biexp at noise-pattern=123456 (Q = 6) on 'pallas-loop-nl' at 10
       iterations, "near" and "fit";
-    exp num-exps 20 (P = 40, 16x16x16): the JAX picker admits no kernel
-      6 there, so 'pallas' (kernel 7 rolled: 2 per-shape launches at 2
-      iterations), "near" (its fit cannot bind: plain float32 fits 0.4%
-      of voxels under trialmode at 10 or 30 iterations, float64 25%);
+    exp num-exps 20 (P = 40, 16x16x16) and 22 (P = 44, 16x16x8): the JAX
+      picker admits no kernel 6 there, so 'pallas' (kernel 7's
+      cooperative form: 2 per-shape launches at 2 iterations, its own
+      counter too),
+      "near" (its fit cannot bind: plain float32 fits 0.4% of voxels at
+      P = 40 under trialmode at 10 or 30 iterations, float64 25%);
     method=nlls at num-exps 22 (P = 44, 8x8x4, 3 steps): past kernel 8's
       picker, 'nlls-generic' with no launch.
     Returns (ok, launches per kernels-line entry)."""
@@ -6553,15 +6647,18 @@ def run_nl_instance_paths(device, shape=(128, 128, 64),
         return out
 
     def kernel_run(tag, opts, key, want, ref, vol_, clean_, shape_, names_,
-                   gates, cls=None, route=None, nq=1):
+                   gates, cls=None, route=None, nq=1, coop=0):
         """One run through run_with_data; want: the kernel's launches (0:
-        at least one), each a per-shape one."""
+        at least one), each a per-shape one; coop: those of kernel 7's
+        cooperative form among them."""
         nonlocal ok
         run, res, eng, n, _ = api_run(device, opts, vol_, cls=cls)
         got, inst = n.get(key, 0), n.get(f"{key}:instance", 0)
+        ncoop = n.get("fused_vb_iter:coop", 0)
         good = eng.route == route and inst == got and (
-            got == want if want else got >= 1)
+            got == want if want else got >= 1) and ncoop == coop
         launches[f"{key}:instance"] += inst
+        launches["fused_vb_iter:coop"] += ncoop
         sd32 = float(np.nanmedian(1 / np.sqrt(ref["single"][0].noise_means)))
         good &= check_biexp_outputs(run, vol_, clean_, shape_, names_,
                                     min_within=0.0, nq=nq, noise_sd_ref=sd32)
@@ -6582,8 +6679,8 @@ def run_nl_instance_paths(device, shape=(128, 128, 64),
             text.append(f"{g} {mine:.5f} (reference {theirs:.5f}"
                         f"{', bound >= its - 0.02' if gated else ', logged'})")
         log(f"  {tag} on '{eng.route}': kernel launches {got}, per-shape "
-            f"{inst} (want {want or '>= 1'}); {'; '.join(text)} "
-            f"{'ok' if good else 'FAIL'}")
+            f"{inst} (want {want or '>= 1'}), cooperative {ncoop} (want "
+            f"{coop}); {'; '.join(text)} {'ok' if good else 'FAIL'}")
         ok &= good
 
     num = 5
@@ -6636,7 +6733,13 @@ def run_nl_instance_paths(device, shape=(128, 128, 64),
     names40 = [f"{w}{i}" for i in range(1, 21) for w in ("amp", "r")]
     kernel_run("exp num-exps 20 (P=40), 2 iterations", o40, "fused_vb_iter",
                2, refs(o40, vol, sclean), vol, sclean, small, names40,
-               ("near",), route="pallas")
+               ("near",), route="pallas", coop=2)
+    vol, sclean = nexp_volume(22, (16, 16, 8), SEED + 56)
+    o44 = {**o40, "num-exps": "22"}
+    names44 = [f"{w}{i}" for i in range(1, 23) for w in ("amp", "r")]
+    kernel_run("exp num-exps 22 (P=44), 2 iterations", o44, "fused_vb_iter",
+               2, refs(o44, vol, sclean), vol, sclean, (16, 16, 8), names44,
+               ("near",), route="pallas", coop=2)
     vol, _ = nexp_volume(22, smaller, SEED + 54)
     _, res, eng, n, _ = api_run(device, {**NLLS_OPTIONS, "model": "exp",
                                          "num-exps": "22",
@@ -6666,7 +6769,8 @@ def ptxas_frame(text, *parts):
     return ptxas_entry(text, *parts)
 
 
-def time_nl_instances(device, card, nv=4_000_000, nv_plain=1_000_000):
+def time_nl_instances(device, card, nv=4_000_000, nv_plain=1_000_000,
+                      nv_coop=262_144):
     """Phase 5k, CUDA events, best of 3 after a warm-up, at 4,000,000
     voxels, T=100: ExpSum<5> (P = 10, a per-shape instance) on kernel 6
     (maxits, ITERS), kernel 7 (one iteration from the latent truth) and
@@ -6674,10 +6778,12 @@ def time_nl_instances(device, card, nv=4_000_000, nv_plain=1_000_000):
     (noise-pattern 123456); each plain version once on the first
     nv_plain voxels with its kernel again beside it there (key_1m_*: the
     kernels line's entries; the plain versions' [P,T,V] Jacobians at P =
-    10 outgrow the card at 4,000,000). Bounds as phase 5i's (nl_pass_ops,
-    nlls_ops: the prebuilt form's operations for the same function;
-    kernel 8 the steps this run's data took). Each entry's ptxas line
-    (registers, stack frame, spill stores) from its per-shape build."""
+    10 outgrow the card at 4,000,000); kernel 7's cooperative form with
+    ExpSum<22> (P = 44) and its plain version on nv_coop voxels (iter_p44_*,
+    its entry). Bounds as phase 5i's (nl_pass_ops, nlls_ops: the prebuilt
+    form's operations for the same function; kernel 8 the steps this
+    run's data took). Each entry's ptxas line (registers, stack frame,
+    spill stores) from its per-shape build."""
     import torch
     from fabber_core_tpu_torch.ops import fused_loop_nl as fnl
     from fabber_core_tpu_torch.ops import fused_nlls as fn
@@ -6768,19 +6874,45 @@ def time_nl_instances(device, card, nv=4_000_000, nv_plain=1_000_000):
           bargs, nl_bound(4, 6, 2))
     del eng, bargs, data
     torch.cuda.empty_cache()
+    # kernel 7's cooperative form at exp num-exps 22 (P = 44, one
+    # iteration from the latent truth) on nv_coop voxels, the kernel and
+    # its plain version on the same voxels
+    num, pn = 22, 44
+    data, _, truth = multiexp_plane(num, nv_coop, gen, device)
+    eng = wide_nl_engine("exp", num, data, device)
+    tr = eng._transforms()
+    tsj = fv.signal_jac_fn(eng.model)
+    cargs = eng.nl_loop_args(eng.initial_state())
+    phi = torch.full((1, nv_coop), 1.0 / BI_SD ** 2, device=device)
+    c_args = (torch.log(truth).contiguous(), cargs[1], cargs[2], phi,
+              cargs[3], cargs[4], True)
+    out["iter_p44_ms"], r = best_ms(
+        lambda: fv.fused_iteration(eng.model, tr, *c_args), keep=True)
+    del r
+    out["iter_p44_bound"] = bound(
+        4 * BI_NT * nv_coop + 4 * (3 * pn + 1 + 4 + 2 * pn * pn + 4) * nv_coop,
+        ((nl_pass_ops(pn, 1, num, "A") + nl_pass_ops(pn, 1, num, "B")
+          + nl_pass_ops(pn, 1, num, "F")) * BI_NT + 400) * nv_coop)
+    out["iter_p44_plain_ms"] = once_ms(
+        lambda: fv.fused_iteration_plain(tsj, tr, *c_args))[0]
+    out["iter_p44_voxels"] = nv_coop
+    del eng, cargs, c_args, phi, data, truth
+    torch.cuda.empty_cache()
     for tag, shape, parts in (
-            ("nl_exp5", ("nl", 10, 1, 1), ("fused_nl_loop_kernel",
-                                           "ELi1ELi0ELb1E")),
-            ("iter_exp5", ("nl", 10, 1, 1), ("fused_vb_iter_kernel",
-                                             "ELi1ELb0ELb1E")),
-            ("nlls_exp5", ("nl", 10, 1, 1), ("fused_nlls_kernel",
-                                             "ELi0ELb0ELb1E")),
-            ("nl_q6", ("nl", 4, 6, 1), ("fused_nl_loop_kernel",
-                                        "ELi6ELi0ELb1E")),
-            ("iter_p24_q4", ("nl", 24, 4, 1), ("fused_vb_iter_wide_kernel",
-                                               "ELi4ELb0ELb1E")),
-            ("iter_p40", ("nl", 40, 1, 1), ("fused_vb_iter_kernel",
-                                            "ELi1ELb0ELb1E"))):
+            ("nl_exp5", ("nl", 10, 1, 1, "nl_loop"),
+             ("fused_nl_loop_kernel", "ELi1ELi0ELb1E")),
+            ("iter_exp5", ("nl", 10, 1, 1, "vb_iter"),
+             ("fused_vb_iter_kernel", "ELi1ELb0ELb1E")),
+            ("nlls_exp5", ("nl", 10, 1, 1, "nlls"),
+             ("fused_nlls_kernel", "ELi0ELb0ELb1E")),
+            ("nl_q6", ("nl", 4, 6, 1, "nl_loop"),
+             ("fused_nl_loop_kernel", "ELi6ELi0ELb1E")),
+            ("iter_p24_q4", ("nl", 24, 4, 1, "vb_iter"),
+             ("fused_vb_iter_coop_kernel", "ELi4ELb0E")),
+            ("iter_p40", ("nl", 40, 1, 1, "vb_iter"),
+             ("fused_vb_iter_coop_kernel", "ELi1ELb0E")),
+            ("iter_p44", ("nl", 44, 1, 1, "vb_iter"),
+             ("fused_vb_iter_coop_kernel", "ELi1ELb0E"))):
         out[f"{tag}_ptxas"] = ptxas_frame(
             instance_logs((shape,))[shape][2], *parts)
     for key, v in out.items():
@@ -7011,7 +7143,7 @@ def main():
         launches[name] += n
     log("phase 4aa: run_with_data on the nonlinear per-shape instances: "
         "exp num-exps 5 and biexp at noise-pattern=123456 (128x128x64 x "
-        "100), num-exps 20 (16x16x16) and 22 (8x8x4)")
+        "100), num-exps 20 (16x16x16) and 22 (16x16x8; by NLLS on 8x8x4)")
     ok4aa, nl_inst_launches = run_nl_instance_paths(device)
     launches.update(nl_inst_launches)
 
@@ -7192,12 +7324,13 @@ def main():
     # the nonlinear per-shape instances (phase 3k errors; 4aa launches; 5k
     # times with ExpSum<5> on the first 1,000,000 of 4,000,000 voxels,
     # beside the plain versions there)
+    # (kernel 7's cooperative form: ExpSum<22> on 262,144 voxels)
     for (name, source, at), tag in zip(NL_INSTANCE_ENTRIES, (
-            "nl_exp5", "iter_exp5", "nlls_exp5")):
-        kernels.append(entry(name, source, at,
-                             fig_nl_inst[f"{tag}_1m_ms"],
-                             fig_nl_inst[f"{tag}_plain_ms"],
-                             fig_nl_inst[f"{tag}_1m_bound"]))
+            "nl_exp5_1m", "iter_exp5_1m", "nlls_exp5_1m", "iter_p44")):
+        plain = tag.replace("_1m", "")
+        kernels.append(entry(name, source, at, fig_nl_inst[f"{tag}_ms"],
+                             fig_nl_inst[f"{plain}_plain_ms"],
+                             fig_nl_inst[f"{tag}_bound"]))
     missing = [name for name, _, _ in INSTANCE_ENTRIES + NL_INSTANCE_ENTRIES
                if not launches[name]]
     if missing:

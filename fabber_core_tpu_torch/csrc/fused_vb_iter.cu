@@ -59,9 +59,11 @@ extern "C" int fabber_vb_iter_occupancy(int kind, int p, int q, int lm,
 }
 #else
 // A per-shape instance's entry points (ops/_cuda.py build_instance "nl":
-// InstModel at (P, Q) = (FABBER_INST_P, FABBER_INST_Q), the folded form
-// past kFoldSums): fabber_fused_vb_iter's and fabber_vb_iter_occupancy's
-// arguments; another (kind, p, q) returns cudaErrorInvalidValue (-1).
+// InstModel at (P, Q) = (FABBER_INST_P, FABBER_INST_Q) up to (kCoopMaxP,
+// kWideMaxQ); the cooperative form in a unit past rolled_loops' sizes,
+// which fabber_inst_vb_iter_coop reports and which must be given vb = 0):
+// fabber_fused_vb_iter's and fabber_vb_iter_occupancy's arguments; another
+// (kind, p, q) returns cudaErrorInvalidValue (-1).
 extern "C" int fabber_inst_fused_vb_iter(
     int kind, int p, int q, const int* tcodes_host, float dt, int need_f,
     const float* centre, const float* pm, const float* pp, const float* phi,
@@ -69,7 +71,7 @@ extern "C" int fabber_inst_fused_vb_iter(
     long long V, float* means, float* prec, float* cov, float* nkqk,
     float* ntr, float* fkqk, float* ftr, int vb, void* stream) {
   constexpr int P = FABBER_INST_P, Q = FABBER_INST_Q;
-  static_assert(P == InstModel::P && P <= nl::kWideMaxP &&
+  static_assert(P == InstModel::P && P <= nl::kCoopMaxP &&
                     Q <= nl::kWideMaxQ,
                 "a kernel 7 instance within its limits");
   const long long smem = iter_smem(vb, nt, q);
@@ -91,4 +93,7 @@ extern "C" int fabber_inst_vb_iter_occupancy(int kind, int p, int q, int lm,
     return -1;
   return occupancy<InstModel, FABBER_INST_Q>(lm != 0, vb, smem);
 }
+
+// 1 where this unit compiled the cooperative form (kIterCoop), else 0
+extern "C" int fabber_inst_vb_iter_coop() { return kIterCoop ? 1 : 0; }
 #endif

@@ -10,7 +10,9 @@
 // engine-kernel=pallas); under the lm detector with the lane's damping
 // alpha.
 //
-// One thread per voxel, state in registers:
+// The per-lane form (a per-shape unit past ops/_cuda.py rolled_loops'
+// sizes compiles the cooperative form below instead): one thread per
+// voxel, state in registers:
 //   pass A  model + latent-space Jacobian at the centre; per noise group
 //           q, J'Q_qJ (packed lower triangle) and J'Q_q r;
 //   solve   prec = sum_q phi_q J'Q_qJ + diag(pp), unrolled Cholesky
@@ -232,149 +234,312 @@ FABBER_UNROLL
   }
 }
 
-// ---- the folded form: the groups' sums past kFoldSums --------------------
+// ---- the cooperative form: past the per-lane sizes ---------------------
 //
-// The prebuilt form keeps J'Q_qJ per group, Q P(P+1)/2 floats a lane and
-// as many again for the block sums: 253 KB at P = 42, Q = 35, and the card
-// reserves a kernel's local memory for every thread an SM could hold
-// (2,048), which no card has. Past kFoldSums per-group sums (a per-shape
-// instance, ops/_cuda.py build_instance "nl", or a functor generated past
-// kMaxP, kMaxQ; iter_folded) the folded form (fused_vb_iter_wide_kernel)
-// keeps one P x P sum, with w_t = sum_q phi_q w_tq:
-//   pass A  A = sum_t w_t J_t J_t' (= sum_q phi_q J'Q_qJ) and
-//           g = sum_t w_t J_t r_t; prec = A + diag(pp), rhs = g + A centre
-//           + pp pm, the same Cholesky (no jitter), covariance and means,
-//           the LM step from g + pp (pm - centre);
-//   pass B  per group k'Q_qk as the prebuilt form;
-//   trace   per group, one more pass for J'Q_qJ alone at the centre and
-//           its tr(Sigma J'Q_qJ), the prebuilt form's sums and trace;
-//   pass C  (need_f) k'Q_qk and, a pass per group, tr(Sigma J'Q_qJ) at
-//           the new means.
-// A lane keeps O(P^2) floats whatever Q is (about 8 P(P+1)/2: 29 KB at P =
-// 42) and makes 3 + 2Q passes for the prebuilt form's 3. Only A and g sum
-// in another order (phi inside the time sum; sums of positive terms); the
-// traces are the prebuilt form's arithmetic: taken per sample (J' Sigma J)
-// they lost every digit to cancellation at P = 24, where the covariance
-// of a sum of twelve exponentials holds entries of 1e10 and more.
-constexpr int kFoldSums = 1024;
+// The per-lane form keeps J'Q_qJ per group in one thread: Q P(P+1)/2 floats
+// and as many again for the block sums, and the card reserves a kernel's
+// local memory for every thread an SM could hold (2,048): about 29 KB a
+// lane at P = 42, and the rolled loops that reach it index local memory.
+// A unit past ops/_cuda.py rolled_loops' sizes (FABBER_ROLL_LOOPS: P >
+// 16, or more than 600 per-group sums) launches this form instead: one
+// warp (kCoopThreads) serves one voxel, a block each, and its state lives
+// in the block's shared memory (CoopLayout), so a thread holds O(1)
+// floats whatever P is.
+//   pass A  per chunk of kCoopChunk samples each thread evaluates the
+//           model at its sample (the Jacobian row into the chunk's
+//           columns, r = y - g), then each thread sums its slice of the
+//           packed sums over the chunk, kTB samples into a block sum and
+//           the blocks into the total, the per-lane form's order: J'Q_qJ
+//           and J'Q_q r per group, or, past kCoopFoldSums per-group sums,
+//           folded into one A = sum_t w_t J_t J_t' and g = sum_t w_t J_t r
+//           with w_t = sum_q phi_q w_tq (Q P(P+1)/2 sums would fill a
+//           block's shared memory at Q = 35);
+//   solve   prec and rhs (a thread per entry, per row), the column
+//           Cholesky (the diagonal by one thread, the column below it a
+//           row a thread, a barrier each), L^-1 a row a thread, cov an
+//           entry a thread: each entry's arithmetic that of vb_device.cuh's
+//           cholesky and inverse_from_chol; with LM the damped factor and
+//           its solve (one thread);
+//   pass B  k = r + J d per sample, per group k'Q_qk (a thread per group);
+//   traces  tr(Sigma J'Q_qJ) a thread per group, from the pass A sums, or,
+//           folded, a pass per group for J'Q_qJ alone (taken per sample,
+//           J' Sigma J loses every digit to cancellation at P = 24, where
+//           the covariance of twelve exponentials holds entries of 1e10);
+//   pass C  (need_f) the same at the new means.
+// No warp shuffles: the threads meet at __syncthreads, so the host shim
+// (tests/torch_hostcc.py) runs a block's threads as lanes. The bound of
+// the form is its shared memory: kCoopMaxP (vb_device.cuh) is the largest
+// P whose folded state one block holds.
+// true in a unit that launches this form, false in one that launches the
+// per-lane form; the unit's C entry points report it
+// (fabber_inst_vb_iter_coop, fabber_gen_vb_iter_coop), and a launch takes
+// its vb from that answer (ops/fused_vb.py iteration_form)
+#if defined(FABBER_ROLL_LOOPS)
+constexpr bool kIterCoop = true;
+#else
+constexpr bool kIterCoop = false;
+#endif
+constexpr int kCoopThreads = 32;
+constexpr int kCoopChunk = kCoopThreads;   // samples per chunk, one a thread
+static_assert(kCoopChunk % kTB == 0, "chunks of whole time blocks");
+constexpr int kCoopFoldSums = 1024;
 
-// the (M, Q) instance takes the folded form
-template <class M, int Q>
-constexpr bool iter_folded = Q * M::P * (M::P + 1) / 2 > kFoldSums;
+template <int P, int Q>
+constexpr bool coop_folded = Q * (P * (P + 1) / 2) > kCoopFoldSums;
 
-// pass A of the folded form at the centre: A (packed) and g
-template <class M, int Q, class C>
-__device__ __forceinline__ void wide_jac_pass(const float* mrow,
-                                              const float* chain, float dt,
-                                              const float* phi, const C& col,
-                                              int nt, float* a, float* g) {
-  constexpr int P = M::P, NT = P * (P + 1) / 2;
-FABBER_UNROLL
-  for (int i = 0; i < NT; ++i) a[i] = 0.f;
-FABBER_UNROLL
-  for (int i = 0; i < P; ++i) g[i] = 0.f;
-  for (int t0 = 0; t0 < nt; t0 += kTB) {
-    float ba[NT], bg[P];
-FABBER_UNROLL
-    for (int i = 0; i < NT; ++i) ba[i] = 0.f;
-FABBER_UNROLL
-    for (int i = 0; i < P; ++i) bg[i] = 0.f;
-    const int t1 = min(t0 + kTB, nt);
-    for (int t = t0; t < t1; ++t) {
-      float jac[P];
-      const float sig = eval_latent<M>(mrow, chain, nullptr, (float)t,
-                                       dt, jac);
-      const float r = col.sample(t) - sig;
+// One voxel's shared memory (floats): the pass sums, the chunk, the
+// solve's four packed matrices and the vectors
+template <int P, int Q>
+struct CoopLayout {
+  static constexpr int NT = P * (P + 1) / 2;
+  static constexpr int K = coop_folded<P, Q> ? 1 : Q;   // pass-A sums
+  static constexpr int JS = kCoopChunk + 1;   // a Jacobian row's stride
+  static constexpr int sums = 0;              // [K][NT]
+  static constexpr int jtr = sums + K * NT;   // [K][P]
+  static constexpr int jac = jtr + K * P;     // [P][JS]
+  static constexpr int wts = jac + P * JS;     // [K][kCoopChunk]
+  static constexpr int res = wts + K * kCoopChunk;   // [kCoopChunk]
+  static constexpr int prec = res + kCoopChunk;      // [NT] each
+  static constexpr int ch = prec + NT;
+  static constexpr int inv = ch + NT;         // L^-1; the LM damped matrix
+  static constexpr int cov = inv + NT;
+  static constexpr int vec = cov + NT;        // [P] each
+  static constexpr int centre = vec, pm = vec + P, pp = vec + 2 * P,
+                       mrow = vec + 3 * P, chain = vec + 4 * P,
+                       rhs = vec + 5 * P, means = vec + 6 * P,
+                       d = vec + 7 * P, x = vec + 8 * P;
+  static constexpr int grp = vec + 9 * P;     // [Q] each
+  static constexpr int phi = grp, nkqk = grp + Q, ntr = grp + 2 * Q,
+                       fkqk = grp + 3 * Q, ftr = grp + 4 * Q;
+  static constexpr int floats = grp + 5 * Q;
+  static constexpr long long bytes = 4LL * floats;
+};
+static_assert(CoopLayout<nl::kCoopMaxP, nl::kWideMaxQ>::bytes <=
+                      kMaxBlockSmem &&
+                  CoopLayout<nl::kCoopMaxP + 1, nl::kWideMaxQ>::bytes >
+                      kMaxBlockSmem,
+              "kCoopMaxP: the largest P whose state one block holds");
+
+// (i, j <= i) of the packed index e
+__device__ __forceinline__ void untri(int e, int& i, int& j) {
+  i = (int)((sqrtf(8.f * (float)e + 1.f) - 1.f) * 0.5f);
+  while (i * (i + 1) / 2 > e) --i;
+  while ((i + 1) * (i + 2) / 2 <= e) ++i;
+  j = e - i * (i + 1) / 2;
+}
+
+// One chunk [t0, t0 + nc): thread c < nc evaluates the model at sample t0
+// + c (rows mrow, chain): its Jacobian row into column c of jac (JAC),
+// r = y - g into res[c], or with a step d (STEP) k^2, k = r + J d. WMODE
+// 1: the folded weight sum_q phi_q w_tq into wts[c]; 2: the Q group
+// weights into wts[q][c]; 3: group q's weight into wts[c]; 0: none.
+template <class M, int Q, bool JAC, bool STEP, int WMODE>
+__device__ __forceinline__ void coop_chunk(const float* mrow,
+                                           const float* chain, float dt,
+                                           const float* __restrict__ data,
+                                           const float* __restrict__ qw,
+                                           long long V, long long v, int t0,
+                                           int nc, const float* phi,
+                                           const float* d, int q, float* jac,
+                                           float* wts, float* res) {
+  constexpr int P = M::P, JS = kCoopChunk + 1;
+  const int c = (int)threadIdx.x;
+  if (c < nc) {
+    const int t = t0 + c;
+    float row[P];
+    const float sig = eval_latent<M>(mrow, chain, nullptr, (float)t, dt,
+                                     row);
+    float kk = __ldg(data + (size_t)t * V + v) - sig;
+    if constexpr (JAC) {
+      for (int i = 0; i < P; ++i) jac[i * JS + c] = row[i];
+    }
+    if constexpr (STEP) {
+      for (int i = 0; i < P; ++i) kk = kk + row[i] * d[i];
+      res[c] = kk * kk;
+    } else {
+      res[c] = kk;
+    }
+    if constexpr (WMODE == 1) {
       float w = 0.f;
-FABBER_UNROLL
-      for (int q = 0; q < Q; ++q) w = w + phi[q] * col.weight(t * Q + q);
-FABBER_UNROLL
-      for (int i = 0; i < P; ++i) {
-        const float wj = w * jac[i];
-FABBER_UNROLL
-        for (int j = 0; j <= i; ++j)
-          ba[tri(i, j)] = ba[tri(i, j)] + wj * jac[j];
-        bg[i] = bg[i] + wj * r;
-      }
+      for (int g = 0; g < Q; ++g) w = w + phi[g] * __ldg(qw + t * Q + g);
+      wts[c] = w;
+    } else if constexpr (WMODE == 2) {
+      for (int g = 0; g < Q; ++g)
+        wts[g * kCoopChunk + c] = __ldg(qw + t * Q + g);
+    } else if constexpr (WMODE == 3) {
+      wts[c] = __ldg(qw + t * Q + q);
     }
-FABBER_UNROLL
-    for (int i = 0; i < NT; ++i) a[i] = a[i] + ba[i];
-FABBER_UNROLL
-    for (int i = 0; i < P; ++i) g[i] = g[i] + bg[i];
+  }
+  __syncthreads();
+}
+
+// each thread's slice of ns packed sums [ns][NT] (and, with rvec, of the
+// [ns][P] sums J'W r) over the chunk, weights wts[ns][kCoopChunk]: kTB
+// samples into a block sum, the blocks into the total
+template <int P>
+__device__ __forceinline__ void coop_sums(float* sums, float* rvec, int ns,
+                                          const float* jac,
+                                          const float* wts,
+                                          const float* res, int nc) {
+  constexpr int NT = P * (P + 1) / 2, JS = kCoopChunk + 1;
+  for (int e = (int)threadIdx.x; e < ns * NT; e += kCoopThreads) {
+    const int s = e / NT;
+    int i, j;
+    untri(e - s * NT, i, j);
+    const float* w = wts + s * kCoopChunk;
+    float tot = sums[e];
+    for (int b0 = 0; b0 < nc; b0 += kTB) {
+      const int b1 = min(b0 + kTB, nc);
+      float bs = 0.f;
+      for (int c = b0; c < b1; ++c) {
+        const float wj = w[c] * jac[i * JS + c];
+        bs = bs + wj * jac[j * JS + c];
+      }
+      tot = tot + bs;
+    }
+    sums[e] = tot;
+  }
+  if (rvec != nullptr) {
+    for (int e = (int)threadIdx.x; e < ns * P; e += kCoopThreads) {
+      const int s = e / P, i = e - s * P;
+      const float* w = wts + s * kCoopChunk;
+      float tot = rvec[e];
+      for (int b0 = 0; b0 < nc; b0 += kTB) {
+        const int b1 = min(b0 + kTB, nc);
+        float bs = 0.f;
+        for (int c = b0; c < b1; ++c) {
+          const float wj = w[c] * jac[i * JS + c];
+          bs = bs + wj * res[c];
+        }
+        tot = tot + bs;
+      }
+      rvec[e] = tot;
+    }
+  }
+  __syncthreads();
+}
+
+// per group k'Q_qk over the chunk (res holds k^2), a thread a group
+template <int Q>
+__device__ __forceinline__ void coop_kqk(float* kqk,
+                                         const float* __restrict__ qw,
+                                         const float* res, int t0, int nc) {
+  for (int q = (int)threadIdx.x; q < Q; q += kCoopThreads) {
+    float tot = kqk[q];
+    for (int b0 = 0; b0 < nc; b0 += kTB) {
+      const int b1 = min(b0 + kTB, nc);
+      float bk = 0.f;
+      for (int c = b0; c < b1; ++c)
+        bk = bk + __ldg(qw + (t0 + c) * Q + q) * res[c];
+      tot = tot + bk;
+    }
+    kqk[q] = tot;
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void coop_zero(float* x, int n) {
+  for (int e = (int)threadIdx.x; e < n; e += kCoopThreads) x[e] = 0.f;
+  __syncthreads();
+}
+
+// the packed lower factor ch of a, vb_device.cuh cholesky's arithmetic
+// (no jitter): column i's diagonal by thread 0, its rows below a thread
+// each
+template <int P>
+__device__ __forceinline__ void coop_cholesky(const float* a, float* ch) {
+  const int tid = (int)threadIdx.x;
+  for (int i = 0; i < P; ++i) {
+    if (tid == 0) {
+      float s = a[tri(i, i)];
+      for (int k = 0; k < i; ++k) s = s - ch[tri(i, k)] * ch[tri(i, k)];
+      ch[tri(i, i)] = sqrtf(s);
+    }
+    __syncthreads();
+    const float inv_d = 1.f / ch[tri(i, i)];
+    for (int j = i + 1 + tid; j < P; j += kCoopThreads) {
+      float s2 = a[tri(j, i)];
+      for (int k = 0; k < i; ++k) s2 = s2 - ch[tri(j, k)] * ch[tri(i, k)];
+      ch[tri(j, i)] = s2 * inv_d;
+    }
+    __syncthreads();
   }
 }
 
-// tr(Sigma J'Q_qJ) of group q at the rows mrow, chain: J'Q_qJ summed in
-// the prebuilt form's order (jac_pass, f_pass), then trace_packed
-template <class M, int Q, class C>
-__device__ __forceinline__ float group_trace(const float* mrow,
-                                             const float* chain, float dt,
-                                             const float* cov, const C& col,
-                                             int nt, int q) {
+// cov = L^-T L^-1 from the packed factor, inverse_from_chol's arithmetic:
+// L^-1 (into inv) a row a thread, cov an entry a thread
+template <int P>
+__device__ __forceinline__ void coop_inverse(const float* ch, float* inv,
+                                             float* cov) {
+  constexpr int NT = P * (P + 1) / 2;
+  const int tid = (int)threadIdx.x;
+  for (int i = tid; i < P; i += kCoopThreads) {
+    inv[tri(i, i)] = 1.f / ch[tri(i, i)];
+    for (int j = i - 1; j >= 0; --j) {
+      float s = 0.f;
+      for (int k = j + 1; k <= i; ++k) s = s + ch[tri(k, j)] * inv[tri(i, k)];
+      inv[tri(i, j)] = -s / ch[tri(j, j)];
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < NT; e += kCoopThreads) {
+    int i, j;
+    untri(e, i, j);
+    float s = 0.f;
+    for (int k = i; k < P; ++k) s = s + inv[tri(k, i)] * inv[tri(k, j)];
+    cov[e] = s;
+  }
+  __syncthreads();
+}
+
+// tr(Sigma J'Q_qJ) of the groups' sums [Q][NT] (trace_packed's order), a
+// thread a group
+template <int P, int Q>
+__device__ __forceinline__ void coop_traces(const float* cov,
+                                            const float* sums, float* tr) {
+  constexpr int NT = P * (P + 1) / 2;
+  for (int q = (int)threadIdx.x; q < Q; q += kCoopThreads)
+    tr[q] = trace_packed<P>(cov, sums + q * NT);
+  __syncthreads();
+}
+
+// the folded form's traces at rows mrow, chain: a pass per group for
+// J'Q_qJ alone (into buf), then its trace by one thread
+template <class M, int Q>
+__device__ __forceinline__ void coop_group_traces(
+    const float* mrow, const float* chain, float dt,
+    const float* __restrict__ data, const float* __restrict__ qw, int nt,
+    long long V, long long v, const float* cov, float* buf, float* jac,
+    float* wts, float* res, float* tr) {
   constexpr int P = M::P, NT = P * (P + 1) / 2;
-  float jtj[NT];
-FABBER_UNROLL
-  for (int i = 0; i < NT; ++i) jtj[i] = 0.f;
-  for (int t0 = 0; t0 < nt; t0 += kTB) {
-    float bjtj[NT];
-FABBER_UNROLL
-    for (int i = 0; i < NT; ++i) bjtj[i] = 0.f;
-    const int t1 = min(t0 + kTB, nt);
-    for (int t = t0; t < t1; ++t) {
-      float jac[P];
-      eval_latent<M>(mrow, chain, nullptr, (float)t, dt, jac);
-      const float w = col.weight(t * Q + q);
-FABBER_UNROLL
-      for (int i = 0; i < P; ++i) {
-        const float wj = w * jac[i];
-FABBER_UNROLL
-        for (int j = 0; j <= i; ++j)
-          bjtj[tri(i, j)] = bjtj[tri(i, j)] + wj * jac[j];
-      }
+  for (int q = 0; q < Q; ++q) {
+    coop_zero(buf, NT);
+    for (int t0 = 0; t0 < nt; t0 += kCoopChunk) {
+      const int nc = min(kCoopChunk, nt - t0);
+      coop_chunk<M, Q, true, false, 3>(mrow, chain, dt, data, qw, V, v, t0,
+                                       nc, nullptr, nullptr, q, jac, wts,
+                                       res);
+      coop_sums<P>(buf, nullptr, 1, jac, wts, res, nc);
     }
-FABBER_UNROLL
-    for (int i = 0; i < NT; ++i) jtj[i] = jtj[i] + bjtj[i];
-  }
-  return trace_packed<P>(cov, jtj);
-}
-
-// passes B (STEP: k = r + J d at the centre) and C (k = r at the new
-// means) of the folded form: per group k'Q_qk
-template <class M, int Q, bool STEP, class C>
-__device__ __forceinline__ void wide_k_pass(const float* mrow,
-                                            const float* chain, float dt,
-                                            const float* d, const C& col,
-                                            int nt, float* kqk) {
-  constexpr int P = M::P;
-FABBER_UNROLL
-  for (int q = 0; q < Q; ++q) kqk[q] = 0.f;
-  for (int t0 = 0; t0 < nt; t0 += kTB) {
-    float bk[Q];
-FABBER_UNROLL
-    for (int q = 0; q < Q; ++q) bk[q] = 0.f;
-    const int t1 = min(t0 + kTB, nt);
-    for (int t = t0; t < t1; ++t) {
-      float jac[P];
-      const float sig = eval_latent<M>(mrow, chain, nullptr, (float)t,
-                                       dt, jac);
-      float kk = col.sample(t) - sig;
-      if constexpr (STEP) {
-FABBER_UNROLL
-        for (int i = 0; i < P; ++i) kk = kk + jac[i] * d[i];
-      }
-      const float k2 = kk * kk;
-FABBER_UNROLL
-      for (int q = 0; q < Q; ++q) bk[q] = bk[q] + col.weight(t * Q + q) * k2;
-    }
-FABBER_UNROLL
-    for (int q = 0; q < Q; ++q) kqk[q] = kqk[q] + bk[q];
+    if (threadIdx.x == 0) tr[q] = trace_packed<P>(cov, buf);
+    __syncthreads();
   }
 }
 
-// The folded form's kernel: fused_vb_iter_kernel's parameters and outputs
-template <class M, int Q, bool LM, bool STAGED>
-__global__ void __launch_bounds__(kThreads)
-fused_vb_iter_wide_kernel(const VBParamsFor<M::P, Q> k,
+// packed symmetric -> full P x P planes [P*P, V], an entry a thread
+template <int P>
+__device__ __forceinline__ void coop_store_full(const float* packed,
+                                                float* __restrict__ out,
+                                                long long V, long long v) {
+  for (int e = (int)threadIdx.x; e < P * P; e += kCoopThreads)
+    out[(size_t)e * V + v] = packed[tri(e / P, e % P)];
+}
+
+// The cooperative form's kernel: fused_vb_iter_kernel's parameters and
+// outputs; one voxel a block of kCoopThreads, CoopLayout's shared memory
+template <class M, int Q, bool LM>
+__global__ void __launch_bounds__(kCoopThreads)
+fused_vb_iter_coop_kernel(const VBParamsFor<M::P, Q> k,
                           const float* __restrict__ centre_in,
                           const float* __restrict__ pm_in,
                           const float* __restrict__ pp_in,
@@ -390,100 +555,169 @@ fused_vb_iter_wide_kernel(const VBParamsFor<M::P, Q> k,
                           float* __restrict__ fkqk_out,
                           float* __restrict__ ftr_out) {
   constexpr int P = M::P, NT = P * (P + 1) / 2;
+  using L = CoopLayout<P, Q>;
+  constexpr bool FOLD = coop_folded<P, Q>;
   static_assert(M::NS == 0, "kernel 7 reads no suppdata");
-  const long long V = k.V;
-  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const Column<STAGED> col =
-      stage_column<STAGED>(data, qw, k.nt, k.nt * Q, V, v);
-  if (v >= V) return;
+  const long long V = k.V, v = blockIdx.x;
+  const int tid = (int)threadIdx.x, nt = k.nt;
+  float* const sh = dynamic_smem();
+  float *sums = sh + L::sums, *jtr = sh + L::jtr, *jac = sh + L::jac,
+        *wts = sh + L::wts, *res = sh + L::res, *prec = sh + L::prec,
+        *ch = sh + L::ch, *inv = sh + L::inv, *cov = sh + L::cov;
+  float *centre = sh + L::centre, *pm = sh + L::pm, *pp = sh + L::pp,
+        *mrow = sh + L::mrow, *chain = sh + L::chain, *rhs = sh + L::rhs,
+        *means = sh + L::means, *d = sh + L::d, *x = sh + L::x,
+        *phi = sh + L::phi, *nkqk = sh + L::nkqk, *ntr = sh + L::ntr,
+        *fkqk = sh + L::fkqk, *ftr = sh + L::ftr;
 
-  float centre[P], pm[P], pp[P], phi[Q];
-FABBER_UNROLL
-  for (int i = 0; i < P; ++i) {
+  for (int i = tid; i < P; i += kCoopThreads) {
     centre[i] = centre_in[(size_t)i * V + v];
     pm[i] = pm_in[(size_t)i * V + v];
     pp[i] = pp_in[(size_t)i * V + v];
+    mrow[i] = to_model(k.tcode[i], centre[i]);
+    chain[i] = chain_factor(k.tcode[i], centre[i]);
   }
-FABBER_UNROLL
-  for (int q = 0; q < Q; ++q) phi[q] = phi_in[(size_t)q * V + v];
+  for (int q = tid; q < Q; q += kCoopThreads)
+    phi[q] = phi_in[(size_t)q * V + v];
+  __syncthreads();
 
-  // ---- pass A: A = J'WJ, g = J'W r at the centre ------------------------
-  float mrow[P], chain[P];
-  model_rows<P>(k.tcode, centre, mrow, chain);
-  float a[NT], g[P];
-  wide_jac_pass<M, Q>(mrow, chain, k.dt, phi, col, k.nt, a, g);
+  // ---- pass A: J'Q_qJ, J'Q_q r per group (folded: A, g) at the centre --
+  coop_zero(sums, L::K * (NT + P));   // sums and jtr are adjacent
+  for (int t0 = 0; t0 < nt; t0 += kCoopChunk) {
+    const int nc = min(kCoopChunk, nt - t0);
+    coop_chunk<M, Q, true, false, FOLD ? 1 : 2>(
+        mrow, chain, k.dt, data, qw, V, v, t0, nc, phi, nullptr, 0, jac,
+        wts, res);
+    coop_sums<P>(sums, jtr, L::K, jac, wts, res, nc);
+  }
 
   // ---- solve (Eq 19/20) --------------------------------------------------
-  float prec[NT], cov[NT], means[P], ch[NT];
-FABBER_UNROLL
-  for (int i = 0; i < P; ++i) {
-FABBER_UNROLL
-    for (int j = 0; j <= i; ++j)
-      prec[tri(i, j)] = a[tri(i, j)] + (i == j ? pp[i] : 0.f);
+  for (int e = tid; e < NT; e += kCoopThreads) {
+    int i, j;
+    untri(e, i, j);
+    float val;
+    if constexpr (FOLD) {
+      val = sums[e] + (i == j ? pp[i] : 0.f);
+    } else {
+      val = 0.f;
+      for (int q = 0; q < Q; ++q) val = val + phi[q] * sums[q * NT + e];
+      if (i == j) val = val + pp[i];
+    }
+    prec[e] = val;
   }
-  cholesky<P>(prec, 0.f, ch);
-  inverse_from_chol<P>(ch, cov);
-  float rhs[P];
-FABBER_UNROLL
-  for (int i = 0; i < P; ++i) {
-    float r = g[i];
-FABBER_UNROLL
-    for (int j = 0; j < P; ++j) r = r + a[tri(i, j)] * centre[j];
-    rhs[i] = r + pp[i] * pm[i];
+  for (int a = tid; a < P; a += kCoopThreads) {
+    float val;
+    if constexpr (FOLD) {
+      val = jtr[a];
+      for (int j = 0; j < P; ++j) val = val + sums[tri(a, j)] * centre[j];
+      val = val + pp[a] * pm[a];
+    } else {
+      val = 0.f;
+      for (int q = 0; q < Q; ++q) {
+        float g = jtr[q * P + a];
+        for (int j = 0; j < P; ++j)
+          g = g + sums[q * NT + tri(a, j)] * centre[j];
+        val = val + phi[q] * g;
+      }
+      val = val + pp[a] * pm[a];
+    }
+    rhs[a] = val;
   }
-FABBER_UNROLL
-  for (int i = 0; i < P; ++i) {
+  __syncthreads();
+  coop_cholesky<P>(prec, ch);
+  coop_inverse<P>(ch, inv, cov);
+  for (int i = tid; i < P; i += kCoopThreads) {
     float m = 0.f;
-FABBER_UNROLL
     for (int j = 0; j < P; ++j) m = m + cov[tri(i, j)] * rhs[j];
     means[i] = m;
   }
+  __syncthreads();
   if constexpr (LM) {
     const float alpha = alpha_in[v];
-    if (alpha > 0.f) {
-      float damped[NT], dch[NT], x[P];
-FABBER_UNROLL
-      for (int i = 0; i < P; ++i) {
-        x[i] = g[i] + pp[i] * (pm[i] - centre[i]);
-FABBER_UNROLL
-        for (int j = 0; j <= i; ++j)
-          damped[tri(i, j)] =
-              prec[tri(i, j)] + (i == j ? alpha * prec[tri(i, i)] : 0.f);
+    if (alpha > 0.f) {   // the voxel's: the same in every thread
+      float* damped = inv;   // free once cov is formed
+      for (int e = tid; e < NT; e += kCoopThreads) {
+        int i, j;
+        untri(e, i, j);
+        damped[e] = prec[e] + (i == j ? alpha * prec[tri(i, i)] : 0.f);
       }
-      cholesky<P>(damped, 0.f, dch);
-      chol_solve<P>(dch, x);
-FABBER_UNROLL
-      for (int i = 0; i < P; ++i) means[i] = centre[i] + x[i];
+      for (int i = tid; i < P; i += kCoopThreads) {
+        float s;
+        if constexpr (FOLD) {
+          s = jtr[i];
+        } else {
+          s = 0.f;
+          for (int q = 0; q < Q; ++q) s = s + phi[q] * jtr[q * P + i];
+        }
+        x[i] = s + pp[i] * (pm[i] - centre[i]);
+      }
+      __syncthreads();
+      coop_cholesky<P>(damped, ch);
+      if (tid == 0) {
+        chol_solve<P>(ch, x);
+        for (int i = 0; i < P; ++i) means[i] = centre[i] + x[i];
+      }
+      __syncthreads();
     }
   }
 
   // ---- pass B: k = r + J (centre - means) at the centre -----------------
-  float d[P];
-FABBER_UNROLL
-  for (int i = 0; i < P; ++i) d[i] = centre[i] - means[i];
-  float nkqk[Q], ntr[Q];
-  wide_k_pass<M, Q, true>(mrow, chain, k.dt, d, col, k.nt, nkqk);
-  for (int q = 0; q < Q; ++q)
-    ntr[q] = group_trace<M, Q>(mrow, chain, k.dt, cov, col, k.nt, q);
+  for (int i = tid; i < P; i += kCoopThreads) d[i] = centre[i] - means[i];
+  coop_zero(nkqk, Q);
+  for (int t0 = 0; t0 < nt; t0 += kCoopChunk) {
+    const int nc = min(kCoopChunk, nt - t0);
+    coop_chunk<M, Q, false, true, 0>(mrow, chain, k.dt, data, qw, V, v, t0,
+                                     nc, phi, d, 0, jac, wts, res);
+    coop_kqk<Q>(nkqk, qw, res, t0, nc);
+  }
+  if constexpr (FOLD) {
+    coop_group_traces<M, Q>(mrow, chain, k.dt, data, qw, nt, V, v, cov,
+                            sums, jac, wts, res, ntr);
+  } else {
+    coop_traces<P, Q>(cov, sums, ntr);
+  }
 
-FABBER_UNROLL
-  for (int i = 0; i < P; ++i) means_out[(size_t)i * V + v] = means[i];
-  store_full<P>(prec, prec_out, V, v);
-  store_full<P>(cov, cov_out, V, v);
+  for (int i = tid; i < P; i += kCoopThreads)
+    means_out[(size_t)i * V + v] = means[i];
+  coop_store_full<P>(prec, prec_out, V, v);
+  coop_store_full<P>(cov, cov_out, V, v);
 
   // ---- pass C: free-energy quadratics at the new means ------------------
-  float fkqk[Q], ftr[Q];
   if (k.need_f) {
-    model_rows<P>(k.tcode, means, mrow, chain);
-    wide_k_pass<M, Q, false>(mrow, chain, k.dt, nullptr, col, k.nt, fkqk);
-    for (int q = 0; q < Q; ++q)
-      ftr[q] = group_trace<M, Q>(mrow, chain, k.dt, cov, col, k.nt, q);
+    for (int i = tid; i < P; i += kCoopThreads) {
+      mrow[i] = to_model(k.tcode[i], means[i]);
+      chain[i] = chain_factor(k.tcode[i], means[i]);
+    }
+    coop_zero(fkqk, Q);
+    if constexpr (!FOLD) coop_zero(sums, Q * NT);
+    for (int t0 = 0; t0 < nt; t0 += kCoopChunk) {
+      const int nc = min(kCoopChunk, nt - t0);
+      if constexpr (FOLD) {
+        coop_chunk<M, Q, false, false, 0>(mrow, chain, k.dt, data, qw, V, v,
+                                          t0, nc, phi, nullptr, 0, jac, wts,
+                                          res);
+      } else {
+        coop_chunk<M, Q, true, false, 2>(mrow, chain, k.dt, data, qw, V, v,
+                                         t0, nc, phi, nullptr, 0, jac, wts,
+                                         res);
+        coop_sums<P>(sums, nullptr, Q, jac, wts, res, nc);
+      }
+      // k^2 in place of r for the group sums
+      if (tid < nc) res[tid] = res[tid] * res[tid];
+      __syncthreads();
+      coop_kqk<Q>(fkqk, qw, res, t0, nc);
+    }
+    if constexpr (FOLD) {
+      coop_group_traces<M, Q>(mrow, chain, k.dt, data, qw, nt, V, v, cov,
+                              sums, jac, wts, res, ftr);
+    } else {
+      coop_traces<P, Q>(cov, sums, ftr);
+    }
   } else {
-FABBER_UNROLL
-    for (int q = 0; q < Q; ++q) fkqk[q] = ftr[q] = 0.f;
+    for (int q = tid; q < Q; q += kCoopThreads) fkqk[q] = ftr[q] = 0.f;
+    __syncthreads();
   }
-FABBER_UNROLL
-  for (int q = 0; q < Q; ++q) {
+  for (int q = tid; q < Q; q += kCoopThreads) {
     nkqk_out[(size_t)q * V + v] = nkqk[q];
     ntr_out[(size_t)q * V + v] = ntr[q];
     fkqk_out[(size_t)q * V + v] = fkqk[q];
@@ -501,17 +735,12 @@ inline long long iter_smem(int vb, int nt, int q) {
 
 // One instance's launch, or (occ not null) its blocks per SM: vb = 0
 // streams in blocks of kThreads, vb > 0 stages in blocks of vb lanes with
-// smem bytes of dynamic shared memory; past kFoldSums the folded form.
+// smem bytes of dynamic shared memory.
 template <class M, int Q, bool LM, bool STAGED, class HK>
 int launch_form(const HK& k, int vb, long long smem,
                 const float* const* ins, float* const* outs,
                 cudaStream_t stream, int* occ) {
-  const auto kernel = [] {
-    if constexpr (iter_folded<M, Q>)
-      return fused_vb_iter_wide_kernel<M, Q, LM, STAGED>;
-    else
-      return fused_vb_iter_kernel<M, Q, LM, STAGED>;
-  }();
+  const auto kernel = fused_vb_iter_kernel<M, Q, LM, STAGED>;
   const int threads = STAGED ? vb : kThreads;
   const int err = tile_setup(kernel, STAGED ? vb : 0, smem);
   if (err != 0) return err;
@@ -527,13 +756,42 @@ int launch_form(const HK& k, int vb, long long smem,
   return (int)cudaGetLastError();
 }
 
+// The cooperative form's launch (one voxel a block of kCoopThreads, its
+// CoopLayout in dynamic shared memory), or (occ not null) its blocks per
+// SM; it reads the plane where it is, so vb must be 0.
+template <class M, int Q, bool LM, class HK>
+int launch_coop(const HK& k, int vb, const float* const* ins,
+                float* const* outs, cudaStream_t stream, int* occ) {
+  if (vb != 0) return (int)cudaErrorInvalidValue;
+  const auto kernel = fused_vb_iter_coop_kernel<M, Q, LM>;
+  constexpr long long smem = CoopLayout<M::P, Q>::bytes;
+  const int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != 0) return err;
+  if (occ != nullptr) {
+    *occ = tile_occupancy(kernel, kCoopThreads, smem);
+    return 0;
+  }
+  kernel<<<(unsigned)k.V, kCoopThreads, smem, stream>>>(
+      params_for<M::P, Q>(k), ins[0], ins[1], ins[2], ins[3], ins[4], ins[5],
+      ins[6], outs[0], outs[1], outs[2], outs[3], outs[4], outs[5],
+      outs[6]);
+  return (int)cudaGetLastError();
+}
+
+// a unit past ops/_cuda.py rolled_loops' sizes (FABBER_ROLL_LOOPS)
+// compiles the cooperative form alone (kIterCoop), every other unit the
+// per-lane one
 template <class M, int Q, bool LM, class HK>
 int launch_lm(const HK& k, int vb, long long smem,
               const float* const* ins, float* const* outs,
               cudaStream_t stream, int* occ) {
-  if (vb > 0)
+  if constexpr (kIterCoop)
+    return launch_coop<M, Q, LM>(k, vb, ins, outs, stream, occ);
+  else if (vb > 0)
     return launch_form<M, Q, LM, true>(k, vb, smem, ins, outs, stream, occ);
-  return launch_form<M, Q, LM, false>(k, 0, 0, ins, outs, stream, occ);
+  else
+    return launch_form<M, Q, LM, false>(k, 0, 0, ins, outs, stream, occ);
 }
 
 // lm: the LM branch (alpha given); occ: see launch_form

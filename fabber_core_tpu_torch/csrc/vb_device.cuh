@@ -40,8 +40,8 @@
 // local memory, indexed by the loop counters, and nvcc's time no longer
 // grows as P^3 (a fully unrolled Cholesky, inverse and rebuild at P = 40
 // would be tens of thousands of instructions per kernel), at 25-32 times
-// the unrolled kernel's time at P = 10. Such a unit is built with -G
-// (ops/_cuda.py ROLL_FLAGS: optimized, its rolled loops came out wrong).
+// the unrolled kernel's time at P = 10. Kernel 7 past those sizes runs its
+// cooperative form (fused_vb_iter.cuh) instead.
 #if defined(FABBER_ROLL_LOOPS)
 #define FABBER_UNROLL _Pragma("unroll 1")
 #else
@@ -53,8 +53,9 @@
 // KERNEL_POLY / KERNEL_EXP codes of models/base.py). This list is the
 // one source of the C entry points' dispatch and of
 // fabber_nl_has_instance, which the engine's route gate asks. Any other
-// (functor, P, Q) up to (kWideMaxP, kWideMaxQ) is a per-shape instance,
-// built at its route's first launch (ops/_cuda.py build_instance "nl").
+// (functor, P, Q) up to (kWideMaxP, kWideMaxQ; kernel 7 kCoopMaxP) is a
+// per-shape instance, built at its route's first launch (ops/_cuda.py
+// build_instance "nl").
 #define FABBER_NL_INSTANCES(X)                                        \
   X(1, 2, ExpSum<1>, 1) X(1, 2, ExpSum<1>, 2) X(1, 2, ExpSum<1>, 3)   \
   X(1, 2, ExpSum<1>, 4) X(1, 4, ExpSum<2>, 1) X(1, 4, ExpSum<2>, 2)   \
@@ -78,12 +79,17 @@ constexpr int kMaxQ = 4;   // largest Q of FABBER_NL_INSTANCES
 // and instance_limits read these two lines): P 42 is the JAX engine's
 // kernel 8 bound (fused_nlls.py pick_nlls_block) and above its kernel 6
 // bound (39), Q 35 is a noise pattern's most groups (1-9, A-Z). Kernel 7
-// has no JAX picker; these are its cap.
+// has no JAX picker: its own bound is kCoopMaxP.
 // (a namespace of their own: the fixed-design families' sources define
 // kWideMaxP, kWideMaxQ of theirs beside `using namespace fabber`)
 namespace nl {
 constexpr int kWideMaxP = 42;
 constexpr int kWideMaxQ = 35;
+// kernel 7's own bound (its cooperative form, fused_vb_iter.cuh
+// CoopLayout; the JAX engine has no picker for it): the largest P whose
+// folded state at kWideMaxQ groups one block's shared memory holds. The
+// functors generated for kernel 7 share it.
+constexpr int kCoopMaxP = 143;
 }  // namespace nl
 // samples per block of the two-level time sums: each pass sums kTB
 // samples into block sums and adds the blocks into its totals. One
@@ -257,13 +263,21 @@ FABBER_UNROLL
   if (bad) cholesky<P>(a, 1e-10f, ch);
 }
 
-// A^-1 = L^-T L^-1 from the packed factor, into packed cov. BY_RECIP:
-// each division by L_jj a product with the 1 / L_jj already taken
-// (fewer instructions, another rounding; kernel 5's step).
+// A^-1 = L^-T L^-1 from the packed factor, into packed cov (not ch's
+// storage). BY_RECIP: each division by L_jj a product with the 1 / L_jj
+// already taken (fewer instructions, another rounding; kernel 5's step).
+// L^-1 is built in cov's storage and cov in place over it (row i, then
+// column j <= i: entry (i, j) reads L^-1 only in rows >= i and columns i
+// and j, none written yet), with no local array of its own: optimized by
+// the CUDA 12.9 toolkit (nvcc V12.9.86), a unit whose loops are rolled
+// (FABBER_ROLL_LOOPS) laid such an array's local-memory slot over the
+// caller's factor ch while both were live, and kernel 6 under trialmode
+// at P = 10 lost every lane (probes/wide_nl.py --bisect, --repair;
+// probes/csrc/inverse_local.cuh keeps that form).
 template <int P, bool BY_RECIP = false>
 __device__ __forceinline__ void inverse_from_chol(const float* ch,
                                                   float* cov) {
-  float invl[P * (P + 1) / 2];
+  float* const invl = cov;
 FABBER_UNROLL
   for (int i = 0; i < P; ++i) invl[tri(i, i)] = 1.f / ch[tri(i, i)];
 FABBER_UNROLL

@@ -218,12 +218,12 @@ class NLLSInference:
         which takes any time-local model."""
         if self.device.type != "cuda" or self.route != "nlls-kernel":
             return
-        has = nl_instantiated(self.model.kernel_model(), None)
+        has = nl_instantiated(self.model.kernel_model(), None, "nlls")
         functor = None if has else derive_time_signal_functor(
             self.model, self.nparams)
         require_card_instance(
             self.route, self.nparams, None, lambda r: has,
-            lambda r: generatable(functor, self.nparams, None))
+            lambda r: generatable(functor, self.nparams, None, "nlls"))
         if has:
             return
         from ..ops import _cuda

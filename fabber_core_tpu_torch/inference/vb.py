@@ -190,8 +190,9 @@ ROUTES = {
 # the JAX package's --engine-kernel values
 ENGINE_KERNELS = ("auto", "pallas", "pallas-loop", "pallas-whole",
                   "spectral", "spectral-whole", "xla")
-# the routes whose CUDA kernels evaluate the model through a functor
-FUNCTOR_ROUTES = ("pallas-loop-nl", "pallas")
+# the routes whose CUDA kernels evaluate the model through a functor, and
+# their kernels (ops/_cuda.py GEN_KERNELS' keys: kernel 6 and kernel 7)
+FUNCTOR_ROUTES = {"pallas-loop-nl": "nl_loop", "pallas": "vb_iter"}
 # the fixed-design routes whose kernels take (P, Q) instances
 WHOLE_ROUTES = ("pallas-whole", "pallas-loop")
 # the kernel each kernel route launches (PERF.md's numbering), and the
@@ -204,7 +205,7 @@ INSTANCE_LISTS = {4: "csrc/whole_device.cuh FABBER_WHOLE_INSTANCES",
                   6: "csrc/vb_device.cuh FABBER_NL_INSTANCES and "
                      "kWideMaxP, kWideMaxQ",
                   7: "csrc/vb_device.cuh FABBER_NL_INSTANCES and "
-                     "kWideMaxP, kWideMaxQ",
+                     "kCoopMaxP, kWideMaxQ",
                   8: "csrc/vb_device.cuh FABBER_NL_INSTANCES and "
                      "kWideMaxP"}
 # the fixed-design routes that start from the model default (a
@@ -637,8 +638,10 @@ class VBInference:
         Per-shape instances are built at the route's first launch
         (ops/_cuda.py build_instance; whole_instantiated,
         ar_instantiated, nl_instantiated). A run with none (kernel 7
-        past csrc/vb_device.cuh kWideMaxP, kWideMaxQ) raises here
-        (require_card_instance), before anything is built or launched.
+        past csrc/vb_device.cuh kCoopMaxP, the largest P whose state its
+        cooperative form's block holds in shared memory, or Q past
+        kWideMaxQ) raises here (require_card_instance), before anything
+        is built or launched.
         On "cpu" the routes run their plain versions, which take any
         shape."""
         if self.device.type != "cuda":
@@ -652,13 +655,13 @@ class VBInference:
             if r in WHOLE_ROUTES:
                 return whole_instantiated(p, nq)
             return self.generic is None and nl_instantiated(
-                self.model.kernel_model(), nq)
+                self.model.kernel_model(), nq, FUNCTOR_ROUTES[r])
 
         def functor_ok(r):
             if r not in FUNCTOR_ROUTES or (r == "pallas"
                                            and self.generic is not None):
                 return False
-            return generatable(self._gen_functor, p, nq)
+            return generatable(self._gen_functor, p, nq, FUNCTOR_ROUTES[r])
         require_card_instance(route, p, nq, has_instance, functor_ok)
         self._require_functor(route)
 
@@ -679,9 +682,9 @@ class VBInference:
         nq = self.noise.nphis
         if route not in FUNCTOR_ROUTES or (
                 self.generic is None and nl_instantiated(
-                    self.model.kernel_model(), nq)):
+                    self.model.kernel_model(), nq, FUNCTOR_ROUTES[route])):
             return
-        kernel = "nl_loop" if route == "pallas-loop-nl" else "vb_iter"
+        kernel = FUNCTOR_ROUTES[route]
         functor = self._gen_functor
         functor.libs[(kernel, nq)] = _cuda.build_generated(
             functor.source, self.nparams, nq, kernel)
@@ -1622,12 +1625,14 @@ def _no_voxel_data(key):
     raise KeyError(key)
 
 
-def generatable(functor, nparams, nq):
-    """True where a functor generated from a model can serve a kernel on
-    the card: one was generated (functor not None; the generator refuses
-    some ops) and P, Q (None for the NLLS kernel, which has no noise
-    groups) lie within csrc/vb_device.cuh's kWideMaxP, kWideMaxQ."""
-    max_p, max_q = _cuda.gen_limits()
+def generatable(functor, nparams, nq, kernel):
+    """True where a functor generated from a model can serve kernel
+    (ops/_cuda.py GEN_KERNELS: "nl_loop", "vb_iter", "nlls") on the card:
+    one was generated (functor not None; the generator refuses some ops)
+    and P, Q (None for the NLLS kernel, which has no noise groups) lie
+    within csrc/vb_device.cuh's kWideMaxP (kernel 7: kCoopMaxP),
+    kWideMaxQ."""
+    max_p, max_q = _cuda.gen_limits(kernel)
     return functor is not None and nparams <= max_p and (nq or 1) <= max_q
 
 
@@ -1647,12 +1652,20 @@ def require_card_instance(route, p, q, has_instance, functor_ok):
     shape = f"P={p}" + ("" if q is None else f", Q={q}")
     gen = (", and no functor can be generated from the model (P, Q above "
            "csrc/vb_device.cuh kWideMaxP, kWideMaxQ, or an op the "
-           "generator lacks)" if kernel in (6, 7, 8) else "")
+           "generator lacks)" if kernel in (6, 8) else "")
+    if kernel == 7:
+        max_p, max_q = _cuda.instance_limits("nl", "vb_iter")
+        gen = (f": its cooperative form holds a voxel's state in one "
+               f"block's shared memory, 227 KB, which bounds P at {max_p} "
+               f"(csrc/vb_device.cuh kCoopMaxP; Q at {max_q}, kWideMaxQ), "
+               "for a generated functor too" if p > max_p or q > max_q
+               else ", and no functor can be generated from the model (an "
+               "op the generator lacks)")
     raise NotImplementedError(
         f"no ({shape}) instance of kernel {kernel} "
         f"({INSTANCE_LISTS[kernel]}){gen}, so the '{route}' route cannot run "
-        "this on the card, where the JAX engine runs its kernel (ROADMAP "
-        "Queue 3 item 28); device='cpu' runs the route's plain version")
+        "this on the card, where the JAX engine runs its kernel; "
+        "device='cpu' runs the route's plain version")
 
 
 def supp_plane(suppdata, nvoxels, dtype, device):

@@ -334,6 +334,9 @@ extern "C" int fabber_gen_vb_iter_occupancy(int lm, int vb, int nt) {{
   if (smem < 0) return -1;
   return occupancy<GenModel, {q}>(lm != 0, vb, smem);
 }}
+
+// 1 where this library compiled the cooperative form (kIterCoop), else 0
+extern "C" int fabber_gen_vb_iter_coop() {{ return kIterCoop ? 1 : 0; }}
 """
 
 # the C entry points of kernel 8 at the functor's P, every mode, with and
@@ -421,20 +424,18 @@ def generated_source(source, p, q, kernel="nl_loop"):
             + body.format(p=p, q=q))
 
 
-def _gen_flags(kernel, p=1, q=1):
+def _gen_flags(kernel):
     """nvcc's flags of a generated build: NVCC_FLAGS and those of the
     kernel's own source (kernel 8's -fmad=false, so its fresh and
-    two-phase modes compute the same bits there too), and ROLL_FLAGS
-    past rolled_loops' sizes."""
-    return NVCC_FLAGS + SOURCE_FLAGS.get(GEN_KERNELS[kernel][3], []) + (
-        ROLL_FLAGS if rolled_loops(p, q or 1) else [])
+    two-phase modes compute the same bits there too)."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(GEN_KERNELS[kernel][3], [])
 
 
 def generated_key(source, p, q, kernel="nl_loop"):
     """The hash naming a generated functor's build: its .cu (source,
     kernel template, P, Q), the headers and the flags."""
     h = hashlib.sha256(generated_source(source, p, q, kernel).encode())
-    h.update(" ".join(_gen_flags(kernel, p, q)).encode())
+    h.update(" ".join(_gen_flags(kernel)).encode())
     for name in HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -449,57 +450,58 @@ def _header_consts(names, header="vb_device.cuh"):
 
 
 @functools.cache
-def gen_limits():
-    """(kWideMaxP, kWideMaxQ): the largest P and Q of a generated model
-    functor, read from csrc/vb_device.cuh, the header its kernels compile
-    with (past kMaxP or kMaxQ the per-shape instances' body: kernel 7's
-    folded form past its kFoldSums, rolled loops past rolled_loops'
-    sizes)."""
-    return _header_consts(("kWideMaxP", "kWideMaxQ"))
+def gen_limits(kernel="nl_loop"):
+    """(largest P, largest Q) of a model functor generated for kernel
+    (GEN_KERNELS), read from csrc/vb_device.cuh, the header its kernels
+    compile with: kWideMaxP, kWideMaxQ, and for kernel 7 ("vb_iter") its
+    cooperative form's kCoopMaxP (past kMaxP or kMaxQ the per-shape
+    instances' body: rolled loops past rolled_loops' sizes, where kernel 7
+    takes its cooperative form)."""
+    return _header_consts(
+        ("kCoopMaxP" if kernel == "vb_iter" else "kWideMaxP", "kWideMaxQ"))
 
 
 # the largest P, and per-group sums Q P(P+1)/2, of a nonlinear unit built
-# with its loops unrolled (rolled_loops). Unrolled, exp num-exps 5 (P =
-# 10) ran kernel 6 in 52.1-53.3 ms, 7 in 12.8-13.1 and 8 in 287.4-287.7 at
-# 4,000,000 voxels, T=100; rolled, 1,418.9-1,421.0, 276.7-277.6 and
-# 9,296.2-9,302.6 (NVIDIA H100 80GB HBM3, 700 W; probes/wide_nl.py
-# --unrolled), nvcc 10.9-30.8 s a unit unrolled.
+# with its loops unrolled (rolled_loops); past them kernel 7 takes its
+# cooperative form. Unrolled, exp num-exps 5 (P = 10) ran kernel 6 in
+# 52.1-53.3 ms, 7 in 12.8-13.1 and 8 in 287.4-287.7 at 4,000,000 voxels,
+# T=100; rolled, 1,418.9-1,421.0, 276.7-277.6 and 9,296.2-9,302.6 (NVIDIA
+# H100 80GB HBM3, 700 W; probes/wide_nl.py --rolled), nvcc 10.9-30.8 s a
+# unit unrolled.
 ROLL_P = 16
 ROLL_SUMS = 600
 
 
 def rolled_loops(p, q=1):
     """True where a unit of kernels 6-8 at (P, Q) (a per-shape instance
-    or a generated functor) is built with FABBER_ROLL_LOOPS
-    (csrc/vb_device.cuh FABBER_UNROLL): past ROLL_P, or past ROLL_SUMS
-    per-group sums J'Q_qJ. Unrolled, a lane's packed state is the
-    registers' (and ptxas's spills, at static offsets) and nvcc's time
-    grows as P^3; rolled, local memory indexed by the loop counters, 25-32
-    times slower at P = 10, and nvcc's time that of P = 1."""
+    or a generated functor; kernel 8 at Q = 1) is built with
+    FABBER_ROLL_LOOPS (csrc/vb_device.cuh FABBER_UNROLL): past ROLL_P, or
+    past ROLL_SUMS per-group sums J'Q_qJ. Unrolled, a lane's packed state
+    is the registers' (and ptxas's spills, at static offsets) and nvcc's
+    time grows as P^3; rolled, local memory indexed by the loop counters,
+    25-32 times slower at P = 10, and nvcc's time that of P = 1. Kernel 7
+    compiles its cooperative form in such a unit, and says so
+    (vb_iter_coop)."""
     return p > ROLL_P or q * p * (p + 1) // 2 > ROLL_SUMS
+
+
+def vb_iter_coop(kind, p, nq, lib=None):
+    """True where kernel 7's unit compiled its cooperative form
+    (csrc/fused_vb_iter.cuh kIterCoop: fused_vb_iter_coop_kernel, a warp
+    per voxel with its state in shared memory, which takes vb 0), as the
+    unit says: the per-shape instance of the functor kind at (P, Q)
+    (fabber_inst_vb_iter_coop), or lib, a generated functor's library
+    (fabber_gen_vb_iter_coop). The prebuilt library's instances are per
+    lane."""
+    if lib is not None:
+        return bool(lib.fabber_gen_vb_iter_coop())
+    if has_nl_instance(kind, p, nq):
+        return False
+    return bool(_nl_entry(kind, p, nq, "vb_iter_coop")[0]())
 
 
 def _roll_define(p, q):
     return "#define FABBER_ROLL_LOOPS\n" if rolled_loops(p, q) else ""
-
-
-# nvcc's flags on top of a rolled unit's (FABBER_ROLL_LOOPS): its device
-# code unoptimized. Optimized, the rolled loops came out wrong on an NVIDIA
-# H100 80GB HBM3 with the card machine's CUDA toolkit: kernel 6 under
-# trialmode at P = 10 and kernel 7's folded form at P = 24, Q = 4 gave
-# non-finite means in every lane, where the same units unrolled, or rolled
-# with -G, agree with their plain versions; -Xptxas -O0 and -O1, -Xcicc
-# -O1 and -O2 and -G -dopt on did not repair both (probes/wide_nl.py
-# --flags), and the same C++ at double on the host is right under
-# AddressSanitizer and UndefinedBehaviorSanitizer.
-ROLL_FLAGS = ["-G"]
-
-
-def _unit_flags(source, text):
-    """nvcc's flags of a unit (SOURCE_FLAGS' beside NVCC_FLAGS), with
-    ROLL_FLAGS where its text defines FABBER_ROLL_LOOPS."""
-    return SOURCE_FLAGS.get(source, []) + (
-        ROLL_FLAGS if "#define FABBER_ROLL_LOOPS" in text else [])
 
 
 def build_generated(source, p, q, kernel="nl_loop"):
@@ -512,11 +514,12 @@ def build_generated(source, p, q, kernel="nl_loop"):
     stderr when the build fails. gen_build_log[hash] keeps the build's
     seconds and nvcc's output (ptxas's register and spill lines; the
     seconds are nan where an earlier process built the library)."""
-    max_p, max_q = gen_limits()
+    max_p, max_q = gen_limits(kernel)
     if not 1 <= p <= max_p or not 1 <= (q or 1) <= max_q:
-        raise FabberError(f"a generated functor takes P <= {max_p} and Q "
-                          f"<= {max_q}, not P={p}, Q={q} "
-                          "(csrc/vb_device.cuh kWideMaxP, kWideMaxQ)")
+        raise FabberError(f"a functor generated for {kernel!r} takes P <= "
+                          f"{max_p} and Q <= {max_q}, not P={p}, Q={q} "
+                          "(csrc/vb_device.cuh kWideMaxP or kernel 7's "
+                          "kCoopMaxP, kWideMaxQ)")
     if (q is None) != (kernel == "nlls"):
         raise ValueError(f"kernel {kernel!r} with q={q!r}: the NLLS kernel "
                          "takes no Q, the VB kernels one")
@@ -534,7 +537,7 @@ def build_generated(source, p, q, kernel="nl_loop"):
         tmp_src.write_text(cu)
         os.replace(tmp_src, src)
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc, *_gen_flags(kernel, p, q), "-I", str(CSRC), "-shared",
+        cmd = [nvcc, *_gen_flags(kernel), "-I", str(CSRC), "-shared",
                "-o", str(tmp), str(src)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -565,6 +568,8 @@ def build_generated(source, p, q, kernel="nl_loop"):
         lib.fabber_gen_vb_iter.restype = i32
         lib.fabber_gen_vb_iter_occupancy.argtypes = [i32, i32, i32]
         lib.fabber_gen_vb_iter_occupancy.restype = i32
+        lib.fabber_gen_vb_iter_coop.argtypes = []
+        lib.fabber_gen_vb_iter_coop.restype = i32
     else:
         lib.fabber_gen_nlls.argtypes = [vp, vp, i32, i32, i32, f32] + [
             vp] * 4 + [i32, i64] + [vp] * 6 + [i32, vp]
@@ -581,7 +586,9 @@ def build_generated(source, p, q, kernel="nl_loop"):
 # FABBER_INST_P (and FABBER_INST_Q; the nonlinear family also
 # FABBER_INST_KIND, its functor, and past rolled_loops' sizes
 # FABBER_ROLL_LOOPS) defined into entry points of its own names
-# (fabber_inst_*), for that one shape.
+# (fabber_inst_*), for that one shape. The nonlinear family builds one
+# unit at a time: the source of the one kernel (GEN_KERNELS' key) a launch
+# asks for.
 INSTANCE_FAMILIES = {
     "spectral": (("spectral_stats.cu", "spectral_core.cu",
                   "spectral_fused.cu"), "spectral_device.cuh"),
@@ -601,12 +608,20 @@ _INST_HEAD = """// generated by fabber_core_tpu_torch/ops/_cuda.py build_instanc
 # the functor of a nonlinear instance (FABBER_INST_KIND): models/base.py's
 # KERNEL_POLY and KERNEL_EXP codes
 NL_KINDS = {0: "PolyModel", 1: "ExpSum"}
+# the nonlinear family's kernels (GEN_KERNELS' keys: "nl_loop" kernel 6,
+# "vb_iter" kernel 7, "nlls" kernel 8) and the entry points of each one's
+# unit
+NL_ENTRIES = {"nl_loop": ("fused_nl_loop", "nl_occupancy"),
+              "vb_iter": ("fused_vb_iter", "vb_iter_occupancy",
+                          "vb_iter_coop"),
+              "nlls": ("fused_nlls", "nlls_occupancy")}
 
 
 @functools.cache
-def instance_limits(family):
+def instance_limits(family, kernel=None):
     """(largest P, largest Q) of a per-shape instance of family, read
-    from the csrc file that fixes them (kWideMaxP; kWideMaxQ, or kernel
+    from the csrc file that fixes them (kWideMaxP, or kernel 7's
+    kCoopMaxP for the nonlinear kernel "vb_iter"; kWideMaxQ, or kernel
     9's kAMaxQ; the spectral family has one noise group)."""
     text = (CSRC / INSTANCE_FAMILIES[family][1]).read_text()
 
@@ -616,54 +631,66 @@ def instance_limits(family):
     max_q = {"spectral": lambda: 1, "whole": lambda: const("kWideMaxQ"),
              "ar": lambda: const("kAMaxQ"),
              "nl": lambda: const("kWideMaxQ")}[family]()
-    return const("kWideMaxP"), max_q
+    return const("kCoopMaxP" if kernel == "vb_iter"
+                 else "kWideMaxP"), max_q
 
 
-def instance_buildable(family, p, q=1, kind=None):
-    """True where build_instance can compile family at (P, Q): within
-    instance_limits; the spectral and AR families past the prebuilt
-    library's P (every smaller shape is prebuilt there); the nonlinear
-    family for a functor kind of NL_KINDS (an exp sum at even P) at any
-    shape (the library serves its prebuilt ones)."""
-    max_p, max_q = instance_limits(family)
+def instance_buildable(family, p, q=1, kind=None, kernel=None):
+    """True where build_instance can compile family (the nonlinear one's
+    kernel) at (P, Q): within instance_limits; the spectral and AR families
+    past the prebuilt library's P (every smaller shape is prebuilt there);
+    the nonlinear family for a functor kind of NL_KINDS (an exp sum at
+    even P) at any shape (the library serves its prebuilt ones)."""
+    max_p, max_q = instance_limits(family, kernel)
     if family == "nl" and (kind not in NL_KINDS or (kind == 1 and p % 2)):
         return False
     low = 1 if family in ("whole", "nl") else 9
     return low <= p <= max_p and 1 <= q <= max_q
 
 
-def instance_sources(family, p, q=1, kind=None):
+def instance_sources(family, p, q=1, kind=None, kernel=None):
     """{unit name: .cu text} of family's per-shape instance at (P, Q) (and
     functor kind, the nonlinear family's): one small unit per source of
-    the family, defining the shape and including the source."""
+    the family (of the nonlinear family the source of the one kernel
+    asked for, NL_ENTRIES; kernel 8's at Q = 1), defining the shape and
+    including the source."""
+    stems = [Path(src).stem for src in INSTANCE_FAMILIES[family][0]]
+    if family == "nl":
+        if kernel not in NL_ENTRIES:
+            raise ValueError(f"a nonlinear kernel of {tuple(NL_ENTRIES)}, "
+                             f"not {kernel!r}")
+        # kernel 8 has no noise groups
+        stems = [Path(GEN_KERNELS[kernel][3]).stem]
+        q = 1 if kernel == "nlls" else q
     qtext = "" if family == "spectral" else f", Q = {q}"
     qdef = "" if family == "spectral" else f"#define FABBER_INST_Q {q}\n"
     if family == "nl":
         qtext += f", {NL_KINDS[kind]}"
         qdef += f"#define FABBER_INST_KIND {kind}\n" + _roll_define(p, q)
-    return {Path(src).stem: _INST_HEAD.format(source=src, p=p, qtext=qtext,
-                                              qdef=qdef)
-            for src in INSTANCE_FAMILIES[family][0]}
+    return {stem: _INST_HEAD.format(source=f"{stem}.cu", p=p, qtext=qtext,
+                                    qdef=qdef)
+            for stem in stems}
 
 
-def instance_key(family, p, q=1, kind=None):
-    """The hash naming a per-shape build: its units (family, shape), the
+def instance_key(family, p, q=1, kind=None, kernel=None):
+    """The hash naming a per-shape build: its units (family, shape; the
+    nonlinear family's kernel, kind, P and Q, Q dropped for kernel 8), the
     family's sources and every header, and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
-    for name, text in sorted(instance_sources(family, p, q,
-                                              kind).items()):
+    for name, text in sorted(instance_sources(family, p, q, kind,
+                                              kernel).items()):
         h.update(name.encode())
         h.update(text.encode())
-        h.update(" ".join(_unit_flags(f"{name}.cu", text)).encode())
     for name in INSTANCE_FAMILIES[family][0] + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-# argtypes of the per-shape entry points
-def _inst_argtypes(lib, family):
+# argtypes of the per-shape entry points (of the nonlinear family, those
+# of the kernel's unit)
+def _inst_argtypes(lib, family, kernel=None):
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_float)
     if family == "spectral":
@@ -689,10 +716,13 @@ def _inst_argtypes(lib, family):
                 i32, i32, i32, vp, f32, i32, vp, vp, vp, vp, vp, vp, vp, i32,
                 i64] + [vp] * 7 + [i32, vp],
             "fabber_inst_vb_iter_occupancy": [i32] * 6,
+            "fabber_inst_vb_iter_coop": [],
             "fabber_inst_fused_nlls": [
                 i32, i32, vp, f32, vp, i32, i32, i32, f32, vp, vp, vp, vp,
                 i32, i64] + [vp] * 6 + [i32, vp],
             "fabber_inst_nlls_occupancy": [i32] * 6}
+        entries = {f"fabber_inst_{e}": entries[f"fabber_inst_{e}"]
+                   for e in NL_ENTRIES[kernel]}
     elif family == "whole":
         entries = {
             "fabber_inst_fused_whole": [i32, i32, i32, f32, vp, i32, f32, i32,
@@ -713,14 +743,16 @@ def _inst_argtypes(lib, family):
         fn.restype = i32
 
 
-def build_instance(family, p, q=1, kind=None):
+def build_instance(family, p, q=1, kind=None, kernel=None):
     """Build (once per family, shape, sources, headers and flags) and load
     the per-shape instance of family ("spectral": kernels 1, 2 and 3 at P
     9-25; "whole": kernels 4 and 5 at any (P, Q) up to (20, 4); "ar":
-    kernel 9 at P 9-16, nq 1-2; "nl": kernels 6, 7 and 8 with the
-    functor kind (NL_KINDS) at any (P, Q) up to (42, 35), kernel 8 at P;
-    instance_limits): writes one small .cu
-    per source of the family into build/kernels/inst/ (instance_sources),
+    kernel 9 at P 9-16, nq 1-2; "nl": the unit of one kernel of
+    NL_ENTRIES, 6, 7 or 8, with the functor kind (NL_KINDS) at any (P, Q)
+    up to (42, 35),
+    kernel 7 up to (143, 35), kernel 8 at P; instance_limits): writes one
+    small .cu per source of the family (of "nl" the unit's) into
+    build/kernels/inst/ (instance_sources),
     compiles them with nvcc for sm_90a, one process each, all started
     together, and links them into libfabber_inst_<hash>.so (a temporary
     file, then os.replace), loaded with its own ctypes.CDLL. Returns the
@@ -729,11 +761,12 @@ def build_instance(family, p, q=1, kind=None):
     nvcc's output (a "== unit (nvcc S s)" head per unit, then ptxas's
     register and spill lines; the seconds are nan where an earlier
     process built the library)."""
-    if not instance_buildable(family, p, q, kind):
+    if not instance_buildable(family, p, q, kind, kernel):
         raise FabberError(f"no per-shape {family} instance at P={p}, Q={q}"
                           + ("" if kind is None else f", kind {kind}")
-                          + f" (limits {instance_limits(family)})")
-    key = instance_key(family, p, q, kind)
+                          + ("" if kernel is None else f", kernel {kernel}")
+                          + f" (limits {instance_limits(family, kernel)})")
+    key = instance_key(family, p, q, kind, kernel)
     if key in _inst_libs:
         return _inst_libs[key]
     idir = BUILD_DIR / "inst"
@@ -741,13 +774,14 @@ def build_instance(family, p, q=1, kind=None):
     if not out.exists():
         idir.mkdir(parents=True, exist_ok=True)
         units = []
-        for stem, text in instance_sources(family, p, q, kind).items():
+        for stem, text in instance_sources(family, p, q, kind,
+                                           kernel).items():
             src = idir / f"{key}.{stem}.cu"
             tmp_src = src.with_suffix(f".tmp{os.getpid()}.cu")
             tmp_src.write_text(text)
             os.replace(tmp_src, src)
-            units.append((f"{stem}.cu", src, _unit_flags(f"{stem}.cu",
-                                                         text)))
+            units.append((f"{stem}.cu", src,
+                          SOURCE_FLAGS.get(f"{stem}.cu", [])))
         t0 = time.perf_counter()
         try:
             log = _compile_link(units, out)
@@ -759,14 +793,14 @@ def build_instance(family, p, q=1, kind=None):
     elif key not in inst_build_log:
         inst_build_log[key] = (float("nan"), _kept_log(out))
     lib = ctypes.CDLL(str(out))
-    _inst_argtypes(lib, family)
+    _inst_argtypes(lib, family, kernel)
     _inst_libs[key] = lib
     return lib
 
 
 def build_instances(shapes, with_library=True):
     """Build the per-shape instances shapes ((family, p, q) each, and the
-    functor kind for "nl") and, with
+    functor kind and kernel for "nl") and, with
     with_library, the prebuilt library, concurrently (a thread per build,
     each waiting on its nvcc processes). Returns {shape: library}; the
     first failure raises once all have ended."""
@@ -1041,9 +1075,10 @@ def launch_nl_loop(km, nq, tcodes, n_iters, need_f, locked_sd, consts,
 def launch_vb_iter(km, nq, tcodes, need_f, centre, pm, pp, phi, data, qw,
                    alpha, outs, vb):
     """alpha: the lm detector's [V] damping (the LM branch) or None; vb:
-    0 streamed, > 0 staged in blocks of vb lanes (launch_vb). A (kind, P,
-    Q) outside FABBER_NL_INSTANCES launches its per-shape instance (the
-    folded form past its kFoldSums); returns True then."""
+    0 streamed, > 0 staged in blocks of vb lanes (launch_vb; 0 for the
+    cooperative form, vb_iter_coop). A (kind, P, Q) outside
+    FABBER_NL_INSTANCES launches its per-shape instance (the cooperative
+    form past rolled_loops' sizes); returns True then."""
     nt, nv = data.shape
     with torch.cuda.device(data.device):
         fn, inst = _nl_entry(km.kind, km.nparams, nq, "fused_vb_iter")
@@ -1089,12 +1124,13 @@ def _nl_entry(kind, p, nq, name):
     """(the C entry point name of kernel 6, 7 or 8 (nq None) for the
     functor kind at (P, Q), whether it is a per-shape instance's): the
     prebuilt library's where FABBER_NL_INSTANCES holds the shape, else
-    the per-shape instance's (build_instance "nl", built at its first
-    use; kernel 8 at Q = 1)."""
+    the per-shape instance's (build_instance "nl" of the one unit whose
+    entry point it is, built at its first use; kernel 8 at Q = 1)."""
     if (has_nl_instance(kind, p, nq) if nq is not None
             else has_nlls_instance(kind, p)):
         return getattr(load(), f"fabber_{name}"), False
-    lib = build_instance("nl", p, nq or 1, kind)
+    kernel = next(k for k, names in NL_ENTRIES.items() if name in names)
+    lib = build_instance("nl", p, nq or 1, kind, kernel)
     return getattr(lib, f"fabber_inst_{name}"), True
 
 
@@ -1104,7 +1140,7 @@ def nl_occupancy(kind, p, nq, mode, vb, nt):
     samples (cudaOccupancyMaxActiveBlocksPerMultiprocessor; a per-shape
     instance built if need be); -1 where refused."""
     if not (has_nl_instance(kind, p, nq)
-            or instance_buildable("nl", p, nq, kind)):
+            or instance_buildable("nl", p, nq, kind, "nl_loop")):
         return -1
     return int(_nl_entry(kind, p, nq, "nl_occupancy")[0](
         kind, p, nq, mode, vb, nt))
@@ -1131,9 +1167,10 @@ def loop_occupancy(p, nq):
 def vb_iter_occupancy(kind, p, nq, lm, vb, nt):
     """Blocks per SM of kernel 7's (kind, P, Q) instance, with or without
     its LM branch, in form vb at nt samples (nl_occupancy's rule past the
-    prebuilt list); -1 where refused."""
+    prebuilt list; the cooperative form, vb_iter_coop, at vb = 0 only);
+    -1 where refused."""
     if not (has_nl_instance(kind, p, nq)
-            or instance_buildable("nl", p, nq, kind)):
+            or instance_buildable("nl", p, nq, kind, "vb_iter")):
         return -1
     return int(_nl_entry(kind, p, nq, "vb_iter_occupancy")[0](
         kind, p, nq, int(lm), vb, nt))
@@ -1161,8 +1198,8 @@ def nlls_occupancy(kind, p, mode, marquardt, vb, nt):
     phase 1, 2 resume), with or without Marquardt damping, in form vb at
     nt samples (nl_occupancy's rule past the prebuilt list); -1 where
     refused."""
-    if not (has_nlls_instance(kind, p) or instance_buildable("nl", p, 1,
-                                                             kind)):
+    if not (has_nlls_instance(kind, p)
+            or instance_buildable("nl", p, 1, kind, "nlls")):
         return -1
     return int(_nl_entry(kind, p, None, "nlls_occupancy")[0](
         kind, p, mode, int(marquardt), vb, nt))

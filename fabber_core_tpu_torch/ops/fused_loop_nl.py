@@ -257,7 +257,7 @@ def fused_nl_loop(model, transforms, centre0, prior_means, prior_prec, data,
     p, nv = centre0.shape
     nq = len(qmasks)
     if functor is None:
-        km, tcodes = kernel_args(model, transforms, nq, dev)
+        km, tcodes = kernel_args(model, transforms, nq, dev, "nl_loop")
     else:
         tcodes = functor_codes(functor, transforms)
     nt = data.shape[0]

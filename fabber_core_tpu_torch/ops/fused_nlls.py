@@ -262,7 +262,7 @@ def fused_nlls_loop(model, transforms, params0, data, tmask, max_its,
     nt = data.shape[0]
     if functor is None:
         km = model.kernel_model()
-        if not nl_instantiated(km, None):
+        if not nl_instantiated(km, None, "nlls"):
             raise ValueError(f"no CUDA NLLS kernel instantiation for model "
                              f"{getattr(model, 'name', model)} ({km})")
         npar = km.nparams

@@ -31,9 +31,10 @@ counts kernel launches (never plain calls), ``lm_launches`` those with
 the LM branch, ``staged_launches`` those in the staged form,
 ``generated_launches`` those with a generated functor,
 ``instance_launches`` those of a per-shape instance (ops/_cuda.py
-build_instance "nl"; past csrc/fused_vb_iter.cuh kFoldSums per-group
-sums its folded form: the groups folded into one weighted sum for the
-solve, a pass per group for its trace).
+build_instance "nl"), ``coop_launches`` those of the cooperative form
+(csrc/fused_vb_iter.cuh fused_vb_iter_coop_kernel: a per-shape or
+generated unit past ops/_cuda.py rolled_loops' sizes, one warp per voxel
+with its state in shared memory, up to kCoopMaxP).
 
 block_eval is make_block_eval's counterpart: the model's analytic
 time_signal_jac in model space times the per-parameter chain factor
@@ -66,14 +67,16 @@ def kernel_instantiated(kmodel, nq):
     return _cuda.has_nl_instance(kmodel.kind, kmodel.nparams, nq)
 
 
-def nl_instantiated(kmodel, nq):
-    """True when kernels 6 and 7 (nq groups) or kernel 8 (nq None) can run
-    this model functor (a KernelModel, or None for a model without one)
-    on the card: the prebuilt library holds it (kernel_instantiated, and
-    fused_nlls.py nlls_instantiated), or a per-shape instance can be built
-    at the route's first launch (ops/_cuda.py build_instance "nl": any
-    (P, Q) up to csrc/vb_device.cuh kWideMaxP, kWideMaxQ, an exp sum at
-    even P). Nothing is built here."""
+def nl_instantiated(kmodel, nq, kernel):
+    """True when kernel ("nl_loop", kernel 6, or "vb_iter", 7, at nq
+    groups; "nlls", 8, nq None: ops/_cuda.py GEN_KERNELS' keys) can run this
+    model functor (a KernelModel, or None for a model without one) on the
+    card: the prebuilt library holds it (kernel_instantiated, and
+    fused_nlls.py nlls_instantiated), or the kernel's per-shape unit can
+    be built at the route's first launch (ops/_cuda.py build_instance
+    "nl": any (P, Q) up to csrc/vb_device.cuh kWideMaxP, kWideMaxQ, kernel
+    7 up to its kCoopMaxP, an exp sum at even P). Nothing is built
+    here."""
     if kmodel is None:
         return False
     from . import _cuda
@@ -81,7 +84,7 @@ def nl_instantiated(kmodel, nq):
                 if nq is not None
                 else _cuda.has_nlls_instance(kmodel.kind, kmodel.nparams))
     return prebuilt or _cuda.instance_buildable(
-        "nl", kmodel.nparams, nq or 1, kmodel.kind)
+        "nl", kmodel.nparams, nq or 1, kmodel.kind, kernel)
 
 
 def signal_jac_fn(model):
@@ -356,13 +359,14 @@ def functor_codes(functor, transforms):
     return [TRANSFORM_CODES[tr.code] for tr in transforms]
 
 
-def kernel_args(model, transforms, nq, device):
-    """(KernelModel, transform codes) for a launch; raises when the
-    kernels have no instantiation for it."""
+def kernel_args(model, transforms, nq, device, kernel):
+    """(KernelModel, transform codes) for a launch of kernel ("nl_loop"
+    or "vb_iter", nl_instantiated); raises when the kernel has no
+    instantiation for it."""
     if device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {device}")
     km = model.kernel_model()
-    if not nl_instantiated(km, nq):
+    if not nl_instantiated(km, nq, kernel):
         raise ValueError(f"no CUDA kernel instantiation for model "
                          f"{getattr(model, 'name', model)} ({km}) at "
                          f"Q={nq}")
@@ -379,6 +383,23 @@ def group_weights(qmasks, device):
     return q.t().contiguous().to(device)
 
 
+def iteration_form(model, nq, nt, functor=None, vb=None):
+    """(cooperative, vb) of kernel 7's launch on the card for the model
+    (or the generated functor) at nq groups and nt samples, as its unit
+    says (ops/_cuda.py vb_iter_coop asks the per-shape instance or the
+    functor's library): the cooperative form, which reads the plane where
+    it is (vb 0, whatever vb forces), or the per-lane form at
+    ops/_cuda.py launch_vb's vb (or the forced one)."""
+    from . import _cuda
+    if functor is not None:
+        coop = _cuda.vb_iter_coop(None, functor.nparams, nq,
+                                  generated_lib(functor, "vb_iter", nq))
+    else:
+        km = model.kernel_model()
+        coop = _cuda.vb_iter_coop(km.kind, km.nparams, nq)
+    return (True, 0) if coop else (False, _cuda.launch_vb(nt, nq, vb))
+
+
 def fused_iteration(model, transforms, centre, prior_means, prior_prec,
                     phi, data, qmasks, need_f, lm_alpha=None, functor=None,
                     _vb=None):
@@ -390,8 +411,9 @@ def fused_iteration(model, transforms, centre, prior_means, prior_prec,
     generated from the model's time_signal, whose kernel the card
     launches from functor.libs[("vb_iter", Q)] (on the CPU the plain
     version differentiates the time_signal itself). _vb: private, for
-    the tests and chip_smoke.py: forces the kernel's form (0 streamed,
-    > 0 staged in blocks of that many lanes; ops/_cuda.py launch_vb)."""
+    the tests and chip_smoke.py: forces the per-lane kernel's form (0
+    streamed, > 0 staged in blocks of that many lanes; ops/_cuda.py
+    launch_vb); the cooperative form has one (iteration_form)."""
     if centre.device.type == "cpu":
         return fused_iteration_plain(signal_jac_fn(model), transforms,
                                      centre, prior_means, prior_prec, phi,
@@ -400,7 +422,7 @@ def fused_iteration(model, transforms, centre, prior_means, prior_prec,
     p, nv = centre.shape
     nq = len(qmasks)
     if functor is None:
-        km, tcodes = kernel_args(model, transforms, nq, dev)
+        km, tcodes = kernel_args(model, transforms, nq, dev, "vb_iter")
     else:
         tcodes = functor_codes(functor, transforms)
     nt = data.shape[0]
@@ -420,7 +442,7 @@ def fused_iteration(model, transforms, centre, prior_means, prior_prec,
             out(nq, nv), out(nq, nv), out(nq, nv))
     if nv:
         from . import _cuda
-        vb = _cuda.launch_vb(nt, nq, _vb)
+        coop, vb = iteration_form(model, nq, nt, functor, _vb)
         if functor is None:
             if _cuda.launch_vb_iter(km, nq, tcodes, bool(need_f), centre,
                                     prior_means, prior_prec, phi, data, qw,
@@ -437,6 +459,8 @@ def fused_iteration(model, transforms, centre, prior_means, prior_prec,
             fused_iteration.lm_launches += 1
         if vb > 0:
             fused_iteration.staged_launches += 1
+        if coop:
+            fused_iteration.coop_launches += 1
     return outs
 
 
@@ -445,3 +469,4 @@ fused_iteration.lm_launches = 0
 fused_iteration.staged_launches = 0
 fused_iteration.generated_launches = 0
 fused_iteration.instance_launches = 0
+fused_iteration.coop_launches = 0

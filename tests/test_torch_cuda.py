@@ -175,7 +175,11 @@ WIDE_NL_MODELS = {"exp5": ({"model": "exp", "num-exps": "5"},
                   # P = 18: past ops/_cuda.py ROLL_P, its loops rolled
                   "exp9": ({"model": "exp", "num-exps": "9"},
                            [v for i in range(9)
-                            for v in (0.3, 0.2 * 1.6 ** i)])}
+                            for v in (0.3, 0.2 * 1.6 ** i)]),
+                  # P = 44: kernel 7's cooperative form
+                  "exp22": ({"model": "exp", "num-exps": "22"},
+                            [v for i in range(22)
+                             for v in (0.1, 0.2 * 1.25 ** i)])}
 # every instance of csrc/vb_device.cuh FABBER_NL_INSTANCES: the exp
 # family at Q = 1..4, poly at Q = 1, 2
 NL_CASES = [(name, nq) for name in NL_MODELS
@@ -314,23 +318,29 @@ def test_nl_instances_are_the_listed_ones(cuda):
         assert not fv.kernel_instantiated(KernelModel(KERNEL_POLY, p), 3)
     assert not fv.kernel_instantiated(KernelModel(KERNEL_POLY, 5), 1)
     # past the list, per-shape instances (none built here)
-    assert fv.nl_instantiated(KernelModel(KERNEL_EXP, 10), 1)
-    assert fv.nl_instantiated(KernelModel(KERNEL_EXP, 4), 35)
-    assert fv.nl_instantiated(KernelModel(KERNEL_POLY, 5), 3)
-    assert not fv.nl_instantiated(KernelModel(KERNEL_EXP, 44), 1)
-    assert not fv.nl_instantiated(KernelModel(KERNEL_EXP, 5), 1)
-    assert not fv.nl_instantiated(None, 1)
+    for kernel in ("nl_loop", "vb_iter"):
+        assert fv.nl_instantiated(KernelModel(KERNEL_EXP, 10), 1, kernel)
+        assert fv.nl_instantiated(KernelModel(KERNEL_EXP, 4), 35, kernel)
+        assert fv.nl_instantiated(KernelModel(KERNEL_POLY, 5), 3, kernel)
+        assert not fv.nl_instantiated(KernelModel(KERNEL_EXP, 5), 1, kernel)
+        assert not fv.nl_instantiated(None, 1, kernel)
+    # kernel 7's cooperative form to kCoopMaxP, kernel 6 to kWideMaxP
+    assert not fv.nl_instantiated(KernelModel(KERNEL_EXP, 44), 1, "nl_loop")
+    assert fv.nl_instantiated(KernelModel(KERNEL_EXP, 44), 1, "vb_iter")
+    assert not fv.nl_instantiated(KernelModel(KERNEL_EXP, 144), 1, "vb_iter")
 
 
 def test_engine_on_card_refuses_runs_without_an_instance(cuda):
     """A cuda run the kernels cannot serve raises at construction, before
     any launch: it never runs plain torch on the card. Past the prebuilt
     list a per-shape instance serves kernels 6-8 (five noise groups:
-    built at the route's first launch, not at construction), so only
-    kernel 7 past its cap raises (exp num-exps 22, P = 44, where the JAX
-    picker admits no kernel 6); exp at num-exps 3 runs its hand-written
-    ExpSum<3>, and poly degree 4 with a log transform (P = 5, no
-    hand-written PolyModel<5>) a per-shape PolyModel<5> instance."""
+    built at the route's first launch, not at construction), kernel 7
+    past P = 16 in its cooperative form (exp num-exps 22, P = 44, where
+    the JAX picker admits no kernel 6), so only kernel 7 past its
+    shared-memory bound raises (exp num-exps 72, P = 144); exp at
+    num-exps 3 runs its hand-written ExpSum<3>, and poly degree 4 with a
+    log transform (P = 5, no hand-written PolyModel<5>) a per-shape
+    PolyModel<5> instance."""
     from fabber_core_tpu_torch.inference.vb import VBInference
     from fabber_core_tpu_torch.models import get_model_class
     from fabber_core_tpu_torch.options import RunOptions
@@ -341,7 +351,12 @@ def test_engine_on_card_refuses_runs_without_an_instance(cuda):
     assert eng.route == "pallas-loop-nl" and eng.functor is None
     opts = RunOptions({"model": "exp", "dt": "0.1", "noise": "white",
                        "dtype": "single", "num-exps": "22"})
-    with pytest.raises(NotImplementedError, match="kWideMaxP.*item 28"):
+    eng = VBInference(get_model_class("exp")(opts), opts, data, device=cuda)
+    assert eng.route == "pallas" and eng.functor is None
+    opts = RunOptions({"model": "exp", "dt": "0.1", "noise": "white",
+                       "dtype": "single", "num-exps": "72"})
+    with pytest.raises(NotImplementedError,
+                       match="shared memory.*bounds P at 143.*kCoopMaxP"):
         VBInference(get_model_class("exp")(opts), opts, data, device=cuda)
     for model, extra, generated in (
             ("exp", {"num-exps": "3"}, False),
@@ -370,13 +385,16 @@ def test_nl_kernels_without_f_write_zeros(cuda):
 
 
 def test_nl_wrappers_refuse_what_no_kernel_takes(cuda):
+    """No kernel takes 36 noise groups (a pattern has at most 35, csrc/
+    vb_device.cuh kWideMaxQ; fewer past the prebuilt list are per-shape
+    instances), a float64 plane, or a plane off the card."""
     from fabber_core_tpu_torch.ops import fused_vb as fv
     c = nl_inputs("exp", 1, 64, cuda)
-    q5 = np.ones((5, 40)) / 5
+    q36 = np.ones((36, 40)) / 36
     with pytest.raises(ValueError, match="instantiation"):
         fv.fused_iteration(c["model"], c["tr"], c["centre"], c["pm"],
-                           c["pp"], torch.ones((5, 64), device=cuda),
-                           c["data"], q5, True)
+                           c["pp"], torch.ones((36, 64), device=cuda),
+                           c["data"], q36, True)
     with pytest.raises(TypeError):
         fv.fused_iteration(c["model"], c["tr"], c["centre"].double(),
                            c["pm"], c["pp"], c["phi"], c["data"], c["q"],
@@ -1143,9 +1161,9 @@ def test_nlls_instances_are_the_listed_ones(cuda):
     assert not fn.nlls_instantiated(None)
     # past the list, per-shape instances (none built here)
     from fabber_core_tpu_torch.ops import fused_vb as fv
-    assert fv.nl_instantiated(KernelModel(KERNEL_EXP, 10), None)
-    assert fv.nl_instantiated(KernelModel(KERNEL_POLY, 5), None)
-    assert not fv.nl_instantiated(KernelModel(KERNEL_EXP, 44), None)
+    assert fv.nl_instantiated(KernelModel(KERNEL_EXP, 10), None, "nlls")
+    assert fv.nl_instantiated(KernelModel(KERNEL_POLY, 5), None, "nlls")
+    assert not fv.nl_instantiated(KernelModel(KERNEL_EXP, 44), None, "nlls")
 
 
 def test_nlls_engine_on_card_matches_cpu(cuda):
@@ -2756,12 +2774,13 @@ WIDE_NL_CASES = [("exp5", 1), ("biexp", 6), ("exp", 5), ("exp9", 1)]
                          ids=[f"{n}-Q{q}" for n, q in WIDE_NL_CASES])
 def test_nl_instances_match_plain(cuda, name, nq):
     """Shapes past the prebuilt list (exp num-exps 5 at Q = 1, biexp at Q
-    = 6 and exp at Q = 5, unrolled; exp num-exps 9 at Q = 1, P = 18, its
-    loops rolled and built with ops/_cuda.py ROLL_FLAGS): kernel 6 over 3
-    iterations with F and kernel 7 over one, plain and LM, each launch a
-    per-shape instance, held to the plain version at float64
-    (assert_near_f64; the covariance's worst lane at P = 10 too, as both
-    float32 implementations carry the inverse's conditioning)."""
+    = 6 and exp at Q = 5, unrolled; exp num-exps 9 at Q = 1, P = 18, kernel
+    6's loops rolled and kernel 7's cooperative form, built optimized):
+    kernel 6 over 3 iterations with F and kernel 7 over one, plain and LM,
+    each launch a per-shape instance, held to the plain version at
+    float64 (assert_near_f64; the covariance's worst lane at P = 10 too,
+    as both float32 implementations carry the inverse's
+    conditioning)."""
     from fabber_core_tpu_torch.ops import fused_loop_nl as nl
     from fabber_core_tpu_torch.ops import fused_vb as fv
     c = nl_inputs(name, nq, 3001, cuda, seed=3)
@@ -2783,6 +2802,62 @@ def test_nl_instances_match_plain(cuda, name, nq):
         before = fv.fused_iteration.instance_launches
         k = fv.fused_iteration(c["model"], c["tr"], *args)
         assert fv.fused_iteration.instance_launches == before + 1
+        assert_near_f64(k, fv.fused_iteration_plain(tsj, c["tr"], *args),
+                        fv.fused_iteration_plain(tsj, c["tr"],
+                                                 *to_f64(args)))
+
+
+def test_nl_instance_trialmode_rolled_matches_plain(cuda):
+    """Kernel 6 under trialmode (3 iterations, 2 trials) at exp num-exps 9
+    (P = 18: its loops rolled, the unit built optimized, as the repair of
+    csrc/vb_device.cuh inverse_from_chol allows), a per-shape launch, held
+    to the plain version at float64 (assert_detector_near_f64)."""
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.ops import fused_loop_nl as nl
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    from fabber_core_tpu_torch.options import RunOptions
+    c = nl_inputs("exp9", 1, 3001, cuda, seed=5)
+    opts = RunOptions({**WIDE_NL_MODELS["exp9"][0], "dt": "0.1",
+                       "noise": "white", "dtype": "single",
+                       "convergence": "trialmode", "max-iterations": "3",
+                       "max-trials": "2"})
+    det = VBInference(get_model_class("exp")(opts), opts,
+                      np.ones((4, 40), np.float32),
+                      device="cpu")._nl_fdet_consts()
+    consts = nl.pack_nl_consts(np.full(1, 1e6), np.full(1, 1e-6),
+                               c["q"].sum(axis=1), 1e-8, 50.0, 1)
+    args = (c["centre"], c["pm"], torch.ones_like(c["pp"]), c["data"],
+            c["q"], consts, 3, True)
+    tsj = fv.signal_jac_fn(c["model"])
+    before = nl.fused_nl_loop.instance_launches
+    k = nl.fused_nl_loop(c["model"], c["tr"], *args, detector=det)
+    assert nl.fused_nl_loop.instance_launches == before + 1
+    r32 = nl.fused_nl_loop_plain(tsj, c["tr"], *args, detector=det)
+    r64 = nl.fused_nl_loop_plain(tsj, c["tr"], *to_f64(args), detector=det)
+
+    def dec(o):
+        return decisions(o[6][0], 0 * o[6][0])
+    assert_detector_near_f64(k, r32, r64, dec(k), dec(r32), dec(r64))
+
+
+def test_coop_iteration_p44_matches_plain(cuda):
+    """Kernel 7 at exp num-exps 22 (P = 44, the per-lane form's cap in
+    earlier builds): its cooperative form (csrc/fused_vb_iter.cuh
+    fused_vb_iter_coop_kernel), plain and LM, each launch counted by
+    fused_iteration.coop_launches, held to the plain version at float64
+    (assert_near_f64)."""
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    c = nl_inputs("exp22", 1, 3001, cuda, seed=6)
+    tsj = fv.signal_jac_fn(c["model"])
+    alpha = torch.full((3001,), 0.1, device=cuda)
+    alpha[::4] = 0.0
+    for lm in (None, alpha):
+        args = (c["centre"], c["pm"], torch.ones_like(c["pp"]), c["phi"],
+                c["data"], c["q"], True, lm)
+        before = fv.fused_iteration.coop_launches
+        k = fv.fused_iteration(c["model"], c["tr"], *args)
+        assert fv.fused_iteration.coop_launches == before + 1
         assert_near_f64(k, fv.fused_iteration_plain(tsj, c["tr"], *args),
                         fv.fused_iteration_plain(tsj, c["tr"],
                                                  *to_f64(args)))

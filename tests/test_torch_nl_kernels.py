@@ -307,7 +307,7 @@ def test_kernel_instances_and_wrapper_refusals():
                          torch.zeros(NT, 4), c["q"], torch.zeros(4), 0,
                          False)
     with pytest.raises(ValueError, match="no kernel"):
-        fv.kernel_args(c["pm_"], c["tr"], 1, torch.device("meta"))
+        fv.kernel_args(c["pm_"], c["tr"], 1, torch.device("meta"), "vb_iter")
 
 
 # -- detector modes (the whole-loop kernel's in-kernel detectors, the

@@ -328,9 +328,9 @@ def test_kernel_route_without_instance_raises_on_card(monkeypatch):
     one generated from its time_signal and built at construction (kernel
     "nlls"). Where none can be (no hand-written functor and a
     time_signal the generator refuses) the engine raises at
-    construction, naming ROADMAP Queue 3 item 28, rather than run plain
-    torch. The library's instance query and the builds are stood in for
-    here; the card tests ask the real ones."""
+    construction, naming the generator, rather than run plain torch.
+    The library's instance query and the builds are stood in for here;
+    the card tests ask the real ones."""
     from fabber_core_tpu_torch.inference import nlls as nlls_module
     from fabber_core_tpu_torch.ops import _cuda
     data = exp_data(8, seed=8, model="biexp", dtype=np.float32)
@@ -360,7 +360,8 @@ def test_kernel_route_without_instance_raises_on_card(monkeypatch):
     monkeypatch.setattr(eng.model, "kernel_model", lambda: None)
     monkeypatch.setattr(nlls_module, "derive_time_signal_functor",
                         lambda model, p: None)
-    with pytest.raises(NotImplementedError, match="P=10.*item 28"):
+    with pytest.raises(NotImplementedError,
+                       match="P=10.*no functor can be generated"):
         on_card(eng)
     assert len(built) == 1
     # the plain-torch routes have no kernel to ask for

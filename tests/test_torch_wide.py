@@ -407,24 +407,31 @@ def test_card_instance_raises_without_one(route):
     assert msg.startswith(f"no ({shape}) instance of kernel {kernel} "
                           f"({vb_module.INSTANCE_LISTS[kernel]})")
     assert f"the '{route}' route cannot run this on the card" in msg
-    assert "Queue 3 item 28" in msg and "device='cpu'" in msg
+    assert "device='cpu'" in msg
     assert ("no functor can be generated" in msg) == (kernel in (6, 7, 8))
     assert asked == [route, route]
 
 
 def test_generated_functor_limits_come_from_the_header():
-    """generatable asks csrc/vb_device.cuh's kWideMaxP and kWideMaxQ,
-    read from the header the kernels compile with (P <= 42, Q <= 35:
-    past kMaxP, kMaxQ a generated functor takes the wide body)."""
+    """generatable asks csrc/vb_device.cuh's kWideMaxP (kernel 7: its
+    cooperative form's kCoopMaxP) and kWideMaxQ, read from the header the
+    kernels compile with (P <= 42, 143 for kernel 7, Q <= 35: past kMaxP,
+    kMaxQ a generated functor takes the per-shape body)."""
     assert _cuda.gen_limits() == (42, 35)
+    assert _cuda.gen_limits("nlls") == (42, 35)
+    assert _cuda.gen_limits("vb_iter") == (143, 35)
     functor = object()
-    assert vb_module.generatable(functor, 8, 4)
-    assert vb_module.generatable(functor, 12, 5)
-    assert vb_module.generatable(functor, 42, 35)
-    assert vb_module.generatable(functor, 42, None)
-    assert not vb_module.generatable(functor, 43, 1)
-    assert not vb_module.generatable(functor, 6, 36)
-    assert not vb_module.generatable(None, 2, 1)
+    for kernel in ("nl_loop", "vb_iter"):
+        assert vb_module.generatable(functor, 8, 4, kernel)
+        assert vb_module.generatable(functor, 12, 5, kernel)
+        assert vb_module.generatable(functor, 42, 35, kernel)
+        assert not vb_module.generatable(functor, 6, 36, kernel)
+        assert not vb_module.generatable(None, 2, 1, kernel)
+    assert vb_module.generatable(functor, 42, None, "nlls")
+    assert not vb_module.generatable(functor, 43, 1, "nl_loop")
+    assert not vb_module.generatable(functor, 43, None, "nlls")
+    assert vb_module.generatable(functor, 143, 35, "vb_iter")
+    assert not vb_module.generatable(functor, 144, 1, "vb_iter")
 
 
 def test_card_instance_takes_the_functor_of_its_own_route():
@@ -486,9 +493,9 @@ def test_nonlinear_gate_on_card_builds_only_what_runs(monkeypatch):
     per-shape one built at the route's first launch: construction builds
     nothing for kernel 6 or the NLLS kernel and raises nothing. At
     num-exps 22 (P = 44) the JAX pickers admit neither kernel 6 nor 8:
-    VB takes 'pallas', whose kernel 7 past its cap (csrc/vb_device.cuh
-    kWideMaxP = 42) still raises on the card, and NLLS 'nlls-generic',
-    which has no kernel."""
+    VB takes 'pallas', whose kernel 7 runs there in its cooperative form
+    (a per-shape unit, built at the first launch; the card raised there
+    before it), and NLLS 'nlls-generic', which has no kernel."""
     built = []
     monkeypatch.setattr(_cuda, "build_generated",
                         lambda *a: built.append(a) or "lib")
@@ -510,10 +517,10 @@ def test_nonlinear_gate_on_card_builds_only_what_runs(monkeypatch):
         neng.device = torch.device("cuda")
         if num == "22":
             assert (eng.route, neng.route) == ("pallas", "nlls-generic")
-            with pytest.raises(NotImplementedError,
-                               match=r"no \(P=44, Q=1\) instance of "
-                                     r"kernel 7.*item 28"):
-                on_card(eng)
+            assert on_card(eng).functor is None
+            # the unit it builds compiles the cooperative form (kIterCoop)
+            assert "#define FABBER_ROLL_LOOPS" in _cuda.instance_sources(
+                "nl", 44, 1, 1, "vb_iter")["fused_vb_iter"]
             neng._require_kernel_instance()
         else:
             assert (eng.route, neng.route) == ("pallas-loop-nl",

@@ -10,21 +10,25 @@ kernels.
                 maxits, pointzeroone and trialmode, T 10-500, under
                 engine-kernel=pallas-loop and auto (jax.default_backend
                 patched to "tpu"), the generic mode of an evaluate-only
-                exp sum, and the shapes ROADMAP Queue 3 item 28 named;
+                exp sum, and kernel 7's shapes past P = 42;
   time planes   models/kernelgen.py's count of the generic trace's
                 time-carrying intermediates against the JAX package's
                 (fn.time_planes);
   plain vs JAX  the plain versions of kernels 6 (3 iterations), 7 (one)
                 and 8 (fresh) at exp num-exps 5 (P = 10) and biexp at
                 noise-pattern 123456 (Q = 6) against the JAX kernels
-                interpreted at float64, tens of voxels;
+                interpreted at float64, tens of voxels; the CPU route at
+                exp num-exps 22 (P = 44) against an iteration composed
+                from the JAX model and transforms at float64;
   on the host   the per-shape bodies compiled as host C++ at double
-                (tests/torch_hostcc.py): kernels 6, 7 (the wide form,
-                plain and LM) and 8 at P = 10, Q = 1, and 6 and 7 at P =
-                4, Q = 6, against the plain versions at float64;
-  limits        instance_limits("nl"), instance_buildable, the units'
-                defines, and the card's gate (the device stood in for):
-                it raises past kernel 7's cap alone.
+                (tests/torch_hostcc.py): kernels 6, 7 (per lane, and its
+                cooperative form at (8, 35), (24, 4) and (44, 1); plain
+                and LM) and 8 at P = 10, Q = 1, and 6 and 7 at P = 4, Q =
+                6, against the plain versions at float64;
+  limits        instance_limits("nl", kernel), instance_buildable, the
+                units' defines, and the card's gate (the device stood in
+                for): it raises past kernel 7's shared-memory bound
+                alone.
 """
 
 import jax.numpy as jnp
@@ -266,6 +270,13 @@ TRUTHS = {"exp5": ("exp", {"num-exps": "5"},
           "exp4": ("exp", {"num-exps": "4"},
                    [1.5, 0.2, 1.0, 0.8, 0.75, 2.5, 0.5, 6.0]),
           "biexp": ("biexp", {}, [1.5, 0.5, 1.5, 5.0])}
+# the cooperative form's cases: exp num-exps 12 and 22 (P = 24, 44), the
+# components of chip_smoke.py exp_components (amplitudes 1/num, rates
+# evenly spaced in log from 0.2 to 25)
+for _num in (12, 22):
+    TRUTHS[f"exp{_num}"] = ("exp", {"num-exps": str(_num)}, [
+        x for i in range(_num)
+        for x in (1.0 / _num, 0.2 * 125.0 ** (i / (_num - 1)))])
 
 
 def case(name, pattern, seed):
@@ -385,6 +396,82 @@ def test_plain_kernels_6_7_match_jax_f64(name, pattern):
             assert rel_err(g.numpy(), np.asarray(r)[..., :NV]) <= 1e-9, k
 
 
+def jax_iteration_f64(c):
+    """One plain VB iteration (kernel 7's function: fused_vb.py:184
+    make_fused_iteration) composed at float64 from the JAX package's own
+    pieces on case c: its model's time_signal_jac, its transforms'
+    to_model and their jvp (make_block_eval's chain factors), the
+    per-group sums, the solve and the k'Qk and trace terms in jnp."""
+    import jax
+    p = c["p"]
+    t = jnp.arange(NT, dtype=jnp.float64)[:, None]
+    q = jnp.asarray(c["q"])
+    data = jnp.asarray(c["data"])
+
+    def jac(lat):
+        rows = [lat[i:i + 1] for i in range(p)]
+        mrows = [tr.to_model(rows[i]) for i, tr in enumerate(c["jtr"])]
+        chain = [jax.jvp(tr.to_model, (rows[i],),
+                         (jnp.ones_like(rows[i]),))[1]
+                 for i, tr in enumerate(c["jtr"])]
+        sig, jm = c["jm"].time_signal_jac(mrows, t)
+        return sig, jnp.stack([jm[i] * chain[i] for i in range(p)])
+
+    def sums(j):
+        return jnp.einsum("qt,itv,jtv->qijv", q, j, j)
+
+    centre, pm, pp, phi = (jnp.asarray(c[k]) for k in ("centre", "pm",
+                                                         "pp", "phi"))
+    sig, j = jac(centre)
+    r = data - sig
+    jtj = sums(j)
+    jtr = jnp.einsum("qt,itv,tv->qiv", q, j, r)
+    prec = jnp.einsum("qv,qijv->ijv", phi, jtj) + \
+        jnp.eye(p)[:, :, None] * pp[None]
+    cov = jnp.linalg.inv(prec.transpose(2, 0, 1)).transpose(1, 2, 0)
+    rhs = jnp.einsum("qv,qiv->iv", phi, jtr + jnp.einsum(
+        "qijv,jv->qiv", jtj, centre)) + pp * pm
+    means = jnp.einsum("ijv,jv->iv", cov, rhs)
+    k = r + jnp.einsum("itv,iv->tv", j, centre - means)
+    nkqk = jnp.einsum("qt,tv->qv", q, k * k)
+    ntr = jnp.einsum("ijv,qijv->qv", cov, jtj)
+    fsig, fj = jac(means)
+    fkqk = jnp.einsum("qt,tv->qv", q, (data - fsig) ** 2)
+    ftr = jnp.einsum("ijv,qijv->qv", cov, sums(fj))
+    return [np.asarray(x) for x in (means, prec, cov, nkqk, ntr, fkqk,
+                                    ftr)]
+
+
+def test_cpu_route_p44_matches_jax_f64():
+    """exp num-exps 22 (P = 44) on the port's CPU route: 'pallas', past
+    kernel 6's picker as in the JAX engine's gate (test_vb_route_matches_
+    jax_gate), kernel 7's plain version once per iteration (the card runs
+    its cooperative form). On a CPU the JAX kernel does not finish at P =
+    44 within the tests' time: one interpreted make_fused_iteration call
+    (as the P = 10 case calls it) at 4 voxels and T = 40 had not returned
+    after 25 minutes, and the JAX engine's pallas and xla routes each ran
+    past 8 minutes on 8 voxels. So, as the fallback, the route's
+    iteration is held at float64 against the same iteration composed
+    from the JAX package's own model and transforms (jax_iteration_f64):
+    every output within 1e-9 of its max. The port's engine then runs the
+    route at float32 for 2 iterations with finite results."""
+    c = case("exp22", "1", seed=21)
+    x = {k: torch.from_numpy(c[k]) for k in ("centre", "pm", "pp", "phi",
+                                             "data")}
+    got = fv.fused_iteration(c["tm"], c["tr"], x["centre"], x["pm"],
+                             x["pp"], x["phi"], x["data"], c["q"], True)
+    for i, (g, r) in enumerate(zip(got, jax_iteration_f64(c))):
+        assert rel_err(g.numpy(), r) <= 1e-9, i
+    o = RunOptions({"model": "exp", "num-exps": "22", "dt": str(DT),
+                    "noise": "white", "max-iterations": "2",
+                    "dtype": "single"})
+    eng = VBInference(c["tm"], o, c["data"].T.astype(np.float32),
+                      device="cpu")
+    assert eng.route == "pallas"
+    res = eng.run()
+    assert np.isfinite(res.means).all() and not res.bad_voxels.any()
+
+
 def test_plain_kernel_8_matches_jax_f64_p10():
     """Kernel 8's plain version (fresh Levenberg, 30 steps) at P = 10
     against the JAX kernel interpreted at float64 (nlls_outputs_match)."""
@@ -467,16 +554,20 @@ def test_whole_loop_kernel_on_host(name, pattern, functor, host):
 
 
 @pytest.mark.parametrize("name,pattern,functor", HOST_CASES + [
-    ("exp4", PATTERNS[35], "ExpSum<4>")], ids=["P10", "Q6", "Q35-folded"])
+    ("exp4", PATTERNS[35], "ExpSum<4>"), ("exp12", "1234", "ExpSum<12>"),
+    ("exp22", "1", "ExpSum<22>")],
+    ids=["P10", "Q6", "Q35-coop-folded", "P24-Q4-coop-folded", "P44-coop"])
 @pytest.mark.parametrize("lm", [False, True], ids=["plain", "lm"])
 def test_iteration_kernel_wide_form_on_host(name, pattern, functor, lm,
                                             host):
-    """Kernel 7's per-shape instances at double, staged and streamed,
-    with and without the LM branch: at (10, 1) and (4, 6) the prebuilt
-    form's template, at (8, 35) its folded form (1,260 per-group sums,
-    past kFoldSums: the groups folded into one weighted sum for the
-    solve, a pass per group for each trace). Within 1e-9 of the plain
-    version at float64, which sums per group; the forms bit for bit."""
+    """Kernel 7's per-shape instances at double, with and without the LM
+    branch: at (10, 1) and (4, 6) the prebuilt form's template (staged
+    and streamed, bit for bit), past ops/_cuda.py rolled_loops' sizes the
+    cooperative form (fused_vb_iter_coop_kernel, a block's 32 threads as
+    host threads): folded at (8, 35) and (24, 4) (past kCoopFoldSums
+    per-group sums: the groups folded into one weighted sum for the
+    solve, a pass per group for each trace), per group at (44, 1). Within
+    1e-9 of the plain version at float64, which sums per group."""
     c = case(name, pattern, seed=12)
     alpha = None
     if lm:
@@ -532,39 +623,47 @@ def test_nl_limits_and_units():
     define the shape and the functor kind, and FABBER_ROLL_LOOPS past
     ROLL_P (16) or ROLL_SUMS (600) per-group sums."""
     assert _cuda.instance_limits("nl") == (42, 35)
+    assert _cuda.instance_limits("nl", "vb_iter") == (143, 35)
     assert _cuda.gen_limits() == (42, 35)
-    assert _cuda.instance_buildable("nl", 10, 1, 1)
-    assert _cuda.instance_buildable("nl", 42, 35, 1)
-    assert _cuda.instance_buildable("nl", 5, 3, 0)
-    assert not _cuda.instance_buildable("nl", 5, 1, 1)
-    assert not _cuda.instance_buildable("nl", 44, 1, 1)
-    assert not _cuda.instance_buildable("nl", 4, 36, 1)
-    assert not _cuda.instance_buildable("nl", 4, 1, None)
+    for kernel in _cuda.NL_ENTRIES:
+        assert _cuda.instance_buildable("nl", 10, 1, 1, kernel)
+        assert _cuda.instance_buildable("nl", 42, 35, 1, kernel)
+        assert _cuda.instance_buildable("nl", 5, 3, 0, kernel)
+        assert not _cuda.instance_buildable("nl", 5, 1, 1, kernel)
+        assert not _cuda.instance_buildable("nl", 4, 36, 1, kernel)
+        assert not _cuda.instance_buildable("nl", 4, 1, None, kernel)
+        assert _cuda.instance_buildable("nl", 44, 1, 1, kernel) == (
+            kernel == "vb_iter")
+    assert _cuda.instance_buildable("nl", 142, 35, 1, "vb_iter")
+    assert not _cuda.instance_buildable("nl", 144, 1, 1, "vb_iter")
     assert [_cuda.rolled_loops(p, q) for p, q in (
         (10, 1), (16, 1), (17, 1), (8, 35), (4, 35), (24, 4))] == \
         [False, False, True, True, False, True]
-    units = _cuda.instance_sources("nl", 24, 4, 1)
-    assert set(units) == {"fused_nl_loop", "fused_vb_iter", "fused_nlls"}
-    for text in units.values():
-        for line in ("#define FABBER_INST_P 24", "#define FABBER_INST_Q 4",
+    # one unit a build: the kernel asked for, kernel 8 at Q = 1
+    for kernel, (entry, *_) in _cuda.NL_ENTRIES.items():
+        units = _cuda.instance_sources("nl", 24, 4, 1, kernel)
+        assert set(units) == {entry}
+        q = 1 if kernel == "nlls" else 4
+        for line in ("#define FABBER_INST_P 24", f"#define FABBER_INST_Q {q}",
                      "#define FABBER_INST_KIND 1",
-                     "#define FABBER_ROLL_LOOPS"):
-            assert line in text
-    assert "FABBER_ROLL_LOOPS" not in \
-        _cuda.instance_sources("nl", 10, 1, 1)["fused_nl_loop"]
-    assert _cuda.instance_key("nl", 10, 1, 1) != \
-        _cuda.instance_key("nl", 10, 1, 0)
+                     "#define FABBER_ROLL_LOOPS", f'#include "{entry}.cu"'):
+            assert line in units[entry]
+    assert "FABBER_ROLL_LOOPS" not in _cuda.instance_sources(
+        "nl", 10, 1, 1, "nl_loop")["fused_nl_loop"]
+    with pytest.raises(ValueError, match="a nonlinear kernel"):
+        _cuda.instance_sources("nl", 10, 1, 1)
+    key = _cuda.instance_key
+    assert key("nl", 10, 1, 1, "nl_loop") != key("nl", 10, 1, 0, "nl_loop")
+    assert key("nl", 10, 1, 1, "nl_loop") != key("nl", 10, 1, 1, "vb_iter")
+    assert key("nl", 10, 2, 1, "vb_iter") != key("nl", 10, 1, 1, "vb_iter")
+    assert key("nl", 10, 2, 1, "nlls") == key("nl", 10, 1, 1, "nlls")
     assert "FABBER_ROLL_LOOPS" in _cuda.generated_source("", 20, 1)
     assert "FABBER_ROLL_LOOPS" not in _cuda.generated_source("", 12, 1)
-    # a rolled unit builds with ROLL_FLAGS (its device code unoptimized)
-    rolled = _cuda.instance_sources("nl", 24, 4, 1)["fused_nlls"]
-    plain = _cuda.instance_sources("nl", 10, 1, 1)["fused_nlls"]
-    assert _cuda._unit_flags("fused_nlls.cu", rolled) == \
-        ["-fmad=false"] + _cuda.ROLL_FLAGS
-    assert _cuda._unit_flags("fused_nlls.cu", plain) == ["-fmad=false"]
-    assert _cuda.ROLL_FLAGS == ["-G"]
-    assert _cuda._gen_flags("vb_iter", 20, 1)[-1] == "-G"
-    assert "-G" not in _cuda._gen_flags("vb_iter", 12, 1)
+    # every unit builds optimized (test_torch_rolled_units.py): a
+    # generated functor with its kernel's source flags alone
+    for kernel, (_, _, _, src) in _cuda.GEN_KERNELS.items():
+        assert _cuda._gen_flags(kernel) == _cuda.NVCC_FLAGS + \
+            _cuda.SOURCE_FLAGS.get(src, [])
 
 
 def on_card(eng):
@@ -577,14 +676,17 @@ def on_card(eng):
     (5, 1, "pallas-loop-nl", False), (2, 35, "pallas-loop-nl", False),
     (19, 1, "pallas-loop-nl", False), (13, 8, "pallas", False),
     (21, 1, "pallas", False), (21, 35, "pallas", False),
-    (22, 1, "pallas", True)])
+    (22, 1, "pallas", False), (71, 35, "pallas", False),
+    (72, 1, "pallas", True)])
 def test_card_gate_raises_past_kernel_7s_cap_alone(num, nq, route, raises,
                                                    monkeypatch):
     """With the device stood in for "cuda" and the prebuilt list as the
     library has it: every shape the gates give kernels 6 and 7 up to
-    (42, 35) is served by a per-shape instance (built at the route's
-    first launch: nothing is built at construction); exp num-exps 22
-    (P = 44) on kernel 7 raises, naming item 28."""
+    their bounds is served by a per-shape instance (built at the route's
+    first launch: nothing is built at construction), kernel 7 past P = 16
+    in its cooperative form up to csrc/vb_device.cuh kCoopMaxP (143: exp
+    num-exps 71, P = 142, runs at Q = 35); exp num-exps 72 (P = 144) on
+    kernel 7 raises, naming the shared-memory bound."""
     monkeypatch.setattr(jvb_module.jax, "default_backend", lambda: "tpu")
     monkeypatch.setattr(_cuda, "has_nl_instance",
                         lambda kind, p, q: kind == 1 and p <= 8 and q <= 2)
@@ -598,8 +700,9 @@ def test_card_gate_raises_past_kernel_7s_cap_alone(num, nq, route, raises,
     assert eng.route == route
     if raises:
         with pytest.raises(NotImplementedError,
-                           match=r"\(P=44, Q=1\) instance of kernel 7.*"
-                                 r"kWideMaxP.*item 28"):
+                           match=r"\(P=144, Q=1\) instance of kernel 7.*"
+                                 r"shared memory.*bounds P at 143.*"
+                                 r"kCoopMaxP"):
             on_card(eng)
     else:
         assert on_card(eng).functor is None
@@ -625,7 +728,7 @@ def test_poly_past_its_list_takes_a_per_shape_instance(monkeypatch):
     eng = VBInference(get_model_class("poly")(o), o,
                       np.ones((4, 30), np.float32), device="cpu")
     assert eng.route == "pallas"
-    assert fv.nl_instantiated(eng.model.kernel_model(), 1)
+    assert fv.nl_instantiated(eng.model.kernel_model(), 1, "vb_iter")
     assert on_card(eng).functor is None
     o = RunOptions({**extra, "method": "nlls"})
     neng = NLLSInference(get_model_class("poly")(o), o,

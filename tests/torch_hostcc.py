@@ -374,38 +374,72 @@ extern "C" void host_nlls(int mode, int marq, const int* tcodes, double dt,
     return fn
 
 
+def _functor_p(functor):
+    """P of a hand-written functor's C++ name or a TimeLocalEval."""
+    if not isinstance(functor, str):
+        return functor.nparams
+    m = re.fullmatch(r"(ExpSum|PolyModel)<(\d+)>", functor)
+    return int(m.group(2)) * (2 if m.group(1) == "ExpSum" else 1)
+
+
 def vb_iter_kernel_fn(functor, q, tmpdir):
     """Kernel 7 (fused_vb_iter.cuh, cut before its launch section) with a
     hand-written functor of vb_device.cuh (its C++ name, e.g.
     "ExpSum<2>") or a TimeLocalEval's generated one (models/kernelgen.py;
-    its dt is its own) at Q groups, at double, both forms in one library,
-    one block of one thread per voxel: fn(staged, tcodes, dt, need_f,
+    its dt is its own) at Q groups, at double, in the form a per-shape
+    unit at its (P, Q) compiles (ops/_cuda.py _roll_define, and the
+    header's kIterCoop): the per-lane form (both of its forms in one
+    library, one block of one thread per voxel) or, past rolled_loops'
+    sizes, the cooperative form (fused_vb_iter_coop_kernel, a block of
+    kCoopThreads threads per voxel, each a host thread meeting the others
+    at __syncthreads; staged is ignored): fn(staged, tcodes, dt, need_f,
     centre, pm, pp [P,V], phi [Q,V], data [T,V], qw [T,Q], alpha [V] or
-    None) -> the seven outputs (means, prec, cov, nkqk, ntr, fkqk, ftr)."""
+    None) -> the seven outputs (means, prec, cov, nkqk, ntr, fkqk,
+    ftr)."""
+    from fabber_core_tpu_torch.ops import _cuda
+    roll = _cuda._roll_define(_functor_p(functor), q)
     d = Path(tmpdir)
     _write_headers(d)
     model, name = _functor_model(functor)
-    src = _kernel_head("fused_vb_iter.cuh", functor) + f"""
-namespace {{
-using Model = {model};
-using HK = VBParamsFor<Model::P, {q}>;
+    runner = f"""
 template <bool LM, bool STAGED>
 static void run_all(const HK& k, const double* const* in,
                     double* const* out) {{
   const auto kp = params_for<Model::P, {q}>(k);
-  for (long long v = 0; v < k.V; ++v) {{
-    blockIdx.x = (unsigned)v;
-    // past kFoldSums the folded form, as launch_form picks it
-    if constexpr (iter_folded<Model, {q}>)
-      fused_vb_iter_wide_kernel<Model, {q}, LM, STAGED>(
-          kp, in[0], in[1], in[2], in[3], in[4], in[5], in[6], out[0],
-          out[1], out[2], out[3], out[4], out[5], out[6]);
-    else
+  if constexpr (kIterCoop) {{
+    FabberHostBarrier bar;
+    bar.n = (unsigned)kCoopThreads;
+    fabber_host_barrier = &bar;
+    blockDim.x = (unsigned)kCoopThreads;
+    for (long long v = 0; v < k.V; ++v) {{
+      blockIdx.x = (unsigned)v;
+      std::vector<std::thread> lanes;
+      for (int l = 0; l < kCoopThreads; ++l)
+        lanes.emplace_back([=, &kp] {{
+          threadIdx.x = (unsigned)l;
+          fused_vb_iter_coop_kernel<Model, {q}, LM>(
+              kp, in[0], in[1], in[2], in[3], in[4], in[5], in[6], out[0],
+              out[1], out[2], out[3], out[4], out[5], out[6]);
+        }});
+      for (auto& th : lanes) th.join();
+    }}
+    blockDim.x = 1;
+    fabber_host_barrier = nullptr;
+  }} else {{
+    for (long long v = 0; v < k.V; ++v) {{
+      blockIdx.x = (unsigned)v;
       fused_vb_iter_kernel<Model, {q}, LM, STAGED>(
           kp, in[0], in[1], in[2], in[3], in[4], in[5], in[6], out[0],
           out[1], out[2], out[3], out[4], out[5], out[6]);
+    }}
   }}
-}}
+}}"""
+    src = roll + "#include <thread>\n#include <vector>\n" + _kernel_head(
+        "fused_vb_iter.cuh", functor) + f"""
+namespace {{
+using Model = {model};
+using HK = VBParamsFor<Model::P, {q}>;
+{runner}
 }}  // namespace
 extern "C" void host_vb_iter(int staged, const int* tcodes, double dt,
                              int need_f, const double* const* in,

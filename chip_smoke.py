@@ -31,6 +31,13 @@ the generic mode (a Gaussian bump and biexp's evaluate through their
 generated functors against the plain version, --loadmodels on the torch
 myexp plugin through its time_signal functor and evaluate-only, a
 suppdata run against the float64 'xla-generic' route on the card);
+drives kernel 6's full-time form (phases 3l, 4ab, 5l: three models that
+mix the time axis, tests/torch_fulltime_models.py, a centred
+biexponential, a Tofts-like convolution by a constant matrix and a
+shift, through functors of the full-time walk against the plain version
+in every detector mode at Q 1-2; --loadmodels on the convolution through
+run_with_data, its launch counted, against the float64 'xla-generic'
+route on the card; timed at 1,000,000 voxels);
 drives method=spatialvb (bench.py's spatial shape on a 1024x1024 grid,
 its spatial-p4 model on 512x512 and an MPmp mix, each against its float64 run on the
 card; Gauss-Seidel against the CPU, blocked sweeps against unblocked)
@@ -1984,6 +1991,7 @@ def launch_counts():
             "fused_vb_loop": fl.fused_vb_loop.launches,
             "fused_nl_loop": fnl.fused_nl_loop.launches,
             "fused_nl_loop:generic": fnl.fused_nl_loop.generic_launches,
+            "fused_nl_loop:fulltime": fnl.fused_nl_loop.fulltime_launches,
             "fused_nl_loop:staged": fnl.fused_nl_loop.staged_launches,
             "fused_vb_iter": fv.fused_iteration.launches,
             "fused_vb_iter:staged": fv.fused_iteration.staged_launches,
@@ -2019,6 +2027,7 @@ def reset_launches():
     fw.fused_whole.staged_launches = 0
     fnl.fused_nl_loop.det_launches = 0
     fnl.fused_nl_loop.generic_launches = 0
+    fnl.fused_nl_loop.fulltime_launches = 0
     fnl.fused_nl_loop.staged_launches = 0
     fv.fused_iteration.lm_launches = 0
     fv.fused_iteration.staged_launches = 0
@@ -6920,6 +6929,304 @@ def time_nl_instances(device, card, nv=4_000_000, nv_plain=1_000_000,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Kernel 6's full-time form: models that mix the time axis (phases 3l, 4ab,
+# 5l)
+# ---------------------------------------------------------------------------
+
+FT_PLUGIN = "tests/torch_fulltime_models.py"
+FT_NT, FT_SD = 100, 0.02   # T (DT 0.05, the plugin's), noise sd
+# the plugin's models (P = 4, 2, 2) and phase 3l's cases: (Q, detector)
+# over MODEs 0-2 and Q 1-2
+FT_NAMES = ("biexp-centred-test", "conv-test", "shift-test")
+FT_CASES = ((1, "maxits"), (2, "pointzeroone"), (1, "freduce"),
+            (1, "trialmode"), (2, "lm"))
+_FT_MODULE = []
+
+
+def fulltime_module():
+    """The plugin module (its models registered by name), loaded once."""
+    if not _FT_MODULE:
+        import importlib.util
+        spec = importlib.util.spec_from_file_location("fabber_fulltime_smoke",
+                                                      FT_PLUGIN)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _FT_MODULE.append(mod)
+    return _FT_MODULE[0]
+
+
+def fulltime_functors():
+    """The full-time functors the run builds, as (name, TimeLocalEval, P,
+    Q, "nl_loop_full"): the three models at T=100, Q 1 and 2."""
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.models.kernelgen import \
+        derive_time_local_eval
+    fulltime_module()
+    out = []
+    for name in FT_NAMES:
+        model = get_model_class(name)()
+        p = len(model.param_defaults())
+        tle = derive_time_local_eval(model, FT_NT, p)
+        out += [(f"{name} Q={q}", tle, p, q, "nl_loop_full") for q in (1, 2)]
+    return out
+
+
+def fulltime_plane(name, nv, gen, device):
+    """A model's data made on the card: the parameters drawn per voxel
+    (the centred biexponential's amplitudes U(0.8, 1.2), U(0.4, 0.6),
+    rates U(3, 5), U(0.3, 0.6); the others' U(0.5, 1.5), U(0.5, 2)), its
+    signal plus noise of sd 0.02 -> (data [T,V], clean [T,V], truths
+    [P,V])."""
+    import torch
+
+    def u(lo, hi):
+        return torch.rand((1, nv), generator=gen, device=device) \
+            * (hi - lo) + lo
+    if name == "biexp-centred-test":
+        m = torch.cat([u(0.8, 1.2), u(3.0, 5.0), u(0.4, 0.6), u(0.3, 0.6)])
+    else:
+        m = torch.cat([u(0.5, 1.5), u(0.5, 2.0)])
+    clean = fulltime_module().signal_torch(name, m, FT_NT)
+    data = torch.randn((FT_NT, nv), generator=gen, device=device)
+    return data.mul_(FT_SD).add_(clean), clean, m
+
+
+def fulltime_engine(name, plane, device, nq=1, extra=None):
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.options import RunOptions
+    opts = RunOptions({"model": name, "noise": "white",
+                       "max-iterations": str(ITERS), "dtype": "single",
+                       **({"noise-pattern": "12"} if nq == 2 else {}),
+                       **(extra or {})})
+    return VBInference(get_model_class(name)(opts), opts, None,
+                       data_plane=plane, device=device)
+
+
+def check_fulltime_kernels(device, nv=65_536, seed=SEED + 50):
+    """Phase 3l: kernel 6's full-time form (a warp a voxel, the functors
+    of the full-time walk) against its plain version (fused_nl_loop_plain
+    with full_eval), held to float64 by near_f64 as phase 3g holds the
+    generic mode: the three models at 65,536 voxels in FT_CASES (MODEs
+    0-2, Q 1-2), on the engine's own start and priors; conv-test and
+    shift-test at 10 iterations (2 trials), the centred biexponential at
+    2 (maxits) and 3 with 2 trials (detectors), the short horizons of phases 3b/3c
+    (a sum of exponentials is chaotic at float32 further out, ROADMAP
+    Queue 3 item 7). The form's launch counter must move on each."""
+    import torch
+    from fabber_core_tpu_torch.ops import fused_loop_nl as fl
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    from fabber_core_tpu_torch.ops import smallmat as sm
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    worst = {"fused_nl_loop:fulltime": [0.0, 0.0]}
+    ok_all = True
+    for name in FT_NAMES:
+        plane, _, _ = fulltime_plane(name, nv, gen, device)
+        short = name == "biexp-centred-test"
+        for nq, kind in FT_CASES:
+            extra = {"convergence": kind, "max-trials": "2"}
+            if short:
+                extra["max-iterations"] = "3"
+            eng = fulltime_engine(name, plane, device, nq, extra)
+            if eng.route != "pallas-loop-nl" or not eng.generic.full_time:
+                log(f"  FAIL {name}: route {eng.route_description()}")
+                return False, worst
+            tr = eng._transforms()
+            s0 = eng.initial_state()
+            args = eng.nl_loop_args(s0)
+            ev = fv.full_eval(eng.generic.fn, tr)
+            det = None if kind == "maxits" else eng._nl_fdet_consts()
+            pd0 = sm.diag_of(s0.post.cov).contiguous() \
+                if kind == "freduce" else None
+            n_it = (2 if short else ITERS) if kind == "maxits" \
+                else int(eng.detector.max_iterations)
+            before = fl.fused_nl_loop.fulltime_launches
+            k = fl.fused_nl_loop(eng.model, tr, *args, n_it, True,
+                                 detector=det, post_var0=pd0,
+                                 functor=eng.functor)
+            moved = fl.fused_nl_loop.fulltime_launches == before + 1
+            r32 = fl.fused_nl_loop_plain(None, tr, *args, n_it, True,
+                                         detector=det, post_var0=pd0,
+                                         evaluator=ev)
+            r64 = fl.fused_nl_loop_plain(
+                None, tr, *to64(args), n_it, True, detector=det,
+                post_var0=None if pd0 is None else pd0.double(),
+                evaluator=ev)
+            torch.cuda.synchronize()
+            label = f"full-time {name} Q={nq} {kind} {n_it} its V={nv}"
+            if det is None:
+                res = near_f64(label, k, r32, r64)
+            else:
+                def dec(o):
+                    rev = o[5][1].double() if kind == "freduce" \
+                        else 0 * o[6][0].double()
+                    return torch.stack([o[6][0].double(), rev])
+                res = near_f64(label, k, r32, r64, dec(k), dec(r32),
+                               dec(r64))
+            ok, abs_err, ratio = res
+            if not moved:
+                log(f"  FAIL {label}: fulltime_launches did not move")
+            ok_all &= ok and moved
+            w = worst["fused_nl_loop:fulltime"]
+            w[0], w[1] = max(w[0], abs_err), max(w[1], ratio)
+            del k, r32, r64, args, eng
+            torch.cuda.empty_cache()
+        del plane
+    return ok_all, worst
+
+
+def run_fulltime_path(device, shape=(128, 128, 64), small=(32, 32, 16)):
+    """Phase 4ab: run_with_data --loadmodels=tests/torch_fulltime_models.py
+    --model=conv-test (a Tofts-like convolution, a contraction of time
+    with the constant matrix it closes over) on a 128x128x64 x 100
+    volume: the route line names the generic full-time mode,
+    fused_nl_loop launched once, in the full-time form (fulltime_launches
+    1), every output finite and of its shape, the fit within 3 noise sd
+    of the noiseless signal in >= 99% of voxels, the median noise sd
+    within 5% of the truth's. Then a 32x32x16 x 100 volume against the
+    float64 run on the card (xla-generic, no kernel): the share of voxels
+    whose means lie beyond 1e-2 posterior sd, or std or noise beyond 1e-2
+    relative, of float64 at most 1e-3. Returns (ok, launches)."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 51)
+    nv = int(np.prod(shape))
+    plane, clean, _ = fulltime_plane("conv-test", nv, gen, device)
+    vol = plane.t().cpu().numpy().reshape(shape + (FT_NT,))
+    clean = clean.t().cpu().numpy()
+    del plane
+    opts = {"model": "conv-test", "loadmodels": FT_PLUGIN, "method": "vb",
+            "noise": "white", "max-iterations": str(ITERS),
+            "dtype": "single", "save-mean": True, "save-std": True,
+            "save-noise-mean": True, "save-model-fit": True,
+            "save-residuals": True}
+    log(f"phase 4ab: run_with_data --loadmodels={FT_PLUGIN} "
+        f"--model=conv-test, volume {shape + (FT_NT,)}")
+    run, res, eng, n, _ = api_run(device, opts, vol)
+    want = {"fused_nl_loop": 1, "fused_nl_loop:generic": 1,
+            "fused_nl_loop:fulltime": 1}
+    ok = (eng.route == "pallas-loop-nl" and eng.generic is not None
+          and eng.generic.full_time
+          and "generic full-time mode" in eng.route_description()
+          and n == want)
+    if not ok:
+        log(f" FAIL route {eng.route_description()} launches {n}")
+    fin = all(np.isfinite(a).all() for a in run.data.values())
+    fit = run.data["modelfit"].reshape(-1, FT_NT)
+    within = float((np.abs(fit - clean).max(axis=1) <= 3 * FT_SD).mean())
+    noise_sd = float(np.median(1 / np.sqrt(run.data["noise_means"])))
+    good = (fin and within >= 0.99 and abs(noise_sd / FT_SD - 1) <= 0.05
+            and not res.bad_voxels.any())
+    log(f" outputs {sorted(run.data)} finite {fin}; fit within 3 noise sd "
+        f"of the noiseless signal: {within:.5f} of voxels (bound >= 0.99); "
+        f"median noise sd {noise_sd:.5f} (truth {FT_SD}, bound 5%) "
+        f"{'ok' if good else 'FAIL'}")
+    ok &= good
+    launches = {"fused_nl_loop:fulltime": n.get("fused_nl_loop:fulltime",
+                                                0)}
+    del run, res, eng, vol
+
+    nv = int(np.prod(small))
+    plane, _, _ = fulltime_plane("conv-test", nv, gen, device)
+    vols = plane.t().cpu().numpy().reshape(small + (FT_NT,))
+    sopts = {k: v for k, v in opts.items() if not k.startswith("save-")}
+    log(f" the same model on {small + (FT_NT,)} against float64")
+    _, res, eng, n, _ = api_run(device, {**sopts, "save-mean": True}, vols)
+    ok &= eng.route == "pallas-loop-nl" and n == want
+    _, r64, eng64, n64, _ = api_run(device, {**sopts, "save-mean": True,
+                                             "dtype": "double"}, vols)
+    ok &= eng64.route == "xla-generic" and not n64
+    e_m, e_s, e_n = voxel_errors(res, r64)
+    off = (e_m > 1e-2) | (e_s > 1e-2) | (e_n > 1e-2)
+    good = float(off.mean()) <= 1e-3 and not res.bad_voxels.any()
+    log(f" float32 (full-time kernel) against float64 (xla-generic): "
+        f"{int(off.sum())} voxels off ({off.mean():.3g}; bound 1e-3); means "
+        f"within {np.quantile(e_m, 0.999):.3g} sd at p99.9 "
+        f"{'ok' if good else 'FAIL'}")
+    return ok and good, launches
+
+
+def fulltime_ops(tle, nq, iters, nt=FT_NT, dense=False):
+    """float32 operations per voxel of the full-time form: each of the
+    iters iterations evaluates the functor over the T samples (the
+    operations the function needs, models/kernelgen.py needed_ops: a
+    convolution's multiply-adds by its matrix's non-zeros, not by the
+    zeros the generated code reads too), forms each sample's latent Jacobian
+    row (P products) and residual, sums the per-group quadratics
+    (nl_pass_ops's model-free share) and solves (the Cholesky, the
+    inverse, the rhs and means, the phi update); the F pass evaluates once
+    more and sums J'Q_qJ and k'Q_qk. dense: the generated code's own
+    operations in place of the function's (its reads of known zeros
+    too)."""
+    p = tle.nparams
+    ntri = p * (p + 1) // 2
+    model = tle.value_ops + tle.tangent_ops if dense else tle.needed_ops
+    # nl_pass_ops without a model (nexp 0): its model share, P, is the
+    # chain factors' products
+    a_pass = nl_pass_ops(p, nq, 0, "A") * nt
+    f_pass = nl_pass_ops(p, nq, 0, "F") * nt
+    solve = (chol_ops(p) + inverse_ops(p) + nq * (2 * ntri + 2 * p)
+             + 2 * p * p + nq * (3 * ntri + 3 * p + 8))
+    return iters * (model + a_pass + solve) + model + f_pass
+
+
+def time_fulltime(device, card, nv=1_000_000):
+    """Phase 5l at 1,000,000 voxels (phase 5g's size; T=100, maxits 10,
+    fulltime_plane's data): kernel 6's full-time form for each model
+    (CUDA events, best of 3 after a warm-up) beside its plain version
+    (full_eval; once), its occupancy in MODEs 0-2, its block's shared
+    memory, ptxas's registers. Bound: the larger of the bytes (the data
+    plane and the inputs read once, the outputs written once) and the
+    float32 operations (fulltime_ops: the function's, the convolution's
+    products by its matrix's non-zeros included) at the card's peaks; the
+    generated code's own operations give gen_code_bound beside it."""
+    import torch
+    from fabber_core_tpu_torch.ops import _cuda
+    from fabber_core_tpu_torch.ops import fused_loop_nl as fl
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 52)
+    out = {}
+    for name in FT_NAMES:
+        tag = name.split("-")[0]
+        plane, _, _ = fulltime_plane(name, nv, gen, device)
+        eng = fulltime_engine(name, plane, device)
+        tr = eng._transforms()
+        args = eng.nl_loop_args(eng.initial_state())
+        tle = eng.functor
+        p = tle.nparams
+        out[f"{tag}_ms"] = best_ms(lambda: fl.fused_nl_loop(
+            eng.model, tr, *args, ITERS, True, functor=tle))
+        ev = fv.full_eval(tle.fn, tr)
+        out[f"{tag}_plain_ms"], _ = once_ms(lambda: fl.fused_nl_loop_plain(
+            None, tr, *args, ITERS, True, evaluator=ev))
+        nbytes = 4 * nv * (FT_NT + 3 * p + p + 2 * p * p + 4)
+        out[f"{tag}_bound"] = bound(nbytes,
+                                    fulltime_ops(tle, 1, ITERS) * nv)
+        out[f"{tag}_gen_code_bound"] = bound(
+            nbytes, fulltime_ops(tle, 1, ITERS, dense=True) * nv)
+        lib = tle.libs[("nl_loop_full", 1)]
+        out[f"{tag}_blocks_per_sm"] = [_cuda.gen_full_occupancy(lib, m)
+                                       for m in (0, 1, 2)]
+        out[f"{tag}_smem_bytes"] = int(lib.fabber_gen_full_smem())
+        out[f"{tag}_functor_ops"] = (tle.value_ops, tle.tangent_ops,
+                                     tle.needed_ops)
+        text = _cuda.gen_build_log.get(_cuda.generated_key(
+            tle.source, p, 1, "nl_loop_full"), (float("nan"), ""))[1]
+        out[f"{tag}_ptxas"] = [ptxas_entry(text, "fused_nl_loop_full_kernel",
+                                           f"Li1ELi{m}E") for m in (0, 1, 2)]
+        for k, v in out.items():
+            if k.startswith(tag):
+                log(f" {k} = {v!r}  [V={nv} T={FT_NT} P={p}; {card}]")
+        del plane, eng, args
+        torch.cuda.empty_cache()
+    return out
+
+
 def niced(level, fn, *args):
     """fn(*args) at nice level: Linux keeps a nice value per thread, and
     the threads and nvcc processes this one starts inherit it, so builds
@@ -6962,7 +7269,7 @@ def main():
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
     functors = [f + ("nl_loop",) for f in generic_functors()] \
-        + kernel_functors()
+        + kernel_functors() + fulltime_functors()
     gen_pool = ThreadPoolExecutor(len(functors))
     gens = [gen_pool.submit(niced, 5, _cuda.build_generated, tle.source, p,
                             q, kernel)
@@ -7017,9 +7324,10 @@ def main():
         secs, text = _cuda.gen_build_log.get(
             _cuda.generated_key(tle.source, p, q, kernel),
             (float("nan"), ""))
+        per = "evaluation" if tle.full_time else "sample"
         log(f"  generated {name} for {kernel} (P={p}, Q={q}, "
             f"{tle.value_ops} value + {tle.tangent_ops} tangent operations "
-            f"per sample): nvcc {secs:.1f} s")
+            f"per {per}, {tle.needed_ops} needed): nvcc {secs:.1f} s")
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas ({name}): {line.strip()}")
@@ -7039,6 +7347,10 @@ def main():
         "generated P=6 functor against their plain versions")
     ok3i, worst_wide = check_wide_nl_kernels(device)
     worst.update(worst_wide)
+    log("phase 3l: kernel 6's full-time form (models that mix time) "
+        "against its plain version")
+    ok3l, worst_ft = check_fulltime_kernels(device)
+    worst.update(worst_ft)
     # phase 4: the main paths through the API; each path's launch
     # counters are zeroed just before it and read just after it
     log("phase 4: run_with_data, 128x128x64 x 106, poly degree 2")
@@ -7146,6 +7458,8 @@ def main():
         "100), num-exps 20 (16x16x16) and 22 (16x16x8; by NLLS on 8x8x4)")
     ok4aa, nl_inst_launches = run_nl_instance_paths(device)
     launches.update(nl_inst_launches)
+    ok4ab, ft_launches = run_fulltime_path(device)
+    launches.update(ft_launches)
 
     # phase 5: timing at the headline sizes
     log("phase 5: timing at 16,777,216 voxels")
@@ -7179,6 +7493,9 @@ def main():
     log("phase 5k: kernels 6, 7 and 8's per-shape instances at 4,000,000 "
         "voxels (ExpSum<5>; biexp at Q = 6)")
     fig_nl_inst = time_nl_instances(device, card)
+    log("phase 5l: kernel 6's full-time form at 1,000,000 voxels (the "
+        "centred biexponential, the convolution, the shift; T=100)")
+    fig_ft = time_fulltime(device, card)
     nv_prof = int(np.prod(PROFILE_SHAPE))
     for name, key in (("spectral_stats_kernel", "stats_ms"),
                       ("spectral_core_kernel", "core_ms")):
@@ -7205,6 +7522,7 @@ def main():
               "wide_nl_kernels": ok3i, "wide_paths": ok4y,
               "wide_design_kernels": ok3j, "wide_design_paths": ok4z,
               "nl_instance_kernels": ok3k, "nl_instance_paths": ok4aa,
+              "fulltime_kernels": ok3l, "fulltime_path": ok4ab,
               "whole_p8_forms_bit_identical": ok5i,
               "vb_iter_forms_bit_identical":
                   fig_nl["vb_iter_staged_bits_equal_streamed"],
@@ -7331,7 +7649,13 @@ def main():
         kernels.append(entry(name, source, at, fig_nl_inst[f"{tag}_ms"],
                              fig_nl_inst[f"{plain}_plain_ms"],
                              fig_nl_inst[f"{tag}_bound"]))
+    # kernel 6's full-time form (phase 3l errors; 4ab launches; 5l times
+    # with the convolution at 1,000,000 voxels)
+    kernels.append(entry("fused_nl_loop:fulltime", "fused_nl_loop.cuh",
+                         nl_at, fig_ft["conv_ms"], fig_ft["conv_plain_ms"],
+                         fig_ft["conv_bound"]))
     missing = [name for name, _, _ in INSTANCE_ENTRIES + NL_INSTANCE_ENTRIES
+               + (("fused_nl_loop:fulltime", None, None),)
                if not launches[name]]
     if missing:
         log(f"FAILED: no launch on the main paths of {missing}")

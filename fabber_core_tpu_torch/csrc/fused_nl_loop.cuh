@@ -90,7 +90,9 @@
 
 #pragma once
 
+#include "coop_device.cuh"
 #include "detectors.cuh"
+#include "fulltime.cuh"
 #include "vb_device.cuh"
 
 namespace {
@@ -445,6 +447,367 @@ FABBER_UNROLL
   }
 }
 
+// ---- the full-time form: a warp per voxel -------------------------------
+//
+// The TPU kernel's generic full-time mode for a model that mixes time (its
+// functor M from models/kernelgen.py's full-time walk, csrc/fulltime.cuh's
+// contract): one voxel a block of kCoopThreads threads, its state in the
+// block's shared memory (FullLayout), the pieces of kernel 7's cooperative
+// form (coop_device.cuh). Per iteration:
+//   model    M::run at the centre, every lane: the signal and the
+//            model-space Jacobian of the T samples into the out plane;
+//   pass     per chunk of kCoopChunk samples, lane c takes sample t0 + c:
+//            its latent-space Jacobian row (times the chain factors) into
+//            column c, r = y - g, the group weights; then per group J'Q_qJ
+//            and J'Q_q r (coop_sums, a thread a packed entry, kTB samples
+//            into a block sum, the blocks into the total) and r'Q_q r
+//            (coop_kqk);
+//   test     (MODEs 1-2) the deferred test of the last iteration, every
+//            lane on the same shared values (so every lane takes the same
+//            branch), with the best-state saves of MODE 2;
+//   solve    prec and rhs a thread an entry, the column Cholesky with the
+//            jitter retry, the inverse, the means; lm's damped step;
+//   update   k'Q_qk by the exact expansion and the phi update, a thread a
+//            group;
+// then the F pass (MODE 0 with need_f, and the last test) at the final
+// means. The arithmetic of each entry is the per-lane kernel's; only the
+// order of the sums over samples within a chunk's blocks is the same
+// two-level one, and the model is the functor's own loops. The voxel's
+// samples are staged in shared memory once; the [T, Q] group weights are
+// read through the read-only cache (one copy for every voxel). What bounds
+// it is the functor's work (each evaluation's lines over T samples and,
+// for a contraction, T^2 (P + 1) multiply-adds) and the chunks' barriers;
+// its shared memory bounds the shapes (ops/_cuda.py fulltime_smem, checked
+// here by a static_assert), and one warp a block caps an SM at 32 blocks.
+
+template <class M, int Q>
+struct FullLayout {
+  static constexpr int P = M::P, NT = P * (P + 1) / 2, T = M::NT;
+  static constexpr int JS = kCoopChunk + 1;   // a Jacobian row's stride
+  static constexpr int sums = 0;              // [Q][NT] J'Q_qJ
+  static constexpr int jtr = sums + Q * NT;   // [Q][P]  J'Q_q r
+  static constexpr int rqr = jtr + Q * P;     // [Q]     r'Q_q r
+  static constexpr int jac = rqr + Q;         // [P][JS] the chunk's rows
+  static constexpr int wts = jac + P * JS;    // [Q][kCoopChunk]
+  static constexpr int res = wts + Q * kCoopChunk;   // [kCoopChunk]
+  static constexpr int prec = res + kCoopChunk;      // [NT] each
+  static constexpr int ch = prec + NT, inv = ch + NT, dch = inv + NT,
+                       cov = dch + NT;
+  static constexpr int vec = cov + NT;        // [P] each
+  static constexpr int centre = vec, pm = vec + P, pp = vec + 2 * P,
+                       mrow = vec + 3 * P, chain = vec + 4 * P,
+                       rhs = vec + 5 * P, means = vec + 6 * P,
+                       d = vec + 7 * P, x = vec + 8 * P;
+  static constexpr int grp = vec + 9 * P;     // [Q] each
+  static constexpr int b = grp, c = grp + Q, phi = grp + 2 * Q,
+                       tr = grp + 3 * Q;
+  static constexpr int col = grp + 4 * Q;     // [T] the voxel's samples
+  static constexpr int out = col + T;         // [(P+1) T] the model
+  static constexpr int fn = out + (P + 1) * T;   // M::SMEM the functor's
+  static constexpr int floats = fn + M::SMEM;
+  static constexpr long long bytes = 4LL * floats;
+};
+
+// The model at rows mrow (model space, shared) into the out plane, then
+// the per-group sums over the samples: J'Q_qJ into sums, with WITH_R
+// J'Q_q r into jtr, and r'Q_q r (r = y - g) into rqr, zeroed first.
+template <class M, int Q, bool WITH_R>
+__device__ __forceinline__ void full_pass(float* sh, const float* sv,
+                                          const float* __restrict__ cst,
+                                          const float* __restrict__ qw) {
+  using L = FullLayout<M, Q>;
+  constexpr int P = M::P, T = M::NT;
+  const int tid = (int)threadIdx.x;
+  float m[P];
+  for (int i = 0; i < P; ++i) m[i] = sh[L::mrow + i];
+  fabber::gen::run_dual<M>(m, sv, cst, sh + L::fn, sh + L::out, tid,
+                           kCoopThreads);
+  coop_zero(sh + L::sums, Q * (L::NT + P + 1));   // sums, jtr, rqr adjacent
+  const float* out = sh + L::out;
+  for (int t0 = 0; t0 < T; t0 += kCoopChunk) {
+    const int nc = min(kCoopChunk, T - t0);
+    if (tid < nc) {
+      const int t = t0 + tid;
+      for (int i = 0; i < P; ++i)
+        sh[L::jac + i * L::JS + tid] =
+            out[(1 + i) * T + t] * sh[L::chain + i];
+      sh[L::res + tid] = sh[L::col + t] - out[t];
+      for (int q = 0; q < Q; ++q)
+        sh[L::wts + q * kCoopChunk + tid] = __ldg(qw + t * Q + q);
+    }
+    __syncthreads();
+    coop_sums<P>(sh + L::sums, WITH_R ? sh + L::jtr : nullptr, Q,
+                 sh + L::jac, sh + L::wts, sh + L::res, nc);
+    if (tid < nc) sh[L::res + tid] = sh[L::res + tid] * sh[L::res + tid];
+    __syncthreads();
+    coop_kqk<Q>(sh + L::rqr, qw, sh + L::res, t0, nc);
+  }
+}
+
+// the model rows and chain factors at the latent means lat (shared)
+template <int P, class K>
+__device__ __forceinline__ void full_rows(const K& k, const float* lat,
+                                          float* mrow, float* chain) {
+  for (int i = (int)threadIdx.x; i < P; i += kCoopThreads) {
+    mrow[i] = to_model(k.tcode[i], lat[i]);
+    chain[i] = chain_factor(k.tcode[i], lat[i]);
+  }
+  __syncthreads();
+}
+
+// the voxel's state into its output columns, a thread an entry
+template <int P, int Q>
+__device__ __forceinline__ void full_store_state(
+    const float* means, const float* prec, const float* cov, const float* b,
+    const float* c, float* __restrict__ means_out, float* __restrict__ prec_out,
+    float* __restrict__ cov_out, float* __restrict__ b_out,
+    float* __restrict__ c_out, long long V, long long v) {
+  const int tid = (int)threadIdx.x;
+  for (int i = tid; i < P; i += kCoopThreads)
+    means_out[(size_t)i * V + v] = means[i];
+  coop_store_full<P>(prec, prec_out, V, v);
+  coop_store_full<P>(cov, cov_out, V, v);
+  for (int q = tid; q < Q; q += kCoopThreads) {
+    b_out[(size_t)q * V + v] = b[q];
+    c_out[(size_t)q * V + v] = c[q];
+  }
+}
+
+// The full-time form's kernel: fused_nl_loop_kernel's parameters and
+// outputs and the functor's constants cst; one voxel a block of
+// kCoopThreads, FullLayout's shared memory.
+template <class M, int Q, int MODE>
+__global__ void __launch_bounds__(kCoopThreads)
+fused_nl_loop_full_kernel(const VBParamsFor<M::P, Q> k,
+                          const NLDetConstsFor<Q> dc,
+                          const float* __restrict__ centre0,
+                          const float* __restrict__ pm_in,
+                          const float* __restrict__ pp_in,
+                          const float* __restrict__ pd0_in,
+                          const float* __restrict__ data,
+                          const float* __restrict__ supp,
+                          const float* __restrict__ qw,
+                          const float* __restrict__ cst,
+                          float* __restrict__ means_out,
+                          float* __restrict__ prec_out,
+                          float* __restrict__ cov_out,
+                          float* __restrict__ b_out, float* __restrict__ c_out,
+                          float* __restrict__ fkqk_out,
+                          float* __restrict__ ftr_out) {
+  using L = FullLayout<M, Q>;
+  constexpr int P = M::P, NS = M::NS, NT = L::NT, T = M::NT;
+  constexpr bool kDet = MODE != 0, kBest = MODE == 2;
+  static_assert(L::bytes <= kMaxBlockSmem,
+                "the voxel's state in one block's shared memory");
+  const long long V = k.V, v = blockIdx.x;
+  const int tid = (int)threadIdx.x;
+  float* const sh = dynamic_smem();
+  float *sums = sh + L::sums, *jtr = sh + L::jtr, *rqr = sh + L::rqr,
+        *prec = sh + L::prec, *ch = sh + L::ch, *inv = sh + L::inv,
+        *dch = sh + L::dch, *cov = sh + L::cov;
+  float *centre = sh + L::centre, *pm = sh + L::pm, *pp = sh + L::pp,
+        *mrow = sh + L::mrow, *chain = sh + L::chain, *rhs = sh + L::rhs,
+        *means = sh + L::means, *d = sh + L::d, *x = sh + L::x;
+  float *b = sh + L::b, *c = sh + L::c, *phi = sh + L::phi, *tr = sh + L::tr;
+
+  for (int i = tid; i < P; i += kCoopThreads) {
+    centre[i] = centre0[(size_t)i * V + v];
+    means[i] = centre[i];
+    pm[i] = pm_in[(size_t)i * V + v];
+    pp[i] = pp_in[(size_t)i * V + v];
+  }
+  for (int q = tid; q < Q; q += kCoopThreads) {
+    b[q] = k.b_init[q];
+    c[q] = k.c_init[q];
+  }
+  for (int e = tid; e < NT; e += kCoopThreads) prec[e] = cov[e] = 0.f;
+  for (int t = tid; t < T; t += kCoopThreads)
+    sh[L::col + t] = data[(size_t)t * V + v];
+  // the voxel's suppdata, in every lane's registers (NS = 0: none)
+  float sv[NS > 0 ? NS : 1];
+  for (int i = 0; i < NS; ++i) sv[i] = supp[(size_t)i * V + v];
+  __syncthreads();
+
+  // detector lanes (dead code in MODE 0), the same in every thread
+  DetState cv = fabber::det_init(dc.d);
+  const bool freduce = MODE == 1 && dc.d.kind == fabber::kFreduce;
+  const bool with_lm = kBest && dc.d.kind == fabber::kLM;
+  float logdet = 0.f, f_st = 0.f, rev_f = 0.f, part3 = 0.f, b_f = 0.f;
+  if constexpr (kDet) {
+    part3 = dc.f_const;
+    for (int i = 0; i < P; ++i) part3 = part3 + 0.5f * logf(pp[i]);
+  }
+
+  for (int it = 0; it < k.n_iters; ++it) {
+    for (int q = tid; q < Q; q += kCoopThreads) phi[q] = b[q] * c[q];
+    full_rows<P>(k, centre, mrow, chain);
+    full_pass<M, Q, true>(sh, sv, cst, qw);
+
+    if constexpr (kDet) {
+      // the deferred test of iteration it-1 (fused_nl_loop_kernel's)
+      coop_traces<P, Q>(cov, sums, tr);
+      float cdiag[P];
+      for (int i = 0; i < P; ++i) cdiag[i] = cov[tri(i, i)];
+      const float f_here = assemble_f<P, Q>(k, dc, part3, centre, b, c,
+                                            cdiag, logdet, rqr, tr, pm, pp);
+      if (freduce && it == 0) {
+        float pd0[P], tr0[Q];
+        float ld0 = 0.f, base = dc.f_const_init;
+        for (int i = 0; i < P; ++i) {
+          pd0[i] = pd0_in[(size_t)i * V + v];
+          ld0 = ld0 - logf(pd0[i]);
+          base = base + 0.5f * logf(pp[i]);
+        }
+        for (int q = 0; q < Q; ++q) {
+          float s = 0.f;
+          for (int i = 0; i < P; ++i)
+            s = s + pd0[i] * sums[q * NT + tri(i, i)];
+          tr0[q] = s;
+        }
+        rev_f = assemble_f<P, Q>(k, dc, base, centre, b, c, pd0, ld0, rqr,
+                                 tr0, pm, pp);
+      }
+      if (it >= 1) {
+        const bool reduced = f_here - cv.prev_f < 0.f;
+        fabber::det_test(dc.d, cv, f_here);
+        f_st = (freduce && reduced) ? rev_f : f_here;
+        if constexpr (kBest) {
+          if (cv.save) {
+            full_store_state<P, Q>(centre, prec, cov, b, c, means_out,
+                                   prec_out, cov_out, b_out, c_out, V, v);
+            b_f = f_here;
+          }
+        }
+        if (cv.done) break;   // every thread: the same test
+      }
+      __syncthreads();   // the test's reads before the solve's writes
+    }
+
+    // ---- solve (Eq 19/20), posterior_solve's arithmetic ------------------
+    for (int e = tid; e < NT; e += kCoopThreads) {
+      int i, j;
+      untri(e, i, j);
+      float val = 0.f;
+      for (int q = 0; q < Q; ++q) val = val + phi[q] * sums[q * NT + e];
+      if (i == j) val = val + pp[i];
+      prec[e] = val;
+    }
+    for (int a = tid; a < P; a += kCoopThreads) {
+      float val = 0.f;
+      for (int q = 0; q < Q; ++q) {
+        float g = jtr[q * P + a];
+        for (int j = 0; j < P; ++j)
+          g = g + sums[q * NT + tri(a, j)] * centre[j];
+        val = val + phi[q] * g;
+      }
+      rhs[a] = val + pp[a] * pm[a];
+    }
+    __syncthreads();
+    coop_cholesky_jittered<P>(prec, ch);
+    coop_inverse<P>(ch, inv, cov);
+    for (int i = tid; i < P; i += kCoopThreads) {
+      float m = 0.f;
+      for (int j = 0; j < P; ++j) m = m + cov[tri(i, j)] * rhs[j];
+      means[i] = m;
+    }
+    __syncthreads();
+    if constexpr (kBest) {
+      if (with_lm && cv.alpha > 0.f) {
+        // the LM-damped step (fused_nl_loop_kernel's)
+        for (int e = tid; e < NT; e += kCoopThreads) {
+          int i, j;
+          untri(e, i, j);
+          inv[e] = prec[e] + (i == j ? cv.alpha * prec[tri(i, i)] : 0.f);
+        }
+        for (int i = tid; i < P; i += kCoopThreads) {
+          float s = pp[i] * (pm[i] - centre[i]);
+          for (int q = 0; q < Q; ++q) s = s + phi[q] * jtr[q * P + i];
+          x[i] = s;
+        }
+        __syncthreads();
+        coop_cholesky_jittered<P>(inv, dch);
+        if (tid == 0) {
+          chol_solve<P>(dch, x);
+          for (int i = 0; i < P; ++i) means[i] = centre[i] + x[i];
+        }
+        __syncthreads();
+      }
+    }
+
+    // ---- k'Q_qk by exact expansion, then the phi update (Eq 21/22) ------
+    for (int i = tid; i < P; i += kCoopThreads) d[i] = centre[i] - means[i];
+    __syncthreads();
+    for (int q = tid; q < Q; q += kCoopThreads) {
+      const float* jtj = sums + q * NT;
+      float kq = rqr[q];
+      for (int a = 0; a < P; ++a) kq = kq + 2.f * d[a] * jtr[q * P + a];
+      for (int i = 0; i < P; ++i) {
+        for (int j = 0; j <= i; ++j) {
+          const float dd = d[i] * d[j];
+          kq = kq + (i == j ? dd : 2.f * dd) * jtj[tri(i, j)];
+        }
+      }
+      const float kqk = fmaxf(kq, 0.f);
+      const float trq = trace_packed<P>(cov, jtj);
+      float bq = 1.f / ((kqk + trq) * 0.5f + k.inv_b0[q]);
+      const float cq = k.c_post[q];
+      if (k.locked_sd > 0.f) bq = 1.f / cq / (k.locked_sd * k.locked_sd);
+      b[q] = bq;
+      c[q] = cq;
+    }
+    for (int i = tid; i < P; i += kCoopThreads) centre[i] = means[i];
+    if constexpr (kDet) {
+      float ld = 0.f;
+      for (int i = 0; i < P; ++i) ld = ld + 2.f * logf(ch[tri(i, i)]);
+      logdet = ld;
+    }
+    __syncthreads();
+  }
+
+  if constexpr (!kDet) {
+    full_store_state<P, Q>(means, prec, cov, b, c, means_out, prec_out,
+                           cov_out, b_out, c_out, V, v);
+    if (k.need_f) {
+      full_rows<P>(k, means, mrow, chain);
+      full_pass<M, Q, false>(sh, sv, cst, qw);
+      coop_traces<P, Q>(cov, sums, tr);
+    }
+    for (int q = tid; q < Q; q += kCoopThreads) {
+      fkqk_out[(size_t)q * V + v] = k.need_f ? rqr[q] : 0.f;
+      ftr_out[(size_t)q * V + v] = k.need_f ? tr[q] : 0.f;
+    }
+  } else {
+    if (!cv.done) {
+      // the last iteration's test, on the F pass at the final means
+      full_rows<P>(k, centre, mrow, chain);
+      full_pass<M, Q, false>(sh, sv, cst, qw);
+      coop_traces<P, Q>(cov, sums, tr);
+      float cdiag[P];
+      for (int i = 0; i < P; ++i) cdiag[i] = cov[tri(i, i)];
+      const float f_last = assemble_f<P, Q>(k, dc, part3, centre, b, c,
+                                            cdiag, logdet, rqr, tr, pm, pp);
+      const bool reduced = f_last - cv.prev_f < 0.f;
+      fabber::det_test(dc.d, cv, f_last);
+      f_st = (freduce && reduced) ? rev_f : f_last;
+    }
+    // the engine's finalize, as fused_nl_loop_kernel's
+    const bool keep_best = kBest && cv.revert && !cv.save;
+    if (keep_best)
+      f_st = b_f;
+    else
+      full_store_state<P, Q>(centre, prec, cov, b, c, means_out, prec_out,
+                             cov_out, b_out, c_out, V, v);
+    if (tid == 0) {
+      fkqk_out[v] = f_st;
+      ftr_out[v] = (float)cv.its;
+      if (freduce) {
+        fkqk_out[(size_t)V + v] = cv.revert ? 1.f : 0.f;
+        ftr_out[(size_t)V + v] = 0.f;
+      }
+    }
+  }
+}
+
 // The by-value blocks of a launch from the C entry points' host arrays
 // (see fabber_fused_nl_loop in fused_nl_loop.cu for their layout) into
 // host blocks with room for p codes and q groups (VBParams and
@@ -557,6 +920,43 @@ int occupancy(int mode, int vb, long long smem) {
   return launch<M, Q>(k, dc, vb, smem, nullptr, nullptr, nullptr, &occ) == 0
              ? occ
              : -1;
+}
+
+// The full-time form's launch (one voxel a block of kCoopThreads, its
+// FullLayout in dynamic shared memory; nt must be the functor's NT), or
+// (occ not null) its blocks per SM. mode: see launch.
+template <class M, int Q, int MODE, class HK, class HD>
+int launch_full_mode(const HK& k, const HD& dc, const float* const* ins,
+                     float* const* outs, cudaStream_t stream, int* occ) {
+  const auto kernel = fused_nl_loop_full_kernel<M, Q, MODE>;
+  constexpr long long smem = FullLayout<M, Q>::bytes;
+  const int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != 0) return err;
+  if (occ != nullptr) {
+    *occ = tile_occupancy(kernel, kCoopThreads, smem);
+    return 0;
+  }
+  kernel<<<(unsigned)k.V, kCoopThreads, smem, stream>>>(
+      params_for<M::P, Q>(k), det_consts_for<Q>(dc), ins[0], ins[1], ins[2],
+      ins[3], ins[4], ins[5], ins[6], ins[7], outs[0], outs[1], outs[2],
+      outs[3], outs[4], outs[5], outs[6]);
+  return (int)cudaGetLastError();
+}
+
+template <class M, int Q, class HK, class HD>
+int launch_full(const HK& k, const HD& dc, const float* const* ins,
+                float* const* outs, cudaStream_t stream, int* occ = nullptr) {
+  if (k.nt != M::NT) return (int)cudaErrorInvalidValue;
+  switch (dc.d.kind) {
+    case fabber::kMaxits:
+      return launch_full_mode<M, Q, 0>(k, dc, ins, outs, stream, occ);
+    case fabber::kPointZeroOne:
+    case fabber::kFreduce:
+      return launch_full_mode<M, Q, 1>(k, dc, ins, outs, stream, occ);
+    default:
+      return launch_full_mode<M, Q, 2>(k, dc, ins, outs, stream, occ);
+  }
 }
 
 }  // namespace

@@ -60,6 +60,7 @@
 
 #pragma once
 
+#include "coop_device.cuh"
 #include "vb_device.cuh"
 
 namespace {
@@ -267,7 +268,9 @@ FABBER_UNROLL
 //           the covariance of twelve exponentials holds entries of 1e10);
 //   pass C  (need_f) the same at the new means.
 // No warp shuffles: the threads meet at __syncthreads, so the host shim
-// (tests/torch_hostcc.py) runs a block's threads as lanes. The bound of
+// (tests/torch_hostcc.py) runs a block's threads as lanes. The pieces it
+// shares with kernel 6's full-time form (the chunk sums, the column
+// Cholesky, the inverse, the traces) live in coop_device.cuh. The bound of
 // the form is its shared memory: kCoopMaxP (vb_device.cuh) is the largest
 // P whose folded state one block holds.
 // true in a unit that launches this form, false in one that launches the
@@ -279,9 +282,6 @@ constexpr bool kIterCoop = true;
 #else
 constexpr bool kIterCoop = false;
 #endif
-constexpr int kCoopThreads = 32;
-constexpr int kCoopChunk = kCoopThreads;   // samples per chunk, one a thread
-static_assert(kCoopChunk % kTB == 0, "chunks of whole time blocks");
 constexpr int kCoopFoldSums = 1024;
 
 template <int P, int Q>
@@ -319,14 +319,6 @@ static_assert(CoopLayout<nl::kCoopMaxP, nl::kWideMaxQ>::bytes <=
                   CoopLayout<nl::kCoopMaxP + 1, nl::kWideMaxQ>::bytes >
                       kMaxBlockSmem,
               "kCoopMaxP: the largest P whose state one block holds");
-
-// (i, j <= i) of the packed index e
-__device__ __forceinline__ void untri(int e, int& i, int& j) {
-  i = (int)((sqrtf(8.f * (float)e + 1.f) - 1.f) * 0.5f);
-  while (i * (i + 1) / 2 > e) --i;
-  while ((i + 1) * (i + 2) / 2 <= e) ++i;
-  j = e - i * (i + 1) / 2;
-}
 
 // One chunk [t0, t0 + nc): thread c < nc evaluates the model at sample t0
 // + c (rows mrow, chain): its Jacobian row into column c of jac (JAC),
@@ -373,136 +365,6 @@ __device__ __forceinline__ void coop_chunk(const float* mrow,
   __syncthreads();
 }
 
-// each thread's slice of ns packed sums [ns][NT] (and, with rvec, of the
-// [ns][P] sums J'W r) over the chunk, weights wts[ns][kCoopChunk]: kTB
-// samples into a block sum, the blocks into the total
-template <int P>
-__device__ __forceinline__ void coop_sums(float* sums, float* rvec, int ns,
-                                          const float* jac,
-                                          const float* wts,
-                                          const float* res, int nc) {
-  constexpr int NT = P * (P + 1) / 2, JS = kCoopChunk + 1;
-  for (int e = (int)threadIdx.x; e < ns * NT; e += kCoopThreads) {
-    const int s = e / NT;
-    int i, j;
-    untri(e - s * NT, i, j);
-    const float* w = wts + s * kCoopChunk;
-    float tot = sums[e];
-    for (int b0 = 0; b0 < nc; b0 += kTB) {
-      const int b1 = min(b0 + kTB, nc);
-      float bs = 0.f;
-      for (int c = b0; c < b1; ++c) {
-        const float wj = w[c] * jac[i * JS + c];
-        bs = bs + wj * jac[j * JS + c];
-      }
-      tot = tot + bs;
-    }
-    sums[e] = tot;
-  }
-  if (rvec != nullptr) {
-    for (int e = (int)threadIdx.x; e < ns * P; e += kCoopThreads) {
-      const int s = e / P, i = e - s * P;
-      const float* w = wts + s * kCoopChunk;
-      float tot = rvec[e];
-      for (int b0 = 0; b0 < nc; b0 += kTB) {
-        const int b1 = min(b0 + kTB, nc);
-        float bs = 0.f;
-        for (int c = b0; c < b1; ++c) {
-          const float wj = w[c] * jac[i * JS + c];
-          bs = bs + wj * res[c];
-        }
-        tot = tot + bs;
-      }
-      rvec[e] = tot;
-    }
-  }
-  __syncthreads();
-}
-
-// per group k'Q_qk over the chunk (res holds k^2), a thread a group
-template <int Q>
-__device__ __forceinline__ void coop_kqk(float* kqk,
-                                         const float* __restrict__ qw,
-                                         const float* res, int t0, int nc) {
-  for (int q = (int)threadIdx.x; q < Q; q += kCoopThreads) {
-    float tot = kqk[q];
-    for (int b0 = 0; b0 < nc; b0 += kTB) {
-      const int b1 = min(b0 + kTB, nc);
-      float bk = 0.f;
-      for (int c = b0; c < b1; ++c)
-        bk = bk + __ldg(qw + (t0 + c) * Q + q) * res[c];
-      tot = tot + bk;
-    }
-    kqk[q] = tot;
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ void coop_zero(float* x, int n) {
-  for (int e = (int)threadIdx.x; e < n; e += kCoopThreads) x[e] = 0.f;
-  __syncthreads();
-}
-
-// the packed lower factor ch of a, vb_device.cuh cholesky's arithmetic
-// (no jitter): column i's diagonal by thread 0, its rows below a thread
-// each
-template <int P>
-__device__ __forceinline__ void coop_cholesky(const float* a, float* ch) {
-  const int tid = (int)threadIdx.x;
-  for (int i = 0; i < P; ++i) {
-    if (tid == 0) {
-      float s = a[tri(i, i)];
-      for (int k = 0; k < i; ++k) s = s - ch[tri(i, k)] * ch[tri(i, k)];
-      ch[tri(i, i)] = sqrtf(s);
-    }
-    __syncthreads();
-    const float inv_d = 1.f / ch[tri(i, i)];
-    for (int j = i + 1 + tid; j < P; j += kCoopThreads) {
-      float s2 = a[tri(j, i)];
-      for (int k = 0; k < i; ++k) s2 = s2 - ch[tri(j, k)] * ch[tri(i, k)];
-      ch[tri(j, i)] = s2 * inv_d;
-    }
-    __syncthreads();
-  }
-}
-
-// cov = L^-T L^-1 from the packed factor, inverse_from_chol's arithmetic:
-// L^-1 (into inv) a row a thread, cov an entry a thread
-template <int P>
-__device__ __forceinline__ void coop_inverse(const float* ch, float* inv,
-                                             float* cov) {
-  constexpr int NT = P * (P + 1) / 2;
-  const int tid = (int)threadIdx.x;
-  for (int i = tid; i < P; i += kCoopThreads) {
-    inv[tri(i, i)] = 1.f / ch[tri(i, i)];
-    for (int j = i - 1; j >= 0; --j) {
-      float s = 0.f;
-      for (int k = j + 1; k <= i; ++k) s = s + ch[tri(k, j)] * inv[tri(i, k)];
-      inv[tri(i, j)] = -s / ch[tri(j, j)];
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < NT; e += kCoopThreads) {
-    int i, j;
-    untri(e, i, j);
-    float s = 0.f;
-    for (int k = i; k < P; ++k) s = s + inv[tri(k, i)] * inv[tri(k, j)];
-    cov[e] = s;
-  }
-  __syncthreads();
-}
-
-// tr(Sigma J'Q_qJ) of the groups' sums [Q][NT] (trace_packed's order), a
-// thread a group
-template <int P, int Q>
-__device__ __forceinline__ void coop_traces(const float* cov,
-                                            const float* sums, float* tr) {
-  constexpr int NT = P * (P + 1) / 2;
-  for (int q = (int)threadIdx.x; q < Q; q += kCoopThreads)
-    tr[q] = trace_packed<P>(cov, sums + q * NT);
-  __syncthreads();
-}
-
 // the folded form's traces at rows mrow, chain: a pass per group for
 // J'Q_qJ alone (into buf), then its trace by one thread
 template <class M, int Q>
@@ -524,15 +386,6 @@ __device__ __forceinline__ void coop_group_traces(
     if (threadIdx.x == 0) tr[q] = trace_packed<P>(cov, buf);
     __syncthreads();
   }
-}
-
-// packed symmetric -> full P x P planes [P*P, V], an entry a thread
-template <int P>
-__device__ __forceinline__ void coop_store_full(const float* packed,
-                                                float* __restrict__ out,
-                                                long long V, long long v) {
-  for (int e = (int)threadIdx.x; e < P * P; e += kCoopThreads)
-    out[(size_t)e * V + v] = packed[tri(e / P, e % P)];
 }
 
 // The cooperative form's kernel: fused_vb_iter_kernel's parameters and

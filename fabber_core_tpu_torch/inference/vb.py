@@ -45,9 +45,13 @@ interacting use_* flags (vb.py:340-660). The live ones:
                   (ops/fused_loop_nl.py; vb.py:593-660, 1132-1326),
                   maxits or any of the four F-based detectors in-kernel;
                   also, in its generic full-time mode, models with only
-                  an evaluate that the probe admits (data-free,
-                  time-local, every op known: models/kernelgen.py), on
-                  the card through a functor generated from evaluate;
+                  an evaluate that the probe admits (data-free, every op
+                  known: models/kernelgen.py), on the card through a
+                  functor generated from evaluate: a time-local one a
+                  voxel a thread, one that mixes time (a sum over time,
+                  a flip, a slice, a concatenation, a pad, a contraction
+                  with a constant matrix) in the kernel's full-time
+                  form, a warp a voxel;
   pallas          the same models, one fused-iteration kernel launch
                   per iteration (ops/fused_vb.py; vb.py:340-366,
                   891-951): save-free-energy-history, continuation
@@ -635,7 +639,10 @@ class VBInference:
         time_signal), built now (_require_functor). Kernels 4, 5 and 9
         serve every shape the route gate gives them: a prebuilt instance
         (FABBER_WHOLE_INSTANCES, FABBER_AR_INSTANCES) or a per-shape one.
-        Per-shape instances are built at the route's first launch
+        A model that mixes time runs kernel 6's full-time form, a warp a
+        voxel, where its block fits one block's shared memory
+        (_require_fulltime_fits; else it raises here, ROADMAP Queue 3 item
+        35). Per-shape instances are built at the route's first launch
         (ops/_cuda.py build_instance; whole_instantiated,
         ar_instantiated, nl_instantiated). A run with none (kernel 7
         past csrc/vb_device.cuh kCoopMaxP, the largest P whose state its
@@ -661,9 +668,42 @@ class VBInference:
             if r not in FUNCTOR_ROUTES or (r == "pallas"
                                            and self.generic is not None):
                 return False
-            return generatable(self._gen_functor, p, nq, FUNCTOR_ROUTES[r])
+            return generatable(self._gen_functor, p, nq, self._kernel(r))
+        self._require_fulltime_fits(route)
         require_card_instance(route, p, nq, has_instance, functor_ok)
         self._require_functor(route)
+
+    def _kernel(self, route):
+        """The GEN_KERNELS key of route's kernel for a generated functor:
+        FUNCTOR_ROUTES', or the generic functor's own on the whole-loop
+        route ("nl_loop_full" for a full-time one)."""
+        if route == "pallas-loop-nl" and self.generic is not None:
+            return self.generic.kernel
+        return FUNCTOR_ROUTES[route]
+
+    def _require_fulltime_fits(self, route):
+        """Raise NotImplementedError, before anything is built, where a
+        model that mixes time passes the JAX gate for kernel 6 but its
+        full-time form's block (the fixed point's state, the voxel's
+        samples, the model's signal and Jacobian and the functor's
+        planes) exceeds one block's shared memory (ops/_cuda.py
+        fulltime_smem; ROADMAP Queue 3 item 35)."""
+        g = self.generic
+        if route != "pallas-loop-nl" or g is None or not g.full_time:
+            return
+        nq = self.noise.nphis
+        need = _cuda.fulltime_smem(self.nparams, nq, self.nt, g.smem_floats)
+        if need > _cuda.MAX_BLOCK_SMEM:
+            raise NotImplementedError(
+                f"the full-time form of kernel 6 holds a voxel's state, its "
+                f"{self.nt} samples, the model's signal and Jacobian and the "
+                f"functor's planes in one block's shared memory: {need} "
+                f"bytes at P={self.nparams}, Q={nq}, over the "
+                f"{_cuda.MAX_BLOCK_SMEM} a block may take (ops/_cuda.py "
+                "fulltime_smem; ROADMAP Queue 3 item 35), so the "
+                "'pallas-loop-nl' route cannot run this on the card, where "
+                "the JAX engine runs its kernel; device='cpu' runs the "
+                "route's plain version")
 
     @functools.cached_property
     def _gen_functor(self):
@@ -678,13 +718,15 @@ class VBInference:
         where the model has no hand-written functor, or its functor no
         prebuilt or per-shape instance at the run's (P, Q): the generated
         one (require_card_instance admitted it), built (or loaded) now
-        into functor.libs[(kernel, Q)]. A failed build raises."""
+        into functor.libs[(kernel, Q)] (kernel 6's full-time form,
+        "nl_loop_full", for a functor of the full-time walk). A failed
+        build raises."""
         nq = self.noise.nphis
         if route not in FUNCTOR_ROUTES or (
                 self.generic is None and nl_instantiated(
                     self.model.kernel_model(), nq, FUNCTOR_ROUTES[route])):
             return
-        kernel = FUNCTOR_ROUTES[route]
+        kernel = self._kernel(route)
         functor = self._gen_functor
         functor.libs[(kernel, nq)] = _cuda.build_generated(
             functor.source, self.nparams, nq, kernel)

@@ -1,5 +1,5 @@
-"""Time-local derivation of a model for the whole-loop kernel, and the
-CUDA model functor generated from it.
+"""Derivation of a model for the whole-loop kernel, and the CUDA model
+functor generated from it.
 
 Port of fabber_core_tpu/models/base.py derive_time_local_eval
 (:254-352). The JAX package traces a plugin's plain ``evaluate`` into a
@@ -8,19 +8,26 @@ Pallas kernel vmap it over the voxel lanes. A CUDA kernel cannot trace
 a torch function, so here the trace is turned into C++:
 
   probe     torch.fx make_fx (fake tensors, so value-dependent control
-            flow fails the trace) of model.evaluate(params [P],
-            EvalContext(data=<forbidden>, coords=<forbidden>,
-            suppdata=supp [S] or None, nt=nt)); every use of a forbidden
-            sentinel raises, a presence check like ``ctx.data is None``
-            included, since it takes the data branch;
+            flow fails the trace; tensors the model closes over, such as
+            a convolution matrix, enter as real constants) of
+            model.evaluate(params [P], EvalContext(data=<forbidden>,
+            coords=<forbidden>, suppdata=supp [S] or None, nt=nt)); every
+            use of a forbidden sentinel raises, a presence check like
+            ``ctx.data is None`` included, since it takes the data branch;
   walk      each aten node of the graph against an allowlist (the torch
             counterpart of _KERNEL_SAFE_PRIMITIVES), with the time axis
             tracked by where it came from: arange(ctx.nt) becomes the
-            scalar sample index t. An op that selects, slices, reverses,
-            permutes the elements of or reduces along that axis rejects
-            the model, as does an op outside the allowlist (a custom
+            sample index t. The per-sample walk (_Gen) admits a model
+            whose every op is time-local, and rejects one that selects,
+            slices, reverses, permutes the elements of or reduces along
+            that axis, an op outside the allowlist (a custom
             autograd.Function or custom op among them) or an output that
-            is not [nt];
+            is not [nt]. Where it rejects, the full-time walk (_FullGen)
+            admits the time-mixing ops of the JAX allowlist too (the
+            torch counterparts of reduce_*, rev, slice, concatenate, pad
+            and a dot_general that contracts time with a parameter-free
+            operand); cumsum, sort, a gather by a tensor index and the
+            rest stay refused, as they are in the JAX probe;
   generate  each node becomes lines of a C++ functor in a scalar type,
             the non-time axes unrolled. Values that depend on the
             parameters are of type S (a forward dual number in the
@@ -28,10 +35,18 @@ a torch function, so here the trace is turned into C++:
             kernel), so a value that does not depend on the parameters
             carries no tangent (one that does carries all P).
 
-The JAX probe admits models that reduce over time (its allowlist has
-reduce_sum, rev and pad); this one does not: such a model keeps the
-generic-Jacobian route (ROADMAP Queue 3 item 19). A rejected model is a
-route decision made before any launch, never a fallback after a failure.
+The per-sample walk's functor gives the signal at one sample
+(``eval(m, supp, t, dt, jac)``, csrc/vb_device.cuh's contract), and the
+whole-loop kernel runs it a voxel a thread. The full-time walk's
+functor (``run``, csrc/fulltime.cuh's contract) is the TPU kernel's
+generic full-time mode (fabber_core_tpu/ops/fused_loop_nl.py:37-46,
+204-227): a warp serves one voxel and evaluates the whole time axis at
+once, sample t on lane t mod 32; the lines between two time-mixing ops
+run per lane in registers, and each value a time-mixing op reads is
+stored in shared memory first. The kernel is the cooperative form of
+kernel 6 (csrc/fused_nl_loop.cuh, ops/_cuda.py "nl_loop_full"). A
+rejected model is a route decision made before any launch, never a
+fallback after a failure.
 
 The same generator turns a model's ``time_signal(params, t)`` (P
 scalar planes and a scalar t) into a functor, for time_signal plugins
@@ -39,6 +54,7 @@ that have no hand-written one (kernel_model()).
 """
 
 import math
+import re
 
 import numpy as np
 import torch
@@ -88,15 +104,24 @@ class TimeLocalEval:
     model's evaluate over a data-free context, plain torch), its
     parameter and suppdata counts, the generated functor's C++ source
     (struct GenModel), the float32 operations the functor does per
-    time sample for the value and for the P tangents, and (from evaluate
+    time sample for the value and for the P tangents (a full-time
+    functor: per evaluation of the whole time axis), and (from evaluate
     only, else None) time_planes: the intermediates of the trace that
     carry the time axis, the JAX engine's measure of the generic mode's
     VMEM (fabber_core_tpu/models/base.py _count_time_planes), which the
     route gate's copy of its picker reads (ops/fused_loop_nl.py
-    pick_nl_block)."""
+    pick_nl_block). full_time: the functor is the full-time walk's
+    (csrc/fulltime.cuh: a warp evaluates the whole time axis), with
+    smem_floats floats of shared memory for the values its time-mixing
+    ops read and consts, the float32 constants it reads from a device
+    buffer (None: none). needed_ops: of value_ops + tangent_ops, those
+    the function needs: all but the products by a constant's known zeros
+    (a full-time contraction reads its matrix whole, a lower-triangular
+    convolution's zeros too)."""
 
     def __init__(self, fn, nparams, nsupp, source, value_ops, tangent_ops,
-                 time_planes=None):
+                 time_planes=None, full_time=False, smem_floats=0,
+                 consts=None, zero_ops=0):
         self.fn = fn
         self.time_planes = time_planes
         self.nparams = nparams
@@ -104,9 +129,30 @@ class TimeLocalEval:
         self.source = source
         self.value_ops = value_ops
         self.tangent_ops = tangent_ops
-        # Q -> the loaded library of its kernel (ops/_cuda.py
+        self.needed_ops = value_ops + tangent_ops - zero_ops
+        self.full_time = full_time
+        self.smem_floats = smem_floats
+        self.consts = consts
+        # (kernel, Q) -> the loaded library of its kernel (ops/_cuda.py
         # build_generated), set where it is built
         self.libs = {}
+        self._consts_on = {}
+
+    def consts_on(self, device):
+        """The constant buffer as a float32 tensor on device (None where
+        the functor has none), copied once per device."""
+        if self.consts is None:
+            return None
+        key = str(device)
+        if key not in self._consts_on:
+            self._consts_on[key] = torch.as_tensor(self.consts).to(device)
+        return self._consts_on[key]
+
+    @property
+    def kernel(self):
+        """The GEN_KERNELS key of the whole-loop kernel that runs this
+        functor (ops/_cuda.py): "nl_loop_full" for a full-time one."""
+        return "nl_loop_full" if self.full_time else "nl_loop"
 
     def __call__(self, pvec, *supp):
         return self.fn(pvec, *supp)
@@ -115,8 +161,10 @@ class TimeLocalEval:
 def derive_time_local_eval(model, nt, nparams, nsupp=0):
     """A TimeLocalEval if ``model.evaluate`` is data-free (it reads only
     the parameters, ctx.nt, static model config and, when the run has
-    it, nsupp > 0, per-voxel ctx.suppdata) and time-local, and every op
-    it traces to is one the generator knows; else None."""
+    it, nsupp > 0, per-voxel ctx.suppdata) and every op it traces to is
+    one the generator knows: the per-sample walk's functor where the
+    model is time-local, else the full-time walk's where its time-mixing
+    ops are the JAX allowlist's; else None."""
     fdata = _ProbeForbidden("data")
     fcoords = _ProbeForbidden("coords")
 
@@ -131,15 +179,26 @@ def derive_time_local_eval(model, nt, nparams, nsupp=0):
     args = [torch.zeros(nparams)] + ([torch.zeros(nsupp)] if nsupp else [])
     try:
         gm = _trace(fn, args)
-        gen = _Gen(gm, nparams, nsupp, nt)
-        gen.bind_inputs(["m"] + (["supp"] if nsupp else []),
-                        [(nparams,)] + ([(nsupp,)] if nsupp else []))
-        out = gen.run()
-        gen.finish(out, (nt,))
-    except Exception:   # a failed trace or a rejected op: the route says no
+    except Exception:   # a failed trace: the route says no
         return None
-    return TimeLocalEval(fn, nparams, nsupp, gen.source(), gen.value_ops,
-                         gen.tangent_ops, count_time_planes(gm, nt))
+    for cls in (_Gen, _FullGen):
+        try:
+            gen = cls(gm, nparams, nsupp, nt)
+            gen.bind_inputs(["m"] + (["supp"] if nsupp else []),
+                            [(nparams,)] + ([(nsupp,)] if nsupp else []))
+            out = gen.run()
+            gen.finish(out, (nt,))
+            source = gen.source()
+        except Exception:   # a rejected op: the next walk, or no
+            continue
+        full = cls is _FullGen
+        return TimeLocalEval(
+            fn, nparams, nsupp, source, gen.value_ops, gen.tangent_ops,
+            count_time_planes(gm, nt), full_time=full,
+            smem_floats=gen.sh_floats if full else 0,
+            consts=gen.const_values() if full else None,
+            zero_ops=gen.zero_ops if full else 0)
+    return None
 
 
 def count_time_planes(gm, nt):
@@ -148,11 +207,17 @@ def count_time_planes(gm, nt):
     _count_time_planes (jaxpr equation outputs with nt in their shape)
     over the port's own trace. The traces are not the same program (an
     aten op may stand for a pair of lax primitives), but on the models
-    tests/test_torch_wide_nl.py holds them against (a Gaussian, its
-    suppdata form, exp sums of 1-5 components) the counts agree."""
+    tests/test_torch_wide_nl.py and tests/test_torch_fulltime.py hold
+    them against (a Gaussian, its suppdata form, exp sums of 1-5
+    components; a baseline-centred biexponential, a convolution by a
+    constant matrix, its suppdata-scaled form, a shift by slice and
+    concatenation) the counts agree. The copy torch's trace makes where a
+    constant enters (lift_fresh_copy) has no jaxpr equation and is not
+    counted."""
     n = 0
     for node in gm.graph.nodes:
-        if node.op != "call_function":
+        if node.op != "call_function" or \
+                node.target is torch.ops.aten.lift_fresh_copy.default:
             continue
         vals = node.meta.get("val")
         for v in vals if isinstance(vals, (tuple, list)) else (vals,):
@@ -183,8 +248,11 @@ def derive_time_signal_functor(model, nparams):
 
 
 def _trace(fn, args):
+    """fn's aten graph: its arguments as fake tensors, the real tensors
+    it closes over as constants (get_attr nodes)."""
     from torch.fx.experimental.proxy_tensor import make_fx
-    return make_fx(fn, tracing_mode="fake")(*args)
+    return make_fx(fn, tracing_mode="fake",
+                   _allow_non_fake_inputs=True)(*args)
 
 
 # -- the symbolic walk ---------------------------------------------------
@@ -261,9 +329,12 @@ class _Gen:
             return "B"
         return self.kind[e]
 
-    def emit(self, kind, expr, vops=0, tops=0):
-        # the lines are pure: an expression emitted before is reused
-        # (so a time-free tensor of equal elements stays uniform)
+    def emit(self, kind, form, *uses, vops=0, tops=0):
+        """The name of a line computing form(*uses): form makes the
+        expression from the elements it reads, uses. The lines are pure:
+        an expression emitted before is reused (so a time-free tensor of
+        equal elements stays uniform)."""
+        expr = form(*uses)
         if expr in self.cse:
             return self.cse[expr]
         name = f"v{len(self.kind)}"
@@ -442,53 +513,62 @@ class _Gen:
         both = ka == kb == "S"
         tops = {"+": 1, "-": 1, "*": 3 if both else 1,
                 "/": 4 if both else (1 if ka == "S" else 3)}[op]
-        return self.emit(kind, f"{a} {op} {b}", 1, tops)
+        return self.emit(kind, lambda x, y: f"{x} {op} {y}", a, b, vops=1,
+                         tops=tops)
 
     def to_real(self, e):
         if self.kind_of(e) != "B":
             return e
-        return self.emit("R", f"({e} ? R(1.0) : R(0.0))")
+        return self.emit("R", lambda x: f"({x} ? R(1.0) : R(0.0))", e)
 
     def unary(self, name, a):
         a = self.to_real(a)
         fn, vops, tops = _UNARY[name]
         kind = self.kind_of(a)
         if fn == "-":
-            return self.emit(kind, f"-{a}", vops, tops)
-        return self.emit(kind, f"{fn}({a})", vops, tops)
+            return self.emit(kind, lambda x: f"-{x}", a, vops=vops,
+                             tops=tops)
+        return self.emit(kind, lambda x: f"{fn}({x})", a, vops=vops,
+                         tops=tops)
 
     def flat(self, name, a):
         a = self.to_real(a)
-        return self.emit("R", f"{_FLAT[name]}(g_val({a}))", 1)
+        return self.emit("R", lambda x: f"{_FLAT[name]}(g_val({x}))", a,
+                         vops=1)
 
     def compare(self, op, a, b):
         a, b = self.to_real(a), self.to_real(b)
-        return self.emit("B", f"g_val({a}) {op} g_val({b})", 1)
+        return self.emit("B", lambda x, y: f"g_val({x}) {op} g_val({y})",
+                         a, b, vops=1)
 
     def logic(self, op, a, b):
         if self.kinds(a, b) != ["B", "B"]:
             raise Rejected("logic on non-booleans")
-        return self.emit("B", f"{a} {op} {b}", 1)
+        return self.emit("B", lambda x, y: f"{x} {op} {y}", a, b, vops=1)
 
     def binfn(self, fn, a, b, tops):
         a, b = self.to_real(a), self.to_real(b)
         kind = "S" if "S" in self.kinds(a, b) else "R"
-        return self.emit(kind, f"{fn}({a}, {b})", 1, tops)
+        return self.emit(kind, lambda x, y: f"{fn}({x}, {y})", a, b,
+                         vops=1, tops=tops)
 
     def pow_(self, a, b):
         a, b = self.to_real(a), self.to_real(b)
         ka, kb = self.kinds(a, b)
         kind = "S" if "S" in (ka, kb) else "R"
         if kb == "R" and b.startswith("R("):
-            return self.emit(kind, f"g_powc({a}, {b})", 1, 3)
-        return self.emit(kind, f"g_pow({a}, {b})", 1, 8)
+            return self.emit(kind, lambda x, y: f"g_powc({x}, {y})", a, b,
+                             vops=1, tops=3)
+        return self.emit(kind, lambda x, y: f"g_pow({x}, {y})", a, b,
+                         vops=1, tops=8)
 
     def where(self, c, a, b):
         if self.kind_of(c) != "B":
             raise Rejected("where condition")
         a, b = self.to_real(a), self.to_real(b)
         kind = "S" if "S" in self.kinds(a, b) else "R"
-        return self.emit(kind, f"g_where({c}, {a}, {b})", 1, 1)
+        return self.emit(kind, lambda w, x, y: f"g_where({w}, {x}, {y})",
+                         c, a, b, vops=1, tops=1)
 
     def clamp(self, x, lo, hi):
         x = self.to_real(x)
@@ -498,8 +578,9 @@ class _Gen:
         lo = "R(-INFINITY)" if lo is None else lo
         hi = "R(INFINITY)" if hi is None else hi
         # csrc/dual.cuh: a max then a min, jax's clip
-        return self.emit(self.kind_of(x), f"g_clamp({x}, {lo}, {hi})", 2,
-                         6)
+        return self.emit(self.kind_of(x),
+                         lambda y, l, h: f"g_clamp({y}, {l}, {h})", x, lo,
+                         hi, vops=2, tops=6)
 
     def extremum(self, is_max, items):
         """amax/amin of the elements: pairwise on reals; with a
@@ -516,10 +597,12 @@ class _Gen:
                 acc = self.binfn(fn, acc, e, 3)
             return acc
         lifted = [e if self.kind_of(e) == "S" else
-                  self.emit("S", f"g_lift<S>({e})") for e in items]
+                  self.emit("S", lambda x: f"g_lift<S>({x})", e)
+                  for e in items]
         flag = "true" if is_max else "false"
-        return self.emit("S", f"g_extremum<{flag}>({', '.join(lifted)})",
-                         len(items) - 1, len(items) + 1)
+        return self.emit("S", lambda *xs: f"g_extremum<{flag}>("
+                         f"{', '.join(xs)})", *lifted,
+                         vops=len(items) - 1, tops=len(items) + 1)
 
     # -- reductions over non-time axes ------------------------------------
     def reduce(self, x, dims, keepdim, combine, combine_all=None):
@@ -616,7 +699,8 @@ class _Gen:
         if val.dtype == torch.bool:
             return self.elementwise([x], lambda e: e if self.kind_of(e)
                                     == "B" else self.emit(
-                                        "B", f"g_val({e}) != R(0.0)", 1))
+                                        "B", lambda y: f"g_val({y}) != R(0.0)",
+                                        e, vops=1))
         src = node.args[0].meta.get("val")
         if torch.is_tensor(src) and src.dtype.is_floating_point:
             raise Rejected("cast to an integer type")
@@ -693,8 +777,9 @@ class _Gen:
     def op_logical_not(self, node, a, kw, val):
         def f(x):
             if self.kind_of(x) != "B":
-                x = self.emit("B", f"g_val({x}) != R(0.0)", 1)
-            return self.emit("B", f"!{x}", 1)
+                x = self.emit("B", lambda y: f"g_val({y}) != R(0.0)", x,
+                              vops=1)
+            return self.emit("B", lambda y: f"!{y}", x, vops=1)
         return self.elementwise([a[0]], f)
 
     # the time axis and constants
@@ -707,8 +792,8 @@ class _Gen:
         if self.nt is not None and n == self.nt:
             if (start, step) == (0, 1):
                 return _Sym(np.array("t", object), 0, (n,))
-            e = self.emit("R", f"R({float(start)!r} + {float(step)!r} * "
-                          "(double)t)")
+            e = self.emit("R", lambda t: f"R({float(start)!r} + "
+                          f"{float(step)!r} * (double){t})", "t")
             return _Sym(np.array(e, object), 0, (n,))
         vals = np.arange(n, dtype=np.float64) * float(step) + float(start)
         return _Sym(np.array([_lit(v) for v in vals], object), None, (n,))
@@ -884,3 +969,696 @@ class _Gen:
         dims, keep = self.red_args(a, kw)
         return self.reduce(a[0], dims, keep, None,
                            lambda items: self.extremum(False, items))
+
+
+# -- the full-time walk ----------------------------------------------------
+
+# an element of a constant in the functor's constant buffer
+_CREF = re.compile(r"cst\[(\d+)\]")
+# get_attr constants of at most this many elements stay literals
+_LITERAL_CONST = 16
+
+
+class _Seg:
+    """A loop over the n samples of one time length, a sample a lane: its
+    lines, and whether later time-local lines may still join it."""
+
+    def __init__(self, idx, n):
+        self.idx, self.n, self.lines, self.open = idx, n, [], True
+
+
+class _Conc(_Sym):
+    """A constant of the trace (a tensor the model closes over, and what
+    is computed from constants alone) with its values; its elements are
+    literals or reads of the functor's constant buffer, made at first
+    use."""
+
+    def __init__(self, gen, conc):
+        self.gen, self.conc, self.tdim = gen, conc, None
+        self.shape = tuple(conc.shape)
+        self._el = None
+
+    @property
+    def elems(self):
+        if self._el is None:
+            self._el = self.gen.const_elems(self.conc)
+        return self._el
+
+
+class _FullGen(_Gen):
+    """The full-time walk (module docstring): the per-sample walk's ops,
+    and the time-mixing ops of the JAX allowlist. An element of a time
+    tensor is the sample index t, a time-free expression (uniform along
+    time), a name defined in a sample loop (_Seg) or a map (@mK: for each
+    sample, where its value comes from). A value that a time-mixing op
+    reads is stored in a shared-memory plane by the loop that computes it
+    (materialize; width P + 1 for an S value, 1 for an R value), and that
+    loop is closed (a barrier follows it) before any read; reductions are
+    lines outside the loops, each lane summing the plane in one fixed
+    order."""
+
+    def __init__(self, gm, nparams, nsupp, nt):
+        super().__init__(gm, nparams, nsupp, nt)
+        self.items = []        # function-scope lines and _Segs, in order
+        self.seg_of = {}       # time-local name -> its _Seg
+        self.planes = {}       # name -> (offset, length, kind)
+        self.maps = {}         # @mK -> (kind, per-sample descriptors)
+        self.cvals = []        # the constant buffer's blocks (float64)
+        self.nconst = 0
+        self.zero_ops = 0      # of the ops counted, products by known zeros
+        self.sh_floats = 0
+        self.active_n = None   # time length of the op being walked
+
+    # -- bookkeeping --------------------------------------------------
+    def kind_of(self, e):
+        if e.startswith("@m"):
+            return self.maps[e][0]
+        if _CREF.fullmatch(e) or e == "ti":
+            return "R"
+        return super().kind_of(e)
+
+    def _new_name(self, kind):
+        name = f"v{len(self.kind)}"
+        self.kind[name] = kind
+        return name
+
+    def _open_seg(self):
+        last = self.items[-1] if self.items else None
+        return last if isinstance(last, _Seg) and last.open else None
+
+    def is_local(self, e):
+        """e is a time-local element: the sample index (t as a real, ti
+        the lane's integer sample), a map or a name defined in a sample
+        loop."""
+        return e in ("t", "ti") or e.startswith("@m") or e in self.seg_of
+
+    def emit(self, kind, form, *uses, vops=0, tops=0):
+        """As the per-sample walk's; a line that uses a time-local element
+        goes into the open loop of the active time length, each such use
+        made a name of that loop (localize), the others at function
+        scope."""
+        ctype = {"R": "R", "S": "S", "B": "bool"}[kind]
+        if not any(self.is_local(u) for u in uses):
+            # time-free: at function scope, before an open loop
+            expr = form(*uses)
+            key = ("fs", expr)
+            if key in self.cse:
+                return self.cse[key]
+            name = self._new_name(kind)
+            self.cse[key] = name
+            line = f"    const {ctype} {name} = {expr};"
+            seg = self._open_seg()
+            self.items.insert(len(self.items) - (seg is not None), line)
+            self.count(kind, vops, tops, 1)
+            return name
+        n = self.active_n
+        if n is None:
+            raise Rejected("a time-local value of unknown length")
+        seg = self.segment(n)
+        expr = form(*[self.localize(u, seg) if self.is_local(u) else u
+                      for u in uses])
+        if self.seg_of.get(expr) is seg:   # a name of this loop already
+            return expr
+        key = (seg.idx, expr)
+        if key in self.cse:
+            return self.cse[key]
+        name = self._new_name(kind)
+        self.cse[key] = name
+        seg.lines.append(f"    const {ctype} {name} = {expr};")
+        self.seg_of[name] = seg
+        self.count(kind, vops, tops, n)
+        return name
+
+    def count(self, kind, vops, tops, n):
+        self.value_ops += vops * n
+        if kind == "S":
+            self.tangent_ops += tops * self.p * n
+
+    def segment(self, n):
+        """The open loop of n samples (a new one after closing an open
+        loop of another length)."""
+        seg = self._open_seg()
+        if seg is not None and seg.n != n:
+            seg.open = False
+            seg = None
+        if seg is None:
+            seg = _Seg(sum(isinstance(x, _Seg) for x in self.items), n)
+            self.items.append(seg)
+        return seg
+
+    def localize(self, e, seg):
+        """Time-local element e as a name of the loop seg (sample ti)."""
+        if e in ("t", "ti") or self.seg_of.get(e) is seg:
+            return e
+        if e.startswith("@m"):
+            return self.map_expr(e, seg)
+        off, n, kind = self.materialize(e)
+        return self.emit(kind, lambda i: self.plane_read(kind, off, n, i),
+                         "ti")
+
+    def plane_read(self, kind, off, n, idx):
+        if kind == "S":
+            return f"ft_load<S>(sh + {off}, {n}, {idx})"
+        return f"sh[{off} + {idx}]"
+
+    def materialize(self, name):
+        """The shared plane (offset, length, kind) that name's loop stores
+        it into; its loop is closed, so later lines read it after the
+        barrier."""
+        if name not in self.planes:
+            seg = self.seg_of[name]
+            kind = self.kind[name]
+            if kind == "B":
+                raise Rejected("a boolean value across samples")
+            off = self.sh_floats
+            self.sh_floats += (self.p + 1 if kind == "S" else 1) * seg.n
+            seg.lines.append(f"    ft_store(sh + {off}, {seg.n}, ti, {name});")
+            self.planes[name] = (off, seg.n, kind)
+        self.seg_of[name].open = False
+        return self.planes[name]
+
+    def local_name(self, e, n):
+        """A name for time element e (of a time length n) in the open loop
+        of n samples."""
+        self.active_n = n
+        seg = self.segment(n)
+        if self.seg_of.get(e) is seg:
+            return e
+        if self.is_local(e):
+            return self.emit(self.kind_of(e), lambda x: x, e)
+        kind = self.kind_of(e)
+        name = self._new_name(kind)
+        ctype = {"R": "R", "S": "S"}.get(kind)
+        if ctype is None:
+            raise Rejected("a boolean value across samples")
+        seg.lines.append(f"    const {ctype} {name} = {e};")
+        self.seg_of[name] = seg
+        return name
+
+    def plane_of(self, e, n):
+        """The plane of time element e (time length n): its own loop's
+        where e is a name, else that of e made a name in the open loop."""
+        return self.materialize(e if e in self.seg_of
+                                else self.local_name(e, n))
+
+    # -- maps of samples ---------------------------------------------------
+    def desc(self, e, n, j):
+        """Where sample j of time element e (time length n) comes from:
+        ("i", j) the index, ("p", off, len, kind, j) a plane, ("c", k)
+        the constant buffer, ("f", e) a time-free value."""
+        if e == "t":
+            return ("i", j)
+        if e.startswith("@m"):
+            return self.maps[e][1][j]
+        if e in self.seg_of:
+            off, ln, kind = self.materialize(e)
+            return ("p", off, ln, kind, j)
+        mo = _CREF.fullmatch(e)
+        if mo:
+            return ("c", int(mo.group(1)))
+        return ("f", e)
+
+    def new_map(self, descs):
+        """A time element from its samples' descriptors: an @mK token, or
+        the one time-free value they all are."""
+        if not descs:
+            raise Rejected("an empty time axis")
+        if all(d[0] == "f" and d[1] == descs[0][1] for d in descs):
+            return descs[0][1]
+        kinds = set()
+        for d in descs:
+            k = {"i": "R", "c": "R", "p": None, "f": None}[d[0]]
+            k = k or (d[3] if d[0] == "p" else self.kind_of(d[1]))
+            if k == "B":
+                raise Rejected("a boolean value across samples")
+            kinds.add(k)
+        tok = f"@m{len(self.maps)}"
+        self.maps[tok] = ("S" if "S" in kinds else "R", descs)
+        return tok
+
+    @staticmethod
+    def pieces(descs):
+        """The descriptors grouped into runs [lo, hi) whose index is
+        a + b * (sample - lo)."""
+        out = []
+        for j, d in enumerate(descs):
+            key = d[:-1] if d[0] in ("i", "p", "c") else d
+            idx = d[-1] if d[0] in ("i", "p", "c") else 0
+            if out and out[-1][0] == key:
+                pc = out[-1]
+                if pc[4] is None or idx == pc[3] + pc[4] * (j - pc[1]):
+                    pc[4] = idx - pc[3] if pc[4] is None else pc[4]
+                    pc[2] = j + 1
+                    continue
+            out.append([key, j, j + 1, idx, None])
+        return out
+
+    def map_expr(self, tok, seg):
+        kind, descs = self.maps[tok]
+        if len(descs) != seg.n:
+            raise Rejected("a map of another time length")
+        pieces = list(reversed(self.pieces(descs)))
+
+        def form(ti):
+            expr = None
+            for key, lo, hi, a, b in pieces:
+                b = b or 0
+                idx = f"({a - b * lo} + {b} * {ti})"
+                if key[0] == "i":
+                    val = f"R{idx}"
+                elif key[0] == "c":
+                    val = f"cst[{idx}]"
+                elif key[0] == "p":
+                    _, off, n, pk = key
+                    val = self.plane_read(pk, off, n, idx)
+                    if pk == "R" and kind == "S":
+                        val = f"g_lift<S>({val})"
+                else:
+                    val = key[1]
+                    if self.kind_of(val) == "R" and kind == "S":
+                        val = f"g_lift<S>({val})"
+                if key[0] in ("i", "c") and kind == "S":
+                    val = f"g_lift<S>({val})"
+                expr = val if expr is None else \
+                    f"({ti} < {hi} ? {val} : {expr})"
+            return expr
+        return self.emit(kind, form, "ti")
+
+    def drop_uniform(self, el, axis):
+        """A time-free array along the time axis: uniform, or a map per
+        element."""
+        first = np.take(el, [0], axis=axis)
+        if el.shape[axis] == 1 or (el == first).all():
+            return np.take(el, 0, axis=axis)
+        moved = np.moveaxis(el, axis, -1)
+        out = np.empty(moved.shape[:-1], object)
+        for idx in np.ndindex(out.shape):
+            out[idx] = self.new_map([self.desc(e, len(moved[idx]), j)
+                                     for j, e in enumerate(moved[idx])])
+        return out
+
+    # -- constants ----------------------------------------------------------
+    def constant(self, val):
+        if not torch.is_tensor(val):
+            raise Rejected("constant")
+        return _Conc(self, val.detach().cpu().numpy())
+
+    def const_elems(self, conc):
+        if conc.dtype == np.bool_ or conc.size <= _LITERAL_CONST:
+            return np.vectorize(_lit, otypes=[object])(
+                conc if conc.dtype == np.bool_ else conc.astype(np.float64)
+            ).reshape(conc.shape) if conc.size else np.empty(conc.shape,
+                                                              object)
+        off = self.register(conc)
+        return np.array([f"cst[{off + i}]" for i in range(conc.size)],
+                        object).reshape(conc.shape)
+
+    def register(self, values):
+        off = self.nconst
+        flat = np.asarray(values, np.float64).ravel()
+        if not np.isfinite(flat).all():
+            raise Rejected("non-finite constant")
+        self.cvals.append(flat)
+        self.nconst += flat.size
+        return off
+
+    def const_values(self):
+        """The functor's constant buffer (float32), or None."""
+        if not self.cvals:
+            return None
+        return np.concatenate(self.cvals).astype(np.float32)
+
+    def value_of(self, e):
+        """The number a constant element stands for."""
+        mo = _CREF.fullmatch(e)
+        if mo:
+            k = int(mo.group(1))
+            for block in self.cvals:
+                if k < block.size:
+                    return float(block[k])
+                k -= block.size
+        if e.startswith("R(") and e.endswith(")"):
+            return float(e[2:-1])
+        raise Rejected("a contraction over time with an operand that is "
+                       "not a constant")
+
+    def call(self, node):
+        """Ops whose tensor operands all have values (constants, and the
+        sample index, arange(nt)) are computed here too, on those values
+        (torch on the CPU): a result without a time axis (no axis of nt
+        samples), or one the walk cannot carry per sample (a [T,T] matrix
+        built from the index), is a constant; one with a time axis keeps
+        its per-sample lines and its values beside them."""
+        args = [self.arg(a) for a in node.args]
+        kw = {k: self.arg(v) for k, v in node.kwargs.items()}
+        syms = [x for x in _flat(args) + _flat(list(kw.values()))
+                if isinstance(x, _Sym)]
+        if not syms or any(getattr(x, "conc", None) is None for x in syms):
+            return super().call(node)
+
+        def real(x):
+            if isinstance(x, _Sym):
+                return torch.as_tensor(x.conc)
+            if isinstance(x, (list, tuple)):
+                return type(x)(real(y) for y in x)
+            return x
+        out = node.target(*real(args), **{k: real(v) for k, v in kw.items()})
+        if not torch.is_tensor(out) or out.dtype.is_complex:
+            raise Rejected(f"constant {node.target}")
+        conc = out.detach().numpy()
+        if all(x.tdim is None for x in syms) or self.nt not in conc.shape:
+            return _Conc(self, conc)
+        try:
+            sym = super().call(node)
+        except Rejected:
+            return _Conc(self, conc)
+        if sym.tdim is None:
+            return _Conc(self, conc)
+        sym.conc = conc
+        return sym
+
+    # -- elementwise ops at a time length ------------------------------------
+    def broadcast(self, ops):
+        out_shape = tuple(np.broadcast_shapes(*[o.shape for o in ops]))
+        ops = [self.untime(o, out_shape) for o in ops]
+        arrays, tdim, shape = super().broadcast(ops)
+        self.active_n = None if tdim is None else shape[tdim]
+        return arrays, tdim, shape
+
+    def untime(self, o, out_shape):
+        """A time operand of one sample broadcast over a longer axis:
+        its sample as a time-free value."""
+        if o.tdim is None or o.shape[o.tdim] != 1:
+            return o
+        pos = o.tdim + len(out_shape) - len(o.shape)
+        if out_shape[pos] == 1:
+            return o
+        el = np.vectorize(lambda e: self.at_index(e, 1, 0),
+                          otypes=[object])(o.elems) if o.elems.size else \
+            o.elems
+        return _Sym(np.expand_dims(el, o.tdim).reshape(o.shape), None,
+                    o.shape)
+
+    def reduce(self, x, dims, keepdim, combine, combine_all=None):
+        if x.tdim is not None:
+            self.active_n = x.shape[x.tdim]
+        return super().reduce(x, dims, keepdim, combine, combine_all)
+
+    def op_arange(self, node, a, kw, val):
+        self.active_n = int(val.shape[0])
+        x = super().op_arange(node, a, kw, val)
+        start, step = (0, 1) if len(a) == 1 else (a[0], a[2] if len(a) > 2
+                                                   else 1)
+        conc = (np.arange(int(val.shape[0]), dtype=np.float64) * float(step)
+                + float(start)).astype(torch.empty(0, dtype=val.dtype)
+                                       .numpy().dtype)
+        if x.tdim is None:
+            return _Conc(self, conc)
+        x.conc = conc
+        return x
+
+    # -- samples by index ---------------------------------------------------
+    def at_index(self, e, n, j):
+        """Sample j of time element e, as a time-free value (a read of its
+        plane after its loop's barrier)."""
+        d = self.desc(e, n, j)
+        if d[0] == "i":
+            return _lit(j)
+        if d[0] == "c":
+            return f"cst[{d[1]}]"
+        if d[0] == "f":
+            return d[1]
+        _, off, ln, kind, idx = d
+        return self.emit(kind, lambda: self.plane_read(kind, off, ln, idx))
+
+    def remap(self, x, index_lists):
+        """x's time axis replaced by a new one whose sample k is sample
+        index_lists[k] of x (None: the value fill)."""
+        n = x.shape[x.tdim]
+        fill, idxs = index_lists
+        out = np.empty(x.elems.shape, object)
+        for idx in np.ndindex(out.shape):
+            e = x.elems[idx]
+            out[idx] = self.new_map([("f", fill) if i is None
+                                     else self.desc(e, n, i) for i in idxs])
+        shape = list(x.shape)
+        shape[x.tdim] = len(idxs)
+        return _Sym(out, x.tdim, shape)
+
+    def op_select(self, node, a, kw, val):
+        x, dim = a[0], a[1] % len(a[0].shape)
+        if dim != x.tdim:
+            return super().op_select(node, a, kw, val)
+        n = x.shape[dim]
+        el = np.vectorize(lambda e: self.at_index(e, n, a[2] % n),
+                          otypes=[object])(x.elems) if x.elems.size else \
+            x.elems
+        return _Sym(np.asarray(el, object), None,
+                    x.shape[:dim] + x.shape[dim + 1:])
+
+    def op_slice(self, node, a, kw, val):
+        x = a[0]
+        dim = (a[1] if len(a) > 1 else 0) % len(x.shape)
+        if dim != x.tdim:
+            return super().op_slice(node, a, kw, val)
+        start = a[2] if len(a) > 2 and a[2] is not None else 0
+        end = a[3] if len(a) > 3 and a[3] is not None else x.shape[dim]
+        step = a[4] if len(a) > 4 else 1
+        rng = list(range(*slice(start, end, step).indices(x.shape[dim])))
+        if rng == list(range(x.shape[dim])):
+            return x
+        return self.remap(x, (None, rng))
+
+    def op_flip(self, node, a, kw, val):
+        x = a[0]
+        for d in sorted(d % len(x.shape) for d in a[1]):
+            if d == x.tdim:
+                x = self.remap(x, (None, list(range(x.shape[d]))[::-1]))
+            else:
+                x = _Sym(np.flip(x.elems, self.eaxis(x, d)).copy(), x.tdim,
+                         x.shape)
+        return x
+
+    def op_constant_pad_nd(self, node, a, kw, val):
+        x, pad = a[0], list(a[1])
+        fill = _lit(a[2] if len(a) > 2 else kw.get("value", 0.0))
+        for k in range(len(pad) // 2):
+            d = len(x.shape) - 1 - k
+            lo, hi = pad[2 * k], pad[2 * k + 1]
+            n = x.shape[d]
+            idxs = ([None] * max(lo, 0) + list(range(max(-lo, 0),
+                                                     n - max(-hi, 0)))
+                    + [None] * max(hi, 0))
+            if d == x.tdim:
+                x = self.remap(x, (fill, idxs))
+                continue
+            ax = self.eaxis(x, d)
+            parts = [np.full(x.elems.shape[:ax] + (1,)
+                             + x.elems.shape[ax + 1:], fill, object)
+                     if i is None else np.take(x.elems, [i], axis=ax)
+                     for i in idxs]
+            shape = list(x.shape)
+            shape[d] = len(idxs)
+            x = _Sym(np.concatenate(parts, axis=ax), x.tdim, shape)
+        return x
+
+    def join(self, xs, dim, shape, stack):
+        tds = {x.tdim for x in xs if x.tdim is not None}
+        if stack or tds != {dim}:
+            return super().join(xs, dim, shape, stack)
+        out = np.empty(shape[:dim] + shape[dim + 1:], object)
+        for idx in np.ndindex(out.shape):
+            descs = []
+            for x in xs:
+                if x.tdim == dim:
+                    e = x.elems[idx]
+                    descs += [self.desc(e, x.shape[dim], j)
+                              for j in range(x.shape[dim])]
+                else:
+                    row = np.moveaxis(x.elems, dim, -1)[idx]
+                    descs += [self.desc(e, len(row), j)
+                              for j, e in enumerate(row)]
+            out[idx] = self.new_map(descs)
+        return _Sym(out, dim, shape)
+
+    # -- reductions over time ------------------------------------------------
+    def time_reduce(self, which, x, dims, keep):
+        """sum / prod / amax / amin of x over dims, the time axis among
+        them: each element's time series by the functor's fixed-order
+        reduction of its plane, then the rest as the per-sample walk."""
+        n = x.shape[x.tdim]
+        others = [d for d in dims if d != x.tdim]
+        if which in ("amax", "amin") and others:
+            raise Rejected("an extremum over time and another axis")
+        out = np.empty(x.elems.shape, object)
+        for idx in np.ndindex(out.shape):
+            off, ln, kind = self.plane_of(x.elems[idx], n)
+            out[idx] = self.emit(kind, lambda: f"ft_{which}<{kind}>(sh + "
+                                 f"{off}, {ln})", vops=ln, tops=ln)
+        shape = list(x.shape)
+        if keep:
+            shape[x.tdim] = 1
+            y = _Sym(np.expand_dims(out, x.tdim).reshape(shape), None,
+                     shape)
+            rest = others
+        else:
+            del shape[x.tdim]
+            y = _Sym(out, None, shape)
+            rest = [d - (d > x.tdim) for d in others]
+        if not rest:
+            return y
+        fn = {"sum": "+", "prod": "*"}[which]
+        return _Gen.reduce(self, y, rest, keep,
+                           lambda p, q: self.arith(fn, p, q))
+
+    def red_time(self, which, node, a, kw, val, base):
+        dims, keep = self.red_args(a, kw)
+        x = a[0]
+        dl = list(range(len(x.shape))) if not dims else \
+            [d % len(x.shape) for d in dims]
+        if x.tdim is None or x.tdim not in dl:
+            return base(node, a, kw, val)
+        return self.time_reduce(which, x, dl, keep)
+
+    def op_sum(self, node, a, kw, val):
+        return self.red_time("sum", node, a, kw, val, super().op_sum)
+
+    def op_mean(self, node, a, kw, val):
+        dims, keep = self.red_args(a, kw)
+        x = a[0]
+        dl = dims or list(range(len(x.shape)))
+        n = int(np.prod([x.shape[d] for d in dl]))
+        s = self.op_sum(node, a, kw, val)
+        return self.elementwise([s, n], lambda p, q: self.arith("/", p, q))
+
+    def op_prod(self, node, a, kw, val):
+        return self.red_time("prod", node, a, kw, val, super().op_prod)
+
+    def op_amax(self, node, a, kw, val):
+        return self.red_time("amax", node, a, kw, val, super().op_amax)
+
+    def op_amin(self, node, a, kw, val):
+        return self.red_time("amin", node, a, kw, val, super().op_amin)
+
+    # -- contractions ----------------------------------------------------------
+    def op_mm(self, node, a, kw, val):
+        return self.contract(a[0], a[1])
+
+    def op_mv(self, node, a, kw, val):
+        y = self.contract(a[0], self.reshape(a[1], a[1].shape + (1,)))
+        return self.reshape(y, y.shape[:1])
+
+    def op_bmm(self, node, a, kw, val):
+        x, y = a
+        if x.shape[0] != 1 or y.shape[0] != 1:
+            raise Rejected("a batched contraction")
+        z = self.contract(self.reshape(x, x.shape[1:]),
+                          self.reshape(y, y.shape[1:]))
+        return self.reshape(z, (1,) + z.shape)
+
+    def contract(self, x, y):
+        """x [I,K] @ y [K,J] over the time axis of one operand, the other
+        a constant (the JAX allowlist's dot_general with a parameter-free
+        operand): the functor's ft_dot, a sample a lane against the plane,
+        the constant read by columns from the constant buffer."""
+        (ni, nk), (nk2, nj) = x.shape, y.shape
+        if nk != nk2:
+            raise Rejected("contraction shapes")
+        tx, ty = x.tdim == 1, y.tdim == 0
+        if tx != ty:
+            s, c = (x, y) if tx else (y, x)
+            cv = np.asarray(c.conc, np.float64) if isinstance(c, _Conc) \
+                else np.vectorize(self.value_of, otypes=[float])(c.elems)
+            # rows of the new time axis: c's free axis; stored by columns
+            # (csrc/fulltime.cuh ft_dot)
+            rows = cv.T if tx else cv           # [n_out, K]
+            nout = rows.shape[0]
+            off = self.register(rows.T)
+            # each output sample reads its whole row: 2 K operations a
+            # value or tangent, of which 2 per zero of the row multiply by
+            # a known zero
+            zeros = 2 * int(rows.size - np.count_nonzero(rows))
+            out = np.empty((nj,) if ty else (ni,), object)
+            for k in range(out.shape[0]):
+                e = s.elems[k]
+                poff, ln, kind = self.plane_of(e, nk)
+                self.active_n = nout
+                counted = self.value_ops
+                out[k] = self.emit(kind, lambda i: f"ft_dot<{kind}>(cst + "
+                                   f"{off}, {nout}, sh + {poff}, {ln}, {i})",
+                                   "ti", vops=2 * nk, tops=2 * nk)
+                if self.value_ops != counted:
+                    self.zero_ops += zeros * (1 + self.p * (kind == "S"))
+            if tx:   # [I, J], time on J
+                return _Sym(out, 1, (ni, nout))
+            return _Sym(out, 0, (nout, nj))
+        raise Rejected("a contraction that is not over the time axis of "
+                       "one operand")
+
+    # -- the output and the source ---------------------------------------------
+    def finish(self, out, want):
+        if out.shape != want:
+            raise Rejected(f"output shape {out.shape}")
+        nt = want[0]
+        if out.tdim == 0:
+            e = out.elems.reshape(-1)[0]
+        else:
+            e = self.drop_uniform(out.elems, 0)
+            e = e.reshape(-1)[0] if isinstance(e, np.ndarray) else e
+        kind = self.kind_of(e)
+        if kind == "B":
+            raise Rejected("boolean output")
+        name = self.local_name(e, nt)
+        seg = self.seg_of[name]
+        val = name if self.kind_of(name) == "S" else f"g_lift<S>({name})"
+        seg.lines.append(f"    ft_store(out, {nt}, ti, {val});")
+        seg.open = False
+        self.out_expr = name
+
+    def source(self):
+        body = []
+        for item in self.items:
+            if isinstance(item, str):
+                body.append(item)
+                continue
+            body.append(f"    for (int ti = lane; ti < {item.n}; "
+                        "ti += lanes) {")
+            body.append("      const R t = R(ti);")
+            body.append("      (void)t;")
+            body += ["  " + ln for ln in item.lines]
+            body.append("    }")
+            body.append("    __syncthreads();")
+        body = "\n".join(body)
+        return f"""struct GenModel {{
+  static constexpr int P = {self.p};
+  static constexpr int NS = {self.nsupp};
+  static constexpr int NT = {self.nt};
+  // floats of shared memory the time-mixing ops read, and of the
+  // constant buffer
+  static constexpr int SMEM = {self.sh_floats};
+  static constexpr int NCONST = {self.nconst};
+
+  // the model over the whole time axis of one voxel (csrc/fulltime.cuh's
+  // contract), lane `lane` of `lanes` taking samples lane, lane + lanes,
+  // ...: the signal and the model-space Jacobian into out [(P+1) x NT]
+  // (value at out[t], tangent i at out[(1+i) NT + t]); sh holds SMEM
+  // floats, cst the NCONST constants; every lane calls it (device code:
+  // its loops end in barriers)
+  template <class S, class R>
+  __device__ static void run(const S* m, const R* supp,
+                             const R* __restrict__ cst, R* sh,
+                             R* out, int lane, int lanes) {{
+    (void)supp;
+    (void)cst;
+    (void)sh;
+{body}
+  }}
+}};
+"""
+
+
+def _flat(xs):
+    out = []
+    for x in xs:
+        out += _flat(x) if isinstance(x, (list, tuple)) else [x]
+    return out

@@ -19,7 +19,8 @@ abs(p) starts on its kink: with torch's rule its Jacobian column is 0
 and the parameter cannot move, with jax's it is 1.
 
 JaxKinks(fn).at(*args) traces fn with make_fx (fake tensors, so a
-value-dependent Python branch fails the trace) at the shapes, dtypes
+value-dependent Python branch fails the trace; the real tensors fn
+closes over, a convolution matrix, enter as constants) at the shapes, dtypes
 and devices of the arguments it is called with (once per such key),
 functionalized (torch.func.functionalize: an in-place abs_, clamp_ or
 hardtanh_ is traced as abs, clamp or hardtanh), and rewrites the aten
@@ -153,7 +154,8 @@ def _traced(fn, args):
 
     try:
         gm = make_fx(torch.func.functionalize(tensors_only),
-                     tracing_mode="fake")(*[args[i] for i in pos])
+                     tracing_mode="fake", _allow_non_fake_inputs=True)(
+            *[args[i] for i in pos])
     except Exception:   # untraceable: torch's rules (module docstring)
         return None
     rewrite_kinks(gm)

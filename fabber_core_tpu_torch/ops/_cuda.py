@@ -25,6 +25,7 @@ import torch
 
 from ..exceptions import FabberError
 from .fused_spectral import PREBUILT_MAX_P
+from .fused_whole import SMEM_BYTES as MAX_BLOCK_SMEM
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("spectral_stats.cu", "spectral_core.cu", "spectral_fused.cu",
@@ -32,7 +33,8 @@ SOURCES = ("spectral_stats.cu", "spectral_core.cu", "spectral_fused.cu",
            "fused_loop.cu", "fused_nlls.cu", "fused_ar_loop.cu")
 HEADERS = ("vb_device.cuh", "detectors.cuh", "spectral_device.cuh",
            "fused_nl_loop.cuh", "fused_vb_iter.cuh", "fused_nlls.cuh",
-           "dual.cuh", "tile.cuh", "whole_device.cuh",
+           "dual.cuh", "tile.cuh", "whole_device.cuh", "coop_device.cuh",
+           "fulltime.cuh",
            "fused_whole_body.inc", "fused_ar_loop_body.inc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -306,6 +308,55 @@ extern "C" int fabber_gen_occupancy(int mode, int vb, int nt) {{
 }}
 """
 
+# the C entry points of kernel 6's full-time form (fused_nl_loop.cuh
+# fused_nl_loop_full_kernel) at the full-time functor's P and the run's Q,
+# its three MODEs
+_GEN_NL_LOOP_FULL = """
+// fabber_gen_nl_loop's arguments with the functor's constants cst (device,
+// null when it has none) and no vb: a warp serves a voxel, its state in
+// shared memory (FullLayout).
+extern "C" int fabber_gen_nl_loop_full(
+    const int* tcodes_host, int n_iters, int need_f, float locked_sd,
+    const float* consts_host, int det_kind, float det_tol, int det_max_its,
+    int det_max_trials, int det_init_save, const float* det_consts_host,
+    const float* centre0, const float* pm, const float* pp, const float* pd0,
+    const float* data, const float* supp, const float* qw, const float* cst,
+    int nt, long long V, float* means, float* prec, float* cov, float* b,
+    float* c, float* fkqk, float* ftr, void* stream) {{
+  VBParamsFor<{p}, {q}> k;
+  NLDetConstsFor<{q}> dc;
+  if (!nl_setup({p}, {q}, tcodes_host, 0.f, n_iters, need_f, locked_sd,
+                consts_host, det_kind, det_tol, det_max_its, det_max_trials,
+                det_init_save, det_consts_host, pd0, nt, V, &k, &dc) ||
+      (GenModel::NS > 0 && supp == nullptr) ||
+      (GenModel::NCONST > 0 && cst == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const float* const ins[8] = {{centre0, pm, pp, pd0, data, supp, qw, cst}};
+  float* const outs[7] = {{means, prec, cov, b, c, fkqk, ftr}};
+  return launch_full<GenModel, {q}>(k, dc, ins, outs,
+                                    static_cast<cudaStream_t>(stream));
+}}
+
+// the blocks per SM of MODE (0, 1, 2), -1 where refused
+extern "C" int fabber_gen_full_occupancy(int mode) {{
+  VBParamsFor<{p}, {q}> k = {{}};
+  NLDetConstsFor<{q}> dc = {{}};
+  k.nt = GenModel::NT;
+  if (mode < 0 || mode > 2) return -1;
+  dc.d.kind = mode == 0 ? fabber::kMaxits
+                        : (mode == 1 ? fabber::kPointZeroOne
+                                     : fabber::kTrialMode);
+  int occ = 0;
+  return launch_full<GenModel, {q}>(k, dc, nullptr, nullptr, nullptr,
+                                    &occ) == 0 ? occ : -1;
+}}
+
+// the dynamic shared memory of a block (FullLayout), as fulltime_smem
+extern "C" long long fabber_gen_full_smem() {{
+  return FullLayout<GenModel, {q}>::bytes;
+}}
+"""
+
 # the C entry points of kernel 7 at the functor's P and the run's Q, with
 # and without its LM branch; the dt is the functor's own
 _GEN_VB_ITER = """
@@ -377,6 +428,9 @@ extern "C" int fabber_gen_nlls_occupancy(int mode, int marquardt, int vb,
 GEN_KERNELS = {
     "nl_loop": ("whole-loop kernel", "fused_nl_loop.cuh", _GEN_NL_LOOP,
                 "fused_nl_loop.cu"),
+    "nl_loop_full": ("whole-loop kernel's full-time form",
+                     "fused_nl_loop.cuh", _GEN_NL_LOOP_FULL,
+                     "fused_nl_loop.cu"),
     "vb_iter": ("per-iteration VB kernel", "fused_vb_iter.cuh",
                 _GEN_VB_ITER, "fused_vb_iter.cu"),
     "nlls": ("NLLS kernel", "fused_nlls.cuh", _GEN_NLLS, "fused_nlls.cu"),
@@ -459,6 +513,27 @@ def gen_limits(kernel="nl_loop"):
     takes its cooperative form)."""
     return _header_consts(
         ("kCoopMaxP" if kernel == "vb_iter" else "kWideMaxP", "kWideMaxQ"))
+
+
+# kernel 6's full-time form (fused_nl_loop.cuh FullLayout): a warp serves
+# a voxel, so its state and the functor's planes share one block's shared
+# memory, at most MAX_BLOCK_SMEM (csrc/tile.cuh kMaxBlockSmem)
+COOP_CHUNK = 32            # coop_device.cuh kCoopChunk
+
+
+def fulltime_smem(p, q, nt, fn_floats):
+    """Bytes of a block of kernel 6's full-time form (fused_nl_loop.cuh
+    FullLayout, which the generated unit reports as fabber_gen_full_smem)
+    at P, Q, the functor's nt samples and its fn_floats shared floats: the
+    per-group sums, the chunk's Jacobian rows, weights and residuals, five
+    packed matrices, nine P-vectors, four Q-vectors, the voxel's samples,
+    the model's (P + 1) x nt signal and Jacobian, and the functor's
+    planes."""
+    ntri = p * (p + 1) // 2
+    floats = (q * (ntri + p + 1) + p * (COOP_CHUNK + 1) + q * COOP_CHUNK
+              + COOP_CHUNK + 5 * ntri + 9 * p + 4 * q + nt + (p + 1) * nt
+              + fn_floats)
+    return 4 * floats
 
 
 # the largest P, and per-group sums Q P(P+1)/2, of a nonlinear unit built
@@ -555,7 +630,16 @@ def build_generated(source, p, q, kernel="nl_loop"):
     lib = ctypes.CDLL(str(out))
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_float)
-    if kernel == "nl_loop":
+    if kernel == "nl_loop_full":
+        lib.fabber_gen_nl_loop_full.argtypes = [
+            vp, i32, i32, f32, vp, i32, f32, i32, i32, i32, vp,
+            vp, vp, vp, vp, vp, vp, vp, vp, i32, i64] + [vp] * 7 + [vp]
+        lib.fabber_gen_nl_loop_full.restype = i32
+        lib.fabber_gen_full_occupancy.argtypes = [i32]
+        lib.fabber_gen_full_occupancy.restype = i32
+        lib.fabber_gen_full_smem.argtypes = []
+        lib.fabber_gen_full_smem.restype = i64
+    elif kernel == "nl_loop":
         lib.fabber_gen_nl_loop.argtypes = [
             vp, i32, i32, f32, vp, i32, f32, i32, i32, i32, vp,
             vp, vp, vp, vp, vp, vp, vp, i32, i64] + [vp] * 7 + [i32, vp]
@@ -833,6 +917,28 @@ def launch_gen_nl_loop(lib, tcodes, n_iters, need_f, locked_sd, consts,
             data.data_ptr(), ptr(supp), qw.data_ptr(), nt, nv,
             *(o.data_ptr() for o in outs), vb, _stream(data.device))
     _raise_on(err, "fused_nl_loop (generated functor)")
+
+
+def launch_gen_nl_loop_full(lib, tcodes, n_iters, need_f, locked_sd,
+                            consts, detector, det_consts, centre0, pm, pp,
+                            pd0, data, supp, qw, cst, outs):
+    """launch_gen_nl_loop for a full-time functor's library (kernel
+    "nl_loop_full"): cst, the functor's constant buffer on the device, or
+    None."""
+    nt, nv = data.shape
+    consts = consts.contiguous()
+    dc = 0 if det_consts is None else det_consts.contiguous().data_ptr()
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+    with torch.cuda.device(data.device):
+        err = lib.fabber_gen_nl_loop_full(
+            _int_array(tcodes), n_iters, int(need_f), locked_sd,
+            consts.data_ptr(), *detector_args(detector), dc,
+            centre0.data_ptr(), pm.data_ptr(), pp.data_ptr(), ptr(pd0),
+            data.data_ptr(), ptr(supp), qw.data_ptr(), ptr(cst), nt, nv,
+            *(o.data_ptr() for o in outs), _stream(data.device))
+    _raise_on(err, "fused_nl_loop (full-time functor)")
 
 
 def launch_gen_vb_iter(lib, tcodes, need_f, centre, pm, pp, phi, data, qw,
@@ -1180,6 +1286,11 @@ def gen_occupancy(lib, mode, vb, nt):
     """nl_occupancy for a library of build_generated (kernel
     "nl_loop")."""
     return int(lib.fabber_gen_occupancy(mode, vb, nt))
+
+
+def gen_full_occupancy(lib, mode):
+    """Blocks per SM of a full-time functor's kernel in MODE (0, 1, 2)."""
+    return lib.fabber_gen_full_occupancy(mode)
 
 
 def gen_vb_iter_occupancy(lib, lm, vb, nt):

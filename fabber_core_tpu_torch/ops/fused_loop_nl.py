@@ -46,8 +46,16 @@ of time_signal_jac. On the card the kernel's template
 traced evaluate (ops/_cuda.py build_generated), which reads the voxel's
 suppdata [S,V]; its plain version evaluates the model with ops/fused_vb.py
 full_eval (make_full_eval's counterpart) and sums each quadratic over
-the whole time axis at once. A time_signal model without a hand-written
-functor runs a functor generated from its time_signal the same way.
+the whole time axis at once. A time-local evaluate gets a per-sample
+functor, run a voxel a thread by the kernel above; one that mixes time
+(a sum or mean over time, a flip, a slice, a concatenation, a pad, a
+contraction with a constant matrix) gets the full-time walk's functor,
+run by the kernel's full-time form (fused_nl_loop_full_kernel, GEN_KERNELS
+"nl_loop_full"): a warp a voxel, the whole time axis evaluated at once,
+the fixed point's state in the block's shared memory, its constants (a
+convolution matrix) in a device buffer. A time_signal model without a
+hand-written functor runs a functor generated from its time_signal the
+same way.
 
 The kernel stages each block's [T, VB] data tile and the [T, Q] group
 weights in shared memory once (csrc/tile.cuh) where ops/_cuda.py
@@ -59,7 +67,9 @@ CUDA tensor it launches the kernel or raises. ``fused_nl_loop.
 launches`` counts kernel launches, ``det_launches`` those in detector
 mode, ``generic_launches`` those in the generic full-time mode (a
 functor generated from evaluate; one generated from a time_signal is
-the time_signal mode), ``staged_launches`` those in the staged form,
+the time_signal mode), ``fulltime_launches`` those of them in the
+full-time form (a model that mixes time), ``staged_launches`` those in
+the staged form,
 ``instance_launches`` those of a per-shape instance (ops/_cuda.py
 build_instance "nl": a hand-written functor's (kind, P, Q) outside
 FABBER_NL_INSTANCES, built at its first launch).
@@ -228,12 +238,13 @@ def fused_nl_loop(model, transforms, centre0, prior_means, prior_prec, data,
     on the CPU, kernel_model() for the CUDA functor). functor: a
     models/kernelgen.py TimeLocalEval, whose kernel the card launches
     from functor.libs[("nl_loop", Q)] (built before, ops/_cuda.py
-    build_generated):
-    generated from the model's evaluate (its fn set: the generic full-time mode, whose
-    plain version is ops/fused_vb.py full_eval, with supp [S,V] when the
-    functor reads suppdata) or from its time_signal. _vb: private, for
-    the tests and chip_smoke.py: forces the kernel's form (0 streamed,
-    > 0 staged in blocks of that many lanes; ops/_cuda.py launch_vb)."""
+    build_generated; functor.libs[("nl_loop_full", Q)] for a full-time
+    functor): generated from the model's evaluate (its fn set: the generic
+    full-time mode, whose plain version is ops/fused_vb.py full_eval, with
+    supp [S,V] when the functor reads suppdata) or from its time_signal.
+    _vb: private, for the tests and chip_smoke.py: forces the per-lane
+    kernel's form (0 streamed, > 0 staged in blocks of that many lanes;
+    ops/_cuda.py launch_vb); the full-time form has one."""
     if n_iters < 1:
         raise ValueError("n_iters must be >= 1")
     kind = None if detector is None else type(detector["det"]).name
@@ -289,23 +300,25 @@ def fused_nl_loop(model, transforms, centre0, prior_means, prior_prec, data,
         from . import _cuda
         det = None if kind is None else detector["det"]
         pd0 = post_var0 if kind == "freduce" else None
-        vb = _cuda.launch_vb(nt, nq, _vb)
-        if functor is None:
-            if _cuda.launch_nl_loop(km, nq, tcodes, int(n_iters),
-                                    bool(need_f), float(locked_noise_stdev),
-                                    consts.to(torch.float32), det,
-                                    det_consts, centre0, prior_means,
-                                    prior_prec, pd0, data, qw, outs, vb):
-                fused_nl_loop.instance_launches += 1
-        else:
-            lib = generated_lib(functor, "nl_loop", nq)
-            _cuda.launch_gen_nl_loop(
-                lib, tcodes, int(n_iters), bool(need_f),
+        full = functor is not None and functor.full_time
+        vb = 0 if full else _cuda.launch_vb(nt, nq, _vb)
+        args = (tcodes, int(n_iters), bool(need_f),
                 float(locked_noise_stdev), consts.to(torch.float32), det,
-                det_consts, centre0, prior_means, prior_prec, pd0, data,
+                det_consts, centre0, prior_means, prior_prec, pd0, data)
+        if functor is None:
+            if _cuda.launch_nl_loop(km, nq, *args, qw, outs, vb):
+                fused_nl_loop.instance_launches += 1
+        elif full:
+            _cuda.launch_gen_nl_loop_full(
+                generated_lib(functor, "nl_loop_full", nq), *args,
+                supp if nsupp else None, qw, functor.consts_on(dev), outs)
+            fused_nl_loop.fulltime_launches += 1
+        else:
+            _cuda.launch_gen_nl_loop(
+                generated_lib(functor, "nl_loop", nq), *args,
                 supp if nsupp else None, qw, outs, vb)
-            if generic:
-                fused_nl_loop.generic_launches += 1
+        if generic:
+            fused_nl_loop.generic_launches += 1
         fused_nl_loop.launches += 1
         if kind is not None:
             fused_nl_loop.det_launches += 1
@@ -317,6 +330,7 @@ def fused_nl_loop(model, transforms, centre0, prior_means, prior_prec, data,
 fused_nl_loop.launches = 0
 fused_nl_loop.det_launches = 0
 fused_nl_loop.generic_launches = 0
+fused_nl_loop.fulltime_launches = 0
 fused_nl_loop.staged_launches = 0
 fused_nl_loop.instance_launches = 0
 

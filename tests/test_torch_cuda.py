@@ -2887,3 +2887,107 @@ def test_nlls_instance_two_phase_matches_fresh(cuda, name):
                     (fresh[0], fresh[1], fresh[3], fresh[4])):
         assert torch.equal(a.contiguous().view(torch.int32),
                            b.contiguous().view(torch.int32))
+
+
+# -- kernel 6's full-time form: models that mix time -------------------------
+
+def fulltime_models():
+    """tests/torch_fulltime_models.py, its models' names not left in the
+    registry."""
+    from fabber_core_tpu_torch.models import base
+    from torch_generic_models import restored
+    with restored(base._MODELS):
+        import torch_fulltime_models as fm
+    return fm
+
+
+def fulltime_engine(name, device, nv=4096, nq=1, extra=None, seed=0):
+    """An engine on name's model with its data made from a numpy seed
+    (the tests' model_data draws), on device."""
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.options import RunOptions
+    fm = fulltime_models()
+    cls = {c.name: c for c in (fm.CentredBiexp, fm.ToftsConv,
+                               fm.Shifted)}[name]
+    rng = np.random.default_rng(seed)
+    if name == "biexp-centred-test":
+        m = np.stack([rng.uniform(lo, hi, nv) for lo, hi in (
+            (0.8, 1.2), (3.0, 5.0), (0.4, 0.6), (0.3, 0.6))])
+    else:
+        m = np.stack([rng.uniform(0.5, 1.5, nv), rng.uniform(0.5, 2.0, nv)])
+    sig = fm.signal(name, m, 100)
+    data = (sig + 0.02 * rng.standard_normal(sig.shape)).T.astype(
+        np.float32)
+    opts = RunOptions({"model": name, "noise": "white", "dtype": "single",
+                       "max-iterations": "10", "max-trials": "2",
+                       "save-free-energy": True,
+                       "noise-pattern": "12"[:nq], **(extra or {})})
+    return VBInference(cls(), opts, data, device=device), data, opts, cls
+
+
+@pytest.mark.parametrize("kind", ["maxits", "freduce", "trialmode"])
+@pytest.mark.parametrize("name", ["conv-test", "shift-test",
+                                  "biexp-centred-test"])
+def test_fulltime_kernel_matches_plain(cuda, name, kind):
+    """6t: the full-time form against the plain version (full_eval) at
+    float64, on the engine's start and priors: maxits by assert_near_f64,
+    the detector modes by assert_detector_near_f64; the centred
+    biexponential at 2-3 iterations (chaotic at float32 further out)."""
+    from fabber_core_tpu_torch.ops import fused_loop_nl as nl
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    from fabber_core_tpu_torch.ops import smallmat as sm
+    short = name == "biexp-centred-test"
+    eng, _, _, _ = fulltime_engine(
+        name, cuda, extra={"convergence": kind,
+                           **({"max-iterations": "3"} if short else {})})
+    assert eng.route == "pallas-loop-nl" and eng.generic.full_time
+    tr = eng._transforms()
+    s0 = eng.initial_state()
+    args = eng.nl_loop_args(s0)
+    det = None if kind == "maxits" else eng._nl_fdet_consts()
+    pd0 = sm.diag_of(s0.post.cov).contiguous() if kind == "freduce" \
+        else None
+    n_it = (2 if short else 10) if kind == "maxits" \
+        else int(eng.detector.max_iterations)
+    ev = fv.full_eval(eng.generic.fn, tr)
+    before = nl.fused_nl_loop.fulltime_launches
+    k = nl.fused_nl_loop(eng.model, tr, *args, n_it, True, detector=det,
+                         post_var0=pd0, functor=eng.functor)
+    assert nl.fused_nl_loop.fulltime_launches == before + 1
+    r32 = nl.fused_nl_loop_plain(None, tr, *args, n_it, True, detector=det,
+                                 post_var0=pd0, evaluator=ev)
+    r64 = nl.fused_nl_loop_plain(
+        None, tr, *to_f64(args), n_it, True, detector=det,
+        post_var0=None if pd0 is None else pd0.double(), evaluator=ev)
+    if kind == "maxits":
+        assert_near_f64(k, r32, r64)
+        return
+
+    def dec(o):
+        rev = o[5][1] if kind == "freduce" else torch.zeros_like(o[6][0])
+        return decisions(o[6][0], rev)
+
+    assert_detector_near_f64(k, r32, r64, dec(k), dec(r32), dec(r64))
+
+
+@pytest.mark.parametrize("nq", [1, 2])
+def test_fulltime_engine_on_card_matches_cpu(cuda, nq):
+    """The convolution through the engine on the card (the full-time form,
+    launched once) against the CPU engine: tests/test_fused_loop_nl.py's
+    tolerances. The block's bytes are ops/_cuda.py fulltime_smem's."""
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.ops import _cuda
+    from fabber_core_tpu_torch.ops import fused_loop_nl as nl
+    eng, data, opts, cls = fulltime_engine("conv-test", cuda, 2048, nq)
+    lib = eng.functor.libs[("nl_loop_full", nq)]
+    assert lib.fabber_gen_full_smem() == _cuda.fulltime_smem(
+        2, nq, 100, eng.functor.smem_floats)
+    rc = VBInference(cls(), opts, data, device="cpu").run()
+    before = nl.fused_nl_loop.fulltime_launches
+    rk = eng.run()
+    assert nl.fused_nl_loop.fulltime_launches == before + 1
+    sd = np.sqrt(np.diagonal(rc.cov, axis1=1, axis2=2))
+    assert np.max(np.abs(rk.means - rc.means) / sd) < 5e-3
+    np.testing.assert_allclose(rk.noise_means, rc.noise_means, rtol=2e-3)
+    np.testing.assert_allclose(rk.free_energy, rc.free_energy, rtol=1e-4,
+                               atol=2e-3)

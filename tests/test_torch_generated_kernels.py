@@ -275,18 +275,21 @@ def test_nlls_kernel_route_matches_jax(myexp):
 
 def test_generated_libraries_are_distinct_per_kernel(myexp):
     """One functor at one Q gives kernel 6's and kernel 7's libraries
-    under different keys (their templates differ), and kernel 8's under
-    a third, built with the NLLS source's -fmad=false; each source
-    holds its kernel's entry points and header."""
+    under different keys (their templates differ), kernel 6's full-time
+    form's under a third, and kernel 8's under a fourth, built with the
+    NLLS source's -fmad=false; each source holds its kernel's entry
+    points and header."""
     src = myexp["tle"].source
     keys = {k: _cuda.generated_key(src, 4, None if k == "nlls" else 1, k)
             for k in _cuda.GEN_KERNELS}
-    assert len(set(keys.values())) == 3
+    assert len(set(keys.values())) == len(_cuda.GEN_KERNELS) == 4
     assert keys["nl_loop"] == _cuda.generated_key(src, 4, 1)
     cus = {k: _cuda.generated_source(src, 4, None if k == "nlls" else 1, k)
            for k in _cuda.GEN_KERNELS}
     for kernel, entry, header in (
             ("nl_loop", "fabber_gen_nl_loop(", "fused_nl_loop.cuh"),
+            ("nl_loop_full", "fabber_gen_nl_loop_full(",
+             "fused_nl_loop.cuh"),
             ("vb_iter", "fabber_gen_vb_iter(", "fused_vb_iter.cuh"),
             ("nlls", "fabber_gen_nlls(", "fused_nlls.cuh")):
         assert entry in cus[kernel] and f'#include "{header}"' in cus[kernel]

@@ -388,10 +388,10 @@ def test_route_table_matches_jax(name, extra, supp, monkeypatch):
     assert teng.route == jroute, teng.route_description()
 
 
-def test_time_mixing_model_keeps_generic_route(monkeypatch):
+def test_time_mixing_model_takes_full_time_kernel(monkeypatch):
     """A sum over time: the JAX probe admits it (its kernel reduces the
-    time axis), the port's time-locality rule does not (ROADMAP Queue 3
-    item 19): the same results on another route."""
+    time axis), and so does the port's full-time walk: the whole-loop
+    route, its kernel's full-time form (tests/test_torch_fulltime.py)."""
     monkeypatch.setattr(jvb_module.jax, "default_backend", lambda: "tpu")
 
     class JSum(jgen.GaussianActModel):
@@ -401,7 +401,8 @@ def test_time_mixing_model_keeps_generic_route(monkeypatch):
 
     jeng, teng = engines({}, "auto", jm=JSum(), tm=SumOverTime())
     assert jeng.use_nl_loop and jeng._generic_eval_fn is not None
-    assert teng.route == "xla-generic" and teng.generic is None
+    assert teng.route == "pallas-loop-nl" and teng.generic.full_time
+    assert teng.generic.time_planes == jeng._generic_eval_fn.time_planes
 
 
 def test_rejected_model_takes_generic_route_before_any_launch(monkeypatch):

@@ -7,8 +7,10 @@ generic mode (fabber_core_tpu_torch/models/kernelgen.py).
             JAX probe (derive_time_local_eval) admitting them too;
             DataUsing, a coords user, a `ctx.data is None` presence
             check and UnsafeOp (sort) are rejected by both; cumsum is
-            rejected by both, a flip and a sum over time by the port
-            alone (its time-locality rule, ROADMAP Queue 3 item 19);
+            rejected by both; a flip and a sum over time are rejected by
+            the per-sample walk and admitted by the full-time walk, as the
+            JAX probe admits them (tests/test_torch_fulltime.py holds
+            those functors);
   functor   the generated C++ compiled as host C++ with g++ at double
             (tests/torch_hostcc.py; skipped without g++): its signal
             and model-space Jacobian against the model's evaluate and
@@ -74,15 +76,23 @@ def test_probe_admits_time_local_models(cls, nsupp):
     ids=["data", "coords", "presence", "sort", "cumsum", "flip",
          "sum-over-time"])
 def test_probe_rejects(cls, jcls):
-    assert derive_time_local_eval(cls(), NT, 4) is None
+    """Rejected by both probes; a time-mixing model (a flip, a sum over
+    time) is rejected by the per-sample walk alone, and takes the
+    full-time walk's functor."""
+    tle = derive_time_local_eval(cls(), NT, 4)
+    if cls in (Flip, SumOverTime):
+        assert tle is not None and tle.full_time
+    else:
+        assert tle is None
     if jcls is not None:
         assert jderive(jcls(), NT, 4, jnp.float32) is None
 
 
 def test_probe_time_mixing_against_jax():
     """The JAX probe admits what Mosaic lowers (rev, reduce_sum), so a
-    flip or a sum over time is admitted there and refused here; cumsum
-    is refused by both."""
+    flip or a sum over time is admitted by both, the port's as a
+    full-time functor with the JAX count of time planes; cumsum is
+    refused by both."""
     import jax.numpy as jnp_
 
     class JFlip(jgen.GaussianActModel):
@@ -98,9 +108,13 @@ def test_probe_time_mixing_against_jax():
         def evaluate(self, params, ctx, key=""):
             return jnp_.cumsum(super().evaluate(params, ctx))
 
-    assert jderive(JFlip(), NT, 4, jnp.float32) is not None
-    assert jderive(JSum(), NT, 4, jnp.float32) is not None
+    for jm, tm in ((JFlip(), Flip()), (JSum(), SumOverTime())):
+        jf = jderive(jm, NT, 4, jnp.float32)
+        tle = derive_time_local_eval(tm, NT, 4)
+        assert jf is not None and tle is not None and tle.full_time
+        assert tle.time_planes == jf.time_planes
     assert jderive(JCum(), NT, 4, jnp.float32) is None
+    assert derive_time_local_eval(CumSum(), NT, 4) is None
 
 
 @pytest.fixture

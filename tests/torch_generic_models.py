@@ -1,8 +1,9 @@
 """Torch models for the tests of the whole-loop kernel's generic mode:
 the twins of tests/test_fused_loop_generic.py's models (GaussianAct,
 SuppScaled, DataUsing, UnsafeOp), the port's exp without its time_signal,
-and models the probe must refuse (coords, a presence check, time-mixing
-ops) or that use most of its allowlist; and restored(), which puts
+and models the probe must refuse (coords, a presence check, cumsum),
+that only its full-time walk admits (a flip, a sum over time) or that
+use most of its allowlist; and restored(), which puts
 model registries back as they were. No jax here: the card tests
 (tests/test_torch_cuda.py) import it too."""
 

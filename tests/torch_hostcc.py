@@ -120,8 +120,9 @@ def _write_headers(d, double=True):
     (d / "cuda_runtime.h").write_text(SHIM)
     (d / "dual.cuh").write_text((CSRC / "dual.cuh").read_text())
     for name in ("vb_device.cuh", "detectors.cuh", "tile.cuh",
-                 "spectral_device.cuh", "whole_device.cuh",
-                 "fused_whole_body.inc", "fused_ar_loop_body.inc"):
+                 "spectral_device.cuh", "whole_device.cuh", "coop_device.cuh",
+                 "fulltime.cuh", "fused_whole_body.inc",
+                 "fused_ar_loop_body.inc"):
         (d / name).write_text(conv((CSRC / name).read_text()))
     for name in ("fused_nl_loop.cuh", "fused_vb_iter.cuh",
                  "fused_nlls.cuh"):
@@ -268,6 +269,110 @@ extern "C" int host_nl_loop(const int* tcodes, double dt, int n_iters,
                               _ptr(dcs), in_ptrs, out_ptrs, nt, nv)
         assert rc == 0
         return outs
+    return fn
+
+
+def full_kernel_fn(functor, q, tmpdir):
+    """Kernel 6's full-time form (fused_nl_loop.cuh
+    fused_nl_loop_full_kernel, cut before its launch section) with a
+    TimeLocalEval's full-time functor (models/kernelgen.py) at Q groups,
+    at double: a block of kCoopThreads threads per voxel, each a host
+    thread meeting the others at __syncthreads, as kernel 7's cooperative
+    form runs in vb_iter_kernel_fn: fn(tcodes, n_iters, need_f, consts
+    [4Q], det (kind, tol, max_its, max_trials, init_save), det_consts
+    [Q+2], centre0, pm, pp, pd0 [P,V], data [T,V], supp [S,V] or None, qw
+    [T,Q]) -> the seven outputs; the functor's constants ride along. Also
+    fn.smem: the block's bytes (FullLayout::bytes at float32 sizes, the
+    float count times 4)."""
+    assert functor.full_time
+    d = Path(tmpdir)
+    _write_headers(d)
+    _, name = _functor_model(functor)
+    src = "#include <thread>\n#include <vector>\n" + _kernel_head(
+        "fused_nl_loop.cuh", functor) + f"""
+namespace {{
+using HK = VBParamsFor<GenModel::P, {q}>;
+using HD = NLDetConstsFor<{q}>;
+template <int MODE>
+static void run_all(const HK& k, const HD& dc, const double* const* in,
+                    double* const* out) {{
+  const auto kp = params_for<GenModel::P, {q}>(k);
+  const auto dp = det_consts_for<{q}>(dc);
+  FabberHostBarrier bar;
+  bar.n = (unsigned)kCoopThreads;
+  fabber_host_barrier = &bar;
+  blockDim.x = (unsigned)kCoopThreads;
+  for (long long v = 0; v < k.V; ++v) {{
+    blockIdx.x = (unsigned)v;
+    std::vector<std::thread> lanes;
+    for (int l = 0; l < kCoopThreads; ++l)
+      lanes.emplace_back([=, &kp, &dp] {{
+        threadIdx.x = (unsigned)l;
+        fused_nl_loop_full_kernel<GenModel, {q}, MODE>(
+            kp, dp, in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7],
+            out[0], out[1], out[2], out[3], out[4], out[5], out[6]);
+      }});
+    for (auto& th : lanes) th.join();
+  }}
+  blockDim.x = 1;
+  fabber_host_barrier = nullptr;
+}}
+}}  // namespace
+extern "C" long long host_full_floats() {{
+  return FullLayout<GenModel, {q}>::floats;
+}}
+extern "C" int host_nl_loop_full(const int* tcodes, int n_iters, int need_f,
+                                 const double* consts, int det_kind,
+                                 double det_tol, int det_max_its,
+                                 int det_max_trials, int det_init_save,
+                                 const double* det_consts,
+                                 const double* const* in,
+                                 double* const* out, int nt, long long V) {{
+  HK k;
+  HD dc;
+  if (!nl_setup(GenModel::P, {q}, tcodes, 0.0, n_iters, need_f, -1.0,
+                consts, det_kind, det_tol, det_max_its, det_max_trials,
+                det_init_save, det_consts, in[3], nt, V, &k, &dc) ||
+      nt != GenModel::NT)
+    return 1;
+  if (det_kind == 0) run_all<0>(k, dc, in, out);
+  else if (det_kind <= 2) run_all<1>(k, dc, in, out);
+  else run_all<2>(k, dc, in, out);
+  return 0;
+}}
+"""
+    lib = _build(d, f"full_{name}_q{q}", src)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.host_nl_loop_full.restype = i32
+    lib.host_nl_loop_full.argtypes = [vp, i32, i32, vp, i32, ctypes.c_double,
+                                      i32, i32, i32, vp, vp, vp, i32,
+                                      ctypes.c_longlong]
+    lib.host_full_floats.restype = ctypes.c_longlong
+    cst = None if functor.consts is None else np.ascontiguousarray(
+        functor.consts, np.float64)
+
+    def fn(tcodes, n_iters, need_f, consts, det, det_consts, centre0, pm,
+           pp, pd0, data, supp, qw):
+        nt, nv = data.shape
+        p = centre0.shape[0]
+        fq = q if det[0] == 0 else (2 if det[0] == 2 else 1)
+        outs = [np.zeros(s) for s in ((p, nv), (p, p, nv), (p, p, nv),
+                                      (q, nv), (q, nv), (fq, nv), (fq, nv))]
+        ins = [np.ascontiguousarray(x, np.float64) if x is not None
+               else None for x in (centre0, pm, pp, pd0, data, supp, qw)]
+        ins.append(cst)
+        in_ptrs = (ctypes.c_void_p * 8)(*[
+            None if x is None else x.ctypes.data for x in ins])
+        out_ptrs = (ctypes.c_void_p * 7)(*[o.ctypes.data for o in outs])
+        tc = (ctypes.c_int * p)(*tcodes)
+        cs = np.ascontiguousarray(consts, np.float64)
+        dcs = np.ascontiguousarray(det_consts, np.float64)
+        rc = lib.host_nl_loop_full(tc, n_iters, int(need_f), _ptr(cs),
+                                   det[0], det[1], det[2], det[3], det[4],
+                                   _ptr(dcs), in_ptrs, out_ptrs, nt, nv)
+        assert rc == 0
+        return outs
+    fn.smem = 4 * lib.host_full_floats()
     return fn
 
 

@@ -37,7 +37,14 @@ biexponential, a Tofts-like convolution by a constant matrix and a
 shift, through functors of the full-time walk against the plain version
 in every detector mode at Q 1-2; --loadmodels on the convolution through
 run_with_data, its launch counted, against the float64 'xla-generic'
-route on the card; timed at 1,000,000 voxels);
+route on the card; timed at 1,000,000 voxels; then the rest of the JAX
+allowlist, tests/torch_generic_ops_models.py: pairs-test, a contraction
+of two parameter planes, an extremum over time and another axis and
+values with two time axes reduced over one or both (T=64), and
+mixed-test, a constant matrix times the
+parameters, through kernel 6, and stacked-test's time_signal, its
+stacked parameters contracted with that matrix, through kernels 7 and 8,
+each against its plain version, through run_with_data and timed);
 drives method=spatialvb (bench.py's spatial shape on a 1024x1024 grid,
 its spatial-p4 model on 512x512 and an MPmp mix, each against its float64 run on the
 card; Gauss-Seidel against the CPU, blocked sweeps against unblocked)
@@ -3414,7 +3421,7 @@ def cosine_design(p, nt=NT):
     return np.stack([np.cos(np.pi * k * t) for k in range(p)], axis=1)
 
 
-def check_wide_fixed_design(device, nvs=CHECK_NVS,
+def check_wide_fixed_design(device, nvs=(524_288, CHECK_NVS[1]),
                             seed=SEED + 30):
     """Phase 3h: kernels 4, 5 and 9 at P = 6 and 8 (cosine designs,
     T=106) against their plain versions, each held lane by lane by
@@ -3426,7 +3433,8 @@ def check_wide_fixed_design(device, nvs=CHECK_NVS,
       fused_ar_loop (9) at nq = 1, 2 in maxits and under pointzeroone.
     Truth ~ U(-1, 1) per column (pattern_plane; AR: c0 ~ U(0.5, 1.5));
     voxel noise sd over 1e-2..3 (AR innovations 1e-2..1). P = 6 at the
-    power-of-two voxel count, P = 8 at the ragged one."""
+    power-of-two voxel count (524,288; 1,048,576 until the generic-ops
+    phases took the time), P = 8 at the ragged one."""
     import torch
     from fabber_core_tpu_torch.ops import fused_loop as fl
     from fabber_core_tpu_torch.ops import fused_loop_ar as fa
@@ -6584,7 +6592,7 @@ def nexp_volume(num, shape, seed):
 MIN_REF = 0.1
 
 
-def run_nl_instance_paths(device, shape=(128, 128, 64),
+def run_nl_instance_paths(device, shape=(128, 128, 32),
                           small=(16, 16, 16), smaller=(8, 8, 4)):
     """Phase 4aa: run_with_data on the nonlinear per-shape instances, each
     path's launch counters zeroed just before it and read just after
@@ -6599,7 +6607,8 @@ def run_nl_instance_paths(device, shape=(128, 128, 64),
       "fit": the share whose fit lies within 3 noise sd of the noiseless
         signal at every sample at least plain float32's - 0.02;
       "fit64": that share at least the float64 run's - 0.02.
-    Paths (exp num-exps 5, 128x128x64 x 100):
+    Paths (exp num-exps 5, 128x128x32 x 100; 128x128x64 until the
+    generic-ops phases took the time):
       'pallas-loop-nl' (kernel 6, maxits) at 2 iterations, "near": at 10
         iterations a maxits five-exponential fit diverges in float64 too
         (within 3 sd in under 1% of voxels at any horizon), and at 2
@@ -7227,6 +7236,415 @@ def time_fulltime(device, card, nv=1_000_000):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Kernel 6's generic mode over the JAX allowlist, and kernels 7 and 8 with a
+# time_signal that contracts its stacked parameter planes
+# (tests/torch_generic_ops_models.py; phases 3l, 4ab and 5l continued)
+# ---------------------------------------------------------------------------
+
+GO_PLUGIN = "tests/torch_generic_ops_models.py"
+# T (DT 0.05, the plugin's; the noise sd is FT_SD's): 100, and 64 for
+# pairs-test, the largest T at which the JAX picker fits its 35 time planes
+GO_NT = 100
+GO_PAIRS_NT = 64
+# pairs-test's checks against plain: its plain version holds [V,T,T]
+# intermediates, 1.1 GB each at 65,536 voxels in float32
+GO_PAIRS_NV = 16_384
+
+
+def go_nt(name):
+    return GO_PAIRS_NT if name == "pairs-test" else GO_NT
+_GO_MODULE = []
+
+
+def generic_ops_module():
+    """The plugin module (its models registered by name), loaded once."""
+    if not _GO_MODULE:
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(
+            "fabber_generic_ops_smoke", GO_PLUGIN)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _GO_MODULE.append(mod)
+    return _GO_MODULE[0]
+
+
+def generic_ops_functors():
+    """The functors the run builds for the plugin's models, as (name,
+    TimeLocalEval, P, Q, kernel): pairs-test's full-time functor (at
+    T=64) and mixed-test's per-sample one (T=100), Q 1 and 2 (kernel 6),
+    and the functor generated from stacked-test's time_signal for kernels
+    7 (Q 1) and 8."""
+    from fabber_core_tpu_torch.models.kernelgen import (
+        derive_time_local_eval, derive_time_signal_functor)
+    mod = generic_ops_module()
+    out = []
+    for cls in (mod.Pairs, mod.Mixed):
+        tle = derive_time_local_eval(cls(), go_nt(cls.name), 2)
+        out += [(f"{cls.name} Q={q}", tle, 2, q, tle.kernel) for q in (1, 2)]
+    ts = derive_time_signal_functor(mod.Stacked(), 2)
+    out += [("stacked-test vb_iter", ts, 2, 1, "vb_iter"),
+            ("stacked-test nlls", ts, 2, None, "nlls")]
+    return out
+
+
+def generic_ops_plane(name, nv, gen, device):
+    """The plugin model's data made on the card: amp ~ U(0.5, 1.5), r ~
+    U(0.5, 2), its signal plus noise of sd FT_SD -> (data [T,V], clean
+    [T,V], truths [P,V])."""
+    import torch
+
+    def u(lo, hi):
+        return torch.rand((1, nv), generator=gen, device=device) \
+            * (hi - lo) + lo
+    m = torch.cat([u(0.5, 1.5), u(0.5, 2.0)])
+    clean = generic_ops_module().signal_torch(name, m, go_nt(name))
+    data = torch.randn((go_nt(name), nv), generator=gen, device=device)
+    return data.mul_(FT_SD).add_(clean), clean, m
+
+
+def generic_ops_engine(name, plane, device, nq=1, extra=None):
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.options import RunOptions
+    generic_ops_module()
+    opts = RunOptions({"model": name, "noise": "white",
+                       "max-iterations": str(ITERS), "dtype": "single",
+                       **({"noise-pattern": "12"} if nq == 2 else {}),
+                       **(extra or {})})
+    return VBInference(get_model_class(name)(opts), opts, None,
+                       data_plane=plane, device=device)
+
+
+def stacked_nlls_engine(plane, device):
+    from fabber_core_tpu_torch.inference.nlls import NLLSInference
+    from fabber_core_tpu_torch.models import get_model_class
+    from fabber_core_tpu_torch.options import RunOptions
+    generic_ops_module()
+    opts = RunOptions({"model": "stacked-test", "method": "nlls",
+                       "dtype": "single"})
+    return NLLSInference(get_model_class("stacked-test")(opts), opts, None,
+                         data_plane=plane, device=device)
+
+
+# the kernels line's entries of these forms: (name, launch counter)
+GO_ENTRIES = (("fused_nl_loop:fulltime-pairs", "fused_nl_loop:fulltime"),
+              ("fused_nl_loop:generic-mix", "fused_nl_loop:generic"),
+              ("fused_vb_iter:generated-stacked", "fused_vb_iter:generated"),
+              ("fused_nlls:generated-stacked", "fused_nlls:generated"))
+
+
+def check_generic_ops_kernels(device, nv=65_536, seed=SEED + 60):
+    """Phase 3l, continued: kernel 6 with pairs-test's full-time functor
+    (a contraction of two parameter planes over time, an extremum over
+    time and a stacking axis, values with two time axes reduced over one
+    or both, one whose second axis is a constant's), at GO_PAIRS_NV
+    voxels (its plain version's [V,T,T] planes), and
+    mixed-test's per-sample one (a constant matrix times the parameters;
+    at nv) against the plain version, held to float64 by near_f64 in
+    FT_CASES (MODEs 0-2, Q 1-2), 10 iterations, 2 trials, each launch
+    counted; then kernel 7 (with and without its LM branch, from the
+    latent truth + N(0, 0.05^2)) and kernel 8 (fresh Levenberg, from the
+    engine's start, check_nlls_case) with the functor generated from
+    stacked-test's time_signal, at nv."""
+    import torch
+    from fabber_core_tpu_torch.ops import fused_loop_nl as fl
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    from fabber_core_tpu_torch.ops import smallmat as sm
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    worst = {name: [0.0, 0.0] for name, _ in GO_ENTRIES}
+    ok_all = True
+    for name, key, counter, full in (
+            ("pairs-test", GO_ENTRIES[0][0], "fulltime_launches", True),
+            ("mixed-test", GO_ENTRIES[1][0], "generic_launches", False)):
+        n = GO_PAIRS_NV if full else nv
+        plane, _, _ = generic_ops_plane(name, n, gen, device)
+        for nq, kind in FT_CASES:
+            eng = generic_ops_engine(name, plane, device, nq,
+                                     {"convergence": kind,
+                                      "max-trials": "2"})
+            if (eng.route != "pallas-loop-nl" or eng.generic is None
+                    or eng.generic.full_time != full):
+                log(f"  FAIL {name}: route {eng.route_description()}")
+                return False, worst
+            tr = eng._transforms()
+            s0 = eng.initial_state()
+            args = eng.nl_loop_args(s0)
+            ev = fv.full_eval(eng.generic.fn, tr)
+            det = None if kind == "maxits" else eng._nl_fdet_consts()
+            pd0 = sm.diag_of(s0.post.cov).contiguous() \
+                if kind == "freduce" else None
+            n_it = ITERS if kind == "maxits" \
+                else int(eng.detector.max_iterations)
+            before = getattr(fl.fused_nl_loop, counter)
+            k = fl.fused_nl_loop(eng.model, tr, *args, n_it, True,
+                                 detector=det, post_var0=pd0,
+                                 functor=eng.functor)
+            moved = getattr(fl.fused_nl_loop, counter) == before + 1
+            r32 = fl.fused_nl_loop_plain(None, tr, *args, n_it, True,
+                                         detector=det, post_var0=pd0,
+                                         evaluator=ev)
+            r64 = fl.fused_nl_loop_plain(
+                None, tr, *to64(args), n_it, True, detector=det,
+                post_var0=None if pd0 is None else pd0.double(),
+                evaluator=ev)
+            torch.cuda.synchronize()
+            label = f"{name} Q={nq} {kind} {n_it} its V={n}"
+            if det is None:
+                res = near_f64(label, k, r32, r64)
+            else:
+                def dec(o):
+                    rev = o[5][1].double() if kind == "freduce" \
+                        else 0 * o[6][0].double()
+                    return torch.stack([o[6][0].double(), rev])
+                res = near_f64(label, k, r32, r64, dec(k), dec(r32),
+                               dec(r64))
+            ok, abs_err, ratio = res
+            if not moved:
+                log(f"  FAIL {label}: {counter} did not move")
+            ok_all &= ok and moved
+            w = worst[key]
+            w[0], w[1] = max(w[0], abs_err), max(w[1], ratio)
+            del k, r32, r64, args, eng
+            torch.cuda.empty_cache()
+        del plane
+
+    plane, _, truth = generic_ops_plane("stacked-test", nv, gen, device)
+    eng = generic_ops_engine("stacked-test", plane, device, 1,
+                             {"engine-kernel": "pallas"})
+    ok_all &= (eng.route == "pallas" and eng.functor is not None
+               and ("vb_iter", 1) in eng.functor.libs)
+    tr = eng._transforms()
+    tsj = fv.signal_jac_fn(eng.model)
+    args = eng.nl_loop_args(eng.initial_state())
+    lat = torch.log(truth) + 0.05 * torch.randn(truth.shape, generator=gen,
+                                                device=device)
+    phi = torch.full((1, nv), 1.0 / FT_SD ** 2, device=device)
+    alpha = 10.0 ** (torch.rand(nv, generator=gen, device=device) * 8 - 6)
+    alpha[::4] = 0.0
+    it_args = (lat, args[1], args[2], phi, args[3], args[4], True)
+    for lm in (False, True):
+        extra = (alpha,) if lm else ()
+        before = fv.fused_iteration.generated_launches
+        k = fv.fused_iteration(eng.model, tr, *it_args, *extra,
+                               functor=eng.functor)
+        moved = fv.fused_iteration.generated_launches == before + 1
+        r32 = fv.fused_iteration_plain(tsj, tr, *it_args, *extra)
+        r64 = fv.fused_iteration_plain(tsj, tr, *to64(it_args), *to64(extra))
+        torch.cuda.synchronize()
+        ok, abs_err, ratio = near_f64(
+            f"stacked-test fused_vb_iter LM={int(lm)} V={nv}", k, r32, r64)
+        ok_all &= ok and moved
+        w = worst[GO_ENTRIES[2][0]]
+        w[0], w[1] = max(w[0], abs_err), max(w[1], ratio)
+        del k, r32, r64
+    del eng, args, lat, phi, alpha, it_args
+    torch.cuda.empty_cache()
+    neng = stacked_nlls_engine(plane, device)
+    ok_all &= neng.route == "nlls-kernel" and neng.functor is not None
+    ok_all &= check_nlls_case(f"stacked-test L V={nv}", neng,
+                              neng.initial_means(), worst,
+                              keys=(GO_ENTRIES[3][0],))
+    del neng, plane, truth
+    torch.cuda.empty_cache()
+    return ok_all, worst
+
+
+def run_generic_ops_paths(device, shape=(32, 32, 16)):
+    """Phase 4ab, continued: run_with_data --loadmodels=GO_PLUGIN on a
+    32x32x16 volume of each model (T = go_nt): pairs-test (kernel 6's
+    full-time form, fulltime_launches 1), mixed-test (its per-sample
+    generic mode, generic_launches 1), stacked-test with
+    engine-kernel=pallas (kernel 7 with the functor generated from its
+    time_signal, once per iteration) and with method=nlls (kernel 8,
+    phase 1 + resume); each route line as expected, every output finite,
+    and the VB runs against the float64 run on the card (xla-generic, or
+    the per-iteration route's plain version; no kernel): the share of
+    voxels whose means lie beyond 1e-2 posterior sd, or std or noise
+    beyond 1e-2 relative, at most 1e-3. Each run's counters are zeroed
+    just before it and read just after. Returns (ok, launches by
+    GO_ENTRIES name)."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 61)
+    nv = int(np.prod(shape))
+    ok, launches = True, {}
+    base = {"loadmodels": GO_PLUGIN, "method": "vb", "noise": "white",
+            "max-iterations": str(ITERS), "dtype": "single",
+            "save-mean": True}
+    for name, extra, entry, want in (
+            ("pairs-test", {}, GO_ENTRIES[0],
+             {"fused_nl_loop": 1, "fused_nl_loop:generic": 1,
+              "fused_nl_loop:fulltime": 1}),
+            ("mixed-test", {}, GO_ENTRIES[1],
+             {"fused_nl_loop": 1, "fused_nl_loop:generic": 1,
+              "fused_nl_loop:staged": 1}),
+            ("stacked-test", {"engine-kernel": "pallas"}, GO_ENTRIES[2],
+             {"fused_vb_iter": ITERS, "fused_vb_iter:generated": ITERS,
+              "fused_vb_iter:staged": ITERS})):
+        plane, _, _ = generic_ops_plane(name, nv, gen, device)
+        vol = plane.t().cpu().numpy().reshape(shape + (go_nt(name),))
+        del plane
+        opts = {**base, "model": name, **extra}
+        log(f"phase 4ab: run_with_data --loadmodels={GO_PLUGIN} "
+            f"--model={name} {extra}, volume {shape + (go_nt(name),)}")
+        run, res, eng, n, _ = api_run(device, opts, vol)
+        fin = all(np.isfinite(a).all() for a in run.data.values())
+        good = n == want and fin and not res.bad_voxels.any()
+        if name == "pairs-test":
+            good &= "generic full-time mode" in eng.route_description()
+        _, r64, eng64, n64, _ = api_run(device, {**opts, "dtype": "double"},
+                                        vol)
+        good &= not n64
+        e_m, e_s, e_n = voxel_errors(res, r64)
+        off = (e_m > 1e-2) | (e_s > 1e-2) | (e_n > 1e-2)
+        good &= float(off.mean()) <= 1e-3
+        log(f" {name}: launches {n} (want {want}); finite {fin}; float32 "
+            f"against float64 ({eng64.route}): {int(off.sum())} voxels off "
+            f"({off.mean():.3g}; bound 1e-3) {'ok' if good else 'FAIL'}")
+        ok &= good
+        launches[entry[0]] = n.get(entry[1], 0)
+        del run, res, r64, eng, eng64
+        if name == "stacked-test":
+            nopts = {"loadmodels": GO_PLUGIN, "model": name,
+                     "method": "nlls", "dtype": "single", "save-mean": True}
+            log(" the same volume, --method=nlls")
+            from fabber_core_tpu_torch.inference.nlls import NLLSInference
+            run, res, eng, n, _ = api_run(device, nopts, vol,
+                                          cls=NLLSInference)
+            fin = all(np.isfinite(a).all() for a in run.data.values())
+            good = (eng.route == "nlls-kernel" and eng.functor is not None
+                    and n.get("fused_nlls:generated", 0) == 2 and fin)
+            log(f" stacked-test NLLS: launches {n}; finite {fin} "
+                f"{'ok' if good else 'FAIL'}")
+            ok &= good
+            launches[GO_ENTRIES[3][0]] = n.get("fused_nlls:generated", 0)
+            del run, res, eng
+        torch.cuda.empty_cache()
+    return ok, launches
+
+
+def generic_ops_ops(tle, nq, iters, nt=GO_NT):
+    """fulltime_ops for a functor of either walk: a per-sample functor's
+    needed operations are per sample (its value and P tangents; it reads
+    no known zeros)."""
+    if tle.full_time:
+        return fulltime_ops(tle, nq, iters, nt)
+    return fulltime_ops(tle, nq, iters, nt) + (iters + 1) * (
+        tle.needed_ops * (nt - 1))
+
+
+def time_generic_ops(device, card, nv=1_000_000, nv_plain=65_536,
+                     nv_78=262_144):
+    """Phase 5l, continued (T = go_nt, maxits 10, generic_ops_plane's data;
+    CUDA events, best of 3 after a warm-up; plain versions once):
+    pairs-test's full-time form at nv with its ops bound (fulltime_ops:
+    the function's operations), and at nv_plain beside its plain version
+    (whose [V,T,T] planes do not fit at nv); mixed-test's per-sample
+    generic mode at nv beside its plain version; kernels 7 and 8 (fresh
+    Levenberg) with stacked-test's generated functor at nv_78 beside their
+    plain versions. Each bound: the larger of the bytes (the data plane
+    and the inputs read once, the outputs written once) and the float32
+    operations at the card's peaks. Kernel 7's: the functor's value and
+    Jacobian at the centre (pass A) and at the new means (pass F, whose
+    trace term needs the Jacobian); pass B's k = r + J d reuses pass A's
+    r and J, so the function needs no third evaluation."""
+    import torch
+    from fabber_core_tpu_torch.ops import _cuda
+    from fabber_core_tpu_torch.ops import fused_loop_nl as fl
+    from fabber_core_tpu_torch.ops import fused_nlls as fn
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 62)
+    out = {}
+    for name, tag in (("pairs-test", "pairs"), ("mixed-test", "mix")):
+        sizes = (nv, nv_plain) if tag == "pairs" else (nv,)
+        for n in sizes:
+            sfx = "" if n == nv else "_small"
+            plane, _, _ = generic_ops_plane(name, n, gen, device)
+            eng = generic_ops_engine(name, plane, device)
+            tr = eng._transforms()
+            args = eng.nl_loop_args(eng.initial_state())
+            tle = eng.functor
+            out[f"{tag}{sfx}_ms"] = best_ms(lambda: fl.fused_nl_loop(
+                eng.model, tr, *args, ITERS, True, functor=tle))
+            if tag == "mix" or sfx:
+                ev = fv.full_eval(tle.fn, tr)
+                out[f"{tag}{sfx}_plain_ms"], _ = once_ms(
+                    lambda: fl.fused_nl_loop_plain(None, tr, *args, ITERS,
+                                                   True, evaluator=ev))
+            nt = go_nt(name)
+            nbytes = 4 * n * (nt + 3 * 2 + 2 + 2 * 4 + 4)
+            out[f"{tag}{sfx}_bound"] = bound(
+                nbytes, generic_ops_ops(tle, 1, ITERS, nt) * n)
+            out[f"{tag}{sfx}_voxels"] = n
+            del plane, eng, args
+            torch.cuda.empty_cache()
+        lib = tle.libs[(tle.kernel, 1)]
+        if tle.full_time:
+            out[f"{tag}_blocks_per_sm"] = [_cuda.gen_full_occupancy(lib, m)
+                                           for m in (0, 1, 2)]
+            out[f"{tag}_smem_bytes"] = int(lib.fabber_gen_full_smem())
+        out[f"{tag}_functor_ops"] = (tle.value_ops, tle.tangent_ops,
+                                     tle.needed_ops, tle.time_planes)
+        text = _cuda.gen_build_log.get(_cuda.generated_key(
+            tle.source, 2, 1, tle.kernel), (float("nan"), ""))[1]
+        kname = "fused_nl_loop_full_kernel" if tle.full_time \
+            else "fused_nl_loop_kernel"
+        out[f"{tag}_ptxas"] = [ptxas_entry(text, kname, f"Li1ELi{m}E")
+                               for m in (0, 1, 2)]
+
+    plane, _, truth = generic_ops_plane("stacked-test", nv_78, gen, device)
+    eng = generic_ops_engine("stacked-test", plane, device, 1,
+                             {"engine-kernel": "pallas"})
+    tr = eng._transforms()
+    tle = eng._gen_functor
+    args = eng.nl_loop_args(eng.initial_state())
+    phi = torch.full((1, nv_78), 1.0 / FT_SD ** 2, device=device)
+    it_args = (torch.log(truth).contiguous(), args[1], args[2], phi,
+               args[3], args[4], True)
+    out["stacked_iter_ms"] = best_ms(lambda: fv.fused_iteration(
+        eng.model, tr, *it_args, functor=tle))
+    out["stacked_iter_plain_ms"], _ = once_ms(
+        lambda: fv.fused_iteration_plain(fv.signal_jac_fn(eng.model), tr,
+                                         *it_args))
+    own = tle.needed_ops
+    vb_ops = (nl_pass_ops(2, 1, 0, "A") + nl_pass_ops(2, 1, 0, "B")
+              + nl_pass_ops(2, 1, 0, "F") + 2 * own) * GO_NT + 400
+    vb_bytes = 4 * GO_NT * nv_78 + 4 * (3 * 2 + 1 + 2 + 2 * 4 + 4) * nv_78
+    out["stacked_iter_bound"] = bound(vb_bytes, vb_ops * nv_78)
+    del phi, it_args, args, eng
+    torch.cuda.empty_cache()
+    neng = stacked_nlls_engine(plane, device)
+    ntr = [pm.transform for pm in neng.params]
+    p0 = neng.initial_means()
+    nargs = (neng.tmask_host, neng.max_its, False)
+    out["stacked_nlls_ms"], k = best_ms(lambda: fn.fused_nlls_loop(
+        neng.model, ntr, p0, plane, *nargs, functor=neng.functor), keep=True)
+    out["stacked_nlls_its"] = its_histogram(k[2].cpu().numpy())
+    del k
+    out["stacked_nlls_plain_ms"], r = once_ms(
+        lambda: fn.fused_nlls_loop_plain(fv.signal_jac_fn(neng.model), ntr,
+                                         p0, plane, *nargs))
+    trips = float(r[2].double().sum())
+    del r
+    ops = nlls_ops(2, 0, 2, GO_NT, False)
+    io_bytes = 4 * (2 + GO_NT) * nv_78 + 4 * (2 + 2 + 2 * 4) * nv_78
+    out["stacked_nlls_bound"] = bound(
+        io_bytes, (nv_78 + trips) * (ops["pass"] + own * GO_NT)
+        + trips * ops["step"] + nv_78 * ops["post"])
+    out["stacked_voxels"] = nv_78
+    for k_, v in out.items():
+        nt = GO_PAIRS_NT if k_.startswith("pairs") else GO_NT
+        log(f" {k_} = {v!r}  [T={nt} P=2; {card}]")
+    del neng, p0, plane, truth
+    torch.cuda.empty_cache()
+    return out
+
+
 def niced(level, fn, *args):
     """fn(*args) at nice level: Linux keeps a nice value per thread, and
     the threads and nvcc processes this one starts inherit it, so builds
@@ -7287,6 +7705,14 @@ def main():
     wide_gens = [inst_pool.submit(niced, 15, _cuda.build_generated,
                                   tle.source, p, q, kernel)
                  for _, tle, p, q, kernel in wide_functors]
+    # the generic-ops models' functors (phase 3l, continued), started
+    # once the library is built, at nice 10: ahead of the per-shape
+    # instances, behind the library's and phase 3g's
+    go_functors = generic_ops_functors()
+    go_pool = ThreadPoolExecutor(len(go_functors))
+    go_gens = [go_pool.submit(niced, 10, _cuda.build_generated, tle.source,
+                              p, q, kernel)
+               for _, tle, p, q, kernel in go_functors]
     _cuda.load()
     log(f"phase 2: {len(_cuda.SOURCES)} kernel sources built in "
         f"{time.perf_counter() - t0:.1f} s -> {path}")
@@ -7351,6 +7777,26 @@ def main():
         "against its plain version")
     ok3l, worst_ft = check_fulltime_kernels(device)
     worst.update(worst_ft)
+    for g in go_gens:
+        g.result()
+    go_pool.shutdown()
+    for name, tle, p, q, kernel in go_functors:
+        secs, text = _cuda.gen_build_log.get(
+            _cuda.generated_key(tle.source, p, q, kernel),
+            (float("nan"), ""))
+        log(f"  generated {name} for {kernel} (P={p}, Q={q}, "
+            f"{tle.value_ops} value + {tle.tangent_ops} tangent operations, "
+            f"{tle.needed_ops} needed): nvcc {secs:.1f} s")
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas ({name}): {line.strip()}")
+    log("phase 3l: kernel 6's generic mode over the JAX allowlist (a "
+        "contraction of two parameter planes, a two-axis extremum, two "
+        "time axes; a constant matrix times the parameters) and kernels 7 "
+        "and 8 with a stacked-parameter time_signal, against their plain "
+        "versions")
+    ok3m, worst_go = check_generic_ops_kernels(device)
+    worst.update(worst_go)
     # phase 4: the main paths through the API; each path's launch
     # counters are zeroed just before it and read just after it
     log("phase 4: run_with_data, 128x128x64 x 106, poly degree 2")
@@ -7454,12 +7900,14 @@ def main():
     for name, n in design_launches.items():
         launches[name] += n
     log("phase 4aa: run_with_data on the nonlinear per-shape instances: "
-        "exp num-exps 5 and biexp at noise-pattern=123456 (128x128x64 x "
+        "exp num-exps 5 and biexp at noise-pattern=123456 (128x128x32 x "
         "100), num-exps 20 (16x16x16) and 22 (16x16x8; by NLLS on 8x8x4)")
     ok4aa, nl_inst_launches = run_nl_instance_paths(device)
     launches.update(nl_inst_launches)
     ok4ab, ft_launches = run_fulltime_path(device)
     launches.update(ft_launches)
+    ok4ac, go_launches = run_generic_ops_paths(device)
+    launches.update(go_launches)
 
     # phase 5: timing at the headline sizes
     log("phase 5: timing at 16,777,216 voxels")
@@ -7496,6 +7944,10 @@ def main():
     log("phase 5l: kernel 6's full-time form at 1,000,000 voxels (the "
         "centred biexponential, the convolution, the shift; T=100)")
     fig_ft = time_fulltime(device, card)
+    log("phase 5l: kernel 6 with pairs-test's and mixed-test's functors "
+        "(1,000,000 voxels; pairs-test's plain version on 65,536) and "
+        "kernels 7 and 8 with stacked-test's (262,144 voxels)")
+    fig_go = time_generic_ops(device, card)
     nv_prof = int(np.prod(PROFILE_SHAPE))
     for name, key in (("spectral_stats_kernel", "stats_ms"),
                       ("spectral_core_kernel", "core_ms")):
@@ -7523,6 +7975,7 @@ def main():
               "wide_design_kernels": ok3j, "wide_design_paths": ok4z,
               "nl_instance_kernels": ok3k, "nl_instance_paths": ok4aa,
               "fulltime_kernels": ok3l, "fulltime_path": ok4ab,
+              "generic_ops_kernels": ok3m, "generic_ops_paths": ok4ac,
               "whole_p8_forms_bit_identical": ok5i,
               "vb_iter_forms_bit_identical":
                   fig_nl["vb_iter_staged_bits_equal_streamed"],
@@ -7654,8 +8107,20 @@ def main():
     kernels.append(entry("fused_nl_loop:fulltime", "fused_nl_loop.cuh",
                          nl_at, fig_ft["conv_ms"], fig_ft["conv_plain_ms"],
                          fig_ft["conv_bound"]))
+    # kernel 6's generic mode over the JAX allowlist, kernels 7 and 8 with
+    # a stacked-parameter time_signal (phase 3l errors; 4ab launches; 5l
+    # times: pairs-test on 65,536 voxels beside its plain version, the
+    # others as time_generic_ops says)
+    for (name, _), source, at, tag in zip(GO_ENTRIES, (
+            "fused_nl_loop.cuh", "fused_nl_loop.cuh", "fused_vb_iter.cuh",
+            "fused_nlls.cuh"), (nl_at, nl_at, it_at, nlls_at),
+            ("pairs_small", "mix", "stacked_iter", "stacked_nlls")):
+        kernels.append(entry(name, source, at, fig_go[f"{tag}_ms"],
+                             fig_go[f"{tag}_plain_ms"],
+                             fig_go[f"{tag}_bound"]))
     missing = [name for name, _, _ in INSTANCE_ENTRIES + NL_INSTANCE_ENTRIES
                + (("fused_nl_loop:fulltime", None, None),)
+               + tuple((n, None, None) for n, _ in GO_ENTRIES)
                if not launches[name]]
     if missing:
         log(f"FAILED: no launch on the main paths of {missing}")

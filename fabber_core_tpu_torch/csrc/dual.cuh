@@ -78,6 +78,27 @@ __host__ __device__ __forceinline__ float g_powr(float x, float y) {
 __host__ __device__ __forceinline__ double g_powr(double x, double y) {
   return pow(x, y);
 }
+// torch's rounding divisions of values (div with rounding_mode "floor", c10's
+// div_floor_floating, and "trunc"): their derivative is zero, as torch's
+// and jax's (the floor of a quotient), so they take and give reals
+#define FABBER_GEN_FLOORDIV(T, FMOD, FLOOR, COPYSIGN)                        \
+  __host__ __device__ __forceinline__ T g_floordiv(T a, T b) {               \
+    if (b == T(0)) return a / b;                                              \
+    const T mod = FMOD(a, b);                                                 \
+    T div = (a - mod) / b;                                                    \
+    if (mod != T(0) && (b < T(0)) != (mod < T(0))) div = div - T(1);          \
+    if (div == T(0)) return COPYSIGN(T(0), a / b);                            \
+    T fl = FLOOR(div);                                                        \
+    if (div - fl > T(0.5)) fl = fl + T(1);                                    \
+    return fl;                                                                \
+  }                                                                           \
+  __host__ __device__ __forceinline__ T g_truncdiv(T a, T b) {               \
+    return g_trunc(a / b);                                                    \
+  }
+FABBER_GEN_FLOORDIV(float, fmodf, floorf, copysignf)
+FABBER_GEN_FLOORDIV(double, fmod, floor, copysign)
+#undef FABBER_GEN_FLOORDIV
+
 __host__ __device__ __forceinline__ float g_atan2(float y, float x) {
   return atan2f(y, x);
 }

@@ -3,8 +3,8 @@
 //
 // The counterpart of make_full_eval (fabber_core_tpu/ops/fused_vb.py:122-
 // 181), the TPU kernel 6's generic full-time mode: a model whose evaluate
-// mixes the time axis (a sum or mean over time, a reversal, a slice, a
-// concatenation, a pad, a contraction of time with a constant matrix) is
+// mixes the time axis (a sum, mean or extremum over time, a reversal, a
+// slice, a concatenation, a pad, a contraction over time) is
 // evaluated over the whole time axis of one voxel at once. The functor,
 // generated from the model by models/kernelgen.py's full-time walk, is
 //
@@ -33,17 +33,24 @@
 // a select, a concatenation, a pad) read the plane at another sample;
 // reductions (ft_sum, ft_prod, ft_amax, ft_amin) run in every lane over
 // the whole plane, in one fixed order (sample 0 first), so each lane holds
-// the same result and no second barrier is needed; a contraction with a
-// constant matrix (ft_dot) takes one row of the matrix a sample, against
-// the whole plane, the matrix stored by columns so a warp's loads of it
-// are coalesced. No warp shuffles: the threads meet at __syncthreads
-// only, so the host build (tests/torch_hostcc.py) runs a block's threads
-// as host threads.
+// the same result and no second barrier is needed (an extremum over time
+// and other axes reads one plane that holds all their elements); a
+// contraction with a constant matrix (ft_dot) takes one row of the matrix
+// a sample, against the whole plane, the matrix stored by columns so a
+// warp's loads of it are coalesced; one of two planes that both depend on
+// the parameters (ft_vdot, dot(s, s)) runs in every lane, as a
+// reduction. A value with two time axes (outer(s, s)) is never stored: a
+// lane owns a sample of the axis its reduction keeps and runs the other
+// in a loop of its own, reading the planes there (ft_tie keeps jax's rule
+// for an extremum across that loop). No warp shuffles: the threads meet
+// at __syncthreads only, so the host build (tests/torch_hostcc.py) runs a
+// block's threads as host threads.
 //
 // What bounds the functor is its shared memory (the planes, bounded with the
-// kernel's state by ops/_cuda.py fulltime_smem) and, for a contraction, the
-// T^2 (P + 1) multiply-adds of each evaluation; the matrix rows come from
-// the L1 cache (40 KB at T = 100, one block for every voxel).
+// kernel's state by ops/_cuda.py fulltime_smem) and, for a contraction or
+// a value with two time axes, the T^2 (P + 1) operations of each
+// evaluation; the matrix rows come from the L1 cache (40 KB at T = 100,
+// one block for every voxel).
 
 #pragma once
 
@@ -166,6 +173,53 @@ __host__ __device__ __forceinline__ K ft_dot(const T* __restrict__ c, int cs,
     for (int k = 0; k < W; ++k) comp[k] = comp[k] + a * pl[k * n + s];
   }
   return ft_load<K>(comp, 1, 0);
+}
+
+// Two planes of n samples contracted over their time axis, sample 0 first:
+// sum_s a_s b_s, each tangent by the product rule (an S plane's P + 1
+// components, an R plane's one: KA, KB). Both planes may depend on the
+// parameters (dot(s, s), s @ s); each lane computes the same sum.
+template <class K, class KA, class KB, class T>
+__host__ __device__ __forceinline__ K ft_vdot(const T* a, const T* b,
+                                              int n) {
+  K acc = g_lift<K>(T(0));
+  for (int s = 0; s < n; ++s)
+    acc = acc + ft_load<KA>(a, n, s) * ft_load<KB>(b, n, s);
+  return acc;
+}
+
+// An extremum over a loop that runs in one lane (a value with two time
+// axes reduced over one of them): the loop's first pass finds the extreme
+// value m (g_max / g_min), its second folds each x equal to m into the sum
+// of their tangents and their count (ft_tie), and ft_tie_result gives m
+// with the mean of the tied tangents: ft_extremum's rule, jax's.
+template <class K, class T>
+__host__ __device__ __forceinline__ void ft_tie(K& acc, T& cnt, const K& x,
+                                                T m) {
+  if (g_val(x) == m) {
+    acc = acc + x;
+    cnt = cnt + T(1);
+  }
+}
+// A lane's ties with an extreme value taken over every lane (an extremum
+// over both time axes of a value with two): their count as the value,
+// their tangents' sum as the tangents; the lanes' sum (ft_sum) then gives
+// ft_tie_result both.
+template <int N, class T>
+__host__ __device__ __forceinline__ Dual<N, T> ft_tie_pack(
+    const Dual<N, T>& acc, T cnt) {
+  Dual<N, T> r = acc;
+  r.v = cnt;
+  return r;
+}
+template <int N, class T>
+__host__ __device__ __forceinline__ Dual<N, T> ft_tie_result(
+    T m, const Dual<N, T>& acc, T cnt) {
+  Dual<N, T> r;
+  r.v = m;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = acc.d[k] / cnt;
+  return r;
 }
 
 // A full-time functor's signal and model-space Jacobian over the voxel's

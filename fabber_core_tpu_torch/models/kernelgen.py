@@ -17,17 +17,26 @@ a torch function, so here the trace is turned into C++:
   walk      each aten node of the graph against an allowlist (the torch
             counterpart of _KERNEL_SAFE_PRIMITIVES), with the time axis
             tracked by where it came from: arange(ctx.nt) becomes the
-            sample index t. The per-sample walk (_Gen) admits a model
-            whose every op is time-local, and rejects one that selects,
-            slices, reverses, permutes the elements of or reduces along
-            that axis, an op outside the allowlist (a custom
+            sample index t. Ops whose operands are all constants (and
+            the index) are computed on the CPU at trace time too, a
+            rounding division among them. The per-sample walk (_Gen)
+            admits a model whose every op is time-local, contractions
+            over non-time axes (dot, mv, mm, bmm of a batch of one:
+            M @ p) unrolled; it rejects one that selects, slices,
+            reverses, permutes the elements of or reduces along that
+            axis, an op outside the allowlist (a custom
             autograd.Function or custom op among them) or an output that
             is not [nt]. Where it rejects, the full-time walk (_FullGen)
             admits the time-mixing ops of the JAX allowlist too (the
-            torch counterparts of reduce_*, rev, slice, concatenate, pad
-            and a dot_general that contracts time with a parameter-free
-            operand); cumsum, sort, a gather by a tensor index and the
-            rest stay refused, as they are in the JAX probe;
+            torch counterparts of reduce_* over time, over time and other
+            axes at once, rev, slice, concatenate, pad, and dot_general
+            over time with a constant or with a second operand that
+            depends on the parameters), and values with two time axes
+            (outer(s, s), s[:, None] * s[None, :], s[:, None] * w[None,
+            :] with w a constant of nt samples) where a reduction over
+            one or both of them ends them; cumsum, sort, a gather by a
+            tensor index and the rest stay refused, as they are in the
+            JAX probe;
   generate  each node becomes lines of a C++ functor in a scalar type,
             the non-time axes unrolled. Values that depend on the
             parameters are of type S (a forward dual number in the
@@ -43,10 +52,13 @@ generic full-time mode (fabber_core_tpu/ops/fused_loop_nl.py:37-46,
 204-227): a warp serves one voxel and evaluates the whole time axis at
 once, sample t on lane t mod 32; the lines between two time-mixing ops
 run per lane in registers, and each value a time-mixing op reads is
-stored in shared memory first. The kernel is the cooperative form of
-kernel 6 (csrc/fused_nl_loop.cuh, ops/_cuda.py "nl_loop_full"). A
-rejected model is a route decision made before any launch, never a
-fallback after a failure.
+stored in shared memory first; a value with two time axes is never
+stored: a lane owns a sample of the axis a reduction keeps and a loop
+inside its line runs the other, the elementwise lines folded into the
+reduction. The kernel is the cooperative form of kernel 6
+(csrc/fused_nl_loop.cuh, ops/_cuda.py "nl_loop_full"). A rejected model
+is a route decision made before any launch, never a fallback after a
+failure.
 
 The same generator turns a model's ``time_signal(params, t)`` (P
 scalar planes and a scalar t) into a functor, for time_signal plugins
@@ -54,6 +66,7 @@ that have no hand-written one (kernel_model()).
 """
 
 import math
+import operator
 import re
 
 import numpy as np
@@ -213,17 +226,57 @@ def count_time_planes(gm, nt):
     constant matrix, its suppdata-scaled form, a shift by slice and
     concatenation) the counts agree. The copy torch's trace makes where a
     constant enters (lift_fresh_copy) has no jaxpr equation and is not
-    counted."""
+    counted, nor are matmul's own reshapes of a vector (an unsqueeze into
+    mm, the squeeze_ after it: jax's dot_general takes the vector); where
+    jax writes more equations for one aten node (_lax_extra: stack's
+    expand_dims of each operand, mean's division, an elementwise op's
+    promotion of a lower-rank operand), they are counted too. On the
+    twins of tests/test_torch_generic_ops.py (a family of the JAX
+    allowlist each) the counts agree."""
     n = 0
     for node in gm.graph.nodes:
-        if node.op != "call_function" or \
-                node.target is torch.ops.aten.lift_fresh_copy.default:
+        if node.op != "call_function" or node.target in _UNCOUNTED:
             continue
+        if node.target is torch.ops.aten.unsqueeze.default and all(
+                u.target in _MATMULS for u in node.users):
+            continue    # matmul's own reshape of a vector: none in jax
         vals = node.meta.get("val")
         for v in vals if isinstance(vals, (tuple, list)) else (vals,):
             if torch.is_tensor(v) and nt in tuple(v.shape):
-                n += 1
+                n += 1 + _lax_extra(node, v, nt)
     return max(n, 1)
+
+
+# torch ops that have no jaxpr equation: the copy a constant's entry makes,
+# and matmul's in-place squeeze of its own product
+_UNCOUNTED = {torch.ops.aten.lift_fresh_copy.default,
+              torch.ops.aten.squeeze_.dim}
+_MATMULS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default}
+# elementwise ops whose operands jnp brings to one rank first
+_RANK_PROMOTING = {"add", "sub", "rsub", "mul", "div", "pow", "maximum",
+                   "minimum", "atan2", "where", "eq", "ne", "lt", "le",
+                   "gt", "ge", "logical_and", "logical_or", "logical_xor",
+                   "floor_divide", "clamp", "clamp_min", "clamp_max"}
+
+
+def _lax_extra(node, v, nt):
+    """The equations with time-shaped outputs that jax writes for an aten
+    node beside its own: stack's expand_dims of each operand; mean's
+    division after its sum; an elementwise op's expand_dims of an operand
+    of lower rank that carries time."""
+    if not isinstance(node.target, torch._ops.OpOverload):
+        return 0
+    name = node.target._schema.name.split("::")[-1]
+    if name == "stack":
+        return len(node.args[0])
+    if name == "mean":
+        return 1
+    if name in _RANK_PROMOTING:
+        return sum(1 for a in node.args if hasattr(a, "meta")
+                   and torch.is_tensor(a.meta.get("val"))
+                   and nt in tuple(a.meta["val"].shape)
+                   and a.meta["val"].dim() < v.dim())
+    return 0
 
 
 def derive_time_signal_functor(model, nparams):
@@ -276,6 +329,10 @@ def _lit(x):
         raise Rejected("non-finite constant")
     return f"R({x!r})"
 
+
+# the most elements a per-sample walk's constant may have: each is a literal
+# of the generated source
+_MAX_LITERALS = 4096
 
 # elementwise ops: aten name -> (C++ function, value ops, tangent ops
 # per component); the tangent rules are torch's forward-mode formulas
@@ -389,16 +446,22 @@ class _Gen:
         return out
 
     def constant(self, val):
-        if not torch.is_tensor(val) or val.numel() > 4096:
+        if not torch.is_tensor(val):
             raise Rejected("constant")
-        v = val.detach().cpu()
-        if v.dtype == torch.bool:
-            el = np.vectorize(_lit, otypes=[object])(v.numpy())
-        else:
-            el = np.vectorize(_lit, otypes=[object])(
-                v.double().numpy())
-        return _Sym(np.asarray(el, object).reshape(tuple(v.shape)), None,
-                    v.shape)
+        return self.const_sym(val.detach().cpu().numpy())
+
+    def const_sym(self, conc):
+        """A constant (its values conc, numpy): its elements literals,
+        its values kept beside them for the ops that fold it."""
+        if conc.size > _MAX_LITERALS:
+            raise Rejected("constant")
+        el = np.vectorize(_lit, otypes=[object])(
+            conc if conc.dtype == np.bool_ else conc.astype(np.float64)) \
+            if conc.size else np.empty(conc.shape, object)
+        sym = _Sym(np.asarray(el, object).reshape(conc.shape), None,
+                   conc.shape)
+        sym.conc = conc
+        return sym
 
     def finish(self, out, want):
         """Check the output's shape and time axis; record its element."""
@@ -536,6 +599,17 @@ class _Gen:
         return self.emit("R", lambda x: f"{_FLAT[name]}(g_val({x}))", a,
                          vops=1)
 
+    def rounding_div(self, mode, a, b):
+        """torch's division with rounding_mode floor or trunc
+        (csrc/dual.cuh g_floordiv, g_truncdiv): a real, its derivative
+        zero."""
+        fn = {"floor": "g_floordiv", "trunc": "g_truncdiv"}.get(mode)
+        if fn is None:
+            raise Rejected(f"rounding mode {mode}")
+        a, b = self.to_real(a), self.to_real(b)
+        return self.emit("R", lambda x, y: f"{fn}(g_val({x}), g_val({y}))",
+                         a, b, vops=2)
+
     def compare(self, op, a, b):
         a, b = self.to_real(a), self.to_real(b)
         return self.emit("B", lambda x, y: f"g_val({x}) {op} g_val({y})",
@@ -655,7 +729,49 @@ class _Gen:
         return a
 
     def call(self, node):
+        """Ops whose tensor operands all have values (constants, and the
+        sample index, arange(nt)) are computed here too, on those values
+        (torch on the CPU): a result without a time axis (no axis of nt
+        samples) is a constant (const_sym); one with a time axis keeps its
+        per-sample lines and its values beside them, and where the walk
+        has no lines for it, const_time's."""
+        args = [self.arg(a) for a in node.args]
+        kw = {k: self.arg(v) for k, v in node.kwargs.items()}
+        syms = [x for x in _flat(args) + _flat(list(kw.values()))
+                if isinstance(x, _Sym)]
+        if not syms or any(getattr(x, "conc", None) is None for x in syms):
+            return self.dispatch(node, args, kw)
+
+        def real(x):
+            if isinstance(x, _Sym):
+                return torch.as_tensor(x.conc)
+            if isinstance(x, (list, tuple)):
+                return type(x)(real(y) for y in x)
+            return x
+        out = node.target(*real(args), **{k: real(v) for k, v in kw.items()})
+        if not torch.is_tensor(out) or out.dtype.is_complex:
+            raise Rejected(f"constant {node.target}")
+        conc = out.detach().numpy()
+        if all(x.tdim is None for x in syms) or self.nt not in conc.shape:
+            return self.const_sym(conc)
+        try:
+            sym = self.dispatch(node, args, kw)
+        except Rejected:
+            return self.const_time(conc)
+        if sym.tdim is None:
+            return self.const_sym(conc)
+        sym.conc = conc
+        return sym
+
+    def const_time(self, conc):
+        """A constant with a time axis that no per-sample line computes: a
+        per-sample functor cannot read it (it has no constant buffer)."""
+        raise Rejected("a constant that varies along time")
+
+    def dispatch(self, node, args, kw):
         target = node.target
+        if target is operator.getitem and isinstance(args[0], list):
+            return args[0][args[1]]     # an element of unbind's list
         if not isinstance(target, torch._ops.OpOverload):
             raise Rejected(f"call {target}")
         if target.namespace != "aten":
@@ -665,8 +781,6 @@ class _Gen:
         if torch.is_tensor(val) and (val.dtype.is_complex
                                      or val.dtype == torch.float64):
             raise Rejected(f"{name} computes in {val.dtype}")
-        args = [self.arg(a) for a in node.args]
-        kw = {k: self.arg(v) for k, v in node.kwargs.items()}
         h = getattr(self, f"op_{name}", None)
         if h is not None:
             return h(node, args, kw, val)
@@ -732,9 +846,15 @@ class _Gen:
         return self.elementwise(a[:2], lambda p, q: self.arith("*", p, q))
 
     def op_div(self, node, a, kw, val):
-        if kw.get("rounding_mode") is not None:
-            raise Rejected("rounding division")
+        mode = kw.get("rounding_mode", a[2] if len(a) > 2 else None)
+        if mode is not None:
+            return self.elementwise(
+                a[:2], lambda p, q: self.rounding_div(mode, p, q))
         return self.elementwise(a[:2], lambda p, q: self.arith("/", p, q))
+
+    def op_floor_divide(self, node, a, kw, val):
+        return self.elementwise(
+            a[:2], lambda p, q: self.rounding_div("floor", p, q))
 
     def op_pow(self, node, a, kw, val):
         return self.elementwise(a[:2], self.pow_)
@@ -784,19 +904,26 @@ class _Gen:
 
     # the time axis and constants
     def op_arange(self, node, a, kw, val):
+        """arange(nt) is the sample index t (a time axis); any other
+        length a constant. Either keeps its values."""
         n = int(val.shape[0])
         if len(a) == 1:
             start, step = 0, 1
         else:
             start, step = a[0], a[2] if len(a) > 2 else 1
-        if self.nt is not None and n == self.nt:
-            if (start, step) == (0, 1):
-                return _Sym(np.array("t", object), 0, (n,))
+        conc = (np.arange(n, dtype=np.float64) * float(step)
+                + float(start)).astype(torch.empty(0, dtype=val.dtype)
+                                       .numpy().dtype)
+        if self.nt is None or n != self.nt:
+            return self.const_sym(conc)
+        if (start, step) == (0, 1):
+            x = _Sym(np.array("t", object), 0, (n,))
+        else:
             e = self.emit("R", lambda t: f"R({float(start)!r} + "
                           f"{float(step)!r} * (double){t})", "t")
-            return _Sym(np.array(e, object), 0, (n,))
-        vals = np.arange(n, dtype=np.float64) * float(step) + float(start)
-        return _Sym(np.array([_lit(v) for v in vals], object), None, (n,))
+            x = _Sym(np.array(e, object), 0, (n,))
+        x.conc = conc
+        return x
 
     def factory(self, name, a, kw, val):
         fill = {"ones": 1.0, "zeros": 0.0, "ones_like": 1.0,
@@ -822,6 +949,12 @@ class _Gen:
         tdim = x.tdim if x.tdim is None or dim > x.tdim else x.tdim - 1
         shape = x.shape[:dim] + x.shape[dim + 1:]
         return _Sym(np.asarray(el, object), tdim, shape)
+
+    def op_unbind(self, node, a, kw, val):
+        x = a[0]
+        dim = (a[1] if len(a) > 1 else kw.get("dim", 0)) % len(x.shape)
+        return [self.op_select(node, [x, dim, i], {}, None)
+                for i in range(x.shape[dim])]
 
     def op_slice(self, node, a, kw, val):
         x = a[0]
@@ -860,6 +993,9 @@ class _Gen:
         dims = [d for d in dims if x.shape[d] == 1 and d != x.tdim]
         return self.reshape(x, tuple(s for d, s in enumerate(x.shape)
                                      if d not in dims))
+
+    # matmul's in-place forms of its own intermediates
+    op_squeeze_ = op_squeeze
 
     def op_view(self, node, a, kw, val):
         return self.reshape(a[0], tuple(val.shape))
@@ -970,6 +1106,89 @@ class _Gen:
         return self.reduce(a[0], dims, keep, None,
                            lambda items: self.extremum(False, items))
 
+    def op_max(self, node, a, kw, val):
+        """max() of all elements (reduce_max); max(x, y) elementwise.
+        max(x, dim), with its indices, is refused."""
+        if len(a) == 2 and isinstance(a[1], _Sym):
+            return self.op_maximum(node, a, kw, val)
+        if len(a) > 1 or kw:
+            raise Rejected("max with indices")
+        return self.op_amax(node, a[:1], {}, val)
+
+    def op_min(self, node, a, kw, val):
+        if len(a) == 2 and isinstance(a[1], _Sym):
+            return self.op_minimum(node, a, kw, val)
+        if len(a) > 1 or kw:
+            raise Rejected("min with indices")
+        return self.op_amin(node, a[:1], {}, val)
+
+    # -- contractions -----------------------------------------------------
+    def op_dot(self, node, a, kw, val):
+        x, y = a[0], a[1]
+        z = self.contract(self.reshape(x, (1,) + x.shape),
+                          self.reshape(y, y.shape + (1,)))
+        return self.reshape(z, ())
+
+    def op_mv(self, node, a, kw, val):
+        y = self.contract(a[0], self.reshape(a[1], a[1].shape + (1,)))
+        return self.reshape(y, y.shape[:1])
+
+    def op_mm(self, node, a, kw, val):
+        return self.contract(a[0], a[1])
+
+    def op_addmm(self, node, a, kw, val):
+        """input + mat1 @ mat2 (nn.functional.linear's trace)."""
+        if kw.get("beta", 1) != 1 or kw.get("alpha", 1) != 1:
+            raise Rejected("addmm with beta or alpha")
+        return self.elementwise([a[0], self.contract(a[1], a[2])],
+                                lambda p, q: self.arith("+", p, q))
+
+    def op_bmm(self, node, a, kw, val):
+        x, y = a[0], a[1]
+        if x.shape[0] != 1 or y.shape[0] != 1:
+            raise Rejected("a batched contraction")
+        z = self.contract(self.reshape(x, x.shape[1:]),
+                          self.reshape(y, y.shape[1:]))
+        return self.reshape(z, (1,) + z.shape)
+
+    def contract(self, x, y):
+        """x [I,K] @ y [K,J] over an axis that is not time, unrolled as
+        the other non-time axes are: each output a sum over k of the
+        products, k = 0 first (either operand may depend on the
+        parameters). A time axis may be a free axis of one operand; a
+        contraction along time is the full-time walk's."""
+        (ni, nk), (nk2, nj) = x.shape, y.shape
+        if nk != nk2:
+            raise Rejected("contraction shapes")
+        if x.tdim == 1 or y.tdim == 0:
+            raise Rejected("a contraction along time")
+        if x.tdim == 0 and y.tdim == 1:
+            raise Rejected("time axes misaligned")
+        rows = 1 if x.tdim == 0 else ni
+        cols = 1 if y.tdim == 1 else nj
+        if rows * cols * nk > _MAX_LITERALS:
+            raise Rejected("a contraction too large to unroll")
+
+        def xel(i, k):
+            return x.elems[k] if x.tdim == 0 else x.elems[i, k]
+
+        def yel(k, j):
+            return y.elems[k] if y.tdim == 1 else y.elems[k, j]
+        out = np.empty((rows, cols), object)
+        for i in range(rows):
+            for j in range(cols):
+                acc = None
+                for k in range(nk):
+                    term = self.arith("*", self.to_real(xel(i, k)),
+                                      self.to_real(yel(k, j)))
+                    acc = term if acc is None else self.arith("+", acc, term)
+                out[i, j] = acc
+        if x.tdim == 0:
+            return _Sym(out[0], 0, (ni, nj))
+        if y.tdim == 1:
+            return _Sym(out[:, 0], 1, (ni, nj))
+        return _Sym(out, None, (ni, nj))
+
 
 # -- the full-time walk ----------------------------------------------------
 
@@ -1005,6 +1224,67 @@ class _Conc(_Sym):
         return self._el
 
 
+class _PLeaf:
+    """A value with two time axes, at a leaf: the time element e (of n
+    samples) of an operand whose time axis is the pair's axis `axis` (0
+    the first, 1 the second)."""
+
+    def __init__(self, e, axis, n):
+        self.e, self.axis, self.n = e, axis, n
+
+
+class _PConst:
+    """A constant that varies along both time axes: cst[off + i sa + j sb]
+    at sample i of the first axis and j of the second."""
+
+    def __init__(self, off, sa, sb):
+        self.off, self.sa, self.sb = off, sa, sb
+
+
+class _PNode:
+    """A value with two time axes: fn (a scalar emitter) of its operands'
+    nodes, leaves or time-free expressions."""
+
+    def __init__(self, fn, kids):
+        self.fn, self.kids = fn, kids
+
+
+class _Pair(_Sym):
+    """A traced tensor with two time axes (tdims, in the full shape): its
+    elements (over the other axes) nodes, evaluated only inside the
+    reduction that ends the pair (_FullGen.pair_reduce), where a lane owns
+    a sample of the kept axis and a loop runs the other. vpos: the
+    position of an axis of nt samples along which only a constant varies
+    (a virtual time axis: s[:, None] * w[None, :]), or None; such a pair
+    can still become one time axis of elements (_FullGen.realize)."""
+
+    def __init__(self, elems, tdims, shape, vpos=None):
+        super().__init__(elems, None, shape)
+        self.tdims = tdims
+        self.vpos = vpos
+
+
+class _Inner:
+    """The loop over the reduced time axis inside a lane's sample loop
+    (seg): its lines, its names and the number of times each of its
+    lines runs per evaluation."""
+
+    def __init__(self, idx, seg, count):
+        self.idx, self.seg, self.count = idx, seg, count
+        self.lines, self.names = [], set()
+        self.vops = self.tops = 0
+
+
+# the ops a value with two time axes may reach: elementwise ones and
+# reductions
+_PAIR_OPS = (set(_UNARY) | set(_FLAT) | set(_COMPARE) | set(_LOGIC)
+             | _IDENTITY | {"add", "sub", "rsub", "mul", "div", "pow",
+                            "square", "maximum", "minimum", "atan2",
+                            "clamp", "clamp_min", "clamp_max", "where",
+                            "logical_not", "floor_divide", "sum", "mean",
+                            "prod", "amax", "amin", "max", "min"})
+
+
 class _FullGen(_Gen):
     """The full-time walk (module docstring): the per-sample walk's ops,
     and the time-mixing ops of the JAX allowlist. An element of a time
@@ -1028,12 +1308,14 @@ class _FullGen(_Gen):
         self.zero_ops = 0      # of the ops counted, products by known zeros
         self.sh_floats = 0
         self.active_n = None   # time length of the op being walked
+        self.inner = None      # the open _Inner loop (pair_fold)
+        self.n_inner = 0
 
     # -- bookkeeping --------------------------------------------------
     def kind_of(self, e):
         if e.startswith("@m"):
             return self.maps[e][0]
-        if _CREF.fullmatch(e) or e == "ti":
+        if _CREF.fullmatch(e) or e in ("ti", "tj"):
             return "R"
         return super().kind_of(e)
 
@@ -1050,7 +1332,13 @@ class _FullGen(_Gen):
         """e is a time-local element: the sample index (t as a real, ti
         the lane's integer sample), a map or a name defined in a sample
         loop."""
-        return e in ("t", "ti") or e.startswith("@m") or e in self.seg_of
+        return (e in ("t", "ti") or e.startswith("@m") or e in self.seg_of
+                or self.is_inner(e))
+
+    def is_inner(self, e):
+        """e is a name of the open inner loop, or its sample tj."""
+        return self.inner is not None and (e == "tj"
+                                           or e in self.inner.names)
 
     def emit(self, kind, form, *uses, vops=0, tops=0):
         """As the per-sample walk's; a line that uses a time-local element
@@ -1058,6 +1346,25 @@ class _FullGen(_Gen):
         made a name of that loop (localize), the others at function
         scope."""
         ctype = {"R": "R", "S": "S", "B": "bool"}[kind]
+        inner = self.inner
+        if inner is not None and any(self.is_inner(u) for u in uses):
+            # a line of the inner loop: its lane-local uses names of the
+            # lane's loop
+            expr = form(*[u if self.is_inner(u) or not self.is_local(u)
+                          else self.localize(u, inner.seg) for u in uses])
+            if expr in inner.names:
+                return expr
+            key = ("inner", inner.idx, expr)
+            if key in self.cse:
+                return self.cse[key]
+            name = self._new_name(kind)
+            self.cse[key] = name
+            inner.lines.append(f"    const {ctype} {name} = {expr};")
+            inner.names.add(name)
+            inner.vops += vops
+            inner.tops += tops if kind == "S" else 0
+            self.count(kind, vops, tops, inner.count)
+            return name
         if not any(self.is_local(u) for u in uses):
             # time-free: at function scope, before an open loop
             expr = form(*uses)
@@ -1213,9 +1520,11 @@ class _FullGen(_Gen):
             out.append([key, j, j + 1, idx, None])
         return out
 
-    def map_expr(self, tok, seg):
+    def map_expr(self, tok, seg, idx="ti", n=None):
+        """Map tok at the sample idx of a loop of n samples (seg's, the
+        lane's, by default)."""
         kind, descs = self.maps[tok]
-        if len(descs) != seg.n:
+        if len(descs) != (seg.n if n is None else n):
             raise Rejected("a map of another time length")
         pieces = list(reversed(self.pieces(descs)))
 
@@ -1242,7 +1551,7 @@ class _FullGen(_Gen):
                 expr = val if expr is None else \
                     f"({ti} < {hi} ? {val} : {expr})"
             return expr
-        return self.emit(kind, form, "ti")
+        return self.emit(kind, form, idx)
 
     def drop_uniform(self, el, axis):
         """A time-free array along the time axis: uniform, or a map per
@@ -1258,10 +1567,14 @@ class _FullGen(_Gen):
         return out
 
     # -- constants ----------------------------------------------------------
-    def constant(self, val):
-        if not torch.is_tensor(val):
-            raise Rejected("constant")
-        return _Conc(self, val.detach().cpu().numpy())
+    def const_sym(self, conc):
+        return _Conc(self, conc)
+
+    def const_time(self, conc):
+        """A constant with a time axis that no per-sample line computes (a
+        [T,T] matrix built from the index): read from the constant
+        buffer."""
+        return _Conc(self, conc)
 
     def const_elems(self, conc):
         if conc.dtype == np.bool_ or conc.size <= _LITERAL_CONST:
@@ -1299,43 +1612,7 @@ class _FullGen(_Gen):
                 k -= block.size
         if e.startswith("R(") and e.endswith(")"):
             return float(e[2:-1])
-        raise Rejected("a contraction over time with an operand that is "
-                       "not a constant")
-
-    def call(self, node):
-        """Ops whose tensor operands all have values (constants, and the
-        sample index, arange(nt)) are computed here too, on those values
-        (torch on the CPU): a result without a time axis (no axis of nt
-        samples), or one the walk cannot carry per sample (a [T,T] matrix
-        built from the index), is a constant; one with a time axis keeps
-        its per-sample lines and its values beside them."""
-        args = [self.arg(a) for a in node.args]
-        kw = {k: self.arg(v) for k, v in node.kwargs.items()}
-        syms = [x for x in _flat(args) + _flat(list(kw.values()))
-                if isinstance(x, _Sym)]
-        if not syms or any(getattr(x, "conc", None) is None for x in syms):
-            return super().call(node)
-
-        def real(x):
-            if isinstance(x, _Sym):
-                return torch.as_tensor(x.conc)
-            if isinstance(x, (list, tuple)):
-                return type(x)(real(y) for y in x)
-            return x
-        out = node.target(*real(args), **{k: real(v) for k, v in kw.items()})
-        if not torch.is_tensor(out) or out.dtype.is_complex:
-            raise Rejected(f"constant {node.target}")
-        conc = out.detach().numpy()
-        if all(x.tdim is None for x in syms) or self.nt not in conc.shape:
-            return _Conc(self, conc)
-        try:
-            sym = super().call(node)
-        except Rejected:
-            return _Conc(self, conc)
-        if sym.tdim is None:
-            return _Conc(self, conc)
-        sym.conc = conc
-        return sym
+        raise Rejected("not a constant")
 
     # -- elementwise ops at a time length ------------------------------------
     def broadcast(self, ops):
@@ -1366,16 +1643,7 @@ class _FullGen(_Gen):
 
     def op_arange(self, node, a, kw, val):
         self.active_n = int(val.shape[0])
-        x = super().op_arange(node, a, kw, val)
-        start, step = (0, 1) if len(a) == 1 else (a[0], a[2] if len(a) > 2
-                                                   else 1)
-        conc = (np.arange(int(val.shape[0]), dtype=np.float64) * float(step)
-                + float(start)).astype(torch.empty(0, dtype=val.dtype)
-                                       .numpy().dtype)
-        if x.tdim is None:
-            return _Conc(self, conc)
-        x.conc = conc
-        return x
+        return super().op_arange(node, a, kw, val)
 
     # -- samples by index ---------------------------------------------------
     def at_index(self, e, n, j):
@@ -1489,7 +1757,7 @@ class _FullGen(_Gen):
         n = x.shape[x.tdim]
         others = [d for d in dims if d != x.tdim]
         if which in ("amax", "amin") and others:
-            raise Rejected("an extremum over time and another axis")
+            return self.stacked_extremum(which, x, dims, keep)
         out = np.empty(x.elems.shape, object)
         for idx in np.ndindex(out.shape):
             off, ln, kind = self.plane_of(x.elems[idx], n)
@@ -1511,7 +1779,43 @@ class _FullGen(_Gen):
         return _Gen.reduce(self, y, rest, keep,
                            lambda p, q: self.arith(fn, p, q))
 
-    def red_time(self, which, node, a, kw, val, base):
+    def stacked_extremum(self, which, x, dims, keep):
+        """amax / amin over time and other axes: the K elements each output
+        reduces stored into one plane of K n samples (element k's sample t
+        at k n + t, each by the loop that computes it), then ft_amax /
+        ft_amin over it: jax's rule over all of them at once (the extreme
+        value, its tangent the mean of the tangents of every tied element
+        and sample), in one fixed order."""
+        n = x.shape[x.tdim]
+        others = [d for d in dims if d != x.tdim]
+        eaxes = [self.eaxis(x, d) for d in others]
+        el = np.moveaxis(x.elems, eaxes, list(range(-len(eaxes), 0)))
+        lead = el.shape[:el.ndim - len(eaxes)]
+        flat = el.reshape(lead + (-1,))
+        out = np.empty(lead, object)
+        for idx in np.ndindex(lead):
+            items = [e if e in self.seg_of else self.local_name(e, n)
+                     for e in flat[idx]]
+            kinds = {self.kind_of(e) for e in items}
+            if "B" in kinds:
+                raise Rejected("a boolean value across samples")
+            kind = "S" if "S" in kinds else "R"
+            total = len(items) * n
+            off = self.sh_floats
+            self.sh_floats += (self.p + 1 if kind == "S" else 1) * total
+            for k, e in enumerate(items):
+                val = e if self.kind_of(e) == kind else f"g_lift<S>({e})"
+                seg = self.seg_of[e]
+                seg.lines.append(f"    ft_store(sh + {off}, {total}, "
+                                 f"{k * n} + ti, {val});")
+                seg.open = False
+            out[idx] = self.emit(kind, lambda: f"ft_{which}<{kind}>(sh + "
+                                 f"{off}, {total})", vops=total, tops=total)
+        shape = [1 if d in dims else m for d, m in enumerate(x.shape)
+                 if keep or d not in dims]
+        return _Sym(out.reshape(shape), None, shape)
+
+    def _red_time(self, which, node, a, kw, val, base):
         dims, keep = self.red_args(a, kw)
         x = a[0]
         dl = list(range(len(x.shape))) if not dims else \
@@ -1541,59 +1845,563 @@ class _FullGen(_Gen):
         return self.red_time("amin", node, a, kw, val, super().op_amin)
 
     # -- contractions ----------------------------------------------------------
-    def op_mm(self, node, a, kw, val):
-        return self.contract(a[0], a[1])
-
-    def op_mv(self, node, a, kw, val):
-        y = self.contract(a[0], self.reshape(a[1], a[1].shape + (1,)))
-        return self.reshape(y, y.shape[:1])
-
-    def op_bmm(self, node, a, kw, val):
-        x, y = a
-        if x.shape[0] != 1 or y.shape[0] != 1:
-            raise Rejected("a batched contraction")
-        z = self.contract(self.reshape(x, x.shape[1:]),
-                          self.reshape(y, y.shape[1:]))
-        return self.reshape(z, (1,) + z.shape)
-
     def contract(self, x, y):
-        """x [I,K] @ y [K,J] over the time axis of one operand, the other
-        a constant (the JAX allowlist's dot_general with a parameter-free
-        operand): the functor's ft_dot, a sample a lane against the plane,
-        the constant read by columns from the constant buffer."""
+        """x [I,K] @ y [K,J] (the JAX allowlist's dot_general). Over a
+        non-time axis: unrolled (the per-sample walk's), or, where both
+        operands have a time axis among their free ones, a value with two
+        time axes (pair_mm). Over time: against a constant, the functor's
+        ft_dot (a sample a lane against the plane, the constant read by
+        columns from the constant buffer); else ft_vdot, both operands'
+        planes in one fixed order (a time-free operand's contracted axis
+        made a time axis first)."""
         (ni, nk), (nk2, nj) = x.shape, y.shape
         if nk != nk2:
             raise Rejected("contraction shapes")
         tx, ty = x.tdim == 1, y.tdim == 0
-        if tx != ty:
-            s, c = (x, y) if tx else (y, x)
-            cv = np.asarray(c.conc, np.float64) if isinstance(c, _Conc) \
-                else np.vectorize(self.value_of, otypes=[float])(c.elems)
-            # rows of the new time axis: c's free axis; stored by columns
-            # (csrc/fulltime.cuh ft_dot)
-            rows = cv.T if tx else cv           # [n_out, K]
-            nout = rows.shape[0]
-            off = self.register(rows.T)
-            # each output sample reads its whole row: 2 K operations a
-            # value or tangent, of which 2 per zero of the row multiply by
-            # a known zero
-            zeros = 2 * int(rows.size - np.count_nonzero(rows))
-            out = np.empty((nj,) if ty else (ni,), object)
-            for k in range(out.shape[0]):
-                e = s.elems[k]
-                poff, ln, kind = self.plane_of(e, nk)
-                self.active_n = nout
-                counted = self.value_ops
-                out[k] = self.emit(kind, lambda i: f"ft_dot<{kind}>(cst + "
-                                   f"{off}, {nout}, sh + {poff}, {ln}, {i})",
-                                   "ti", vops=2 * nk, tops=2 * nk)
-                if self.value_ops != counted:
-                    self.zero_ops += zeros * (1 + self.p * (kind == "S"))
-            if tx:   # [I, J], time on J
-                return _Sym(out, 1, (ni, nout))
-            return _Sym(out, 0, (nout, nj))
-        raise Rejected("a contraction that is not over the time axis of "
-                       "one operand")
+        if not tx and not ty:
+            if x.tdim == 0 and y.tdim == 1:
+                return self.pair_mm(x, y)
+            if x.tdim is None and y.tdim is None:
+                # a constant with a free axis of nt samples (a design
+                # matrix times the parameters): that axis a time axis, its
+                # rows read per sample from the constant buffer
+                if ni == self.nt > 1 and self.values(x) is not None:
+                    x = self.timed(x, 0)
+                elif nj == self.nt > 1 and self.values(y) is not None:
+                    y = self.timed(y, 1)
+            t = x if x.tdim is not None else y
+            self.active_n = None if t.tdim is None else t.shape[t.tdim]
+            return _Gen.contract(self, x, y)
+        if tx and ty:
+            return self.vdot(x, y)
+        s, c = (x, y) if tx else (y, x)
+        cv = self.values(c)
+        if cv is None:
+            # a time-free operand that is not a constant: its contracted
+            # axis as a time axis of maps
+            if tx:
+                return self.vdot(x, self.timed(y, 0))
+            return self.vdot(self.timed(x, 1), y)
+        # rows of the new time axis: c's free axis; stored by columns
+        # (csrc/fulltime.cuh ft_dot)
+        rows = cv.T if tx else cv           # [n_out, K]
+        nout = rows.shape[0]
+        off = self.register(rows.T)
+        # each output sample reads its whole row: 2 K operations a value or
+        # tangent, of which 2 per zero of the row multiply by a known zero
+        zeros = 2 * int(rows.size - np.count_nonzero(rows))
+        out = np.empty((nj,) if ty else (ni,), object)
+        for k in range(out.shape[0]):
+            e = s.elems[k]
+            poff, ln, kind = self.plane_of(e, nk)
+            self.active_n = nout
+            counted = self.value_ops
+            if nout == 1:
+                # one output: a time-free value, the same in every lane
+                out[k] = self.emit(
+                    kind, lambda: f"ft_dot<{kind}>(cst + {off}, 1, sh + "
+                    f"{poff}, {ln}, 0)", vops=2 * nk, tops=2 * nk)
+            else:
+                out[k] = self.emit(
+                    kind, lambda i: f"ft_dot<{kind}>(cst + {off}, {nout}, "
+                    f"sh + {poff}, {ln}, {i})", "ti", vops=2 * nk,
+                    tops=2 * nk)
+            if self.value_ops != counted:
+                self.zero_ops += zeros * (1 + self.p * (kind == "S"))
+        if nout == 1:
+            shape = (ni, 1) if tx else (1, nj)
+            return _Sym(out.reshape(shape), None, shape)
+        if tx:   # [I, J], time on J
+            return _Sym(out, 1, (ni, nout))
+        return _Sym(out, 0, (nout, nj))
+
+    def values(self, c):
+        """The numbers a time-free operand's elements stand for (a
+        constant), or None."""
+        if c.tdim is not None:
+            return None
+        if getattr(c, "conc", None) is not None:
+            return np.asarray(c.conc, np.float64)
+        try:
+            return np.vectorize(self.value_of, otypes=[float])(c.elems) \
+                if c.elems.size else np.zeros(c.shape)
+        except Rejected:
+            return None
+
+    def timed(self, x, axis):
+        """A time-free 2-D operand with its axis `axis` made a time axis
+        (its columns or rows as maps, or one value where uniform)."""
+        el = self.drop_uniform(x.elems, axis)
+        return _Sym(np.asarray(el, object).reshape(-1), axis, x.shape)
+
+    def vdot(self, x, y):
+        """x [I,K] @ y [K,J], time on K in both: each output ft_vdot of the
+        two planes, a time-free value computed in every lane."""
+        (ni, nk), nj = x.shape, y.shape[1]
+        out = np.empty((ni, nj), object)
+        for i in range(ni):
+            for j in range(nj):
+                pa, na, ka = self.plane_of(x.elems[i], nk)
+                pb, nb, kb = self.plane_of(y.elems[j], nk)
+                kind = "S" if "S" in (ka, kb) else "R"
+                both = ka == kb == "S"
+                out[i, j] = self.emit(
+                    kind, lambda: f"ft_vdot<{kind}, {ka}, {kb}>(sh + {pa}, "
+                    f"sh + {pb}, {nk})", vops=2 * nk,
+                    tops=(4 if both else 2) * nk)
+        return _Sym(out, None, (ni, nj))
+
+    # -- values with two time axes ----------------------------------------
+    def dispatch(self, node, args, kw):
+        if any(isinstance(x, _Pair) for x in _flat(args)
+               + _flat(list(kw.values()))):
+            name = node.target._schema.name.split("::")[-1] \
+                if isinstance(node.target, torch._ops.OpOverload) else ""
+            if name.rstrip("_") not in _PAIR_OPS:
+                args = self.realized(args)
+                kw = {k: v for k, v in zip(kw, self.realized(
+                    list(kw.values())))}
+        return super().dispatch(node, args, kw)
+
+    def realized(self, xs):
+        """xs with each pair on a virtual time axis made one time axis of
+        elements (realize); another pair is refused."""
+        out = []
+        for x in xs:
+            if isinstance(x, (list, tuple)):
+                x = type(x)(self.realized(x))
+            elif isinstance(x, _Pair):
+                if x.vpos is None:
+                    raise Rejected("values with two time axes")
+                x = self.realize(x)
+            out.append(x)
+        return out
+
+    def realize(self, x):
+        """A pair on a virtual time axis as a value with one time axis, the
+        real one: each sample of the virtual axis an element, its leaves
+        there read at that sample (time-free: a constant's)."""
+        ta, tb = x.tdims
+        real = ta if x.vpos == tb else tb
+        lane = 0 if real == ta else 1
+        nv = x.shape[x.vpos]
+        self.active_n = x.shape[real]
+        out = np.empty(x.elems.shape + (nv,), object)
+        for idx in np.ndindex(x.elems.shape):
+            for j in range(nv):
+                out[idx + (j,)] = self.peval(x.elems[idx], lane, {}, j)
+        out = np.moveaxis(out, -1, x.vpos - (real < x.vpos))
+        return _Sym(out, real, x.shape)
+
+    def elementwise(self, ops, fn):
+        ops = [self.operand(o) for o in ops]
+        if any(isinstance(o, _Pair) for o in ops):
+            return self.pair_elementwise(ops, fn)
+        try:
+            out_shape = tuple(np.broadcast_shapes(*[o.shape for o in ops]))
+        except ValueError:
+            raise Rejected("broadcast")
+        rank = len(out_shape)
+        ops = [self.untime(o, out_shape) for o in ops]
+        tpos = {o.tdim + rank - len(o.shape) for o in ops
+                if o.tdim is not None}
+        if len(tpos) == 2:
+            return self.pair_elementwise(ops, fn)
+        if len(tpos) == 1:
+            vpos = self.virtual_axis(ops, out_shape, next(iter(tpos)))
+            if vpos is not None:
+                return self.pair_elementwise(ops, fn, vpos)
+        return super().elementwise(ops, fn)
+
+    def virtual_axis(self, ops, out_shape, tpos):
+        """The one axis of nt samples, other than the time axis tpos, along
+        which a constant operand varies, or None: that axis is taken as a
+        second time axis, so a reduction over either keeps no [nt, nt]
+        elements."""
+        rank = len(out_shape)
+        found = set()
+        for o in ops:
+            if o.tdim is not None or self.values(o) is None:
+                continue
+            off = rank - len(o.shape)
+            el = o.elems.reshape(o.shape)
+            for d, m in enumerate(o.shape):
+                if (m == self.nt and d + off != tpos and m > 1
+                        and not (np.take(el, [0], axis=d) == el).all()):
+                    found.add(d + off)
+        return found.pop() if len(found) == 1 else None
+
+    def pair_elementwise(self, ops, fn, vpos=None):
+        """fn of operands whose time axes fall on two axes of the output
+        (one of them vpos, a virtual one, where given): a _Pair whose nodes
+        record fn and the operands' nodes (the lines are emitted where a
+        reduction ends the pair)."""
+        out_shape = tuple(np.broadcast_shapes(*[o.shape for o in ops]))
+        rank = len(out_shape)
+        ops = [o if isinstance(o, _Pair) else self.untime(o, out_shape)
+               for o in ops]
+        pos = set() if vpos is None else {vpos}
+        real = set()
+        virtual = set()
+        for o in ops:
+            off = rank - len(o.shape)
+            if isinstance(o, _Pair):
+                pos |= {d + off for d in o.tdims}
+                real |= {d + off for d in o.tdims if d != o.vpos}
+                if o.vpos is not None:
+                    virtual.add(o.vpos + off)
+            elif o.tdim is not None:
+                pos.add(o.tdim + off)
+                real.add(o.tdim + off)
+        if len(pos) != 2:
+            raise Rejected("time axes misaligned")
+        if vpos is not None:
+            virtual.add(vpos)
+        virtual -= real
+        ta, tb = sorted(pos)
+        ne = tuple(m for d, m in enumerate(out_shape) if d not in (ta, tb))
+        arrays = [self.pair_operand(o, out_shape, ta, tb, ne) for o in ops]
+        out = np.empty(ne, object)
+        for idx in np.ndindex(ne):
+            out[idx] = _PNode(fn, [a[idx] for a in arrays])
+        return _Pair(out, (ta, tb), out_shape,
+                     virtual.pop() if len(virtual) == 1 else None)
+
+    def pair_operand(self, o, out_shape, ta, tb, ne):
+        """Operand o's nodes over the pair's other axes ne (out_shape
+        less ta and tb), broadcast."""
+        rank = len(out_shape)
+        off = rank - len(o.shape)
+        if isinstance(o, _Pair):
+            el = o.elems.reshape((1,) * (len(ne) - o.elems.ndim)
+                                 + o.elems.shape)
+            return np.broadcast_to(el, ne)
+        full = list(o.shape)
+        if o.tdim is not None:
+            # a time axis on ta or tb: its elements are leaves there; its
+            # axis on the other must be uniform
+            axis = 0 if o.tdim + off == ta else 1
+            n = out_shape[o.tdim + off]
+            other = (tb if axis == 0 else ta) - off
+            el = o.elems
+            eshape = full[:o.tdim] + full[o.tdim + 1:]
+            el = el.reshape(eshape)
+            if 0 <= other:
+                ax = other - (other > o.tdim)
+                el = np.expand_dims(self.uniform(el, ax), ax)
+            leaf = np.vectorize(lambda e: _PLeaf(e, axis, n),
+                                otypes=[object])(el) if el.size else el
+            shape = list(leaf.shape[:o.tdim]) + [1] + list(
+                leaf.shape[o.tdim:])
+        else:
+            el = o.elems.reshape(full)
+            ia, ib = ta - off, tb - off
+            vary = [ax for ax in (ia, ib) if 0 <= ax and full[ax] != 1
+                    and not (np.take(el, [0], axis=ax) == el).all()]
+            if len(vary) == 2:
+                leaf = self.pair_const(o, ia, ib)
+                shape = [1 if d in (ia, ib) else m
+                         for d, m in enumerate(full)]
+            else:
+                for ax in (ia, ib):
+                    if 0 <= ax and ax not in vary:
+                        el = np.take(el, [0], axis=ax)
+                if vary:
+                    ax = vary[0]
+                    axis = 0 if ax == ia else 1
+                    n = out_shape[ax + off]
+                    maps = self.drop_uniform(el, ax)
+                    leaf = np.expand_dims(np.vectorize(
+                        lambda e: _PLeaf(e, axis, n), otypes=[object])(maps),
+                        ax)
+                else:
+                    leaf = el
+                shape = list(leaf.shape)
+        leaf = np.asarray(leaf, object).reshape(
+            (1,) * (rank - len(shape)) + tuple(shape))
+        leaf = np.squeeze(leaf, axis=(ta, tb))
+        return np.broadcast_to(leaf, ne)
+
+    def uniform(self, el, ax):
+        """el along axis ax, where all its elements are one: that one."""
+        first = np.take(el, [0], axis=ax)
+        if el.shape[ax] != 1 and not (el == first).all():
+            raise Rejected("a value with a time axis varying along another")
+        return np.take(el, 0, axis=ax)
+
+    def pair_const(self, o, ia, ib):
+        """A constant varying along both time axes: its values registered
+        in the constant buffer, a _PConst per element of its other axes
+        (ia, ib its axes there, in o's shape)."""
+        cv = self.values(o)
+        if cv is None:
+            raise Rejected("a value varying along two time axes that is "
+                           "not a constant")
+        cv = np.asarray(cv, np.float64).reshape(o.shape)
+        base = self.register(cv)
+        strides = [st // cv.itemsize for st in
+                   np.ascontiguousarray(cv).strides]
+        rest = [d for d in range(cv.ndim) if d not in (ia, ib)]
+        out = np.empty(tuple(cv.shape[d] for d in rest), object)
+        for idx in np.ndindex(out.shape):
+            k = base + sum(i * strides[d] for i, d in zip(idx, rest))
+            out[idx] = _PConst(k, strides[ia], strides[ib])
+        shape = [1 if d in (ia, ib) else m for d, m in enumerate(cv.shape)]
+        return out.reshape(shape)
+
+    def pair_mm(self, x, y):
+        """x [I,K] @ y [K,J] with time on I and on J: a value with two
+        time axes, each element the sum over k of the products."""
+        nk = x.shape[1]
+        mul = lambda p, q: self.arith("*", self.to_real(p),  # noqa: E731
+                                      self.to_real(q))
+        add = lambda p, q: self.arith("+", p, q)  # noqa: E731
+        acc = None
+        for k in range(nk):
+            term = _PNode(mul, [_PLeaf(x.elems[k], 0, x.shape[0]),
+                                _PLeaf(y.elems[k], 1, y.shape[1])])
+            acc = term if acc is None else _PNode(add, [acc, term])
+        return _Pair(np.array(acc, object), (0, 1), (x.shape[0], y.shape[1]))
+
+    def pair_reduce(self, which, x, dims, keep):
+        """sum / prod / amax / amin of a value with two time axes over
+        dims, one or both of its time axes among them: per element, a
+        lane a sample of the kept axis (ta where both go) and an inner
+        loop over the other (pair_fold), then the rest of dims as for any
+        value. An extremum reduces every axis of dims at once, as jax's
+        rule shares the tangent among all ties: over both time axes in
+        two passes over the lanes (pair_extremum)."""
+        ta, tb = x.tdims
+        tdl = [d for d in dims if d in (ta, tb)]
+        if not tdl:
+            if x.vpos is None:
+                raise Rejected("a reduction that keeps two time axes")
+            return self.reduce_one(which, self.realize(x), dims, keep)
+        red = tdl[-1]
+        kept = ta if red == tb else tb
+        lane = 0 if kept == ta else 1
+        n_lane, n_red = x.shape[kept], x.shape[red]
+        for node in x.elems.flat:
+            for leaf in self.pair_leaves(node):
+                if isinstance(leaf, _PLeaf) and leaf.axis != lane \
+                        and leaf.e in self.seg_of:
+                    self.materialize(leaf.e)
+        if which in ("amax", "amin"):
+            return self.pair_extremum(which, x, dims, keep, lane)
+        self.active_n = n_lane
+        seg = self.segment(n_lane)
+        out = np.empty(x.elems.shape, object)
+        for idx in np.ndindex(out.shape):
+            out[idx] = self.pair_fold(which, [x.elems[idx]], lane, n_red,
+                                      seg)
+        shape = list(x.shape)
+        if keep:
+            shape[red] = 1
+            tdim = kept
+            out = np.expand_dims(out, red - (kept < red))
+        else:
+            del shape[red]
+            tdim = kept - (red < kept)
+        y = _Sym(out, tdim, shape)
+        rest = [d - (d > red and not keep) for d in dims if d != red]
+        return self.reduce_one(which, y, rest, keep) if rest else y
+
+    def pair_extremum(self, which, x, dims, keep, lane):
+        """amax / amin of a pair over dims (a time axis among them): the
+        elements each output reduces (along dims' other axes) folded
+        together per lane (pair_fold); where dims hold both time axes,
+        the lanes' extreme values stored and reduced (M), then a second
+        loop over the lanes folds each lane's ties with M (their tangents'
+        sum and count, ft_tie_pack) into a plane whose sum gives jax's
+        mean of the tied tangents (ft_tie_result)."""
+        ta, tb = x.tdims
+        kept = (ta, tb)[lane]
+        red = (tb, ta)[lane]
+        n_lane, n_red = x.shape[kept], x.shape[red]
+        others = [d for d in dims if d not in (ta, tb)]
+        eaxes = [d - (d > ta) - (d > tb) for d in others]
+        el = np.moveaxis(x.elems, eaxes, list(range(-len(eaxes), 0)))
+        lead = el.shape[:el.ndim - len(eaxes)]
+        flat = el.reshape(lead + (-1,))
+        both = kept in dims
+        out = np.empty(lead, object)
+        for idx in np.ndindex(lead):
+            nodes = list(flat[idx])
+            self.active_n = n_lane
+            seg = self.segment(n_lane)
+            res = self.pair_fold(which, nodes, lane, n_red, seg,
+                                 values_only=both)
+            if not both:
+                out[idx] = res
+                continue
+            off, n, _ = self.materialize(res)
+            m = self.emit("R", lambda: f"ft_{which}<R>(sh + {off}, {n})",
+                          vops=n)
+            self.active_n = n_lane
+            seg = self.segment(n_lane)
+            tied = self.pair_fold(which, nodes, lane, n_red, seg, ties=m)
+            if tied is None:
+                out[idx] = m
+                continue
+            off, n, _ = self.materialize(tied)
+            tot = self.emit("S", lambda: f"ft_sum<S>(sh + {off}, {n})",
+                            vops=n, tops=n)
+            out[idx] = self.emit("S", lambda t: f"ft_tie_result({m}, {t}, "
+                                 f"g_val({t}))", tot, vops=1, tops=1)
+        if both:
+            shape = [1 if d in dims else m for d, m in enumerate(x.shape)
+                     if keep or d not in dims]
+            return _Sym(out.reshape(shape), None, shape)
+        shape = [1 if d in dims else m for d, m in enumerate(x.shape)
+                 if keep or d not in dims]
+        tdim = kept - sum(1 for d in dims if d < kept and not keep)
+        return _Sym(out.reshape(shape[:tdim] + shape[tdim + 1:]), tdim,
+                    shape)
+
+    def reduce_one(self, which, y, dims, keep):
+        """sum / prod / amax / amin of a value with one time axis (or
+        none) over dims."""
+        if y.tdim in dims:
+            return self.time_reduce(which, y, dims, keep)
+        if which in ("amax", "amin"):
+            return _Gen.reduce(self, y, dims, keep, None, lambda items:
+                               self.extremum(which == "amax", items))
+        fn = {"sum": "+", "prod": "*"}[which]
+        return _Gen.reduce(self, y, dims, keep,
+                           lambda p, q: self.arith(fn, p, q))
+
+    @staticmethod
+    def pair_leaves(node, seen=None):
+        seen = set() if seen is None else seen
+        if id(node) in seen:
+            return []
+        seen.add(id(node))
+        if isinstance(node, _PNode):
+            out = []
+            for k in node.kids:
+                out += _FullGen.pair_leaves(k, seen)
+            return out
+        return [node]
+
+    def pair_fold(self, which, nodes, lane, n_red, seg, values_only=False,
+                  ties=None):
+        """Elements of a pair (nodes) reduced over its other axis, and over
+        one another, in the lane's loop seg: a loop over the n_red samples
+        tj (the inner loop), the nodes' lines inside it, folded into an
+        accumulator, a name of seg. amax / amin: two passes, the extreme
+        value, then ft_tie's rule (values_only: the first pass alone);
+        ties (a time-free extreme value): one pass folding the ties with
+        it into ft_tie_pack's count and tangent sum (None for real
+        values, which have no tangent)."""
+        inner = _Inner(self.n_inner, seg, seg.n * n_red)
+        self.n_inner += 1
+        self.inner = inner
+        try:
+            memo = {}
+            xs = [self.to_real(self.peval(nd, lane, memo)) for nd in nodes]
+            xs = [self.localize(x, seg) if self.is_local(x)
+                  and not self.is_inner(x) else x for x in xs]
+        finally:
+            self.inner = None
+        if not seg.open or any(self.seg_of.get(x, seg) is not seg
+                               for x in xs):
+            raise Rejected("a pair's loop closed while it was walked")
+        kind = "S" if any(self.kind_of(x) == "S" for x in xs) else "R"
+        body = ["  " + ln for ln in inner.lines]
+        loop = f"    for (int tj = 0; tj < {n_red}; ++tj) {{"
+        n = seg.n * n_red
+        if which in ("sum", "prod"):
+            op = "+" if which == "sum" else "*"
+            init = "R(0.0)" if which == "sum" else "R(1.0)"
+            acc = self._new_name(kind)
+            seg.lines += ([f"    {kind} {acc} = g_lift<{kind}>({init});",
+                           loop] + body
+                          + [f"      {acc} = {acc} {op} {x};" for x in xs]
+                          + ["    }"])
+            self.count(kind, len(xs), len(xs) * (1 if op == "+" else 3), n)
+        elif ties is not None:
+            if kind == "R":
+                return None
+            tsum, cnt, acc = (self._new_name(k) for k in "SRS")
+            seg.lines += ([f"    S {tsum} = g_lift<S>(R(0.0));",
+                           f"    R {cnt} = R(0.0);", loop] + body
+                          + [f"      ft_tie({tsum}, {cnt}, g_lift<S>({x}), "
+                             f"{ties});" for x in xs]
+                          + ["    }", f"    const S {acc} = "
+                             f"ft_tie_pack({tsum}, {cnt});"])
+            self.count("S", 2 * len(xs), len(xs), n)
+        else:
+            mx = "g_max" if which == "amax" else "g_min"
+            m = self._new_name("R")
+            inf = "-INFINITY" if which == "amax" else "INFINITY"
+            seg.lines += ([f"    R {m} = R({inf});", loop] + body
+                          + [f"      {m} = {mx}({m}, g_val({x}));"
+                             for x in xs] + ["    }"])
+            self.count("R", len(xs), 0, n)
+            acc = m
+            if kind == "S" and not values_only:
+                tsum, cnt, acc = (self._new_name(k) for k in "SRS")
+                seg.lines += ([f"    S {tsum} = g_lift<S>(R(0.0));",
+                               f"    R {cnt} = R(0.0);", loop] + body
+                              + [f"      ft_tie({tsum}, {cnt}, "
+                                 f"g_lift<S>({x}), {m});" for x in xs]
+                              + ["    }", f"    const S {acc} = "
+                                 f"ft_tie_result({m}, {tsum}, {cnt});"])
+                # the second pass runs the inner lines again
+                self.value_ops += inner.vops * n
+                self.tangent_ops += inner.tops * self.p * n
+                self.count("S", 2 * len(xs), len(xs), n)
+        self.seg_of[acc] = seg
+        return acc
+
+    def peval(self, node, lane, memo, fixed=None):
+        """A pair's node as an expression: a leaf on the lane's axis its
+        element (a name of the lane's loop where it is time-local), one on
+        the other axis read at tj (inner_read), or at sample `fixed` of
+        it where given (realize)."""
+        key = id(node)
+        if key in memo:
+            return memo[key]
+        if isinstance(node, _PNode):
+            val = node.fn(*[self.peval(k, lane, memo, fixed)
+                            for k in node.kids])
+        elif isinstance(node, _PLeaf):
+            val = node.e if node.axis == lane else (
+                self.inner_read(node.e, node.n) if fixed is None
+                else self.at_index(node.e, node.n, fixed))
+        elif isinstance(node, _PConst):
+            sl, si = (node.sa, node.sb) if lane == 0 else (node.sb, node.sa)
+            if fixed is None:
+                val = self.emit("R", lambda i, j: f"cst[{node.off} + {sl} * "
+                                f"{i} + {si} * {j}]", "ti", "tj")
+            else:
+                val = self.emit("R", lambda i: f"cst[{node.off + si * fixed}"
+                                f" + {sl} * {i}]", "ti")
+        else:
+            val = node
+        memo[key] = val
+        return val
+
+    def inner_read(self, e, n):
+        """Sample tj of time element e (n samples)."""
+        if e == "t":
+            return self.emit("R", lambda j: f"R({j})", "tj")
+        if e.startswith("@m"):
+            return self.map_expr(e, self.inner.seg, "tj", n)
+        if e in self.seg_of:
+            off, ln, kind = self.planes[e]
+            return self.emit(kind, lambda j: self.plane_read(kind, off, ln, j),
+                             "tj")
+        return e
+
+    def red_time(self, which, node, a, kw, val, base):
+        if isinstance(a[0], _Pair):
+            dims, keep = self.red_args(a, kw)
+            x = a[0]
+            dl = list(range(len(x.shape))) if not dims else \
+                [d % len(x.shape) for d in dims]
+            return self.pair_reduce(which, x, dl, keep)
+        return self._red_time(which, node, a, kw, val, base)
 
     # -- the output and the source ---------------------------------------------
     def finish(self, out, want):

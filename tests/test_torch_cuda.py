@@ -2991,3 +2991,115 @@ def test_fulltime_engine_on_card_matches_cpu(cuda, nq):
     np.testing.assert_allclose(rk.noise_means, rc.noise_means, rtol=2e-3)
     np.testing.assert_allclose(rk.free_energy, rc.free_energy, rtol=1e-4,
                                atol=2e-3)
+
+
+# -- kernel 6's generic mode over the JAX allowlist, kernels 7 and 8 with a
+#    stacked-parameter time_signal (tests/torch_generic_ops_models.py) ------
+
+def generic_ops_models():
+    """tests/torch_generic_ops_models.py, its models' names not left in
+    the registry."""
+    from fabber_core_tpu_torch.models import base
+    from torch_generic_models import restored
+    with restored(base._MODELS):
+        import torch_generic_ops_models as om
+    return om
+
+
+def generic_ops_data(name, nv, nt=100, seed=0):
+    om = generic_ops_models()
+    rng = np.random.default_rng(seed)
+    m = np.stack([rng.uniform(0.5, 1.5, nv), rng.uniform(0.5, 2.0, nv)])
+    sig = om.signal(name, m, nt)
+    return (sig + 0.02 * rng.standard_normal(sig.shape)).T.astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("kind", ["maxits", "pointzeroone", "trialmode"])
+@pytest.mark.parametrize("name", ["pairs-test", "mixed-test"])
+def test_generic_ops_kernel6_matches_plain(cuda, name, kind):
+    """Kernel 6 with pairs-test's full-time functor (a contraction of two
+    parameter planes, two-axis extrema, values with two time axes; at
+    T=64, where the JAX picker fits its 35 time planes) and mixed-test's
+    per-sample one (a constant matrix times the parameters; T=100)
+    against the plain version at float64, in MODEs 0-2, on the engine's
+    start and priors, launched once each."""
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.ops import fused_loop_nl as nl
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    from fabber_core_tpu_torch.options import RunOptions
+    om = generic_ops_models()
+    cls = {c.name: c for c in (om.Pairs, om.Mixed)}[name]
+    opts = RunOptions({"model": name, "noise": "white", "dtype": "single",
+                       "max-iterations": "10", "max-trials": "2",
+                       "convergence": kind})
+    nt = 64 if name == "pairs-test" else 100
+    eng = VBInference(cls(), opts, generic_ops_data(name, 4096, nt),
+                      device=cuda)
+    assert eng.route == "pallas-loop-nl" and eng.generic is not None
+    assert eng.generic.full_time == (name != "mixed-test")
+    tr = eng._transforms()
+    args = eng.nl_loop_args(eng.initial_state())
+    det = None if kind == "maxits" else eng._nl_fdet_consts()
+    n_it = 10 if kind == "maxits" else int(eng.detector.max_iterations)
+    ev = fv.full_eval(eng.generic.fn, tr)
+    counter = "generic_launches" if name == "mixed-test" \
+        else "fulltime_launches"
+    before = getattr(nl.fused_nl_loop, counter)
+    k = nl.fused_nl_loop(eng.model, tr, *args, n_it, True, detector=det,
+                         functor=eng.functor)
+    assert getattr(nl.fused_nl_loop, counter) == before + 1
+    r32 = nl.fused_nl_loop_plain(None, tr, *args, n_it, True, detector=det,
+                                 evaluator=ev)
+    r64 = nl.fused_nl_loop_plain(None, tr, *to_f64(args), n_it, True,
+                                 detector=det, evaluator=ev)
+    if kind == "maxits":
+        assert_near_f64(k, r32, r64)
+        return
+
+    def dec(o):
+        return decisions(o[6][0], torch.zeros_like(o[6][0]))
+
+    assert_detector_near_f64(k, r32, r64, dec(k), dec(r32), dec(r64))
+
+
+def test_stacked_time_signal_kernels_7_8_on_card(cuda, port_registry):
+    """stacked-test (its time_signal stacks the parameter planes and
+    contracts them with a constant matrix): kernel 7 (engine-kernel=
+    pallas) and kernel 8 (method=nlls) build its generated functor, where
+    require_card_instance raised before, launch it, and land near the CPU
+    runs (tests/test_torch_nl_engine.py's and tests/test_nlls_stats.py's
+    bounds)."""
+    from fabber_core_tpu_torch.inference.nlls import NLLSInference
+    from fabber_core_tpu_torch.inference.vb import VBInference
+    from fabber_core_tpu_torch.ops import fused_nlls as fn
+    from fabber_core_tpu_torch.ops import fused_vb as fv
+    from fabber_core_tpu_torch.options import RunOptions
+    om = generic_ops_models()
+    data = generic_ops_data("stacked-test", 256, nt=40, seed=5)
+    opts = RunOptions({"model": "stacked-test", "noise": "white",
+                       "dtype": "single", "max-iterations": "5",
+                       "engine-kernel": "pallas"})
+    res = {}
+    for dev in (cuda, "cpu"):
+        e = VBInference(om.Stacked(), opts, data, device=dev)
+        assert e.route == "pallas"
+        n0 = fv.fused_iteration.generated_launches
+        res[str(dev)] = e.run()
+        assert fv.fused_iteration.generated_launches - n0 == (
+            0 if dev == "cpu" else 5)
+    g, c = res[str(cuda)], res["cpu"]
+    sd = np.sqrt(np.diagonal(c.cov, axis1=1, axis2=2))
+    assert np.max(np.abs(g.means - c.means) / sd) < 5e-3
+    nopts = RunOptions({"model": "stacked-test", "method": "nlls",
+                        "dtype": "single"})
+    res = {}
+    for dev in (cuda, "cpu"):
+        e = NLLSInference(om.Stacked(), nopts, data, device=dev)
+        assert e.route == "nlls-kernel"
+        n0 = fn.fused_nlls_loop.generated_launches
+        res[str(dev)] = e.run()
+        assert (fn.fused_nlls_loop.generated_launches - n0 > 0) == (
+            dev != "cpu")
+    g, c = res[str(cuda)], res["cpu"]
+    np.testing.assert_allclose(g.means, c.means, rtol=2e-3, atol=2e-4)

@@ -191,6 +191,41 @@ def functor_fn(tle, tmpdir):
     return fn
 
 
+def full_functor_fn(tle, tmpdir):
+    """fn(m [P], supp [S] or None) -> (signal [T], model-space Jacobian
+    [P,T]) of a TimeLocalEval's full-time functor (csrc/fulltime.cuh
+    run_dual) at double, one host thread taking every sample (lane 0 of
+    1, so its barriers wait for no other)."""
+    assert tle.full_time
+    d = Path(tmpdir)
+    _write_headers(d)
+    src = ('#include "cuda_runtime.h"\n#include "dual.cuh"\n'
+           '#include "fulltime.cuh"\n'
+           "namespace {\nusing namespace fabber::gen;\n"
+           + _to_double(tle.source) + "}  // namespace\n"
+           'extern "C" void gen_full(const double* m, const double* supp,'
+           " const double* cst, double* sh, double* out) {\n"
+           "  fabber::gen::run_dual<GenModel, double>(m, supp, cst, sh, out,"
+           " 0, 1);\n}\n")
+    lib = _build(d, "full_functor_" + _functor_model(tle)[1], src)
+    vp = ctypes.c_void_p
+    lib.gen_full.argtypes = [vp, vp, vp, vp, vp]
+    cst = np.ascontiguousarray(
+        [0.0] if tle.consts is None else tle.consts, np.float64)
+    nt = int(re.search(r"NT = (\d+);", tle.source).group(1))
+
+    def fn(m, supp=None):
+        m = np.ascontiguousarray(m, np.float64)
+        s = np.ascontiguousarray(supp if supp is not None else [0.0],
+                                 np.float64)
+        sh = np.zeros(max(tle.smem_floats, 1))
+        out = np.zeros((len(m) + 1) * nt)
+        lib.gen_full(_ptr(m), _ptr(s), _ptr(cst), _ptr(sh), _ptr(out))
+        out = out.reshape(len(m) + 1, nt)
+        return out[0], out[1:]
+    return fn
+
+
 def kernel_fn(functor, q, tmpdir, staged=True):
     """The whole-loop kernel (fused_nl_loop.cuh) with a hand-written
     functor of vb_device.cuh (its C++ name, e.g. "ExpSum<3>") or a

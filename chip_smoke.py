@@ -6803,6 +6803,7 @@ def time_nl_instances(device, card, nv=4_000_000, nv_plain=1_000_000,
     run's data took). Each entry's ptxas line (registers, stack frame,
     spill stores) from its per-shape build."""
     import torch
+    from fabber_core_tpu_torch.ops import _cuda
     from fabber_core_tpu_torch.ops import fused_loop_nl as fnl
     from fabber_core_tpu_torch.ops import fused_nlls as fn
     from fabber_core_tpu_torch.ops import fused_vb as fv
@@ -6933,6 +6934,14 @@ def time_nl_instances(device, card, nv=4_000_000, nv_plain=1_000_000,
              ("fused_vb_iter_coop_kernel", "ELi1ELb0E"))):
         out[f"{tag}_ptxas"] = ptxas_frame(
             instance_logs((shape,))[shape][2], *parts)
+    # kernel 7's cooperative form: a voxel a block, its CoopLayout bytes
+    # and blocks per SM (registers and stack in the ptxas lines above)
+    for tag, p, q in (("iter_p24_q4", 24, 4), ("iter_p40", 40, 1),
+                      ("iter_p44", 44, 1)):
+        out[f"{tag}_block_bytes"] = _cuda.coop_smem(p, q)
+        out[f"{tag}_voxels_a_block"] = 1
+        out[f"{tag}_blocks_per_sm"] = _cuda.vb_iter_occupancy(
+            1, p, q, False, 0, BI_NT)
     for key, v in out.items():
         log(f" {key} = {v!r}  [5k; {card}]")
     return out
@@ -7186,12 +7195,13 @@ def time_fulltime(device, card, nv=1_000_000):
     """Phase 5l at 1,000,000 voxels (phase 5g's size; T=100, maxits 10,
     fulltime_plane's data): kernel 6's full-time form for each model
     (CUDA events, best of 3 after a warm-up) beside its plain version
-    (full_eval; once), its occupancy in MODEs 0-2, its block's shared
-    memory, ptxas's registers. Bound: the larger of the bytes (the data
-    plane and the inputs read once, the outputs written once) and the
-    float32 operations (fulltime_ops: the function's, the convolution's
-    products by its matrix's non-zeros included) at the card's peaks; the
-    generated code's own operations give gen_code_bound beside it."""
+    (full_eval; once), its blocks per SM and voxels a block in MODEs 0-2,
+    a voxel's shared memory, ptxas's registers. Bound: the larger of the
+    bytes (the data plane and the inputs read once, the outputs written
+    once) and the float32 operations (fulltime_ops: the function's, the
+    convolution's products by its matrix's non-zeros included) at the
+    card's peaks; the generated code's own operations give gen_code_bound
+    beside it."""
     import torch
     from fabber_core_tpu_torch.ops import _cuda
     from fabber_core_tpu_torch.ops import fused_loop_nl as fl
@@ -7221,12 +7231,14 @@ def time_fulltime(device, card, nv=1_000_000):
         lib = tle.libs[("nl_loop_full", 1)]
         out[f"{tag}_blocks_per_sm"] = [_cuda.gen_full_occupancy(lib, m)
                                        for m in (0, 1, 2)]
+        out[f"{tag}_voxels_a_block"] = [_cuda.gen_full_voxels(lib, m)
+                                        for m in (0, 1, 2)]
         out[f"{tag}_smem_bytes"] = int(lib.fabber_gen_full_smem())
         out[f"{tag}_functor_ops"] = (tle.value_ops, tle.tangent_ops,
                                      tle.needed_ops)
         text = _cuda.gen_build_log.get(_cuda.generated_key(
             tle.source, p, 1, "nl_loop_full"), (float("nan"), ""))[1]
-        out[f"{tag}_ptxas"] = [ptxas_entry(text, "fused_nl_loop_full_kernel",
+        out[f"{tag}_ptxas"] = [ptxas_frame(text, "fused_nl_loop_full_kernel",
                                            f"Li1ELi{m}E") for m in (0, 1, 2)]
         for k, v in out.items():
             if k.startswith(tag):
@@ -7587,6 +7599,8 @@ def time_generic_ops(device, card, nv=1_000_000, nv_plain=65_536,
         if tle.full_time:
             out[f"{tag}_blocks_per_sm"] = [_cuda.gen_full_occupancy(lib, m)
                                            for m in (0, 1, 2)]
+            out[f"{tag}_voxels_a_block"] = [_cuda.gen_full_voxels(lib, m)
+                                            for m in (0, 1, 2)]
             out[f"{tag}_smem_bytes"] = int(lib.fabber_gen_full_smem())
         out[f"{tag}_functor_ops"] = (tle.value_ops, tle.tangent_ops,
                                      tle.needed_ops, tle.time_planes)
@@ -7594,7 +7608,7 @@ def time_generic_ops(device, card, nv=1_000_000, nv_plain=65_536,
             tle.source, 2, 1, tle.kernel), (float("nan"), ""))[1]
         kname = "fused_nl_loop_full_kernel" if tle.full_time \
             else "fused_nl_loop_kernel"
-        out[f"{tag}_ptxas"] = [ptxas_entry(text, kname, f"Li1ELi{m}E")
+        out[f"{tag}_ptxas"] = [ptxas_frame(text, kname, f"Li1ELi{m}E")
                                for m in (0, 1, 2)]
 
     plane, _, truth = generic_ops_plane("stacked-test", nv_78, gen, device)

@@ -451,46 +451,49 @@ FABBER_UNROLL
 //
 // The TPU kernel's generic full-time mode for a model that mixes time (its
 // functor M from models/kernelgen.py's full-time walk, csrc/fulltime.cuh's
-// contract): one voxel a block of kCoopThreads threads, its state in the
-// block's shared memory (FullLayout), the pieces of kernel 7's cooperative
-// form (coop_device.cuh). Per iteration:
+// contract): one voxel a warp of kCoopThreads lanes, W voxels a block (a
+// warp each, W chosen at launch: launch_full), the voxel's state in its
+// warp's slice of the block's shared memory (FullLayout), the lanes meeting
+// at __syncwarp and closing reductions by butterflies, with the pieces of
+// kernel 7's cooperative form (coop_device.cuh). Per iteration:
 //   model    M::run at the centre, every lane: the signal and the
 //            model-space Jacobian of the T samples into the out plane;
-//   pass     per chunk of kCoopChunk samples, lane c takes sample t0 + c:
-//            its latent-space Jacobian row (times the chain factors) into
-//            column c, r = y - g, the group weights; then per group J'Q_qJ
-//            and J'Q_q r (coop_sums, a thread a packed entry, kTB samples
-//            into a block sum, the blocks into the total) and r'Q_q r
-//            (coop_kqk);
+//   pass     per group J'Q_qJ, J'Q_q r and r'Q_q r read straight from the
+//            out plane (times the chain factors, r = y - g): a lane takes
+//            an (entry, kTB block) pair over the whole T into the block
+//            sums, then a lane an entry adds its blocks in order (each
+//            entry in the two-level order of the other kernels: kTB samples
+//            into a block sum, the blocks into the total), two barriers a
+//            pass;
 //   test     (MODEs 1-2) the deferred test of the last iteration, every
 //            lane on the same shared values (so every lane takes the same
 //            branch), with the best-state saves of MODE 2;
-//   solve    prec and rhs a thread an entry, the column Cholesky with the
-//            jitter retry, the inverse, the means; lm's damped step;
-//   update   k'Q_qk by the exact expansion and the phi update, a thread a
-//            group;
+//   solve    prec and rhs a lane an entry, the Cholesky factor a column a
+//            step (a lane its rows) with the jitter retry, the inverse, the
+//            means; lm's damped step (coop_chol_solve);
+//   update   k'Q_qk by the exact expansion and the phi update, a lane a
+//            group, each trace across the lanes;
 // then the F pass (MODE 0 with need_f, and the last test) at the final
-// means. The arithmetic of each entry is the per-lane kernel's; only the
-// order of the sums over samples within a chunk's blocks is the same
-// two-level one, and the model is the functor's own loops. The voxel's
-// samples are staged in shared memory once; the [T, Q] group weights are
-// read through the read-only cache (one copy for every voxel). What bounds
-// it is the functor's work (each evaluation's lines over T samples and,
-// for a contraction, T^2 (P + 1) multiply-adds) and the chunks' barriers;
-// its shared memory bounds the shapes (ops/_cuda.py fulltime_smem, checked
-// here by a static_assert), and one warp a block caps an SM at 32 blocks.
+// means. The voxel's samples are staged in shared memory once; the [T, Q]
+// group weights are read through the read-only cache (one copy for every
+// voxel). What bounds it is the functor's work (each evaluation's lines
+// over T samples and, for a contraction, T^2 (P + 1) multiply-adds), and
+// its shared memory bounds the shapes (ops/_cuda.py fulltime_smem, per
+// voxel, checked here by a static_assert). FABBER_MARK(k) marks section k
+// for probes/coop_sections.py (empty in every build but the probe's).
+
+constexpr int kFullMaxW = 4;   // the most voxels (warps) a block
 
 template <class M, int Q>
 struct FullLayout {
   static constexpr int P = M::P, NT = P * (P + 1) / 2, T = M::NT;
-  static constexpr int JS = kCoopChunk + 1;   // a Jacobian row's stride
+  static constexpr int NE = NT + P + 1;       // a group's sums
+  static constexpr int NB = (T + kTB - 1) / kTB;   // kTB blocks of T
   static constexpr int sums = 0;              // [Q][NT] J'Q_qJ
   static constexpr int jtr = sums + Q * NT;   // [Q][P]  J'Q_q r
   static constexpr int rqr = jtr + Q * P;     // [Q]     r'Q_q r
-  static constexpr int jac = rqr + Q;         // [P][JS] the chunk's rows
-  static constexpr int wts = jac + P * JS;    // [Q][kCoopChunk]
-  static constexpr int res = wts + Q * kCoopChunk;   // [kCoopChunk]
-  static constexpr int prec = res + kCoopChunk;      // [NT] each
+  static constexpr int bsum = rqr + Q;        // [Q][NE][NB] block sums
+  static constexpr int prec = bsum + Q * NE * NB;   // [NT] each
   static constexpr int ch = prec + NT, inv = ch + NT, dch = inv + NT,
                        cov = dch + NT;
   static constexpr int vec = cov + NT;        // [P] each
@@ -504,80 +507,110 @@ struct FullLayout {
   static constexpr int col = grp + 4 * Q;     // [T] the voxel's samples
   static constexpr int out = col + T;         // [(P+1) T] the model
   static constexpr int fn = out + (P + 1) * T;   // M::SMEM the functor's
-  static constexpr int floats = fn + M::SMEM;
+  static constexpr int floats = fn + M::SMEM;  // a voxel's (a warp's)
   static constexpr long long bytes = 4LL * floats;
 };
 
 // The model at rows mrow (model space, shared) into the out plane, then
 // the per-group sums over the samples: J'Q_qJ into sums, with WITH_R
-// J'Q_q r into jtr, and r'Q_q r (r = y - g) into rqr, zeroed first.
+// J'Q_q r into jtr, and r'Q_q r (r = y - g) into rqr.
 template <class M, int Q, bool WITH_R>
 __device__ __forceinline__ void full_pass(float* sh, const float* sv,
                                           const float* __restrict__ cst,
                                           const float* __restrict__ qw) {
   using L = FullLayout<M, Q>;
-  constexpr int P = M::P, T = M::NT;
-  const int tid = (int)threadIdx.x;
+  constexpr int P = M::P, T = M::NT, NT = L::NT, NE = L::NE, NB = L::NB;
+  const int lane = coop_lane();
   float m[P];
   for (int i = 0; i < P; ++i) m[i] = sh[L::mrow + i];
-  fabber::gen::run_dual<M>(m, sv, cst, sh + L::fn, sh + L::out, tid,
+  FABBER_MARK(WITH_R ? 18 : 19);
+  fabber::gen::run_dual<M>(m, sv, cst, sh + L::fn, sh + L::out, lane,
                            kCoopThreads);
-  coop_zero(sh + L::sums, Q * (L::NT + P + 1));   // sums, jtr, rqr adjacent
-  const float* out = sh + L::out;
-  for (int t0 = 0; t0 < T; t0 += kCoopChunk) {
-    const int nc = min(kCoopChunk, T - t0);
-    if (tid < nc) {
-      const int t = t0 + tid;
-      for (int i = 0; i < P; ++i)
-        sh[L::jac + i * L::JS + tid] =
-            out[(1 + i) * T + t] * sh[L::chain + i];
-      sh[L::res + tid] = sh[L::col + t] - out[t];
-      for (int q = 0; q < Q; ++q)
-        sh[L::wts + q * kCoopChunk + tid] = __ldg(qw + t * Q + q);
+  FABBER_MARK(12);
+  const float *out = sh + L::out, *col = sh + L::col,
+              *chain = sh + L::chain;
+  // block sums: item (q, entry e, block b); e < NT a packed J'Q_qJ entry,
+  // then the P rows of J'Q_q r (WITH_R), then r'Q_q r
+  for (int item = lane; item < Q * NE * NB; item += kCoopThreads) {
+    const int bl = item % NB, e = (item / NB) % NE, q = item / (NB * NE);
+    const int t0 = bl * kTB, t1 = min(t0 + kTB, T);
+    float bs = 0.f;
+    if (e < NT) {
+      int i, j;
+      untri(e, i, j);
+      for (int t = t0; t < t1; ++t) {
+        const float wj = __ldg(qw + t * Q + q) *
+                         (out[(1 + i) * T + t] * chain[i]);
+        bs = bs + wj * (out[(1 + j) * T + t] * chain[j]);
+      }
+    } else if (e < NT + P) {
+      if (WITH_R) {
+        const int i = e - NT;
+        for (int t = t0; t < t1; ++t) {
+          const float wj = __ldg(qw + t * Q + q) *
+                           (out[(1 + i) * T + t] * chain[i]);
+          bs = bs + wj * (col[t] - out[t]);
+        }
+      }
+    } else {
+      for (int t = t0; t < t1; ++t) {
+        const float r = col[t] - out[t];
+        bs = bs + __ldg(qw + t * Q + q) * (r * r);
+      }
     }
-    __syncthreads();
-    coop_sums<P>(sh + L::sums, WITH_R ? sh + L::jtr : nullptr, Q,
-                 sh + L::jac, sh + L::wts, sh + L::res, nc);
-    if (tid < nc) sh[L::res + tid] = sh[L::res + tid] * sh[L::res + tid];
-    __syncthreads();
-    coop_kqk<Q>(sh + L::rqr, qw, sh + L::res, t0, nc);
+    sh[L::bsum + item] = bs;
   }
+  coop_sync();
+  for (int s = lane; s < Q * NE; s += kCoopThreads) {
+    const int q = s / NE, e = s - q * NE;
+    float tot = 0.f;
+    for (int bl = 0; bl < NB; ++bl) tot = tot + sh[L::bsum + s * NB + bl];
+    if (e < NT)
+      sh[L::sums + q * NT + e] = tot;
+    else if (e < NT + P)
+      sh[L::jtr + q * P + (e - NT)] = WITH_R ? tot : 0.f;
+    else
+      sh[L::rqr + q] = tot;
+  }
+  coop_sync();
+  FABBER_MARK(WITH_R ? 15 : 19);
 }
 
 // the model rows and chain factors at the latent means lat (shared)
 template <int P, class K>
 __device__ __forceinline__ void full_rows(const K& k, const float* lat,
                                           float* mrow, float* chain) {
-  for (int i = (int)threadIdx.x; i < P; i += kCoopThreads) {
+  for (int i = coop_lane(); i < P; i += kCoopThreads) {
     mrow[i] = to_model(k.tcode[i], lat[i]);
     chain[i] = chain_factor(k.tcode[i], lat[i]);
   }
-  __syncthreads();
+  coop_sync();
 }
 
-// the voxel's state into its output columns, a thread an entry
+// the voxel's state into its output columns, a lane an entry
 template <int P, int Q>
 __device__ __forceinline__ void full_store_state(
     const float* means, const float* prec, const float* cov, const float* b,
     const float* c, float* __restrict__ means_out, float* __restrict__ prec_out,
     float* __restrict__ cov_out, float* __restrict__ b_out,
     float* __restrict__ c_out, long long V, long long v) {
-  const int tid = (int)threadIdx.x;
-  for (int i = tid; i < P; i += kCoopThreads)
+  const int lane = coop_lane();
+  for (int i = lane; i < P; i += kCoopThreads)
     means_out[(size_t)i * V + v] = means[i];
   coop_store_full<P>(prec, prec_out, V, v);
   coop_store_full<P>(cov, cov_out, V, v);
-  for (int q = tid; q < Q; q += kCoopThreads) {
+  for (int q = lane; q < Q; q += kCoopThreads) {
     b_out[(size_t)q * V + v] = b[q];
     c_out[(size_t)q * V + v] = c[q];
   }
 }
 
 // The full-time form's kernel: fused_nl_loop_kernel's parameters and
-// outputs and the functor's constants cst; one voxel a block of
-// kCoopThreads, FullLayout's shared memory.
+// outputs and the functor's constants cst; W = blockDim.x / kCoopThreads
+// voxels a block, a warp each, a FullLayout each in the block's shared
+// memory.
 template <class M, int Q, int MODE>
-__global__ void __launch_bounds__(kCoopThreads)
+__global__ void __launch_bounds__(kCoopThreads * kFullMaxW)
 fused_nl_loop_full_kernel(const VBParamsFor<M::P, Q> k,
                           const NLDetConstsFor<Q> dc,
                           const float* __restrict__ centre0,
@@ -599,9 +632,14 @@ fused_nl_loop_full_kernel(const VBParamsFor<M::P, Q> k,
   constexpr bool kDet = MODE != 0, kBest = MODE == 2;
   static_assert(L::bytes <= kMaxBlockSmem,
                 "the voxel's state in one block's shared memory");
-  const long long V = k.V, v = blockIdx.x;
-  const int tid = (int)threadIdx.x;
-  float* const sh = dynamic_smem();
+  const int warp = (int)(threadIdx.x / kCoopThreads);
+  const long long V = k.V,
+                  v = (long long)blockIdx.x * (blockDim.x / kCoopThreads) +
+                      warp;
+  if (v >= V) return;   // the whole warp: it meets no other
+  FABBER_SEC_BEGIN();
+  const int tid = coop_lane();
+  float* const sh = dynamic_smem() + (size_t)warp * L::floats;
   float *sums = sh + L::sums, *jtr = sh + L::jtr, *rqr = sh + L::rqr,
         *prec = sh + L::prec, *ch = sh + L::ch, *inv = sh + L::inv,
         *dch = sh + L::dch, *cov = sh + L::cov;
@@ -626,9 +664,9 @@ fused_nl_loop_full_kernel(const VBParamsFor<M::P, Q> k,
   // the voxel's suppdata, in every lane's registers (NS = 0: none)
   float sv[NS > 0 ? NS : 1];
   for (int i = 0; i < NS; ++i) sv[i] = supp[(size_t)i * V + v];
-  __syncthreads();
+  coop_sync();
 
-  // detector lanes (dead code in MODE 0), the same in every thread
+  // detector lanes (dead code in MODE 0), the same in every lane
   DetState cv = fabber::det_init(dc.d);
   const bool freduce = MODE == 1 && dc.d.kind == fabber::kFreduce;
   const bool with_lm = kBest && dc.d.kind == fabber::kLM;
@@ -638,6 +676,7 @@ fused_nl_loop_full_kernel(const VBParamsFor<M::P, Q> k,
     for (int i = 0; i < P; ++i) part3 = part3 + 0.5f * logf(pp[i]);
   }
 
+  FABBER_MARK(0);
   for (int it = 0; it < k.n_iters; ++it) {
     for (int q = tid; q < Q; q += kCoopThreads) phi[q] = b[q] * c[q];
     full_rows<P>(k, centre, mrow, chain);
@@ -678,19 +717,23 @@ fused_nl_loop_full_kernel(const VBParamsFor<M::P, Q> k,
             b_f = f_here;
           }
         }
-        if (cv.done) break;   // every thread: the same test
+        if (cv.done) break;   // every lane: the same test
       }
-      __syncthreads();   // the test's reads before the solve's writes
+      coop_sync();   // the test's reads before the solve's writes
     }
+    FABBER_MARK(16);
 
     // ---- solve (Eq 19/20), posterior_solve's arithmetic ------------------
-    for (int e = tid; e < NT; e += kCoopThreads) {
+    {
       int i, j;
-      untri(e, i, j);
-      float val = 0.f;
-      for (int q = 0; q < Q; ++q) val = val + phi[q] * sums[q * NT + e];
-      if (i == j) val = val + pp[i];
-      prec[e] = val;
+      untri(tid, i, j);
+      for (int e = tid; e < NT; e += kCoopThreads) {
+        float val = 0.f;
+        for (int q = 0; q < Q; ++q) val = val + phi[q] * sums[q * NT + e];
+        if (i == j) val = val + pp[i];
+        prec[e] = val;
+        tri_step(i, j, kCoopThreads);
+      }
     }
     for (int a = tid; a < P; a += kCoopThreads) {
       float val = 0.f;
@@ -702,43 +745,51 @@ fused_nl_loop_full_kernel(const VBParamsFor<M::P, Q> k,
       }
       rhs[a] = val + pp[a] * pm[a];
     }
-    __syncthreads();
+    coop_sync();
+    FABBER_MARK(3);
     coop_cholesky_jittered<P>(prec, ch);
+    FABBER_MARK(4);
     coop_inverse<P>(ch, inv, cov);
+    FABBER_MARK(5);
     for (int i = tid; i < P; i += kCoopThreads) {
       float m = 0.f;
       for (int j = 0; j < P; ++j) m = m + cov[tri(i, j)] * rhs[j];
       means[i] = m;
     }
-    __syncthreads();
+    coop_sync();
+    FABBER_MARK(6);
     if constexpr (kBest) {
       if (with_lm && cv.alpha > 0.f) {
         // the LM-damped step (fused_nl_loop_kernel's)
-        for (int e = tid; e < NT; e += kCoopThreads) {
+        {
           int i, j;
-          untri(e, i, j);
-          inv[e] = prec[e] + (i == j ? cv.alpha * prec[tri(i, i)] : 0.f);
+          untri(tid, i, j);
+          for (int e = tid; e < NT; e += kCoopThreads) {
+            inv[e] = prec[e] + (i == j ? cv.alpha * prec[tri(i, i)] : 0.f);
+            tri_step(i, j, kCoopThreads);
+          }
         }
         for (int i = tid; i < P; i += kCoopThreads) {
           float s = pp[i] * (pm[i] - centre[i]);
           for (int q = 0; q < Q; ++q) s = s + phi[q] * jtr[q * P + i];
           x[i] = s;
         }
-        __syncthreads();
+        coop_sync();
         coop_cholesky_jittered<P>(inv, dch);
-        if (tid == 0) {
-          chol_solve<P>(dch, x);
-          for (int i = 0; i < P; ++i) means[i] = centre[i] + x[i];
-        }
-        __syncthreads();
+        coop_chol_solve<P>(dch, x);
+        for (int i = tid; i < P; i += kCoopThreads) means[i] = centre[i] + x[i];
+        coop_sync();
       }
     }
+    FABBER_MARK(7);
 
     // ---- k'Q_qk by exact expansion, then the phi update (Eq 21/22) ------
     for (int i = tid; i < P; i += kCoopThreads) d[i] = centre[i] - means[i];
-    __syncthreads();
-    for (int q = tid; q < Q; q += kCoopThreads) {
+    coop_sync();
+    for (int q = 0; q < Q; ++q) {
       const float* jtj = sums + q * NT;
+      const float trq = coop_trace<P>(cov, jtj);
+      if (tid != q % kCoopThreads) continue;
       float kq = rqr[q];
       for (int a = 0; a < P; ++a) kq = kq + 2.f * d[a] * jtr[q * P + a];
       for (int i = 0; i < P; ++i) {
@@ -748,7 +799,6 @@ fused_nl_loop_full_kernel(const VBParamsFor<M::P, Q> k,
         }
       }
       const float kqk = fmaxf(kq, 0.f);
-      const float trq = trace_packed<P>(cov, jtj);
       float bq = 1.f / ((kqk + trq) * 0.5f + k.inv_b0[q]);
       const float cq = k.c_post[q];
       if (k.locked_sd > 0.f) bq = 1.f / cq / (k.locked_sd * k.locked_sd);
@@ -761,7 +811,8 @@ fused_nl_loop_full_kernel(const VBParamsFor<M::P, Q> k,
       for (int i = 0; i < P; ++i) ld = ld + 2.f * logf(ch[tri(i, i)]);
       logdet = ld;
     }
-    __syncthreads();
+    coop_sync();
+    FABBER_MARK(18);
   }
 
   if constexpr (!kDet) {
@@ -806,6 +857,8 @@ fused_nl_loop_full_kernel(const VBParamsFor<M::P, Q> k,
       }
     }
   }
+  FABBER_MARK(10);
+  FABBER_SEC_END();
 }
 
 // The by-value blocks of a launch from the C entry points' host arrays
@@ -922,22 +975,79 @@ int occupancy(int mode, int vb, long long smem) {
              : -1;
 }
 
-// The full-time form's launch (one voxel a block of kCoopThreads, its
-// FullLayout in dynamic shared memory; nt must be the functor's NT), or
-// (occ not null) its blocks per SM. mode: see launch.
+// An SM's L1 cache and shared memory share kSmL1Bytes, and its shared
+// memory is carved out of them in one of kSmemCarveouts (KB, sm_90): the
+// least that holds the resident blocks' shared memory (each block's and
+// the 1 KB the SM keeps for each) is taken, and the L1 cache keeps the
+// rest.
+constexpr long long kSmL1Bytes = 256 * 1024;
+constexpr int kSmemCarveouts[] = {0, 8, 16, 32, 64, 100, 132, 164, 196, 228};
+
+// the L1 bytes left beside `blocks` blocks of `smem` bytes each
+inline long long l1_left(int blocks, long long smem) {
+  const long long used = blocks * (smem + 1024);
+  for (int kb : kSmemCarveouts) {
+    if (used <= kb * 1024LL) return kSmL1Bytes - kb * 1024LL;
+  }
+  return 0;
+}
+
+// The full-time form's launch geometry: W, the voxels a block (a warp
+// each, W FullLayouts of dynamic shared memory), the W of 1, 2 and 4 whose
+// blocks hold the most warps on an SM (registers, shared memory and the
+// SM's 32 blocks decide: cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// the smaller on a tie, among those whose blocks leave the L1 cache room
+// for the functor's constants (every voxel reads them there: a [T, T]
+// contraction matrix is 40 KB at T = 100; on an H100 the convolution took
+// 106 ms at 48 warps an SM beside 28 KB of L1 and 77 ms at 40 beside 60
+// KB, probes/coop_sections.py); W = 1 where none does. *blocks its blocks
+// per SM. 0 where none launches.
+template <class M, int Q, int MODE>
+int full_geometry(int* blocks) {
+  const auto kernel = fused_nl_loop_full_kernel<M, Q, MODE>;
+  constexpr long long voxel = FullLayout<M, Q>::bytes;
+  constexpr long long consts = 4LL * M::NCONST;
+  int best_w = 0, best_warps = 0;
+  *blocks = 0;
+  for (int w = 1; w <= kFullMaxW; w *= 2) {
+    if (w * voxel > kMaxBlockSmem) break;
+    if (cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)(w * voxel)) != 0)
+      break;
+    const int occ = tile_occupancy(kernel, w * kCoopThreads, w * voxel);
+    if (w > 1 && l1_left(occ, w * voxel) < consts) continue;
+    if (occ * w > best_warps) {
+      best_w = w;
+      best_warps = occ * w;
+      *blocks = occ;
+    }
+  }
+  return best_w;
+}
+
+// The full-time form's launch (W voxels a block, full_geometry; nt must be
+// the functor's NT), or (occ not null) its blocks per SM and (voxels not
+// null) W. mode: see launch.
 template <class M, int Q, int MODE, class HK, class HD>
 int launch_full_mode(const HK& k, const HD& dc, const float* const* ins,
-                     float* const* outs, cudaStream_t stream, int* occ) {
+                     float* const* outs, cudaStream_t stream, int* occ,
+                     int* voxels) {
   const auto kernel = fused_nl_loop_full_kernel<M, Q, MODE>;
-  constexpr long long smem = FullLayout<M, Q>::bytes;
+  int blocks = 0;
+  const int w = full_geometry<M, Q, MODE>(&blocks);
+  if (w == 0) return (int)cudaErrorInvalidValue;
+  const long long smem = w * FullLayout<M, Q>::bytes;
   const int err = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != 0) return err;
-  if (occ != nullptr) {
-    *occ = tile_occupancy(kernel, kCoopThreads, smem);
+  if (occ != nullptr || voxels != nullptr) {
+    if (occ != nullptr) *occ = blocks;
+    if (voxels != nullptr) *voxels = w;
     return 0;
   }
-  kernel<<<(unsigned)k.V, kCoopThreads, smem, stream>>>(
+  const unsigned grid = (unsigned)((k.V + w - 1) / w);
+  kernel<<<grid, w * kCoopThreads, smem, stream>>>(
       params_for<M::P, Q>(k), det_consts_for<Q>(dc), ins[0], ins[1], ins[2],
       ins[3], ins[4], ins[5], ins[6], ins[7], outs[0], outs[1], outs[2],
       outs[3], outs[4], outs[5], outs[6]);
@@ -946,16 +1056,20 @@ int launch_full_mode(const HK& k, const HD& dc, const float* const* ins,
 
 template <class M, int Q, class HK, class HD>
 int launch_full(const HK& k, const HD& dc, const float* const* ins,
-                float* const* outs, cudaStream_t stream, int* occ = nullptr) {
+                float* const* outs, cudaStream_t stream, int* occ = nullptr,
+                int* voxels = nullptr) {
   if (k.nt != M::NT) return (int)cudaErrorInvalidValue;
   switch (dc.d.kind) {
     case fabber::kMaxits:
-      return launch_full_mode<M, Q, 0>(k, dc, ins, outs, stream, occ);
+      return launch_full_mode<M, Q, 0>(k, dc, ins, outs, stream, occ,
+                                       voxels);
     case fabber::kPointZeroOne:
     case fabber::kFreduce:
-      return launch_full_mode<M, Q, 1>(k, dc, ins, outs, stream, occ);
+      return launch_full_mode<M, Q, 1>(k, dc, ins, outs, stream, occ,
+                                       voxels);
     default:
-      return launch_full_mode<M, Q, 2>(k, dc, ins, outs, stream, occ);
+      return launch_full_mode<M, Q, 2>(k, dc, ins, outs, stream, occ,
+                                       voxels);
   }
 }
 

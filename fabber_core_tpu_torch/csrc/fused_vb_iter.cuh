@@ -245,34 +245,38 @@ FABBER_UNROLL
 // 16, or more than 600 per-group sums) launches this form instead: one
 // warp (kCoopThreads) serves one voxel, a block each, and its state lives
 // in the block's shared memory (CoopLayout), so a thread holds O(1)
-// floats whatever P is.
-//   pass A  per chunk of kCoopChunk samples each thread evaluates the
-//           model at its sample (the Jacobian row into the chunk's
-//           columns, r = y - g), then each thread sums its slice of the
-//           packed sums over the chunk, kTB samples into a block sum and
-//           the blocks into the total, the per-lane form's order: J'Q_qJ
-//           and J'Q_q r per group, or, past kCoopFoldSums per-group sums,
-//           folded into one A = sum_t w_t J_t J_t' and g = sum_t w_t J_t r
-//           with w_t = sum_q phi_q w_tq (Q P(P+1)/2 sums would fill a
-//           block's shared memory at Q = 35);
-//   solve   prec and rhs (a thread per entry, per row), the column
-//           Cholesky (the diagonal by one thread, the column below it a
-//           row a thread, a barrier each), L^-1 a row a thread, cov an
-//           entry a thread: each entry's arithmetic that of vb_device.cuh's
-//           cholesky and inverse_from_chol; with LM the damped factor and
-//           its solve (one thread);
-//   pass B  k = r + J d per sample, per group k'Q_qk (a thread per group);
-//   traces  tr(Sigma J'Q_qJ) a thread per group, from the pass A sums, or,
-//           folded, a pass per group for J'Q_qJ alone (taken per sample,
-//           J' Sigma J loses every digit to cancellation at P = 24, where
-//           the covariance of twelve exponentials holds entries of 1e10);
+// floats whatever P is. The lanes meet at __syncwarp and close their
+// reductions by butterflies (coop_device.cuh).
+//   pass A  per chunk of kCoopChunk samples each lane evaluates the model
+//           at its sample (the Jacobian row into the chunk's columns, r =
+//           y - g), then the lanes sum the chunk into the packed sums in
+//           register tiles (coop_sums: a tile of 4 x 4 entries a lane, each
+//           entry kTB samples into a block sum and the blocks into the
+//           total, the per-lane form's order): J'Q_qJ and J'Q_q r per
+//           group, or, past kCoopFoldSums per-group sums, folded into one A
+//           = sum_t w_t J_t J_t' and g = sum_t w_t J_t r with w_t = sum_q
+//           phi_q w_tq (Q P(P+1)/2 sums would fill a block's shared memory
+//           at Q = 35);
+//   solve   prec and rhs (a lane per entry, per row), the right-looking
+//           Cholesky (a column a step, the trailing triangle updated by
+//           every lane in step, a lane its rows), L^-1 a lane its rows, cov
+//           a lane its columns: each entry the per-lane form's arithmetic;
+//           with LM the damped factor and its solve (coop_chol_solve, a row
+//           a step closed by a butterfly);
+//   pass B  k = r + J d per sample, per group k'Q_qk (a lane per group);
+//   traces  tr(Sigma J'Q_qJ) split across the lanes and closed by a
+//           butterfly, from the pass A sums, or, folded, a pass per group
+//           for J'Q_qJ alone (taken per sample, J' Sigma J loses every
+//           digit to cancellation at P = 24, where the covariance of twelve
+//           exponentials holds entries of 1e10);
 //   pass C  (need_f) the same at the new means.
-// No warp shuffles: the threads meet at __syncthreads, so the host shim
-// (tests/torch_hostcc.py) runs a block's threads as lanes. The pieces it
-// shares with kernel 6's full-time form (the chunk sums, the column
-// Cholesky, the inverse, the traces) live in coop_device.cuh. The bound of
-// the form is its shared memory: kCoopMaxP (vb_device.cuh) is the largest
-// P whose folded state one block holds.
+// The chunk (Jacobian rows, weights, residuals) and the solve's factor and
+// L^-1 are never live together, so CoopLayout lays them over one another.
+// What bounds the form is the work of its sums (Q P(P+1)/2 multiply-adds a
+// sample, a tile's 2 x 4 Jacobian reads a sample for 16 of them) and its
+// shared memory: kCoopMaxP (vb_device.cuh) is the largest P whose folded
+// state one block holds. FABBER_MARK(k) marks section k for
+// probes/coop_sections.py (empty in every build but the probe's).
 // true in a unit that launches this form, false in one that launches the
 // per-lane form; the unit's C entry points report it
 // (fabber_inst_vb_iter_coop, fabber_gen_vb_iter_coop), and a launch takes
@@ -287,8 +291,9 @@ constexpr int kCoopFoldSums = 1024;
 template <int P, int Q>
 constexpr bool coop_folded = Q * (P * (P + 1) / 2) > kCoopFoldSums;
 
-// One voxel's shared memory (floats): the pass sums, the chunk, the
-// solve's four packed matrices and the vectors
+// One voxel's shared memory (floats): the pass sums, the solve's prec and
+// cov, the vectors, then one region that holds the chunk (the Jacobian
+// rows, weights and residuals of a pass) or the solve's factor and L^-1
 template <int P, int Q>
 struct CoopLayout {
   static constexpr int NT = P * (P + 1) / 2;
@@ -296,13 +301,8 @@ struct CoopLayout {
   static constexpr int JS = kCoopChunk + 1;   // a Jacobian row's stride
   static constexpr int sums = 0;              // [K][NT]
   static constexpr int jtr = sums + K * NT;   // [K][P]
-  static constexpr int jac = jtr + K * P;     // [P][JS]
-  static constexpr int wts = jac + P * JS;     // [K][kCoopChunk]
-  static constexpr int res = wts + K * kCoopChunk;   // [kCoopChunk]
-  static constexpr int prec = res + kCoopChunk;      // [NT] each
-  static constexpr int ch = prec + NT;
-  static constexpr int inv = ch + NT;         // L^-1; the LM damped matrix
-  static constexpr int cov = inv + NT;
+  static constexpr int prec = jtr + K * P;    // [NT] each
+  static constexpr int cov = prec + NT;
   static constexpr int vec = cov + NT;        // [P] each
   static constexpr int centre = vec, pm = vec + P, pp = vec + 2 * P,
                        mrow = vec + 3 * P, chain = vec + 4 * P,
@@ -311,7 +311,14 @@ struct CoopLayout {
   static constexpr int grp = vec + 9 * P;     // [Q] each
   static constexpr int phi = grp, nkqk = grp + Q, ntr = grp + 2 * Q,
                        fkqk = grp + 3 * Q, ftr = grp + 4 * Q;
-  static constexpr int floats = grp + 5 * Q;
+  static constexpr int work = grp + 5 * Q;
+  static constexpr int jac = work;            // [P][JS]
+  static constexpr int wts = jac + P * JS;    // [K][kCoopChunk]
+  static constexpr int res = wts + K * kCoopChunk;   // [kCoopChunk]
+  static constexpr int ch = work;             // [NT] each
+  static constexpr int inv = ch + NT;         // L^-1; the LM damped matrix
+  static constexpr int chunk = P * JS + (K + 1) * kCoopChunk;
+  static constexpr int floats = work + (chunk > 2 * NT ? chunk : 2 * NT);
   static constexpr long long bytes = 4LL * floats;
 };
 static_assert(CoopLayout<nl::kCoopMaxP, nl::kWideMaxQ>::bytes <=
@@ -320,11 +327,11 @@ static_assert(CoopLayout<nl::kCoopMaxP, nl::kWideMaxQ>::bytes <=
                       kMaxBlockSmem,
               "kCoopMaxP: the largest P whose state one block holds");
 
-// One chunk [t0, t0 + nc): thread c < nc evaluates the model at sample t0
-// + c (rows mrow, chain): its Jacobian row into column c of jac (JAC),
-// r = y - g into res[c], or with a step d (STEP) k^2, k = r + J d. WMODE
-// 1: the folded weight sum_q phi_q w_tq into wts[c]; 2: the Q group
-// weights into wts[q][c]; 3: group q's weight into wts[c]; 0: none.
+// One chunk [t0, t0 + nc): lane c < nc evaluates the model at sample t0 +
+// c (rows mrow, chain): its Jacobian row into column c of jac (JAC), r = y
+// - g into res[c], or with a step d (STEP) k^2, k = r + J d. WMODE 1: the
+// folded weight sum_q phi_q w_tq into wts[c]; 2: the Q group weights into
+// wts[q][c]; 3: group q's weight into wts[c]; 0: none.
 template <class M, int Q, bool JAC, bool STEP, int WMODE>
 __device__ __forceinline__ void coop_chunk(const float* mrow,
                                            const float* chain, float dt,
@@ -335,7 +342,7 @@ __device__ __forceinline__ void coop_chunk(const float* mrow,
                                            const float* d, int q, float* jac,
                                            float* wts, float* res) {
   constexpr int P = M::P, JS = kCoopChunk + 1;
-  const int c = (int)threadIdx.x;
+  const int c = coop_lane();
   if (c < nc) {
     const int t = t0 + c;
     float row[P];
@@ -362,11 +369,11 @@ __device__ __forceinline__ void coop_chunk(const float* mrow,
       wts[c] = __ldg(qw + t * Q + q);
     }
   }
-  __syncthreads();
+  coop_sync();
 }
 
 // the folded form's traces at rows mrow, chain: a pass per group for
-// J'Q_qJ alone (into buf), then its trace by one thread
+// J'Q_qJ alone (into buf), then its trace across the lanes
 template <class M, int Q>
 __device__ __forceinline__ void coop_group_traces(
     const float* mrow, const float* chain, float dt,
@@ -383,8 +390,9 @@ __device__ __forceinline__ void coop_group_traces(
                                        res);
       coop_sums<P>(buf, nullptr, 1, jac, wts, res, nc);
     }
-    if (threadIdx.x == 0) tr[q] = trace_packed<P>(cov, buf);
-    __syncthreads();
+    const float t = coop_trace<P>(cov, buf);
+    if (coop_lane() == 0) tr[q] = t;
+    coop_sync();
   }
 }
 
@@ -411,8 +419,9 @@ fused_vb_iter_coop_kernel(const VBParamsFor<M::P, Q> k,
   using L = CoopLayout<P, Q>;
   constexpr bool FOLD = coop_folded<P, Q>;
   static_assert(M::NS == 0, "kernel 7 reads no suppdata");
+  FABBER_SEC_BEGIN();
   const long long V = k.V, v = blockIdx.x;
-  const int tid = (int)threadIdx.x, nt = k.nt;
+  const int tid = coop_lane(), nt = k.nt;
   float* const sh = dynamic_smem();
   float *sums = sh + L::sums, *jtr = sh + L::jtr, *jac = sh + L::jac,
         *wts = sh + L::wts, *res = sh + L::res, *prec = sh + L::prec,
@@ -432,7 +441,8 @@ fused_vb_iter_coop_kernel(const VBParamsFor<M::P, Q> k,
   }
   for (int q = tid; q < Q; q += kCoopThreads)
     phi[q] = phi_in[(size_t)q * V + v];
-  __syncthreads();
+  coop_sync();
+  FABBER_MARK(0);
 
   // ---- pass A: J'Q_qJ, J'Q_q r per group (folded: A, g) at the centre --
   coop_zero(sums, L::K * (NT + P));   // sums and jtr are adjacent
@@ -441,22 +451,27 @@ fused_vb_iter_coop_kernel(const VBParamsFor<M::P, Q> k,
     coop_chunk<M, Q, true, false, FOLD ? 1 : 2>(
         mrow, chain, k.dt, data, qw, V, v, t0, nc, phi, nullptr, 0, jac,
         wts, res);
+    FABBER_MARK(1);
     coop_sums<P>(sums, jtr, L::K, jac, wts, res, nc);
+    FABBER_MARK(2);
   }
 
   // ---- solve (Eq 19/20) --------------------------------------------------
-  for (int e = tid; e < NT; e += kCoopThreads) {
+  {
     int i, j;
-    untri(e, i, j);
-    float val;
-    if constexpr (FOLD) {
-      val = sums[e] + (i == j ? pp[i] : 0.f);
-    } else {
-      val = 0.f;
-      for (int q = 0; q < Q; ++q) val = val + phi[q] * sums[q * NT + e];
-      if (i == j) val = val + pp[i];
+    untri(tid, i, j);
+    for (int e = tid; e < NT; e += kCoopThreads) {
+      float val;
+      if constexpr (FOLD) {
+        val = sums[e] + (i == j ? pp[i] : 0.f);
+      } else {
+        val = 0.f;
+        for (int q = 0; q < Q; ++q) val = val + phi[q] * sums[q * NT + e];
+        if (i == j) val = val + pp[i];
+      }
+      prec[e] = val;
+      tri_step(i, j, kCoopThreads);
     }
-    prec[e] = val;
   }
   for (int a = tid; a < P; a += kCoopThreads) {
     float val;
@@ -476,23 +491,30 @@ fused_vb_iter_coop_kernel(const VBParamsFor<M::P, Q> k,
     }
     rhs[a] = val;
   }
-  __syncthreads();
+  coop_sync();
+  FABBER_MARK(3);
   coop_cholesky<P>(prec, ch);
+  FABBER_MARK(4);
   coop_inverse<P>(ch, inv, cov);
+  FABBER_MARK(5);
   for (int i = tid; i < P; i += kCoopThreads) {
     float m = 0.f;
     for (int j = 0; j < P; ++j) m = m + cov[tri(i, j)] * rhs[j];
     means[i] = m;
   }
-  __syncthreads();
+  coop_sync();
+  FABBER_MARK(6);
   if constexpr (LM) {
     const float alpha = alpha_in[v];
-    if (alpha > 0.f) {   // the voxel's: the same in every thread
+    if (alpha > 0.f) {   // the voxel's: the same in every lane
       float* damped = inv;   // free once cov is formed
-      for (int e = tid; e < NT; e += kCoopThreads) {
+      {
         int i, j;
-        untri(e, i, j);
-        damped[e] = prec[e] + (i == j ? alpha * prec[tri(i, i)] : 0.f);
+        untri(tid, i, j);
+        for (int e = tid; e < NT; e += kCoopThreads) {
+          damped[e] = prec[e] + (i == j ? alpha * prec[tri(i, i)] : 0.f);
+          tri_step(i, j, kCoopThreads);
+        }
       }
       for (int i = tid; i < P; i += kCoopThreads) {
         float s;
@@ -504,15 +526,14 @@ fused_vb_iter_coop_kernel(const VBParamsFor<M::P, Q> k,
         }
         x[i] = s + pp[i] * (pm[i] - centre[i]);
       }
-      __syncthreads();
+      coop_sync();
       coop_cholesky<P>(damped, ch);
-      if (tid == 0) {
-        chol_solve<P>(ch, x);
-        for (int i = 0; i < P; ++i) means[i] = centre[i] + x[i];
-      }
-      __syncthreads();
+      coop_chol_solve<P>(ch, x);
+      for (int i = tid; i < P; i += kCoopThreads) means[i] = centre[i] + x[i];
+      coop_sync();
     }
   }
+  FABBER_MARK(7);
 
   // ---- pass B: k = r + J (centre - means) at the centre -----------------
   for (int i = tid; i < P; i += kCoopThreads) d[i] = centre[i] - means[i];
@@ -523,17 +544,20 @@ fused_vb_iter_coop_kernel(const VBParamsFor<M::P, Q> k,
                                      nc, phi, d, 0, jac, wts, res);
     coop_kqk<Q>(nkqk, qw, res, t0, nc);
   }
+  FABBER_MARK(8);
   if constexpr (FOLD) {
     coop_group_traces<M, Q>(mrow, chain, k.dt, data, qw, nt, V, v, cov,
                             sums, jac, wts, res, ntr);
   } else {
     coop_traces<P, Q>(cov, sums, ntr);
   }
+  FABBER_MARK(9);
 
   for (int i = tid; i < P; i += kCoopThreads)
     means_out[(size_t)i * V + v] = means[i];
   coop_store_full<P>(prec, prec_out, V, v);
   coop_store_full<P>(cov, cov_out, V, v);
+  FABBER_MARK(10);
 
   // ---- pass C: free-energy quadratics at the new means ------------------
   if (k.need_f) {
@@ -557,7 +581,7 @@ fused_vb_iter_coop_kernel(const VBParamsFor<M::P, Q> k,
       }
       // k^2 in place of r for the group sums
       if (tid < nc) res[tid] = res[tid] * res[tid];
-      __syncthreads();
+      coop_sync();
       coop_kqk<Q>(fkqk, qw, res, t0, nc);
     }
     if constexpr (FOLD) {
@@ -568,14 +592,17 @@ fused_vb_iter_coop_kernel(const VBParamsFor<M::P, Q> k,
     }
   } else {
     for (int q = tid; q < Q; q += kCoopThreads) fkqk[q] = ftr[q] = 0.f;
-    __syncthreads();
+    coop_sync();
   }
+  FABBER_MARK(11);
   for (int q = tid; q < Q; q += kCoopThreads) {
     nkqk_out[(size_t)q * V + v] = nkqk[q];
     ntr_out[(size_t)q * V + v] = ntr[q];
     fkqk_out[(size_t)q * V + v] = fkqk[q];
     ftr_out[(size_t)q * V + v] = ftr[q];
   }
+  FABBER_MARK(10);
+  FABBER_SEC_END();
 }
 
 // ---- launch ---------------------------------------------------------------

@@ -89,7 +89,7 @@ constexpr int kWideMaxQ = 35;
 // CoopLayout; the JAX engine has no picker for it): the largest P whose
 // folded state at kWideMaxQ groups one block's shared memory holds. The
 // functors generated for kernel 7 share it.
-constexpr int kCoopMaxP = 143;
+constexpr int kCoopMaxP = 149;
 }  // namespace nl
 // samples per block of the two-level time sums: each pass sums kTB
 // samples into block sums and adds the blocks into its totals. One

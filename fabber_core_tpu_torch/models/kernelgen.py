@@ -1293,9 +1293,10 @@ class _FullGen(_Gen):
     sample, where its value comes from). A value that a time-mixing op
     reads is stored in a shared-memory plane by the loop that computes it
     (materialize; width P + 1 for an S value, 1 for an R value), and that
-    loop is closed (a barrier follows it) before any read; reductions are
-    lines outside the loops, each lane summing the plane in one fixed
-    order."""
+    loop is closed (the warp's barrier follows it) before any read;
+    reductions are lines outside the loops, each lane folding its slice
+    of the plane and a butterfly across the lanes closing it
+    (csrc/fulltime.cuh ft_close)."""
 
     def __init__(self, gm, nparams, nsupp, nt):
         super().__init__(gm, nparams, nsupp, nt)
@@ -1762,7 +1763,8 @@ class _FullGen(_Gen):
         for idx in np.ndindex(out.shape):
             off, ln, kind = self.plane_of(x.elems[idx], n)
             out[idx] = self.emit(kind, lambda: f"ft_{which}<{kind}>(sh + "
-                                 f"{off}, {ln})", vops=ln, tops=ln)
+                                 f"{off}, {ln}, lane, lanes)", vops=ln,
+                                 tops=ln)
         shape = list(x.shape)
         if keep:
             shape[x.tdim] = 1
@@ -1810,7 +1812,8 @@ class _FullGen(_Gen):
                                  f"{k * n} + ti, {val});")
                 seg.open = False
             out[idx] = self.emit(kind, lambda: f"ft_{which}<{kind}>(sh + "
-                                 f"{off}, {total})", vops=total, tops=total)
+                                 f"{off}, {total}, lane, lanes)", vops=total,
+                                 tops=total)
         shape = [1 if d in dims else m for d, m in enumerate(x.shape)
                  if keep or d not in dims]
         return _Sym(out.reshape(shape), None, shape)
@@ -1850,10 +1853,11 @@ class _FullGen(_Gen):
         non-time axis: unrolled (the per-sample walk's), or, where both
         operands have a time axis among their free ones, a value with two
         time axes (pair_mm). Over time: against a constant, the functor's
-        ft_dot (a sample a lane against the plane, the constant read by
-        columns from the constant buffer); else ft_vdot, both operands'
-        planes in one fixed order (a time-free operand's contracted axis
-        made a time axis first)."""
+        ft_dot_rows into a plane before the loop that reads it (dot_plane;
+        the constant read by columns from the constant buffer), or ft_dot1
+        for one output; else ft_vdot, both operands' planes reduced across
+        the lanes (a time-free operand's contracted axis made a time axis
+        first)."""
         (ni, nk), (nk2, nj) = x.shape, y.shape
         if nk != nk2:
             raise Rejected("contraction shapes")
@@ -1883,7 +1887,7 @@ class _FullGen(_Gen):
                 return self.vdot(x, self.timed(y, 0))
             return self.vdot(self.timed(x, 1), y)
         # rows of the new time axis: c's free axis; stored by columns
-        # (csrc/fulltime.cuh ft_dot)
+        # (csrc/fulltime.cuh ft_dot_rows)
         rows = cv.T if tx else cv           # [n_out, K]
         nout = rows.shape[0]
         off = self.register(rows.T)
@@ -1899,13 +1903,13 @@ class _FullGen(_Gen):
             if nout == 1:
                 # one output: a time-free value, the same in every lane
                 out[k] = self.emit(
-                    kind, lambda: f"ft_dot<{kind}>(cst + {off}, 1, sh + "
-                    f"{poff}, {ln}, 0)", vops=2 * nk, tops=2 * nk)
+                    kind, lambda: f"ft_dot1<{kind}>(cst + {off}, sh + "
+                    f"{poff}, {ln}, lane, lanes)", vops=2 * nk, tops=2 * nk)
             else:
+                doff = self.dot_plane(kind, off, nout, poff, ln)
                 out[k] = self.emit(
-                    kind, lambda i: f"ft_dot<{kind}>(cst + {off}, {nout}, "
-                    f"sh + {poff}, {ln}, {i})", "ti", vops=2 * nk,
-                    tops=2 * nk)
+                    kind, lambda i: self.plane_read(kind, doff, nout, i),
+                    "ti", vops=2 * nk, tops=2 * nk)
             if self.value_ops != counted:
                 self.zero_ops += zeros * (1 + self.p * (kind == "S"))
         if nout == 1:
@@ -1914,6 +1918,25 @@ class _FullGen(_Gen):
         if tx:   # [I, J], time on J
             return _Sym(out, 1, (ni, nout))
         return _Sym(out, 0, (nout, nj))
+
+    def dot_plane(self, kind, off, nout, poff, ln):
+        """The plane of nout samples that the constant matrix at cst + off
+        (by columns) times the plane at poff (ln samples) gives:
+        ft_dot_rows at function scope, before the open loop (the plane's
+        producer is closed: plane_of), then the warp's barrier; once per
+        pair of operands."""
+        key = ("rows", off, poff)
+        if key not in self.cse:
+            doff = self.sh_floats
+            self.sh_floats += (self.p + 1 if kind == "S" else 1) * nout
+            seg = self._open_seg()
+            at = len(self.items) - (seg is not None)
+            self.items[at:at] = [
+                f"    ft_dot_rows<{kind}>(cst + {off}, {nout}, sh + {poff}, "
+                f"{ln}, {nout}, sh + {doff}, lane, lanes);",
+                "    __syncwarp();"]
+            self.cse[key] = doff
+        return self.cse[key]
 
     def values(self, c):
         """The numbers a time-free operand's elements stand for (a
@@ -1947,7 +1970,7 @@ class _FullGen(_Gen):
                 both = ka == kb == "S"
                 out[i, j] = self.emit(
                     kind, lambda: f"ft_vdot<{kind}, {ka}, {kb}>(sh + {pa}, "
-                    f"sh + {pb}, {nk})", vops=2 * nk,
+                    f"sh + {pb}, {nk}, lane, lanes)", vops=2 * nk,
                     tops=(4 if both else 2) * nk)
         return _Sym(out, None, (ni, nj))
 
@@ -2235,8 +2258,8 @@ class _FullGen(_Gen):
                 out[idx] = res
                 continue
             off, n, _ = self.materialize(res)
-            m = self.emit("R", lambda: f"ft_{which}<R>(sh + {off}, {n})",
-                          vops=n)
+            m = self.emit("R", lambda: f"ft_{which}<R>(sh + {off}, {n}, "
+                          "lane, lanes)", vops=n)
             self.active_n = n_lane
             seg = self.segment(n_lane)
             tied = self.pair_fold(which, nodes, lane, n_red, seg, ties=m)
@@ -2244,8 +2267,8 @@ class _FullGen(_Gen):
                 out[idx] = m
                 continue
             off, n, _ = self.materialize(tied)
-            tot = self.emit("S", lambda: f"ft_sum<S>(sh + {off}, {n})",
-                            vops=n, tops=n)
+            tot = self.emit("S", lambda: f"ft_sum<S>(sh + {off}, {n}, "
+                            "lane, lanes)", vops=n, tops=n)
             out[idx] = self.emit("S", lambda t: f"ft_tie_result({m}, {t}, "
                                  f"g_val({t}))", tot, vops=1, tops=1)
         if both:
@@ -2435,7 +2458,7 @@ class _FullGen(_Gen):
             body.append("      (void)t;")
             body += ["  " + ln for ln in item.lines]
             body.append("    }")
-            body.append("    __syncthreads();")
+            body.append("    __syncwarp();")
         body = "\n".join(body)
         return f"""struct GenModel {{
   static constexpr int P = {self.p};
@@ -2451,7 +2474,7 @@ class _FullGen(_Gen):
   // ...: the signal and the model-space Jacobian into out [(P+1) x NT]
   // (value at out[t], tangent i at out[(1+i) NT + t]); sh holds SMEM
   // floats, cst the NCONST constants; every lane calls it (device code:
-  // its loops end in barriers)
+  // its loops end in the warp's barrier)
   template <class S, class R>
   __device__ static void run(const S* m, const R* supp,
                              const R* __restrict__ cst, R* sh,

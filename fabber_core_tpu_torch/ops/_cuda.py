@@ -314,7 +314,7 @@ extern "C" int fabber_gen_occupancy(int mode, int vb, int nt) {{
 _GEN_NL_LOOP_FULL = """
 // fabber_gen_nl_loop's arguments with the functor's constants cst (device,
 // null when it has none) and no vb: a warp serves a voxel, its state in
-// shared memory (FullLayout).
+// shared memory (FullLayout), W voxels a block (full_geometry).
 extern "C" int fabber_gen_nl_loop_full(
     const int* tcodes_host, int n_iters, int need_f, float locked_sd,
     const float* consts_host, int det_kind, float det_tol, int det_max_its,
@@ -337,8 +337,9 @@ extern "C" int fabber_gen_nl_loop_full(
                                     static_cast<cudaStream_t>(stream));
 }}
 
-// the blocks per SM of MODE (0, 1, 2), -1 where refused
-extern "C" int fabber_gen_full_occupancy(int mode) {{
+// the blocks per SM (voxels 0) or the voxels a block (voxels 1) of MODE
+// (0, 1, 2), -1 where refused
+extern "C" int fabber_gen_full_geometry(int mode, int voxels) {{
   VBParamsFor<{p}, {q}> k = {{}};
   NLDetConstsFor<{q}> dc = {{}};
   k.nt = GenModel::NT;
@@ -346,12 +347,13 @@ extern "C" int fabber_gen_full_occupancy(int mode) {{
   dc.d.kind = mode == 0 ? fabber::kMaxits
                         : (mode == 1 ? fabber::kPointZeroOne
                                      : fabber::kTrialMode);
-  int occ = 0;
+  int occ = 0, w = 0;
   return launch_full<GenModel, {q}>(k, dc, nullptr, nullptr, nullptr,
-                                    &occ) == 0 ? occ : -1;
+                                    &occ, &w) == 0 ? (voxels ? w : occ) : -1;
 }}
 
-// the dynamic shared memory of a block (FullLayout), as fulltime_smem
+// the dynamic shared memory of a voxel (FullLayout), as fulltime_smem; a
+// block holds fabber_gen_full_geometry(mode, 1) of them
 extern "C" long long fabber_gen_full_smem() {{
   return FullLayout<GenModel, {q}>::bytes;
 }}
@@ -516,24 +518,42 @@ def gen_limits(kernel="nl_loop"):
 
 
 # kernel 6's full-time form (fused_nl_loop.cuh FullLayout): a warp serves
-# a voxel, so its state and the functor's planes share one block's shared
-# memory, at most MAX_BLOCK_SMEM (csrc/tile.cuh kMaxBlockSmem)
-COOP_CHUNK = 32            # coop_device.cuh kCoopChunk
+# a voxel, so its state and the functor's planes share the warp's slice of
+# a block's shared memory, at most MAX_BLOCK_SMEM (csrc/tile.cuh
+# kMaxBlockSmem) for one voxel; a launch puts 1, 2 or 4 voxels in a block
+# (full_geometry, gen_full_voxels)
+TIME_BLOCK = 8             # vb_device.cuh kTB
 
 
 def fulltime_smem(p, q, nt, fn_floats):
-    """Bytes of a block of kernel 6's full-time form (fused_nl_loop.cuh
+    """Bytes of one voxel of kernel 6's full-time form (fused_nl_loop.cuh
     FullLayout, which the generated unit reports as fabber_gen_full_smem)
     at P, Q, the functor's nt samples and its fn_floats shared floats: the
-    per-group sums, the chunk's Jacobian rows, weights and residuals, five
-    packed matrices, nine P-vectors, four Q-vectors, the voxel's samples,
-    the model's (P + 1) x nt signal and Jacobian, and the functor's
-    planes."""
+    per-group sums and their kTB-block sums, five packed matrices, nine
+    P-vectors, four Q-vectors, the voxel's samples, the model's (P + 1) x
+    nt signal and Jacobian, and the functor's planes."""
     ntri = p * (p + 1) // 2
-    floats = (q * (ntri + p + 1) + p * (COOP_CHUNK + 1) + q * COOP_CHUNK
-              + COOP_CHUNK + 5 * ntri + 9 * p + 4 * q + nt + (p + 1) * nt
-              + fn_floats)
+    nb = -(-nt // TIME_BLOCK)
+    floats = (q * (ntri + p + 1) * (1 + nb) + 5 * ntri + 9 * p + 4 * q
+              + nt + (p + 1) * nt + fn_floats)
     return 4 * floats
+
+
+COOP_CHUNK = 32            # coop_device.cuh kCoopChunk
+COOP_FOLD_SUMS = 1024      # fused_vb_iter.cuh kCoopFoldSums
+
+
+def coop_smem(p, q):
+    """Bytes of a block (one voxel) of kernel 7's cooperative form
+    (fused_vb_iter.cuh CoopLayout) at P, Q: the pass sums (folded into
+    one group past COOP_FOLD_SUMS per-group sums), prec and cov, nine
+    P-vectors, five Q-vectors, then one region for the chunk's Jacobian
+    rows, weights and residuals or the solve's factor and L^-1."""
+    ntri = p * (p + 1) // 2
+    k = 1 if q * ntri > COOP_FOLD_SUMS else q
+    chunk = p * (COOP_CHUNK + 1) + (k + 1) * COOP_CHUNK
+    return 4 * (k * (ntri + p) + 2 * ntri + 9 * p + 5 * q
+                + max(chunk, 2 * ntri))
 
 
 # the largest P, and per-group sums Q P(P+1)/2, of a nonlinear unit built
@@ -635,8 +655,8 @@ def build_generated(source, p, q, kernel="nl_loop"):
             vp, i32, i32, f32, vp, i32, f32, i32, i32, i32, vp,
             vp, vp, vp, vp, vp, vp, vp, vp, i32, i64] + [vp] * 7 + [vp]
         lib.fabber_gen_nl_loop_full.restype = i32
-        lib.fabber_gen_full_occupancy.argtypes = [i32]
-        lib.fabber_gen_full_occupancy.restype = i32
+        lib.fabber_gen_full_geometry.argtypes = [i32, i32]
+        lib.fabber_gen_full_geometry.restype = i32
         lib.fabber_gen_full_smem.argtypes = []
         lib.fabber_gen_full_smem.restype = i64
     elif kernel == "nl_loop":
@@ -834,7 +854,7 @@ def build_instance(family, p, q=1, kind=None, kernel=None):
     kernel 9 at P 9-16, nq 1-2; "nl": the unit of one kernel of
     NL_ENTRIES, 6, 7 or 8, with the functor kind (NL_KINDS) at any (P, Q)
     up to (42, 35),
-    kernel 7 up to (143, 35), kernel 8 at P; instance_limits): writes one
+    kernel 7 up to (149, 35), kernel 8 at P; instance_limits): writes one
     small .cu per source of the family (of "nl" the unit's) into
     build/kernels/inst/ (instance_sources),
     compiles them with nvcc for sm_90a, one process each, all started
@@ -1290,7 +1310,14 @@ def gen_occupancy(lib, mode, vb, nt):
 
 def gen_full_occupancy(lib, mode):
     """Blocks per SM of a full-time functor's kernel in MODE (0, 1, 2)."""
-    return lib.fabber_gen_full_occupancy(mode)
+    return lib.fabber_gen_full_geometry(mode, 0)
+
+
+def gen_full_voxels(lib, mode):
+    """Voxels a block (warps, W) of a full-time functor's kernel in MODE
+    (0, 1, 2), as its launch takes them (fused_nl_loop.cuh
+    full_geometry)."""
+    return lib.fabber_gen_full_geometry(mode, 1)
 
 
 def gen_vb_iter_occupancy(lib, lm, vb, nt):

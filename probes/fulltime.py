@@ -8,7 +8,7 @@ kernels' SASS.
 Run from the repository root:
 
     python3 probes/fulltime.py [--phases 3l,3m,4ab,4ac,5l,5m] [--nv N]
-                               [--parent DIR]
+                               [--parent DIR] [--coop DIR]
 
 It builds the full-time functors chip_smoke.py builds (the three models
 of tests/torch_fulltime_models.py at T=100, Q 1 and 2; ops/_cuda.py
@@ -21,18 +21,24 @@ phases of the three models; 3m, 4ac, 5m: its checks, paths and timings of
 the generic-ops models, check_generic_ops_kernels, run_generic_ops_paths,
 time_generic_ops; phases 3l and 3m at --nv voxels, default chip_smoke's
 65,536). With --parent DIR (a directory holding an earlier csrc/'s files,
-`git show <rev>:fabber_core_tpu_torch/csrc/<file>`), it first compiles,
-with the current sources and with DIR's, kernel 6's and kernel 7's
-prebuilt sources (fused_nl_loop.cu, fused_vb_iter.cu), kernel 7's
-cooperative form as a per-shape unit (ExpSum<9>, P = 18, at Q = 1 per
-group and ExpSum<22>, P = 44, at Q = 2 folded), kernel 6 rolled (ExpSum<9>
-at Q = 1), kernel 6 with myexp's generated per-sample functor and its
-full-time form with the three full-time functors at Q = 1, and
+`git show <rev>:fabber_core_tpu_torch/csrc/<file>`, or a checkout's
+csrc/), it first compiles, with the current sources and with DIR's, the
+hand-written per-lane units: kernel 6's and kernel 7's prebuilt sources
+(fused_nl_loop.cu, fused_vb_iter.cu), their per-shape per-lane units
+(ExpSum<5>, P = 10, at Q = 1, unrolled; kernel 6 rolled at ExpSum<9>, P
+= 18) and kernel 6 with myexp's generated per-sample functor, and
 compares the SASS of every entry both builds hold (probes/variants.py
 sass_text), each side's files built from one directory in turn
-(build_side): none may move. Every figure is printed with the card's name
-and power limit; the last line is one JSON object of them (also written
-to chiprun_out/fulltime.json).
+(build_side): none may move. The cooperative units (kernel 7's
+cooperative form, kernel 6's full-time form) are left out: their code is
+the warp-level redesign's, not DIR's (probes/coop_sections.py times them
+against DIR's). With --coop DIR (a checkout of an earlier tree,
+build/parent), kernel 6's full-time form (row 6t) on the convolution,
+the centred biexponential, the shift and pairs-test is timed against
+DIR's in turns and profiled by section on both sides
+(probes/coop_sections.py compare). Every figure is printed with the
+card's name and power limit; the last line is one JSON object of them
+(also written to chiprun_out/fulltime.json).
 """
 
 import argparse
@@ -68,8 +74,10 @@ def unit_jobs(parent):
         return [f"-DFABBER_INST_P={p}", f"-DFABBER_INST_Q={q}",
                 "-DFABBER_INST_KIND=1"] + (
             ["-DFABBER_ROLL_LOOPS"] if _cuda.rolled_loops(p, q) else [])
-    for name, src, p, q in (("vb_iter coop P18 Q1", "fused_vb_iter.cu", 18, 1),
-                            ("vb_iter coop P44 Q2", "fused_vb_iter.cu", 44, 2),
+    for name, src, p, q in (("vb_iter per-lane P10 Q1", "fused_vb_iter.cu",
+                             10, 1),
+                            ("nl_loop per-lane P10 Q1", "fused_nl_loop.cu",
+                             10, 1),
                             ("nl_loop rolled P18 Q1", "fused_nl_loop.cu", 18,
                              1)):
         jobs[name] = (src, inst(p, q))
@@ -89,12 +97,6 @@ def unit_jobs(parent):
     tle = derive_time_signal_functor(model, 4)
     unit("nl_loop generated myexp", "gen_myexp.cu",
          _cuda.generated_source(tle.source, 4, 1, "nl_loop"))
-    # kernel 6's full-time form with the existing full-time functors
-    for name, tle, p, q, kernel in cs.fulltime_functors():
-        if q == 1:
-            unit(f"nl_loop_full generated {name}",
-                 f"gen_full_{name.split()[0]}.cu",
-                 _cuda.generated_source(tle.source, p, q, kernel))
     return jobs
 
 
@@ -171,6 +173,7 @@ def main():
     ap.add_argument("--phases", default="3l,4ab,5l")
     ap.add_argument("--nv", type=int, default=65_536)
     ap.add_argument("--parent", default=None)
+    ap.add_argument("--coop", default=None)
     a = ap.parse_args()
     import torch
     from fabber_core_tpu_torch.ops import _cuda
@@ -201,11 +204,13 @@ def main():
         lib = _cuda.build_generated(tle.source, p, q, kernel)
         block = ""
         if kernel == "nl_loop_full":
-            occ = [lib.fabber_gen_full_occupancy(m) for m in (0, 1, 2)]
+            occ = [_cuda.gen_full_occupancy(lib, m) for m in (0, 1, 2)]
+            vox = [_cuda.gen_full_voxels(lib, m) for m in (0, 1, 2)]
             nt = cs.go_nt(name.split()[0])
-            block = (f", block {lib.fabber_gen_full_smem()} B (fulltime_smem"
-                     f" {_cuda.fulltime_smem(p, q, nt, tle.smem_floats)}"
-                     f"), blocks/SM {occ}")
+            block = (f", {lib.fabber_gen_full_smem()} B a voxel "
+                     f"(fulltime_smem "
+                     f"{_cuda.fulltime_smem(p, q, nt, tle.smem_floats)}), "
+                     f"voxels a block {vox}, blocks/SM {occ}")
         cs.log(f"  {name} ({kernel}): nvcc {secs:.1f} s{block}, value + "
                f"tangent ops {tle.value_ops} + {tle.tangent_ops} "
                f"({tle.needed_ops} needed)")
@@ -241,6 +246,11 @@ def main():
         t = time.perf_counter()
         fig["5m"] = cs.time_generic_ops("cuda", card)
         fig["5m_s"] = time.perf_counter() - t
+    if a.coop:
+        import coop_sections
+        fig["coop"] = coop_sections.compare(card, a.coop, ("6t",),
+                                            ("parent", "current"))
+        ok &= fig["coop"]["ok"]
     fig["ok"] = ok
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

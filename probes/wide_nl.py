@@ -7,6 +7,7 @@ Run from the repository root:
     python3 probes/wide_nl.py [--phases 3k,4aa,5k] [--rolled]
                               [--rolled-times] [--bisect] [--repair]
                               [--fmad] [--witness] [--lanes] [--spread]
+                              [--coop DIR]
 
 Builds the kernel library, chip_smoke.py's NL_INSTANCE_SHAPES (ops/_cuda.py
 build_instance "nl") and the functors generated from myexp's time_signal at
@@ -37,6 +38,11 @@ float64, failed (FIRST_LAYOUT): the same unit optimized, with -G, with
 their detector tests (lanes), and how far moving the data by one ulp
 moves the plain float32 version's reading, with the failing lanes'
 conditions (spread).
+
+With --coop DIR (a checkout of an earlier tree, build/parent), kernel 7's
+cooperative form (row 7c) at P = 44, 40 and 24 (Q = 4, folded) is timed
+against DIR's in turns and profiled by section on both sides
+(probes/coop_sections.py compare).
 
 Every figure is printed with the card's name and power limit; the last
 line is one JSON object of them (also written to
@@ -1080,6 +1086,7 @@ def main():
     ap.add_argument("--witness", action="store_true")
     ap.add_argument("--lanes", action="store_true")
     ap.add_argument("--spread", action="store_true")
+    ap.add_argument("--coop", default=None)
     args = ap.parse_args()
     card = cs.card_line()
     cs.log(card)
@@ -1156,6 +1163,11 @@ def main():
         except Exception:
             ok = False
             cs.log(f"FAILED bisect:\n{traceback.format_exc()}")
+    if args.coop:
+        import coop_sections
+        out["coop"] = coop_sections.compare(
+            card, args.coop, ("7c",), ("parent", "current"))
+        ok &= out["coop"]["ok"]
     out["ok"] = ok
     text = json.dumps(out, default=str)
     Path("chiprun_out").mkdir(exist_ok=True)

@@ -337,7 +337,7 @@ def test_engine_on_card_refuses_runs_without_an_instance(cuda):
     built at the route's first launch, not at construction), kernel 7
     past P = 16 in its cooperative form (exp num-exps 22, P = 44, where
     the JAX picker admits no kernel 6), so only kernel 7 past its
-    shared-memory bound raises (exp num-exps 72, P = 144); exp at
+    shared-memory bound raises (exp num-exps 75, P = 150); exp at
     num-exps 3 runs its hand-written ExpSum<3>, and poly degree 4 with a
     log transform (P = 5, no hand-written PolyModel<5>) a per-shape
     PolyModel<5> instance."""
@@ -354,9 +354,9 @@ def test_engine_on_card_refuses_runs_without_an_instance(cuda):
     eng = VBInference(get_model_class("exp")(opts), opts, data, device=cuda)
     assert eng.route == "pallas" and eng.functor is None
     opts = RunOptions({"model": "exp", "dt": "0.1", "noise": "white",
-                       "dtype": "single", "num-exps": "72"})
+                       "dtype": "single", "num-exps": "75"})
     with pytest.raises(NotImplementedError,
-                       match="shared memory.*bounds P at 143.*kCoopMaxP"):
+                       match="shared memory.*bounds P at 149.*kCoopMaxP"):
         VBInference(get_model_class("exp")(opts), opts, data, device=cuda)
     for model, extra, generated in (
             ("exp", {"num-exps": "3"}, False),

@@ -442,17 +442,23 @@ def gxx():
         pytest.skip("g++ is not installed")
 
 
-def run_host(c, kind, tmp_path, its=10):
+def run_host(c, kind, tmp_path, its=10, voxels=1, nv=NV):
+    """The host kernel at `voxels` voxels a block on the case's first nv
+    voxels."""
     _, tdet = detector_dicts(c, kind)
-    fn = torch_hostcc.full_kernel_fn(c["tle"], c["nq"], tmp_path)
+    fn = torch_hostcc.full_kernel_fn(c["tle"], c["nq"], tmp_path, voxels)
     if tdet is None:
         det, dcs = (0, 0.0, 0, 0, 0), np.zeros(c["nq"] + 2)
     else:
         det = _cuda.detector_args(tdet["det"])
         dcs = np.array(list(tdet["lb_coeff"])
                        + [tdet["f_const"], tdet["f_const_init"]])
+
+    def cut(x):
+        return None if x is None else np.ascontiguousarray(x[..., :nv])
     out = fn([1] * c["p"], its, True, consts(c).numpy(), det, dcs,
-             c["centre"], c["pm"], c["pp"], c["pd0"], c["data"], c["supp"],
+             *(cut(c[k]) for k in ("centre", "pm", "pp", "pd0", "data",
+                                   "supp")),
              np.ascontiguousarray(c["q"].T))
     return out, fn
 
@@ -462,22 +468,40 @@ HOST_CASES = [("conv", "maxits"), ("conv", "pointzeroone"),
               ("shift", "lm"), ("centred", "maxits"), ("centred", "lm")]
 
 
-@pytest.mark.parametrize("name,kind", HOST_CASES,
-                         ids=["-".join(c) for c in HOST_CASES])
-def test_full_kernel_on_host_matches_plain(name, kind, tmp_path, gxx):
-    """The full-time kernel (a block's 32 threads as host threads) at
-    double against the plain version at float64, to 1e-9: its sums run in
-    another order (a chunk's blocks of kTB samples, a fixed-order time
-    sum) and its square roots are the host's (ROADMAP Queue 3 item 22:
-    torch's CPU sqrt need not round correctly), well inside the bound. The
-    centred biexponential runs 3 iterations (it is chaotic further out,
-    Queue 3 item 7)."""
+# the cases also run with two voxels a block (a warp each) on NV - 1
+# voxels, so the last block's second warp has no voxel
+TWO_VOXEL_CASES = [("conv", "maxits"), ("suppconv", "trialmode"),
+                   ("centred", "lm")]
+
+
+@pytest.mark.parametrize("name,kind,voxels", [
+    pytest.param(n, k, 1, id=f"{n}-{k}") for n, k in HOST_CASES] + [
+    pytest.param(n, k, 2, id=f"{n}-{k}-w2") for n, k in TWO_VOXEL_CASES])
+def test_full_kernel_on_host_matches_plain(name, kind, voxels, tmp_path,
+                                           gxx):
+    """The full-time kernel (each lane of a block's warps a host thread,
+    a warp meeting at the shim's __syncwarp and shuffles) at double
+    against the plain version at float64, to 1e-9: its sums run in another
+    order (kTB-sample blocks added in order, reductions closed across the
+    lanes) and its square roots are the host's
+    (ROADMAP Queue 3 item 22: torch's CPU sqrt need not round correctly),
+    well inside the bound. The centred biexponential runs 3 iterations (it
+    is chaotic further out, Queue 3 item 7). With two voxels a block (on
+    NV - 1 voxels: the last block's second warp leaves at once) the
+    outputs equal one voxel a block's bit for bit."""
     c = kernel_case(name, seed=3)
     its = 3 if name == "centred" else 10
-    got, fn = run_host(c, kind, tmp_path, its)
+    nv = NV - (voxels > 1)
+    got, fn = run_host(c, kind, tmp_path, its, voxels, nv)
     assert fn.smem == _cuda.fulltime_smem(c["p"], c["nq"], NT,
                                           c["tle"].smem_floats)
-    assert_outputs(got, run_plain(c, kind, its))
+    ref = run_plain(c, kind, its)
+    if voxels > 1:
+        one, _ = run_host(c, kind, tmp_path, its)
+        for g, o in zip(got, one):
+            assert np.array_equal(g, o[..., :nv])
+        ref = [np.asarray(r)[..., :nv] for r in ref]
+    assert_outputs(got, ref)
 
 
 class FullKitchen(fm.Shifted):
@@ -608,13 +632,68 @@ def test_card_block_past_shared_memory_raises(monkeypatch):
     assert built == []
 
 
+WARP_SHIM = """
+extern "C" void warp(const double* pl, int n, double* out) {
+  using D = fabber::gen::Dual<2, double>;
+  FabberHostWarp warp;
+  double ring[32];
+  std::vector<std::thread> ts;
+  for (int l = 0; l < 32; ++l)
+    ts.emplace_back([=, &warp, &ring] {
+      threadIdx.x = (unsigned)l;
+      fabber_host_warp = &warp;
+      ring[l] = 3.0 * l;
+      __syncwarp();
+      double* o = out + 6 * l;
+      o[0] = ring[(l + 1) % 32];
+      o[1] = fabber::gen::ft_sum<double>(pl, n, l, 32);
+      const D m = fabber::gen::ft_amax<D>(pl, n, l, 32);
+      o[2] = m.v;
+      o[3] = m.d[0];
+      o[4] = m.d[1];
+      o[5] = fabber::gen::ft_amin<double>(pl, n, l, 32);
+    });
+  for (auto& th : ts) th.join();
+}
+"""
+
+
+@pytest.mark.parametrize("n", [100, 20])
+def test_warp_shim_closes_reductions(n, tmp_path, gxx):
+    """The host shim's warp (tests/torch_hostcc.py: 32 host threads,
+    __syncwarp, __shfl_xor_sync) under csrc/fulltime.cuh's reductions: a
+    write before __syncwarp is read by the next lane after it; ft_sum of
+    a plane, ft_amax of a dual plane (jax's rule: the mean of the tied
+    samples' tangents, three ties) and ft_amin, every lane the same value,
+    against numpy; n = 20 leaves lanes without a sample."""
+    src = ('#include "cuda_runtime.h"\n#include <thread>\n#include <vector>\n'
+           '#include "dual.cuh"\n#include "fulltime.cuh"\n' + WARP_SHIM)
+    lib = torch_hostcc.build_source(tmp_path, f"warp_shim_{n}", src)
+    rng = np.random.default_rng(n)
+    pl = rng.normal(size=(3, n))
+    top = pl[0].max() + 1.0
+    ties = [1, n // 2, n - 1]
+    pl[0, ties] = top
+    out = np.zeros((32, 6))
+    lib.warp(torch_hostcc._ptr(np.ascontiguousarray(pl)), n,
+             torch_hostcc._ptr(out))
+    assert np.array_equal(out[:, 0], 3.0 * ((np.arange(32) + 1) % 32))
+    for col in range(1, 6):
+        assert np.all(out[:, col] == out[0, col])
+    np.testing.assert_allclose(out[0, 1], pl[0].sum(), rtol=1e-13)
+    assert out[0, 2] == top
+    np.testing.assert_allclose(out[0, 3:5], pl[1:, ties].mean(1), rtol=1e-13)
+    assert out[0, 5] == pl[0].min()
+
+
 def test_fulltime_smem_counts_the_layout():
-    """fulltime_smem's floats: the state, the chunk, the samples, the
-    model's (P+1) x T planes and the functor's own."""
+    """fulltime_smem's floats, a voxel's: the state (a group's 15 sums
+    and their 13 blocks of kTB samples), the samples, the model's (P+1) x
+    T planes and the functor's own."""
     tle = derive_time_local_eval(fm.CentredBiexp(), 100, 4)
     assert tle.smem_floats == 5 * 100      # one S plane: s, for its mean
     b = _cuda.fulltime_smem(4, 1, 100, tle.smem_floats)
-    assert b == 4 * (15 + 4 * 33 + 32 + 32 + 50 + 36 + 4 + 100 + 500 + 500)
+    assert b == 4 * (15 * (1 + 13) + 50 + 36 + 4 + 100 + 500 + 500)
     assert b <= _cuda.MAX_BLOCK_SMEM
 
 

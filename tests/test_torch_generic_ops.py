@@ -354,11 +354,23 @@ HOST_CASES = ["dot-time-time", "dot-time-const", "matmul-time-const",
               "sum-both"]
 
 
-@pytest.mark.parametrize("name", HOST_CASES)
-def test_functor_on_host_matches_full_eval(name, tmp_path, gxx):
-    """The generated functor (a full-time one run by one host thread, a
-    per-sample one sample by sample) at double against full_eval at
-    float64, to 1e-9: signal and model-space Jacobian."""
+# one case of each reduction across a warp's lanes (csrc/fulltime.cuh
+# ft_sum, ft_prod, ft_amax / ft_amin over time and over a stacked axis,
+# ft_vdot, ft_dot_rows, a pair's fold and its extremum over both axes)
+WARP_CASES = ["sum-time", "prod-time", "min-time", "max-both", "dot-time-time",
+              "dot-time-const", "matmul-time-const", "pairs-mean",
+              "pairs-max-both"]
+
+
+@pytest.mark.parametrize("name,lanes", [
+    pytest.param(n, 1, id=n) for n in HOST_CASES] + [
+    pytest.param(n, 32, id=f"{n}-warp") for n in WARP_CASES])
+def test_functor_on_host_matches_full_eval(name, lanes, tmp_path, gxx):
+    """The generated functor (a full-time one run by one host thread, or
+    by a warp of 32 host threads whose reductions fold each lane's slice
+    and close across the lanes by the shim's shuffles; a per-sample one
+    sample by sample) at double against full_eval at float64, to 1e-9:
+    signal and model-space Jacobian."""
     _, tf, _ = CASES[name]
     tm = twin(name)[1]
     tle = derive_time_local_eval(tm, NT, 2)
@@ -366,8 +378,9 @@ def test_functor_on_host_matches_full_eval(name, tmp_path, gxx):
     ev = fv.full_eval(lambda p: tf(p, NT), [get_transform("I")] * 2)
     sig, jac = ev(torch.as_tensor(at)[:, None])
     sig, jac = sig[:, 0].numpy(), jac[:, :, 0].numpy()
+    assert tle.full_time or lanes == 1
     if tle.full_time:
-        hs, hj = torch_hostcc.full_functor_fn(tle, tmp_path)(at)
+        hs, hj = torch_hostcc.full_functor_fn(tle, tmp_path, lanes)(at)
     else:
         fn = torch_hostcc.functor_fn(tle, tmp_path)
         got = [fn(at, None, t) for t in range(NT)]

@@ -415,11 +415,11 @@ def test_card_instance_raises_without_one(route):
 def test_generated_functor_limits_come_from_the_header():
     """generatable asks csrc/vb_device.cuh's kWideMaxP (kernel 7: its
     cooperative form's kCoopMaxP) and kWideMaxQ, read from the header the
-    kernels compile with (P <= 42, 143 for kernel 7, Q <= 35: past kMaxP,
+    kernels compile with (P <= 42, 149 for kernel 7, Q <= 35: past kMaxP,
     kMaxQ a generated functor takes the per-shape body)."""
     assert _cuda.gen_limits() == (42, 35)
     assert _cuda.gen_limits("nlls") == (42, 35)
-    assert _cuda.gen_limits("vb_iter") == (143, 35)
+    assert _cuda.gen_limits("vb_iter") == (149, 35)
     functor = object()
     for kernel in ("nl_loop", "vb_iter"):
         assert vb_module.generatable(functor, 8, 4, kernel)
@@ -430,8 +430,8 @@ def test_generated_functor_limits_come_from_the_header():
     assert vb_module.generatable(functor, 42, None, "nlls")
     assert not vb_module.generatable(functor, 43, 1, "nl_loop")
     assert not vb_module.generatable(functor, 43, None, "nlls")
-    assert vb_module.generatable(functor, 143, 35, "vb_iter")
-    assert not vb_module.generatable(functor, 144, 1, "vb_iter")
+    assert vb_module.generatable(functor, 149, 35, "vb_iter")
+    assert not vb_module.generatable(functor, 150, 1, "vb_iter")
 
 
 def test_card_instance_takes_the_functor_of_its_own_route():

@@ -567,7 +567,8 @@ def test_iteration_kernel_wide_form_on_host(name, pattern, functor, lm,
     host threads): folded at (8, 35) and (24, 4) (past kCoopFoldSums
     per-group sums: the groups folded into one weighted sum for the
     solve, a pass per group for each trace), per group at (44, 1). Within
-    1e-9 of the plain version at float64, which sums per group."""
+    1e-9 of the plain version at float64, which sums per group. The
+    block's bytes are ops/_cuda.py coop_smem's."""
     c = case(name, pattern, seed=12)
     alpha = None
     if lm:
@@ -575,6 +576,7 @@ def test_iteration_kernel_wide_form_on_host(name, pattern, functor, lm,
         alpha[::4] = 0.0
     tcodes = [fv.TRANSFORM_CODES[tr.code] for tr in c["tr"]]
     k = host("iter", functor, c["nq"])
+    assert k.coop_smem == _cuda.coop_smem(len(tcodes), c["nq"])
     args = (tcodes, DT, True, c["centre"], c["pm"], c["pp"], c["phi"],
             c["data"], c["q"].T, alpha)
     staged, streamed = k(True, *args), k(False, *args)
@@ -587,6 +589,148 @@ def test_iteration_kernel_wide_form_on_host(name, pattern, functor, lm,
         c["q"], True, None if alpha is None else torch.from_numpy(alpha))
     for i, (g, r) in enumerate(zip(staged, ref)):
         assert rel_err(g, r.numpy()) <= 1e-9, i
+
+
+# the per-entry loop the tiled coop_sums replaced (a thread a packed
+# entry), kept to hold the tiled one to it
+PER_ENTRY_SUMS = """
+template <int P>
+void per_entry_sums(double* sums, double* rvec, int ns, const double* jac,
+                    const double* wts, const double* res, int nc) {
+  constexpr int NT = P * (P + 1) / 2, JS = kCoopChunk + 1;
+  for (int e = 0; e < ns * NT; ++e) {
+    const int s = e / NT;
+    int i, j;
+    untri(e - s * NT, i, j);
+    const double* w = wts + s * kCoopChunk;
+    double tot = sums[e];
+    for (int b0 = 0; b0 < nc; b0 += kTB) {
+      const int b1 = min(b0 + kTB, nc);
+      double bs = 0.0;
+      for (int c = b0; c < b1; ++c) {
+        const double wj = w[c] * jac[i * JS + c];
+        bs = bs + wj * jac[j * JS + c];
+      }
+      tot = tot + bs;
+    }
+    sums[e] = tot;
+  }
+  if (rvec == nullptr) return;
+  for (int e = 0; e < ns * P; ++e) {
+    const int s = e / P, i = e - s * P;
+    const double* w = wts + s * kCoopChunk;
+    double tot = rvec[e];
+    for (int b0 = 0; b0 < nc; b0 += kTB) {
+      const int b1 = min(b0 + kTB, nc);
+      double bs = 0.0;
+      for (int c = b0; c < b1; ++c) {
+        const double wj = w[c] * jac[i * JS + c];
+        bs = bs + wj * res[c];
+      }
+      tot = tot + bs;
+    }
+    rvec[e] = tot;
+  }
+}
+"""
+
+
+@pytest.mark.parametrize("p,ns,with_r,nc", [(44, 1, True, 32),
+                                            (9, 3, False, 20),
+                                            (5, 2, True, 13)])
+def test_tiled_sums_match_the_per_entry_loop(p, ns, with_r, nc, tmp_path):
+    """csrc/coop_device.cuh coop_sums (a lane a 4 x 4 tile of the packed
+    sums, a warp of 32 host threads) at double equals, bit for bit, the
+    per-entry loop it replaced, on sums that hold earlier chunks' totals:
+    each entry's kTB-sample blocks in the same order, rows past P and the
+    ragged last chunk included."""
+    if not torch_hostcc.have_gxx():
+        pytest.skip("g++ is not installed")
+    src = ('#include "cuda_runtime.h"\n#include <thread>\n#include <vector>\n'
+           '#include "coop_device.cuh"\nnamespace {\n' + PER_ENTRY_SUMS
+           + "}  // namespace\n"
+           f'extern "C" void sums(int tiled, double* sums, double* rvec, '
+           "const double* jac, const double* wts, const double* res) {\n"
+           f"  if (!tiled) {{ per_entry_sums<{p}>(sums, rvec, {ns}, jac, wts,"
+           f" res, {nc}); return; }}\n"
+           "  FabberHostWarp warp;\n  std::vector<std::thread> ts;\n"
+           "  for (int l = 0; l < 32; ++l)\n"
+           "    ts.emplace_back([=, &warp] {\n"
+           "      threadIdx.x = (unsigned)l;\n      fabber_host_warp = &warp;\n"
+           f"      coop_sums<{p}>(sums, rvec, {ns}, jac, wts, res, {nc});\n"
+           "    });\n  for (auto& th : ts) th.join();\n}\n")
+    lib = torch_hostcc.build_source(tmp_path, f"sums_{p}_{ns}", src)
+    rng = np.random.default_rng(p + ns)
+    ntri = p * (p + 1) // 2
+    jac = rng.normal(size=(p, 33))
+    wts = rng.uniform(0.5, 2.0, (ns, 32))
+    res = rng.normal(size=32)
+    start = (rng.normal(size=ns * ntri), rng.normal(size=ns * p))
+    out = []
+    for tiled in (1, 0):
+        s, r = (np.array(x) for x in start)
+        ptr = torch_hostcc._ptr
+        lib.sums(tiled, ptr(s), ptr(r) if with_r else None, ptr(jac),
+                 ptr(wts), ptr(res))
+        out.append((s, r))
+    assert np.array_equal(out[0][0], out[1][0])
+    assert np.array_equal(out[0][1], out[1][1])
+    if not with_r:
+        assert np.array_equal(out[0][1], start[1])
+
+
+FACTOR_SHIM = """
+extern "C" void factor(int coop, const double* a, double* ch, double* cov) {
+  if (!coop) {
+    cholesky_jittered<%(p)d>(a, ch);
+    inverse_from_chol<%(p)d>(ch, cov);
+    return;
+  }
+  static double inv[%(p)d * (%(p)d + 1) / 2];
+  FabberHostWarp warp;
+  std::vector<std::thread> ts;
+  for (int l = 0; l < 32; ++l)
+    ts.emplace_back([=, &warp] {
+      threadIdx.x = (unsigned)l;
+      fabber_host_warp = &warp;
+      coop_cholesky_jittered<%(p)d>(a, ch);
+      coop_inverse<%(p)d>(ch, inv, cov);
+    });
+  for (auto& th : ts) th.join();
+}
+"""
+
+
+@pytest.mark.parametrize("p", [44, 33, 24, 5])
+def test_coop_factor_matches_the_per_lane_factor(p, tmp_path):
+    """csrc/coop_device.cuh coop_cholesky_jittered and coop_inverse (a
+    lane its rows of the packed triangle, right-looking, the lanes in
+    step; a warp of 32 host threads) at double equal, bit for bit, vb_device.cuh
+    cholesky_jittered and inverse_from_chol (one thread): the factor, and
+    the covariance, on a precision of exponentials' Jacobians (condition
+    ~1e9); P = 33 and 44 give lanes two rows, P = 5 leaves lanes with
+    none."""
+    if not torch_hostcc.have_gxx():
+        pytest.skip("g++ is not installed")
+    src = ('#include "cuda_runtime.h"\n#include <thread>\n#include <vector>\n'
+           '#include "coop_device.cuh"\nnamespace {\n'
+           + FACTOR_SHIM % {"p": p} + "}  // namespace\n")
+    lib = torch_hostcc.build_source(tmp_path, f"factor_{p}", src)
+    rng = np.random.default_rng(p)
+    t = np.linspace(0.0, 3.0, 4 * p)
+    jac = np.exp(-np.outer(rng.uniform(0.2, 4.0, p), t))
+    a = jac @ jac.T + np.diag(rng.uniform(1e-6, 1e-3, p))
+    packed = a[np.tril_indices(p)]
+    ntri = p * (p + 1) // 2
+    out = []
+    for coop in (1, 0):
+        ch, cov = np.zeros(ntri), np.zeros(ntri)
+        lib.factor(coop, torch_hostcc._ptr(packed), torch_hostcc._ptr(ch),
+                   torch_hostcc._ptr(cov))
+        out.append((ch, cov))
+    assert np.all(np.isfinite(out[1][1]))
+    assert np.array_equal(out[0][0], out[1][0])
+    assert np.array_equal(out[0][1], out[1][1])
 
 
 def test_nlls_kernel_on_host_p10(host):
@@ -623,7 +767,7 @@ def test_nl_limits_and_units():
     define the shape and the functor kind, and FABBER_ROLL_LOOPS past
     ROLL_P (16) or ROLL_SUMS (600) per-group sums."""
     assert _cuda.instance_limits("nl") == (42, 35)
-    assert _cuda.instance_limits("nl", "vb_iter") == (143, 35)
+    assert _cuda.instance_limits("nl", "vb_iter") == (149, 35)
     assert _cuda.gen_limits() == (42, 35)
     for kernel in _cuda.NL_ENTRIES:
         assert _cuda.instance_buildable("nl", 10, 1, 1, kernel)
@@ -634,8 +778,8 @@ def test_nl_limits_and_units():
         assert not _cuda.instance_buildable("nl", 4, 1, None, kernel)
         assert _cuda.instance_buildable("nl", 44, 1, 1, kernel) == (
             kernel == "vb_iter")
-    assert _cuda.instance_buildable("nl", 142, 35, 1, "vb_iter")
-    assert not _cuda.instance_buildable("nl", 144, 1, 1, "vb_iter")
+    assert _cuda.instance_buildable("nl", 148, 35, 1, "vb_iter")
+    assert not _cuda.instance_buildable("nl", 150, 1, 1, "vb_iter")
     assert [_cuda.rolled_loops(p, q) for p, q in (
         (10, 1), (16, 1), (17, 1), (8, 35), (4, 35), (24, 4))] == \
         [False, False, True, True, False, True]
@@ -677,15 +821,15 @@ def on_card(eng):
     (19, 1, "pallas-loop-nl", False), (13, 8, "pallas", False),
     (21, 1, "pallas", False), (21, 35, "pallas", False),
     (22, 1, "pallas", False), (71, 35, "pallas", False),
-    (72, 1, "pallas", True)])
+    (74, 35, "pallas", False), (75, 1, "pallas", True)])
 def test_card_gate_raises_past_kernel_7s_cap_alone(num, nq, route, raises,
                                                    monkeypatch):
     """With the device stood in for "cuda" and the prebuilt list as the
     library has it: every shape the gates give kernels 6 and 7 up to
     their bounds is served by a per-shape instance (built at the route's
     first launch: nothing is built at construction), kernel 7 past P = 16
-    in its cooperative form up to csrc/vb_device.cuh kCoopMaxP (143: exp
-    num-exps 71, P = 142, runs at Q = 35); exp num-exps 72 (P = 144) on
+    in its cooperative form up to csrc/vb_device.cuh kCoopMaxP (149: exp
+    num-exps 74, P = 148, runs at Q = 35); exp num-exps 75 (P = 150) on
     kernel 7 raises, naming the shared-memory bound."""
     monkeypatch.setattr(jvb_module.jax, "default_backend", lambda: "tpu")
     monkeypatch.setattr(_cuda, "has_nl_instance",
@@ -700,8 +844,8 @@ def test_card_gate_raises_past_kernel_7s_cap_alone(num, nq, route, raises,
     assert eng.route == route
     if raises:
         with pytest.raises(NotImplementedError,
-                           match=r"\(P=144, Q=1\) instance of kernel 7.*"
-                                 r"shared memory.*bounds P at 143.*"
+                           match=r"\(P=150, Q=1\) instance of kernel 7.*"
+                                 r"shared memory.*bounds P at 149.*"
                                  r"kCoopMaxP"):
             on_card(eng)
     else:

@@ -30,10 +30,16 @@ CSRC = Path(__file__).resolve().parents[1] / "fabber_core_tpu_torch" / "csrc"
 PROBES_CSRC = Path(__file__).resolve().parents[1] / "probes" / "csrc"
 
 SHIM = """#pragma once
+#include <limits.h>
+#include <linux/futex.h>
 #include <math.h>
+#include <sys/syscall.h>
+#include <unistd.h>
 #include <algorithm>
-#include <condition_variable>
+#include <atomic>
+#include <cstring>
 #include <mutex>
+#include <thread>
 using std::max;
 using std::min;
 #define __host__
@@ -44,20 +50,34 @@ using std::min;
 #define __launch_bounds__(...)
 template <class T> inline T __ldg(const T* p) { return *p; }
 // a block's barrier where its lanes run as threads (stats_kernel_fn's
-// staged form); elsewhere a block is one thread and there is none
+// staged form, the cooperative kernels' warps); elsewhere a block is one
+// thread and there is none. The last thread to arrive opens the next
+// generation and wakes the others; they yield a few times, then sleep on
+// the generation (a futex), so a test process's warps do not spin against
+// other processes' on a loaded host (a warp crosses its barrier at every
+// __syncwarp and at every shuffle of a butterfly).
+inline void fabber_futex(std::atomic<unsigned>* a, int op, unsigned v) {
+  syscall(SYS_futex, reinterpret_cast<unsigned*>(a), op, v, nullptr,
+          nullptr, 0);
+}
 struct FabberHostBarrier {
-  std::mutex m;
-  std::condition_variable cv;
-  unsigned n = 1, arrived = 0, gen = 0;
+  std::atomic<unsigned> arrived{0}, gen{0}, sleepers{0};
+  unsigned n = 1;
   void wait() {
-    std::unique_lock<std::mutex> lk(m);
-    const unsigned g = gen;
-    if (++arrived == n) {
-      arrived = 0;
-      ++gen;
-      cv.notify_all();
+    const unsigned g = gen.load();
+    if (arrived.fetch_add(1) + 1 == n) {
+      arrived.store(0);
+      gen.fetch_add(1);
+      if (sleepers.load() != 0)
+        fabber_futex(&gen, FUTEX_WAKE_PRIVATE, INT_MAX);
     } else {
-      cv.wait(lk, [&] { return gen != g; });
+      for (int i = 0; i < 32 && gen.load() == g; ++i)
+        std::this_thread::yield();
+      if (gen.load() == g) {
+        sleepers.fetch_add(1);
+        while (gen.load() == g) fabber_futex(&gen, FUTEX_WAIT_PRIVATE, g);
+        sleepers.fetch_sub(1);
+      }
     }
   }
 };
@@ -65,12 +85,11 @@ static FabberHostBarrier* fabber_host_barrier = nullptr;
 inline void __syncthreads() {
   if (fabber_host_barrier) fabber_host_barrier->wait();
 }
-// warps of one lane (one thread per block): the warp intrinsics of the
-// two-phase form of kernel 2 (probes/csrc/core_compact.cu), and its
-// atomicAdd on the compact buffer's count
+// warps of one lane (one thread per block): the ballot of the two-phase
+// form of kernel 2 (probes/csrc/core_compact.cu), and its atomicAdd on the
+// compact buffer's count
 inline unsigned __activemask() { return 1u; }
 inline unsigned __ballot_sync(unsigned, int pred) { return pred ? 1u : 0u; }
-template <class T> inline T __shfl_sync(unsigned, T v, int) { return v; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int atomicAdd(int* p, int v) {
@@ -86,6 +105,45 @@ struct FabberDim3 { unsigned x, y, z; };
 static FabberDim3 blockIdx = {0, 0, 0}, blockDim = {1, 1, 1},
                   gridDim = {1, 1, 1};
 static thread_local FabberDim3 threadIdx = {0, 0, 0};
+// A warp of 32 host threads (the cooperative kernels' blocks of 32 W
+// threads, a warp each: vb_iter_kernel_fn, full_kernel_fn): __syncwarp
+// meets its lanes at the warp's barrier; a shuffle writes each lane's value
+// into the warp's slots, meets the others, and reads its source lane's
+// (two sets of slots taken in turn, so a lane that runs ahead to the next
+// shuffle writes the set no lane still reads). A thread of no warp (one
+// thread a block, every other host build) is a warp of one lane: its
+// __syncwarp waits for none and a shuffle returns its own value. A value
+// of any type up to 128 bytes moves whole (fulltime.cuh moves a dual
+// number so in the host build).
+struct FabberHostWarp {
+  FabberHostBarrier bar;
+  alignas(16) unsigned char slot[2][32][128];
+  FabberHostWarp() { bar.n = 32; }
+};
+static thread_local FabberHostWarp* fabber_host_warp = nullptr;
+static thread_local int fabber_host_slots = 0;
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  if (fabber_host_warp) fabber_host_warp->bar.wait();
+}
+template <class T> inline T fabber_host_shfl(T v, int src) {
+  static_assert(sizeof(T) <= 128, "a shuffled value of at most 128 bytes");
+  FabberHostWarp* w = fabber_host_warp;
+  if (w == nullptr) return v;
+  unsigned char (*slot)[128] = w->slot[fabber_host_slots];
+  fabber_host_slots ^= 1;
+  std::memcpy(slot[threadIdx.x % 32], &v, sizeof(T));
+  w->bar.wait();
+  T r;
+  std::memcpy(&r, slot[src & 31], sizeof(T));
+  return r;
+}
+template <class T> inline T __shfl_sync(unsigned, T v, int src, int = 32) {
+  return fabber_host_shfl(v, src);
+}
+template <class T>
+inline T __shfl_xor_sync(unsigned, T v, int mask, int = 32) {
+  return fabber_host_shfl(v, (int)(threadIdx.x % 32) ^ mask);
+}
 typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return 0; }
@@ -191,25 +249,39 @@ def functor_fn(tle, tmpdir):
     return fn
 
 
-def full_functor_fn(tle, tmpdir):
+def full_functor_fn(tle, tmpdir, lanes=1):
     """fn(m [P], supp [S] or None) -> (signal [T], model-space Jacobian
     [P,T]) of a TimeLocalEval's full-time functor (csrc/fulltime.cuh
-    run_dual) at double, one host thread taking every sample (lane 0 of
-    1, so its barriers wait for no other)."""
-    assert tle.full_time
+    run_dual) at double: lanes 1, one host thread taking every sample
+    (lane 0 of 1, so its barriers wait for no other); lanes 32, a warp of
+    32 host threads (the kernel's: each loop's samples strided over the
+    lanes, the reductions folded per lane and closed by the shim's
+    shuffles)."""
+    assert tle.full_time and lanes in (1, 32)
     d = Path(tmpdir)
     _write_headers(d)
-    src = ('#include "cuda_runtime.h"\n#include "dual.cuh"\n'
-           '#include "fulltime.cuh"\n'
+    src = ('#include "cuda_runtime.h"\n#include <thread>\n#include <vector>\n'
+           '#include "dual.cuh"\n#include "fulltime.cuh"\n'
            "namespace {\nusing namespace fabber::gen;\n"
            + _to_double(tle.source) + "}  // namespace\n"
            'extern "C" void gen_full(const double* m, const double* supp,'
-           " const double* cst, double* sh, double* out) {\n"
-           "  fabber::gen::run_dual<GenModel, double>(m, supp, cst, sh, out,"
-           " 0, 1);\n}\n")
+           " const double* cst, double* sh, double* out, int lanes) {\n"
+           "  if (lanes == 1) {\n"
+           "    fabber::gen::run_dual<GenModel, double>(m, supp, cst, sh,"
+           " out, 0, 1);\n    return;\n  }\n"
+           "  FabberHostWarp warp;\n"
+           "  std::vector<std::thread> ts;\n"
+           "  for (int l = 0; l < lanes; ++l)\n"
+           "    ts.emplace_back([=, &warp] {\n"
+           "      threadIdx.x = (unsigned)l;\n"
+           "      fabber_host_warp = &warp;\n"
+           "      fabber::gen::run_dual<GenModel, double>(m, supp, cst, sh,"
+           " out, l, lanes);\n"
+           "    });\n"
+           "  for (auto& th : ts) th.join();\n}\n")
     lib = _build(d, "full_functor_" + _functor_model(tle)[1], src)
     vp = ctypes.c_void_p
-    lib.gen_full.argtypes = [vp, vp, vp, vp, vp]
+    lib.gen_full.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int]
     cst = np.ascontiguousarray(
         [0.0] if tle.consts is None else tle.consts, np.float64)
     nt = int(re.search(r"NT = (\d+);", tle.source).group(1))
@@ -220,7 +292,8 @@ def full_functor_fn(tle, tmpdir):
                                  np.float64)
         sh = np.zeros(max(tle.smem_floats, 1))
         out = np.zeros((len(m) + 1) * nt)
-        lib.gen_full(_ptr(m), _ptr(s), _ptr(cst), _ptr(sh), _ptr(out))
+        lib.gen_full(_ptr(m), _ptr(s), _ptr(cst), _ptr(sh), _ptr(out),
+                     lanes)
         out = out.reshape(len(m) + 1, nt)
         return out[0], out[1:]
     return fn
@@ -307,17 +380,19 @@ extern "C" int host_nl_loop(const int* tcodes, double dt, int n_iters,
     return fn
 
 
-def full_kernel_fn(functor, q, tmpdir):
+def full_kernel_fn(functor, q, tmpdir, voxels=1):
     """Kernel 6's full-time form (fused_nl_loop.cuh
     fused_nl_loop_full_kernel, cut before its launch section) with a
     TimeLocalEval's full-time functor (models/kernelgen.py) at Q groups,
-    at double: a block of kCoopThreads threads per voxel, each a host
-    thread meeting the others at __syncthreads, as kernel 7's cooperative
-    form runs in vb_iter_kernel_fn: fn(tcodes, n_iters, need_f, consts
-    [4Q], det (kind, tol, max_its, max_trials, init_save), det_consts
-    [Q+2], centre0, pm, pp, pd0 [P,V], data [T,V], supp [S,V] or None, qw
-    [T,Q]) -> the seven outputs; the functor's constants ride along. Also
-    fn.smem: the block's bytes (FullLayout::bytes at float32 sizes, the
+    at double: blocks of `voxels` voxels (W, a warp of kCoopThreads
+    threads each, the last block's warps past V leaving at once), each
+    thread a host thread, a warp's lanes meeting at the shim's __syncwarp
+    and exchanging values by its shuffles, as kernel 7's cooperative form
+    runs in vb_iter_kernel_fn: fn(tcodes, n_iters, need_f, consts [4Q],
+    det (kind, tol, max_its, max_trials, init_save), det_consts [Q+2],
+    centre0, pm, pp, pd0 [P,V], data [T,V], supp [S,V] or None, qw
+    [T,Q]) -> the seven outputs; the functor's constants ride along.
+    Also fn.smem: a voxel's bytes (FullLayout::bytes at float32 sizes, the
     float count times 4)."""
     assert functor.full_time
     d = Path(tmpdir)
@@ -333,16 +408,19 @@ static void run_all(const HK& k, const HD& dc, const double* const* in,
                     double* const* out) {{
   const auto kp = params_for<GenModel::P, {q}>(k);
   const auto dp = det_consts_for<{q}>(dc);
+  constexpr int W = {voxels};
   FabberHostBarrier bar;
-  bar.n = (unsigned)kCoopThreads;
+  bar.n = (unsigned)(W * kCoopThreads);
   fabber_host_barrier = &bar;
-  blockDim.x = (unsigned)kCoopThreads;
-  for (long long v = 0; v < k.V; ++v) {{
-    blockIdx.x = (unsigned)v;
+  blockDim.x = (unsigned)(W * kCoopThreads);
+  for (long long blk = 0; blk * W < k.V; ++blk) {{
+    blockIdx.x = (unsigned)blk;
+    FabberHostWarp warps[W];
     std::vector<std::thread> lanes;
-    for (int l = 0; l < kCoopThreads; ++l)
-      lanes.emplace_back([=, &kp, &dp] {{
+    for (int l = 0; l < W * kCoopThreads; ++l)
+      lanes.emplace_back([=, &kp, &dp, &warps] {{
         threadIdx.x = (unsigned)l;
+        fabber_host_warp = &warps[l / kCoopThreads];
         fused_nl_loop_full_kernel<GenModel, {q}, MODE>(
             kp, dp, in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7],
             out[0], out[1], out[2], out[3], out[4], out[5], out[6]);
@@ -376,7 +454,7 @@ extern "C" int host_nl_loop_full(const int* tcodes, int n_iters, int need_f,
   return 0;
 }}
 """
-    lib = _build(d, f"full_{name}_q{q}", src)
+    lib = _build(d, f"full_{name}_q{q}_w{voxels}", src)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.host_nl_loop_full.restype = i32
     lib.host_nl_loop_full.argtypes = [vp, i32, i32, vp, i32, ctypes.c_double,
@@ -531,11 +609,13 @@ def vb_iter_kernel_fn(functor, q, tmpdir):
     header's kIterCoop): the per-lane form (both of its forms in one
     library, one block of one thread per voxel) or, past rolled_loops'
     sizes, the cooperative form (fused_vb_iter_coop_kernel, a block of
-    kCoopThreads threads per voxel, each a host thread meeting the others
-    at __syncthreads; staged is ignored): fn(staged, tcodes, dt, need_f,
+    kCoopThreads threads per voxel, each a host thread, the warp's lanes
+    meeting at the shim's __syncwarp and exchanging values by its
+    shuffles; staged is ignored): fn(staged, tcodes, dt, need_f,
     centre, pm, pp [P,V], phi [Q,V], data [T,V], qw [T,Q], alpha [V] or
     None) -> the seven outputs (means, prec, cov, nkqk, ntr, fkqk,
-    ftr)."""
+    ftr). Also fn.coop_smem: the cooperative form's block bytes at (P, Q)
+    (CoopLayout::floats times 4)."""
     from fabber_core_tpu_torch.ops import _cuda
     roll = _cuda._roll_define(_functor_p(functor), q)
     d = Path(tmpdir)
@@ -553,10 +633,12 @@ static void run_all(const HK& k, const double* const* in,
     blockDim.x = (unsigned)kCoopThreads;
     for (long long v = 0; v < k.V; ++v) {{
       blockIdx.x = (unsigned)v;
+      FabberHostWarp warp;
       std::vector<std::thread> lanes;
       for (int l = 0; l < kCoopThreads; ++l)
-        lanes.emplace_back([=, &kp] {{
+        lanes.emplace_back([=, &kp, &warp] {{
           threadIdx.x = (unsigned)l;
+          fabber_host_warp = &warp;
           fused_vb_iter_coop_kernel<Model, {q}, LM>(
               kp, in[0], in[1], in[2], in[3], in[4], in[5], in[6], out[0],
               out[1], out[2], out[3], out[4], out[5], out[6]);
@@ -581,6 +663,9 @@ using Model = {model};
 using HK = VBParamsFor<Model::P, {q}>;
 {runner}
 }}  // namespace
+extern "C" long long host_coop_floats() {{
+  return CoopLayout<Model::P, {q}>::floats;
+}}
 extern "C" void host_vb_iter(int staged, const int* tcodes, double dt,
                              int need_f, const double* const* in,
                              double* const* out, int nt, long long V) {{
@@ -605,6 +690,7 @@ extern "C" void host_vb_iter(int staged, const int* tcodes, double dt,
     lib.host_vb_iter.restype = None
     lib.host_vb_iter.argtypes = [i32, vp, ctypes.c_double, i32, vp, vp, i32,
                                  ctypes.c_longlong]
+    lib.host_coop_floats.restype = ctypes.c_longlong
 
     def fn(staged, tcodes, dt, need_f, centre, pm, pp, phi, data, qw,
            alpha):
@@ -621,6 +707,7 @@ extern "C" void host_vb_iter(int staged, const int* tcodes, double dt,
         lib.host_vb_iter(int(staged), tc, dt, int(need_f), in_ptrs,
                          out_ptrs, nt, nv)
         return outs
+    fn.coop_smem = 4 * lib.host_coop_floats()
     return fn
 
 

@@ -6934,12 +6934,12 @@ def time_nl_instances(device, card, nv=4_000_000, nv_plain=1_000_000,
              ("fused_vb_iter_coop_kernel", "ELi1ELb0E"))):
         out[f"{tag}_ptxas"] = ptxas_frame(
             instance_logs((shape,))[shape][2], *parts)
-    # kernel 7's cooperative form: a voxel a block, its CoopLayout bytes
-    # and blocks per SM (registers and stack in the ptxas lines above)
+    # kernel 7's cooperative form (a voxel a block by design): its
+    # CoopLayout bytes and blocks per SM (registers and stack in the ptxas
+    # lines above)
     for tag, p, q in (("iter_p24_q4", 24, 4), ("iter_p40", 40, 1),
                       ("iter_p44", 44, 1)):
         out[f"{tag}_block_bytes"] = _cuda.coop_smem(p, q)
-        out[f"{tag}_voxels_a_block"] = 1
         out[f"{tag}_blocks_per_sm"] = _cuda.vb_iter_occupancy(
             1, p, q, False, 0, BI_NT)
     for key, v in out.items():

@@ -459,12 +459,12 @@ FABBER_UNROLL
 //   model    M::run at the centre, every lane: the signal and the
 //            model-space Jacobian of the T samples into the out plane;
 //   pass     per group J'Q_qJ, J'Q_q r and r'Q_q r read straight from the
-//            out plane (times the chain factors, r = y - g): a lane takes
-//            an (entry, kTB block) pair over the whole T into the block
-//            sums, then a lane an entry adds its blocks in order (each
-//            entry in the two-level order of the other kernels: kTB samples
-//            into a block sum, the blocks into the total), two barriers a
-//            pass;
+//            out plane (times the chain factors, r = y - g), each entry in
+//            the two-level order of the other kernels (kTB samples into a
+//            block sum, the blocks into the total in order): a lane an
+//            entry, or where the entries are fewer than the lanes, R lanes
+//            an entry take its blocks R at a time and one of them adds each
+//            round's R block sums (FullLayout::R; two barriers a round);
 //   test     (MODEs 1-2) the deferred test of the last iteration, every
 //            lane on the same shared values (so every lane takes the same
 //            branch), with the best-state saves of MODE 2;
@@ -489,11 +489,19 @@ struct FullLayout {
   static constexpr int P = M::P, NT = P * (P + 1) / 2, T = M::NT;
   static constexpr int NE = NT + P + 1;       // a group's sums
   static constexpr int NB = (T + kTB - 1) / kTB;   // kTB blocks of T
+  // the lanes an entry's blocks are shared among (full_pass): as many as
+  // leave no entry fewer, at most NB
+  static constexpr int R = Q * NE >= kCoopThreads
+                               ? 1
+                               : (kCoopThreads / (Q * NE) < NB
+                                      ? kCoopThreads / (Q * NE)
+                                      : NB);
   static constexpr int sums = 0;              // [Q][NT] J'Q_qJ
   static constexpr int jtr = sums + Q * NT;   // [Q][P]  J'Q_q r
   static constexpr int rqr = jtr + Q * P;     // [Q]     r'Q_q r
-  static constexpr int bsum = rqr + Q;        // [Q][NE][NB] block sums
-  static constexpr int prec = bsum + Q * NE * NB;   // [NT] each
+  static constexpr int bsum = rqr + Q;        // [Q NE][R] a round's block
+                                              // sums (none where R = 1)
+  static constexpr int prec = bsum + (R > 1 ? Q * NE * R : 0);  // [NT] each
   static constexpr int ch = prec + NT, inv = ch + NT, dch = inv + NT,
                        cov = dch + NT;
   static constexpr int vec = cov + NT;        // [P] each
@@ -511,15 +519,70 @@ struct FullLayout {
   static constexpr long long bytes = 4LL * floats;
 };
 
+// Entry s (group q, entry e of NE) of a pass's sums over the kTB block bl
+// of the samples: e < NT a packed J'Q_qJ entry, then the P rows of J'Q_q r
+// (WITH_R, else 0), then r'Q_q r.
+template <class M, int Q, bool WITH_R>
+__device__ __forceinline__ float full_block_sum(const float* sh,
+                                                const float* __restrict__ qw,
+                                                int s, int bl) {
+  using L = FullLayout<M, Q>;
+  constexpr int P = M::P, T = M::NT, NT = L::NT, NE = L::NE;
+  const float *out = sh + L::out, *col = sh + L::col,
+              *chain = sh + L::chain;
+  const int q = s / NE, e = s - q * NE;
+  const int t0 = bl * kTB, t1 = min(t0 + kTB, T);
+  float bs = 0.f;
+  if (e < NT) {
+    int i, j;
+    untri(e, i, j);
+    for (int t = t0; t < t1; ++t) {
+      const float wj = __ldg(qw + t * Q + q) *
+                       (out[(1 + i) * T + t] * chain[i]);
+      bs = bs + wj * (out[(1 + j) * T + t] * chain[j]);
+    }
+  } else if (e < NT + P) {
+    if (WITH_R) {
+      const int i = e - NT;
+      for (int t = t0; t < t1; ++t) {
+        const float wj = __ldg(qw + t * Q + q) *
+                         (out[(1 + i) * T + t] * chain[i]);
+        bs = bs + wj * (col[t] - out[t]);
+      }
+    }
+  } else {
+    for (int t = t0; t < t1; ++t) {
+      const float r = col[t] - out[t];
+      bs = bs + __ldg(qw + t * Q + q) * (r * r);
+    }
+  }
+  return bs;
+}
+
+// entry s's total into sums, jtr or rqr
+template <class M, int Q>
+__device__ __forceinline__ void full_put(float* sh, int s, float tot) {
+  using L = FullLayout<M, Q>;
+  const int q = s / L::NE, e = s - q * L::NE;
+  if (e < L::NT)
+    sh[L::sums + q * L::NT + e] = tot;
+  else if (e < L::NT + M::P)
+    sh[L::jtr + q * M::P + (e - L::NT)] = tot;
+  else
+    sh[L::rqr + q] = tot;
+}
+
 // The model at rows mrow (model space, shared) into the out plane, then
 // the per-group sums over the samples: J'Q_qJ into sums, with WITH_R
-// J'Q_q r into jtr, and r'Q_q r (r = y - g) into rqr.
+// J'Q_q r into jtr (else 0), and r'Q_q r (r = y - g) into rqr. Each
+// entry's total adds its blocks' sums in order, from a lane of its own
+// (R = 1) or, R lanes an entry, a round of R blocks at a time.
 template <class M, int Q, bool WITH_R>
 __device__ __forceinline__ void full_pass(float* sh, const float* sv,
                                           const float* __restrict__ cst,
                                           const float* __restrict__ qw) {
   using L = FullLayout<M, Q>;
-  constexpr int P = M::P, T = M::NT, NT = L::NT, NE = L::NE, NB = L::NB;
+  constexpr int P = M::P, NB = L::NB, S = Q * L::NE, R = L::R;
   const int lane = coop_lane();
   float m[P];
   for (int i = 0; i < P; ++i) m[i] = sh[L::mrow + i];
@@ -527,50 +590,28 @@ __device__ __forceinline__ void full_pass(float* sh, const float* sv,
   fabber::gen::run_dual<M>(m, sv, cst, sh + L::fn, sh + L::out, lane,
                            kCoopThreads);
   FABBER_MARK(12);
-  const float *out = sh + L::out, *col = sh + L::col,
-              *chain = sh + L::chain;
-  // block sums: item (q, entry e, block b); e < NT a packed J'Q_qJ entry,
-  // then the P rows of J'Q_q r (WITH_R), then r'Q_q r
-  for (int item = lane; item < Q * NE * NB; item += kCoopThreads) {
-    const int bl = item % NB, e = (item / NB) % NE, q = item / (NB * NE);
-    const int t0 = bl * kTB, t1 = min(t0 + kTB, T);
-    float bs = 0.f;
-    if (e < NT) {
-      int i, j;
-      untri(e, i, j);
-      for (int t = t0; t < t1; ++t) {
-        const float wj = __ldg(qw + t * Q + q) *
-                         (out[(1 + i) * T + t] * chain[i]);
-        bs = bs + wj * (out[(1 + j) * T + t] * chain[j]);
-      }
-    } else if (e < NT + P) {
-      if (WITH_R) {
-        const int i = e - NT;
-        for (int t = t0; t < t1; ++t) {
-          const float wj = __ldg(qw + t * Q + q) *
-                           (out[(1 + i) * T + t] * chain[i]);
-          bs = bs + wj * (col[t] - out[t]);
-        }
-      }
-    } else {
-      for (int t = t0; t < t1; ++t) {
-        const float r = col[t] - out[t];
-        bs = bs + __ldg(qw + t * Q + q) * (r * r);
-      }
+  if constexpr (R == 1) {
+    for (int s = lane; s < S; s += kCoopThreads) {
+      float tot = 0.f;
+      for (int bl = 0; bl < NB; ++bl)
+        tot = tot + full_block_sum<M, Q, WITH_R>(sh, qw, s, bl);
+      full_put<M, Q>(sh, s, tot);
     }
-    sh[L::bsum + item] = bs;
-  }
-  coop_sync();
-  for (int s = lane; s < Q * NE; s += kCoopThreads) {
-    const int q = s / NE, e = s - q * NE;
+  } else {
+    const int s = lane / R, r = lane - s * R;
+    const bool on = s < S;
     float tot = 0.f;
-    for (int bl = 0; bl < NB; ++bl) tot = tot + sh[L::bsum + s * NB + bl];
-    if (e < NT)
-      sh[L::sums + q * NT + e] = tot;
-    else if (e < NT + P)
-      sh[L::jtr + q * P + (e - NT)] = WITH_R ? tot : 0.f;
-    else
-      sh[L::rqr + q] = tot;
+    for (int b0 = 0; b0 < NB; b0 += R) {
+      if (on && b0 + r < NB)
+        sh[L::bsum + lane] = full_block_sum<M, Q, WITH_R>(sh, qw, s, b0 + r);
+      coop_sync();
+      if (on && r == 0) {
+        for (int j = 0; j < R && b0 + j < NB; ++j)
+          tot = tot + sh[L::bsum + lane + j];
+      }
+      coop_sync();
+    }
+    if (on && r == 0) full_put<M, Q>(sh, s, tot);
   }
   coop_sync();
   FABBER_MARK(WITH_R ? 15 : 19);
@@ -975,38 +1016,15 @@ int occupancy(int mode, int vb, long long smem) {
              : -1;
 }
 
-// An SM's L1 cache and shared memory share kSmL1Bytes, and its shared
-// memory is carved out of them in one of kSmemCarveouts (KB, sm_90): the
-// least that holds the resident blocks' shared memory (each block's and
-// the 1 KB the SM keeps for each) is taken, and the L1 cache keeps the
-// rest.
-constexpr long long kSmL1Bytes = 256 * 1024;
-constexpr int kSmemCarveouts[] = {0, 8, 16, 32, 64, 100, 132, 164, 196, 228};
-
-// the L1 bytes left beside `blocks` blocks of `smem` bytes each
-inline long long l1_left(int blocks, long long smem) {
-  const long long used = blocks * (smem + 1024);
-  for (int kb : kSmemCarveouts) {
-    if (used <= kb * 1024LL) return kSmL1Bytes - kb * 1024LL;
-  }
-  return 0;
-}
-
 // The full-time form's launch geometry: W, the voxels a block (a warp
 // each, W FullLayouts of dynamic shared memory), the W of 1, 2 and 4 whose
 // blocks hold the most warps on an SM (registers, shared memory and the
 // SM's 32 blocks decide: cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// the smaller on a tie, among those whose blocks leave the L1 cache room
-// for the functor's constants (every voxel reads them there: a [T, T]
-// contraction matrix is 40 KB at T = 100; on an H100 the convolution took
-// 106 ms at 48 warps an SM beside 28 KB of L1 and 77 ms at 40 beside 60
-// KB, probes/coop_sections.py); W = 1 where none does. *blocks its blocks
-// per SM. 0 where none launches.
+// the smaller on a tie. *blocks its blocks per SM. 0 where none launches.
 template <class M, int Q, int MODE>
 int full_geometry(int* blocks) {
   const auto kernel = fused_nl_loop_full_kernel<M, Q, MODE>;
   constexpr long long voxel = FullLayout<M, Q>::bytes;
-  constexpr long long consts = 4LL * M::NCONST;
   int best_w = 0, best_warps = 0;
   *blocks = 0;
   for (int w = 1; w <= kFullMaxW; w *= 2) {
@@ -1016,7 +1034,6 @@ int full_geometry(int* blocks) {
                              (int)(w * voxel)) != 0)
       break;
     const int occ = tile_occupancy(kernel, w * kCoopThreads, w * voxel);
-    if (w > 1 && l1_left(occ, w * voxel) < consts) continue;
     if (occ * w > best_warps) {
       best_w = w;
       best_warps = occ * w;

@@ -523,18 +523,22 @@ def gen_limits(kernel="nl_loop"):
 # kMaxBlockSmem) for one voxel; a launch puts 1, 2 or 4 voxels in a block
 # (full_geometry, gen_full_voxels)
 TIME_BLOCK = 8             # vb_device.cuh kTB
+COOP_THREADS = 32          # coop_device.cuh kCoopThreads
 
 
 def fulltime_smem(p, q, nt, fn_floats):
     """Bytes of one voxel of kernel 6's full-time form (fused_nl_loop.cuh
     FullLayout, which the generated unit reports as fabber_gen_full_smem)
     at P, Q, the functor's nt samples and its fn_floats shared floats: the
-    per-group sums and their kTB-block sums, five packed matrices, nine
-    P-vectors, four Q-vectors, the voxel's samples, the model's (P + 1) x
-    nt signal and Jacobian, and the functor's planes."""
+    per-group sums, a round's block sums where R > 1 lanes share an
+    entry, five packed matrices, nine P-vectors, four Q-vectors, the
+    voxel's samples, the model's (P + 1) x nt signal and Jacobian, and the
+    functor's planes."""
     ntri = p * (p + 1) // 2
+    sums = q * (ntri + p + 1)
     nb = -(-nt // TIME_BLOCK)
-    floats = (q * (ntri + p + 1) * (1 + nb) + 5 * ntri + 9 * p + 4 * q
+    r = 1 if sums >= COOP_THREADS else min(COOP_THREADS // sums, nb)
+    floats = (sums + (sums * r if r > 1 else 0) + 5 * ntri + 9 * p + 4 * q
               + nt + (p + 1) * nt + fn_floats)
     return 4 * floats
 

@@ -7,8 +7,8 @@ timed and profiled by section, the current tree beside an earlier one.
 Run from the repository root:
 
     python3 probes/coop_sections.py [--parent DIR] [--kernels 7c,6t]
-                                    [--sections parent,current] [--nv7 N]
-                                    [--nv6 N] [--geometry]
+                                    [--sections] [--nv7 N] [--nv6 N]
+                                    [--geometry]
 
 DIR is a checkout of the earlier tree (`git archive <rev> | tar -x -C
 DIR`, in a directory .gitignore lists, such as build/parent). Each side
@@ -27,26 +27,18 @@ frame, spill stores, block bytes, voxels a block and blocks per SM. The
 sides' outputs are compared (the largest difference relative to the
 plane's scale, each output).
 
-With --sections, the sides named (parent, current) also build their units with
+With --sections, the current side also builds its units with
 -DFABBER_SECTION_CLOCKS and reports where a warp's cycles go
 (probes/csrc/sections.cuh: lane 0 of each warp stamps clock64() at each
-FABBER_MARK; one launch after a warm-up, the cycles summed over the
-warps, SECTIONS names them). The parent's sources carry no marks: its
-side builds from DIR's csrc/ overlaid with the marked probe copies of
-probes/csrc/sections_parent/ (the cooperative kernels before their
-warp-level redesign: a block-wide barrier, one thread's Cholesky
-diagonal, L^-1 a row a thread, a packed entry a thread). The marks cost
-a shared read-modify-write by one lane each; the unmarked times are the
-ones to compare.
+FABBER_MARK of the package's kernels; one launch after a warm-up, the
+cycles summed over the warps, SECTIONS names them). The marks cost a shared read-modify-write by one lane each; the unmarked
+times are the ones to compare.
 
-With --geometry, the current side also times the convolution's unit
-at each (voxels a block, shared-memory carveout) of GEOMETRIES: its
-fused_nl_loop.cuh patched (_geometry_header) so that a C entry of the
-probe's build, fabber_probe_geometry(w, carveout), forces W and sets
-cudaFuncAttributePreferredSharedMemoryCarveout (percent of 228 KB; -1
-leaves the CUDA runtime's choice) before full_geometry's occupancy query: what
-the L1 cache left beside the blocks' shared memory does to the
-convolution's [T, T] matrix reads.
+With --geometry, the current side also times each 6t model's unit at
+each W (voxels a block) of GEOMETRY_W: its fused_nl_loop.cuh patched
+(_geometry_header) so that a C entry of the probe's build,
+fabber_probe_geometry(w), makes full_geometry return W and its blocks
+per SM: what full_geometry's choice of W does to each model's time.
 
 Every figure is printed with the card's name and power limit; the last
 line is one JSON object of them (also written to
@@ -80,9 +72,7 @@ K6_MODELS = (("conv", "conv-test", "fulltime"),
              ("pairs", "pairs-test", "generic_ops"))
 
 
-# (W, carveout %) of --geometry; 72% of 228 KB is the 164 KB carveout
-# (92 KB of L1), 58% the 132 KB one (124 KB)
-GEOMETRIES = ((1, -1), (2, -1), (4, -1), (1, 72), (2, 72), (4, 72), (2, 58))
+GEOMETRY_W = (1, 2, 4)   # the voxels a block of --geometry
 
 
 def log(msg):
@@ -91,57 +81,40 @@ def log(msg):
 
 def _geometry_header(cuda, root):
     """cuda.CSRC overlaid with a fused_nl_loop.cuh whose full_geometry
-    takes W and the carveout from fabber_probe_geometry."""
+    returns the W that fabber_probe_geometry set (0: its own choice)."""
     d = Path(root) / "build" / "geometry_csrc"
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(cuda.CSRC, d)
     f = d / "fused_nl_loop.cuh"
     text = f.read_text()
-    head = "template <class M, int Q, int MODE>\nint full_geometry(int* blocks) {"
-    body = "  int best_w = 0, best_warps = 0;\n"
-    tail = "  return best_w;\n}\n"
-    for s in (head, body, tail):
-        assert text.count(s) == 1, s
+    head = "template <class M, int Q, int MODE>\nint full_geometry(int* blocks) {\n"
+    assert text.count(head) == 1, head
     text = text.replace(head, (
-        "int fabber_probe_w = 0, fabber_probe_carve = -1;\n"
+        "int fabber_probe_w = 0;\n"
         "}  // namespace\n"
-        'extern "C" void fabber_probe_geometry(int w, int carve) {\n'
-        "  fabber_probe_w = w;\n  fabber_probe_carve = carve;\n}\n"
-        "namespace {\n" + head))
-    text = text.replace(body, body + (
-        "  if (fabber_probe_carve >= 0)\n"
-        "    cudaFuncSetAttribute(kernel,\n"
-        "        cudaFuncAttributePreferredSharedMemoryCarveout,\n"
-        "        fabber_probe_carve);\n"))
-    text = text.replace(tail, (
+        'extern "C" void fabber_probe_geometry(int w) { fabber_probe_w = w; }\n'
+        "namespace {\n" + head +
         "  if (fabber_probe_w > 0) {\n"
-        "    cudaFuncSetAttribute(kernel,\n"
-        "        cudaFuncAttributeMaxDynamicSharedMemorySize,\n"
-        "        (int)(fabber_probe_w * voxel));\n"
-        "    *blocks = tile_occupancy(kernel, fabber_probe_w * kCoopThreads,\n"
-        "                             fabber_probe_w * voxel);\n"
-        "    return fabber_probe_w;\n  }\n" + tail))
+        "    const auto k = fused_nl_loop_full_kernel<M, Q, MODE>;\n"
+        "    const long long b = fabber_probe_w * FullLayout<M, Q>::bytes;\n"
+        "    cudaFuncSetAttribute(k,\n"
+        "        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b);\n"
+        "    *blocks = tile_occupancy(k, fabber_probe_w * kCoopThreads, b);\n"
+        "    return fabber_probe_w;\n"
+        "  }\n"))
     f.write_text(text)
     return d
 
 
 # ---- one side, in a process of its own ------------------------------------
 
-def _marked(cuda, root, overlay):
-    """Build the side's units with the section marks: the flag, an include
-    directory holding sections.cuh, and for the parent DIR's csrc/ overlaid
-    with the marked copies (cuda.CSRC, which every build key hashes)."""
+def _marked(cuda, root):
+    """Build the side's units with the section marks: the flag and an
+    include directory holding sections.cuh."""
     inc = Path(root) / "build" / "sections_inc"
     inc.mkdir(parents=True, exist_ok=True)
     shutil.copy(PROBES_CSRC / "sections.cuh", inc / "sections.cuh")
     cuda.NVCC_FLAGS += ["-DFABBER_SECTION_CLOCKS", "-I", str(inc)]
-    if overlay:
-        d = Path(root) / "build" / "sections_parent"
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(cuda.CSRC, d)
-        for f in (PROBES_CSRC / "sections_parent").iterdir():
-            shutil.copy(f, d / f.name)
-        cuda.CSRC = d
 
 
 def _sections(lib):
@@ -159,38 +132,53 @@ def _frame(text, *parts):
 
 
 def geometry(cs, cuda, fl, root, nv6):
-    """--geometry: the convolution's unit at each of GEOMETRIES."""
+    """--geometry: each 6t model's unit at each W of GEOMETRY_W."""
     import ctypes
     import torch
+    from concurrent.futures import ThreadPoolExecutor
     csrc = cuda.CSRC
     cuda.CSRC = _geometry_header(cuda, root)
+    out = {}
     try:
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(cs.SEED + 52)
-        plane, _, _ = cs.fulltime_plane("conv-test", nv6, gen, "cuda")
-        eng = cs.fulltime_engine("conv-test", plane, "cuda")
-        tr = eng._transforms()
-        args = eng.nl_loop_args(eng.initial_state())
-        tle = eng.functor
-        lib = cuda.build_generated(tle.source, tle.nparams, 1,
-                                   "nl_loop_full")
-        lib.fabber_probe_geometry.argtypes = [ctypes.c_int, ctypes.c_int]
-        tle.libs[("nl_loop_full", 1)] = lib
-        out = []
-        for w, carve in GEOMETRIES:
-            lib.fabber_probe_geometry(w, carve)
-            ms = cs.best_ms(lambda: fl.fused_nl_loop(
-                eng.model, tr, *args, cs.ITERS, True, functor=tle))
-            fig = {"w": w, "carveout": carve, "ms": ms,
-                   "blocks_per_sm": cuda.gen_full_occupancy(lib, 0)}
-            out.append(fig)
-            log(f" 6t conv geometry: {fig}")
+        engines = {}
+        for ktag, name, maker in K6_MODELS:
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(cs.SEED + 52)
+            plane, _, _ = getattr(cs, f"{maker}_plane")(name, nv6, gen,
+                                                        "cuda")
+            engines[ktag] = getattr(cs, f"{maker}_engine")(name, plane,
+                                                           "cuda")
+        with ThreadPoolExecutor(len(engines)) as pool:
+            libs = dict(zip(engines, pool.map(
+                lambda e: cuda.build_generated(e.functor.source,
+                                               e.functor.nparams, 1,
+                                               "nl_loop_full"),
+                engines.values())))
+        for ktag, eng in engines.items():
+            lib = libs[ktag]
+            lib.fabber_probe_geometry.argtypes = [ctypes.c_int]
+            tle = eng.functor
+            tle.libs[("nl_loop_full", 1)] = lib
+            tr = eng._transforms()
+            args = eng.nl_loop_args(eng.initial_state())
+            figs = []
+            for w in (0,) + GEOMETRY_W:
+                lib.fabber_probe_geometry(w)
+                ms = cs.best_ms(lambda: fl.fused_nl_loop(
+                    eng.model, tr, *args, cs.ITERS, True, functor=tle))
+                fig = {"w": w or cuda.gen_full_voxels(lib, 0), "forced":
+                       w > 0, "ms": ms,
+                       "blocks_per_sm": cuda.gen_full_occupancy(lib, 0)}
+                figs.append(fig)
+                log(f" 6t {ktag} geometry: {fig}")
+            out[ktag] = figs
+            del args
         return out
     finally:
         cuda.CSRC = csrc
 
 
-def side(root, kernels, marked, overlay, nv7, nv6, tag, geom=False):
+def side(root, kernels, marked, nv7, nv6, tag, geom=False):
     """Time (and with marked, profile) root's 7c and 6t; returns the
     figures and saves each output to build/coop_sections/<tag>_*.pt."""
     sys.path.insert(0, str(root))
@@ -203,7 +191,7 @@ def side(root, kernels, marked, overlay, nv7, nv6, tag, geom=False):
     from fabber_core_tpu_torch.ops import fused_vb as fv
     _cuda.load()
     if marked:
-        _marked(_cuda, root, overlay)
+        _marked(_cuda, root)
     save = ROOT / "build" / "coop_sections"
     save.mkdir(parents=True, exist_ok=True)
     out = {}
@@ -292,18 +280,17 @@ def side(root, kernels, marked, overlay, nv7, nv6, tag, geom=False):
             del eng, args, plane
             torch.cuda.empty_cache()
         if geom:
-            out["6t_conv_geometry"] = geometry(cs, _cuda, fl, root, nv6)
+            out["6t_geometry"] = geometry(cs, _cuda, fl, root, nv6)
     return out
 
 
 # ---- the turns, in the calling process ------------------------------------
 
-def run_side(root, kernels, marked, overlay, nv7, nv6, tag, geom=False):
+def run_side(root, kernels, marked, nv7, nv6, tag, geom=False):
     cmd = [sys.executable, str(Path(__file__).resolve()), "--side",
            str(root), "--kernels", ",".join(kernels), "--nv7", str(nv7),
            "--nv6", str(nv6), "--tag", tag] + (
-        ["--sections", "1"] if marked else []) + (["--overlay"] if overlay
-                                              else []) + (
+        ["--sections"] if marked else []) + (
         ["--geometry"] if geom else [])
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -333,12 +320,12 @@ def compare_outputs(a, b, names):
     return out
 
 
-def compare(card, parent=None, kernels=("7c", "6t"), sections=(),
+def compare(card, parent=None, kernels=("7c", "6t"), sections=False,
             nv7=262_144, nv6=1_000_000, geom=False):
     """The turns (parent, current, current, parent; the current side
-    alone without a parent) and, for the sides named in sections, the
-    marked runs: {figures, "ok"}. Also probes/wide_nl.py's and
-    probes/fulltime.py's --coop DIR."""
+    alone without a parent) and, with sections, the current side's marked
+    run: {figures, "ok"}. Also probes/wide_nl.py's and probes/fulltime.py's
+    --coop DIR."""
     fig = {"card": card}
     ok = True
     turns = [("current", ROOT)]
@@ -348,7 +335,7 @@ def compare(card, parent=None, kernels=("7c", "6t"), sections=(),
                  ("parent", par)]
     times = {}
     for i, (tag, root) in enumerate(turns):
-        res = run_side(root, kernels, False, False, nv7, nv6, f"{tag}{i}",
+        res = run_side(root, kernels, False, nv7, nv6, f"{tag}{i}",
                        geom and tag == "current" and i <= 1
                        and "6t" in kernels)
         ok &= res is not None
@@ -366,20 +353,16 @@ def compare(card, parent=None, kernels=("7c", "6t"), sections=(),
         for k, v in fig["parent_vs_current"].items():
             log(f" {k} outputs, current against parent (rel. to its "
                 f"scale): {v}")
-    marked = ([("current", ROOT, False)] if "current" in sections else []) \
-        + ([("parent", Path(parent).resolve(), True)]
-           if parent and "parent" in sections else [])
-    for tag, root, overlay in marked:
-        res = run_side(root, kernels, True, overlay, nv7, nv6,
-                       f"{tag}_marked")
+    if sections:
+        res = run_side(ROOT, kernels, True, nv7, nv6, "current_marked")
         ok &= res is not None
-        fig[f"{tag}_marked"] = res
+        fig["current_marked"] = res
         for k, v in (res or {}).items():
             if isinstance(v, dict) and "cycles" in v:
                 tot = sum(v["cycles"].values())
                 shares = {s: round(c / tot, 4)
                           for s, c in v["cycles"].items()}
-                log(f" sections {tag} {k} ({v['ms']:.3f} ms marked, "
+                log(f" sections current {k} ({v['ms']:.3f} ms marked, "
                     f"{tot} warp-cycles): {shares}  [{card}]")
     fig["ok"] = ok
     return fig
@@ -389,19 +372,18 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", default=None)
     ap.add_argument("--kernels", default="7c,6t")
-    ap.add_argument("--sections", default="",
-                    help="sides to profile: parent, current or both")
+    ap.add_argument("--sections", action="store_true",
+                    help="profile the current side by section")
     ap.add_argument("--nv7", type=int, default=262_144)
     ap.add_argument("--nv6", type=int, default=1_000_000)
     ap.add_argument("--side", default=None)
-    ap.add_argument("--overlay", action="store_true")
     ap.add_argument("--tag", default="current")
     ap.add_argument("--geometry", action="store_true")
     a = ap.parse_args()
     kernels = a.kernels.split(",")
     if a.side:
-        res = side(Path(a.side).resolve(), kernels, bool(a.sections),
-                   a.overlay, a.nv7, a.nv6, a.tag, a.geometry)
+        res = side(Path(a.side).resolve(), kernels, a.sections, a.nv7,
+                   a.nv6, a.tag, a.geometry)
         print(json.dumps(res, default=str))
         return 0
     sys.path.insert(0, str(ROOT))
@@ -412,8 +394,8 @@ def main():
         return 2
     card = cs.card_line()
     log(card)
-    fig = compare(card, a.parent, kernels, a.sections.split(","), a.nv7,
-                  a.nv6, a.geometry)
+    fig = compare(card, a.parent, kernels, a.sections, a.nv7, a.nv6,
+                  a.geometry)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     text = json.dumps(fig, default=str)

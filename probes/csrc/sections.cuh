@@ -1,9 +1,8 @@
 // sections.cuh: clock64() marks per section of the cooperative kernels, for
 // probes/coop_sections.py. A unit built with -DFABBER_SECTION_CLOCKS (and
-// -I probes/csrc) includes this header through csrc/coop_device.cuh (or the
-// probe copies of the parent's kernels, probes/csrc/sections_parent/), and
-// every FABBER_MARK(k) there (device code only) adds the cycles since the warp's last mark to
-// section k. Lane 0 of each warp stamps, into per-warp accumulators in
+// -I probes/csrc) includes this header through csrc/coop_device.cuh, and
+// every FABBER_MARK(k) of the package's kernels (device code only) adds
+// the cycles since the warp's last mark to section k. Lane 0 of each warp stamps, into per-warp accumulators in
 // static shared memory (kSecWarps x (kSecCount + 1) 8-byte words, 800 B a
 // block); FABBER_SEC_END adds them to the device totals that
 // fabber_sections_read copies out. Without the flag every mark is empty.

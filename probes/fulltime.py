@@ -35,8 +35,8 @@ the warp-level redesign's, not DIR's (probes/coop_sections.py times them
 against DIR's). With --coop DIR (a checkout of an earlier tree,
 build/parent), kernel 6's full-time form (row 6t) on the convolution,
 the centred biexponential, the shift and pairs-test is timed against
-DIR's in turns and profiled by section on both sides
-(probes/coop_sections.py compare). Every figure is printed with the
+DIR's in turns and profiled by section (probes/coop_sections.py
+compare). Every figure is printed with the
 card's name and power limit; the last line is one JSON object of them
 (also written to chiprun_out/fulltime.json).
 """
@@ -248,8 +248,7 @@ def main():
         fig["5m_s"] = time.perf_counter() - t
     if a.coop:
         import coop_sections
-        fig["coop"] = coop_sections.compare(card, a.coop, ("6t",),
-                                            ("parent", "current"))
+        fig["coop"] = coop_sections.compare(card, a.coop, ("6t",), True)
         ok &= fig["coop"]["ok"]
     fig["ok"] = ok
     out = ROOT / "chiprun_out"

@@ -41,7 +41,7 @@ conditions (spread).
 
 With --coop DIR (a checkout of an earlier tree, build/parent), kernel 7's
 cooperative form (row 7c) at P = 44, 40 and 24 (Q = 4, folded) is timed
-against DIR's in turns and profiled by section on both sides
+against DIR's in turns and profiled by section
 (probes/coop_sections.py compare).
 
 Every figure is printed with the card's name and power limit; the last
@@ -1166,7 +1166,7 @@ def main():
     if args.coop:
         import coop_sections
         out["coop"] = coop_sections.compare(
-            card, args.coop, ("7c",), ("parent", "current"))
+            card, args.coop, ("7c",), True)
         ok &= out["coop"]["ok"]
     out["ok"] = ok
     text = json.dumps(out, default=str)

@@ -688,13 +688,36 @@ def test_warp_shim_closes_reductions(n, tmp_path, gxx):
 
 def test_fulltime_smem_counts_the_layout():
     """fulltime_smem's floats, a voxel's: the state (a group's 15 sums
-    and their 13 blocks of kTB samples), the samples, the model's (P+1) x
-    T planes and the functor's own."""
+    and one round's block sums, 2 lanes an entry), the samples, the
+    model's (P+1) x T planes and the functor's own."""
     tle = derive_time_local_eval(fm.CentredBiexp(), 100, 4)
     assert tle.smem_floats == 5 * 100      # one S plane: s, for its mean
     b = _cuda.fulltime_smem(4, 1, 100, tle.smem_floats)
-    assert b == 4 * (15 * (1 + 13) + 50 + 36 + 4 + 100 + 500 + 500)
+    assert b == 4 * (15 * (1 + 2) + 50 + 36 + 4 + 100 + 500 + 500)
     assert b <= _cuda.MAX_BLOCK_SMEM
+
+
+@pytest.mark.parametrize("q", [1, 2, 4, 8, 30, 35])
+def test_fulltime_smem_fits_every_shape_the_jax_gate_admits(q):
+    """At the largest T the JAX gate admits for kernel 6's full-time mode
+    (pick_nl_block with full_eval, no detector: the most samples), a
+    voxel's block fits one block's shared memory for P 1-16 and 1-35 time
+    planes, each stored plane a value and its P tangents over T: the
+    block does not grow with T beyond the planes (a round's block sums are
+    at most kCoopThreads floats), so no admitted run raises in
+    _require_fulltime_fits."""
+    for p in (1, 2, 3, 4, 6, 8, 10, 12, 16):
+        for planes in (1, 2, 8, 35):
+            lo, hi = 0, 1 << 16
+            while lo < hi:              # the largest admitted T
+                mid = (lo + hi + 1) // 2
+                fits = jnl.pick_nl_block(4096, p, mid, q, full_eval=True,
+                                         eval_planes=planes)
+                lo, hi = (mid, hi) if fits is not None else (lo, mid - 1)
+            if lo == 0:
+                continue
+            need = _cuda.fulltime_smem(p, q, lo, (p + 1) * planes * lo)
+            assert need <= _cuda.MAX_BLOCK_SMEM, (p, q, planes, lo, need)
 
 
 @pytest.mark.parametrize("name", ["conv", "conviota", "shift"])

@@ -31,8 +31,9 @@ With --sections, the current side also builds its units with
 -DFABBER_SECTION_CLOCKS and reports where a warp's cycles go
 (probes/csrc/sections.cuh: lane 0 of each warp stamps clock64() at each
 FABBER_MARK of the package's kernels; one launch after a warm-up, the
-cycles summed over the warps, SECTIONS names them). The marks cost a shared read-modify-write by one lane each; the unmarked
-times are the ones to compare.
+cycles summed over the warps, SECTIONS names them). The marks cost a
+shared read-modify-write by one lane each; the unmarked times are the
+ones to compare.
 
 With --geometry, the current side also times each 6t model's unit at
 each W (voxels a block) of GEOMETRY_W: its fused_nl_loop.cuh patched
@@ -87,7 +88,8 @@ def _geometry_header(cuda, root):
     shutil.copytree(cuda.CSRC, d)
     f = d / "fused_nl_loop.cuh"
     text = f.read_text()
-    head = "template <class M, int Q, int MODE>\nint full_geometry(int* blocks) {\n"
+    head = ("template <class M, int Q, int MODE>\n"
+            "int full_geometry(int* blocks) {\n")
     assert text.count(head) == 1, head
     text = text.replace(head, (
         "int fabber_probe_w = 0;\n"
